@@ -1,0 +1,560 @@
+#!/usr/bin/env python3
+"""Smoke run of deepspeed_tpu_torch on one NVIDIA GPU.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``. It
+
+1. prints the card (``nvidia-smi`` name and power limit);
+2. builds the port's CUDA kernels from ``deepspeed_tpu_torch/ops/csrc``;
+3. holds each kernel against its plain PyTorch version on the card, at the
+   serving path's shapes in bf16 (paged attention through the serving
+   phase's full-size arena, past element 2**31), in fp32 at a 4000-token
+   decode and at small fp32 shapes, and times the kernel, the plain
+   version, the card's bound for the same work and, for flash attention,
+   ``scaled_dot_product_attention`` as a yardstick (tolerances at
+   ``TOL_F32``);
+4. runs ``ragged_forward`` for a depth-2 model at Llama-3-8B width in fp32
+   on the card (kernels) and on the CPU (plain versions) — a fresh chunk, a
+   split chunk and a decode step — and compares the logits, then checks
+   that the bf16 head returns unrounded fp32 logits;
+5. serves Llama-3 8B at full width and depth in bf16 (random weights from a
+   seeded generator): ``generate`` on 8 ragged prompts and ``serve`` on 16
+   requests, with every kernel's launch count read around that run.
+
+Every phase prints one JSON line; any failure raises, so the script exits
+non-zero. Without CUDA, or outside a checkout of the repository, it exits
+non-zero before printing a result. The last three lines are the card, the
+kernel table and ``{"ok": true, "device": ...}``.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+#: device under test; the serving phase's model and arena
+DEV = "cuda"
+SERVE_MODEL = ("8b", {})
+SERVE_BLOCKS = 512
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
+PEAK_FLOPS = {"bfloat16": 989e12,  # dense bf16 tensor cores
+              "float32": 67e12}    # fp32 outside the tensor cores
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, flops: float, dtype: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _paged_case(rng, n, c, h, kvh, dh, bs, starts, counts, dtype, dev,
+                serve_arena=False):
+    """Random K/V and a page table listing each row's pages in a shuffled
+    order. By default the arena holds one layer of just the pages the rows
+    need. With ``serve_arena`` it is the serving phase's own arena
+    (``init_arena(L, kvh, SERVE_BLOCKS, bs, dh)``) and the pages are the
+    LAST layer's, drawn from the top of its region as the allocator hands
+    them out: at Llama-3 8B's shape that region of the last kv head lies
+    past element 2**31 of the K/V tensors."""
+    import torch
+    from deepspeed_tpu_torch import llama3_config
+    from deepspeed_tpu_torch.ops.paged_attention import (init_arena,
+                                                         layer_page_offset)
+    ctx = [s + k for s, k in zip(starts, counts)]
+    need = [max(1, -(-x // bs)) for x in ctx]
+    mb = max(need)
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    if serve_arena:
+        layers = llama3_config(SERVE_MODEL[0], **SERVE_MODEL[1]).num_layers
+        nb = SERVE_BLOCKS
+        assert sum(need) <= nb
+        arena = init_arena(layers, kvh, nb, bs, dh, dtype, dev)
+        ak, av = arena["k"], arena["v"]
+        off = layer_page_offset(layers - 1, nb)
+        for a in (ak, av):             # the last layer's region, trash too
+            a[:, off:off + nb + 1] = torch.randn(
+                (kvh, nb + 1, bs, dh), generator=g, device=dev).to(dtype)
+        ids = nb - 1 - rng.permutation(sum(need))
+    else:
+        nb, off = sum(need), 0
+        ak = torch.randn((kvh, nb + 1, bs, dh), generator=g,
+                         device=dev).to(dtype)
+        av = torch.randn((kvh, nb + 1, bs, dh), generator=g,
+                         device=dev).to(dtype)
+        ids = rng.permutation(nb)
+    pt = np.full((n, mb), nb, np.int64)
+    at = 0
+    for i, m in enumerate(need):
+        pt[i, :m] = ids[at:at + m]
+        at += m
+    pt += off
+    q = torch.randn((n, c, h, dh), generator=g, device=dev).to(dtype)
+    ints = [torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+            for a in (pt, starts, counts)]
+    return q, ak, av, ints, ctx
+
+
+def _err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def _row_rel_err(a, b) -> float:
+    """Largest |a - b| / |b| over the last axis's vectors (one query row
+    of one head)."""
+    a, b = a.float(), b.float()
+    if not a.numel():
+        return 0.0
+    num = (a - b).norm(dim=-1)
+    return float((num / b.norm(dim=-1).clamp_min(1e-12)).max())
+
+
+# Tolerances. fp32: atol/rtol 1e-4 (the kernel and the plain version sum
+# in different orders). bf16 outputs: both sides accumulate in fp32 and
+# round the result to bf16 once, a relative error of at most 2**-9 per
+# element, so each row's relative error |out - ref| / |ref| stays below
+# ~4e-3; the limit is 1e-2. A kernel that skipped one page of 128 keys
+# in a 4000-key row would move that row by ~0.2 of its norm. lse is fp32
+# from the same bf16 scores on both sides: atol/rtol 1e-3.
+TOL_F32 = 1e-4
+TOL_BF16_ROW = 1e-2
+TOL_BF16_LSE = 1e-3
+
+
+def _hold(name, out, ref_out, lse, ref_lse, res) -> None:
+    """Record the errors in ``res`` and check the limits; on a miss print
+    ``res`` before raising."""
+    import torch
+    f32 = out.dtype == torch.float32
+    res["max_abs_err"] = _err(out, ref_out)
+    if lse is not None:
+        res["max_abs_err"] = max(res["max_abs_err"], _err(lse, ref_lse))
+    ok = bool(torch.isfinite(out).all())
+    if f32:
+        res["tol"] = TOL_F32
+        ok = ok and torch.allclose(out, ref_out, rtol=TOL_F32, atol=TOL_F32)
+    else:
+        res["row_rel_err"] = _row_rel_err(out, ref_out)
+        res["tol"] = {"row_rel": TOL_BF16_ROW, "lse": TOL_BF16_LSE}
+        ok = ok and res["row_rel_err"] <= TOL_BF16_ROW
+    if lse is not None:
+        tol = TOL_F32 if f32 else TOL_BF16_LSE
+        ok = ok and torch.allclose(lse, ref_lse, rtol=tol, atol=tol)
+    if not ok:
+        emit(dict(res, failed=True))
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version beyond the stated tolerance")
+
+
+def check_paged(name, rng, n, c, starts, counts, dtype, with_lse, dims,
+                time_it=True, serve_arena=False):
+    import torch
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+    h, kvh, dh, bs = dims
+    dev = torch.device(DEV)
+    q, ak, av, (pt, st, ct), ctx = _paged_case(
+        rng, n, c, h, kvh, dh, bs, starts, counts, dtype, dev, serve_arena)
+    before = pa.op_builder.launches["paged_attention"]
+    out, lse = pa.paged_attention_with_lse(q, ak, av, pt, st, ct) \
+        if with_lse else (pa.paged_attention(q, ak, av, pt, st, ct), None)
+    torch.cuda.synchronize()
+    assert pa.op_builder.launches["paged_attention"] == before + 1
+    ref_out, ref_lse = pa.paged_attention_ref(q, ak, av, pt, st, ct,
+                                              with_lse=True)
+    # rows that see at least one key: p <= start + j and p < start + count
+    j = torch.arange(c, device=dev)[None]
+    has_key = torch.minimum(st.long()[:, None] + j + 1,
+                            (st + ct).long()[:, None]) > 0     # [n, c]
+    rows = has_key[:, :, None].expand(n, c, h)
+    res = {"phase": "kernels", "check": name, "kernel": "paged_attention",
+           "dtype": str(dtype).replace("torch.", ""),
+           "shape": {"n": n, "c": c, "H": h, "KvH": kvh, "dh": dh, "bs": bs,
+                     "ctx_min": min(ctx), "ctx_max": max(ctx),
+                     "arena": list(ak.shape),
+                     "max_page_element": int(
+                         ((kvh - 1) * ak.shape[1] + int(pt.max()) + 1)
+                         * bs * dh)}}
+    _hold(name, out[rows], ref_out[rows], lse[rows] if with_lse else None,
+          ref_lse[rows] if with_lse else None, res)
+    if with_lse:
+        empty = ~rows
+        assert (out[empty[..., None].expand_as(out)] == 0).all()
+        assert (lse[empty] == -1e30).all()
+    if time_it:
+        itemsize = q.element_size()
+        # keys each row needs: history + visible part of the chunk
+        vis = sum(min(s + jj + 1, x) for s, k, x in zip(starts, counts, ctx)
+                  for jj in range(c))
+        nbytes = (2 * sum(ctx) * kvh * dh * itemsize     # K and V read once
+                  + 2 * q.numel() * itemsize             # q in, out
+                  + (lse.numel() * 4 if with_lse else 0)
+                  + pt.numel() * 4 + 8 * n)
+        flops = 4.0 * dh * h * vis
+        fn = (lambda: pa.paged_attention_with_lse(q, ak, av, pt, st, ct)) \
+            if with_lse else (lambda: pa.paged_attention(q, ak, av, pt, st,
+                                                         ct))
+        res["kernel_ms"] = cuda_time_ms(fn)
+        res["plain_ms"] = cuda_time_ms(
+            lambda: pa.paged_attention_ref(q, ak, av, pt, st, ct,
+                                           with_lse=with_lse), iters=5)
+        res["bound_ms"], res["bound_by"] = bound(
+            nbytes, flops, res["dtype"])
+        res["library_ms"] = None      # no single PyTorch call pages KV
+    emit(res)
+    return res
+
+
+def check_flash(name, rng, b, t, dims, dtype, with_lse, causal=True,
+                window=None, q_offset=0, time_it=True):
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    h, kvh, d = dims
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    q = torch.randn((b, t, h, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, t, kvh, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, t, kvh, d), generator=g, device=dev).to(dtype)
+    before = fa.op_builder.launches["flash_attention_fwd"]
+    if with_lse:
+        out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
+    else:
+        out, lse = fa.flash_attention(q, k, v, causal=causal,
+                                      q_offset=q_offset, window=window), None
+    torch.cuda.synchronize()
+    assert fa.op_builder.launches["flash_attention_fwd"] == before + 1
+    ref_out, ref_lse = fa.flash_attention_ref(q, k, v, causal, q_offset,
+                                              window)
+    res = {"phase": "kernels", "check": name, "kernel": "flash_attention_fwd",
+           "dtype": str(dtype).replace("torch.", ""),
+           "shape": {"B": b, "T": t, "H": h, "KvH": kvh, "D": d,
+                     "causal": causal, "window": window,
+                     "q_offset": q_offset}}
+    _hold(name, out, ref_out, lse, ref_lse if with_lse else None, res)
+    if time_it:
+        itemsize = q.element_size()
+        qpos = np.arange(t) + q_offset
+        vis_per_row = np.minimum(qpos + 1, t) if causal else np.full(t, t)
+        if window is not None:
+            vis_per_row = np.minimum(vis_per_row, window)
+        vis = float(np.clip(vis_per_row, 0, None).sum()) * b * h
+        nbytes = (2 * q.numel() + 2 * k.numel()) * itemsize + \
+            (b * t * h * 4 if with_lse else 0)
+        flops = 4.0 * d * vis
+        fn = (lambda: fa.flash_attention_with_lse(q, k, v, causal=causal)) \
+            if with_lse else (lambda: fa.flash_attention(
+                q, k, v, causal=causal, q_offset=q_offset, window=window))
+        res["kernel_ms"] = cuda_time_ms(fn)
+        res["plain_ms"] = cuda_time_ms(
+            lambda: fa.flash_attention_ref(q, k, v, causal, q_offset, window),
+            iters=5)
+        res["bound_ms"], res["bound_by"] = bound(nbytes, flops, res["dtype"])
+        res["library_ms"] = None
+        if window is None and q_offset == 0:
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            if h != kvh:
+                kt = kt.repeat_interleave(h // kvh, dim=1)
+                vt = vt.repeat_interleave(h // kvh, dim=1)
+            res["library_ms"] = cuda_time_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=causal))
+    emit(res)
+    return res
+
+
+def phase_kernels(rng):
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    path = (32, 8, 128, 128)              # Llama-3 8B: H, KvH, dh, bs
+    out = {}
+    ctx = [1, 4000] + [int(x) for x in rng.integers(2, 4001, size=14)]
+    # the path's shapes, through the serving phase's full-size arena
+    out["decode"] = check_paged(
+        "paged_decode", rng, 16, 1, [x - 1 for x in ctx], [1] * 16, bf16,
+        False, path, serve_arena=True)
+    check_paged("paged_decode_lse", rng, 16, 1, [x - 1 for x in ctx],
+                [1] * 16, bf16, True, path, time_it=False, serve_arena=True)
+    check_paged("paged_chunk_lse", rng, 4, 256, [0, 700, 1500, 3000],
+                [256, 256, 100, 0], bf16, True, path, serve_arena=True)
+    check_paged("paged_history_lse", rng, 4, 256, [0, 512, 1300, 3000],
+                [0, 0, 0, 0], bf16, True, path, serve_arena=True)
+    out["fresh"] = check_flash("flash_fresh", rng, 8, 256, (32, 8, 128),
+                               bf16, False)
+    check_flash("flash_with_lse", rng, 8, 256, (32, 8, 128), bf16, True)
+    # fp32: long-context decode at the path's heads, then small shapes with
+    # ragged lengths, windows, offsets, dh 64, bs 8 and 16, and a row tile
+    # that straddles two heads of the GQA group
+    check_paged("paged_decode_f32", rng, 16, 1, [x - 1 for x in ctx],
+                [1] * 16, f32, True, path, time_it=False)
+    check_paged("paged_small_f32", rng, 3, 40, [0, 37, 5], [40, 9, 0], f32,
+                True, (4, 2, 64, 16), time_it=False)
+    check_paged("paged_small_decode_f32", rng, 5, 1, [0, 3, 16, 40, 0],
+                [1, 1, 1, 1, 0], f32, True, (4, 2, 128, 8), time_it=False)
+    check_flash("flash_small_f32", rng, 2, 100, (4, 2, 64), f32, True,
+                time_it=False)
+    check_flash("flash_small_window_f32", rng, 2, 100, (4, 2, 128), f32,
+                False, window=40, q_offset=3, time_it=False)
+    check_flash("flash_small_noncausal_f32", rng, 1, 70, (2, 2, 64), f32,
+                False, causal=False, time_it=False)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4: ragged_forward on the card against the CPU at full width
+# ---------------------------------------------------------------------------
+
+def phase_full_width():
+    """Depth-2 Llama-3 8B width, fp32: one fresh chunk, one split chunk
+    and one decode step through ragged_forward, on the card (kernels) and
+    on the CPU (plain versions) with the same weights and inputs.
+
+    Tolerance: atol 2e-3 and rtol 2e-3 on logits of magnitude ~1. Both
+    sides are fp32 (TF32 off), so they differ only by summation order in
+    GEMMs over 4096 / 14336 terms and in the attention reductions; a
+    wrong mask, page or merge moves logits by O(0.1)."""
+    import torch
+    from deepspeed_tpu_torch import llama3_config
+    from deepspeed_tpu_torch.inference.engine_v2 import ragged_forward
+    from deepspeed_tpu_torch.models.transformer import init_params
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.ops.paged_attention import init_arena
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = llama3_config("8b", num_layers=2)
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    t0 = time.perf_counter()
+    p_gpu = init_params(cfg, gen, torch.float32, DEV)
+
+    def to_cpu(tree):
+        return {k: to_cpu(v) for k, v in tree.items()} \
+            if isinstance(tree, dict) else tree.cpu()
+
+    p_cpu = to_cpu(p_gpu)
+    init_s = time.perf_counter() - t0
+    nb, bs, mb = 16, 128, 8
+    arenas = {d: init_arena(cfg.num_layers, cfg.kv_heads, nb, bs,
+                            cfg.head_dim, torch.float32, d)
+              for d in (DEV, "cpu")}
+    pt = np.full((3, mb), nb, np.int32)
+    pt[0, :2], pt[1, :3], pt[2, :5] = [3, 0], [7, 1, 12], [2, 9, 4, 15, 5]
+    rng = np.random.default_rng(2)
+    steps = [("fresh", 256, [0, 0, 0], [200, 256, 256]),
+             ("split", 256, [200, 256, 256], [1, 100, 256]),
+             ("decode", 1, [201, 356, 512], [1, 1, 1])]
+    tol = 2e-3
+    worst = 0.0
+    for mode, c, starts, counts in steps:
+        tokens = rng.integers(0, cfg.vocab_size, size=(3, c)).astype(np.int32)
+        logits = {}
+        op_builder.reset_launches()
+        for d, params in (("card", p_gpu), ("cpu", p_cpu)):
+            where = DEV if d == "card" else "cpu"
+            args = [torch.from_numpy(np.asarray(a, np.int32)).to(where)
+                    for a in (tokens, counts, starts, pt)]
+            with torch.no_grad():
+                lg, arenas[where] = ragged_forward(
+                    cfg, params, arenas[where], *args,
+                    fresh_prefill=False if mode == "decode" else mode)
+            logits[d] = lg.cpu()
+        launched = dict(op_builder.launches)
+        want = {"fresh": {"flash_attention_fwd"},
+                "split": {"flash_attention_fwd", "paged_attention"},
+                "decode": {"paged_attention"}}[mode]
+        assert {k for k, v in launched.items() if v} == want, \
+            f"{mode} step launched {launched}"
+        assert torch.isfinite(logits["card"]).all()
+        err = _err(logits["card"], logits["cpu"])
+        worst = max(worst, err)
+        emit({"phase": "full_width", "mode": mode, "max_abs_err": err,
+              "tol": tol, "logit_absmax": float(logits["cpu"].abs().max()),
+              "launches": launched})
+        torch.testing.assert_close(logits["card"], logits["cpu"], rtol=tol,
+                                   atol=tol)
+
+    # the bf16 head returns fp32 sums of the exact bf16 products, as the
+    # JAX package's preferred_element_type=float32: held against the fp32
+    # GEMM of the same bf16 values (summation order only, 1e-4), and it
+    # must not be rounded to bf16 (whose step at |logit| ~ 1 is 8e-3)
+    from deepspeed_tpu_torch.models.transformer import lm_logits
+    x = torch.randn((8, 1, cfg.hidden_size), generator=gen,
+                    device=DEV).bfloat16()
+    head = {"lm_head": p_gpu["lm_head"].bfloat16()}
+    lg = lm_logits(cfg, head, x)
+    ref = x.float() @ head["lm_head"].float()
+    head_err = _err(lg, ref)
+    emit({"phase": "full_width", "check": "lm_logits_bf16",
+          "dtype": str(lg.dtype), "max_abs_err": head_err, "tol": 1e-4,
+          "logit_absmax": float(ref.abs().max())})
+    assert lg.dtype == torch.float32
+    torch.testing.assert_close(lg, ref, rtol=1e-4, atol=1e-4)
+    assert not torch.equal(lg.bfloat16().float(), lg)
+    del p_gpu, p_cpu, arenas, head
+    torch.cuda.empty_cache()
+    emit({"phase": "full_width", "init_seconds": init_s, "worst": worst})
+
+
+# ---------------------------------------------------------------------------
+# phase 5: Llama-3 8B end to end
+# ---------------------------------------------------------------------------
+
+def phase_serve():
+    import torch
+    from deepspeed_tpu_torch import RaggedInferenceEngine, llama3_config
+    from deepspeed_tpu_torch.ops import op_builder
+    cfg = llama3_config(SERVE_MODEL[0], **SERVE_MODEL[1])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = RaggedInferenceEngine(
+        cfg, {"dtype": "bfloat16", "num_blocks": SERVE_BLOCKS,
+              "block_size": 128,
+              "max_seq_len": 4096, "max_sequences": 64,
+              "max_batch_tokens": 2048, "prefill_chunk": 256},
+        generator=torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(3)
+    lens = [64, 1500, 300, 777, 128, 1024, 513, 900]
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in lens]
+    req_lens = rng.integers(16, 700, size=16)
+    requests = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+                for n in req_lens]
+    budgets = [int(b) for b in rng.integers(8, 49, size=16)]
+
+    # the main path: every count set to 0 just before, read just after
+    op_builder.reset_launches()
+    eng.stats.clear()
+    t1 = time.perf_counter()
+    outs = eng.generate(prompts, max_new_tokens=32)
+    gen_s = time.perf_counter() - t1
+    gen_stats = {k: dict(v, launches=dict(v["launches"]))
+                 for k, v in eng.stats.items()}
+    t2 = time.perf_counter()
+    served = eng.serve(requests, max_new_tokens=budgets, max_concurrency=8)
+    serve_s = time.perf_counter() - t2
+    launches = dict(op_builder.launches)
+
+    for p, o in zip(prompts, outs):
+        assert len(o) == len(p) + 32 and (o[:len(p)] == p).all()
+        assert ((o >= 0) & (o < cfg.vocab_size)).all()
+    for p, o, m in zip(requests, served, budgets):
+        assert len(o) == len(p) + m and (o[:len(p)] == p).all()
+    assert not eng.state.seqs
+    assert eng.state.allocator.free_blocks == SERVE_BLOCKS, "pages leaked"
+    st = eng.stats
+    for mode in ("fresh", "split", "decode"):
+        assert mode in st, f"no {mode} step ran"
+    assert st["fresh"]["launches"]["flash_attention_fwd"] > 0
+    assert st["split"]["launches"]["flash_attention_fwd"] > 0
+    assert st["split"]["launches"]["paged_attention"] > 0
+    assert st["decode"]["launches"]["paged_attention"] > 0
+    assert st["decode"]["launches"]["flash_attention_fwd"] == 0
+    assert all(v > 0 for v in launches.values()), launches
+
+    def rate(kinds, src):
+        tok = sum(src[k]["tokens"] for k in kinds if k in src)
+        sec = sum(src[k]["seconds"] for k in kinds if k in src)
+        return tok / sec if sec else None
+
+    per_step = {k: v / st["decode"]["steps"]
+                for k, v in st["decode"]["launches"].items()}
+    emit({"phase": "serve", "model": "llama3-" + SERVE_MODEL[0],
+          "dtype": "bfloat16",
+          "init_seconds": init_s, "generate_seconds": gen_s,
+          "serve_seconds": serve_s,
+          "generate_prefill_tok_s": rate(("fresh", "split"), gen_stats),
+          "generate_decode_tok_s": rate(("decode",), gen_stats),
+          "prefill_tok_s": rate(("fresh", "split"), st),
+          "decode_tok_s": rate(("decode",), st),
+          "decode_ms_per_step": 1e3 * st["decode"]["seconds"]
+          / st["decode"]["steps"],
+          "stats": st, "launches": launches,
+          "launches_per_decode_step": per_step,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return launches
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    from deepspeed_tpu_torch.ops import op_builder   # fails outside a checkout
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    emit({"phase": "device", "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "name": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count()})
+
+    t0 = time.perf_counter()
+    libs = op_builder.build_all()
+    ptxas = {n: [ln.strip() for ln in op_builder.build_log(n).splitlines()
+                 if "registers" in ln or "spill" in ln]
+             for n in libs}
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "libraries": {n: str(p.name) for n, p in libs.items()},
+          "ptxas": ptxas})
+
+    rng = np.random.default_rng(0)
+    timed = phase_kernels(rng)
+    if "--kernels-only" in sys.argv[1:]:
+        return 0
+    phase_full_width()
+    launches = phase_serve()
+
+    kernels = []
+    for name, src, replaces, res in (
+            ("flash_attention_fwd",
+             "deepspeed_tpu_torch/ops/csrc/flash_attention.cu",
+             "deepspeed_tpu/ops/flash_attention.py:71", timed["fresh"]),
+            ("paged_attention",
+             "deepspeed_tpu_torch/ops/csrc/paged_attention.cu",
+             "deepspeed_tpu/ops/paged_attention.py:235", timed["decode"])):
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": res["max_abs_err"],
+                        "ms": res["kernel_ms"], "plain_ms": res["plain_ms"],
+                        "bound_ms": res["bound_ms"],
+                        "bound_by": res["bound_by"],
+                        "library_ms": res["library_ms"]})
+    print(smi, flush=True)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

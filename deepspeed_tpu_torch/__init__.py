@@ -1,0 +1,18 @@
+"""deepspeed_tpu_torch — the PyTorch/CUDA port of deepspeed_tpu.
+
+A second package beside the JAX one (which stays the reference): plain
+tensor code is PyTorch, and each Pallas kernel of the JAX package becomes
+a kernel written by hand for NVIDIA Hopper (``ops/csrc``). This package
+imports ``torch``, never ``jax`` and nothing of ``deepspeed_tpu``.
+
+The first slice serves dense decoders through the ragged paged-KV engine
+(``RaggedInferenceEngine``, the port of ``RaggedInferenceEngineTPU``).
+"""
+
+from deepspeed_tpu_torch.inference.engine_v2 import (RaggedInferenceConfig,
+                                                     RaggedInferenceEngine)
+from deepspeed_tpu_torch.models.llama import llama3_config
+from deepspeed_tpu_torch.models.transformer import DecoderConfig
+
+__all__ = ["RaggedInferenceEngine", "RaggedInferenceConfig",
+           "DecoderConfig", "llama3_config"]

@@ -1,0 +1,254 @@
+"""Ragged batching state — the FastGen-core state layer.
+
+Reference: ``deepspeed/inference/v2/ragged/`` — ``DSStateManager``
+(ragged_manager.py:19), ``BlockedAllocator`` (blocked_allocator.py:11),
+``DSSequenceDescriptor`` (sequence_descriptor.py:59), ``RaggedBatchWrapper``
+(ragged_wrapper.py:31). Host-side bookkeeping is a direct functional
+analogue; the device side differs: rather than CUDA paged-KV kernels, the
+scheduler packs sequences into a shared static-shape KV arena whose pages
+are tracked here (the paged-attention kernel consumes the
+same page tables). Copy of ``deepspeed_tpu/inference/ragged.py``.
+"""
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+
+class BlockedAllocator:
+    """Fixed pool of REF-COUNTED KV pages (reference blocked_allocator.py:11).
+
+    Refcounts let one physical page back several logical owners at once —
+    the prefix cache (deepspeed_tpu/serving/prefix_cache.py) plus any
+    number of sequences whose prompts share that page. ``allocate`` hands
+    out pages at refcount 1; ``incref`` adds an owner; ``free`` drops one
+    owner and only returns the page to the pool when the LAST owner lets
+    go. Freeing a page nobody holds is a hard error (double free), not a
+    silent corruption of whoever re-allocated it.
+    """
+
+    def __init__(self, num_blocks: int, block_size: int = 128):
+        self.num_blocks = num_blocks
+        self.block_size = block_size
+        self._free: List[int] = list(range(num_blocks - 1, -1, -1))
+        self._ref: List[int] = [0] * num_blocks
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def live_blocks(self) -> int:
+        """Pages with at least one owner (``num_blocks - free_blocks``)."""
+        return self.num_blocks - len(self._free)
+
+    def total_refs(self) -> int:
+        """Sum of owners across every live page — with ``live_blocks``
+        the exact-accounting pair eviction/adoption tests pin down (an
+        alias adds a ref but not a live page; a tier capture must change
+        neither until the last owner lets go)."""
+        return sum(self._ref)
+
+    def refcount(self, block: int) -> int:
+        self._check(block)
+        return self._ref[block]
+
+    def _check(self, block: int) -> None:
+        if block < 0 or block >= self.num_blocks:
+            raise ValueError(f"bad block id {block}")
+
+    def allocate(self, n: int) -> List[int]:
+        if n > len(self._free):
+            raise RuntimeError(
+                f"KV arena exhausted: want {n} blocks, {len(self._free)} free")
+        out = [self._free.pop() for _ in range(n)]
+        for b in out:
+            self._ref[b] = 1
+        return out
+
+    def incref(self, blocks: List[int]) -> None:
+        """Add an owner to live pages (prefix-cache sharing)."""
+        for b in blocks:
+            self._check(b)
+            if self._ref[b] <= 0:
+                raise RuntimeError(
+                    f"incref on free block {b}: the page is not live")
+            self._ref[b] += 1
+
+    def free(self, blocks: List[int]) -> int:
+        """Drop one owner per page; returns how many pages actually went
+        back to the pool (refcount reached zero)."""
+        released = 0
+        for b in blocks:
+            self._check(b)
+            if self._ref[b] <= 0:
+                raise RuntimeError(
+                    f"double free of block {b}: the page has no owners")
+            self._ref[b] -= 1
+            if self._ref[b] == 0:
+                self._free.append(b)
+                released += 1
+        return released
+
+
+@dataclass
+class SequenceDescriptor:
+    """Reference sequence_descriptor.py:59."""
+    uid: int
+    tokens: List[int] = field(default_factory=list)
+    seen_tokens: int = 0            # tokens already in KV
+    blocks: List[int] = field(default_factory=list)
+    slot: Optional[int] = None      # row in the packed decode batch
+    done: bool = False
+
+    @property
+    def pending(self) -> int:
+        return len(self.tokens) - self.seen_tokens
+
+
+class DSStateManager:
+    """Tracks live sequences + KV pages (reference ragged_manager.py:19)."""
+
+    def __init__(self, max_sequences: int = 64, num_blocks: int = 512,
+                 block_size: int = 128):
+        self.max_sequences = max_sequences
+        self.allocator = BlockedAllocator(num_blocks, block_size)
+        self.seqs: Dict[int, SequenceDescriptor] = {}
+        self._slots: List[int] = list(range(max_sequences - 1, -1, -1))
+
+    def get_or_create_sequence(self, uid: int) -> SequenceDescriptor:
+        if uid not in self.seqs:
+            if not self._slots:
+                raise RuntimeError("max_sequences exceeded")
+            self.seqs[uid] = SequenceDescriptor(uid=uid,
+                                                slot=self._slots.pop())
+        return self.seqs[uid]
+
+    def extend(self, uid: int, token_ids) -> SequenceDescriptor:
+        seq = self.get_or_create_sequence(uid)
+        new = [int(t) for t in np.asarray(token_ids).reshape(-1)]
+        total = len(seq.tokens) + len(new)
+        needed = -(-total // self.allocator.block_size) - len(seq.blocks)
+        # allocate BEFORE mutating so an exhausted arena leaves the
+        # sequence untouched and the caller can retry safely
+        if needed > 0:
+            seq.blocks.extend(self.allocator.allocate(needed))
+        seq.tokens.extend(new)
+        return seq
+
+    def adopt(self, uid: int, token_ids, blocks: List[int],
+              seen_tokens: int) -> SequenceDescriptor:
+        """Create a sequence that starts life with pre-attached KV pages.
+
+        The prefix-cache handout path: ``blocks`` already hold the KV of
+        the first ``seen_tokens`` tokens of ``token_ids`` (the caller owns
+        one ref per page and that ref transfers to the sequence here, so
+        ``flush`` releases it). Pages for the uncached tail are allocated
+        as usual; if the arena is exhausted the sequence keeps its adopted
+        pages and the caller should ``flush(uid)`` to hand the refs back.
+        """
+        if uid in self.seqs:
+            raise ValueError(f"uid {uid} already live; cannot adopt")
+        seq = self.get_or_create_sequence(uid)
+        seq.blocks.extend(blocks)
+        seq.seen_tokens = seen_tokens
+        try:
+            self.extend(uid, token_ids)
+        except RuntimeError:
+            self.flush(uid)
+            raise
+        return seq
+
+    def flush(self, uid: int) -> None:
+        """Release a finished sequence (reference engine_v2.py flush:242)."""
+        seq = self.seqs.pop(uid, None)
+        if seq is not None:
+            self.allocator.free(seq.blocks)
+            self._slots.append(seq.slot)
+
+    def can_schedule(self, n_tokens: int) -> bool:
+        """Capacity check (reference engine_v2.py can_schedule:158)."""
+        blocks = -(-n_tokens // self.allocator.block_size)
+        return blocks <= self.allocator.free_blocks and \
+            len(self.seqs) < self.max_sequences
+
+
+@dataclass
+class RaggedBatch:
+    """One scheduler step's work (reference ragged_wrapper.py:31)."""
+    uids: List[int]
+    token_ids: np.ndarray        # padded [n_seq, max_chunk]
+    token_counts: np.ndarray     # [n_seq] actual new tokens
+    start_positions: np.ndarray  # [n_seq] seen_tokens before this step
+    slots: np.ndarray            # [n_seq] KV arena rows
+
+    @property
+    def total_tokens(self) -> int:
+        return int(self.token_counts.sum())
+
+
+class RaggedScheduler:
+    """Continuous-batching scheduler: mixes prefill chunks and decode steps
+    into one ragged batch per engine step (FastGen's Dynamic SplitFuse,
+    reference inference/v2 engine put():107 semantics)."""
+
+    def __init__(self, state: DSStateManager, max_batch_tokens: int = 2048,
+                 prefill_chunk: int = 512, policy=None):
+        self.state = state
+        self.max_batch_tokens = max_batch_tokens
+        self.prefill_chunk = prefill_chunk
+        # Optional selection policy: any object with
+        # ``select(state, budget, prefill_chunk) -> List[(uid, take)]``.
+        # None keeps the original insertion-order sweep. The serving layer
+        # plugs its SplitFuse token-budget policy in here
+        # (deepspeed_tpu/serving/scheduler.py) without the engine knowing.
+        self.policy = policy
+
+    def put(self, uids, tokens_list) -> None:
+        for uid, toks in zip(uids, tokens_list):
+            self.state.extend(uid, toks)
+
+    def _default_select(self, budget: int) -> List[Tuple[int, int]]:
+        picks: List[Tuple[int, int]] = []
+        for uid, seq in self.state.seqs.items():
+            if seq.done or seq.pending == 0:
+                continue
+            take = min(seq.pending, self.prefill_chunk, budget)
+            if take <= 0:
+                continue
+            picks.append((uid, take))
+            budget -= take
+            if budget <= 0:
+                break
+        return picks
+
+    def next_batch(self, budget: Optional[int] = None) -> Optional[RaggedBatch]:
+        budget = self.max_batch_tokens if budget is None else budget
+        if self.policy is not None:
+            picks = self.policy.select(self.state, budget, self.prefill_chunk)
+        else:
+            picks = self._default_select(budget)
+        uids, chunks, counts, starts, slots = [], [], [], [], []
+        for uid, take in picks:
+            seq = self.state.seqs[uid]
+            chunk = seq.tokens[seq.seen_tokens:seq.seen_tokens + take]
+            uids.append(uid)
+            chunks.append(chunk)
+            counts.append(take)
+            starts.append(seq.seen_tokens)
+            slots.append(seq.slot)
+        if not uids:
+            return None
+        width = max(counts)
+        padded = np.zeros((len(uids), width), np.int32)
+        for i, c in enumerate(chunks):
+            padded[i, :len(c)] = c
+        return RaggedBatch(uids=uids, token_ids=padded,
+                           token_counts=np.asarray(counts, np.int32),
+                           start_positions=np.asarray(starts, np.int32),
+                           slots=np.asarray(slots, np.int32))
+
+    def mark_scheduled(self, batch: RaggedBatch) -> None:
+        for uid, n in zip(batch.uids, batch.token_counts):
+            self.state.seqs[uid].seen_tokens += int(n)

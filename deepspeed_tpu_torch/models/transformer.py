@@ -1,0 +1,488 @@
+"""Functional decoder-only transformer core — the serving subset.
+
+Port of ``deepspeed_tpu/models/transformer.py``. Parameters are a plain
+nested dict of tensors in the JAX package's layout: per-layer weights are
+stacked on a leading ``layers`` axis (``params["layers"]["attn"]["wq"]`` is
+``[L, d, H*Dh]``), linear weights are ``[in, out]``, and activations keep
+JAX's ``[B, T, H, Dh]`` head layout, so a parameter tree converted with
+:func:`deepspeed_tpu_torch.models.convert.params_from_jax` computes the
+same function in both packages.
+
+What this slice carries: ``DecoderConfig``, norms, embeddings, RoPE, the
+plain attention, the dense MLP and attention projections, the dense
+residual combine, ``init_params`` and ``lm_logits``. MoE layers and
+weight-only quantized linears raise ``NotImplementedError``.
+"""
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, Any]
+
+_NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class DecoderConfig:
+    """Model geometry (field-for-field copy of the JAX ``DecoderConfig``,
+    transformer.py:38, so one config dict builds both)."""
+    vocab_size: int = 50304
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    num_kv_heads: Optional[int] = None     # GQA; None => num_heads
+    intermediate_size: Optional[int] = None  # None => 4*hidden (gelu) / llama default
+    max_seq_len: int = 1024
+    norm: str = "layernorm"                # 'layernorm' | 'rmsnorm'
+    #: 'gelu' (tanh approx) | 'gelu_exact' (erf) | 'relu' | 'silu_glu'
+    #: (Llama SwiGLU) | 'gelu_glu' (Gemma GeGLU)
+    activation: str = "gelu"
+    pos_emb: str = "learned"               # 'learned' | 'rope' | 'alibi'
+    rope_theta: float = 10000.0
+    use_bias: bool = True
+    tie_embeddings: bool = True
+    norm_eps: float = 1e-5
+    #: parallel residual (GPT-J/NeoX/Falcon/Phi): h = x + attn + mlp
+    parallel_block: bool = False
+    #: 1 = one shared pre-norm feeds both branches; 2 = separate norms
+    parallel_block_norms: int = 1
+    #: LayerNorm bias independent of linear biases. None → follow use_bias.
+    norm_bias: Optional[bool] = None
+    #: attention-projection biases independent of the MLP/LN biases.
+    attn_bias: Optional[bool] = None
+    #: partial rotary: RoPE on the first rotary_pct of each head's dims
+    rotary_pct: float = 1.0
+    #: out-projection bias decoupled from the q/k/v biases
+    attn_out_bias: Optional[bool] = None
+    #: per-layer attention windows tiled over depth (GPT-Neo)
+    layer_window_pattern: Optional[Tuple[int, ...]] = None
+    # MoE (dense when num_experts == 0; not ported in this slice)
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
+    norm_topk_prob: bool = True
+    shared_expert_size: int = 0
+    shared_expert_gate: bool = False
+    moe_residual: bool = False
+    # initializer
+    init_std: float = 0.02
+    #: decoupled head dim; None → hidden_size // num_heads
+    head_dim_override: Optional[int] = None
+    #: final_logit_softcapping: logits = c*tanh(logits/c); 0 = off
+    logit_softcap: float = 0.0
+    #: scale token embeddings by sqrt(hidden) after lookup
+    scale_embeddings: bool = False
+    #: a norm between embed and block 0 (BLOOM)
+    embed_norm: bool = False
+    #: causal sliding-window attention; None = full causal
+    sliding_window: Optional[int] = None
+    #: untied lm_head carries a bias vector
+    lm_head_bias: bool = False
+    #: model-health stat taps (training only in the JAX package)
+    health_taps: bool = False
+    #: False → bidirectional (encoder)
+    causal: bool = True
+    #: False → post-LN residuals; True → pre-LN
+    prenorm: bool = True
+    #: >0 → segment/token-type embeddings (BERT)
+    type_vocab_size: int = 0
+    #: BERT masked-LM head
+    mlm_head: bool = False
+    #: sequence-chunked dense MLP (training memory knob; same function)
+    ffn_chunk: int = 0
+
+    def __post_init__(self):
+        if self.mlm_head and not self.tie_embeddings:
+            raise ValueError("mlm_head requires tie_embeddings=True")
+
+    @property
+    def kv_heads(self) -> int:
+        return self.num_kv_heads or self.num_heads
+
+    @property
+    def has_final_norm(self) -> bool:
+        return self.prenorm
+
+    def window_per_layer(self):
+        pat = self.layer_window_pattern
+        return [pat[i % len(pat)] for i in range(self.num_layers)]
+
+    @property
+    def head_dim(self) -> int:
+        if self.head_dim_override is not None:
+            return self.head_dim_override
+        return self.hidden_size // self.num_heads
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def is_glu(self) -> bool:
+        return self.activation.endswith("_glu")
+
+    @property
+    def qkv_bias(self) -> bool:
+        return self.use_bias if self.attn_bias is None else self.attn_bias
+
+    @property
+    def out_bias(self) -> bool:
+        return self.qkv_bias if self.attn_out_bias is None \
+            else self.attn_out_bias
+
+    @property
+    def ln_bias(self) -> bool:
+        if self.norm != "layernorm":
+            return False
+        return self.use_bias if self.norm_bias is None else self.norm_bias
+
+    @property
+    def has_ln2(self) -> bool:
+        return (not self.parallel_block) or self.parallel_block_norms == 2
+
+    @property
+    def rope_dim(self) -> int:
+        r = int(self.head_dim * self.rotary_pct)
+        return r - (r % 2)
+
+    @property
+    def ffn_size(self) -> int:
+        if self.intermediate_size is not None:
+            return self.intermediate_size
+        if self.is_glu:
+            return int(8 * self.hidden_size / 3 // 128 * 128) or 4 * self.hidden_size
+        return 4 * self.hidden_size
+
+    def num_params(self) -> int:
+        """Approximate parameter count (same formula as the JAX package)."""
+        d, v, l = self.hidden_size, self.vocab_size, self.num_layers
+        h = self.ffn_size
+        attn = d * self.q_dim + 2 * d * self.kv_heads * self.head_dim \
+            + self.q_dim * d
+        mlp = 3 * d * h if self.is_glu else 2 * d * h
+        if self.num_experts:
+            dense_mlp = mlp
+            mlp = mlp * self.num_experts + d * self.num_experts
+            if self.shared_expert_size:
+                mlp += 3 * d * self.shared_expert_size \
+                    + (d if self.shared_expert_gate else 0)
+            if self.moe_residual:
+                mlp += dense_mlp + 2 * d + 2
+        per_layer = attn + mlp + 2 * d
+        emb = v * d + (self.max_seq_len * d if self.pos_emb == "learned"
+                       else 0) + self.type_vocab_size * d
+        head = 0 if self.tie_embeddings else v * d + (v if self.lm_head_bias
+                                                      else 0)
+        if self.mlm_head:
+            head += d * d + 3 * d + v
+        return l * per_layer + emb + head + d
+
+
+# ---------------------------------------------------------------------------
+# Normalization, embeddings, RoPE
+# ---------------------------------------------------------------------------
+
+def _norm(cfg: DecoderConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """RMSNorm / LayerNorm in fp32, cast back to ``x.dtype``."""
+    x32 = x.float()
+    if cfg.norm == "rmsnorm":
+        var = x32.square().mean(dim=-1, keepdim=True)
+        out = x32 * torch.rsqrt(var + cfg.norm_eps) * params["scale"]
+    else:
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = x32.var(dim=-1, keepdim=True, unbiased=False)
+        out = (x32 - mean) * torch.rsqrt(var + cfg.norm_eps) * params["scale"]
+        if "bias" in params:
+            out = out + params["bias"]
+    return out.to(x.dtype)
+
+
+def _norm_params(cfg: DecoderConfig, shape_prefix, device) -> Params:
+    p = {"scale": torch.ones(shape_prefix + (cfg.hidden_size,),
+                             dtype=torch.float32, device=device)}
+    if cfg.ln_bias:
+        p["bias"] = torch.zeros(shape_prefix + (cfg.hidden_size,),
+                                dtype=torch.float32, device=device)
+    return p
+
+
+def embed_tokens(cfg: DecoderConfig, em: Params, tokens: torch.Tensor,
+                 positions: torch.Tensor,
+                 embed_norm: Optional[Params] = None,
+                 token_type_ids: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """Token embedding (+ sqrt(d) scaling, learned positions, token types,
+    embed norm) — transformer.py:281."""
+    x = em["tokens"][tokens.long()]
+    if cfg.scale_embeddings:
+        x = (x.float() * math.sqrt(cfg.hidden_size)).to(x.dtype)
+    if cfg.pos_emb == "learned":
+        x = x + em["pos"][positions.long()]
+    if cfg.type_vocab_size:
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(tokens)
+        x = x + em["token_type"][token_type_ids.long()]
+    if cfg.embed_norm:
+        x = _norm(cfg, embed_norm, x)
+    return x
+
+
+def rope_table(cfg: DecoderConfig, positions: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions [B, T] int → (sin, cos) each [B, T, rope_dim//2] fp32."""
+    half = cfg.rope_dim // 2
+    exps = -torch.arange(0, half, dtype=torch.float32,
+                         device=positions.device) / half
+    freqs = torch.pow(torch.tensor(cfg.rope_theta, dtype=torch.float32,
+                                   device=positions.device), exps)
+    angles = positions[..., None].float() * freqs
+    return torch.sin(angles), torch.cos(angles)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor
+               ) -> torch.Tensor:
+    """x [B, T, H, Dh]; rotate-half convention, partial-rotary tail passes
+    through unrotated."""
+    rot = 2 * sin.shape[-1]
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    x1, x2 = x_rot.chunk(2, dim=-1)
+    sin = sin[:, :, None, :]
+    cos = cos[:, :, None, :]
+    rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    if x_pass.shape[-1]:
+        rotated = torch.cat([rotated.to(x_pass.dtype), x_pass], dim=-1)
+    return rotated.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (plain version)
+# ---------------------------------------------------------------------------
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True, q_offset: int = 0,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """q [B, Tq, H, Dh], k/v [B, Tk, KvH, Dh] → [B, Tq, H, Dh]
+    (transformer.py:357). GQA by head groups, fp32 softmax."""
+    b, tq, h, dh = q.shape
+    _, tk, kvh, _ = k.shape
+    groups = h // kvh
+    qg = q.reshape(b, tq, kvh, groups, dh)
+    scores = torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float())
+    scores = scores / math.sqrt(dh)
+    if causal or window is not None:
+        qpos = torch.arange(tq, device=q.device) + q_offset
+        kpos = torch.arange(tk, device=q.device)
+        mask = qpos[:, None] >= kpos[None, :] if causal else \
+            torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+        if window is not None and window > 0:
+            mask = mask & (kpos[None, :] > qpos[:, None] - window)
+        scores = torch.where(mask, scores, torch.full_like(scores, _NEG_INF))
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgts,bskd->btkgd", probs, v)
+    return out.reshape(b, tq, h, dh)
+
+
+# ---------------------------------------------------------------------------
+# Block
+# ---------------------------------------------------------------------------
+
+def linear_2d(x: torch.Tensor, p: Params, name: str) -> torch.Tensor:
+    """``x [..., K] @ p[name] [K, N]`` (transformer.py:549, unquantized
+    branch). A ``<name>_scale`` leaf marks a weight-only quantized linear,
+    which this slice has not ported."""
+    if name + "_scale" in p:
+        raise NotImplementedError(
+            "weight-only quantized linears are not ported to "
+            "deepspeed_tpu_torch yet")
+    return torch.matmul(x, p[name])
+
+
+def _mlp(cfg: DecoderConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    if cfg.is_glu:
+        gate = linear_2d(x, p, "wg")
+        up = linear_2d(x, p, "wi")
+        act = F.silu(gate) if cfg.activation == "silu_glu" \
+            else F.gelu(gate, approximate="tanh")
+        hidden = act * up
+    else:
+        hidden = linear_2d(x, p, "wi")
+        if "bi" in p:
+            hidden = hidden + p["bi"]
+        if cfg.activation == "relu":
+            hidden = F.relu(hidden)
+        else:
+            hidden = F.gelu(hidden, approximate="none"
+                            if cfg.activation == "gelu_exact" else "tanh")
+    out = linear_2d(hidden, p, "wo")
+    if "bo" in p:
+        out = out + p["bo"]
+    return out
+
+
+def qkv_project(cfg: DecoderConfig, p: Params, x: torch.Tensor, sin, cos
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x [B,t,D] → q [B,t,H,Dh], k/v [B,t,KvH,Dh] with bias + RoPE."""
+    b, t = x.shape[:2]
+    q = linear_2d(x, p, "wq").reshape(b, t, cfg.num_heads, cfg.head_dim)
+    k = linear_2d(x, p, "wk").reshape(b, t, cfg.kv_heads, cfg.head_dim)
+    v = linear_2d(x, p, "wv").reshape(b, t, cfg.kv_heads, cfg.head_dim)
+    if "bq" in p:
+        q = q + p["bq"].reshape(cfg.num_heads, cfg.head_dim)
+        k = k + p["bk"].reshape(cfg.kv_heads, cfg.head_dim)
+        v = v + p["bv"].reshape(cfg.kv_heads, cfg.head_dim)
+    if cfg.pos_emb == "rope":
+        q = apply_rope(q, sin, cos)
+        k = apply_rope(k, sin, cos)
+    return q, k, v
+
+
+def attn_out_project(cfg: DecoderConfig, p: Params, out: torch.Tensor
+                     ) -> torch.Tensor:
+    b, t = out.shape[:2]
+    out = linear_2d(out.reshape(b, t, cfg.q_dim), p, "wo")
+    if "bo" in p:
+        out = out + p["bo"]
+    return out
+
+
+def block_combine(cfg: DecoderConfig, p: Params, x: torch.Tensor,
+                  pre: torch.Tensor, attn_out: torch.Tensor) -> torch.Tensor:
+    """Residual combine (transformer.py:659, dense branches): parallel,
+    sequential pre-LN, and post-LN."""
+    if cfg.num_experts:
+        raise NotImplementedError(
+            "MoE layers are not ported to deepspeed_tpu_torch yet")
+
+    def ffn(src):
+        return _mlp(cfg, p["mlp"], src)
+
+    if not cfg.prenorm:
+        h = _norm(cfg, p["ln1"], x + attn_out)
+        return _norm(cfg, p["ln2"], h + ffn(h))
+    if cfg.parallel_block:
+        src = _norm(cfg, p["ln2"], x) if cfg.parallel_block_norms == 2 \
+            else pre
+        return x + attn_out + ffn(src)
+    h = x + attn_out
+    return h + ffn(_norm(cfg, p["ln2"], h))
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: DecoderConfig, generator: torch.Generator,
+                dtype: torch.dtype = torch.float32,
+                device=None) -> Params:
+    """Random parameter tree in the JAX layout (transformer.py:721, dense
+    models). Normal(0, init_std) weights drawn from ``generator`` in
+    slices of at most 64M values along the leading axis, so a stacked
+    [L, ...] leaf never needs an fp32 copy of its whole self; zero biases,
+    unit norm scales (fp32, as in the JAX tree). The numbers differ from
+    ``jax.random``'s."""
+    if cfg.num_experts:
+        raise NotImplementedError(
+            "MoE parameter trees are not ported to deepspeed_tpu_torch yet")
+    device = generator.device if device is None else torch.device(device)
+    d, v, L = cfg.hidden_size, cfg.vocab_size, cfg.num_layers
+    h = cfg.ffn_size
+    kd = cfg.kv_heads * cfg.head_dim
+    qd = cfg.q_dim
+
+    def w(shape, std=cfg.init_std):
+        out = torch.empty(shape, dtype=dtype, device=device)
+        step = max(1, (1 << 26) // math.prod(shape[1:]))
+        for i in range(0, shape[0], step):
+            rows = min(step, shape[0] - i)
+            out[i:i + rows] = torch.randn(
+                (rows,) + tuple(shape[1:]), generator=generator,
+                dtype=torch.float32, device=device) * std
+        return out
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    out_std = cfg.init_std / math.sqrt(2 * L)
+    attn = {"wq": w((L, d, qd)), "wk": w((L, d, kd)), "wv": w((L, d, kd)),
+            "wo": w((L, qd, d), std=out_std)}
+    if cfg.qkv_bias:
+        attn.update(bq=zeros(L, qd), bk=zeros(L, kd), bv=zeros(L, kd))
+    if cfg.out_bias:
+        attn["bo"] = zeros(L, d)
+    layers: Params = {"attn": attn, "ln1": _norm_params(cfg, (L,), device)}
+    if cfg.has_ln2:
+        layers["ln2"] = _norm_params(cfg, (L,), device)
+    if cfg.is_glu:
+        layers["mlp"] = {"wg": w((L, d, h)), "wi": w((L, d, h)),
+                         "wo": w((L, h, d), std=out_std)}
+    else:
+        layers["mlp"] = {"wi": w((L, d, h)), "wo": w((L, h, d), std=out_std)}
+        if cfg.use_bias:
+            layers["mlp"].update(bi=zeros(L, h), bo=zeros(L, d))
+
+    params: Params = {"embed": {"tokens": w((v, d))}, "layers": layers}
+    if cfg.has_final_norm:
+        params["final_norm"] = _norm_params(cfg, (), device)
+    if cfg.embed_norm:
+        params["embed_norm"] = _norm_params(cfg, (), device)
+    if cfg.pos_emb == "learned":
+        params["embed"]["pos"] = w((cfg.max_seq_len, d))
+    if cfg.type_vocab_size:
+        params["embed"]["token_type"] = w((cfg.type_vocab_size, d))
+    if cfg.mlm_head:
+        raise NotImplementedError(
+            "masked-LM heads are not ported to deepspeed_tpu_torch yet")
+    if not cfg.tie_embeddings:
+        params["lm_head"] = w((d, v))
+        if cfg.lm_head_bias:
+            params["lm_head_bias"] = zeros(v)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Head
+# ---------------------------------------------------------------------------
+
+def _softcap(cfg: DecoderConfig, logits: torch.Tensor) -> torch.Tensor:
+    if cfg.logit_softcap:
+        c = cfg.logit_softcap
+        return c * torch.tanh(logits / c)
+    return logits
+
+
+def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., K] @ w [K, N] with an fp32 result of the inputs' products
+    (XLA's ``preferred_element_type=float32``): a bf16 product is never
+    rounded to bf16 before the cast. On CUDA the GEMM writes fp32 itself
+    (``out_dtype``); on the CPU, which lacks that overload, the bf16
+    inputs are widened first, which gives the same exact products."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return torch.matmul(x, w)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.is_cuda:
+        y = torch.mm(x2, w, out_dtype=torch.float32)
+    else:
+        y = torch.mm(x2.float(), w.float())
+    return y.reshape(*lead, w.shape[-1])
+
+
+def lm_logits(cfg: DecoderConfig, params: Params, x: torch.Tensor
+              ) -> torch.Tensor:
+    """hidden [B,T,D] → logits [B,T,V] fp32 (transformer.py:934): the
+    product of bf16 hidden states and weights is summed and returned in
+    fp32, as the JAX package's ``preferred_element_type=float32``."""
+    if cfg.mlm_head or "lm_head_q" in params or "lm_head_scale" in params:
+        raise NotImplementedError(
+            "masked-LM and quantized heads are not ported to "
+            "deepspeed_tpu_torch yet")
+    if cfg.tie_embeddings:
+        logits = _matmul_f32(x, params["embed"]["tokens"].t())
+    else:
+        logits = _matmul_f32(x, params["lm_head"])
+        if "lm_head_bias" in params:
+            logits = logits + params["lm_head_bias"].float()
+    return _softcap(cfg, logits)

@@ -1,0 +1,155 @@
+"""Builds and loads the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled on its own by ``nvcc`` for Hopper
+(``sm_90a``) into a shared library with a plain C interface, which is
+loaded with ``ctypes``. No PyTorch header is included, so a build takes
+seconds rather than the minutes ``torch.utils.cpp_extension`` needs.
+
+Libraries go to ``build/kernels/`` beside the package (listed in
+``.gitignore``), named by a hash of the sources and flags, and are built
+at first use. ``build_all`` starts one ``nvcc`` per source at once. A
+missing ``nvcc`` or a failed build raises; nothing falls back.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch, and
+:func:`check` raises when that is not ``cudaSuccess``.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List, Sequence
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+#: name → C signature: {function: (argtypes, restype)}
+_SIGNATURES: Dict[str, Dict[str, tuple]] = {}
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def register(name: str, signatures: Dict[str, tuple]) -> None:
+    """Declare the C functions of ``csrc/<name>.cu`` and their ctypes
+    argument types (``c_void_p`` for every pointer and the stream)."""
+    _SIGNATURES[name] = signatures
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: on ``PATH``, else under ``$CUDA_HOME`` or
+    ``/usr/local/cuda``. Raises when there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.access(os.path.join(root, "bin", "nvcc"), os.X_OK):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError(
+        "nvcc not found (looked on PATH, $CUDA_HOME/bin and "
+        "/usr/local/cuda/bin): the CUDA kernels of deepspeed_tpu_torch are "
+        "built from source at first use and need the CUDA toolkit")
+
+
+def _sources(name: str) -> List[Path]:
+    src = CSRC / f"{name}.cu"
+    if not src.exists():
+        raise FileNotFoundError(f"no kernel source {src}")
+    return [src] + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` lives, keyed by a hash of
+    its source, the shared headers and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources(name):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start_build(name: str):
+    """Start nvcc for ``name`` unless its library exists; returns
+    (process, tmp output, final path, log path) or None."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    log = out.with_suffix(".log")
+    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out, log
+
+
+def _finish_build(name: str, started) -> None:
+    proc, tmp, out, log = started
+    text, _ = proc.communicate()
+    log.write_text(text)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {name} "
+                           f"(exit {proc.returncode}):\n{text}")
+    os.replace(tmp, out)
+
+
+def build_all(names: Sequence[str] = ()) -> Dict[str, Path]:
+    """Build the named kernels (default: every ``csrc/*.cu``), one nvcc
+    per source, all started together. Returns name → library path."""
+    names = list(names) or sorted(p.stem for p in CSRC.glob("*.cu"))
+    with _LOCK:
+        started = {n: _start_build(n) for n in names}
+        for n, s in started.items():
+            if s is not None:
+                _finish_build(n, s)
+    return {n: library_path(n) for n in names}
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (ptxas register and shared-memory lines) from the
+    build of ``name``, or "" when the library came from an earlier run."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use, with
+    ``argtypes``/``restype`` set for every registered function."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    path = build_all([name])[name]
+    with _LOCK:
+        if name not in _LIBS:
+            lib = ctypes.CDLL(str(path))
+            for fn, (argtypes, restype) in _SIGNATURES[name].items():
+                f = getattr(lib, fn)
+                f.argtypes = list(argtypes)
+                f.restype = restype
+            _LIBS[name] = lib
+    return _LIBS[name]
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise when a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = lib.dstt_error_string(err).decode(errors="replace")
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg}) at launch")
+
+
+#: kernel launches since the last reset, one count per kernel: a wrapper
+#: adds one where it launches its kernel and nowhere else, so a run can
+#: show which kernels its path went through
+launches: Dict[str, int] = {"flash_attention_fwd": 0, "paged_attention": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0

@@ -1,0 +1,102 @@
+"""The port's own rules: deepspeed_tpu_torch imports neither jax nor any
+deepspeed_tpu module, its entry points run on CUDA unless asked for the
+CPU, unported features raise, and the kernel builder fails clearly
+without nvcc."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import deepspeed_tpu_torch
+from deepspeed_tpu_torch import (RaggedInferenceEngine, llama3_config)
+from deepspeed_tpu_torch.accelerator.real_accelerator import get_device
+from deepspeed_tpu_torch.ops import op_builder
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import deepspeed_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+bad = sorted(n for n in sys.modules
+             if n == "jax" or n.startswith("jax.") or n == "jaxlib"
+             or n.startswith("jaxlib.") or n == "deepspeed_tpu"
+             or n.startswith("deepspeed_tpu."))
+print(len([n for n in sys.modules if n.startswith("deepspeed_tpu_torch")]))
+print(bad)
+"""
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    n_mods, bad = out.stdout.strip().splitlines()[-2:]
+    assert int(n_mods) >= 15
+    assert bad == "[]", bad
+
+
+def test_every_module_is_listed():
+    names = {m.name for m in pkgutil.walk_packages(
+        deepspeed_tpu_torch.__path__, "deepspeed_tpu_torch.")}
+    for want in ("ops.flash_attention", "ops.paged_attention",
+                 "ops.op_builder", "inference.engine_v2", "inference.ragged",
+                 "models.transformer", "models.convert", "models.llama",
+                 "config.config_utils", "utils.logging",
+                 "accelerator.real_accelerator"):
+        assert "deepspeed_tpu_torch." + want in names
+
+
+def test_default_device_is_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RaggedInferenceEngine(llama3_config("tiny", vocab_size=256),
+                              {"dtype": "float32", "num_blocks": 4})
+    assert get_device("cpu") == torch.device("cpu")
+
+
+def test_use_pallas_must_follow_device():
+    cfg = llama3_config("tiny", vocab_size=256)
+    eng = RaggedInferenceEngine(cfg, {"dtype": "float32", "num_blocks": 4},
+                                device="cpu")
+    assert eng.use_pallas is False
+    with pytest.raises(ValueError, match="use_pallas"):
+        RaggedInferenceEngine(cfg, {"dtype": "float32", "num_blocks": 4,
+                                    "use_pallas": True}, device="cpu")
+
+
+def test_unported_features_raise():
+    cfg = llama3_config("tiny", vocab_size=256)
+    small = {"dtype": "float32", "num_blocks": 4}
+    with pytest.raises(NotImplementedError, match="quantized"):
+        RaggedInferenceEngine(cfg, dict(small, weight_quant="int8"),
+                              device="cpu")
+    with pytest.raises(NotImplementedError, match="MoE"):
+        RaggedInferenceEngine(llama3_config("tiny", num_experts=4), small,
+                              device="cpu")
+    eng = RaggedInferenceEngine(cfg, small, device="cpu")
+    with pytest.raises(NotImplementedError, match="megastep"):
+        eng.step_with_budget(max_steps=4)
+
+
+def test_builder_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(op_builder, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(os, "access", lambda *a, **k: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        op_builder.build_all(["flash_attention"])
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        op_builder.load("paged_attention")
+    # the library name follows the sources
+    assert op_builder.library_path("flash_attention").name.startswith(
+        "flash_attention-")
