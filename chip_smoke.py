@@ -6,19 +6,26 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds the port's CUDA kernels from ``deepspeed_tpu_torch/ops/csrc``;
 3. holds each kernel against its plain PyTorch version on the card, at the
-   serving path's shapes in bf16 (paged attention through the serving
+   serving and training paths' shapes in bf16 (paged attention through the serving
    phase's full-size arena, past element 2**31), in fp32 at a 4000-token
    decode and at small fp32 shapes, and times the kernel, the plain
    version, the card's bound for the same work and, for flash attention,
-   ``scaled_dot_product_attention`` as a yardstick (tolerances at
-   ``TOL_F32``);
+   ``scaled_dot_product_attention`` (forward, and backward alone) as a
+   yardstick (tolerances at ``TOL_F32``);
 4. runs ``ragged_forward`` for a depth-2 model at Llama-3-8B width in fp32
    on the card (kernels) and on the CPU (plain versions) — a fresh chunk, a
    split chunk and a decode step — and compares the logits, then checks
    that the bf16 head returns unrounded fp32 logits;
 5. serves Llama-3 8B at full width and depth in bf16 (random weights from a
    seeded generator): ``generate`` on 8 ragged prompts and ``serve`` on 16
-   requests, with every kernel's launch count read around that run.
+   requests, with every kernel's launch count read around that run;
+6. runs two ``train_batch`` steps of a depth-2 model at Llama-3-1B width in
+   fp32 on the card (K1 + K3) and on the CPU (plain versions) from one
+   parameter tree, and compares losses and updated parameters;
+7. trains Llama-3 1B (the repo's training bench model) at full width and
+   depth in bf16 through ``initialize``/``train_batch``: 2 warm-up and 10
+   timed steps on one fixed batch, with tokens/s, ms per step, peak
+   memory and each step's loss, and the kernels' launches read around it.
 
 Every phase prints one JSON line; any failure raises, so the script exits
 non-zero. Without CUDA, or outside a checkout of the repository, it exits
@@ -38,6 +45,7 @@ import numpy as np
 DEV = "cuda"
 SERVE_MODEL = ("8b", {})
 SERVE_BLOCKS = 512
+SERVE_KERNELS = ("flash_attention_fwd", "paged_attention")
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense bf16 tensor cores
@@ -228,6 +236,14 @@ def check_paged(name, rng, n, c, starts, counts, dtype, with_lse, dims,
     return res
 
 
+def _visible_pairs(tq, tk, causal, window, q_offset, b, h) -> float:
+    """(query, key) pairs the mask lets through, over batch and heads."""
+    qpos = np.arange(tq) + q_offset
+    hi = np.minimum(qpos + 1, tk) if causal else np.full(tq, tk)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(tq)
+    return float(np.clip(hi - lo, 0, None).sum()) * b * h
+
+
 def check_flash(name, rng, b, t, dims, dtype, with_lse, causal=True,
                 window=None, q_offset=0, time_it=True):
     import torch
@@ -257,11 +273,7 @@ def check_flash(name, rng, b, t, dims, dtype, with_lse, causal=True,
     _hold(name, out, ref_out, lse, ref_lse if with_lse else None, res)
     if time_it:
         itemsize = q.element_size()
-        qpos = np.arange(t) + q_offset
-        vis_per_row = np.minimum(qpos + 1, t) if causal else np.full(t, t)
-        if window is not None:
-            vis_per_row = np.minimum(vis_per_row, window)
-        vis = float(np.clip(vis_per_row, 0, None).sum()) * b * h
+        vis = _visible_pairs(t, t, causal, window, q_offset, b, h)
         nbytes = (2 * q.numel() + 2 * k.numel()) * itemsize + \
             (b * t * h * 4 if with_lse else 0)
         flops = 4.0 * d * vis
@@ -286,6 +298,98 @@ def check_flash(name, rng, b, t, dims, dtype, with_lse, causal=True,
     return res
 
 
+def check_flash_bwd(name, rng, b, t, dims, dtype, causal=True, window=None,
+                    q_offset=0, time_it=True):
+    """K3 through autograd (K1 forward, K3 backward) and as a direct call,
+    held against the fp32 plain backward on the same inputs (q, k, v, the
+    forward's out and lse, dO): fp32 within TOL_F32, bf16 by each gradient
+    row's relative error (both sides accumulate in fp32; the kernel rounds
+    dq/dk/dv to bf16 once). Rows that see no key must get exactly zero
+    gradients."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    h, kvh, d = dims
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    q, k, v = (torch.randn((b, t, n, d), generator=g, device=dev).to(dtype)
+               .requires_grad_() for n in (h, kvh, kvh))
+    do = torch.randn((b, t, h, d), generator=g, device=dev).to(dtype)
+    mask = (causal, q_offset, window)
+    before = fa.op_builder.launches["flash_attention_bwd"]
+    out = fa.flash_attention(q, k, v, *mask)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert fa.op_builder.launches["flash_attention_bwd"] == before + 1
+    q, k, v, out = q.detach(), k.detach(), v.detach(), out.detach()
+    _, lse = fa._forward(q, k, v, *mask)
+    direct = fa.flash_attention_bwd(q, k, v, out, lse, do, *mask)
+    for a, c in zip(grads, direct):
+        assert torch.equal(a, c), f"{name}: autograd and direct K3 differ"
+    # the backward's inputs are (q, k, v, out, lse, dO): the plain version
+    # gets the same values, widened to fp32
+    ref = fa.flash_attention_bwd_ref(*(x.float() for x in (q, k, v, out)),
+                                     lse, do.float(), *mask)
+    res = {"phase": "kernels", "check": name, "kernel": "flash_attention_bwd",
+           "dtype": str(dtype).replace("torch.", ""),
+           "shape": {"B": b, "T": t, "H": h, "KvH": kvh, "D": d,
+                     "causal": causal, "window": window,
+                     "q_offset": q_offset},
+           "max_abs_err": max(_err(a, c) for a, c in zip(grads, ref))}
+    ok = all(bool(torch.isfinite(a).all()) for a in grads)
+    if dtype == torch.float32:
+        res["tol"] = TOL_F32
+        ok = ok and all(torch.allclose(a, c, rtol=TOL_F32, atol=TOL_F32)
+                        for a, c in zip(grads, ref))
+    else:
+        res["row_rel_err"] = {n: _row_rel_err(a, c)
+                              for n, a, c in zip("qkv", grads, ref)}
+        res["tol"] = {"row_rel": TOL_BF16_ROW}
+        ok = ok and max(res["row_rel_err"].values()) <= TOL_BF16_ROW
+    dead = lse <= -1e29
+    res["rows_without_key"] = int(dead.sum())
+    if res["rows_without_key"]:
+        ok = ok and bool((grads[0][dead] == 0).all())
+    if not ok:
+        emit(dict(res, failed=True))
+        raise AssertionError(f"{name}: K3 disagrees with its plain version "
+                             f"beyond the stated tolerance")
+    if time_it:
+        itemsize = q.element_size()
+        vis = _visible_pairs(t, t, causal, window, q_offset, b, h)
+        # q, k, v, out, dO and lse read once; dq, dk, dv written once
+        nbytes = (3 * q.numel() + 3 * k.numel()) * itemsize \
+            + 2 * q.numel() * itemsize + lse.numel() * 4
+        # five products per visible pair: S, dP, dV, dK, dQ
+        flops = 10.0 * d * vis
+        res["kernel_ms"] = cuda_time_ms(
+            lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, *mask))
+        res["plain_ms"] = cuda_time_ms(
+            lambda: fa.flash_attention_bwd_ref(q, k, v, out, lse, do, *mask),
+            iters=3)
+        res["bound_ms"], res["bound_by"] = bound(nbytes, flops, res["dtype"])
+        res["library_ms"] = None
+        if window is None and q_offset == 0:
+            # SDPA's backward alone: forward + backward minus forward
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            dot = do.transpose(1, 2)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+            def sdpa_fwd_bwd():
+                torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+            with torch.no_grad():
+                fwd_ms = cuda_time_ms(sdpa)
+            res["library_ms"] = cuda_time_ms(sdpa_fwd_bwd) - fwd_ms
+            res["library_fwd_ms"] = fwd_ms
+    emit(res)
+    return res
+
+
 def phase_kernels(rng):
     import torch
     bf16, f32 = torch.bfloat16, torch.float32
@@ -304,6 +408,9 @@ def phase_kernels(rng):
                 [0, 0, 0, 0], bf16, True, path, serve_arena=True)
     out["fresh"] = check_flash("flash_fresh", rng, 8, 256, (32, 8, 128),
                                bf16, False)
+    # the training path's attention: Llama-3 1B heads, micro batch 4 x 2048
+    out["train_fwd"] = check_flash("flash_train", rng, 4, 2048,
+                                   (16, 8, 128), bf16, False)
     check_flash("flash_with_lse", rng, 8, 256, (32, 8, 128), bf16, True)
     # fp32: long-context decode at the path's heads, then small shapes with
     # ragged lengths, windows, offsets, dh 64, bs 8 and 16, and a row tile
@@ -320,6 +427,22 @@ def phase_kernels(rng):
                 False, window=40, q_offset=3, time_it=False)
     check_flash("flash_small_noncausal_f32", rng, 1, 70, (2, 2, 64), f32,
                 False, causal=False, time_it=False)
+    # K3: the training path's shape in bf16 (Llama-3 1B: 16 q / 8 kv heads,
+    # dh 128, micro batch 4 x 2048), then fp32 cases: GQA, ragged T, dh 64,
+    # non-causal, window, q_offset and rows that see no key
+    out["bwd"] = check_flash_bwd("flash_bwd_path", rng, 4, 2048,
+                                 (16, 8, 128), bf16)
+    for name, b, t, dims, kw in (
+            ("flash_bwd_gqa_f32", 2, 100, (4, 2, 64), {}),
+            ("flash_bwd_noncausal_f32", 1, 70, (4, 2, 128),
+             {"causal": False}),
+            ("flash_bwd_window_f32", 2, 150, (4, 2, 128),
+             {"window": 40, "q_offset": 3}),
+            ("flash_bwd_q_offset_f32", 1, 90, (2, 1, 64), {"q_offset": 5}),
+            ("flash_bwd_no_key_f32", 1, 80, (4, 2, 64), {"q_offset": -20}),
+            ("flash_bwd_window_no_key_f32", 2, 64, (4, 2, 128),
+             {"window": 8, "q_offset": 60})):
+        check_flash_bwd(name, rng, b, t, dims, f32, time_it=False, **kw)
     return out
 
 
@@ -473,7 +596,8 @@ def phase_serve():
     assert st["split"]["launches"]["paged_attention"] > 0
     assert st["decode"]["launches"]["paged_attention"] > 0
     assert st["decode"]["launches"]["flash_attention_fwd"] == 0
-    assert all(v > 0 for v in launches.values()), launches
+    assert all(launches[k] > 0 for k in SERVE_KERNELS), launches
+    assert launches["flash_attention_bwd"] == 0, launches
 
     def rate(kinds, src):
         tok = sum(src[k]["tokens"] for k in kinds if k in src)
@@ -495,6 +619,170 @@ def phase_serve():
           "stats": st, "launches": launches,
           "launches_per_decode_step": per_step,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6: train_batch on the card against the CPU at full width
+# ---------------------------------------------------------------------------
+
+#: the training phases' model and config (bench.py:726-775 minus the
+#: TPU-only knobs: no ZeRO, no save_attn_kernel remat, fp32 CE logits)
+TRAIN_MODEL = ("1b", {"max_seq_len": 2048, "tie_embeddings": True})
+TRAIN_MICRO, TRAIN_GAS, TRAIN_SEQ = 4, 2, 2048
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
+
+
+def _to_cpu(tree):
+    return {k: _to_cpu(v) for k, v in tree.items()} \
+        if isinstance(tree, dict) else tree.detach().cpu()
+
+
+def phase_train_full_width():
+    """Two train_batch steps of a depth-2 model at Llama-3-1B width (tied
+    head), fp32: on the card (K1 + K3) and on the CPU (plain versions)
+    from one seeded parameter tree and the same batches. AdamW, clip 1.0,
+    gas 2, micro batch 1, T 256.
+
+    Tolerances: losses 1e-4 relative, parameters 1e-4 absolute. Both sides
+    are fp32 (TF32 off) and differ by summation order. The lr is 1e-5:
+    Adam's update is ~lr × sign(m) wherever a gradient sits at rounding
+    level, so two correct runs may differ by up to 2 lr per step there;
+    at 1e-5 that stays inside the limit, while a wrong gradient moves the
+    loss and the updates far beyond it."""
+    import torch
+    from deepspeed_tpu_torch import initialize, llama3_config
+    from deepspeed_tpu_torch.models.transformer import init_params
+    from deepspeed_tpu_torch.ops import op_builder
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = llama3_config("1b", num_layers=2, max_seq_len=256,
+                        tie_embeddings=True)
+    conf = {"train_micro_batch_size_per_gpu": 1,
+            "gradient_accumulation_steps": 2,
+            "optimizer": {"type": "adamw",
+                          "params": {"lr": 1e-5, "weight_decay": 0.1}},
+            "gradient_clipping": 1.0, "attention_impl": "auto"}
+    init = init_params(cfg, torch.Generator(device=DEV).manual_seed(6),
+                       torch.float32, DEV)
+    init_cpu = _to_cpu(init)
+    rng = np.random.default_rng(6)
+    data = [{"input_ids": rng.integers(0, cfg.vocab_size, size=(1, 256))
+             .astype(np.int32)} for _ in range(4)]
+    runs = {}
+    for where in ("card", "cpu"):
+        dev = DEV if where == "card" else "cpu"
+        eng, _, _, _ = initialize(cfg, dict(conf), params=(
+            init if where == "card" else init_cpu), device=dev)
+        op_builder.reset_launches()
+        t0 = time.perf_counter()
+        losses = [float(eng.train_batch(iter(data[2 * s:2 * s + 2])))
+                  for s in range(2)]
+        runs[where] = {"losses": losses, "params": _to_cpu(eng.params),
+                       "seconds": time.perf_counter() - t0,
+                       "launches": dict(op_builder.launches),
+                       "grad_norm": eng.get_global_grad_norm()}
+        del eng
+    del init
+    torch.cuda.empty_cache()
+    card, cpu = runs["card"], runs["cpu"]
+    assert all(card["launches"][k] == 2 * 2 * cfg.num_layers
+               for k in TRAIN_KERNELS), card["launches"]
+    assert not any(cpu["launches"].values()), cpu["launches"]
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(card["losses"], cpu["losses"]))
+
+    def leaves(tree):
+        return [x for v in tree.values() for x in leaves(v)] \
+            if isinstance(tree, dict) else [tree]
+
+    param_err = max(_err(a, b) for a, b in zip(leaves(card["params"]),
+                                               leaves(cpu["params"])))
+    moved = max(_err(a, b) for a, b in zip(leaves(card["params"]),
+                                           leaves(init_cpu)))
+    res = {"phase": "train_full_width", "model": "llama3-1b-width-depth2",
+           "dtype": "float32", "losses_card": card["losses"],
+           "losses_cpu": cpu["losses"], "loss_rel_err": loss_rel,
+           "param_max_abs_err": param_err, "param_max_update": moved,
+           "grad_norm_card": card["grad_norm"],
+           "grad_norm_cpu": cpu["grad_norm"], "tol": 1e-4,
+           "seconds_card": card["seconds"], "seconds_cpu": cpu["seconds"],
+           "launches": card["launches"]}
+    emit(res)
+    assert all(np.isfinite(card["losses"]))
+    assert loss_rel <= 1e-4 and param_err <= 1e-4, res
+
+
+# ---------------------------------------------------------------------------
+# phase 7: train the bench model at full depth in bf16
+# ---------------------------------------------------------------------------
+
+def phase_train():
+    """Llama-3 1B (the repo's training bench model, bench.py:726-775) at
+    full width and depth in bf16 with random weights: 2 warm-up and 10
+    timed train_batch steps on one fixed seeded batch (micro batch 4 x gas
+    2 x 2048 tokens). The loss of a memorised batch must be finite at
+    every step and fall from ~ln(128256) = 11.76. Returns the kernels'
+    launch counts over the 12 steps."""
+    import torch
+    from deepspeed_tpu_torch import initialize, llama3_config
+    from deepspeed_tpu_torch.ops import op_builder
+    cfg = llama3_config(TRAIN_MODEL[0], **TRAIN_MODEL[1])
+    conf = {"train_micro_batch_size_per_gpu": TRAIN_MICRO,
+            "gradient_accumulation_steps": TRAIN_GAS,
+            "optimizer": {"type": "adamw",
+                          "params": {"lr": 1e-4, "weight_decay": 0.1}},
+            "gradient_clipping": 1.0, "bf16": {"enabled": True},
+            "activation_checkpointing": {"policy": "none"},
+            "attention_impl": "auto", "steps_per_print": 1000}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng, _, _, _ = initialize(cfg, conf, generator=torch.Generator(
+        device=DEV).manual_seed(0), device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    rng = np.random.default_rng(7)
+    batch = [{"input_ids": rng.integers(0, cfg.vocab_size,
+                                        size=(TRAIN_MICRO, TRAIN_SEQ))
+              .astype(np.int32)} for _ in range(TRAIN_GAS)]
+
+    # the main path: every count set to 0 just before, read just after
+    op_builder.reset_launches()
+    losses, step_s = [], []
+    for step in range(TRAIN_WARMUP + TRAIN_STEPS):
+        t1 = time.perf_counter()
+        loss = eng.train_batch(iter(batch))
+        losses.append(float(loss))           # syncs: the step is done
+        step_s.append(time.perf_counter() - t1)
+    launches = dict(op_builder.launches)
+
+    timed = step_s[TRAIN_WARMUP:]
+    ms = 1e3 * sum(timed) / len(timed)
+    tokens = TRAIN_MICRO * TRAIN_GAS * TRAIN_SEQ
+    res = {"phase": "train", "model": "llama3-" + TRAIN_MODEL[0],
+           "dtype": "bfloat16", "params": cfg.num_params(),
+           "micro_batch": TRAIN_MICRO, "gas": TRAIN_GAS, "seq": TRAIN_SEQ,
+           "init_seconds": init_s, "state_gb": state_gb,
+           "losses": losses, "step_seconds": step_s,
+           "ms_per_step": ms, "ms_per_step_min": 1e3 * min(timed),
+           "ms_per_step_max": 1e3 * max(timed),
+           "tokens_per_s": tokens / (ms / 1e3),
+           "model_tflops_per_s": 6.0 * cfg.num_params() * tokens
+           / (ms / 1e3) / 1e12,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "grad_norm": eng.get_global_grad_norm(), "launches": launches}
+    emit(res)
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    layers_micro = cfg.num_layers * TRAIN_GAS * steps
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+    assert all(launches[k] == layers_micro for k in TRAIN_KERNELS), launches
+    assert launches["paged_attention"] == 0, launches
+    del eng
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -531,18 +819,29 @@ def main() -> int:
     if "--kernels-only" in sys.argv[1:]:
         return 0
     phase_full_width()
-    launches = phase_serve()
+    serve = phase_serve()
+    phase_train_full_width()
+    train = phase_train()
 
+    # launches: over both main paths (serving, phase 5; training, phase 7),
+    # each read around its own run; K1's times are at the training shape,
+    # its serving-shape times are in phase 3's flash_fresh line
     kernels = []
     for name, src, replaces, res in (
             ("flash_attention_fwd",
              "deepspeed_tpu_torch/ops/csrc/flash_attention.cu",
-             "deepspeed_tpu/ops/flash_attention.py:71", timed["fresh"]),
+             "deepspeed_tpu/ops/flash_attention.py:71", timed["train_fwd"]),
             ("paged_attention",
              "deepspeed_tpu_torch/ops/csrc/paged_attention.cu",
-             "deepspeed_tpu/ops/paged_attention.py:235", timed["decode"])):
+             "deepspeed_tpu/ops/paged_attention.py:235", timed["decode"]),
+            ("flash_attention_bwd",
+             "deepspeed_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+             "deepspeed_tpu/ops/flash_attention.py:330", timed["bwd"])):
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces,
+                        "launches": serve[name] + train[name],
+                        "launches_by_path": {"serve": serve[name],
+                                             "train": train[name]},
                         "max_abs_err": res["max_abs_err"],
                         "ms": res["kernel_ms"], "plain_ms": res["plain_ms"],
                         "bound_ms": res["bound_ms"],

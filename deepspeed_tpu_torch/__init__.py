@@ -6,13 +6,19 @@ a kernel written by hand for NVIDIA Hopper (``ops/csrc``). This package
 imports ``torch``, never ``jax`` and nothing of ``deepspeed_tpu``.
 
 The first slice serves dense decoders through the ragged paged-KV engine
-(``RaggedInferenceEngine``, the port of ``RaggedInferenceEngineTPU``).
+(``RaggedInferenceEngine``, the port of ``RaggedInferenceEngineTPU``); the
+second trains them on one device through ``initialize`` and
+``DeepSpeedEngine.train_batch`` (the port of ``DeepSpeedTPUEngine``).
 """
 
 from deepspeed_tpu_torch.inference.engine_v2 import (RaggedInferenceConfig,
                                                      RaggedInferenceEngine)
 from deepspeed_tpu_torch.models.llama import llama3_config
 from deepspeed_tpu_torch.models.transformer import DecoderConfig
+from deepspeed_tpu_torch.config.config import DeepSpeedConfig
+from deepspeed_tpu_torch.runtime.engine import (DeepSpeedEngine, ModelSpec,
+                                                initialize)
 
 __all__ = ["RaggedInferenceEngine", "RaggedInferenceConfig",
-           "DecoderConfig", "llama3_config"]
+           "DecoderConfig", "llama3_config", "initialize", "DeepSpeedEngine",
+           "DeepSpeedConfig", "ModelSpec"]

@@ -1,10 +1,15 @@
-"""Model code of the port (serving subset of the decoder core)."""
+"""Model code of the port (decoder core for serving and training)."""
 
-from deepspeed_tpu_torch.models.convert import params_from_jax
+from deepspeed_tpu_torch.models.convert import params_from_jax, params_to_numpy
 from deepspeed_tpu_torch.models.llama import llama3_config
 from deepspeed_tpu_torch.models.transformer import (DecoderConfig,
+                                                    chunked_cross_entropy,
+                                                    cross_entropy_loss,
                                                     dot_product_attention,
+                                                    forward, forward_hidden,
                                                     init_params, lm_logits)
 
-__all__ = ["DecoderConfig", "init_params", "lm_logits",
-           "dot_product_attention", "llama3_config", "params_from_jax"]
+__all__ = ["DecoderConfig", "init_params", "lm_logits", "forward",
+           "forward_hidden", "chunked_cross_entropy", "cross_entropy_loss",
+           "dot_product_attention", "llama3_config", "params_from_jax",
+           "params_to_numpy"]

@@ -1,11 +1,13 @@
-"""Parameter trees from the JAX package into the port.
+"""Parameter trees between the JAX package and the port.
 
 The JAX package's ``init_params`` tree (transformer.py:721) is a nested
 dict whose leaves are arrays in the layout this port keeps: stacked
 ``params["layers"]`` with ``[L, in, out]`` linears. Given that tree with
 its leaves already fetched to numpy (``jax.device_get`` or
 ``np.asarray`` per leaf), :func:`params_from_jax` rebuilds the same nesting
-with torch tensors, so both packages compute the same function.
+with torch tensors, so both packages compute the same function;
+:func:`params_to_numpy` goes back, so a test can hold the port's trained
+parameters leaf by leaf against the JAX engine's.
 """
 
 from typing import Any, Optional, Union
@@ -40,3 +42,14 @@ def params_from_jax(np_tree: Any, device: Optional[Union[str, torch.device]]
         return _leaf(node, dev, dtype)
 
     return conv(np_tree)
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """Nested dict of torch tensors → the same nesting of numpy arrays
+    (fp32 for floating leaves, detached, on the host)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach()
+    if t.is_floating_point():
+        t = t.float()
+    return t.cpu().numpy()

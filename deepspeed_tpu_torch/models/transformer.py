@@ -1,4 +1,4 @@
-"""Functional decoder-only transformer core — the serving subset.
+"""Functional decoder-only transformer core — serving and training.
 
 Port of ``deepspeed_tpu/models/transformer.py``. Parameters are a plain
 nested dict of tensors in the JAX package's layout: per-layer weights are
@@ -8,18 +8,25 @@ JAX's ``[B, T, H, Dh]`` head layout, so a parameter tree converted with
 :func:`deepspeed_tpu_torch.models.convert.params_from_jax` computes the
 same function in both packages.
 
-What this slice carries: ``DecoderConfig``, norms, embeddings, RoPE, the
+What the port carries: ``DecoderConfig``, norms, embeddings, RoPE, the
 plain attention, the dense MLP and attention projections, the dense
-residual combine, ``init_params`` and ``lm_logits``. MoE layers and
-weight-only quantized linears raise ``NotImplementedError``.
+residual combine, ``init_params`` and ``lm_logits`` (serving); and the
+training forward: ``decoder_block``, ``forward_hidden``
+and ``forward`` over the stacked layers (per-block recompute for the
+``"full"`` remat policy), ``chunked_cross_entropy`` (each chunk's logits
+recomputed in backward) and ``cross_entropy_loss``. MoE layers,
+weight-only quantized linears, ALiBi, encoder extras and the named
+save/offload remat policies raise ``NotImplementedError``.
 """
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from functools import partial
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 Params = Dict[str, Any]
 
@@ -285,6 +292,48 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, tq, h, dh)
 
 
+AttentionFn = Callable[..., torch.Tensor]
+
+
+def default_attention(cfg: DecoderConfig) -> AttentionFn:
+    """Config-correct plain attention (transformer.py:405): encoders get
+    the causal mask dropped, sliding-window models their window. ALiBi is
+    not ported."""
+    if cfg.pos_emb == "alibi":
+        raise NotImplementedError(
+            "ALiBi attention is not ported to deepspeed_tpu_torch yet")
+    if not cfg.causal:
+        return partial(dot_product_attention, causal=False)
+    if cfg.sliding_window is not None:
+        return partial(dot_product_attention, window=cfg.sliding_window)
+    return dot_product_attention
+
+
+#: the JAX package's remat policy names (transformer.py:426) that save or
+#: offload named residuals; the port recomputes whole blocks only
+_NAMED_REMAT_POLICIES = (
+    "dots_saveable", "nothing_saveable", "dots_with_no_batch_dims_saveable",
+    "save_attn_out", "save_attn_kernel", "save_attn_kernel_moe_glu",
+    "save_attn_qkv", "save_attn_kernel_qkv", "offload_attn_out",
+    "offload_attn_qkv", "offload_full", "offload_save_attn_out",
+    "offload_save_attn_kernel", "offload_save_attn_kernel_host")
+
+
+def resolve_remat_policy(name: Optional[str]) -> None:
+    """Check a config policy name (transformer.py:426): 'none' (or None)
+    keeps every activation, 'full' recomputes each block in backward
+    (``jax.checkpoint`` with no saved names). Both resolve to None, the
+    "save nothing extra" policy; the named save/offload policies raise."""
+    if name is None or name in ("none", "full"):
+        return None
+    if name in _NAMED_REMAT_POLICIES:
+        raise NotImplementedError(
+            f"remat policy '{name}' is not ported to deepspeed_tpu_torch "
+            f"yet ('none' and 'full' are)")
+    raise ValueError(f"unknown remat policy '{name}'; known: "
+                     f"{sorted(('none', 'full') + _NAMED_REMAT_POLICIES)}")
+
+
 # ---------------------------------------------------------------------------
 # Block
 # ---------------------------------------------------------------------------
@@ -370,6 +419,25 @@ def block_combine(cfg: DecoderConfig, p: Params, x: torch.Tensor,
     return h + ffn(_norm(cfg, p["ln2"], h))
 
 
+def decoder_block(cfg: DecoderConfig, p: Params, x: torch.Tensor, sin, cos,
+                  attn_fn: AttentionFn, moe_fn: Optional[Callable] = None,
+                  layer_window: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One pre-/post-LN block (transformer.py:631) → (hidden, aux_loss);
+    aux is 0 for the dense blocks this port runs."""
+    if moe_fn is not None or cfg.health_taps:
+        raise NotImplementedError(
+            "MoE blocks and health taps are not ported to "
+            "deepspeed_tpu_torch yet")
+    pre = _norm(cfg, p["ln1"], x) if cfg.prenorm else x
+    q, k, v = qkv_project(cfg, p["attn"], pre, sin, cos)
+    out = attn_fn(q, k, v) if layer_window is None \
+        else attn_fn(q, k, v, window=layer_window)
+    attn_out = attn_out_project(cfg, p["attn"], out)
+    return (block_combine(cfg, p, x, pre, attn_out),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -453,20 +521,41 @@ def _softcap(cfg: DecoderConfig, logits: torch.Tensor) -> torch.Tensor:
     return logits
 
 
+class _MatmulF32(torch.autograd.Function):
+    """x [M, K] @ w [K, N] → fp32 for low-precision x and w: the GEMM sums
+    the exact products in fp32 and returns them unrounded, as XLA's
+    ``preferred_element_type=float32``. On CUDA the GEMM writes fp32 itself
+    (``out_dtype``); the CPU, which lacks that overload, widens the inputs
+    first, which gives the same exact products. The backward takes the
+    fp32 gradient to the inputs' dtype and runs two GEMMs of that dtype
+    (fp32 accumulation inside), so the head's gradient costs no fp32 copy
+    of the [V, D] weight."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if x.is_cuda:
+            return torch.mm(x, w, out_dtype=torch.float32)
+        return torch.mm(x.float(), w.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = torch.mm(g, w.t()) if ctx.needs_input_grad[0] else None
+        dw = torch.mm(x.t(), g) if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
 def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [..., K] @ w [K, N] with an fp32 result of the inputs' products
-    (XLA's ``preferred_element_type=float32``): a bf16 product is never
-    rounded to bf16 before the cast. On CUDA the GEMM writes fp32 itself
-    (``out_dtype``); on the CPU, which lacks that overload, the bf16
-    inputs are widened first, which gives the same exact products."""
+    (see :class:`_MatmulF32`); fp32 inputs take a plain matmul."""
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return torch.matmul(x, w)
+    if x.dtype != w.dtype:
+        raise ValueError(f"_matmul_f32: x is {x.dtype} but w is {w.dtype}")
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda:
-        y = torch.mm(x2, w, out_dtype=torch.float32)
-    else:
-        y = torch.mm(x2.float(), w.float())
+    y = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w)
     return y.reshape(*lead, w.shape[-1])
 
 
@@ -486,3 +575,184 @@ def lm_logits(cfg: DecoderConfig, params: Params, x: torch.Tensor
         if "lm_head_bias" in params:
             logits = logits + params["lm_head_bias"].float()
     return _softcap(cfg, logits)
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+def unstack_layers(layers: Params, num_layers: int) -> List[Params]:
+    """The stacked ``[L, ...]`` layer tree as L per-layer trees of views.
+    One ``torch.unbind`` per leaf: its backward is a single ``stack``,
+    where indexing ``leaf[l]`` per layer would allocate a zero gradient
+    of the whole leaf for each layer."""
+    per_leaf = {}
+
+    def split(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                split(prefix + (k,), v)
+        else:
+            if node.shape[0] != num_layers:
+                raise ValueError(f"layer leaf {'/'.join(prefix)} has leading "
+                                 f"dim {node.shape[0]}, not {num_layers}")
+            per_leaf[prefix] = torch.unbind(node, 0)
+
+    split((), layers)
+
+    def build(prefix, node, l_idx):
+        if isinstance(node, dict):
+            return {k: build(prefix + (k,), v, l_idx)
+                    for k, v in node.items()}
+        return per_leaf[prefix][l_idx]
+
+    return [build((), layers, l) for l in range(num_layers)]
+
+
+def forward_hidden(cfg: DecoderConfig, params: Params, tokens: torch.Tensor,
+                   attn_fn: Optional[AttentionFn] = None,
+                   positions: Optional[torch.Tensor] = None,
+                   remat_policy: Optional[str] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B, T] int → (final-norm hidden [B, T, D], aux loss) —
+    transformer.py:838. The JAX ``lax.scan`` over the stacked layers is a
+    loop over :func:`unstack_layers`; ``remat_policy="full"`` runs each
+    block under ``torch.utils.checkpoint`` (recomputed in backward, as
+    ``jax.checkpoint`` on the scan body)."""
+    if cfg.num_experts:
+        raise NotImplementedError(
+            "MoE layers are not ported to deepspeed_tpu_torch yet")
+    resolve_remat_policy(remat_policy)
+    remat = remat_policy not in (None, "none")
+    if attn_fn is None:
+        attn_fn = default_attention(cfg)
+    b, t = tokens.shape
+    if positions is None:
+        positions = torch.arange(t, dtype=torch.int32,
+                                 device=tokens.device)[None].expand(b, t)
+    x = embed_tokens(cfg, params["embed"], tokens, positions,
+                     params.get("embed_norm"))
+    if cfg.pos_emb == "rope":
+        sin, cos = rope_table(cfg, positions)
+    else:
+        sin = cos = torch.zeros((b, t, 0), dtype=x.dtype, device=x.device)
+    windows = cfg.window_per_layer() if cfg.layer_window_pattern \
+        else [None] * cfg.num_layers
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp, w in zip(unstack_layers(params["layers"], cfg.num_layers),
+                     windows):
+        if remat and torch.is_grad_enabled():
+            x, a = checkpoint(decoder_block, cfg, lp, x, sin, cos, attn_fn,
+                              None, w, use_reentrant=False)
+        else:
+            x, a = decoder_block(cfg, lp, x, sin, cos, attn_fn, None, w)
+        aux = aux + a
+    if cfg.has_final_norm:
+        x = _norm(cfg, params["final_norm"], x)
+    return x, aux
+
+
+def forward(cfg: DecoderConfig, params: Params, tokens: torch.Tensor,
+            attn_fn: Optional[AttentionFn] = None,
+            positions: Optional[torch.Tensor] = None,
+            remat_policy: Optional[str] = None,
+            with_aux: bool = False):
+    """tokens → logits [B, T, V] fp32 (transformer.py:968); with_aux: plus
+    the aux loss."""
+    x, aux = forward_hidden(cfg, params, tokens, attn_fn=attn_fn,
+                            positions=positions, remat_policy=remat_policy)
+    logits = lm_logits(cfg, params, x)
+    return (logits, aux) if with_aux else logits
+
+
+#: dense (unchunked) logits are taken up to this size only: an unchunked
+#: CE keeps its logits for backward (transformer.py:992)
+_DENSE_LOGITS_BYTES = 128 * 1024 * 1024
+_DEFAULT_CE_BUDGET = 512 * 1024 * 1024
+
+
+def _pick_chunk(t: int, b: int, v: int, budget_bytes: Optional[int] = None,
+                max_chunk: Optional[int] = None, elt_bytes: int = 4) -> int:
+    """Largest divisor of T (<= max_chunk) whose logits chunk fits the
+    budget (transformer.py:995; default 512 MB)."""
+    if budget_bytes is None:
+        budget_bytes = _DEFAULT_CE_BUDGET
+    best = 1
+    for c in range(1, (max_chunk or t) + 1):
+        if t % c == 0 and b * c * v * elt_bytes <= budget_bytes:
+            best = c
+    return best
+
+
+def _ce_chunk(cfg: DecoderConfig, w: torch.Tensor,
+              bias: Optional[torch.Tensor], xc: torch.Tensor,
+              tc: torch.Tensor, ignore_index: int,
+              out_dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(nll sum, token count) of one chunk — the body of the JAX scan
+    (transformer.py:1066)."""
+    logits = _matmul_f32(xc, w.t() if cfg.tie_embeddings else w)
+    if bias is not None:
+        logits = logits + bias.float()
+    logits = _softcap(cfg, logits.to(out_dtype))
+    mask = tc != ignore_index
+    safe = torch.where(mask, tc, torch.zeros_like(tc)).long()
+    logz = torch.logsumexp(logits.float(), dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0].float()
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def chunked_cross_entropy(cfg: DecoderConfig, params: Params,
+                          x: torch.Tensor, targets: torch.Tensor,
+                          ignore_index: int = -100,
+                          chunk_size: Optional[int] = None,
+                          budget_bytes: Optional[int] = None,
+                          logits_dtype: Optional[torch.dtype] = None
+                          ) -> torch.Tensor:
+    """Token-mean CE without materializing [B, T, V] logits
+    (transformer.py:1017). The sequence runs in chunks, each under
+    ``torch.utils.checkpoint`` as the JAX ``jax.checkpoint`` body, so
+    backward recomputes each chunk's logits and peak memory holds one
+    chunk. ``logits_dtype=torch.bfloat16`` emits chunk logits in bf16
+    (reductions stay fp32)."""
+    if cfg.mlm_head:
+        raise NotImplementedError(
+            "masked-LM heads are not ported to deepspeed_tpu_torch yet")
+    b, t, _ = x.shape
+    v = cfg.vocab_size
+    eb = 2 if logits_dtype == torch.bfloat16 else 4
+    chunk = chunk_size or _pick_chunk(t, b, v, budget_bytes, elt_bytes=eb)
+    if chunk >= t and chunk_size is None and \
+            b * t * v * 4 > _DENSE_LOGITS_BYTES:
+        chunk = _pick_chunk(t, b, v, budget_bytes, max_chunk=t // 2,
+                            elt_bytes=eb)
+    if chunk >= t:
+        return cross_entropy_loss(lm_logits(cfg, params, x), targets,
+                                  ignore_index)
+    if t % chunk:
+        raise ValueError(f"chunk_size {chunk} does not divide T={t}")
+    w = params["embed"]["tokens"] if cfg.tie_embeddings \
+        else params["lm_head"]
+    bias = None if cfg.tie_embeddings else params.get("lm_head_bias")
+    out_dtype = logits_dtype or torch.float32
+    nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=x.device)
+    for c0 in range(0, t, chunk):
+        args = (cfg, w, bias, x[:, c0:c0 + chunk], targets[:, c0:c0 + chunk],
+                ignore_index, out_dtype)
+        if torch.is_grad_enabled():
+            n, c = checkpoint(_ce_chunk, *args, use_reentrant=False)
+        else:
+            n, c = _ce_chunk(*args)
+        nll, cnt = nll + n, cnt + c
+    return nll / cnt.clamp_min(1)
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       ignore_index: int = -100) -> torch.Tensor:
+    """Token-mean CE in fp32 (transformer.py:1095)."""
+    logits = logits.float()
+    mask = targets != ignore_index
+    safe = torch.where(mask, targets, torch.zeros_like(targets)).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    return ((logz - gold) * mask).sum() / mask.sum().clamp_min(1)

@@ -147,7 +147,8 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 #: kernel launches since the last reset, one count per kernel: a wrapper
 #: adds one where it launches its kernel and nowhere else, so a run can
 #: show which kernels its path went through
-launches: Dict[str, int] = {"flash_attention_fwd": 0, "paged_attention": 0}
+launches: Dict[str, int] = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                            "paged_attention": 0}
 
 
 def reset_launches() -> None:

@@ -65,8 +65,13 @@ def test_q_offset_and_rows_without_keys():
 
 
 def test_forward_only_and_window_checks():
+    """Without a gradient the call is the forward alone; with one it goes
+    through the autograd Function (K1 forward + K3 backward on CUDA) and
+    gives the same output. A window must be positive."""
     q, k, v = (torch.from_numpy(a) for a in _inputs(4, t=8, d=64))
-    with pytest.raises(RuntimeError, match="forward-only"):
-        tfa.flash_attention(q.requires_grad_(), k, v)
+    plain = tfa.flash_attention(q, k, v)
+    out = tfa.flash_attention(q.clone().requires_grad_(), k, v)
+    assert out.requires_grad and out.grad_fn is not None
+    torch.testing.assert_close(out.detach(), plain, rtol=0, atol=0)
     with pytest.raises(ValueError, match="window"):
         tfa.flash_attention(q.detach(), k, v, window=0)

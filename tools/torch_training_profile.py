@@ -1,0 +1,185 @@
+#!/usr/bin/env python3
+"""Where a training step's time goes: deepspeed_tpu_torch on one NVIDIA GPU.
+
+Builds the engine of ``chip_smoke.py`` phase 7 (Llama-3 1B, tied head,
+bf16, random weights from a seeded generator; micro batch 4 x gas 2 x
+2048 tokens, AdamW, clip 1.0, remat none, attention "auto") through
+``initialize``, warms up, and runs ``STEPS`` ``train_batch`` steps twice
+on one fixed batch: untraced, and under ``torch.profiler``. It prints one
+JSON line: the untraced wall time per step and, from the traced window
+alone, the wall time per step, the device time per step by class and the
+device's idle share, 1 - device time / wall time of that same window (one
+stream, so the device time cannot exceed the wall time).
+
+Classes: the port's kernels by name (K1 ``flash_fwd_kernel``, K3
+``flash_bwd_dq_kernel`` / ``flash_bwd_dkv_kernel``), cuBLAS GEMMs by name,
+and the rest by the code that launched it: "ce" for the chunked
+cross-entropy's non-GEMM kernels (its forward, its recompute and the
+backward of its ops, linked through the autograd sequence numbers),
+"optimizer" for the update pass (grad scaling, norm, clip, AdamW), and
+"other" (norms, RoPE, SiLU, residuals, embedding, grad accumulation,
+copies). The per-kernel table goes to
+``chiprun_out/torch_training_profile.txt``.
+
+Run from the root of a checkout on a machine with one GPU:
+``python3 tools/torch_training_profile.py``.
+"""
+
+import json
+import os
+import sys
+import time
+
+import numpy as np
+
+MICRO, GAS, SEQ = 4, 2, 2048
+WARMUP, STEPS = 2, 2
+_CE, _OPT = "dstt::ce", "dstt::optimizer"
+
+
+def _kernel_class(name: str) -> str:
+    low = name.lower()
+    if "flash_fwd_kernel" in name:
+        return "flash_attention_fwd (K1)"
+    if "flash_bwd_dq_kernel" in name or "flash_bwd_dkv_kernel" in name:
+        return "flash_attention_bwd (K3)"
+    if any(s in low for s in ("gemm", "cutlass", "nvjet", "sm90_xmma",
+                              "cublas")):
+        return "gemm (cuBLAS)"
+    if "memcpy" in low or "memset" in low:
+        return "memcpy/memset"
+    return "rest"
+
+
+def _breakdown(prof, steps: int):
+    """Device microseconds by class, and the per-kernel rows."""
+    from torch.autograd import DeviceType
+    events = prof.events()
+    by_class, rows = {}, {}
+    for e in events:
+        # the two labels also appear as device-side annotation ranges that
+        # span their kernels: counting them would count those kernels twice
+        if e.device_type != DeviceType.CUDA or e.name in (_CE, _OPT):
+            continue
+        dur = e.time_range.end - e.time_range.start
+        cls = _kernel_class(e.name)
+        by_class[cls] = by_class.get(cls, 0.0) + dur
+        n, c = rows.get(e.name, (0.0, 0))
+        rows[e.name] = (n + dur, c + 1)
+
+    def ancestors(e):
+        while e is not None:
+            yield e
+            e = e.cpu_parent
+
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    # forward ops of the CE chunks: (thread, sequence number) of their
+    # autograd nodes, which the backward's evaluate_function events carry
+    # as (fwd_thread, sequence_nr)
+    ce_seq = {(e.thread, e.sequence_nr) for e in cpu if e.sequence_nr >= 0
+              and any(a.name == _CE for a in ancestors(e))}
+    split = {"cross_entropy (non-GEMM)": 0.0, "optimizer": 0.0}
+    for e in cpu:
+        if not e.kernels:
+            continue
+        anc = list(ancestors(e))
+        names = {a.name for a in anc}
+        if _OPT in names:
+            cls = "optimizer"
+        elif _CE in names or any(
+                a.name.startswith("autograd::engine::evaluate_function")
+                and (a.fwd_thread, a.sequence_nr) in ce_seq for a in anc):
+            cls = "cross_entropy (non-GEMM)"
+        else:
+            continue
+        split[cls] += sum(k.duration for k in e.kernels
+                          if _kernel_class(k.name) == "rest")
+    rest = by_class.pop("rest", 0.0)
+    by_class.update(split)
+    by_class["other (norms, rope, silu, residuals, embedding, grad acc)"] = \
+        rest - sum(split.values())
+    per_step = {k: v / 1e3 / steps for k, v in sorted(
+        by_class.items(), key=lambda kv: -kv[1])}
+    return per_step, sorted(((v[0], v[1], k) for k, v in rows.items()),
+                            reverse=True)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_training_profile: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from deepspeed_tpu_torch import initialize, llama3_config
+    from deepspeed_tpu_torch.models import transformer
+
+    cfg = llama3_config("1b", max_seq_len=SEQ, tie_embeddings=True)
+    conf = {"train_micro_batch_size_per_gpu": MICRO,
+            "gradient_accumulation_steps": GAS,
+            "optimizer": {"type": "adamw",
+                          "params": {"lr": 1e-4, "weight_decay": 0.1}},
+            "gradient_clipping": 1.0, "bf16": {"enabled": True},
+            "activation_checkpointing": {"policy": "none"},
+            "attention_impl": "auto"}
+    eng, _, _, _ = initialize(cfg, conf, generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    smi = os.popen("nvidia-smi --query-gpu=name,power.limit "
+                   "--format=csv,noheader").read().strip()
+
+    # label the CE chunks and the update pass for the profiler
+    ce_chunk, apply_update = transformer._ce_chunk, eng._apply_update
+
+    def traced_ce(*args):
+        with record_function(_CE):
+            return ce_chunk(*args)
+
+    def traced_update(*args):
+        with record_function(_OPT):
+            return apply_update(*args)
+
+    transformer._ce_chunk = traced_ce
+    eng._apply_update = traced_update
+
+    rng = np.random.default_rng(7)
+    batch = [{"input_ids": rng.integers(0, cfg.vocab_size, size=(MICRO, SEQ))
+              .astype(np.int32)} for _ in range(GAS)]
+
+    def steps(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            eng.train_batch(iter(batch))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    steps(WARMUP)
+    bare = steps(STEPS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = steps(STEPS)
+    per_class, rows = _breakdown(prof, STEPS)
+    device_ms = sum(per_class.values())
+    tokens = MICRO * GAS * SEQ
+    print(json.dumps({
+        "window": "train_batch", "card": smi, "model": "llama3-1b",
+        "dtype": "bfloat16", "micro_batch": MICRO, "gas": GAS, "seq": SEQ,
+        "steps": STEPS, "tokens_per_step": tokens,
+        "wall_ms_per_step": 1e3 * wall / STEPS,
+        "untraced_wall_ms_per_step": 1e3 * bare / STEPS,
+        "untraced_tokens_per_s": tokens * STEPS / bare,
+        "device_ms_per_step": device_ms,
+        "idle_share": 1.0 - device_ms / (1e3 * wall / STEPS),
+        "device_ms_per_step_by_class": per_class}), flush=True)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open("chiprun_out/torch_training_profile.txt", "w") as f:
+        f.write(f"== train_batch x {STEPS} ({smi}) device us, calls, "
+                f"kernel\n")
+        for dev_us, count, key in rows[:60]:
+            f.write(f"{dev_us:12.1f} {count:7d}  {key[:150]}\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
