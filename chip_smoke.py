@@ -11,14 +11,29 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    decode and at small fp32 shapes, and times the kernel, the plain
    version, the card's bound for the same work and, for flash attention,
    ``scaled_dot_product_attention`` (forward, and backward alone) as a
-   yardstick (tolerances at ``TOL_F32``);
+   yardstick (tolerances at ``TOL_F32``); the grouped GEMM kernels of the
+   dropless MoE FFN (gate/up, down) in bf16 at the Mixtral 8x7B and
+   Qwen1.5-MoE prefill shapes (2048 tokens, a random router) and in fp32
+   at small shapes (w given and not, an empty expert, all rows on one
+   expert, d and f off the tile and off the 16-byte vector), each kernel
+   alone and the whole FFN, with ``torch._grouped_mm`` (or a dense matmul
+   of the same rows) as the yardstick;
 4. runs ``ragged_forward`` for a depth-2 model at Llama-3-8B width in fp32
    on the card (kernels) and on the CPU (plain versions) — a fresh chunk, a
    split chunk and a decode step — and compares the logits, then checks
-   that the bf16 head returns unrounded fp32 logits;
+   that the bf16 head returns unrounded fp32 logits; then the same for a
+   depth-2 model at Mixtral 8x7B width: a fresh 4 x 256 chunk (1024
+   tokens: the dropless FFN, grouped kernels) and a decode step (the
+   capacity FFN);
 5. serves Llama-3 8B at full width and depth in bf16 (random weights from a
    seeded generator): ``generate`` on 8 ragged prompts and ``serve`` on 16
-   requests, with every kernel's launch count read around that run;
+   requests, with every kernel's launch count read around that run; then
+   Mixtral 8x7B at full width and 16 of its 32 layers (``generate`` on 8
+   prompts of 256-1024 tokens, whose first step of 8 x 256 tokens runs the
+   grouped kernels, and ``serve`` on 16 requests) and Qwen1.5-MoE-A2.7B at
+   full width and depth (``generate`` on 8 prompts of 256-512 tokens),
+   each with prefill tokens/s, decode ms per step, peak memory and the
+   launch counts read around its run;
 6. runs two ``train_batch`` steps of a depth-2 model at Llama-3-1B width in
    fp32 on the card (K1 + K3) and on the CPU (plain versions) from one
    parameter tree, and compares losses and updated parameters;
@@ -46,6 +61,14 @@ DEV = "cuda"
 SERVE_MODEL = ("8b", {})
 SERVE_BLOCKS = 512
 SERVE_KERNELS = ("flash_attention_fwd", "paged_attention")
+#: the MoE serving runs: (name, preset family, size, overrides, arena
+#: pages, prompt lengths, new tokens, serve requests)
+MOE_RUNS = (
+    ("mixtral-8x7b-16L", "mixtral", "8x7b", {"num_layers": 16}, 512,
+     [256, 1024, 512, 300, 768, 900, 400, 640], 32, 16),
+    ("qwen1.5-moe-a2.7b", "qwen2_moe", "a2.7b", {}, 128,
+     [256, 512, 300, 480, 384, 256, 400, 500], 16, 0))
+GROUPED_KERNELS = ("grouped_gate_up", "grouped_down")
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense bf16 tensor cores
@@ -390,6 +413,189 @@ def check_flash_bwd(name, rng, b, t, dims, dtype, causal=True, window=None,
     return res
 
 
+def _grouped_case(rng, s, k, e, d, f, dtype, kind):
+    """One dropless FFN call as the MoE layer makes it: x [S, d] ~ N(0, 1)
+    routed by a random router (top-k of softmax, renormalised) into the
+    aligned layout; weights ~ N(0, 1/fan-in). ``kind``: "router"; "empty"
+    (expert 0 never chosen); "one" (every slot on expert e - 1). Returns
+    (xs, (wg, wi, wo), (group_of_tile, sizes, live), w, experts used)."""
+    import torch
+    from deepspeed_tpu_torch.ops import grouped_matmul as tg
+    from deepspeed_tpu_torch.parallel.moe import GMM_BM, topk_gates_t
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    x = torch.randn((s, d), generator=g, device=dev)
+    logits_t = (x @ torch.randn((d, e), generator=g, device=dev)).t()
+    if kind == "empty":
+        logits_t[0] = -1e30
+    topv, topi = topk_gates_t(torch.softmax(logits_t / d ** 0.5, 0), k)
+    if kind == "one":
+        topi = torch.full_like(topi, e - 1)
+    topv = topv / topv.sum(0, keepdim=True)
+    tok, w, got, sizes, pos, live = tg.aligned_dispatch(
+        topi, topv.to(dtype), e, GMM_BM)
+    xs = tg.gather_rows(torch.cat([x, x.new_zeros((1, d))]).to(dtype),
+                        tok, pos)
+
+    def weight(shape, fan_in):
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        for i in range(shape[0]):
+            out[i] = (torch.randn(shape[1:], generator=g, device=dev)
+                      / fan_in ** 0.5).to(dtype)
+        return out
+
+    wg, wi = weight((e, d, f), d), weight((e, d, f), d)
+    wo = weight((e, f, d), f)
+    used = int(torch.unique(topi).numel())
+    return xs, (wg, wi, wo), (got, sizes, live), w, used
+
+
+def _hold_pair(res, key, out, ref) -> None:
+    """Errors of one output pair into ``res[key]``; a miss prints ``res``
+    and raises. fp32: allclose at TOL_F32; bf16: per-row relative error at
+    TOL_BF16_ROW."""
+    import torch
+    r = {"max_abs_err": _err(out, ref)}
+    ok = bool(torch.isfinite(out).all())
+    if out.dtype == torch.float32:
+        ok = ok and torch.allclose(out, ref, rtol=TOL_F32, atol=TOL_F32)
+    else:
+        r["row_rel_err"] = _row_rel_err(out, ref)
+        ok = ok and r["row_rel_err"] <= TOL_BF16_ROW
+    res[key] = r
+    if not ok:
+        emit(dict(res, failed=True))
+        raise AssertionError(f"{res['check']}: {key} disagrees with its "
+                             f"plain version beyond the stated tolerance")
+
+
+def _grouped_mm_ms(a, b, ends):
+    """The yardstick: one ``torch._grouped_mm`` of a [M, K] by the groups
+    of b [G, K, N] (group rows ending at ``ends``) where this torch has it
+    for these inputs, else one dense matmul of the same rows and FLOPs
+    (a @ b[0]). Returns (ms, what). Timed here only; the port calls
+    neither."""
+    import torch
+    if hasattr(torch, "_grouped_mm"):
+        for bb in (b, b.transpose(-1, -2).contiguous().transpose(-1, -2)):
+            try:
+                torch._grouped_mm(a, bb, offs=ends)
+                torch.cuda.synchronize()
+            except (RuntimeError, TypeError, ValueError):
+                continue
+            return (cuda_time_ms(lambda: torch._grouped_mm(a, bb, offs=ends),
+                                 iters=10), "torch._grouped_mm")
+    return (cuda_time_ms(lambda: a @ b[0], iters=10),
+            "torch.matmul dense (same rows and FLOPs)")
+
+
+def check_grouped(name, rng, s, k, e, d, f, dtype, fused, kind="router",
+                  time_it=False):
+    """grouped_gate_up and grouped_down on the card against their plain
+    versions: each kernel alone (down fed the plain gate/up), then the
+    whole FFN through grouped_glu_ffn, on the rows below live_tiles * bm
+    (the rest is unspecified)."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import grouped_matmul as tg
+    from deepspeed_tpu_torch.parallel.moe import GMM_BM
+    xs, (wg, wi, wo), (got, sizes, live), w, used = _grouped_case(
+        rng, s, k, e, d, f, dtype, kind)
+    w = w if fused else None
+    end = int(live[0]) * GMM_BM
+    res = {"phase": "kernels", "check": name, "kernel": "grouped_glu_ffn",
+           "dtype": str(dtype).replace("torch.", ""),
+           "shape": {"S": s, "k": k, "E": e, "d": d, "f": f, "bm": GMM_BM,
+                     "R_pad": xs.shape[0], "live_rows": end,
+                     "experts_used": used, "w": fused, "routing": kind}}
+    before = dict(tg.op_builder.launches)
+    gate, up = tg.gate_up_kernel(xs, wg, wi, got, live, GMM_BM)
+    rg, ru = tg.gate_up_ref(xs, wg, wi, sizes, live, GMM_BM)
+    y = tg.down_kernel(rg, ru, wo, got, live, GMM_BM, w)
+    ry = tg.down_ref(rg, ru, wo, sizes, live, GMM_BM, w)
+    out = tg.grouped_glu_ffn(xs, wg, wi, wo, got, sizes, live, bm=GMM_BM,
+                             w=w)
+    torch.cuda.synchronize()
+    for kname in GROUPED_KERNELS:
+        assert tg.op_builder.launches[kname] == before[kname] + 2, kname
+    ref = tg.grouped_glu_ffn_ref(xs, wg, wi, wo, got, sizes, live,
+                                 bm=GMM_BM, w=w)
+    _hold_pair(res, "gate", gate[:end], rg[:end])
+    _hold_pair(res, "up", up[:end], ru[:end])
+    _hold_pair(res, "down", y[:end], ry[:end])
+    _hold_pair(res, "ffn", out[:end], ref[:end])
+    res["max_abs_err"] = max(res[key]["max_abs_err"]
+                             for key in ("gate", "up", "down", "ffn"))
+    if time_it:
+        rows, isz = s * k, xs.element_size()
+        res["gate_up_ms"] = cuda_time_ms(
+            lambda: tg.gate_up_kernel(xs, wg, wi, got, live, GMM_BM),
+            iters=10)
+        res["down_ms"] = cuda_time_ms(
+            lambda: tg.down_kernel(gate, up, wo, got, live, GMM_BM, w),
+            iters=10)
+        res["gate_up_plain_ms"] = cuda_time_ms(
+            lambda: tg.gate_up_ref(xs, wg, wi, sizes, live, GMM_BM),
+            iters=3, warmup=1)
+        res["down_plain_ms"] = cuda_time_ms(
+            lambda: tg.down_ref(gate, up, wo, sizes, live, GMM_BM, w),
+            iters=3, warmup=1)
+        # the S·k real rows at 6·d·f FLOP each (gate/up 4·d·f, down 2·d·f);
+        # bytes: the weights of every expert that got a row, xs, gate/up
+        # written then read, w and y, each once
+        res["gate_up_bound_ms"], res["gate_up_bound_by"] = bound(
+            (2 * d * f * used + rows * d + 2 * rows * f) * isz,
+            4.0 * d * f * rows, res["dtype"])
+        res["down_bound_ms"], res["down_bound_by"] = bound(
+            (f * d * used + 2 * rows * f + rows * d + rows) * isz,
+            2.0 * d * f * rows, res["dtype"])
+        if fused:
+            # the same kernel without w: the form of _down_kernel (:341)
+            res["down_unscaled_ms"] = cuda_time_ms(
+                lambda: tg.down_kernel(gate, up, wo, got, live, GMM_BM),
+                iters=10)
+            res["down_unscaled_plain_ms"] = cuda_time_ms(
+                lambda: tg.down_ref(gate, up, wo, sizes, live, GMM_BM),
+                iters=3, warmup=1)
+            res["down_unscaled_bound_ms"], _ = bound(
+                (f * d * used + 2 * rows * f + rows * d) * isz,
+                2.0 * d * f * rows, res["dtype"])
+        ends = torch.cumsum(sizes, 0).clamp_max(end).to(torch.int32)
+        wgi = torch.cat([wg, wi], dim=-1)
+        res["gate_up_library_ms"], res["library"] = _grouped_mm_ms(
+            xs[:end], wgi, ends)
+        del wgi
+        h = (F.silu(gate[:end].float()) * up[:end].float()).to(dtype)
+        res["down_library_ms"], _ = _grouped_mm_ms(h, wo, ends)
+        res["tflops_per_s"] = 6.0 * d * f * rows / (
+            res["gate_up_ms"] + res["down_ms"]) / 1e9
+    emit(res)
+    del xs, wg, wi, wo, gate, up, y, out, ref, rg, ru, ry
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_grouped(rng):
+    """Phase 3's grouped GEMM checks; returns the timed path-shape lines."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = {"mixtral": check_grouped("gmm_mixtral_path", rng, 2048, 2, 8,
+                                    4096, 14336, bf16, True, time_it=True),
+           "qwen": check_grouped("gmm_qwen_path", rng, 2048, 4, 60, 2048,
+                                 1408, bf16, True, time_it=True)}
+    for name, s, k, e, d, f, dtype, fused, kind in (
+            ("gmm_bf16_odd_unscaled", 100, 2, 4, 100, 150, bf16, False,
+             "router"),
+            ("gmm_f32_unscaled", 300, 2, 4, 256, 200, f32, False, "router"),
+            ("gmm_f32_fused", 300, 2, 4, 256, 200, f32, True, "router"),
+            ("gmm_f32_empty_expert", 200, 2, 6, 128, 384, f32, True,
+             "empty"),
+            ("gmm_f32_one_expert", 150, 2, 5, 128, 130, f32, False, "one"),
+            ("gmm_f32_odd", 90, 3, 4, 130, 70, f32, True, "router")):
+        check_grouped(name, rng, s, k, e, d, f, dtype, fused, kind)
+    return out
+
+
 def phase_kernels(rng):
     import torch
     bf16, f32 = torch.bfloat16, torch.float32
@@ -540,6 +746,72 @@ def phase_full_width():
     emit({"phase": "full_width", "init_seconds": init_s, "worst": worst})
 
 
+def phase_full_width_moe():
+    """Depth-2 Mixtral 8x7B width, fp32: a fresh 4 x 256 chunk (1024
+    tokens, so the dropless FFN: grouped kernels on the card) and a decode
+    step (4 tokens, the capacity FFN) through ragged_forward, on the card
+    and on the CPU (plain versions) from one parameter tree. Tolerance as
+    in phase_full_width (2e-3; sums over 4096 and 14336 terms in other
+    orders)."""
+    import torch
+    from deepspeed_tpu_torch.inference.engine_v2 import ragged_forward
+    from deepspeed_tpu_torch.models.mixtral import mixtral_config
+    from deepspeed_tpu_torch.models.transformer import init_params
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.ops.paged_attention import init_arena
+    from deepspeed_tpu_torch.parallel.moe import serving_moe_fn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = mixtral_config("8x7b", num_layers=2)
+    t0 = time.perf_counter()
+    p_gpu = init_params(cfg, torch.Generator(device=DEV).manual_seed(4),
+                        torch.float32, DEV)
+    p_cpu = _to_cpu(p_gpu)
+    init_s = time.perf_counter() - t0
+    nb, bs, mb = 16, 128, 4
+    arenas = {d: init_arena(cfg.num_layers, cfg.kv_heads, nb, bs,
+                            cfg.head_dim, torch.float32, d)
+              for d in (DEV, "cpu")}
+    pt = np.full((4, mb), nb, np.int32)
+    pt[0, :3], pt[1, :3], pt[2, :3], pt[3, :2] = \
+        [3, 0, 8], [7, 1, 12], [2, 9, 4], [15, 5]
+    rng = np.random.default_rng(5)
+    tol, worst = 2e-3, 0.0
+    for mode, c, starts, counts in (("fresh", 256, [0] * 4,
+                                     [256, 256, 256, 200]),
+                                    ("decode", 1, [256, 256, 256, 200],
+                                     [1] * 4)):
+        tokens = rng.integers(0, cfg.vocab_size, size=(4, c)).astype(np.int32)
+        logits = {}
+        op_builder.reset_launches()
+        for where, params in ((DEV, p_gpu), ("cpu", p_cpu)):
+            args = [torch.from_numpy(np.asarray(a, np.int32)).to(where)
+                    for a in (tokens, counts, starts, pt)]
+            with torch.no_grad():
+                lg, arenas[where] = ragged_forward(
+                    cfg, params, arenas[where], *args,
+                    moe_fn=serving_moe_fn(cfg, None, params, ep=False),
+                    fresh_prefill=False if mode == "decode" else mode)
+            logits[where] = lg.cpu()
+        launched = dict(op_builder.launches)
+        want = {"fresh": {"flash_attention_fwd", *GROUPED_KERNELS},
+                "decode": {"paged_attention"}}[mode]
+        assert {k for k, v in launched.items() if v} == want, \
+            f"{mode} step launched {launched}"
+        assert torch.isfinite(logits[DEV]).all()
+        err = _err(logits[DEV], logits["cpu"])
+        worst = max(worst, err)
+        emit({"phase": "full_width_moe", "model": "mixtral-8x7b-width-depth2",
+              "mode": mode, "tokens": 4 * c, "max_abs_err": err, "tol": tol,
+              "logit_absmax": float(logits["cpu"].abs().max()),
+              "launches": launched})
+        torch.testing.assert_close(logits[DEV], logits["cpu"], rtol=tol,
+                                   atol=tol)
+    del p_gpu, p_cpu, arenas
+    torch.cuda.empty_cache()
+    emit({"phase": "full_width_moe", "init_seconds": init_s, "worst": worst})
+
+
 # ---------------------------------------------------------------------------
 # phase 5: Llama-3 8B end to end
 # ---------------------------------------------------------------------------
@@ -599,27 +871,117 @@ def phase_serve():
     assert all(launches[k] > 0 for k in SERVE_KERNELS), launches
     assert launches["flash_attention_bwd"] == 0, launches
 
-    def rate(kinds, src):
-        tok = sum(src[k]["tokens"] for k in kinds if k in src)
-        sec = sum(src[k]["seconds"] for k in kinds if k in src)
-        return tok / sec if sec else None
-
     per_step = {k: v / st["decode"]["steps"]
                 for k, v in st["decode"]["launches"].items()}
     emit({"phase": "serve", "model": "llama3-" + SERVE_MODEL[0],
           "dtype": "bfloat16",
           "init_seconds": init_s, "generate_seconds": gen_s,
           "serve_seconds": serve_s,
-          "generate_prefill_tok_s": rate(("fresh", "split"), gen_stats),
-          "generate_decode_tok_s": rate(("decode",), gen_stats),
-          "prefill_tok_s": rate(("fresh", "split"), st),
-          "decode_tok_s": rate(("decode",), st),
+          "generate_prefill_tok_s": _rate(("fresh", "split"), gen_stats),
+          "generate_decode_tok_s": _rate(("decode",), gen_stats),
+          "prefill_tok_s": _rate(("fresh", "split"), st),
+          "decode_tok_s": _rate(("decode",), st),
           "decode_ms_per_step": 1e3 * st["decode"]["seconds"]
           / st["decode"]["steps"],
           "stats": st, "launches": launches,
           "launches_per_decode_step": per_step,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del eng                    # the MoE runs need the card's memory
+    torch.cuda.empty_cache()
     return launches
+
+
+def _rate(kinds, src):
+    tok = sum(src[k]["tokens"] for k in kinds if k in src)
+    sec = sum(src[k]["seconds"] for k in kinds if k in src)
+    return tok / sec if sec else None
+
+
+def phase_serve_moe():
+    """The MoE serving runs of MOE_RUNS in bf16 with random weights from a
+    seeded generator, one engine at a time: ``generate`` on 8 prompts (the
+    first step 8 x 256 = 2048 tokens: the dropless FFN through the grouped
+    kernels; decode steps take the capacity FFN), then, where asked,
+    ``serve`` on 16 requests at max_concurrency=8. Returns the kernels'
+    launch counts summed over the runs, each run counted from 0."""
+    import torch
+    from deepspeed_tpu_torch import RaggedInferenceEngine
+    from deepspeed_tpu_torch.models.mixtral import mixtral_config
+    from deepspeed_tpu_torch.models.qwen2_moe import qwen2_moe_config
+    from deepspeed_tpu_torch.ops import op_builder
+    presets = {"mixtral": mixtral_config, "qwen2_moe": qwen2_moe_config}
+    total = {k: 0 for k in op_builder.launches}
+    for i, (name, family, size, over, blocks, lens, new, n_req) in \
+            enumerate(MOE_RUNS):
+        cfg = presets[family](size, **over)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = RaggedInferenceEngine(
+            cfg, {"dtype": "bfloat16", "num_blocks": blocks,
+                  "block_size": 128, "max_seq_len": 2048,
+                  "max_sequences": 64, "max_batch_tokens": 2048,
+                  "prefill_chunk": 256},
+            generator=torch.Generator(device=DEV).manual_seed(10 + i),
+            device=DEV)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_gb = torch.cuda.memory_allocated() / 1e9   # weights + arena
+        rng = np.random.default_rng(20 + i)
+        prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+                   for n in lens]
+        requests = [rng.integers(0, cfg.vocab_size, size=int(n))
+                    .astype(np.int32) for n in rng.integers(16, 700, n_req)]
+        budgets = [int(b) for b in rng.integers(8, 49, size=n_req)]
+
+        # the main path: every count set to 0 just before, read just after
+        op_builder.reset_launches()
+        eng.stats.clear()
+        t1 = time.perf_counter()
+        outs = eng.generate(prompts, max_new_tokens=new)
+        gen_s = time.perf_counter() - t1
+        gen_stats = {k: dict(v, launches=dict(v["launches"]))
+                     for k, v in eng.stats.items()}
+        t2 = time.perf_counter()
+        served = eng.serve(requests, max_new_tokens=budgets,
+                           max_concurrency=8) if n_req else []
+        serve_s = time.perf_counter() - t2
+        launches = dict(op_builder.launches)
+
+        for p, o in zip(prompts, outs):
+            assert len(o) == len(p) + new and (o[:len(p)] == p).all()
+            assert ((o >= 0) & (o < cfg.vocab_size)).all()
+        for p, o, m in zip(requests, served, budgets):
+            assert len(o) == len(p) + m and (o[:len(p)] == p).all()
+        assert not eng.state.seqs
+        assert eng.state.allocator.free_blocks == blocks, "pages leaked"
+        st = eng.stats
+        # the 2048-token first step went through the grouped kernels;
+        # decode (8 rows) took the capacity path and launched none
+        assert all(st["fresh"]["launches"][k] >= cfg.num_layers
+                   for k in GROUPED_KERNELS), st["fresh"]
+        assert all(st["decode"]["launches"][k] == 0
+                   for k in GROUPED_KERNELS), st["decode"]
+        assert all(launches[k] > 0 for k in SERVE_KERNELS + GROUPED_KERNELS)
+        emit({"phase": "serve_moe", "model": name, "dtype": "bfloat16",
+              "params": cfg.num_params(), "layers": cfg.num_layers,
+              "allocated_after_init_gb": init_gb, "arena_pages": blocks,
+              "init_seconds": init_s, "generate_seconds": gen_s,
+              "serve_seconds": serve_s,
+              "generate_prefill_tok_s": _rate(("fresh", "split"), gen_stats),
+              "generate_decode_ms_per_step": 1e3
+              * gen_stats["decode"]["seconds"] / gen_stats["decode"]["steps"],
+              "prefill_tok_s": _rate(("fresh", "split"), st),
+              "decode_tok_s": _rate(("decode",), st),
+              "decode_ms_per_step": 1e3 * st["decode"]["seconds"]
+              / st["decode"]["steps"],
+              "stats": st, "launches": launches,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        for k, v in launches.items():
+            total[k] += v
+        del eng
+        torch.cuda.empty_cache()
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -816,37 +1178,65 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     timed = phase_kernels(rng)
+    grouped = phase_grouped(rng)
     if "--kernels-only" in sys.argv[1:]:
         return 0
     phase_full_width()
-    serve = phase_serve()
+    phase_full_width_moe()
+    paths = {"serve": phase_serve(), "serve_moe": phase_serve_moe()}
     phase_train_full_width()
-    train = phase_train()
+    paths["train"] = phase_train()
 
-    # launches: over both main paths (serving, phase 5; training, phase 7),
-    # each read around its own run; K1's times are at the training shape,
-    # its serving-shape times are in phase 3's flash_fresh line
-    kernels = []
-    for name, src, replaces, res in (
-            ("flash_attention_fwd",
+    # launches: over the main paths (dense serving and MoE serving, phase
+    # 5; training, phase 7), each read around its own run; K1's times are
+    # at the training shape (its serving-shape times are in phase 3's
+    # flash_fresh line), the grouped kernels' at the Mixtral prefill shape
+    # (the Qwen shape is in phase 3's gmm_qwen_path line)
+    rows = [("flash_attention_fwd",
              "deepspeed_tpu_torch/ops/csrc/flash_attention.cu",
-             "deepspeed_tpu/ops/flash_attention.py:71", timed["train_fwd"]),
+             "deepspeed_tpu/ops/flash_attention.py:71", timed["train_fwd"],
+             "kernel"),
             ("paged_attention",
              "deepspeed_tpu_torch/ops/csrc/paged_attention.cu",
-             "deepspeed_tpu/ops/paged_attention.py:235", timed["decode"]),
+             "deepspeed_tpu/ops/paged_attention.py:235", timed["decode"],
+             "kernel"),
             ("flash_attention_bwd",
              "deepspeed_tpu_torch/ops/csrc/flash_attention_bwd.cu",
-             "deepspeed_tpu/ops/flash_attention.py:330", timed["bwd"])):
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces,
-                        "launches": serve[name] + train[name],
-                        "launches_by_path": {"serve": serve[name],
-                                             "train": train[name]},
-                        "max_abs_err": res["max_abs_err"],
-                        "ms": res["kernel_ms"], "plain_ms": res["plain_ms"],
-                        "bound_ms": res["bound_ms"],
-                        "bound_by": res["bound_by"],
-                        "library_ms": res["library_ms"]})
+             "deepspeed_tpu/ops/flash_attention.py:330", timed["bwd"],
+             "kernel"),
+            ("grouped_gate_up",
+             "deepspeed_tpu_torch/ops/csrc/grouped_matmul.cu",
+             "deepspeed_tpu/ops/grouped_matmul.py:328", grouped["mixtral"],
+             "gate_up"),
+            ("grouped_down",
+             "deepspeed_tpu_torch/ops/csrc/grouped_matmul.cu",
+             "deepspeed_tpu/ops/grouped_matmul.py:352", grouped["mixtral"],
+             "down")]
+    kernels = []
+    for name, src, replaces, res, key in rows:
+        if key == "kernel":
+            times = {"max_abs_err": res["max_abs_err"],
+                     "ms": res["kernel_ms"], "plain_ms": res["plain_ms"],
+                     "bound_ms": res["bound_ms"],
+                     "bound_by": res["bound_by"],
+                     "library_ms": res["library_ms"]}
+        else:
+            pair = ("gate", "up") if key == "gate_up" else ("down", "ffn")
+            times = {"max_abs_err": max(res[p]["max_abs_err"] for p in pair),
+                     "ms": res[key + "_ms"],
+                     "plain_ms": res[key + "_plain_ms"],
+                     "bound_ms": res[key + "_bound_ms"],
+                     "bound_by": res[key + "_bound_by"],
+                     "library_ms": res[key + "_library_ms"],
+                     "library": res["library"]}
+        kernels.append(dict({"name": name, "route": "cuda", "source": src,
+                             "replaces": replaces,
+                             "launches": sum(p[name] for p in
+                                             paths.values()),
+                             "launches_by_path": {k: p[name] for k, p in
+                                                  paths.items()}},
+                            **times))
+    kernels[-1]["also_replaces"] = "deepspeed_tpu/ops/grouped_matmul.py:341"
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

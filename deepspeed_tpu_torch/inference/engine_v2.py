@@ -11,13 +11,17 @@ sequences; ``generate``/``serve`` drive the stepwise decode loop.
 On a CUDA device the attention runs through the port's two hand-written
 kernels: paged attention (K2) for decode and for the history part of a
 continuation chunk, flash-attention forward (K1) for fresh chunks and the
-within-chunk part of continuation chunks. On the CPU the same calls run
-the kernels' plain versions. Shapes are bucketed as in the JAX engine
-(rows to powers of two, chunk width to {1, prefill_chunk}) so the kernels
-see the reference's shapes.
+within-chunk part of continuation chunks. MoE models (Mixtral, Qwen2-MoE)
+take their FFN from :func:`deepspeed_tpu_torch.parallel.moe.serving_moe_fn`:
+steps of 1024 tokens or more run the dropless grouped FFN (the grouped
+GEMM kernels of ``ops/csrc/grouped_matmul.cu``), smaller ones (decode) the
+capacity einsums. On the CPU the same calls run the kernels' plain
+versions. Shapes are bucketed as in the JAX engine (rows to powers of two,
+chunk width to {1, prefill_chunk}) so the kernels see the reference's
+shapes.
 
-Not ported in this slice (each raises ``NotImplementedError``):
-``weight_quant``, MoE models, and the decode megastep
+Not ported yet (each raises ``NotImplementedError``): ``weight_quant``
+(dense and MoE), expert parallelism, and the decode megastep
 (``step_with_budget(max_steps > 1)``). The fused decode loop, the
 copy-on-write and page-export helpers and the telemetry hooks wait for
 later slices; per-mode step tallies and the kernels' launch counters
@@ -46,6 +50,7 @@ from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops import paged_attention as pa
 from deepspeed_tpu_torch.ops.flash_attention import (flash_attention,
                                                      flash_attention_with_lse)
+from deepspeed_tpu_torch.parallel.moe import serving_moe_fn
 from deepspeed_tpu_torch.utils.logging import log_dist
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -71,7 +76,7 @@ class RaggedInferenceConfig(TPUConfigModel):
 
 def ragged_forward(cfg: DecoderConfig, params, arena, tokens: torch.Tensor,
                    counts: torch.Tensor, starts: torch.Tensor,
-                   page_table: torch.Tensor,
+                   page_table: torch.Tensor, moe_fn=None,
                    fresh_prefill: Union[bool, str] = False):
     """One forward over a ragged batch against the paged KV arena
     (engine_v2.py:54).
@@ -81,6 +86,8 @@ def ragged_forward(cfg: DecoderConfig, params, arena, tokens: torch.Tensor,
     num_blocks, the trash sentinel). Returns (last-token logits [n, V]
     fp32, arena); the arena's tensors are updated IN PLACE, one layer at a
     time. Rows with counts == 0 give logits the caller ignores.
+    ``moe_fn``: the FFN of MoE layers (``serving_moe_fn``); it sees all
+    n * c token slots, padding included, as the JAX engine's does.
 
     ``fresh_prefill``: False → attention reads the arena after the write
     (decode); "fresh" → every row has starts == 0, attention runs causally
@@ -136,7 +143,7 @@ def ragged_forward(cfg: DecoderConfig, params, arena, tokens: torch.Tensor,
         else:
             out = pa.paged_attention(q, ak, av, pt_l, starts, counts)
         attn_out = attn_out_project(cfg, lp["attn"], out)
-        x = block_combine(cfg, lp, x, h_in, attn_out)
+        x, _ = block_combine(cfg, lp, x, h_in, attn_out, moe_fn)
     x = _norm(cfg, params["final_norm"], x)
     last = (counts.long() - 1).clamp_min(0)
     x_last = x[torch.arange(n, device=dev), last][:, None]
@@ -218,9 +225,6 @@ class RaggedInferenceEngine:
             raise NotImplementedError(
                 f"weight_quant={config.weight_quant!r}: quantized serving "
                 f"is not ported to deepspeed_tpu_torch yet")
-        if model.num_experts:
-            raise NotImplementedError(
-                "MoE models are not ported to deepspeed_tpu_torch yet")
         self.device = get_device(device)
         on_card = self.device.type == "cuda"
         if config.use_pallas is not None and bool(config.use_pallas) \
@@ -254,6 +258,11 @@ class RaggedInferenceEngine:
         self.arena = pa.init_arena(model.num_layers, model.kv_heads,
                                    config.num_blocks, config.block_size,
                                    model.head_dim, self.dtype, self.device)
+        #: MoE FFN (engine_v2.py:318-328): dropless at >= 1024 tokens per
+        #: step, capacity below; the port has no expert axis (ep=False)
+        self._moe_fn = serving_moe_fn(model, config.weight_quant,
+                                      self.params, ep=False) \
+            if model.num_experts else None
         self._temperature = 1.0
         self._top_p = 1.0
         #: per forward mode ("fresh" | "split" | "decode"): steps, tokens
@@ -409,7 +418,7 @@ class RaggedInferenceEngine:
             logits, self.arena = ragged_forward(
                 self.model_config, self.params, self.arena,
                 tok_d.view(nb, cb), cnt_d, st_d, pt_d.view(nb, self.mb),
-                fresh_prefill=fresh)
+                moe_fn=self._moe_fn, fresh_prefill=fresh)
             if mode is None:
                 out = logits
             else:

@@ -9,14 +9,16 @@ JAX's ``[B, T, H, Dh]`` head layout, so a parameter tree converted with
 same function in both packages.
 
 What the port carries: ``DecoderConfig``, norms, embeddings, RoPE, the
-plain attention, the dense MLP and attention projections, the dense
-residual combine, ``init_params`` and ``lm_logits`` (serving); and the
-training forward: ``decoder_block``, ``forward_hidden``
-and ``forward`` over the stacked layers (per-block recompute for the
-``"full"`` remat policy), ``chunked_cross_entropy`` (each chunk's logits
-recomputed in backward) and ``cross_entropy_loss``. MoE layers,
-weight-only quantized linears, ALiBi, encoder extras and the named
-save/offload remat policies raise ``NotImplementedError``.
+plain attention, the dense MLP and attention projections, the residual
+combine with its MoE branch (a ``moe_fn`` from
+:mod:`deepspeed_tpu_torch.parallel.moe`), ``init_params`` (dense and MoE
+trees) and ``lm_logits`` (serving); and the training forward:
+``decoder_block``, ``forward_hidden`` and ``forward`` over the stacked
+layers (per-block recompute for the ``"full"`` remat policy),
+``chunked_cross_entropy`` (each chunk's logits recomputed in backward) and
+``cross_entropy_loss``. MoE training, Residual-MoE, weight-only quantized
+linears, ALiBi, encoder extras, health taps and the named save/offload
+remat policies raise ``NotImplementedError``.
 """
 
 import dataclasses
@@ -67,7 +69,7 @@ class DecoderConfig:
     attn_out_bias: Optional[bool] = None
     #: per-layer attention windows tiled over depth (GPT-Neo)
     layer_window_pattern: Optional[Tuple[int, ...]] = None
-    # MoE (dense when num_experts == 0; not ported in this slice)
+    # MoE (dense when num_experts == 0; serving only in the port)
     num_experts: int = 0
     num_experts_per_tok: int = 2
     norm_topk_prob: bool = True
@@ -398,25 +400,40 @@ def attn_out_project(cfg: DecoderConfig, p: Params, out: torch.Tensor
 
 
 def block_combine(cfg: DecoderConfig, p: Params, x: torch.Tensor,
-                  pre: torch.Tensor, attn_out: torch.Tensor) -> torch.Tensor:
-    """Residual combine (transformer.py:659, dense branches): parallel,
-    sequential pre-LN, and post-LN."""
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "MoE layers are not ported to deepspeed_tpu_torch yet")
+                  pre: torch.Tensor, attn_out: torch.Tensor,
+                  moe_fn: Optional[Callable] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Residual combine (transformer.py:659): parallel, sequential pre-LN
+    and post-LN, with the FFN a dense MLP or, for MoE layers, ``moe_fn``
+    (:func:`deepspeed_tpu_torch.parallel.moe.serving_moe_fn`). Returns
+    (hidden, aux loss); aux is 0 for dense layers."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def ffn(src):
-        return _mlp(cfg, p["mlp"], src)
+        if cfg.num_experts:
+            if moe_fn is None:
+                raise ValueError("an MoE layer needs a moe_fn (see "
+                                 "deepspeed_tpu_torch.parallel.moe."
+                                 "serving_moe_fn)")
+            if "residual" in p["moe"]:
+                raise NotImplementedError(
+                    "Residual-MoE (moe_residual) is not ported to "
+                    "deepspeed_tpu_torch yet")
+            return moe_fn(cfg, p["moe"], src)
+        return _mlp(cfg, p["mlp"], src), zero
 
     if not cfg.prenorm:
         h = _norm(cfg, p["ln1"], x + attn_out)
-        return _norm(cfg, p["ln2"], h + ffn(h))
+        ff, aux = ffn(h)
+        return _norm(cfg, p["ln2"], h + ff), aux
     if cfg.parallel_block:
         src = _norm(cfg, p["ln2"], x) if cfg.parallel_block_norms == 2 \
             else pre
-        return x + attn_out + ffn(src)
+        ff, aux = ffn(src)
+        return x + attn_out + ff, aux
     h = x + attn_out
-    return h + ffn(_norm(cfg, p["ln2"], h))
+    ff, aux = ffn(_norm(cfg, p["ln2"], h))
+    return h + ff, aux
 
 
 def decoder_block(cfg: DecoderConfig, p: Params, x: torch.Tensor, sin, cos,
@@ -424,18 +441,17 @@ def decoder_block(cfg: DecoderConfig, p: Params, x: torch.Tensor, sin, cos,
                   layer_window: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One pre-/post-LN block (transformer.py:631) → (hidden, aux_loss);
-    aux is 0 for the dense blocks this port runs."""
-    if moe_fn is not None or cfg.health_taps:
+    aux is 0 for dense blocks, the scaled load-balance loss for MoE
+    blocks."""
+    if cfg.health_taps:
         raise NotImplementedError(
-            "MoE blocks and health taps are not ported to "
-            "deepspeed_tpu_torch yet")
+            "health taps are not ported to deepspeed_tpu_torch yet")
     pre = _norm(cfg, p["ln1"], x) if cfg.prenorm else x
     q, k, v = qkv_project(cfg, p["attn"], pre, sin, cos)
     out = attn_fn(q, k, v) if layer_window is None \
         else attn_fn(q, k, v, window=layer_window)
     attn_out = attn_out_project(cfg, p["attn"], out)
-    return (block_combine(cfg, p, x, pre, attn_out),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    return block_combine(cfg, p, x, pre, attn_out, moe_fn)
 
 
 # ---------------------------------------------------------------------------
@@ -445,15 +461,19 @@ def decoder_block(cfg: DecoderConfig, p: Params, x: torch.Tensor, sin, cos,
 def init_params(cfg: DecoderConfig, generator: torch.Generator,
                 dtype: torch.dtype = torch.float32,
                 device=None) -> Params:
-    """Random parameter tree in the JAX layout (transformer.py:721, dense
-    models). Normal(0, init_std) weights drawn from ``generator`` in
-    slices of at most 64M values along the leading axis, so a stacked
-    [L, ...] leaf never needs an fp32 copy of its whole self; zero biases,
-    unit norm scales (fp32, as in the JAX tree). The numbers differ from
+    """Random parameter tree in the JAX layout (transformer.py:721):
+    dense layers carry ``mlp``, MoE layers ``moe`` (router [L, d, E],
+    wg/wi [L, E, d, f], wo [L, E, f, d], and the shared expert
+    {wg, wi, wo, gate [L, d, 1]} when configured). Normal(0, init_std)
+    weights drawn from ``generator`` in slices of at most 64M values along
+    the leading axis (one expert at a time for expert leaves), so a leaf
+    never needs an fp32 copy of its whole self; zero biases, unit norm
+    scales (fp32, as in the JAX tree). The numbers differ from
     ``jax.random``'s."""
-    if cfg.num_experts:
+    if cfg.moe_residual:
         raise NotImplementedError(
-            "MoE parameter trees are not ported to deepspeed_tpu_torch yet")
+            "Residual-MoE (moe_residual) is not ported to "
+            "deepspeed_tpu_torch yet")
     device = generator.device if device is None else torch.device(device)
     d, v, L = cfg.hidden_size, cfg.vocab_size, cfg.num_layers
     h = cfg.ffn_size
@@ -483,7 +503,22 @@ def init_params(cfg: DecoderConfig, generator: torch.Generator,
     layers: Params = {"attn": attn, "ln1": _norm_params(cfg, (L,), device)}
     if cfg.has_ln2:
         layers["ln2"] = _norm_params(cfg, (L,), device)
-    if cfg.is_glu:
+    if cfg.num_experts:
+        E = cfg.num_experts
+
+        def experts(shape, std=cfg.init_std):   # [L, E, ...], per expert
+            return w((L * E,) + shape, std).view((L, E) + shape)
+
+        moe = {"router": w((L, d, E)), "wg": experts((d, h)),
+               "wi": experts((d, h)), "wo": experts((h, d), std=out_std)}
+        if cfg.shared_expert_size:
+            hs = cfg.shared_expert_size
+            moe["shared"] = {"wg": w((L, d, hs)), "wi": w((L, d, hs)),
+                             "wo": w((L, hs, d), std=out_std)}
+            if cfg.shared_expert_gate:
+                moe["shared"]["gate"] = w((L, d, 1))
+        layers["moe"] = moe
+    elif cfg.is_glu:
         layers["mlp"] = {"wg": w((L, d, h)), "wi": w((L, d, h)),
                          "wo": w((L, h, d), std=out_std)}
     else:
@@ -621,7 +656,8 @@ def forward_hidden(cfg: DecoderConfig, params: Params, tokens: torch.Tensor,
     ``jax.checkpoint`` on the scan body)."""
     if cfg.num_experts:
         raise NotImplementedError(
-            "MoE layers are not ported to deepspeed_tpu_torch yet")
+            "MoE training (the dropless backward kernels, router "
+            "gradients) is not ported to deepspeed_tpu_torch yet: slice 4")
     resolve_remat_policy(remat_policy)
     remat = remat_policy not in (None, "none")
     if attn_fn is None:

@@ -148,7 +148,8 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 #: adds one where it launches its kernel and nowhere else, so a run can
 #: show which kernels its path went through
 launches: Dict[str, int] = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
-                            "paged_attention": 0}
+                            "paged_attention": 0, "grouped_gate_up": 0,
+                            "grouped_down": 0}
 
 
 def reset_launches() -> None:

@@ -4,7 +4,7 @@ Port of ``deepspeed_tpu/runtime/model_factory.py``: compose the
 functional transformer core with the attention implementation selected by
 the config, and hand the engine an init/loss pair. This slice runs dense
 decoders on one device; pipeline parallelism, the ZeRO-3 overlap plan,
-MoE and the health taps raise ``NotImplementedError``.
+MoE training and the health taps raise ``NotImplementedError``.
 """
 
 from functools import partial
@@ -70,7 +70,8 @@ def decoder_model_spec(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
 
     if dec_cfg.num_experts:
         raise NotImplementedError(
-            "MoE models are not ported to deepspeed_tpu_torch yet")
+            "MoE training is not ported to deepspeed_tpu_torch yet (slice "
+            "4; MoE serving is, through RaggedInferenceEngine)")
     attn_fn = select_attention(ds_cfg, dec_cfg)
     remat = ds_cfg.activation_checkpointing.policy
     transformer.resolve_remat_policy(remat)

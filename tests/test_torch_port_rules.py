@@ -12,7 +12,8 @@ import pytest
 import torch
 
 import deepspeed_tpu_torch
-from deepspeed_tpu_torch import (RaggedInferenceEngine, llama3_config)
+from deepspeed_tpu_torch import (RaggedInferenceEngine, initialize,
+                                 llama3_config)
 from deepspeed_tpu_torch.accelerator.real_accelerator import get_device
 from deepspeed_tpu_torch.ops import op_builder
 
@@ -53,7 +54,8 @@ def test_every_module_is_listed():
                  "runtime.engine", "runtime.model_factory",
                  "runtime.lr_schedules", "runtime.loss_scaler",
                  "runtime.dataloader", "utils.logging",
-                 "accelerator.real_accelerator"):
+                 "accelerator.real_accelerator", "ops.grouped_matmul",
+                 "parallel.moe", "models.mixtral", "models.qwen2_moe"):
         assert "deepspeed_tpu_torch." + want in names
 
 
@@ -83,9 +85,11 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError, match="quantized"):
         RaggedInferenceEngine(cfg, dict(small, weight_quant="int8"),
                               device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        RaggedInferenceEngine(llama3_config("tiny", num_experts=4), small,
-                              device="cpu")
+    # MoE serving is ported; MoE training is not (slice 4)
+    moe = llama3_config("tiny", num_experts=4)
+    assert RaggedInferenceEngine(moe, small, device="cpu")._moe_fn
+    with pytest.raises(NotImplementedError, match="MoE training"):
+        initialize(moe, {"train_micro_batch_size_per_gpu": 1}, device="cpu")
     eng = RaggedInferenceEngine(cfg, small, device="cpu")
     with pytest.raises(NotImplementedError, match="megastep"):
         eng.step_with_budget(max_steps=4)

@@ -99,8 +99,9 @@ def test_mlp_block_and_logits_match():
     jpre = jt._norm(jcfg, jl["ln1"], jx)
     tpre = tt._norm(tcfg, tl["ln1"], tx)
     jo, _ = jt.block_combine(jcfg, jl, jx, jpre, jnp.asarray(a), None)
-    to = tt.block_combine(tcfg, tl, tx, tpre, torch.from_numpy(a))
+    to, taux = tt.block_combine(tcfg, tl, tx, tpre, torch.from_numpy(a))
     _close(to, jo)
+    assert float(taux) == 0.0
     _close(tt.attn_out_project(tcfg, tl["attn"], torch.from_numpy(
                a[..., :jcfg.q_dim].reshape(2, 5, jcfg.num_heads, -1))),
            jt.attn_out_project(jcfg, jl["attn"], jnp.asarray(

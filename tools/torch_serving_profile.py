@@ -1,21 +1,32 @@
 #!/usr/bin/env python3
 """Where a serving step's time goes: deepspeed_tpu_torch on one NVIDIA GPU.
 
-Builds the ragged engine for Llama-3 8B (bf16, random weights from a
-seeded generator, the arena of ``chip_smoke.py``), prefills a batch of
-prompts (``BATCH`` x ``PROMPT_LEN`` tokens) and decodes greedily
-(``DECODE_STEPS`` steps) through ``step_with_budget`` (the serving
+Builds the ragged engine for one model of ``MODELS`` (bf16, random
+weights from a seeded generator, the arena of ``chip_smoke.py``),
+prefills a batch of prompts (``batch`` x ``prompt`` tokens) and decodes
+greedily (``decode`` steps) through ``step_with_budget`` (the serving
 frontend's entry point). After a warm-up it runs one prefill window and
 one decode window twice: untraced, and under ``torch.profiler``. For each
 window it prints one JSON line: the untraced wall time per step, and from
 the traced run alone the wall time per step, the device time per step by
-kernel class (the port's two kernels, GEMMs, everything else) and the
-device's idle share, 1 - device time / wall time of that same traced
-window (one stream, so the device time cannot exceed the wall time). The
-full per-kernel tables go to ``chiprun_out/torch_serving_profile.txt``.
+class and the device's idle share, 1 - device time / wall time of that
+same traced window (one stream, so the device time cannot exceed the wall
+time). The full per-kernel tables go to
+``chiprun_out/torch_serving_profile_<model>.txt``.
+
+Models: ``llama3-8b`` (the default: 8 prompts of 1024 tokens, 16 decode
+steps) and ``mixtral-16L`` (Mixtral 8x7B at full width and 16 of its 32
+layers: 8 prompts of 256 tokens, so the prefill window is ONE step of
+2048 tokens through the dropless FFN, then ONE decode step through the
+capacity FFN); ``qwen1.5-moe`` (Qwen1.5-MoE-A2.7B, full, the same two
+windows). Classes: the port's kernels by name (K1, K2, the grouped
+GEMMs K4), cuBLAS GEMMs by name, and for MoE models the rest of each FFN
+path by the code that launched it (the capacity layer's einsums, gating
+and combine; the dropless layer's routing, dispatch and combine), read
+from two profiler labels this tool puts around the two MoE layers.
 
 Run from the root of a checkout on a machine with one GPU:
-``python3 tools/torch_serving_profile.py``.
+``python3 tools/torch_serving_profile.py [--model mixtral-16L]``.
 """
 
 import json
@@ -25,9 +36,14 @@ import time
 
 import numpy as np
 
-BATCH = 8             # concurrent sequences
-PROMPT_LEN = 1024     # tokens per prompt
-DECODE_STEPS = 16     # greedy decode steps in the decode window
+#: model → (preset family, size, overrides, arena pages, batch, prompt
+#: tokens, decode steps in the decode window)
+MODELS = {
+    "llama3-8b": ("llama3", "8b", {}, 512, 8, 1024, 16),
+    "mixtral-16L": ("mixtral", "8x7b", {"num_layers": 16}, 512, 8, 256, 1),
+    "qwen1.5-moe": ("qwen2_moe", "a2.7b", {}, 128, 8, 256, 1),
+}
+_CAP, _DROP = "dstt::moe_capacity", "dstt::moe_dropless"
 
 
 def _classify(name: str) -> str:
@@ -36,6 +52,8 @@ def _classify(name: str) -> str:
         return "paged_attention (K2)"
     if "flash_fwd_kernel" in name:
         return "flash_attention_fwd (K1)"
+    if "grouped_gemm_kernel" in name:
+        return "grouped GEMM (K4: gate_up + down)"
     if any(s in low for s in ("gemm", "cutlass", "nvjet", "sm90_xmma",
                               "cublas")):
         return "gemm (cuBLAS)"
@@ -46,22 +64,43 @@ def _classify(name: str) -> str:
 
 def _window(prof, wall_s: float, untraced_s: float, steps: int,
             tokens: int, label: str):
+    """Device time by class over the traced window. Kernels launched
+    inside one of the two MoE labels (except the grouped GEMMs) go to that
+    FFN path's class; the labels' own device-side ranges are skipped, as
+    they span kernels counted already."""
     from torch.autograd import DeviceType
-    by_class = {}
-    rows = []
-    for avg in prof.key_averages():
-        # device-side activities only: a CPU op (aten::mm) also reports
-        # the device time of the kernels it launched
-        if avg.device_type != DeviceType.CUDA:
+    events = prof.events()
+    by_class, per_kernel = {}, {}
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.name in (_CAP, _DROP):
             continue
-        dev_us = avg.self_device_time_total
-        if dev_us <= 0:
+        dur = e.time_range.end - e.time_range.start
+        cls = _classify(e.name)
+        by_class[cls] = by_class.get(cls, 0.0) + dur
+        n, c = per_kernel.get(e.name, (0.0, 0))
+        per_kernel[e.name] = (n + dur, c + 1)
+    moved = {_CAP: 0.0, _DROP: 0.0}
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
             continue
-        rows.append((dev_us, avg.count, avg.key))
-        cls = _classify(avg.key)
-        by_class[cls] = by_class.get(cls, 0.0) + dev_us
+        a = e
+        while a is not None and a.name not in moved:
+            a = a.cpu_parent
+        if a is None:
+            continue
+        for k in e.kernels:
+            cls = _classify(k.name)
+            if cls.startswith("grouped"):
+                continue
+            by_class[cls] = by_class.get(cls, 0.0) - k.duration
+            moved[a.name] += k.duration
+    by_class["capacity FFN (einsums, gating, combine)"] = moved[_CAP]
+    by_class["dropless FFN around K4 (routing, dispatch, combine)"] = \
+        moved[_DROP]
+    by_class = {k: v for k, v in by_class.items() if v > 0}
     device_s = sum(by_class.values()) / 1e6
-    rows.sort(reverse=True)
+    rows = sorted(((v[0], v[1], k) for k, v in per_kernel.items()),
+                  reverse=True)
     return {"window": label, "steps": steps, "tokens": tokens,
             "wall_ms_per_step": 1e3 * wall_s / steps,
             "untraced_wall_ms_per_step": 1e3 * untraced_s / steps,
@@ -79,12 +118,29 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    from deepspeed_tpu_torch import RaggedInferenceEngine, llama3_config
-    from torch.profiler import ProfilerActivity, profile
+    import argparse
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from deepspeed_tpu_torch import RaggedInferenceEngine
+    from deepspeed_tpu_torch.models import (llama3_config, mixtral_config,
+                                            qwen2_moe_config)
+    from deepspeed_tpu_torch.parallel import moe
 
-    cfg = llama3_config("8b")
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model", choices=sorted(MODELS), default="llama3-8b")
+    model = ap.parse_args().model
+    family, size, over, blocks, batch, prompt_len, decode_steps = \
+        MODELS[model]
+    cfg = {"llama3": llama3_config, "mixtral": mixtral_config,
+           "qwen2_moe": qwen2_moe_config}[family](size, **over)
+    # label the two MoE layers (before the engine binds them) so their
+    # kernels can be told from the attention's
+    for fn, tag in (("moe_layer", _CAP), ("dropless_moe_layer", _DROP)):
+        def labelled(*a, _f=getattr(moe, fn), _t=tag, **kw):
+            with record_function(_t):
+                return _f(*a, **kw)
+        setattr(moe, fn, labelled)
     eng = RaggedInferenceEngine(
-        cfg, {"dtype": "bfloat16", "num_blocks": 512, "block_size": 128,
+        cfg, {"dtype": "bfloat16", "num_blocks": blocks, "block_size": 128,
               "max_seq_len": 4096, "max_batch_tokens": 2048,
               "prefill_chunk": 256},
         generator=torch.Generator(device="cuda").manual_seed(0))
@@ -94,8 +150,8 @@ def main() -> int:
 
     def prompts(base):
         return {base + i: rng.integers(0, cfg.vocab_size,
-                                       size=PROMPT_LEN).astype(np.int32)
-                for i in range(BATCH)}
+                                       size=prompt_len).astype(np.int32)
+                for i in range(batch)}
 
     def run(feed):
         """Queue ``feed`` ({uid: tokens}) and step until it is consumed;
@@ -135,24 +191,24 @@ def main() -> int:
     decode(cur, 3)
     flush_all()
     (cur, steps_p), bare_p = timed(lambda: prefill(100))
-    _, bare_d = timed(lambda: decode(cur, DECODE_STEPS))
+    _, bare_d = timed(lambda: decode(cur, decode_steps))
     flush_all()
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof_p:
         (cur, _), wall_p = timed(lambda: prefill(200))
     with profile(activities=acts) as prof_d:
-        _, wall_d = timed(lambda: decode(cur, DECODE_STEPS))
+        _, wall_d = timed(lambda: decode(cur, decode_steps))
     flush_all()
 
     res_p, rows_p = _window(prof_p, wall_p, bare_p, steps_p,
-                            BATCH * PROMPT_LEN, "prefill")
-    res_d, rows_d = _window(prof_d, wall_d, bare_d, DECODE_STEPS,
-                            BATCH * DECODE_STEPS, "decode")
+                            batch * prompt_len, "prefill")
+    res_d, rows_d = _window(prof_d, wall_d, bare_d, decode_steps,
+                            batch * decode_steps, "decode")
     for res in (res_p, res_d):
-        res.update(card=smi, batch=BATCH, prompt_len=PROMPT_LEN)
+        res.update(card=smi, model=model, batch=batch, prompt_len=prompt_len)
         print(json.dumps(res), flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
-    with open("chiprun_out/torch_serving_profile.txt", "w") as f:
+    with open(f"chiprun_out/torch_serving_profile_{model}.txt", "w") as f:
         for label, rows in (("prefill", rows_p), ("decode", rows_d)):
             f.write(f"== {label} ({smi}) device us, calls, kernel\n")
             for dev_us, count, key in rows[:40]:
