@@ -17,7 +17,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    at small shapes (w given and not, an empty expert, all rows on one
    expert, d and f off the tile and off the 16-byte vector), each kernel
    alone and the whole FFN, with ``torch._grouped_mm`` (or a dense matmul
-   of the same rows) as the yardstick;
+   of the same rows) as the yardstick; and the backward grouped kernels
+   (dgdu with gate/up recomputed and saved, dxs, wgrad) in bf16 at the
+   1B/8e MoE bench's and Mixtral 8x7B's training shapes (16,384 and 2,048
+   tokens, top-2 of 8) and in fp32 at awkward shapes, each kernel fed the
+   plain version's inputs, then the whole backward through autograd;
 4. runs ``ragged_forward`` for a depth-2 model at Llama-3-8B width in fp32
    on the card (kernels) and on the CPU (plain versions) — a fresh chunk, a
    split chunk and a decode step — and compares the logits, then checks
@@ -40,7 +44,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 7. trains Llama-3 1B (the repo's training bench model) at full width and
    depth in bf16 through ``initialize``/``train_batch``: 2 warm-up and 10
    timed steps on one fixed batch, with tokens/s, ms per step, peak
-   memory and each step's loss, and the kernels' launches read around it.
+   memory and each step's loss, and the kernels' launches read around it;
+8. MoE training: the fp32 gradients of ``dropless_moe_layer`` at the
+   1B/8e width and two fp32 ``train_batch`` steps of the 1B/8e model at
+   depth 2, card against CPU; then the slice's main path, the repo's MoE
+   training bench model (bench.py:251-285; 12 layers, 8 experts top-2,
+   dropless) at full width and depth in bf16, 2 warm-up and 10 timed
+   steps of 8 x 2048 tokens; and Mixtral 8x7B at full width and 2 of its
+   32 layers (1 x 2048 tokens), each with ms per step, tokens/s, peak
+   memory, loss and aux loss per step, and the launches read around it.
 
 Every phase prints one JSON line; any failure raises, so the script exits
 non-zero. Without CUDA, or outside a checkout of the repository, it exits
@@ -596,6 +608,189 @@ def phase_grouped(rng):
     return out
 
 
+def _wgrad_mm_ms(a, b, ends):
+    """The dW yardstick: one ``torch._grouped_mm`` in its ragged-K form
+    (out[g] = a[rows of g]ᵀ · b[rows of g]), trying row- and column-major
+    copies of both operands. Returns ms, or None where this torch has no
+    such form for these inputs. Timed here only; the port never calls
+    it."""
+    import torch
+    if not hasattr(torch, "_grouped_mm"):
+        return None
+    for at in (a.t(), a.t().contiguous()):
+        for bt in (b, b.t().contiguous().t()):
+            try:
+                torch._grouped_mm(at, bt, offs=ends)
+                torch.cuda.synchronize()
+            except (RuntimeError, TypeError, ValueError):
+                continue
+            return cuda_time_ms(
+                lambda: torch._grouped_mm(at, bt, offs=ends), iters=10)
+    return None
+
+
+def check_grouped_bwd(name, rng, s, k, e, d, f, dtype, fused,
+                      kind="router", time_it=False):
+    """The backward kernels on the card against their plain versions, on
+    one dropless FFN call (``_grouped_case``) and a random upstream
+    gradient dz (zero on padding rows, as the combine's backward gives
+    it): grouped_dgdu in both forms (gate/up recomputed from xs, and read
+    from the saved forward), with w when ``fused`` (dg, du, h and the
+    combine weights' gradient dw2) and without; grouped_dxs and the three
+    grouped_wgrad products fed the plain dg/du/h; then the whole backward
+    through autograd of grouped_glu_ffn. Rows at or past live_tiles * bm
+    are unspecified in dg/du/h/dxs and skipped."""
+    import torch
+    from deepspeed_tpu_torch.ops import grouped_matmul as tg
+    from deepspeed_tpu_torch.parallel.moe import GMM_BM as bm
+    xs, (wg, wi, wo), (got, sizes, live), w, used = _grouped_case(
+        rng, s, k, e, d, f, dtype, kind)
+    g = torch.Generator(device=DEV).manual_seed(int(rng.integers(1 << 30)))
+    dz = torch.randn(xs.shape, generator=g, device=DEV).to(dtype)
+    dz[w == 0] = 0                       # padding and dead rows
+    w = w if fused else None
+    end = int(live[0]) * bm
+    res = {"phase": "kernels", "check": name, "kernel": "grouped_bwd",
+           "dtype": str(dtype).replace("torch.", ""),
+           "shape": {"S": s, "k": k, "E": e, "d": d, "f": f, "bm": bm,
+                     "R_pad": xs.shape[0], "live_rows": end,
+                     "experts_used": used, "w": fused, "routing": kind}}
+    before = dict(tg.op_builder.launches)
+    rc = dict(xs=xs, wg=wg, wi=wi)
+    rg, ru = tg.gate_up_ref(xs, wg, wi, sizes, live, bm)
+    saved = dict(gate=rg, up=ru)
+    ref = tg.dgdu_ref(dz, wo, sizes, live, bm, w=w, **rc)
+    for form, kw in (("rc", rc), ("saved", saved)):
+        out = tg.dgdu_kernel(dz, wo, got, live, bm, w=w, **kw)
+        want = ref if form == "rc" else tg.dgdu_ref(dz, wo, sizes, live, bm,
+                                                   w=w, **kw)
+        for key, a, b in zip(("dg", "du", "h"), out[:3], want[:3]):
+            _hold_pair(res, f"dgdu_{form}_{key}", a[:end], b[:end])
+        if fused:
+            _hold_pair(res, f"dgdu_{form}_dw2", out[3], want[3])
+    rdg, rdu, rh, _ = ref
+    _hold_pair(res, "dxs", tg.dxs_kernel(rdg, rdu, wg, wi, got, live,
+                                         bm)[:end],
+               tg.dxs_ref(rdg, rdu, wg, wi, sizes, live, bm)[:end])
+    for key, a, b, sc in (("dwg", xs, rdg, None), ("dwi", xs, rdu, None),
+                          ("dwo", rh, dz, w)):
+        _hold_pair(res, key, tg.wgrad_kernel(a, b, got, live, e, bm, sc),
+                   tg.wgrad_ref(a, b, sizes, live, bm, sc))
+    # the whole backward through autograd: one dgdu, one dxs, three wgrad
+    leaves = [t.clone().requires_grad_() for t in (xs, wg, wi, wo)]
+    inputs = leaves + ([w.clone().requires_grad_()] if fused else [])
+    mid = dict(tg.op_builder.launches)
+    y = tg.grouped_glu_ffn(*leaves, got, sizes, live, bm=bm,
+                           w=inputs[4] if fused else None)
+    grads = torch.autograd.grad(y, inputs, dz)
+    torch.cuda.synchronize()
+    after = dict(tg.op_builder.launches)
+    assert after["grouped_dgdu"] - mid["grouped_dgdu"] == 1, after
+    assert after["grouped_dxs"] - mid["grouped_dxs"] == 1, after
+    assert after["grouped_wgrad"] - mid["grouped_wgrad"] == 3, after
+    assert after["grouped_dgdu"] - before["grouped_dgdu"] == 3, after
+    dxs_ref = tg.dxs_ref(rdg, rdu, wg, wi, sizes, live, bm)
+    _hold_pair(res, "autograd_dxs", grads[0][:end], dxs_ref[:end])
+    for key, gr, (a, b, sc) in zip(
+            ("autograd_dwg", "autograd_dwi", "autograd_dwo"), grads[1:4],
+            ((xs, rdg, None), (xs, rdu, None), (rh, dz, w))):
+        _hold_pair(res, key, gr, tg.wgrad_ref(a, b, sizes, live, bm, sc))
+    if fused:
+        _hold_pair(res, "autograd_dw2", grads[4], ref[3])
+    res["max_abs_err"] = max(v["max_abs_err"] for v in res.values()
+                             if isinstance(v, dict) and "max_abs_err" in v)
+    if time_it:
+        rows, isz = s * k, xs.element_size()
+        ends = torch.cumsum(sizes, 0).clamp_max(end).to(torch.int32)
+        t = {}
+        t["dgdu_ms"] = cuda_time_ms(lambda: tg.dgdu_kernel(
+            dz, wo, got, live, bm, w=w, **rc), iters=10)
+        t["dgdu_saved_ms"] = cuda_time_ms(lambda: tg.dgdu_kernel(
+            dz, wo, got, live, bm, w=w, **saved), iters=10)
+        t["dxs_ms"] = cuda_time_ms(lambda: tg.dxs_kernel(
+            rdg, rdu, wg, wi, got, live, bm), iters=10)
+        t["dwg_ms"] = cuda_time_ms(lambda: tg.wgrad_kernel(
+            xs, rdg, got, live, e, bm), iters=10)
+        t["dwi_ms"] = cuda_time_ms(lambda: tg.wgrad_kernel(
+            xs, rdu, got, live, e, bm), iters=10)
+        t["dwo_ms"] = cuda_time_ms(lambda: tg.wgrad_kernel(
+            rh, dz, got, live, e, bm, w), iters=10)
+        t["wgrad_ms"] = t["dwg_ms"] + t["dwi_ms"] + t["dwo_ms"]
+        t["dgdu_plain_ms"] = cuda_time_ms(lambda: tg.dgdu_ref(
+            dz, wo, sizes, live, bm, w=w, **rc), iters=3, warmup=1)
+        t["dxs_plain_ms"] = cuda_time_ms(lambda: tg.dxs_ref(
+            rdg, rdu, wg, wi, sizes, live, bm), iters=3, warmup=1)
+        t["wgrad_plain_ms"] = sum(cuda_time_ms(
+            lambda a=a, b=b, sc=sc: tg.wgrad_ref(a, b, sizes, live, bm, sc),
+            iters=3, warmup=1) for a, b, sc in ((xs, rdg, None),
+                                                (xs, rdu, None), (rh, dz, w)))
+        # bounds: the S·k real rows; dgdu 6·d·f FLOP per row (gate and up
+        # recomputed, dh), dxs 4·d·f, the three dW products 6·d·f; bytes:
+        # each input read once (the weights of the experts used), each
+        # output written once (dW for every expert)
+        wb = d * f * used * isz
+        t["dgdu_bound_ms"], t["dgdu_bound_by"] = bound(
+            3 * wb + 2 * rows * d * isz + 3 * rows * f * isz + rows * 4,
+            6.0 * d * f * rows, res["dtype"])
+        t["dxs_bound_ms"], t["dxs_bound_by"] = bound(
+            2 * wb + 2 * rows * f * isz + rows * d * isz,
+            4.0 * d * f * rows, res["dtype"])
+        t["wgrad_bound_ms"], t["wgrad_bound_by"] = bound(
+            3 * d * f * e * isz + 2 * rows * d * isz + 3 * rows * f * isz,
+            6.0 * d * f * rows, res["dtype"])
+        # yardsticks: torch._grouped_mm where it takes the shape; dgdu has
+        # none (no call recomputes gate/up and applies the GLU backward):
+        # its three products alone are timed beside it
+        wgi_t = torch.cat([wg, wi], dim=-1).transpose(-1, -2)
+        t["dxs_library_ms"], t["library"] = _grouped_mm_ms(
+            torch.cat([rdg, rdu], dim=1)[:end], wgi_t, ends)
+        dwgi = _wgrad_mm_ms(xs[:end], torch.cat([rdg, rdu], 1)[:end], ends)
+        dzw = (dz.float() * w.float()[:, None]).to(dtype) if fused else dz
+        dwo = _wgrad_mm_ms(rh[:end], dzw[:end], ends)
+        t["wgrad_library_ms"] = None if dwgi is None or dwo is None \
+            else dwgi + dwo
+        prod_gu, _ = _grouped_mm_ms(xs[:end], torch.cat([wg, wi], -1), ends)
+        prod_dh, _ = _grouped_mm_ms(dz[:end], wo.transpose(-1, -2), ends)
+        t["dgdu_library_ms"] = None
+        t["dgdu_products_library_ms"] = prod_gu + prod_dh
+        del wgi_t, dzw
+        res.update(t)
+    emit(res)
+    del xs, wg, wi, wo, dz, ref, rg, ru, grads, leaves, inputs, y
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_grouped_bwd(rng):
+    """Phase 3's backward checks: bf16 at the two training shapes (the
+    repo's 1B/8e MoE bench, 16,384 tokens; Mixtral 8x7B, 2,048 tokens;
+    top-2 of 8), then fp32 at awkward shapes and a bf16 one off the
+    vector width. Returns the timed path-shape lines."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = {"moe_1b_8e": check_grouped_bwd(
+               "gmm_bwd_1b8e_path", rng, 16384, 2, 8, 1024, 2816, bf16,
+               True, time_it=True),
+           "mixtral": check_grouped_bwd(
+               "gmm_bwd_mixtral_path", rng, 2048, 2, 8, 4096, 14336, bf16,
+               True, time_it=True)}
+    for name, s, k, e, d, f, dtype, fused, kind in (
+            ("gmm_bwd_bf16_odd_unscaled", 100, 2, 4, 100, 150, bf16, False,
+             "router"),
+            ("gmm_bwd_f32_fused", 300, 2, 4, 256, 200, f32, True, "router"),
+            ("gmm_bwd_f32_unscaled", 300, 2, 4, 256, 200, f32, False,
+             "router"),
+            ("gmm_bwd_f32_empty_expert", 200, 2, 6, 128, 384, f32, True,
+             "empty"),
+            ("gmm_bwd_f32_one_expert", 150, 2, 5, 128, 130, f32, False,
+             "one"),
+            ("gmm_bwd_f32_one_expert_fused", 150, 2, 5, 128, 130, f32, True,
+             "one"),
+            ("gmm_bwd_f32_odd", 90, 3, 4, 130, 70, f32, True, "router")):
+        check_grouped_bwd(name, rng, s, k, e, d, f, dtype, fused, kind)
+    return out
+
+
 def phase_kernels(rng):
     import torch
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1148,6 +1343,256 @@ def phase_train():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# MoE training: fp32 card vs CPU, then the bench model and Mixtral in bf16
+# ---------------------------------------------------------------------------
+
+#: the repo's MoE training bench model (bench.py:251-285): ~0.90 B total,
+#: ~0.28 B active parameters; its config minus the TPU-only knobs (no
+#: save_attn_kernel_qkv remat), micro batch 8 x 2048 tokens, gas 1
+MOE_TRAIN_MODEL = dict(hidden_size=1024, num_layers=12, num_heads=8,
+                       num_kv_heads=4, intermediate_size=2816, num_experts=8,
+                       num_experts_per_tok=2, vocab_size=32000,
+                       max_seq_len=2048, tie_embeddings=True)
+MOE_TRAIN_MICRO, MOE_TRAIN_SEQ = 8, 2048
+MOE_TRAIN_WARMUP, MOE_TRAIN_STEPS = 2, 10
+#: Mixtral 8x7B at full width and 2 of its 32 layers, micro batch 1 x 2048
+MIXTRAL_TRAIN_LAYERS, MIXTRAL_TRAIN_WARMUP, MIXTRAL_TRAIN_STEPS = 2, 2, 3
+#: the fp32 layer-gradient check: d, f, experts (top-2), tokens
+MOE_LAYER_GRAD = (1024, 2816, 8, 1024)
+#: grouped launches per MoE layer and micro-batch of a training step
+MOE_LAYER_LAUNCHES = {"grouped_gate_up": 1, "grouped_down": 1,
+                      "grouped_dgdu": 1, "grouped_dxs": 1, "grouped_wgrad": 3}
+
+
+def _moe_train_conf(micro, gas, lr, bf16, **extra):
+    conf = {"train_micro_batch_size_per_gpu": micro,
+            "gradient_accumulation_steps": gas,
+            "optimizer": {"type": "adamw",
+                          "params": {"lr": lr, "weight_decay": 0.1}},
+            "gradient_clipping": 1.0, "moe": {"impl": "dropless"},
+            "attention_impl": "auto", "steps_per_print": 1000}
+    if bf16:
+        conf["bf16"] = {"enabled": True}
+    conf.update(extra)
+    return conf
+
+
+def _rel(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return _err(a, b) / max(float(b.float().abs().max()), 1e-30)
+
+
+def phase_moe_layer_grad():
+    """dropless_moe_layer forward and backward at the 1B/8e width (d 1024,
+    f 2816, 8 experts, top-2) in fp32 with 1,024 tokens, on the card (the
+    grouped kernels) and on the CPU (plain versions) from one parameter
+    set and input: the gradients of x, the router and the three expert
+    weights must agree within 1e-4 of each one's largest |value| (fp32 on
+    both sides, TF32 off: sums over 1024-2816 terms and over an expert's
+    rows in other orders), the output and aux likewise."""
+    import torch
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.parallel.moe import dropless_moe_layer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    d, f, e, tokens = MOE_LAYER_GRAD
+    g = torch.Generator(device=DEV).manual_seed(9)
+    p = {"router": torch.randn((d, e), generator=g, device=DEV) * 0.02,
+         "wg": torch.randn((e, d, f), generator=g, device=DEV) * 0.02,
+         "wi": torch.randn((e, d, f), generator=g, device=DEV) * 0.02,
+         "wo": torch.randn((e, f, d), generator=g, device=DEV) * 0.02}
+    x = torch.randn((2, tokens // 2, d), generator=g, device=DEV)
+    cot = torch.randn((2, tokens // 2, d), generator=g, device=DEV)
+    out = {}
+    for where in (DEV, "cpu"):
+        leaves = {k: v.to(where).clone().requires_grad_()
+                  for k, v in p.items()}
+        xx = x.to(where).clone().requires_grad_()
+        op_builder.reset_launches()
+        y, aux = dropless_moe_layer(None, leaves, xx)
+        grads = torch.autograd.grad((y * cot.to(where)).sum() + aux,
+                                    [xx] + list(leaves.values()))
+        out[where] = {"y": y.detach().cpu(), "aux": aux.detach().cpu(),
+                      "launches": dict(op_builder.launches),
+                      **{k: gr.cpu() for k, gr in
+                         zip(["x"] + list(leaves), grads)}}
+    card, cpu = out[DEV], out["cpu"]
+    errs = {k: _rel(card[k], cpu[k])
+            for k in ("y", "aux", "x", "router", "wg", "wi", "wo")}
+    res = {"phase": "moe_layer_grad", "dtype": "float32",
+           "shape": {"tokens": tokens, "d": d, "f": f, "E": e, "k": 2},
+           "rel_err": errs, "tol": 1e-4, "launches": card["launches"]}
+    emit(res)
+    assert all(card["launches"][k] == n
+               for k, n in MOE_LAYER_LAUNCHES.items()), card["launches"]
+    assert not any(cpu["launches"].values()), cpu["launches"]
+    assert all(bool(torch.isfinite(card[k]).all()) for k in errs)
+    assert max(errs.values()) <= 1e-4, res
+
+
+def phase_moe_train_full_width():
+    """Two fp32 train_batch steps of the 1B/8e bench model at depth 2
+    (gas 2, micro batch 1 x 256 tokens, AdamW lr 1e-5, clip 1.0, dropless)
+    on the card and on the CPU from one seeded parameter tree and the
+    same batches: losses (CE + aux) and aux within 1e-4 relative,
+    parameters within 1e-4 absolute (the lr argument of phase 6)."""
+    import torch
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.mixtral import mixtral_config
+    from deepspeed_tpu_torch.models.transformer import init_params
+    from deepspeed_tpu_torch.ops import op_builder
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = mixtral_config("tiny", **dict(MOE_TRAIN_MODEL, num_layers=2,
+                                        max_seq_len=256))
+    conf = _moe_train_conf(1, 2, 1e-5, bf16=False)
+    init = init_params(cfg, torch.Generator(device=DEV).manual_seed(10),
+                       torch.float32, DEV)
+    init_cpu = _to_cpu(init)
+    rng = np.random.default_rng(10)
+    data = [{"input_ids": rng.integers(0, cfg.vocab_size, size=(1, 256))
+             .astype(np.int32)} for _ in range(4)]
+    runs = {}
+    for where in ("card", "cpu"):
+        eng, _, _, _ = initialize(cfg, dict(conf), params=(
+            init if where == "card" else init_cpu),
+            device=DEV if where == "card" else "cpu")
+        op_builder.reset_launches()
+        losses, aux = [], []
+        for step in range(2):
+            losses.append(float(eng.train_batch(iter(data[2 * step:
+                                                          2 * step + 2]))))
+            aux.append(float(eng._last_metrics["aux_loss"]))
+        runs[where] = {"losses": losses, "aux": aux,
+                       "params": _to_cpu(eng.params),
+                       "launches": dict(op_builder.launches)}
+        del eng
+    del init
+    torch.cuda.empty_cache()
+    card, cpu = runs["card"], runs["cpu"]
+
+    def leaves(tree):
+        return [x for v in tree.values() for x in leaves(v)] \
+            if isinstance(tree, dict) else [tree]
+
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"],
+                                                        cpu["losses"]))
+    aux_rel = max(abs(a - b) / abs(b) for a, b in zip(card["aux"],
+                                                       cpu["aux"]))
+    param_err = max(_err(a, b) for a, b in zip(leaves(card["params"]),
+                                               leaves(cpu["params"])))
+    res = {"phase": "moe_train_full_width",
+           "model": "moe-1b-8e-width-depth2", "dtype": "float32",
+           "losses_card": card["losses"], "losses_cpu": cpu["losses"],
+           "aux_card": card["aux"], "aux_cpu": cpu["aux"],
+           "loss_rel_err": loss_rel, "aux_rel_err": aux_rel,
+           "param_max_abs_err": param_err, "tol": 1e-4,
+           "launches": card["launches"]}
+    emit(res)
+    micro_layers = 2 * 2 * cfg.num_layers
+    assert all(card["launches"][k] == n * micro_layers
+               for k, n in MOE_LAYER_LAUNCHES.items()), card["launches"]
+    assert all(np.isfinite(card["losses"]))
+    assert loss_rel <= 1e-4 and aux_rel <= 1e-4 and param_err <= 1e-4, res
+
+
+def _train_run(cfg, conf, warmup, steps, seed, batch_shape):
+    """initialize + warmup + steps train_batch steps on one fixed batch;
+    returns (result dict, launches over all steps)."""
+    import torch
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.ops import op_builder
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng, _, _, _ = initialize(cfg, conf, generator=torch.Generator(
+        device=DEV).manual_seed(seed), device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    rng = np.random.default_rng(seed)
+    batch = [{"input_ids": rng.integers(0, cfg.vocab_size, size=batch_shape)
+              .astype(np.int32)}]
+
+    # the main path: every count set to 0 just before, read just after
+    op_builder.reset_launches()
+    losses, aux, step_s = [], [], []
+    for _ in range(warmup + steps):
+        t1 = time.perf_counter()
+        loss = eng.train_batch(iter(batch))
+        losses.append(float(loss))           # syncs: the step is done
+        step_s.append(time.perf_counter() - t1)
+        aux.append(float(eng._last_metrics["aux_loss"]))
+    launches = dict(op_builder.launches)
+    timed = step_s[warmup:]
+    ms = 1e3 * sum(timed) / len(timed)
+    tokens = batch_shape[0] * batch_shape[1]
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    active = cfg.num_params() - (e - k) * 3 * cfg.hidden_size \
+        * cfg.ffn_size * cfg.num_layers
+    res = {"dtype": "bfloat16", "params": cfg.num_params(),
+           "active_params": active, "layers": cfg.num_layers,
+           "micro_batch": batch_shape[0], "seq": batch_shape[1],
+           "init_seconds": init_s, "state_gb": state_gb,
+           "losses": losses, "aux_losses": aux, "step_seconds": step_s,
+           "ms_per_step": ms, "ms_per_step_min": 1e3 * min(timed),
+           "ms_per_step_max": 1e3 * max(timed),
+           "tokens_per_s": tokens / (ms / 1e3),
+           "active_tflops_per_s": 6.0 * active * tokens / (ms / 1e3) / 1e12,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "grad_norm": eng.get_global_grad_norm(), "launches": launches,
+           "launches_per_step": {n: v / (warmup + steps)
+                                 for n, v in launches.items()}}
+    del eng
+    torch.cuda.empty_cache()
+    steps_all = warmup + steps
+    assert all(np.isfinite(losses)) and all(np.isfinite(aux)), res
+    assert launches["paged_attention"] == 0, launches
+    for n, per in MOE_LAYER_LAUNCHES.items():
+        assert launches[n] == per * cfg.num_layers * steps_all, launches
+    for n in TRAIN_KERNELS:
+        assert launches[n] == cfg.num_layers * steps_all, launches
+    return res, launches
+
+
+def phase_train_moe():
+    """The slice's main path: the repo's MoE training bench model
+    (bench.py:251-285) at full width and depth in bf16 with random
+    weights, dropless, through initialize/train_batch: 2 warm-up and 10
+    timed steps on one fixed batch of 8 x 2048 tokens. The loss of the
+    memorised batch must fall; every grouped kernel runs once per layer
+    and step (wgrad three times)."""
+    from deepspeed_tpu_torch.models.mixtral import mixtral_config
+    cfg = mixtral_config("tiny", **MOE_TRAIN_MODEL)
+    conf = _moe_train_conf(MOE_TRAIN_MICRO, 1, 1e-4, bf16=True,
+                           chunked_ce_budget_mb=256, ce_logits_dtype="bf16",
+                           activation_checkpointing={"policy": "none"})
+    res, launches = _train_run(cfg, conf, MOE_TRAIN_WARMUP, MOE_TRAIN_STEPS,
+                               11, (MOE_TRAIN_MICRO, MOE_TRAIN_SEQ))
+    emit(dict(res, phase="train_moe", model="moe-1b-8e (bench.py:251)"))
+    assert res["losses"][-1] < res["losses"][0], res["losses"]
+    return launches
+
+
+def phase_train_mixtral():
+    """Mixtral 8x7B at full width and MIXTRAL_TRAIN_LAYERS of its 32
+    layers in bf16, dropless, micro batch 1 x 2048 tokens: 2 warm-up and 3
+    timed train_batch steps. The engine holds ~20 bytes per parameter
+    (bf16 params, fp32 master, Adam m and v, fp32 accumulated grads, bf16
+    grads): printed as reckoned_state_gb beside the measured peak."""
+    from deepspeed_tpu_torch.models.mixtral import mixtral_config
+    cfg = mixtral_config("8x7b", num_layers=MIXTRAL_TRAIN_LAYERS,
+                         max_seq_len=2048)
+    conf = _moe_train_conf(1, 1, 1e-5, bf16=True,
+                           activation_checkpointing={"policy": "none"})
+    res, launches = _train_run(cfg, conf, MIXTRAL_TRAIN_WARMUP,
+                               MIXTRAL_TRAIN_STEPS, 12, (1, 2048))
+    emit(dict(res, phase="train_mixtral",
+              model=f"mixtral-8x7b-{MIXTRAL_TRAIN_LAYERS}L",
+              reckoned_state_gb=20 * cfg.num_params() / 1e9))
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1179,6 +1624,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     timed = phase_kernels(rng)
     grouped = phase_grouped(rng)
+    grouped_bwd = phase_grouped_bwd(rng)
     if "--kernels-only" in sys.argv[1:]:
         return 0
     phase_full_width()
@@ -1186,12 +1632,20 @@ def main() -> int:
     paths = {"serve": phase_serve(), "serve_moe": phase_serve_moe()}
     phase_train_full_width()
     paths["train"] = phase_train()
+    phase_moe_layer_grad()
+    phase_moe_train_full_width()
+    paths["train_moe"] = phase_train_moe()
+    paths["train_mixtral"] = phase_train_mixtral()
 
     # launches: over the main paths (dense serving and MoE serving, phase
-    # 5; training, phase 7), each read around its own run; K1's times are
-    # at the training shape (its serving-shape times are in phase 3's
-    # flash_fresh line), the grouped kernels' at the Mixtral prefill shape
-    # (the Qwen shape is in phase 3's gmm_qwen_path line)
+    # 5; dense training, phase 7; MoE training of the 1B/8e bench model
+    # and of Mixtral 8x7B at 2 layers, phase 8), each read around its own
+    # run; K1's times are at the training shape (its serving-shape times
+    # are in phase 3's flash_fresh line), the forward grouped kernels' at
+    # the Mixtral prefill shape (the Qwen shape is in phase 3's
+    # gmm_qwen_path line), the backward ones' at the 1B/8e training shape
+    # (the Mixtral shape is in phase 3's gmm_bwd_mixtral_path line);
+    # grouped_wgrad's numbers are its three launches of a layer together
     rows = [("flash_attention_fwd",
              "deepspeed_tpu_torch/ops/csrc/flash_attention.cu",
              "deepspeed_tpu/ops/flash_attention.py:71", timed["train_fwd"],
@@ -1211,7 +1665,18 @@ def main() -> int:
             ("grouped_down",
              "deepspeed_tpu_torch/ops/csrc/grouped_matmul.cu",
              "deepspeed_tpu/ops/grouped_matmul.py:352", grouped["mixtral"],
-             "down")]
+             "down")] + [
+            (name, "deepspeed_tpu_torch/ops/csrc/grouped_matmul_bwd.cu",
+             "deepspeed_tpu/ops/grouped_matmul.py:" + line,
+             grouped_bwd["moe_1b_8e"], key)
+            for name, line, key in (("grouped_dgdu", "411", "dgdu"),
+                                    ("grouped_dxs", "488", "dxs"),
+                                    ("grouped_wgrad", "502", "wgrad"))]
+    #: which checks of a phase-3 line hold each backward kernel
+    bwd_checks = {"dgdu": ("dgdu_", "autograd_dw2"),
+                  "dxs": ("dxs", "autograd_dxs"),
+                  "wgrad": ("dwg", "dwi", "dwo", "autograd_dwg",
+                            "autograd_dwi", "autograd_dwo")}
     kernels = []
     for name, src, replaces, res, key in rows:
         if key == "kernel":
@@ -1220,6 +1685,18 @@ def main() -> int:
                      "bound_ms": res["bound_ms"],
                      "bound_by": res["bound_by"],
                      "library_ms": res["library_ms"]}
+        elif key in bwd_checks:
+            times = {"max_abs_err": max(
+                         v["max_abs_err"] for c, v in res.items()
+                         if isinstance(v, dict) and "max_abs_err" in v
+                         and c.startswith(bwd_checks[key])),
+                     "ms": res[key + "_ms"],
+                     "plain_ms": res[key + "_plain_ms"],
+                     "bound_ms": res[key + "_bound_ms"],
+                     "bound_by": res[key + "_bound_by"],
+                     "library_ms": res[key + "_library_ms"],
+                     "library": "torch._grouped_mm" if res[key + "_library_ms"]
+                     is not None else None}
         else:
             pair = ("gate", "up") if key == "gate_up" else ("down", "ffn")
             times = {"max_abs_err": max(res[p]["max_abs_err"] for p in pair),
@@ -1236,7 +1713,11 @@ def main() -> int:
                              "launches_by_path": {k: p[name] for k, p in
                                                   paths.items()}},
                             **times))
-    kernels[-1]["also_replaces"] = "deepspeed_tpu/ops/grouped_matmul.py:341"
+    also = {"grouped_down": "deepspeed_tpu/ops/grouped_matmul.py:341",
+            "grouped_dgdu": "deepspeed_tpu/ops/grouped_matmul.py:366"}
+    for row in kernels:
+        if row["name"] in also:
+            row["also_replaces"] = also[row["name"]]
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -5,10 +5,11 @@ tensor code is PyTorch, and each Pallas kernel of the JAX package becomes
 a kernel written by hand for NVIDIA Hopper (``ops/csrc``). This package
 imports ``torch``, never ``jax`` and nothing of ``deepspeed_tpu``.
 
-The first slice serves dense decoders through the ragged paged-KV engine
-(``RaggedInferenceEngine``, the port of ``RaggedInferenceEngineTPU``); the
-second trains them on one device through ``initialize`` and
-``DeepSpeedEngine.train_batch`` (the port of ``DeepSpeedTPUEngine``).
+The ragged paged-KV engine (``RaggedInferenceEngine``, the port of
+``RaggedInferenceEngineTPU``) serves dense and MoE decoders; ``initialize``
+and ``DeepSpeedEngine.train_batch`` (the port of ``DeepSpeedTPUEngine``)
+train them on one device, MoE models through the dropless grouped FFN or
+the capacity layer (the config's ``moe`` section).
 """
 
 from deepspeed_tpu_torch.inference.engine_v2 import (RaggedInferenceConfig,

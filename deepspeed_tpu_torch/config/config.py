@@ -6,17 +6,17 @@ triple solver are the JAX package's, so one JSON validates in both. This
 slice trains on one device; it reads the batch triple, ``optimizer``,
 ``scheduler``, ``fp16``/``bf16``, ``gradient_clipping``,
 ``zero_optimization.stage`` (0 only), ``activation_checkpointing.policy``,
-``attention_impl``, ``ce_logits_dtype``, ``chunked_ce_budget_mb``,
-``seed`` and ``steps_per_print``.
+``attention_impl``, ``ce_logits_dtype``, ``chunked_ce_budget_mb``, ``moe``
+(one expert shard), ``seed`` and ``steps_per_print``.
 
 Every other section of the JAX config (tensor/pipeline/sequence
-parallelism, MoE, telemetry, offload, ...) is not ported yet: it may be
+parallelism, telemetry, offload, ...) is not ported yet: it may be
 absent or hold its default values, and any other value raises
 ``NotImplementedError`` rather than being silently ignored.
 """
 
 import json
-from typing import Any, Dict, Literal, Optional, Union
+from typing import Any, Dict, List, Literal, Optional, Union
 
 from pydantic import Field, model_validator
 
@@ -73,6 +73,47 @@ class ActivationCheckpointingConfig(TPUConfigModel):
         return self
 
 
+class MoEConfig(TPUConfigModel):
+    """``moe`` (config.py:324; reference deepspeed/moe). ``impl``:
+    "capacity" (GShard einsums with a static capacity, the default) or
+    "dropless" (the grouped FFN over the aligned layout, no token dropped).
+    One device, so ``ep_size`` 1 only; ``noisy_gate_policy`` None only;
+    ``use_residual`` (Residual-MoE) raises. ``use_rts`` with
+    ``drop_tokens`` on the capacity impl raises when a model is built
+    (``runtime.model_factory.select_moe``). ``enabled``, ``num_experts``,
+    ``top_k`` and ``eval_capacity_factor`` are read as the JAX package
+    reads them: the model config, not this section, sets the experts."""
+    enabled: bool = False
+    ep_size: int = 1
+    num_experts: Union[int, List[int]] = 1
+    top_k: int = 1
+    capacity_factor: float = 1.0
+    eval_capacity_factor: float = 1.0
+    min_capacity: int = 4
+    noisy_gate_policy: Optional[str] = None
+    drop_tokens: bool = True
+    use_rts: bool = True
+    use_residual: bool = False
+    aux_loss_coef: float = 0.01
+    impl: Literal["capacity", "dropless"] = "capacity"
+
+    @model_validator(mode="after")
+    def _ported(self):
+        if self.ep_size != 1:
+            raise NotImplementedError(
+                f"moe.ep_size={self.ep_size}: expert parallelism is not "
+                f"ported to deepspeed_tpu_torch yet (ROADMAP A10)")
+        if self.use_residual:
+            raise NotImplementedError(
+                "moe.use_residual (Residual-MoE) is not ported to "
+                "deepspeed_tpu_torch yet (ROADMAP A8)")
+        if self.noisy_gate_policy not in (None, "None"):
+            raise NotImplementedError(
+                f"moe.noisy_gate_policy={self.noisy_gate_policy!r} is not "
+                f"ported to deepspeed_tpu_torch yet")
+        return self
+
+
 #: ZeRO knobs that change nothing at stage 0 (accepted with any value)
 _ZERO_NOOP_KEYS = {"contiguous_gradients", "reduce_scatter",
                    "reduce_bucket_size", "allgather_partitions",
@@ -112,7 +153,6 @@ _UNPORTED_SECTIONS: Dict[str, Dict[str, Any]] = {
     "tensor_parallel": {"enabled": False, "autotp_size": 1, "tp_size": 1},
     "pipeline": {"stages": 1},
     "sequence_parallel": {"size": 1},
-    "moe": {"enabled": False, "ep_size": 1},
     "comms_logger": {"enabled": False},
     "flops_profiler": {"enabled": False},
     "telemetry": {"enabled": False},
@@ -176,6 +216,7 @@ class DeepSpeedConfig(TPUConfigModel):
     zero_optimization: ZeroConfig = Field(default_factory=ZeroConfig)
     activation_checkpointing: ActivationCheckpointingConfig = Field(
         default_factory=ActivationCheckpointingConfig)
+    moe: MoEConfig = Field(default_factory=MoEConfig)
 
     #: 'auto' / 'pallas_flash' → the port's flash attention (K1 + K3 on
     #: CUDA); 'naive' → the plain [T, T] attention

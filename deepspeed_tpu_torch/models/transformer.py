@@ -14,11 +14,12 @@ combine with its MoE branch (a ``moe_fn`` from
 :mod:`deepspeed_tpu_torch.parallel.moe`), ``init_params`` (dense and MoE
 trees) and ``lm_logits`` (serving); and the training forward:
 ``decoder_block``, ``forward_hidden`` and ``forward`` over the stacked
-layers (per-block recompute for the ``"full"`` remat policy),
-``chunked_cross_entropy`` (each chunk's logits recomputed in backward) and
-``cross_entropy_loss``. MoE training, Residual-MoE, weight-only quantized
-linears, ALiBi, encoder extras, health taps and the named save/offload
-remat policies raise ``NotImplementedError``.
+layers (per-block recompute for the ``"full"`` remat policy), dense and
+MoE, with the MoE layers' aux losses summed, ``chunked_cross_entropy``
+(each chunk's logits recomputed in backward) and ``cross_entropy_loss``.
+Residual-MoE, weight-only quantized linears, ALiBi, encoder extras,
+health taps and the named save/offload remat policies raise
+``NotImplementedError``.
 """
 
 import dataclasses
@@ -405,7 +406,8 @@ def block_combine(cfg: DecoderConfig, p: Params, x: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Residual combine (transformer.py:659): parallel, sequential pre-LN
     and post-LN, with the FFN a dense MLP or, for MoE layers, ``moe_fn``
-    (:func:`deepspeed_tpu_torch.parallel.moe.serving_moe_fn`). Returns
+    (:func:`deepspeed_tpu_torch.parallel.moe.serving_moe_fn` for serving,
+    ``runtime.model_factory.select_moe`` for training). Returns
     (hidden, aux loss); aux is 0 for dense layers."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -414,7 +416,8 @@ def block_combine(cfg: DecoderConfig, p: Params, x: torch.Tensor,
             if moe_fn is None:
                 raise ValueError("an MoE layer needs a moe_fn (see "
                                  "deepspeed_tpu_torch.parallel.moe."
-                                 "serving_moe_fn)")
+                                 "serving_moe_fn and runtime.model_factory."
+                                 "select_moe)")
             if "residual" in p["moe"]:
                 raise NotImplementedError(
                     "Residual-MoE (moe_residual) is not ported to "
@@ -646,18 +649,16 @@ def unstack_layers(layers: Params, num_layers: int) -> List[Params]:
 
 def forward_hidden(cfg: DecoderConfig, params: Params, tokens: torch.Tensor,
                    attn_fn: Optional[AttentionFn] = None,
+                   moe_fn: Optional[Callable] = None,
                    positions: Optional[torch.Tensor] = None,
                    remat_policy: Optional[str] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, T] int → (final-norm hidden [B, T, D], aux loss) —
-    transformer.py:838. The JAX ``lax.scan`` over the stacked layers is a
-    loop over :func:`unstack_layers`; ``remat_policy="full"`` runs each
-    block under ``torch.utils.checkpoint`` (recomputed in backward, as
+    """tokens [B, T] int → (final-norm hidden [B, T, D], aux loss summed
+    over the MoE layers) — transformer.py:838. The JAX ``lax.scan`` over
+    the stacked layers is a loop over :func:`unstack_layers`;
+    ``remat_policy="full"`` runs each block, its ``moe_fn`` included,
+    under ``torch.utils.checkpoint`` (recomputed in backward, as
     ``jax.checkpoint`` on the scan body)."""
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "MoE training (the dropless backward kernels, router "
-            "gradients) is not ported to deepspeed_tpu_torch yet: slice 4")
     resolve_remat_policy(remat_policy)
     remat = remat_policy not in (None, "none")
     if attn_fn is None:
@@ -679,9 +680,9 @@ def forward_hidden(cfg: DecoderConfig, params: Params, tokens: torch.Tensor,
                      windows):
         if remat and torch.is_grad_enabled():
             x, a = checkpoint(decoder_block, cfg, lp, x, sin, cos, attn_fn,
-                              None, w, use_reentrant=False)
+                              moe_fn, w, use_reentrant=False)
         else:
-            x, a = decoder_block(cfg, lp, x, sin, cos, attn_fn, None, w)
+            x, a = decoder_block(cfg, lp, x, sin, cos, attn_fn, moe_fn, w)
         aux = aux + a
     if cfg.has_final_norm:
         x = _norm(cfg, params["final_norm"], x)
@@ -690,13 +691,15 @@ def forward_hidden(cfg: DecoderConfig, params: Params, tokens: torch.Tensor,
 
 def forward(cfg: DecoderConfig, params: Params, tokens: torch.Tensor,
             attn_fn: Optional[AttentionFn] = None,
+            moe_fn: Optional[Callable] = None,
             positions: Optional[torch.Tensor] = None,
             remat_policy: Optional[str] = None,
             with_aux: bool = False):
     """tokens → logits [B, T, V] fp32 (transformer.py:968); with_aux: plus
     the aux loss."""
     x, aux = forward_hidden(cfg, params, tokens, attn_fn=attn_fn,
-                            positions=positions, remat_policy=remat_policy)
+                            moe_fn=moe_fn, positions=positions,
+                            remat_policy=remat_policy)
     logits = lm_logits(cfg, params, x)
     return (logits, aux) if with_aux else logits
 

@@ -1,28 +1,41 @@
 """Grouped (expert-ragged) SwiGLU FFN for dropless MoE — the grouped GEMM
-kernels, their plain version and the dispatch around them.
+kernels forward and backward, their plain versions and the dispatch around
+them.
 
-Port of ``deepspeed_tpu/ops/grouped_matmul.py`` (forward only). The
-(token, slot) assignments are counting-sorted into a block-aligned layout
+Port of ``deepspeed_tpu/ops/grouped_matmul.py``. The (token, slot)
+assignments are counting-sorted into a block-aligned layout
 (:func:`aligned_dispatch`): each expert's rows start on a ``bm``-row tile
 boundary, so every tile belongs to exactly one expert, named by
 ``group_of_tile``, and tiles at or past ``live_tiles`` hold no row. The
 FFN then runs tile by tile over that layout (:func:`grouped_glu_ffn`), and
 both directions of the permutation are known, so dispatch and combine are
-gathers (:func:`gather_rows`, :func:`gather_sum`, :func:`gather_combine`).
-Nothing here reads a device value back to the host.
+gathers in the forward and in the backward (:func:`gather_rows`,
+:func:`gather_sum`, :func:`gather_combine`: each one's gradient is the
+opposite gather through ``pos`` or ``sorted_tok`` and the zero sentinel
+row, never a scatter-add). Nothing here reads a device value back to the
+host.
 
-On CUDA tensors :func:`grouped_glu_ffn` launches the two hand-written
-Hopper kernels of ``csrc/grouped_matmul.cu``: ``grouped_gate_up``
-(replacing the TPU kernel ``_gate_up_kernel``, :328) and ``grouped_down``
-(replacing ``_down_w_kernel``, :352, and ``_down_kernel``, :341). On CPU
-tensors it runs :func:`grouped_glu_ffn_ref`, the plain PyTorch version,
-with the kernels' rounding points. An input the kernels do not take
-raises; nothing falls back. Gradients (the four backward kernels) are
-slice 4's work: a tensor that requires grad raises.
+On CUDA tensors :func:`grouped_glu_ffn` launches the hand-written Hopper
+kernels: forward ``grouped_gate_up`` (replacing the TPU kernel
+``_gate_up_kernel``, :328) and ``grouped_down`` (``_down_w_kernel``, :352,
+and ``_down_kernel``, :341) of ``csrc/grouped_matmul.cu``; backward
+``grouped_dgdu`` (``_dgdu_rc_kernel``, :411, and ``_dgdu_kernel``, :366),
+``grouped_dxs`` (``_dxs_kernel``, :488) and ``grouped_wgrad``
+(``_dw_pair_kernel``, :502, and the dwo product of both dgdu kernels) of
+``csrc/grouped_matmul_bwd.cu``. On CPU tensors each runs its plain PyTorch
+version, with the kernels' rounding points. An input the kernels do not
+take raises; nothing falls back.
+
+The two differentiable forms are the JAX package's: with ``w`` the combine
+weights are fused into the down product and the backward recomputes
+gate/up from ``xs`` (:class:`_GroupedFFNScaled`, ``_build_ffn_w`` :856: no
+``[R, f]`` tensor is kept for the backward); without ``w`` gate/up are
+saved (:class:`_GroupedFFN`, ``_build_ffn`` :787).
 
 Rows at or past ``live_tiles * bm`` of every produced [R_pad, ...] array
 are unspecified (the kernels skip those tiles); read outputs through
-``pos`` only.
+``pos`` only. The weight gradients cover every expert (an expert with no
+row gets zeros).
 """
 
 import ctypes
@@ -42,11 +55,25 @@ op_builder.register("grouped_matmul", {
         ctypes.c_int),
     "dstt_error_string": ([ctypes.c_int], ctypes.c_char_p),
 })
+op_builder.register("grouped_matmul_bwd", {
+    "dstt_grouped_dgdu": (
+        [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+        ctypes.c_int),
+    "dstt_grouped_dxs": (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        ctypes.c_int),
+    "dstt_grouped_wgrad": (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+        ctypes.c_int),
+    "dstt_error_string": ([ctypes.c_int], ctypes.c_char_p),
+})
 
 #: rows per m-tile of the CUDA kernels; the layout's ``bm`` must be a
 #: multiple of it so that no kernel tile straddles two experts
 KERNEL_BM = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: f columns per block of ``grouped_dgdu`` (the dw partials' tile count)
+DGDU_BN = {torch.float32: 32, torch.bfloat16: 64}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -94,22 +121,93 @@ def aligned_dispatch(topi: torch.Tensor, topv: torch.Tensor,
             pos.to(torch.int32).reshape(k, s), live_tiles)
 
 
-def gather_rows(xf1: torch.Tensor, sorted_tok: torch.Tensor,
-                pos: torch.Tensor) -> torch.Tensor:
-    """xs[r] = xf1[sorted_tok[r]] (grouped_matmul.py:190); xf1 [S+1, d]
-    carries a zero row at index S for the padding rows."""
-    return xf1[sorted_tok.long()]
-
-
-def gather_sum(z: torch.Tensor, sorted_tok: torch.Tensor,
-               pos: torch.Tensor) -> torch.Tensor:
-    """out[t] = Σ_slot z[pos[slot, t]], added in z's dtype in slot order
-    (grouped_matmul.py:942)."""
+def _sum_rows(z: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Σ_slot z[pos[slot]] in z's dtype, in slot order: k gathers and adds
+    (grouped_matmul.py:209), never an [R, d] scatter-add."""
     pos = pos.long()
     out = z[pos[0]]
     for slot in range(1, pos.shape[0]):
         out = out + z[pos[slot]]
     return out
+
+
+def _sorted_rows(dout: torch.Tensor, sorted_tok: torch.Tensor
+                 ) -> torch.Tensor:
+    """dout [S, d] in sorted order: cat(dout, zero row)[sorted_tok], so
+    padding and dead rows (sentinel S) get zeros."""
+    dout1 = torch.cat([dout, dout.new_zeros((1, dout.shape[-1]))])
+    return dout1[sorted_tok.long()]
+
+
+class _GatherRows(torch.autograd.Function):
+    """grouped_matmul.py:189: forward the dispatch gather, backward the
+    inverse gather through ``pos`` with a zero gradient for the sentinel
+    row (:207)."""
+
+    @staticmethod
+    def forward(ctx, xf1, sorted_tok, pos):
+        ctx.save_for_backward(pos)
+        return xf1[sorted_tok.long()]
+
+    @staticmethod
+    def backward(ctx, dxs):
+        (pos,) = ctx.saved_tensors
+        dxf = _sum_rows(dxs, pos)
+        return torch.cat([dxf, dxf.new_zeros((1, dxf.shape[-1]))]), None, None
+
+
+class _GatherSum(torch.autograd.Function):
+    """grouped_matmul.py:941: forward the unweighted combine, backward the
+    dispatch gather (:958)."""
+
+    @staticmethod
+    def forward(ctx, z, sorted_tok, pos):
+        ctx.save_for_backward(sorted_tok)
+        return _sum_rows(z, pos)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (sorted_tok,) = ctx.saved_tensors
+        return _sorted_rows(dout, sorted_tok), None, None
+
+
+class _GatherCombine(torch.autograd.Function):
+    """grouped_matmul.py:223: forward the weighted combine, backward
+    dy = dout[tok]·w and dw = Σ_d dout[tok]·y in fp32 (:249)."""
+
+    @staticmethod
+    def forward(ctx, y, w, sorted_tok, pos):
+        ctx.save_for_backward(y, w, sorted_tok)
+        wy = w.to(y.dtype)[:, None]
+        p = pos.long()
+        out = y[p[0]] * wy[p[0]]
+        for slot in range(1, p.shape[0]):
+            out = out + y[p[slot]] * wy[p[slot]]
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        y, w, sorted_tok = ctx.saved_tensors
+        rows = _sorted_rows(dout, sorted_tok)
+        dy = rows * w[:, None].to(rows.dtype)
+        dw = (rows.float() * y.float()).sum(-1).to(w.dtype)
+        return dy, dw, None, None
+
+
+def gather_rows(xf1: torch.Tensor, sorted_tok: torch.Tensor,
+                pos: torch.Tensor) -> torch.Tensor:
+    """xs[r] = xf1[sorted_tok[r]] (grouped_matmul.py:190); xf1 [S+1, d]
+    carries a zero row at index S for the padding rows. Its gradient is
+    dxf1[t] = Σ_slot dxs[pos[slot, t]], zero for the sentinel row."""
+    return _GatherRows.apply(xf1, sorted_tok, pos)
+
+
+def gather_sum(z: torch.Tensor, sorted_tok: torch.Tensor,
+               pos: torch.Tensor) -> torch.Tensor:
+    """out[t] = Σ_slot z[pos[slot, t]], added in z's dtype in slot order
+    (grouped_matmul.py:942); its gradient is dout gathered by
+    ``sorted_tok``, zero on padding and dead rows."""
+    return _GatherSum.apply(z, sorted_tok, pos)
 
 
 def gather_combine(y: torch.Tensor, w: torch.Tensor,
@@ -118,17 +216,8 @@ def gather_combine(y: torch.Tensor, w: torch.Tensor,
     """out[t] = Σ_slot w[pos[slot, t]] · y[pos[slot, t]] in y's dtype
     (grouped_matmul.py:224). Each gathered row is scaled after the gather,
     which gives the same values as the JAX scale-then-gather without
-    touching the dead rows."""
-    pos = pos.long()
-    wy = w.to(y.dtype)
-
-    def term(p):
-        return y[p] * wy[p][:, None]
-
-    out = term(pos[0])
-    for slot in range(1, pos.shape[0]):
-        out = out + term(pos[slot])
-    return out
+    touching the dead rows. Differentiable in y and w."""
+    return _GatherCombine.apply(y, w, sorted_tok, pos)
 
 
 def _expert_rows(sizes_padded: torch.Tensor, live_tiles: torch.Tensor,
@@ -189,6 +278,80 @@ def grouped_glu_ffn_ref(xs: torch.Tensor, wg: torch.Tensor,
     result in xs's dtype). Rows past ``live_tiles * bm`` come back zero."""
     gate, up = gate_up_ref(xs, wg, wi, sizes_padded, live_tiles, bm)
     return down_ref(gate, up, wo, sizes_padded, live_tiles, bm, w)
+
+
+def dgdu_ref(dz: torch.Tensor, wo: torch.Tensor, sizes_padded: torch.Tensor,
+             live_tiles: torch.Tensor, bm: int, *,
+             xs: Optional[torch.Tensor] = None,
+             wg: Optional[torch.Tensor] = None,
+             wi: Optional[torch.Tensor] = None,
+             gate: Optional[torch.Tensor] = None,
+             up: Optional[torch.Tensor] = None,
+             w: Optional[torch.Tensor] = None):
+    """Plain version of ``grouped_dgdu`` with the Pallas bodies' rounding
+    points (grouped_matmul.py:366, :411): dh = dz·wo[g]ᵀ in fp32; gate/up
+    recomputed from ``xs`` and rounded to dz's dtype (:456-457), or the
+    saved ``gate``/``up``; dg = (dh·w)·u·dsilu(g), du = (dh·w)·silu(g) and
+    h = silu(g)·u, each rounded to dz's dtype; with ``w`` the combine
+    weights' gradient dw2[r] = Σ_f dh·h summed in fp32, in w's dtype.
+    Returns (dg, du, h [R_pad, f], dw2 [R_pad] or None); rows past the
+    live ones are zero."""
+    r_pad, f = dz.shape[0], wo.shape[1]
+    dt = dz.dtype
+    dg = torch.zeros((r_pad, f), dtype=dt, device=dz.device)
+    du, h = torch.zeros_like(dg), torch.zeros_like(dg)
+    dw2 = None if w is None else torch.zeros((r_pad,), dtype=torch.float32,
+                                             device=dz.device)
+    for e, r0, r1 in _expert_rows(sizes_padded, live_tiles, bm):
+        dh = dz[r0:r1].float() @ wo[e].float().t()
+        if xs is not None:
+            x = xs[r0:r1].float()
+            g32 = (x @ wg[e].float()).to(dt).float()
+            u32 = (x @ wi[e].float()).to(dt).float()
+        else:
+            g32, u32 = gate[r0:r1].float(), up[r0:r1].float()
+        sg = torch.sigmoid(g32)
+        silu = g32 * sg
+        dsilu = sg * (1.0 + g32 * (1.0 - sg))
+        h32 = silu * u32
+        dhw = dh if w is None else dh * w[r0:r1, None].float()
+        dg[r0:r1] = (dhw * u32 * dsilu).to(dt)
+        du[r0:r1] = (dhw * silu).to(dt)
+        h[r0:r1] = h32.to(dt)
+        if w is not None:
+            dw2[r0:r1] = (dh * h32).sum(-1)
+    return dg, du, h, None if w is None else dw2.to(w.dtype)
+
+
+def dxs_ref(dg: torch.Tensor, du: torch.Tensor, wg: torch.Tensor,
+            wi: torch.Tensor, sizes_padded: torch.Tensor,
+            live_tiles: torch.Tensor, bm: int) -> torch.Tensor:
+    """Plain version of ``grouped_dxs`` (grouped_matmul.py:488): dxs =
+    dg·wg[g]ᵀ + du·wi[g]ᵀ summed in fp32, in dg's dtype; zero past the
+    live rows."""
+    r_pad, d = dg.shape[0], wg.shape[1]
+    out = torch.zeros((r_pad, d), dtype=dg.dtype, device=dg.device)
+    for e, r0, r1 in _expert_rows(sizes_padded, live_tiles, bm):
+        out[r0:r1] = (dg[r0:r1].float() @ wg[e].float().t()
+                      + du[r0:r1].float() @ wi[e].float().t()).to(dg.dtype)
+    return out
+
+
+def wgrad_ref(a: torch.Tensor, b: torch.Tensor, sizes_padded: torch.Tensor,
+              live_tiles: torch.Tensor, bm: int,
+              scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of ``grouped_wgrad`` (grouped_matmul.py:502): dW[e] =
+    Σ over expert e's live rows of a[r]ᵀ·b[r], summed in fp32 and rounded
+    once to a's dtype (:908-911); with ``scale`` each row of b is first
+    round(b[r]·scale[r]) in b's dtype (dzw, :475). [E, a cols, b cols]."""
+    out = torch.zeros((sizes_padded.shape[0], a.shape[1], b.shape[1]),
+                      dtype=a.dtype, device=a.device)
+    for e, r0, r1 in _expert_rows(sizes_padded, live_tiles, bm):
+        bb = b[r0:r1]
+        if scale is not None:
+            bb = (bb.float() * scale[r0:r1, None].float()).to(b.dtype)
+        out[e] = (a[r0:r1].float().t() @ bb.float()).to(a.dtype)
+    return out
 
 
 def _check(xs, wg, wi, wo, group_of_tile, live_tiles, bm, w) -> None:
@@ -268,11 +431,173 @@ def down_kernel(gate, up, wo, group_of_tile, live_tiles, bm: int,
     return y
 
 
-def _kernels(xs, wg, wi, wo, group_of_tile, live_tiles, bm, w):
-    """Check the inputs, then launch grouped_gate_up and grouped_down."""
-    _check(xs, wg, wi, wo, group_of_tile, live_tiles, bm, w)
-    gate, up = gate_up_kernel(xs, wg, wi, group_of_tile, live_tiles, bm)
-    return down_kernel(gate, up, wo, group_of_tile, live_tiles, bm, w)
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def dgdu_kernel(dz, wo, group_of_tile, live_tiles, bm: int, *, xs=None,
+                wg=None, wi=None, gate=None, up=None, w=None):
+    """Launch ``grouped_dgdu`` on CUDA tensors → (dg, du, h [R_pad, f] in
+    dz's dtype, dw2 [R_pad] in w's dtype or None). Gate/up are recomputed
+    from ``xs``, ``wg``, ``wi`` when given, else read from ``gate``/``up``.
+    dw2 sums the kernel's per-f-tile partials and is zero past the live
+    rows (grouped_matmul.py:895-902); dg/du/h rows of dead tiles are left
+    unwritten."""
+    r_pad, d = dz.shape
+    f = wo.shape[1]
+    dg = torch.empty((r_pad, f), dtype=dz.dtype, device=dz.device)
+    du, h = torch.empty_like(dg), torch.empty_like(dg)
+    nf = -(-f // DGDU_BN[dz.dtype])
+    dwp = None if w is None else torch.empty((nf, r_pad), dtype=torch.float32,
+                                             device=dz.device)
+    lib = op_builder.load("grouped_matmul_bwd")
+    err = lib.dstt_grouped_dgdu(
+        dz.data_ptr(), _ptr(xs), _ptr(wg), _ptr(wi), wo.data_ptr(),
+        _ptr(gate), _ptr(up), _ptr(w), dg.data_ptr(), du.data_ptr(),
+        h.data_ptr(), _ptr(dwp), group_of_tile.data_ptr(),
+        live_tiles.data_ptr(), r_pad, d, f, bm, nf, _DTYPES[dz.dtype],
+        torch.cuda.current_stream(dz.device).cuda_stream)
+    op_builder.check(lib, err, "grouped_dgdu")
+    op_builder.launches["grouped_dgdu"] += 1
+    dw2 = None
+    if w is not None:
+        live = torch.arange(r_pad, device=dz.device) < live_tiles.long() * bm
+        dw2 = torch.where(live, dwp.sum(0), 0.0).to(w.dtype)
+    return dg, du, h, dw2
+
+
+def dxs_kernel(dg, du, wg, wi, group_of_tile, live_tiles, bm: int
+               ) -> torch.Tensor:
+    """Launch ``grouped_dxs`` on CUDA tensors → dxs [R_pad, d] in dg's
+    dtype; rows of dead tiles are left unwritten."""
+    r_pad, f = dg.shape
+    d = wg.shape[1]
+    dxs = torch.empty((r_pad, d), dtype=dg.dtype, device=dg.device)
+    lib = op_builder.load("grouped_matmul_bwd")
+    err = lib.dstt_grouped_dxs(
+        dg.data_ptr(), du.data_ptr(), wg.data_ptr(), wi.data_ptr(),
+        dxs.data_ptr(), group_of_tile.data_ptr(), live_tiles.data_ptr(),
+        r_pad, d, f, bm, _DTYPES[dg.dtype],
+        torch.cuda.current_stream(dg.device).cuda_stream)
+    op_builder.check(lib, err, "grouped_dxs")
+    op_builder.launches["grouped_dxs"] += 1
+    return dxs
+
+
+def wgrad_kernel(a, b, group_of_tile, live_tiles, num_experts: int, bm: int,
+                 scale=None) -> torch.Tensor:
+    """Launch ``grouped_wgrad`` on CUDA tensors → dW [E, a cols, b cols] in
+    a's dtype, every expert written (zeros for one with no row)."""
+    r_pad, m = a.shape
+    n = b.shape[1]
+    out = torch.empty((num_experts, m, n), dtype=a.dtype, device=a.device)
+    lib = op_builder.load("grouped_matmul_bwd")
+    err = lib.dstt_grouped_wgrad(
+        a.data_ptr(), b.data_ptr(), _ptr(scale), out.data_ptr(),
+        group_of_tile.data_ptr(), live_tiles.data_ptr(), r_pad, m, n,
+        num_experts, bm, _DTYPES[a.dtype],
+        torch.cuda.current_stream(a.device).cuda_stream)
+    op_builder.check(lib, err, "grouped_wgrad")
+    op_builder.launches["grouped_wgrad"] += 1
+    return out
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; any other device
+    raises."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"grouped_glu_ffn: unsupported device {t.device}")
+    return t.device.type == "cuda"
+
+
+# the kernels on CUDA tensors, their plain versions on CPU tensors; the
+# plain versions walk sizes_padded, the kernels read group_of_tile
+
+def _gate_up(xs, wg, wi, group_of_tile, sizes_padded, live_tiles, bm):
+    if _on_cuda(xs):
+        return gate_up_kernel(xs, wg, wi, group_of_tile, live_tiles, bm)
+    return gate_up_ref(xs, wg, wi, sizes_padded, live_tiles, bm)
+
+
+def _down(gate, up, wo, group_of_tile, sizes_padded, live_tiles, bm, w):
+    if _on_cuda(gate):
+        return down_kernel(gate, up, wo, group_of_tile, live_tiles, bm, w)
+    return down_ref(gate, up, wo, sizes_padded, live_tiles, bm, w)
+
+
+def _dgdu(dz, wo, group_of_tile, sizes_padded, live_tiles, bm, **kw):
+    if _on_cuda(dz):
+        return dgdu_kernel(dz, wo, group_of_tile, live_tiles, bm, **kw)
+    return dgdu_ref(dz, wo, sizes_padded, live_tiles, bm, **kw)
+
+
+def _dxs(dg, du, wg, wi, group_of_tile, sizes_padded, live_tiles, bm):
+    if _on_cuda(dg):
+        return dxs_kernel(dg, du, wg, wi, group_of_tile, live_tiles, bm)
+    return dxs_ref(dg, du, wg, wi, sizes_padded, live_tiles, bm)
+
+
+def _wgrad(a, b, group_of_tile, sizes_padded, live_tiles, bm, scale=None):
+    if _on_cuda(a):
+        return wgrad_kernel(a, b, group_of_tile, live_tiles,
+                            sizes_padded.shape[0], bm, scale)
+    return wgrad_ref(a, b, sizes_padded, live_tiles, bm, scale)
+
+
+class _GroupedFFNScaled(torch.autograd.Function):
+    """The fused-combine form (``_build_ffn_w``, grouped_matmul.py:856):
+    Z = diag(w)·FFN(xs). The backward keeps only xs, w, the weights and the
+    dispatch metadata, recomputes gate/up inside ``grouped_dgdu`` (which
+    also gives the combine weights' gradient), then ``grouped_dxs`` and
+    three ``grouped_wgrad`` products: xsᵀ·dg, xsᵀ·du, hᵀ·round(dz·w)."""
+
+    @staticmethod
+    def forward(ctx, xs, w, wg, wi, wo, group_of_tile, sizes_padded,
+                live_tiles, bm):
+        meta = (group_of_tile, sizes_padded, live_tiles, bm)
+        ctx.bm = bm
+        ctx.save_for_backward(xs, w, wg, wi, wo, group_of_tile,
+                              sizes_padded, live_tiles)
+        gate, up = _gate_up(xs, wg, wi, *meta)
+        return _down(gate, up, wo, *meta, w)
+
+    @staticmethod
+    def backward(ctx, dz):
+        xs, w, wg, wi, wo, got, sizes, live = ctx.saved_tensors
+        meta = (got, sizes, live, ctx.bm)
+        dz = dz.contiguous()
+        dg, du, h, dw2 = _dgdu(dz, wo, *meta, xs=xs, wg=wg, wi=wi, w=w)
+        dxs = _dxs(dg, du, wg, wi, *meta)
+        dwg = _wgrad(xs, dg, *meta)
+        dwi = _wgrad(xs, du, *meta)
+        dwo = _wgrad(h, dz, *meta, scale=w)
+        return dxs, dw2, dwg, dwi, dwo, None, None, None, None
+
+
+class _GroupedFFN(torch.autograd.Function):
+    """The unscaled form (``_build_ffn``, grouped_matmul.py:787): Y =
+    FFN(xs), gate/up saved for the backward, which runs ``grouped_dgdu``
+    on them, ``grouped_dxs`` and three ``grouped_wgrad`` products."""
+
+    @staticmethod
+    def forward(ctx, xs, wg, wi, wo, group_of_tile, sizes_padded,
+                live_tiles, bm):
+        meta = (group_of_tile, sizes_padded, live_tiles, bm)
+        gate, up = _gate_up(xs, wg, wi, *meta)
+        ctx.bm = bm
+        ctx.save_for_backward(xs, gate, up, wg, wi, wo, group_of_tile,
+                              sizes_padded, live_tiles)
+        return _down(gate, up, wo, *meta, None)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xs, gate, up, wg, wi, wo, got, sizes, live = ctx.saved_tensors
+        meta = (got, sizes, live, ctx.bm)
+        dy = dy.contiguous()
+        dg, du, h, _ = _dgdu(dy, wo, *meta, gate=gate, up=up)
+        dxs = _dxs(dg, du, wg, wi, *meta)
+        return (dxs, _wgrad(xs, dg, *meta), _wgrad(xs, du, *meta),
+                _wgrad(h, dy, *meta), None, None, None, None)
 
 
 def grouped_glu_ffn(xs: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
@@ -281,20 +606,17 @@ def grouped_glu_ffn(xs: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
                     bm: int, w: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """Grouped SwiGLU FFN over the block-aligned layout
-    (grouped_matmul.py:971, forward): xs [R_pad, d] sorted by expert
-    (padding rows zero), wg/wi [E, d, f], wo [E, f, d] → [R_pad, d].
-    ``w`` [R_pad] (``sorted_w``) scales each row inside the down product
-    (the fused-combine form, then :func:`gather_sum`); ``w=None`` gives
-    the unscaled output for :func:`gather_combine`. ``bm`` is the layout's
-    tile rows (a multiple of :data:`KERNEL_BM` on CUDA)."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (xs, wg, wi, wo, w)):
-        raise NotImplementedError(
-            "MoE backward: slice 4 (the grouped GEMM kernels are forward "
-            "only in deepspeed_tpu_torch so far)")
-    if xs.device.type == "cpu":
-        return grouped_glu_ffn_ref(xs, wg, wi, wo, group_of_tile,
-                                   sizes_padded, live_tiles, bm=bm, w=w)
-    if xs.device.type != "cuda":
-        raise ValueError(f"grouped_glu_ffn: unsupported device {xs.device}")
-    return _kernels(xs, wg, wi, wo, group_of_tile, live_tiles, bm, w)
+    (grouped_matmul.py:971): xs [R_pad, d] sorted by expert (padding rows
+    zero), wg/wi [E, d, f], wo [E, f, d] → [R_pad, d]. ``w`` [R_pad]
+    (``sorted_w``) scales each row inside the down product (the
+    fused-combine form, then :func:`gather_sum`); ``w=None`` gives the
+    unscaled output for :func:`gather_combine`. ``bm`` is the layout's
+    tile rows (a multiple of :data:`KERNEL_BM` on CUDA). Differentiable in
+    xs, the three weights and w."""
+    if _on_cuda(xs):
+        _check(xs, wg, wi, wo, group_of_tile, live_tiles, bm, w)
+    if w is None:
+        return _GroupedFFN.apply(xs, wg, wi, wo, group_of_tile,
+                                 sizes_padded, live_tiles, bm)
+    return _GroupedFFNScaled.apply(xs, w, wg, wi, wo, group_of_tile,
+                                   sizes_padded, live_tiles, bm)

@@ -149,7 +149,8 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 #: show which kernels its path went through
 launches: Dict[str, int] = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
                             "paged_attention": 0, "grouped_gate_up": 0,
-                            "grouped_down": 0}
+                            "grouped_down": 0, "grouped_dgdu": 0,
+                            "grouped_dxs": 0, "grouped_wgrad": 0}
 
 
 def reset_launches() -> None:

@@ -1,4 +1,5 @@
-"""Mixture-of-Experts layers for serving — the single-device subset.
+"""Mixture-of-Experts layers for training and serving — the
+single-device subset.
 
 Port of ``deepspeed_tpu/parallel/moe.py`` (reference
 ``deepspeed/moe/sharded_moe.py``): top-k gating, the capacity (GShard
@@ -6,18 +7,21 @@ einsum) layer :func:`moe_layer`, the dropless layer
 :func:`dropless_moe_layer` over the block-aligned grouped FFN of
 :mod:`deepspeed_tpu_torch.ops.grouped_matmul`, the shared expert, and
 :func:`serving_moe_fn`, which picks one of the two by the step's token
-count as both JAX engines do.
+count as both JAX engines do. Both layers are differentiable: the router
+learns through the top-k gate values (in the dropless layer they reach
+the FFN as ``sorted_w``, whose gradient the dgdu kernel computes) and
+through the aux loss.
 
 On CUDA tensors the dropless FFN launches the grouped GEMM kernels
-(``ops/csrc/grouped_matmul.cu``); on CPU tensors it runs their plain
-version. The JAX ``lax.ragged_dot`` backend of ``_dropless_ffn`` is a
+forward (``ops/csrc/grouped_matmul.cu``) and backward
+(``ops/csrc/grouped_matmul_bwd.cu``); on CPU tensors it runs their plain
+versions. The JAX ``lax.ragged_dot`` backend of ``_dropless_ffn`` is a
 second implementation of the same function and is not carried over.
 
 Not ported (each raises ``NotImplementedError``): quantized expert
 weights (ROADMAP A9), expert parallelism (A10), the routing-health taps,
-and gradients through the dropless FFN (MoE training, slice 4). Random
-token selection (``rts_key``) is a training option and is not carried
-over.
+and random token selection (``rts_key``, ROADMAP A8: its permutation comes
+from JAX's PRNG, which a port cannot reproduce bit for bit).
 """
 
 import math
@@ -179,12 +183,19 @@ def dropless_moe_layer(cfg, p, x: torch.Tensor, top_k: int = 2,
 def moe_layer(cfg, p, x: torch.Tensor, top_k: int = 2,
               capacity_factor: float = 1.0, min_capacity: int = 4,
               drop_tokens: bool = True, aux_loss_coef: float = 0.01,
-              norm_topk: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+              norm_topk: bool = True, rts_key=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The capacity MoE layer (moe.py:387, one device — JAX's
     ``ep_axis=None`` — unquantized): the GShard einsums over [S, E, C]
-    dispatch/combine masks, every expert on its C slots. p: {"router"
-    [d, E], "wg"/"wi" [E, d, f], "wo" [E, f, d], optional "shared"}; x
-    [B, T, d] → (out [B, T, d], scaled aux)."""
+    dispatch/combine masks, every expert on its C slots; with
+    ``drop_tokens`` C = ceil(S·k/E·capacity_factor) (at least
+    ``min_capacity``) and tokens past it are dropped in sequence order,
+    else C = S. p: {"router" [d, E], "wg"/"wi" [E, d, f], "wo" [E, f, d],
+    optional "shared"}; x [B, T, d] → (out [B, T, d], scaled aux)."""
+    if rts_key is not None:
+        raise NotImplementedError(
+            "random token selection (moe.use_rts) is not ported to "
+            "deepspeed_tpu_torch (ROADMAP A8); set moe.use_rts false")
     _no_health_taps(cfg)
     _no_quant(p)
     b, t, d = x.shape

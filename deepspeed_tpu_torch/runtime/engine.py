@@ -38,8 +38,9 @@ from deepspeed_tpu_torch.utils.logging import log_dist
 
 Params = Any
 Batch = Dict[str, Any]
-#: loss_fn(params, batch) -> 0-d loss tensor
-LossFn = Callable[[Params, Batch], torch.Tensor]
+#: loss_fn(params, batch) -> 0-d loss tensor, or (loss, metrics dict) as
+#: an MoE model's returns (loss incl. aux, {"aux_loss": aux})
+LossFn = Callable[[Params, Batch], Any]
 
 _DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16,
            "float32": torch.float32}
@@ -49,7 +50,8 @@ _DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16,
 class ModelSpec:
     """Functional model contract consumed by the engine (engine.py:71):
     ``init_fn(generator, device)`` builds an fp32 parameter tree and
-    ``loss_fn(params, batch)`` returns the scalar loss. The JAX spec's
+    ``loss_fn(params, batch)`` returns the scalar loss or (loss, metrics);
+    a metrics ``aux_loss`` reaches the step's metrics. The JAX spec's
     sharding, pipeline and telemetry fields belong to unported paths."""
     init_fn: Callable[[torch.Generator, torch.device], Params]
     loss_fn: LossFn
@@ -159,14 +161,20 @@ class DeepSpeedEngine:
         return {k: torch.as_tensor(np.asarray(v) if not isinstance(
             v, torch.Tensor) else v).to(self.device) for k, v in batch.items()}
 
+    def _loss(self, batch: Batch):
+        """loss_fn's (loss, metrics); a bare loss gets empty metrics."""
+        out = self.model.loss_fn(self.params, batch)
+        return out if isinstance(out, tuple) else (out, {})
+
     def _compute_loss_and_grads(self, batch: Batch):
-        """engine.py:376: (loss, grads of loss × loss scale) w.r.t. every
-        parameter leaf, in the leaves' dtype."""
-        loss = self.model.loss_fn(self.params, batch)
+        """engine.py:376: (loss, loss_fn metrics, grads of loss × loss
+        scale) w.r.t. every parameter leaf, in the leaves' dtype."""
+        loss, metrics = self._loss(batch)
         scaled = loss * self.loss_scale_state.scale if self.fp16_enabled \
             else loss
         grads = torch.autograd.grad(scaled, self._leaves)
-        return loss.detach(), list(grads)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return loss.detach(), metrics, list(grads)
 
     def _accumulate(self, grads: List[torch.Tensor]) -> None:
         """Fold one micro-batch's grads into the fp32 accumulators."""
@@ -176,21 +184,28 @@ class DeepSpeedEngine:
             for a, g in zip(self._acc_grads, grads):
                 a.add_(g)
 
-    def _accumulate_grads(self, micros: List[Batch]) -> List[torch.Tensor]:
-        """engine.py:467: per-micro losses, grads summed in fp32."""
-        losses = []
+    def _accumulate_grads(self, micros: List[Batch]):
+        """engine.py:467: per-micro losses, grads summed in fp32, and the
+        loss_fn metrics averaged over the micro-batches (engine.py:626)."""
+        losses, metrics = [], []
         for mb in micros:
-            loss, grads = self._compute_loss_and_grads(mb)
+            loss, m, grads = self._compute_loss_and_grads(mb)
             self._accumulate(grads)
             del grads
             losses.append(loss)
-        return losses
+            metrics.append(m)
+        fwd = {k: torch.stack([m[k] for m in metrics]).mean()
+               for k in metrics[0]}
+        return losses, fwd
 
     @torch.no_grad()
-    def _apply_update(self, gas: int) -> Dict[str, Any]:
+    def _apply_update(self, gas: int,
+                      fwd_metrics: Optional[Dict[str, Any]] = None
+                      ) -> Dict[str, Any]:
         """engine.py:386: grads → fp32 × 1/(scale·gas), global norm before
         clipping, clip, lr from the schedule, optimizer step; under fp16
-        an overflow skips the update and the loss scale adapts."""
+        an overflow skips the update and the loss scale adapts. A
+        forward ``aux_loss`` joins the metrics (:423)."""
         cfg = self.config
         grads, self._acc_grads = self._acc_grads, None
         scaler = self.loss_scale_state
@@ -218,9 +233,12 @@ class DeepSpeedEngine:
                 scale_window=fp16.loss_scale_window,
                 min_scale=fp16.min_loss_scale, delayed_shift=fp16.hysteresis,
                 consecutive_hysteresis=fp16.consecutive_hysteresis)
-        return {"lr": lr, "grad_norm": grad_norm,
-                "loss_scale": self.loss_scale_state.scale,
-                "overflow": overflow.to(torch.int32)}
+        metrics = {"lr": lr, "grad_norm": grad_norm,
+                   "loss_scale": self.loss_scale_state.scale,
+                   "overflow": overflow.to(torch.int32)}
+        if fwd_metrics and "aux_loss" in fwd_metrics:
+            metrics["aux_loss"] = fwd_metrics["aux_loss"]
+        return metrics
 
     def _finish_step(self, metrics: Dict[str, Any]) -> None:
         self.global_steps += 1
@@ -237,7 +255,8 @@ class DeepSpeedEngine:
         """Loss of one micro-batch, with its gradients kept for the
         following :meth:`backward` (engine.py:666: the JAX engine, too,
         computes loss and gradients in one call here)."""
-        loss, grads = self._compute_loss_and_grads(self._place_batch(batch))
+        loss, _, grads = self._compute_loss_and_grads(
+            self._place_batch(batch))
         self._pending_grads = grads
         return loss
 
@@ -264,7 +283,8 @@ class DeepSpeedEngine:
         """One optimizer step over ``gradient_accumulation_steps``
         micro-batches from ``data_iter`` (default: the engine's own
         loader) — the fused path of engine.py:824-841. Returns the mean
-        micro-batch loss (0-d tensor on the engine's device)."""
+        micro-batch loss, aux loss included for an MoE model (0-d tensor
+        on the engine's device)."""
         gas = int(self.config.gradient_accumulation_steps)
         it = data_iter if data_iter is not None else \
             self._own_data_iterator()
@@ -272,8 +292,8 @@ class DeepSpeedEngine:
         if self._acc_grads is not None:
             raise RuntimeError("train_batch() called with gradients pending "
                                "from forward()/backward(); call step()")
-        losses = self._accumulate_grads(micros)
-        metrics = self._apply_update(gas)
+        losses, fwd = self._accumulate_grads(micros)
+        metrics = self._apply_update(gas, fwd)
         loss = torch.stack(losses).mean()
         metrics["loss"] = loss
         self.micro_steps += gas
@@ -290,8 +310,7 @@ class DeepSpeedEngine:
                 "engine's training iterator would silently skip training "
                 "samples")
         gas = int(self.config.gradient_accumulation_steps)
-        losses = [self.model.loss_fn(self.params,
-                                     self._place_batch(next(data_iter)))
+        losses = [self._loss(self._place_batch(next(data_iter)))[0]
                   for _ in range(gas)]
         return torch.stack(losses).mean()
 

@@ -2,9 +2,11 @@
 
 Port of ``deepspeed_tpu/runtime/model_factory.py``: compose the
 functional transformer core with the attention implementation selected by
-the config, and hand the engine an init/loss pair. This slice runs dense
-decoders on one device; pipeline parallelism, the ZeRO-3 overlap plan,
-MoE training and the health taps raise ``NotImplementedError``.
+the config, and the MoE layer selected by its ``moe`` section, and hand
+the engine an init/loss pair. Dense and MoE decoders train on one device;
+pipeline parallelism, the ZeRO-3 overlap plan, expert parallelism, random
+token selection, Residual-MoE and the health taps raise
+``NotImplementedError``.
 """
 
 from functools import partial
@@ -17,6 +19,7 @@ from deepspeed_tpu_torch.models import transformer
 from deepspeed_tpu_torch.models.transformer import (DecoderConfig,
                                                     dot_product_attention)
 from deepspeed_tpu_torch.ops.flash_attention import flash_attention
+from deepspeed_tpu_torch.parallel.moe import dropless_moe_layer, moe_layer
 
 
 def select_attention(ds_cfg: DeepSpeedConfig,
@@ -60,19 +63,48 @@ def select_attention(ds_cfg: DeepSpeedConfig,
     return partial(base, **kw) if kw else base
 
 
+def select_moe(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
+    """The training ``moe_fn`` (model_factory.py:192), None for a dense
+    model: ``moe.impl="dropless"`` → :func:`dropless_moe_layer` (the
+    grouped FFN; one expert shard), "capacity" → :func:`moe_layer` with
+    the section's capacity_factor, min_capacity and drop_tokens. Random
+    token selection (``use_rts`` with ``drop_tokens`` on the capacity
+    impl, on by default in both packages) raises."""
+    if not dec_cfg.num_experts:
+        return None
+    moe = ds_cfg.moe
+    if moe.impl == "dropless":
+        if moe.ep_size > 1:
+            raise ValueError("moe.impl='dropless' requires ep_size=1")
+        return partial(dropless_moe_layer,
+                       top_k=dec_cfg.num_experts_per_tok,
+                       aux_loss_coef=moe.aux_loss_coef,
+                       norm_topk=dec_cfg.norm_topk_prob)
+    if moe.use_rts and moe.drop_tokens:
+        raise NotImplementedError(
+            "random token selection (moe.use_rts with drop_tokens on the "
+            "capacity impl) is not ported to deepspeed_tpu_torch yet "
+            "(ROADMAP A8); set moe.use_rts false or moe.impl 'dropless'")
+    return partial(moe_layer, top_k=dec_cfg.num_experts_per_tok,
+                   capacity_factor=moe.capacity_factor,
+                   min_capacity=moe.min_capacity,
+                   drop_tokens=moe.drop_tokens,
+                   aux_loss_coef=moe.aux_loss_coef,
+                   norm_topk=dec_cfg.norm_topk_prob)
+
+
 def decoder_model_spec(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
     """The engine ModelSpec for the decoder family (model_factory.py:226).
 
     Batch contract: {"input_ids": [B, T] int, "labels": [B, T] int
     (optional; defaults to input_ids shifted left, last position -100)}.
+    For an MoE model ``loss_fn`` returns (CE + aux, {"aux_loss": aux})
+    (:353-361), else the CE alone.
     """
     from deepspeed_tpu_torch.runtime.engine import ModelSpec
 
-    if dec_cfg.num_experts:
-        raise NotImplementedError(
-            "MoE training is not ported to deepspeed_tpu_torch yet (slice "
-            "4; MoE serving is, through RaggedInferenceEngine)")
     attn_fn = select_attention(ds_cfg, dec_cfg)
+    moe_fn = select_moe(dec_cfg, ds_cfg)
     remat = ds_cfg.activation_checkpointing.policy
     transformer.resolve_remat_policy(remat)
     ce_budget = None if ds_cfg.chunked_ce_budget_mb is None \
@@ -91,10 +123,14 @@ def decoder_model_spec(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
         else:
             labels = torch.cat([tokens[:, 1:],
                                 torch.full_like(tokens[:, :1], -100)], dim=1)
-        hidden, _aux = transformer.forward_hidden(
-            dec_cfg, params, tokens, attn_fn=attn_fn, remat_policy=remat)
-        return transformer.chunked_cross_entropy(
+        hidden, aux = transformer.forward_hidden(
+            dec_cfg, params, tokens, attn_fn=attn_fn, moe_fn=moe_fn,
+            remat_policy=remat)
+        loss = transformer.chunked_cross_entropy(
             dec_cfg, params, hidden, labels, budget_bytes=ce_budget,
             logits_dtype=ce_dtype)
+        if moe_fn is None:
+            return loss
+        return loss + aux, {"aux_loss": aux}
 
     return ModelSpec(init_fn=init_fn, loss_fn=loss_fn)

@@ -1,7 +1,8 @@
 """deepspeed_tpu_torch.ops.grouped_matmul against deepspeed_tpu's
 ops/grouped_matmul.py on the CPU: the aligned dispatch, the gathers, and
 the grouped SwiGLU FFN's plain version (which the port's CUDA kernels are
-held to on the card) against the Pallas kernels in interpret mode.
+held to on the card) against the Pallas kernels in interpret mode (the
+backward: tests/test_torch_grouped_matmul_bwd.py).
 
 Inputs are fp32 numpy arrays from a seed, fed to both packages. The
 dispatch and the gathers must agree exactly (integer layout; gathers and
@@ -155,20 +156,30 @@ def test_bf16_rounding_points():
 
 
 def test_requires_grad_raises_and_kernel_checks():
+    """Gradients flow through the grouped FFN (both forms; the backward's
+    parity with the Pallas kernels is tests/test_torch_grouped_matmul_bwd.py),
+    the forward alone runs under no_grad, and what the CUDA kernels refuse
+    raises before any launch."""
     s, k, e, d, f, bm = 8, 2, 2, 16, 32, 64
     topi, topv = _routing(9, s, k, e)
     wg, wi, wo = _t(*_weights(10, e, d, f))
     tok, w, got, sizes, pos, live = tg.aligned_dispatch(
         *_t(topi, topv), e, bm)
-    xs = torch.zeros((tok.shape[0], d))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tg.grouped_glu_ffn(xs, wg.requires_grad_(), wi, wo, got, sizes,
-                           live, bm=bm)
-    wg = wg.detach()
+    x = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (s, d)).astype(np.float32))
+    xs = tg.gather_rows(torch.cat([x, x.new_zeros((1, d))]), tok, pos)
+    for scale in (None, w):
+        leaf = wg.clone().requires_grad_()
+        out = tg.grouped_glu_ffn(xs, leaf, wi, wo, got, sizes, live, bm=bm,
+                                 w=scale)
+        (grad,) = torch.autograd.grad(out.sum(), leaf)
+        assert grad.shape == wg.shape and grad.abs().max() > 0
     with torch.no_grad():           # no gradient wanted: the plain path runs
-        tg.grouped_glu_ffn(xs, wg.requires_grad_(), wi, wo, got, sizes,
-                           live, bm=bm)
-    wg = wg.detach()
+        out = tg.grouped_glu_ffn(xs, wg.clone().requires_grad_(), wi, wo,
+                                 got, sizes, live, bm=bm)
+    assert not out.requires_grad
+    with pytest.raises(ValueError, match="unsupported device"):
+        tg.grouped_glu_ffn(xs.to("meta"), wg, wi, wo, got, sizes, live, bm=bm)
     # what the CUDA kernels refuse, checked before any launch
     tg._check(xs, wg, wi, wo, got, live, bm, w)
     with pytest.raises(ValueError, match="multiple of 64"):

@@ -4,7 +4,9 @@ DSTPU_MOE_KERNEL=pallas, its Pallas kernels in interpret mode, and =xla,
 its lax.ragged_dot backend) and serving_moe_fn's switch at 1024 tokens,
 for a Mixtral-like layer (top-2, renormalised gates) and a Qwen-like one
 (top-4 of 8, raw gates, a shared expert with its sigmoid gate). Also the
-MoE parameter tree (init layout, conversion both ways) and what raises.
+MoE parameter tree (init layout, conversion both ways), that gradients
+reach the layers' parameters, and what raises (the gradients' parity:
+tests/test_torch_moe_training.py).
 
 Inputs are fp32 numpy arrays from a seed, fed to both packages. Layer
 outputs: rtol/atol 2e-4 (tests/test_moe.py:523; different summation
@@ -181,6 +183,10 @@ def test_moe_params_layout_and_conversion(name):
 
 
 def test_moe_paths_raise():
+    """Gradients reach every leaf of both layers and the model's MoE
+    parameters (MoE training is ported); what still raises: quantized
+    experts, health taps, expert parallelism, random token selection and
+    Residual-MoE."""
     tp = _both(_layer("mixtral"))[1]
     _, tcfg = _cfgs("mixtral")
     x = torch.from_numpy(_x(1, 4))
@@ -190,18 +196,26 @@ def test_moe_paths_raise():
             fn(None, quant, x)
         with pytest.raises(NotImplementedError, match="health taps"):
             fn(dataclasses.replace(tcfg, health_taps=True), tp, x)
+        grad_p = {k: v.clone().requires_grad_() for k, v in tp.items()}
+        out, aux = fn(None, grad_p, x)
+        grads = torch.autograd.grad(out.sum() + aux, list(grad_p.values()))
+        assert all(g.abs().max() > 0 for g in grads), fn.__name__
     with pytest.raises(NotImplementedError, match="A10"):
         tm.serving_moe_fn(tcfg, None, tp, ep=True)
     with pytest.raises(NotImplementedError, match="A9"):
         tm.serving_moe_fn(tcfg, "int8", tp, ep=False)
     with pytest.raises(NotImplementedError, match="A9"):
         tm.serving_moe_fn(tcfg, None, {"layers": {"moe": quant}}, ep=False)
-    # gradients through the dropless FFN are slice 4's, as is MoE training
-    grad_p = dict(tp, wg=tp["wg"].clone().requires_grad_())
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tm.dropless_moe_layer(None, grad_p, x)
+    with pytest.raises(NotImplementedError, match="A8"):
+        tm.moe_layer(None, tp, x, rts_key=1)
     params = tt.init_params(tcfg, torch.Generator().manual_seed(1))
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    moe = {k: v.requires_grad_() for k, v in params["layers"]["moe"].items()}
+    params["layers"]["moe"] = moe
+    logits, aux = tt.forward(tcfg, params, torch.zeros((1, 4), dtype=torch.long),
+                             moe_fn=tm.dropless_moe_layer, with_aux=True)
+    grads = torch.autograd.grad(logits.sum() + aux, list(moe.values()))
+    assert all(g.shape == p.shape for g, p in zip(grads, moe.values()))
+    with pytest.raises(ValueError, match="moe_fn"):
         tt.forward(tcfg, params, torch.zeros((1, 4), dtype=torch.long))
     with pytest.raises(NotImplementedError, match="Residual-MoE"):
         tt.init_params(dataclasses.replace(tcfg, moe_residual=True),

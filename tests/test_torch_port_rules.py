@@ -79,17 +79,25 @@ def test_use_pallas_must_follow_device():
                                     "use_pallas": True}, device="cpu")
 
 
-def test_unported_features_raise():
+def test_unported_features_raise(monkeypatch):
     cfg = llama3_config("tiny", vocab_size=256)
     small = {"dtype": "float32", "num_blocks": 4}
     with pytest.raises(NotImplementedError, match="quantized"):
         RaggedInferenceEngine(cfg, dict(small, weight_quant="int8"),
                               device="cpu")
-    # MoE serving is ported; MoE training is not (slice 4)
+    # MoE serving and training are ported; random token selection (on by
+    # default with the capacity impl) is not, and without device= MoE
+    # training targets CUDA
     moe = llama3_config("tiny", num_experts=4)
     assert RaggedInferenceEngine(moe, small, device="cpu")._moe_fn
-    with pytest.raises(NotImplementedError, match="MoE training"):
+    with pytest.raises(NotImplementedError, match="random token"):
         initialize(moe, {"train_micro_batch_size_per_gpu": 1}, device="cpu")
+    dropless = {"train_micro_batch_size_per_gpu": 1,
+                "moe": {"impl": "dropless"}}
+    assert initialize(moe, dropless, device="cpu")[0].device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        initialize(moe, dropless)
     eng = RaggedInferenceEngine(cfg, small, device="cpu")
     with pytest.raises(NotImplementedError, match="megastep"):
         eng.step_with_budget(max_steps=4)
