@@ -21,14 +21,26 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    (dgdu with gate/up recomputed and saved, dxs, wgrad) in bf16 at the
    1B/8e MoE bench's and Mixtral 8x7B's training shapes (16,384 and 2,048
    tokens, top-2 of 8) and in fp32 at awkward shapes, each kernel fed the
-   plain version's inputs, then the whole backward through autograd;
+   plain version's inputs, then the whole backward through autograd; the
+   weight-only quantized matmuls (K5a int8/fp8, K5b int4/fp6, K5c the
+   batched int8/fp8 experts) in bf16 at Llama-3 8B's linears and head
+   (decode M 16 and prefill M 2048; the head with fp32 output) in all four
+   formats and at Mixtral 8x7B's experts on capacity buffers (G 8, M 16 and
+   512), in fp32 at awkward shapes, with bf16 ``torch.matmul`` on the
+   weight dequantized in advance (and ``torch._weight_int8pack_mm`` for
+   int8 where the card's torch has it) as the yardstick; and the int8
+   block quantizer (K6) on a bf16 tensor of Llama-3 1B's gradient size and
+   on small ones, bit-identical to its plain version;
 4. runs ``ragged_forward`` for a depth-2 model at Llama-3-8B width in fp32
    on the card (kernels) and on the CPU (plain versions) — a fresh chunk, a
    split chunk and a decode step — and compares the logits, then checks
    that the bf16 head returns unrounded fp32 logits; then the same for a
    depth-2 model at Mixtral 8x7B width: a fresh 4 x 256 chunk (1024
    tokens: the dropless FFN, grouped kernels) and a decode step (the
-   capacity FFN);
+   capacity FFN); then from one quantized tree: depth 2 at Llama-3 8B
+   width in int8, fp8, int4 and fp6 (fresh, split, decode) and at Mixtral
+   width in int8 (a fresh 2 x 32 chunk and a decode step, both through the
+   capacity layer);
 5. serves Llama-3 8B at full width and depth in bf16 (random weights from a
    seeded generator): ``generate`` on 8 ragged prompts and ``serve`` on 16
    requests, with every kernel's launch count read around that run; then
@@ -37,7 +49,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    grouped kernels, and ``serve`` on 16 requests) and Qwen1.5-MoE-A2.7B at
    full width and depth (``generate`` on 8 prompts of 256-512 tokens),
    each with prefill tokens/s, decode ms per step, peak memory and the
-   launch counts read around its run;
+   launch counts read around its run; then quantized serving (the engine's
+   ``weight_quant``, the tree drawn quantized slice by slice on the card):
+   Llama-3 8B at full width and depth in int8, fp8, int4 and fp6
+   (``generate`` on the 8 ragged prompts, 32 new tokens; ``serve`` on 16
+   requests in int8), and Mixtral 8x7B at full width and all 32 layers in
+   int8 (46.8 GB of weights; 256 arena pages, 512-token steps, 8 prompts of
+   128-512 tokens, 16 new tokens), each with the same numbers and the
+   quantized weights' bytes;
 6. runs two ``train_batch`` steps of a depth-2 model at Llama-3-1B width in
    fp32 on the card (K1 + K3) and on the CPU (plain versions) from one
    parameter tree, and compares losses and updated parameters;
@@ -848,6 +867,216 @@ def phase_kernels(rng):
 
 
 # ---------------------------------------------------------------------------
+# phase 3: the weight-only quantized matmuls (K5a/b/c) and the block
+# quantizer (K6)
+# ---------------------------------------------------------------------------
+
+QUANT_MODES = ("int8", "fp8", "int4", "fp6")
+#: Llama-3 8B's linears (K, N): wq/wo, wk/wv, wg/wi, the MLP's wo, the head
+QUANT_DENSE_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336),
+                      (14336, 4096), (4096, 128256))
+#: Mixtral 8x7B's expert linears on capacity buffers: G 8, (K, N)
+QUANT_EXPERT_SHAPES = ((4096, 14336), (14336, 4096))
+
+
+def _quantized_weight(g, k, n, mode, groups=None):
+    """Weights ~ N(0, 1/K) drawn on the card and quantized there, a block
+    of at most 16M values at a time (the head is 525M)."""
+    import torch
+    from deepspeed_tpu_torch.ops.quantized_linear import quantize_weight
+    qs, ss = [], []
+    for _ in range(groups or 1):
+        step = max(1, (1 << 24) // k)
+        parts = [quantize_weight(torch.randn((k, min(step, n - j)),
+                                             generator=g, device=DEV)
+                                 / k ** 0.5, mode)
+                 for j in range(0, n, step)]
+        qs.append(torch.cat([p[0] for p in parts], dim=-1))
+        ss.append(torch.cat([p[1] for p in parts], dim=-1))
+    if groups is None:
+        return qs[0], ss[0]
+    return torch.stack(qs), torch.stack(ss)
+
+
+def _library_int8pack_ms(x, q, s):
+    """torch._weight_int8pack_mm (int8 weight [N, K], per-row scale) where
+    this torch has a CUDA kernel for these inputs, else the reason."""
+    import torch
+    fn = getattr(torch, "_weight_int8pack_mm", None)
+    if fn is None:
+        return None, "torch has no _weight_int8pack_mm"
+    wt = q.t().contiguous()
+    sc = s.to(x.dtype)
+    try:
+        fn(x, wt, sc)
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError, NotImplementedError) as e:
+        return None, f"no CUDA kernel for these inputs: {str(e)[:120]}"
+    return cuda_time_ms(lambda: fn(x, wt, sc)), "torch._weight_int8pack_mm"
+
+
+def check_qmm(name, rng, mode, m, k, n, dtype, out_dtype=None, groups=None,
+              time_it=True):
+    """One quantized matmul on the card against its plain version: x [M,
+    K] (or [G, M, K]) ~ N(0, 1) in ``dtype`` times a quantized N(0, 1/K)
+    weight, through qmatmul / qmatmul_batched (which count the launch).
+    Timed: the kernel, the plain version, the bound (weight bytes, x, the
+    scale and out each moved once, or 2·M·K·N at the peak of x's type),
+    and the GEMM quantization replaces: bf16 ``torch.matmul`` (``bmm``
+    batched) on the weight dequantized in advance; for int8 also
+    ``torch._weight_int8pack_mm`` where the card's torch has it."""
+    import torch
+    from deepspeed_tpu_torch.ops import quantized_linear as tq
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    q, s = _quantized_weight(g, k, n, mode, groups)
+    lead = (m, k) if groups is None else (groups, m, k)
+    x = torch.randn(lead, generator=g, device=dev).to(dtype)
+    batched = groups is not None
+    kernel = ("quantized_matmul_packed" if mode in ("int4", "fp6") else
+              "quantized_matmul_batched" if batched else "quantized_matmul")
+    fn = (lambda: tq.qmatmul_batched(x, q, s, out_dtype)) if batched else \
+        (lambda: tq.qmatmul(x, q, s, out_dtype))
+    before = dict(tq.op_builder.launches)
+    out = fn()
+    torch.cuda.synchronize()
+    assert tq.op_builder.launches[kernel] == before[kernel] + 1, kernel
+    plain = (lambda: tq.qmatmul_batched_ref(x, q, s, out_dtype)) \
+        if batched else (lambda: tq.qmatmul_ref(x, q, s, out_dtype))
+    ref = plain()
+    res = {"phase": "kernels", "check": name, "kernel": kernel,
+           "mode": mode, "dtype": str(dtype).replace("torch.", ""),
+           "out_dtype": str(out.dtype).replace("torch.", ""),
+           "shape": {"G": groups, "M": m, "K": k, "N": n}}
+    _hold_pair(res, "out", out, ref)
+    res["max_abs_err"] = res["out"]["max_abs_err"]
+    if time_it:
+        wbytes = q.numel() * q.element_size() + s.numel() * 4
+        nbytes = wbytes + x.numel() * x.element_size() \
+            + out.numel() * out.element_size()
+        flops = 2.0 * m * k * n * (groups or 1)
+        res["kernel_ms"] = cuda_time_ms(fn, iters=10)
+        res["plain_ms"] = cuda_time_ms(plain, iters=2, warmup=1)
+        res["bound_ms"], res["bound_by"] = bound(nbytes, flops, res["dtype"])
+        res["weight_gb_per_s"] = wbytes / res["kernel_ms"] / 1e6
+        res["tflops_per_s"] = flops / res["kernel_ms"] / 1e9
+        res["blocks"] = (-(-m // 64)) * (-(-n // (128 if dtype ==
+                                                  torch.bfloat16 else 64))) \
+            * (groups or 1)
+        res["blocks_per_sm"] = res["blocks"] / \
+            torch.cuda.get_device_properties(0).multi_processor_count
+        wd = tq.dequantize_weight(q, s).to(torch.bfloat16)
+        xb = x.bfloat16()
+        res["library_ms"] = cuda_time_ms(
+            (lambda: torch.bmm(xb, wd)) if batched
+            else (lambda: torch.matmul(xb, wd)), iters=10)
+        res["library"] = "bf16 torch.matmul on the weight dequantized " \
+            "in advance" + (" (bmm)" if batched else "")
+        del wd
+        if mode == "int8" and not batched:
+            res["int8pack_ms"], res["int8pack"] = _library_int8pack_ms(
+                xb, q, s)
+    emit(res)
+    del q, s, x, out, ref
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_quantize_blocks(name, rng, n, dtype, block=256, offset=0,
+                          time_it=False):
+    """K6 on a flat tensor against its plain version: q bit-identical,
+    the scales exact. ``offset`` starts x one element into a buffer (no
+    16-byte loads); rows of zeros give scale 0."""
+    import torch
+    from deepspeed_tpu_torch.ops import quantizer as tqb
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    buf = torch.empty(n + offset, dtype=dtype, device=dev)
+    step = 1 << 26
+    for i in range(0, n + offset, step):
+        j = min(i + step, n + offset)
+        buf[i:j] = (torch.randn(j - i, generator=g, device=dev) * 3).to(dtype)
+    x = buf[offset:]
+    x[block:2 * block] = 0
+    before = tqb.op_builder.launches["quantize_blocks"]
+    q, s = tqb.quantize_blocks_pallas(x, block)
+    torch.cuda.synchronize()
+    assert tqb.op_builder.launches["quantize_blocks"] == before + 1
+    rq, rs = tqb.quantize_blocks_ref(x, block)
+    res = {"phase": "kernels", "check": name, "kernel": "quantize_blocks",
+           "dtype": str(dtype).replace("torch.", ""),
+           "shape": {"n": n, "block": block, "offset": offset},
+           "q_mismatches": int((q != rq).sum()),
+           "scale_mismatches": int((s != rs).sum()),
+           "max_abs_err": float((q.float() - rq.float()).abs().max()),
+           "tol": "bit-identical"}
+    del rq, rs
+    if res["q_mismatches"] or res["scale_mismatches"] or s[1] != 0:
+        emit(dict(res, failed=True))
+        raise AssertionError(f"{name}: quantize_blocks disagrees with its "
+                             f"plain version")
+    if time_it:
+        res["kernel_ms"] = cuda_time_ms(
+            lambda: tqb.quantize_blocks_pallas(x, block), iters=10)
+        res["plain_ms"] = cuda_time_ms(
+            lambda: tqb.quantize_blocks_ref(x, block), iters=2, warmup=1)
+        res["bound_ms"], res["bound_by"] = bound(
+            n * (x.element_size() + 1) + (n // block) * 4, 3.0 * n,
+            "float32")
+        res["library_ms"] = None      # no PyTorch call quantizes by blocks
+    emit(res)
+    del buf, x, q, s
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_quant(rng):
+    """Phase 3's quantized-matmul and quantizer checks. bf16 at Llama-3
+    8B's linears in all four formats, decode (M 16) and prefill (M 2048),
+    the head with fp32 output; Mixtral 8x7B's experts on capacity buffers
+    (G 8, M 16 and 512); fp32 at awkward shapes (M 1 and 3, K and N off 16
+    and off 256, dense and batched; bf16 too); K6 on Llama-3 1B's gradient
+    (the size ZeRO++ quantizes) and small fp32/bf16 ones. Returns the
+    lines of the kernels table's shapes."""
+    import torch
+    from deepspeed_tpu_torch import llama3_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = {}
+    for mode in QUANT_MODES:
+        for k, n in QUANT_DENSE_SHAPES:
+            head = n == 128256
+            for m in (16, 2048):
+                res = check_qmm(f"qmm_{mode}_m{m}_{k}x{n}", rng, mode, m, k,
+                                n, bf16, f32 if head else None)
+                out[(mode, None, m, k, n)] = res
+        for k, n in QUANT_EXPERT_SHAPES:
+            for m in (16, 512):
+                out[(mode, 8, m, k, n)] = check_qmm(
+                    f"qmm_batched_{mode}_g8_m{m}_{k}x{n}", rng, mode, m, k,
+                    n, bf16, groups=8)
+        for name, m, k, n, dt, groups in (
+                ("f32_m1", 1, 200, 77, f32, None),
+                ("f32_m3", 3, 1000, 1030, f32, None),
+                ("bf16_m3", 3, 1000, 1030, bf16, None),
+                ("f32_batched", 5, 200, 77, f32, 3),
+                ("bf16_batched", 70, 1000, 1030, bf16, 2)):
+            check_qmm(f"qmm_{mode}_{name}", rng, mode, m, k, n, dt,
+                      groups=groups, time_it=False)
+    cfg = llama3_config(TRAIN_MODEL[0], **TRAIN_MODEL[1])
+    n_grad = cfg.num_params() // 256 * 256
+    out["quantize_blocks"] = check_quantize_blocks(
+        "quantize_blocks_llama3_1b_grad", rng, n_grad, bf16, time_it=True)
+    for name, n, dt, block, offset in (
+            ("quantize_blocks_f32", 256 * 1000, f32, 256, 0),
+            ("quantize_blocks_f32_unaligned", 256 * 333, f32, 256, 1),
+            ("quantize_blocks_bf16_block100", 100 * 999, bf16, 100, 0),
+            ("quantize_blocks_f32_block128", 128 * 777, f32, 128, 0)):
+        check_quantize_blocks(name, rng, n, dt, block, offset)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: ragged_forward on the card against the CPU at full width
 # ---------------------------------------------------------------------------
 
@@ -1163,6 +1392,212 @@ def phase_serve_moe():
               "allocated_after_init_gb": init_gb, "arena_pages": blocks,
               "init_seconds": init_s, "generate_seconds": gen_s,
               "serve_seconds": serve_s,
+              "generate_prefill_tok_s": _rate(("fresh", "split"), gen_stats),
+              "generate_decode_ms_per_step": 1e3
+              * gen_stats["decode"]["seconds"] / gen_stats["decode"]["steps"],
+              "prefill_tok_s": _rate(("fresh", "split"), st),
+              "decode_tok_s": _rate(("decode",), st),
+              "decode_ms_per_step": 1e3 * st["decode"]["seconds"]
+              / st["decode"]["steps"],
+              "stats": st, "launches": launches,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        for k, v in launches.items():
+            total[k] += v
+        del eng
+        torch.cuda.empty_cache()
+    return total
+
+
+def _quant_kernel(mode: str, batched: bool = False) -> str:
+    """The launch counter of the kernel a format takes."""
+    if mode in ("int4", "fp6"):
+        return "quantized_matmul_packed"
+    return "quantized_matmul_batched" if batched else "quantized_matmul"
+
+
+def phase_full_width_quant():
+    """Quantized ragged_forward, fp32, card against CPU from one quantized
+    tree (drawn quantized on the card, copied to the CPU): depth 2 at
+    Llama-3 8B width under each of the four formats (a fresh chunk, a
+    split chunk and a decode step, the head included: (4096, 128256)),
+    then depth 2 at Mixtral 8x7B width in int8 (a fresh 2 x 32 chunk and a
+    decode step, both through the capacity layer's batched kernel).
+    Tolerance as phase_full_width's (2e-3): the two sides sum the same
+    decoded products in fp32 in other orders."""
+    import torch
+    from deepspeed_tpu_torch import llama3_config
+    from deepspeed_tpu_torch.inference.engine_v2 import ragged_forward
+    from deepspeed_tpu_torch.models.mixtral import mixtral_config
+    from deepspeed_tpu_torch.models.transformer import init_params
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.ops.paged_attention import init_arena
+    from deepspeed_tpu_torch.parallel.moe import serving_moe_fn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tol, worst = 2e-3, 0.0
+    runs = [(mode, llama3_config("8b", num_layers=2), mode) for mode in
+            QUANT_MODES] + [("mixtral-int8", mixtral_config(
+                "8x7b", num_layers=2), "int8")]
+    for name, cfg, mode in runs:
+        moe = bool(cfg.num_experts)
+        t0 = time.perf_counter()
+        p_gpu = init_params(cfg, torch.Generator(device=DEV).manual_seed(31),
+                            torch.float32, DEV, weight_quant=mode)
+        p_cpu = _to_cpu(p_gpu)
+        init_s = time.perf_counter() - t0
+        nb, bs, mb = 16, 128, 8
+        arenas = {d: init_arena(cfg.num_layers, cfg.kv_heads, nb, bs,
+                                cfg.head_dim, torch.float32, d)
+                  for d in (DEV, "cpu")}
+        rng = np.random.default_rng(32)
+        if moe:
+            pt = np.full((2, mb), nb, np.int32)
+            pt[0, :1], pt[1, :1] = [3], [7]
+            steps = [("fresh", 32, [0, 0], [32, 20]),
+                     ("decode", 1, [32, 20], [1, 1])]
+        else:
+            pt = np.full((3, mb), nb, np.int32)
+            pt[0, :2], pt[1, :3], pt[2, :5] = [3, 0], [7, 1, 12], \
+                [2, 9, 4, 15, 5]
+            steps = [("fresh", 256, [0, 0, 0], [200, 256, 256]),
+                     ("split", 256, [200, 256, 256], [1, 100, 256]),
+                     ("decode", 1, [201, 356, 512], [1, 1, 1])]
+        for step, c, starts, counts in steps:
+            tokens = rng.integers(0, cfg.vocab_size,
+                                  size=(len(starts), c)).astype(np.int32)
+            logits = {}
+            op_builder.reset_launches()
+            for where, params in ((DEV, p_gpu), ("cpu", p_cpu)):
+                args = [torch.from_numpy(np.asarray(a, np.int32)).to(where)
+                        for a in (tokens, counts, starts, pt)]
+                moe_fn = serving_moe_fn(cfg, None, params, ep=False) \
+                    if moe else None
+                with torch.no_grad():
+                    lg, arenas[where] = ragged_forward(
+                        cfg, params, arenas[where], *args, moe_fn=moe_fn,
+                        fresh_prefill=False if step == "decode" else step)
+                logits[where] = lg.cpu()
+            launched = dict(op_builder.launches)
+            want = {_quant_kernel(mode)} | (
+                {"quantized_matmul_batched"} if moe else set()) | {
+                "fresh": {"flash_attention_fwd"},
+                "split": {"flash_attention_fwd", "paged_attention"},
+                "decode": {"paged_attention"}}[step]
+            assert {k for k, v in launched.items() if v} == want, \
+                f"{name} {step} step launched {launched}"
+            assert torch.isfinite(logits[DEV]).all()
+            err = _err(logits[DEV], logits["cpu"])
+            worst = max(worst, err)
+            emit({"phase": "full_width_quant", "model": name + "-depth2",
+                  "mode": step, "weight_quant": mode,
+                  "tokens": len(starts) * c, "max_abs_err": err, "tol": tol,
+                  "logit_absmax": float(logits["cpu"].abs().max()),
+                  "init_seconds": init_s, "launches": launched})
+            torch.testing.assert_close(logits[DEV], logits["cpu"], rtol=tol,
+                                       atol=tol)
+        del p_gpu, p_cpu, arenas
+        torch.cuda.empty_cache()
+    emit({"phase": "full_width_quant", "worst": worst})
+
+
+#: phase 5's quantized runs: Llama-3 8B at full depth in each format (the
+#: phase_serve prompts, 32 new tokens; ``serve`` on 16 requests in int8),
+#: then Mixtral 8x7B at all 32 layers in int8 (quantized at init slice by
+#: slice, 256 arena pages, max_batch_tokens 512, 8 prompts of 128-512
+#: tokens, 16 new tokens)
+QUANT_MIXTRAL_PROMPTS = [128, 512, 256, 384, 200, 448, 300, 160]
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def phase_serve_quant():
+    """The slice's main path in bf16: the ragged engine built with
+    ``weight_quant`` (the tree drawn quantized slice by slice on the card)
+    serving Llama-3 8B at full width and depth in int8, fp8, int4 and fp6,
+    then Mixtral 8x7B at full width and all 32 layers in int8 (46.8 GB of
+    weights: the whole model on one card). Each run's launch counts are
+    read around its own generate/serve; returns their sums."""
+    import torch
+    from deepspeed_tpu_torch import RaggedInferenceEngine, llama3_config
+    from deepspeed_tpu_torch.models.mixtral import mixtral_config
+    from deepspeed_tpu_torch.ops import op_builder
+    total = {k: 0 for k in op_builder.launches}
+    runs = [("llama3-8b-" + m, llama3_config("8b"), m,
+             {"num_blocks": SERVE_BLOCKS, "max_seq_len": 4096,
+              "max_batch_tokens": 2048},
+             [64, 1500, 300, 777, 128, 1024, 513, 900], 32, m == "int8")
+            for m in QUANT_MODES]
+    runs.append(("mixtral-8x7b-32L-int8", mixtral_config("8x7b"), "int8",
+                 {"num_blocks": 256, "max_seq_len": 1024,
+                  "max_batch_tokens": 512}, QUANT_MIXTRAL_PROMPTS, 16,
+                 False))
+    for i, (name, cfg, mode, eng_over, lens, new, with_serve) in \
+            enumerate(runs):
+        rng = np.random.default_rng(3)
+        prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+                   for n in lens]
+        requests = [rng.integers(0, cfg.vocab_size, size=int(n))
+                    .astype(np.int32) for n in rng.integers(16, 700, 16)] \
+            if with_serve else []
+        budgets = [int(b) for b in rng.integers(8, 49, size=16)]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = RaggedInferenceEngine(
+            cfg, dict({"dtype": "bfloat16", "block_size": 128,
+                       "max_sequences": 64, "prefill_chunk": 256,
+                       "weight_quant": mode}, **eng_over),
+            generator=torch.Generator(device=DEV).manual_seed(40 + i),
+            device=DEV)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        weight_gb = _tree_bytes(eng.params) / 1e9
+        init_gb = torch.cuda.memory_allocated() / 1e9
+        init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        # the main path: every count set to 0 just before, read just after
+        op_builder.reset_launches()
+        eng.stats.clear()
+        t1 = time.perf_counter()
+        outs = eng.generate(prompts, max_new_tokens=new)
+        gen_s = time.perf_counter() - t1
+        gen_stats = {k: dict(v, launches=dict(v["launches"]))
+                     for k, v in eng.stats.items()}
+        t2 = time.perf_counter()
+        served = eng.serve(requests, max_new_tokens=budgets,
+                           max_concurrency=8) if with_serve else []
+        serve_s = time.perf_counter() - t2
+        launches = dict(op_builder.launches)
+
+        for p, o in zip(prompts, outs):
+            assert len(o) == len(p) + new and (o[:len(p)] == p).all()
+            assert ((o >= 0) & (o < cfg.vocab_size)).all()
+        for p, o, m in zip(requests, served, budgets):
+            assert len(o) == len(p) + m and (o[:len(p)] == p).all()
+        assert not eng.state.seqs
+        assert eng.state.allocator.free_blocks == eng_over["num_blocks"]
+        moe = bool(cfg.num_experts)
+        kernel = _quant_kernel(mode)
+        need = {kernel, "flash_attention_fwd", "paged_attention"} | (
+            {"quantized_matmul_batched"} if moe else set())
+        assert all(launches[k] > 0 for k in need), launches
+        # every projection went through the kernels; MoE only through
+        # the capacity layer (the grouped kernels of the dropless one
+        # launched nothing)
+        assert all(v == 0 for k, v in launches.items() if k not in need), \
+            launches
+        st = eng.stats
+        emit({"phase": "serve_quant", "model": name, "dtype": "bfloat16",
+              "weight_quant": mode, "params": cfg.num_params(),
+              "layers": cfg.num_layers, "weight_gb": weight_gb,
+              "allocated_after_init_gb": init_gb,
+              "init_peak_gb": init_peak_gb,
+              "arena_pages": eng_over["num_blocks"], "init_seconds": init_s,
+              "generate_seconds": gen_s, "serve_seconds": serve_s,
               "generate_prefill_tok_s": _rate(("fresh", "split"), gen_stats),
               "generate_decode_ms_per_step": 1e3
               * gen_stats["decode"]["seconds"] / gen_stats["decode"]["steps"],
@@ -1625,11 +2060,14 @@ def main() -> int:
     timed = phase_kernels(rng)
     grouped = phase_grouped(rng)
     grouped_bwd = phase_grouped_bwd(rng)
+    quant = phase_quant(rng)
     if "--kernels-only" in sys.argv[1:]:
         return 0
     phase_full_width()
     phase_full_width_moe()
-    paths = {"serve": phase_serve(), "serve_moe": phase_serve_moe()}
+    phase_full_width_quant()
+    paths = {"serve": phase_serve(), "serve_moe": phase_serve_moe(),
+             "serve_quant": phase_serve_quant()}
     phase_train_full_width()
     paths["train"] = phase_train()
     phase_moe_layer_grad()
@@ -1645,7 +2083,12 @@ def main() -> int:
     # the Mixtral prefill shape (the Qwen shape is in phase 3's
     # gmm_qwen_path line), the backward ones' at the 1B/8e training shape
     # (the Mixtral shape is in phase 3's gmm_bwd_mixtral_path line);
-    # grouped_wgrad's numbers are its three launches of a layer together
+    # grouped_wgrad's numbers are its three launches of a layer together;
+    # the quantized matmuls' at decode (M 16) on Llama-3 8B's MLP up
+    # projection (4096 x 14336; int8 for K5a, int4 for K5b) and on
+    # Mixtral's experts (G 8; int8 for K5c), every other shape and format
+    # in phase 3's qmm_* lines; K6 at Llama-3 1B's gradient size, on no
+    # path (it is held by phase 3 alone)
     rows = [("flash_attention_fwd",
              "deepspeed_tpu_torch/ops/csrc/flash_attention.cu",
              "deepspeed_tpu/ops/flash_attention.py:71", timed["train_fwd"],
@@ -1671,7 +2114,22 @@ def main() -> int:
              grouped_bwd["moe_1b_8e"], key)
             for name, line, key in (("grouped_dgdu", "411", "dgdu"),
                                     ("grouped_dxs", "488", "dxs"),
-                                    ("grouped_wgrad", "502", "wgrad"))]
+                                    ("grouped_wgrad", "502", "wgrad"))] + [
+            ("quantized_matmul",
+             "deepspeed_tpu_torch/ops/csrc/quantized_linear.cu",
+             "deepspeed_tpu/ops/quantized_linear.py:227",
+             quant[("int8", None, 16, 4096, 14336)], "kernel"),
+            ("quantized_matmul_packed",
+             "deepspeed_tpu_torch/ops/csrc/quantized_linear.cu",
+             "deepspeed_tpu/ops/quantized_linear.py:295",
+             quant[("int4", None, 16, 4096, 14336)], "kernel"),
+            ("quantized_matmul_batched",
+             "deepspeed_tpu_torch/ops/csrc/quantized_linear.cu",
+             "deepspeed_tpu/ops/quantized_linear.py:498",
+             quant[("int8", 8, 16, 4096, 14336)], "kernel"),
+            ("quantize_blocks", "deepspeed_tpu_torch/ops/csrc/quantizer.cu",
+             "deepspeed_tpu/ops/quantizer.py:131", quant["quantize_blocks"],
+             "kernel")]
     #: which checks of a phase-3 line hold each backward kernel
     bwd_checks = {"dgdu": ("dgdu_", "autograd_dw2"),
                   "dxs": ("dxs", "autograd_dxs"),
@@ -1685,6 +2143,8 @@ def main() -> int:
                      "bound_ms": res["bound_ms"],
                      "bound_by": res["bound_by"],
                      "library_ms": res["library_ms"]}
+            if "library" in res:
+                times["library"] = res["library"]
         elif key in bwd_checks:
             times = {"max_abs_err": max(
                          v["max_abs_err"] for c, v in res.items()

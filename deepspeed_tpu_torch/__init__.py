@@ -6,7 +6,9 @@ a kernel written by hand for NVIDIA Hopper (``ops/csrc``). This package
 imports ``torch``, never ``jax`` and nothing of ``deepspeed_tpu``.
 
 The ragged paged-KV engine (``RaggedInferenceEngine``, the port of
-``RaggedInferenceEngineTPU``) serves dense and MoE decoders; ``initialize``
+``RaggedInferenceEngineTPU``) serves dense and MoE decoders, in the
+engine dtype or with weight-only quantized linears (``weight_quant``
+int8, fp8, int4 or fp6); ``initialize``
 and ``DeepSpeedEngine.train_batch`` (the port of ``DeepSpeedTPUEngine``)
 train them on one device, MoE models through the dropless grouped FFN or
 the capacity layer (the config's ``moe`` section).

@@ -15,14 +15,18 @@ within-chunk part of continuation chunks. MoE models (Mixtral, Qwen2-MoE)
 take their FFN from :func:`deepspeed_tpu_torch.parallel.moe.serving_moe_fn`:
 steps of 1024 tokens or more run the dropless grouped FFN (the grouped
 GEMM kernels of ``ops/csrc/grouped_matmul.cu``), smaller ones (decode) the
-capacity einsums. On the CPU the same calls run the kernels' plain
+capacity einsums. With ``weight_quant`` (int8, fp8, int4 or fp6), or a
+pre-quantized parameter tree, every projection, the experts and the head
+run through the weight-only quantized-matmul kernels
+(``ops/csrc/quantized_linear.cu``) and MoE layers take the capacity path
+at every token count. On the CPU the same calls run the kernels' plain
 versions. Shapes are bucketed as in the JAX engine (rows to powers of two,
 chunk width to {1, prefill_chunk}) so the kernels see the reference's
 shapes.
 
-Not ported yet (each raises ``NotImplementedError``): ``weight_quant``
-(dense and MoE), expert parallelism, and the decode megastep
-(``step_with_budget(max_steps > 1)``). The fused decode loop, the
+Not ported yet (each raises ``NotImplementedError``): expert parallelism
+and the decode megastep (``step_with_budget(max_steps > 1)``). The fused
+decode loop, the
 copy-on-write and page-export helpers and the telemetry hooks wait for
 later slices; per-mode step tallies and the kernels' launch counters
 (:data:`deepspeed_tpu_torch.ops.op_builder.launches`) stand in for the
@@ -50,6 +54,10 @@ from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops import paged_attention as pa
 from deepspeed_tpu_torch.ops.flash_attention import (flash_attention,
                                                      flash_attention_with_lse)
+from deepspeed_tpu_torch.ops.quantized_linear import (cast_quantized_tree,
+                                                      is_quantized_tree,
+                                                      quantize_param_tree,
+                                                      validate_weight_quant)
 from deepspeed_tpu_torch.parallel.moe import serving_moe_fn
 from deepspeed_tpu_torch.utils.logging import log_dist
 
@@ -71,7 +79,11 @@ class RaggedInferenceConfig(TPUConfigModel):
     #: None follows the device (kernels on CUDA, plain versions on the
     #: CPU); a value that contradicts the device raises
     use_pallas: Optional[bool] = None
-    weight_quant: Optional[str] = None  #: not ported: must stay None
+    #: weight-only quantized serving (quantized_linear.py): None (the
+    #: engine dtype), "int8", "fp8" (e4m3), "int4" (two per byte) or
+    #: "fp6" (e3m2, four per three bytes); per-output-channel fp32 scales.
+    #: Leave it None for a tree that is quantized already.
+    weight_quant: Optional[str] = None
 
 
 def ragged_forward(cfg: DecoderConfig, params, arena, tokens: torch.Tensor,
@@ -200,6 +212,15 @@ class RaggedInferenceEngine:
     random init from ``generator``. ``device``: None → CUDA (raises
     without a card); tests pass ``"cpu"``. ``generator`` seeds the init
     and the sampler (default: seed 0 on the engine's device).
+
+    Quantized serving (engine_v2.py:281-314) has three routes: no
+    ``params`` and ``weight_quant`` set — the tree is drawn quantized
+    slice by slice (``init_params(..., weight_quant=)``), so the float
+    tree never fills the card; a float tree and ``weight_quant`` — cast to
+    the engine dtype, then ``quantize_param_tree``; a pre-quantized tree
+    (scale leaves) with ``weight_quant`` unset — cast by
+    ``cast_quantized_tree``'s rules (scales, fp8 weights and packed planes
+    untouched). A pre-quantized tree with ``weight_quant`` set raises.
     """
 
     def __init__(self, model: DecoderConfig,
@@ -221,10 +242,12 @@ class RaggedInferenceEngine:
                 f"ragged/paged inference has no sliding-window mask: "
                 f"max_seq_len {config.max_seq_len} exceeds sliding_window "
                 f"{model.sliding_window}; cap max_seq_len at the window")
-        if config.weight_quant:
-            raise NotImplementedError(
-                f"weight_quant={config.weight_quant!r}: quantized serving "
-                f"is not ported to deepspeed_tpu_torch yet")
+        validate_weight_quant(config.weight_quant)
+        prequantized = params is not None and is_quantized_tree(params)
+        if prequantized and config.weight_quant:
+            raise ValueError(
+                "params are already quantized (scale leaves present); drop "
+                "weight_quant from the config")
         self.device = get_device(device)
         on_card = self.device.type == "cuda"
         if config.use_pallas is not None and bool(config.use_pallas) \
@@ -252,9 +275,15 @@ class RaggedInferenceEngine:
         self._generator = generator
         with torch.no_grad():
             if params is None:
-                params = init_params(model, generator, self.dtype,
-                                     self.device)
-            self.params = _cast(params, self.dtype, self.device)
+                self.params = init_params(model, generator, self.dtype,
+                                          self.device,
+                                          weight_quant=config.weight_quant)
+            else:
+                self.params = cast_quantized_tree(params, self.dtype,
+                                                  self.device)
+                if config.weight_quant:
+                    self.params = quantize_param_tree(
+                        self.params, mode=config.weight_quant)
         self.arena = pa.init_arena(model.num_layers, model.kv_heads,
                                    config.num_blocks, config.block_size,
                                    model.head_dim, self.dtype, self.device)
@@ -589,16 +618,3 @@ class RaggedInferenceEngine:
                     self.flush(u)
             raise
         return [np.asarray(seqs[u], np.int32) for u in uids]
-
-
-def _cast(tree, dtype: torch.dtype, device: torch.device):
-    """Every floating leaf to the engine dtype (norm scales included, as
-    engine_v2.py:276-278), every leaf to the engine device."""
-    if isinstance(tree, dict):
-        return {k: _cast(v, dtype, device) for k, v in tree.items()}
-    if not isinstance(tree, torch.Tensor):
-        raise TypeError(f"params leaves must be torch tensors, got "
-                        f"{type(tree).__name__} (see models.convert."
-                        f"params_from_jax)")
-    return tree.to(device=device,
-                   dtype=dtype if tree.is_floating_point() else tree.dtype)

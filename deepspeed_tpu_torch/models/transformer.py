@@ -9,17 +9,19 @@ JAX's ``[B, T, H, Dh]`` head layout, so a parameter tree converted with
 same function in both packages.
 
 What the port carries: ``DecoderConfig``, norms, embeddings, RoPE, the
-plain attention, the dense MLP and attention projections, the residual
-combine with its MoE branch (a ``moe_fn`` from
+plain attention, the dense MLP and attention projections (weight-only
+quantized linears through :func:`deepspeed_tpu_torch.ops.quantized_linear.
+qmatmul` where a ``<name>_scale`` leaf marks them), the residual combine
+with its MoE branch (a ``moe_fn`` from
 :mod:`deepspeed_tpu_torch.parallel.moe`), ``init_params`` (dense and MoE
-trees) and ``lm_logits`` (serving); and the training forward:
+trees, float or quantized as they are drawn) and ``lm_logits`` (serving,
+the quantized head included); and the training forward:
 ``decoder_block``, ``forward_hidden`` and ``forward`` over the stacked
 layers (per-block recompute for the ``"full"`` remat policy), dense and
 MoE, with the MoE layers' aux losses summed, ``chunked_cross_entropy``
 (each chunk's logits recomputed in backward) and ``cross_entropy_loss``.
-Residual-MoE, weight-only quantized linears, ALiBi, encoder extras,
-health taps and the named save/offload remat policies raise
-``NotImplementedError``.
+Residual-MoE, ALiBi, encoder extras, health taps and the named
+save/offload remat policies raise ``NotImplementedError``.
 """
 
 import dataclasses
@@ -31,9 +33,17 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from deepspeed_tpu_torch.ops.quantized_linear import (SCALE_SUFFIX, qmatmul,
+                                                      quantize_weight,
+                                                      validate_weight_quant)
+
 Params = Dict[str, Any]
 
 _NEG_INF = -1e30
+
+#: init_params draws (and quantizes) leaves in slices of at most this many
+#: values along the leading axis
+INIT_SLICE_VALUES = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -342,14 +352,16 @@ def resolve_remat_policy(name: Optional[str]) -> None:
 # ---------------------------------------------------------------------------
 
 def linear_2d(x: torch.Tensor, p: Params, name: str) -> torch.Tensor:
-    """``x [..., K] @ p[name] [K, N]`` (transformer.py:549, unquantized
-    branch). A ``<name>_scale`` leaf marks a weight-only quantized linear,
-    which this slice has not ported."""
-    if name + "_scale" in p:
-        raise NotImplementedError(
-            "weight-only quantized linears are not ported to "
-            "deepspeed_tpu_torch yet")
-    return torch.matmul(x, p[name])
+    """``x [..., K] @ p[name] [K, N]`` (transformer.py:549). A
+    ``<name>_scale`` leaf marks a weight-only quantized linear, which goes
+    through :func:`qmatmul` (the dequant-matmul kernels on CUDA, output in
+    x's dtype); without one it is a plain matmul (differentiable)."""
+    w = p[name]
+    if name + SCALE_SUFFIX not in p:
+        return torch.matmul(x, w)
+    lead = x.shape[:-1]
+    out = qmatmul(x.reshape(-1, x.shape[-1]), w, p[name + SCALE_SUFFIX])
+    return out.reshape(*lead, w.shape[-1])
 
 
 def _mlp(cfg: DecoderConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -463,7 +475,7 @@ def decoder_block(cfg: DecoderConfig, p: Params, x: torch.Tensor, sin, cos,
 
 def init_params(cfg: DecoderConfig, generator: torch.Generator,
                 dtype: torch.dtype = torch.float32,
-                device=None) -> Params:
+                device=None, weight_quant: Optional[str] = None) -> Params:
     """Random parameter tree in the JAX layout (transformer.py:721):
     dense layers carry ``mlp``, MoE layers ``moe`` (router [L, d, E],
     wg/wi [L, E, d, f], wo [L, E, f, d], and the shared expert
@@ -472,7 +484,20 @@ def init_params(cfg: DecoderConfig, generator: torch.Generator,
     the leading axis (one expert at a time for expert leaves), so a leaf
     never needs an fp32 copy of its whole self; zero biases, unit norm
     scales (fp32, as in the JAX tree). The numbers differ from
-    ``jax.random``'s."""
+    ``jax.random``'s.
+
+    ``weight_quant`` (int8, fp8, int4, fp6) gives the quantized tree
+    straight away, equal bit for bit to
+    ``quantize_param_tree(init_params(...), mode=weight_quant)``: every
+    slice is drawn as above, cast to ``dtype`` and quantized into the
+    preallocated quantized leaf (the scale of a column is taken over K
+    inside one [K, N] matrix, which a slice holds whole). Only the 2-D
+    head is drawn whole before it is quantized, column block by column
+    block. Peak memory is the quantized tree plus one slice and the head,
+    so a model whose float tree would not fit the card can start on it
+    (the port's counterpart of the JAX engine's host-side init and
+    quantize, engine_v2.py:286-298)."""
+    validate_weight_quant(weight_quant)
     if cfg.moe_residual:
         raise NotImplementedError(
             "Residual-MoE (moe_residual) is not ported to "
@@ -485,7 +510,7 @@ def init_params(cfg: DecoderConfig, generator: torch.Generator,
 
     def w(shape, std=cfg.init_std):
         out = torch.empty(shape, dtype=dtype, device=device)
-        step = max(1, (1 << 26) // math.prod(shape[1:]))
+        step = max(1, INIT_SLICE_VALUES // math.prod(shape[1:]))
         for i in range(0, shape[0], step):
             rows = min(step, shape[0] - i)
             out[i:i + rows] = torch.randn(
@@ -496,9 +521,57 @@ def init_params(cfg: DecoderConfig, generator: torch.Generator,
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
+    def put(group, name, shape, std=cfg.init_std, lead=None):
+        """A matmul leaf of ``shape`` (stacked, K and N last) drawn as
+        ``w`` draws it, into ``group[name]``, quantized with its
+        ``<name>_scale`` when asked. ``lead`` reshapes the stacked axes
+        (the experts' [L * E] draw to [L, E])."""
+        if not weight_quant:
+            out = w(shape, std)
+            group[name] = out if lead is None else \
+                out.view(tuple(lead) + tuple(shape[1:]))
+            return
+        q, sc = _quantized_draw(shape, std)
+        if lead is not None:
+            q = q.view(tuple(lead) + tuple(q.shape[1:]))
+            sc = sc.view(tuple(lead) + tuple(sc.shape[1:]))
+        group[name], group[name + SCALE_SUFFIX] = q, sc
+
+    def _quantized_draw(shape, std):
+        if len(shape) == 2:
+            return _quantize_columns(w(shape, std))
+        q = sc = None
+        step = max(1, INIT_SLICE_VALUES // math.prod(shape[1:]))
+        for i in range(0, shape[0], step):
+            rows = min(step, shape[0] - i)
+            part = (torch.randn((rows,) + tuple(shape[1:]),
+                                generator=generator, dtype=torch.float32,
+                                device=device) * std).to(dtype)
+            qi, si = quantize_weight(part, weight_quant)
+            if q is None:
+                q = torch.empty((shape[0],) + tuple(qi.shape[1:]),
+                                dtype=qi.dtype, device=device)
+                sc = torch.empty((shape[0], shape[-1]), dtype=torch.float32,
+                                 device=device)
+            q[i:i + rows], sc[i:i + rows] = qi, si
+        return q, sc
+
+    def _quantize_columns(full):
+        """Quantize a 2-D [K, N] leaf block of columns by block (columns
+        are independent): at most 64M values in fp32 at a time."""
+        k, n = full.shape
+        step = max(1, INIT_SLICE_VALUES // k)
+        parts = [quantize_weight(full[:, j:j + step], weight_quant)
+                 for j in range(0, n, step)]
+        return (torch.cat([p[0] for p in parts], dim=-1),
+                torch.cat([p[1] for p in parts], dim=-1))
+
     out_std = cfg.init_std / math.sqrt(2 * L)
-    attn = {"wq": w((L, d, qd)), "wk": w((L, d, kd)), "wv": w((L, d, kd)),
-            "wo": w((L, qd, d), std=out_std)}
+    attn: Params = {}
+    put(attn, "wq", (L, d, qd))
+    put(attn, "wk", (L, d, kd))
+    put(attn, "wv", (L, d, kd))
+    put(attn, "wo", (L, qd, d), std=out_std)
     if cfg.qkv_bias:
         attn.update(bq=zeros(L, qd), bk=zeros(L, kd), bv=zeros(L, kd))
     if cfg.out_bias:
@@ -508,24 +581,30 @@ def init_params(cfg: DecoderConfig, generator: torch.Generator,
         layers["ln2"] = _norm_params(cfg, (L,), device)
     if cfg.num_experts:
         E = cfg.num_experts
-
-        def experts(shape, std=cfg.init_std):   # [L, E, ...], per expert
-            return w((L * E,) + shape, std).view((L, E) + shape)
-
-        moe = {"router": w((L, d, E)), "wg": experts((d, h)),
-               "wi": experts((d, h)), "wo": experts((h, d), std=out_std)}
+        moe: Params = {"router": w((L, d, E))}
+        # [L, E, ...], drawn one expert at a time
+        put(moe, "wg", (L * E, d, h), lead=(L, E))
+        put(moe, "wi", (L * E, d, h), lead=(L, E))
+        put(moe, "wo", (L * E, h, d), std=out_std, lead=(L, E))
         if cfg.shared_expert_size:
             hs = cfg.shared_expert_size
-            moe["shared"] = {"wg": w((L, d, hs)), "wi": w((L, d, hs)),
-                             "wo": w((L, hs, d), std=out_std)}
+            shared: Params = {}
+            put(shared, "wg", (L, d, hs))
+            put(shared, "wi", (L, d, hs))
+            put(shared, "wo", (L, hs, d), std=out_std)
             if cfg.shared_expert_gate:
-                moe["shared"]["gate"] = w((L, d, 1))
+                shared["gate"] = w((L, d, 1))
+            moe["shared"] = shared
         layers["moe"] = moe
     elif cfg.is_glu:
-        layers["mlp"] = {"wg": w((L, d, h)), "wi": w((L, d, h)),
-                         "wo": w((L, h, d), std=out_std)}
+        layers["mlp"] = {}
+        put(layers["mlp"], "wg", (L, d, h))
+        put(layers["mlp"], "wi", (L, d, h))
+        put(layers["mlp"], "wo", (L, h, d), std=out_std)
     else:
-        layers["mlp"] = {"wi": w((L, d, h)), "wo": w((L, h, d), std=out_std)}
+        layers["mlp"] = {}
+        put(layers["mlp"], "wi", (L, d, h))
+        put(layers["mlp"], "wo", (L, h, d), std=out_std)
         if cfg.use_bias:
             layers["mlp"].update(bi=zeros(L, h), bo=zeros(L, d))
 
@@ -542,9 +621,13 @@ def init_params(cfg: DecoderConfig, generator: torch.Generator,
         raise NotImplementedError(
             "masked-LM heads are not ported to deepspeed_tpu_torch yet")
     if not cfg.tie_embeddings:
-        params["lm_head"] = w((d, v))
+        put(params, "lm_head", (d, v))
         if cfg.lm_head_bias:
             params["lm_head_bias"] = zeros(v)
+    elif weight_quant:
+        # tied: a transposed quantized logits copy, the table stays float
+        params["lm_head_q"], params["lm_head_q" + SCALE_SUFFIX] = \
+            _quantize_columns(params["embed"]["tokens"].t())
     return params
 
 
@@ -601,12 +684,23 @@ def lm_logits(cfg: DecoderConfig, params: Params, x: torch.Tensor
               ) -> torch.Tensor:
     """hidden [B,T,D] → logits [B,T,V] fp32 (transformer.py:934): the
     product of bf16 hidden states and weights is summed and returned in
-    fp32, as the JAX package's ``preferred_element_type=float32``."""
-    if cfg.mlm_head or "lm_head_q" in params or "lm_head_scale" in params:
+    fp32, as the JAX package's ``preferred_element_type=float32``. A
+    quantized head (``lm_head_q`` [D, V] of a tied model, or ``lm_head``
+    with ``lm_head_scale``) goes through :func:`qmatmul` with fp32
+    output."""
+    if cfg.mlm_head:
         raise NotImplementedError(
-            "masked-LM and quantized heads are not ported to "
-            "deepspeed_tpu_torch yet")
-    if cfg.tie_embeddings:
+            "masked-LM heads are not ported to deepspeed_tpu_torch yet")
+    q_name = "lm_head_q" if "lm_head_q" in params else \
+        ("lm_head" if "lm_head" + SCALE_SUFFIX in params else None)
+    if q_name:
+        b, t, d = x.shape
+        logits = qmatmul(x.reshape(b * t, d), params[q_name],
+                         params[q_name + SCALE_SUFFIX],
+                         out_dtype=torch.float32).reshape(b, t, -1)
+        if "lm_head_bias" in params:
+            logits = logits + params["lm_head_bias"].float()
+    elif cfg.tie_embeddings:
         logits = _matmul_f32(x, params["embed"]["tokens"].t())
     else:
         logits = _matmul_f32(x, params["lm_head"])

@@ -150,7 +150,11 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 launches: Dict[str, int] = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
                             "paged_attention": 0, "grouped_gate_up": 0,
                             "grouped_down": 0, "grouped_dgdu": 0,
-                            "grouped_dxs": 0, "grouped_wgrad": 0}
+                            "grouped_dxs": 0, "grouped_wgrad": 0,
+                            "quantized_matmul": 0,
+                            "quantized_matmul_packed": 0,
+                            "quantized_matmul_batched": 0,
+                            "quantize_blocks": 0}
 
 
 def reset_launches() -> None:

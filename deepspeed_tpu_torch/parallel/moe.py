@@ -18,10 +18,17 @@ forward (``ops/csrc/grouped_matmul.cu``) and backward
 versions. The JAX ``lax.ragged_dot`` backend of ``_dropless_ffn`` is a
 second implementation of the same function and is not carried over.
 
-Not ported (each raises ``NotImplementedError``): quantized expert
-weights (ROADMAP A9), expert parallelism (A10), the routing-health taps,
-and random token selection (``rts_key``, ROADMAP A8: its permutation comes
-from JAX's PRNG, which a port cannot reproduce bit for bit).
+Weight-only quantized experts (a ``wg_scale`` leaf; serving only) run in
+the capacity layer through
+:func:`deepspeed_tpu_torch.ops.quantized_linear.qmatmul_batched` (the
+quantized-matmul kernels on CUDA), and a quantized shared expert through
+``qmatmul``; a quantized tree is served by the capacity layer at every
+token count, as in the JAX package, which has no quantized dropless path.
+
+Not ported (each raises ``NotImplementedError``): expert parallelism
+(A10), the routing-health taps, and random token selection (``rts_key``,
+ROADMAP A8: its permutation comes from JAX's PRNG, which a port cannot
+reproduce bit for bit).
 """
 
 import math
@@ -32,8 +39,10 @@ import torch
 import torch.nn.functional as F
 
 from deepspeed_tpu_torch.ops import grouped_matmul as gmm
-
-_SCALE_SUFFIX = "_scale"
+from deepspeed_tpu_torch.ops.quantized_linear import (SCALE_SUFFIX,
+                                                      is_quantized_tree,
+                                                      qmatmul,
+                                                      qmatmul_batched)
 
 #: rows per tile of the aligned dispatch layout: the kernels' 64-row
 #: m-tile, the least padding they take (each expert's rows round up to
@@ -52,11 +61,12 @@ def _no_health_taps(cfg) -> None:
             "yet")
 
 
-def _no_quant(p) -> None:
-    if "wg" + _SCALE_SUFFIX in p:
-        raise NotImplementedError(
-            "quantized expert weights are not ported to deepspeed_tpu_torch "
-            "yet (ROADMAP A9)")
+def _float_experts(p) -> None:
+    if "wg" + SCALE_SUFFIX in p:
+        raise ValueError(
+            "the dropless layer takes float expert weights; quantized "
+            "experts run in the capacity moe_layer (serving_moe_fn picks it "
+            "for quantized trees)")
 
 
 def topk_gates_t(gates_t: torch.Tensor, k: int
@@ -123,13 +133,18 @@ def topk_gating(logits: torch.Tensor, k: int, capacity: int,
 
 
 def _shared_expert(sh, xf: torch.Tensor) -> torch.Tensor:
-    """Qwen2-MoE/DeepSeek dense shared expert on every token (moe.py:127,
-    unquantized branch): xf [S, d] → [S, d], times the optional sigmoid
-    gate computed in fp32."""
-    _no_quant(sh)
-    gate_s = xf @ sh["wg"]
-    up_s = xf @ sh["wi"]
-    s_out = (F.silu(gate_s) * up_s) @ sh["wo"]
+    """Qwen2-MoE/DeepSeek dense shared expert on every token (moe.py:127):
+    xf [S, d] → [S, d], times the optional sigmoid gate computed in fp32.
+    Quantized weights (``wg_scale``) go through :func:`qmatmul`."""
+    if "wg" + SCALE_SUFFIX in sh:
+        gate_s = qmatmul(xf, sh["wg"], sh["wg" + SCALE_SUFFIX])
+        up_s = qmatmul(xf, sh["wi"], sh["wi" + SCALE_SUFFIX])
+        s_out = qmatmul(F.silu(gate_s) * up_s, sh["wo"],
+                        sh["wo" + SCALE_SUFFIX])
+    else:
+        gate_s = xf @ sh["wg"]
+        up_s = xf @ sh["wi"]
+        s_out = (F.silu(gate_s) * up_s) @ sh["wo"]
     if "gate" in sh:
         s_out = s_out * torch.sigmoid(
             xf.float() @ sh["gate"].float()).to(xf.dtype)
@@ -164,7 +179,7 @@ def dropless_moe_layer(cfg, p, x: torch.Tensor, top_k: int = 2,
     transposed ([E, S] gates, [k, S] choices) as in JAX, then
     :func:`_dropless_ffn`. x [B, T, d] → (out [B, T, d], scaled aux)."""
     _no_health_taps(cfg)
-    _no_quant(p)
+    _float_experts(p)
     b, t, d = x.shape
     e = p["router"].shape[-1]
     xf = x.reshape(b * t, d)
@@ -186,18 +201,19 @@ def moe_layer(cfg, p, x: torch.Tensor, top_k: int = 2,
               norm_topk: bool = True, rts_key=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The capacity MoE layer (moe.py:387, one device — JAX's
-    ``ep_axis=None`` — unquantized): the GShard einsums over [S, E, C]
-    dispatch/combine masks, every expert on its C slots; with
-    ``drop_tokens`` C = ceil(S·k/E·capacity_factor) (at least
-    ``min_capacity``) and tokens past it are dropped in sequence order,
-    else C = S. p: {"router" [d, E], "wg"/"wi" [E, d, f], "wo" [E, f, d],
-    optional "shared"}; x [B, T, d] → (out [B, T, d], scaled aux)."""
+    ``ep_axis=None``): the GShard einsums over [S, E, C] dispatch/combine
+    masks, every expert on its C slots; with ``drop_tokens`` C =
+    ceil(S·k/E·capacity_factor) (at least ``min_capacity``) and tokens past
+    it are dropped in sequence order, else C = S. p: {"router" [d, E],
+    "wg"/"wi" [E, d, f], "wo" [E, f, d], optional "shared"}; x [B, T, d] →
+    (out [B, T, d], scaled aux). Quantized experts (``wg_scale``, serving)
+    run the three expert products through :func:`qmatmul_batched` on the
+    [E, C, d] buffers (moe.py:455)."""
     if rts_key is not None:
         raise NotImplementedError(
             "random token selection (moe.use_rts) is not ported to "
             "deepspeed_tpu_torch (ROADMAP A8); set moe.use_rts false")
     _no_health_taps(cfg)
-    _no_quant(p)
     b, t, d = x.shape
     e = p["router"].shape[-1]
     s = b * t
@@ -208,23 +224,19 @@ def moe_layer(cfg, p, x: torch.Tensor, top_k: int = 2,
     dispatch, combine, aux = topk_gating(logits, top_k, cap,
                                          norm_probs=norm_topk)
     buf = torch.einsum("sec,sd->ecd", dispatch.to(x.dtype), xf)
-    gate = torch.einsum("ecd,edh->ech", buf, p["wg"])
-    up = torch.einsum("ecd,edh->ech", buf, p["wi"])
-    out_buf = torch.einsum("ech,ehd->ecd", F.silu(gate) * up, p["wo"])
+    if "wg" + SCALE_SUFFIX in p:
+        gate = qmatmul_batched(buf, p["wg"], p["wg" + SCALE_SUFFIX])
+        up = qmatmul_batched(buf, p["wi"], p["wi" + SCALE_SUFFIX])
+        out_buf = qmatmul_batched(F.silu(gate) * up, p["wo"],
+                                  p["wo" + SCALE_SUFFIX])
+    else:
+        gate = torch.einsum("ecd,edh->ech", buf, p["wg"])
+        up = torch.einsum("ecd,edh->ech", buf, p["wi"])
+        out_buf = torch.einsum("ech,ehd->ecd", F.silu(gate) * up, p["wo"])
     out = torch.einsum("sec,ecd->sd", combine.to(x.dtype), out_buf)
     if "shared" in p:
         out = out + _shared_expert(p["shared"], xf)
     return out.reshape(b, t, d), aux * aux_loss_coef
-
-
-def _is_quantized_tree(params) -> bool:
-    """True when the tree carries serving-quantization leaves
-    (``<name>_scale`` / ``lm_head_q``; engine.py:57)."""
-    if not isinstance(params, dict):
-        return False
-    return any((isinstance(k, str) and (k.endswith(_SCALE_SUFFIX)
-                                        or k == "lm_head_q"))
-               or _is_quantized_tree(v) for k, v in params.items())
 
 
 def serving_moe_fn(model, weight_quant, params, ep: bool):
@@ -232,18 +244,18 @@ def serving_moe_fn(model, weight_quant, params, ep: bool):
     routed (no drops, aux off); a step of DROPLESS_MIN_TOKENS tokens or
     more takes :func:`dropless_moe_layer`, a smaller one (decode) the
     capacity :func:`moe_layer` with C = S. The choice depends on the
-    tensor's shape only, so it never syncs with the device."""
+    tensor's shape only, so it never syncs with the device. Quantized
+    experts (``weight_quant`` set, or a pre-quantized tree) take the
+    capacity layer at every token count."""
     if ep:
         raise NotImplementedError(
             "expert parallelism is not ported to deepspeed_tpu_torch yet "
             "(ROADMAP A10)")
-    if weight_quant or _is_quantized_tree(params):
-        raise NotImplementedError(
-            "quantized MoE serving is not ported to deepspeed_tpu_torch yet "
-            "(ROADMAP A9)")
     capacity_fn = partial(moe_layer, top_k=model.num_experts_per_tok,
                           drop_tokens=False, aux_loss_coef=0.0,
                           norm_topk=model.norm_topk_prob)
+    if weight_quant or is_quantized_tree(params):
+        return capacity_fn
     dropless_fn = partial(dropless_moe_layer,
                           top_k=model.num_experts_per_tok,
                           aux_loss_coef=0.0, norm_topk=model.norm_topk_prob)

@@ -31,6 +31,7 @@ from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.models.convert import params_from_jax, params_to_numpy
 from deepspeed_tpu_torch.models.mixtral import mixtral_config as t_mixtral
 from deepspeed_tpu_torch.models.qwen2_moe import qwen2_moe_config as t_qwen
+from deepspeed_tpu_torch.ops.quantized_linear import quantize_weight
 from deepspeed_tpu_torch.parallel import moe as tm
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -184,16 +185,22 @@ def test_moe_params_layout_and_conversion(name):
 
 def test_moe_paths_raise():
     """Gradients reach every leaf of both layers and the model's MoE
-    parameters (MoE training is ported); what still raises: quantized
-    experts, health taps, expert parallelism, random token selection and
-    Residual-MoE."""
+    parameters (MoE training is ported); quantized experts run in the
+    capacity layer only (the dropless one refuses them, and serving picks
+    the capacity layer for them); what still raises: health taps, expert
+    parallelism, random token selection and Residual-MoE."""
     tp = _both(_layer("mixtral"))[1]
     _, tcfg = _cfgs("mixtral")
     x = torch.from_numpy(_x(1, 4))
-    quant = dict(tp, wg_scale=torch.ones(4, 1, LAYERS["mixtral"][2]))
+    quant = dict(tp)
+    for name in ("wg", "wi", "wo"):
+        quant[name], quant[name + "_scale"] = quantize_weight(tp[name])
+    out, _ = tm.moe_layer(None, quant, x)
+    ref, _ = tm.moe_layer(None, tp, x)
+    assert torch.allclose(out, ref, rtol=0.05, atol=0.05 * ref.abs().max())
+    with pytest.raises(ValueError, match="float expert weights"):
+        tm.dropless_moe_layer(None, quant, x)
     for fn in (tm.moe_layer, tm.dropless_moe_layer):
-        with pytest.raises(NotImplementedError, match="A9"):
-            fn(None, quant, x)
         with pytest.raises(NotImplementedError, match="health taps"):
             fn(dataclasses.replace(tcfg, health_taps=True), tp, x)
         grad_p = {k: v.clone().requires_grad_() for k, v in tp.items()}
@@ -202,10 +209,9 @@ def test_moe_paths_raise():
         assert all(g.abs().max() > 0 for g in grads), fn.__name__
     with pytest.raises(NotImplementedError, match="A10"):
         tm.serving_moe_fn(tcfg, None, tp, ep=True)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tm.serving_moe_fn(tcfg, "int8", tp, ep=False)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tm.serving_moe_fn(tcfg, None, {"layers": {"moe": quant}}, ep=False)
+    for wq, tree in (("int8", tp), (None, {"layers": {"moe": quant}})):
+        fn = tm.serving_moe_fn(tcfg, wq, tree, ep=False)
+        assert fn.func is tm.moe_layer and not fn.keywords["drop_tokens"]
     with pytest.raises(NotImplementedError, match="A8"):
         tm.moe_layer(None, tp, x, rts_key=1)
     params = tt.init_params(tcfg, torch.Generator().manual_seed(1))

@@ -55,7 +55,8 @@ def test_every_module_is_listed():
                  "runtime.lr_schedules", "runtime.loss_scaler",
                  "runtime.dataloader", "utils.logging",
                  "accelerator.real_accelerator", "ops.grouped_matmul",
-                 "parallel.moe", "models.mixtral", "models.qwen2_moe"):
+                 "parallel.moe", "models.mixtral", "models.qwen2_moe",
+                 "ops.quantized_linear", "ops.quantizer"):
         assert "deepspeed_tpu_torch." + want in names
 
 
@@ -82,9 +83,11 @@ def test_use_pallas_must_follow_device():
 def test_unported_features_raise(monkeypatch):
     cfg = llama3_config("tiny", vocab_size=256)
     small = {"dtype": "float32", "num_blocks": 4}
-    with pytest.raises(NotImplementedError, match="quantized"):
-        RaggedInferenceEngine(cfg, dict(small, weight_quant="int8"),
-                              device="cpu")
+    # quantized serving is ported: the engine builds its quantized tree
+    eng = RaggedInferenceEngine(cfg, dict(small, weight_quant="int8"),
+                                device="cpu")
+    assert eng.params["layers"]["attn"]["wq"].dtype == torch.int8
+    assert eng.params["lm_head_scale"].dtype == torch.float32
     # MoE serving and training are ported; random token selection (on by
     # default with the capacity impl) is not, and without device= MoE
     # training targets CUDA

@@ -19,35 +19,63 @@ steps) and ``mixtral-16L`` (Mixtral 8x7B at full width and 16 of its 32
 layers: 8 prompts of 256 tokens, so the prefill window is ONE step of
 2048 tokens through the dropless FFN, then ONE decode step through the
 capacity FFN); ``qwen1.5-moe`` (Qwen1.5-MoE-A2.7B, full, the same two
-windows). Classes: the port's kernels by name (K1, K2, the grouped
-GEMMs K4), cuBLAS GEMMs by name, and for MoE models the rest of each FFN
-path by the code that launched it (the capacity layer's einsums, gating
-and combine; the dropless layer's routing, dispatch and combine), read
-from two profiler labels this tool puts around the two MoE layers.
+windows); ``mixtral-32L-int8`` (Mixtral 8x7B at full width and all 32
+layers, which fits one card only quantized: 2 prompts of 256 tokens, so
+the prefill window is ONE 512-token step, then 4 decode steps, both
+through the capacity FFN's quantized experts).
+
+``--quant`` takes one or more of ``none`` (the engine dtype, the
+default), ``int8``, ``fp8``, ``int4``, ``fp6``: each is profiled in turn
+in the same process (an engine at a time, its weights drawn quantized by
+``weight_quant``), so a bf16 and a quantized decode are compared within
+one run on one card.
+
+Classes: the port's kernels by name (K1, K2, the grouped GEMMs K4, the
+quantized matmuls K5a (int8/fp8), K5b (int4/fp6, dense and batched) and
+K5c (the batched int8/fp8 experts): the format from the instantiation's
+name, K5c from a profiler label this tool puts around ``qmatmul_batched``),
+cuBLAS GEMMs by name, and for MoE models the rest of
+each FFN path by the code that launched it (the capacity layer's einsums,
+gating and combine; the dropless layer's routing, dispatch and combine),
+read from two profiler labels this tool puts around the two MoE layers.
 
 Run from the root of a checkout on a machine with one GPU:
-``python3 tools/torch_serving_profile.py [--model mixtral-16L]``.
+``python3 tools/torch_serving_profile.py [--model mixtral-16L]
+[--quant none int8]``.
 """
 
 import json
 import os
+import re
 import sys
 import time
 
 import numpy as np
 
 #: model → (preset family, size, overrides, arena pages, batch, prompt
-#: tokens, decode steps in the decode window)
+#: tokens, decode steps in the decode window, tokens per step)
 MODELS = {
-    "llama3-8b": ("llama3", "8b", {}, 512, 8, 1024, 16),
-    "mixtral-16L": ("mixtral", "8x7b", {"num_layers": 16}, 512, 8, 256, 1),
-    "qwen1.5-moe": ("qwen2_moe", "a2.7b", {}, 128, 8, 256, 1),
+    "llama3-8b": ("llama3", "8b", {}, 512, 8, 1024, 16, 2048),
+    "mixtral-16L": ("mixtral", "8x7b", {"num_layers": 16}, 512, 8, 256, 1,
+                    2048),
+    "qwen1.5-moe": ("qwen2_moe", "a2.7b", {}, 128, 8, 256, 1, 2048),
+    "mixtral-32L-int8": ("mixtral", "8x7b", {}, 256, 2, 256, 4, 512),
 }
+#: the models a bf16 tree of does not fit one 80 GB card
+_QUANT_ONLY = {"mixtral-32L-int8"}
 _CAP, _DROP = "dstt::moe_capacity", "dstt::moe_dropless"
+_QBATCHED = "dstt::qmatmul_batched"
+_K5A, _K5C = "quantized matmul (K5a)", "quantized matmul batched (K5c)"
 
 
 def _classify(name: str) -> str:
     low = name.lower()
+    m = re.search(r"qmm_kernel<[^,]+, *(\d)>", name)
+    if m:
+        # the template's format: 0 int8, 1 fp8, 2 int4, 3 fp6 (an int8/fp8
+        # launch under the qmatmul_batched label is K5c, see _window)
+        return "quantized matmul packed (K5b)" if m.group(1) in "23" \
+            else _K5A
     if "paged_attn_kernel" in name:
         return "paged_attention (K2)"
     if "flash_fwd_kernel" in name:
@@ -65,20 +93,33 @@ def _classify(name: str) -> str:
 def _window(prof, wall_s: float, untraced_s: float, steps: int,
             tokens: int, label: str):
     """Device time by class over the traced window. Kernels launched
-    inside one of the two MoE labels (except the grouped GEMMs) go to that
-    FFN path's class; the labels' own device-side ranges are skipped, as
-    they span kernels counted already."""
+    inside one of the two MoE labels (except the grouped GEMMs and the
+    quantized matmuls) go to that FFN path's class; K5a kernels inside the
+    qmatmul_batched label's device-side ranges go to K5c; the labels' own
+    ranges are not counted, as they span kernels counted already."""
     from torch.autograd import DeviceType
     events = prof.events()
     by_class, per_kernel = {}, {}
     for e in events:
-        if e.device_type != DeviceType.CUDA or e.name in (_CAP, _DROP):
+        if e.device_type != DeviceType.CUDA or \
+                e.name in (_CAP, _DROP, _QBATCHED):
             continue
         dur = e.time_range.end - e.time_range.start
         cls = _classify(e.name)
         by_class[cls] = by_class.get(cls, 0.0) + dur
         n, c = per_kernel.get(e.name, (0.0, 0))
         per_kernel[e.name] = (n + dur, c + 1)
+    # K5 launches through ctypes, which links them to no CPU op; the
+    # label's device-side range spans them, so K5a kernels inside a
+    # qmatmul_batched range are K5c
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if e.device_type == DeviceType.CUDA and e.name == _QBATCHED]
+    for e in events:
+        if e.device_type == DeviceType.CUDA and _classify(e.name) == _K5A \
+                and any(a <= e.time_range.start < b for a, b in spans):
+            dur = e.time_range.end - e.time_range.start
+            by_class[_K5A] -= dur
+            by_class[_K5C] = by_class.get(_K5C, 0.0) + dur
     moved = {_CAP: 0.0, _DROP: 0.0}
     for e in events:
         if e.device_type != DeviceType.CPU or not e.kernels:
@@ -90,7 +131,7 @@ def _window(prof, wall_s: float, untraced_s: float, steps: int,
             continue
         for k in e.kernels:
             cls = _classify(k.name)
-            if cls.startswith("grouped"):
+            if cls.startswith(("grouped", "quantized")):
                 continue
             by_class[cls] = by_class.get(cls, 0.0) - k.duration
             moved[a.name] += k.duration
@@ -119,7 +160,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     import argparse
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
     from deepspeed_tpu_torch import RaggedInferenceEngine
     from deepspeed_tpu_torch.models import (llama3_config, mixtral_config,
                                             qwen2_moe_config)
@@ -127,26 +168,49 @@ def main() -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", choices=sorted(MODELS), default="llama3-8b")
-    model = ap.parse_args().model
-    family, size, over, blocks, batch, prompt_len, decode_steps = \
-        MODELS[model]
+    ap.add_argument("--quant", nargs="+", default=["none"],
+                    choices=["none", "int8", "fp8", "int4", "fp6"])
+    args = ap.parse_args()
+    model = args.model
+    if model in _QUANT_ONLY and "none" in args.quant:
+        ap.error(f"{model} fits one card only quantized: pass --quant")
+    family, size, over, blocks, batch, prompt_len, decode_steps, \
+        step_tokens = MODELS[model]
     cfg = {"llama3": llama3_config, "mixtral": mixtral_config,
            "qwen2_moe": qwen2_moe_config}[family](size, **over)
     # label the two MoE layers (before the engine binds them) so their
-    # kernels can be told from the attention's
-    for fn, tag in (("moe_layer", _CAP), ("dropless_moe_layer", _DROP)):
+    # kernels can be told from the attention's, and the batched quantized
+    # matmul so K5c can be told from K5a
+    for fn, tag in (("moe_layer", _CAP), ("dropless_moe_layer", _DROP),
+                    ("qmatmul_batched", _QBATCHED)):
         def labelled(*a, _f=getattr(moe, fn), _t=tag, **kw):
             with record_function(_t):
                 return _f(*a, **kw)
         setattr(moe, fn, labelled)
-    eng = RaggedInferenceEngine(
-        cfg, {"dtype": "bfloat16", "num_blocks": blocks, "block_size": 128,
-              "max_seq_len": 4096, "max_batch_tokens": 2048,
-              "prefill_chunk": 256},
-        generator=torch.Generator(device="cuda").manual_seed(0))
-    rng = np.random.default_rng(0)
     smi = os.popen("nvidia-smi --query-gpu=name,power.limit "
                    "--format=csv,noheader").read().strip()
+    for quant in args.quant:
+        _profile(RaggedInferenceEngine, cfg, model, quant, smi, blocks,
+                 batch, prompt_len, decode_steps, step_tokens)
+        torch.cuda.empty_cache()
+    return 0
+
+
+def _profile(engine_cls, cfg, model, quant, smi, blocks, batch, prompt_len,
+             decode_steps, step_tokens) -> None:
+    """Build one engine (``quant`` "none": the engine dtype), warm it up,
+    then time and trace one prefill and one decode window; prints their
+    lines and writes the per-kernel tables."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.reset_peak_memory_stats()
+    eng = engine_cls(
+        cfg, {"dtype": "bfloat16", "num_blocks": blocks, "block_size": 128,
+              "max_seq_len": 4096, "max_batch_tokens": step_tokens,
+              "prefill_chunk": 256,
+              "weight_quant": None if quant == "none" else quant},
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
 
     def prompts(base):
         return {base + i: rng.integers(0, cfg.vocab_size,
@@ -205,15 +269,18 @@ def main() -> int:
     res_d, rows_d = _window(prof_d, wall_d, bare_d, decode_steps,
                             batch * decode_steps, "decode")
     for res in (res_p, res_d):
-        res.update(card=smi, model=model, batch=batch, prompt_len=prompt_len)
+        res.update(card=smi, model=model, weight_quant=quant, batch=batch,
+                   prompt_len=prompt_len,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
         print(json.dumps(res), flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(f"chiprun_out/torch_serving_profile_{model}.txt", "w") as f:
+    name = model if quant == "none" else f"{model}_{quant}"
+    with open(f"chiprun_out/torch_serving_profile_{name}.txt", "w") as f:
         for label, rows in (("prefill", rows_p), ("decode", rows_d)):
             f.write(f"== {label} ({smi}) device us, calls, kernel\n")
             for dev_us, count, key in rows[:40]:
                 f.write(f"{dev_us:12.1f} {count:7d}  {key[:150]}\n")
-    return 0
+    del eng
 
 
 if __name__ == "__main__":
