@@ -111,8 +111,10 @@ def ragged_forward(cfg: DecoderConfig, params, arena, tokens: torch.Tensor,
         fresh_prefill = "fresh"
     if cfg.pos_emb == "alibi":
         raise NotImplementedError(
-            "ragged/paged inference does not support ALiBi models; use "
-            "InferenceEngineTPU (v1 KV-cache path) for BLOOM-class models")
+            "ragged/paged inference does not support ALiBi models; serve "
+            "BLOOM-class models with the JAX package's v1 KV-cache engine "
+            "(deepspeed_tpu.inference.engine.InferenceEngineTPU); "
+            "deepspeed_tpu_torch has no v1 engine yet (ROADMAP A6)")
     n, c = tokens.shape
     dev = tokens.device
     positions = starts[:, None].to(torch.int32) + torch.arange(

@@ -8,7 +8,9 @@ kernel ``csrc/flash_attention.cu`` (K1, replacing ``_fwd_kernel`` :71 and
 ``_fwd_kernel_xl`` :232) and the backward launches
 ``csrc/flash_attention_bwd.cu`` (K3, replacing ``_bwd_dq_kernel`` :330,
 ``_bwd_dkv_kernel`` :378, ``_bwd_dq_kernel_xl`` :504 and
-``_bwd_dkv_kernel_xl`` :549). On CPU tensors they run
+``_bwd_dkv_kernel_xl`` :549). Each C entry point picks its kernel by
+dtype: bf16 runs on the tensor cores (mma.sync, ``csrc/attention_mma.cuh``),
+fp32 on the CUDA cores. On CPU tensors they run
 :func:`flash_attention_ref` and :func:`flash_attention_bwd_ref`, the plain
 PyTorch versions of the same functions. There is no fallback between the
 two: an input the kernel does not take raises.
@@ -36,7 +38,7 @@ op_builder.register("flash_attention", {
 })
 op_builder.register("flash_attention_bwd", {
     "dstt_flash_attention_bwd": (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
         + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
     "dstt_error_string": ([ctypes.c_int], ctypes.c_char_p),
 })
@@ -173,9 +175,9 @@ def _kernel(q, k, v, causal: bool, q_offset: int, window: Optional[int]):
 
 def _bwd_kernel(q, k, v, out, lse, do, causal: bool, q_offset: int,
                 window: Optional[int]):
-    """Launch K3 on CUDA tensors (its dq kernel, then its dk/dv kernel);
-    returns (dq, dk, dv). delta = rowsum(dO * O) is computed here in fp32,
-    outside the kernels, as the JAX ``_bwd`` does (:446)."""
+    """Launch K3 on CUDA tensors (its delta = rowsum(dO * O) pre-pass, as
+    the JAX ``_bwd`` computes it (:446), then its dq kernel and its dk/dv
+    kernel, all from one C call); returns (dq, dk, dv)."""
     _check(q, k, v)
     b, tq, h, d = q.shape
     tk, kvh = k.shape[1], k.shape[2]
@@ -185,18 +187,20 @@ def _bwd_kernel(q, k, v, out, lse, do, causal: bool, q_offset: int,
                          f", dO {tuple(do.shape)}, lse {tuple(lse.shape)} "
                          f"do not fit q {tuple(q.shape)}")
     do = do.to(q.dtype).contiguous()
+    out = out.to(q.dtype).contiguous()
     lse = lse.float().contiguous()
-    delta = (do.float() * out.float()).sum(dim=-1).contiguous()
+    delta = torch.empty((b, tq, h), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     lib = op_builder.load("flash_attention_bwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.dstt_flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, tq, tk, h, kvh, d, _DTYPES[q.dtype], int(causal),
-        int(q_offset), int(window or 0), 1.0 / math.sqrt(d), stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, tq, tk, h, kvh, d, _DTYPES[q.dtype],
+        int(causal), int(q_offset), int(window or 0), 1.0 / math.sqrt(d),
+        stream)
     op_builder.check(lib, err, "flash_attention_bwd")
     op_builder.launches["flash_attention_bwd"] += 1
     return dq, dk, dv

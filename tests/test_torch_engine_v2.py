@@ -161,7 +161,11 @@ def test_errors_raised_as_in_jax(model, monkeypatch):
     with pytest.raises(NotImplementedError, match="ALiBi"):
         j_forward(alibi_j, model[2], jeng.arena, jnp.asarray(z),
                   jnp.asarray(o), jnp.asarray(o), jnp.asarray(z))
-    with pytest.raises(NotImplementedError, match="ALiBi"):
+    # the port's message names what exists: the JAX package's v1 engine
+    # by its full path, and the port's missing one as a roadmap item
+    with pytest.raises(NotImplementedError,
+                       match=r"ALiBi.*\(deepspeed_tpu\.inference\.engine\."
+                             r"InferenceEngineTPU\).*no v1 engine yet"):
         t_forward(alibi_t, model[3], teng.arena, torch.from_numpy(z),
                   torch.from_numpy(o), torch.from_numpy(o),
                   torch.from_numpy(z))

@@ -3,7 +3,11 @@ takes it) against the JAX Pallas kernel run in interpret mode.
 
 The shapes really take the Pallas path (T=256 divides the block, D=64 and
 128, GQA H=4 over KvH=2). Tolerance: fp32, atol/rtol 1e-4 — the kernel
-and the plain version reduce in different orders.
+and the plain version reduce in different orders. bf16, the dtype of the
+Hopper kernel's tensor-core path: the same bf16 inputs through both, held
+by each output row's relative error |got - want| / |want| at 1e-2, the
+limit chip_smoke.py holds the CUDA kernel to (both round the output to
+bf16, and the Pallas kernel may round P to bf16 for P V).
 """
 
 import numpy as np
@@ -23,6 +27,22 @@ def _inputs(seed, b=2, t=256, h=4, kvh=2, d=64):
             for n in (h, kvh, kvh)]
 
 
+def _bf16(arrays):
+    """The arrays rounded to bf16 once, as (torch tensors, jax arrays)
+    holding the same values."""
+    ts = [torch.from_numpy(a).to(torch.bfloat16) for a in arrays]
+    return ts, [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                for t in ts]
+
+
+def _row_rel_err(got, want) -> float:
+    """Largest |got - want| / |want| over the rows of the last axis."""
+    g = np.asarray(got, dtype=np.float32)
+    w = np.asarray(want, dtype=np.float32)
+    num = np.linalg.norm(g - w, axis=-1)
+    return float((num / np.maximum(np.linalg.norm(w, axis=-1), 1e-12)).max())
+
+
 @pytest.mark.parametrize("d,causal,window", [(64, True, None),
                                              (128, True, None),
                                              (64, False, None),
@@ -36,6 +56,21 @@ def test_flash_attention_matches_pallas(d, causal, window):
                               window=window)
     assert got.shape == q.shape and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("d,causal,window", [(64, True, None),
+                                             (128, True, None),
+                                             (128, False, None),
+                                             (64, True, 48)])
+def test_flash_attention_bf16_matches_pallas(d, causal, window):
+    (qt, kt, vt), (qj, kj, vj) = _bf16(_inputs(30 + d + (window or 0)
+                                               + int(causal), d=d))
+    want = jfa.flash_attention(qj, kj, vj, causal=causal, window=window,
+                               interpret=True)
+    got = tfa.flash_attention(qt, kt, vt, causal=causal, window=window)
+    assert want.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16
+    assert _row_rel_err(got.float().numpy(),
+                        np.asarray(want, dtype=np.float32)) <= 1e-2
 
 
 @pytest.mark.parametrize("d", [64, 128])

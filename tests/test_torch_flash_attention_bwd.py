@@ -10,6 +10,13 @@ non-causal, a sliding window, q_offset, dh 64 and 128. The XL kernels
 (_bwd_dq_kernel_xl / _bwd_dkv_kernel_xl) are the same function at
 T > 4096, too slow in interpret mode; the card covers them through
 chip_smoke.py phase 3. Tolerance: fp32, atol/rtol 1e-4 (summation order).
+bf16 (the dtype of the Hopper kernels' tensor-core path), at T = 256 in
+blocks of 128: the same bf16 inputs (q, k, v, the Pallas forward's out and
+lse, dO) through the Pallas backward and the plain version, each gradient
+held by its rows' relative error |got - want| / |want| at 1e-2, the limit
+chip_smoke.py holds the CUDA kernels to. A dq row that sees exactly one
+key is 0 in exact arithmetic (p = 1 and dP = delta), so both sides hold
+fp32 rounding noise there: those rows are held to 1e-4 absolute instead.
 """
 
 import jax
@@ -67,6 +74,62 @@ def test_flash_backward_matches_pallas(d, mask):
     grads = torch.autograd.grad(o, (qa, ka, va), dot)
     for g, w in zip(grads, want):
         np.testing.assert_allclose(g.numpy(), w, **TOL)
+
+
+def _row_rel_err(got, want) -> float:
+    """Largest |got - want| / |want| over the rows of the last axis."""
+    g = np.asarray(got, dtype=np.float32)
+    w = np.asarray(want, dtype=np.float32)
+    num = np.linalg.norm(g - w, axis=-1)
+    return float((num / np.maximum(np.linalg.norm(w, axis=-1), 1e-12)).max())
+
+
+@pytest.mark.parametrize("d,mask", [
+    (64, dict(causal=True)),
+    (128, dict(causal=True)),
+    (64, dict(causal=False)),
+    (128, dict(causal=True, q_offset=16, window=48)),
+])
+def test_flash_backward_bf16_matches_pallas(d, mask):
+    """bf16: the Pallas forward gives (out, lse); the same bf16 q, k, v,
+    out, dO and fp32 lse then go through the Pallas backward (_bwd, blocks
+    of 128) and through the plain version, as chip_smoke.py feeds K3 and
+    the plain version. (Through jax.vjp each side would round its own out
+    to bf16 first, and the few-key rows of dq, a difference of nearly equal
+    terms, move by more than 1e-2 with delta = rowsum(dO * out).)"""
+    b, t, h, kvh = 2, 256, 4, 2
+    arrays = _inputs(40 + d + sum(int(x) for x in mask.values()), t=t, d=d)
+    ts = [torch.from_numpy(a).to(torch.bfloat16) for a in arrays]
+    qj, kj, vj, doj = (
+        jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+        .transpose(0, 2, 1, 3).reshape(-1, t, d) for x in ts)
+    args = dict(causal=mask.get("causal", True),
+                q_offset=mask.get("q_offset", 0), window=mask.get("window"))
+    scale = 1.0 / np.sqrt(d)
+    out_j, lse_j = jfa._fwd(qj, kj, vj, scale, args["causal"],
+                            args["q_offset"], 128, 128, args["window"], True)
+    want = jfa._bwd(qj, kj, vj, out_j, lse_j, doj, scale, args["causal"],
+                    args["q_offset"], 128, 128, args["window"], True)
+    want = [np.asarray(g, dtype=np.float32).reshape(b, -1, t, d)
+            .transpose(0, 2, 1, 3) for g in want]
+
+    qt, kt, vt, dot = ts
+    out = torch.from_numpy(np.asarray(out_j, dtype=np.float32).reshape(
+        b, h, t, d).transpose(0, 2, 1, 3).copy()).to(torch.bfloat16)
+    lse = torch.from_numpy(np.asarray(lse_j).reshape(b, h, t)
+                           .transpose(0, 2, 1).copy())
+    got = tfa.flash_attention_bwd_ref(qt, kt, vt, out, lse, dot, **args)
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    got = [g.float().numpy() for g in got]
+    seen = tfa._visible(t, t, args["causal"], args["q_offset"],
+                        args["window"], "cpu").sum(dim=1).numpy()
+    one = seen == 1
+    assert seen.min() >= 1                   # no row without a key (C4)
+    assert _row_rel_err(got[0][:, ~one], want[0][:, ~one]) <= 1e-2
+    np.testing.assert_allclose(got[0][:, one], want[0][:, one], rtol=0,
+                               atol=1e-4)
+    for g, w in zip(got[1:], want[1:]):
+        assert _row_rel_err(g, w) <= 1e-2
 
 
 def test_rows_without_keys_get_zero_gradients():

@@ -78,7 +78,7 @@ def _classify(name: str) -> str:
             else _K5A
     if "paged_attn_kernel" in name:
         return "paged_attention (K2)"
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd_" in name:
         return "flash_attention_fwd (K1)"
     if "grouped_gemm_kernel" in name:
         return "grouped GEMM (K4: gate_up + down)"

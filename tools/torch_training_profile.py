@@ -15,8 +15,8 @@ the device time per step by class and the device's idle share, 1 -
 device time / wall time of that same window (one stream, so the device
 time cannot exceed the wall time).
 
-Classes: the port's kernels by name (K1 ``flash_fwd_kernel``, K3
-``flash_bwd_dq_kernel`` / ``flash_bwd_dkv_kernel``, K4
+Classes: the port's kernels by name (K1 ``flash_fwd_*``, K3
+``flash_bwd_*``: its delta pre-pass, dq and dk/dv kernels, K4
 ``grouped_gemm_kernel`` and the backward grouped kernels
 ``grouped_dgdu_kernel``, ``grouped_dxs_kernel``, ``grouped_wgrad_kernel``),
 cuBLAS GEMMs by name, and the rest by the code that launched it: "ce" for
@@ -58,9 +58,9 @@ def _kernel_class(name: str) -> str:
     for key, cls in _GROUPED.items():
         if key in name:
             return cls
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd_" in name:
         return "flash_attention_fwd (K1)"
-    if "flash_bwd_dq_kernel" in name or "flash_bwd_dkv_kernel" in name:
+    if "flash_bwd_" in name:
         return "flash_attention_bwd (K3)"
     if any(s in low for s in ("gemm", "cutlass", "nvjet", "sm90_xmma",
                               "cublas")):
