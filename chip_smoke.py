@@ -29,9 +29,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    batched int8/fp8 experts) in bf16 at Llama-3 8B's linears and head
    (decode M 16 and prefill M 2048; the head with fp32 output) in all four
    formats and at Mixtral 8x7B's experts on capacity buffers (G 8, M 16 and
-   512), in fp32 at awkward shapes, with bf16 ``torch.matmul`` on the
-   weight dequantized in advance (and ``torch._weight_int8pack_mm`` for
-   int8 where the card's torch has it) as the yardstick; and the int8
+   512), each line with the launch plan (split-K at M ≤ 64, wgmma above)
+   and, at M 16, device times from a CUDA graph with the weights L2-warm
+   and L2-cold and the host's microseconds a call; then both forms' edges
+   (M 1, 3, 16, 64, 65, 128, 300 at a K whose steps no slice count divides;
+   G 8 with M 1, 64 and 100) and fp32 at awkward shapes, with bf16
+   ``torch.matmul`` on the weight dequantized in advance (and
+   ``torch._weight_int8pack_mm`` for int8 where the card's torch has it) as
+   the yardstick; and the int8
    block quantizer (K6) on a bf16 tensor of Llama-3 1B's gradient size and
    on small ones, bit-identical to its plain version;
 4. runs ``ragged_forward`` for a depth-2 model at Llama-3-8B width in fp32
@@ -58,8 +63,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    (``generate`` on the 8 ragged prompts, 32 new tokens; ``serve`` on 16
    requests in int8), and Mixtral 8x7B at full width and all 32 layers in
    int8 (46.8 GB of weights; 256 arena pages, 512-token steps, 8 prompts of
-   128-512 tokens, 16 new tokens), each with the same numbers and the
-   quantized weights' bytes;
+   128-512 tokens, 16 new tokens), each with the same numbers, the
+   quantized weights' bytes and K5's launches by form;
 6. runs two ``train_batch`` steps of a depth-2 model at Llama-3-1B width in
    fp32 on the card (K1 + K3) and on the CPU (plain versions) from one
    parameter tree, and compares losses and updated parameters;
@@ -946,6 +951,58 @@ def _library_int8pack_ms(x, q, s):
     return cuda_time_ms(lambda: fn(x, wt, sc)), "torch._weight_int8pack_mm"
 
 
+def graph_time_ms(fn, args, reps: int = 3) -> float:
+    """Device time of fn(a) per call, without the host's per-call cost:
+    one CUDA graph of at least 20 calls taking ``args`` in turn, replayed
+    ``reps`` times between two events."""
+    import torch
+    n = -(-max(20, 2 * len(args)) // len(args)) * len(args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for a in args[:2]:
+            fn(a)              # builds, and allocates this stream's buffers
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side, capture_error_mode="relaxed"):
+        for i in range(n):
+            fn(args[i % len(args)])
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    torch.cuda.empty_cache()
+    return start.elapsed_time(end) / (reps * n)
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """The host's time per call of fn in microseconds: ``calls`` calls
+    back to back, no synchronisation between them (the launch queue does
+    not fill at this count)."""
+    import torch
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _l2_cold_copies(w, l2_bytes: float = 50e6):
+    """w and copies of it, together at least twice the L2: taken in turn,
+    none is in L2 when it is read."""
+    return [w] + [w.clone() for _ in range(
+        max(1, -(-int(2 * l2_bytes) // (w.numel() * w.element_size())) - 1))]
+
+
 def check_qmm(name, rng, mode, m, k, n, dtype, out_dtype=None, groups=None,
               time_it=True):
     """One quantized matmul on the card against its plain version: x [M,
@@ -968,17 +1025,21 @@ def check_qmm(name, rng, mode, m, k, n, dtype, out_dtype=None, groups=None,
               "quantized_matmul_batched" if batched else "quantized_matmul")
     fn = (lambda: tq.qmatmul_batched(x, q, s, out_dtype)) if batched else \
         (lambda: tq.qmatmul(x, q, s, out_dtype))
+    pl = tq.plan(mode, dtype, groups or 1, m, k, n)
     before = dict(tq.op_builder.launches)
+    before_form = tq.regime_launches[kernel][pl.regime]
     out = fn()
     torch.cuda.synchronize()
     assert tq.op_builder.launches[kernel] == before[kernel] + 1, kernel
+    assert tq.regime_launches[kernel][pl.regime] == before_form + 1, pl
     plain = (lambda: tq.qmatmul_batched_ref(x, q, s, out_dtype)) \
         if batched else (lambda: tq.qmatmul_ref(x, q, s, out_dtype))
     ref = plain()
     res = {"phase": "kernels", "check": name, "kernel": kernel,
            "mode": mode, "dtype": str(dtype).replace("torch.", ""),
            "out_dtype": str(out.dtype).replace("torch.", ""),
-           "shape": {"G": groups, "M": m, "K": k, "N": n}}
+           "shape": {"G": groups, "M": m, "K": k, "N": n},
+           "plan": dict(pl._asdict(), grid=list(pl.grid))}
     _hold_pair(res, "out", out, ref)
     res["max_abs_err"] = res["out"]["max_abs_err"]
     if time_it:
@@ -991,18 +1052,31 @@ def check_qmm(name, rng, mode, m, k, n, dtype, out_dtype=None, groups=None,
         res["bound_ms"], res["bound_by"] = bound(nbytes, flops, res["dtype"])
         res["weight_gb_per_s"] = wbytes / res["kernel_ms"] / 1e6
         res["tflops_per_s"] = flops / res["kernel_ms"] / 1e9
-        res["blocks"] = (-(-m // 64)) * (-(-n // (128 if dtype ==
-                                                  torch.bfloat16 else 64))) \
-            * (groups or 1)
+        res["blocks"] = pl.grid[0] * pl.grid[1] * pl.grid[2]
         res["blocks_per_sm"] = res["blocks"] / \
             torch.cuda.get_device_properties(0).multi_processor_count
         wd = tq.dequantize_weight(q, s).to(torch.bfloat16)
         xb = x.bfloat16()
-        res["library_ms"] = cuda_time_ms(
-            (lambda: torch.bmm(xb, wd)) if batched
-            else (lambda: torch.matmul(xb, wd)), iters=10)
+        lib = (lambda w: torch.bmm(xb, w)) if batched else \
+            (lambda w: torch.matmul(xb, w))
+        res["library_ms"] = cuda_time_ms(lambda: lib(wd), iters=10)
         res["library"] = "bf16 torch.matmul on the weight dequantized " \
             "in advance" + (" (bmm)" if batched else "")
+        if m == 16:
+            # decode: device time without the host's per-call cost (a CUDA
+            # graph of back-to-back calls), L2-warm (one weight) and
+            # L2-cold (copies past the 50 MB L2 in turn: a served model
+            # reads each layer's weights once a step, with no L2 hits)
+            kfn = (lambda w: tq.qmatmul_batched(x, w, s, out_dtype)) \
+                if batched else (lambda w: tq.qmatmul(x, w, s, out_dtype))
+            res["kernel_graph_ms"] = graph_time_ms(kfn, [q])
+            res["library_graph_ms"] = graph_time_ms(lib, [wd])
+            res["kernel_cold_ms"] = graph_time_ms(kfn, _l2_cold_copies(q))
+            res["library_cold_ms"] = graph_time_ms(lib, _l2_cold_copies(wd))
+            res["cold_weight_gb_per_s"] = wbytes / res["kernel_cold_ms"] / 1e6
+            # what a served decode step pays on the host for each call
+            res["kernel_host_us"] = host_us(fn)
+            res["library_host_us"] = host_us(lambda: lib(wd))
         del wd
         if mode == "int8" and not batched:
             res["int8pack_ms"], res["int8pack"] = _library_int8pack_ms(
@@ -1086,12 +1160,28 @@ def phase_quant(rng):
                 out[(mode, 8, m, k, n)] = check_qmm(
                     f"qmm_batched_{mode}_g8_m{m}_{k}x{n}", rng, mode, m, k,
                     n, bf16, groups=8)
+        # the edges of both bf16 regimes (split-K up to M 64, wgmma above)
+        # at K 4288, whose 67 steps of 64 rows no slice count divides and
+        # whose last wgmma step is ragged in every format; a ragged last
+        # x box of each group (G 8, M 100); the shapes TMA cannot address
+        # (K and N off 16 and off 256: split-K unsplit above M 64)
         for name, m, k, n, dt, groups in (
                 ("f32_m1", 1, 200, 77, f32, None),
                 ("f32_m3", 3, 1000, 1030, f32, None),
                 ("bf16_m3", 3, 1000, 1030, bf16, None),
                 ("f32_batched", 5, 200, 77, f32, 3),
-                ("bf16_batched", 70, 1000, 1030, bf16, 2)):
+                ("bf16_batched", 70, 1000, 1030, bf16, 2),
+                ("bf16_m1_k4288", 1, 4288, 4096, bf16, None),
+                ("bf16_m3_k4288", 3, 4288, 4096, bf16, None),
+                ("bf16_m16_k4288", 16, 4288, 4096, bf16, None),
+                ("bf16_m64_k4288", 64, 4288, 4096, bf16, None),
+                ("bf16_m65_k4288", 65, 4288, 4096, bf16, None),
+                ("bf16_m128_k4288", 128, 4288, 4096, bf16, None),
+                ("bf16_m300_k4288", 300, 4288, 4096, bf16, None),
+                ("bf16_m16_k4288_n1024", 16, 4288, 1024, bf16, None),
+                ("bf16_batched_g8_m1", 1, 4288, 2048, bf16, 8),
+                ("bf16_batched_g8_m64", 64, 4288, 2048, bf16, 8),
+                ("bf16_batched_g8_m100", 100, 4288, 2048, bf16, 8)):
             check_qmm(f"qmm_{mode}_{name}", rng, mode, m, k, n, dt,
                       groups=groups, time_it=False)
     cfg = llama3_config(TRAIN_MODEL[0], **TRAIN_MODEL[1])
@@ -1537,6 +1627,12 @@ def phase_full_width_quant():
 #: slice, 256 arena pages, max_batch_tokens 512, 8 prompts of 128-512
 #: tokens, 16 new tokens)
 QUANT_MIXTRAL_PROMPTS = [128, 512, 256, 384, 200, 448, 300, 160]
+#: the quantized serving runs' K5 launches by kernel and form (split-K at
+#: decode, wgmma at prefill), summed over phase 5's quantized runs
+QUANT_FORM_LAUNCHES = {k: {"fma": 0, "splitk": 0, "wgmma": 0}
+                       for k in ("quantized_matmul",
+                                 "quantized_matmul_packed",
+                                 "quantized_matmul_batched")}
 
 
 def _tree_bytes(tree) -> int:
@@ -1556,6 +1652,7 @@ def phase_serve_quant():
     from deepspeed_tpu_torch import RaggedInferenceEngine, llama3_config
     from deepspeed_tpu_torch.models.mixtral import mixtral_config
     from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.ops import quantized_linear as tq
     total = {k: 0 for k in op_builder.launches}
     runs = [("llama3-8b-" + m, llama3_config("8b"), m,
              {"num_blocks": SERVE_BLOCKS, "max_seq_len": 4096,
@@ -1592,6 +1689,7 @@ def phase_serve_quant():
 
         # the main path: every count set to 0 just before, read just after
         op_builder.reset_launches()
+        tq.reset_regime_launches()
         eng.stats.clear()
         t1 = time.perf_counter()
         outs = eng.generate(prompts, max_new_tokens=new)
@@ -1603,6 +1701,7 @@ def phase_serve_quant():
                            max_concurrency=8) if with_serve else []
         serve_s = time.perf_counter() - t2
         launches = dict(op_builder.launches)
+        forms = {k: dict(v) for k, v in tq.regime_launches.items()}
 
         for p, o in zip(prompts, outs):
             assert len(o) == len(p) + new and (o[:len(p)] == p).all()
@@ -1621,6 +1720,14 @@ def phase_serve_quant():
         # launched nothing)
         assert all(v == 0 for k, v in launches.items() if k not in need), \
             launches
+        # bf16 serving takes split-K at decode, and the dense linears
+        # wgmma at prefill; never the fp32 FMA kernel
+        assert all(forms[k]["splitk"] > 0 and forms[k]["fma"] == 0
+                   for k in need if k in forms), forms
+        assert forms[kernel]["wgmma"] > 0, forms
+        for k, v in forms.items():
+            for r, c in v.items():
+                QUANT_FORM_LAUNCHES[k][r] += c
         st = eng.stats
         emit({"phase": "serve_quant", "model": name, "dtype": "bfloat16",
               "weight_quant": mode, "params": cfg.num_params(),
@@ -1637,6 +1744,7 @@ def phase_serve_quant():
               "decode_ms_per_step": 1e3 * st["decode"]["seconds"]
               / st["decode"]["steps"],
               "stats": st, "launches": launches,
+              "launches_by_regime": forms,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
         for k, v in launches.items():
             total[k] += v
@@ -2243,6 +2351,8 @@ def main() -> int:
     for row in kernels:
         if row["name"] in also:
             row["also_replaces"] = also[row["name"]]
+        if row["name"] in QUANT_FORM_LAUNCHES:
+            row["launches_by_regime"] = QUANT_FORM_LAUNCHES[row["name"]]
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

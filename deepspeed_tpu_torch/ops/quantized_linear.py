@@ -24,7 +24,10 @@ they launch the hand-written Hopper kernels of ``csrc/quantized_linear.cu``
 (``quantized_matmul``, replacing ``_qmm_kernel`` :227;
 ``quantized_matmul_packed``, replacing ``_make_packed_kernel`` :295, dense
 and batched; ``quantized_matmul_batched``, replacing
-``_qmm_batched_kernel`` :498); on CPU tensors they run the plain versions
+``_qmm_batched_kernel`` :498), each in the form :func:`plan` picks from the
+shape alone: fp32 FMA for fp32 x; for bf16 x a split-K kernel over a
+cp.async ring at decode (M ≤ 64) and a wgmma kernel fed by TMA at prefill;
+on CPU tensors they run the plain versions
 :func:`qmatmul_ref` and :func:`qmatmul_batched_ref`, which repeat the
 kernels' arithmetic: fp32 sums of x times the decoded weight, times the
 scale once at the end, cast to the output dtype. The kernels take every
@@ -38,13 +41,14 @@ single-shard branch is exactly :func:`qmatmul` / :func:`qmatmul_batched`.
 """
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from deepspeed_tpu_torch.ops import op_builder
 
-_QMM_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+_QMM_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
              ctypes.c_int)
 op_builder.register("quantized_linear", {
     "dstt_quantized_matmul": _QMM_ARGS,
@@ -282,6 +286,137 @@ _ENTRY = {"quantized_matmul": "dstt_quantized_matmul",
           "quantized_matmul_packed": "dstt_quantized_matmul_packed",
           "quantized_matmul_batched": "dstt_quantized_matmul_batched"}
 
+#: the kernel forms, by the C code of each (``csrc/quantized_linear.cu``)
+REGIMES = {"fma": 0, "splitk": 1, "wgmma": 2}
+#: launches of each kernel by form since the last reset: the wrappers add
+#: one here and one to ``op_builder.launches`` at each launch
+regime_launches: Dict[str, Dict[str, int]] = {
+    k: {r: 0 for r in REGIMES} for k in _ENTRY}
+
+
+def reset_regime_launches() -> None:
+    for counts in regime_launches.values():
+        for r in counts:
+            counts[r] = 0
+
+
+#: the card's SMs (H100 SXM): a split-K grid aims at the blocks that fit
+#: on them at once, 4 a SM at M ≤ 16 (one m16 tile a block), else 2
+NUM_SMS = 132
+SPLITK_BLOCKS_PER_SM = {16: 4, 64: 2}
+#: the fewest 64-row steps a split-K slice walks
+SPLITK_MIN_STEPS = 4
+#: split-K arrival counters and workspace floats a (device, stream) keeps:
+#: a split grid has at most half its target blocks' column tiles, and its
+#: partials G·S·M·N at most target blocks × 128 columns × M floats
+SPLITK_COUNTERS = 2 * NUM_SMS
+SPLITK_WORKSPACE = max(b * NUM_SMS * 128 * m
+                       for m, b in SPLITK_BLOCKS_PER_SM.items())
+#: the largest M of the decode regime; above it bf16 takes wgmma
+DECODE_MAX_M = 64
+#: logical K rows a split-K (and FMA) step covers; packed rows a wgmma step
+#: covers (one k-block of 64 a plane)
+STEP_ROWS = 64
+_GRID_YZ_MAX = 65535
+_GRID_X_MAX = 2 ** 31 - 1
+
+
+class Plan(NamedTuple):
+    """How one quantized matmul is launched (:func:`plan`)."""
+    regime: str              # "fma" (fp32 x), "splitk" or "wgmma" (bf16 x)
+    bm: int                  # rows of out a block
+    bn: int                  # columns of out a block
+    slices: int              # split-K slices of K (1: unsplit)
+    steps: int               # steps a slice walks (the last may walk fewer)
+    packed_rows_per_step: int
+    k_steps: int             # steps over all of K
+    grid: Tuple[int, int, int]
+    workspace_bytes: int     # fp32 partials [G, slices, M, N] when split
+    counters: int            # int32 arrival counters [G, N tiles] when split
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(mode: str, x_dtype: torch.dtype, g: int, m: int, k: int,
+         n: int) -> Plan:
+    """The launch plan of x [G, M, K] @ w (``mode``) [G, K, N], from the
+    shape alone, as ``csrc/quantized_linear.cu`` takes it:
+
+    - fp32 x: the FMA kernel, 64 x 64 tiles over (M, N), steps of 64
+      logical rows;
+    - bf16 x with M > 64 whose packed rows K/P are a multiple of 8 and N of
+      16 (what TMA can address): the wgmma kernel, 128 x 128 tiles (256 x
+      128 when that still gives a block to every SM, fp6 excepted: its
+      ring would not fit) with m-tiles fastest, steps of 64 packed rows;
+    - any other bf16 x (decode, M ≤ 64, and the unaligned shapes): the
+      split-K kernel, one block over all M (16 rows at M ≤ 16, else 64-row
+      tiles), 128 columns (64 when N ≤ 2048), K cut into slices of whole
+      64-row steps so that the grid holds about the blocks that fit on the
+      card (``SPLITK_BLOCKS_PER_SM``), each slice at least
+      ``SPLITK_MIN_STEPS`` steps; split only at M ≤ 64 (and so over at most
+      ``SPLITK_COUNTERS`` column tiles).
+
+    Raises ValueError when the grid exceeds CUDA's limits."""
+    p = _PLANES[mode]
+    if k % p:
+        raise ValueError(f"plan({mode}): K={k} is not a multiple of {p}")
+    kp = k // p
+    if x_dtype == torch.float32:
+        regime, bm, bn, rows = "fma", 64, 64, STEP_ROWS // p
+    elif m > DECODE_MAX_M and kp > 0 and kp % 8 == 0 and n % 16 == 0:
+        regime, bn, rows = "wgmma", 128, STEP_ROWS
+        # 256 rows: each decoded weight tile feeds twice the rows
+        bm = 256 if mode != "fp6" and m >= 256 \
+            and _cdiv(m, 256) * _cdiv(n, 128) * g >= NUM_SMS else 128
+    else:
+        regime, bm = "splitk", 16 if m <= 16 else 64
+        bn, rows = (64 if n <= 2048 else 128), STEP_ROWS // p
+    nk = _cdiv(kp, rows)
+    slices = 1
+    if regime == "splitk" and m <= DECODE_MAX_M and nk:
+        target = SPLITK_BLOCKS_PER_SM[bm] * NUM_SMS
+        slices = max(1, min(target // max(_cdiv(n, bn) * g, 1),
+                            nk // SPLITK_MIN_STEPS))
+    steps = _cdiv(nk, slices)
+    if steps:
+        slices = _cdiv(nk, steps)          # no empty slice
+    grid = (_cdiv(n, bn), _cdiv(m, bm) * slices, g) if regime == "splitk" \
+        else (_cdiv(m, bm), _cdiv(n, bn), g)
+    if grid[0] > _GRID_X_MAX or grid[1] > _GRID_YZ_MAX \
+            or grid[2] > _GRID_YZ_MAX:
+        raise ValueError(f"plan({mode}): grid {grid} exceeds CUDA's limits "
+                         f"for G={g}, M={m}, K={k}, N={n}")
+    split = slices > 1
+    return Plan(regime, bm, bn, slices, steps, rows, nk, grid,
+                4 * g * slices * m * n if split else 0,
+                g * grid[0] if split else 0)
+
+
+#: per (device, stream): the split-K kernel's int32 arrival counters (all
+#: 0 between launches: the last block of each column tile resets its own)
+#: and fp32 workspace, made once at the bound of every split plan and never
+#: replaced, so launches on one stream take turns with them and a captured
+#: CUDA graph keeps them
+_SPLIT_BUFFERS: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _split_buffers(device: torch.device, stream: int):
+    key = (device.index, stream)
+    if key not in _SPLIT_BUFFERS:
+        _SPLIT_BUFFERS[key] = (
+            torch.zeros(SPLITK_COUNTERS, dtype=torch.int32, device=device),
+            torch.empty(SPLITK_WORKSPACE, dtype=torch.float32, device=device))
+    return _SPLIT_BUFFERS[key]
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it whose data starts on 16 bytes (TMA's and the
+    16-byte loads' alignment)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
 
 def _launch(kernel: str, x: torch.Tensor, w_q: torch.Tensor,
             scale: torch.Tensor, out_dtype: Optional[torch.dtype],
@@ -310,14 +445,23 @@ def _launch(kernel: str, x: torch.Tensor, w_q: torch.Tensor,
         raise ValueError(f"{kernel}: x, w_q and scale must share a device")
     if not all(t.is_contiguous() for t in (x, w_q, scale)):
         raise ValueError(f"{kernel} needs contiguous x, w_q and scale")
-    out = torch.empty(x.shape[:-1] + (n,), dtype=out_dtype, device=x.device)
+    pl = plan(mode, x.dtype, g, m, k, n)
     lib = op_builder.load("quantized_linear")
+    x, w_q = _aligned16(x), _aligned16(w_q)
+    out = torch.empty(x.shape[:-1] + (n,), dtype=out_dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    counters = ws = None
+    if pl.slices > 1:
+        counters, ws = (t.data_ptr() for t in _split_buffers(x.device,
+                                                              stream))
     err = getattr(lib, _ENTRY[kernel])(
-        x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(), g,
-        m, k, n, _FMT[mode], _X_DTYPES[x.dtype], _OUT_DTYPES[out_dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(), ws,
+        counters, g, m, k, n,
+        _FMT[mode], _X_DTYPES[x.dtype], _OUT_DTYPES[out_dtype],
+        REGIMES[pl.regime], pl.bm, pl.bn, pl.slices, pl.steps, stream)
     op_builder.check(lib, err, kernel)
     op_builder.launches[kernel] += 1
+    regime_launches[kernel][pl.regime] += 1
     return out
 
 

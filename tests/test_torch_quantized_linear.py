@@ -13,6 +13,8 @@ against deepspeed_tpu.ops.quantized_linear on the CPU.
   of 512-1024 terms in another order); bf16 outputs one bf16 step (2^-8
   relative) of the output's scale, since both sides round the same fp32
   sum once and a sum-order difference can flip that rounding.
+- ``plan``: the kernels' launch plan from the shape (regime cut at M 64,
+  every K row in one slice, grids within CUDA's limits, the workspace).
 - ``quantize_param_tree`` and ``cast_quantized_tree``: the same leaf
   names, dtypes and bytes for tied, untied, MoE and shared-expert trees;
   a second call raises.
@@ -210,6 +212,102 @@ def test_kernel_wrappers_check_inputs_and_need_the_card(monkeypatch,
     monkeypatch.setattr("os.access", lambda *a, **k: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         T.quantized_matmul_kernel(torch.randn(2, 64), q, s)
+
+
+# ---------------------------------------------------------------------------
+# Launch plan (pure Python: which kernel form, tile, K slices, workspace)
+# ---------------------------------------------------------------------------
+
+#: (G, M, K, N): Llama-3 8B's linears at decode and prefill, Mixtral's
+#: experts (G 8) at decode, capacity prefill and a ragged M 100, and the
+#: awkward shapes of the card's checks: M 1, 3, 17, 64, 65; K and N off 16
+#: and off 256; K whose steps the slice count does not divide (4288)
+PLAN_SHAPES = [(1, m, k, n) for m in (16, 2048)
+               for k, n in ((4096, 4096), (4096, 1024), (4096, 14336),
+                            (14336, 4096), (4096, 128256))] + [
+    (8, 16, 4096, 14336), (8, 512, 14336, 4096), (8, 100, 4288, 2048),
+    (1, 1, 200, 77), (1, 3, 1000, 1030), (1, 17, 4288, 4096),
+    (1, 64, 4288, 4096), (1, 65, 4288, 4096), (3, 5, 200, 77),
+    (2, 70, 1000, 1030), (1, 128, 1000, 1024), (1, 64, 64, 16)]
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("g,m,k,n", PLAN_SHAPES)
+def test_plan_covers_every_k_row_once(mode, g, m, k, n):
+    """Every logical K row falls in exactly one slice, a step never leaves
+    its plane's K/P packed rows, the grid covers out within CUDA's limits,
+    and the workspace and counters are what the split needs."""
+    p = T._PLANES[mode]
+    kp = k // p
+    for dt in (torch.bfloat16, torch.float32):
+        pl = T.plan(mode, dt, g, m, k, n)
+        assert pl.regime == ("fma" if dt == torch.float32 else
+                             "splitk" if m <= 64 or kp % 8 or n % 16
+                             else "wgmma")
+        rows = pl.packed_rows_per_step
+        assert rows * (1 if pl.regime == "wgmma" else p) == 64
+        assert pl.k_steps == -(-kp // rows)
+        seen = np.zeros(k, np.int64)
+        for s in range(pl.slices):
+            t0, t1 = s * pl.steps, min(pl.k_steps, (s + 1) * pl.steps)
+            assert t1 > t0, "empty slice"
+            for t in range(t0, t1):
+                r = np.arange(t * rows, min((t + 1) * rows, kp))
+                assert r.size and r.max() < kp
+                for q in range(p):
+                    seen[q * kp + r] += 1
+        assert (seen == 1).all()
+        gx, gy, gz = pl.grid
+        assert 0 < gy <= 65535 and gz == g <= 65535 and 0 < gx < 2 ** 31
+        if pl.regime == "splitk":     # column tiles fastest, then M x S
+            assert gx * pl.bn >= n and gy == -(-m // pl.bm) * pl.slices
+            assert pl.bm == (16 if m <= 16 else 64)
+        else:                         # m-tiles fastest, unsplit
+            assert pl.slices == 1 and gx * pl.bm >= m and gy * pl.bn >= n
+            assert (pl.bm, pl.bn) in (((128, 128), (256, 128))
+                                      if pl.regime == "wgmma" else ((64, 64),))
+            assert pl.bm != 256 or mode != "fp6"
+        split = pl.slices > 1
+        assert not split or (pl.regime == "splitk" and m <= 64)
+        assert pl.workspace_bytes == (4 * g * pl.slices * m * n if split
+                                      else 0)
+        assert pl.counters == (g * gx if split else 0)
+        assert pl.counters <= T.SPLITK_COUNTERS          # the fixed buffers
+        assert pl.workspace_bytes <= 4 * T.SPLITK_WORKSPACE
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("m", [1, 3, 16, 17, 63, 64, 65, 128, 2048])
+def test_plan_regime_cut_at_m64(mode, m):
+    """bf16: split-K up to M 64, wgmma above on TMA-aligned shapes (split-K
+    unsplit on the others); fp32: the FMA kernel at every M."""
+    pl = T.plan(mode, torch.bfloat16, 1, m, 4096, 4096)
+    assert pl.regime == ("splitk" if m <= T.DECODE_MAX_M else "wgmma")
+    odd = T.plan(mode, torch.bfloat16, 1, m, 1000, 1030)
+    assert odd.regime == "splitk" and (odd.slices == 1 or m <= 64)
+    assert T.plan(mode, torch.float32, 1, m, 4096, 4096).regime == "fma"
+
+
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 1024), (4096, 14336),
+                                 (14336, 4096)])
+def test_plan_decode_grid_fills_the_card(k, n):
+    """At decode (M 16) the split-K grid puts at least one block on every
+    SM and at most the target, with slices of at least the minimum steps."""
+    for mode in MODES:
+        pl = T.plan(mode, torch.bfloat16, 1, 16, k, n)
+        blocks = pl.grid[0] * pl.grid[1] * pl.grid[2]
+        assert T.NUM_SMS <= blocks <= T.SPLITK_BLOCKS_PER_SM[16] * T.NUM_SMS
+        assert pl.slices == 1 or pl.steps >= T.SPLITK_MIN_STEPS
+        assert pl.bn == (64 if n <= 2048 else 128)
+
+
+def test_plan_refuses_grids_past_cudas_limits():
+    with pytest.raises(ValueError, match="CUDA's limits"):
+        T.plan("int8", torch.bfloat16, 70000, 16, 64, 64)
+    with pytest.raises(ValueError, match="CUDA's limits"):
+        T.plan("int8", torch.float32, 1, 16, 64, 64 * 70000)
+    with pytest.raises(ValueError, match="multiple"):
+        T.plan("fp6", torch.bfloat16, 1, 16, 6, 64)
 
 
 # ---------------------------------------------------------------------------

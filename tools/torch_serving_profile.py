@@ -70,10 +70,12 @@ _K5A, _K5C = "quantized matmul (K5a)", "quantized matmul batched (K5c)"
 
 def _classify(name: str) -> str:
     low = name.lower()
-    m = re.search(r"qmm_kernel<[^,]+, *(\d)>", name)
+    m = re.search(r"qmm_(?:fma|splitk|wgmma)_kernel<(\d)", name)
     if m:
-        # the template's format: 0 int8, 1 fp8, 2 int4, 3 fp6 (an int8/fp8
-        # launch under the qmatmul_batched label is K5c, see _window)
+        # the template's format, its first parameter: 0 int8, 1 fp8, 2
+        # int4, 3 fp6 (an int8/fp8 launch under the qmatmul_batched label
+        # is K5c, see _window); the form (FMA, split-K at decode, wgmma at
+        # prefill) is in the kernel's name in the per-kernel table
         return "quantized matmul packed (K5b)" if m.group(1) in "23" \
             else _K5A
     if "paged_attn_kernel" in name:
