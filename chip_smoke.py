@@ -16,15 +16,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``scaled_dot_product_attention`` (forward, and backward alone) as a
    yardstick (tolerances at ``TOL_F32``); the grouped GEMM kernels of the
    dropless MoE FFN (gate/up, down) in bf16 at the Mixtral 8x7B and
-   Qwen1.5-MoE prefill shapes (2048 tokens, a random router) and in fp32
-   at small shapes (w given and not, an empty expert, all rows on one
-   expert, d and f off the tile and off the 16-byte vector), each kernel
-   alone and the whole FFN, with ``torch._grouped_mm`` (or a dense matmul
-   of the same rows) as the yardstick; and the backward grouped kernels
-   (dgdu with gate/up recomputed and saved, dxs, wgrad) in bf16 at the
-   1B/8e MoE bench's and Mixtral 8x7B's training shapes (16,384 and 2,048
-   tokens, top-2 of 8) and in fp32 at awkward shapes, each kernel fed the
-   plain version's inputs, then the whole backward through autograd; the
+   Qwen1.5-MoE prefill shapes (2048 tokens, a random router) and the
+   1B/8e training forward (16,384 tokens), in bf16 at edge shapes on
+   grouped_down's wgmma form (an empty expert, all rows on one expert, 60
+   experts, f off 64 and d off 256, w given and not), on its mma.sync form
+   (d and f off TMA's 8) and in fp32 at small shapes (w given and not, an
+   empty expert, all rows on one expert, d and f off the tile and off the
+   16-byte vector), each kernel alone and the whole FFN, with
+   ``torch._grouped_mm`` (or a dense matmul of the same rows) as the
+   yardstick; and the backward grouped kernels (dgdu with gate/up
+   recomputed and saved, dxs, wgrad) in bf16 at the 1B/8e MoE bench's and
+   Mixtral 8x7B's training shapes (16,384 and 2,048 tokens, top-2 of 8),
+   at the same bf16 edges (grouped_dxs's wgmma form) and in fp32 at
+   awkward shapes, each kernel fed the plain version's inputs, then the
+   whole backward through autograd; each grouped_down and grouped_dxs
+   line prints the launch plan and asserts the form it launched; the
    weight-only quantized matmuls (K5a int8/fp8, K5b int4/fp6, K5c the
    batched int8/fp8 experts) in bf16 at Llama-3 8B's linears and head
    (decode M 16 and prefill M 2048; the head with fp32 output) in all four
@@ -79,7 +85,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    dropless) at full width and depth in bf16, 2 warm-up and 10 timed
    steps of 8 x 2048 tokens; and Mixtral 8x7B at full width and 2 of its
    32 layers (1 x 2048 tokens), each with ms per step, tokens/s, peak
-   memory, loss and aux loss per step, and the launches read around it.
+   memory, loss and aux loss per step, and the launches read around it
+   (grouped_down's and grouped_dxs's by form: the bf16 main paths launch
+   only their wgmma form).
 
 Every phase prints one JSON line; any failure raises, so the script exits
 non-zero. Without CUDA, or outside a checkout of the repository, it exits
@@ -108,6 +116,10 @@ MOE_RUNS = (
     ("qwen1.5-moe-a2.7b", "qwen2_moe", "a2.7b", {}, 128,
      [256, 512, 300, 480, 384, 256, 400, 500], 16, 0))
 GROUPED_KERNELS = ("grouped_gate_up", "grouped_down")
+#: grouped_down's and grouped_dxs's launches by form over the main paths
+#: (MoE serving, MoE training), each run counted from 0
+GROUPED_FORM_LAUNCHES = {k: {"fma": 0, "mma": 0, "wgmma": 0}
+                         for k in ("grouped_down", "grouped_dxs")}
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense bf16 tensor cores
@@ -546,12 +558,26 @@ def _grouped_mm_ms(a, b, ends):
             "torch.matmul dense (same rows and FLOPs)")
 
 
+def _plan_line(pl) -> dict:
+    """The launch plan of a grouped_down / grouped_dxs call, for a line."""
+    return {"form": pl.form, "grid": list(pl.grid),
+            "row_blocks": pl.row_blocks, "col_tiles": pl.col_tiles,
+            "bm": pl.bm, "bn": pl.bn, "bk": pl.bk,
+            "k_steps": list(pl.k_steps), "stages": pl.stages,
+            "smem_bytes": pl.smem_bytes}
+
+
+def _tflops(flops: float, ms: float) -> float:
+    return flops / ms / 1e9
+
+
 def check_grouped(name, rng, s, k, e, d, f, dtype, fused, kind="router",
-                  time_it=False):
+                  time_it=False, form="wgmma"):
     """grouped_gate_up and grouped_down on the card against their plain
     versions: each kernel alone (down fed the plain gate/up), then the
     whole FFN through grouped_glu_ffn, on the rows below live_tiles * bm
-    (the rest is unspecified)."""
+    (the rest is unspecified). grouped_down's plan must pick ``form``, and
+    both of its launches here must count under it."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops import grouped_matmul as tg
@@ -560,12 +586,16 @@ def check_grouped(name, rng, s, k, e, d, f, dtype, fused, kind="router",
         rng, s, k, e, d, f, dtype, kind)
     w = w if fused else None
     end = int(live[0]) * GMM_BM
+    pl = tg.plan("grouped_down", dtype, xs.shape[0], d, f, e)
     res = {"phase": "kernels", "check": name, "kernel": "grouped_glu_ffn",
            "dtype": str(dtype).replace("torch.", ""),
            "shape": {"S": s, "k": k, "E": e, "d": d, "f": f, "bm": GMM_BM,
                      "R_pad": xs.shape[0], "live_rows": end,
-                     "experts_used": used, "w": fused, "routing": kind}}
+                     "experts_used": used, "w": fused, "routing": kind},
+           "down_plan": _plan_line(pl)}
+    assert pl.form == form, (name, pl)
     before = dict(tg.op_builder.launches)
+    before_form = dict(tg.form_launches["grouped_down"])
     gate, up = tg.gate_up_kernel(xs, wg, wi, got, live, GMM_BM)
     rg, ru = tg.gate_up_ref(xs, wg, wi, sizes, live, GMM_BM)
     y = tg.down_kernel(rg, ru, wo, got, live, GMM_BM, w)
@@ -575,6 +605,8 @@ def check_grouped(name, rng, s, k, e, d, f, dtype, fused, kind="router",
     torch.cuda.synchronize()
     for kname in GROUPED_KERNELS:
         assert tg.op_builder.launches[kname] == before[kname] + 2, kname
+    assert tg.form_launches["grouped_down"] == dict(
+        before_form, **{form: before_form[form] + 2}), tg.form_launches
     ref = tg.grouped_glu_ffn_ref(xs, wg, wi, wo, got, sizes, live,
                                  bm=GMM_BM, w=w)
     _hold_pair(res, "gate", gate[:end], rg[:end])
@@ -624,8 +656,13 @@ def check_grouped(name, rng, s, k, e, d, f, dtype, fused, kind="router",
         del wgi
         h = (F.silu(gate[:end].float()) * up[:end].float()).to(dtype)
         res["down_library_ms"], _ = _grouped_mm_ms(h, wo, ends)
-        res["tflops_per_s"] = 6.0 * d * f * rows / (
-            res["gate_up_ms"] + res["down_ms"]) / 1e9
+        res["tflops_per_s"] = _tflops(6.0 * d * f * rows,
+                                      res["gate_up_ms"] + res["down_ms"])
+        res["gate_up_tflops_per_s"] = _tflops(4.0 * d * f * rows,
+                                              res["gate_up_ms"])
+        res["down_tflops_per_s"] = _tflops(2.0 * d * f * rows, res["down_ms"])
+        res["down_library_tflops_per_s"] = _tflops(2.0 * d * f * rows,
+                                                   res["down_library_ms"])
     emit(res)
     del xs, wg, wi, wo, gate, up, y, out, ref, rg, ru, ry
     torch.cuda.empty_cache()
@@ -633,23 +670,44 @@ def check_grouped(name, rng, s, k, e, d, f, dtype, fused, kind="router",
 
 
 def phase_grouped(rng):
-    """Phase 3's grouped GEMM checks; returns the timed path-shape lines."""
+    """Phase 3's grouped GEMM checks: bf16 at the path shapes (Mixtral
+    8x7B and Qwen1.5-MoE prefill, the 1B/8e training forward), bf16 edges
+    on the wgmma form of grouped_down (an empty expert, all rows on one
+    expert, 60 experts, f off 64 and d off 256, with w and without), then
+    the mma.sync form (d, f off TMA's 8) and fp32 (the FMA form) at awkward
+    shapes. Returns the timed path-shape lines."""
     import torch
     bf16, f32 = torch.bfloat16, torch.float32
     out = {"mixtral": check_grouped("gmm_mixtral_path", rng, 2048, 2, 8,
                                     4096, 14336, bf16, True, time_it=True),
            "qwen": check_grouped("gmm_qwen_path", rng, 2048, 4, 60, 2048,
-                                 1408, bf16, True, time_it=True)}
-    for name, s, k, e, d, f, dtype, fused, kind in (
+                                 1408, bf16, True, time_it=True),
+           "moe_1b_8e": check_grouped("gmm_1b8e_path", rng, 16384, 2, 8,
+                                      1024, 2816, bf16, True, time_it=True)}
+    for name, s, k, e, d, f, dtype, fused, kind, form in (
+            ("gmm_bf16_empty_expert", 400, 2, 6, 512, 384, bf16, True,
+             "empty", "wgmma"),
+            ("gmm_bf16_one_expert", 300, 2, 5, 256, 512, bf16, False, "one",
+             "wgmma"),
+            ("gmm_bf16_60_experts", 512, 4, 60, 256, 192, bf16, True,
+             "router", "wgmma"),
+            ("gmm_bf16_f1416_d1032", 600, 2, 8, 1032, 1416, bf16, True,
+             "router", "wgmma"),
+            ("gmm_bf16_f1416_d1032_unscaled", 600, 2, 8, 1032, 1416, bf16,
+             False, "router", "wgmma"),
             ("gmm_bf16_odd_unscaled", 100, 2, 4, 100, 150, bf16, False,
-             "router"),
-            ("gmm_f32_unscaled", 300, 2, 4, 256, 200, f32, False, "router"),
-            ("gmm_f32_fused", 300, 2, 4, 256, 200, f32, True, "router"),
+             "router", "mma"),
+            ("gmm_f32_unscaled", 300, 2, 4, 256, 200, f32, False, "router",
+             "fma"),
+            ("gmm_f32_fused", 300, 2, 4, 256, 200, f32, True, "router",
+             "fma"),
             ("gmm_f32_empty_expert", 200, 2, 6, 128, 384, f32, True,
-             "empty"),
-            ("gmm_f32_one_expert", 150, 2, 5, 128, 130, f32, False, "one"),
-            ("gmm_f32_odd", 90, 3, 4, 130, 70, f32, True, "router")):
-        check_grouped(name, rng, s, k, e, d, f, dtype, fused, kind)
+             "empty", "fma"),
+            ("gmm_f32_one_expert", 150, 2, 5, 128, 130, f32, False, "one",
+             "fma"),
+            ("gmm_f32_odd", 90, 3, 4, 130, 70, f32, True, "router", "fma")):
+        check_grouped(name, rng, s, k, e, d, f, dtype, fused, kind,
+                      form=form)
     return out
 
 
@@ -675,7 +733,7 @@ def _wgrad_mm_ms(a, b, ends):
 
 
 def check_grouped_bwd(name, rng, s, k, e, d, f, dtype, fused,
-                      kind="router", time_it=False):
+                      kind="router", time_it=False, form="wgmma"):
     """The backward kernels on the card against their plain versions, on
     one dropless FFN call (``_grouped_case``) and a random upstream
     gradient dz (zero on padding rows, as the combine's backward gives
@@ -684,7 +742,8 @@ def check_grouped_bwd(name, rng, s, k, e, d, f, dtype, fused,
     combine weights' gradient dw2) and without; grouped_dxs and the three
     grouped_wgrad products fed the plain dg/du/h; then the whole backward
     through autograd of grouped_glu_ffn. Rows at or past live_tiles * bm
-    are unspecified in dg/du/h/dxs and skipped."""
+    are unspecified in dg/du/h/dxs and skipped. grouped_dxs's plan must
+    pick ``form``, and both of its launches here must count under it."""
     import torch
     from deepspeed_tpu_torch.ops import grouped_matmul as tg
     from deepspeed_tpu_torch.parallel.moe import GMM_BM as bm
@@ -700,19 +759,23 @@ def check_grouped_bwd(name, rng, s, k, e, d, f, dtype, fused,
            "shape": {"S": s, "k": k, "E": e, "d": d, "f": f, "bm": bm,
                      "R_pad": xs.shape[0], "live_rows": end,
                      "experts_used": used, "w": fused, "routing": kind}}
+    pl = tg.plan("grouped_dxs", dtype, xs.shape[0], d, f, e)
+    res["dxs_plan"] = _plan_line(pl)
+    assert pl.form == form, (name, pl)
     before = dict(tg.op_builder.launches)
+    before_form = dict(tg.form_launches["grouped_dxs"])
     rc = dict(xs=xs, wg=wg, wi=wi)
     rg, ru = tg.gate_up_ref(xs, wg, wi, sizes, live, bm)
     saved = dict(gate=rg, up=ru)
     ref = tg.dgdu_ref(dz, wo, sizes, live, bm, w=w, **rc)
-    for form, kw in (("rc", rc), ("saved", saved)):
+    for how, kw in (("rc", rc), ("saved", saved)):
         out = tg.dgdu_kernel(dz, wo, got, live, bm, w=w, **kw)
-        want = ref if form == "rc" else tg.dgdu_ref(dz, wo, sizes, live, bm,
-                                                   w=w, **kw)
+        want = ref if how == "rc" else tg.dgdu_ref(dz, wo, sizes, live, bm,
+                                                  w=w, **kw)
         for key, a, b in zip(("dg", "du", "h"), out[:3], want[:3]):
-            _hold_pair(res, f"dgdu_{form}_{key}", a[:end], b[:end])
+            _hold_pair(res, f"dgdu_{how}_{key}", a[:end], b[:end])
         if fused:
-            _hold_pair(res, f"dgdu_{form}_dw2", out[3], want[3])
+            _hold_pair(res, f"dgdu_{how}_dw2", out[3], want[3])
     rdg, rdu, rh, _ = ref
     _hold_pair(res, "dxs", tg.dxs_kernel(rdg, rdu, wg, wi, got, live,
                                          bm)[:end],
@@ -734,6 +797,8 @@ def check_grouped_bwd(name, rng, s, k, e, d, f, dtype, fused,
     assert after["grouped_dxs"] - mid["grouped_dxs"] == 1, after
     assert after["grouped_wgrad"] - mid["grouped_wgrad"] == 3, after
     assert after["grouped_dgdu"] - before["grouped_dgdu"] == 3, after
+    assert tg.form_launches["grouped_dxs"] == dict(
+        before_form, **{form: before_form[form] + 2}), tg.form_launches
     dxs_ref = tg.dxs_ref(rdg, rdu, wg, wi, sizes, live, bm)
     _hold_pair(res, "autograd_dxs", grads[0][:end], dxs_ref[:end])
     for key, gr, (a, b, sc) in zip(
@@ -798,6 +863,9 @@ def check_grouped_bwd(name, rng, s, k, e, d, f, dtype, fused,
         prod_dh, _ = _grouped_mm_ms(dz[:end], wo.transpose(-1, -2), ends)
         t["dgdu_library_ms"] = None
         t["dgdu_products_library_ms"] = prod_gu + prod_dh
+        t["dxs_tflops_per_s"] = _tflops(4.0 * d * f * rows, t["dxs_ms"])
+        t["dxs_library_tflops_per_s"] = _tflops(4.0 * d * f * rows,
+                                                t["dxs_library_ms"])
         del wgi_t, dzw
         res.update(t)
     emit(res)
@@ -809,8 +877,10 @@ def check_grouped_bwd(name, rng, s, k, e, d, f, dtype, fused,
 def phase_grouped_bwd(rng):
     """Phase 3's backward checks: bf16 at the two training shapes (the
     repo's 1B/8e MoE bench, 16,384 tokens; Mixtral 8x7B, 2,048 tokens;
-    top-2 of 8), then fp32 at awkward shapes and a bf16 one off the
-    vector width. Returns the timed path-shape lines."""
+    top-2 of 8), bf16 edges on the wgmma form of grouped_dxs (an empty
+    expert, all rows on one expert, 60 experts, f off 64 and d off 256),
+    then a bf16 shape off TMA's 8 (the mma.sync form) and fp32 (the FMA
+    form) at awkward shapes. Returns the timed path-shape lines."""
     import torch
     bf16, f32 = torch.bfloat16, torch.float32
     out = {"moe_1b_8e": check_grouped_bwd(
@@ -819,20 +889,31 @@ def phase_grouped_bwd(rng):
            "mixtral": check_grouped_bwd(
                "gmm_bwd_mixtral_path", rng, 2048, 2, 8, 4096, 14336, bf16,
                True, time_it=True)}
-    for name, s, k, e, d, f, dtype, fused, kind in (
+    for name, s, k, e, d, f, dtype, fused, kind, form in (
+            ("gmm_bwd_bf16_empty_expert", 400, 2, 6, 512, 384, bf16, True,
+             "empty", "wgmma"),
+            ("gmm_bwd_bf16_one_expert", 300, 2, 5, 256, 512, bf16, False,
+             "one", "wgmma"),
+            ("gmm_bwd_bf16_60_experts", 512, 4, 60, 256, 192, bf16, True,
+             "router", "wgmma"),
+            ("gmm_bwd_bf16_f1416_d1032", 600, 2, 8, 1032, 1416, bf16, True,
+             "router", "wgmma"),
             ("gmm_bwd_bf16_odd_unscaled", 100, 2, 4, 100, 150, bf16, False,
-             "router"),
-            ("gmm_bwd_f32_fused", 300, 2, 4, 256, 200, f32, True, "router"),
+             "router", "mma"),
+            ("gmm_bwd_f32_fused", 300, 2, 4, 256, 200, f32, True, "router",
+             "fma"),
             ("gmm_bwd_f32_unscaled", 300, 2, 4, 256, 200, f32, False,
-             "router"),
+             "router", "fma"),
             ("gmm_bwd_f32_empty_expert", 200, 2, 6, 128, 384, f32, True,
-             "empty"),
+             "empty", "fma"),
             ("gmm_bwd_f32_one_expert", 150, 2, 5, 128, 130, f32, False,
-             "one"),
+             "one", "fma"),
             ("gmm_bwd_f32_one_expert_fused", 150, 2, 5, 128, 130, f32, True,
-             "one"),
-            ("gmm_bwd_f32_odd", 90, 3, 4, 130, 70, f32, True, "router")):
-        check_grouped_bwd(name, rng, s, k, e, d, f, dtype, fused, kind)
+             "one", "fma"),
+            ("gmm_bwd_f32_odd", 90, 3, 4, 130, 70, f32, True, "router",
+             "fma")):
+        check_grouped_bwd(name, rng, s, k, e, d, f, dtype, fused, kind,
+                          form=form)
     return out
 
 
@@ -1436,6 +1517,20 @@ def phase_serve():
     return launches
 
 
+def _grouped_forms(launches) -> dict:
+    """grouped_down's and grouped_dxs's launches by form since the last
+    reset, added to GROUPED_FORM_LAUNCHES. A bf16 main path (every shape
+    of the repo's MoE models is TMA-aligned) launches the wgmma form
+    alone."""
+    from deepspeed_tpu_torch.ops import grouped_matmul as tg
+    forms = {k: dict(v) for k, v in tg.form_launches.items()}
+    for k, v in forms.items():
+        assert v["wgmma"] == launches[k] and v["fma"] == v["mma"] == 0, forms
+        for f, c in v.items():
+            GROUPED_FORM_LAUNCHES[k][f] += c
+    return forms
+
+
 def _rate(kinds, src):
     tok = sum(src[k]["tokens"] for k in kinds if k in src)
     sec = sum(src[k]["seconds"] for k in kinds if k in src)
@@ -1453,6 +1548,7 @@ def phase_serve_moe():
     from deepspeed_tpu_torch import RaggedInferenceEngine
     from deepspeed_tpu_torch.models.mixtral import mixtral_config
     from deepspeed_tpu_torch.models.qwen2_moe import qwen2_moe_config
+    from deepspeed_tpu_torch.ops import grouped_matmul as tg
     from deepspeed_tpu_torch.ops import op_builder
     presets = {"mixtral": mixtral_config, "qwen2_moe": qwen2_moe_config}
     total = {k: 0 for k in op_builder.launches}
@@ -1481,6 +1577,7 @@ def phase_serve_moe():
 
         # the main path: every count set to 0 just before, read just after
         op_builder.reset_launches()
+        tg.reset_form_launches()
         eng.stats.clear()
         t1 = time.perf_counter()
         outs = eng.generate(prompts, max_new_tokens=new)
@@ -1492,6 +1589,7 @@ def phase_serve_moe():
                            max_concurrency=8) if n_req else []
         serve_s = time.perf_counter() - t2
         launches = dict(op_builder.launches)
+        forms = _grouped_forms(launches)
 
         for p, o in zip(prompts, outs):
             assert len(o) == len(p) + new and (o[:len(p)] == p).all()
@@ -1521,6 +1619,7 @@ def phase_serve_moe():
               "decode_ms_per_step": 1e3 * st["decode"]["seconds"]
               / st["decode"]["steps"],
               "stats": st, "launches": launches,
+              "grouped_launches_by_form": forms,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
         for k, v in launches.items():
             total[k] += v
@@ -2075,6 +2174,7 @@ def _train_run(cfg, conf, warmup, steps, seed, batch_shape):
     returns (result dict, launches over all steps)."""
     import torch
     from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.ops import grouped_matmul as tg
     from deepspeed_tpu_torch.ops import op_builder
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2090,6 +2190,7 @@ def _train_run(cfg, conf, warmup, steps, seed, batch_shape):
 
     # the main path: every count set to 0 just before, read just after
     op_builder.reset_launches()
+    tg.reset_form_launches()
     losses, aux, step_s = [], [], []
     for _ in range(warmup + steps):
         t1 = time.perf_counter()
@@ -2098,6 +2199,7 @@ def _train_run(cfg, conf, warmup, steps, seed, batch_shape):
         step_s.append(time.perf_counter() - t1)
         aux.append(float(eng._last_metrics["aux_loss"]))
     launches = dict(op_builder.launches)
+    forms = _grouped_forms(launches)
     timed = step_s[warmup:]
     ms = 1e3 * sum(timed) / len(timed)
     tokens = batch_shape[0] * batch_shape[1]
@@ -2115,6 +2217,7 @@ def _train_run(cfg, conf, warmup, steps, seed, batch_shape):
            "active_tflops_per_s": 6.0 * active * tokens / (ms / 1e3) / 1e12,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "grad_norm": eng.get_global_grad_norm(), "launches": launches,
+           "grouped_launches_by_form": forms,
            "launches_per_step": {n: v / (warmup + steps)
                                  for n, v in launches.items()}}
     del eng
@@ -2353,6 +2456,9 @@ def main() -> int:
             row["also_replaces"] = also[row["name"]]
         if row["name"] in QUANT_FORM_LAUNCHES:
             row["launches_by_regime"] = QUANT_FORM_LAUNCHES[row["name"]]
+        if row["name"] in GROUPED_FORM_LAUNCHES:
+            row["launches_by_form"] = GROUPED_FORM_LAUNCHES[row["name"]]
+            assert sum(row["launches_by_form"].values()) == row["launches"]
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

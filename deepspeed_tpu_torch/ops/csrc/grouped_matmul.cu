@@ -18,31 +18,42 @@
 // 64-row kernel tile (bm is a multiple of 64) belongs to one expert,
 // g = group_of_tile[m0 / bm]. Tiles at or past live_tiles[0] * bm hold no
 // row: their blocks return at once and write nothing, so those output rows
-// stay unspecified. The grid covers the static worst case R_pad / 64; the
-// host never learns how many tiles are live.
+// stay unspecified. The grid covers the static worst case R_pad; the host
+// never learns how many tiles are live.
 //
-// Tiles: 64 rows x 64 columns of gate and of up (gate_up), or 64 rows x
-// 128 columns of y (down), per block; k-steps of 32; 128 threads. Each
-// k-tile is loaded from device memory into registers one step ahead
-// (masked: zeros past K and N, so any d and f work) and stored to shared
-// memory while the previous one is consumed. Offsets are 64-bit.
-//   bf16: tensor cores, mma.sync m16n8k16 with fp32 accumulation; each of
-//         the 4 warps owns a quarter of the block (32 rows by half its
-//         columns, per product).
-//   fp32: plain fp32 FMA on the CUDA cores; each thread owns 4 rows and
-//         BN / 8 columns (per product). This is the instantiation the parity
-//         checks hold to 1e-4.
+// Forms. ops/grouped_matmul.py `plan` picks grouped_down's form from the
+// dtype and shape and passes it in; the entry point refuses a form the
+// dtype does not take, and nothing falls back:
+//   fma   (fp32): plain fp32 FMA on the CUDA cores, the instantiation the
+//         parity checks hold to 1e-4;
+//   wgmma (bf16 where TMA can address every operand: f and d multiples of
+//         8, 16-byte-aligned gate, up and wo): grouped_wgmma.cuh — 128 x
+//         256 tiles, a TMA ring, h formed in registers as wgmma's A;
+//   mma   (any other bf16): mma.sync m16n8k16 from register-staged tiles.
+// grouped_gate_up keeps fp32 FMA and bf16 mma.sync.
 //
-// What bounds it on the H100: at the Mixtral prefill shape (2048 tokens,
+// The mma.sync and FMA kernels: 64 rows x 64 columns of gate and of up
+// (gate_up), or 64 rows x 128 columns of y (down), per block; k-steps of
+// 32; 128 threads. Each k-tile is loaded from device memory into registers
+// one step ahead (masked: zeros past K and N, so any d and f work) and
+// stored to shared memory while the previous one is consumed. Offsets are
+// 64-bit. bf16: each of the 4 warps owns a quarter of the block (32 rows
+// by half its columns, per product); fp32: each thread owns 4 rows and
+// BN / 8 columns (per product).
+//
+// What bounds them on the H100: at the Mixtral prefill shape (2048 tokens,
 // top-2, d 4096, f 14336) the two kernels do 6·d·f = 352 MFLOP per row
 // against ~2.8 GB of expert weights and ~0.3 GB of activations: 1.44 TFLOP,
 // 1.46 ms at the bf16 tensor-core peak against ~0.9 ms for the bytes, so
-// operations bound it. This first kernel uses mma.sync without TMA, wgmma
-// or a multi-stage ring, so instruction throughput and shared-memory
-// traffic are its real limit; blocks walk the m-tiles fastest
-// (blockIdx.x), so the blocks in flight share one n-tile of each expert's
-// weights in L2 and the weights are read from device memory about once.
+// operations bound them. mma.sync from register-staged tiles issues and
+// moves too much through shared memory to approach that: grouped_down ran
+// at 127 TFLOP/s (3.772 ms at Mixtral), gate_up at ~200. The wgmma form of
+// down takes ~1.4 ms there (~350 TFLOP/s; PERF.md §6), held by the bytes
+// of gate, up and wo each step moves (grouped_wgmma.cuh). The mma.sync and
+// FMA kernels walk the row tiles fastest (blockIdx.x), so the blocks in
+// flight share each expert's weight tiles in L2.
 #include "grouped_tile.cuh"
+#include "grouped_wgmma.cuh"
 
 namespace {
 
@@ -80,10 +91,7 @@ __device__ __forceinline__ void glu(const uint4& g, const uint4& u, float* h) {
   unpack<T>(g, gf);
   unpack<T>(u, uf);
 #pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const float x = gf[i];
-    h[i] = to_f(from_f<T>(__fdividef(x, 1.0f + __expf(-x)) * uf[i]));
-  }
+  for (int i = 0; i < V; ++i) h[i] = to_f(from_f<T>(silu_mul(gf[i], uf[i])));
 }
 
 // kMMA: tensor cores (bf16 only), else fp32 FMA. kGLU: A is silu(gate)·up
@@ -310,6 +318,41 @@ int launch(Operands<T> op, int rows, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// the kernel forms of dstt_grouped_down (ops/grouped_matmul.py FORMS)
+constexpr int kFma = 0, kMma = 1, kWgmma = 2;
+
+__global__ void __launch_bounds__(dstt::grouped::kThreads, 1)
+    grouped_down_wgmma_kernel(const __grid_constant__ dstt::grouped::Maps maps,
+        const dstt::grouped::Epilogue ep) {
+  dstt::grouped::grouped_wgmma<true, 1, 1>(maps, ep);
+}
+
+int down_wgmma(const void* gate, const void* up, const void* wo,
+               const void* w, void* y, const int* gt, const int* lt,
+               int rows, int f, int d, int bm, int num_experts,
+               cudaStream_t st) {
+  namespace G = dstt::grouped;
+  const void* tma[3] = {gate, up, wo};
+  if (rows == 0) return (int)cudaSuccess;
+  if (rows < 0 || bm <= 0 || bm % 64 || rows % bm || num_experts <= 0 ||
+      !G::tma_ok(f, d, tma, 3))
+    return (int)cudaErrorInvalidValue;
+  G::Maps maps;
+  // gate, up [rows, f]: boxes [64 rows, 64 k]; wo [E, f, d]: boxes
+  // [64 k, 64 n] of one expert (the MN-major B)
+  if (!G::map_rows(&maps.a[0], gate, rows, f) ||
+      !G::map_rows(&maps.a[1], up, rows, f) ||
+      !G::map_experts(&maps.b[0], wo, num_experts, f, d, G::BK, 64))
+    return (int)cudaErrorInvalidValue;
+  maps.b[1] = maps.b[0];
+  const G::Epilogue ep{static_cast<__nv_bfloat16*>(y),
+                       static_cast<const __nv_bfloat16*>(w), gt, lt, d, f,
+                       bm};
+  static unsigned smem_done = 0;
+  return G::launch<true>(grouped_down_wgmma_kernel, maps, ep, rows,
+                            smem_done, st);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Each returns cudaGetLastError() after
@@ -344,16 +387,19 @@ extern "C" int dstt_grouped_gate_up(const void* xs, const void* wg,
 }
 
 // y [rows, d] = (w ⊙) (silu(gate) · up) · wo[g] ([E, f, d]) per tile;
-// w [rows] may be null.
+// w [rows] may be null. form: 0 = fp32 FMA, 1 = bf16 mma.sync, 2 = bf16
+// wgmma (f and d multiples of 8, 16-byte-aligned gate, up and wo); any
+// other pairing of dtype and form is refused.
 extern "C" int dstt_grouped_down(const void* gate, const void* up,
                                  const void* wo, const void* w, void* y,
                                  const void* group_of_tile,
                                  const void* live_tiles, int rows, int f,
-                                 int d, int bm, int dtype, void* stream) {
+                                 int d, int bm, int num_experts, int dtype,
+                                 int form, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* gt = static_cast<const int*>(group_of_tile);
   const int* lt = static_cast<const int*>(live_tiles);
-  if (dtype == 0) {
+  if (dtype == 0 && form == kFma) {
     using T = float;
     Operands<T> op{static_cast<const T*>(gate), static_cast<const T*>(up),
                    {static_cast<const T*>(wo), nullptr},
@@ -361,7 +407,7 @@ extern "C" int dstt_grouped_down(const void* gate, const void* up,
                    gt, lt, f, d, bm, 0, 0};
     return launch<T, true, 1, BN_DOWN>(op, rows, st);
   }
-  if (dtype == 1) {
+  if (dtype == 1 && form == kMma) {
     using T = __nv_bfloat16;
     Operands<T> op{static_cast<const T*>(gate), static_cast<const T*>(up),
                    {static_cast<const T*>(wo), nullptr},
@@ -369,6 +415,9 @@ extern "C" int dstt_grouped_down(const void* gate, const void* up,
                    gt, lt, f, d, bm, 0, 0};
     return launch<T, true, 1, BN_DOWN>(op, rows, st);
   }
+  if (dtype == 1 && form == kWgmma)
+    return down_wgmma(gate, up, wo, w, y, gt, lt, rows, f, d, bm,
+                      num_experts, st);
   return (int)cudaErrorInvalidValue;
 }
 

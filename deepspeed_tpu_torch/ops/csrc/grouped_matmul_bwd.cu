@@ -40,17 +40,26 @@
 // ldmatrix, transposed or not by that orientation (mma_step), feeds
 // mma.sync m16n8k16 bf16 with fp32 accumulation; fp32 runs plain FMA on
 // the CUDA cores (the instantiation the parity checks hold to 1e-4).
-// Offsets are 64-bit.
+// Offsets are 64-bit. grouped_dxs has three forms, picked by
+// ops/grouped_matmul.py `plan` from the dtype and shape and passed in (the
+// entry point refuses a form the dtype does not take; nothing falls back):
+// fma (fp32), wgmma (bf16 where TMA can address dg, du, wg and wi: f and d
+// multiples of 8, 16-byte-aligned data; grouped_wgmma.cuh, 128 x 256 tiles
+// fed by a TMA ring, both products into one accumulator), mma (any other
+// bf16). dgdu and wgrad keep fp32 FMA and bf16 mma.sync.
 //
 // What bounds them on the H100: at the Mixtral 8x7B training shape (2048
 // tokens, top-2, d 4096, f 14336) dgdu does 6·d·f FLOP per row (two
 // recomputed products and dh), dxs 4·d·f and the three dW products 6·d·f,
 // against ~2.8 GB of expert weights read once: 1.46 + 0.97 + 1.46 ms at
 // the bf16 tensor-core peak, above the bytes (dW's bf16 writes 0.56 ms),
-// so operations bound them. These first kernels use mma.sync from
-// register-staged tiles without TMA, wgmma or a multi-stage ring, so
-// instruction issue and shared-memory traffic are their real limit.
+// so operations bound them. The mma.sync kernels use register-staged
+// tiles without TMA, wgmma or a multi-stage ring, so instruction issue and
+// shared-memory traffic are their real limit (dxs 163 TFLOP/s at the
+// 1B/8e shape). dxs's wgmma form runs at ~630 TFLOP/s there (PERF.md §6),
+// held by the bytes each step moves (grouped_wgmma.cuh).
 #include "grouped_tile.cuh"
+#include "grouped_wgmma.cuh"
 
 namespace {
 
@@ -591,6 +600,38 @@ int wgrad(WgradArgs<T> a, int rows, int num_experts, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// the kernel forms of dstt_grouped_dxs (ops/grouped_matmul.py FORMS)
+constexpr int kFma = 0, kMma = 1, kWgmma = 2;
+
+__global__ void __launch_bounds__(dstt::grouped::kThreads, 1)
+    grouped_dxs_wgmma_kernel(const __grid_constant__ dstt::grouped::Maps maps,
+        const dstt::grouped::Epilogue ep) {
+  dstt::grouped::grouped_wgmma<false, 0, 2>(maps, ep);
+}
+
+int dxs_wgmma(const void* dg, const void* du, const void* wg, const void* wi,
+              void* dxs_, const int* gt, const int* lt, int rows, int d,
+              int f, int bm, int num_experts, cudaStream_t st) {
+  namespace G = dstt::grouped;
+  const void* tma[4] = {dg, du, wg, wi};
+  if (rows == 0) return (int)cudaSuccess;
+  if (!tiles_ok(rows, bm) || num_experts <= 0 || !G::tma_ok(f, d, tma, 4))
+    return kInvalid;
+  G::Maps maps;
+  // dg, du [rows, f]: boxes [64 rows, 64 k]; wg, wi [E, d, f]: boxes
+  // [256 n, 64 k] of one expert (the K-major B)
+  if (!G::map_rows(&maps.a[0], dg, rows, f) ||
+      !G::map_rows(&maps.a[1], du, rows, f) ||
+      !G::map_experts(&maps.b[0], wg, num_experts, d, f, G::BN, G::BK) ||
+      !G::map_experts(&maps.b[1], wi, num_experts, d, f, G::BN, G::BK))
+    return kInvalid;
+  const G::Epilogue ep{static_cast<__nv_bfloat16*>(dxs_), nullptr, gt, lt,
+                       d, f, bm};
+  static unsigned smem_done = 0;
+  return G::launch<false>(grouped_dxs_wgmma_kernel, maps, ep, rows,
+                             smem_done, st);
+}
+
 template <typename T>
 const T* in(const void* p) { return static_cast<const T*>(p); }
 template <typename T>
@@ -637,27 +678,33 @@ extern "C" int dstt_grouped_dgdu(const void* dz, const void* xs,
 }
 
 // dxs [rows, d] = dg · wg[g]ᵀ + du · wi[g]ᵀ; dg, du [rows, f], wg, wi
-// [E, d, f].
+// [E, d, f]. form: 0 = fp32 FMA, 1 = bf16 mma.sync, 2 = bf16 wgmma (f and
+// d multiples of 8, 16-byte-aligned dg, du, wg and wi); any other pairing
+// of dtype and form is refused.
 extern "C" int dstt_grouped_dxs(const void* dg, const void* du,
                                 const void* wg, const void* wi, void* dxs_,
                                 const void* group_of_tile,
                                 const void* live_tiles, int rows, int d,
-                                int f, int bm, int dtype, void* stream) {
+                                int f, int bm, int num_experts, int dtype,
+                                int form, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* gt = static_cast<const int*>(group_of_tile);
   const int* lt = static_cast<const int*>(live_tiles);
-  if (dtype == 0) {
+  if (dtype == 0 && form == kFma) {
     using T = float;
     DxsArgs<T> a{in<T>(dg), in<T>(du), in<T>(wg), in<T>(wi), out<T>(dxs_),
                  gt, lt, d, f, bm, 0};
     return dxs<T>(a, rows, st);
   }
-  if (dtype == 1) {
+  if (dtype == 1 && form == kMma) {
     using T = __nv_bfloat16;
     DxsArgs<T> a{in<T>(dg), in<T>(du), in<T>(wg), in<T>(wi), out<T>(dxs_),
                  gt, lt, d, f, bm, 0};
     return dxs<T>(a, rows, st);
   }
+  if (dtype == 1 && form == kWgmma)
+    return dxs_wgmma(dg, du, wg, wi, dxs_, gt, lt, rows, d, f, bm,
+                     num_experts, st);
   return kInvalid;
 }
 

@@ -1,7 +1,8 @@
 // Tile helpers shared by the grouped GEMM kernels of the dropless MoE FFN
-// (grouped_matmul.cu, forward; grouped_matmul_bwd.cu, backward): dtype
-// conversion, masked 16-byte row loads, and the tensor-core fragments
-// (ldmatrix, mma.sync m16n8k16 bf16 with fp32 accumulation).
+// (grouped_matmul.cu, forward; grouped_matmul_bwd.cu, backward;
+// grouped_wgmma.cuh, their wgmma forms): dtype conversion, the GLU,
+// masked 16-byte row loads, and the tensor-core fragments (ldmatrix,
+// mma.sync m16n8k16 bf16 with fp32 accumulation).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -16,6 +17,12 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+// silu(x)·u in fp32 with the hardware exp and divide (~2 ulp): the GLU of
+// grouped_down's prologue, in every form
+__device__ __forceinline__ float silu_mul(float x, float u) {
+  return __fdividef(x, 1.0f + __expf(-x)) * u;
+}
+
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>

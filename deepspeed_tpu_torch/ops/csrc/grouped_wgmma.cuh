@@ -1,0 +1,424 @@
+// Grouped GEMMs of the dropless MoE FFN on Hopper's warpgroup MMA, fed by a
+// ring of TMA loads — the bf16 "wgmma" form of grouped_down
+// (grouped_matmul.cu) and grouped_dxs (grouped_matmul_bwd.cu). Each .cu
+// builds into its own library, so the shared device code lives here, on
+// the mbarrier, TMA and wgmma pieces of tma_wgmma.cuh. The template takes
+// the A prologue (kGLU), B's orientation (TRANS_B) and the number of (A, B)
+// pairs summed along K (PAIRS); grouped_gate_up's two B operands and two
+// sums would be a second accumulator pair on the same ring.
+//
+// What a block computes. Rows are sorted by expert and every expert starts
+// on a bm-row layout tile (bm a multiple of 64), so each 64-row tile
+// belongs to one expert, group_of_tile[row / bm]. A block owns 128 rows
+// (two consecutive 64-row tiles) by BN = 256 output columns and sums
+//     acc += A_p[rows, k] · B_p[g][k, columns]
+// over its pairs p, in fp32; the epilogue scales each row by w (fp32, when
+// given), rounds to bf16 and stores, masked past N and past the live rows.
+//   grouped_down: PAIRS 1, A = h = silu(gate)·up (kGLU: formed in the block
+//                 from the gate and up tiles, see below), B = wo[g] [K = f,
+//                 N = d] with N contiguous (MN-major: TRANS_B 1);
+//   grouped_dxs:  PAIRS 2, A = dg then du, B = wg[g] then wi[g], each read
+//                 as [N = d, K = f] with K contiguous (K-major, wgmma's
+//                 canonical B: TRANS_B 0) — one sum over both products.
+// The block reads group_of_tile for its two tiles on the device. A block
+// whose first tile is at or past live_tiles[0] returns before it issues any
+// load (the host never learns how many tiles are live); a dead second tile
+// is computed with the first and not stored. When the two tiles belong to
+// two experts (split), the block walks K twice: rows 0-63 against the first
+// expert's B, then rows 64-127 against the second's. The layout keeps bm
+// 64, so an expert pads at most 63 rows.
+//
+// Block and ring: one producer warp and two consumer warpgroups (288
+// threads, one block a SM). The producer's lane 0 keeps a ring of up to 4
+// stages of 64-deep k-steps in flight (dxs 4 of 48 KB, down 3 of 64 KB),
+// each completing on a "full" mbarrier; each consumer warpgroup releases a
+// stage on its "empty" mbarrier once its products of it have completed
+// (wgmma.wait_group 1 keeps one step's products in flight). A stage holds
+//   - A: a [64 rows, 64 k] box for each 64-row half of a 2-D view [R_pad,
+//     K] (gate and up for down), 128-byte swizzled, K-major;
+//   - B: [256 n, 64 k] K-major in one box of a view [E, d, f] (dxs), or
+//     four [64 k, 64 n] boxes of a view [E, f, d] (down: the MN-major
+//     layout, 8 KB between 64-column blocks), 128-byte swizzled. The
+//     expert is a dimension of its own, so no box reads into the next
+//     expert, and TMA's zero fill covers the K tail (f % 64) and the N
+//     tail (d % 256): loads need no masks.
+// Unsplit, consumer warpgroup i owns rows 64·i .. + 63 by all 256 columns:
+// one wgmma m64n256k16 a k16 slice. Split, both take the pass's 64 rows,
+// warpgroup i columns 128·i .. + 127 (m64n128k16).
+//
+// down's prologue (kGLU): each consumer warp reads its 16 rows of the gate
+// and up boxes with ldmatrix (the 128-byte swizzle applied to its
+// addresses), forms h = silu(g)·u in fp32 with the hardware exp and divide
+// (as the mma.sync kernel does), rounds it to bf16 straight into wgmma's A
+// fragments, and the wgmma take A from registers (the RS form): h never
+// reaches shared memory, and no proxy fence or barrier sits in the loop.
+// Two register buffers of A fragments alternate, so a step's h is formed
+// while the previous step's products run.
+//
+// What bounds it (H100 SXM, 989 TFLOP/s bf16, 3.35 TB/s). The products
+// (2·rows·d·f a pair) bound the work: down at Mixtral (2048 tokens, top-2,
+// d 4096, f 14336) 481 GFLOP, 0.486 ms; dxs at the 1B/8e training shape
+// (16,384 tokens, d 1024, f 2816) 378 GFLOP, 0.382 ms. Two things hold
+// this kernel, measured with tools/grouped_wgmma_variants.py: the bytes
+// from device memory (the grid walks the column tiles fastest, so each A
+// tile is read once; row blocks fastest re-read all of A once per column
+// tile and ran 1.15-1.4x slower), and the bytes a stage moves through
+// shared memory at a roughly fixed rate a SM: dxs's 48 KB a 4.2 MFLOP step
+// run at ~630 TFLOP/s at 1B/8e, down's 64 KB (gate and up) at ~350 at
+// Mixtral (the same GEMM with one A operand ran 1.4x faster). The GLU's
+// exp and divide, formed again for every column tile, cost ~17 % of down;
+// a wgmma m64n256k16 a k16 slice beats two m64n128k16, and 32-deep steps
+// lose to 64-deep ones. Figures: PERF.md §6.
+#pragma once
+
+#include "grouped_tile.cuh"
+#include "tma_wgmma.cuh"
+
+namespace dstt {
+namespace grouped {
+
+namespace hw = dstt::hopper;
+
+constexpr int BM = 128;                     // rows a block: two 64-row tiles
+constexpr int BN = 256;                     // columns a block
+constexpr int BK = 64;                      // k a step (128 bytes of bf16)
+constexpr int kConsumers = 256;             // two consumer warpgroups
+constexpr int kThreads = kConsumers + 32;   // and one producer warp
+constexpr int kSmemMax = 232448;            // a block's shared memory
+constexpr int kTile = 64 * BK * 2;          // a box [64 rows, 64 k]: 8 KB
+
+// The tensor maps of one launch: A_p and B_p for each pair p (down: a[0]
+// gate, a[1] up, b[0] wo; dxs: a = dg, du; b = wg, wi).
+struct Maps {
+  CUtensorMap a[2];
+  CUtensorMap b[2];
+};
+
+struct Epilogue {
+  __nv_bfloat16* out;            // [rows, N]
+  const __nv_bfloat16* w;        // per-row scale [rows], or nullptr
+  const int* group_of_tile;
+  const int* live_tiles;
+  int N, K, bm;                  // K: the depth of one pair
+};
+
+template <bool kGLU>
+struct Cfg {
+  // A: two 64-row boxes (rows 0-63, 64-127) of each A operand read a step
+  static constexpr int AHALF = kTile * (kGLU ? 2 : 1);
+  static constexpr int ABYTES = 2 * AHALF;
+  static constexpr int BBYTES = BN * BK * 2;                  // 32 KB
+  static constexpr int STAGE = ABYTES + BBYTES;               // 1 KB-aligned
+  // as many stages as fit, up to 4, beside the barriers and the slack that
+  // aligns the base to 1024 bytes (the swizzle's atom)
+  static constexpr int kFit = (kSmemMax - 1024 - 64) / STAGE;
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static_assert(kStages >= 2, "no room for a two-stage ring");
+  static constexpr int SMEM = kStages * STAGE + 16 * kStages + 1024;
+};
+
+// h = silu(g)·u of a bf16 pair, in fp32, rounded to bf16
+__device__ __forceinline__ uint32_t glu2(uint32_t g, uint32_t u) {
+  const float2 x = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&g));
+  const float2 y = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
+  const __nv_bfloat162 h =
+      __floats2bfloat162_rn(silu_mul(x.x, y.x), silu_mul(x.y, y.y));
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// acc (a 64 x 128 accumulator of one warpgroup) → out rows row0 + 16w +
+// lane/4 + 8h (w: the warp in its group), columns col0 + 8i + 2(lane%4) +
+// {0, 1}, times w[row] in fp32 when given, rounded to bf16; rows at or past
+// `live_rows` and columns at or past N are not written (N is a multiple of
+// 8: both columns of a pair or neither).
+__device__ __forceinline__ void store_acc(const float (&acc)[64],
+                                          const Epilogue& ep, int row0,
+                                          int col0, long long live_rows) {
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  col0 += (lane & 3) * 2;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + warp * 16 + (lane >> 2) + 8 * h;
+    if (row >= live_rows) continue;
+    const float sc = ep.w != nullptr ? __bfloat162float(ep.w[row]) : 1.0f;
+    __nv_bfloat16* o = ep.out + (long long)row * ep.N;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int col = col0 + 8 * i;
+      if (col < ep.N)
+        *reinterpret_cast<__nv_bfloat162*>(o + col) = __floats2bfloat162_rn(
+            acc[4 * i + 2 * h] * sc, acc[4 * i + 2 * h + 1] * sc);
+    }
+  }
+}
+
+// A consumer warpgroup's view of the ring
+struct Ring {
+  uint8_t* smem;      // stage s at smem + s * STAGE
+  uint64_t* full;
+  uint64_t* empty;
+  int wgi, wtid;      // this warpgroup, and the thread in it
+};
+
+// One step of a consumer warpgroup: wait for stage t, issue its products,
+// keep them in flight, wait for step t - 1's and release its stage. MODE 0
+// (two tiles of one expert): this group's rows (A half wgi) by both B
+// halves into acc0 and acc1; MODE 1 / 2 (split, pass 0 / 1): A half
+// MODE - 1 by B half wgi into acc0 / acc1.
+//   dxs (SS): A straight from the stage's swizzled box.
+//   down (kGLU, RS): each warp reads its 16 rows of gate and up from the
+//   stage with ldmatrix (the swizzle applied to its addresses), forms
+//   h = silu(g)·u into the A fragments `af` (registers, this step's
+//   buffer), and the wgmma take A from there: no h tile in shared memory,
+//   no proxy fence, no barrier. `af_prev` (step t - 1's buffer) is free
+//   once step t - 1 is waited for.
+template <int MODE, bool kGLU, int TRANS_B>
+__device__ __forceinline__ void step(const Ring& r, float (&acc0)[64],
+                                     float (&acc1)[64], uint32_t (&af)[4][4],
+                                     uint32_t (&af_prev)[4][4], int t) {
+  using C = Cfg<kGLU>;
+  constexpr int S = C::kStages;
+  const int s = t % S;
+  const int slot = MODE == 0 ? r.wgi : MODE - 1;  // the A half read
+  hw::mbar_wait(&r.full[s], (t / S) & 1);
+  const uint8_t* st = r.smem + s * C::STAGE;
+  const uint8_t* a = st + slot * kTile;
+  if constexpr (kGLU) {
+    const int lane = r.wtid & 31;
+    const int row = (r.wtid >> 5) * 16 + (lane & 15);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const int o = row * 128 + (((2 * kk + (lane >> 4)) ^ (row & 7)) << 4);
+      uint32_t g[4], u[4];
+      ldmatrix_x4(g, a + o);
+      ldmatrix_x4(u, a + 2 * kTile + o);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) af[kk][j] = glu2(g[j], u[j]);
+    }
+  }
+  // B's two 128-column halves, 16 KB each in either orientation
+  const uint8_t* b = st + C::ABYTES;
+  hw::fence_regs(acc0);
+  hw::fence_regs(acc1);
+  if constexpr (kGLU) {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) hw::fence_regs(af[kk]);
+  }
+  hw::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    auto db = [&](int q) {
+      return TRANS_B ? hw::desc_sw128(b + q * 16384 + kk * 2048, kTile, 1024)
+                     : hw::desc_sw128(b + q * 16384 + kk * 32, 16, 1024);
+    };
+    const uint64_t da = hw::desc_sw128(a + kk * 32, 16, 1024);
+    if constexpr (MODE == 0) {
+      // one m64n256k16 over both halves (B's halves are contiguous)
+      if constexpr (kGLU)
+        hw::wgmma_m64n256k16_rs<TRANS_B>(acc0, acc1, af[kk], db(0), 1);
+      else
+        hw::wgmma_m64n256k16<TRANS_B>(acc0, acc1, da, db(0), 1);
+    } else {
+      float (&acc)[64] = MODE == 1 ? acc0 : acc1;
+      if constexpr (kGLU)
+        hw::wgmma_m64n128k16_rs<TRANS_B>(acc, af[kk], db(r.wgi), 1);
+      else
+        hw::wgmma_m64n128k16<TRANS_B>(acc, da, db(r.wgi), 1);
+    }
+  }
+  hw::wgmma_commit();
+  hw::wgmma_wait<1>();                         // step t - 1 is done
+  hw::fence_regs(acc0);
+  hw::fence_regs(acc1);
+  if constexpr (kGLU) {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) hw::fence_regs(af_prev[kk]);
+  }
+  if (t > 0 && r.wtid == 0) hw::mbar_arrive(&r.empty[(t - 1) % S]);
+}
+
+// Steps [t0, t1) in MODE; the A fragments alternate between two register
+// buffers (a pair of steps an iteration, so each has a fixed buffer). With
+// A in registers the last step is waited for before the buffers go out of
+// scope.
+template <int MODE, bool kGLU, int TRANS_B>
+__device__ __forceinline__ void consume(const Ring& r, float (&acc0)[64],
+                                        float (&acc1)[64], int t0, int t1) {
+  uint32_t af0[4][4], af1[4][4];
+  for (int t = t0; t < t1; t += 2) {
+    step<MODE, kGLU, TRANS_B>(r, acc0, acc1, af0, af1, t);
+    if (t + 1 < t1) step<MODE, kGLU, TRANS_B>(r, acc0, acc1, af1, af0, t + 1);
+  }
+  if constexpr (kGLU) {
+    hw::wgmma_wait<0>();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      hw::fence_regs(af0[kk]);
+      hw::fence_regs(af1[kk]);
+    }
+  }
+}
+
+template <bool kGLU, int TRANS_B, int PAIRS>
+__device__ __forceinline__ void grouped_wgmma(const Maps& maps,
+                                              const Epilogue& ep) {
+  using C = Cfg<kGLU>;
+  constexpr int S = C::kStages;
+  // the block's two 64-row tiles: the first live, the second maybe dead
+  // (or past the rows); a dead second tile is computed with the first
+  // and not stored
+  const int row0 = blockIdx.y * BM;
+  const long long live_rows = (long long)ep.live_tiles[0] * ep.bm;
+  if (row0 >= live_rows) return;
+  const int g0 = ep.group_of_tile[row0 / ep.bm];
+  const int g1 = row0 + 64 < live_rows ? ep.group_of_tile[(row0 + 64) / ep.bm]
+                                       : g0;
+  // split: the tiles belong to two experts, so the block walks K twice,
+  // rows 0-63 against g0's B, then rows 64-127 against g1's
+  const bool split = g1 != g0;
+  const int n0 = blockIdx.x * BN;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * C::STAGE);
+  uint64_t* empty = full + S;
+
+  const int ksteps = (ep.K + BK - 1) / BK;     // per pair
+  const int nsteps = PAIRS * ksteps;           // per pass
+  const int total = split ? 2 * nsteps : nsteps;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      hw::mbar_init(&full[s], 1);
+      hw::mbar_init(&empty[s], kConsumers / 128);
+    }
+    hw::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {
+    // producer: step t (pass, pair, k-step) into stage t % S, once both
+    // consumer warpgroups have released that stage. A stage holds the A
+    // boxes of the rows the pass reads (both halves, or half `pass` when
+    // split; gate and up for down), each at its half's slot, and B of the
+    // pass's expert.
+    if (lane == 0) {
+      for (int t = 0; t < total; ++t) {
+        const int s = t % S, pass = t / nsteps, u = t % nsteps;
+        const int p = u / ksteps, k0 = (u % ksteps) * BK;
+        const int g = pass ? g1 : g0;
+        if (t >= S) hw::mbar_wait(&empty[s], (t / S - 1) & 1);
+        uint8_t* st = smem + s * C::STAGE;
+        hw::mbar_arrive_expect_tx(&full[s],
+                                  split ? C::STAGE - C::AHALF : C::STAGE);
+        auto load_a = [&](int at, const CUtensorMap* map, int r) {
+          hw::tma_load_4d(st + at * kTile, map, &full[s], k0, r, 0, 0);
+        };
+        for (int half = 0; half < 2; ++half) {
+          if (split && half != pass) continue;
+          const int r = row0 + 64 * half;
+          if constexpr (kGLU) {
+            load_a(half, &maps.a[0], r);
+            load_a(2 + half, &maps.a[1], r);
+          } else {
+            load_a(half, &maps.a[p], r);
+          }
+        }
+        uint8_t* b = st + C::ABYTES;
+        if constexpr (TRANS_B) {
+#pragma unroll
+          for (int q = 0; q < BN / 64; ++q)
+            hw::tma_load_4d(b + q * kTile, &maps.b[p], &full[s], n0 + 64 * q,
+                            k0, g, 0);
+        } else {
+          hw::tma_load_4d(b, &maps.b[p], &full[s], k0, n0, g, 0);
+        }
+      }
+    }
+  } else {
+    // consumers. Unsplit: warpgroup wgi owns rows 64·wgi .. + 63 and all
+    // 256 columns (acc0 columns 0-127, acc1 128-255). Split: pass q's rows
+    // 64·q .. + 63 by columns 128·wgi .. + 127 go to acc0 (q 0) or acc1.
+    const int wgi = warp >> 2;
+    float acc0[64], acc1[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
+    const Ring ring{smem, full, empty, wgi, tid & 127};
+    if (!split) {
+      consume<0, kGLU, TRANS_B>(ring, acc0, acc1, 0, nsteps);
+    } else {
+      consume<1, kGLU, TRANS_B>(ring, acc0, acc1, 0, nsteps);
+      consume<2, kGLU, TRANS_B>(ring, acc0, acc1, nsteps, total);
+    }
+    hw::wgmma_wait<0>();
+    hw::fence_regs(acc0);
+    hw::fence_regs(acc1);
+
+    if (!split) {
+      store_acc(acc0, ep, row0 + 64 * wgi, n0, live_rows);
+      store_acc(acc1, ep, row0 + 64 * wgi, n0 + 128, live_rows);
+    } else {
+      store_acc(acc0, ep, row0, n0 + 128 * wgi, live_rows);
+      store_acc(acc1, ep, row0 + 64, n0 + 128 * wgi, live_rows);
+    }
+  }
+}
+
+// --- host ---------------------------------------------------------------------
+
+// A 2-D bf16 view [rows, K] (row-major) as the 4-D map TMA takes: box
+// [64 rows, 64 k], 128-byte swizzle. False when the encoder refuses it.
+inline bool map_rows(CUtensorMap* m, const void* p, int rows, int K) {
+  const cuuint64_t bytes = (cuuint64_t)rows * K * 2;
+  const cuuint64_t dims[4] = {(cuuint64_t)K, (cuuint64_t)rows, 1, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)K * 2, bytes, bytes};
+  const cuuint32_t box[4] = {BK, 64, 1, 1};
+  return hw::make_map_4d(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p, dims,
+                         strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// E matrices [R, C] (row-major, [E, R, C] contiguous) as a 4-D map with the
+// expert as its own dimension: box [box_r rows, box_c columns] of one
+// expert, 128-byte swizzle (box_c · 2 = 128 bytes).
+inline bool map_experts(CUtensorMap* m, const void* p, int E, int R, int C,
+                        int box_r, int box_c) {
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)R, (cuuint64_t)E, 1};
+  const cuuint64_t mat = (cuuint64_t)R * C * 2;
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, mat, mat * E};
+  const cuuint32_t box[4] = {(cuuint32_t)box_c, (cuuint32_t)box_r, 1, 1};
+  return hw::make_map_4d(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p, dims,
+                         strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// What TMA can address: K and N multiples of 8 (16-byte row strides) and
+// 16-byte-aligned bases.
+inline bool tma_ok(int K, int N, const void* const* ptrs, int n) {
+  if (K <= 0 || N <= 0 || K % 8 || N % 8) return false;
+  for (int i = 0; i < n; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return false;
+  return true;
+}
+
+// Launch `kernel` (a __global__ taking (Maps, Epilogue)) over ceil(N / 256)
+// column tiles by ceil(rows / 128) row blocks, the column tiles fastest: the
+// blocks in flight are a few row blocks with all their column tiles, so
+// each A tile is read from device memory once (row blocks fastest re-read
+// all of A once per column tile) and they span few experts, whose B tiles
+// they share in L2.
+template <bool kGLU, typename Kernel>
+int launch(Kernel kernel, const Maps& maps, const Epilogue& ep, int rows,
+           unsigned& smem_done, cudaStream_t stream) {
+  using C = Cfg<kGLU>;
+  const dim3 grid((ep.N + BN - 1) / BN, (rows + BM - 1) / BM);
+  if (grid.y == 0) return (int)cudaSuccess;
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = hw::allow_smem(
+      reinterpret_cast<const void*>(kernel), C::SMEM, smem_done);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kThreads, C::SMEM, stream>>>(maps, ep);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace grouped
+}  // namespace dstt

@@ -806,21 +806,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 // host
 // ---------------------------------------------------------------------------
 
-// Raise a kernel's dynamic shared-memory cap once per device (`done`: a
-// bit per device, one word per kernel): decode launches ~225 of these
-// kernels a step, and the attribute call costs host time.
-inline cudaError_t allow_smem(const void* kernel, int bytes, unsigned& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 32 && (done >> dev & 1u)) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err == cudaSuccess && dev < 32) done |= 1u << dev;
-  return err;
-}
-
 template <int F>
 int launch_fma(Args a, int G, cudaStream_t stream) {
   a.vec_x = a.K % 4 == 0 && a.kp % 4 == 0 && aligned16(a.x);
@@ -851,7 +836,7 @@ int launch_splitk(Args a, int G, cudaStream_t stream) {
   auto kernel = splitk::qmm_splitk_kernel<F, BN, MT>;
   static unsigned done = 0;
   const cudaError_t err =
-      allow_smem(reinterpret_cast<const void*>(kernel),
+      hw::allow_smem(reinterpret_cast<const void*>(kernel),
                  splitk::smem_bytes<F, BN, MT>(16 * MT), done);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.N + BN - 1) / BN, mtiles * a.slices, G);
@@ -890,7 +875,7 @@ int launch_wgmma(const Args& a, int G, cudaStream_t stream) {
   auto kernel = wg::qmm_wgmma_kernel<F, MT>;
   static unsigned done = 0;
   const cudaError_t err =
-      allow_smem(reinterpret_cast<const void*>(kernel), C::SMEM, done);
+      hw::allow_smem(reinterpret_cast<const void*>(kernel), C::SMEM, done);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)mt, (unsigned)nt, G);
   kernel<<<grid, wg::kThreads, C::SMEM, stream>>>(xmap, wmap, a);

@@ -7,9 +7,11 @@
 //     mbarrier, and the host side that encodes their tensor maps through
 //     libcuda's cuTensorMapEncodeTiled, looked up at run time (no -lcuda);
 //   - wgmma shared-memory descriptors for the 128-byte swizzle, and
-//     wgmma.mma_async m64n128k16 bf16 → fp32 with A and B in shared memory.
-// Used by quantized_linear.cu (K5's prefill kernel); kept apart so that the
-// grouped GEMMs and the attention kernels can share them.
+//     wgmma.mma_async m64n128k16 bf16 → fp32 with A and B in shared memory,
+//     or A in registers.
+// Used by quantized_linear.cu (K5's prefill kernel) and, through
+// grouped_wgmma.cuh, by the grouped GEMMs' bf16 wgmma forms; the attention
+// kernels can share them too.
 //
 // Layouts (PTX ISA, "Shared Memory Matrix Layout", 16-bit types, 128-byte
 // swizzle: the 16-byte chunk c of 128-byte row r is stored at chunk c ^ (r
@@ -186,6 +188,177 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
 }
 
+// uint32 operands of an asynchronous wgmma (A fragments): keeps the
+// compiler from reusing their registers before the wgmma that reads them
+// has been waited for
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// d[64] += A (64 x 16 bf16, from registers) · B (16 x 128; K-major, or
+// MN-major when TRANS_B) for one warpgroup. Warp w of the group holds rows
+// 16w .. 16w + 15 of A as mma.sync's m16k16 A fragment (what ldmatrix.x4
+// gives): a[0] row lane/4, k 2(lane%4) + {0, 1}; a[1] 8 rows further;
+// a[2], a[3] the same 8 k further. The registers must stay untouched until
+// the wgmma has been waited for.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TRANS_B));
+}
+
+// d0, d1 (columns 0-127, 128-255 of a 64 x 256 accumulator; each laid out
+// as wgmma_m64n128k16's d) += A (64 x 16, K-major, shared memory) · B (16 x
+// 256; K-major, or MN-major when TRANS_B) for one warpgroup: one
+// instruction where two m64n128k16 would read A twice.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d0)[64],
+                                                 float (&d1)[64], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
+      "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, %131;\n"
+      "}\n"
+      : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]), "+f"(d0[4]),
+        "+f"(d0[5]), "+f"(d0[6]), "+f"(d0[7]), "+f"(d0[8]), "+f"(d0[9]),
+        "+f"(d0[10]), "+f"(d0[11]), "+f"(d0[12]), "+f"(d0[13]),
+        "+f"(d0[14]), "+f"(d0[15]), "+f"(d0[16]), "+f"(d0[17]),
+        "+f"(d0[18]), "+f"(d0[19]), "+f"(d0[20]), "+f"(d0[21]),
+        "+f"(d0[22]), "+f"(d0[23]), "+f"(d0[24]), "+f"(d0[25]),
+        "+f"(d0[26]), "+f"(d0[27]), "+f"(d0[28]), "+f"(d0[29]),
+        "+f"(d0[30]), "+f"(d0[31]), "+f"(d0[32]), "+f"(d0[33]),
+        "+f"(d0[34]), "+f"(d0[35]), "+f"(d0[36]), "+f"(d0[37]),
+        "+f"(d0[38]), "+f"(d0[39]), "+f"(d0[40]), "+f"(d0[41]),
+        "+f"(d0[42]), "+f"(d0[43]), "+f"(d0[44]), "+f"(d0[45]),
+        "+f"(d0[46]), "+f"(d0[47]), "+f"(d0[48]), "+f"(d0[49]),
+        "+f"(d0[50]), "+f"(d0[51]), "+f"(d0[52]), "+f"(d0[53]),
+        "+f"(d0[54]), "+f"(d0[55]), "+f"(d0[56]), "+f"(d0[57]),
+        "+f"(d0[58]), "+f"(d0[59]), "+f"(d0[60]), "+f"(d0[61]),
+        "+f"(d0[62]), "+f"(d0[63]), "+f"(d1[0]), "+f"(d1[1]),
+        "+f"(d1[2]), "+f"(d1[3]), "+f"(d1[4]), "+f"(d1[5]), "+f"(d1[6]),
+        "+f"(d1[7]), "+f"(d1[8]), "+f"(d1[9]), "+f"(d1[10]),
+        "+f"(d1[11]), "+f"(d1[12]), "+f"(d1[13]), "+f"(d1[14]),
+        "+f"(d1[15]), "+f"(d1[16]), "+f"(d1[17]), "+f"(d1[18]),
+        "+f"(d1[19]), "+f"(d1[20]), "+f"(d1[21]), "+f"(d1[22]),
+        "+f"(d1[23]), "+f"(d1[24]), "+f"(d1[25]), "+f"(d1[26]),
+        "+f"(d1[27]), "+f"(d1[28]), "+f"(d1[29]), "+f"(d1[30]),
+        "+f"(d1[31]), "+f"(d1[32]), "+f"(d1[33]), "+f"(d1[34]),
+        "+f"(d1[35]), "+f"(d1[36]), "+f"(d1[37]), "+f"(d1[38]),
+        "+f"(d1[39]), "+f"(d1[40]), "+f"(d1[41]), "+f"(d1[42]),
+        "+f"(d1[43]), "+f"(d1[44]), "+f"(d1[45]), "+f"(d1[46]),
+        "+f"(d1[47]), "+f"(d1[48]), "+f"(d1[49]), "+f"(d1[50]),
+        "+f"(d1[51]), "+f"(d1[52]), "+f"(d1[53]), "+f"(d1[54]),
+        "+f"(d1[55]), "+f"(d1[56]), "+f"(d1[57]), "+f"(d1[58]),
+        "+f"(d1[59]), "+f"(d1[60]), "+f"(d1[61]), "+f"(d1[62]),
+        "+f"(d1[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
+// The same with A from registers (wgmma_m64n128k16_rs's fragments).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d0)[64],
+                                                    float (&d1)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
+      "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, %134;\n"
+      "}\n"
+      : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]), "+f"(d0[4]),
+        "+f"(d0[5]), "+f"(d0[6]), "+f"(d0[7]), "+f"(d0[8]), "+f"(d0[9]),
+        "+f"(d0[10]), "+f"(d0[11]), "+f"(d0[12]), "+f"(d0[13]),
+        "+f"(d0[14]), "+f"(d0[15]), "+f"(d0[16]), "+f"(d0[17]),
+        "+f"(d0[18]), "+f"(d0[19]), "+f"(d0[20]), "+f"(d0[21]),
+        "+f"(d0[22]), "+f"(d0[23]), "+f"(d0[24]), "+f"(d0[25]),
+        "+f"(d0[26]), "+f"(d0[27]), "+f"(d0[28]), "+f"(d0[29]),
+        "+f"(d0[30]), "+f"(d0[31]), "+f"(d0[32]), "+f"(d0[33]),
+        "+f"(d0[34]), "+f"(d0[35]), "+f"(d0[36]), "+f"(d0[37]),
+        "+f"(d0[38]), "+f"(d0[39]), "+f"(d0[40]), "+f"(d0[41]),
+        "+f"(d0[42]), "+f"(d0[43]), "+f"(d0[44]), "+f"(d0[45]),
+        "+f"(d0[46]), "+f"(d0[47]), "+f"(d0[48]), "+f"(d0[49]),
+        "+f"(d0[50]), "+f"(d0[51]), "+f"(d0[52]), "+f"(d0[53]),
+        "+f"(d0[54]), "+f"(d0[55]), "+f"(d0[56]), "+f"(d0[57]),
+        "+f"(d0[58]), "+f"(d0[59]), "+f"(d0[60]), "+f"(d0[61]),
+        "+f"(d0[62]), "+f"(d0[63]), "+f"(d1[0]), "+f"(d1[1]),
+        "+f"(d1[2]), "+f"(d1[3]), "+f"(d1[4]), "+f"(d1[5]), "+f"(d1[6]),
+        "+f"(d1[7]), "+f"(d1[8]), "+f"(d1[9]), "+f"(d1[10]),
+        "+f"(d1[11]), "+f"(d1[12]), "+f"(d1[13]), "+f"(d1[14]),
+        "+f"(d1[15]), "+f"(d1[16]), "+f"(d1[17]), "+f"(d1[18]),
+        "+f"(d1[19]), "+f"(d1[20]), "+f"(d1[21]), "+f"(d1[22]),
+        "+f"(d1[23]), "+f"(d1[24]), "+f"(d1[25]), "+f"(d1[26]),
+        "+f"(d1[27]), "+f"(d1[28]), "+f"(d1[29]), "+f"(d1[30]),
+        "+f"(d1[31]), "+f"(d1[32]), "+f"(d1[33]), "+f"(d1[34]),
+        "+f"(d1[35]), "+f"(d1[36]), "+f"(d1[37]), "+f"(d1[38]),
+        "+f"(d1[39]), "+f"(d1[40]), "+f"(d1[41]), "+f"(d1[42]),
+        "+f"(d1[43]), "+f"(d1[44]), "+f"(d1[45]), "+f"(d1[46]),
+        "+f"(d1[47]), "+f"(d1[48]), "+f"(d1[49]), "+f"(d1[50]),
+        "+f"(d1[51]), "+f"(d1[52]), "+f"(d1[53]), "+f"(d1[54]),
+        "+f"(d1[55]), "+f"(d1[56]), "+f"(d1[57]), "+f"(d1[58]),
+        "+f"(d1[59]), "+f"(d1[60]), "+f"(d1[61]), "+f"(d1[62]),
+        "+f"(d1[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TRANS_B));
+}
+
 // --- host: tensor maps ----------------------------------------------------------
 
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -230,6 +403,23 @@ inline bool make_map_4d(CUtensorMap* map, CUtensorMapDataType type,
             CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// --- host: launch attributes ----------------------------------------------------
+
+// Raise a kernel's dynamic shared-memory cap once per device (`done`: a
+// bit per device, one word per kernel): decode launches hundreds of these
+// kernels a step, and the attribute call costs host time.
+inline cudaError_t allow_smem(const void* kernel, int bytes, unsigned& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 32 && (done >> dev & 1u)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && dev < 32) done |= 1u << dev;
+  return err;
 }
 
 }  // namespace hopper

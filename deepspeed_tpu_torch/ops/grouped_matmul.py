@@ -22,9 +22,13 @@ and ``_down_kernel``, :341) of ``csrc/grouped_matmul.cu``; backward
 ``grouped_dgdu`` (``_dgdu_rc_kernel``, :411, and ``_dgdu_kernel``, :366),
 ``grouped_dxs`` (``_dxs_kernel``, :488) and ``grouped_wgrad``
 (``_dw_pair_kernel``, :502, and the dwo product of both dgdu kernels) of
-``csrc/grouped_matmul_bwd.cu``. On CPU tensors each runs its plain PyTorch
-version, with the kernels' rounding points. An input the kernels do not
-take raises; nothing falls back.
+``csrc/grouped_matmul_bwd.cu``. ``grouped_down`` and ``grouped_dxs`` each
+have three forms, which :func:`plan` picks from the dtype and shape: fp32
+FMA, bf16 wgmma fed by a TMA ring (``csrc/grouped_wgmma.cuh``) where TMA
+can address every operand, and bf16 mma.sync otherwise; the wrappers count
+launches by form (:data:`form_launches`). On CPU tensors each kernel runs
+its plain PyTorch version, with the kernels' rounding points. An input the
+kernels do not take raises; nothing falls back.
 
 The two differentiable forms are the JAX package's: with ``w`` the combine
 weights are fused into the down product and the backward recomputes
@@ -39,7 +43,9 @@ row gets zeros).
 """
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+import re
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -51,7 +57,7 @@ op_builder.register("grouped_matmul", {
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
         ctypes.c_int),
     "dstt_grouped_down": (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
         ctypes.c_int),
     "dstt_error_string": ([ctypes.c_int], ctypes.c_char_p),
 })
@@ -60,7 +66,7 @@ op_builder.register("grouped_matmul_bwd", {
         [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
         ctypes.c_int),
     "dstt_grouped_dxs": (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
         ctypes.c_int),
     "dstt_grouped_wgrad": (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
@@ -74,6 +80,167 @@ KERNEL_BM = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: f columns per block of ``grouped_dgdu`` (the dw partials' tile count)
 DGDU_BN = {torch.float32: 32, torch.bfloat16: 64}
+
+#: the forms of ``grouped_down`` and ``grouped_dxs``, by the C code of each
+FORMS = {"fma": 0, "mma": 1, "wgmma": 2}
+#: launches of the two kernels by form since the last reset: the wrappers
+#: add one here and one to ``op_builder.launches`` at each launch
+form_launches: Dict[str, Dict[str, int]] = {
+    k: {f: 0 for f in FORMS} for k in ("grouped_down", "grouped_dxs")}
+
+
+def reset_form_launches() -> None:
+    for counts in form_launches.values():
+        for f in counts:
+            counts[f] = 0
+
+
+#: the wgmma form (``csrc/grouped_wgmma.cuh``): two 64-row layout tiles
+#: (128 rows) by 256 columns a block, k-steps of 64, one producer warp and
+#: two consumer warpgroups, a ring of up to 4 stages in the block's shared
+#: memory
+WG_BM, WG_BN, WG_BK, WG_THREADS = 128, 256, 64, 288
+WG_MAX_STAGES = 4
+#: shared memory a block may use on sm_90 (227 KB)
+SMEM_MAX = 232448
+#: the mma.sync and FMA kernels: 64 rows by (down, dxs) columns, k-steps of
+#: 32, 128 threads
+_OLD_BN = {("grouped_down", "mma"): 128, ("grouped_down", "fma"): 128,
+           ("grouped_dxs", "mma"): 128, ("grouped_dxs", "fma"): 64}
+_GRID_X_MAX, _GRID_Y_MAX = 2 ** 31 - 1, 65535
+
+
+class Tma(NamedTuple):
+    """One TMA tensor map of a wgmma launch, as the host encodes it:
+    dims and box innermost first, strides in bytes of dims 1..3."""
+    operand: str
+    dims: Tuple[int, int, int, int]
+    strides: Tuple[int, int, int]
+    box: Tuple[int, int, int, int]
+
+
+class Plan(NamedTuple):
+    """How one ``grouped_down`` or ``grouped_dxs`` call is launched
+    (:func:`plan`)."""
+    form: str                    # "fma" (fp32), "mma" or "wgmma" (bf16)
+    bm: int                      # rows a block: 64, or 128 (wgmma)
+    bn: int                      # output columns a block
+    bk: int                      # k a step
+    threads: int
+    row_blocks: int              # blocks over R_pad
+    col_tiles: int               # blocks over d
+    grid: Tuple[int, int]        # the launch grid (x, y): (row blocks,
+                                 # column tiles), wgmma (column tiles, row
+                                 # blocks)
+    k_steps: Tuple[int, ...]     # steps over each product's K, in order
+    stages: int                  # ring stages (wgmma), else 0
+    smem_bytes: int              # dynamic shared memory (wgmma), else 0
+    tma: Tuple[Tma, ...]         # the tensor maps (wgmma), else ()
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(kernel: str, dtype: torch.dtype, rows: int, d: int, f: int,
+         num_experts: int, aligned: bool = True) -> Plan:
+    """The launch plan of ``grouped_down`` (y [rows, d] from gate/up [rows,
+    f] and wo [E, f, d]) or ``grouped_dxs`` (dxs [rows, d] from dg/du
+    [rows, f] and wg/wi [E, d, f]), from the dtype and shape alone, as
+    ``csrc/grouped_matmul.cu`` and ``csrc/grouped_matmul_bwd.cu`` take it:
+
+    - fp32: the CUDA-core FMA kernel;
+    - bf16 where TMA can address every operand (f and d multiples of 8,
+      so every row stride is a multiple of 16 bytes, and ``aligned``:
+      16-byte-aligned data): the wgmma kernel fed by a TMA ring
+      (``csrc/grouped_wgmma.cuh``), 128 rows (two layout tiles) by 256
+      columns a block, the column tiles fastest; down walks ceil(f / 64) k-steps, dxs 2·ceil(f /
+      64): dg against wg[g], then du against wi[g] (a block whose two
+      tiles belong to two experts walks them once for each);
+    - any other bf16: the mma.sync kernel.
+
+    Raises ValueError for another kernel or dtype, a shape off the 64-row
+    tiles, or a grid past CUDA's limits."""
+    if kernel not in ("grouped_down", "grouped_dxs"):
+        raise ValueError(f"plan: no kernel {kernel!r}")
+    if rows < 0 or rows % KERNEL_BM or d <= 0 or f <= 0 \
+            or num_experts <= 0:
+        raise ValueError(f"plan({kernel}): rows={rows} (a multiple of "
+                         f"{KERNEL_BM}), d={d}, f={f}, E={num_experts}")
+    pairs = 2 if kernel == "grouped_dxs" else 1
+    if dtype == torch.float32:
+        form = "fma"
+    elif dtype == torch.bfloat16:
+        form = "wgmma" if f % 8 == 0 and d % 8 == 0 and aligned else "mma"
+    else:
+        raise ValueError(f"plan({kernel}): dtype {dtype}")
+    stages = smem = 0
+    tma: Tuple[Tma, ...] = ()
+    if form == "wgmma":
+        bm, bn, bk, threads = WG_BM, WG_BN, WG_BK, WG_THREADS
+        tile = KERNEL_BM * WG_BK * 2       # an A box [64 rows, 64 k]
+        a_boxes = (2 if kernel == "grouped_down" else 1) * bm // KERNEL_BM
+        stage = a_boxes * tile + bn * bk * 2
+        stages = min(WG_MAX_STAGES, (SMEM_MAX - 1024 - 64) // stage)
+        smem = stages * stage + 16 * stages + 1024
+        a_names = ("gate", "up") if kernel == "grouped_down" else ("dg", "du")
+        rb = rows * f * 2
+        tma = tuple(Tma(n, (f, rows, 1, 1), (f * 2, rb, rb),
+                        (bk, KERNEL_BM, 1, 1)) for n in a_names)
+        if kernel == "grouped_down":      # wo [E, f, d], MN-major boxes
+            mat = f * d * 2
+            tma += (Tma("wo", (d, f, num_experts, 1),
+                        (d * 2, mat, mat * num_experts), (64, bk, 1, 1)),)
+        else:                             # wg, wi [E, d, f], K-major boxes
+            mat = d * f * 2
+            tma += tuple(Tma(n, (f, d, num_experts, 1),
+                             (f * 2, mat, mat * num_experts),
+                             (bk, bn, 1, 1)) for n in ("wg", "wi"))
+    else:
+        bm, bn, bk, threads = KERNEL_BM, _OLD_BN[(kernel, form)], 32, 128
+    row_blocks, col_tiles = _cdiv(rows, bm), _cdiv(d, bn)
+    # wgmma: the column tiles fastest, so the blocks in flight share their
+    # row blocks' A tiles (read from device memory once)
+    grid = (col_tiles, row_blocks) if form == "wgmma" \
+        else (row_blocks, col_tiles)
+    if grid[0] > _GRID_X_MAX or grid[1] > _GRID_Y_MAX:
+        raise ValueError(f"plan({kernel}): grid {grid} exceeds CUDA's "
+                         f"limits for rows={rows}, d={d}")
+    return Plan(form, bm, bn, bk, threads, row_blocks, col_tiles, grid,
+                (_cdiv(f, bk),) * pairs, stages, smem, tma)
+
+
+#: kernel names of the two sources → their entry point (the wgmma forms
+#: before their mma.sync and FMA twins, whose names they contain)
+_KERNEL_ENTRIES = (("grouped_down_wgmma_kernel", "grouped_down"),
+                   ("grouped_dxs_wgmma_kernel", "grouped_dxs"),
+                   ("grouped_dxs_kernel", "grouped_dxs"),
+                   ("grouped_dgdu_kernel", "grouped_dgdu"),
+                   ("grouped_wgrad_kernel", "grouped_wgrad"))
+#: grouped_gemm_kernel<T, kMMA, kGLU, ...>: kGLU is down, else gate_up
+#: (demangled, or mangled as ...Lb<kMMA>ELb<kGLU>E...)
+_GEMM_GLU = re.compile(r"grouped_gemm_kernel(?:<[^,<>]+, *\w+, *(\w+)"
+                       r"|I\w*?Lb[01]ELb([01])E)")
+
+
+def kernel_entry(name: str) -> Optional[str]:
+    """The entry point (``grouped_gate_up``, ``grouped_down``,
+    ``grouped_dgdu``, ``grouped_dxs``, ``grouped_wgrad``) whose CUDA kernel
+    a profiler row names, or None: how the profile tools class the grouped
+    kernels' device time."""
+    for key, entry in _KERNEL_ENTRIES:
+        if key in name:
+            return entry
+    m = _GEMM_GLU.search(name)
+    if m:
+        return "grouped_down" if (m.group(1) or m.group(2)) in ("true", "1") \
+            else "grouped_gate_up"
+    return None
+
+
+def _aligned16(*tensors: Optional[torch.Tensor]) -> bool:
+    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -413,21 +580,24 @@ def gate_up_kernel(xs, wg, wi, group_of_tile, live_tiles, bm: int
 
 def down_kernel(gate, up, wo, group_of_tile, live_tiles, bm: int,
                 w: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch ``grouped_down`` on CUDA tensors → y [R_pad, d] in gate's
-    dtype, scaled per row by ``w`` when given; rows of dead tiles are left
-    unwritten."""
+    """Launch ``grouped_down`` on CUDA tensors in the form of :func:`plan`
+    → y [R_pad, d] in gate's dtype, scaled per row by ``w`` when given;
+    rows of dead tiles are left unwritten."""
     r_pad, f = gate.shape
-    y = torch.empty((r_pad, wo.shape[-1]), dtype=gate.dtype,
-                    device=gate.device)
+    e, _, d = wo.shape
+    pl = plan("grouped_down", gate.dtype, r_pad, d, f, e,
+              _aligned16(gate, up, wo))
+    y = torch.empty((r_pad, d), dtype=gate.dtype, device=gate.device)
     lib = op_builder.load("grouped_matmul")
     err = lib.dstt_grouped_down(
         gate.data_ptr(), up.data_ptr(), wo.data_ptr(),
         w.data_ptr() if w is not None else None, y.data_ptr(),
-        group_of_tile.data_ptr(), live_tiles.data_ptr(), r_pad, f,
-        wo.shape[-1], bm, _DTYPES[gate.dtype],
+        group_of_tile.data_ptr(), live_tiles.data_ptr(), r_pad, f, d, bm, e,
+        _DTYPES[gate.dtype], FORMS[pl.form],
         torch.cuda.current_stream(gate.device).cuda_stream)
-    op_builder.check(lib, err, "grouped_down")
+    op_builder.check(lib, err, f"grouped_down ({pl.form})")
     op_builder.launches["grouped_down"] += 1
+    form_launches["grouped_down"][pl.form] += 1
     return y
 
 
@@ -468,19 +638,23 @@ def dgdu_kernel(dz, wo, group_of_tile, live_tiles, bm: int, *, xs=None,
 
 def dxs_kernel(dg, du, wg, wi, group_of_tile, live_tiles, bm: int
                ) -> torch.Tensor:
-    """Launch ``grouped_dxs`` on CUDA tensors → dxs [R_pad, d] in dg's
-    dtype; rows of dead tiles are left unwritten."""
+    """Launch ``grouped_dxs`` on CUDA tensors in the form of :func:`plan`
+    → dxs [R_pad, d] in dg's dtype; rows of dead tiles are left
+    unwritten."""
     r_pad, f = dg.shape
-    d = wg.shape[1]
+    e, d, _ = wg.shape
+    pl = plan("grouped_dxs", dg.dtype, r_pad, d, f, e,
+              _aligned16(dg, du, wg, wi))
     dxs = torch.empty((r_pad, d), dtype=dg.dtype, device=dg.device)
     lib = op_builder.load("grouped_matmul_bwd")
     err = lib.dstt_grouped_dxs(
         dg.data_ptr(), du.data_ptr(), wg.data_ptr(), wi.data_ptr(),
         dxs.data_ptr(), group_of_tile.data_ptr(), live_tiles.data_ptr(),
-        r_pad, d, f, bm, _DTYPES[dg.dtype],
+        r_pad, d, f, bm, e, _DTYPES[dg.dtype], FORMS[pl.form],
         torch.cuda.current_stream(dg.device).cuda_stream)
-    op_builder.check(lib, err, "grouped_dxs")
+    op_builder.check(lib, err, f"grouped_dxs ({pl.form})")
     op_builder.launches["grouped_dxs"] += 1
+    form_launches["grouped_dxs"][pl.form] += 1
     return dxs
 
 

@@ -1,0 +1,204 @@
+"""The launch plan of grouped_down and grouped_dxs (deepspeed_tpu_torch/ops/
+grouped_matmul.py ``plan``), which picks each call's kernel form from its
+dtype and shape: fp32 the FMA kernel, bf16 the wgmma kernel fed by a TMA
+ring where TMA can address every operand, any other bf16 the mma.sync
+kernel. Pure Python: the CUDA kernels run only on the card
+(chip_smoke.py phase 3 holds every form against the plain versions), so
+these tests hold the plan to TMA's rules and to the C side's constants.
+
+Shapes: the path shapes (Mixtral 8x7B and Qwen1.5-MoE prefill, the 1B/8e
+and Mixtral training steps) and the awkward ones of the card's checks (d
+100/130/256/1032, f 70/150/200/384/1416, E 4-60, a single token per
+expert), in both dtypes.
+"""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu_torch.ops import grouped_matmul as tg
+from deepspeed_tpu_torch.ops import op_builder
+
+CSRC = Path(tg.__file__).resolve().parent / "csrc"
+BM = 64
+
+#: (S tokens, top-k, E, d, f): the path shapes, then the awkward ones
+SHAPES = [(2048, 2, 8, 4096, 14336), (2048, 4, 60, 2048, 1408),
+          (16384, 2, 8, 1024, 2816), (100, 2, 4, 100, 150),
+          (300, 2, 4, 256, 200), (200, 2, 6, 128, 384),
+          (150, 2, 5, 128, 130), (90, 3, 4, 130, 70),
+          (400, 2, 6, 512, 384), (512, 4, 60, 256, 192),
+          (600, 2, 8, 1032, 1416), (1, 1, 4, 256, 64)]
+KERNELS = ("grouped_down", "grouped_dxs")
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _rows(s, k, e):
+    """R_pad of aligned_dispatch at bm 64."""
+    return -(-s * k // BM) * BM + e * BM
+
+
+def _expected_form(dtype, d, f, aligned=True):
+    if dtype == torch.float32:
+        return "fma"
+    return "wgmma" if d % 8 == 0 and f % 8 == 0 and aligned else "mma"
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s,k,e,d,f", SHAPES)
+def test_plan_form_grid_and_k_steps(kernel, dtype, s, k, e, d, f):
+    """The form follows the dtype and TMA's rules; the grid covers every
+    64-row tile of R_pad (the wgmma form two a block) and every column of
+    d exactly once, within CUDA's limits; the k-steps cover f once per product (down one,
+    dxs two: dg·wgᵀ then du·wiᵀ)."""
+    rows = _rows(s, k, e)
+    pl = tg.plan(kernel, dtype, rows, d, f, e)
+    assert pl.form == _expected_form(dtype, d, f)
+    assert pl.bm == (2 * BM if pl.form == "wgmma" else BM)
+    assert (pl.row_blocks - 1) * pl.bm < rows <= pl.row_blocks * pl.bm
+    assert (pl.col_tiles - 1) * pl.bn < d <= pl.col_tiles * pl.bn
+    # the wgmma form walks the column tiles fastest (blockIdx.x)
+    assert pl.grid == ((pl.col_tiles, pl.row_blocks) if pl.form == "wgmma"
+                       else (pl.row_blocks, pl.col_tiles))
+    assert pl.grid[0] <= 2 ** 31 - 1 and pl.grid[1] <= 65535
+    assert len(pl.k_steps) == (2 if kernel == "grouped_dxs" else 1)
+    for steps in pl.k_steps:
+        assert (steps - 1) * pl.bk < f <= steps * pl.bk
+    if pl.form == "wgmma":
+        assert (pl.bn, pl.bk, pl.threads) == (256, 64, 288)
+    else:
+        assert pl.threads == 128 and pl.bk == 32 and not pl.tma
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("s,k,e,d,f", [x for x in SHAPES
+                                       if x[3] % 8 == 0 and x[4] % 8 == 0])
+def test_plan_tma_maps_and_ring(kernel, s, k, e, d, f):
+    """The wgmma form's tensor maps obey TMA's rules (strides multiples of
+    16 bytes below 2^40, box dims at most 256, a 128-byte inner box for
+    the 128-byte swizzle), view each operand at its own shape with the
+    expert as a dimension of its own, and the ring fits a block's 227 KB
+    with at least two stages."""
+    rows = _rows(s, k, e)
+    pl = tg.plan(kernel, torch.bfloat16, rows, d, f, e)
+    assert pl.form == "wgmma"
+    for m in pl.tma:
+        assert all(st % 16 == 0 and st < 2 ** 40 for st in m.strides), m
+        assert all(1 <= b <= 256 for b in m.box), m
+        assert m.box[0] * 2 == 128, m
+        assert m.strides[0] == m.dims[0] * 2, m
+        assert m.strides[1] == m.strides[0] * m.dims[1], m
+    views = {m.operand: m.dims for m in pl.tma}
+    if kernel == "grouped_down":
+        assert views == {"gate": (f, rows, 1, 1), "up": (f, rows, 1, 1),
+                         "wo": (d, f, e, 1)}
+        # gate and up: a 64-row box for each half of the block's rows;
+        # wo's MN-major boxes: 64 k by 64 n, bn / 64 of them a step
+        box_bytes = 2 * (pl.bm // 64) * 64 * 64 * 2 \
+            + (pl.bn // 64) * 64 * 64 * 2
+    else:
+        assert views == {"dg": (f, rows, 1, 1), "du": (f, rows, 1, 1),
+                         "wg": (f, d, e, 1), "wi": (f, d, e, 1)}
+        assert {m.box for m in pl.tma if m.operand in ("wg", "wi")} == {
+            (64, pl.bn, 1, 1)}
+        box_bytes = (pl.bm // 64) * 64 * 64 * 2 + pl.bn * 64 * 2
+    assert 2 <= pl.stages <= tg.WG_MAX_STAGES
+    assert pl.smem_bytes >= pl.stages * box_bytes
+    assert pl.smem_bytes <= tg.SMEM_MAX == 227 * 1024
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("d,f,aligned", [(100, 150, True), (1032, 150, True),
+                                         (1030, 1416, True),
+                                         (1024, 2816, False)])
+def test_plan_bf16_off_tma_takes_mma(kernel, d, f, aligned):
+    """bf16 that TMA cannot address (a row stride off 16 bytes, or data
+    off 16-byte alignment) takes the mma.sync kernel."""
+    pl = tg.plan(kernel, torch.bfloat16, 1024, d, f, 8, aligned)
+    assert pl.form == "mma" and pl.stages == 0 and pl.tma == ()
+
+
+def test_plan_refuses_what_no_kernel_takes():
+    with pytest.raises(ValueError, match="no kernel"):
+        tg.plan("grouped_gate_up", torch.bfloat16, 1024, 256, 256, 8)
+    with pytest.raises(ValueError, match="dtype"):
+        tg.plan("grouped_down", torch.float16, 1024, 256, 256, 8)
+    with pytest.raises(ValueError, match="a multiple of 64"):
+        tg.plan("grouped_dxs", torch.bfloat16, 1000, 256, 256, 8)
+    with pytest.raises(ValueError, match="CUDA's limits"):
+        tg.plan("grouped_down", torch.float32, 64, 128 * 65536, 8, 1)
+    with pytest.raises(ValueError, match="CUDA's limits"):
+        tg.plan("grouped_dxs", torch.bfloat16, 128 * 65536, 256, 8, 1)
+
+
+def _constant(text: str, name: str) -> int:
+    m = re.search(rf"\b{name}\s*=\s*(\d+)", text)
+    assert m, name
+    return int(m.group(1))
+
+
+def test_plan_matches_the_cuda_sources():
+    """The plan's tile, ring and form codes are the C side's."""
+    header = (CSRC / "grouped_wgmma.cuh").read_text()
+    assert _constant(header, "BM") == tg.WG_BM
+    assert _constant(header, "BN") == tg.WG_BN
+    assert _constant(header, "BK") == tg.WG_BK
+    assert _constant(header, "kConsumers") + 32 == tg.WG_THREADS
+    assert _constant(header, "kSmemMax") == tg.SMEM_MAX
+    assert "kFit < 4 ? kFit : 4" in header and tg.WG_MAX_STAGES == 4
+    for src in ("grouped_matmul.cu", "grouped_matmul_bwd.cu"):
+        text = (CSRC / src).read_text()
+        assert {f: _constant(text, {"fma": "kFma", "mma": "kMma",
+                                    "wgmma": "kWgmma"}[f])
+                for f in tg.FORMS} == tg.FORMS
+
+
+@pytest.mark.parametrize("name,entry", [
+    ("void (anonymous namespace)::grouped_gemm_kernel<__nv_bfloat16, true, "
+     "false, 2, 64>((anonymous namespace)::Operands<__nv_bfloat16>)",
+     "grouped_gate_up"),
+    ("void (anonymous namespace)::grouped_gemm_kernel<float, false, true, 1, "
+     "128>((anonymous namespace)::Operands<float>)", "grouped_down"),
+    ("_ZN12_GLOBAL__N_119grouped_gemm_kernelI13__nv_bfloat16Lb1ELb1ELi1ELi128"
+     "EEEvNS_8OperandsIT_EE", "grouped_down"),
+    ("(anonymous namespace)::grouped_down_wgmma_kernel(dstt::grouped::Maps, "
+     "dstt::grouped::Epilogue)", "grouped_down"),
+    ("(anonymous namespace)::grouped_dxs_wgmma_kernel(dstt::grouped::Maps, "
+     "dstt::grouped::Epilogue)", "grouped_dxs"),
+    ("void (anonymous namespace)::grouped_dxs_kernel<__nv_bfloat16>(x)",
+     "grouped_dxs"),
+    ("void (anonymous namespace)::grouped_wgrad_kernel<float, true>(x)",
+     "grouped_wgrad"),
+    ("nvjet_hsh_256x128_64x4_1x2_h_bz_coopA_NNT", None)])
+def test_kernel_entry_names_every_form(name, entry):
+    """The profile tools class device time by the entry point that
+    ``kernel_entry`` reads off a kernel's name."""
+    assert tg.kernel_entry(name) == entry
+
+
+def test_cpu_tensors_launch_nothing():
+    """On CPU tensors the FFN and its backward run the plain versions:
+    no kernel launch and no form is counted."""
+    rng = np.random.default_rng(0)
+    s, k, e, d, f = 12, 2, 3, 16, 24
+    topi = np.stack([rng.choice(e, size=k, replace=False)
+                     for _ in range(s)], 1).astype(np.int32)
+    topv = rng.random((k, s)).astype(np.float32)
+    tok, w, got, sizes, pos, live = tg.aligned_dispatch(
+        torch.from_numpy(topi), torch.from_numpy(topv), e, BM)
+    x = torch.from_numpy(rng.standard_normal((s + 1, d)).astype(np.float32))
+    xs = tg.gather_rows(x, tok, pos)
+    ws = [torch.from_numpy((rng.standard_normal(sh) * 0.1).astype(
+        np.float32)).requires_grad_() for sh in ((e, d, f), (e, d, f),
+                                                 (e, f, d))]
+    op_builder.reset_launches()
+    tg.reset_form_launches()
+    y = tg.grouped_glu_ffn(xs, *ws, got, sizes, live, bm=BM, w=w)
+    y.sum().backward()
+    assert all(v == 0 for v in op_builder.launches.values())
+    assert all(c == 0 for v in tg.form_launches.values() for c in v.values())
+    assert all(p.grad is not None for p in ws)

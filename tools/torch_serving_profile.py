@@ -30,7 +30,9 @@ in the same process (an engine at a time, its weights drawn quantized by
 ``weight_quant``), so a bf16 and a quantized decode are compared within
 one run on one card.
 
-Classes: the port's kernels by name (K1, K2, the grouped GEMMs K4, the
+Classes: the port's kernels by name (K1, K2, the grouped GEMMs K4a
+gate_up and K4b/c down in every form, as ``ops/grouped_matmul.kernel_entry``
+names them, the
 quantized matmuls K5a (int8/fp8), K5b (int4/fp6, dense and batched) and
 K5c (the batched int8/fp8 experts): the format from the instantiation's
 name, K5c from a profiler label this tool puts around ``qmatmul_batched``),
@@ -68,7 +70,14 @@ _QBATCHED = "dstt::qmatmul_batched"
 _K5A, _K5C = "quantized matmul (K5a)", "quantized matmul batched (K5c)"
 
 
+#: K4's two kernels by entry point, which ``grouped_matmul.kernel_entry``
+#: reads off a kernel's name (every form)
+_K4 = {"grouped_gate_up": "grouped gate_up (K4a)",
+       "grouped_down": "grouped down (K4b/c)"}
+
+
 def _classify(name: str) -> str:
+    from deepspeed_tpu_torch.ops.grouped_matmul import kernel_entry
     low = name.lower()
     m = re.search(r"qmm_(?:fma|splitk|wgmma)_kernel<(\d)", name)
     if m:
@@ -82,8 +91,9 @@ def _classify(name: str) -> str:
         return "paged_attention (K2)"
     if "flash_fwd_" in name:
         return "flash_attention_fwd (K1)"
-    if "grouped_gemm_kernel" in name:
-        return "grouped GEMM (K4: gate_up + down)"
+    entry = kernel_entry(name)
+    if entry in _K4:
+        return _K4[entry]
     if any(s in low for s in ("gemm", "cutlass", "nvjet", "sm90_xmma",
                               "cublas")):
         return "gemm (cuBLAS)"

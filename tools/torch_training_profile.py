@@ -16,9 +16,9 @@ device time / wall time of that same window (one stream, so the device
 time cannot exceed the wall time).
 
 Classes: the port's kernels by name (K1 ``flash_fwd_*``, K3
-``flash_bwd_*``: its delta pre-pass, dq and dk/dv kernels, K4
-``grouped_gemm_kernel`` and the backward grouped kernels
-``grouped_dgdu_kernel``, ``grouped_dxs_kernel``, ``grouped_wgrad_kernel``),
+``flash_bwd_*``: its delta pre-pass, dq and dk/dv kernels; the grouped
+kernels by entry point, gate_up (K4a), down (K4b/c), dgdu, dxs and wgrad,
+whatever their form, as ``ops/grouped_matmul.kernel_entry`` names them),
 cuBLAS GEMMs by name, and the rest by the code that launched it: "ce" for
 the chunked cross-entropy's non-GEMM kernels (its forward, its recompute
 and the backward of its ops, linked through the autograd sequence
@@ -47,17 +47,20 @@ _CE, _OPT, _MOE = "dstt::ce", "dstt::optimizer", "dstt::moe_dispatch"
 #: for the two with a backward, by the backward of its ops)
 _LABELS = {_OPT: "optimizer", _CE: "cross_entropy (non-GEMM)",
            _MOE: "moe routing/dispatch/gathers (non-GEMM)"}
-_GROUPED = {"grouped_dgdu_kernel": "grouped_dgdu",
-            "grouped_dxs_kernel": "grouped_dxs",
-            "grouped_wgrad_kernel": "grouped_wgrad",
-            "grouped_gemm_kernel": "grouped_gate_up/down (K4)"}
+#: the grouped kernels' classes by entry point, which
+#: ``grouped_matmul.kernel_entry`` reads off a kernel's name (every form)
+_GROUPED = {"grouped_gate_up": "grouped_gate_up (K4a)",
+            "grouped_down": "grouped_down (K4b/c)",
+            "grouped_dgdu": "grouped_dgdu", "grouped_dxs": "grouped_dxs",
+            "grouped_wgrad": "grouped_wgrad"}
 
 
 def _kernel_class(name: str) -> str:
+    from deepspeed_tpu_torch.ops.grouped_matmul import kernel_entry
     low = name.lower()
-    for key, cls in _GROUPED.items():
-        if key in name:
-            return cls
+    entry = kernel_entry(name)
+    if entry is not None:
+        return _GROUPED[entry]
     if "flash_fwd_" in name:
         return "flash_attention_fwd (K1)"
     if "flash_bwd_" in name:
