@@ -18,21 +18,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    dropless MoE FFN (gate/up, down) in bf16 at the Mixtral 8x7B and
    Qwen1.5-MoE prefill shapes (2048 tokens, a random router) and the
    1B/8e training forward (16,384 tokens), in bf16 at edge shapes on
-   grouped_down's wgmma form (an empty expert, all rows on one expert, 60
-   experts, f off 64 and d off 256, w given and not), on its mma.sync form
-   (d and f off TMA's 8) and in fp32 at small shapes (w given and not, an
-   empty expert, all rows on one expert, d and f off the tile and off the
-   16-byte vector), each kernel alone and the whole FFN, with
+   their wgmma forms (an empty expert, all rows on one expert, 60
+   experts, f off 64 and d off 256, w given and not), on their mma.sync
+   forms (d and f off TMA's 8) and in fp32 at small shapes (w given and
+   not, an empty expert, all rows on one expert, d and f off the tile and
+   off the 16-byte vector), each kernel alone and the whole FFN, with
    ``torch._grouped_mm`` (or a dense matmul of the same rows) as the
    yardstick; and the backward grouped kernels (dgdu with gate/up
    recomputed and saved, dxs, wgrad) in bf16 at the 1B/8e MoE bench's and
    Mixtral 8x7B's training shapes (16,384 and 2,048 tokens, top-2 of 8),
-   at the same bf16 edges (grouped_dxs's wgmma form) and in fp32 at
-   awkward shapes, each kernel fed the plain version's inputs, then the
-   whole backward through autograd; each grouped_down and grouped_dxs
-   line prints the launch plan and asserts the form it launched; the
-   weight-only quantized matmuls (K5a int8/fp8, K5b int4/fp6, K5c the
-   batched int8/fp8 experts) in bf16 at Llama-3 8B's linears and head
+   at the same bf16 edges (the wgmma forms of grouped_dxs and
+   grouped_wgrad, scaled and not; an expert with no row gets a zero dW)
+   and in fp32 at awkward shapes, each kernel fed the plain version's
+   inputs, then the whole backward through autograd; each line prints the
+   launch plans of gate_up, down, dxs and wgrad and asserts the form each
+   launched; the weight-only quantized matmuls (K5a int8/fp8, K5b
+   int4/fp6, K5c the batched int8/fp8 experts) in bf16 at Llama-3 8B's linears and head
    (decode M 16 and prefill M 2048; the head with fp32 output) in all four
    formats and at Mixtral 8x7B's experts on capacity buffers (G 8, M 16 and
    512), each line with the launch plan (split-K at M ≤ 64, wgmma above)
@@ -86,8 +87,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    steps of 8 x 2048 tokens; and Mixtral 8x7B at full width and 2 of its
    32 layers (1 x 2048 tokens), each with ms per step, tokens/s, peak
    memory, loss and aux loss per step, and the launches read around it
-   (grouped_down's and grouped_dxs's by form: the bf16 main paths launch
-   only their wgmma form).
+   (grouped_gate_up's, grouped_down's, grouped_dxs's and grouped_wgrad's
+   by form: the bf16 main paths launch only their wgmma forms).
 
 Every phase prints one JSON line; any failure raises, so the script exits
 non-zero. Without CUDA, or outside a checkout of the repository, it exits
@@ -116,10 +117,11 @@ MOE_RUNS = (
     ("qwen1.5-moe-a2.7b", "qwen2_moe", "a2.7b", {}, 128,
      [256, 512, 300, 480, 384, 256, 400, 500], 16, 0))
 GROUPED_KERNELS = ("grouped_gate_up", "grouped_down")
-#: grouped_down's and grouped_dxs's launches by form over the main paths
-#: (MoE serving, MoE training), each run counted from 0
+#: the planned grouped kernels' launches by form over the main paths (MoE
+#: serving, MoE training), each run counted from 0
 GROUPED_FORM_LAUNCHES = {k: {"fma": 0, "mma": 0, "wgmma": 0}
-                         for k in ("grouped_down", "grouped_dxs")}
+                         for k in ("grouped_gate_up", "grouped_down",
+                                   "grouped_dxs", "grouped_wgrad")}
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense bf16 tensor cores
@@ -559,12 +561,21 @@ def _grouped_mm_ms(a, b, ends):
 
 
 def _plan_line(pl) -> dict:
-    """The launch plan of a grouped_down / grouped_dxs call, for a line."""
+    """The launch plan of a planned grouped kernel's call, for a line."""
     return {"form": pl.form, "grid": list(pl.grid),
             "row_blocks": pl.row_blocks, "col_tiles": pl.col_tiles,
             "bm": pl.bm, "bn": pl.bn, "bk": pl.bk,
             "k_steps": list(pl.k_steps), "stages": pl.stages,
-            "smem_bytes": pl.smem_bytes}
+            "smem_bytes": pl.smem_bytes, "band": pl.band}
+
+
+def _counted_forms(kernels, before, form, n):
+    """Each of ``kernels`` launched n more times, all under ``form``,
+    since ``before`` (a copy of tg.form_launches)."""
+    from deepspeed_tpu_torch.ops import grouped_matmul as tg
+    for k in kernels:
+        assert tg.form_launches[k] == dict(
+            before[k], **{form: before[k][form] + n}), (k, tg.form_launches)
 
 
 def _tflops(flops: float, ms: float) -> float:
@@ -576,8 +587,8 @@ def check_grouped(name, rng, s, k, e, d, f, dtype, fused, kind="router",
     """grouped_gate_up and grouped_down on the card against their plain
     versions: each kernel alone (down fed the plain gate/up), then the
     whole FFN through grouped_glu_ffn, on the rows below live_tiles * bm
-    (the rest is unspecified). grouped_down's plan must pick ``form``, and
-    both of its launches here must count under it."""
+    (the rest is unspecified). The plans of both kernels must pick
+    ``form``, and both launches of each here must count under it."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops import grouped_matmul as tg
@@ -587,15 +598,16 @@ def check_grouped(name, rng, s, k, e, d, f, dtype, fused, kind="router",
     w = w if fused else None
     end = int(live[0]) * GMM_BM
     pl = tg.plan("grouped_down", dtype, xs.shape[0], d, f, e)
+    pl_gu = tg.plan("grouped_gate_up", dtype, xs.shape[0], d, f, e)
     res = {"phase": "kernels", "check": name, "kernel": "grouped_glu_ffn",
            "dtype": str(dtype).replace("torch.", ""),
            "shape": {"S": s, "k": k, "E": e, "d": d, "f": f, "bm": GMM_BM,
                      "R_pad": xs.shape[0], "live_rows": end,
                      "experts_used": used, "w": fused, "routing": kind},
-           "down_plan": _plan_line(pl)}
-    assert pl.form == form, (name, pl)
+           "gate_up_plan": _plan_line(pl_gu), "down_plan": _plan_line(pl)}
+    assert pl.form == form and pl_gu.form == form, (name, pl, pl_gu)
     before = dict(tg.op_builder.launches)
-    before_form = dict(tg.form_launches["grouped_down"])
+    before_form = {k: dict(v) for k, v in tg.form_launches.items()}
     gate, up = tg.gate_up_kernel(xs, wg, wi, got, live, GMM_BM)
     rg, ru = tg.gate_up_ref(xs, wg, wi, sizes, live, GMM_BM)
     y = tg.down_kernel(rg, ru, wo, got, live, GMM_BM, w)
@@ -605,8 +617,7 @@ def check_grouped(name, rng, s, k, e, d, f, dtype, fused, kind="router",
     torch.cuda.synchronize()
     for kname in GROUPED_KERNELS:
         assert tg.op_builder.launches[kname] == before[kname] + 2, kname
-    assert tg.form_launches["grouped_down"] == dict(
-        before_form, **{form: before_form[form] + 2}), tg.form_launches
+    _counted_forms(GROUPED_KERNELS, before_form, form, 2)
     ref = tg.grouped_glu_ffn_ref(xs, wg, wi, wo, got, sizes, live,
                                  bm=GMM_BM, w=w)
     _hold_pair(res, "gate", gate[:end], rg[:end])
@@ -672,8 +683,9 @@ def check_grouped(name, rng, s, k, e, d, f, dtype, fused, kind="router",
 def phase_grouped(rng):
     """Phase 3's grouped GEMM checks: bf16 at the path shapes (Mixtral
     8x7B and Qwen1.5-MoE prefill, the 1B/8e training forward), bf16 edges
-    on the wgmma form of grouped_down (an empty expert, all rows on one
-    expert, 60 experts, f off 64 and d off 256, with w and without), then
+    on the wgmma forms of grouped_gate_up and grouped_down (an empty
+    expert, all rows on one expert, 60 experts, f off 64 and d off 256,
+    with w and without), then
     the mma.sync form (d, f off TMA's 8) and fp32 (the FMA form) at awkward
     shapes. Returns the timed path-shape lines."""
     import torch
@@ -742,8 +754,11 @@ def check_grouped_bwd(name, rng, s, k, e, d, f, dtype, fused,
     combine weights' gradient dw2) and without; grouped_dxs and the three
     grouped_wgrad products fed the plain dg/du/h; then the whole backward
     through autograd of grouped_glu_ffn. Rows at or past live_tiles * bm
-    are unspecified in dg/du/h/dxs and skipped. grouped_dxs's plan must
-    pick ``form``, and both of its launches here must count under it."""
+    are unspecified in dg/du/h/dxs and skipped. The plans of grouped_dxs
+    and of the three grouped_wgrad products must pick ``form``, and every
+    launch of both here must count under it. With ``kind`` "empty" the dW
+    products also run with one expert more than the layout has, which owns
+    no row: its dW must come back zero."""
     import torch
     from deepspeed_tpu_torch.ops import grouped_matmul as tg
     from deepspeed_tpu_torch.parallel.moe import GMM_BM as bm
@@ -761,9 +776,16 @@ def check_grouped_bwd(name, rng, s, k, e, d, f, dtype, fused,
                      "experts_used": used, "w": fused, "routing": kind}}
     pl = tg.plan("grouped_dxs", dtype, xs.shape[0], d, f, e)
     res["dxs_plan"] = _plan_line(pl)
-    assert pl.form == form, (name, pl)
+    # dwg, dwi (a = xs [R, d], b = dg/du [R, f]); dwo (a = h, b = dz, w)
+    pl_w = tg.plan("grouped_wgrad", dtype, xs.shape[0], d, f, e)
+    pl_wo = tg.plan("grouped_wgrad", dtype, xs.shape[0], f, d, e,
+                    scaled=fused)
+    res["wgrad_plan"], res["wgrad_dwo_plan"] = (_plan_line(pl_w),
+                                                _plan_line(pl_wo))
+    assert pl.form == pl_w.form == pl_wo.form == form, (name, pl, pl_w,
+                                                        pl_wo)
     before = dict(tg.op_builder.launches)
-    before_form = dict(tg.form_launches["grouped_dxs"])
+    before_form = {k: dict(v) for k, v in tg.form_launches.items()}
     rc = dict(xs=xs, wg=wg, wi=wi)
     rg, ru = tg.gate_up_ref(xs, wg, wi, sizes, live, bm)
     saved = dict(gate=rg, up=ru)
@@ -784,6 +806,16 @@ def check_grouped_bwd(name, rng, s, k, e, d, f, dtype, fused,
                           ("dwo", rh, dz, w)):
         _hold_pair(res, key, tg.wgrad_kernel(a, b, got, live, e, bm, sc),
                    tg.wgrad_ref(a, b, sizes, live, bm, sc))
+    n_wgrad = 6
+    if kind == "empty":
+        # expert e owns no tile: its block issues no load and writes zeros
+        sizes1 = torch.cat([sizes, sizes.new_zeros(1)])
+        for key, a, b, sc in (("dwg", xs, rdg, None), ("dwo", rh, dz, w)):
+            out = tg.wgrad_kernel(a, b, got, live, e + 1, bm, sc)
+            _hold_pair(res, key + "_rowless_expert", out,
+                       tg.wgrad_ref(a, b, sizes1, live, bm, sc))
+            assert not out[e].any(), (name, key)
+        n_wgrad += 2
     # the whole backward through autograd: one dgdu, one dxs, three wgrad
     leaves = [t.clone().requires_grad_() for t in (xs, wg, wi, wo)]
     inputs = leaves + ([w.clone().requires_grad_()] if fused else [])
@@ -797,8 +829,8 @@ def check_grouped_bwd(name, rng, s, k, e, d, f, dtype, fused,
     assert after["grouped_dxs"] - mid["grouped_dxs"] == 1, after
     assert after["grouped_wgrad"] - mid["grouped_wgrad"] == 3, after
     assert after["grouped_dgdu"] - before["grouped_dgdu"] == 3, after
-    assert tg.form_launches["grouped_dxs"] == dict(
-        before_form, **{form: before_form[form] + 2}), tg.form_launches
+    _counted_forms(("grouped_dxs",), before_form, form, 2)
+    _counted_forms(("grouped_wgrad",), before_form, form, n_wgrad)
     dxs_ref = tg.dxs_ref(rdg, rdu, wg, wi, sizes, live, bm)
     _hold_pair(res, "autograd_dxs", grads[0][:end], dxs_ref[:end])
     for key, gr, (a, b, sc) in zip(
@@ -877,8 +909,9 @@ def check_grouped_bwd(name, rng, s, k, e, d, f, dtype, fused,
 def phase_grouped_bwd(rng):
     """Phase 3's backward checks: bf16 at the two training shapes (the
     repo's 1B/8e MoE bench, 16,384 tokens; Mixtral 8x7B, 2,048 tokens;
-    top-2 of 8), bf16 edges on the wgmma form of grouped_dxs (an empty
-    expert, all rows on one expert, 60 experts, f off 64 and d off 256),
+    top-2 of 8), bf16 edges on the wgmma forms of grouped_dxs and
+    grouped_wgrad (an empty expert and one with no row, all rows on one
+    expert, 60 experts, f off 64 and d off 256, w given and not),
     then a bf16 shape off TMA's 8 (the mma.sync form) and fp32 (the FMA
     form) at awkward shapes. Returns the timed path-shape lines."""
     import torch
@@ -898,6 +931,8 @@ def phase_grouped_bwd(rng):
              "router", "wgmma"),
             ("gmm_bwd_bf16_f1416_d1032", 600, 2, 8, 1032, 1416, bf16, True,
              "router", "wgmma"),
+            ("gmm_bwd_bf16_f1416_d1032_unscaled", 600, 2, 8, 1032, 1416,
+             bf16, False, "router", "wgmma"),
             ("gmm_bwd_bf16_odd_unscaled", 100, 2, 4, 100, 150, bf16, False,
              "router", "mma"),
             ("gmm_bwd_f32_fused", 300, 2, 4, 256, 200, f32, True, "router",
@@ -1518,10 +1553,10 @@ def phase_serve():
 
 
 def _grouped_forms(launches) -> dict:
-    """grouped_down's and grouped_dxs's launches by form since the last
-    reset, added to GROUPED_FORM_LAUNCHES. A bf16 main path (every shape
-    of the repo's MoE models is TMA-aligned) launches the wgmma form
-    alone."""
+    """The planned grouped kernels' launches by form (gate_up, down, dxs,
+    wgrad) since the last reset, added to GROUPED_FORM_LAUNCHES. A bf16
+    main path (every shape of the repo's MoE models is TMA-aligned)
+    launches the wgmma forms alone."""
     from deepspeed_tpu_torch.ops import grouped_matmul as tg
     forms = {k: dict(v) for k, v in tg.form_launches.items()}
     for k, v in forms.items():

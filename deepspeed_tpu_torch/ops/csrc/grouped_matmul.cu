@@ -21,16 +21,21 @@
 // stay unspecified. The grid covers the static worst case R_pad; the host
 // never learns how many tiles are live.
 //
-// Forms. ops/grouped_matmul.py `plan` picks grouped_down's form from the
-// dtype and shape and passes it in; the entry point refuses a form the
+// Forms. ops/grouped_matmul.py `plan` picks each kernel's form from the
+// dtype and shape and passes it in; the entry points refuse a form the
 // dtype does not take, and nothing falls back:
 //   fma   (fp32): plain fp32 FMA on the CUDA cores, the instantiation the
 //         parity checks hold to 1e-4;
 //   wgmma (bf16 where TMA can address every operand: f and d multiples of
-//         8, 16-byte-aligned gate, up and wo): grouped_wgmma.cuh — 128 x
-//         256 tiles, a TMA ring, h formed in registers as wgmma's A;
+//         8, 16-byte-aligned xs, wg, wi (gate_up) or gate, up and wo
+//         (down)): grouped_wgmma.cuh — a TMA ring, two consumer
+//         warpgroups on wgmma m64n256k16; gate_up: 128 rows by 128 columns
+//         of gate and of up a block (wg's and wi's columns side by side as
+//         one 256-column B), the column tiles fastest, or in bands of
+//         row blocks where an expert's weights outgrow L2 (`band`, from
+//         plan);
+//         down: 128 x 256 tiles, h formed in registers as wgmma's A;
 //   mma   (any other bf16): mma.sync m16n8k16 from register-staged tiles.
-// grouped_gate_up keeps fp32 FMA and bf16 mma.sync.
 //
 // The mma.sync and FMA kernels: 64 rows x 64 columns of gate and of up
 // (gate_up), or 64 rows x 128 columns of y (down), per block; k-steps of
@@ -47,9 +52,10 @@
 // 1.46 ms at the bf16 tensor-core peak against ~0.9 ms for the bytes, so
 // operations bound them. mma.sync from register-staged tiles issues and
 // moves too much through shared memory to approach that: grouped_down ran
-// at 127 TFLOP/s (3.772 ms at Mixtral), gate_up at ~200. The wgmma form of
-// down takes ~1.4 ms there (~350 TFLOP/s; PERF.md §6), held by the bytes
-// of gate, up and wo each step moves (grouped_wgmma.cuh). The mma.sync and
+// at 127 TFLOP/s (3.772 ms at Mixtral), gate_up at ~200 (4.719 ms). The
+// wgmma form of down takes ~1.4 ms there (~350 TFLOP/s; PERF.md §6), held
+// by the bytes of gate, up and wo each step moves; gate_up's moves 48 KB
+// a 4.2 MFLOP step, as dxs's does (grouped_wgmma.cuh). The mma.sync and
 // FMA kernels walk the row tiles fastest (blockIdx.x), so the blocks in
 // flight share each expert's weight tiles in L2.
 #include "grouped_tile.cuh"
@@ -318,13 +324,47 @@ int launch(Operands<T> op, int rows, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// the kernel forms of dstt_grouped_down (ops/grouped_matmul.py FORMS)
+// the kernel forms of dstt_grouped_gate_up and dstt_grouped_down
+// (ops/grouped_matmul.py FORMS)
 constexpr int kFma = 0, kMma = 1, kWgmma = 2;
 
 __global__ void __launch_bounds__(dstt::grouped::kThreads, 1)
     grouped_down_wgmma_kernel(const __grid_constant__ dstt::grouped::Maps maps,
         const dstt::grouped::Epilogue ep) {
-  dstt::grouped::grouped_wgmma<true, 1, 1>(maps, ep);
+  dstt::grouped::grouped_wgmma<dstt::grouped::kAGlu, 1, 1>(maps, ep);
+}
+
+__global__ void __launch_bounds__(dstt::grouped::kThreads, 1)
+    grouped_gate_up_wgmma_kernel(
+        const __grid_constant__ dstt::grouped::Maps maps,
+        const dstt::grouped::Epilogue ep) {
+  dstt::grouped::grouped_wgmma<dstt::grouped::kAK, 1, 1, true>(maps, ep);
+}
+
+int gate_up_wgmma(const void* xs, const void* wg, const void* wi,
+                  void* gate, void* up, const int* gt, const int* lt,
+                  int rows, int d, int f, int bm, int num_experts, int band,
+                  cudaStream_t st) {
+  namespace G = dstt::grouped;
+  const void* tma[3] = {xs, wg, wi};
+  if (rows == 0) return (int)cudaSuccess;
+  if (rows < 0 || bm <= 0 || bm % 64 || rows % bm || num_experts <= 0 ||
+      band <= 0 || !G::tma_ok(d, f, tma, 3))
+    return (int)cudaErrorInvalidValue;
+  G::Maps maps;
+  // xs [rows, d]: boxes [64 rows, 64 k]; wg, wi [E, d, f]: boxes [64 k,
+  // 64 n] of one expert (the MN-major B)
+  if (!G::map_rows(&maps.a[0], xs, rows, d) ||
+      !G::map_experts(&maps.b[0], wg, num_experts, d, f, G::BK, 64) ||
+      !G::map_experts(&maps.b[1], wi, num_experts, d, f, G::BK, 64))
+    return (int)cudaErrorInvalidValue;
+  maps.a[1] = maps.a[0];
+  const G::Epilogue ep{static_cast<__nv_bfloat16*>(gate),
+                       static_cast<__nv_bfloat16*>(up), nullptr, gt, lt, f,
+                       d, bm, band};
+  static unsigned smem_done = 0;
+  return G::launch<G::kAK, G::BN / 2>(grouped_gate_up_wgmma_kernel, maps, ep,
+                                      rows, smem_done, st);
 }
 
 int down_wgmma(const void* gate, const void* up, const void* wo,
@@ -345,12 +385,12 @@ int down_wgmma(const void* gate, const void* up, const void* wo,
       !G::map_experts(&maps.b[0], wo, num_experts, f, d, G::BK, 64))
     return (int)cudaErrorInvalidValue;
   maps.b[1] = maps.b[0];
-  const G::Epilogue ep{static_cast<__nv_bfloat16*>(y),
+  const G::Epilogue ep{static_cast<__nv_bfloat16*>(y), nullptr,
                        static_cast<const __nv_bfloat16*>(w), gt, lt, d, f,
-                       bm};
+                       bm, 1};
   static unsigned smem_done = 0;
-  return G::launch<true>(grouped_down_wgmma_kernel, maps, ep, rows,
-                            smem_done, st);
+  return G::launch<G::kAGlu, G::BN>(grouped_down_wgmma_kernel, maps, ep,
+                                    rows, smem_done, st);
 }
 
 }  // namespace
@@ -359,15 +399,20 @@ int down_wgmma(const void* gate, const void* up, const void* wo,
 // its launch (cudaErrorInvalidValue for an unsupported dtype or shape).
 //
 // gate, up [rows, f] = xs [rows, d] · wg[g], wi[g] ([E, d, f]) per tile.
+// form: 0 = fp32 FMA, 1 = bf16 mma.sync, 2 = bf16 wgmma (d and f multiples
+// of 8, 16-byte-aligned xs, wg and wi; `band` row blocks a band of its
+// raster); any other pairing of dtype and form is refused.
 extern "C" int dstt_grouped_gate_up(const void* xs, const void* wg,
                                     const void* wi, void* gate, void* up,
                                     const void* group_of_tile,
                                     const void* live_tiles, int rows, int d,
-                                    int f, int bm, int dtype, void* stream) {
+                                    int f, int bm, int num_experts,
+                                    int dtype, int form, int band,
+                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* gt = static_cast<const int*>(group_of_tile);
   const int* lt = static_cast<const int*>(live_tiles);
-  if (dtype == 0) {
+  if (dtype == 0 && form == kFma) {
     using T = float;
     Operands<T> op{static_cast<const T*>(xs), nullptr,
                    {static_cast<const T*>(wg), static_cast<const T*>(wi)},
@@ -375,7 +420,7 @@ extern "C" int dstt_grouped_gate_up(const void* xs, const void* wg,
                    gt, lt, d, f, bm, 0, 0};
     return launch<T, false, 2, BN_GATE_UP>(op, rows, st);
   }
-  if (dtype == 1) {
+  if (dtype == 1 && form == kMma) {
     using T = __nv_bfloat16;
     Operands<T> op{static_cast<const T*>(xs), nullptr,
                    {static_cast<const T*>(wg), static_cast<const T*>(wi)},
@@ -383,6 +428,9 @@ extern "C" int dstt_grouped_gate_up(const void* xs, const void* wg,
                    gt, lt, d, f, bm, 0, 0};
     return launch<T, false, 2, BN_GATE_UP>(op, rows, st);
   }
+  if (dtype == 1 && form == kWgmma)
+    return gate_up_wgmma(xs, wg, wi, gate, up, gt, lt, rows, d, f, bm,
+                         num_experts, band, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -23,6 +23,7 @@
 //                    live_tiles on the device, keeping the sum in fp32
 //                    registers: one write, no atomics, deterministic. dW is
 //                    written in the weights' dtype, rounded once (:908-911);
+//                    an expert with no live row gets zeros;
 //   grouped_dxs    ← _dxs_kernel (:488): dxs = dg·wg[g]ᵀ + du·wi[g]ᵀ, one
 //                    fp32 accumulator over both products, on the weights'
 //                    native [E, d, f] layout.
@@ -40,13 +41,16 @@
 // ldmatrix, transposed or not by that orientation (mma_step), feeds
 // mma.sync m16n8k16 bf16 with fp32 accumulation; fp32 runs plain FMA on
 // the CUDA cores (the instantiation the parity checks hold to 1e-4).
-// Offsets are 64-bit. grouped_dxs has three forms, picked by
-// ops/grouped_matmul.py `plan` from the dtype and shape and passed in (the
-// entry point refuses a form the dtype does not take; nothing falls back):
-// fma (fp32), wgmma (bf16 where TMA can address dg, du, wg and wi: f and d
-// multiples of 8, 16-byte-aligned data; grouped_wgmma.cuh, 128 x 256 tiles
-// fed by a TMA ring, both products into one accumulator), mma (any other
-// bf16). dgdu and wgrad keep fp32 FMA and bf16 mma.sync.
+// Offsets are 64-bit. grouped_dxs and grouped_wgrad have three forms,
+// picked by ops/grouped_matmul.py `plan` from the dtype and shape and
+// passed in (the entry points refuse a form the dtype does not take;
+// nothing falls back): fma (fp32), wgmma (bf16 where TMA can address every
+// operand: its two widths multiples of 8, 16-byte-aligned data;
+// grouped_wgmma.cuh, fed by a TMA ring — dxs: 128 x 256 tiles, both
+// products into one accumulator; wgrad: 128 x 256 tiles of dW a block, the
+// expert's rows as K, aᵀ as wgmma's transposed A; the scaled product run
+// transposed with round(dz·w) formed in registers), mma (any other bf16).
+// dgdu keeps fp32 FMA and bf16 mma.sync.
 //
 // What bounds them on the H100: at the Mixtral 8x7B training shape (2048
 // tokens, top-2, d 4096, f 14336) dgdu does 6·d·f FLOP per row (two
@@ -57,7 +61,9 @@
 // tiles without TMA, wgmma or a multi-stage ring, so instruction issue and
 // shared-memory traffic are their real limit (dxs 163 TFLOP/s at the
 // 1B/8e shape). dxs's wgmma form runs at ~630 TFLOP/s there (PERF.md §6),
-// held by the bytes each step moves (grouped_wgmma.cuh).
+// held by the bytes each step moves (grouped_wgmma.cuh); wgrad's moves the
+// same 48 KB a 4.2 MFLOP step, and at Mixtral (~8 steps a block) its ring
+// fill and epilogue weigh too.
 #include "grouped_tile.cuh"
 #include "grouped_wgmma.cuh"
 
@@ -477,17 +483,6 @@ struct WgradArgs {
   int vec_m, vec_n;
 };
 
-// first index in the non-decreasing got[0, n) not below v
-__device__ __forceinline__ int lower_bound(const int* got, int n, int v) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) / 2;
-    if (got[mid] < v) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
-}
-
 template <typename T, bool kScale>
 __global__ void __launch_bounds__(kThreads)
 grouped_wgrad_kernel(const WgradArgs<T> a) {
@@ -600,13 +595,66 @@ int wgrad(WgradArgs<T> a, int rows, int num_experts, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// the kernel forms of dstt_grouped_dxs (ops/grouped_matmul.py FORMS)
+// the kernel forms of dstt_grouped_dxs and dstt_grouped_wgrad
+// (ops/grouped_matmul.py FORMS)
 constexpr int kFma = 0, kMma = 1, kWgmma = 2;
 
 __global__ void __launch_bounds__(dstt::grouped::kThreads, 1)
     grouped_dxs_wgmma_kernel(const __grid_constant__ dstt::grouped::Maps maps,
         const dstt::grouped::Epilogue ep) {
-  dstt::grouped::grouped_wgmma<false, 0, 2>(maps, ep);
+  dstt::grouped::grouped_wgmma<dstt::grouped::kAK, 0, 2>(maps, ep);
+}
+
+__global__ void __launch_bounds__(dstt::grouped::kThreads, 1)
+    grouped_wgrad_wgmma_kernel(
+        const __grid_constant__ dstt::grouped::Maps maps,
+        const dstt::grouped::WgradEpilogue ep) {
+  dstt::grouped::grouped_wgrad_wgmma<false>(maps, ep);
+}
+
+__global__ void __launch_bounds__(dstt::grouped::kThreads, 1)
+    grouped_wgrad_scaled_wgmma_kernel(
+        const __grid_constant__ dstt::grouped::Maps maps,
+        const dstt::grouped::WgradEpilogue ep) {
+  dstt::grouped::grouped_wgrad_wgmma<true>(maps, ep);
+}
+
+// out [E, m, n] from a [rows, m], b [rows, n] (and scale [rows]); with
+// scale the kernel computes outᵀ = round(b·scale)ᵀ·a, A formed from b
+int wgrad_wgmma(const void* a, const void* b, const void* scale, void* out,
+                const int* gt, const int* lt, int rows, int m, int n,
+                int num_experts, int bm, cudaStream_t st) {
+  namespace G = dstt::grouped;
+  const bool sc = scale != nullptr;
+  const void* tma[3] = {a, b, scale};
+  if (!tiles_ok(rows, bm) || num_experts <= 0 ||
+      !G::tma_ok(m, n, tma, sc ? 3 : 2))
+    return kInvalid;
+  // no row at all: every expert's dW is zero (TMA maps need rows > 0)
+  if (rows == 0)
+    return (int)cudaMemsetAsync(out, 0, (size_t)num_experts * m * n * 2, st);
+  G::Maps maps;
+  const void* pa = sc ? b : a;
+  const void* pb = sc ? a : b;
+  const int ma = sc ? n : m, nb = sc ? m : n;
+  // A's and B's sources [rows, ma], [rows, nb]: boxes [64 rows, 64 columns]
+  // (each MN-major: one row a k); w [rows]: boxes of 64
+  if (!G::map_rows(&maps.a[0], pa, rows, ma) ||
+      !G::map_rows(&maps.b[0], pb, rows, nb) ||
+      (sc && !G::map_vec(&maps.a[1], scale, rows)))
+    return kInvalid;
+  if (!sc) maps.a[1] = maps.a[0];
+  maps.b[1] = maps.b[0];
+  const G::WgradEpilogue ep{static_cast<__nv_bfloat16*>(out), gt, lt,
+                            rows / bm, ma, nb, bm};
+  if (sc) {
+    static unsigned smem_done = 0;
+    return G::launch_wgrad<G::kAScaled>(grouped_wgrad_scaled_wgmma_kernel,
+                                        maps, ep, num_experts, smem_done, st);
+  }
+  static unsigned smem_done = 0;
+  return G::launch_wgrad<G::kAMN>(grouped_wgrad_wgmma_kernel, maps, ep,
+                                  num_experts, smem_done, st);
 }
 
 int dxs_wgmma(const void* dg, const void* du, const void* wg, const void* wi,
@@ -625,11 +673,11 @@ int dxs_wgmma(const void* dg, const void* du, const void* wg, const void* wi,
       !G::map_experts(&maps.b[0], wg, num_experts, d, f, G::BN, G::BK) ||
       !G::map_experts(&maps.b[1], wi, num_experts, d, f, G::BN, G::BK))
     return kInvalid;
-  const G::Epilogue ep{static_cast<__nv_bfloat16*>(dxs_), nullptr, gt, lt,
-                       d, f, bm};
+  const G::Epilogue ep{static_cast<__nv_bfloat16*>(dxs_), nullptr, nullptr,
+                       gt, lt, d, f, bm, 1};
   static unsigned smem_done = 0;
-  return G::launch<false>(grouped_dxs_wgmma_kernel, maps, ep, rows,
-                             smem_done, st);
+  return G::launch<G::kAK, G::BN>(grouped_dxs_wgmma_kernel, maps, ep, rows,
+                                  smem_done, st);
 }
 
 template <typename T>
@@ -710,27 +758,33 @@ extern "C" int dstt_grouped_dxs(const void* dg, const void* du,
 
 // out [E, m, n] = per expert e, Σ over e's live rows r of a[r]ᵀ · b'[r],
 // a [rows, m], b [rows, n], b' = round(b · scale[r]) when scale is given.
+// form: 0 = fp32 FMA, 1 = bf16 mma.sync, 2 = bf16 wgmma (m and n multiples
+// of 8, 16-byte-aligned a, b and scale); any other pairing of dtype and
+// form is refused.
 extern "C" int dstt_grouped_wgrad(const void* a_, const void* b,
                                   const void* scale, void* out_,
                                   const void* group_of_tile,
                                   const void* live_tiles, int rows, int m,
                                   int n, int num_experts, int bm, int dtype,
-                                  void* stream) {
+                                  int form, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* gt = static_cast<const int*>(group_of_tile);
   const int* lt = static_cast<const int*>(live_tiles);
-  if (dtype == 0) {
+  if (dtype == 0 && form == kFma) {
     using T = float;
     WgradArgs<T> a{in<T>(a_), in<T>(b), in<T>(scale), out<T>(out_), gt, lt,
                    0, m, n, bm, 0, 0};
     return wgrad<T>(a, rows, num_experts, st);
   }
-  if (dtype == 1) {
+  if (dtype == 1 && form == kMma) {
     using T = __nv_bfloat16;
     WgradArgs<T> a{in<T>(a_), in<T>(b), in<T>(scale), out<T>(out_), gt, lt,
                    0, m, n, bm, 0, 0};
     return wgrad<T>(a, rows, num_experts, st);
   }
+  if (dtype == 1 && form == kWgmma)
+    return wgrad_wgmma(a_, b, scale, out_, gt, lt, rows, m, n, num_experts,
+                       bm, st);
   return kInvalid;
 }
 

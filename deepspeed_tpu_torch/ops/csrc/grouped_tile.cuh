@@ -1,8 +1,8 @@
 // Tile helpers shared by the grouped GEMM kernels of the dropless MoE FFN
 // (grouped_matmul.cu, forward; grouped_matmul_bwd.cu, backward;
 // grouped_wgmma.cuh, their wgmma forms): dtype conversion, the GLU,
-// masked 16-byte row loads, and the tensor-core fragments (ldmatrix,
-// mma.sync m16n8k16 bf16 with fp32 accumulation).
+// masked 16-byte row loads, the tensor-core fragments (ldmatrix, mma.sync
+// m16n8k16 bf16 with fp32 accumulation) and an expert's first tile.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -105,6 +105,18 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// first index in the non-decreasing got[0, n) not below v: where expert v's
+// tiles start in group_of_tile
+__device__ __forceinline__ int lower_bound(const int* got, int n, int v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (got[mid] < v) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
 }
 
 inline bool aligned16(const void* p) {

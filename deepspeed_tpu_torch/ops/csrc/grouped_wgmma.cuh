@@ -1,22 +1,29 @@
 // Grouped GEMMs of the dropless MoE FFN on Hopper's warpgroup MMA, fed by a
-// ring of TMA loads — the bf16 "wgmma" form of grouped_down
-// (grouped_matmul.cu) and grouped_dxs (grouped_matmul_bwd.cu). Each .cu
-// builds into its own library, so the shared device code lives here, on
-// the mbarrier, TMA and wgmma pieces of tma_wgmma.cuh. The template takes
-// the A prologue (kGLU), B's orientation (TRANS_B) and the number of (A, B)
-// pairs summed along K (PAIRS); grouped_gate_up's two B operands and two
-// sums would be a second accumulator pair on the same ring.
+// ring of TMA loads — the bf16 "wgmma" form of grouped_gate_up and
+// grouped_down (grouped_matmul.cu), grouped_dxs and grouped_wgrad
+// (grouped_matmul_bwd.cu). Each .cu builds into its own library, so the
+// shared device code lives here, on the mbarrier, TMA and wgmma pieces of
+// tma_wgmma.cuh. The row-tile template (grouped_wgmma) takes how a consumer
+// forms A from a stage (AF), B's orientation (TRANS_B), the number of (A,
+// B) pairs summed along K (PAIRS) and whether B's two halves are two
+// matrices with an output each (kTWO); the dW template (grouped_wgrad_wgmma)
+// walks one expert's rows as its K.
 //
-// What a block computes. Rows are sorted by expert and every expert starts
-// on a bm-row layout tile (bm a multiple of 64), so each 64-row tile
-// belongs to one expert, group_of_tile[row / bm]. A block owns 128 rows
-// (two consecutive 64-row tiles) by BN = 256 output columns and sums
+// What a row-tile block computes. Rows are sorted by expert and every
+// expert starts on a bm-row layout tile (bm a multiple of 64), so each
+// 64-row tile belongs to one expert, group_of_tile[row / bm]. A block owns
+// 128 rows (two consecutive 64-row tiles) by BN = 256 columns of B and sums
 //     acc += A_p[rows, k] · B_p[g][k, columns]
 // over its pairs p, in fp32; the epilogue scales each row by w (fp32, when
 // given), rounds to bf16 and stores, masked past N and past the live rows.
-//   grouped_down: PAIRS 1, A = h = silu(gate)·up (kGLU: formed in the block
-//                 from the gate and up tiles, see below), B = wo[g] [K = f,
-//                 N = d] with N contiguous (MN-major: TRANS_B 1);
+//   grouped_gate_up: PAIRS 1, A = xs, B = wg[g] columns n0 .. + 127 beside
+//                 wi[g]'s same columns, both [K = d, N = f] with N
+//                 contiguous (MN-major: TRANS_B 1; kTWO): one m64n256k16 a
+//                 k16 slice gives gate (acc0) and up (acc1) from one read of
+//                 the xs tile; a block covers 128 columns of each output;
+//   grouped_down: PAIRS 1, A = h = silu(gate)·up (kAGlu: formed in the
+//                 block from the gate and up tiles, see below), B = wo[g]
+//                 [K = f, N = d] with N contiguous (TRANS_B 1);
 //   grouped_dxs:  PAIRS 2, A = dg then du, B = wg[g] then wi[g], each read
 //                 as [N = d, K = f] with K contiguous (K-major, wgmma's
 //                 canonical B: TRANS_B 0) — one sum over both products.
@@ -28,47 +35,79 @@
 // expert's B, then rows 64-127 against the second's. The layout keeps bm
 // 64, so an expert pads at most 63 rows.
 //
+// What a dW block computes (grouped_wgrad: dW[e] = Σ over e's live rows r
+// of a[r]ᵀ·b[r]). K is the rows: the block (expert e = blockIdx.z, 128 of
+// A's columns, 256 of B's) walks rows [r0, r1), e's tiles of group_of_tile
+// (lower_bound) clipped to live_tiles, one 64-row box a step, so no step
+// needs a mask. A = aᵀ is MN-major (a is [rows, M] with m contiguous: the
+// wgmma's transposed A, kAMN), B = b MN-major, both from 2-D [rows, C]
+// maps. An expert with no live row issues no load and writes zeros. The
+// scaled product dwo = hᵀ·round(dz·w) keeps its rounding point by running
+// transposed: dwoᵀ = round(dz·w)ᵀ·h, A formed in registers from the dz box
+// (ldmatrix .trans, times w[row] in fp32, rounded to bf16: kAScaled, the RS
+// form), B = h, and the epilogue stores the tile transposed through shared
+// memory so the writes stay whole rows. Grid (B tiles, A tiles, expert),
+// the expert slowest: one expert's blocks (88 at the 1B/8e shape) run
+// together and read its rows from device memory about once.
+//
 // Block and ring: one producer warp and two consumer warpgroups (288
 // threads, one block a SM). The producer's lane 0 keeps a ring of up to 4
-// stages of 64-deep k-steps in flight (dxs 4 of 48 KB, down 3 of 64 KB),
-// each completing on a "full" mbarrier; each consumer warpgroup releases a
-// stage on its "empty" mbarrier once its products of it have completed
-// (wgmma.wait_group 1 keeps one step's products in flight). A stage holds
+// stages of 64-deep k-steps in flight (dxs, gate_up and wgrad 4 of 48 KB,
+// down 3 of 64 KB), each completing on a "full" mbarrier; each consumer
+// warpgroup releases a stage on its "empty" mbarrier once its products of
+// it have completed (wgmma.wait_group 1 keeps one step's products in
+// flight). A stage holds
 //   - A: a [64 rows, 64 k] box for each 64-row half of a 2-D view [R_pad,
-//     K] (gate and up for down), 128-byte swizzled, K-major;
+//     K] (gate and up for down), 128-byte swizzled, K-major; for wgrad a
+//     [64 rows (k), 64 m] box for each 64-column half of A, MN-major;
 //   - B: [256 n, 64 k] K-major in one box of a view [E, d, f] (dxs), or
-//     four [64 k, 64 n] boxes of a view [E, f, d] (down: the MN-major
-//     layout, 8 KB between 64-column blocks), 128-byte swizzled. The
-//     expert is a dimension of its own, so no box reads into the next
-//     expert, and TMA's zero fill covers the K tail (f % 64) and the N
-//     tail (d % 256): loads need no masks.
+//     four [64 k, 64 n] boxes of a view [E, K, N] (down, gate_up: the
+//     MN-major layout, 8 KB between 64-column blocks) or of a 2-D [rows,
+//     N] view (wgrad), 128-byte swizzled. The expert is a dimension of its
+//     own, so no box reads into the next expert, and TMA's zero fill
+//     covers the K tail (K % 64) and the N tail: loads need no masks;
+//   - scaled wgrad: the step's 64 values of w beside the stages.
 // Unsplit, consumer warpgroup i owns rows 64·i .. + 63 by all 256 columns:
 // one wgmma m64n256k16 a k16 slice. Split, both take the pass's 64 rows,
-// warpgroup i columns 128·i .. + 127 (m64n128k16).
+// warpgroup i columns 128·i .. + 127 (m64n128k16; gate_up: warpgroup 0 gate,
+// 1 up).
 //
-// down's prologue (kGLU): each consumer warp reads its 16 rows of the gate
+// down's prologue (kAGlu): each consumer warp reads its 16 rows of the gate
 // and up boxes with ldmatrix (the 128-byte swizzle applied to its
 // addresses), forms h = silu(g)·u in fp32 with the hardware exp and divide
 // (as the mma.sync kernel does), rounds it to bf16 straight into wgmma's A
 // fragments, and the wgmma take A from registers (the RS form): h never
 // reaches shared memory, and no proxy fence or barrier sits in the loop.
 // Two register buffers of A fragments alternate, so a step's h is formed
-// while the previous step's products run.
+// while the previous step's products run. The scaled wgrad does the same
+// with round(dz·w).
 //
 // What bounds it (H100 SXM, 989 TFLOP/s bf16, 3.35 TB/s). The products
 // (2·rows·d·f a pair) bound the work: down at Mixtral (2048 tokens, top-2,
 // d 4096, f 14336) 481 GFLOP, 0.486 ms; dxs at the 1B/8e training shape
 // (16,384 tokens, d 1024, f 2816) 378 GFLOP, 0.382 ms. Two things hold
-// this kernel, measured with tools/grouped_wgmma_variants.py: the bytes
-// from device memory (the grid walks the column tiles fastest, so each A
-// tile is read once; row blocks fastest re-read all of A once per column
+// these kernels, measured with tools/grouped_wgmma_variants.py: the bytes
+// from device memory (down and dxs walk the column tiles fastest, so each
+// A tile is read once; row blocks fastest re-read all of A once per column
 // tile and ran 1.15-1.4x slower), and the bytes a stage moves through
 // shared memory at a roughly fixed rate a SM: dxs's 48 KB a 4.2 MFLOP step
 // run at ~630 TFLOP/s at 1B/8e, down's 64 KB (gate and up) at ~350 at
 // Mixtral (the same GEMM with one A operand ran 1.4x faster). The GLU's
 // exp and divide, formed again for every column tile, cost ~17 % of down;
 // a wgmma m64n256k16 a k16 slice beats two m64n128k16, and 32-deep steps
-// lose to 64-deep ones. Figures: PERF.md §6.
+// lose to 64-deep ones. gate_up and wgrad move 48 KB a 4.2 MFLOP step, as
+// dxs does. gate_up's weights outgrow the L2 at Mixtral (235 MB an expert,
+// ~4.5 row blocks an expert): with the column tiles fastest only ~1 row
+// block of its 112 column tiles is in flight and every row block streams
+// its expert's weights again (2.935 ms), so there gate_up walks bands of
+// row blocks (the rows of a band fastest, then its column tiles; `band`
+// from ops/grouped_matmul.py plan: as many row blocks as keep their xs
+// within 16 MB of L2): 1.946 ms, rows fastest 2.233. Where an expert's
+// weights fit that share (Qwen, 1B/8e) the column tiles go fastest (Qwen
+// 0.399 ms against 0.493 in bands). wgrad at Mixtral has only ~8 k-steps a
+// block (512 rows an expert), so ring fill and the 64 KB epilogue of each
+// of its 14,336 blocks weigh (~350 TFLOP/s against ~590 at 1B/8e). Figures:
+// PERF.md §6.
 #pragma once
 
 #include "grouped_tile.cuh"
@@ -80,15 +119,23 @@ namespace grouped {
 namespace hw = dstt::hopper;
 
 constexpr int BM = 128;                     // rows a block: two 64-row tiles
-constexpr int BN = 256;                     // columns a block
+constexpr int BN = 256;                     // columns of B a block
 constexpr int BK = 64;                      // k a step (128 bytes of bf16)
 constexpr int kConsumers = 256;             // two consumer warpgroups
 constexpr int kThreads = kConsumers + 32;   // and one producer warp
 constexpr int kSmemMax = 232448;            // a block's shared memory
 constexpr int kTile = 64 * BK * 2;          // a box [64 rows, 64 k]: 8 KB
 
+// How a consumer warpgroup takes wgmma's A from a stage
+constexpr int kAK = 0;       // K-major boxes, shared memory (dxs, gate_up)
+constexpr int kAMN = 1;      // MN-major boxes, shared memory (wgrad: aᵀ)
+constexpr int kAGlu = 2;     // silu(gate)·up in registers (down)
+constexpr int kAScaled = 3;  // round(a·w[k]) of an MN-major box, in
+                             // registers (wgrad's scaled product)
+
 // The tensor maps of one launch: A_p and B_p for each pair p (down: a[0]
-// gate, a[1] up, b[0] wo; dxs: a = dg, du; b = wg, wi).
+// gate, a[1] up, b[0] wo; dxs: a = dg, du; b = wg, wi; gate_up: a[0] xs,
+// b = wg, wi; wgrad: a[0] A's source, a[1] w when scaled, b[0] B).
 struct Maps {
   CUtensorMap a[2];
   CUtensorMap b[2];
@@ -96,25 +143,40 @@ struct Maps {
 
 struct Epilogue {
   __nv_bfloat16* out;            // [rows, N]
+  __nv_bfloat16* out2;           // gate_up's up [rows, N], else nullptr
   const __nv_bfloat16* w;        // per-row scale [rows], or nullptr
   const int* group_of_tile;
   const int* live_tiles;
   int N, K, bm;                  // K: the depth of one pair
+  int band;                      // row blocks a band of the raster
 };
 
-template <bool kGLU>
+// grouped_wgrad: out [E, MA, NB] = per expert Aᵀ-side · B over its rows, or
+// (scaled) out [E, NB, MA], the tile stored transposed
+struct WgradEpilogue {
+  __nv_bfloat16* out;
+  const int* group_of_tile;
+  const int* live_tiles;
+  int n_tiles;                   // rows / bm
+  int MA, NB, bm;                // columns of A's and B's sources
+};
+
+template <int AF>
 struct Cfg {
+  static constexpr bool kRS = AF == kAGlu || AF == kAScaled;  // A in regs
   // A: two 64-row boxes (rows 0-63, 64-127) of each A operand read a step
-  static constexpr int AHALF = kTile * (kGLU ? 2 : 1);
+  static constexpr int AHALF = kTile * (AF == kAGlu ? 2 : 1);
   static constexpr int ABYTES = 2 * AHALF;
   static constexpr int BBYTES = BN * BK * 2;                  // 32 KB
   static constexpr int STAGE = ABYTES + BBYTES;               // 1 KB-aligned
+  static constexpr int WBYTES = AF == kAScaled ? BK * 2 : 0;  // w a step
   // as many stages as fit, up to 4, beside the barriers and the slack that
   // aligns the base to 1024 bytes (the swizzle's atom)
-  static constexpr int kFit = (kSmemMax - 1024 - 64) / STAGE;
+  static constexpr int kFit = (kSmemMax - 1024 - 64) / (STAGE + WBYTES);
   static constexpr int kStages = kFit < 4 ? kFit : 4;
   static_assert(kStages >= 2, "no room for a two-stage ring");
-  static constexpr int SMEM = kStages * STAGE + 16 * kStages + 1024;
+  static constexpr int SMEM = kStages * (STAGE + WBYTES) + 16 * kStages
+                              + 1024;
 };
 
 // h = silu(g)·u of a bf16 pair, in fp32, rounded to bf16
@@ -126,13 +188,21 @@ __device__ __forceinline__ uint32_t glu2(uint32_t g, uint32_t u) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
+// (a.x·w.x, a.y·w.y) of a bf16 pair in fp32, rounded to bf16
+__device__ __forceinline__ uint32_t scale2(uint32_t a, float2 w) {
+  const float2 x = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&a));
+  const __nv_bfloat162 r = __floats2bfloat162_rn(x.x * w.x, x.y * w.y);
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
 // acc (a 64 x 128 accumulator of one warpgroup) → out rows row0 + 16w +
 // lane/4 + 8h (w: the warp in its group), columns col0 + 8i + 2(lane%4) +
 // {0, 1}, times w[row] in fp32 when given, rounded to bf16; rows at or past
 // `live_rows` and columns at or past N are not written (N is a multiple of
 // 8: both columns of a pair or neither).
 __device__ __forceinline__ void store_acc(const float (&acc)[64],
-                                          const Epilogue& ep, int row0,
+                                          __nv_bfloat16* out, int N,
+                                          const __nv_bfloat16* w, int row0,
                                           int col0, long long live_rows) {
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   col0 += (lane & 3) * 2;
@@ -140,12 +210,12 @@ __device__ __forceinline__ void store_acc(const float (&acc)[64],
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + warp * 16 + (lane >> 2) + 8 * h;
     if (row >= live_rows) continue;
-    const float sc = ep.w != nullptr ? __bfloat162float(ep.w[row]) : 1.0f;
-    __nv_bfloat16* o = ep.out + (long long)row * ep.N;
+    const float sc = w != nullptr ? __bfloat162float(w[row]) : 1.0f;
+    __nv_bfloat16* o = out + (long long)row * N;
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const int col = col0 + 8 * i;
-      if (col < ep.N)
+      if (col < N)
         *reinterpret_cast<__nv_bfloat162*>(o + col) = __floats2bfloat162_rn(
             acc[4 * i + 2 * h] * sc, acc[4 * i + 2 * h + 1] * sc);
     }
@@ -154,37 +224,40 @@ __device__ __forceinline__ void store_acc(const float (&acc)[64],
 
 // A consumer warpgroup's view of the ring
 struct Ring {
-  uint8_t* smem;      // stage s at smem + s * STAGE
+  uint8_t* smem;                // stage s at smem + s * STAGE
+  const __nv_bfloat16* w;       // kAScaled: stage s's w at w + s * BK
   uint64_t* full;
   uint64_t* empty;
-  int wgi, wtid;      // this warpgroup, and the thread in it
+  int wgi, wtid;                // this warpgroup, and the thread in it
 };
 
 // One step of a consumer warpgroup: wait for stage t, issue its products,
 // keep them in flight, wait for step t - 1's and release its stage. MODE 0
-// (two tiles of one expert): this group's rows (A half wgi) by both B
-// halves into acc0 and acc1; MODE 1 / 2 (split, pass 0 / 1): A half
-// MODE - 1 by B half wgi into acc0 / acc1.
-//   dxs (SS): A straight from the stage's swizzled box.
-//   down (kGLU, RS): each warp reads its 16 rows of gate and up from the
-//   stage with ldmatrix (the swizzle applied to its addresses), forms
-//   h = silu(g)·u into the A fragments `af` (registers, this step's
-//   buffer), and the wgmma take A from there: no h tile in shared memory,
-//   no proxy fence, no barrier. `af_prev` (step t - 1's buffer) is free
-//   once step t - 1 is waited for.
-template <int MODE, bool kGLU, int TRANS_B>
+// (two tiles of one expert, or a dW block): this group's rows (A half wgi)
+// by both B halves into acc0 and acc1; MODE 1 / 2 (split, pass 0 / 1): A
+// half MODE - 1 by B half wgi into acc0 / acc1.
+//   kAK / kAMN (SS): A straight from the stage's swizzled box, K-major or
+//   MN-major (the transposed-A wgmma).
+//   kAGlu, kAScaled (RS): each warp reads its 16 rows of A from the stage
+//   with ldmatrix (the swizzle applied to its addresses; .trans for the
+//   MN-major box), forms h = silu(g)·u, or round(a·w[k]), into the A
+//   fragments `af` (registers, this step's buffer), and the wgmma take A
+//   from there: no A tile written to shared memory, no proxy fence, no
+//   barrier. `af_prev` (step t - 1's buffer) is free once step t - 1 is
+//   waited for.
+template <int MODE, int AF, int TRANS_B>
 __device__ __forceinline__ void step(const Ring& r, float (&acc0)[64],
                                      float (&acc1)[64], uint32_t (&af)[4][4],
                                      uint32_t (&af_prev)[4][4], int t) {
-  using C = Cfg<kGLU>;
+  using C = Cfg<AF>;
   constexpr int S = C::kStages;
   const int s = t % S;
   const int slot = MODE == 0 ? r.wgi : MODE - 1;  // the A half read
   hw::mbar_wait(&r.full[s], (t / S) & 1);
   const uint8_t* st = r.smem + s * C::STAGE;
   const uint8_t* a = st + slot * kTile;
-  if constexpr (kGLU) {
-    const int lane = r.wtid & 31;
+  const int lane = r.wtid & 31;
+  if constexpr (AF == kAGlu) {
     const int row = (r.wtid >> 5) * 16 + (lane & 15);
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
@@ -195,12 +268,40 @@ __device__ __forceinline__ void step(const Ring& r, float (&acc0)[64],
 #pragma unroll
       for (int j = 0; j < 4; ++j) af[kk][j] = glu2(g[j], u[j]);
     }
+  } else if constexpr (AF == kAScaled) {
+    // the box holds 64 k rows of 64 m values; this warp's m16 x k16 A
+    // fragment is four 8 x 8 matrices (m 0-7 / 8-15 by k 0-7 / 8-15),
+    // each read transposed from 8 k rows: lane 8i + j names row j of
+    // matrix i. A thread then holds k 2(lane%4) + {0, 1} (+ 8 for
+    // matrices 2, 3), scaled by those rows' w, all 16 of which it reads
+    // first (7 % faster than beside each slice's ldmatrix).
+    const int mat = lane >> 3, j = lane & 7;
+    const int chunk = (r.wtid >> 5) * 2 + (mat & 1);   // 16-byte m chunk
+    const __nv_bfloat16* w = r.w + s * BK;
+    float2 ws[BK / 16][2];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        ws[kk][h] = __bfloat1622float2(*reinterpret_cast<
+            const __nv_bfloat162*>(w + kk * 16 + 2 * (lane & 3) + 8 * h));
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const int k = kk * 16 + (mat >> 1) * 8 + j;
+      uint32_t v[4];
+      ldmatrix_x4_trans(v, a + k * 128 + ((chunk ^ (k & 7)) << 4));
+      const float2 w0 = ws[kk][0], w1 = ws[kk][1];
+      af[kk][0] = scale2(v[0], w0);
+      af[kk][1] = scale2(v[1], w0);
+      af[kk][2] = scale2(v[2], w1);
+      af[kk][3] = scale2(v[3], w1);
+    }
   }
   // B's two 128-column halves, 16 KB each in either orientation
   const uint8_t* b = st + C::ABYTES;
   hw::fence_regs(acc0);
   hw::fence_regs(acc1);
-  if constexpr (kGLU) {
+  if constexpr (C::kRS) {
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) hw::fence_regs(af[kk]);
   }
@@ -211,26 +312,29 @@ __device__ __forceinline__ void step(const Ring& r, float (&acc0)[64],
       return TRANS_B ? hw::desc_sw128(b + q * 16384 + kk * 2048, kTile, 1024)
                      : hw::desc_sw128(b + q * 16384 + kk * 32, 16, 1024);
     };
-    const uint64_t da = hw::desc_sw128(a + kk * 32, 16, 1024);
+    const uint64_t da = AF == kAMN
+                            ? hw::desc_sw128(a + kk * 2048, kTile, 1024)
+                            : hw::desc_sw128(a + kk * 32, 16, 1024);
+    constexpr int TRANS_A = AF == kAMN ? 1 : 0;
     if constexpr (MODE == 0) {
       // one m64n256k16 over both halves (B's halves are contiguous)
-      if constexpr (kGLU)
+      if constexpr (C::kRS)
         hw::wgmma_m64n256k16_rs<TRANS_B>(acc0, acc1, af[kk], db(0), 1);
       else
-        hw::wgmma_m64n256k16<TRANS_B>(acc0, acc1, da, db(0), 1);
+        hw::wgmma_m64n256k16<TRANS_B, TRANS_A>(acc0, acc1, da, db(0), 1);
     } else {
       float (&acc)[64] = MODE == 1 ? acc0 : acc1;
-      if constexpr (kGLU)
+      if constexpr (C::kRS)
         hw::wgmma_m64n128k16_rs<TRANS_B>(acc, af[kk], db(r.wgi), 1);
       else
-        hw::wgmma_m64n128k16<TRANS_B>(acc, da, db(r.wgi), 1);
+        hw::wgmma_m64n128k16<TRANS_B, TRANS_A>(acc, da, db(r.wgi), 1);
     }
   }
   hw::wgmma_commit();
   hw::wgmma_wait<1>();                         // step t - 1 is done
   hw::fence_regs(acc0);
   hw::fence_regs(acc1);
-  if constexpr (kGLU) {
+  if constexpr (C::kRS) {
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) hw::fence_regs(af_prev[kk]);
   }
@@ -241,15 +345,15 @@ __device__ __forceinline__ void step(const Ring& r, float (&acc0)[64],
 // buffers (a pair of steps an iteration, so each has a fixed buffer). With
 // A in registers the last step is waited for before the buffers go out of
 // scope.
-template <int MODE, bool kGLU, int TRANS_B>
+template <int MODE, int AF, int TRANS_B>
 __device__ __forceinline__ void consume(const Ring& r, float (&acc0)[64],
                                         float (&acc1)[64], int t0, int t1) {
   uint32_t af0[4][4], af1[4][4];
   for (int t = t0; t < t1; t += 2) {
-    step<MODE, kGLU, TRANS_B>(r, acc0, acc1, af0, af1, t);
-    if (t + 1 < t1) step<MODE, kGLU, TRANS_B>(r, acc0, acc1, af1, af0, t + 1);
+    step<MODE, AF, TRANS_B>(r, acc0, acc1, af0, af1, t);
+    if (t + 1 < t1) step<MODE, AF, TRANS_B>(r, acc0, acc1, af1, af0, t + 1);
   }
-  if constexpr (kGLU) {
+  if constexpr (Cfg<AF>::kRS) {
     hw::wgmma_wait<0>();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
@@ -259,15 +363,55 @@ __device__ __forceinline__ void consume(const Ring& r, float (&acc0)[64],
   }
 }
 
-template <bool kGLU, int TRANS_B, int PAIRS>
+// The ring's shared memory: stages, then the scaled form's w of each
+// stage, then the full and empty barriers; the barriers initialised
+template <int AF>
+__device__ __forceinline__ Ring ring_init(uint8_t* smem_raw) {
+  using C = Cfg<AF>;
+  constexpr int S = C::kStages;
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* w = smem + S * C::STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(w + S * C::WBYTES);
+  uint64_t* empty = full + S;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      hw::mbar_init(&full[s], 1);
+      hw::mbar_init(&empty[s], kConsumers / 128);
+    }
+    hw::fence_barrier_init();
+  }
+  __syncthreads();
+  const int wtid = threadIdx.x & 127;
+  return Ring{smem, reinterpret_cast<const __nv_bfloat16*>(w), full, empty,
+              (int)(threadIdx.x >> 7), wtid};
+}
+
+// The block's (row block, column tile) in a raster of bands of `band` row
+// blocks: the blocks walk a band's row blocks fastest, then its column
+// tiles, then the next band (band 1: the column tiles fastest).
+__device__ __forceinline__ void raster(int band, int& rb, int& ct) {
+  const int cols = gridDim.x, rows = gridDim.y;
+  const long long i = (long long)blockIdx.y * cols + blockIdx.x;
+  const int b0 = (int)(i / ((long long)band * cols)) * band;
+  const int h = min(band, rows - b0);
+  const int j = (int)(i - (long long)b0 * cols);
+  rb = b0 + j % h;
+  ct = j / h;
+}
+
+template <int AF, int TRANS_B, int PAIRS, bool kTWO = false>
 __device__ __forceinline__ void grouped_wgmma(const Maps& maps,
                                               const Epilogue& ep) {
-  using C = Cfg<kGLU>;
+  using C = Cfg<AF>;
   constexpr int S = C::kStages;
+  constexpr int BNO = kTWO ? BN / 2 : BN;      // output columns a block
+  int rb, ct;
+  raster(ep.band, rb, ct);
   // the block's two 64-row tiles: the first live, the second maybe dead
   // (or past the rows); a dead second tile is computed with the first
   // and not stored
-  const int row0 = blockIdx.y * BM;
+  const int row0 = rb * BM;
   const long long live_rows = (long long)ep.live_tiles[0] * ep.bm;
   if (row0 >= live_rows) return;
   const int g0 = ep.group_of_tile[row0 / ep.bm];
@@ -276,26 +420,16 @@ __device__ __forceinline__ void grouped_wgmma(const Maps& maps,
   // split: the tiles belong to two experts, so the block walks K twice,
   // rows 0-63 against g0's B, then rows 64-127 against g1's
   const bool split = g1 != g0;
-  const int n0 = blockIdx.x * BN;
+  const int n0 = ct * BNO;
 
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * C::STAGE);
-  uint64_t* empty = full + S;
+  const Ring ring = ring_init<AF>(smem_raw);
+  uint8_t* smem = ring.smem;
 
   const int ksteps = (ep.K + BK - 1) / BK;     // per pair
   const int nsteps = PAIRS * ksteps;           // per pass
   const int total = split ? 2 * nsteps : nsteps;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  if (tid == 0) {
-    for (int s = 0; s < S; ++s) {
-      hw::mbar_init(&full[s], 1);
-      hw::mbar_init(&empty[s], kConsumers / 128);
-    }
-    hw::fence_barrier_init();
-  }
-  __syncthreads();
 
   if (warp == kConsumers / 32) {
     // producer: step t (pass, pair, k-step) into stage t % S, once both
@@ -308,17 +442,18 @@ __device__ __forceinline__ void grouped_wgmma(const Maps& maps,
         const int s = t % S, pass = t / nsteps, u = t % nsteps;
         const int p = u / ksteps, k0 = (u % ksteps) * BK;
         const int g = pass ? g1 : g0;
-        if (t >= S) hw::mbar_wait(&empty[s], (t / S - 1) & 1);
+        uint64_t* full = &ring.full[s];
+        if (t >= S) hw::mbar_wait(&ring.empty[s], (t / S - 1) & 1);
         uint8_t* st = smem + s * C::STAGE;
-        hw::mbar_arrive_expect_tx(&full[s],
+        hw::mbar_arrive_expect_tx(full,
                                   split ? C::STAGE - C::AHALF : C::STAGE);
         auto load_a = [&](int at, const CUtensorMap* map, int r) {
-          hw::tma_load_4d(st + at * kTile, map, &full[s], k0, r, 0, 0);
+          hw::tma_load_4d(st + at * kTile, map, full, k0, r, 0, 0);
         };
         for (int half = 0; half < 2; ++half) {
           if (split && half != pass) continue;
           const int r = row0 + 64 * half;
-          if constexpr (kGLU) {
+          if constexpr (AF == kAGlu) {
             load_a(half, &maps.a[0], r);
             load_a(2 + half, &maps.a[1], r);
           } else {
@@ -326,41 +461,149 @@ __device__ __forceinline__ void grouped_wgmma(const Maps& maps,
           }
         }
         uint8_t* b = st + C::ABYTES;
-        if constexpr (TRANS_B) {
+        if constexpr (kTWO) {
+          // wg[g]'s columns n0 .. + 127, then wi[g]'s
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            hw::tma_load_4d(b + q * kTile, &maps.b[q >> 1], full,
+                            n0 + 64 * (q & 1), k0, g, 0);
+        } else if constexpr (TRANS_B) {
 #pragma unroll
           for (int q = 0; q < BN / 64; ++q)
-            hw::tma_load_4d(b + q * kTile, &maps.b[p], &full[s], n0 + 64 * q,
+            hw::tma_load_4d(b + q * kTile, &maps.b[p], full, n0 + 64 * q,
                             k0, g, 0);
         } else {
-          hw::tma_load_4d(b, &maps.b[p], &full[s], k0, n0, g, 0);
+          hw::tma_load_4d(b, &maps.b[p], full, k0, n0, g, 0);
         }
       }
     }
   } else {
     // consumers. Unsplit: warpgroup wgi owns rows 64·wgi .. + 63 and all
-    // 256 columns (acc0 columns 0-127, acc1 128-255). Split: pass q's rows
-    // 64·q .. + 63 by columns 128·wgi .. + 127 go to acc0 (q 0) or acc1.
-    const int wgi = warp >> 2;
+    // 256 columns of B (acc0 columns 0-127, acc1 128-255). Split: pass q's
+    // rows 64·q .. + 63 by B columns 128·wgi .. + 127 go to acc0 (q 0) or
+    // acc1.
+    const int wgi = ring.wgi;
     float acc0[64], acc1[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
-    const Ring ring{smem, full, empty, wgi, tid & 127};
     if (!split) {
-      consume<0, kGLU, TRANS_B>(ring, acc0, acc1, 0, nsteps);
+      consume<0, AF, TRANS_B>(ring, acc0, acc1, 0, nsteps);
     } else {
-      consume<1, kGLU, TRANS_B>(ring, acc0, acc1, 0, nsteps);
-      consume<2, kGLU, TRANS_B>(ring, acc0, acc1, nsteps, total);
+      consume<1, AF, TRANS_B>(ring, acc0, acc1, 0, nsteps);
+      consume<2, AF, TRANS_B>(ring, acc0, acc1, nsteps, total);
     }
     hw::wgmma_wait<0>();
     hw::fence_regs(acc0);
     hw::fence_regs(acc1);
 
+    // gate_up: B columns 0-127 are gate's, 128-255 up's
+    auto store = [&](const float (&acc)[64], int half, int r0) {
+      if constexpr (kTWO)
+        store_acc(acc, half ? ep.out2 : ep.out, ep.N, ep.w, r0, n0,
+                  live_rows);
+      else
+        store_acc(acc, ep.out, ep.N, ep.w, r0, n0 + 128 * half, live_rows);
+    };
     if (!split) {
-      store_acc(acc0, ep, row0 + 64 * wgi, n0, live_rows);
-      store_acc(acc1, ep, row0 + 64 * wgi, n0 + 128, live_rows);
+      store(acc0, 0, row0 + 64 * wgi);
+      store(acc1, 1, row0 + 64 * wgi);
     } else {
-      store_acc(acc0, ep, row0, n0 + 128 * wgi, live_rows);
-      store_acc(acc1, ep, row0 + 64, n0 + 128 * wgi, live_rows);
+      store(acc0, wgi, row0);
+      store(acc1, wgi, row0 + 64);
+    }
+  }
+}
+
+// grouped_wgrad's block: expert blockIdx.z, A columns m0 = 128·blockIdx.y
+// .. + 127 (warpgroup i the 64 from m0 + 64·i), B columns n0 =
+// 256·blockIdx.x .. + 255, K = the expert's live rows.
+template <bool kScale>
+__device__ __forceinline__ void grouped_wgrad_wgmma(
+    const Maps& maps, const WgradEpilogue& ep) {
+  constexpr int AF = kScale ? kAScaled : kAMN;
+  using C = Cfg<AF>;
+  constexpr int S = C::kStages;
+  const int e = blockIdx.z;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  // this expert's live rows: its tiles of group_of_tile, below live_tiles
+  const int live = min(ep.live_tiles[0], ep.n_tiles);
+  const int t0 = min(lower_bound(ep.group_of_tile, ep.n_tiles, e), live);
+  const int t1 = min(lower_bound(ep.group_of_tile, ep.n_tiles, e + 1), live);
+  const int r0 = t0 * ep.bm;
+  const int nsteps = (t1 - t0) * (ep.bm / BK);
+
+  extern __shared__ uint8_t smem_raw[];
+  const Ring ring = ring_init<AF>(smem_raw);
+  uint8_t* smem = ring.smem;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (warp == kConsumers / 32) {
+    // producer: rows r0 + 64·t .. + 63 into stage t % S: A's two column
+    // halves, B's four 64-column boxes and (scaled) those rows' w
+    if (lane == 0) {
+      for (int t = 0; t < nsteps; ++t) {
+        const int s = t % S, k0 = r0 + t * BK;
+        uint64_t* full = &ring.full[s];
+        if (t >= S) hw::mbar_wait(&ring.empty[s], (t / S - 1) & 1);
+        uint8_t* st = smem + s * C::STAGE;
+        hw::mbar_arrive_expect_tx(full, C::STAGE + C::WBYTES);
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          hw::tma_load_4d(st + half * kTile, &maps.a[0], full, m0 + 64 * half,
+                          k0, 0, 0);
+#pragma unroll
+        for (int q = 0; q < BN / 64; ++q)
+          hw::tma_load_4d(st + C::ABYTES + q * kTile, &maps.b[0], full,
+                          n0 + 64 * q, k0, 0, 0);
+        if constexpr (kScale)
+          hw::tma_load_4d(smem + S * C::STAGE + s * C::WBYTES, &maps.a[1],
+                          full, k0, 0, 0, 0);
+      }
+    }
+    return;
+  }
+  const int wgi = ring.wgi;
+  float acc0[64], acc1[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
+  consume<0, AF, 1>(ring, acc0, acc1, 0, nsteps);
+  hw::wgmma_wait<0>();
+  hw::fence_regs(acc0);
+  hw::fence_regs(acc1);
+
+  if constexpr (!kScale) {
+    __nv_bfloat16* out = ep.out + (long long)e * ep.MA * ep.NB;
+    store_acc(acc0, out, ep.NB, nullptr, m0 + 64 * wgi, n0, ep.MA);
+    store_acc(acc1, out, ep.NB, nullptr, m0 + 64 * wgi, n0 + 128, ep.MA);
+  } else {
+    // out[e] is [NB, MA]: the tile goes transposed through the ring's
+    // shared memory (every stage has been read: both warpgroups are past
+    // their last wgmma), then out as whole 16-byte pieces of its rows
+    constexpr int LDT = BM + 8;                 // padded: no bank conflict
+    __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem);
+    hw::named_bar_sync(1, kConsumers);
+    const int w4 = (tid >> 5) & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int ma = 64 * wgi + 16 * w4 + (lane >> 2) + 8 * h;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int nb = 8 * i + 2 * (lane & 3);
+        tile[nb * LDT + ma] = __float2bfloat16(acc0[4 * i + 2 * h]);
+        tile[(nb + 1) * LDT + ma] = __float2bfloat16(acc0[4 * i + 2 * h + 1]);
+        tile[(nb + 128) * LDT + ma] = __float2bfloat16(acc1[4 * i + 2 * h]);
+        tile[(nb + 129) * LDT + ma] =
+            __float2bfloat16(acc1[4 * i + 2 * h + 1]);
+      }
+    }
+    hw::named_bar_sync(1, kConsumers);
+    __nv_bfloat16* out = ep.out + (long long)e * ep.MA * ep.NB;
+    for (int c = tid; c < BN * (BM / 8); c += kConsumers) {
+      const int nb = c / (BM / 8), q = c % (BM / 8);
+      const int row = n0 + nb, col = m0 + 8 * q;
+      if (row < ep.NB && col < ep.MA)   // MA is a multiple of 8
+        *reinterpret_cast<uint4*>(out + (long long)row * ep.MA + col) =
+            *reinterpret_cast<const uint4*>(tile + nb * LDT + 8 * q);
     }
   }
 }
@@ -391,6 +634,17 @@ inline bool map_experts(CUtensorMap* m, const void* p, int E, int R, int C,
                          strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
+// A bf16 vector [n] (n a multiple of 8) as a 4-D map: boxes of 64 values,
+// no swizzle.
+inline bool map_vec(CUtensorMap* m, const void* p, int n) {
+  const cuuint64_t bytes = (cuuint64_t)n * 2;
+  const cuuint64_t dims[4] = {(cuuint64_t)n, 1, 1, 1};
+  const cuuint64_t strides[3] = {bytes, bytes, bytes};
+  const cuuint32_t box[4] = {BK, 1, 1, 1};
+  return hw::make_map_4d(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p, dims,
+                         strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
 // What TMA can address: K and N multiples of 8 (16-byte row strides) and
 // 16-byte-aligned bases.
 inline bool tma_ok(int K, int N, const void* const* ptrs, int n) {
@@ -400,19 +654,36 @@ inline bool tma_ok(int K, int N, const void* const* ptrs, int n) {
   return true;
 }
 
-// Launch `kernel` (a __global__ taking (Maps, Epilogue)) over ceil(N / 256)
-// column tiles by ceil(rows / 128) row blocks, the column tiles fastest: the
-// blocks in flight are a few row blocks with all their column tiles, so
-// each A tile is read from device memory once (row blocks fastest re-read
-// all of A once per column tile) and they span few experts, whose B tiles
-// they share in L2.
-template <bool kGLU, typename Kernel>
+// Launch `kernel` (a __global__ taking (Maps, Epilogue)) over ceil(N / BNO)
+// column tiles by ceil(rows / 128) row blocks, in the raster of ep.band
+// (raster): down and dxs take band 1, the column tiles fastest, so the
+// blocks in flight are a few row blocks with all their column tiles, each
+// A tile is read from device memory once (row blocks fastest re-read all
+// of A once per column tile) and they span few experts, whose B tiles they
+// share in L2; gate_up takes wider bands (see the header).
+template <int AF, int BNO, typename Kernel>
 int launch(Kernel kernel, const Maps& maps, const Epilogue& ep, int rows,
            unsigned& smem_done, cudaStream_t stream) {
-  using C = Cfg<kGLU>;
-  const dim3 grid((ep.N + BN - 1) / BN, (rows + BM - 1) / BM);
+  using C = Cfg<AF>;
+  const dim3 grid((ep.N + BNO - 1) / BNO, (rows + BM - 1) / BM);
   if (grid.y == 0) return (int)cudaSuccess;
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  if (grid.y > 65535 || ep.band <= 0) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = hw::allow_smem(
+      reinterpret_cast<const void*>(kernel), C::SMEM, smem_done);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kThreads, C::SMEM, stream>>>(maps, ep);
+  return (int)cudaGetLastError();
+}
+
+// Launch a grouped_wgrad `kernel` (taking (Maps, WgradEpilogue)) over
+// ceil(NB / 256) x ceil(MA / 128) tiles by `experts`, the expert slowest.
+template <int AF, typename Kernel>
+int launch_wgrad(Kernel kernel, const Maps& maps, const WgradEpilogue& ep,
+                 int experts, unsigned& smem_done, cudaStream_t stream) {
+  using C = Cfg<AF>;
+  const dim3 grid((ep.NB + BN - 1) / BN, (ep.MA + BM - 1) / BM, experts);
+  if (grid.y > 65535 || experts <= 0 || experts > 65535)
+    return (int)cudaErrorInvalidValue;
   const cudaError_t err = hw::allow_smem(
       reinterpret_cast<const void*>(kernel), C::SMEM, smem_done);
   if (err != cudaSuccess) return (int)err;

@@ -7,8 +7,9 @@
 //     mbarrier, and the host side that encodes their tensor maps through
 //     libcuda's cuTensorMapEncodeTiled, looked up at run time (no -lcuda);
 //   - wgmma shared-memory descriptors for the 128-byte swizzle, and
-//     wgmma.mma_async m64n128k16 bf16 → fp32 with A and B in shared memory,
-//     or A in registers.
+//     wgmma.mma_async m64n128k16 / m64n256k16 bf16 → fp32 with A and B in
+//     shared memory (either K-major or MN-major: TRANS_A, TRANS_B), or A in
+//     registers.
 // Used by quantized_linear.cu (K5's prefill kernel) and, through
 // grouped_wgmma.cuh, by the grouped GEMMs' bf16 wgmma forms; the attention
 // kernels can share them too.
@@ -152,12 +153,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d[64] += A (64 x 16, K-major) · B (16 x 128; K-major, or MN-major when
-// TRANS_B) for one warpgroup (d = A · B when scale_d is 0). Accumulator
-// layout: warp w of the group owns rows 16w .. 16w + 15; d[4i + {0, 1}] are
-// row 16w + lane/4, columns 8i + 2(lane%4) + {0, 1}; d[4i + {2, 3}] the
-// same columns 8 rows further.
-template <int TRANS_B>
+// d[64] += A (64 x 16; K-major, or MN-major when TRANS_A) · B (16 x 128;
+// K-major, or MN-major when TRANS_B) for one warpgroup (d = A · B when
+// scale_d is 0). Accumulator layout: warp w of the group owns rows 16w ..
+// 16w + 15; d[4i + {0, 1}] are row 16w + lane/4, columns 8i + 2(lane%4) +
+// {0, 1}; d[4i + {2, 3}] the same columns 8 rows further.
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
                                                  uint64_t db, int scale_d) {
   asm volatile(
@@ -170,7 +171,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
       "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
       "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n"
+      "%64, %65, p, 1, 1, %68, %67;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -185,7 +186,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // uint32 operands of an asynchronous wgmma (A fragments): keeps the
@@ -238,10 +239,11 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
 }
 
 // d0, d1 (columns 0-127, 128-255 of a 64 x 256 accumulator; each laid out
-// as wgmma_m64n128k16's d) += A (64 x 16, K-major, shared memory) · B (16 x
-// 256; K-major, or MN-major when TRANS_B) for one warpgroup: one
-// instruction where two m64n128k16 would read A twice.
-template <int TRANS_B>
+// as wgmma_m64n128k16's d) += A (64 x 16 in shared memory; K-major, or
+// MN-major when TRANS_A) · B (16 x 256; K-major, or MN-major when TRANS_B)
+// for one warpgroup: one instruction where two m64n128k16 would read A
+// twice.
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d0)[64],
                                                  float (&d1)[64], uint64_t da,
                                                  uint64_t db, int scale_d) {
@@ -261,7 +263,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d0)[64],
       "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
       "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
       "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, %131;\n"
+      "%128, %129, p, 1, 1, %132, %131;\n"
       "}\n"
       : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]), "+f"(d0[4]),
         "+f"(d0[5]), "+f"(d0[6]), "+f"(d0[7]), "+f"(d0[8]), "+f"(d0[9]),
@@ -295,7 +297,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d0)[64],
         "+f"(d1[55]), "+f"(d1[56]), "+f"(d1[57]), "+f"(d1[58]),
         "+f"(d1[59]), "+f"(d1[60]), "+f"(d1[61]), "+f"(d1[62]),
         "+f"(d1[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // The same with A from registers (wgmma_m64n128k16_rs's fragments).

@@ -22,11 +22,12 @@ and ``_down_kernel``, :341) of ``csrc/grouped_matmul.cu``; backward
 ``grouped_dgdu`` (``_dgdu_rc_kernel``, :411, and ``_dgdu_kernel``, :366),
 ``grouped_dxs`` (``_dxs_kernel``, :488) and ``grouped_wgrad``
 (``_dw_pair_kernel``, :502, and the dwo product of both dgdu kernels) of
-``csrc/grouped_matmul_bwd.cu``. ``grouped_down`` and ``grouped_dxs`` each
-have three forms, which :func:`plan` picks from the dtype and shape: fp32
-FMA, bf16 wgmma fed by a TMA ring (``csrc/grouped_wgmma.cuh``) where TMA
-can address every operand, and bf16 mma.sync otherwise; the wrappers count
-launches by form (:data:`form_launches`). On CPU tensors each kernel runs
+``csrc/grouped_matmul_bwd.cu``. ``grouped_gate_up``, ``grouped_down``,
+``grouped_dxs`` and ``grouped_wgrad`` each have three forms, which
+:func:`plan` picks from the dtype and shape: fp32 FMA, bf16 wgmma fed by a
+TMA ring (``csrc/grouped_wgmma.cuh``) where TMA can address every operand,
+and bf16 mma.sync otherwise; the wrappers count launches by form
+(:data:`form_launches`). On CPU tensors each kernel runs
 its plain PyTorch version, with the kernels' rounding points. An input the
 kernels do not take raises; nothing falls back.
 
@@ -54,7 +55,7 @@ from deepspeed_tpu_torch.ops import op_builder
 
 op_builder.register("grouped_matmul", {
     "dstt_grouped_gate_up": (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
         ctypes.c_int),
     "dstt_grouped_down": (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
@@ -69,7 +70,7 @@ op_builder.register("grouped_matmul_bwd", {
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
         ctypes.c_int),
     "dstt_grouped_wgrad": (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
         ctypes.c_int),
     "dstt_error_string": ([ctypes.c_int], ctypes.c_char_p),
 })
@@ -81,12 +82,14 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: f columns per block of ``grouped_dgdu`` (the dw partials' tile count)
 DGDU_BN = {torch.float32: 32, torch.bfloat16: 64}
 
-#: the forms of ``grouped_down`` and ``grouped_dxs``, by the C code of each
+#: the forms of the four kernels of :func:`plan`, by the C code of each
 FORMS = {"fma": 0, "mma": 1, "wgmma": 2}
-#: launches of the two kernels by form since the last reset: the wrappers
+#: the kernels whose form :func:`plan` picks
+PLANNED = ("grouped_gate_up", "grouped_down", "grouped_dxs", "grouped_wgrad")
+#: launches of those kernels by form since the last reset: the wrappers
 #: add one here and one to ``op_builder.launches`` at each launch
 form_launches: Dict[str, Dict[str, int]] = {
-    k: {f: 0 for f in FORMS} for k in ("grouped_down", "grouped_dxs")}
+    k: {f: 0 for f in FORMS} for k in PLANNED}
 
 
 def reset_form_launches() -> None:
@@ -96,18 +99,24 @@ def reset_form_launches() -> None:
 
 
 #: the wgmma form (``csrc/grouped_wgmma.cuh``): two 64-row layout tiles
-#: (128 rows) by 256 columns a block, k-steps of 64, one producer warp and
-#: two consumer warpgroups, a ring of up to 4 stages in the block's shared
-#: memory
+#: (128 rows) by 256 columns of B a block, k-steps of 64, one producer warp
+#: and two consumer warpgroups, a ring of up to 4 stages in the block's
+#: shared memory
 WG_BM, WG_BN, WG_BK, WG_THREADS = 128, 256, 64, 288
 WG_MAX_STAGES = 4
 #: shared memory a block may use on sm_90 (227 KB)
 SMEM_MAX = 232448
-#: the mma.sync and FMA kernels: 64 rows by (down, dxs) columns, k-steps of
-#: 32, 128 threads
-_OLD_BN = {("grouped_down", "mma"): 128, ("grouped_down", "fma"): 128,
-           ("grouped_dxs", "mma"): 128, ("grouped_dxs", "fma"): 64}
-_GRID_X_MAX, _GRID_Y_MAX = 2 ** 31 - 1, 65535
+#: gate_up's raster: where one expert's wg and wi outgrow this share of the
+#: card's 50 MB L2, a band holds as many row blocks as keep their xs within
+#: it; else the column tiles go fastest (band 1)
+GATE_UP_BAND_BYTES = 16 << 20
+#: the mma.sync and FMA kernels: 64 rows by these columns a block, k-steps
+#: of 32, 128 threads
+_OLD_BN = {("grouped_gate_up", "mma"): 64, ("grouped_gate_up", "fma"): 64,
+           ("grouped_down", "mma"): 128, ("grouped_down", "fma"): 128,
+           ("grouped_dxs", "mma"): 128, ("grouped_dxs", "fma"): 64,
+           ("grouped_wgrad", "mma"): 128, ("grouped_wgrad", "fma"): 64}
+_GRID_X_MAX, _GRID_YZ_MAX = 2 ** 31 - 1, 65535
 
 
 class Tma(NamedTuple):
@@ -120,22 +129,30 @@ class Tma(NamedTuple):
 
 
 class Plan(NamedTuple):
-    """How one ``grouped_down`` or ``grouped_dxs`` call is launched
-    (:func:`plan`)."""
+    """How one call of a kernel of :data:`PLANNED` is launched
+    (:func:`plan`). For ``grouped_wgrad`` the "rows" of a block are rows of
+    the product it runs: dW's rows, or, for the scaled wgmma form (run
+    transposed), dW's columns."""
     form: str                    # "fma" (fp32), "mma" or "wgmma" (bf16)
     bm: int                      # rows a block: 64, or 128 (wgmma)
-    bn: int                      # output columns a block
+    bn: int                      # output columns a block (gate_up: of
+                                 # each of gate and up)
     bk: int                      # k a step
     threads: int
-    row_blocks: int              # blocks over R_pad
-    col_tiles: int               # blocks over d
-    grid: Tuple[int, int]        # the launch grid (x, y): (row blocks,
-                                 # column tiles), wgmma (column tiles, row
-                                 # blocks)
+    row_blocks: int              # blocks over the rows (R_pad; wgrad: the
+                                 # product's rows)
+    col_tiles: int               # blocks over the output columns
+    grid: Tuple[int, int, int]   # the launch grid (x, y, z): (row blocks,
+                                 # column tiles, 1), wgmma (column tiles,
+                                 # row blocks, 1); wgrad's z: the experts
     k_steps: Tuple[int, ...]     # steps over each product's K, in order
+                                 # (wgrad: over all experts' rows)
     stages: int                  # ring stages (wgmma), else 0
     smem_bytes: int              # dynamic shared memory (wgmma), else 0
     tma: Tuple[Tma, ...]         # the tensor maps (wgmma), else ()
+    band: int                    # wgmma's raster: row blocks a band, the
+                                 # band's rows fastest (1: the column tiles
+                                 # fastest); 0 for the others
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -144,77 +161,139 @@ def _cdiv(a: int, b: int) -> int:
 
 @functools.lru_cache(maxsize=4096)
 def plan(kernel: str, dtype: torch.dtype, rows: int, d: int, f: int,
-         num_experts: int, aligned: bool = True) -> Plan:
-    """The launch plan of ``grouped_down`` (y [rows, d] from gate/up [rows,
-    f] and wo [E, f, d]) or ``grouped_dxs`` (dxs [rows, d] from dg/du
-    [rows, f] and wg/wi [E, d, f]), from the dtype and shape alone, as
+         num_experts: int, aligned: bool = True,
+         scaled: bool = False) -> Plan:
+    """The launch plan of one call, from the dtype and shape alone, as
     ``csrc/grouped_matmul.cu`` and ``csrc/grouped_matmul_bwd.cu`` take it:
 
+    - ``grouped_gate_up``: gate, up [rows, f] from xs [rows, d] and wg, wi
+      [E, d, f];
+    - ``grouped_down``: y [rows, d] from gate/up [rows, f] and wo [E, f, d];
+    - ``grouped_dxs``: dxs [rows, d] from dg/du [rows, f] and wg/wi [E, d,
+      f];
+    - ``grouped_wgrad``: dW [E, d, f] = per expert Σ over its rows of
+      a[r]ᵀ·b[r] from a [rows, d] and b [rows, f] (``d``, ``f``: dW's two
+      widths: dwg, dwi [E, d, f], dwo [E, f, d]); ``scaled``: b's rows
+      scaled by round(b·w) first (dwo's combine weights).
+
+    Forms:
+
     - fp32: the CUDA-core FMA kernel;
-    - bf16 where TMA can address every operand (f and d multiples of 8,
-      so every row stride is a multiple of 16 bytes, and ``aligned``:
+    - bf16 where TMA can address every operand (d and f multiples of 8, so
+      every row stride is a multiple of 16 bytes, and ``aligned``:
       16-byte-aligned data): the wgmma kernel fed by a TMA ring
       (``csrc/grouped_wgmma.cuh``), 128 rows (two layout tiles) by 256
-      columns a block, the column tiles fastest; down walks ceil(f / 64) k-steps, dxs 2·ceil(f /
-      64): dg against wg[g], then du against wi[g] (a block whose two
-      tiles belong to two experts walks them once for each);
+      columns of B a block. gate_up: 128 columns of gate and of up a
+      block, ceil(d / 64) k-steps, the column tiles fastest, or, where one
+      expert's wg and wi outgrow :data:`GATE_UP_BAND_BYTES` of L2 (Mixtral:
+      235 MB), in bands of as many row blocks as keep their xs within it
+      (``band``), so an expert's row blocks share each weight tile in L2;
+      down and dxs: the column tiles fastest,
+      down ceil(f / 64) k-steps, dxs 2·ceil(f / 64): dg against wg[g], then
+      du against wi[g] (a block whose two tiles belong to two experts walks
+      them once for each); wgrad: 128 of dW's rows by 256 of its columns a
+      block, the experts on the grid's z (slowest), each block walking its
+      expert's live rows as K; scaled, the product runs transposed (128 of
+      dW's columns by 256 of its rows) with round(b·w) formed in registers;
     - any other bf16: the mma.sync kernel.
 
     Raises ValueError for another kernel or dtype, a shape off the 64-row
     tiles, or a grid past CUDA's limits."""
-    if kernel not in ("grouped_down", "grouped_dxs"):
+    if kernel not in PLANNED:
         raise ValueError(f"plan: no kernel {kernel!r}")
     if rows < 0 or rows % KERNEL_BM or d <= 0 or f <= 0 \
             or num_experts <= 0:
         raise ValueError(f"plan({kernel}): rows={rows} (a multiple of "
                          f"{KERNEL_BM}), d={d}, f={f}, E={num_experts}")
-    pairs = 2 if kernel == "grouped_dxs" else 1
     if dtype == torch.float32:
         form = "fma"
     elif dtype == torch.bfloat16:
         form = "wgmma" if f % 8 == 0 and d % 8 == 0 and aligned else "mma"
     else:
         raise ValueError(f"plan({kernel}): dtype {dtype}")
-    stages = smem = 0
+    wgrad = kernel == "grouped_wgrad"
+    # the output's columns and each product's depth
+    n_out, depth = {"grouped_gate_up": (f, d), "grouped_down": (d, f),
+                    "grouped_dxs": (d, f), "grouped_wgrad": (f, rows)}[kernel]
+    m_out = d if wgrad else rows
+    pairs = 2 if kernel == "grouped_dxs" else 1
+    stages = smem = band = 0
     tma: Tuple[Tma, ...] = ()
+    experts = num_experts if wgrad else 1
     if form == "wgmma":
         bm, bn, bk, threads = WG_BM, WG_BN, WG_BK, WG_THREADS
-        tile = KERNEL_BM * WG_BK * 2       # an A box [64 rows, 64 k]
+        if kernel == "grouped_gate_up":
+            bn = WG_BN // 2
+        if wgrad and scaled:               # run transposed: dWᵀ = (b·w)ᵀ·a
+            m_out, n_out = f, d
+        tile = KERNEL_BM * WG_BK * 2       # a box [64 rows, 64 k]
         a_boxes = (2 if kernel == "grouped_down" else 1) * bm // KERNEL_BM
-        stage = a_boxes * tile + bn * bk * 2
-        stages = min(WG_MAX_STAGES, (SMEM_MAX - 1024 - 64) // stage)
-        smem = stages * stage + 16 * stages + 1024
-        a_names = ("gate", "up") if kernel == "grouped_down" else ("dg", "du")
-        rb = rows * f * 2
-        tma = tuple(Tma(n, (f, rows, 1, 1), (f * 2, rb, rb),
-                        (bk, KERNEL_BM, 1, 1)) for n in a_names)
-        if kernel == "grouped_down":      # wo [E, f, d], MN-major boxes
-            mat = f * d * 2
-            tma += (Tma("wo", (d, f, num_experts, 1),
-                        (d * 2, mat, mat * num_experts), (64, bk, 1, 1)),)
-        else:                             # wg, wi [E, d, f], K-major boxes
-            mat = d * f * 2
-            tma += tuple(Tma(n, (f, d, num_experts, 1),
-                             (f * 2, mat, mat * num_experts),
-                             (bk, bn, 1, 1)) for n in ("wg", "wi"))
+        stage = a_boxes * tile + WG_BN * bk * 2
+        w_bytes = bk * 2 if wgrad and scaled else 0
+        stages = min(WG_MAX_STAGES, (SMEM_MAX - 1024 - 64)
+                     // (stage + w_bytes))
+        smem = stages * (stage + w_bytes) + 16 * stages + 1024
+        tma = _tma_maps(kernel, rows, d, f, num_experts, scaled)
     else:
         bm, bn, bk, threads = KERNEL_BM, _OLD_BN[(kernel, form)], 32, 128
-    row_blocks, col_tiles = _cdiv(rows, bm), _cdiv(d, bn)
-    # wgmma: the column tiles fastest, so the blocks in flight share their
-    # row blocks' A tiles (read from device memory once)
-    grid = (col_tiles, row_blocks) if form == "wgmma" \
-        else (row_blocks, col_tiles)
-    if grid[0] > _GRID_X_MAX or grid[1] > _GRID_Y_MAX:
+    row_blocks, col_tiles = _cdiv(m_out, bm), _cdiv(n_out, bn)
+    if form == "wgmma" and kernel == "grouped_gate_up" \
+            and 2 * d * f * 2 > GATE_UP_BAND_BYTES:
+        band = max(1, min(row_blocks, GATE_UP_BAND_BYTES // (bm * d * 2)))
+    elif form == "wgmma" and not wgrad:
+        band = 1
+    # wgmma: the column tiles fastest (within a band), so the blocks in
+    # flight share their row blocks' A tiles (read from device memory once)
+    grid = (col_tiles, row_blocks, experts) if form == "wgmma" \
+        else (row_blocks, col_tiles, experts)
+    if grid[0] > _GRID_X_MAX or grid[1] > _GRID_YZ_MAX \
+            or grid[2] > _GRID_YZ_MAX:
         raise ValueError(f"plan({kernel}): grid {grid} exceeds CUDA's "
-                         f"limits for rows={rows}, d={d}")
+                         f"limits for rows={rows}, d={d}, f={f}")
     return Plan(form, bm, bn, bk, threads, row_blocks, col_tiles, grid,
-                (_cdiv(f, bk),) * pairs, stages, smem, tma)
+                (_cdiv(depth, bk),) * pairs, stages, smem, tma, band)
+
+
+def _tma_maps(kernel: str, rows: int, d: int, f: int, num_experts: int,
+              scaled: bool) -> Tuple[Tma, ...]:
+    """The wgmma form's tensor maps, as the C side encodes them: 2-D
+    [rows, C] views with [64 rows, 64 columns] boxes, the experts' weights
+    as 3-D views with the expert a dimension of its own."""
+    def rows_map(name, cols):
+        rb = rows * cols * 2
+        return Tma(name, (cols, rows, 1, 1), (cols * 2, rb, rb),
+                   (WG_BK, KERNEL_BM, 1, 1))
+
+    def experts_map(name, r, c, box):
+        mat = r * c * 2
+        return Tma(name, (c, r, num_experts, 1),
+                   (c * 2, mat, mat * num_experts), box)
+
+    if kernel == "grouped_gate_up":      # wg, wi [E, d, f], MN-major boxes
+        return (rows_map("xs", d),) + tuple(
+            experts_map(n, d, f, (64, WG_BK, 1, 1)) for n in ("wg", "wi"))
+    if kernel == "grouped_down":         # wo [E, f, d], MN-major boxes
+        return (rows_map("gate", f), rows_map("up", f),
+                experts_map("wo", f, d, (64, WG_BK, 1, 1)))
+    if kernel == "grouped_dxs":          # wg, wi [E, d, f], K-major boxes
+        return (rows_map("dg", f), rows_map("du", f)) + tuple(
+            experts_map(n, d, f, (WG_BK, WG_BN, 1, 1)) for n in ("wg", "wi"))
+    if not scaled:                       # A = aᵀ, B = b: both MN-major
+        return rows_map("a", d), rows_map("b", f)
+    # transposed: A = round(b·w)ᵀ, B = a; w in boxes of 64
+    return (rows_map("b", f), rows_map("a", d),
+            Tma("scale", (rows, 1, 1, 1), (rows * 2,) * 3,
+                (WG_BK, 1, 1, 1)))
 
 
 #: kernel names of the two sources → their entry point (the wgmma forms
-#: before their mma.sync and FMA twins, whose names they contain)
-_KERNEL_ENTRIES = (("grouped_down_wgmma_kernel", "grouped_down"),
+#: before their mma.sync and FMA twins, whose names they contain, and
+#: before the regex of the mma.sync and FMA gate_up/down kernels)
+_KERNEL_ENTRIES = (("grouped_gate_up_wgmma_kernel", "grouped_gate_up"),
+                   ("grouped_down_wgmma_kernel", "grouped_down"),
                    ("grouped_dxs_wgmma_kernel", "grouped_dxs"),
+                   ("grouped_wgrad_wgmma_kernel", "grouped_wgrad"),
+                   ("grouped_wgrad_scaled_wgmma_kernel", "grouped_wgrad"),
                    ("grouped_dxs_kernel", "grouped_dxs"),
                    ("grouped_dgdu_kernel", "grouped_dgdu"),
                    ("grouped_wgrad_kernel", "grouped_wgrad"))
@@ -561,20 +640,24 @@ def _check(xs, wg, wi, wo, group_of_tile, live_tiles, bm, w) -> None:
 
 def gate_up_kernel(xs, wg, wi, group_of_tile, live_tiles, bm: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``grouped_gate_up`` on CUDA tensors → (gate, up) [R_pad, f]
-    in xs's dtype; rows of dead tiles are left unwritten."""
-    r_pad = xs.shape[0]
-    gate = torch.empty((r_pad, wg.shape[-1]), dtype=xs.dtype,
-                       device=xs.device)
+    """Launch ``grouped_gate_up`` on CUDA tensors in the form of
+    :func:`plan` → (gate, up) [R_pad, f] in xs's dtype; rows of dead tiles
+    are left unwritten."""
+    r_pad, d = xs.shape
+    e, _, f = wg.shape
+    pl = plan("grouped_gate_up", xs.dtype, r_pad, d, f, e,
+              _aligned16(xs, wg, wi))
+    gate = torch.empty((r_pad, f), dtype=xs.dtype, device=xs.device)
     up = torch.empty_like(gate)
     lib = op_builder.load("grouped_matmul")
     err = lib.dstt_grouped_gate_up(
         xs.data_ptr(), wg.data_ptr(), wi.data_ptr(), gate.data_ptr(),
         up.data_ptr(), group_of_tile.data_ptr(), live_tiles.data_ptr(),
-        r_pad, xs.shape[1], wg.shape[-1], bm, _DTYPES[xs.dtype],
+        r_pad, d, f, bm, e, _DTYPES[xs.dtype], FORMS[pl.form], pl.band,
         torch.cuda.current_stream(xs.device).cuda_stream)
-    op_builder.check(lib, err, "grouped_gate_up")
+    op_builder.check(lib, err, f"grouped_gate_up ({pl.form})")
     op_builder.launches["grouped_gate_up"] += 1
+    form_launches["grouped_gate_up"][pl.form] += 1
     return gate, up
 
 
@@ -660,19 +743,23 @@ def dxs_kernel(dg, du, wg, wi, group_of_tile, live_tiles, bm: int
 
 def wgrad_kernel(a, b, group_of_tile, live_tiles, num_experts: int, bm: int,
                  scale=None) -> torch.Tensor:
-    """Launch ``grouped_wgrad`` on CUDA tensors → dW [E, a cols, b cols] in
-    a's dtype, every expert written (zeros for one with no row)."""
+    """Launch ``grouped_wgrad`` on CUDA tensors in the form of :func:`plan`
+    → dW [E, a cols, b cols] in a's dtype, every expert written (zeros for
+    one with no row)."""
     r_pad, m = a.shape
     n = b.shape[1]
+    pl = plan("grouped_wgrad", a.dtype, r_pad, m, n, num_experts,
+              _aligned16(a, b, scale), scale is not None)
     out = torch.empty((num_experts, m, n), dtype=a.dtype, device=a.device)
     lib = op_builder.load("grouped_matmul_bwd")
     err = lib.dstt_grouped_wgrad(
         a.data_ptr(), b.data_ptr(), _ptr(scale), out.data_ptr(),
         group_of_tile.data_ptr(), live_tiles.data_ptr(), r_pad, m, n,
-        num_experts, bm, _DTYPES[a.dtype],
+        num_experts, bm, _DTYPES[a.dtype], FORMS[pl.form],
         torch.cuda.current_stream(a.device).cuda_stream)
-    op_builder.check(lib, err, "grouped_wgrad")
+    op_builder.check(lib, err, f"grouped_wgrad ({pl.form})")
     op_builder.launches["grouped_wgrad"] += 1
+    form_launches["grouped_wgrad"][pl.form] += 1
     return out
 
 

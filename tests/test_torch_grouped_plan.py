@@ -1,8 +1,8 @@
-"""The launch plan of grouped_down and grouped_dxs (deepspeed_tpu_torch/ops/
-grouped_matmul.py ``plan``), which picks each call's kernel form from its
-dtype and shape: fp32 the FMA kernel, bf16 the wgmma kernel fed by a TMA
-ring where TMA can address every operand, any other bf16 the mma.sync
-kernel. Pure Python: the CUDA kernels run only on the card
+"""The launch plan of grouped_gate_up, grouped_down, grouped_dxs and
+grouped_wgrad (deepspeed_tpu_torch/ops/grouped_matmul.py ``plan``), which
+picks each call's kernel form from its dtype and shape: fp32 the FMA
+kernel, bf16 the wgmma kernel fed by a TMA ring where TMA can address every
+operand, any other bf16 the mma.sync kernel. Pure Python: the CUDA kernels run only on the card
 (chip_smoke.py phase 3 holds every form against the plain versions), so
 these tests hold the plan to TMA's rules and to the C side's constants.
 
@@ -32,13 +32,25 @@ SHAPES = [(2048, 2, 8, 4096, 14336), (2048, 4, 60, 2048, 1408),
           (150, 2, 5, 128, 130), (90, 3, 4, 130, 70),
           (400, 2, 6, 512, 384), (512, 4, 60, 256, 192),
           (600, 2, 8, 1032, 1416), (1, 1, 4, 256, 64)]
-KERNELS = ("grouped_down", "grouped_dxs")
+KERNELS = ("grouped_gate_up", "grouped_down", "grouped_dxs",
+           "grouped_wgrad")
 DTYPES = (torch.float32, torch.bfloat16)
+TMA_SHAPES = [x for x in SHAPES if x[3] % 8 == 0 and x[4] % 8 == 0]
 
 
 def _rows(s, k, e):
     """R_pad of aligned_dispatch at bm 64."""
     return -(-s * k // BM) * BM + e * BM
+
+
+def _dims(kernel, rows, d, f):
+    """(output rows, output columns, depth of each product, products) of a
+    call: gate_up [rows, f] over d; down, dxs [rows, d] over f (dxs two
+    products); wgrad dW [d, f] of each expert over the rows."""
+    return {"grouped_gate_up": (rows, f, d, 1),
+            "grouped_down": (rows, d, f, 1),
+            "grouped_dxs": (rows, d, f, 2),
+            "grouped_wgrad": (d, f, rows, 1)}[kernel]
 
 
 def _expected_form(dtype, d, f, aligned=True):
@@ -52,31 +64,50 @@ def _expected_form(dtype, d, f, aligned=True):
 @pytest.mark.parametrize("s,k,e,d,f", SHAPES)
 def test_plan_form_grid_and_k_steps(kernel, dtype, s, k, e, d, f):
     """The form follows the dtype and TMA's rules; the grid covers every
-    64-row tile of R_pad (the wgmma form two a block) and every column of
-    d exactly once, within CUDA's limits; the k-steps cover f once per product (down one,
-    dxs two: dg·wgᵀ then du·wiᵀ)."""
+    output row (for gate_up, down and dxs every 64-row tile of R_pad, the
+    wgmma form two a block; for wgrad every row of each expert's dW, the
+    experts on the grid's z) and every output column exactly once, within
+    CUDA's limits; the k-steps cover each product's depth once (gate_up d;
+    down f; dxs f twice: dg·wgᵀ then du·wiᵀ; wgrad the rows)."""
     rows = _rows(s, k, e)
     pl = tg.plan(kernel, dtype, rows, d, f, e)
+    m_out, n_out, depth, pairs = _dims(kernel, rows, d, f)
     assert pl.form == _expected_form(dtype, d, f)
     assert pl.bm == (2 * BM if pl.form == "wgmma" else BM)
-    assert (pl.row_blocks - 1) * pl.bm < rows <= pl.row_blocks * pl.bm
-    assert (pl.col_tiles - 1) * pl.bn < d <= pl.col_tiles * pl.bn
-    # the wgmma form walks the column tiles fastest (blockIdx.x)
-    assert pl.grid == ((pl.col_tiles, pl.row_blocks) if pl.form == "wgmma"
-                       else (pl.row_blocks, pl.col_tiles))
-    assert pl.grid[0] <= 2 ** 31 - 1 and pl.grid[1] <= 65535
-    assert len(pl.k_steps) == (2 if kernel == "grouped_dxs" else 1)
+    assert (pl.row_blocks - 1) * pl.bm < m_out <= pl.row_blocks * pl.bm
+    assert (pl.col_tiles - 1) * pl.bn < n_out <= pl.col_tiles * pl.bn
+    # the wgmma form walks the column tiles fastest (blockIdx.x); wgrad's
+    # experts are the grid's z, its slowest dimension
+    z = e if kernel == "grouped_wgrad" else 1
+    assert pl.grid == ((pl.col_tiles, pl.row_blocks, z)
+                       if pl.form == "wgmma"
+                       else (pl.row_blocks, pl.col_tiles, z))
+    assert pl.grid[0] <= 2 ** 31 - 1 and max(pl.grid[1:]) <= 65535
+    assert len(pl.k_steps) == pairs
     for steps in pl.k_steps:
-        assert (steps - 1) * pl.bk < f <= steps * pl.bk
+        assert (steps - 1) * pl.bk < depth <= steps * pl.bk
     if pl.form == "wgmma":
-        assert (pl.bn, pl.bk, pl.threads) == (256, 64, 288)
+        # gate_up: 128 columns of gate beside the same 128 of up
+        bn = 128 if kernel == "grouped_gate_up" else 256
+        assert (pl.bn, pl.bk, pl.threads) == (bn, 64, 288)
+        if kernel == "grouped_gate_up" \
+                and 4 * d * f > tg.GATE_UP_BAND_BYTES:
+            # an expert's weights outgrow the L2 share: bands of row
+            # blocks whose xs stays within it (or of one row block)
+            assert 1 <= pl.band <= pl.row_blocks
+            assert pl.band == 1 or \
+                pl.band * pl.bm * d * 2 <= tg.GATE_UP_BAND_BYTES
+            assert pl.band == pl.row_blocks or \
+                (pl.band + 1) * pl.bm * d * 2 > tg.GATE_UP_BAND_BYTES
+        else:
+            assert pl.band == (0 if kernel == "grouped_wgrad" else 1)
     else:
         assert pl.threads == 128 and pl.bk == 32 and not pl.tma
+        assert pl.band == 0
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
-@pytest.mark.parametrize("s,k,e,d,f", [x for x in SHAPES
-                                       if x[3] % 8 == 0 and x[4] % 8 == 0])
+@pytest.mark.parametrize("s,k,e,d,f", TMA_SHAPES)
 def test_plan_tma_maps_and_ring(kernel, s, k, e, d, f):
     """The wgmma form's tensor maps obey TMA's rules (strides multiples of
     16 bytes below 2^40, box dims at most 256, a 128-byte inner box for
@@ -93,7 +124,21 @@ def test_plan_tma_maps_and_ring(kernel, s, k, e, d, f):
         assert m.strides[0] == m.dims[0] * 2, m
         assert m.strides[1] == m.strides[0] * m.dims[1], m
     views = {m.operand: m.dims for m in pl.tma}
-    if kernel == "grouped_down":
+    tile = 64 * 64 * 2
+    if kernel == "grouped_gate_up":
+        # xs: a 64-row box for each half of the block's rows; wg and wi
+        # MN-major: two boxes of 64 k by 64 n of each a step
+        assert views == {"xs": (d, rows, 1, 1), "wg": (f, d, e, 1),
+                         "wi": (f, d, e, 1)}
+        assert {m.box for m in pl.tma if m.operand != "xs"} == {
+            (64, 64, 1, 1)}
+        box_bytes = (pl.bm // 64) * tile + 2 * (pl.bn // 64) * tile
+    elif kernel == "grouped_wgrad":
+        # both operands MN-major from [rows, C] views, one row a k: A = aᵀ
+        # in a box for each 64 of dW's rows, B = b in four of 64 columns
+        assert views == {"a": (d, rows, 1, 1), "b": (f, rows, 1, 1)}
+        box_bytes = (pl.bm // 64) * tile + 4 * tile
+    elif kernel == "grouped_down":
         assert views == {"gate": (f, rows, 1, 1), "up": (f, rows, 1, 1),
                          "wo": (d, f, e, 1)}
         # gate and up: a 64-row box for each half of the block's rows;
@@ -122,9 +167,40 @@ def test_plan_bf16_off_tma_takes_mma(kernel, d, f, aligned):
     assert pl.form == "mma" and pl.stages == 0 and pl.tma == ()
 
 
+@pytest.mark.parametrize("s,k,e,d,f", TMA_SHAPES)
+def test_plan_scaled_wgrad_runs_transposed(s, k, e, d, f):
+    """dwo = hᵀ·round(dz·w) (a = h [rows, f], b = dz [rows, d]; dW [E, f,
+    d]): the wgmma form runs dWᵀ = round(dz·w)ᵀ·h, so its blocks cover 128
+    of dW's columns (d) by 256 of its rows (f); A's source is dz, B's h,
+    and w comes in boxes of 64 beside each stage. fp32 and off-TMA bf16
+    take the FMA and mma.sync kernels as the unscaled call does."""
+    rows = _rows(s, k, e)
+    pl = tg.plan("grouped_wgrad", torch.bfloat16, rows, f, d, e, True, True)
+    assert pl.form == "wgmma" and (pl.bm, pl.bn) == (128, 256)
+    assert (pl.row_blocks - 1) * 128 < d <= pl.row_blocks * 128
+    assert (pl.col_tiles - 1) * 256 < f <= pl.col_tiles * 256
+    assert pl.grid == (pl.col_tiles, pl.row_blocks, e)
+    assert {m.operand: m.dims for m in pl.tma} == {
+        "b": (d, rows, 1, 1), "a": (f, rows, 1, 1),
+        "scale": (rows, 1, 1, 1)}
+    for m in pl.tma:
+        assert all(st % 16 == 0 for st in m.strides) and m.box[0] == 64, m
+    tile = 64 * 64 * 2
+    assert 2 <= pl.stages <= tg.WG_MAX_STAGES
+    assert pl.smem_bytes >= pl.stages * (6 * tile + 64 * 2)
+    assert pl.smem_bytes <= tg.SMEM_MAX
+    # the transposed epilogue stages the 256 x 128 tile in the ring
+    assert pl.stages * 6 * tile >= 256 * (128 + 8) * 2
+    for dtype in DTYPES:
+        assert tg.plan("grouped_wgrad", dtype, rows, f, d, e, True,
+                       True).form == _expected_form(dtype, d, f)
+    assert tg.plan("grouped_wgrad", torch.bfloat16, rows, f, d, e, False,
+                   True).form == "mma"
+
+
 def test_plan_refuses_what_no_kernel_takes():
     with pytest.raises(ValueError, match="no kernel"):
-        tg.plan("grouped_gate_up", torch.bfloat16, 1024, 256, 256, 8)
+        tg.plan("grouped_dgdu", torch.bfloat16, 1024, 256, 256, 8)
     with pytest.raises(ValueError, match="dtype"):
         tg.plan("grouped_down", torch.float16, 1024, 256, 256, 8)
     with pytest.raises(ValueError, match="a multiple of 64"):
@@ -133,6 +209,10 @@ def test_plan_refuses_what_no_kernel_takes():
         tg.plan("grouped_down", torch.float32, 64, 128 * 65536, 8, 1)
     with pytest.raises(ValueError, match="CUDA's limits"):
         tg.plan("grouped_dxs", torch.bfloat16, 128 * 65536, 256, 8, 1)
+    with pytest.raises(ValueError, match="CUDA's limits"):
+        tg.plan("grouped_gate_up", torch.bfloat16, 128 * 65536, 256, 8, 1)
+    with pytest.raises(ValueError, match="CUDA's limits"):
+        tg.plan("grouped_wgrad", torch.bfloat16, 1024, 256, 256, 65536)
 
 
 def _constant(text: str, name: str) -> int:
@@ -150,11 +230,36 @@ def test_plan_matches_the_cuda_sources():
     assert _constant(header, "kConsumers") + 32 == tg.WG_THREADS
     assert _constant(header, "kSmemMax") == tg.SMEM_MAX
     assert "kFit < 4 ? kFit : 4" in header and tg.WG_MAX_STAGES == 4
+    # scaled wgrad: the 64 values of w a stage beside the ring
+    assert "WBYTES = AF == kAScaled ? BK * 2 : 0" in header
+    # gate_up's blocks cover half of B's columns of each output
+    fwd = (CSRC / "grouped_matmul.cu").read_text()
+    assert "G::launch<G::kAK, G::BN / 2>(grouped_gate_up_wgmma_kernel" in fwd
     for src in ("grouped_matmul.cu", "grouped_matmul_bwd.cu"):
         text = (CSRC / src).read_text()
         assert {f: _constant(text, {"fma": "kFma", "mma": "kMma",
                                     "wgmma": "kWgmma"}[f])
                 for f in tg.FORMS} == tg.FORMS
+
+
+@pytest.mark.parametrize("src,fn", [
+    ("grouped_matmul.cu", "dstt_grouped_gate_up"),
+    ("grouped_matmul.cu", "dstt_grouped_down"),
+    ("grouped_matmul_bwd.cu", "dstt_grouped_dxs"),
+    ("grouped_matmul_bwd.cu", "dstt_grouped_wgrad")])
+def test_entry_points_take_only_the_planned_pairings(src, fn):
+    """Each C entry point launches for exactly the three (dtype, form)
+    pairings plan gives (fp32 FMA, bf16 mma.sync, bf16 wgmma) and refuses
+    every other one: no form falls back to another."""
+    text = (CSRC / src).read_text()
+    body = text[text.index(f'extern "C" int {fn}('):]
+    body = body[:body.index("\n}\n")]
+    pairs = re.findall(r"if \(dtype == (\d) && form == (k\w+)\)", body)
+    assert sorted(pairs) == [("0", "kFma"), ("1", "kMma"), ("1", "kWgmma")]
+    assert "if (dtype == " not in re.sub(
+        r"if \(dtype == \d && form == k\w+\)", "", body)
+    assert re.search(r"return (kInvalid|\(int\)cudaErrorInvalidValue);\s*$",
+                     body)
 
 
 @pytest.mark.parametrize("name,entry", [
@@ -173,6 +278,14 @@ def test_plan_matches_the_cuda_sources():
      "grouped_dxs"),
     ("void (anonymous namespace)::grouped_wgrad_kernel<float, true>(x)",
      "grouped_wgrad"),
+    ("(anonymous namespace)::grouped_gate_up_wgmma_kernel(dstt::grouped::"
+     "Maps, dstt::grouped::Epilogue)", "grouped_gate_up"),
+    ("_ZN12_GLOBAL__N_128grouped_gate_up_wgmma_kernelEN4dstt7grouped4MapsE"
+     "NS1_8EpilogueE", "grouped_gate_up"),
+    ("(anonymous namespace)::grouped_wgrad_wgmma_kernel(dstt::grouped::Maps, "
+     "dstt::grouped::WgradEpilogue)", "grouped_wgrad"),
+    ("(anonymous namespace)::grouped_wgrad_scaled_wgmma_kernel(dstt::"
+     "grouped::Maps, dstt::grouped::WgradEpilogue)", "grouped_wgrad"),
     ("nvjet_hsh_256x128_64x4_1x2_h_bz_coopA_NNT", None)])
 def test_kernel_entry_names_every_form(name, entry):
     """The profile tools class device time by the entry point that
