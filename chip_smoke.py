@@ -8,9 +8,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    (the build line gives each flash-attention kernel's registers and
    spilled bytes);
 3. holds each kernel against its plain PyTorch version on the card, at the
-   serving and training paths' shapes in bf16 (paged attention through the serving
-   phase's full-size arena, past element 2**31), in fp32 at a 4000-token
-   decode and at small fp32 shapes (flash attention at small shapes in
+   serving and training paths' shapes in bf16 (paged attention through the
+   serving phase's full-size arena, past element 2**31: its split form at
+   decode, n 16 and the dense batch of 8, Qwen1.5-MoE's g 1, a page table
+   as wide as max_seq_len so that splits start past ctx, an empty row; its
+   mma form on 256-token chunks and the split-prefill history at the
+   serving profile's shape; both at bs 16 and the mma form at dh 64; the
+   split form on 16-row chunks whose rows end in different splits, in
+   bf16 and fp32; each case asserts the form it took), in fp32 at a
+   4000-token decode and at small fp32 shapes (flash attention at small
+   shapes in
    bf16 too: its tensor-core kernels), and times the kernel, the plain
    version, the card's bound for the same work and, for flash attention,
    ``scaled_dot_product_attention`` (forward, and backward alone) as a
@@ -64,14 +71,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    grouped kernels, and ``serve`` on 16 requests) and Qwen1.5-MoE-A2.7B at
    full width and depth (``generate`` on 8 prompts of 256-512 tokens),
    each with prefill tokens/s, decode ms per step, peak memory and the
-   launch counts read around its run; then quantized serving (the engine's
+   launch counts read around its run (paged attention's by form: every
+   decode launch takes the split form, every split-prefill launch the mma
+   form); then quantized serving (the engine's
    ``weight_quant``, the tree drawn quantized slice by slice on the card):
    Llama-3 8B at full width and depth in int8, fp8, int4 and fp6
    (``generate`` on the 8 ragged prompts, 32 new tokens; ``serve`` on 16
    requests in int8), and Mixtral 8x7B at full width and all 32 layers in
    int8 (46.8 GB of weights; 256 arena pages, 512-token steps, 8 prompts of
    128-512 tokens, 16 new tokens), each with the same numbers, the
-   quantized weights' bytes and K5's launches by form;
+   quantized weights' bytes and K5's launches by form and by weight shape;
 6. runs two ``train_batch`` steps of a depth-2 model at Llama-3-1B width in
    fp32 on the card (K1 + K3) and on the CPU (plain versions) from one
    parameter tree, and compares losses and updated parameters;
@@ -122,6 +131,9 @@ GROUPED_KERNELS = ("grouped_gate_up", "grouped_down")
 GROUPED_FORM_LAUNCHES = {k: {"fma": 0, "mma": 0, "wgmma": 0}
                          for k in ("grouped_gate_up", "grouped_down",
                                    "grouped_dxs", "grouped_wgrad")}
+#: K2's launches by form over the serving paths (phase 5), each run
+#: counted from 0
+PAGED_FORM_LAUNCHES = {"fma": 0, "split": 0, "mma": 0}
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense bf16 tensor cores
@@ -157,21 +169,24 @@ def bound(nbytes: float, flops: float, dtype: str):
 # ---------------------------------------------------------------------------
 
 def _paged_case(rng, n, c, h, kvh, dh, bs, starts, counts, dtype, dev,
-                serve_arena=False):
+                serve_arena=False, mb=None):
     """Random K/V and a page table listing each row's pages in a shuffled
     order. By default the arena holds one layer of just the pages the rows
     need. With ``serve_arena`` it is the serving phase's own arena
     (``init_arena(L, kvh, SERVE_BLOCKS, bs, dh)``) and the pages are the
     LAST layer's, drawn from the top of its region as the allocator hands
     them out: at Llama-3 8B's shape that region of the last kv head lies
-    past element 2**31 of the K/V tensors."""
+    past element 2**31 of the K/V tensors. ``mb``: the page table's width
+    (default: the longest row's pages), padded with the trash block as the
+    engine pads its table to max_seq_len."""
     import torch
     from deepspeed_tpu_torch import llama3_config
     from deepspeed_tpu_torch.ops.paged_attention import (init_arena,
                                                          layer_page_offset)
     ctx = [s + k for s, k in zip(starts, counts)]
     need = [max(1, -(-x // bs)) for x in ctx]
-    mb = max(need)
+    mb = max(need) if mb is None else mb
+    assert mb >= max(need)
     g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
     if serve_arena:
         layers = llama3_config(SERVE_MODEL[0], **SERVE_MODEL[1]).num_layers
@@ -255,18 +270,25 @@ def _hold(name, out, ref_out, lse, ref_lse, res) -> None:
 
 
 def check_paged(name, rng, n, c, starts, counts, dtype, with_lse, dims,
-                time_it=True, serve_arena=False):
+                form, time_it=True, serve_arena=False, mb=None):
+    """Hold K2 against ``paged_attention_ref`` on one case and assert that
+    the launch took ``form`` (its plan goes into the line)."""
     import torch
     from deepspeed_tpu_torch.ops import paged_attention as pa
     h, kvh, dh, bs = dims
     dev = torch.device(DEV)
     q, ak, av, (pt, st, ct), ctx = _paged_case(
-        rng, n, c, h, kvh, dh, bs, starts, counts, dtype, dev, serve_arena)
-    before = pa.op_builder.launches["paged_attention"]
+        rng, n, c, h, kvh, dh, bs, starts, counts, dtype, dev, serve_arena,
+        mb)
+    pl = pa.plan(n, c, h, kvh, dh, bs, pt.shape[1], dtype)
+    assert pl.form == form, (name, pl)
+    forms = pa.form_launches["paged_attention"]
+    before = pa.op_builder.launches["paged_attention"], forms[form]
     out, lse = pa.paged_attention_with_lse(q, ak, av, pt, st, ct) \
         if with_lse else (pa.paged_attention(q, ak, av, pt, st, ct), None)
     torch.cuda.synchronize()
-    assert pa.op_builder.launches["paged_attention"] == before + 1
+    assert (pa.op_builder.launches["paged_attention"], forms[form]) == \
+        (before[0] + 1, before[1] + 1), name
     ref_out, ref_lse = pa.paged_attention_ref(q, ak, av, pt, st, ct,
                                               with_lse=True)
     # rows that see at least one key: p <= start + j and p < start + count
@@ -276,7 +298,10 @@ def check_paged(name, rng, n, c, starts, counts, dtype, with_lse, dims,
     rows = has_key[:, :, None].expand(n, c, h)
     res = {"phase": "kernels", "check": name, "kernel": "paged_attention",
            "dtype": str(dtype).replace("torch.", ""),
+           "plan": {"form": pl.form, "splits": pl.splits,
+                    "split_keys": pl.split_keys, "grid": list(pl.grid)},
            "shape": {"n": n, "c": c, "H": h, "KvH": kvh, "dh": dh, "bs": bs,
+                     "mb": int(pt.shape[1]),
                      "ctx_min": min(ctx), "ctx_max": max(ctx),
                      "arena": list(ak.shape),
                      "max_page_element": int(
@@ -302,6 +327,11 @@ def check_paged(name, rng, n, c, starts, counts, dtype, with_lse, dims,
             if with_lse else (lambda: pa.paged_attention(q, ak, av, pt, st,
                                                          ct))
         res["kernel_ms"] = cuda_time_ms(fn)
+        if form == "split":
+            # a decode call is short next to the wrapper's host cost: the
+            # device time a call from a CUDA graph, and the host's µs a call
+            res["kernel_graph_ms"] = graph_time_ms(lambda _: fn(), [None])
+            res["kernel_host_us"] = host_us(fn)
         res["plain_ms"] = cuda_time_ms(
             lambda: pa.paged_attention_ref(q, ak, av, pt, st, ct,
                                            with_lse=with_lse), iters=5)
@@ -958,16 +988,55 @@ def phase_kernels(rng):
     path = (32, 8, 128, 128)              # Llama-3 8B: H, KvH, dh, bs
     out = {}
     ctx = [1, 4000] + [int(x) for x in rng.integers(2, 4001, size=14)]
-    # the path's shapes, through the serving phase's full-size arena
+    # the path's shapes, through the serving phase's full-size arena: K2's
+    # split form at decode (16 rows of 4000 keys and less; the dense
+    # generate batch of 8; Qwen1.5-MoE's heads, g 1; a table as wide as
+    # max_seq_len 4096, so that most splits start past their row's ctx,
+    # and an empty row), its mma form at split prefill (chunks, and the
+    # history-only read at the serving profile's shape)
     out["decode"] = check_paged(
         "paged_decode", rng, 16, 1, [x - 1 for x in ctx], [1] * 16, bf16,
-        False, path, serve_arena=True)
+        False, path, "split", serve_arena=True)
     check_paged("paged_decode_lse", rng, 16, 1, [x - 1 for x in ctx],
-                [1] * 16, bf16, True, path, time_it=False, serve_arena=True)
-    check_paged("paged_chunk_lse", rng, 4, 256, [0, 700, 1500, 3000],
-                [256, 256, 100, 0], bf16, True, path, serve_arena=True)
+                [1] * 16, bf16, True, path, "split", time_it=False,
+                serve_arena=True)
+    ctx8 = [int(x) for x in rng.integers(1, 4001, size=8)]
+    out["decode_n8"] = check_paged(
+        "paged_decode_n8", rng, 8, 1, [x - 1 for x in ctx8], [1] * 8, bf16,
+        True, path, "split", serve_arena=True, mb=32)
+    out["decode_g1"] = check_paged(
+        "paged_decode_g1", rng, 16, 1, [x - 1 for x in ctx], [1] * 16, bf16,
+        True, (16, 16, 128, 128), "split")
+    short = [0] + [int(x) for x in rng.integers(1, 2000, size=15)]
+    check_paged("paged_decode_past_ctx", rng, 16, 1,
+                [max(x - 1, 0) for x in short], [min(x, 1) for x in short],
+                bf16, True, path, "split", time_it=False, serve_arena=True,
+                mb=32)
+    out["chunk"] = check_paged(
+        "paged_chunk_lse", rng, 4, 256, [0, 700, 1500, 3000],
+        [256, 256, 100, 0], bf16, True, path, "mma", serve_arena=True)
     check_paged("paged_history_lse", rng, 4, 256, [0, 512, 1300, 3000],
-                [0, 0, 0, 0], bf16, True, path, serve_arena=True)
+                [0, 0, 0, 0], bf16, True, path, "mma", time_it=False,
+                serve_arena=True)
+    out["history"] = check_paged(
+        "paged_history_profile", rng, 8, 256, [0, 256, 512, 768] * 2,
+        [0] * 8, bf16, True, path, "mma", serve_arena=True)
+    # per-key page addressing (bs 16: a tile spans four pages) in both bf16
+    # forms, and dh 64 on the tensor cores with a row block that straddles
+    # two heads of the GQA group
+    check_paged("paged_chunk_bs16", rng, 3, 40, [0, 37, 300], [40, 9, 0],
+                bf16, True, (32, 8, 128, 16), "mma", time_it=False)
+    check_paged("paged_decode_bs16", rng, 5, 1, [0, 3, 600, 999, 0],
+                [1, 1, 1, 1, 0], bf16, True, (32, 8, 128, 16), "split",
+                time_it=False, mb=70)
+    check_paged("paged_chunk_dh64", rng, 3, 100, [0, 130, 64], [100, 50, 0],
+                bf16, True, (8, 2, 64, 64), "mma", time_it=False)
+    # the split form on chunks (g·c = 16 rows of different lengths): row
+    # j = 0 of the first sequence ends where a split does, so the next
+    # split's partial is empty for it and not for rows j >= 1
+    check_paged("paged_chunk_c4_split", rng, 4, 4, [767, 100, 37, 0],
+                [4, 2, 0, 3], bf16, True, path, "split", time_it=False,
+                mb=32)
     out["fresh"] = check_flash("flash_fresh", rng, 8, 256, (32, 8, 128),
                                bf16, False)
     # the training path's attention: Llama-3 1B heads, micro batch 4 x 2048
@@ -979,11 +1048,16 @@ def phase_kernels(rng):
     # that straddles two heads of the GQA group; K1's small shapes in fp32
     # (its CUDA-core kernel) and in bf16 (its tensor-core kernel)
     check_paged("paged_decode_f32", rng, 16, 1, [x - 1 for x in ctx],
-                [1] * 16, f32, True, path, time_it=False)
-    check_paged("paged_small_f32", rng, 3, 40, [0, 37, 5], [40, 9, 0], f32,
-                True, (4, 2, 64, 16), time_it=False)
+                [1] * 16, f32, True, path, "split", time_it=False)
+    out["fma"] = check_paged(
+        "paged_small_f32", rng, 3, 40, [0, 37, 5], [40, 9, 0], f32, True,
+        (4, 2, 64, 16), "fma")
     check_paged("paged_small_decode_f32", rng, 5, 1, [0, 3, 16, 40, 0],
-                [1, 1, 1, 1, 0], f32, True, (4, 2, 128, 8), time_it=False)
+                [1, 1, 1, 1, 0], f32, True, (4, 2, 128, 8), "split",
+                time_it=False, mb=40)
+    check_paged("paged_chunk_c8_split_f32", rng, 3, 8, [255, 0, 64],
+                [8, 5, 0], f32, True, (4, 2, 128, 16), "split",
+                time_it=False, mb=40)
     for dtype, tag in ((f32, "f32"), (bf16, "bf16")):
         for name, b, t, dims, with_lse, kw in (
                 ("flash_small", 2, 100, (4, 2, 64), True, {}),
@@ -1481,6 +1555,7 @@ def phase_serve():
     import torch
     from deepspeed_tpu_torch import RaggedInferenceEngine, llama3_config
     from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.ops import paged_attention as pa
     cfg = llama3_config(SERVE_MODEL[0], **SERVE_MODEL[1])
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1503,6 +1578,7 @@ def phase_serve():
 
     # the main path: every count set to 0 just before, read just after
     op_builder.reset_launches()
+    pa.reset_form_launches()
     eng.stats.clear()
     t1 = time.perf_counter()
     outs = eng.generate(prompts, max_new_tokens=32)
@@ -1513,6 +1589,7 @@ def phase_serve():
     served = eng.serve(requests, max_new_tokens=budgets, max_concurrency=8)
     serve_s = time.perf_counter() - t2
     launches = dict(op_builder.launches)
+    paged_forms = _paged_forms(eng.stats)
 
     for p, o in zip(prompts, outs):
         assert len(o) == len(p) + 32 and (o[:len(p)] == p).all()
@@ -1545,6 +1622,7 @@ def phase_serve():
           "decode_ms_per_step": 1e3 * st["decode"]["seconds"]
           / st["decode"]["steps"],
           "stats": st, "launches": launches,
+          "paged_launches_by_form": paged_forms,
           "launches_per_decode_step": per_step,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     del eng                    # the MoE runs need the card's memory
@@ -1563,6 +1641,24 @@ def _grouped_forms(launches) -> dict:
         assert v["wgmma"] == launches[k] and v["fma"] == v["mma"] == 0, forms
         for f, c in v.items():
             GROUPED_FORM_LAUNCHES[k][f] += c
+    return forms
+
+
+def _paged_forms(stats) -> dict:
+    """K2's launches by form since the last reset, added to
+    PAGED_FORM_LAUNCHES. A bf16 serving run launches K2 in two modes:
+    decode (one token a row: g <= 16 rows a kv head) takes the split form
+    alone, the history read of split prefill (256-token chunks) the mma
+    form alone; fresh prefill launches none."""
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+    forms = dict(pa.form_launches["paged_attention"])
+    want = {"fma": 0, "split": 0, "mma": 0}
+    for mode, form in (("decode", "split"), ("split", "mma")):
+        if mode in stats:
+            want[form] = stats[mode]["launches"]["paged_attention"]
+    assert forms == want and forms["split"] > 0, (forms, want)
+    for f, c in forms.items():
+        PAGED_FORM_LAUNCHES[f] += c
     return forms
 
 
@@ -1585,6 +1681,7 @@ def phase_serve_moe():
     from deepspeed_tpu_torch.models.qwen2_moe import qwen2_moe_config
     from deepspeed_tpu_torch.ops import grouped_matmul as tg
     from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.ops import paged_attention as pa
     presets = {"mixtral": mixtral_config, "qwen2_moe": qwen2_moe_config}
     total = {k: 0 for k in op_builder.launches}
     for i, (name, family, size, over, blocks, lens, new, n_req) in \
@@ -1613,6 +1710,7 @@ def phase_serve_moe():
         # the main path: every count set to 0 just before, read just after
         op_builder.reset_launches()
         tg.reset_form_launches()
+        pa.reset_form_launches()
         eng.stats.clear()
         t1 = time.perf_counter()
         outs = eng.generate(prompts, max_new_tokens=new)
@@ -1625,6 +1723,7 @@ def phase_serve_moe():
         serve_s = time.perf_counter() - t2
         launches = dict(op_builder.launches)
         forms = _grouped_forms(launches)
+        paged_forms = _paged_forms(eng.stats)
 
         for p, o in zip(prompts, outs):
             assert len(o) == len(p) + new and (o[:len(p)] == p).all()
@@ -1655,6 +1754,7 @@ def phase_serve_moe():
               / st["decode"]["steps"],
               "stats": st, "launches": launches,
               "grouped_launches_by_form": forms,
+              "paged_launches_by_form": paged_forms,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
         for k, v in launches.items():
             total[k] += v
@@ -1762,11 +1862,13 @@ def phase_full_width_quant():
 #: tokens, 16 new tokens)
 QUANT_MIXTRAL_PROMPTS = [128, 512, 256, 384, 200, 448, 300, 160]
 #: the quantized serving runs' K5 launches by kernel and form (split-K at
-#: decode, wgmma at prefill), summed over phase 5's quantized runs
+#: decode, wgmma at prefill), and by form and weight shape, summed over
+#: phase 5's quantized runs
 QUANT_FORM_LAUNCHES = {k: {"fma": 0, "splitk": 0, "wgmma": 0}
                        for k in ("quantized_matmul",
                                  "quantized_matmul_packed",
                                  "quantized_matmul_batched")}
+QUANT_SHAPE_LAUNCHES = {k: {} for k in QUANT_FORM_LAUNCHES}
 
 
 def _tree_bytes(tree) -> int:
@@ -1786,6 +1888,7 @@ def phase_serve_quant():
     from deepspeed_tpu_torch import RaggedInferenceEngine, llama3_config
     from deepspeed_tpu_torch.models.mixtral import mixtral_config
     from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.ops import paged_attention as pa
     from deepspeed_tpu_torch.ops import quantized_linear as tq
     total = {k: 0 for k in op_builder.launches}
     runs = [("llama3-8b-" + m, llama3_config("8b"), m,
@@ -1824,6 +1927,7 @@ def phase_serve_quant():
         # the main path: every count set to 0 just before, read just after
         op_builder.reset_launches()
         tq.reset_regime_launches()
+        pa.reset_form_launches()
         eng.stats.clear()
         t1 = time.perf_counter()
         outs = eng.generate(prompts, max_new_tokens=new)
@@ -1836,6 +1940,8 @@ def phase_serve_quant():
         serve_s = time.perf_counter() - t2
         launches = dict(op_builder.launches)
         forms = {k: dict(v) for k, v in tq.regime_launches.items()}
+        shapes = {k: dict(v) for k, v in tq.shape_launches.items()}
+        paged_forms = _paged_forms(eng.stats)
 
         for p, o in zip(prompts, outs):
             assert len(o) == len(p) + new and (o[:len(p)] == p).all()
@@ -1862,6 +1968,10 @@ def phase_serve_quant():
         for k, v in forms.items():
             for r, c in v.items():
                 QUANT_FORM_LAUNCHES[k][r] += c
+            assert sum(shapes[k].values()) == sum(v.values()), (k, shapes)
+            for key, c in shapes[k].items():
+                QUANT_SHAPE_LAUNCHES[k][key] = \
+                    QUANT_SHAPE_LAUNCHES[k].get(key, 0) + c
         st = eng.stats
         emit({"phase": "serve_quant", "model": name, "dtype": "bfloat16",
               "weight_quant": mode, "params": cfg.num_params(),
@@ -1879,6 +1989,8 @@ def phase_serve_quant():
               / st["decode"]["steps"],
               "stats": st, "launches": launches,
               "launches_by_regime": forms,
+              "launches_by_shape": shapes,
+              "paged_launches_by_form": paged_forms,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
         for k, v in launches.items():
             total[k] += v
@@ -2491,6 +2603,20 @@ def main() -> int:
             row["also_replaces"] = also[row["name"]]
         if row["name"] in QUANT_FORM_LAUNCHES:
             row["launches_by_regime"] = QUANT_FORM_LAUNCHES[row["name"]]
+            row["launches_by_shape"] = QUANT_SHAPE_LAUNCHES[row["name"]]
+        if row["name"] == "paged_attention":
+            # launches by form over the serving paths (the training paths
+            # launch none), and each form's time at its path shape: split
+            # at decode (the row's own numbers), mma at the split-prefill
+            # history (the serving profile's shape), fma in fp32
+            row["launches_by_form"] = PAGED_FORM_LAUNCHES
+            assert sum(PAGED_FORM_LAUNCHES.values()) == row["launches"]
+            row["forms"] = {
+                form: {k: timed[key].get(k) for k in (
+                    "check", "kernel_ms", "kernel_graph_ms", "plain_ms",
+                    "bound_ms", "bound_by", "max_abs_err")}
+                for form, key in (("split", "decode"), ("mma", "history"),
+                                  ("fma", "fma"))}
         if row["name"] in GROUPED_FORM_LAUNCHES:
             row["launches_by_form"] = GROUPED_FORM_LAUNCHES[row["name"]]
             assert sum(row["launches_by_form"].values()) == row["launches"]

@@ -102,11 +102,13 @@ class MoEConfig(TPUConfigModel):
         if self.ep_size != 1:
             raise NotImplementedError(
                 f"moe.ep_size={self.ep_size}: expert parallelism is not "
-                f"ported to deepspeed_tpu_torch yet (ROADMAP A10)")
+                f"ported to deepspeed_tpu_torch yet (ROADMAP A, 'Parallelism "
+                f"breadth')")
         if self.use_residual:
             raise NotImplementedError(
                 "moe.use_residual (Residual-MoE) is not ported to "
-                "deepspeed_tpu_torch yet (ROADMAP A8)")
+                "deepspeed_tpu_torch yet (ROADMAP A, 'Single-device training "
+                "breadth')")
         if self.noisy_gate_policy not in (None, "None"):
             raise NotImplementedError(
                 f"moe.noisy_gate_policy={self.noisy_gate_policy!r} is not "

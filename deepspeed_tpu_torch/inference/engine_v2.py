@@ -114,7 +114,8 @@ def ragged_forward(cfg: DecoderConfig, params, arena, tokens: torch.Tensor,
             "ragged/paged inference does not support ALiBi models; serve "
             "BLOOM-class models with the JAX package's v1 KV-cache engine "
             "(deepspeed_tpu.inference.engine.InferenceEngineTPU); "
-            "deepspeed_tpu_torch has no v1 engine yet (ROADMAP A6)")
+            "deepspeed_tpu_torch has no v1 engine yet (ROADMAP A, 'v1 "
+            "inference and the quantization tool')")
     n, c = tokens.shape
     dev = tokens.device
     positions = starts[:, None].to(torch.int32) + torch.arange(

@@ -12,13 +12,17 @@ point, so scatter and gather stay branch-free.
   hand-written Hopper kernel ``csrc/paged_attention.cu`` on CUDA tensors
   (it replaces the TPU kernel ``_paged_kernel``, :235) and run the plain
   version :func:`paged_attention_ref` on CPU tensors. An input the kernel
-  does not take raises; nothing falls back.
+  does not take raises; nothing falls back. :func:`plan` picks the
+  kernel's form from the shapes alone: ``split`` (flash-decoding over key
+  splits, at most 16 rows a kv head: decode), ``mma`` (bf16 on the tensor
+  cores: split-prefill history, chunks) or ``fma`` (fp32 chunks).
 - :func:`paged_attention_ref` / :func:`paged_attention_hist_ref` are the
   plain gather-then-attend versions (JAX ``paged_attention_xla`` /
   ``paged_attention_hist_xla``). They gather the whole page-table width,
   so rows of an empty sequence average the trash block's values: a NaN
   written there would poison them. The kernel walks only live pages and
-  gives such rows zeros.
+  gives such rows zeros, as does :func:`paged_attention_split_ref`, the
+  plain version of the split form (per-split partials, then the combine).
 - ``write_kv`` and ``copy_pages`` update the arena IN PLACE (the JAX
   versions return new arrays; here the caller's tensors change).
 
@@ -27,8 +31,9 @@ yardstick.
 """
 
 import ctypes
+import functools
 import math
-from typing import Optional, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -39,7 +44,7 @@ _NEG_INF = -1e30
 
 op_builder.register("paged_attention", {
     "dstt_paged_attention": (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12
         + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
     "dstt_error_string": ([ctypes.c_int], ctypes.c_char_p),
 })
@@ -200,6 +205,65 @@ def merge_attention(out_a, lse_a, out_b, lse_b) -> torch.Tensor:
             + out_b.float() * wb[..., None]) / denom
 
 
+def _combine_partials(outs: torch.Tensor, lses: torch.Tensor):
+    """merge_attention's arithmetic over S partials on disjoint key sets:
+    outs [S, ..., dh] fp32, lses [S, ...] → (out, lse); an all-empty row
+    (every lse -1e30) gives zeros and -1e30."""
+    m = lses.amax(dim=0)
+    w = torch.exp(lses - m)
+    den = w.sum(dim=0)
+    out = (outs * w[..., None]).sum(dim=0) / den.clamp_min(1e-30)[..., None]
+    lse = torch.where(m > _NEG_INF / 2, m + torch.log(den),
+                      torch.full_like(m, _NEG_INF))
+    return out, lse
+
+
+def paged_attention_split_ref(q: torch.Tensor, arena_k: torch.Tensor,
+                              arena_v: torch.Tensor, page_table: torch.Tensor,
+                              starts: torch.Tensor, counts: torch.Tensor,
+                              split_keys: Optional[int] = None):
+    """Plain version of K2's ``split`` form: the keys [0, mb * bs) cut into
+    splits of ``split_keys`` (default: :func:`plan`'s), each split's
+    partial (out, lse) over its own keys in fp32 (an empty partial, zeros
+    and -1e30, for a row that sees none of them), then the partials
+    combined with merge_attention's arithmetic. Returns (out [n, c, H, dh]
+    in q's dtype, lse [n, c, H] fp32); a row with no key gives zeros and
+    -1e30, as the kernel does."""
+    kvh, _, bs, dh = arena_k.shape
+    n, c, h, _ = q.shape
+    mb = page_table.shape[1]
+    if split_keys is None:
+        split_keys = plan(n, c, h, kvh, dh, bs, mb, q.dtype).split_keys
+    groups = h // kvh
+    kg = _gather_pages(arena_k, page_table).float()
+    vg = _gather_pages(arena_v, page_table).float()
+    dev = q.device
+    qpos = starts.long()[:, None] + torch.arange(c, device=dev)[None]
+    kpos = torch.arange(mb * bs, device=dev)
+    ctx = (starts + counts).long()
+    vis = (kpos[None, None] <= qpos[..., None]) & \
+        (kpos[None, None] < ctx[:, None, None])               # [n, c, S]
+    qg = q.reshape(n, c, kvh, groups, dh).float()
+    s = torch.einsum("nckgd,nksd->nkgcs", qg, kg) / math.sqrt(dh)
+    outs, lses = [], []
+    for lo in range(0, mb * bs, split_keys):
+        keys = slice(lo, lo + split_keys)
+        sk = torch.where(vis[:, None, None, :, keys], s[..., keys],
+                         torch.full_like(s[..., keys], _NEG_INF))
+        m = sk.amax(dim=-1)
+        alive = m > _NEG_INF / 2
+        p = torch.where(alive[..., None], torch.exp(sk - m[..., None]),
+                        torch.zeros_like(sk))
+        l = p.sum(dim=-1).clamp_min(1e-30)
+        outs.append(torch.einsum("nkgcs,nksd->nkgcd", p, vg[:, :, keys])
+                    / l[..., None])
+        lses.append(torch.where(alive, m + torch.log(l),
+                                torch.full_like(m, _NEG_INF)))
+    out, lse = _combine_partials(torch.stack(outs), torch.stack(lses))
+    return (out.permute(0, 3, 1, 2, 4).reshape(n, c, h, dh).to(q.dtype),
+            lse.permute(0, 3, 1, 2).reshape(n, c, h))
+
+
 def causal_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor):
     """Plain causal attention over one chunk returning (out, lse)
@@ -217,6 +281,123 @@ def causal_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernel's forms, by their C code (``csrc/paged_attention.cu``)
+FORMS = {"fma": 0, "split": 1, "mma": 2}
+#: launches of K2 by form since the last reset: the wrapper adds one here
+#: and one to ``op_builder.launches`` at each launch
+form_launches: Dict[str, Dict[str, int]] = {
+    "paged_attention": {f: 0 for f in FORMS}}
+
+
+def reset_form_launches() -> None:
+    for counts in form_launches.values():
+        for f in counts:
+            counts[f] = 0
+
+
+#: the card's SMs (H100 SXM); a split grid aims at this many blocks a SM
+NUM_SMS = 132
+SPLIT_BLOCKS_PER_SM = 4
+#: rows a kv head (g * c) up to which a call takes the split form
+SPLIT_MAX_ROWS = 16
+#: keys a tile: a split is whole tiles (and whole pages when bs >= 64)
+TILE_KEYS = 64
+#: query rows a block of the mma and fma forms
+BLOCK_ROWS = {"mma": 128, "fma": 64}
+#: split arrival counters and workspace floats a (device, stream) keeps: a
+#: split grid has fewer than SPLIT_COUNTERS (sequence, kv head) pairs and
+#: at most twice as many blocks, each with at most 16 rows of dh + 1 floats
+SPLIT_COUNTERS = SPLIT_BLOCKS_PER_SM * NUM_SMS
+SPLIT_WORKSPACE = 2 * SPLIT_COUNTERS * SPLIT_MAX_ROWS * (128 + 1)
+_GRID_X_MAX, _GRID_YZ_MAX = 2 ** 31 - 1, 65535
+
+
+class Plan(NamedTuple):
+    """How one K2 call is launched (:func:`plan`)."""
+    form: str                    # "split", "mma" (bf16) or "fma" (fp32)
+    rows: int                    # query rows a block (split: all g * c)
+    splits: int                  # key splits a (sequence, kv head)
+    split_keys: int              # keys a split (mb * bs: the whole table)
+    grid: Tuple[int, int, int]
+    workspace_bytes: int         # fp32 partials [n, kvh, splits, rows, dh + 1]
+    counters: int                # int32 arrivals [n, kvh] when split
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(n: int, c: int, h: int, kvh: int, dh: int, bs: int, mb: int,
+         dtype: torch.dtype) -> Plan:
+    """The launch plan of K2 for q [n, c, h, dh] over an arena of kvh
+    heads and pages of ``bs`` through a page table [n, mb], from the shapes
+    alone (never from starts/counts, so no device→host sync):
+
+    - at most ``SPLIT_MAX_ROWS`` rows a kv head (g * c: decode), either
+      dtype: ``split``, grid (splits, kvh, n), one block a (split, kv head,
+      sequence) over all g * c rows; the mb * bs keys cut into splits of
+      whole 64-key tiles (whole pages too when bs >= 64), as many as bring
+      the grid to about ``SPLIT_BLOCKS_PER_SM`` blocks a SM, no split
+      empty at the table's width;
+    - more rows in bf16: ``mma``, 128 rows a block; in fp32: ``fma``, 64;
+      grid (row blocks, kvh, n), each block walks all its keys.
+
+    Raises ValueError for what the kernel does not take (dtype, head_dim
+    other than 64 or 128, bs not a multiple of 8, kv heads not dividing
+    q heads) and when the grid exceeds CUDA's limits."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"paged_attention kernel takes float32 or bfloat16 "
+                         f"q/arena, got {dtype}")
+    if dh not in (64, 128):
+        raise ValueError(f"paged_attention kernel takes head_dim 64 or 128, "
+                         f"got {dh}")
+    if bs <= 0 or bs % 8:
+        raise ValueError(f"paged_attention kernel takes block_size a "
+                         f"multiple of 8, got {bs}")
+    if kvh <= 0 or h % kvh:
+        raise ValueError(f"GQA requires kv heads to divide q heads "
+                         f"(h={h}, kvh={kvh})")
+    rows = (h // kvh) * c
+    keys = mb * bs
+    if rows <= SPLIT_MAX_ROWS:
+        unit = math.lcm(TILE_KEYS, bs) if bs >= TILE_KEYS else TILE_KEYS
+        units = _cdiv(keys, unit)
+        want = _cdiv(SPLIT_BLOCKS_PER_SM * NUM_SMS, max(n * kvh, 1))
+        splits = max(1, min(units, want))
+        per = _cdiv(units, splits) if units else 1
+        splits = max(1, _cdiv(units, per))          # no empty split
+        form, block_rows, split_keys = "split", rows, per * unit
+        grid = (splits, kvh, n)
+    else:
+        form = "mma" if dtype == torch.bfloat16 else "fma"
+        block_rows, splits, split_keys = BLOCK_ROWS[form], 1, keys
+        grid = (_cdiv(rows, block_rows), kvh, n)
+    if grid[0] > _GRID_X_MAX or grid[1] > _GRID_YZ_MAX \
+            or grid[2] > _GRID_YZ_MAX:
+        raise ValueError(f"paged_attention: grid {grid} exceeds CUDA's "
+                         f"limits for n={n}, c={c}, H={h}, KvH={kvh}")
+    split = splits > 1
+    return Plan(form, block_rows, splits, split_keys, grid,
+                4 * n * kvh * splits * rows * (dh + 1) if split else 0,
+                n * kvh if split else 0)
+
+
+#: per (device, stream): the split form's int32 arrival counters (all 0
+#: between launches: the last block of each (sequence, kv head) resets its
+#: own) and fp32 workspace, made once at the bound of every split plan and
+#: never replaced, so launches on one stream take turns with them and a
+#: captured CUDA graph keeps them
+_SPLIT_BUFFERS: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _split_buffers(device: torch.device, stream: int):
+    key = (device.index, stream)
+    if key not in _SPLIT_BUFFERS:
+        _SPLIT_BUFFERS[key] = (
+            torch.zeros(SPLIT_COUNTERS, dtype=torch.int32, device=device),
+            torch.empty(SPLIT_WORKSPACE, dtype=torch.float32, device=device))
+    return _SPLIT_BUFFERS[key]
 
 
 def _kernel(q, arena_k, arena_v, page_table, starts, counts):
@@ -230,17 +411,10 @@ def _kernel(q, arena_k, arena_v, page_table, starts, counts):
     if adh != dh or h % kvh:
         raise ValueError(f"paged_attention: q {tuple(q.shape)} does not fit "
                          f"arena {tuple(arena_k.shape)}")
-    if q.dtype not in _DTYPES or arena_k.dtype != q.dtype \
-            or arena_v.dtype != q.dtype:
-        raise ValueError(f"paged_attention kernel takes float32 or bfloat16 "
-                         f"q/arena of one dtype, got {q.dtype}/"
-                         f"{arena_k.dtype}/{arena_v.dtype}")
-    if dh not in (64, 128):
-        raise ValueError(f"paged_attention kernel takes head_dim 64 or 128, "
-                         f"got {dh}")
-    if bs % 8:
-        raise ValueError(f"paged_attention kernel takes block_size a "
-                         f"multiple of 8, got {bs}")
+    if arena_k.dtype != q.dtype or arena_v.dtype != q.dtype:
+        raise ValueError(f"paged_attention kernel takes q/arena of one "
+                         f"dtype, got {q.dtype}/{arena_k.dtype}/"
+                         f"{arena_v.dtype}")
     if page_table.dim() != 2 or page_table.shape[0] != n \
             or starts.shape != (n,) or counts.shape != (n,):
         raise ValueError("paged_attention: page_table [n, mb] and "
@@ -256,19 +430,27 @@ def _kernel(q, arena_k, arena_v, page_table, starts, counts):
                              "counts must be on q's device")
         ints.append(t.to(torch.int32).contiguous())
     pt, st, ct = ints
+    mb = pt.shape[1]
+    pl = plan(n, c, h, kvh, dh, bs, mb, q.dtype)
     out = torch.empty_like(q)
     lse = torch.empty((n, c, h), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse.fill_(_NEG_INF)
     lib = op_builder.load("paged_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    counters = ws = None
+    if pl.splits > 1:
+        counters, ws = (t.data_ptr() for t in _split_buffers(q.device,
+                                                              stream))
     err = lib.dstt_paged_attention(
         q.data_ptr(), arena_k.data_ptr(), arena_v.data_ptr(), pt.data_ptr(),
-        st.data_ptr(), ct.data_ptr(), out.data_ptr(), lse.data_ptr(), n, c,
-        h, kvh, dh, nb, bs, pt.shape[1], _DTYPES[q.dtype],
-        1.0 / math.sqrt(dh), stream)
+        st.data_ptr(), ct.data_ptr(), out.data_ptr(), lse.data_ptr(), ws,
+        counters, n, c, h, kvh, dh, nb, bs, mb, _DTYPES[q.dtype],
+        FORMS[pl.form], pl.splits, pl.split_keys, 1.0 / math.sqrt(dh),
+        stream)
     op_builder.check(lib, err, "paged_attention")
     op_builder.launches["paged_attention"] += 1
+    form_launches["paged_attention"][pl.form] += 1
     return out, lse
 
 

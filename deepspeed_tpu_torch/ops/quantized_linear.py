@@ -292,12 +292,18 @@ REGIMES = {"fma": 0, "splitk": 1, "wgmma": 2}
 #: one here and one to ``op_builder.launches`` at each launch
 regime_launches: Dict[str, Dict[str, int]] = {
     k: {r: 0 for r in REGIMES} for k in _ENTRY}
+#: launches of each kernel by form and weight shape since the last reset,
+#: keyed "<form> <K>x<N>" (with " G<groups>" for the batched experts)
+shape_launches: Dict[str, Dict[str, int]] = {k: {} for k in _ENTRY}
 
 
 def reset_regime_launches() -> None:
+    """Zero ``regime_launches`` and ``shape_launches``."""
     for counts in regime_launches.values():
         for r in counts:
             counts[r] = 0
+    for counts in shape_launches.values():
+        counts.clear()
 
 
 #: the card's SMs (H100 SXM): a split-K grid aims at the blocks that fit
@@ -462,6 +468,8 @@ def _launch(kernel: str, x: torch.Tensor, w_q: torch.Tensor,
     op_builder.check(lib, err, kernel)
     op_builder.launches[kernel] += 1
     regime_launches[kernel][pl.regime] += 1
+    key = f"{pl.regime} {k}x{n}" + (f" G{g}" if batched else "")
+    shape_launches[kernel][key] = shape_launches[kernel].get(key, 0) + 1
     return out
 
 

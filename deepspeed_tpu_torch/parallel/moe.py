@@ -26,8 +26,9 @@ quantized-matmul kernels on CUDA), and a quantized shared expert through
 token count, as in the JAX package, which has no quantized dropless path.
 
 Not ported (each raises ``NotImplementedError``): expert parallelism
-(A10), the routing-health taps, and random token selection (``rts_key``,
-ROADMAP A8: its permutation comes from JAX's PRNG, which a port cannot
+(ROADMAP A, 'Parallelism breadth'), the routing-health taps, and random
+token selection (``rts_key``, ROADMAP A, 'Single-device training
+breadth': its permutation comes from JAX's PRNG, which a port cannot
 reproduce bit for bit).
 """
 
@@ -212,7 +213,8 @@ def moe_layer(cfg, p, x: torch.Tensor, top_k: int = 2,
     if rts_key is not None:
         raise NotImplementedError(
             "random token selection (moe.use_rts) is not ported to "
-            "deepspeed_tpu_torch (ROADMAP A8); set moe.use_rts false")
+            "deepspeed_tpu_torch (ROADMAP A, 'Single-device training "
+            "breadth'); set moe.use_rts false")
     _no_health_taps(cfg)
     b, t, d = x.shape
     e = p["router"].shape[-1]
@@ -250,7 +252,7 @@ def serving_moe_fn(model, weight_quant, params, ep: bool):
     if ep:
         raise NotImplementedError(
             "expert parallelism is not ported to deepspeed_tpu_torch yet "
-            "(ROADMAP A10)")
+            "(ROADMAP A, 'Parallelism breadth')")
     capacity_fn = partial(moe_layer, top_k=model.num_experts_per_tok,
                           drop_tokens=False, aux_loss_coef=0.0,
                           norm_topk=model.norm_topk_prob)

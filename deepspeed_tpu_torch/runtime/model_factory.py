@@ -84,7 +84,8 @@ def select_moe(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
         raise NotImplementedError(
             "random token selection (moe.use_rts with drop_tokens on the "
             "capacity impl) is not ported to deepspeed_tpu_torch yet "
-            "(ROADMAP A8); set moe.use_rts false or moe.impl 'dropless'")
+            "(ROADMAP A, 'Single-device training breadth'); set moe.use_rts "
+            "false or moe.impl 'dropless'")
     return partial(moe_layer, top_k=dec_cfg.num_experts_per_tok,
                    capacity_factor=moe.capacity_factor,
                    min_capacity=moe.min_capacity,

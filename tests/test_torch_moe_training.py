@@ -214,12 +214,12 @@ def test_moe_training_runs_no_kernel_on_cpu_and_raises_where_unported():
     # eval_batch takes the loss out of the (loss, metrics) pair
     assert float(eng.eval_batch(iter([batch]))) > 0
     base = {"train_micro_batch_size_per_gpu": 1}
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="training breadth"):
         dt.initialize(cfg, base, device="cpu")          # use_rts default
     for moe, match in (({"use_residual": True}, "Residual-MoE"),
-                       ({"ep_size": 2}, "A10"),
+                       ({"ep_size": 2}, "Parallelism breadth"),
                        ({"noisy_gate_policy": "RSample"}, "noisy_gate")):
         with pytest.raises(NotImplementedError, match=match):
             dt.initialize(cfg, dict(base, moe=moe), device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="training breadth"):
         tm.moe_layer(None, {}, torch.zeros(1, 2, D), rts_key=0)

@@ -118,3 +118,22 @@ def test_builder_raises_without_nvcc(monkeypatch, tmp_path):
     # the library name follows the sources
     assert op_builder.library_path("flash_attention").name.startswith(
         "flash_attention-")
+
+
+def test_messages_name_roadmap_items_by_title():
+    """The port's messages and docstrings name ROADMAP items by title
+    (e.g. "ROADMAP A, 'Parallelism breadth'"): item numbers go stale when
+    a queue is renumbered."""
+    import re
+    pkg = os.path.join(ROOT, "deepspeed_tpu_torch")
+    bad = []
+    for root, _, files in os.walk(pkg):
+        for name in files:
+            if not name.endswith((".py", ".cu", ".cuh")):
+                continue
+            path = os.path.join(root, name)
+            with open(path, encoding="utf-8") as f:
+                for i, line in enumerate(f, 1):
+                    if re.search(r"ROADMAP\s+[A-Z]\d|\(A\d+\)", line):
+                        bad.append(f"{os.path.relpath(path, ROOT)}:{i}")
+    assert not bad, bad

@@ -87,7 +87,9 @@ def _classify(name: str) -> str:
         # prefill) is in the kernel's name in the per-kernel table
         return "quantized matmul packed (K5b)" if m.group(1) in "23" \
             else _K5A
-    if "paged_attn_kernel" in name:
+    if "paged_attn_" in name:
+        # every form: paged_attn_kernel (fma), paged_attn_split_kernel,
+        # paged_attn_mma_kernel
         return "paged_attention (K2)"
     if "flash_fwd_" in name:
         return "flash_attention_fwd (K1)"
