@@ -37,9 +37,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    at the same bf16 edges (the wgmma forms of grouped_dxs and
    grouped_wgrad, scaled and not; an expert with no row gets a zero dW)
    and in fp32 at awkward shapes, each kernel fed the plain version's
-   inputs, then the whole backward through autograd; each line prints the
-   launch plans of gate_up, down, dxs and wgrad and asserts the form each
-   launched; the weight-only quantized matmuls (K5a int8/fp8, K5b
+   inputs, then the whole backward through autograd (dgdu on its wgmma
+   form at every TMA-aligned bf16 edge and at a layout whose 128-row
+   blocks each hold two experts' tiles; at the path shapes also its
+   mma.sync form, held and timed through the C entry's form argument);
+   each line prints the launch plans of gate_up, down, dgdu, dxs and wgrad
+   and asserts the form each launched; the weight-only quantized matmuls (K5a int8/fp8, K5b
    int4/fp6, K5c the batched int8/fp8 experts) in bf16 at Llama-3 8B's linears and head
    (decode M 16 and prefill M 2048; the head with fp32 output) in all four
    formats and at Mixtral 8x7B's experts on capacity buffers (G 8, M 16 and
@@ -96,8 +99,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    steps of 8 x 2048 tokens; and Mixtral 8x7B at full width and 2 of its
    32 layers (1 x 2048 tokens), each with ms per step, tokens/s, peak
    memory, loss and aux loss per step, and the launches read around it
-   (grouped_gate_up's, grouped_down's, grouped_dxs's and grouped_wgrad's
-   by form: the bf16 main paths launch only their wgmma forms).
+   (grouped_gate_up's, grouped_down's, grouped_dgdu's, grouped_dxs's and
+   grouped_wgrad's by form: the bf16 main paths launch only their wgmma
+   forms).
 
 Every phase prints one JSON line; any failure raises, so the script exits
 non-zero. Without CUDA, or outside a checkout of the repository, it exits
@@ -130,7 +134,8 @@ GROUPED_KERNELS = ("grouped_gate_up", "grouped_down")
 #: serving, MoE training), each run counted from 0
 GROUPED_FORM_LAUNCHES = {k: {"fma": 0, "mma": 0, "wgmma": 0}
                          for k in ("grouped_gate_up", "grouped_down",
-                                   "grouped_dxs", "grouped_wgrad")}
+                                   "grouped_dgdu", "grouped_dxs",
+                                   "grouped_wgrad")}
 #: K2's launches by form over the serving paths (phase 5), each run
 #: counted from 0
 PAGED_FORM_LAUNCHES = {"fma": 0, "split": 0, "mma": 0}
@@ -518,7 +523,11 @@ def _grouped_case(rng, s, k, e, d, f, dtype, kind):
     """One dropless FFN call as the MoE layer makes it: x [S, d] ~ N(0, 1)
     routed by a random router (top-k of softmax, renormalised) into the
     aligned layout; weights ~ N(0, 1/fan-in). ``kind``: "router"; "empty"
-    (expert 0 never chosen); "one" (every slot on expert e - 1). Returns
+    (expert 0 never chosen); "one" (every slot on expert e - 1); "split"
+    (slot j of token t on expert (t + j) % e, with the router's
+    probabilities there: at S = 32·e and top-2 every expert holds one
+    64-row tile, so every 128-row block of the wgmma forms holds two
+    experts' tiles). Returns
     (xs, (wg, wi, wo), (group_of_tile, sizes, live), w, experts used)."""
     import torch
     from deepspeed_tpu_torch.ops import grouped_matmul as tg
@@ -529,9 +538,15 @@ def _grouped_case(rng, s, k, e, d, f, dtype, kind):
     logits_t = (x @ torch.randn((d, e), generator=g, device=dev)).t()
     if kind == "empty":
         logits_t[0] = -1e30
-    topv, topi = topk_gates_t(torch.softmax(logits_t / d ** 0.5, 0), k)
+    probs = torch.softmax(logits_t / d ** 0.5, 0)
+    topv, topi = topk_gates_t(probs, k)
     if kind == "one":
         topi = torch.full_like(topi, e - 1)
+    if kind == "split":
+        topi = (torch.arange(s, device=dev)[None]
+                + torch.arange(k, device=dev)[:, None]) % e
+        topv = probs.gather(0, topi)
+        topi = topi.to(torch.int32)
     topv = topv / topv.sum(0, keepdim=True)
     tok, w, got, sizes, pos, live = tg.aligned_dispatch(
         topi, topv.to(dtype), e, GMM_BM)
@@ -774,6 +789,33 @@ def _wgrad_mm_ms(a, b, ends):
     return None
 
 
+def _dgdu_form(dz, wo, got, live, bm, w, rc, form):
+    """A call of grouped_dgdu in ``form`` through the C entry (the wrapper
+    takes the plan's form and counts its launches; this counts none):
+    returns a function that launches it and gives (dg, du, h)."""
+    import torch
+    from deepspeed_tpu_torch.ops import grouped_matmul as tg
+    r_pad, d = dz.shape
+    e, f, _ = wo.shape
+    nf = -(-f // tg._OLD_BN[("grouped_dgdu", form)])
+    dg, du, h = (torch.empty((r_pad, f), dtype=dz.dtype, device=dz.device)
+                 for _ in range(3))
+    dwp = None if w is None else torch.empty((nf, r_pad), device=dz.device)
+    lib = tg.op_builder.load("grouped_matmul_bwd")
+    st = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        err = lib.dstt_grouped_dgdu(
+            dz.data_ptr(), rc["xs"].data_ptr(), rc["wg"].data_ptr(),
+            rc["wi"].data_ptr(), wo.data_ptr(), None, None, tg._ptr(w),
+            dg.data_ptr(), du.data_ptr(), h.data_ptr(), tg._ptr(dwp),
+            got.data_ptr(), live.data_ptr(), r_pad, d, f, bm, nf, e,
+            tg._DTYPES[dz.dtype], tg.FORMS[form], 1, st)
+        tg.op_builder.check(lib, err, f"grouped_dgdu ({form})")
+        return dg, du, h
+    return call
+
+
 def check_grouped_bwd(name, rng, s, k, e, d, f, dtype, fused,
                       kind="router", time_it=False, form="wgmma"):
     """The backward kernels on the card against their plain versions, on
@@ -784,11 +826,15 @@ def check_grouped_bwd(name, rng, s, k, e, d, f, dtype, fused,
     combine weights' gradient dw2) and without; grouped_dxs and the three
     grouped_wgrad products fed the plain dg/du/h; then the whole backward
     through autograd of grouped_glu_ffn. Rows at or past live_tiles * bm
-    are unspecified in dg/du/h/dxs and skipped. The plans of grouped_dxs
-    and of the three grouped_wgrad products must pick ``form``, and every
-    launch of both here must count under it. With ``kind`` "empty" the dW
-    products also run with one expert more than the layout has, which owns
-    no row: its dW must come back zero."""
+    are unspecified in dg/du/h/dxs and skipped. The plans of grouped_dgdu
+    (recomputed and saved), grouped_dxs and the three grouped_wgrad
+    products must pick ``form``, and every launch of the three here must
+    count under it. With ``kind`` "empty" the dW products also run with
+    one expert more than the layout has, which owns no row: its dW must
+    come back zero; with "split" some 128-row block must hold two
+    experts' tiles. Timed (the path shapes), the line also holds and
+    times grouped_dgdu's mma.sync form, called through the C entry's form
+    argument (no launch is counted)."""
     import torch
     from deepspeed_tpu_torch.ops import grouped_matmul as tg
     from deepspeed_tpu_torch.parallel.moe import GMM_BM as bm
@@ -806,6 +852,15 @@ def check_grouped_bwd(name, rng, s, k, e, d, f, dtype, fused,
                      "experts_used": used, "w": fused, "routing": kind}}
     pl = tg.plan("grouped_dxs", dtype, xs.shape[0], d, f, e)
     res["dxs_plan"] = _plan_line(pl)
+    pl_dg = tg.plan("grouped_dgdu", dtype, xs.shape[0], d, f, e)
+    pl_dgs = tg.plan("grouped_dgdu", dtype, xs.shape[0], d, f, e,
+                     saved=True)
+    res["dgdu_plan"], res["dgdu_saved_plan"] = (_plan_line(pl_dg),
+                                                _plan_line(pl_dgs))
+    assert pl_dg.form == pl_dgs.form == form, (name, pl_dg, pl_dgs)
+    if kind == "split":
+        tiles = got[:int(live[0])].tolist()
+        assert any(a != b for a, b in zip(tiles[::2], tiles[1::2])), tiles
     # dwg, dwi (a = xs [R, d], b = dg/du [R, f]); dwo (a = h, b = dz, w)
     pl_w = tg.plan("grouped_wgrad", dtype, xs.shape[0], d, f, e)
     pl_wo = tg.plan("grouped_wgrad", dtype, xs.shape[0], f, d, e,
@@ -859,6 +914,7 @@ def check_grouped_bwd(name, rng, s, k, e, d, f, dtype, fused,
     assert after["grouped_dxs"] - mid["grouped_dxs"] == 1, after
     assert after["grouped_wgrad"] - mid["grouped_wgrad"] == 3, after
     assert after["grouped_dgdu"] - before["grouped_dgdu"] == 3, after
+    _counted_forms(("grouped_dgdu",), before_form, form, 3)
     _counted_forms(("grouped_dxs",), before_form, form, 2)
     _counted_forms(("grouped_wgrad",), before_form, form, n_wgrad)
     dxs_ref = tg.dxs_ref(rdg, rdu, wg, wi, sizes, live, bm)
@@ -879,6 +935,13 @@ def check_grouped_bwd(name, rng, s, k, e, d, f, dtype, fused,
             dz, wo, got, live, bm, w=w, **rc), iters=10)
         t["dgdu_saved_ms"] = cuda_time_ms(lambda: tg.dgdu_kernel(
             dz, wo, got, live, bm, w=w, **saved), iters=10)
+        if form == "wgmma":
+            # the kernel the wgmma form replaced on the main paths, held
+            # and timed through the C entry's form argument
+            mma = _dgdu_form(dz, wo, got, live, bm, w, rc, "mma")
+            for key, a, b in zip(("dg", "du", "h"), mma()[:3], ref[:3]):
+                _hold_pair(res, f"dgdu_mma_{key}", a[:end], b[:end])
+            t["dgdu_mma_ms"] = cuda_time_ms(mma, iters=10)
         t["dxs_ms"] = cuda_time_ms(lambda: tg.dxs_kernel(
             rdg, rdu, wg, wi, got, live, bm), iters=10)
         t["dwg_ms"] = cuda_time_ms(lambda: tg.wgrad_kernel(
@@ -925,6 +988,10 @@ def check_grouped_bwd(name, rng, s, k, e, d, f, dtype, fused,
         prod_dh, _ = _grouped_mm_ms(dz[:end], wo.transpose(-1, -2), ends)
         t["dgdu_library_ms"] = None
         t["dgdu_products_library_ms"] = prod_gu + prod_dh
+        for key in ("dgdu", "dgdu_mma", "dgdu_products_library"):
+            if key + "_ms" in t:
+                t[key + "_tflops_per_s"] = _tflops(6.0 * d * f * rows,
+                                                   t[key + "_ms"])
         t["dxs_tflops_per_s"] = _tflops(4.0 * d * f * rows, t["dxs_ms"])
         t["dxs_library_tflops_per_s"] = _tflops(4.0 * d * f * rows,
                                                 t["dxs_library_ms"])
@@ -963,6 +1030,8 @@ def phase_grouped_bwd(rng):
              "router", "wgmma"),
             ("gmm_bwd_bf16_f1416_d1032_unscaled", 600, 2, 8, 1032, 1416,
              bf16, False, "router", "wgmma"),
+            ("gmm_bwd_bf16_split_blocks", 320, 2, 10, 256, 384, bf16, True,
+             "split", "wgmma"),
             ("gmm_bwd_bf16_odd_unscaled", 100, 2, 4, 100, 150, bf16, False,
              "router", "mma"),
             ("gmm_bwd_f32_fused", 300, 2, 4, 256, 200, f32, True, "router",
@@ -1631,8 +1700,8 @@ def phase_serve():
 
 
 def _grouped_forms(launches) -> dict:
-    """The planned grouped kernels' launches by form (gate_up, down, dxs,
-    wgrad) since the last reset, added to GROUPED_FORM_LAUNCHES. A bf16
+    """The planned grouped kernels' launches by form (gate_up, down, dgdu,
+    dxs, wgrad) since the last reset, added to GROUPED_FORM_LAUNCHES. A bf16
     main path (every shape of the repo's MoE models is TMA-aligned)
     launches the wgmma forms alone."""
     from deepspeed_tpu_torch.ops import grouped_matmul as tg
@@ -2620,6 +2689,18 @@ def main() -> int:
         if row["name"] in GROUPED_FORM_LAUNCHES:
             row["launches_by_form"] = GROUPED_FORM_LAUNCHES[row["name"]]
             assert sum(row["launches_by_form"].values()) == row["launches"]
+        if row["name"] == "grouped_dgdu":
+            # each form's time at both training shapes: wgmma (the main
+            # paths' form), the mma.sync kernel it replaced there (through
+            # the C entry's form argument), and the three products alone by
+            # torch._grouped_mm
+            row["forms"] = {
+                shape: {k: grouped_bwd[shape].get(k) for k in (
+                    "dgdu_ms", "dgdu_tflops_per_s", "dgdu_mma_ms",
+                    "dgdu_mma_tflops_per_s", "dgdu_saved_ms",
+                    "dgdu_bound_ms", "dgdu_products_library_ms",
+                    "dgdu_plan")}
+                for shape in ("moe_1b_8e", "mixtral")}
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -34,23 +34,26 @@
 // or past live_tiles[0] * bm hold no row and their blocks return without
 // writing. The host never learns how many tiles are live.
 //
-// Tiles: 64 rows x BN columns per block, k-steps of 32, 128 threads; each
-// operand's k-tile is loaded into registers one step ahead (masked: zeros
-// past the matrix, so any d and f work) and stored to shared memory in the
-// global matrix's own orientation while the previous one is consumed;
-// ldmatrix, transposed or not by that orientation (mma_step), feeds
-// mma.sync m16n8k16 bf16 with fp32 accumulation; fp32 runs plain FMA on
-// the CUDA cores (the instantiation the parity checks hold to 1e-4).
-// Offsets are 64-bit. grouped_dxs and grouped_wgrad have three forms,
-// picked by ops/grouped_matmul.py `plan` from the dtype and shape and
-// passed in (the entry points refuse a form the dtype does not take;
-// nothing falls back): fma (fp32), wgmma (bf16 where TMA can address every
-// operand: its two widths multiples of 8, 16-byte-aligned data;
-// grouped_wgmma.cuh, fed by a TMA ring — dxs: 128 x 256 tiles, both
-// products into one accumulator; wgrad: 128 x 256 tiles of dW a block, the
-// expert's rows as K, aᵀ as wgmma's transposed A; the scaled product run
-// transposed with round(dz·w) formed in registers), mma (any other bf16).
-// dgdu keeps fp32 FMA and bf16 mma.sync.
+// Tiles of the mma.sync and FMA forms: 64 rows x BN columns per block,
+// k-steps of 32, 128 threads; each operand's k-tile is loaded into
+// registers one step ahead (masked: zeros past the matrix, so any d and f
+// work) and stored to shared memory in the global matrix's own orientation
+// while the previous one is consumed; ldmatrix, transposed or not by that
+// orientation (mma_step), feeds mma.sync m16n8k16 bf16 with fp32
+// accumulation; fp32 runs plain FMA on the CUDA cores (the instantiation
+// the parity checks hold to 1e-4). Offsets are 64-bit. All three kernels
+// have three forms, picked by ops/grouped_matmul.py `plan` from the dtype
+// and shape and passed in (the entry points refuse a form the dtype does
+// not take; nothing falls back): fma (fp32), wgmma (bf16 where TMA can
+// address every operand: its two widths multiples of 8, 16-byte-aligned
+// data; grouped_wgmma.cuh, fed by a TMA ring — dgdu: 128 rows by 64 f
+// columns a block, [gate | up] recomputed as one wgmma over wg's and wi's
+// columns side by side and dh as a second, both walking d together, the
+// GLU backward in the epilogue and the three bf16 tiles stored through the
+// freed ring as whole rows; dxs: 128 x 256 tiles, both products into one
+// accumulator; wgrad: 128 x 256 tiles of dW a block, the expert's rows as
+// K, aᵀ as wgmma's transposed A; the scaled product run transposed with
+// round(dz·w) formed in registers), mma (any other bf16).
 //
 // What bounds them on the H100: at the Mixtral 8x7B training shape (2048
 // tokens, top-2, d 4096, f 14336) dgdu does 6·d·f FLOP per row (two
@@ -59,11 +62,12 @@
 // the bf16 tensor-core peak, above the bytes (dW's bf16 writes 0.56 ms),
 // so operations bound them. The mma.sync kernels use register-staged
 // tiles without TMA, wgmma or a multi-stage ring, so instruction issue and
-// shared-memory traffic are their real limit (dxs 163 TFLOP/s at the
-// 1B/8e shape). dxs's wgmma form runs at ~630 TFLOP/s there (PERF.md §6),
-// held by the bytes each step moves (grouped_wgmma.cuh); wgrad's moves the
-// same 48 KB a 4.2 MFLOP step, and at Mixtral (~8 steps a block) its ring
-// fill and epilogue weigh too.
+// shared-memory traffic are their real limit (dxs 163 TFLOP/s, dgdu ~105
+// at the 1B/8e shape). The wgmma forms are held by the bytes each step
+// moves through shared memory (grouped_wgmma.cuh): dxs's 48 KB a 4.2
+// MFLOP step run at ~630 TFLOP/s there, dgdu's 56 KB a 3.1 MFLOP step at
+// ~365 (PERF.md §6); wgrad's moves 48 KB a step too, and at Mixtral (~8
+// steps a block) its ring fill and epilogue weigh as well.
 #include "grouped_tile.cuh"
 #include "grouped_wgmma.cuh"
 
@@ -680,6 +684,71 @@ int dxs_wgmma(const void* dg, const void* du, const void* wg, const void* wi,
                                   smem_done, st);
 }
 
+template <bool kRC, bool kW>
+__global__ void __launch_bounds__(
+    (dstt::grouped::DgduCfg<dstt::grouped::kDgduBN, kRC>::kThreads), 1)
+    grouped_dgdu_wgmma_kernel(
+        const __grid_constant__ dstt::grouped::DgduMaps maps,
+        const dstt::grouped::DgduEpilogue ep) {
+  dstt::grouped::grouped_dgdu_wgmma<dstt::grouped::kDgduBN, kRC, kW>(maps,
+                                                                     ep);
+}
+
+// dg, du, h [rows, f] (and dwp [n_f_tiles, rows]) on the template: dz, xs
+// [rows, d] and wo [E, f, d] (with wg, wi [E, d, f]: recomputed) through
+// TMA; the saved gate, up read in the epilogue
+int dgdu_wgmma(const void* dz, const void* xs, const void* wg,
+               const void* wi, const void* wo, const void* gate,
+               const void* up, const void* w, void* dg, void* du, void* h,
+               void* dwp, const int* gt, const int* lt, int rows, int d,
+               int f, int bm, int n_f_tiles, int num_experts, int band,
+               cudaStream_t st) {
+  namespace G = dstt::grouped;
+  constexpr int BNF = G::kDgduBN;
+  const bool rc = xs != nullptr, sc = w != nullptr;
+  const void* tma[5] = {dz, wo, rc ? xs : gate, rc ? wg : up,
+                        rc ? wi : dz};
+  if (!tiles_ok(rows, bm) || num_experts <= 0 || band <= 0 ||
+      n_f_tiles != (f + BNF - 1) / BNF ||
+      (rc ? (wg == nullptr || wi == nullptr)
+          : (gate == nullptr || up == nullptr)) ||
+      (sc && dwp == nullptr) || !G::tma_ok(d, f, tma, 5))
+    return kInvalid;
+  if (rows == 0) return (int)cudaSuccess;
+  G::DgduMaps maps{};
+  if (!G::map_rows(&maps.dz, dz, rows, d) ||
+      !G::map_experts(&maps.wo, wo, num_experts, f, d, BNF, G::BK) ||
+      (rc && (!G::map_rows(&maps.xs, xs, rows, d) ||
+              !G::map_experts(&maps.wg, wg, num_experts, d, f, G::BK, 64) ||
+              !G::map_experts(&maps.wi, wi, num_experts, d, f, G::BK, 64))))
+    return kInvalid;
+  using B = __nv_bfloat16;
+  const G::DgduEpilogue ep{static_cast<B*>(dg), static_cast<B*>(du),
+                           static_cast<B*>(h), static_cast<const B*>(gate),
+                           static_cast<const B*>(up),
+                           static_cast<const B*>(w),
+                           static_cast<float*>(dwp), gt, lt, rows, d, f,
+                           bm, band};
+  if (rc && sc) {
+    static unsigned smem_done = 0;
+    return G::launch_dgdu<BNF, true>(grouped_dgdu_wgmma_kernel<true, true>,
+                                     maps, ep, smem_done, st);
+  }
+  if (rc) {
+    static unsigned smem_done = 0;
+    return G::launch_dgdu<BNF, true>(grouped_dgdu_wgmma_kernel<true, false>,
+                                     maps, ep, smem_done, st);
+  }
+  if (sc) {
+    static unsigned smem_done = 0;
+    return G::launch_dgdu<BNF, false>(grouped_dgdu_wgmma_kernel<false, true>,
+                                      maps, ep, smem_done, st);
+  }
+  static unsigned smem_done = 0;
+  return G::launch_dgdu<BNF, false>(grouped_dgdu_wgmma_kernel<false, false>,
+                                    maps, ep, smem_done, st);
+}
+
 template <typename T>
 const T* in(const void* p) { return static_cast<const T*>(p); }
 template <typename T>
@@ -693,7 +762,11 @@ T* out(void* p) { return static_cast<T*>(p); }
 // dg, du, h [rows, f] (and, with w, dwp [n_f_tiles, rows] fp32) from dz
 // [rows, d], wo [E, f, d] and either xs [rows, d] with wg, wi [E, d, f]
 // (recomputed gate/up: xs non-null) or the saved gate, up [rows, f].
-// n_f_tiles must be ceil(f / 64) for bfloat16 and ceil(f / 32) for float32.
+// form: 0 = fp32 FMA, 1 = bf16 mma.sync, 2 = bf16 wgmma (d and f
+// multiples of 8, 16-byte-aligned dz, xs, wg, wi, wo, gate and up; `band`
+// row blocks a band of its raster); any other pairing of dtype and form
+// is refused. n_f_tiles must be the form's column tiles: ceil(f / 32)
+// (FMA), ceil(f / 64) (mma.sync), ceil(f / kDgduBN) (wgmma).
 extern "C" int dstt_grouped_dgdu(const void* dz, const void* xs,
                                  const void* wg, const void* wi,
                                  const void* wo, const void* gate,
@@ -701,12 +774,13 @@ extern "C" int dstt_grouped_dgdu(const void* dz, const void* xs,
                                  void* du, void* h, void* dwp,
                                  const void* group_of_tile,
                                  const void* live_tiles, int rows, int d,
-                                 int f, int bm, int n_f_tiles, int dtype,
-                                 void* stream) {
+                                 int f, int bm, int n_f_tiles,
+                                 int num_experts, int dtype, int form,
+                                 int band, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* gt = static_cast<const int*>(group_of_tile);
   const int* lt = static_cast<const int*>(live_tiles);
-  if (dtype == 0) {
+  if (dtype == 0 && form == kFma) {
     using T = float;
     DgduArgs<T> a{in<T>(dz), in<T>(xs), in<T>(wg), in<T>(wi), in<T>(wo),
                   in<T>(gate), in<T>(up), in<T>(w), out<T>(dg), out<T>(du),
@@ -714,7 +788,7 @@ extern "C" int dstt_grouped_dgdu(const void* dz, const void* xs,
                   bm, 0, 0};
     return dgdu<T>(a, n_f_tiles, st);
   }
-  if (dtype == 1) {
+  if (dtype == 1 && form == kMma) {
     using T = __nv_bfloat16;
     DgduArgs<T> a{in<T>(dz), in<T>(xs), in<T>(wg), in<T>(wi), in<T>(wo),
                   in<T>(gate), in<T>(up), in<T>(w), out<T>(dg), out<T>(du),
@@ -722,6 +796,9 @@ extern "C" int dstt_grouped_dgdu(const void* dz, const void* xs,
                   bm, 0, 0};
     return dgdu<T>(a, n_f_tiles, st);
   }
+  if (dtype == 1 && form == kWgmma)
+    return dgdu_wgmma(dz, xs, wg, wi, wo, gate, up, w, dg, du, h, dwp, gt,
+                      lt, rows, d, f, bm, n_f_tiles, num_experts, band, st);
   return kInvalid;
 }
 

@@ -1,13 +1,15 @@
 // Grouped GEMMs of the dropless MoE FFN on Hopper's warpgroup MMA, fed by a
 // ring of TMA loads — the bf16 "wgmma" form of grouped_gate_up and
-// grouped_down (grouped_matmul.cu), grouped_dxs and grouped_wgrad
-// (grouped_matmul_bwd.cu). Each .cu builds into its own library, so the
-// shared device code lives here, on the mbarrier, TMA and wgmma pieces of
-// tma_wgmma.cuh. The row-tile template (grouped_wgmma) takes how a consumer
-// forms A from a stage (AF), B's orientation (TRANS_B), the number of (A,
-// B) pairs summed along K (PAIRS) and whether B's two halves are two
-// matrices with an output each (kTWO); the dW template (grouped_wgrad_wgmma)
-// walks one expert's rows as its K.
+// grouped_down (grouped_matmul.cu), grouped_dgdu, grouped_dxs and
+// grouped_wgrad (grouped_matmul_bwd.cu). Each .cu builds into its own
+// library, so the shared device code lives here, on the mbarrier, TMA and
+// wgmma pieces of tma_wgmma.cuh. The row-tile template (grouped_wgmma)
+// takes how a consumer forms A from a stage (AF), B's orientation
+// (TRANS_B), the number of (A, B) pairs summed along K (PAIRS) and whether
+// B's two halves are two matrices with an output each (kTWO); the dW
+// template (grouped_wgrad_wgmma) walks one expert's rows as its K; the
+// dgdu template (grouped_dgdu_wgmma) runs three products over one K and
+// the GLU backward on their sums.
 //
 // What a row-tile block computes. Rows are sorted by expert and every
 // expert starts on a bm-row layout tile (bm a multiple of 64), so each
@@ -49,6 +51,30 @@
 // memory so the writes stay whole rows. Grid (B tiles, A tiles, expert),
 // the expert slowest: one expert's blocks (88 at the 1B/8e shape) run
 // together and read its rows from device memory about once.
+//
+// What a dgdu block computes (grouped_dgdu, replacing _dgdu_rc_kernel and
+// _dgdu_kernel of deepspeed_tpu/ops/grouped_matmul.py:411, :366): 128 rows
+// by BN_f = kDgduBN (64) f columns. All three products walk K = d
+// together; a stage holds dz's and xs's 64-row boxes, wg's and wi's [64 k,
+// 64 n] boxes side by side (one MN-major B whose 128-column halves are
+// [gate | up] of a 64-column chunk: one m64n128k16 a k16 slice, gate_up's
+// one-wide-wgmma lesson) and wo's [BN_f n, 64 k] box of the [E, f, d] view
+// (K-major, as dxs reads wg): dh = dz·woᵀ is a second wgmma (m64n64k16).
+// Both accumulators share the n-tiling, so a thread holds g, u and dh of
+// the same (row, column), and the epilogue forms, in fp32 at the Pallas
+// bodies' rounding points, g, u rounded to bf16 (or read from the saved
+// gate/up: the saved form runs dh alone), dg = round(dh·w·u·dsilu(g)), du
+// = round(dh·w·silu(g)), h = round(silu(g)·u) and, with w, the row's
+// partial Σ dh·h over the tile's columns (unrounded h, no w, columns past
+// f masked), written to dwp[column tile][row] without atomics. The three
+// bf16 tiles go through the freed ring (rows padded by 16 bytes) and out
+// as whole 16-byte pieces of their rows. Warpgroup i owns rows 64·i .. +
+// 63 by all BN_f columns; a split block walks K once per expert, and the
+// group whose rows a pass does not hold waits on the ring without
+// products, so each row's partial is summed in one warpgroup, in one
+// order. Raster: the column tiles fastest where one expert's three
+// matrices stay within the L2 (1B/8e: 17.3 MB), else bands of row blocks
+// whose dz and xs fit 16 MB of it (Mixtral: 352 MB an expert).
 //
 // Block and ring: one producer warp and two consumer warpgroups (288
 // threads, one block a SM). The producer's lane 0 keeps a ring of up to 4
@@ -177,6 +203,61 @@ struct Cfg {
   static_assert(kStages >= 2, "no room for a two-stage ring");
   static constexpr int SMEM = kStages * (STAGE + WBYTES) + 16 * kStages
                               + 1024;
+};
+
+// grouped_dgdu's f columns a block (BN_f): 64, or 128 (see DgduCfg)
+constexpr int kDgduBN = 64;
+
+// grouped_dgdu's tensor maps: dz, xs [rows, d] in boxes [64 rows, 64 k];
+// wg, wi [E, d, f] in boxes [64 k, 64 n] (MN-major B, as gate_up reads
+// them); wo [E, f, d] in boxes [BN_f n, 64 k] (K-major B, as dxs reads
+// wg). The saved form leaves xs, wg and wi unset.
+struct DgduMaps {
+  CUtensorMap dz, xs, wg, wi, wo;
+};
+
+struct DgduEpilogue {
+  __nv_bfloat16* dg;             // [rows, f]
+  __nv_bfloat16* du;             // [rows, f]
+  __nv_bfloat16* h;              // [rows, f]
+  const __nv_bfloat16* gate;     // [rows, f]: the saved form
+  const __nv_bfloat16* up;       // [rows, f]: the saved form
+  const __nv_bfloat16* w;        // per-row combine weight [rows], or nullptr
+  float* dwp;                    // [column tiles, rows] (with w)
+  const int* group_of_tile;
+  const int* live_tiles;
+  int rows, d, f, bm;
+  int band;                      // row blocks a band of the raster
+};
+
+// grouped_dgdu's block and ring at BNF f columns, recomputed (kRC) or
+// saved gate/up. A stage: dz's two 64-row boxes (and xs's), then wg's and
+// wi's [64 k, 64 n] boxes of each 64-column chunk side by side (wg0 wi0
+// wg1 wi1: one MN-major B whose 128-column halves are [gate | up] of a
+// chunk), then wo's [BNF n, 64 k] box. BNF 64: 56 KB a stage, 4 stages,
+// 96 fp32 accumulators a consumer thread, one producer warp. BNF 128: 80
+// KB, 2 stages, 192 accumulators: a producer warpgroup hands its
+// registers to the consumers (setmaxnreg; 168 a thread at launch).
+template <int BNF, bool kRC>
+struct DgduCfg {
+  static_assert(BNF == 64 || BNF == 128, "64 or 128 f columns a block");
+  // at 128 columns a producer warpgroup hands registers to the consumers
+  static constexpr bool kShift = BNF == 128;
+  static constexpr int kThreads = kConsumers + (kShift ? 128 : 32);
+  static constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+  static constexpr int AHALF = kTile * (kRC ? 2 : 1);  // 64 rows of A
+  static constexpr int ABYTES = 2 * AHALF;
+  static constexpr int GUBYTES = kRC ? 2 * BNF * BK * 2 : 0;
+  static constexpr int WOBYTES = BNF * BK * 2;
+  static constexpr int STAGE = ABYTES + GUBYTES + WOBYTES;
+  static constexpr int kFit = (kSmemMax - 1024 - 64) / STAGE;
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static_assert(kStages >= 2, "no room for a two-stage ring");
+  static constexpr int SMEM = kStages * STAGE + 16 * kStages + 1024;
+  // the epilogue stages each consumer warpgroup's dg, du and h tiles [64
+  // rows, BNF] in the freed ring, rows padded by 16 bytes
+  static constexpr int LDS = BNF + 8;
+  static_assert(2 * 3 * 64 * LDS * 2 <= kStages * STAGE, "staging > ring");
 };
 
 // h = silu(g)·u of a bf16 pair, in fp32, rounded to bf16
@@ -363,16 +444,15 @@ __device__ __forceinline__ void consume(const Ring& r, float (&acc0)[64],
   }
 }
 
-// The ring's shared memory: stages, then the scaled form's w of each
-// stage, then the full and empty barriers; the barriers initialised
-template <int AF>
-__device__ __forceinline__ Ring ring_init(uint8_t* smem_raw) {
-  using C = Cfg<AF>;
-  constexpr int S = C::kStages;
+// The ring's shared memory: S stages of `stage` bytes, then `wbytes` of w
+// for each stage (the scaled form), then the full and empty barriers; the
+// barriers initialised
+__device__ __forceinline__ Ring ring_at(uint8_t* smem_raw, int S, int stage,
+                                        int wbytes) {
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint8_t* w = smem + S * C::STAGE;
-  uint64_t* full = reinterpret_cast<uint64_t*>(w + S * C::WBYTES);
+  uint8_t* w = smem + S * stage;
+  uint64_t* full = reinterpret_cast<uint64_t*>(w + S * wbytes);
   uint64_t* empty = full + S;
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
@@ -385,6 +465,12 @@ __device__ __forceinline__ Ring ring_init(uint8_t* smem_raw) {
   const int wtid = threadIdx.x & 127;
   return Ring{smem, reinterpret_cast<const __nv_bfloat16*>(w), full, empty,
               (int)(threadIdx.x >> 7), wtid};
+}
+
+template <int AF>
+__device__ __forceinline__ Ring ring_init(uint8_t* smem_raw) {
+  using C = Cfg<AF>;
+  return ring_at(smem_raw, C::kStages, C::STAGE, C::WBYTES);
 }
 
 // The block's (row block, column tile) in a raster of bands of `band` row
@@ -608,6 +694,259 @@ __device__ __forceinline__ void grouped_wgrad_wgmma(
   }
 }
 
+// grouped_dgdu's accumulators of one consumer warpgroup (its 64 rows):
+// gu[c] holds gate (columns 0-63) beside up (64-127) of the block's 64-
+// column chunk c, dh all BNF columns of dz·wo[g]ᵀ; a thread holds g, u
+// and dh of the same (row, column).
+template <int BNF, bool kRC>
+struct DgduAcc {
+  float gu[kRC ? BNF / 64 : 1][64];
+  float dh[BNF / 2];
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < BNF / 2; ++i) dh[i] = 0.f;
+    if constexpr (kRC) {
+#pragma unroll
+      for (int c = 0; c < BNF / 64; ++c)
+#pragma unroll
+        for (int i = 0; i < 64; ++i) gu[c][i] = 0.f;
+    }
+  }
+  __device__ __forceinline__ void fence() {
+    hw::fence_regs(dh);
+    if constexpr (kRC) {
+#pragma unroll
+      for (int c = 0; c < BNF / 64; ++c) hw::fence_regs(gu[c]);
+    }
+  }
+};
+
+// One step of a consumer warpgroup: wait for stage t; when ACTIVE, issue
+// its products on this group's rows (A slot wgi) — [gate | up] = xs·[wg |
+// wi] as one wgmma over the stage's whole MN-major B, dh = dz·woᵀ as a
+// second, K-major — keep them in flight and wait for step t - 1's; else
+// wait for every product issued (a split block's other pass). Then
+// release stage t - 1.
+template <int BNF, bool kRC, bool ACTIVE>
+__device__ __forceinline__ void dgdu_step(const Ring& r,
+                                          DgduAcc<BNF, kRC>& acc, int t) {
+  using C = DgduCfg<BNF, kRC>;
+  constexpr int S = C::kStages;
+  const int s = t % S;
+  hw::mbar_wait(&r.full[s], (t / S) & 1);
+  if constexpr (ACTIVE) {
+    const uint8_t* st = r.smem + s * C::STAGE;
+    const uint8_t* dz = st + r.wgi * kTile;
+    const uint8_t* xs = st + (2 + r.wgi) * kTile;
+    const uint8_t* gu = st + C::ABYTES;
+    const uint8_t* wo = gu + C::GUBYTES;
+    acc.fence();
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      if constexpr (kRC) {
+        const uint64_t dx = hw::desc_sw128(xs + kk * 32, 16, 1024);
+        const uint64_t dgu = hw::desc_sw128(gu + kk * 2048, kTile, 1024);
+        if constexpr (BNF == 64)
+          hw::wgmma_m64n128k16<1>(acc.gu[0], dx, dgu, 1);
+        else
+          hw::wgmma_m64n256k16<1>(acc.gu[0], acc.gu[1], dx, dgu, 1);
+      }
+      const uint64_t dd = hw::desc_sw128(dz + kk * 32, 16, 1024);
+      const uint64_t dw = hw::desc_sw128(wo + kk * 32, 16, 1024);
+      if constexpr (BNF == 64)
+        hw::wgmma_m64n64k16<0>(acc.dh, dd, dw, 1);
+      else
+        hw::wgmma_m64n128k16<0>(acc.dh, dd, dw, 1);
+    }
+    hw::wgmma_commit();
+    hw::wgmma_wait<1>();                       // step t - 1 is done
+  } else {
+    hw::wgmma_wait<0>();
+  }
+  acc.fence();
+  if (t > 0 && r.wtid == 0) hw::mbar_arrive(&r.empty[(t - 1) % S]);
+}
+
+// grouped_dgdu's block: rows row0 = 128·(row block) .. + 127 by f columns
+// n0 = BNF·(column tile) .. + BNF - 1, in the raster of ep.band. Consumer
+// warpgroup i owns rows 64·i .. + 63. Split (the two 64-row tiles belong
+// to two experts) the block walks K twice, rows 0-63 against g0's
+// weights, then rows 64-127 against g1's, and the group whose rows a pass
+// does not hold only keeps pace with the ring: each group still owns all
+// BNF columns of its rows, so a row's dw partial is summed within one
+// warpgroup, in one order.
+template <int BNF, bool kRC, bool kW>
+__device__ __forceinline__ void grouped_dgdu_wgmma(const DgduMaps& maps,
+                                                   const DgduEpilogue& ep) {
+  using C = DgduCfg<BNF, kRC>;
+  constexpr int S = C::kStages;
+  int rb, ct;
+  raster(ep.band, rb, ct);
+  const int row0 = rb * BM;
+  const long long live_rows = (long long)ep.live_tiles[0] * ep.bm;
+  if (row0 >= live_rows) return;
+  const int g0 = ep.group_of_tile[row0 / ep.bm];
+  const int g1 = row0 + 64 < live_rows ? ep.group_of_tile[(row0 + 64) / ep.bm]
+                                       : g0;
+  const bool split = g1 != g0;
+  const int n0 = ct * BNF;
+
+  extern __shared__ uint8_t smem_raw[];
+  const Ring ring = ring_at(smem_raw, S, C::STAGE, 0);
+  uint8_t* smem = ring.smem;
+  const int ksteps = (ep.d + BK - 1) / BK;
+  const int total = split ? 2 * ksteps : ksteps;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (warp >= kConsumers / 32) {
+    // producer: step t (pass, k-step) into stage t % S once both consumer
+    // groups have released it: the pass's dz (and xs) boxes at their
+    // half's slot, the pass's expert's wg, wi and wo boxes
+    if constexpr (C::kShift) hw::setmaxnreg_dec<C::kProducerRegs>();
+    if (warp == kConsumers / 32 && lane == 0) {
+      for (int t = 0; t < total; ++t) {
+        const int s = t % S, pass = t / ksteps, k0 = (t % ksteps) * BK;
+        const int g = pass ? g1 : g0;
+        uint64_t* full = &ring.full[s];
+        if (t >= S) hw::mbar_wait(&ring.empty[s], (t / S - 1) & 1);
+        uint8_t* st = smem + s * C::STAGE;
+        hw::mbar_arrive_expect_tx(full,
+                                  split ? C::STAGE - C::AHALF : C::STAGE);
+        for (int half = 0; half < 2; ++half) {
+          if (split && half != pass) continue;
+          const int r = row0 + 64 * half;
+          hw::tma_load_4d(st + half * kTile, &maps.dz, full, k0, r, 0, 0);
+          if constexpr (kRC)
+            hw::tma_load_4d(st + (2 + half) * kTile, &maps.xs, full, k0, r,
+                            0, 0);
+        }
+        uint8_t* gu = st + C::ABYTES;
+        if constexpr (kRC) {
+#pragma unroll
+          for (int q = 0; q < 2 * BNF / 64; ++q)
+            hw::tma_load_4d(gu + q * kTile, (q & 1) ? &maps.wi : &maps.wg,
+                            full, n0 + 64 * (q >> 1), k0, g, 0);
+        }
+        hw::tma_load_4d(gu + C::GUBYTES, &maps.wo, full, k0, n0, g, 0);
+      }
+    }
+    return;
+  }
+  if constexpr (C::kShift) hw::setmaxnreg_inc<C::kConsumerRegs>();
+  const int wgi = ring.wgi;
+  DgduAcc<BNF, kRC> acc;
+  acc.zero();
+  // this group's steps: all of them, or (split) its own pass's
+  const int a0 = split ? wgi * ksteps : 0, a1 = a0 + ksteps;
+  for (int t = 0; t < a0; ++t) dgdu_step<BNF, kRC, false>(ring, acc, t);
+  for (int t = a0; t < a1; ++t) dgdu_step<BNF, kRC, true>(ring, acc, t);
+  for (int t = a1; t < total; ++t) dgdu_step<BNF, kRC, false>(ring, acc, t);
+  hw::wgmma_wait<0>();
+  acc.fence();
+
+  // epilogue: the GLU backward in fp32 at the Pallas bodies' rounding
+  // points, g and u rounded to bf16 first (recomputed) or read as saved;
+  // the three bf16 tiles staged in the freed ring (both groups are past
+  // their last wgmma, and every load has landed), then stored as whole
+  // 16-byte pieces of their rows; rows at or past live_rows and columns
+  // at or past f (a multiple of 8) are not written
+  const int rowg = row0 + 64 * wgi;              // this group's rows
+  const int lr0 = 16 * ((tid >> 5) & 3) + (lane >> 2);
+  constexpr int LDS = C::LDS;
+  __nv_bfloat16* tile =
+      reinterpret_cast<__nv_bfloat16*>(smem) + wgi * 3 * 64 * LDS;
+  hw::named_bar_sync(1, kConsumers);
+  float part[2] = {0.f, 0.f};                    // Σ dh·h of rows lr0, +8
+  float wsc[2] = {1.f, 1.f};
+  if constexpr (kW) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const long long r = rowg + lr0 + 8 * hh;
+      if (r < live_rows) wsc[hh] = __bfloat162float(ep.w[r]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < BNF / 64; ++c) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int col = 64 * c + 8 * i + 2 * (lane & 3);
+      const bool in_f = n0 + col < ep.f;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int lr = lr0 + 8 * hh;
+        const long long r = rowg + lr;
+        float g[2], u[2];
+        if constexpr (kRC) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            g[j] = __bfloat162float(
+                __float2bfloat16(acc.gu[c][4 * i + 2 * hh + j]));
+            u[j] = __bfloat162float(
+                __float2bfloat16(acc.gu[c][4 * (i + 8) + 2 * hh + j]));
+          }
+        } else {
+          float2 gv = make_float2(0.f, 0.f), uv = gv;
+          if (r < live_rows && in_f) {
+            const long long o = r * ep.f + n0 + col;
+            gv = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(ep.gate + o));
+            uv = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(ep.up + o));
+          }
+          g[0] = gv.x, g[1] = gv.y, u[0] = uv.x, u[1] = uv.y;
+        }
+        float vdg[2], vdu[2], vh[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float dh = acc.dh[4 * (8 * c + i) + 2 * hh + j];
+          const float sg = 1.0f / (1.0f + __expf(-g[j]));
+          const float silu = g[j] * sg;
+          const float dsilu = sg * (1.0f + g[j] * (1.0f - sg));
+          const float h32 = silu * u[j];
+          const float dhw = kW ? dh * wsc[hh] : dh;
+          vdg[j] = dhw * u[j] * dsilu;
+          vdu[j] = dhw * silu;
+          vh[j] = h32;
+          if (kW && in_f) part[hh] += dh * h32;
+        }
+        __nv_bfloat16* p = tile + lr * LDS + col;
+        *reinterpret_cast<__nv_bfloat162*>(p) =
+            __floats2bfloat162_rn(vdg[0], vdg[1]);
+        *reinterpret_cast<__nv_bfloat162*>(p + 64 * LDS) =
+            __floats2bfloat162_rn(vdu[0], vdu[1]);
+        *reinterpret_cast<__nv_bfloat162*>(p + 128 * LDS) =
+            __floats2bfloat162_rn(vh[0], vh[1]);
+      }
+    }
+  }
+  if constexpr (kW) {
+    // the row's partial over this tile: the four threads of a quad hold
+    // its columns
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      part[hh] += __shfl_xor_sync(0xffffffffu, part[hh], 1);
+      part[hh] += __shfl_xor_sync(0xffffffffu, part[hh], 2);
+      const long long r = rowg + lr0 + 8 * hh;
+      if ((lane & 3) == 0 && r < live_rows)
+        ep.dwp[(long long)ct * ep.rows + r] = part[hh];
+    }
+  }
+  hw::named_bar_sync(2 + wgi, 128);
+  constexpr int CH = BNF / 8;                    // 16-byte pieces a row
+  for (int idx = ring.wtid; idx < 3 * 64 * CH; idx += 128) {
+    const int o = idx / (64 * CH), lr = (idx / CH) % 64, q = idx % CH;
+    const long long r = rowg + lr;
+    const int col = n0 + 8 * q;
+    if (r < live_rows && col < ep.f) {
+      __nv_bfloat16* out = o == 0 ? ep.dg : o == 1 ? ep.du : ep.h;
+      *reinterpret_cast<uint4*>(out + r * ep.f + col) =
+          *reinterpret_cast<const uint4*>(tile + (o * 64 + lr) * LDS +
+                                          8 * q);
+    }
+  }
+}
+
 // --- host ---------------------------------------------------------------------
 
 // A 2-D bf16 view [rows, K] (row-major) as the 4-D map TMA takes: box
@@ -688,6 +1027,23 @@ int launch_wgrad(Kernel kernel, const Maps& maps, const WgradEpilogue& ep,
       reinterpret_cast<const void*>(kernel), C::SMEM, smem_done);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, kThreads, C::SMEM, stream>>>(maps, ep);
+  return (int)cudaGetLastError();
+}
+
+// Launch a grouped_dgdu `kernel` (taking (DgduMaps, DgduEpilogue)) over
+// ceil(f / BNF) column tiles by ceil(rows / 128) row blocks, in the raster
+// of ep.band.
+template <int BNF, bool kRC, typename Kernel>
+int launch_dgdu(Kernel kernel, const DgduMaps& maps, const DgduEpilogue& ep,
+                unsigned& smem_done, cudaStream_t stream) {
+  using C = DgduCfg<BNF, kRC>;
+  const dim3 grid((ep.f + BNF - 1) / BNF, (ep.rows + BM - 1) / BM);
+  if (grid.y == 0) return (int)cudaSuccess;
+  if (grid.y > 65535 || ep.band <= 0) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = hw::allow_smem(
+      reinterpret_cast<const void*>(kernel), C::SMEM, smem_done);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, C::kThreads, C::SMEM, stream>>>(maps, ep);
   return (int)cudaGetLastError();
 }
 

@@ -7,9 +7,11 @@
 //     mbarrier, and the host side that encodes their tensor maps through
 //     libcuda's cuTensorMapEncodeTiled, looked up at run time (no -lcuda);
 //   - wgmma shared-memory descriptors for the 128-byte swizzle, and
-//     wgmma.mma_async m64n128k16 / m64n256k16 bf16 → fp32 with A and B in
-//     shared memory (either K-major or MN-major: TRANS_A, TRANS_B), or A in
-//     registers.
+//     wgmma.mma_async m64n64k16 / m64n128k16 / m64n256k16 bf16 → fp32 with
+//     A and B in shared memory (either K-major or MN-major: TRANS_A,
+//     TRANS_B), or A in registers;
+//   - setmaxnreg, which moves registers from a producer warpgroup to the
+//     consumer warpgroups.
 // Used by quantized_linear.cu (K5's prefill kernel) and, through
 // grouped_wgmma.cuh, by the grouped GEMMs' bf16 wgmma forms; the attention
 // kernels can share them too.
@@ -103,6 +105,18 @@ __device__ __forceinline__ void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// Move this warpgroup's registers a thread to N (a multiple of 8, 24..256):
+// a producer warpgroup that needs few gives them up (dec) so the consumer
+// warpgroups can take them (inc). Every warp of the warpgroup executes it.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // --- TMA ----------------------------------------------------------------------
 
 // Load the box at coordinates (c0, c1, c2, c3) (innermost first) of a 4-D
@@ -151,6 +165,32 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[32] += A (64 x 16; K-major, or MN-major when TRANS_A) · B (16 x 64;
+// K-major, or MN-major when TRANS_B) for one warpgroup; d laid out as
+// wgmma_m64n128k16's d over 64 columns (d[4i + ...], i < 8).
+template <int TRANS_B, int TRANS_A = 0>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %36, %35;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // d[64] += A (64 x 16; K-major, or MN-major when TRANS_A) · B (16 x 128;

@@ -22,14 +22,17 @@ and ``_down_kernel``, :341) of ``csrc/grouped_matmul.cu``; backward
 ``grouped_dgdu`` (``_dgdu_rc_kernel``, :411, and ``_dgdu_kernel``, :366),
 ``grouped_dxs`` (``_dxs_kernel``, :488) and ``grouped_wgrad``
 (``_dw_pair_kernel``, :502, and the dwo product of both dgdu kernels) of
-``csrc/grouped_matmul_bwd.cu``. ``grouped_gate_up``, ``grouped_down``,
-``grouped_dxs`` and ``grouped_wgrad`` each have three forms, which
+``csrc/grouped_matmul_bwd.cu``. All five have three forms, which
 :func:`plan` picks from the dtype and shape: fp32 FMA, bf16 wgmma fed by a
 TMA ring (``csrc/grouped_wgmma.cuh``) where TMA can address every operand,
 and bf16 mma.sync otherwise; the wrappers count launches by form
-(:data:`form_launches`). On CPU tensors each kernel runs
-its plain PyTorch version, with the kernels' rounding points. An input the
-kernels do not take raises; nothing falls back.
+(:data:`form_launches`). ``grouped_dgdu``'s wgmma form walks d once for
+its three products (gate and up recomputed as one wgmma over wg's and
+wi's columns side by side, dh = dz·woᵀ as a second) and applies the GLU
+backward in the epilogue; the saved form (gate/up read) runs dh alone. On
+CPU tensors each kernel runs its plain PyTorch version, with the kernels'
+rounding points. An input the kernels do not take raises; nothing falls
+back.
 
 The two differentiable forms are the JAX package's: with ``w`` the combine
 weights are fused into the down product and the backward recomputes
@@ -64,7 +67,7 @@ op_builder.register("grouped_matmul", {
 })
 op_builder.register("grouped_matmul_bwd", {
     "dstt_grouped_dgdu": (
-        [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
         ctypes.c_int),
     "dstt_grouped_dxs": (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
@@ -79,13 +82,12 @@ op_builder.register("grouped_matmul_bwd", {
 #: multiple of it so that no kernel tile straddles two experts
 KERNEL_BM = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: f columns per block of ``grouped_dgdu`` (the dw partials' tile count)
-DGDU_BN = {torch.float32: 32, torch.bfloat16: 64}
 
-#: the forms of the four kernels of :func:`plan`, by the C code of each
+#: the forms of the five kernels of :func:`plan`, by the C code of each
 FORMS = {"fma": 0, "mma": 1, "wgmma": 2}
 #: the kernels whose form :func:`plan` picks
-PLANNED = ("grouped_gate_up", "grouped_down", "grouped_dxs", "grouped_wgrad")
+PLANNED = ("grouped_gate_up", "grouped_down", "grouped_dgdu", "grouped_dxs",
+           "grouped_wgrad")
 #: launches of those kernels by form since the last reset: the wrappers
 #: add one here and one to ``op_builder.launches`` at each launch
 form_launches: Dict[str, Dict[str, int]] = {
@@ -104,18 +106,28 @@ def reset_form_launches() -> None:
 #: shared memory
 WG_BM, WG_BN, WG_BK, WG_THREADS = 128, 256, 64, 288
 WG_MAX_STAGES = 4
+#: grouped_dgdu's wgmma form: 128 rows by this many f columns a block
+#: (``kDgduBN`` in ``csrc/grouped_wgmma.cuh``); at 128 columns the block has
+#: a producer warpgroup (384 threads) instead of a producer warp
+WG_DGDU_BN = 64
 #: shared memory a block may use on sm_90 (227 KB)
 SMEM_MAX = 232448
 #: gate_up's raster: where one expert's wg and wi outgrow this share of the
 #: card's 50 MB L2, a band holds as many row blocks as keep their xs within
 #: it; else the column tiles go fastest (band 1)
 GATE_UP_BAND_BYTES = 16 << 20
+#: grouped_dgdu's raster: where one expert's weights (wg, wi and wo; wo
+#: alone for the saved form) outgrow this much of the 50 MB L2, bands of as
+#: many row blocks as keep their dz (and xs) within GATE_UP_BAND_BYTES;
+#: else the column tiles go fastest
+DGDU_BAND_WEIGHT_BYTES = 32 << 20
 #: the mma.sync and FMA kernels: 64 rows by these columns a block, k-steps
 #: of 32, 128 threads
 _OLD_BN = {("grouped_gate_up", "mma"): 64, ("grouped_gate_up", "fma"): 64,
            ("grouped_down", "mma"): 128, ("grouped_down", "fma"): 128,
            ("grouped_dxs", "mma"): 128, ("grouped_dxs", "fma"): 64,
-           ("grouped_wgrad", "mma"): 128, ("grouped_wgrad", "fma"): 64}
+           ("grouped_wgrad", "mma"): 128, ("grouped_wgrad", "fma"): 64,
+           ("grouped_dgdu", "mma"): 64, ("grouped_dgdu", "fma"): 32}
 _GRID_X_MAX, _GRID_YZ_MAX = 2 ** 31 - 1, 65535
 
 
@@ -141,12 +153,14 @@ class Plan(NamedTuple):
     threads: int
     row_blocks: int              # blocks over the rows (R_pad; wgrad: the
                                  # product's rows)
-    col_tiles: int               # blocks over the output columns
+    col_tiles: int               # blocks over the output columns (dgdu:
+                                 # the tiles of its dw partials)
     grid: Tuple[int, int, int]   # the launch grid (x, y, z): (row blocks,
                                  # column tiles, 1), wgmma (column tiles,
                                  # row blocks, 1); wgrad's z: the experts
     k_steps: Tuple[int, ...]     # steps over each product's K, in order
-                                 # (wgrad: over all experts' rows)
+                                 # (wgrad: over all experts' rows; dgdu:
+                                 # its products walk K = d together)
     stages: int                  # ring stages (wgmma), else 0
     smem_bytes: int              # dynamic shared memory (wgmma), else 0
     tma: Tuple[Tma, ...]         # the tensor maps (wgmma), else ()
@@ -162,13 +176,17 @@ def _cdiv(a: int, b: int) -> int:
 @functools.lru_cache(maxsize=4096)
 def plan(kernel: str, dtype: torch.dtype, rows: int, d: int, f: int,
          num_experts: int, aligned: bool = True,
-         scaled: bool = False) -> Plan:
+         scaled: bool = False, saved: bool = False) -> Plan:
     """The launch plan of one call, from the dtype and shape alone, as
     ``csrc/grouped_matmul.cu`` and ``csrc/grouped_matmul_bwd.cu`` take it:
 
     - ``grouped_gate_up``: gate, up [rows, f] from xs [rows, d] and wg, wi
       [E, d, f];
     - ``grouped_down``: y [rows, d] from gate/up [rows, f] and wo [E, f, d];
+    - ``grouped_dgdu``: dg, du, h [rows, f] (and the dw partials [col
+      tiles, rows]) from dz [rows, d], wo [E, f, d] and gate/up recomputed
+      from xs [rows, d] and wg, wi [E, d, f] (three products over d), or,
+      ``saved``, read from the forward (one product);
     - ``grouped_dxs``: dxs [rows, d] from dg/du [rows, f] and wg/wi [E, d,
       f];
     - ``grouped_wgrad``: dW [E, d, f] = per expert Σ over its rows of
@@ -191,10 +209,17 @@ def plan(kernel: str, dtype: torch.dtype, rows: int, d: int, f: int,
       down and dxs: the column tiles fastest,
       down ceil(f / 64) k-steps, dxs 2·ceil(f / 64): dg against wg[g], then
       du against wi[g] (a block whose two tiles belong to two experts walks
-      them once for each); wgrad: 128 of dW's rows by 256 of its columns a
-      block, the experts on the grid's z (slowest), each block walking its
-      expert's live rows as K; scaled, the product runs transposed (128 of
-      dW's columns by 256 of its rows) with round(b·w) formed in registers;
+      them once for each); dgdu: 128 rows by :data:`WG_DGDU_BN` f columns
+      a block, ceil(d / 64) k-steps of all its products together, a stage
+      holding dz's and xs's 64-row boxes, wg's and wi's [64 k, 64 n] boxes
+      side by side and wo's [bn n, 64 k] box; the column tiles fastest, or,
+      where one expert's weights outgrow :data:`DGDU_BAND_WEIGHT_BYTES`
+      (Mixtral: 352 MB), in bands of as many row blocks as keep their dz
+      and xs within :data:`GATE_UP_BAND_BYTES`; wgrad: 128 of dW's rows by
+      256 of its columns a block, the experts on the grid's z (slowest),
+      each block walking its expert's live rows as K; scaled, the product
+      runs transposed (128 of dW's columns by 256 of its rows) with
+      round(b·w) formed in registers;
     - any other bf16: the mma.sync kernel.
 
     Raises ValueError for another kernel or dtype, a shape off the 64-row
@@ -211,12 +236,14 @@ def plan(kernel: str, dtype: torch.dtype, rows: int, d: int, f: int,
         form = "wgmma" if f % 8 == 0 and d % 8 == 0 and aligned else "mma"
     else:
         raise ValueError(f"plan({kernel}): dtype {dtype}")
-    wgrad = kernel == "grouped_wgrad"
+    wgrad, dgdu = kernel == "grouped_wgrad", kernel == "grouped_dgdu"
     # the output's columns and each product's depth
     n_out, depth = {"grouped_gate_up": (f, d), "grouped_down": (d, f),
-                    "grouped_dxs": (d, f), "grouped_wgrad": (f, rows)}[kernel]
+                    "grouped_dgdu": (f, d), "grouped_dxs": (d, f),
+                    "grouped_wgrad": (f, rows)}[kernel]
     m_out = d if wgrad else rows
-    pairs = 2 if kernel == "grouped_dxs" else 1
+    pairs = {"grouped_dxs": 2, "grouped_dgdu": 1 if saved else 3}.get(
+        kernel, 1)
     stages = smem = band = 0
     tma: Tuple[Tma, ...] = ()
     experts = num_experts if wgrad else 1
@@ -229,17 +256,26 @@ def plan(kernel: str, dtype: torch.dtype, rows: int, d: int, f: int,
         tile = KERNEL_BM * WG_BK * 2       # a box [64 rows, 64 k]
         a_boxes = (2 if kernel == "grouped_down" else 1) * bm // KERNEL_BM
         stage = a_boxes * tile + WG_BN * bk * 2
+        if dgdu:                           # dz (xs), [wg | wi], wo
+            bn = WG_DGDU_BN
+            threads = 256 + (128 if bn == 128 else 32)
+            stage = (bm // KERNEL_BM) * tile * (1 if saved else 2) \
+                + (0 if saved else 2 * bn * bk * 2) + bn * bk * 2
         w_bytes = bk * 2 if wgrad and scaled else 0
         stages = min(WG_MAX_STAGES, (SMEM_MAX - 1024 - 64)
                      // (stage + w_bytes))
         smem = stages * (stage + w_bytes) + 16 * stages + 1024
-        tma = _tma_maps(kernel, rows, d, f, num_experts, scaled)
+        tma = _tma_maps(kernel, rows, d, f, num_experts, scaled, saved)
     else:
         bm, bn, bk, threads = KERNEL_BM, _OLD_BN[(kernel, form)], 32, 128
     row_blocks, col_tiles = _cdiv(m_out, bm), _cdiv(n_out, bn)
     if form == "wgmma" and kernel == "grouped_gate_up" \
             and 2 * d * f * 2 > GATE_UP_BAND_BYTES:
         band = max(1, min(row_blocks, GATE_UP_BAND_BYTES // (bm * d * 2)))
+    elif form == "wgmma" and dgdu \
+            and (1 if saved else 3) * d * f * 2 > DGDU_BAND_WEIGHT_BYTES:
+        band = max(1, min(row_blocks, GATE_UP_BAND_BYTES
+                          // ((1 if saved else 2) * bm * d * 2)))
     elif form == "wgmma" and not wgrad:
         band = 1
     # wgmma: the column tiles fastest (within a band), so the blocks in
@@ -255,7 +291,7 @@ def plan(kernel: str, dtype: torch.dtype, rows: int, d: int, f: int,
 
 
 def _tma_maps(kernel: str, rows: int, d: int, f: int, num_experts: int,
-              scaled: bool) -> Tuple[Tma, ...]:
+              scaled: bool, saved: bool) -> Tuple[Tma, ...]:
     """The wgmma form's tensor maps, as the C side encodes them: 2-D
     [rows, C] views with [64 rows, 64 columns] boxes, the experts' weights
     as 3-D views with the expert a dimension of its own."""
@@ -275,6 +311,13 @@ def _tma_maps(kernel: str, rows: int, d: int, f: int, num_experts: int,
     if kernel == "grouped_down":         # wo [E, f, d], MN-major boxes
         return (rows_map("gate", f), rows_map("up", f),
                 experts_map("wo", f, d, (64, WG_BK, 1, 1)))
+    if kernel == "grouped_dgdu":         # wo [E, f, d], K-major boxes
+        wo = experts_map("wo", f, d, (WG_BK, WG_DGDU_BN, 1, 1))
+        if saved:
+            return rows_map("dz", d), wo
+        return (rows_map("dz", d), rows_map("xs", d)) + tuple(
+            experts_map(n, d, f, (64, WG_BK, 1, 1)) for n in ("wg", "wi")) \
+            + (wo,)
     if kernel == "grouped_dxs":          # wg, wi [E, d, f], K-major boxes
         return (rows_map("dg", f), rows_map("du", f)) + tuple(
             experts_map(n, d, f, (WG_BK, WG_BN, 1, 1)) for n in ("wg", "wi"))
@@ -291,6 +334,7 @@ def _tma_maps(kernel: str, rows: int, d: int, f: int, num_experts: int,
 #: before the regex of the mma.sync and FMA gate_up/down kernels)
 _KERNEL_ENTRIES = (("grouped_gate_up_wgmma_kernel", "grouped_gate_up"),
                    ("grouped_down_wgmma_kernel", "grouped_down"),
+                   ("grouped_dgdu_wgmma_kernel", "grouped_dgdu"),
                    ("grouped_dxs_wgmma_kernel", "grouped_dxs"),
                    ("grouped_wgrad_wgmma_kernel", "grouped_wgrad"),
                    ("grouped_wgrad_scaled_wgmma_kernel", "grouped_wgrad"),
@@ -690,17 +734,21 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def dgdu_kernel(dz, wo, group_of_tile, live_tiles, bm: int, *, xs=None,
                 wg=None, wi=None, gate=None, up=None, w=None):
-    """Launch ``grouped_dgdu`` on CUDA tensors → (dg, du, h [R_pad, f] in
-    dz's dtype, dw2 [R_pad] in w's dtype or None). Gate/up are recomputed
-    from ``xs``, ``wg``, ``wi`` when given, else read from ``gate``/``up``.
-    dw2 sums the kernel's per-f-tile partials and is zero past the live
-    rows (grouped_matmul.py:895-902); dg/du/h rows of dead tiles are left
+    """Launch ``grouped_dgdu`` on CUDA tensors in the form of :func:`plan`
+    → (dg, du, h [R_pad, f] in dz's dtype, dw2 [R_pad] in w's dtype or
+    None). Gate/up are recomputed from ``xs``, ``wg``, ``wi`` when given,
+    else read from ``gate``/``up``. dw2 sums the kernel's partials over the
+    plan's column tiles and is zero past the live rows
+    (grouped_matmul.py:895-902); dg/du/h rows of dead tiles are left
     unwritten."""
     r_pad, d = dz.shape
-    f = wo.shape[1]
+    e, f, _ = wo.shape
+    saved = xs is None
+    pl = plan("grouped_dgdu", dz.dtype, r_pad, d, f, e,
+              _aligned16(dz, xs, wg, wi, wo, gate, up), saved=saved)
     dg = torch.empty((r_pad, f), dtype=dz.dtype, device=dz.device)
     du, h = torch.empty_like(dg), torch.empty_like(dg)
-    nf = -(-f // DGDU_BN[dz.dtype])
+    nf = pl.col_tiles
     dwp = None if w is None else torch.empty((nf, r_pad), dtype=torch.float32,
                                              device=dz.device)
     lib = op_builder.load("grouped_matmul_bwd")
@@ -708,10 +756,12 @@ def dgdu_kernel(dz, wo, group_of_tile, live_tiles, bm: int, *, xs=None,
         dz.data_ptr(), _ptr(xs), _ptr(wg), _ptr(wi), wo.data_ptr(),
         _ptr(gate), _ptr(up), _ptr(w), dg.data_ptr(), du.data_ptr(),
         h.data_ptr(), _ptr(dwp), group_of_tile.data_ptr(),
-        live_tiles.data_ptr(), r_pad, d, f, bm, nf, _DTYPES[dz.dtype],
+        live_tiles.data_ptr(), r_pad, d, f, bm, nf, e, _DTYPES[dz.dtype],
+        FORMS[pl.form], pl.band,
         torch.cuda.current_stream(dz.device).cuda_stream)
-    op_builder.check(lib, err, "grouped_dgdu")
+    op_builder.check(lib, err, f"grouped_dgdu ({pl.form})")
     op_builder.launches["grouped_dgdu"] += 1
+    form_launches["grouped_dgdu"][pl.form] += 1
     dw2 = None
     if w is not None:
         live = torch.arange(r_pad, device=dz.device) < live_tiles.long() * bm

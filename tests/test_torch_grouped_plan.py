@@ -1,5 +1,6 @@
-"""The launch plan of grouped_gate_up, grouped_down, grouped_dxs and
-grouped_wgrad (deepspeed_tpu_torch/ops/grouped_matmul.py ``plan``), which
+"""The launch plan of grouped_gate_up, grouped_down, grouped_dgdu,
+grouped_dxs and grouped_wgrad (deepspeed_tpu_torch/ops/grouped_matmul.py
+``plan``), which
 picks each call's kernel form from its dtype and shape: fp32 the FMA
 kernel, bf16 the wgmma kernel fed by a TMA ring where TMA can address every
 operand, any other bf16 the mma.sync kernel. Pure Python: the CUDA kernels run only on the card
@@ -12,6 +13,7 @@ and Mixtral training steps) and the awkward ones of the card's checks (d
 expert), in both dtypes.
 """
 
+import ctypes
 import re
 from pathlib import Path
 
@@ -32,7 +34,7 @@ SHAPES = [(2048, 2, 8, 4096, 14336), (2048, 4, 60, 2048, 1408),
           (150, 2, 5, 128, 130), (90, 3, 4, 130, 70),
           (400, 2, 6, 512, 384), (512, 4, 60, 256, 192),
           (600, 2, 8, 1032, 1416), (1, 1, 4, 256, 64)]
-KERNELS = ("grouped_gate_up", "grouped_down", "grouped_dxs",
+KERNELS = ("grouped_gate_up", "grouped_down", "grouped_dgdu", "grouped_dxs",
            "grouped_wgrad")
 DTYPES = (torch.float32, torch.bfloat16)
 TMA_SHAPES = [x for x in SHAPES if x[3] % 8 == 0 and x[4] % 8 == 0]
@@ -43,11 +45,14 @@ def _rows(s, k, e):
     return -(-s * k // BM) * BM + e * BM
 
 
-def _dims(kernel, rows, d, f):
+def _dims(kernel, rows, d, f, saved=False):
     """(output rows, output columns, depth of each product, products) of a
-    call: gate_up [rows, f] over d; down, dxs [rows, d] over f (dxs two
-    products); wgrad dW [d, f] of each expert over the rows."""
+    call: gate_up [rows, f] over d; dgdu [rows, f] over d (three products,
+    gate and up recomputed and dh; one, dh, when gate/up are saved); down,
+    dxs [rows, d] over f (dxs two products); wgrad dW [d, f] of each expert
+    over the rows."""
     return {"grouped_gate_up": (rows, f, d, 1),
+            "grouped_dgdu": (rows, f, d, 1 if saved else 3),
             "grouped_down": (rows, d, f, 1),
             "grouped_dxs": (rows, d, f, 2),
             "grouped_wgrad": (d, f, rows, 1)}[kernel]
@@ -87,10 +92,15 @@ def test_plan_form_grid_and_k_steps(kernel, dtype, s, k, e, d, f):
     for steps in pl.k_steps:
         assert (steps - 1) * pl.bk < depth <= steps * pl.bk
     if pl.form == "wgmma":
-        # gate_up: 128 columns of gate beside the same 128 of up
-        bn = 128 if kernel == "grouped_gate_up" else 256
-        assert (pl.bn, pl.bk, pl.threads) == (bn, 64, 288)
-        if kernel == "grouped_gate_up" \
+        # gate_up: 128 columns of gate beside the same 128 of up; dgdu: BN_f
+        # columns of each of dg, du and h
+        bn = {"grouped_gate_up": 128,
+              "grouped_dgdu": tg.WG_DGDU_BN}.get(kernel, 256)
+        threads = 384 if kernel == "grouped_dgdu" and bn == 128 else 288
+        assert (pl.bn, pl.bk, pl.threads) == (bn, 64, threads)
+        if kernel == "grouped_dgdu":
+            _check_dgdu_band(pl, d, f)
+        elif kernel == "grouped_gate_up" \
                 and 4 * d * f > tg.GATE_UP_BAND_BYTES:
             # an expert's weights outgrow the L2 share: bands of row
             # blocks whose xs stays within it (or of one row block)
@@ -104,6 +114,21 @@ def test_plan_form_grid_and_k_steps(kernel, dtype, s, k, e, d, f):
     else:
         assert pl.threads == 128 and pl.bk == 32 and not pl.tma
         assert pl.band == 0
+
+
+def _check_dgdu_band(pl, d, f, saved=False):
+    """dgdu's raster: where one expert's weights (wg, wi, wo; wo alone
+    when saved) outgrow the plan's L2 share, bands of row blocks whose dz
+    (and xs) stay within GATE_UP_BAND_BYTES (or of one row block); else
+    the column tiles fastest."""
+    a_bytes = (1 if saved else 2) * pl.bm * d * 2
+    if (1 if saved else 3) * d * f * 2 > tg.DGDU_BAND_WEIGHT_BYTES:
+        assert 1 <= pl.band <= pl.row_blocks
+        assert pl.band == 1 or pl.band * a_bytes <= tg.GATE_UP_BAND_BYTES
+        assert pl.band == pl.row_blocks or \
+            (pl.band + 1) * a_bytes > tg.GATE_UP_BAND_BYTES
+    else:
+        assert pl.band == 1
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
@@ -138,6 +163,20 @@ def test_plan_tma_maps_and_ring(kernel, s, k, e, d, f):
         # in a box for each 64 of dW's rows, B = b in four of 64 columns
         assert views == {"a": (d, rows, 1, 1), "b": (f, rows, 1, 1)}
         box_bytes = (pl.bm // 64) * tile + 4 * tile
+    elif kernel == "grouped_dgdu":
+        # dz, xs: a 64-row box for each half of the block's rows; wg, wi
+        # MN-major [64 k, 64 n] boxes side by side; wo K-major, one [bn n,
+        # 64 k] box of the [E, f, d] view
+        assert views == {"dz": (d, rows, 1, 1), "xs": (d, rows, 1, 1),
+                         "wg": (f, d, e, 1), "wi": (f, d, e, 1),
+                         "wo": (d, f, e, 1)}
+        boxes = {m.operand: m.box for m in pl.tma}
+        assert boxes["wg"] == boxes["wi"] == (64, 64, 1, 1)
+        assert boxes["wo"] == (64, pl.bn, 1, 1)
+        box_bytes = 2 * (pl.bm // 64) * tile + 2 * (pl.bn // 64) * tile \
+            + pl.bn * 64 * 2
+        # the epilogue stages both groups' dg, du and h tiles in the ring
+        assert pl.stages * box_bytes >= 2 * 3 * 64 * (pl.bn + 8) * 2
     elif kernel == "grouped_down":
         assert views == {"gate": (f, rows, 1, 1), "up": (f, rows, 1, 1),
                          "wo": (d, f, e, 1)}
@@ -198,9 +237,52 @@ def test_plan_scaled_wgrad_runs_transposed(s, k, e, d, f):
                    True).form == "mma"
 
 
+@pytest.mark.parametrize("s,k,e,d,f", TMA_SHAPES)
+def test_plan_saved_dgdu_runs_dh_alone(s, k, e, d, f):
+    """dgdu with gate/up read from the saved forward: one product (dh) over
+    d, dz and wo alone through TMA, a smaller stage (so at least as many
+    stages as the recomputing form), the same grid and column tiles."""
+    rows = _rows(s, k, e)
+    pl = tg.plan("grouped_dgdu", torch.bfloat16, rows, d, f, e, saved=True)
+    rc = tg.plan("grouped_dgdu", torch.bfloat16, rows, d, f, e)
+    assert pl.form == rc.form == "wgmma"
+    assert (pl.grid, pl.bn, pl.col_tiles) == (rc.grid, rc.bn, rc.col_tiles)
+    assert pl.k_steps == rc.k_steps[:1] and len(rc.k_steps) == 3
+    assert {m.operand: m.dims for m in pl.tma} == {
+        "dz": (d, rows, 1, 1), "wo": (d, f, e, 1)}
+    tile = 64 * 64 * 2
+    box_bytes = (pl.bm // 64) * tile + pl.bn * 64 * 2
+    assert rc.stages <= pl.stages <= tg.WG_MAX_STAGES
+    assert pl.stages * box_bytes <= pl.smem_bytes <= tg.SMEM_MAX
+    assert pl.stages * box_bytes >= 2 * 3 * 64 * (pl.bn + 8) * 2
+    _check_dgdu_band(pl, d, f, saved=True)
+    for dtype in DTYPES:
+        assert tg.plan("grouped_dgdu", dtype, rows, d, f, e,
+                       saved=True).form == _expected_form(dtype, d, f)
+
+
+@pytest.mark.parametrize("s,k,e,d,f,band", [
+    (2048, 2, 8, 4096, 14336, 8),      # Mixtral: 352 MB of weights an expert
+    (16384, 2, 8, 1024, 2816, 1),      # 1B/8e: 17.3 MB, within the L2
+    (2048, 4, 60, 2048, 1408, 1)])     # Qwen1.5-MoE: 17.3 MB
+def test_plan_dgdu_raster_and_ring_at_the_path_shapes(s, k, e, d, f, band):
+    """At Mixtral one expert's wg, wi and wo (352 MB) outgrow the L2, so
+    the blocks walk bands of row blocks (each 2 MB of dz and xs); at the
+    1B/8e shape (17.3 MB) the column tiles go fastest. The ring fits a
+    block's shared memory, and the dw partials come in one tile per
+    column tile."""
+    rows = _rows(s, k, e)
+    pl = tg.plan("grouped_dgdu", torch.bfloat16, rows, d, f, e)
+    assert pl.form == "wgmma" and pl.band == band
+    assert band == 1 or band > 1 and pl.row_blocks > band
+    assert pl.smem_bytes <= tg.SMEM_MAX and pl.stages >= 2
+    assert pl.col_tiles == -(-f // tg.WG_DGDU_BN)
+    assert pl.grid == (pl.col_tiles, pl.row_blocks, 1)
+
+
 def test_plan_refuses_what_no_kernel_takes():
     with pytest.raises(ValueError, match="no kernel"):
-        tg.plan("grouped_dgdu", torch.bfloat16, 1024, 256, 256, 8)
+        tg.plan("grouped_dgdw", torch.bfloat16, 1024, 256, 256, 8)
     with pytest.raises(ValueError, match="dtype"):
         tg.plan("grouped_down", torch.float16, 1024, 256, 256, 8)
     with pytest.raises(ValueError, match="a multiple of 64"):
@@ -232,6 +314,14 @@ def test_plan_matches_the_cuda_sources():
     assert "kFit < 4 ? kFit : 4" in header and tg.WG_MAX_STAGES == 4
     # scaled wgrad: the 64 values of w a stage beside the ring
     assert "WBYTES = AF == kAScaled ? BK * 2 : 0" in header
+    # dgdu: BN_f f columns a block; a producer warpgroup at 128 columns
+    assert f"constexpr int kDgduBN = {tg.WG_DGDU_BN};" in header
+    assert "kShift = BNF == 128;" in header
+    assert "kThreads = kConsumers + (kShift ? 128 : 32)" in header
+    bwd = (CSRC / "grouped_matmul_bwd.cu").read_text()
+    assert "G::launch_dgdu<BNF, true>(grouped_dgdu_wgmma_kernel" in bwd
+    assert "map_experts(&maps.wo, wo, num_experts, f, d, BNF, G::BK)" in bwd
+    assert "n_f_tiles != (f + BNF - 1) / BNF" in bwd
     # gate_up's blocks cover half of B's columns of each output
     fwd = (CSRC / "grouped_matmul.cu").read_text()
     assert "G::launch<G::kAK, G::BN / 2>(grouped_gate_up_wgmma_kernel" in fwd
@@ -245,6 +335,7 @@ def test_plan_matches_the_cuda_sources():
 @pytest.mark.parametrize("src,fn", [
     ("grouped_matmul.cu", "dstt_grouped_gate_up"),
     ("grouped_matmul.cu", "dstt_grouped_down"),
+    ("grouped_matmul_bwd.cu", "dstt_grouped_dgdu"),
     ("grouped_matmul_bwd.cu", "dstt_grouped_dxs"),
     ("grouped_matmul_bwd.cu", "dstt_grouped_wgrad")])
 def test_entry_points_take_only_the_planned_pairings(src, fn):
@@ -286,6 +377,14 @@ def test_entry_points_take_only_the_planned_pairings(src, fn):
      "dstt::grouped::WgradEpilogue)", "grouped_wgrad"),
     ("(anonymous namespace)::grouped_wgrad_scaled_wgmma_kernel(dstt::"
      "grouped::Maps, dstt::grouped::WgradEpilogue)", "grouped_wgrad"),
+    ("void (anonymous namespace)::grouped_dgdu_wgmma_kernel<true, true>("
+     "dstt::grouped::DgduMaps, dstt::grouped::DgduEpilogue)",
+     "grouped_dgdu"),
+    ("_ZN12_GLOBAL__N_125grouped_dgdu_wgmma_kernelILb0ELb0EEEvN4dstt7grouped"
+     "8DgduMapsENS2_12DgduEpilogueE", "grouped_dgdu"),
+    ("void (anonymous namespace)::grouped_dgdu_kernel<__nv_bfloat16, true, "
+     "true>((anonymous namespace)::DgduArgs<__nv_bfloat16>)",
+     "grouped_dgdu"),
     ("nvjet_hsh_256x128_64x4_1x2_h_bz_coopA_NNT", None)])
 def test_kernel_entry_names_every_form(name, entry):
     """The profile tools class device time by the entry point that
@@ -315,3 +414,83 @@ def test_cpu_tensors_launch_nothing():
     assert all(v == 0 for v in op_builder.launches.values())
     assert all(c == 0 for v in tg.form_launches.values() for c in v.values())
     assert all(p.grad is not None for p in ws)
+
+
+class _Stream:
+    cuda_stream = 0
+
+
+class _DgduLib:
+    """Stands in for the compiled library: records each dstt_grouped_dgdu
+    call's arguments and fills the dw partials [n_f_tiles, rows] it is
+    handed with dwp[j, r] = j + 1 + r / 1024, as the kernel would write
+    one partial per column tile."""
+
+    def __init__(self):
+        self.calls = []
+
+    def dstt_grouped_dgdu(self, *args):
+        self.calls.append(args)
+        dwp, rows, nf = args[11], args[14], args[18]
+        if dwp is not None:
+            part = np.ctypeslib.as_array(
+                ctypes.cast(dwp, ctypes.POINTER(ctypes.c_float)),
+                shape=(nf, rows))
+            part[:] = (np.arange(nf)[:, None] + 1
+                       + np.arange(rows)[None] / 1024)
+        return 0
+
+
+#: (dtype, d, f, recomputed, with w): the main paths' call (wgmma), the
+#: saved form, bf16 off TMA's 8 (mma.sync), fp32 (FMA)
+DGDU_WRAPPER_CASES = {
+    "wgmma_rc_w": (torch.bfloat16, 256, 384, True, True),
+    "wgmma_saved": (torch.bfloat16, 256, 200, False, False),
+    "mma_rc_w": (torch.bfloat16, 100, 150, True, True),
+    "fma_saved_w": (torch.float32, 128, 130, False, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DGDU_WRAPPER_CASES))
+def test_dgdu_wrapper_launches_the_plan(name, monkeypatch):
+    """dgdu_kernel passes the plan's form, band and column tiles to the C
+    entry (with the expert count its tensor maps need), counts one launch
+    under that form, and sums the dw partials over exactly the plan's
+    column tiles, zero past the live rows."""
+    dtype, d, f, rc, with_w = DGDU_WRAPPER_CASES[name]
+    e, r_pad, live_tiles = 4, 512, 5
+    lib = _DgduLib()
+    monkeypatch.setattr(op_builder, "load", lambda name: lib)
+    monkeypatch.setattr(op_builder, "launches", dict(op_builder.launches))
+    monkeypatch.setattr(tg, "form_launches",
+                        {k: {f_: 0 for f_ in tg.FORMS} for k in tg.PLANNED})
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: _Stream())
+    dz = torch.zeros((r_pad, d), dtype=dtype)
+    wo = torch.zeros((e, f, d), dtype=dtype)
+    got = torch.zeros(r_pad // BM, dtype=torch.int32)
+    live = torch.tensor([live_tiles], dtype=torch.int32)
+    kw = dict(xs=torch.zeros_like(dz), wg=torch.zeros((e, d, f), dtype=dtype),
+              wi=torch.zeros((e, d, f), dtype=dtype)) if rc else \
+        dict(gate=torch.zeros((r_pad, f), dtype=dtype),
+             up=torch.zeros((r_pad, f), dtype=dtype))
+    w = torch.ones(r_pad, dtype=dtype) if with_w else None
+    dg, du, h, dw2 = tg.dgdu_kernel(dz, wo, got, live, BM, w=w, **kw)
+    pl = tg.plan("grouped_dgdu", dtype, r_pad, d, f, e, saved=not rc)
+    (args,) = lib.calls
+    assert args[14:23] == (r_pad, d, f, BM, pl.col_tiles, e,
+                           tg._DTYPES[dtype], tg.FORMS[pl.form], pl.band)
+    assert (args[1] is None) == (not rc) and (args[5] is None) == rc
+    assert (args[7] is None) == (args[11] is None) == (not with_w)
+    assert dg.shape == du.shape == h.shape == (r_pad, f)
+    assert op_builder.launches["grouped_dgdu"] == 1
+    assert tg.form_launches["grouped_dgdu"] == {
+        f_: int(f_ == pl.form) for f_ in tg.FORMS}
+    if with_w:
+        rows = np.arange(r_pad)
+        nf = pl.col_tiles
+        want = np.where(rows < live_tiles * BM,
+                        nf * (nf + 1) / 2 + nf * rows / 1024, 0.0)
+        np.testing.assert_allclose(dw2.float().numpy(), want, rtol=1e-2)
+        assert dw2.dtype == dtype
+    else:
+        assert dw2 is None

@@ -23,10 +23,19 @@ kernel (the wgmma form). The source variants:
   the dz box as they are, without w: the register-A path without its
   arithmetic;
 - ``dwo_w_inline`` (wgrad): each k16 slice's 4 values of w read beside
-  its ldmatrix load instead of the step's 16 before them.
+  its ldmatrix load instead of the step's 16 before them;
+- ``dgdu_n128`` (dgdu): 128 f columns a block instead of 64 (192 fp32
+  accumulators a consumer thread, 80 KB stages, 2 of them, a producer
+  warpgroup that hands its registers to the consumers through
+  setmaxnreg); ``dgdu_n128_uniform`` (dgdu): the same with the warp's
+  role read through ``__shfl_sync`` from lane 0, so that the compiler can
+  see it is uniform across the warp; ``dgdu_n128_w288`` (dgdu): the same
+  tile with one producer warp and no register shift (288 threads); the
+  base library's dgdu is ``dgdu_n64``.
 
-Each build's ptxas warnings that wgmma was serialized (C7513) are printed
-as a JSON line too.
+Each build's ptxas warnings that wgmma was serialized (C7513), and the
+registers and spilled bytes of each wgmma kernel, are printed as a JSON
+line too.
 
 Call variants of ``base`` / ``dxs_base`` (no rebuild):
 
@@ -37,11 +46,16 @@ Call variants of ``base`` / ``dxs_base`` (no rebuild):
   whatever the weights' size (``bands``), and with the row blocks fastest
   (``rowfast``: one band of all row blocks), beside the plan's raster;
 - wgrad for each of its three products of a layer: dwg = xsᵀ·dg, dwi =
-  xsᵀ·du, dwo = hᵀ·round(dz·w) (the transposed, register-A form).
+  xsᵀ·du, dwo = hᵀ·round(dz·w) (the transposed, register-A form);
+- dgdu (gate/up recomputed, with w: the main paths' call) with the
+  column tiles fastest (``dgdu_n64_colfast``), in bands of as many row
+  blocks as keep their dz and xs within the plan's L2 share whatever the
+  weights' size (``dgdu_n64_bands``), in its saved form (gate/up read,
+  ``dgdu_n64_saved``), beside the plan's raster.
 
 Variants that change the function report no error. Run from the root of a
 checkout on a machine with one GPU:
-``python3 tools/grouped_wgmma_variants.py [--only gate_up wgrad]``; one
+``python3 tools/grouped_wgmma_variants.py [--only gate_up wgrad dgdu]``; one
 JSON line a (variant, kernel, shape), also written to
 ``grouped_wgmma_variants.jsonl`` in the checkout's output directory.
 """
@@ -115,6 +129,17 @@ VARIANTS = {
          "      af[kk][2] = scale2(v[2], w1);\n"
          "      af[kk][3] = scale2(v[3], w1);\n",
          "      for (int q = 0; q < 4; ++q) af[kk][q] = v[q];\n")]),
+    "dgdu_n128": ("grouped_matmul_bwd", [
+        ("constexpr int kDgduBN = 64;", "constexpr int kDgduBN = 128;")]),
+    "dgdu_n128_uniform": ("grouped_matmul_bwd", [
+        ("constexpr int kDgduBN = 64;", "constexpr int kDgduBN = 128;"),
+        ("  if (warp >= kConsumers / 32) {",
+         "  if (__shfl_sync(0xffffffffu, tid / 128, 0) == "
+         "kConsumers / 128) {")]),
+    "dgdu_n128_w288": ("grouped_matmul_bwd", [
+        ("constexpr int kDgduBN = 64;", "constexpr int kDgduBN = 128;"),
+        ("static constexpr bool kShift = BNF == 128;",
+         "static constexpr bool kShift = false;")]),
     "dwo_w_inline": ("grouped_matmul_bwd", [
         ("    float2 ws[BK / 16][2];\n#pragma unroll\n"
          "    for (int kk = 0; kk < BK / 16; ++kk)\n#pragma unroll\n"
@@ -139,17 +164,51 @@ SHAPES = [("gate_up", "mixtral", 2048, 2, 8, 4096, 14336),
           ("dxs", "1b8e", 16384, 2, 8, 1024, 2816),
           ("dxs", "mixtral", 2048, 2, 8, 4096, 14336),
           ("wgrad", "1b8e", 16384, 2, 8, 1024, 2816),
-          ("wgrad", "mixtral", 2048, 2, 8, 4096, 14336)]
+          ("wgrad", "mixtral", 2048, 2, 8, 4096, 14336),
+          ("dgdu", "1b8e", 16384, 2, 8, 1024, 2816),
+          ("dgdu", "mixtral", 2048, 2, 8, 4096, 14336)]
 #: the library each kernel lives in
 _LIB = {"gate_up": "grouped_matmul", "down": "grouped_matmul",
-        "dxs": "grouped_matmul_bwd", "wgrad": "grouped_matmul_bwd"}
+        "dxs": "grouped_matmul_bwd", "wgrad": "grouped_matmul_bwd",
+        "dgdu": "grouped_matmul_bwd"}
 #: variants that compute another function
 _CHANGED = {"no_up", "glu_xor", "dwo_noscale"}
 #: the source variants of the kernels they were made for (the others run
 #: only the base library's call variants)
 _FOR = {"no_up": "down", "glu_xor": "down", "m_fast": "down",
         "dxs_bk32": "dxs", "dxs_m_fast": "dxs", "dwo_noscale": "wgrad",
-        "dwo_w_inline": "wgrad"}
+        "dwo_w_inline": "wgrad", "dgdu_n128": "dgdu",
+        "dgdu_n128_w288": "dgdu", "dgdu_n128_uniform": "dgdu"}
+
+
+def _ptxas_wgmma(log):
+    """Registers and spilled bytes (stores + loads) of each wgmma kernel in
+    an ``nvcc -Xptxas -v`` log, by its name and template arguments (e.g.
+    ``grouped_dgdu_wgmma_kernel<1, 1>``), and ptxas's lines on setmaxnreg."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            k = re.search(r"\d([a-z_]+wgmma_kernel)(?:I((?:Lb[01]E)+))?",
+                          m.group(1))
+            name = None
+            if k:
+                args = re.findall(r"Lb([01])E", k.group(2) or "")
+                name = k.group(1) + (f"<{', '.join(args)}>" if args else "")
+                out.setdefault(name, {"registers": None, "spill_bytes": 0})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    notes = [ln.strip() for ln in log.splitlines() if "setmaxnreg" in ln]
+    if notes:
+        out["setmaxnreg"] = notes[:8]
+    return out
 
 
 def _build(op_builder, root):
@@ -182,7 +241,8 @@ def _build(op_builder, root):
             re.search(r"\d([a-z_]+_kernel)", fn).group(1)
             for fn in re.findall(r"C7513\).*?function '([^']+)'", log)})
         print(json.dumps({"variant": name, "build": "ok",
-                          "wgmma_serialized_in": serialized}), flush=True)
+                          "wgmma_serialized_in": serialized,
+                          "wgmma_kernels": _ptxas_wgmma(log)}), flush=True)
         stem = VARIANTS[name][0]
         lib = ctypes.CDLL(os.path.join(root, name, "lib.so"))
         for fn, (argtypes, restype) in op_builder._SIGNATURES[stem].items():
@@ -194,8 +254,8 @@ def _build(op_builder, root):
 
 def _calls(kernel, name, lib, ops, dims, plan, st):
     """(label, form, call) of each way to run ``kernel`` on ``lib``: the
-    wgmma form, and on the base libraries the mma.sync form and gate_up's
-    column-fastest raster."""
+    wgmma form, and on the base libraries the mma.sync form and the
+    rasters and forms the module docstring lists."""
     import torch
     tg, fm = plan, ops
     got, live, bm, e, d, f = dims
@@ -244,6 +304,35 @@ def _calls(kernel, name, lib, ops, dims, plan, st):
         out.append((name, wg_, dx(wg_)))
         if base:
             out.append(("mma", mma, dx(mma)))
+    elif kernel == "dgdu":
+        if name not in ("dxs_base", "dgdu_n128", "dgdu_n128_w288",
+                        "dgdu_n128_uniform"):
+            return []
+        dz, xs, wg, wi, wo, w, gate, up, dg, du, h, dwp = ops["tensors"]
+        bnf = 64 if base else 128
+        rows = dz.shape[0]
+        band = tg("grouped_dgdu", torch.bfloat16, rows, d, f, e).band
+        band_saved = tg("grouped_dgdu", torch.bfloat16, rows, d, f, e,
+                        saved=True).band
+
+        def dd(form, b, rc=True):
+            nf = -(-f // (bnf if form == wg_ else 64))
+            return lambda: lib.dstt_grouped_dgdu(
+                dz.data_ptr(), xs.data_ptr() if rc else None,
+                wg.data_ptr() if rc else None, wi.data_ptr() if rc else None,
+                wo.data_ptr(), None if rc else gate.data_ptr(),
+                None if rc else up.data_ptr(), w.data_ptr(), dg.data_ptr(),
+                du.data_ptr(), h.data_ptr(), dwp.data_ptr(), got.data_ptr(),
+                live.data_ptr(), rows, d, f, bm, nf, e, 1, form, b, st)
+        out.append(("dgdu_n64" if base else name, wg_, dd(wg_, band)))
+        if base:
+            from deepspeed_tpu_torch.ops.grouped_matmul import \
+                GATE_UP_BAND_BYTES
+            bands = max(1, GATE_UP_BAND_BYTES // (2 * 128 * d * 2))
+            out += [("dgdu_n64_colfast", wg_, dd(wg_, 1)),
+                    ("dgdu_n64_bands", wg_, dd(wg_, bands)),
+                    ("dgdu_n64_saved", wg_, dd(wg_, band_saved, False)),
+                    ("mma", mma, dd(mma, 0))]
     else:
         prods = ops["tensors"]          # product → (a, b, scale, out)
         for prod, (a, b, sc, y) in prods.items():
@@ -263,7 +352,7 @@ def main() -> int:
     import torch
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", nargs="*", default=None,
-                    help="kernels to time (gate_up, down, dxs, wgrad)")
+                    help="kernels to time (gate_up, down, dxs, wgrad, dgdu)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("grouped_wgmma_variants: no CUDA device", file=sys.stderr)
@@ -316,6 +405,18 @@ def main() -> int:
                 tensors = (a, b, wo, w, y)
                 refs = {"": ((tg.down_ref(a, b, wo, sizes, live, bm, w),),
                              (y,))}
+            elif kernel == "dgdu":
+                # the main paths' call: gate/up recomputed, with w; the
+                # saved form is fed the same gate/up, rounded as recomputed
+                dz = rnd(xs.shape[0], d)
+                gate, up = tg.gate_up_ref(xs, wg, wi, sizes, live, bm)
+                dg, du, h = (torch.empty_like(gate) for _ in range(3))
+                dwp = torch.empty((-(-f // 32), xs.shape[0]), device="cuda")
+                tensors = (dz, xs, wg, wi, wo, w, gate, up, dg, du, h, dwp)
+                want = tg.dgdu_ref(dz, wo, sizes, live, bm, xs=xs, wg=wg,
+                                   wi=wi, w=w)
+                refs = {"": (want[:3], (dg, du, h))}
+                flops *= 3
             elif kernel == "dxs":
                 a, b = rnd(xs.shape[0], f), rnd(xs.shape[0], f)
                 y = torch.empty((xs.shape[0], d), dtype=torch.bfloat16,
