@@ -66,9 +66,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    width in int8, fp8, int4 and fp6 (fresh, split, decode) and at Mixtral
    width in int8 (a fresh 2 x 32 chunk and a decode step, both through the
    capacity layer);
-5. serves Llama-3 8B at full width and depth in bf16 (random weights from a
-   seeded generator): ``generate`` on 8 ragged prompts and ``serve`` on 16
-   requests, with every kernel's launch count read around that run; then
+5. decodes in fused windows on every serving model: each decode step is
+   captured once per row bucket and sampling mode as a CUDA graph and
+   replayed. Each run asserts replays and no decode step of its loops
+   forced onto the stepwise path, holds paged attention's decode launches
+   to layers x (decode steps + one warm-up step a capture), and prints the
+   graphs, the seconds spent capturing, the graphs' pool bytes, the
+   replays and the eager decode steps. First Llama-3 8B at full width and
+   depth 2 in fp32, where ``generate`` and the stepwise loop give
+   identical tokens over 32 new ones; then Llama-3 8B at full width and
+   depth in bf16 (random weights from a seeded generator): ``generate`` on
+   8 ragged prompts, ``serve`` on 16 requests and the serving frontend's
+   loop over ``step_with_budget(max_steps=8)`` (the decode megastep) on
+   the 8 prompts, with every kernel's launch count read around that run
+   (each replay counts what its step's capture recorded); generate's
+   windows, the megastep's and the stepwise loop give one token stream,
+   and sampled, one window of 8 the same tokens as two of 4 and as the
+   stepwise loop; one megastep window under ``torch.profiler`` shows the
+   card ran as many K2 kernels as the replays counted (and, in the int8
+   run below, as many K5 split-K kernels); then
    Mixtral 8x7B at full width and 16 of its 32 layers (``generate`` on 8
    prompts of 256-1024 tokens, whose first step of 8 x 256 tokens runs the
    grouped kernels, and ``serve`` on 16 requests) and Qwen1.5-MoE-A2.7B at
@@ -1620,9 +1636,124 @@ def phase_full_width_moe():
 # phase 5: Llama-3 8B end to end
 # ---------------------------------------------------------------------------
 
+def _serve_loop(eng, prompts, new, k, mode=("argmax",)):
+    """The serving frontend's entry point ``step_with_budget(max_steps=k)``
+    (k 1: the stepwise loop; k > 1: decode megasteps, each a window of up
+    to k replays of the captured step) driven as ``generate`` drives its
+    own loop: every prompt prefilled first, then every row's last token
+    fed back by ``scheduler.put`` until it has ``new`` tokens, so that each
+    decode step holds the same rows as generate's. Returns the new tokens
+    of each prompt."""
+    base = max(eng.state.seqs.keys(), default=-1) + 1
+    uids = [base + i for i in range(len(prompts))]
+    eng.scheduler.put(uids, prompts)
+    out = {u: [] for u in uids}
+
+    def step():
+        res = eng.step_with_budget(
+            mode=mode, max_steps=k,
+            row_limits={u: new - len(out[u]) for u in uids
+                        if u in eng.state.seqs})
+        for u, toks in (res or {}).items():
+            toks = toks if isinstance(toks, list) else [toks]
+            out[u].extend(int(t) for t in toks[:new - len(out[u])])
+        return res
+
+    while step() is not None:            # the prefill
+        pass
+    while eng.state.seqs.keys() & set(uids):
+        for u in uids:
+            if u not in eng.state.seqs:
+                continue
+            if len(out[u]) >= new:
+                eng.flush(u)
+            else:
+                eng.scheduler.put([u], [[out[u][-1]]])
+        if eng.state.seqs.keys() & set(uids):
+            step()
+    return [out[u] for u in uids]
+
+
+def _graphs(eng, label: str) -> dict:
+    """The engine's decode graphs since it was made, its stats counted
+    from the same start. Every decode window of its generate/serve/
+    megastep runs replayed a captured step: replays > 0, and no decode
+    step of those loops was forced onto the stepwise path (phase 5's
+    arenas hold every window). A replay's launches are counted from its
+    capture's record, not at the wrappers, so the product is held to the
+    steps: every decode step, replayed or eager, and the eager warm-up
+    before each capture launch K2 once a layer."""
+    gs = dict(eng.graph_stats)
+    assert gs["graphs"] > 0 and gs["replays"] > 0, (label, gs)
+    assert gs["fallback_steps"] == 0, (label, gs)
+    dec = eng.stats["decode"]
+    want = eng.model_config.num_layers * (dec["steps"] + gs["graphs"])
+    assert dec["launches"]["paged_attention"] == want, (label, want, dec, gs)
+    gs["eager_decode_steps"] = dec["steps"] - gs["replays"]
+    return gs
+
+
+def _profiled_window(eng, prompts, kernels: dict) -> dict:
+    """The frontend's loop at K 8 on ``prompts`` for 9 new tokens (the
+    prefill, then one decode megastep window of 8 replays) under
+    ``torch.profiler``: for each kernel name of ``kernels`` (name → a
+    function reading the wrapper's counter of that kernel), the kernels
+    the card ran, read from the trace, equal what the counter counted.
+    Launches the replays ran are counted from the capture's record, so
+    this holds that record to the card."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    before = {name: get() for name, get in kernels.items()}
+    r0 = eng.graph_stats["replays"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _serve_loop(eng, prompts, 9, 8)
+        torch.cuda.synchronize()
+    replays = eng.graph_stats["replays"] - r0
+    assert replays == 8, replays
+    ran = {}
+    for name, get in kernels.items():
+        ran[name] = sum(1 for e in prof.events()
+                        if e.device_type == DeviceType.CUDA
+                        and name in e.name)
+        counted = get() - before[name]
+        assert ran[name] == counted > 0, (name, ran[name], counted)
+    return {"replays": replays, "launches_traced_equal_counted": ran}
+
+
+def phase_fused_fp32():
+    """Fused decode = stepwise decode in fp32 on the card: Llama-3 8B at
+    full width and depth 2, ``generate`` (windows of replays of the
+    captured step) against the stepwise loop over 32 new tokens on 4
+    ragged prompts, token for token."""
+    import torch
+    from deepspeed_tpu_torch import RaggedInferenceEngine, llama3_config
+    cfg = llama3_config(SERVE_MODEL[0], **dict(SERVE_MODEL[1], num_layers=2))
+    eng = RaggedInferenceEngine(
+        cfg, {"dtype": "float32", "num_blocks": 64, "block_size": 128,
+              "max_seq_len": 2048, "max_batch_tokens": 2048,
+              "prefill_chunk": 256},
+        generator=torch.Generator(device=DEV).manual_seed(5), device=DEV)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (64, 300, 128, 513)]
+    fused = [o[len(p):].tolist() for p, o in
+             zip(prompts, eng.generate(prompts, max_new_tokens=32))]
+    step = _serve_loop(eng, prompts, 32, 1)
+    assert fused == step, "fp32: fused decode differs from stepwise"
+    emit({"phase": "fused_decode_fp32", "model": "llama3-8b-2L",
+          "dtype": "float32", "new_tokens": 32, "prompts": len(prompts),
+          "identical": True, "graphs": _graphs(eng, "fp32")})
+    del eng
+    torch.cuda.empty_cache()
+
+
 def phase_serve():
     import torch
     from deepspeed_tpu_torch import RaggedInferenceEngine, llama3_config
+    from deepspeed_tpu_torch.inference.engine_v2 import (
+        dispatch_counts, reset_dispatch_counts)
     from deepspeed_tpu_torch.ops import op_builder
     from deepspeed_tpu_torch.ops import paged_attention as pa
     cfg = llama3_config(SERVE_MODEL[0], **SERVE_MODEL[1])
@@ -1648,6 +1779,7 @@ def phase_serve():
     # the main path: every count set to 0 just before, read just after
     op_builder.reset_launches()
     pa.reset_form_launches()
+    reset_dispatch_counts()
     eng.stats.clear()
     t1 = time.perf_counter()
     outs = eng.generate(prompts, max_new_tokens=32)
@@ -1657,8 +1789,40 @@ def phase_serve():
     t2 = time.perf_counter()
     served = eng.serve(requests, max_new_tokens=budgets, max_concurrency=8)
     serve_s = time.perf_counter() - t2
+    # the decode megastep: the frontend's loop at K 8 on the same prompts
+    dec0 = dict(eng.stats["decode"])
+    t3 = time.perf_counter()
+    mega = _serve_loop(eng, prompts, 32, 8)
+    mega_s = time.perf_counter() - t3
+    mega_steps = eng.stats["decode"]["steps"] - dec0["steps"]
+    mega_dec_s = eng.stats["decode"]["seconds"] - dec0["seconds"]
     launches = dict(op_builder.launches)
     paged_forms = _paged_forms(eng.stats)
+    dispatch = dict(dispatch_counts)
+    graphs = _graphs(eng, "serve")
+    st = {k: dict(v, launches=dict(v["launches"]))
+          for k, v in eng.stats.items()}
+    assert dispatch["megastep_launches"] > 0, dispatch
+
+    # fused = stepwise in bf16 at full depth: generate's windows (31
+    # steps), the megastep's (8) and the stepwise loop give one stream
+    fused = [o[len(p):].tolist() for p, o in zip(prompts, outs)]
+    step = _serve_loop(eng, prompts, 32, 1)
+    assert fused == mega == step, "bf16: fused decode differs from stepwise"
+    # sampled: one window of 8 = two of 4 = the stepwise loop, from one
+    # generator state (each decode step draws once, replayed or not)
+    eng._temperature = 0.8
+    sampled = []
+    for k in (8, 4, 1):
+        eng._generator.manual_seed(11)
+        sampled.append(_serve_loop(eng, prompts[:4], 9, k,
+                                   mode=("sample", 0, False)))
+    assert sampled[0] == sampled[1] == sampled[2], sampled
+    traced = _profiled_window(eng, prompts, {
+        "paged_attn_split_kernel":
+            lambda: pa.form_launches["paged_attention"]["split"]})
+    assert traced["launches_traced_equal_counted"][
+        "paged_attn_split_kernel"] == cfg.num_layers * 8, traced
 
     for p, o in zip(prompts, outs):
         assert len(o) == len(p) + 32 and (o[:len(p)] == p).all()
@@ -1667,7 +1831,6 @@ def phase_serve():
         assert len(o) == len(p) + m and (o[:len(p)] == p).all()
     assert not eng.state.seqs
     assert eng.state.allocator.free_blocks == SERVE_BLOCKS, "pages leaked"
-    st = eng.stats
     for mode in ("fresh", "split", "decode"):
         assert mode in st, f"no {mode} step ran"
     assert st["fresh"]["launches"]["flash_attention_fwd"] > 0
@@ -1683,7 +1846,11 @@ def phase_serve():
     emit({"phase": "serve", "model": "llama3-" + SERVE_MODEL[0],
           "dtype": "bfloat16",
           "init_seconds": init_s, "generate_seconds": gen_s,
-          "serve_seconds": serve_s,
+          "serve_seconds": serve_s, "megastep_seconds": mega_s,
+          "megastep_decode_ms_per_step": 1e3 * mega_dec_s / mega_steps,
+          "fused_equals_stepwise": True, "sampled_8_equals_4_4": True,
+          "decode_graphs": graphs, "traced_window": traced,
+          "dispatch": dispatch,
           "generate_prefill_tok_s": _rate(("fresh", "split"), gen_stats),
           "generate_decode_tok_s": _rate(("decode",), gen_stats),
           "prefill_tok_s": _rate(("fresh", "split"), st),
@@ -1793,6 +1960,7 @@ def phase_serve_moe():
         launches = dict(op_builder.launches)
         forms = _grouped_forms(launches)
         paged_forms = _paged_forms(eng.stats)
+        graphs = _graphs(eng, name)
 
         for p, o in zip(prompts, outs):
             assert len(o) == len(p) + new and (o[:len(p)] == p).all()
@@ -1824,6 +1992,7 @@ def phase_serve_moe():
               "stats": st, "launches": launches,
               "grouped_launches_by_form": forms,
               "paged_launches_by_form": paged_forms,
+              "decode_graphs": graphs,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
         for k, v in launches.items():
             total[k] += v
@@ -2011,6 +2180,7 @@ def phase_serve_quant():
         forms = {k: dict(v) for k, v in tq.regime_launches.items()}
         shapes = {k: dict(v) for k, v in tq.shape_launches.items()}
         paged_forms = _paged_forms(eng.stats)
+        graphs = _graphs(eng, name)
 
         for p, o in zip(prompts, outs):
             assert len(o) == len(p) + new and (o[:len(p)] == p).all()
@@ -2041,7 +2211,14 @@ def phase_serve_quant():
             for key, c in shapes[k].items():
                 QUANT_SHAPE_LAUNCHES[k][key] = \
                     QUANT_SHAPE_LAUNCHES[k].get(key, 0) + c
-        st = eng.stats
+        st = {k: dict(v, launches=dict(v["launches"]))
+              for k, v in eng.stats.items()}
+        traced = _profiled_window(eng, prompts, {
+            "paged_attn_split_kernel":
+                lambda: pa.form_launches["paged_attention"]["split"],
+            "qmm_splitk_kernel":
+                lambda: tq.regime_launches[kernel]["splitk"]}) \
+            if mode == "int8" and not moe else None
         emit({"phase": "serve_quant", "model": name, "dtype": "bfloat16",
               "weight_quant": mode, "params": cfg.num_params(),
               "layers": cfg.num_layers, "weight_gb": weight_gb,
@@ -2060,6 +2237,7 @@ def phase_serve_quant():
               "launches_by_regime": forms,
               "launches_by_shape": shapes,
               "paged_launches_by_form": paged_forms,
+              "decode_graphs": graphs, "traced_window": traced,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
         for k, v in launches.items():
             total[k] += v
@@ -2558,6 +2736,7 @@ def main() -> int:
     phase_full_width()
     phase_full_width_moe()
     phase_full_width_quant()
+    phase_fused_fp32()
     paths = {"serve": phase_serve(), "serve_moe": phase_serve_moe(),
              "serve_quant": phase_serve_quant()}
     phase_train_full_width()

@@ -6,7 +6,18 @@ deepspeed/inference/v2/engine_v2.py:30). ``put`` runs forwards over ragged
 batches that mix prefill chunks and single-token decodes
 (Dynamic-SplitFuse scheduling, :mod:`deepspeed_tpu_torch.inference.ragged`);
 ``query``/``can_schedule`` expose capacity; ``flush`` releases finished
-sequences; ``generate``/``serve`` drive the stepwise decode loop.
+sequences; ``generate``/``serve`` prefill stepwise, then decode in fused
+windows of up to 32 steps, and ``step_with_budget(max_steps > 1)`` runs a
+pure-decode selection as one such window (the decode megastep).
+
+A decode window is one upload of a static state (tokens, positions, live
+rows, budgets, eos ids, the page table, the sampling scalars), then the
+same decode step run once per token, then one fetch of the sampled tokens
+and per-row counts. On a CUDA device the step is captured once per (row
+bucket, sampling mode) as a ``torch.cuda.CUDAGraph`` and replayed; a
+capture or replay that fails raises. On the CPU the step runs eagerly.
+When the arena cannot hold a whole window the loops go on one step at a
+time, as the JAX engine does.
 
 On a CUDA device the attention runs through the port's two hand-written
 kernels: paged attention (K2) for decode and for the history part of a
@@ -24,18 +35,16 @@ versions. Shapes are bucketed as in the JAX engine (rows to powers of two,
 chunk width to {1, prefill_chunk}) so the kernels see the reference's
 shapes.
 
-Not ported yet (each raises ``NotImplementedError``): expert parallelism
-and the decode megastep (``step_with_budget(max_steps > 1)``). The fused
-decode loop, the
-copy-on-write and page-export helpers and the telemetry hooks wait for
-later slices; per-mode step tallies and the kernels' launch counters
+Not ported yet: expert parallelism (raises ``NotImplementedError``), and
+the copy-on-write and page-export helpers and the telemetry hooks, which
+wait for later slices. Per-mode step tallies, :data:`dispatch_counts` and
+the kernels' launch counters
 (:data:`deepspeed_tpu_torch.ops.op_builder.launches`) stand in for the
 telemetry.
 """
-
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -180,11 +189,19 @@ def _bucket(n: int) -> int:
     return b
 
 
-def _sample_tokens(logits: torch.Tensor, mode, temperature: float,
-                   top_p: float, generator: torch.Generator) -> torch.Tensor:
+def _sample_tokens(logits: torch.Tensor, mode, temperature: torch.Tensor,
+                   top_p: torch.Tensor,
+                   generator: torch.Generator) -> torch.Tensor:
     """On-device sampling (engine_v2.py:174): mode ("argmax",) or
-    ("sample", top_k, use_top_p). Draws from ``generator``, so the numbers
-    differ from the JAX engine's; ``top_k=1`` equals argmax."""
+    ("sample", top_k, use_top_p); ``temperature`` and ``top_p`` are 0-d
+    fp32 tensors on the logits' device, so a captured step reads their
+    values at each replay. Draws from ``generator``, so the numbers differ
+    from the JAX engine's; ``top_k=1`` equals argmax.
+
+    The draw is ``torch.multinomial``'s own for one sample (the argmax of
+    probs / Exp(1) noise) without its validity check, which reads a value
+    back to the host and so cannot run inside a CUDA graph; it gives the
+    same tokens from the same generator state."""
     if mode[0] == "argmax":
         return torch.argmax(logits, dim=-1).to(torch.int32)
     _, top_k, use_top_p = mode
@@ -202,8 +219,99 @@ def _sample_tokens(logits: torch.Tensor, mode, temperature: float,
                               cutoff_idx.clamp_max(lg.shape[-1] - 1))
         lg = torch.where(lg < cutoff, neg, lg)
     probs = torch.softmax(lg, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0] \
-        .to(torch.int32)
+    noise = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return torch.argmax(probs / noise, dim=-1).to(torch.int32)
+
+
+class FusedDecodeUnavailable(RuntimeError):
+    """Raised when a fused decode window cannot serve a request
+    (engine_v2.py:196). ``doomed=True`` means the stepwise loop would
+    also fail (the window overruns max_seq_len with no early exit
+    possible), so the caller should error out cleanly instead of falling
+    back."""
+
+    def __init__(self, msg: str, doomed: bool = False):
+        super().__init__(msg)
+        self.doomed = doomed
+
+
+#: the JAX engine's ``dispatch/*`` counters (engine_v2.py:167) since the
+#: last :func:`reset_dispatch_counts`: host round trips of the engine
+#: steps and decode windows, decode steps run in windows, megastep
+#: windows and the tokens they emitted
+dispatch_counts: Dict[str, int] = {"host_calls": 0, "scan_steps": 0,
+                                   "megastep_launches": 0,
+                                   "megastep_tokens": 0}
+
+
+def reset_dispatch_counts() -> None:
+    for name in dispatch_counts:
+        dispatch_counts[name] = 0
+
+
+#: the side stream of each device that decode steps are warmed up and
+#: captured on, shared by every engine so that the kernels' buffers kept
+#: per (device, stream) are made once
+_CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream(device=index)
+    return _CAPTURE_STREAMS[index]
+
+
+class _DecodeState:
+    """The static device state of one (row bucket, sampling mode) decode
+    step: one int32 vector laid out as [tokens | starts | alive | budgets
+    | eos_ids | i | limit | temperature | top_p | page table | counts |
+    ys], each part a view of it (temperature and top_p are fp32 views).
+    A window uploads everything up to ``counts`` (zeros) in one copy and
+    fetches ``counts`` and ``ys[:limit]`` in one copy; ``ys`` has a row
+    for every step a window can take (max_seq_len), so a window of any
+    length needs no other state. On CUDA it also holds the step's graph
+    and what one replay adds to each launch counter."""
+
+    def __init__(self, nb: int, mb: int, max_steps: int,
+                 device: torch.device, trash_block: int):
+        self.nb = nb
+        o = 5 * nb
+        #: the uploaded head: the rows, the four scalars and the table
+        self.head = o + 4 + nb * mb
+        self.buf = torch.zeros(self.head + nb + max_steps * nb,
+                               dtype=torch.int32, device=device)
+        (self.tokens, self.starts, self.alive, self.budgets,
+         self.eos_ids) = self.buf[:o].view(5, nb).unbind(0)
+        self.i, self.limit = self.buf[o], self.buf[o + 1]
+        sampling = self.buf[o + 2:o + 4].view(torch.float32)
+        self.temperature, self.top_p = sampling[0], sampling[1]
+        self.page_table = self.buf[o + 4:self.head].view(nb, mb)
+        self.counts = self.buf[self.head:self.head + nb]
+        self.ys = self.buf[self.head + nb:].view(max_steps, nb)
+        # every row dead and every page the trash page: a step run before
+        # the first upload (warm-up, capture) writes no live KV
+        self.page_table.fill_(trash_block)
+        self.eos_ids.fill_(-1)
+        sampling.fill_(1.0)
+        self.graph = None
+        #: what one replay launches (``op_builder.recorded_launches``)
+        self.launches: Dict[tuple, int] = {}
+
+    def pack(self, tokens0, starts0, budgets, eos_ids, limit: int,
+             temperature: float, top_p: float,
+             page_table: np.ndarray) -> np.ndarray:
+        """The host image of the uploaded part for n <= nb live rows."""
+        nb, n = self.nb, len(tokens0)
+        rows = np.zeros((5, nb), np.int32)
+        rows[4] = -1
+        rows[:, :n] = [tokens0, starts0, [1] * n, budgets, eos_ids]
+        scalars = np.asarray([0, limit], np.int32)
+        sampling = np.asarray([temperature, top_p], np.float32).view(np.int32)
+        return np.concatenate([rows.ravel(), scalars, sampling,
+                               page_table.ravel(),
+                               np.zeros(nb, np.int32)])
 
 
 class RaggedInferenceEngine:
@@ -295,12 +403,25 @@ class RaggedInferenceEngine:
         self._moe_fn = serving_moe_fn(model, config.weight_quant,
                                       self.params, ep=False) \
             if model.num_experts else None
-        self._temperature = 1.0
-        self._top_p = 1.0
+        self._temperature = 1.0      # sampling scalars, uploaded with
+        self._top_p = 1.0            # each step's and window's inputs
         #: per forward mode ("fresh" | "split" | "decode"): steps, tokens
-        #: computed, host seconds (each step ends with its result fetch,
-        #: so they include the device time) and kernel launches
+        #: computed, host seconds (each step and each decode window ends
+        #: with its result fetch, so they include the device time; a
+        #: window's exclude its step's capture) and kernel launches (a
+        #: window's: its replays, and the warm-up before a capture)
         self.stats: Dict[str, Dict[str, Any]] = {}
+        #: decode windows' state by (row bucket, mode), with the captured
+        #: step on CUDA; every graph allocates from one pool
+        self._decode_states: Dict[Tuple[int, Any], _DecodeState] = {}
+        self._graph_pool = None
+        #: CUDA graphs captured, seconds spent capturing (warm-up
+        #: included), bytes of the graphs' pool after the last capture,
+        #: replays, and decode steps the loops ran stepwise because a
+        #: window did not fit the arena
+        self.graph_stats: Dict[str, Any] = {
+            "graphs": 0, "capture_seconds": 0.0, "pool_bytes": 0,
+            "replays": 0, "fallback_steps": 0}
         log_dist(f"ragged engine ready: blocks={config.num_blocks}x"
                  f"{config.block_size} kernels={self.use_pallas} "
                  f"dtype={config.dtype} device={self.device}")
@@ -396,23 +517,108 @@ class RaggedInferenceEngine:
                          eos_ids: Optional[Dict[int, int]] = None
                          ) -> Optional[Dict[int, Any]]:
         """One engine step packing at most ``budget`` tokens (None → the
-        scheduler's max_batch_tokens). Returns {uid: next_token_id} (or
-        {uid: logits} with mode=None) for rows whose pending tokens were
-        exhausted; None when idle. ``max_steps > 1`` (the decode megastep)
-        is not ported yet."""
-        if max_steps > 1:
-            raise NotImplementedError(
-                "the decode megastep (step_with_budget(max_steps > 1)) is "
-                "not ported to deepspeed_tpu_torch yet")
+        scheduler's max_batch_tokens), the serving frontend's entry point
+        (engine_v2.py:514). Returns {uid: next_token_id} (or {uid: logits}
+        with mode=None) for rows whose pending tokens were exhausted; None
+        when idle.
+
+        ``max_steps > 1`` arms the decode megastep: when the selection is
+        decode-only, up to ``max_steps`` single-token steps run as one
+        decode window (one upload and one fetch) and the return value
+        becomes ``{uid: [token, ...]}``, 1..K tokens a row, each already
+        backed by KV in the arena except the last, which the caller feeds
+        back as in the single-token contract. ``row_limits`` caps the
+        tokens a row may emit; ``eos_ids`` maps uid → eos token id so a
+        row retires inside the window. Mixed selections, ``mode=None``
+        and ``max_steps == 1`` take the stepwise path (lists still
+        returned when ``max_steps > 1`` was asked)."""
         batch = self.scheduler.next_batch(budget=budget)
         if batch is None:
             return None
+        megastep = max_steps > 1 and mode is not None
+        if megastep:
+            out = self._try_megastep(batch, max_steps, mode, row_limits,
+                                     eos_ids)
+            if out is not None:
+                return out
         res = self._run(batch, mode=mode)
         self.scheduler.mark_scheduled(batch)
         out = {}
         for i, uid in enumerate(batch.uids):
             if self.state.seqs[uid].pending == 0:
-                out[uid] = res[i] if mode is None else int(res[i])
+                if mode is None:
+                    out[uid] = res[i]
+                else:
+                    out[uid] = [int(res[i])] if megastep else int(res[i])
+        return out
+
+    def _try_megastep(self, batch: RaggedBatch, k: int, mode,
+                      row_limits: Optional[Dict[int, int]],
+                      eos_ids: Optional[Dict[int, int]]
+                      ) -> Optional[Dict[int, List[int]]]:
+        """Run ``batch`` as one decode window of up to ``k`` tokens a row
+        (engine_v2.py:561); None → not applicable, and the caller takes
+        the stepwise path with the batch already selected (selecting
+        twice would advance the SplitFuse round-robin twice).
+
+        Applicable iff the selection is pure decode: every row a
+        single-token chunk covering its whole pending queue. Serving
+        descriptors hold the fed token in ``seq.tokens``, so the window
+        starts at ``seq.seen_tokens``."""
+        n = len(batch.uids)
+        if n == 0 or batch.token_ids.shape[1] != 1:
+            return None
+        for i, uid in enumerate(batch.uids):
+            if int(batch.token_counts[i]) != 1 or \
+                    self.state.seqs[uid].pending != 1:
+                return None
+        # per-row window: k, clipped by the row's remaining budget and by
+        # the max_seq_len headroom (len(tokens) counts the fed token)
+        lim: List[int] = []
+        for uid in batch.uids:
+            seq = self.state.seqs[uid]
+            r = k
+            if row_limits is not None and uid in row_limits:
+                r = min(r, int(row_limits[uid]))
+            r = min(r, self.config.max_seq_len - len(seq.tokens))
+            if r < 1:
+                return None
+            lim.append(r)
+        limit = max(lim)
+        if limit < 2:
+            return None              # a one-step window: stepwise is that
+        bs = self.state.allocator.block_size
+        # KV high-water mark: seen_tokens rows exist, the window adds up
+        # to r more (the fed token and r - 1 fed back)
+        need = [-(-(self.state.seqs[uid].seen_tokens + r) // bs)
+                - len(self.state.seqs[uid].blocks)
+                for uid, r in zip(batch.uids, lim)]
+        if sum(need) > self.state.allocator.free_blocks:
+            return None
+        for uid, c in zip(batch.uids, need):
+            if c > 0:
+                self.state.seqs[uid].blocks.extend(
+                    self.state.allocator.allocate(c))
+        eos = [-1 if eos_ids is None or eos_ids.get(uid) is None
+               else int(eos_ids[uid]) for uid in batch.uids]
+        ys, counts = self._decode_window(
+            batch.uids, [self.state.seqs[u].tokens[-1] for u in batch.uids],
+            [self.state.seqs[u].seen_tokens for u in batch.uids], lim, eos,
+            limit, mode)
+        dispatch_counts["megastep_launches"] += 1
+        dispatch_counts["megastep_tokens"] += int(counts.sum())
+        self.scheduler.mark_scheduled(batch)          # fed token consumed
+        out: Dict[int, List[int]] = {}
+        for j, uid in enumerate(batch.uids):
+            emitted = [int(t) for t in ys[:counts[j], j]]
+            if len(emitted) > 1:
+                # every emitted token but the last has its KV in the
+                # arena: record them so seen == len(tokens) == KV rows;
+                # the caller feeds the last one back or retires the row
+                seq = self.state.seqs[uid]
+                seq.tokens.extend(emitted[:-1])
+                seq.seen_tokens = len(seq.tokens)
+            out[uid] = emitted
         return out
 
     def _buckets(self, batch: RaggedBatch):
@@ -439,11 +645,16 @@ class RaggedInferenceEngine:
         starts = np.zeros((nb,), np.int32)
         starts[:n] = batch.start_positions
         pt = self._page_table(batch.uids, nb)
-        # ONE host→device copy for the four integer inputs
+        sampling = np.asarray([self._temperature, self._top_p],
+                              np.float32).view(np.int32)
+        # ONE host→device copy for the integer inputs and the sampling
+        # scalars (fp32 bits)
         packed = torch.from_numpy(np.concatenate(
-            [tokens.ravel(), counts, starts, pt.ravel()])).to(self.device)
-        tok_d, cnt_d, st_d, pt_d = torch.split(
-            packed, [nb * cb, nb, nb, nb * self.mb])
+            [tokens.ravel(), counts, starts, pt.ravel(), sampling])) \
+            .to(self.device)
+        tok_d, cnt_d, st_d, pt_d, samp_d = torch.split(
+            packed, [nb * cb, nb, nb, nb * self.mb, 2])
+        samp_d = samp_d.view(torch.float32)
         before = dict(op_builder.launches)
         t0 = time.perf_counter()
         with torch.no_grad():
@@ -454,22 +665,228 @@ class RaggedInferenceEngine:
             if mode is None:
                 out = logits
             else:
-                out = _sample_tokens(logits, mode, self._temperature,
-                                     self._top_p, self._generator)
+                out = _sample_tokens(logits, mode, samp_d[0], samp_d[1],
+                                     self._generator)
             result = out.cpu().numpy()[:n]
+        dispatch_counts["host_calls"] += 1
         self._tally("decode" if fresh is False else fresh, t0,
                     int(batch.token_counts.sum()), before)
         return result
 
-    def _tally(self, kind: str, t0: float, tokens: int, before) -> None:
+    def _tally(self, kind: str, t0: float, tokens: int, before,
+               steps: int = 1) -> None:
         st = self.stats.setdefault(
             kind, {"steps": 0, "tokens": 0, "seconds": 0.0,
                    "launches": {k: 0 for k in op_builder.launches}})
-        st["steps"] += 1
+        st["steps"] += steps
         st["tokens"] += tokens
         st["seconds"] += time.perf_counter() - t0
         for k, v in op_builder.launches.items():
             st["launches"][k] += v - before[k]
+
+    # -- fused decode windows (engine_v2.py:784-1168) ----------------------
+
+    #: a generate/serve window decodes at most this many steps; rows retire
+    #: between windows
+    _FUSED_STEP_BUCKET = 32
+
+    def _decode_step(self, st: _DecodeState, mode) -> None:
+        """One decode step over the static state ``st``, in place: a
+        function of tensors alone, so a CUDA graph captured from it stays
+        right at every replay. The math of ``_fused_decode_fn_v1``
+        (engine_v2.py:985): a row is live while it is alive and
+        ``i < limit``; ``ragged_forward`` writes the live rows' KV into
+        the arena and attends through K2; a live row emits its sample and
+        retires after its eos or its last budgeted token.
+
+        The JAX engine's default loop (``_fused_decode_fn``) keeps new KV
+        in a side buffer and writes it back after the loop, only so that
+        XLA does not copy the arena through the scan carry; it is token-
+        and KV-identical to this one. The port updates the arena in
+        place, so that reason does not apply. Dead rows' samples land in
+        ``ys`` too; the host reads each row's first ``counts`` only."""
+        live = (st.alive != 0) & (st.i < st.limit)
+        live_i = live.to(torch.int32)
+        logits, self.arena = ragged_forward(
+            self.model_config, self.params, self.arena, st.tokens[:, None],
+            live_i, st.starts, st.page_table, moe_fn=self._moe_fn)
+        nxt = _sample_tokens(logits, mode, st.temperature, st.top_p,
+                             self._generator)
+        st.ys.index_copy_(0, st.i.view(1).long(), nxt[None])
+        st.counts.add_(live_i)
+        st.starts.add_(live_i)
+        st.alive.copy_(live & (nxt != st.eos_ids) & (st.counts < st.budgets))
+        st.tokens.copy_(nxt)
+        st.i.add_(1)
+
+    def _decode_state(self, nb: int, mode) -> _DecodeState:
+        """The state of (nb, mode), made at first use; on CUDA its step is
+        captured then."""
+        st = self._decode_states.get((nb, mode))
+        if st is None:
+            st = _DecodeState(nb, self.mb, self.config.max_seq_len,
+                              self.device, self.config.num_blocks)
+            if self.device.type == "cuda":
+                self._capture(st, mode)
+            self._decode_states[(nb, mode)] = st
+        return st
+
+    def _capture(self, st: _DecodeState, mode) -> None:
+        """Capture ``st``'s decode step as a CUDA graph. A warm-up step on
+        the capture stream first builds the kernels and makes that
+        stream's K2/K5 split buffers, which the graph then keeps. Both run
+        with every row dead, and the sampler's generator state is put
+        back after them, so they write no live KV and take no draw a
+        replay would repeat. Capture launches nothing: what it would
+        have counted is recorded (``op_builder.recorded_launches``), and
+        each replay counts it."""
+        t0 = time.perf_counter()
+        side = _capture_stream(self.device)
+        rng_state = self._generator.get_state()
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        graph = torch.cuda.CUDAGraph()
+        if mode[0] == "sample":
+            # every replay advances the generator as the eager step does
+            graph.register_generator_state(self._generator)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        with torch.no_grad():
+            with torch.cuda.stream(side):
+                self._decode_step(st, mode)
+            with op_builder.recorded_launches() as record, \
+                    torch.cuda.graph(graph, pool=self._graph_pool,
+                                     stream=side):
+                self._decode_step(st, mode)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        st.launches = record
+        self._generator.set_state(rng_state)
+        st.graph = graph
+        pool = tuple(self._graph_pool)
+        self.graph_stats["pool_bytes"] = sum(
+            seg["total_size"] for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id", ())) == pool)
+        self.graph_stats["graphs"] += 1
+        self.graph_stats["capture_seconds"] += time.perf_counter() - t0
+
+    def _decode_window(self, uids: List[int], tokens0, starts0, budgets,
+                       eos_ids, limit: int, mode):
+        """Decode ``limit`` steps over ``uids`` (pages for the window
+        already allocated) from fed tokens ``tokens0`` at positions
+        ``starts0``, row j retiring after ``budgets[j]`` tokens or after
+        sampling ``eos_ids[j]`` (-1: none). One upload, ``limit`` replays
+        of the captured step (eager steps on the CPU), one fetch. Returns
+        ``(ys [limit, n], counts [n])``: row j emitted ``ys[:counts[j],
+        j]`` and wrote that many KV rows."""
+        n, nb = len(uids), _bucket(len(uids))
+        before = dict(op_builder.launches)
+        st = self._decode_state(nb, mode)
+        # the full page-table width, as the stepwise step: the captured
+        # step launches exactly the stepwise step's kernels and plans
+        host = st.pack(tokens0, starts0, budgets, eos_ids, limit,
+                       self._temperature, self._top_p,
+                       self._page_table(uids, nb))
+        t0 = time.perf_counter()
+        st.buf[:len(host)].copy_(torch.from_numpy(host))
+        if st.graph is not None:
+            for _ in range(limit):
+                st.graph.replay()
+            self.graph_stats["replays"] += limit
+            op_builder.add_launches(st.launches, limit)
+        else:
+            with torch.no_grad():
+                for _ in range(limit):
+                    self._decode_step(st, mode)
+        out = st.buf[st.head:st.head + nb * (limit + 1)].cpu().numpy()
+        counts = out[:n].copy()
+        dispatch_counts["host_calls"] += 1
+        dispatch_counts["scan_steps"] += limit
+        self._tally("decode", t0, int(counts.sum()), before, steps=limit)
+        return out[nb:].reshape(limit, nb)[:, :n], counts
+
+    def _fused_decode(self, uids: List[int], first_tokens: List[int],
+                      steps: int, mode,
+                      budgets: Optional[List[int]] = None,
+                      eos_token_id: Optional[int] = None):
+        """Pre-allocate KV pages for a decode window of ``steps`` steps,
+        then run it (engine_v2.py:1012). The fed tokens ``first_tokens``
+        are not in the descriptors yet (generate's convention), so row j
+        starts at ``len(seq.tokens)``. Returns ``(tok_mat [steps, n],
+        counts [n])``; rows stop early on their ``budgets[j]`` or on
+        sampling ``eos_token_id``. Raises FusedDecodeUnavailable when
+        max_seq_len (doomed=True: the stepwise loop would overrun it too)
+        or the free pages (doomed=False: go on stepwise) cannot cover the
+        window."""
+        n = len(uids)
+        if n == 0:
+            raise FusedDecodeUnavailable("empty batch")
+        bs = self.state.allocator.block_size
+        # a row never runs past its own budget, so its pages (and the
+        # doomed check) cover min(steps, budget) only
+        eff = [steps if budgets is None else min(steps, int(budgets[j]))
+               for j in range(n)]
+        need: List[int] = []
+        for u, e in zip(uids, eff):
+            seq = self.state.seqs[u]
+            final = len(seq.tokens) + e
+            if final > self.config.max_seq_len:
+                raise FusedDecodeUnavailable(
+                    f"sequence {u} would reach {final} tokens, over "
+                    f"max_seq_len={self.config.max_seq_len}", doomed=True)
+            need.append(-(-final // bs) - len(seq.blocks))
+        if sum(need) > self.state.allocator.free_blocks:
+            raise FusedDecodeUnavailable("KV arena too full to pre-"
+                                         "allocate the decode window")
+        for u, k in zip(uids, need):
+            if k > 0:
+                self.state.seqs[u].blocks.extend(
+                    self.state.allocator.allocate(k))
+        eos = -1 if eos_token_id is None else int(eos_token_id)
+        return self._decode_window(
+            uids, first_tokens, [len(self.state.seqs[u].tokens)
+                                 for u in uids], eff, [eos] * n, steps,
+            mode)
+
+    def _run_fused_chunk(self, active: List[int], cur_tok: Dict[int, int],
+                         remaining: Dict[int, int],
+                         seqs: Dict[int, list], eos_token_id, mode):
+        """One decode window over ``active`` rows, then consume its tokens
+        and retire finished sequences (engine_v2.py:1126). Mutates
+        cur_tok/remaining/seqs; returns (still_active, None), or (active,
+        exc) when the window is unavailable."""
+        chunk = min(self._FUSED_STEP_BUCKET,
+                    max(remaining[u] for u in active))
+        try:
+            tok_mat, _counts = self._fused_decode(
+                active, [cur_tok[u] for u in active], chunk, mode,
+                budgets=[remaining[u] for u in active],
+                eos_token_id=eos_token_id)
+        except FusedDecodeUnavailable as e:
+            return active, e
+        still: List[int] = []
+        for j, u in enumerate(active):
+            take = min(chunk, remaining[u])
+            done = remaining[u] <= chunk
+            fed = cur_tok[u]
+            for s_i in range(take):
+                t = int(tok_mat[s_i, j])
+                seqs[u].append(t)
+                remaining[u] -= 1
+                if eos_token_id is not None and t == eos_token_id:
+                    done = True
+                    break
+            if done:
+                self.flush(u)
+            else:
+                # the window's KV is in the arena already: advance the
+                # descriptor by the fed token and all but the last sampled
+                # one, which seeds the next window
+                seq = self.state.seqs[u]
+                seq.tokens.extend([fed] + [int(t) for t in
+                                           tok_mat[:chunk - 1, j]])
+                seq.seen_tokens = len(seq.tokens)
+                still.append(u)
+                cur_tok[u] = int(tok_mat[chunk - 1, j])
+        return still, None
 
     # -- convenience serving loops -----------------------------------------
 
@@ -510,8 +927,9 @@ class RaggedInferenceEngine:
         """Continuous-batching server loop over a request stream
         (engine_v2.py:1170): at most ``max_concurrency`` sequences are
         resident and a queued request is admitted the moment a slot frees.
-        Decode runs stepwise, one token per active row per step. Returns
-        full sequences in input order."""
+        Between admissions the active rows decode in fused windows of up
+        to 32 steps (one step at a time when the arena cannot hold a
+        window). Returns full sequences in input order."""
         mode = self._mode(temperature, top_k, top_p)
         n = len(prompts)
         if isinstance(max_new_tokens, (int, np.integer)):
@@ -556,13 +974,20 @@ class RaggedInferenceEngine:
                                             eos_token_id)
                 if not active:
                     continue
-                pending = self._put_tokens(
-                    active, [[cur_tok[u]] for u in active], mode)
-                still: List[int] = []
-                for u in active:
-                    self._consume_first(u, pending[u], seqs, remaining,
-                                        cur_tok, still, eos_token_id)
-                active = still
+                active, err = self._run_fused_chunk(
+                    active, cur_tok, remaining, seqs, eos_token_id, mode)
+                if err is not None:
+                    # one stepwise token per active row, then back to the
+                    # top: slots may free and the arena may drain
+                    self.graph_stats["fallback_steps"] += 1
+                    pending = self._put_tokens(
+                        active, [[cur_tok[u]] for u in active], mode)
+                    still: List[int] = []
+                    for u in active:
+                        self._consume_first(u, pending[u], seqs,
+                                            remaining, cur_tok, still,
+                                            eos_token_id)
+                    active = still
         except Exception:
             for u in list(self.state.seqs):
                 if u >= base:
@@ -577,10 +1002,12 @@ class RaggedInferenceEngine:
         """Continuous-batching generation (engine_v2.py:1267; greedy by
         default, temperature/top-k/top-p sampled on the device).
         ``prompts`` is a list of 1-D int arrays of ragged lengths;
-        ``max_new_tokens`` may be per sequence. Sequences leave the batch
-        as they finish. Decode runs the stepwise loop (the JAX engine's
-        ``DSTPU_NO_FUSED_DECODE`` path, token-identical to its fused loop
-        under greedy). Returns the full token sequences."""
+        ``max_new_tokens`` may be per sequence. After the prefill, decode
+        runs in fused windows of up to 32 steps and finished sequences
+        retire between windows. When the arena cannot hold a window the
+        rest runs one step at a time; when a window would overrun
+        max_seq_len with no eos to stop it, ``ValueError`` is raised and
+        no page is kept. Returns the full token sequences."""
         mode = self._mode(temperature, top_k, top_p)
         base = max(self.state.seqs.keys(), default=-1) + 1
         uids = [base + i for i in range(len(prompts))]
@@ -599,6 +1026,13 @@ class RaggedInferenceEngine:
         remaining = dict(budgets)
         try:
             pending = self._put_tokens(uids, [seqs[u] for u in uids], mode)
+            fused = bool(uids) and len(pending) == len(uids) \
+                and max(remaining.values(), default=0) > 1
+            if fused:
+                pending = self._generate_fused(uids, pending, seqs,
+                                               remaining, eos_token_id,
+                                               mode)
+            # stepwise: append each pending token, retire or feed it
             while pending:
                 active_uids, toks = [], []
                 for u, t in list(pending.items()):
@@ -613,6 +1047,8 @@ class RaggedInferenceEngine:
                         toks.append([t])
                 if not active_uids:
                     break
+                if fused:
+                    self.graph_stats["fallback_steps"] += 1
                 pending = self._put_tokens(active_uids, toks, mode)
         except Exception:
             # a failure mid-loop must not leak this call's pages/slots
@@ -621,3 +1057,35 @@ class RaggedInferenceEngine:
                     self.flush(u)
             raise
         return [np.asarray(seqs[u], np.int32) for u in uids]
+
+    def _generate_fused(self, uids: List[int], pending: Dict[int, int],
+                        seqs, remaining, eos_token_id, mode
+                        ) -> Dict[int, int]:
+        """generate's fused path (engine_v2.py:1309-1356): consume the
+        prefill's tokens, then run decode windows until every row retires.
+        Returns the rows left for the stepwise loop, {uid: token not yet
+        appended}: empty when the windows finished the work, else the
+        active rows when the arena could not hold a window."""
+        active: List[int] = []
+        cur_tok: Dict[int, int] = {}
+        for u in uids:
+            self._consume_first(u, pending[u], seqs, remaining, cur_tok,
+                                active, eos_token_id)
+        while active:
+            active, err = self._run_fused_chunk(
+                active, cur_tok, remaining, seqs, eos_token_id, mode)
+            if err is None:
+                continue
+            if err.doomed and eos_token_id is None:
+                # the stepwise loop would hit the same wall mid-generation
+                raise ValueError(f"generate(): {err}; lower max_new_tokens "
+                                 f"or raise max_seq_len") from err
+            log_dist(f"fused decode unavailable ({err}); using the "
+                     f"stepwise loop")
+            # the stepwise loop appends its pending tokens itself: take
+            # the still-unfed ones back out of seqs
+            for u in active:
+                seqs[u].pop()
+                remaining[u] += 1
+            return {u: cur_tok[u] for u in active}
+        return {}

@@ -256,8 +256,10 @@ def rope_table(cfg: DecoderConfig, positions: torch.Tensor
     half = cfg.rope_dim // 2
     exps = -torch.arange(0, half, dtype=torch.float32,
                          device=positions.device) / half
-    freqs = torch.pow(torch.tensor(cfg.rope_theta, dtype=torch.float32,
-                                   device=positions.device), exps)
+    # the base is filled on the device, not copied from the host, so that a
+    # decode step captured as a CUDA graph can take the table
+    freqs = torch.pow(torch.full((), cfg.rope_theta, dtype=torch.float32,
+                                 device=positions.device), exps)
     angles = positions[..., None].float() * freqs
     return torch.sin(angles), torch.cos(angles)
 

@@ -94,6 +94,10 @@ form_launches: Dict[str, Dict[str, int]] = {
     k: {f: 0 for f in FORMS} for k in PLANNED}
 
 
+op_builder.register_counters("grouped_matmul.form_launches",
+                             form_launches)
+
+
 def reset_form_launches() -> None:
     for counts in form_launches.values():
         for f in counts:

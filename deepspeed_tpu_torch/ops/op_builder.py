@@ -14,6 +14,8 @@ Every C entry point returns ``cudaGetLastError()`` after its launch, and
 :func:`check` raises when that is not ``cudaSuccess``.
 """
 
+import contextlib
+import copy
 import ctypes
 import hashlib
 import os
@@ -160,3 +162,73 @@ launches: Dict[str, int] = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+#: every launch counter the wrappers keep, by name: :data:`launches` and
+#: the ops modules' counts by form or shape (:func:`register_counters`),
+#: so that :func:`recorded_launches` and :func:`add_launches` reach them
+#: all without naming them
+_COUNTERS: Dict[str, dict] = {"op_builder.launches": launches}
+
+
+def register_counters(name: str, counters: dict) -> None:
+    """Register a module's launch counter ``counters`` (a dict of ints, or
+    of such dicts) under ``name``: a launch recorded inside
+    :func:`recorded_launches` is recorded there too."""
+    _COUNTERS[name] = counters
+
+
+def _flat(counters: dict, path: tuple = ()):
+    for k, v in counters.items():
+        if isinstance(v, dict):
+            yield from _flat(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def _counts() -> Dict[tuple, int]:
+    return {(name,) + p: v for name, c in _COUNTERS.items()
+            for p, v in _flat(c)}
+
+
+def _put_back(counters: dict, saved: dict) -> None:
+    """Make ``counters`` equal ``saved`` in place: callers keep references
+    to the inner dicts."""
+    for k in [k for k in counters if k not in saved]:
+        del counters[k]
+    for k, v in saved.items():
+        if isinstance(v, dict):
+            _put_back(counters.setdefault(k, {}), v)
+        else:
+            counters[k] = v
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """Record instead of count: yields a dict that, once the block ends,
+    maps each counter that grew inside it (a path: the registered name,
+    then its keys) to its growth; every counter is then put back as it
+    was. A CUDA graph's capture goes inside, since capture launches
+    nothing; each replay then runs what the record holds
+    (:func:`add_launches`)."""
+    before = _counts()
+    saved = {name: copy.deepcopy(c) for name, c in _COUNTERS.items()}
+    record: Dict[tuple, int] = {}
+    try:
+        yield record
+    finally:
+        record.update({p: v - before.get(p, 0)
+                       for p, v in _counts().items()
+                       if v != before.get(p, 0)})
+        for name, c in _COUNTERS.items():
+            _put_back(c, saved[name])
+
+
+def add_launches(record: Dict[tuple, int], times: int = 1) -> None:
+    """Count ``times`` runs of the launches in ``record`` (made by
+    :func:`recorded_launches`): ``times`` replays of a captured graph."""
+    for path, grown in record.items():
+        counters = _COUNTERS[path[0]]
+        for k in path[1:-1]:
+            counters = counters.setdefault(k, {})
+        counters[path[-1]] = counters.get(path[-1], 0) + grown * times

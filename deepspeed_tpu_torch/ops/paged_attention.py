@@ -289,6 +289,10 @@ form_launches: Dict[str, Dict[str, int]] = {
     "paged_attention": {f: 0 for f in FORMS}}
 
 
+op_builder.register_counters("paged_attention.form_launches",
+                             form_launches)
+
+
 def reset_form_launches() -> None:
     for counts in form_launches.values():
         for f in counts:

@@ -295,6 +295,10 @@ regime_launches: Dict[str, Dict[str, int]] = {
 #: launches of each kernel by form and weight shape since the last reset,
 #: keyed "<form> <K>x<N>" (with " G<groups>" for the batched experts)
 shape_launches: Dict[str, Dict[str, int]] = {k: {} for k in _ENTRY}
+op_builder.register_counters("quantized_linear.regime_launches",
+                             regime_launches)
+op_builder.register_counters("quantized_linear.shape_launches",
+                             shape_launches)
 
 
 def reset_regime_launches() -> None:

@@ -5,9 +5,11 @@ CPU (XLA path, fp32, tiny Llama-3, prefill_chunk=8, prompts of lengths
 
 Tolerance: logits within 2e-4 (fp32; the frameworks sum in different
 orders through two layers). Greedy tokens must be identical. The JAX
-engine runs its stepwise decode loop (DSTPU_NO_FUSED_DECODE), which is
-what the port runs; tests/test_paged.py shows it token-identical to the
-fused loop.
+engine runs its stepwise decode loop (DSTPU_NO_FUSED_DECODE) here, so
+these tests hold the port's generate/serve, which decode in fused windows
+(eager steps on the CPU), against JAX's stepwise loop;
+tests/test_torch_fused_decode.py holds them against JAX's fused loop and
+megastep.
 """
 
 import dataclasses

@@ -16,6 +16,7 @@ from deepspeed_tpu_torch import (RaggedInferenceEngine, initialize,
                                  llama3_config)
 from deepspeed_tpu_torch.accelerator.real_accelerator import get_device
 from deepspeed_tpu_torch.ops import op_builder
+from deepspeed_tpu_torch.parallel.moe import serving_moe_fn
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -101,9 +102,12 @@ def test_unported_features_raise(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         initialize(moe, dropless)
+    # the decode megastep is ported (an idle engine has no step to run);
+    # expert parallelism is not
     eng = RaggedInferenceEngine(cfg, small, device="cpu")
-    with pytest.raises(NotImplementedError, match="megastep"):
-        eng.step_with_budget(max_steps=4)
+    assert eng.step_with_budget(max_steps=4) is None
+    with pytest.raises(NotImplementedError, match="expert parallelism"):
+        serving_moe_fn(moe, None, eng.params, ep=True)
 
 
 def test_builder_raises_without_nvcc(monkeypatch, tmp_path):

@@ -4,21 +4,25 @@
 Builds the ragged engine for one model of ``MODELS`` (bf16, random
 weights from a seeded generator, the arena of ``chip_smoke.py``),
 prefills a batch of prompts (``batch`` x ``prompt`` tokens) and decodes
-greedily (``decode`` steps) through ``step_with_budget`` (the serving
-frontend's entry point). After a warm-up it runs one prefill window and
-one decode window twice: untraced, and under ``torch.profiler``. For each
-window it prints one JSON line: the untraced wall time per step, and from
-the traced run alone the wall time per step, the device time per step by
-class and the device's idle share, 1 - device time / wall time of that
-same traced window (one stream, so the device time cannot exceed the wall
-time). The full per-kernel tables go to
+greedily through ``step_with_budget`` (the serving frontend's entry
+point): ``decode`` steps one at a time (the stepwise window), then one
+decode megastep of as many tokens a row, ``step_with_budget(max_steps=
+decode)``: one window of ``decode`` replays of the captured decode step,
+with one upload and one fetch. After a warm-up (which also captures the decode
+step) it runs the prefill window and the two decode windows twice:
+untraced, and under ``torch.profiler``. For each window it prints one JSON
+line: the untraced wall time per step, and from the traced run alone the
+wall time per step, the device time per step by class and the device's
+idle share, 1 - device time / wall time of that same traced window (one
+stream, so the device time cannot exceed the wall time). A decode step
+emits one token a row, so the two decode lines compare the same tokens. The full per-kernel tables go to
 ``chiprun_out/torch_serving_profile_<model>.txt``.
 
 Models: ``llama3-8b`` (the default: 8 prompts of 1024 tokens, 16 decode
 steps) and ``mixtral-16L`` (Mixtral 8x7B at full width and 16 of its 32
 layers: 8 prompts of 256 tokens, so the prefill window is ONE step of
-2048 tokens through the dropless FFN, then ONE decode step through the
-capacity FFN); ``qwen1.5-moe`` (Qwen1.5-MoE-A2.7B, full, the same two
+2048 tokens through the dropless FFN, then 16 decode steps through the
+capacity FFN); ``qwen1.5-moe`` (Qwen1.5-MoE-A2.7B, full, the same
 windows); ``mixtral-32L-int8`` (Mixtral 8x7B at full width and all 32
 layers, which fits one card only quantized: 2 prompts of 256 tokens, so
 the prefill window is ONE 512-token step, then 4 decode steps, both
@@ -58,9 +62,9 @@ import numpy as np
 #: tokens, decode steps in the decode window, tokens per step)
 MODELS = {
     "llama3-8b": ("llama3", "8b", {}, 512, 8, 1024, 16, 2048),
-    "mixtral-16L": ("mixtral", "8x7b", {"num_layers": 16}, 512, 8, 256, 1,
+    "mixtral-16L": ("mixtral", "8x7b", {"num_layers": 16}, 512, 8, 256, 16,
                     2048),
-    "qwen1.5-moe": ("qwen2_moe", "a2.7b", {}, 128, 8, 256, 1, 2048),
+    "qwen1.5-moe": ("qwen2_moe", "a2.7b", {}, 128, 8, 256, 16, 2048),
     "mixtral-32L-int8": ("mixtral", "8x7b", {}, 256, 2, 256, 4, 512),
 }
 #: the models a bf16 tree of does not fit one 80 GB card
@@ -213,8 +217,9 @@ def main() -> int:
 def _profile(engine_cls, cfg, model, quant, smi, blocks, batch, prompt_len,
              decode_steps, step_tokens) -> None:
     """Build one engine (``quant`` "none": the engine dtype), warm it up,
-    then time and trace one prefill and one decode window; prints their
-    lines and writes the per-kernel tables."""
+    then time and trace one prefill window, one stepwise decode window and
+    one megastep window; prints their lines and writes the per-kernel
+    tables."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.reset_peak_memory_stats()
@@ -251,6 +256,15 @@ def _profile(engine_cls, cfg, model, quant, smi, blocks, batch, prompt_len,
             cur, _ = run({u: [t] for u, t in cur.items()})
         return cur
 
+    def mega(cur):
+        """Feed each row's token and run ONE megastep of ``decode_steps``
+        tokens a row; returns {uid: its last token}."""
+        eng.scheduler.put(list(cur), [[t] for t in cur.values()])
+        out = eng.step_with_budget(mode=("argmax",), max_steps=decode_steps)
+        assert sorted(out) == sorted(cur) and all(
+            len(t) == decode_steps for t in out.values()), out
+        return {u: t[-1] for u, t in out.items()}
+
     def flush_all():
         for u in list(eng.state.seqs):
             eng.flush(u)
@@ -266,23 +280,29 @@ def _profile(engine_cls, cfg, model, quant, smi, blocks, batch, prompt_len,
     # window untraced, and traced: the traced window gives both the wall
     # time and the device time of the idle share
     cur, _ = prefill(0)
-    decode(cur, 3)
+    mega(decode(cur, 3))               # captures the decode step
     flush_all()
     (cur, steps_p), bare_p = timed(lambda: prefill(100))
-    _, bare_d = timed(lambda: decode(cur, decode_steps))
+    cur, bare_d = timed(lambda: decode(cur, decode_steps))
+    _, bare_m = timed(lambda: mega(cur))
     flush_all()
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof_p:
         (cur, _), wall_p = timed(lambda: prefill(200))
     with profile(activities=acts) as prof_d:
-        _, wall_d = timed(lambda: decode(cur, decode_steps))
+        cur, wall_d = timed(lambda: decode(cur, decode_steps))
+    with profile(activities=acts) as prof_m:
+        _, wall_m = timed(lambda: mega(cur))
     flush_all()
 
     res_p, rows_p = _window(prof_p, wall_p, bare_p, steps_p,
                             batch * prompt_len, "prefill")
     res_d, rows_d = _window(prof_d, wall_d, bare_d, decode_steps,
                             batch * decode_steps, "decode")
-    for res in (res_p, res_d):
+    res_m, rows_m = _window(prof_m, wall_m, bare_m, decode_steps,
+                            batch * decode_steps, "decode_megastep")
+    res_m["graphs"] = dict(eng.graph_stats)
+    for res in (res_p, res_d, res_m):
         res.update(card=smi, model=model, weight_quant=quant, batch=batch,
                    prompt_len=prompt_len,
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -290,7 +310,8 @@ def _profile(engine_cls, cfg, model, quant, smi, blocks, batch, prompt_len,
     os.makedirs("chiprun_out", exist_ok=True)
     name = model if quant == "none" else f"{model}_{quant}"
     with open(f"chiprun_out/torch_serving_profile_{name}.txt", "w") as f:
-        for label, rows in (("prefill", rows_p), ("decode", rows_d)):
+        for label, rows in (("prefill", rows_p), ("decode", rows_d),
+                            ("decode_megastep", rows_m)):
             f.write(f"== {label} ({smi}) device us, calls, kernel\n")
             for dev_us, count, key in rows[:40]:
                 f.write(f"{dev_us:12.1f} {count:7d}  {key[:150]}\n")
