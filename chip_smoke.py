@@ -13,7 +13,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    decode, n 16 and the dense batch of 8, Qwen1.5-MoE's g 1, a page table
    as wide as max_seq_len so that splits start past ctx, an empty row; its
    mma form on 256-token chunks and the split-prefill history at the
-   serving profile's shape; both at bs 16 and the mma form at dh 64; the
+   serving profile's shape; both forms at a radix prefix-cache hit's
+   shape, histories of 1000-1512 keys that end mid-page, the first 7
+   pages of every row aliased and the 8th a copy-on-write copy with junk
+   past the history; both at bs 16 and the mma form at dh 64; the
    split form on 16-row chunks whose rows end in different splits, in
    bf16 and fp32; each case asserts the form it took), in fp32 at a
    4000-token decode and at small fp32 shapes (flash attention at small
@@ -84,7 +87,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    and sampled, one window of 8 the same tokens as two of 4 and as the
    stepwise loop; one megastep window under ``torch.profiler`` shows the
    card ran as many K2 kernels as the replays counted (and, in the int8
-   run below, as many K5 split-K kernels); then
+   run below, as many K5 split-K kernels); then, on the same engine, the
+   serving front end (``ServingFrontend``) on bench_inference.py's
+   shared-prefix stream (a warm 1000-token prefix, then 24 requests of it
+   plus 128-700 unique tokens, decode megasteps of 8) with the radix
+   prefix cache on and off: the cache reuses 24 x 1000 tokens through 24
+   copy-on-write pages, the prefill tokens computed fall by exactly that,
+   every request ends on its budget, decode windows replay graphs with no
+   window forced stepwise, K2 takes the split form at decode and the mma
+   form over the adopted histories, every page comes back, and a
+   copy-on-write hit's last-token logits sit within the bf16 spread of
+   two cold prefills (requests/s, TTFT, TPOT, the pump's host ms a
+   window and the streams identical on and off printed); in fp32 at
+   depth 2 the front end gives ``generate``'s tokens with the cache on and
+   off, and a handoff bundle adopted by a second engine serves the same
+   tokens from its pages; then
    Mixtral 8x7B at full width and 16 of its 32 layers (``generate`` on 8
    prompts of 256-1024 tokens, whose first step of 8 x 256 tokens runs the
    grouped kernels, and ``serve`` on 16 requests) and Qwen1.5-MoE-A2.7B at
@@ -190,7 +207,7 @@ def bound(nbytes: float, flops: float, dtype: str):
 # ---------------------------------------------------------------------------
 
 def _paged_case(rng, n, c, h, kvh, dh, bs, starts, counts, dtype, dev,
-                serve_arena=False, mb=None):
+                serve_arena=False, mb=None, shared=0):
     """Random K/V and a page table listing each row's pages in a shuffled
     order. By default the arena holds one layer of just the pages the rows
     need. With ``serve_arena`` it is the serving phase's own arena
@@ -199,7 +216,12 @@ def _paged_case(rng, n, c, h, kvh, dh, bs, starts, counts, dtype, dev,
     them out: at Llama-3 8B's shape that region of the last kv head lies
     past element 2**31 of the K/V tensors. ``mb``: the page table's width
     (default: the longest row's pages), padded with the trash block as the
-    engine pads its table to max_seq_len."""
+    engine pads its table to max_seq_len. ``shared`` (serve_arena only):
+    the first ``shared`` entries of every row name the SAME physical pages
+    (a prefix-cache hit aliases them), and each row's next page is a
+    private copy (``copy_pages``, as ``cow_block`` makes it) of row 0's,
+    so that past a history ending mid-page it holds the inserter's
+    junk."""
     import torch
     from deepspeed_tpu_torch import llama3_config
     from deepspeed_tpu_torch.ops.paged_attention import (init_arena,
@@ -219,8 +241,10 @@ def _paged_case(rng, n, c, h, kvh, dh, bs, starts, counts, dtype, dev,
         for a in (ak, av):             # the last layer's region, trash too
             a[:, off:off + nb + 1] = torch.randn(
                 (kvh, nb + 1, bs, dh), generator=g, device=dev).to(dtype)
-        ids = nb - 1 - rng.permutation(sum(need))
+        distinct = sum(need) - (n - 1) * shared
+        ids = nb - 1 - rng.permutation(distinct)
     else:
+        assert not shared
         nb, off = sum(need), 0
         ak = torch.randn((kvh, nb + 1, bs, dh), generator=g,
                          device=dev).to(dtype)
@@ -228,10 +252,16 @@ def _paged_case(rng, n, c, h, kvh, dh, bs, starts, counts, dtype, dev,
                          device=dev).to(dtype)
         ids = rng.permutation(nb)
     pt = np.full((n, mb), nb, np.int64)
-    at = 0
+    pt[:, :shared] = ids[:shared]
+    at = shared
     for i, m in enumerate(need):
-        pt[i, :m] = ids[at:at + m]
-        at += m
+        assert m > shared
+        pt[i, shared:m] = ids[at:at + m - shared]
+        at += m - shared
+    if shared:
+        from deepspeed_tpu_torch.ops.paged_attention import copy_pages
+        copy_pages({"k": ak, "v": av}, [int(pt[0, shared])] * (n - 1),
+                   [int(x) for x in pt[1:, shared]], layers)
     pt += off
     q = torch.randn((n, c, h, dh), generator=g, device=dev).to(dtype)
     ints = [torch.from_numpy(np.asarray(a, np.int32)).to(dev)
@@ -291,16 +321,17 @@ def _hold(name, out, ref_out, lse, ref_lse, res) -> None:
 
 
 def check_paged(name, rng, n, c, starts, counts, dtype, with_lse, dims,
-                form, time_it=True, serve_arena=False, mb=None):
+                form, time_it=True, serve_arena=False, mb=None, shared=0):
     """Hold K2 against ``paged_attention_ref`` on one case and assert that
-    the launch took ``form`` (its plan goes into the line)."""
+    the launch took ``form`` (its plan goes into the line). ``shared``:
+    aliased prefix pages (``_paged_case``)."""
     import torch
     from deepspeed_tpu_torch.ops import paged_attention as pa
     h, kvh, dh, bs = dims
     dev = torch.device(DEV)
     q, ak, av, (pt, st, ct), ctx = _paged_case(
         rng, n, c, h, kvh, dh, bs, starts, counts, dtype, dev, serve_arena,
-        mb)
+        mb, shared)
     pl = pa.plan(n, c, h, kvh, dh, bs, pt.shape[1], dtype)
     assert pl.form == form, (name, pl)
     forms = pa.form_launches["paged_attention"]
@@ -322,7 +353,7 @@ def check_paged(name, rng, n, c, starts, counts, dtype, with_lse, dims,
            "plan": {"form": pl.form, "splits": pl.splits,
                     "split_keys": pl.split_keys, "grid": list(pl.grid)},
            "shape": {"n": n, "c": c, "H": h, "KvH": kvh, "dh": dh, "bs": bs,
-                     "mb": int(pt.shape[1]),
+                     "mb": int(pt.shape[1]), "shared_pages": shared,
                      "ctx_min": min(ctx), "ctx_max": max(ctx),
                      "arena": list(ak.shape),
                      "max_page_element": int(
@@ -339,7 +370,9 @@ def check_paged(name, rng, n, c, starts, counts, dtype, with_lse, dims,
         # keys each row needs: history + visible part of the chunk
         vis = sum(min(s + jj + 1, x) for s, k, x in zip(starts, counts, ctx)
                   for jj in range(c))
-        nbytes = (2 * sum(ctx) * kvh * dh * itemsize     # K and V read once
+        # K and V read once: an aliased page counts once
+        keys = sum(ctx) - (n - 1) * shared * bs
+        nbytes = (2 * keys * kvh * dh * itemsize
                   + 2 * q.numel() * itemsize             # q in, out
                   + (lse.numel() * 4 if with_lse else 0)
                   + pt.numel() * 4 + 8 * n)
@@ -1106,6 +1139,18 @@ def phase_kernels(rng):
     out["history"] = check_paged(
         "paged_history_profile", rng, 8, 256, [0, 256, 512, 768] * 2,
         [0] * 8, bf16, True, path, "mma", serve_arena=True)
+    # a radix prefix-cache hit of 1000 tokens (the front end's phase-5
+    # traffic): histories that end mid-page, the first 7 pages of every
+    # row aliased, the 8th a copy-on-write copy with junk past the history;
+    # the chunk after the hit (history read, mma) and decode over the same
+    # tables (split)
+    hit = [1000, 1000, 1128, 1000, 1384, 1000, 1000, 1512]
+    out["prefix_hit"] = check_paged(
+        "paged_history_prefix_hit", rng, 8, 256, hit, [0] * 8, bf16, True,
+        path, "mma", serve_arena=True, mb=32, shared=7)
+    check_paged("paged_decode_prefix_hit", rng, 8, 1, hit, [1] * 8, bf16,
+                True, path, "split", time_it=False, serve_arena=True, mb=32,
+                shared=7)
     # per-key page addressing (bs 16: a tile spans four pages) in both bf16
     # forms, and dh 64 on the tensor cores with a row block that straddles
     # two heads of the GQA group
@@ -1722,6 +1767,304 @@ def _profiled_window(eng, prompts, kernels: dict) -> dict:
     return {"replays": replays, "launches_traced_equal_counted": ran}
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the serving front end (ServingFrontend, the radix prefix cache)
+# ---------------------------------------------------------------------------
+
+#: bench_inference.py's shared_prefix_stream at Llama-3 8B: one warm
+#: request that is only the shared prefix, then FRONTEND_REQUESTS requests
+#: of the prefix plus 128-700 unique tokens submitted at once, 16-48 new
+#: tokens each, decode megasteps of up to 8 tokens
+FRONTEND_PREFIX = 1000
+FRONTEND_REQUESTS = 24
+FRONTEND_MEGASTEP = 8
+
+
+def _graph_delta(eng, gs0: dict, label: str) -> dict:
+    """``_graphs`` for a run that starts from ``eng.stats`` cleared and
+    ``gs0``, the graph stats before it: the run replayed graphs, no
+    decode window of it ran stepwise for want of pages, and K2's decode
+    launches are layers x (decode steps + the warm-up of each capture the
+    run made)."""
+    gs = {k: eng.graph_stats[k] - gs0[k] for k in gs0}
+    assert gs["replays"] > 0 and gs["fallback_steps"] == 0, (label, gs)
+    dec = eng.stats["decode"]
+    want = eng.model_config.num_layers * (dec["steps"] + gs["graphs"])
+    assert dec["launches"]["paged_attention"] == want, (label, want, dec, gs)
+    gs["eager_decode_steps"] = dec["steps"] - gs["replays"]
+    return gs
+
+
+def _frontend_stream(eng, prefix, tails, budgets, cache: bool,
+                     main_path: bool = True,
+                     megastep: int = FRONTEND_MEGASTEP):
+    """One ServingFrontend over ``eng``: the warm request (the prefix
+    alone, 4 new tokens) runs to idle, then every request is submitted at
+    once and the pump runs until all are done, each pump timed. Every
+    count is set to 0 just before the stream and read just after it. A
+    decode-megastep pump's wall against the engine's own seconds for its
+    window (upload, replays, fetch) and any graph capture it made is the
+    pump's host cost a window.
+    ``main_path``: a bf16 run of the kernel table's serving paths, whose
+    K2 launches by form go into PAGED_FORM_LAUNCHES (``_paged_forms``)."""
+    import torch
+    from deepspeed_tpu_torch.inference.engine_v2 import (
+        dispatch_counts, reset_dispatch_counts)
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+    from deepspeed_tpu_torch.serving import ServingFrontend
+    fe = ServingFrontend(eng, enable_prefix_cache=cache,
+                         megastep_tokens=megastep)
+    cows = []
+    cow_block = eng.cow_block
+    eng.cow_block = lambda src: cows.append(src) or cow_block(src)
+    # the token slots each stepwise step computes: rows pad to a power of
+    # two and a chunk step's rows (decode rows riding along too) to the
+    # prefill chunk's width
+    slots = {"chunk_steps": 0, "chunk_slots": 0, "decode_slots": 0}
+    buckets = eng._buckets
+
+    def count_slots(batch):
+        nb, cb = buckets(batch)
+        if cb > 1:
+            slots["chunk_steps"] += 1
+            slots["chunk_slots"] += nb * cb
+        else:
+            slots["decode_slots"] += nb
+        return nb, cb
+
+    eng._buckets = count_slots
+    warm = fe.submit(prefix, max_new_tokens=4)
+    fe.run_until_idle()
+    assert warm.finish_reason == "length" and warm.cached_tokens == 0
+    op_builder.reset_launches()
+    pa.reset_form_launches()
+    reset_dispatch_counts()
+    eng.stats.clear()
+    gs0 = dict(eng.graph_stats)
+    del cows[:]
+    slots.update(chunk_steps=0, chunk_slots=0, decode_slots=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [fe.submit(prefix + tail, max_new_tokens=b)
+            for tail, b in zip(tails, budgets)]
+    windows = []        # (pump wall s, engine window s, steps, capture s)
+    while fe._running or len(fe.queue):
+        ms0 = dispatch_counts["megastep_launches"]
+        dec0 = dict(eng.stats.get("decode", {"seconds": 0.0, "steps": 0}))
+        cap0 = eng.graph_stats["capture_seconds"]
+        t = time.perf_counter()
+        fe.step()
+        dt = time.perf_counter() - t
+        if dispatch_counts["megastep_launches"] > ms0:
+            dec = eng.stats["decode"]
+            windows.append((dt, dec["seconds"] - dec0["seconds"],
+                            dec["steps"] - dec0["steps"],
+                            eng.graph_stats["capture_seconds"] - cap0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del eng.cow_block, eng._buckets
+    launches = dict(op_builder.launches)
+    forms = _paged_forms(eng.stats) if main_path else \
+        dict(pa.form_launches["paged_attention"])
+    graphs = _graph_delta(eng, gs0, "frontend cache=" + str(cache))
+    st = {k: dict(v, launches=dict(v["launches"]))
+          for k, v in eng.stats.items()}
+    for r, b in zip(reqs, budgets):
+        assert r.finish_reason == "length" and len(r.tokens_out) == b, \
+            (r.finish_reason, len(r.tokens_out), b)
+    total = sum(v["tokens"] for v in st.values())
+    # every computed token is a prompt token not served from the cache or
+    # a fed-back decode token (each request's last token is never fed)
+    prefill = total - sum(b - 1 for b in budgets)
+    ttft = np.asarray([r.ttft for r in reqs])
+    tpot = np.asarray([r.tpot for r in reqs])
+    w = np.asarray(windows) if windows else np.zeros((0, 4))
+    res = {"cache": cache, "requests": len(reqs), "wall_s": wall,
+           "requests_per_s": len(reqs) / wall,
+           "ttft_mean_ms": 1e3 * float(ttft.mean()),
+           "ttft_p99_ms": 1e3 * float(np.percentile(ttft, 99)),
+           "tpot_mean_ms": 1e3 * float(tpot.mean()),
+           "prefill_tokens": prefill, "tokens_computed": total,
+           "token_slots": slots,
+           "chunk_step_slot_use": sum(
+               st[m]["tokens"] for m in ("fresh", "split") if m in st)
+           / max(1, slots["chunk_slots"]),
+           "counters": dict(fe.metrics.counters),
+           "cow_copies": len(cows),
+           "dispatch": dict(dispatch_counts),
+           "megastep_windows": len(windows),
+           "window_decode_steps": int(w[:, 2].sum()),
+           "frontend_decode_ms_per_step":
+               1e3 * float((w[:, 0] - w[:, 3]).sum() / w[:, 2].sum())
+               if windows else None,
+           "engine_window_ms_per_step":
+               1e3 * float(w[:, 1].sum() / w[:, 2].sum()) if windows
+               else None,
+           "pump_host_ms_per_window":
+               1e3 * float((w[:, 0] - w[:, 1] - w[:, 3]).mean())
+               if windows else None,
+           "capture_ms_in_windows": 1e3 * float(w[:, 3].sum()),
+           "decode_graphs": graphs, "paged_launches_by_form": forms,
+           "launches": launches,
+           "stats": {k: {kk: v[kk] for kk in ("steps", "tokens", "seconds")}
+                     for k, v in st.items()}}
+    return fe, reqs, res
+
+
+def _logits_of(eng, uid):
+    """Step the engine until ``uid``'s pending tokens are consumed;
+    returns its last-token logits (fp32)."""
+    out = {}
+    while uid not in out:
+        res = eng.step()
+        assert res is not None
+        out.update(res)
+    eng.flush(uid)
+    return out[uid]
+
+
+def _cow_hit_logits(eng, cache, prefix, tail) -> dict:
+    """The last-token logits of one copy-on-write prefix hit, taken as
+    tests/test_serving.py:346 takes them (``adopt_cached``, then ``step``),
+    against two cold prefills in the same engine: the prompt in one pass
+    (A) and the prefix, then the tail (B, the hit's chunking). bf16
+    tolerance from the spread the two cold runs show: the hit reads the
+    prefix KV that the warm request wrote with B's chunks, so it must sit
+    within twice max(|A - B|, one bf16 step at the logits' scale) of both
+    cold runs."""
+    from deepspeed_tpu_torch.serving import adopt_cached
+    prompt = prefix + tail
+    base = max(eng.state.seqs.keys(), default=-1) + 1
+    matched = adopt_cached(eng, cache, base, prompt)
+    assert matched == len(prefix), matched
+    hit = _logits_of(eng, base)
+    one_pass = eng.put([base + 1], [prompt])[base + 1]
+    eng.flush(base + 1)
+    eng.put([base + 2], [prefix])
+    rechunked = eng.put([base + 2], [tail])[base + 2]
+    eng.flush(base + 2)
+    return {"hit": hit, "one_pass": one_pass, "rechunked": rechunked}
+
+
+def phase_serve_frontend(eng, cfg) -> dict:
+    """The serving front end on phase 5's Llama-3 8B bf16 engine (full
+    width and depth, 512 pages of 128): bench_inference.py's
+    shared_prefix_stream through one ServingFrontend with the radix
+    prefix cache on, then through one with it off, each stream counted
+    from 0 (``_frontend_stream``). With the cache on, every request
+    adopts the 1000-token prefix (7 aliased pages and a copy-on-write
+    copy of the 8th), so its first chunk is a split-prefill step whose
+    history (K2's mma form) ends mid-page; decode windows replay the
+    captured steps. Returns the two streams' launches together."""
+    rng = np.random.default_rng(17)
+    prefix = [int(t) for t in rng.integers(0, cfg.vocab_size,
+                                           size=FRONTEND_PREFIX)]
+    tails = [[int(t) for t in rng.integers(0, cfg.vocab_size, size=int(n))]
+             for n in rng.integers(128, 701, size=FRONTEND_REQUESTS)]
+    budgets = [int(b) for b in rng.integers(16, 49, size=FRONTEND_REQUESTS)]
+    probe = [int(t) for t in rng.integers(0, cfg.vocab_size, size=300)]
+    fe_on, reqs_on, on = _frontend_stream(eng, prefix, tails, budgets, True)
+    n = FRONTEND_REQUESTS
+    assert on["counters"]["prefix_tokens_reused"] == n * FRONTEND_PREFIX, on
+    assert on["cow_copies"] == n, on["cow_copies"]
+    assert all(r.cached_tokens == FRONTEND_PREFIX for r in reqs_on)
+    assert on["paged_launches_by_form"]["mma"] > 0, on
+    # one copy-on-write hit's logits against two cold prefills, while the
+    # cache still holds the prefix (a tail no request had)
+    lg = _cow_hit_logits(eng, fe_on.cache, prefix, probe)
+    spread = float(np.abs(lg["one_pass"] - lg["rechunked"]).max())
+    step = float(np.abs(lg["one_pass"]).max()) * 2.0 ** -8
+    tol = 2 * max(spread, step)
+    hit_err = {k: float(np.abs(lg["hit"] - lg[k]).max())
+               for k in ("one_pass", "rechunked")}
+    assert np.isfinite(lg["hit"]).all()
+    assert max(hit_err.values()) <= tol, (hit_err, tol)
+    fe_on.cache.evict(fe_on.cache.pages_cached)
+    assert fe_on.cache.pages_cached == 0 and not eng.state.seqs
+    assert eng.state.allocator.free_blocks == SERVE_BLOCKS, "pages leaked"
+    _, reqs_off, off = _frontend_stream(eng, prefix, tails, budgets, False)
+    assert off["counters"]["prefix_tokens_reused"] == 0
+    assert off["cow_copies"] == 0
+    assert off["prefill_tokens"] == sum(len(prefix) + len(t) for t in tails)
+    assert on["prefill_tokens"] == off["prefill_tokens"] - \
+        n * FRONTEND_PREFIX, (on["prefill_tokens"], off["prefill_tokens"])
+    assert eng.state.allocator.free_blocks == SERVE_BLOCKS, "pages leaked"
+    launches = {k: on["launches"][k] + off["launches"][k]
+                for k in on["launches"]}
+    emit({"phase": "serve_frontend", "model": "llama3-" + SERVE_MODEL[0],
+          "dtype": "bfloat16", "prefix": FRONTEND_PREFIX,
+          "tails": [len(t) for t in tails], "new_tokens": budgets,
+          "megastep_tokens": FRONTEND_MEGASTEP,
+          "cache_on": {k: v for k, v in on.items() if k != "launches"},
+          "cache_off": {k: v for k, v in off.items() if k != "launches"},
+          "streams_identical_on_off": sum(
+              a.tokens_out == b.tokens_out
+              for a, b in zip(reqs_on, reqs_off)),
+          "cow_hit_logits": {"max_abs_err": hit_err,
+                             "cold_chunking_spread": spread,
+                             "bf16_step": step, "tol": tol},
+          "launches": launches})
+    return launches
+
+
+def _frontend_fp32(eng, cfg) -> dict:
+    """fp32 token identity of the front end on phase_fused_fp32's engine:
+    a warm 300-token prefix, then 4 requests of that prefix plus 64-200
+    unique tokens, 16 new tokens each, through a ServingFrontend with the
+    cache on, one with it off, and ``engine.generate``: identical tokens.
+    Then the cache-on frontend's pages of request 0's prompt go out as a
+    handoff bundle (``export_bundle``) and into a second frontend on a
+    fresh engine with the same weights (``adopt_bundle``), which serves
+    that prompt from the bundle's pages with the same tokens."""
+    import torch
+    from deepspeed_tpu_torch import RaggedInferenceEngine
+    from deepspeed_tpu_torch.serving import (ServingFrontend, adopt_bundle,
+                                             export_bundle, verify_bundle)
+    rng = np.random.default_rng(23)
+    prefix = [int(t) for t in rng.integers(0, cfg.vocab_size, size=300)]
+    tails = [[int(t) for t in rng.integers(0, cfg.vocab_size, size=int(n))]
+             for n in rng.integers(64, 201, size=4)]
+    budgets = [16] * 4
+    fe_on, reqs_on, on = _frontend_stream(eng, prefix, tails, budgets, True,
+                                          main_path=False)
+    assert on["counters"]["prefix_tokens_reused"] == 4 * 300
+    _, reqs_off, off = _frontend_stream(eng, prefix, tails, budgets, False,
+                                        main_path=False)
+    gen = eng.generate([np.asarray(prefix + t, np.int32) for t in tails],
+                       max_new_tokens=16)
+    gen = [g[len(prefix) + len(t):].tolist() for g, t in zip(gen, tails)]
+    on_toks = [r.tokens_out for r in reqs_on]
+    assert on_toks == [r.tokens_out for r in reqs_off] == gen, \
+        "fp32: the front end's tokens differ (cache on / off / generate)"
+    prompt = prefix + tails[0]
+    bundle = export_bundle(fe_on, prompt)
+    assert bundle is not None and verify_bundle(bundle)
+    eng2 = RaggedInferenceEngine(
+        cfg, eng.config, generator=torch.Generator(device=DEV).manual_seed(5),
+        device=DEV)
+    fe2 = ServingFrontend(eng2, megastep_tokens=FRONTEND_MEGASTEP)
+    adopted = adopt_bundle(fe2, bundle)
+    assert adopted == bundle.num_pages, (adopted, bundle.num_pages)
+    req = fe2.submit(prompt, max_new_tokens=16)
+    fe2.run_until_idle()
+    assert req.cached_tokens == len(prompt) - 1, req.cached_tokens
+    assert req.tokens_out == on_toks[0], "fp32: handoff changed the tokens"
+    del fe2, eng2
+    torch.cuda.empty_cache()
+    return {"identical_cache_on_off_generate": True,
+            "bundle_pages": bundle.num_pages,
+            "bundle_bytes": bundle.nbytes,
+            "page_nbytes": eng.kv_page_nbytes(),
+            "handoff_cached_tokens": req.cached_tokens,
+            "handoff_identical": True,
+            "cache_on": {k: on[k] for k in ("prefill_tokens", "counters",
+                                            "decode_graphs",
+                                            "paged_launches_by_form")},
+            "cache_off": {k: off[k] for k in ("prefill_tokens",
+                                              "paged_launches_by_form")}}
+
+
 def phase_fused_fp32():
     """Fused decode = stepwise decode in fp32 on the card: Llama-3 8B at
     full width and depth 2, ``generate`` (windows of replays of the
@@ -1745,6 +2088,8 @@ def phase_fused_fp32():
     emit({"phase": "fused_decode_fp32", "model": "llama3-8b-2L",
           "dtype": "float32", "new_tokens": 32, "prompts": len(prompts),
           "identical": True, "graphs": _graphs(eng, "fp32")})
+    emit(dict({"phase": "serve_frontend_fp32", "model": "llama3-8b-2L",
+               "dtype": "float32"}, **_frontend_fp32(eng, cfg)))
     del eng
     torch.cuda.empty_cache()
 
@@ -1861,9 +2206,10 @@ def phase_serve():
           "paged_launches_by_form": paged_forms,
           "launches_per_decode_step": per_step,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    frontend = phase_serve_frontend(eng, cfg)
     del eng                    # the MoE runs need the card's memory
     torch.cuda.empty_cache()
-    return launches
+    return launches, frontend
 
 
 def _grouped_forms(launches) -> dict:
@@ -2737,7 +3083,9 @@ def main() -> int:
     phase_full_width_moe()
     phase_full_width_quant()
     phase_fused_fp32()
-    paths = {"serve": phase_serve(), "serve_moe": phase_serve_moe(),
+    serve, serve_frontend = phase_serve()
+    paths = {"serve": serve, "serve_frontend": serve_frontend,
+             "serve_moe": phase_serve_moe(),
              "serve_quant": phase_serve_quant()}
     phase_train_full_width()
     paths["train"] = phase_train()

@@ -11,7 +11,13 @@ engine dtype or with weight-only quantized linears (``weight_quant``
 int8, fp8, int4 or fp6); ``initialize``
 and ``DeepSpeedEngine.train_batch`` (the port of ``DeepSpeedTPUEngine``)
 train them on one device, MoE models through the dropless grouped FFN or
-the capacity layer (the config's ``moe`` section).
+the capacity layer (the config's ``moe`` section). ``ServingFrontend``
+(:mod:`deepspeed_tpu_torch.serving`) serves request streams over the
+engine: admission with back-pressure, the radix prefix cache over
+copy-on-write pages, SplitFuse budgets, decode megasteps, streaming,
+deadlines, cancel and the engine-fault retry, with page handoff bundles;
+it records into :mod:`deepspeed_tpu_torch.telemetry` (counters,
+histograms, spans, request traces, the flight recorder, ``/metrics``).
 """
 
 from deepspeed_tpu_torch.inference.engine_v2 import (RaggedInferenceConfig,
@@ -21,7 +27,8 @@ from deepspeed_tpu_torch.models.transformer import DecoderConfig
 from deepspeed_tpu_torch.config.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.engine import (DeepSpeedEngine, ModelSpec,
                                                 initialize)
+from deepspeed_tpu_torch.serving import ServingFrontend
 
 __all__ = ["RaggedInferenceEngine", "RaggedInferenceConfig",
            "DecoderConfig", "llama3_config", "initialize", "DeepSpeedEngine",
-           "DeepSpeedConfig", "ModelSpec"]
+           "DeepSpeedConfig", "ModelSpec", "ServingFrontend"]

@@ -7,7 +7,12 @@ slice trains on one device; it reads the batch triple, ``optimizer``,
 ``scheduler``, ``fp16``/``bf16``, ``gradient_clipping``,
 ``zero_optimization.stage`` (0 only), ``activation_checkpointing.policy``,
 ``attention_impl``, ``ce_logits_dtype``, ``chunked_ce_budget_mb``, ``moe``
-(one expert shard), ``seed`` and ``steps_per_print``.
+(one expert shard), ``seed`` and ``steps_per_print``; the serving front
+end reads ``serving`` (the megastep knobs) and ``resilience``
+(``serving_retry_budget``, ``fault_plan``), and
+:func:`deepspeed_tpu_torch.telemetry.configure` reads ``telemetry``'s
+``enabled``, ``trace_buffer_events``, ``jax_annotations`` and
+``reqtrace``.
 
 Every other section of the JAX config (tensor/pipeline/sequence
 parallelism, telemetry, offload, ...) is not ported yet: it may be
@@ -116,6 +121,116 @@ class MoEConfig(TPUConfigModel):
         return self
 
 
+class ReqTraceConfig(TPUConfigModel):
+    """``"telemetry": {"reqtrace": {...}}`` → telemetry/reqtrace.py
+    (config.py:392): request-scoped tracing with tail-based sampling."""
+    enabled: bool = False
+    #: fraction of traces retained regardless of outcome
+    head_sample: float = Field(default=0.0, ge=0.0, le=1.0)
+    #: a TTFT or TPOT at/over this retains the trace (0 disables)
+    retain_slow_ms: float = Field(default=500.0, ge=0.0)
+    #: in-flight traces buffered per host; oldest evicted beyond this
+    buffer_traces: int = Field(default=256, ge=1)
+
+
+#: ``telemetry`` keys of the JAX schema (config.py:463) whose modules are
+#: not ported: the module each needs, and the value that leaves it off (a
+#: sub-block is off when its ``enabled`` is false)
+_UNPORTED_TELEMETRY: Dict[str, Any] = {
+    "trace_file": (None, "the trace dump at exit"),
+    "sample_memory": (True, "telemetry/sampler.py"),
+    "peak_flops_override": (None, "telemetry/sampler.py"),
+    "flight_recorder_steps": (512, "the engines' flight-recorder wiring"),
+    "blackbox_path": (None, "the engines' flight-recorder wiring"),
+    "compile_storm_threshold": (8, "telemetry/compile_monitor.py"),
+    "watchdog": ("block", "the engines' watchdog wiring (pass a "
+                          "telemetry.Watchdog to ServingFrontend)"),
+    "goodput": ("block", "telemetry/goodput.py"),
+    "health": ("block", "telemetry/health.py"),
+    "http_port": (None, "the engines' /metrics wiring (pass http_port to "
+                        "ServingFrontend)"),
+    "explain_startup": (False, "telemetry/explain.py"),
+    "peak_hbm_bw_override": (None, "telemetry/explain.py"),
+    "history_file": (None, "telemetry/timeseries.py"),
+    "history_max_bytes": (8_388_608, "telemetry/timeseries.py"),
+    "history_downsample": (2, "telemetry/timeseries.py"),
+    "history_every": (0, "telemetry/timeseries.py"),
+}
+
+
+class TelemetryConfig(TPUConfigModel):
+    """``"telemetry"`` (config.py:463): span tracing and request tracing,
+    applied by :func:`deepspeed_tpu_torch.telemetry.configure`. Metrics
+    recording and the flight recorder are always on. Every other key of
+    the JAX block belongs to a module the port lacks: it may hold the
+    value that leaves it off, and any other value raises."""
+    enabled: bool = False
+    #: ring-buffer capacity; oldest spans evicted beyond this
+    trace_buffer_events: int = Field(default=100_000, ge=1)
+    #: label each span with ``torch.profiler.record_function`` so names
+    #: line up inside a ``torch.profiler`` capture (the key keeps the JAX
+    #: package's name, where it enters jax.profiler annotations)
+    jax_annotations: bool = False
+    reqtrace: ReqTraceConfig = Field(default_factory=ReqTraceConfig)
+
+    @model_validator(mode="after")
+    def _ported(self):
+        for key, value in (self.model_extra or {}).items():
+            if key not in _UNPORTED_TELEMETRY:
+                continue
+            off, module = _UNPORTED_TELEMETRY[key]
+            on = (isinstance(value, dict) and bool(value.get("enabled"))) \
+                if off == "block" else value != off
+            if on:
+                raise NotImplementedError(
+                    f"telemetry.{key}={value!r} needs {module}, which is "
+                    f"not ported to deepspeed_tpu_torch yet")
+        return self
+
+
+class ServingConfig(TPUConfigModel):
+    """``"serving"`` (config.py:555) → ServingFrontend: up to
+    ``megastep_tokens`` decode tokens a row in one decode window when the
+    SplitFuse selection is decode-only (0/1: stepwise); adaptive K
+    selection shrinks the window for pending admissions and shallow
+    batches."""
+    megastep_tokens: int = Field(default=0, ge=0)
+    megastep_adaptive: bool = True
+
+
+class ResilienceConfig(TPUConfigModel):
+    """``"resilience"`` (config.py:690). ``serving_retry_budget``: engine
+    faults a running serving request survives before it finishes with
+    reason "error". ``fault_plan``: a deterministic fault schedule
+    (resilience/faults.py grammar), armed by the serving front end; its
+    one hook site is the front end's pump, so an entry must trigger on
+    ``serving_step`` or ``time``, at that site, with a kind the hook
+    acts on. The checkpoint retry keys wait for the checkpoint store."""
+    fault_plan: Optional[str] = None
+    ckpt_io_retries: int = Field(default=3, ge=0)
+    ckpt_io_backoff_s: float = Field(default=0.05, ge=0)
+    serving_retry_budget: int = Field(default=2, ge=0)
+
+    @model_validator(mode="after")
+    def _ported(self):
+        if self.ckpt_io_retries != 3 or self.ckpt_io_backoff_s != 0.05:
+            raise NotImplementedError(
+                "resilience.ckpt_io_* need checkpoint/store.py, which is "
+                "not ported to deepspeed_tpu_torch yet")
+        from deepspeed_tpu_torch.resilience.faults import (
+            ACTION_KINDS, parse_fault_plan)
+        for e in parse_fault_plan(self.fault_plan):
+            if e.trigger == "step" or e.site not in (None, "serving_step") \
+                    or e.kind not in ACTION_KINDS:
+                raise NotImplementedError(
+                    f"resilience.fault_plan entry {e.spec()!r}: the port's "
+                    f"only fault hook is the serving front end's pump "
+                    f"(serving_step/time triggers, kinds "
+                    f"{'/'.join(ACTION_KINDS)}); the training, checkpoint, "
+                    f"router, handoff and kvtier hooks are not ported yet")
+        return self
+
+
 #: ZeRO knobs that change nothing at stage 0 (accepted with any value)
 _ZERO_NOOP_KEYS = {"contiguous_gradients", "reduce_scatter",
                    "reduce_bucket_size", "allgather_partitions",
@@ -157,13 +272,11 @@ _UNPORTED_SECTIONS: Dict[str, Dict[str, Any]] = {
     "sequence_parallel": {"size": 1},
     "comms_logger": {"enabled": False},
     "flops_profiler": {"enabled": False},
-    "telemetry": {"enabled": False},
     "kvtier": {"enabled": False},
     "autoscale": {"enabled": False},
     "tune": {"tuned": False},
     "data_efficiency": {"enabled": False},
     "elasticity": {"enabled": False},
-    "resilience": {"fault_plan": None},
     "tensorboard": {"enabled": False},
     "wandb": {"enabled": False},
     "comet": {"enabled": False},
@@ -172,8 +285,12 @@ _UNPORTED_SECTIONS: Dict[str, Dict[str, Any]] = {
     "checkpoint": {},
     "compression_training": {},
     "slo": {},
-    "serving": {},
     "router": {},
+}
+#: the reference module an unported section needs, named in its error
+_UNPORTED_MODULES: Dict[str, str] = {
+    "kvtier": "serving/kvtier.py", "slo": "telemetry/slo.py",
+    "router": "serving/router.py", "autoscale": "serving/autoscaler.py",
 }
 _UNPORTED_SCALARS: Dict[str, Any] = {
     "prescale_gradients": False, "gradient_predivide_factor": 1.0,
@@ -193,9 +310,11 @@ def _check_unported(config: Dict[str, Any]) -> None:
         off = _UNPORTED_SECTIONS[key]
         if not isinstance(value, dict) or any(
                 k not in off or v != off[k] for k, v in value.items()):
+            needs = f" ({_UNPORTED_MODULES[key]})" \
+                if key in _UNPORTED_MODULES else ""
             raise NotImplementedError(
                 f"config section '{key}' = {value!r} is not ported to "
-                f"deepspeed_tpu_torch yet (absent or {off} only)")
+                f"deepspeed_tpu_torch yet{needs} (absent or {off} only)")
 
 
 class DeepSpeedConfig(TPUConfigModel):
@@ -219,6 +338,9 @@ class DeepSpeedConfig(TPUConfigModel):
     activation_checkpointing: ActivationCheckpointingConfig = Field(
         default_factory=ActivationCheckpointingConfig)
     moe: MoEConfig = Field(default_factory=MoEConfig)
+    telemetry: TelemetryConfig = Field(default_factory=TelemetryConfig)
+    serving: ServingConfig = Field(default_factory=ServingConfig)
+    resilience: ResilienceConfig = Field(default_factory=ResilienceConfig)
 
     #: 'auto' / 'pallas_flash' → the port's flash attention (K1 + K3 on
     #: CUDA); 'naive' → the plain [T, T] attention

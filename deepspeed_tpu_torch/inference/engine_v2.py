@@ -35,12 +35,22 @@ versions. Shapes are bucketed as in the JAX engine (rows to powers of two,
 chunk width to {1, prefill_chunk}) so the kernels see the reference's
 shapes.
 
-Not ported yet: expert parallelism (raises ``NotImplementedError``), and
-the copy-on-write and page-export helpers and the telemetry hooks, which
-wait for later slices. Per-mode step tallies, :data:`dispatch_counts` and
-the kernels' launch counters
-(:data:`deepspeed_tpu_torch.ops.op_builder.launches`) stand in for the
-telemetry.
+The serving front end (:mod:`deepspeed_tpu_torch.serving`) drives
+``step_with_budget`` and reuses cached prefixes through the page helpers:
+``cow_block`` (a copy-on-write duplicate of a shared partial page),
+``export_pages``/``import_pages`` (whole pages between the card and the
+host, for handoff bundles) and ``kv_page_nbytes``. The copies write into
+the arena's existing tensors, on the stream the decode graphs replay on:
+a captured graph keeps the storage it saw at capture, so the arena is
+never rebound. The engine's ``dispatch/*`` counters publish to the
+telemetry registry (:data:`dispatch_counts` keeps the process's totals
+since :func:`reset_dispatch_counts`), and a megastep window runs inside
+a ``serving/megastep`` tracer span. Per-mode step tallies and the
+kernels' launch counters (:data:`deepspeed_tpu_torch.ops.op_builder.
+launches`) stay beside them.
+
+Not ported yet: expert parallelism (raises ``NotImplementedError``) and
+``cost_records`` (the reference's compile-time explain).
 """
 import time
 from collections import deque
@@ -49,6 +59,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch import telemetry
 from deepspeed_tpu_torch.accelerator.real_accelerator import get_device
 from deepspeed_tpu_torch.config.config_utils import TPUConfigModel
 from deepspeed_tpu_torch.inference.ragged import (DSStateManager, RaggedBatch,
@@ -245,8 +256,17 @@ dispatch_counts: Dict[str, int] = {"host_calls": 0, "scan_steps": 0,
 
 
 def reset_dispatch_counts() -> None:
+    """Zero :data:`dispatch_counts` (the registry's ``dispatch/*``
+    counters are monotonic and keep counting)."""
     for name in dispatch_counts:
         dispatch_counts[name] = 0
+
+
+def _dispatch_count(name: str, by: int = 1) -> None:
+    """Bump ``dispatch_counts[name]`` and the registry counter
+    ``dispatch/<name>`` (engine_v2.py:167)."""
+    dispatch_counts[name] += by
+    telemetry.registry.counter(f"dispatch/{name}").inc(by)
 
 
 #: the side stream of each device that decode steps are warmed up and
@@ -417,8 +437,8 @@ class RaggedInferenceEngine:
         self._graph_pool = None
         #: CUDA graphs captured, seconds spent capturing (warm-up
         #: included), bytes of the graphs' pool after the last capture,
-        #: replays, and decode steps the loops ran stepwise because a
-        #: window did not fit the arena
+        #: replays, and decode steps the loops (generate, serve and the
+        #: megastep) ran stepwise because a window did not fit the arena
         self.graph_stats: Dict[str, Any] = {
             "graphs": 0, "capture_seconds": 0.0, "pool_bytes": 0,
             "replays": 0, "fallback_steps": 0}
@@ -594,6 +614,8 @@ class RaggedInferenceEngine:
                 - len(self.state.seqs[uid].blocks)
                 for uid, r in zip(batch.uids, lim)]
         if sum(need) > self.state.allocator.free_blocks:
+            # the window does not fit the arena: this step runs stepwise
+            self.graph_stats["fallback_steps"] += 1
             return None
         for uid, c in zip(batch.uids, need):
             if c > 0:
@@ -601,12 +623,14 @@ class RaggedInferenceEngine:
                     self.state.allocator.allocate(c))
         eos = [-1 if eos_ids is None or eos_ids.get(uid) is None
                else int(eos_ids[uid]) for uid in batch.uids]
-        ys, counts = self._decode_window(
-            batch.uids, [self.state.seqs[u].tokens[-1] for u in batch.uids],
-            [self.state.seqs[u].seen_tokens for u in batch.uids], lim, eos,
-            limit, mode)
-        dispatch_counts["megastep_launches"] += 1
-        dispatch_counts["megastep_tokens"] += int(counts.sum())
+        with telemetry.tracer.span("serving/megastep", n=n, k=int(limit)):
+            ys, counts = self._decode_window(
+                batch.uids,
+                [self.state.seqs[u].tokens[-1] for u in batch.uids],
+                [self.state.seqs[u].seen_tokens for u in batch.uids], lim,
+                eos, limit, mode)
+        _dispatch_count("megastep_launches")
+        _dispatch_count("megastep_tokens", int(counts.sum()))
         self.scheduler.mark_scheduled(batch)          # fed token consumed
         out: Dict[int, List[int]] = {}
         for j, uid in enumerate(batch.uids):
@@ -620,6 +644,110 @@ class RaggedInferenceEngine:
                 seq.seen_tokens = len(seq.tokens)
             out[uid] = emitted
         return out
+
+    # -- page helpers for the prefix cache and page handoff --------------
+    # (engine_v2.py:673-749). Every write goes into the arena's existing
+    # tensors on the current stream, which the decode graphs replay on.
+
+    def cow_block(self, src_block: int) -> int:
+        """Copy-on-write duplicate of one KV page across all layers
+        (engine_v2.py:673).
+
+        Prefix-cache handout of a shared PARTIAL last page: the new owner
+        will append tokens into that page, so it gets a private copy; full
+        shared pages are aliased in the page table instead (no copy).
+        Returns the new physical page id (refcount 1, owned by caller)."""
+        dst = self.state.allocator.allocate(1)[0]
+        with torch.no_grad():
+            pa.copy_pages(self.arena, [src_block], [dst],
+                          self.model_config.num_layers)
+        return dst
+
+    def _page_rows(self, blocks: List[int]) -> torch.Tensor:
+        """Rows of the flat pool holding every layer's copy of ``blocks``:
+        layer ``l``'s copy of page ``b`` lives at ``l*(nb+1)+b``."""
+        L = self.model_config.num_layers
+        stride = self.arena["k"].shape[1] // L          # nb + 1
+        ids = torch.as_tensor(np.asarray(blocks, np.int64))
+        rows = torch.arange(L, dtype=torch.int64)[:, None] * stride \
+            + ids[None, :]
+        return rows.reshape(-1).to(self.device)
+
+    def export_pages(self, blocks: List[int]) -> Dict[str, np.ndarray]:
+        """Device→host gather of whole KV pages, every layer's region
+        (engine_v2.py:692): ``{"k", "v"}`` as ``[kvh, L, m, bs, dh]`` host
+        arrays for the layer-relative page ids ``blocks``. numpy has no
+        bfloat16, so bf16 pages come out as their bit patterns
+        (``np.uint16``, same shape); the bytes are the JAX package's
+        ``ml_dtypes.bfloat16`` export's, so a bundle's checksum means the
+        same in both packages. The importing engine must have identical
+        model geometry (it checks)."""
+        rows = self._page_rows(blocks)
+        L = self.model_config.num_layers
+        out = {}
+        for key in ("k", "v"):
+            kvh, _, bs, dh = self.arena[key].shape
+            flat = self.arena[key].index_select(1, rows)
+            if flat.dtype == torch.bfloat16:
+                host = flat.view(torch.int16).cpu().numpy().view(np.uint16)
+            else:
+                host = flat.cpu().numpy()
+            out[key] = host.reshape(kvh, L, len(blocks), bs, dh)
+        return out
+
+    def _pages_tensor(self, key: str, pages: np.ndarray) -> torch.Tensor:
+        """Host pages → a CPU tensor of the arena's dtype: float values
+        are cast; bf16 bit patterns (``np.uint16``, or an array whose
+        dtype is named ``bfloat16``, viewed as uint16) are taken as they
+        are, into a bf16 arena only."""
+        arr = np.array(pages)               # a writable host copy
+        dtype = self.arena[key].dtype
+        if arr.dtype.name == "bfloat16" and arr.dtype.itemsize == 2:
+            arr = arr.view(np.uint16)
+        if arr.dtype == np.uint16:
+            if dtype != torch.bfloat16:
+                raise ValueError(
+                    f"page bundle {key!r} holds bf16 bit patterns "
+                    f"(uint16) but this arena is {dtype}")
+            return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        if arr.dtype.kind != "f":
+            raise ValueError(
+                f"page bundle {key!r} has dtype {arr.dtype}: want float "
+                f"values or bf16 bit patterns (uint16)")
+        return torch.from_numpy(arr).to(dtype)
+
+    def import_pages(self, pages: Dict[str, np.ndarray],
+                     blocks: List[int]) -> None:
+        """Scatter pages from :meth:`export_pages` into this engine's
+        arena at the (already-allocated, caller-owned) page ids ``blocks``
+        (engine_v2.py:715), in place: the arena's tensors keep their
+        storage, which the captured decode graphs read. Raises
+        ``ValueError`` on a geometry or dtype mismatch rather than
+        silently writing garbage KV."""
+        rows = self._page_rows(blocks)
+        L = self.model_config.num_layers
+        for key in ("k", "v"):
+            kvh, _, bs, dh = self.arena[key].shape
+            want = (kvh, L, len(blocks), bs, dh)
+            got = tuple(np.shape(pages[key]))
+            if got != want:
+                raise ValueError(
+                    f"page bundle {key!r} shape {got} does not fit this "
+                    f"arena (want {want}) — replicas must share model "
+                    f"geometry")
+            data = self._pages_tensor(key, pages[key]).reshape(
+                kvh, L * len(blocks), bs, dh).to(self.device)
+            self.arena[key].index_copy_(1, rows, data)
+
+    def kv_page_nbytes(self) -> int:
+        """Host-side bytes of ONE exported KV page (all layers, k + v) —
+        what a tier/handoff consumer budgets per page (engine_v2.py:740)."""
+        L = self.model_config.num_layers
+        total = 0
+        for key in ("k", "v"):
+            kvh, _, bs, dh = self.arena[key].shape
+            total += kvh * L * bs * dh * self.arena[key].element_size()
+        return total
 
     def _buckets(self, batch: RaggedBatch):
         nb = _bucket(len(batch.uids))
@@ -668,7 +796,7 @@ class RaggedInferenceEngine:
                 out = _sample_tokens(logits, mode, samp_d[0], samp_d[1],
                                      self._generator)
             result = out.cpu().numpy()[:n]
-        dispatch_counts["host_calls"] += 1
+        _dispatch_count("host_calls")
         self._tally("decode" if fresh is False else fresh, t0,
                     int(batch.token_counts.sum()), before)
         return result
@@ -798,8 +926,8 @@ class RaggedInferenceEngine:
                     self._decode_step(st, mode)
         out = st.buf[st.head:st.head + nb * (limit + 1)].cpu().numpy()
         counts = out[:n].copy()
-        dispatch_counts["host_calls"] += 1
-        dispatch_counts["scan_steps"] += limit
+        _dispatch_count("host_calls")
+        _dispatch_count("scan_steps", limit)
         self._tally("decode", t0, int(counts.sum()), before, steps=limit)
         return out[nb:].reshape(limit, nb)[:, :n], counts
 

@@ -12,11 +12,13 @@ from ``torch.autograd.grad`` over the parameter leaves (on CUDA the
 attention runs through kernels K1 and K3), the update from the port's
 optimizer, in place.
 
-This slice trains on one device. Data parallelism and ZeRO stages above
-0, offload, ZeRO++, 1-bit optimizers, pipeline parallelism, telemetry,
-the watchdog, chaos hooks and checkpointing are not ported: their config
-sections raise in :class:`DeepSpeedConfig` and the engine has no such
-paths.
+This slice trains on one device. The ``telemetry`` block arms the span
+and request tracers (:func:`deepspeed_tpu_torch.telemetry.configure`).
+Data parallelism and ZeRO stages above 0, offload, ZeRO++, 1-bit
+optimizers, pipeline parallelism, the training step's telemetry spans and
+flight records, the watchdog, chaos hooks and checkpointing are not
+ported: their config keys raise in :class:`DeepSpeedConfig` and the
+engine has no such paths.
 """
 
 from dataclasses import dataclass
@@ -25,6 +27,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Union
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch import telemetry
 from deepspeed_tpu_torch.accelerator.real_accelerator import get_device
 from deepspeed_tpu_torch.config.config import DeepSpeedConfig
 from deepspeed_tpu_torch.models.convert import params_from_jax
@@ -77,6 +80,8 @@ class DeepSpeedEngine:
         self.device = get_device(device)
         self.model = model
         self.config = config
+        # enable-only, as the JAX engine's _init_telemetry (engine.py:1127)
+        telemetry.configure(config.telemetry)
         self.dp_world_size = 1
         config.resolve_batch_sizes(self.dp_world_size)
 
