@@ -134,7 +134,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    memory, loss and aux loss per step, and the launches read around it
    (grouped_gate_up's, grouped_down's, grouped_dgdu's, grouped_dxs's and
    grouped_wgrad's by form: the bf16 main paths launch only their wgmma
-   forms).
+   forms);
+9. checkpoint and resume (run right after phase 7), in a fresh directory
+   under ``build/`` removed at the end: (a) at depth 2 and Llama-3 1B width
+   in fp32, for AdamW, LAMB, Lion, Adagrad, SGD with momentum and Muon, 2
+   steps on the card, ``save_checkpoint``, ``load_checkpoint`` into a
+   fresh card engine and a CPU engine (every leaf bitwise the saved one),
+   2 more steps on each, card against CPU; (c) ``step:3:preempt`` under
+   ``DSElasticAgent``: ``Preempted`` with tag preempt_step4 and a black
+   box, ``agent.resume()`` in a fresh engine, and its 2 steps against the
+   uninterrupted run; (b) the slice's main path, Llama-3 1B at full width
+   and depth in bf16: 2 steps, ``save_checkpoint(async_save=True)`` and a
+   step before ``wait_pending()``, a fresh engine loads the state at the
+   save bit for bit and its next 2 steps are held to the uninterrupted
+   engine's, with the state's bytes on disk, the snapshot's seconds, the
+   commit's and the load's seconds and GB/s, and the disk usage.
 
 Every phase prints one JSON line; any failure raises, so the script exits
 non-zero. Without CUDA, or outside a checkout of the repository, it exits
@@ -2757,6 +2771,387 @@ def phase_train():
 
 
 # ---------------------------------------------------------------------------
+# phase 9: checkpoint and resume — save, load, preempt, resume
+# ---------------------------------------------------------------------------
+
+#: phase_train_full_width's model and config (depth 2 at Llama-3 1B width,
+#: tied head, fp32, gas 2, T 256) for checkpoint checks (a) and (c)
+CKPT_CONF = {"train_micro_batch_size_per_gpu": 1,
+             "gradient_accumulation_steps": 2,
+             "gradient_clipping": 1.0, "attention_impl": "auto"}
+#: (a)'s optimizers and their params. The adaptive ones take lr 1e-5 (see
+#: phase_train_full_width: an update of ~lr x sign wherever a gradient sits
+#: at rounding level keeps two correct runs within 2 lr per step); SGD's
+#: update is lr x momentum buffer, which rounding barely moves
+CKPT_OPTIMIZERS = (
+    ("adamw", {"lr": 1e-5, "weight_decay": 0.1}),
+    ("lamb", {"lr": 1e-5, "weight_decay": 0.01}),
+    ("lion", {"lr": 1e-5, "weight_decay": 0.1}),
+    ("adagrad", {"lr": 1e-5}),
+    ("sgd", {"lr": 1e-2, "momentum": 0.9}),
+    ("muon", {"lr": 1e-5, "weight_decay": 0.01}))
+#: card against CPU after the 2 steps that follow a load: losses relative,
+#: parameters absolute (phase_train_full_width's tolerances for every
+#: optimizer); Muon's orthogonalized matrices are also held by their
+#: update, within CKPT_MUON_UPDATE of its largest element: Newton-Schulz
+#: runs in bf16 on both sides, and cuBLAS and the CPU's bf16 GEMMs sum in
+#: other orders (a few bf16 ulps of the largest element, ~3 % in a CPU
+#: comparison of two summation orders at 2048-wide matrices)
+CKPT_TOL = 1e-4
+CKPT_MUON_UPDATE = 0.1
+#: (b): the bf16 1B resume against the uninterrupted run. Bitwise when
+#: every kernel and GEMM of a step is deterministic (printed); the limit
+#: allows a one-ulp bf16 flip of some weights from a reordered sum
+CKPT_RESUME_LOSS_TOL = 5e-3
+
+
+def _state_leaves(eng) -> dict:
+    """group/key -> leaf of the engine's checkpointed state."""
+    from deepspeed_tpu_torch.checkpoint.store import _leaf_paths
+    return {f"{g}/{k}": v for g, tree in (
+        ("params", eng.params), ("opt_state", eng.opt_state),
+        ("loss_scale", eng.loss_scale_state))
+        for k, v in _leaf_paths(tree).items()}
+
+
+def _host_bits(x):
+    """A host copy of a leaf as integer bits (bitwise comparison)."""
+    import torch
+    if not isinstance(x, torch.Tensor):
+        return x
+    t = x.detach().to("cpu", copy=True).contiguous()
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def _bitwise_mismatches(want: dict, eng) -> list:
+    """Keys whose leaf in ``eng`` differs from ``want`` (host bits) in
+    dtype, shape or any bit."""
+    import torch
+    got = _state_leaves(eng)
+    bad = sorted(set(want) ^ set(got))
+    for key, w in want.items():
+        g = got.get(key)
+        if g is None:
+            continue
+        if isinstance(w, torch.Tensor):
+            if g.dtype.itemsize != w.element_size() or \
+                    tuple(g.shape) != tuple(w.shape) or \
+                    not torch.equal(_host_bits(g), w):
+                bad.append(key)
+        elif g != w:
+            bad.append(key)
+    return bad
+
+
+def _ckpt_train(eng, batches, counts=None) -> list:
+    """One train_batch per pair of micro-batches; K1/K3 launches of the
+    steps alone are added to ``counts``."""
+    from deepspeed_tpu_torch.ops import op_builder
+    losses = []
+    for mbs in batches:
+        op_builder.reset_launches()
+        losses.append(float(eng.train_batch(iter(mbs))))
+        if counts is not None:
+            for k in TRAIN_KERNELS:
+                counts[k] = counts.get(k, 0) + op_builder.launches[k]
+    return losses
+
+
+def _disk(path: str) -> dict:
+    import shutil
+    u = shutil.disk_usage(path)
+    return {"total_gb": u.total / 1e9, "used_gb": u.used / 1e9,
+            "free_gb": u.free / 1e9}
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _ckpt_optimizers(root, cfg, init, init_cpu, data) -> None:
+    """(a): for each optimizer, 2 steps on the card, save; load into a
+    fresh card engine and a CPU engine (every leaf bitwise the saved
+    one); 2 more steps on each, card against CPU."""
+    import shutil
+    import torch
+    from deepspeed_tpu_torch import initialize
+    steps = [data[2 * s:2 * s + 2] for s in range(4)]
+    for name, params in CKPT_OPTIMIZERS:
+        conf = dict(CKPT_CONF, optimizer={"type": name, "params": params})
+        counts = {}
+        eng, _, _, _ = initialize(cfg, dict(conf), params=init, device=DEV)
+        first = _ckpt_train(eng, steps[:2], counts)
+        t0 = time.perf_counter()
+        eng.save_checkpoint(root, tag=name)
+        save_s = time.perf_counter() - t0
+        nbytes = _dir_bytes(os.path.join(root, name))
+        saved = {k: _host_bits(v) for k, v in _state_leaves(eng).items()}
+        del eng
+        torch.cuda.empty_cache()
+        runs = {}
+        for where in ("card", "cpu"):
+            dev = DEV if where == "card" else "cpu"
+            eng, _, _, _ = initialize(cfg, dict(conf), params=(
+                init if where == "card" else init_cpu), device=dev)
+            t0 = time.perf_counter()
+            tag, _ = eng.load_checkpoint(root)
+            load_s = time.perf_counter() - t0
+            assert tag == name and eng.global_steps == 2, (tag, name)
+            bad = _bitwise_mismatches(saved, eng)
+            before = {k: v.detach().to("cpu", copy=True) for k, v in
+                      _state_leaves(eng).items() if k.startswith("params/")}
+            losses = _ckpt_train(eng, steps[2:],
+                                 counts if where == "card" else None)
+            runs[where] = {"losses": losses, "params": _to_cpu(eng.params),
+                           "before": before, "load_s": load_s,
+                           "mismatches": bad,
+                           "momentum": eng.opt_state.get("momentum")
+                           if name == "muon" else None}
+            del eng
+            torch.cuda.empty_cache()
+        shutil.rmtree(os.path.join(root, name))
+        card, cpu = runs["card"], runs["cpu"]
+        from deepspeed_tpu_torch.checkpoint.store import _leaf_paths
+        pc, pp = (_leaf_paths(r) for r in (card["params"], cpu["params"]))
+        p0 = {k[len("params/"):]: v for k, v in card["before"].items()}
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(card["losses"], cpu["losses"]))
+        param_err = max(_err(pc[k], pp[k]) for k in pc)
+        moved = max(_err(pc[k], p0[k]) for k in pc)
+        res = {"phase": "checkpoint_optimizer", "optimizer": name,
+               "model": "llama3-1b-width-depth2", "dtype": "float32",
+               "params": params, "losses_before_save": first,
+               "losses_card": card["losses"], "losses_cpu": cpu["losses"],
+               "loss_rel_err": loss_rel, "param_max_abs_err": param_err,
+               "param_max_update": moved, "tol": CKPT_TOL,
+               "leaves": len(saved),
+               "bitwise_mismatches_card": card["mismatches"],
+               "bitwise_mismatches_cpu": cpu["mismatches"],
+               "ckpt_bytes": nbytes, "save_seconds": save_s,
+               "load_seconds_card": card["load_s"],
+               "load_seconds_cpu": cpu["load_s"], "launches": counts}
+        if name == "muon":
+            # the orthogonalized leaves: momentum is no 0-d placeholder
+            mom = _leaf_paths(_to_cpu(runs["cpu"]["momentum"]))
+            keys = [k for k, m in mom.items() if m.ndim >= 2]
+            upd = max(_err(pc[k] - p0[k], pp[k] - p0[k]) /
+                      float((pp[k] - p0[k]).abs().max()) for k in keys)
+            res.update(muon_leaves=keys, muon_update_rel_err=upd,
+                       muon_update_tol=CKPT_MUON_UPDATE)
+            assert upd <= CKPT_MUON_UPDATE, res
+        emit(res)
+        assert not card["mismatches"] and not cpu["mismatches"], res
+        assert all(np.isfinite(card["losses"] + cpu["losses"])), res
+        assert loss_rel <= CKPT_TOL and param_err <= CKPT_TOL, res
+        want = 4 * 2 * cfg.num_layers
+        assert all(counts[k] == want for k in TRAIN_KERNELS), counts
+
+
+def _ckpt_preempt(root, cfg, init) -> None:
+    """(c): ``step:3:preempt`` in the depth-2 engine under DSElasticAgent:
+    Preempted with tag preempt_step4 and a black box; a fresh engine
+    resumes through agent.resume() (the dataloader cursor included) and
+    its next 2 steps match the uninterrupted run's."""
+    import torch
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.elasticity import DSElasticAgent, Preempted
+    from deepspeed_tpu_torch.resilience.faults import fault_injector
+    rng = np.random.default_rng(9)
+    dataset = [{"input_ids": rng.integers(0, cfg.vocab_size, size=256)
+                .astype(np.int32)} for _ in range(16)]
+    conf = dict(CKPT_CONF, optimizer={"type": "adamw",
+                                      "params": {"lr": 1e-5,
+                                                 "weight_decay": 0.1}})
+    counts = {}
+
+    def steps(eng, n):
+        from deepspeed_tpu_torch.ops import op_builder
+        out = []
+        for _ in range(n):
+            op_builder.reset_launches()
+            out.append(float(eng.train_batch()))
+            for k in TRAIN_KERNELS:
+                counts[k] = counts.get(k, 0) + op_builder.launches[k]
+        return out
+
+    ref, _, _, _ = initialize(cfg, dict(conf), params=init,
+                              training_data=dataset, device=DEV)
+    want = steps(ref, 6)
+    want_params = _to_cpu(ref.params)
+    del ref
+    eng, _, _, _ = initialize(cfg, dict(conf, resilience={
+        "fault_plan": "step:3:preempt"}), params=init,
+        training_data=dataset, device=DEV)
+    agent = DSElasticAgent(eng, root)
+    agent.install()
+    got, tag, box = [], None, None
+    t0 = time.perf_counter()
+    try:
+        for _ in range(6):
+            got += steps(eng, 1)
+            agent.step_boundary()
+    except Preempted as e:
+        tag, box = e.tag, e.blackbox_path
+    finally:
+        agent.uninstall()
+        fault_injector.disarm()
+    preempt_s = time.perf_counter() - t0
+    del eng
+    torch.cuda.empty_cache()
+    eng, _, _, _ = initialize(cfg, dict(conf), params=init,
+                              training_data=dataset, device=DEV)
+    agent = DSElasticAgent(eng, root)
+    t0 = time.perf_counter()
+    resumed = agent.resume()
+    resume_s = time.perf_counter() - t0
+    step_after = eng.global_steps
+    got += steps(eng, 2)
+    from deepspeed_tpu_torch.checkpoint.store import _leaf_paths
+    pg, pw = _leaf_paths(_to_cpu(eng.params)), _leaf_paths(want_params)
+    del eng
+    torch.cuda.empty_cache()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    param_err = max(_err(pg[k], pw[k]) for k in pw)
+    res = {"phase": "checkpoint_preempt", "model": "llama3-1b-width-depth2",
+           "dtype": "float32", "fault_plan": "step:3:preempt",
+           "preempted_tag": tag, "blackbox": box is not None and
+           os.path.exists(box), "resumed_tag": resumed,
+           "resumed_at_step": step_after, "losses": got,
+           "losses_uninterrupted": want, "bitwise": got == want,
+           "loss_rel_err": loss_rel, "param_max_abs_err": param_err,
+           "tol": CKPT_TOL, "preempt_run_seconds": preempt_s,
+           "resume_seconds": resume_s, "launches": counts}
+    emit(res)
+    assert tag == "preempt_step4" and res["blackbox"], res
+    assert resumed == "preempt_step4" and step_after == 4, res
+    assert len(got) == 6 and loss_rel <= CKPT_TOL and \
+        param_err <= CKPT_TOL, res
+    want_k = (6 + 4 + 2) * 2 * cfg.num_layers
+    assert all(counts[k] == want_k for k in TRAIN_KERNELS), counts
+
+
+def _ckpt_full_size(root, smi) -> dict:
+    """(b): Llama-3 1B at full width and depth in bf16 (phase_train's
+    engine): 2 steps, save_checkpoint(async_save=True) and a third step
+    before wait_pending(); a fresh engine loads the tag and holds, bit for
+    bit, the state at the save; its next 2 steps against the uninterrupted
+    engine's. Returns the K1/K3 launches of this path's steps."""
+    import torch
+    from deepspeed_tpu_torch import initialize, llama3_config
+    from deepspeed_tpu_torch.checkpoint import store
+    from deepspeed_tpu_torch.ops import op_builder
+    cfg = llama3_config(TRAIN_MODEL[0], **TRAIN_MODEL[1])
+    conf = {"train_micro_batch_size_per_gpu": TRAIN_MICRO,
+            "gradient_accumulation_steps": TRAIN_GAS,
+            "optimizer": {"type": "adamw",
+                          "params": {"lr": 1e-4, "weight_decay": 0.1}},
+            "gradient_clipping": 1.0, "bf16": {"enabled": True},
+            "activation_checkpointing": {"policy": "none"},
+            "attention_impl": "auto", "steps_per_print": 1000}
+    rng = np.random.default_rng(11)
+    steps = [[{"input_ids": rng.integers(0, cfg.vocab_size,
+                                         size=(TRAIN_MICRO, TRAIN_SEQ))
+               .astype(np.int32)} for _ in range(TRAIN_GAS)]
+             for _ in range(4)]
+    torch.cuda.empty_cache()
+    eng, _, _, _ = initialize(cfg, conf, generator=torch.Generator(
+        device=DEV).manual_seed(0), device=DEV)
+    # the main path: every count set to 0 just before, read just after
+    counts = {}
+    first = _ckpt_train(eng, steps[:2], counts)
+    at_save = {k: _host_bits(v) for k, v in _state_leaves(eng).items()}
+    state_bytes = sum(v.numel() * v.element_size()
+                      for v in at_save.values() if isinstance(v, torch.Tensor))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.save_checkpoint(root, tag="full", async_save=True)
+    snapshot_s = time.perf_counter() - t0
+    during = _ckpt_train(eng, steps[2:3], counts)     # while files are written
+    store.wait_pending()
+    commit_s = time.perf_counter() - t0 - snapshot_s
+    after = _ckpt_train(eng, steps[3:4], counts)
+    ckpt_bytes = _dir_bytes(os.path.join(root, "full"))
+    disk = _disk(root)
+    del eng
+    torch.cuda.empty_cache()
+    eng, _, _, _ = initialize(cfg, conf, generator=torch.Generator(
+        device=DEV).manual_seed(1), device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tag, _ = eng.load_checkpoint(root)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    bad = _bitwise_mismatches(at_save, eng)
+    n_leaves = len(at_save)
+    del at_save
+    resumed = _ckpt_train(eng, steps[2:4], counts)
+    del eng
+    torch.cuda.empty_cache()
+    want = during + after
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, want))
+    res = {"phase": "checkpoint_full_size", "model": "llama3-" +
+           TRAIN_MODEL[0], "dtype": "bfloat16", "params": cfg.num_params(),
+           "nvidia_smi": smi, "micro_batch": TRAIN_MICRO, "gas": TRAIN_GAS,
+           "seq": TRAIN_SEQ, "losses_before_save": first,
+           "losses_uninterrupted": want, "losses_resumed": resumed,
+           "bitwise": resumed == want, "loss_rel_err": rel,
+           "tol": CKPT_RESUME_LOSS_TOL, "tag": tag,
+           "leaves": n_leaves, "bitwise_mismatches": bad,
+           "state_bytes": state_bytes,
+           "ckpt_bytes_on_disk": ckpt_bytes, "snapshot_seconds": snapshot_s,
+           "commit_seconds": commit_s,
+           "commit_gb_per_s": ckpt_bytes / commit_s / 1e9,
+           "load_seconds": load_s, "load_gb_per_s": ckpt_bytes / load_s / 1e9,
+           "disk_usage": disk, "launches": counts}
+    emit(res)
+    assert tag == "full" and not bad, res
+    assert all(np.isfinite(first + want + resumed)), res
+    assert rel <= CKPT_RESUME_LOSS_TOL, res
+    want_k = 6 * TRAIN_GAS * cfg.num_layers
+    assert all(counts[k] == want_k for k in TRAIN_KERNELS), counts
+    return {k: counts.get(k, 0) for k in op_builder.launches}
+
+
+def phase_checkpoint(smi: str) -> dict:
+    """Checkpoint and resume through the port's own entry points
+    (``save_checkpoint``/``load_checkpoint``, ``DSElasticAgent``) on the
+    card, in a fresh directory under ``build/`` that is removed when the
+    phase ends: (a) each optimizer at depth 2 and Llama-3 1B width in
+    fp32, card against CPU after a load; (b) Llama-3 1B at full size in
+    bf16 with an async save that a step races; (c) preemption at step 3
+    and resume. Returns (b)'s launches, the slice's main path."""
+    import shutil
+    import tempfile
+    import torch
+    from deepspeed_tpu_torch import llama3_config
+    from deepspeed_tpu_torch.models.transformer import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="ckpt_", dir=os.path.join(here, "build"))
+    try:
+        emit({"phase": "checkpoint_dir", "disk_usage": _disk(root)})
+        cfg = llama3_config("1b", num_layers=2, max_seq_len=256,
+                            tie_embeddings=True)
+        init = init_params(cfg, torch.Generator(device=DEV).manual_seed(6),
+                           torch.float32, DEV)
+        init_cpu = _to_cpu(init)
+        rng = np.random.default_rng(6)
+        data = [{"input_ids": rng.integers(0, cfg.vocab_size, size=(1, 256))
+                 .astype(np.int32)} for _ in range(8)]
+        _ckpt_optimizers(os.path.join(root, "a"), cfg, init, init_cpu, data)
+        _ckpt_preempt(os.path.join(root, "c"), cfg, init)
+        del init, init_cpu
+        torch.cuda.empty_cache()
+        return _ckpt_full_size(os.path.join(root, "b"), smi)
+    finally:
+        shutil.rmtree(root)
+
+
+# ---------------------------------------------------------------------------
 # MoE training: fp32 card vs CPU, then the bench model and Mixtral in bf16
 # ---------------------------------------------------------------------------
 
@@ -3089,13 +3484,15 @@ def main() -> int:
              "serve_quant": phase_serve_quant()}
     phase_train_full_width()
     paths["train"] = phase_train()
+    paths["train_resume"] = phase_checkpoint(smi)
     phase_moe_layer_grad()
     phase_moe_train_full_width()
     paths["train_moe"] = phase_train_moe()
     paths["train_mixtral"] = phase_train_mixtral()
 
     # launches: over the main paths (dense serving and MoE serving, phase
-    # 5; dense training, phase 7; MoE training of the 1B/8e bench model
+    # 5; dense training, phase 7; train → save → resume → train, phase 9
+    # (b); MoE training of the 1B/8e bench model
     # and of Mixtral 8x7B at 2 layers, phase 8), each read around its own
     # run; K1's times are at the training shape (its serving-shape times
     # are in phase 3's flash_fresh line), the forward grouped kernels' at

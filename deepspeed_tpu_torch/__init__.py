@@ -18,6 +18,11 @@ copy-on-write pages, SplitFuse budgets, decode megasteps, streaming,
 deadlines, cancel and the engine-fault retry, with page handoff bundles;
 it records into :mod:`deepspeed_tpu_torch.telemetry` (counters,
 histograms, spans, request traces, the flight recorder, ``/metrics``).
+The training engine checkpoints through
+:mod:`deepspeed_tpu_torch.checkpoint` in the JAX package's format (either
+package resumes the other's), and
+:class:`deepspeed_tpu_torch.elasticity.DSElasticAgent` turns a SIGTERM
+into a checkpoint at the step boundary and resumes from it.
 """
 
 from deepspeed_tpu_torch.inference.engine_v2 import (RaggedInferenceConfig,

@@ -8,8 +8,10 @@ slice trains on one device; it reads the batch triple, ``optimizer``,
 ``zero_optimization.stage`` (0 only), ``activation_checkpointing.policy``,
 ``attention_impl``, ``ce_logits_dtype``, ``chunked_ce_budget_mb``, ``moe``
 (one expert shard), ``seed`` and ``steps_per_print``; the serving front
-end reads ``serving`` (the megastep knobs) and ``resilience``
-(``serving_retry_budget``, ``fault_plan``), and
+end reads ``serving`` (the megastep knobs), the training engine and
+the front end read ``resilience`` (the checkpoint store's retry knobs,
+``serving_retry_budget``, ``fault_plan``), ``checkpoint`` is accepted
+and, as in the JAX package, read by nothing, and
 :func:`deepspeed_tpu_torch.telemetry.configure` reads ``telemetry``'s
 ``enabled``, ``trace_buffer_events``, ``jax_annotations`` and
 ``reqtrace``.
@@ -198,14 +200,31 @@ class ServingConfig(TPUConfigModel):
     megastep_adaptive: bool = True
 
 
+#: the port's fault hook sites and the kinds each acts on: the serving
+#: front end's pump, the training engine's ``train_step`` and the
+#: checkpoint store's fragment writes; an unscoped entry fires at the
+#: first hook its trigger reaches
+_FAULT_HOOKS: Dict[Optional[str], tuple] = {
+    "serving_step": ("preempt", "io_error", "engine_error", "hang"),
+    "train_step": ("preempt", "io_error", "engine_error", "hang",
+                   "nonfinite_grad"),
+    "checkpoint": ("io_error", "torn_fragment"),
+    None: ("preempt", "io_error", "engine_error", "hang", "nonfinite_grad",
+           "torn_fragment"),
+}
+
+
 class ResilienceConfig(TPUConfigModel):
     """``"resilience"`` (config.py:690). ``serving_retry_budget``: engine
     faults a running serving request survives before it finishes with
-    reason "error". ``fault_plan``: a deterministic fault schedule
-    (resilience/faults.py grammar), armed by the serving front end; its
-    one hook site is the front end's pump, so an entry must trigger on
-    ``serving_step`` or ``time``, at that site, with a kind the hook
-    acts on. The checkpoint retry keys wait for the checkpoint store."""
+    reason "error". ``ckpt_io_retries``/``ckpt_io_backoff_s``: the
+    checkpoint store's bounded retry of a fragment write. ``fault_plan``:
+    a deterministic fault schedule (resilience/faults.py grammar), armed
+    by the training engine and the serving front end. Its entries must
+    name a site the port hooks — the serving pump, ``train_step``
+    (action kinds and ``nonfinite_grad``) or ``checkpoint`` (``io_error``,
+    ``torn_fragment``); the router, handoff, kvtier and launcher sites
+    raise."""
     fault_plan: Optional[str] = None
     ckpt_io_retries: int = Field(default=3, ge=0)
     ckpt_io_backoff_s: float = Field(default=0.05, ge=0)
@@ -213,22 +232,30 @@ class ResilienceConfig(TPUConfigModel):
 
     @model_validator(mode="after")
     def _ported(self):
-        if self.ckpt_io_retries != 3 or self.ckpt_io_backoff_s != 0.05:
-            raise NotImplementedError(
-                "resilience.ckpt_io_* need checkpoint/store.py, which is "
-                "not ported to deepspeed_tpu_torch yet")
-        from deepspeed_tpu_torch.resilience.faults import (
-            ACTION_KINDS, parse_fault_plan)
+        from deepspeed_tpu_torch.resilience.faults import parse_fault_plan
         for e in parse_fault_plan(self.fault_plan):
-            if e.trigger == "step" or e.site not in (None, "serving_step") \
-                    or e.kind not in ACTION_KINDS:
+            if e.kind not in _FAULT_HOOKS.get(e.site, ()):
                 raise NotImplementedError(
                     f"resilience.fault_plan entry {e.spec()!r}: the port's "
-                    f"only fault hook is the serving front end's pump "
-                    f"(serving_step/time triggers, kinds "
-                    f"{'/'.join(ACTION_KINDS)}); the training, checkpoint, "
-                    f"router, handoff and kvtier hooks are not ported yet")
+                    f"fault hooks are the serving front end's pump "
+                    f"(serving_step), the training step (train_step) and "
+                    f"the checkpoint store (checkpoint: io_error, "
+                    f"torn_fragment); the router, handoff, kvtier and "
+                    f"launcher hooks are not ported yet (ROADMAP A, "
+                    f"'Observability, fleet and tools')")
         return self
+
+
+class CheckpointConfig(TPUConfigModel):
+    """``"checkpoint"`` (config.py:783). Accepted with the JAX schema's
+    fields and defaults; neither package reads them (the engine's
+    ``save_checkpoint``/``load_checkpoint`` take their options as
+    arguments)."""
+    tag_validation: str = "Warn"   # Ignore | Warn | Fail
+    load_universal: bool = False
+    use_node_local_storage: bool = False
+    parallel_write_pipeline: bool = False
+    async_save: bool = False
 
 
 #: ZeRO knobs that change nothing at stage 0 (accepted with any value)
@@ -282,7 +309,6 @@ _UNPORTED_SECTIONS: Dict[str, Dict[str, Any]] = {
     "comet": {"enabled": False},
     "csv_monitor": {"enabled": False},
     "monitor_config": {},
-    "checkpoint": {},
     "compression_training": {},
     "slo": {},
     "router": {},
@@ -341,6 +367,7 @@ class DeepSpeedConfig(TPUConfigModel):
     telemetry: TelemetryConfig = Field(default_factory=TelemetryConfig)
     serving: ServingConfig = Field(default_factory=ServingConfig)
     resilience: ResilienceConfig = Field(default_factory=ResilienceConfig)
+    checkpoint: CheckpointConfig = Field(default_factory=CheckpointConfig)
 
     #: 'auto' / 'pallas_flash' → the port's flash attention (K1 + K3 on
     #: CUDA); 'naive' → the plain [T, T] attention

@@ -1,7 +1,9 @@
-"""Optimizers — Adam / AdamW.
+"""Optimizers — Adam / AdamW, LAMB, Lion, Adagrad, SGD and Muon.
 
 Port of ``deepspeed_tpu/ops/optimizers.py`` (reference
-ops/adam/fused_adam.py:18). Each optimizer is an ``Optimizer(init,
+ops/adam/fused_adam.py:18, ops/lamb/fused_lamb.py:14,
+ops/lion/fused_lion.py:17, csrc/adagrad/cpu_adagrad.cpp,
+runtime/zero/muon/muon_optimizer.py:14). Each optimizer is an ``Optimizer(init,
 update)`` pair over a parameter tree: ``update`` takes fp32 grads and a
 scalar ``lr`` and returns the new parameters and state. When the params
 are not fp32 the state keeps an fp32 master copy (``_needs_master`` :46)
@@ -14,12 +16,20 @@ same objects), so a step allocates one fp32 leaf of temporaries at a time
 instead of a second copy of the whole state. These are elementwise passes,
 not TPU kernels: plain PyTorch is the port.
 
-LAMB, Lion, Adagrad, SGD and Muon are not ported yet: building them
-raises ``NotImplementedError``.
+Every optimizer keeps the JAX package's state tree key for key (the
+checkpoint store carries it across the packages): ``step`` (a Python
+int here, a 0-d int32 there), the fp32 ``master`` when a param is not
+fp32, and its moments — ``exp_avg``/``exp_avg_sq`` (Adam, LAMB),
+``exp_avg`` (Lion), ``sum_sq`` (Adagrad), ``momentum`` (SGD with
+momentum), and for Muon ``momentum`` on its matrices with Adam moments
+on the rest, each tree holding 0-d fp32 placeholders where the update
+does not read it.
 """
 
+import math
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 Params = Any
@@ -132,12 +142,261 @@ def adam(beta1: float = 0.9, beta2: float = 0.999, eps: float = 1e-8,
     return Optimizer(init, update, hp)
 
 
-def _not_ported(name: str):
-    def factory(**_kw):
-        raise NotImplementedError(
-            f"optimizer '{name}' is not ported to deepspeed_tpu_torch yet "
-            f"(adam / adamw are)")
-    return factory
+def _masters(state, params) -> List[torch.Tensor]:
+    """The fp32 weights each update writes: the master copies when the
+    state has them (the params are then refreshed from them), else the
+    params themselves."""
+    return tree_leaves(state["master"]) if "master" in state \
+        else tree_leaves(params)
+
+
+def _write_back(state, params) -> None:
+    """Cast the updated masters back into the params (``_finish``,
+    optimizers.py:55)."""
+    if "master" in state:
+        for p, w in zip(tree_leaves(params), tree_leaves(state["master"])):
+            p.copy_(w)
+
+
+def _zeros_f32(params):
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)
+
+
+def _init_state(params, **trees) -> OptState:
+    state = {"step": 0, **trees}
+    if _needs_master(params):
+        state["master"] = tree_map(lambda p: p.detach().float().clone(),
+                                   params)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# LAMB  (optimizers.py:147 — layerwise trust ratio)
+# ---------------------------------------------------------------------------
+
+def lamb(beta1: float = 0.9, beta2: float = 0.999, eps: float = 1e-6,
+         weight_decay: float = 0.0, max_coeff: float = 10.0,
+         min_coeff: float = 0.01) -> Optimizer:
+    hp = dict(name="lamb", beta1=beta1, beta2=beta2, eps=eps,
+              weight_decay=weight_decay, max_coeff=max_coeff,
+              min_coeff=min_coeff)
+
+    def init(params):
+        return _init_state(params, exp_avg=_zeros_f32(params),
+                           exp_avg_sq=_zeros_f32(params))
+
+    @torch.no_grad()
+    def update(grads, state, params, lr):
+        for m, v, g, w in zip(tree_leaves(state["exp_avg"]),
+                              tree_leaves(state["exp_avg_sq"]),
+                              tree_leaves(grads), _masters(state, params)):
+            g = g.float()
+            m.mul_(beta1).add_(g, alpha=1 - beta1)
+            v.mul_(beta2).addcmul_(g, g, value=1 - beta2)
+            upd = m / (v.sqrt() + eps)
+            if weight_decay:
+                upd.add_(w, alpha=weight_decay)
+            w_norm = torch.linalg.vector_norm(w)
+            u_norm = torch.linalg.vector_norm(upd)
+            trust = torch.where((w_norm > 0) & (u_norm > 0),
+                                torch.clamp(w_norm / u_norm, min_coeff,
+                                            max_coeff),
+                                torch.ones_like(w_norm))
+            w.sub_(upd.mul_(lr * trust))
+        _write_back(state, params)
+        state["step"] += 1
+        return params, state
+
+    return Optimizer(init, update, hp)
+
+
+# ---------------------------------------------------------------------------
+# Lion  (optimizers.py:198)
+# ---------------------------------------------------------------------------
+
+def lion(beta1: float = 0.9, beta2: float = 0.99,
+         weight_decay: float = 0.0) -> Optimizer:
+    hp = dict(name="lion", beta1=beta1, beta2=beta2,
+              weight_decay=weight_decay)
+
+    def init(params):
+        return _init_state(params, exp_avg=_zeros_f32(params))
+
+    @torch.no_grad()
+    def update(grads, state, params, lr):
+        for m, g, w in zip(tree_leaves(state["exp_avg"]), tree_leaves(grads),
+                           _masters(state, params)):
+            g = g.float()
+            upd = (m * beta1).add_(g * (1 - beta1)).sign_()
+            if weight_decay:
+                w.mul_(1 - lr * weight_decay)
+            m.mul_(beta2).add_(g * (1 - beta2))
+            w.sub_(upd.mul_(lr))
+        _write_back(state, params)
+        state["step"] += 1
+        return params, state
+
+    return Optimizer(init, update, hp)
+
+
+# ---------------------------------------------------------------------------
+# Adagrad  (optimizers.py:237)
+# ---------------------------------------------------------------------------
+
+def adagrad(eps: float = 1e-10, weight_decay: float = 0.0) -> Optimizer:
+    hp = dict(name="adagrad", eps=eps, weight_decay=weight_decay)
+
+    def init(params):
+        return _init_state(params, sum_sq=_zeros_f32(params))
+
+    @torch.no_grad()
+    def update(grads, state, params, lr):
+        for s, g, w in zip(tree_leaves(state["sum_sq"]), tree_leaves(grads),
+                           _masters(state, params)):
+            g = g.float()
+            if weight_decay:
+                g = g + weight_decay * w
+            s.addcmul_(g, g)
+            w.sub_((g * lr).div_(s.sqrt().add_(eps)))
+        _write_back(state, params)
+        state["step"] += 1
+        return params, state
+
+    return Optimizer(init, update, hp)
+
+
+# ---------------------------------------------------------------------------
+# SGD (+momentum, nesterov)  (optimizers.py:273)
+# ---------------------------------------------------------------------------
+
+def sgd(momentum: float = 0.0, weight_decay: float = 0.0,
+        nesterov: bool = False) -> Optimizer:
+    hp = dict(name="sgd", momentum=momentum, weight_decay=weight_decay,
+              nesterov=nesterov)
+
+    def init(params):
+        return _init_state(params, **(
+            {"momentum": _zeros_f32(params)} if momentum else {}))
+
+    @torch.no_grad()
+    def update(grads, state, params, lr):
+        bufs = tree_leaves(state["momentum"]) if momentum else \
+            [None] * len(tree_leaves(grads))
+        for b, g, w in zip(bufs, tree_leaves(grads), _masters(state, params)):
+            g = g.float()
+            if weight_decay:
+                g = g + weight_decay * w
+            if momentum:
+                b.mul_(momentum).add_(g)
+                g = g + momentum * b if nesterov else b
+            w.sub_(g * lr)
+        _write_back(state, params)
+        state["step"] += 1
+        return params, state
+
+    return Optimizer(init, update, hp)
+
+
+# ---------------------------------------------------------------------------
+# Muon  (optimizers.py:313 — Newton–Schulz orthogonalized momentum on the
+# matrices, Adam for the rest)
+# ---------------------------------------------------------------------------
+
+def _newton_schulz(G: torch.Tensor, steps: int = 5,
+                   eps: float = 1e-7) -> torch.Tensor:
+    """Quintic Newton–Schulz iteration approximating UV^T of G = USV^T
+    (optimizers.py:313), in bf16 with the norm taken in fp32 and cast to
+    bf16 before the divide. Batched over leading dims: a [L, m, n] input
+    is L independent matrices (the JAX package's vmap). The coefficients
+    are rounded to bf16 first: in JAX a Python scalar times a bf16 array
+    is a bf16 product."""
+    a, b, c = (float(torch.tensor(x, dtype=torch.bfloat16))
+               for x in (3.4445, -4.7750, 2.0315))
+    transpose = G.shape[-2] > G.shape[-1]
+    X = G.to(torch.bfloat16)
+    if transpose:
+        X = X.mT
+    norm = torch.linalg.vector_norm(X.float(), dim=(-2, -1), keepdim=True)
+    X = X / (norm + eps).to(torch.bfloat16)
+    for _ in range(steps):
+        A = X @ X.mT
+        B = b * A + c * (A @ A)
+        X = a * X + B @ X
+    if transpose:
+        X = X.mT
+    return X
+
+
+_MUON_EXCLUDED = ("embed", "norm", "bias", "lm_head")
+
+
+def _muon_mask(tree, path: str = ""):
+    """A tree of bools: which leaves Muon orthogonalizes (2 or more dims,
+    and a "/"-joined key path naming none of embed/norm/bias/lm_head)."""
+    if isinstance(tree, dict):
+        return {k: _muon_mask(v, f"{path}/{k}") for k, v in tree.items()}
+    return tree.ndim >= 2 and not any(k in path.lower()
+                                      for k in _MUON_EXCLUDED)
+
+
+def muon(beta: float = 0.95, weight_decay: float = 0.0, ns_steps: int = 5,
+         adam_beta1: float = 0.9, adam_beta2: float = 0.999,
+         adam_eps: float = 1e-8) -> Optimizer:
+    """Leaves of 2 or more dims whose path names none of
+    embed/norm/bias/lm_head get orthogonalized momentum; the rest get
+    Adam. A leaf of more than 2 dims is reshaped to ``[shape[0],
+    shape[1], -1]`` and orthogonalized as ``shape[0]`` matrices, as the
+    JAX package does (a ``[L, E, d, f]`` expert stack is L matrices of
+    ``[E, d·f]``). Which leaves are Muon's is kept in the state itself:
+    exactly those whose ``momentum`` is not a 0-d placeholder."""
+    hp = dict(name="muon", beta=beta, weight_decay=weight_decay,
+              ns_steps=ns_steps)
+
+    def init(params):
+        mask = _muon_mask(params)
+
+        def select(keep):
+            return tree_map(lambda p, k: torch.zeros(
+                p.shape if k == keep else (), dtype=torch.float32,
+                device=p.device), params, mask)
+
+        return _init_state(params, momentum=select(True),
+                           exp_avg=select(False), exp_avg_sq=select(False))
+
+    @torch.no_grad()
+    def update(grads, state, params, lr):
+        step = state["step"] + 1
+        # fp32 powers, as the JAX package computes them: 1 - 0.999 ** 1
+        # loses 5 digits to cancellation, so the rounding shows
+        bc1, bc2 = (float(np.float32(1.0) - np.float32(b) ** np.float32(step))
+                    for b in (adam_beta1, adam_beta2))
+        for mom, m, v, g, w in zip(tree_leaves(state["momentum"]),
+                                   tree_leaves(state["exp_avg"]),
+                                   tree_leaves(state["exp_avg_sq"]),
+                                   tree_leaves(grads),
+                                   _masters(state, params)):
+            g = g.float()
+            if mom.ndim >= 2:
+                mom.mul_(beta).add_(g)
+                eff = g + beta * mom            # nesterov-style
+                mat = eff if eff.ndim == 2 else \
+                    eff.reshape(eff.shape[0], eff.shape[1], -1)
+                ortho = _newton_schulz(mat, ns_steps).reshape(eff.shape)
+                scale = math.sqrt(max(1.0, eff.shape[-2] / eff.shape[-1]))
+                upd = ortho.float() * scale
+            else:
+                m.mul_(adam_beta1).add_(g, alpha=1 - adam_beta1)
+                v.mul_(adam_beta2).addcmul_(g, g, value=1 - adam_beta2)
+                upd = (m / bc1).div_((v / bc2).sqrt_().add_(adam_eps))
+            if weight_decay:
+                upd = upd + weight_decay * w
+            w.sub_(upd * lr)
+        _write_back(state, params)
+        state["step"] = step
+        return params, state
+
+    return Optimizer(init, update, hp)
 
 
 # ---------------------------------------------------------------------------
@@ -153,9 +412,12 @@ def register_optimizer(name: str, factory: Callable[..., Optimizer]) -> None:
 
 for _n, _f in [("adam", lambda **kw: adam(**{"adam_w_mode": False, **kw})),
                ("adamw", adam),
-               ("fusedadam", adam)] + [
-        (n, _not_ported(n)) for n in ("lamb", "lion", "adagrad", "sgd",
-                                      "muon")]:
+               ("fusedadam", adam),
+               ("lamb", lamb),
+               ("lion", lion),
+               ("adagrad", adagrad),
+               ("sgd", sgd),
+               ("muon", muon)]:
     register_optimizer(_n, _f)
 
 

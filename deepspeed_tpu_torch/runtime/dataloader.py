@@ -5,9 +5,10 @@ Port of what ``deepspeed_tpu/runtime/dataloader.py`` gives the engine's
 dataset (indexable, ``len()``) served as micro-batches in an order
 shuffled by ``(seed, epoch)`` — the same order as the JAX loader's, with
 the last partial batch dropped — and a :class:`RepeatingLoader` that
-starts the next epoch when one runs out. Batches are dicts of numpy
-arrays; the engine moves them to its device. Curriculum / data-efficiency
-samplers, collate overrides and the resume cursor are not ported.
+starts the next epoch when one runs out, and the resume cursor the
+engine checkpoints (``state_dict``/``load_state_dict``). Batches are
+dicts of numpy arrays; the engine moves them to its device. Curriculum /
+data-efficiency samplers and collate overrides are not ported.
 """
 
 from typing import Any, Dict, Iterator, Sequence
@@ -24,6 +25,11 @@ class DeepSpeedDataLoader:
         self.micro_batch_size = micro_batch_size
         self.seed = seed
         self.epoch = 0
+        #: microbatches already served this epoch — the resume cursor. A
+        #: fresh ``iter()`` continues FROM the cursor (the epoch order is
+        #: deterministic in (seed, epoch), so position is the whole
+        #: dataloader state); ``set_epoch`` rewinds it to 0.
+        self._cursor = 0
         if len(dataset) < micro_batch_size:
             raise ValueError(
                 f"dataset of {len(dataset)} items smaller than one "
@@ -34,12 +40,32 @@ class DeepSpeedDataLoader:
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
+        self._cursor = 0
+
+    def state_dict(self) -> Dict[str, int]:
+        """Exact resume cursor: (epoch, microbatches served within it),
+        checkpointed by the engine so a resumed run is fed the batches the
+        uninterrupted run would have seen (dataloader.py:82)."""
+        return {"epoch": int(self.epoch), "cursor": int(self._cursor),
+                "seed": int(self.seed)}
+
+    def load_state_dict(self, sd: Dict[str, int]) -> None:
+        if int(sd.get("seed", self.seed)) != self.seed:
+            raise ValueError(
+                f"dataloader seed mismatch on resume: checkpoint has "
+                f"{sd['seed']}, loader built with {self.seed} — the "
+                f"shuffled orders would diverge silently")
+        self.epoch = int(sd.get("epoch", 0))
+        self._cursor = int(sd.get("cursor", 0))
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        """The epoch's shuffled order from the cursor on (``_epoch_iter``
+        of the JAX loader): skipped microbatches load no data."""
         order = np.arange(len(self.dataset))
         np.random.default_rng(self.seed + self.epoch).shuffle(order)
         mb = self.micro_batch_size
-        for start in range(0, len(self) * mb, mb):
+        for start in range(self._cursor * mb, len(self) * mb, mb):
+            self._cursor += 1
             yield _default_collate([self.dataset[int(i)]
                                     for i in order[start:start + mb]])
 

@@ -12,17 +12,27 @@ from ``torch.autograd.grad`` over the parameter leaves (on CUDA the
 attention runs through kernels K1 and K3), the update from the port's
 optimizer, in place.
 
+Checkpoints (:meth:`DeepSpeedEngine.save_checkpoint` /
+:meth:`~DeepSpeedEngine.load_checkpoint`) go through
+:mod:`deepspeed_tpu_torch.checkpoint.store` in the JAX package's
+format, with the exact-resume state (counters, the dataloader cursor);
+either package resumes the other's. ``resilience.fault_plan`` arms the
+fault injector, whose ``train_step`` hook sits at the top of
+``train_batch`` (a ``preempt`` there is committed by
+:class:`~deepspeed_tpu_torch.elasticity.DSElasticAgent` at the step
+boundary; a ``nonfinite_grad`` step is skipped).
+
 This slice trains on one device. The ``telemetry`` block arms the span
 and request tracers (:func:`deepspeed_tpu_torch.telemetry.configure`).
 Data parallelism and ZeRO stages above 0, offload, ZeRO++, 1-bit
 optimizers, pipeline parallelism, the training step's telemetry spans and
-flight records, the watchdog, chaos hooks and checkpointing are not
-ported: their config keys raise in :class:`DeepSpeedConfig` and the
-engine has no such paths.
+flight records and the watchdog are not ported: their config keys raise
+in :class:`DeepSpeedConfig` and the engine has no such paths.
 """
 
+import os
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterator, List, Optional, Union
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,7 +43,10 @@ from deepspeed_tpu_torch.config.config import DeepSpeedConfig
 from deepspeed_tpu_torch.models.convert import params_from_jax
 from deepspeed_tpu_torch.ops.optimizers import (build_optimizer, global_norm,
                                                 tree_leaves, tree_map)
-from deepspeed_tpu_torch.runtime.loss_scaler import (check_overflow,
+from deepspeed_tpu_torch.resilience.faults import (fault_injector,
+                                                   record_recovery)
+from deepspeed_tpu_torch.runtime.loss_scaler import (LossScaleState,
+                                                     check_overflow,
                                                      init_loss_scale,
                                                      update_scale)
 from deepspeed_tpu_torch.runtime.lr_schedules import build_schedule
@@ -114,6 +127,14 @@ class DeepSpeedEngine:
         self._last_metrics: Optional[Dict[str, Any]] = None
         self._data_iter = None
         self.training_dataloader = self._build_dataloader(training_data)
+        #: the JAX engine's PRNG key, as loaded from a checkpoint: the
+        #: port's training path draws no random numbers, so it is carried
+        #: to the next save unchanged (None: saved as null)
+        self._rng: Optional[List[int]] = None
+        #: host offload (ZeRO-Offload) is not ported: the config refuses
+        #: it, and load_checkpoint's offload branch raises
+        self.offload_enabled = False
+        self._arm_resilience()
 
         log_dist(
             f"engine ready: device={self.device} zero_stage="
@@ -149,6 +170,17 @@ class DeepSpeedEngine:
         self.params = tree_map(own, params)
         self._leaves = tree_leaves(self.params)
         self.opt_state = self.optimizer.init(self.params)
+
+    def _arm_resilience(self) -> None:
+        """engine.py:1204: the checkpoint store's IO retry knobs, and the
+        fault injector armed from ``resilience.fault_plan`` (plus the
+        ``DSTPU_FAULT_PLAN`` environment variable)."""
+        from deepspeed_tpu_torch.checkpoint import store
+        rcfg = self.config.resilience
+        store.IO_RETRIES = int(rcfg.ckpt_io_retries)
+        store.IO_BACKOFF_S = float(rcfg.ckpt_io_backoff_s)
+        if rcfg.fault_plan or os.environ.get("DSTPU_FAULT_PLAN"):
+            fault_injector.arm(rcfg.fault_plan)
 
     def _build_dataloader(self, training_data):
         """engine.py:1062, without data-efficiency samplers."""
@@ -293,10 +325,17 @@ class DeepSpeedEngine:
         gas = int(self.config.gradient_accumulation_steps)
         it = data_iter if data_iter is not None else \
             self._own_data_iterator()
+        # chaos hook (resilience/faults.py, engine.py:753): a scheduled
+        # preempt delivers SIGTERM here — this step completes and the
+        # elastic agent commits at its boundary; a nonfinite_grad advisory
+        # poisons THIS step (skipped after its batch is consumed)
+        chaos = fault_injector.fire("train_step", step=self.global_steps)
         micros = [self._place_batch(next(it)) for _ in range(gas)]
         if self._acc_grads is not None:
             raise RuntimeError("train_batch() called with gradients pending "
                                "from forward()/backward(); call step()")
+        if "nonfinite_grad" in chaos:
+            return self._skip_poisoned_step(gas)
         losses, fwd = self._accumulate_grads(micros)
         metrics = self._apply_update(gas, fwd)
         loss = torch.stack(losses).mean()
@@ -304,6 +343,20 @@ class DeepSpeedEngine:
         self.micro_steps += gas
         self._finish_step(metrics)
         return loss
+
+    def _skip_poisoned_step(self, gas: int) -> torch.Tensor:
+        """engine.py:843: an injected ``nonfinite_grad`` step is skipped
+        like an fp16 overflow — the batch is consumed and every counter
+        moves, but params and optimizer state stay untouched and the loss
+        is NaN."""
+        self.global_steps += 1
+        self.micro_steps += gas
+        self.global_samples += int(self.config.train_batch_size)
+        self.skipped_steps += 1
+        self._last_metrics = {"loss": float("nan"),
+                              "grad_norm": float("nan"), "overflow": 1}
+        record_recovery("skip_nonfinite", step=self.global_steps)
+        return torch.tensor(float("nan"), device=self.device)
 
     @torch.no_grad()
     def eval_batch(self, data_iter: Iterator[Batch]) -> torch.Tensor:
@@ -329,6 +382,107 @@ class DeepSpeedEngine:
             self._data_iter = iter(RepeatingLoader(self.training_dataloader))
         return self._data_iter
 
+    # --------------------------------------------------------- checkpointing
+
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[Dict[str, Any]] = None,
+                        save_latest: bool = True,
+                        async_save: bool = False) -> None:
+        """engine.py:1510: the groups ``params``, ``opt_state`` and
+        ``loss_scale`` and the exact-resume meta, in the JAX package's
+        format. The host snapshot is complete when this returns, so the
+        next (in-place) step cannot reach what is written; with
+        ``async_save`` the files are written on a background thread
+        (``checkpoint.store.wait_pending`` joins it)."""
+        from deepspeed_tpu_torch.checkpoint.store import save_checkpoint
+        tag = tag or f"global_step{self.global_steps}"
+        state = {"params": self.params, "opt_state": self.opt_state,
+                 "loss_scale": self.loss_scale_state}
+        meta = {
+            "global_steps": self.global_steps,
+            "micro_steps": self.micro_steps,
+            "skipped_steps": self.skipped_steps,
+            "global_samples": self.global_samples,
+            "optimizer": self.optimizer.hyperparams,
+            "client_state": client_state or {},
+            "offload": self.offload_enabled,
+            "data_sampler": None,
+            "rng": self._rng,
+            "dataloader": (self.training_dataloader.state_dict()
+                           if self.training_dataloader is not None
+                           else None),
+        }
+        save_checkpoint(save_dir, tag, state, meta, save_latest=save_latest,
+                        async_save=async_save)
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        load_optimizer_states: bool = True,
+                        load_module_strict: bool = True, **_kw
+                        ) -> Tuple[Optional[str], Dict[str, Any]]:
+        """engine.py:1557, the non-offload branch: the loaded leaves are
+        copied into the engine's own tensors (its optimizer updates them
+        in place). ``load_module_strict`` gates the params' strictness
+        only; optimizer state is always strict. A tag without an
+        ``opt_state`` group (a JAX offload run's) rebuilds the optimizer
+        state from the loaded params: fresh moments, master = the
+        weights. Returns (tag, client_state); (None, {}) when there is no
+        checkpoint."""
+        if self.offload_enabled:
+            raise NotImplementedError(
+                "load_checkpoint into an offload engine (host optimizer, "
+                "param streaming) is not ported to deepspeed_tpu_torch yet "
+                "(ROADMAP A, 'Offload')")
+        from deepspeed_tpu_torch.checkpoint.store import load_checkpoint
+        templates = {"params": self.params,
+                     "loss_scale": self.loss_scale_state}
+        if load_optimizer_states:
+            templates["opt_state"] = self.opt_state
+        strict = frozenset(templates) if load_module_strict \
+            else frozenset(templates) - {"params"}
+        state, meta, tag = load_checkpoint(load_dir, tag, templates,
+                                           strict=strict)
+        if state is None:
+            return None, {}
+        bad = [m for g in ("params", "opt_state") if g in state
+               for m in _shape_mismatches(templates[g], state[g], g)]
+        if bad:
+            raise ValueError(
+                f"checkpoint {tag} holds leaves of other shapes than the "
+                f"engine's (another model or optimizer configuration): "
+                f"{bad[:4]}")
+        with torch.no_grad():
+            _copy_into(self.params, state["params"])
+            if load_optimizer_states:
+                if "opt_state" in state:
+                    self.opt_state = _copy_into(self.opt_state,
+                                                state["opt_state"])
+                else:
+                    log_dist("checkpoint has no opt_state group — "
+                             "rebuilding from loaded params (cross-mode "
+                             "resume)")
+                    self.opt_state = self.optimizer.init(self.params)
+            if "loss_scale" in state:
+                self.loss_scale_state = LossScaleState(*(
+                    t.to(self.device) for t in state["loss_scale"]))
+        self.global_steps = meta.get("global_steps", 0)
+        self.micro_steps = meta.get("micro_steps", 0)
+        self.skipped_steps = meta.get("skipped_steps", 0)
+        self.global_samples = meta.get("global_samples", 0)
+        self._restore_resume_state(meta)
+        return tag, meta.get("client_state", {})
+
+    def _restore_resume_state(self, meta: Dict[str, Any]) -> None:
+        """engine.py:1658: the JAX PRNG key (carried, see ``_rng``) and the
+        dataloader cursor. Older checkpoints lack the keys — resume still
+        works, just without the exact batch sequence."""
+        if meta.get("rng") is not None:
+            self._rng = meta["rng"]
+        if meta.get("dataloader") and self.training_dataloader is not None:
+            self.training_dataloader.load_state_dict(meta["dataloader"])
+            # drop any half-consumed iterator so the next train_batch
+            # builds a fresh one starting AT the restored cursor
+            self._data_iter = None
+
     # ------------------------------------------------------------ utilities
 
     def get_lr(self) -> float:
@@ -350,6 +504,32 @@ class DeepSpeedEngine:
 
     def loss_scale(self) -> float:
         return float(self.loss_scale_state.scale)
+
+
+def _copy_into(dst, src):
+    """Copy a loaded tree into the engine's: tensors in place (the
+    optimizer and ``_leaves`` hold them), Python numbers replaced.
+    Returns ``dst``."""
+    if isinstance(dst, dict):
+        for k in dst:
+            dst[k] = _copy_into(dst[k], src[k])
+        return dst
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+        return dst
+    return src
+
+
+def _shape_mismatches(dst, src, key: str) -> List[str]:
+    """Tensor leaves whose loaded shape is not the engine's (``copy_``
+    would broadcast them)."""
+    if isinstance(dst, dict):
+        return [m for k in dst
+                for m in _shape_mismatches(dst[k], src[k], f"{key}.{k}")]
+    if isinstance(dst, torch.Tensor) and \
+            tuple(src.shape) != tuple(dst.shape):
+        return [f"{key} {tuple(src.shape)} != {tuple(dst.shape)}"]
+    return []
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,8 @@ schedules: 1e-5 relative (the JAX package computes them in fp32, the port
 in Python floats; fp32 cos / log1p are good to a few ulps).
 """
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -82,15 +84,86 @@ def test_adam_matches_jax_step_by_step(name, param_dtype, opts):
         assert ts["step"] == int(js["step"]) == step + 1
 
 
-def test_unported_optimizers_raise():
-    for name in ("lamb", "lion", "adagrad", "sgd", "muon"):
-        with pytest.raises(NotImplementedError, match=name):
-            topt.build_optimizer(name, {"lr": 1e-3})
+def test_optimizer_registry():
     with pytest.raises(ValueError, match="unknown optimizer"):
         topt.build_optimizer("nope", {})
     topt.register_optimizer("MyAdam", topt.adam)
     opt, lr = topt.build_optimizer("myadam", {"lr": 0.5})
     assert lr == 0.5 and opt.hyperparams["name"] == "adamw"
+
+
+#: Muon's tree: two matrices, a stacked [L, in, out] leaf, a 4-D expert
+#: stack [L, E, d, f] (orthogonalized as L matrices of [E, d*f]), a tall
+#: matrix (transposed inside Newton-Schulz), and leaves the mask sends to
+#: Adam (embed, norm, lm_head, 1-D)
+MUON_SHAPES = {"embed": {"tokens": (11, 6)}, "lm_head": (6, 11),
+               "layers": {"wq": (2, 6, 8), "experts": (2, 3, 6, 4),
+                          "norm": (2, 6), "tall": (9, 4)},
+               "w": (6, 5), "b": (5,)}
+
+NEW_CASES = [("lamb", {"weight_decay": 0.01}), ("lion", {"weight_decay": 0.1}),
+             ("adagrad", {"weight_decay": 0.01}), ("sgd", {}),
+             ("sgd", {"momentum": 0.9, "weight_decay": 0.01}),
+             ("sgd", {"momentum": 0.9, "nesterov": True}),
+             ("muon", {"weight_decay": 0.01})]
+
+
+def _jax_tree(tree, dtype):
+    return jax.tree.map(lambda x: jnp.asarray(x, dtype), tree)
+
+
+def _torch_tree(tree, dtype):
+    return topt.tree_map(lambda x: torch.from_numpy(x).to(dtype), tree)
+
+
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,opts", NEW_CASES,
+                         ids=["lamb", "lion", "adagrad", "sgd", "sgd_momentum",
+                              "sgd_nesterov", "muon"])
+def test_optimizers_match_jax_step_by_step(name, opts, param_dtype):
+    """LAMB, Lion, Adagrad, SGD (plain, momentum, nesterov) and Muon from a
+    config block, 6 steps against deepspeed_tpu.ops.optimizers; bf16
+    params carry an fp32 master in both.
+
+    Tolerances: fp32 params and state 1e-6 relative (1e-6 absolute for
+    Lion, whose update is lr * sign(.)); bf16 params one bf16 step
+    (rtol 8e-3). Muon's Newton-Schulz runs in bf16 on both sides and
+    agrees bit for bit at these shapes."""
+    shapes = MUON_SHAPES if name == "muon" else SHAPES
+    rng = np.random.default_rng(1)
+    init = _tree(rng, shapes)
+    cfg = dict({"lr": 3e-2}, **opts)
+    jo, _ = jopt.build_optimizer(name, dict(cfg))
+    to, _ = topt.build_optimizer(name, dict(cfg))
+    assert to.hyperparams == jo.hyperparams
+    jdt = jnp.bfloat16 if param_dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if param_dtype == "bfloat16" else torch.float32
+    jp, tp = _jax_tree(init, jdt), _torch_tree(init, tdt)
+    js, ts = jo.init(jp), to.init(tp)
+    assert sorted(ts) == sorted(js)
+    for key in js:
+        if key != "step":
+            want = [x.shape for x in jax.tree.leaves(js[key])]
+            assert [tuple(x.shape) for x in _t_leaves(ts[key])] == want, key
+    lr = 3e-2
+    if param_dtype == "bfloat16":
+        ptol = dict(rtol=8e-3, atol=1e-6)
+    else:
+        ptol = dict(rtol=1e-6, atol=1e-6 if name == "lion" else 1e-7)
+    for step in range(6):
+        g = _tree(rng, shapes)
+        jp, js = jo.update(jax.tree.map(jnp.asarray, g), js, jp,
+                           jnp.float32(lr))
+        tp, ts = to.update(topt.tree_map(torch.from_numpy, g), ts, tp, lr)
+        for a, b in zip(_t_leaves(tp), _leaves(jp)):
+            np.testing.assert_allclose(a, b, **ptol)
+        for key in js:
+            if key != "step":
+                for a, b in zip(_t_leaves(ts[key]), _leaves(js[key])):
+                    np.testing.assert_allclose(
+                        a, b, **(ptol if key == "master" else
+                                 dict(rtol=1e-6, atol=1e-6)))
+        assert ts["step"] == int(js["step"]) == step + 1
 
 
 @pytest.mark.parametrize("name,params", [
@@ -142,3 +215,54 @@ def test_loss_scaler_matches_jax(consecutive):
     grads = [torch.ones(3), torch.tensor([1.0, float("inf")])]
     assert bool(tls.check_overflow(grads))
     assert not bool(tls.check_overflow(grads[:1]))
+
+
+@pytest.mark.parametrize("name,opts", [("adamw", {})] + NEW_CASES[:3] +
+                         NEW_CASES[4:5] + NEW_CASES[6:],
+                         ids=["adamw", "lamb", "lion", "adagrad",
+                              "sgd_momentum", "muon"])
+def test_opt_state_checkpoint_crosses_packages(name, opts, tmp_path):
+    """Each optimizer's state tree (bf16 params, so with the fp32 master;
+    Muon's 0-d placeholders included) after 2 JAX steps, saved by the JAX
+    checkpoint store, loads into the port's tree bit for bit, and the
+    port's store writes it back as the same fragment files."""
+    from deepspeed_tpu.checkpoint import store as jstore
+    from deepspeed_tpu_torch.checkpoint import store as tstore
+    shapes = MUON_SHAPES if name == "muon" else SHAPES
+    rng = np.random.default_rng(2)
+    init = _tree(rng, shapes)
+    jo, _ = jopt.build_optimizer(name, dict(opts))
+    to, _ = topt.build_optimizer(name, dict(opts))
+    jp = _jax_tree(init, jnp.bfloat16)
+    js = jo.init(jp)
+    for _ in range(2):
+        jp, js = jo.update(jax.tree.map(jnp.asarray, _tree(rng, shapes)), js,
+                           jp, jnp.float32(1e-2))
+    jstore.save_checkpoint(str(tmp_path / "jax"), "t",
+                           {"params": jp, "opt_state": js}, {})
+    tp = _torch_tree(init, torch.bfloat16)
+    template = {"params": tp, "opt_state": to.init(tp)}
+    got, _, tag = tstore.load_checkpoint(str(tmp_path / "jax"), None,
+                                         template)
+    assert tag == "t" and got["opt_state"]["step"] == 2
+    want = tstore._leaf_paths({"params": jp, "opt_state": js})
+    have = tstore._leaf_paths(got)
+    assert sorted(have) == sorted(want)
+    for key, w in want.items():
+        h = have[key]
+        h = np.asarray(h) if not isinstance(h, torch.Tensor) else \
+            h.float().numpy()
+        assert h.shape == w.shape, key
+        np.testing.assert_array_equal(h, np.asarray(w, np.float32), key)
+    tstore.save_checkpoint(str(tmp_path / "port"), "t", got, {})
+    index = {}
+    for root in ("jax", "port"):
+        with open(tmp_path / root / "t" / "meta.json") as fh:
+            index[root] = json.load(fh)["index"]
+    assert index["port"] == index["jax"]
+    for group, entries in index["jax"].items():
+        for entry in entries.values():
+            f = entry["fragments"][0]["file"]
+            assert (tmp_path / "port" / "t" / "state" / group / f) \
+                .read_bytes() == \
+                (tmp_path / "jax" / "t" / "state" / group / f).read_bytes()

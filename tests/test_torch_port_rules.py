@@ -42,7 +42,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     n_mods, bad = out.stdout.strip().splitlines()[-2:]
-    assert int(n_mods) >= 39
+    assert int(n_mods) >= 56
     assert bad == "[]", bad
 
 
@@ -63,7 +63,8 @@ def test_every_module_is_listed():
                  "serving.metrics", "serving.frontend", "serving.handoff",
                  "telemetry.registry", "telemetry.tracer", "telemetry.reqtrace",
                  "telemetry.flight_recorder", "telemetry.endpoint",
-                 "telemetry.watchdog", "resilience.faults"):
+                 "telemetry.watchdog", "resilience.faults", "io.async_io",
+                 "checkpoint.store", "elasticity.elastic_agent"):
         assert "deepspeed_tpu_torch." + want in names
 
 
@@ -114,6 +115,24 @@ def test_unported_features_raise(monkeypatch):
     assert eng.step_with_budget(max_steps=4) is None
     with pytest.raises(NotImplementedError, match="expert parallelism"):
         serving_moe_fn(moe, None, eng.params, ep=True)
+    # checkpointing and the elastic agent are ported; resuming at a new
+    # world size, the async I/O engine, loading into an offload engine and
+    # the router's fault hook are not
+    from deepspeed_tpu_torch.elasticity import elastic_resume
+    from deepspeed_tpu_torch.io import AsyncIOEngine
+    with pytest.raises(NotImplementedError, match="Data parallel and ZeRO"):
+        elastic_resume(cfg, {}, "unused", world_size=2)
+    with pytest.raises(NotImplementedError, match="'Offload'"):
+        AsyncIOEngine()
+    engine = initialize(cfg, {"train_micro_batch_size_per_gpu": 1},
+                        device="cpu")[0]
+    engine.offload_enabled = True
+    with pytest.raises(NotImplementedError, match="'Offload'"):
+        engine.load_checkpoint("unused")
+    with pytest.raises(NotImplementedError, match="Observability, fleet"):
+        initialize(cfg, {"resilience": {
+            "fault_plan": "serving_step:2:replica_kill:router"}},
+            device="cpu")
 
 
 def test_builder_raises_without_nvcc(monkeypatch, tmp_path):

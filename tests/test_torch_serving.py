@@ -290,12 +290,19 @@ def test_config_serving_resilience_telemetry_keys():
     # parses it when the injector is armed)
     with pytest.raises(ValueError, match="not a number"):
         TORCH.config(resilience={"fault_plan": "serving_step:x:hang"})
+    # the training step's and the checkpoint store's hooks are ported
+    t = TORCH.config(resilience={
+        "fault_plan": "step:3:preempt;step:4:io_error:checkpoint",
+        "ckpt_io_retries": 5})
+    assert t.resilience.ckpt_io_retries == 5
     for bad, match in (
-            ({"resilience": {"fault_plan": "step:3:preempt"}}, "fault hook"),
+            ({"resilience": {"fault_plan": "step:3:preempt:launcher"}},
+             "fault hook"),
             ({"resilience": {"fault_plan":
                              "serving_step:3:replica_kill:router"}},
              "fault hook"),
-            ({"resilience": {"ckpt_io_retries": 5}}, "checkpoint/store.py"),
+            ({"resilience": {"fault_plan": "step:3:nonfinite_grad:"
+                                           "checkpoint"}}, "fault hook"),
             ({"telemetry": {"health": {"enabled": True}}},
              "telemetry/health.py"),
             ({"telemetry": {"watchdog": {"enabled": True}}}, "watchdog"),

@@ -181,9 +181,11 @@ def test_engine_defaults_to_cuda_and_unported_config_raises(monkeypatch):
         dt.initialize(model=dt.llama3_config("tiny"),
                       config={"activation_checkpointing":
                               {"policy": "save_attn_kernel"}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="lion"):
+    with pytest.raises(NotImplementedError, match="offload_optimizer"):
         dt.initialize(model=dt.llama3_config("tiny"),
-                      config={"optimizer": {"type": "lion"}}, device="cpu")
+                      config={"zero_optimization": {"offload_optimizer":
+                                                    {"device": "cpu"}}},
+                      device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         dt.initialize(model=dt.llama3_config("tiny"), config={})
