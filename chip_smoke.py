@@ -21,7 +21,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    bf16 and fp32; each case asserts the form it took), in fp32 at a
    4000-token decode and at small fp32 shapes (flash attention at small
    shapes in
-   bf16 too: its tensor-core kernels), and times the kernel, the plain
+   bf16 too: its tensor-core kernels); both at head dims 80, 96 and 256
+   at the heads of Phi-2 (32/32), GPT-NeoX-20B (64/64) and Gemma-2B (8/1):
+   flash attention's forward and forward with lse in bf16 at the fresh
+   prefill chunk and at small bf16 and fp32 shapes, paged attention's
+   split form at decode, its mma form at the split-prefill history and
+   on per-key pages, and in fp32 its split and fma forms; and times the
+   kernel, the plain
    version, the card's bound for the same work and, for flash attention,
    ``scaled_dot_product_attention`` (forward, and backward alone) as a
    yardstick (tolerances at ``TOL_F32``); the grouped GEMM kernels of the
@@ -117,6 +123,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    int8 (46.8 GB of weights; 256 arena pages, 512-token steps, 8 prompts of
    128-512 tokens, 16 new tokens), each with the same numbers, the
    quantized weights' bytes and K5's launches by form and by weight shape;
+   then the model families through HF checkpoints: Gemma-2B (head_dim
+   256, MQA, GeGLU, tied 256k vocabulary) and Phi-2 (head_dim 80, partial
+   rotary, parallel block, biased linears) at full width and depth in
+   bf16, weights drawn on the card from a seeded generator,
+   ``export_hf_checkpoint`` to a directory under ``build/`` and
+   ``load_hf_checkpoint`` back (every leaf bitwise, Gemma's folded norm
+   scales within one bf16 ulp; seconds, GB/s, bytes on disk), then
+   ``generate`` on 8 prompts of 64-1500 tokens with 32 new ones from the
+   loaded tree (decode windows on CUDA graphs; prefill tokens/s, ms a
+   decode step, wall and, from one traced megastep window, device; K1's
+   and K2's launches by form and head dim), and at depth 2 in fp32 the
+   card's logits held to the CPU's (2e-3) with identical greedy tokens;
 6. runs two ``train_batch`` steps of a depth-2 model at Llama-3-1B width in
    fp32 on the card (K1 + K3) and on the CPU (plain versions) from one
    parameter tree, and compares losses and updated parameters;
@@ -137,7 +155,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    forms);
 9. checkpoint and resume (run right after phase 7), in a fresh directory
    under ``build/`` removed at the end: (a) at depth 2 and Llama-3 1B width
-   in fp32, for AdamW, LAMB, Lion, Adagrad, SGD with momentum and Muon, 2
+   (a 32,000-entry vocabulary, an FFN of 2048) in fp32, for AdamW, LAMB, Lion, Adagrad, SGD with momentum and Muon, 2
    steps on the card, ``save_checkpoint``, ``load_checkpoint`` into a
    fresh card engine and a CPU engine (every leaf bitwise the saved one),
    2 more steps on each, card against CPU; (c) ``step:3:preempt`` under
@@ -186,6 +204,10 @@ GROUPED_FORM_LAUNCHES = {k: {"fma": 0, "mma": 0, "wgmma": 0}
 #: K2's launches by form over the serving paths (phase 5), each run
 #: counted from 0
 PAGED_FORM_LAUNCHES = {"fma": 0, "split": 0, "mma": 0}
+#: K1's and K2's launches by head dim over the HF models' path (phase 5),
+#: each run counted from 0; every other path's model has head_dim 128
+HF_DIM_LAUNCHES = {k: {d: 0 for d in (64, 80, 96, 128, 256)}
+                   for k in ("flash_attention_fwd", "paged_attention")}
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense bf16 tensor cores
@@ -1214,6 +1236,41 @@ def phase_kernels(rng):
                 ("flash_small_gqa4", 1, 130, (8, 2, 128), False, {})):
             check_flash(f"{name}_{tag}", rng, b, t, dims, dtype, with_lse,
                         time_it=False, **kw)
+    # head dims 80, 96 and 256 (the model families of slice 16), each at
+    # its model's heads (NEW_DIM_HEADS): K1 at the fresh prefill chunk (8 x
+    # 256) in bf16, forward (timed, with SDPA) and with lse, and at small
+    # fp32 and bf16 shapes with a window and an offset; K2's split form at
+    # decode over the 8 served prompts (timed) and its mma form at the
+    # split-prefill history (timed), per-key pages (bs 16) in bf16, and in
+    # fp32 its split form at decode and its fma form on small chunks (timed)
+    ctx_hf = [n + 1 for n in HF_PROMPTS]
+    for tag, (h, kvh, dh) in NEW_DIM_HEADS.items():
+        out[f"fresh_{tag}"] = check_flash(f"flash_fresh_{tag}", rng, 8, 256,
+                                          (h, kvh, dh), bf16, False)
+        check_flash(f"flash_with_lse_{tag}", rng, 8, 256, (h, kvh, dh),
+                    bf16, True, time_it=False)
+        for dtype, dt_tag in ((f32, "f32"), (bf16, "bf16")):
+            check_flash(f"flash_small_{tag}_{dt_tag}", rng, 2, 100,
+                        (h, kvh, dh), dtype, True, time_it=False)
+            check_flash(f"flash_small_window_{tag}_{dt_tag}", rng, 1, 130,
+                        (h, kvh, dh), dtype, False, window=40, q_offset=3,
+                        time_it=False)
+        dims = (h, kvh, dh, 128)
+        out[f"decode_{tag}"] = check_paged(
+            f"paged_decode_{tag}", rng, 8, 1, [x - 1 for x in ctx_hf],
+            [1] * 8, bf16, False, dims, "split", mb=16)
+        out[f"history_{tag}"] = check_paged(
+            f"paged_history_{tag}", rng, 8, 256, [0, 256, 512, 768] * 2,
+            [0] * 8, bf16, True, dims, "mma")
+        check_paged(f"paged_chunk_bs16_{tag}", rng, 3, 40, [0, 37, 300],
+                    [40, 9, 0], bf16, True, (h, kvh, dh, 16), "mma",
+                    time_it=False)
+        check_paged(f"paged_decode_{tag}_f32", rng, 5, 1, [0, 3, 600, 999, 0],
+                    [1, 1, 1, 1, 0], f32, True, (h, kvh, dh, 16), "split",
+                    time_it=False, mb=70)
+        out[f"fma_{tag}"] = check_paged(
+            f"paged_small_{tag}_f32", rng, 3, 40, [0, 37, 5], [40, 9, 0],
+            f32, True, (h, kvh, dh, 16), "fma")
     # K3: the training path's shape in bf16 (Llama-3 1B: 16 q / 8 kv heads,
     # dh 128, micro batch 4 x 2048), then small cases in fp32 (the CUDA-core
     # kernels) and bf16 (the tensor-core kernels): GQA, ragged T, dh 64,
@@ -2607,6 +2664,301 @@ def phase_serve_quant():
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the model families through HF checkpoints (Gemma-2B, Phi-2)
+# ---------------------------------------------------------------------------
+
+#: the head dims the model families add, at the heads (H, KvH, dh) of the
+#: model that brings each: Gemma-2B (MQA, dh 256), Phi-2 (dh 80),
+#: GPT-NeoX-20B (dh 96)
+NEW_DIM_HEADS = {"gemma2b_dh256": (8, 1, 256), "phi2_dh80": (32, 32, 80),
+                 "neox20b_dh96": (64, 64, 96)}
+#: the served HF models: name, preset function, size, seed, arena pages
+HF_MODELS = (("gemma-2b", "gemma_config", "2b", 30, 128),
+             ("phi-2", "phi_config", "2", 31, 96))
+#: phase_serve's 8 prompt lengths, 32 new tokens
+HF_PROMPTS = (64, 1500, 300, 777, 128, 1024, 513, 900)
+HF_NEW = 32
+#: the fp32 card-vs-CPU hold: depth 2, 4 prompts, 8 new tokens; logits
+#: atol/rtol 2e-3 (phase_full_width's: fp32 on both sides, sums in other
+#: orders over 2048-16384 terms; a wrong mask, page or layout moves a
+#: logit by O(0.1))
+HF_FP32 = dict(layers=2, prompts=(40, 300, 129, 7), new=8, tol=2e-3)
+
+
+def _jitter(tree, gen):
+    """Give the leaves that init_params draws as constants (norm scales
+    1, biases 0) random values, so that a swapped or misfolded leaf
+    shows in the export round trip."""
+    import torch
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _jitter(v, gen)
+        elif k == "scale" or k == "bias" or k.startswith("b") or \
+                k == "lm_head_bias":
+            noise = torch.randn(v.shape, generator=gen, device=v.device)
+            base = 1.0 if k == "scale" else 0.0
+            tree[k] = (base + 0.1 * noise).to(v.dtype)
+
+
+def _cast_tree(tree, dtype):
+    """Every floating leaf in ``dtype`` (init_params keeps norm
+    parameters in fp32; the engine casts them to its dtype, and an HF
+    checkpoint holds one dtype)."""
+    return {k: _cast_tree(v, dtype) if isinstance(v, dict) else
+            (v.to(dtype) if v.is_floating_point() else v)
+            for k, v in tree.items()}
+
+
+def _leaf_map(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_leaf_map(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+def _hf_round_trip(cfg, params, root, name) -> dict:
+    """export_hf_checkpoint then load_hf_checkpoint(dtype=bf16) on the
+    card; every leaf held to the exported one: bitwise, except Gemma's
+    (1 + w) norm scales within one bf16 ulp. Returns the loaded (cfg,
+    params) and the line's numbers."""
+    import shutil
+    import torch
+    from deepspeed_tpu_torch import export_hf_checkpoint, load_hf_checkpoint
+    out_dir = os.path.join(root, name)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    export_hf_checkpoint(cfg, params, out_dir)
+    export_s = time.perf_counter() - t0
+    nbytes = _dir_bytes(out_dir)
+    t0 = time.perf_counter()
+    cfg2, loaded = load_hf_checkpoint(out_dir, dtype=torch.bfloat16,
+                                      device=DEV)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    want, got = _leaf_map(params), _leaf_map(loaded)
+    assert sorted(want) == sorted(got), (sorted(want), sorted(got))
+    folded = cfg.activation == "gelu_glu" and cfg.scale_embeddings
+    bitwise, ulp_leaves, worst_ulps = 0, 0, 0.0
+    for k, w in want.items():
+        g = got[k]
+        assert g.dtype == torch.bfloat16 and g.device == w.device and \
+            g.shape == w.shape, k
+        if folded and k.endswith("/scale"):
+            ulp = torch.finfo(torch.bfloat16).eps * w.float().abs()
+            ulps = float(((g.float() - w.float()).abs() / ulp).max())
+            worst_ulps = max(worst_ulps, ulps)
+            assert ulps <= 1.0, (k, ulps)
+            ulp_leaves += 1
+        else:
+            assert torch.equal(g, w), k
+            bitwise += 1
+    for f in ("hidden_size", "num_layers", "num_heads", "kv_heads",
+              "head_dim", "ffn_size", "vocab_size", "rope_dim", "norm",
+              "activation", "tie_embeddings", "parallel_block",
+              "lm_head_bias", "scale_embeddings", "norm_eps"):
+        assert getattr(cfg2, f) == getattr(cfg, f), f
+    shutil.rmtree(out_dir)
+    return cfg2, loaded, {
+        "export_seconds": export_s, "export_gb_per_s": nbytes / export_s / 1e9,
+        "bytes_on_disk": nbytes, "load_seconds": load_s,
+        "load_gb_per_s": nbytes / load_s / 1e9,
+        "load_page_cache": "warm (the file was just written)",
+        "leaves_bitwise": bitwise, "leaves_within_1_ulp": ulp_leaves,
+        "worst_folded_ulps": worst_ulps}
+
+
+def _decode_device_ms(eng, prompts) -> dict:
+    """Prefill ``prompts``, then ONE decode megastep window of 8 replays
+    of the captured step under ``torch.profiler``: the window's wall and
+    the device time of the kernels the card ran, a step each."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    base = max(eng.state.seqs.keys(), default=-1) + 1
+    uids = [base + i for i in range(len(prompts))]
+    eng.scheduler.put(uids, prompts)
+    last = {}
+    while True:
+        res = eng.step_with_budget(mode=("argmax",))
+        if res is None:
+            break
+        last.update(res)
+    eng.scheduler.put(uids, [[int(last[u][-1] if isinstance(last[u], list)
+                                  else last[u])] for u in uids])
+    r0 = eng.graph_stats["replays"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = eng.step_with_budget(mode=("argmax",), max_steps=8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    assert eng.graph_stats["replays"] - r0 == 8, eng.graph_stats
+    assert sorted(out) == uids and all(len(t) == 8 for t in out.values())
+    for u in uids:
+        eng.flush(u)
+    dev_us = sum(e.time_range.end - e.time_range.start
+                 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return {"window_steps": 8, "wall_ms_per_step": 1e3 * wall / 8,
+            "device_ms_per_step": dev_us / 1e3 / 8,
+            "idle_share": 1.0 - dev_us / 1e6 / wall}
+
+
+def _hf_fp32_hold(preset, size, seed) -> dict:
+    """fp32 at depth 2, one seeded tree on the card (kernels) and on the
+    CPU (plain versions): put logits within HF_FP32's tol, then greedy
+    generate tokens identical (a fresh prefill chunk, a split chunk past
+    256 tokens, decode steps)."""
+    import torch
+    from deepspeed_tpu_torch import RaggedInferenceEngine
+    from deepspeed_tpu_torch.models.transformer import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = preset(size, num_layers=HF_FP32["layers"], max_seq_len=512)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    params = init_params(cfg, gen, torch.float32, DEV)
+    _jitter(params, gen)
+    conf = {"dtype": "float32", "num_blocks": 32, "block_size": 128,
+            "max_seq_len": 512, "max_batch_tokens": 1024,
+            "prefill_chunk": 256}
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in HF_FP32["prompts"]]
+    got = {}
+    for where, tree in (("card", params), ("cpu", _to_cpu(params))):
+        eng = RaggedInferenceEngine(cfg, conf, params=tree,
+                                    device=DEV if where == "card" else "cpu")
+        logits = eng.put(list(range(len(prompts))), prompts)
+        for u in range(len(prompts)):
+            eng.flush(u)
+        toks = eng.generate(prompts, max_new_tokens=HF_FP32["new"])
+        got[where] = ({u: torch.as_tensor(v) for u, v in logits.items()},
+                      [t.tolist() for t in toks])
+        del eng
+    del params
+    torch.cuda.empty_cache()
+    err = max(_err(got["card"][0][u], got["cpu"][0][u]) for u in got["cpu"][0])
+    tol = HF_FP32["tol"]
+    for u in got["cpu"][0]:
+        torch.testing.assert_close(got["card"][0][u], got["cpu"][0][u],
+                                   rtol=tol, atol=tol)
+    same = got["card"][1] == got["cpu"][1]
+    assert same, "fp32: card and CPU greedy tokens differ"
+    return {"layers": cfg.num_layers, "max_abs_err": err, "tol": tol,
+            "logit_absmax": max(float(v.abs().max())
+                                for v in got["cpu"][0].values()),
+            "tokens_identical": same, "new_tokens": HF_FP32["new"]}
+
+
+def phase_hf_models() -> dict:
+    """Gemma-2B and Phi-2 at full width and depth in bf16 through the
+    port's HF checkpoint entry points: weights drawn on the card from a
+    seeded generator, ``export_hf_checkpoint`` to a directory under
+    ``build/`` (removed when the phase ends), ``load_hf_checkpoint(dtype=
+    bf16)`` back onto the card, every leaf held to the exported tree; then
+    ``RaggedInferenceEngine.generate`` on HF_PROMPTS with HF_NEW new
+    tokens from the loaded tree (fused decode windows on CUDA graphs),
+    K1's and K2's launches (by form and head dim) counted from 0 around
+    it, and one megastep window traced for the decode step's device time;
+    then the fp32 depth-2 hold against the CPU. Returns the launches of
+    the two generate runs, the path's."""
+    import shutil
+    import tempfile
+    import torch
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch import RaggedInferenceEngine
+    from deepspeed_tpu_torch.models.transformer import init_params
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="hf_", dir=os.path.join(here, "build"))
+    total = {k: 0 for k in op_builder.launches}
+    try:
+        for name, preset_name, size, seed, blocks in HF_MODELS:
+            preset = getattr(dt, preset_name)
+            cfg = preset(size)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            gen = torch.Generator(device=DEV).manual_seed(seed)
+            t0 = time.perf_counter()
+            params = init_params(cfg, gen, torch.bfloat16, DEV)
+            _jitter(params, gen)
+            params = _cast_tree(params, torch.bfloat16)
+            torch.cuda.synchronize()
+            draw_s = time.perf_counter() - t0
+            cfg2, loaded, trip = _hf_round_trip(cfg, params, root, name)
+            del params
+            torch.cuda.empty_cache()
+            eng = RaggedInferenceEngine(
+                cfg2, {"dtype": "bfloat16", "num_blocks": blocks,
+                       "block_size": 128, "max_seq_len": 2048,
+                       "max_sequences": 64, "max_batch_tokens": 2048,
+                       "prefill_chunk": 256}, params=loaded, device=DEV)
+            del loaded
+            rng = np.random.default_rng(seed)
+            prompts = [rng.integers(0, cfg.vocab_size, size=n)
+                       .astype(np.int32) for n in HF_PROMPTS]
+
+            # the main path: every count set to 0 just before, read just
+            # after
+            op_builder.reset_launches()
+            pa.reset_form_launches()
+            pa.reset_head_dim_launches()
+            fa.reset_head_dim_launches()
+            eng.stats.clear()
+            t1 = time.perf_counter()
+            outs = eng.generate(prompts, max_new_tokens=HF_NEW)
+            gen_s = time.perf_counter() - t1
+            launches = dict(op_builder.launches)
+            paged_forms = _paged_forms(eng.stats)
+            dims = {"flash_attention_fwd": dict(
+                        fa.head_dim_launches["flash_attention_fwd"]),
+                    "paged_attention": dict(
+                        pa.head_dim_launches["paged_attention"])}
+            st = {k: dict(v, launches=dict(v["launches"]))
+                  for k, v in eng.stats.items()}
+            graphs = _graphs(eng, name)
+            for k, by_dim in dims.items():
+                assert by_dim[cfg.head_dim] == launches[k] > 0, (k, dims)
+                HF_DIM_LAUNCHES[k][cfg.head_dim] += launches[k]
+            for p, o in zip(prompts, outs):
+                assert len(o) == len(p) + HF_NEW and (o[:len(p)] == p).all()
+                assert ((o >= 0) & (o < cfg.vocab_size)).all()
+            assert not eng.state.seqs
+            assert eng.state.allocator.free_blocks == blocks, "pages leaked"
+            for mode in ("fresh", "split", "decode"):
+                assert mode in st, f"{name}: no {mode} step ran"
+            assert launches["flash_attention_bwd"] == 0, launches
+            window = _decode_device_ms(eng, prompts)
+            res = {"phase": "hf_models", "model": name, "dtype": "bfloat16",
+                   "params": cfg.num_params(), "layers": cfg.num_layers,
+                   "head_dim": cfg.head_dim, "heads": [cfg.num_heads,
+                                                       cfg.kv_heads],
+                   "draw_seconds": draw_s, **trip,
+                   "generate_seconds": gen_s,
+                   "prefill_tok_s": _rate(("fresh", "split"), st),
+                   "decode_ms_per_step": 1e3 * st["decode"]["seconds"]
+                   / st["decode"]["steps"],
+                   "decode_window": window, "decode_graphs": graphs,
+                   "stats": st, "launches": launches,
+                   "paged_launches_by_form": paged_forms,
+                   "launches_by_head_dim": dims,
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+            del eng
+            torch.cuda.empty_cache()
+            res["fp32_vs_cpu"] = _hf_fp32_hold(preset, size, seed)
+            emit(res)
+            for k, v in launches.items():
+                total[k] += v
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 6: train_batch on the card against the CPU at full width
 # ---------------------------------------------------------------------------
 
@@ -2775,7 +3127,12 @@ def phase_train():
 # ---------------------------------------------------------------------------
 
 #: phase_train_full_width's model and config (depth 2 at Llama-3 1B width,
-#: tied head, fp32, gas 2, T 256) for checkpoint checks (a) and (c)
+#: tied head, fp32, gas 2, T 256) for checkpoint checks (a) and (c), with a
+#: 32,000-entry vocabulary and an FFN of 2048: no check of (a) or (c) needs
+#: Llama-3's 128,256 entries (68 % of the parameters the CPU side of (a)
+#: steps, saves and loads for each optimizer) or the 8192-wide FFN (whose
+#: matrices hold most of the CPU's bf16 Newton-Schulz work for Muon)
+CKPT_VOCAB, CKPT_FFN = 32000, 2048
 CKPT_CONF = {"train_micro_batch_size_per_gpu": 1,
              "gradient_accumulation_steps": 2,
              "gradient_clipping": 1.0, "attention_impl": "auto"}
@@ -2893,6 +3250,7 @@ def _ckpt_optimizers(root, cfg, init, init_cpu, data) -> None:
         runs = {}
         for where in ("card", "cpu"):
             dev = DEV if where == "card" else "cpu"
+            t_side = time.perf_counter()
             eng, _, _, _ = initialize(cfg, dict(conf), params=(
                 init if where == "card" else init_cpu), device=dev)
             t0 = time.perf_counter()
@@ -2905,6 +3263,7 @@ def _ckpt_optimizers(root, cfg, init, init_cpu, data) -> None:
             losses = _ckpt_train(eng, steps[2:],
                                  counts if where == "card" else None)
             runs[where] = {"losses": losses, "params": _to_cpu(eng.params),
+                           "seconds": time.perf_counter() - t_side,
                            "before": before, "load_s": load_s,
                            "mismatches": bad,
                            "momentum": eng.opt_state.get("momentum")
@@ -2921,8 +3280,8 @@ def _ckpt_optimizers(root, cfg, init, init_cpu, data) -> None:
         param_err = max(_err(pc[k], pp[k]) for k in pc)
         moved = max(_err(pc[k], p0[k]) for k in pc)
         res = {"phase": "checkpoint_optimizer", "optimizer": name,
-               "model": "llama3-1b-width-depth2", "dtype": "float32",
-               "params": params, "losses_before_save": first,
+               "model": "llama3-1b-width-depth2-vocab32k-ffn2048",
+               "dtype": "float32", "params": params, "losses_before_save": first,
                "losses_card": card["losses"], "losses_cpu": cpu["losses"],
                "loss_rel_err": loss_rel, "param_max_abs_err": param_err,
                "param_max_update": moved, "tol": CKPT_TOL,
@@ -2931,7 +3290,9 @@ def _ckpt_optimizers(root, cfg, init, init_cpu, data) -> None:
                "bitwise_mismatches_cpu": cpu["mismatches"],
                "ckpt_bytes": nbytes, "save_seconds": save_s,
                "load_seconds_card": card["load_s"],
-               "load_seconds_cpu": cpu["load_s"], "launches": counts}
+               "load_seconds_cpu": cpu["load_s"],
+               "seconds_card": card["seconds"],
+               "seconds_cpu": cpu["seconds"], "launches": counts}
         if name == "muon":
             # the orthogonalized leaves: momentum is no 0-d placeholder
             mom = _leaf_paths(_to_cpu(runs["cpu"]["momentum"]))
@@ -3014,7 +3375,8 @@ def _ckpt_preempt(root, cfg, init) -> None:
     torch.cuda.empty_cache()
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
     param_err = max(_err(pg[k], pw[k]) for k in pw)
-    res = {"phase": "checkpoint_preempt", "model": "llama3-1b-width-depth2",
+    res = {"phase": "checkpoint_preempt",
+           "model": "llama3-1b-width-depth2-vocab32k-ffn2048",
            "dtype": "float32", "fault_plan": "step:3:preempt",
            "preempted_tag": tag, "blackbox": box is not None and
            os.path.exists(box), "resumed_tag": resumed,
@@ -3135,7 +3497,8 @@ def phase_checkpoint(smi: str) -> dict:
     try:
         emit({"phase": "checkpoint_dir", "disk_usage": _disk(root)})
         cfg = llama3_config("1b", num_layers=2, max_seq_len=256,
-                            tie_embeddings=True)
+                            tie_embeddings=True, vocab_size=CKPT_VOCAB,
+                            intermediate_size=CKPT_FFN)
         init = init_params(cfg, torch.Generator(device=DEV).manual_seed(6),
                            torch.float32, DEV)
         init_cpu = _to_cpu(init)
@@ -3467,28 +3830,40 @@ def main() -> int:
           "flash_bf16_spill_bytes": sum(
               v["spill_bytes"] for k, v in flash.items() if "bf16" in k)})
 
+    #: each phase's wall seconds, printed before the kernel table
+    seconds = {"build": time.perf_counter() - t0}
+
+    def run(fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[fn.__name__] = time.perf_counter() - t
+        return out
+
     rng = np.random.default_rng(0)
-    timed = phase_kernels(rng)
-    grouped = phase_grouped(rng)
-    grouped_bwd = phase_grouped_bwd(rng)
-    quant = phase_quant(rng)
+    timed = run(phase_kernels, rng)
+    grouped = run(phase_grouped, rng)
+    grouped_bwd = run(phase_grouped_bwd, rng)
+    quant = run(phase_quant, rng)
     if "--kernels-only" in sys.argv[1:]:
+        emit({"phase": "seconds", **seconds})
         return 0
-    phase_full_width()
-    phase_full_width_moe()
-    phase_full_width_quant()
-    phase_fused_fp32()
-    serve, serve_frontend = phase_serve()
+    run(phase_full_width)
+    run(phase_full_width_moe)
+    run(phase_full_width_quant)
+    run(phase_fused_fp32)
+    serve, serve_frontend = run(phase_serve)
     paths = {"serve": serve, "serve_frontend": serve_frontend,
-             "serve_moe": phase_serve_moe(),
-             "serve_quant": phase_serve_quant()}
-    phase_train_full_width()
-    paths["train"] = phase_train()
-    paths["train_resume"] = phase_checkpoint(smi)
-    phase_moe_layer_grad()
-    phase_moe_train_full_width()
-    paths["train_moe"] = phase_train_moe()
-    paths["train_mixtral"] = phase_train_mixtral()
+             "serve_moe": run(phase_serve_moe),
+             "serve_quant": run(phase_serve_quant),
+             "serve_hf": run(phase_hf_models)}
+    run(phase_train_full_width)
+    paths["train"] = run(phase_train)
+    paths["train_resume"] = run(phase_checkpoint, smi)
+    run(phase_moe_layer_grad)
+    run(phase_moe_train_full_width)
+    paths["train_moe"] = run(phase_train_moe)
+    paths["train_mixtral"] = run(phase_train_mixtral)
+    emit({"phase": "seconds", **seconds})
 
     # launches: over the main paths (dense serving and MoE serving, phase
     # 5; dense training, phase 7; train → save → resume → train, phase 9
@@ -3610,6 +3985,28 @@ def main() -> int:
                     "bound_ms", "bound_by", "max_abs_err")}
                 for form, key in (("split", "decode"), ("mma", "history"),
                                   ("fma", "fma"))}
+        if row["name"] in HF_DIM_LAUNCHES:
+            # launches by head dim: the HF models' path counted by the
+            # wrappers' head-dim counters, every other path's model at 128;
+            # each new instance's times at its model's path shapes
+            by_dim = dict(HF_DIM_LAUNCHES[row["name"]])
+            by_dim[128] += row["launches"] - row["launches_by_path"][
+                "serve_hf"]
+            assert sum(by_dim.values()) == row["launches"], by_dim
+            row["launches_by_head_dim"] = by_dim
+            keys = (("fresh", "flash"),) if row["name"] == \
+                "flash_attention_fwd" else (("decode", "split"),
+                                            ("history", "mma"),
+                                            ("fma", "fma"))
+            row["head_dims"] = {
+                NEW_DIM_HEADS[tag][2]: {"heads": NEW_DIM_HEADS[tag][:2],
+                                        "launches": by_dim[
+                                            NEW_DIM_HEADS[tag][2]], **{
+                    form: {k: timed[f"{key}_{tag}"].get(k) for k in (
+                        "check", "kernel_ms", "kernel_graph_ms",
+                        "plain_ms", "bound_ms", "bound_by", "library_ms",
+                        "max_abs_err")} for key, form in keys}}
+                for tag in NEW_DIM_HEADS}
         if row["name"] in GROUPED_FORM_LAUNCHES:
             row["launches_by_form"] = GROUPED_FORM_LAUNCHES[row["name"]]
             assert sum(row["launches_by_form"].values()) == row["launches"]

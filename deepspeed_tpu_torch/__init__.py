@@ -23,17 +23,37 @@ The training engine checkpoints through
 package resumes the other's), and
 :class:`deepspeed_tpu_torch.elasticity.DSElasticAgent` turns a SIGTERM
 into a checkpoint at the step boundary and resumes from it.
+
+The model families are the JAX package's presets (``gpt2_config`` …
+``internlm_config``); :func:`load_hf_checkpoint` and
+:func:`export_hf_checkpoint` read and write HF safetensors checkpoints
+(bf16 included, through the port's own safetensors module), and
+:mod:`deepspeed_tpu_torch.checkpoint.ds_import` imports DeepSpeed
+checkpoints.
 """
 
 from deepspeed_tpu_torch.inference.engine_v2 import (RaggedInferenceConfig,
                                                      RaggedInferenceEngine)
-from deepspeed_tpu_torch.models.llama import llama3_config
-from deepspeed_tpu_torch.models.transformer import DecoderConfig
+from deepspeed_tpu_torch.models import (
+    DecoderConfig, bert_config, bloom_config, distilbert_config,
+    falcon_config, gemma_config, gpt2_config, gpt_bigcode_config,
+    gptj_config, gptneo_config, gptneox_config, internlm_config,
+    llama3_config, mistral_config, mixtral_config, opt_config, phi_config,
+    qwen2_config, qwen2_moe_config, qwen_config)
+from deepspeed_tpu_torch.models.hf_loader import (export_hf_checkpoint,
+                                                  load_hf_checkpoint)
 from deepspeed_tpu_torch.config.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.engine import (DeepSpeedEngine, ModelSpec,
                                                 initialize)
 from deepspeed_tpu_torch.serving import ServingFrontend
 
 __all__ = ["RaggedInferenceEngine", "RaggedInferenceConfig",
-           "DecoderConfig", "llama3_config", "initialize", "DeepSpeedEngine",
-           "DeepSpeedConfig", "ModelSpec", "ServingFrontend"]
+           "DecoderConfig", "initialize", "DeepSpeedEngine",
+           "DeepSpeedConfig", "ModelSpec", "ServingFrontend",
+           "load_hf_checkpoint", "export_hf_checkpoint",
+           "gpt2_config", "llama3_config", "mixtral_config",
+           "mistral_config", "qwen_config", "qwen2_config", "falcon_config",
+           "gptneox_config", "gpt_bigcode_config", "qwen2_moe_config",
+           "gptj_config", "phi_config", "opt_config", "gemma_config",
+           "bloom_config", "bert_config", "distilbert_config",
+           "gptneo_config", "internlm_config"]

@@ -316,7 +316,8 @@ def default_attention(cfg: DecoderConfig) -> AttentionFn:
     not ported."""
     if cfg.pos_emb == "alibi":
         raise NotImplementedError(
-            "ALiBi attention is not ported to deepspeed_tpu_torch yet")
+            "ALiBi attention is not ported to deepspeed_tpu_torch yet "
+            "(ROADMAP A, 'v1 inference and the quantization tool')")
     if not cfg.causal:
         return partial(dot_product_attention, causal=False)
     if cfg.sliding_window is not None:
@@ -621,7 +622,8 @@ def init_params(cfg: DecoderConfig, generator: torch.Generator,
         params["embed"]["token_type"] = w((cfg.type_vocab_size, d))
     if cfg.mlm_head:
         raise NotImplementedError(
-            "masked-LM heads are not ported to deepspeed_tpu_torch yet")
+            "masked-LM heads are not ported to deepspeed_tpu_torch yet "
+            "(ROADMAP A, 'v1 inference and the quantization tool')")
     if not cfg.tie_embeddings:
         put(params, "lm_head", (d, v))
         if cfg.lm_head_bias:
@@ -692,7 +694,8 @@ def lm_logits(cfg: DecoderConfig, params: Params, x: torch.Tensor
     output."""
     if cfg.mlm_head:
         raise NotImplementedError(
-            "masked-LM heads are not ported to deepspeed_tpu_torch yet")
+            "masked-LM heads are not ported to deepspeed_tpu_torch yet "
+            "(ROADMAP A, 'v1 inference and the quantization tool')")
     q_name = "lm_head_q" if "lm_head_q" in params else \
         ("lm_head" if "lm_head" + SCALE_SUFFIX in params else None)
     if q_name:
@@ -851,7 +854,8 @@ def chunked_cross_entropy(cfg: DecoderConfig, params: Params,
     (reductions stay fp32)."""
     if cfg.mlm_head:
         raise NotImplementedError(
-            "masked-LM heads are not ported to deepspeed_tpu_torch yet")
+            "masked-LM heads are not ported to deepspeed_tpu_torch yet "
+            "(ROADMAP A, 'v1 inference and the quantization tool')")
     b, t, _ = x.shape
     v = cfg.vocab_size
     eb = 2 if logits_dtype == torch.bfloat16 else 4

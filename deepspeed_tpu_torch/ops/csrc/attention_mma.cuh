@@ -31,12 +31,36 @@ constexpr int kTile = 64;      // rows of a streamed tile (keys or queries)
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 
-// padded shared row stride of a D-wide bf16 tile, in elements
+// padded shared row stride of a D-wide bf16 tile, in elements. D is a
+// multiple of 16 (an mma k-step, and two n8 tiles per ldmatrix.x4): at
+// D 64, 80, 96, 128 and 256 the stride of D + 8 puts the 8 rows of an
+// ldmatrix on distinct banks (row starts 144, 176, 208, 272, 528 bytes
+// apart, 16-byte aligned).
 template <int D>
 struct Tile {
-  static_assert(D == 64 || D == 128, "head_dim must be 64 or 128");
+  static_assert(D % 16 == 0 && D >= 64 && D <= 256,
+                "head_dim must be a multiple of 16 in [64, 256]");
   static constexpr int LD = D + 8;
   static constexpr int kChunks = D / 8;   // 16-byte chunks of a row
+};
+
+// The forward kernels on the tensor cores (K1's, K2's mma form) hold
+// kRows = 128 query rows a block: kWarps warps of MT m16 tiles each. Up to
+// D 128 a warp holds two tiles, so each K/V fragment feeds both; at D 256
+// two tiles' O accumulators (MT * D / 2 floats a lane, plus the scores)
+// would pass the 255-register cap, so a warp holds one tile and the block
+// has 8 warps. Shared memory: Q plus a 2-stage K/V ring of 64-key tiles,
+// (128 + 4 * 64) * LD * 2 bytes: 202,752 at D 256 (one block a SM).
+template <int D>
+struct FwdShape {
+  static constexpr int MT = D > 128 ? 1 : 2;
+  static constexpr int kWarps = 8 / MT;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kRows = 16 * MT * kWarps;
+  static constexpr int kMinBlocks = D > 128 ? 1 : 2;
+  static constexpr int smem_bytes() {
+    return (int)sizeof(bf16) * (kRows + 4 * kTile) * Tile<D>::LD;
+  }
 };
 
 // 16-byte copy global → shared, in flight until cp_async_wait; zeros

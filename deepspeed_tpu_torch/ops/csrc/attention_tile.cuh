@@ -36,25 +36,36 @@ __device__ __forceinline__ void from_f(float x, __nv_bfloat16* dst) {
   *dst = __float2bfloat16(x);
 }
 
-// N contiguous values at p (8-byte aligned, N % 4 == 0) widened to fp32.
+// N contiguous values at p widened to fp32: 4 at a time (16-byte loads of
+// fp32 aligned to 16 bytes, 8-byte loads of bf16 aligned to 8) when
+// N % 4 == 0, else one at a time (the P V columns a thread holds at D 80
+// and 96: 5 and 6, at any alignment).
 template <int N>
 __device__ __forceinline__ void load_f(const float* p, float* out) {
-  static_assert(N % 4 == 0, "load_f: N must be a multiple of 4");
+  if constexpr (N % 4 == 0) {
 #pragma unroll
-  for (int i = 0; i < N; i += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p + i);
-    out[i] = v.x; out[i + 1] = v.y; out[i + 2] = v.z; out[i + 3] = v.w;
+    for (int i = 0; i < N; i += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + i);
+      out[i] = v.x; out[i + 1] = v.y; out[i + 2] = v.z; out[i + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = p[i];
   }
 }
 template <int N>
 __device__ __forceinline__ void load_f(const __nv_bfloat16* p, float* out) {
-  static_assert(N % 4 == 0, "load_f: N must be a multiple of 4");
+  if constexpr (N % 4 == 0) {
 #pragma unroll
-  for (int i = 0; i < N; i += 4) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p + i);
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-    out[i] = a.x; out[i + 1] = a.y; out[i + 2] = b.x; out[i + 3] = b.y;
+    for (int i = 0; i < N; i += 4) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p + i);
+      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+      const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+      out[i] = a.x; out[i + 1] = a.y; out[i + 2] = b.x; out[i + 3] = b.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = __bfloat162float(p[i]);
   }
 }
 
@@ -70,7 +81,11 @@ __device__ __forceinline__ void copy_chunk(T* dst, const T* src, int v) {
 
 template <typename T, int D, int BR>
 struct AttnTile {
-  static_assert(D == 64 || D == 128, "head_dim must be 64 or 128");
+  // D: 64, 80, 96, 128 or 256 (16 column groups of D / 16 for P V; the
+  // Q K^T step reads 16 bytes, so D % 8 == 0). Shared memory peaks at
+  // fp32 D 256: (64 + 128) * 260 * 4 + 64 * 68 * 4 + 768 = 217,856 bytes.
+  static_assert(D % 16 == 0 && D >= 64 && D <= 256,
+                "head_dim must be a multiple of 16 in [64, 256]");
   static_assert(BR == 16 || BR == 64, "row tile must be 16 or 64");
   // shared-memory row strides: 16 bytes of padding spreads rows over banks
   static constexpr int LD = D + 16 / sizeof(T);

@@ -23,9 +23,12 @@
 // heads) it is 4.3 GFLOP against 42 MB, about 100 FLOP per byte, under the
 // bf16 ridge (~295): bytes (0.0125 ms).
 //
-// Two kernels, chosen by dtype in the C entry point:
-//   bf16 — FlashAttention-2 on the tensor cores (attention_mma.cuh): 4 warps
-//          of 16 query rows each; the Q tile is staged once by cp.async and
+// Head dims 64, 80, 96, 128 and 256, each a template instance (Gemma,
+// GPT-J: 256; Phi-2: 80; GPT-NeoX-20B: 96). Two kernels, chosen by dtype in
+// the C entry point:
+//   bf16 — FlashAttention-2 on the tensor cores (attention_mma.cuh): 128
+//          query rows a block (4 warps of two m16 tiles, or at D 256 8 warps
+//          of one, mma::FwdShape); the Q tile is staged once by cp.async and
 //          held in registers as mma A operands across D; K/V tiles of 64
 //          keys move through a 2-stage cp.async ring (the next tile loads
 //          while this one is consumed) into 16-byte padded rows;
@@ -102,20 +105,24 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // bf16 on the tensor cores: each warp owns MT m16 tiles of query rows
-// (16 MT kWarps rows a block), so each K/V fragment read from shared
-// memory feeds MT tiles (one tile a warp measured 25 % slower). Grid (H,
-// B, ceil(Tq / kFwdRows)); blockIdx.z = 0 is the last query tile.
-constexpr int kFwdMTiles = 2, kFwdRows = 16 * kFwdMTiles * mma::kWarps;
+// (mma::FwdShape: 128 rows a block), so each K/V fragment read from shared
+// memory feeds MT tiles (one tile a warp measured 25 % slower at D 128;
+// at D 256 a warp holds one tile and the block 8 warps, to stay under the
+// register cap). Grid (H, B, ceil(Tq / kFwdRows)); blockIdx.z = 0 is the
+// last query tile.
+constexpr int kFwdRows = 128;
 
 template <int D>
-__global__ void __launch_bounds__(mma::kThreads, 2)
+__global__ void __launch_bounds__(mma::FwdShape<D>::kThreads,
+                                  mma::FwdShape<D>::kMinBlocks)
 flash_fwd_mma_kernel(const mma::bf16* __restrict__ q,
                      const mma::bf16* __restrict__ k,
                      const mma::bf16* __restrict__ v, mma::bf16* __restrict__ out,
                      float* __restrict__ lse, int tq, int tk, int H, int KvH,
                      int causal, int q_offset, int window, float scale) {
   using mma::bf16;
-  constexpr int MT = kFwdMTiles, BR = kFwdRows, BK = mma::kTile;
+  constexpr int MT = mma::FwdShape<D>::MT, BR = kFwdRows, BK = mma::kTile;
+  static_assert(mma::FwdShape<D>::kRows == BR, "128 query rows a block");
   constexpr int LD = mma::Tile<D>::LD;
   constexpr int ND = D / 8, NK = BK / 8;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -287,14 +294,14 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
                void* lse, int B, int tq, int tk, int H, int KvH, int causal,
                int q_offset, int window, float scale, cudaStream_t stream) {
   constexpr int BR = kFwdRows;
-  const int smem =
-      (int)(sizeof(mma::bf16) * (BR + 4 * mma::kTile) * mma::Tile<D>::LD);
+  const int smem = mma::FwdShape<D>::smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(H, B, (tq + BR - 1) / BR);
-  flash_fwd_mma_kernel<D><<<grid, mma::kThreads, smem, stream>>>(
+  flash_fwd_mma_kernel<D><<<grid, mma::FwdShape<D>::kThreads, smem,
+                            stream>>>(
       static_cast<const mma::bf16*>(q), static_cast<const mma::bf16*>(k),
       static_cast<const mma::bf16*>(v), static_cast<mma::bf16*>(out),
       static_cast<float*>(lse), tq, tk, H, KvH, causal, q_offset, window, scale);
@@ -317,10 +324,25 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_dtype(const void* q, const void* k, const void* v, void* out,
+                 void* lse, int B, int tq, int tk, int H, int KvH, int dtype,
+                 int causal, int q_offset, int window, float scale,
+                 cudaStream_t st) {
+  if (dtype == 0)
+    return launch<float, D>(q, k, v, out, lse, B, tq, tk, H, KvH, causal,
+                            q_offset, window, scale, st);
+  if (dtype == 1)
+    return launch_mma<D>(q, k, v, out, lse, B, tq, tk, H, KvH, causal,
+                         q_offset, window, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core kernel).
-// window <= 0 means no window.
+// D: 64, 80, 96, 128 or 256, each its own template instance. window <= 0
+// means no window.
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // an unsupported dtype / head_dim).
 extern "C" int dstt_flash_attention_fwd(
@@ -328,13 +350,12 @@ extern "C" int dstt_flash_attention_fwd(
     int B, int tq, int tk, int H, int KvH, int D, int dtype, int causal,
     int q_offset, int window, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, out, lse, B, tq, tk, H, KvH, causal, q_offset, window, scale, st);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, out, lse, B, tq, tk, H, KvH, causal, q_offset, window, scale, st);
-  if (dtype == 1 && D == 64)
-    return launch_mma<64>(q, k, v, out, lse, B, tq, tk, H, KvH, causal, q_offset, window, scale, st);
-  if (dtype == 1 && D == 128)
-    return launch_mma<128>(q, k, v, out, lse, B, tq, tk, H, KvH, causal, q_offset, window, scale, st);
-  return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 64: return launch_dtype<64>(q, k, v, out, lse, B, tq, tk, H, KvH, dtype, causal, q_offset, window, scale, st);
+    case 80: return launch_dtype<80>(q, k, v, out, lse, B, tq, tk, H, KvH, dtype, causal, q_offset, window, scale, st);
+    case 96: return launch_dtype<96>(q, k, v, out, lse, B, tq, tk, H, KvH, dtype, causal, q_offset, window, scale, st);
+    case 128: return launch_dtype<128>(q, k, v, out, lse, B, tq, tk, H, KvH, dtype, causal, q_offset, window, scale, st);
+    case 256: return launch_dtype<256>(q, k, v, out, lse, B, tq, tk, H, KvH, dtype, causal, q_offset, window, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

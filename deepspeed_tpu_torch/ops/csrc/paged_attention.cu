@@ -16,7 +16,8 @@
 // Every arena offset is 64-bit: a full-size serving arena's last layer
 // lies past element 2^31.
 //
-// Three forms, picked per call from the shapes alone by
+// Head dims 64, 80, 96, 128 and 256, each a template instance of every
+// form. Three forms, picked per call from the shapes alone by
 // ops/paged_attention.plan (never from starts/counts: no device→host sync):
 //
 //   split (g * c <= 16 rows a kv head: decode; bf16 and fp32) —
@@ -158,9 +159,12 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ ak,
 // split: flash-decoding over key splits
 // ---------------------------------------------------------------------------
 
-template <typename T>
+// cp.async stages of 64-key K/V tiles: 3 in bf16, 2 in fp32; fp32 at
+// D 256 takes one (two stages, 266,240 bytes, pass the 227 KB a block can
+// have), loading each tile after the block is done with the last
+template <typename T, int D>
 struct SplitRing {
-  static constexpr int kStages = sizeof(T) == 2 ? 3 : 2;
+  static constexpr int kStages = sizeof(T) == 2 ? 3 : (D > 128 ? 1 : 2);
 };
 
 // 16 bytes of T at p (shared memory) widened to fp32
@@ -180,11 +184,16 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&v)[8]) {
   }
 }
 
-// N (2 or 4) values of T at p (shared memory, aligned to N values) as fp32
+// N (2, 4 or 8) values of T at p (shared memory, aligned to N values) as
+// fp32
 template <int N>
 __device__ __forceinline__ void load_cols(const float* p, float (&v)[N]) {
-  if constexpr (N == 4) {
-    load16(p, v);
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(p + i);
+      v[i] = x.x; v[i + 1] = x.y; v[i + 2] = x.z; v[i + 3] = x.w;
+    }
   } else {
     const float2 x = *reinterpret_cast<const float2*>(p);
     v[0] = x.x; v[1] = x.y;
@@ -204,9 +213,21 @@ __device__ __forceinline__ void load_cols(const __nv_bfloat16* p,
 
 template <typename T, int D>
 constexpr size_t split_smem_bytes(int rm) {
-  return sizeof(T) * (size_t)SplitRing<T>::kStages * 2 * kBK * (D + 16 / sizeof(T)) +
+  return sizeof(T) * (size_t)SplitRing<T, D>::kStages * 2 * kBK * (D + 16 / sizeof(T)) +
          sizeof(float) * ((size_t)rm * 2 * (D / 2 + 4) + 4 * 16 * rm);
 }
+
+// The P V columns of lane `lane`: CPL contiguous ones (lane * CPL + e)
+// when D % 64 == 0, so a lane reads them in one or two 8- or 16-byte
+// loads; else (D 80, 96) columns lane + 32 e, those below D.
+template <int D>
+struct SplitCols {
+  static constexpr bool kContig = D % 64 == 0;
+  static constexpr int CPL = (D + 31) / 32;
+  static __device__ __forceinline__ int col(int lane, int e) {
+    return kContig ? lane * CPL + e : lane + 32 * e;
+  }
+};
 
 // RM: rows a block holds (a power of two >= g * c, at most 16)
 template <typename T, int D, int RM>
@@ -217,8 +238,9 @@ paged_attn_split_kernel(Args a) {
   constexpr int LDK = D + kVec;                 // padded K/V row stride
   constexpr int HALF = D / 2;                   // dh columns a lane's half
   constexpr int LDQ = HALF + 4;                 // padded fp32 q half-row
-  constexpr int CPL = D / 32;                   // P V columns a lane
-  constexpr int STAGES = SplitRing<T>::kStages;
+  using Cols = SplitCols<D>;
+  constexpr int CPL = Cols::CPL;                // P V columns a lane
+  constexpr int STAGES = SplitRing<T, D>::kStages;
   extern __shared__ __align__(16) unsigned char smem[];
   T* ring = reinterpret_cast<T*>(smem);         // STAGES x {K, V} x 64 keys
   float* Qs = reinterpret_cast<float*>(ring + STAGES * 2 * kBK * LDK);
@@ -296,11 +318,19 @@ paged_attn_split_kernel(Args a) {
   float* Pw = Ps + warp * 16 * RM;
 
   for (int i = 0; i < n_tiles; ++i) {
-    mma::cp_async_wait<STAGES - 2>();
-    // tile i (and Q) staged by every thread; every warp is done with
-    // tile i - 1, whose stage now takes tile i + STAGES - 1
-    __syncthreads();
-    load_tile(i + STAGES - 1);
+    if constexpr (STAGES == 1) {
+      // every warp is done with tile i - 1 before tile i takes its place
+      __syncthreads();
+      load_tile(i);
+      mma::cp_async_wait<0>();
+      __syncthreads();
+    } else {
+      mma::cp_async_wait<STAGES - 2>();
+      // tile i (and Q) staged by every thread; every warp is done with
+      // tile i - 1, whose stage now takes tile i + STAGES - 1
+      __syncthreads();
+      load_tile(i + STAGES - 1);
+    }
     const T* Kt = ring + (i % STAGES) * 2 * kBK * LDK;
     const T* Vt = Kt + kBK * LDK;
     const int p = lo + i * kBK + kk;
@@ -360,7 +390,16 @@ paged_attn_split_kernel(Args a) {
 #pragma unroll 4
     for (int k2 = 0; k2 < 16; ++k2) {
       float v[CPL];
-      load_cols<CPL>(Vt + (warp * 16 + k2) * LDK + lane * CPL, v);
+      const T* vr = Vt + (warp * 16 + k2) * LDK;
+      if constexpr (Cols::kContig) {
+        load_cols<CPL>(vr + lane * CPL, v);
+      } else {
+#pragma unroll
+        for (int e = 0; e < CPL; ++e) {
+          const int cc = Cols::col(lane, e);
+          v[e] = cc < D ? to_f(vr[cc]) : 0.f;
+        }
+      }
       const float* pp = Pw + k2 * RM;
 #pragma unroll
       for (int r = 0; r < RM; ++r) {
@@ -388,7 +427,8 @@ paged_attn_split_kernel(Args a) {
   for (int r = 0; r < RM; ++r)
 #pragma unroll
     for (int e = 0; e < CPL; ++e)
-      Aw[(warp * RM + r) * D + lane * CPL + e] = acc[r][e];
+      if (Cols::col(lane, e) < D)
+        Aw[(warp * RM + r) * D + Cols::col(lane, e)] = acc[r][e];
   __syncthreads();
   for (int i = tid; i < rows * D; i += kThreads) {
     const int r = i / D, d = i % D;
@@ -451,14 +491,17 @@ paged_attn_split_kernel(Args a) {
 // mma: bf16 on the tensor cores (K1's design through the page table)
 // ---------------------------------------------------------------------------
 
-// each warp owns MT m16 tiles of rows, so each K/V fragment feeds MT tiles
-constexpr int kMmaMTiles = 2, kMmaRows = 16 * kMmaMTiles * mma::kWarps;
+// each warp owns MT m16 tiles of rows, so each K/V fragment feeds MT
+// tiles; 128 rows a block at every D (mma::FwdShape)
+constexpr int kMmaRows = 128;
 
 template <int D>
-__global__ void __launch_bounds__(mma::kThreads, 2)
+__global__ void __launch_bounds__(mma::FwdShape<D>::kThreads,
+                                  mma::FwdShape<D>::kMinBlocks)
 paged_attn_mma_kernel(Args a) {
   using mma::bf16;
-  constexpr int MT = kMmaMTiles, BR = kMmaRows, BK = mma::kTile;
+  constexpr int MT = mma::FwdShape<D>::MT, BR = kMmaRows, BK = mma::kTile;
+  static_assert(mma::FwdShape<D>::kRows == BR, "128 query rows a block");
   constexpr int LD = mma::Tile<D>::LD, C = mma::Tile<D>::kChunks;
   constexpr int ND = D / 8, NK = BK / 8;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -696,12 +739,12 @@ int launch_split(const Args& a, int n, cudaStream_t stream) {
 
 template <int D>
 int launch_mma(const Args& a, int n, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(mma::bf16) * (size_t)(kMmaRows + 4 * mma::kTile) * mma::Tile<D>::LD;
+  const size_t smem = mma::FwdShape<D>::smem_bytes();
   if (int err = set_smem(paged_attn_mma_kernel<D>, smem)) return err;
   const int rows = (a.H / a.KvH) * a.c;
   const dim3 grid((rows + kMmaRows - 1) / kMmaRows, a.KvH, n);
-  paged_attn_mma_kernel<D><<<grid, mma::kThreads, smem, stream>>>(a);
+  paged_attn_mma_kernel<D><<<grid, mma::FwdShape<D>::kThreads, smem,
+                             stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -710,6 +753,13 @@ int launch_form(const Args& a, int n, int form, cudaStream_t stream) {
   if constexpr (sizeof(T) == 4)
     if (form == 0) return launch_fma<T, D>(a, n, stream);
   return launch_split<T, D>(a, n, stream);
+}
+
+template <int D>
+int launch_d(const Args& a, int n, int dtype, int form, cudaStream_t st) {
+  if (form == 2) return launch_mma<D>(a, n, st);
+  if (dtype == 0) return launch_form<float, D>(a, n, form, st);
+  return launch_form<__nv_bfloat16, D>(a, n, form, st);
 }
 
 }  // namespace
@@ -742,11 +792,13 @@ extern "C" int dstt_paged_attention(
                out, static_cast<float*>(lse), static_cast<float*>(ws),
                static_cast<int*>(counters), c, H, KvH, NB, bs, mb, splits,
                split_keys, scale};
-  if (form == 2 && D == 64) return launch_mma<64>(a, n, st);
-  if (form == 2 && D == 128) return launch_mma<128>(a, n, st);
-  if (dtype == 0 && D == 64) return launch_form<float, 64>(a, n, form, st);
-  if (dtype == 0 && D == 128) return launch_form<float, 128>(a, n, form, st);
-  if (dtype == 1 && D == 64) return launch_form<__nv_bfloat16, 64>(a, n, form, st);
-  if (dtype == 1 && D == 128) return launch_form<__nv_bfloat16, 128>(a, n, form, st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 64: return launch_d<64>(a, n, dtype, form, st);
+    case 80: return launch_d<80>(a, n, dtype, form, st);
+    case 96: return launch_d<96>(a, n, dtype, form, st);
+    case 128: return launch_d<128>(a, n, dtype, form, st);
+    case 256: return launch_d<256>(a, n, dtype, form, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

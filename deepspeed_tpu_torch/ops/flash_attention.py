@@ -22,7 +22,7 @@ so the backward never re-runs the forward.
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -126,9 +126,26 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: head dims K1 (the forward) takes, each a template instance of its own
+HEAD_DIMS = (64, 80, 96, 128, 256)
+#: head dims K3 (the backward) takes; the others wait for ROADMAP A,
+#: 'Single-device training breadth'
+BWD_HEAD_DIMS = (64, 128)
+#: launches of K1 by head dim since the last reset: the wrapper adds one
+#: here and one to ``op_builder.launches`` at each launch
+head_dim_launches: Dict[str, Dict[int, int]] = {
+    "flash_attention_fwd": {d: 0 for d in HEAD_DIMS}}
+op_builder.register_counters("flash_attention.head_dim_launches",
+                             head_dim_launches)
 
 
-def _check(q, k, v) -> None:
+def reset_head_dim_launches() -> None:
+    for counts in head_dim_launches.values():
+        for d in counts:
+            counts[d] = 0
+
+
+def _check(q, k, v, head_dims=HEAD_DIMS, what="flash_attention") -> None:
     """Raise on what the CUDA kernels do not take."""
     b, tq, h, d = q.shape
     if k.dim() != 4 or v.shape != k.shape or k.shape[0] != b \
@@ -142,8 +159,8 @@ def _check(q, k, v) -> None:
         raise ValueError(f"flash_attention kernel takes float32 or bfloat16 "
                          f"q/k/v of one dtype, got {q.dtype}/{k.dtype}/"
                          f"{v.dtype}")
-    if d not in (64, 128):
-        raise ValueError(f"flash_attention kernel takes head_dim 64 or 128, "
+    if d not in head_dims:
+        raise ValueError(f"{what} kernel takes head_dim in {head_dims}, "
                          f"got {d}")
     if not (k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention: q, k and v must share a device")
@@ -170,6 +187,7 @@ def _kernel(q, k, v, causal: bool, q_offset: int, window: Optional[int]):
         int(q_offset), int(window or 0), 1.0 / math.sqrt(d), stream)
     op_builder.check(lib, err, "flash_attention_fwd")
     op_builder.launches["flash_attention_fwd"] += 1
+    head_dim_launches["flash_attention_fwd"][d] += 1
     return out, lse
 
 
@@ -178,7 +196,7 @@ def _bwd_kernel(q, k, v, out, lse, do, causal: bool, q_offset: int,
     """Launch K3 on CUDA tensors (its delta = rowsum(dO * O) pre-pass, as
     the JAX ``_bwd`` computes it (:446), then its dq kernel and its dk/dv
     kernel, all from one C call); returns (dq, dk, dv)."""
-    _check(q, k, v)
+    _check(q, k, v, BWD_HEAD_DIMS, "flash_attention backward")
     b, tq, h, d = q.shape
     tk, kvh = k.shape[1], k.shape[2]
     if out.shape != q.shape or do.shape != q.shape \
@@ -260,9 +278,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``window``: causal sliding window — key kp visible to query qp iff
     qp - window < kp <= qp. Differentiable: when q, k or v needs a
     gradient the call goes through :class:`_FlashAttention` (K1 forward,
-    K3 backward on CUDA)."""
+    K3 backward on CUDA); on CUDA tensors whose head dim K3 does not take
+    it raises before the forward runs."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
+        if q.device.type == "cuda" and q.shape[-1] not in BWD_HEAD_DIMS:
+            raise NotImplementedError(
+                f"flash_attention backward (K3) takes head_dim in "
+                f"{BWD_HEAD_DIMS} on CUDA, got {q.shape[-1]}: training at "
+                f"head dims 80, 96 and 256 waits for ROADMAP A, "
+                f"'Single-device training breadth'")
         return _FlashAttention.apply(q, k, v, causal, q_offset, window)
     return _forward(q, k, v, causal, q_offset, window)[0]
 

@@ -308,11 +308,26 @@ SPLIT_MAX_ROWS = 16
 TILE_KEYS = 64
 #: query rows a block of the mma and fma forms
 BLOCK_ROWS = {"mma": 128, "fma": 64}
+#: head dims the kernel takes, each a template instance of its own
+HEAD_DIMS = (64, 80, 96, 128, 256)
+#: launches of K2 by head dim since the last reset (the wrapper adds one
+#: here beside its form's count)
+head_dim_launches: Dict[str, Dict[int, int]] = {
+    "paged_attention": {d: 0 for d in HEAD_DIMS}}
+op_builder.register_counters("paged_attention.head_dim_launches",
+                             head_dim_launches)
+
+
+def reset_head_dim_launches() -> None:
+    for counts in head_dim_launches.values():
+        for d in counts:
+            counts[d] = 0
 #: split arrival counters and workspace floats a (device, stream) keeps: a
 #: split grid has fewer than SPLIT_COUNTERS (sequence, kv head) pairs and
-#: at most twice as many blocks, each with at most 16 rows of dh + 1 floats
+#: at most twice as many blocks, each with at most 16 rows of dh + 1
+#: floats, dh up to the largest head dim
 SPLIT_COUNTERS = SPLIT_BLOCKS_PER_SM * NUM_SMS
-SPLIT_WORKSPACE = 2 * SPLIT_COUNTERS * SPLIT_MAX_ROWS * (128 + 1)
+SPLIT_WORKSPACE = 2 * SPLIT_COUNTERS * SPLIT_MAX_ROWS * (max(HEAD_DIMS) + 1)
 _GRID_X_MAX, _GRID_YZ_MAX = 2 ** 31 - 1, 65535
 
 
@@ -348,14 +363,14 @@ def plan(n: int, c: int, h: int, kvh: int, dh: int, bs: int, mb: int,
       grid (row blocks, kvh, n), each block walks all its keys.
 
     Raises ValueError for what the kernel does not take (dtype, head_dim
-    other than 64 or 128, bs not a multiple of 8, kv heads not dividing
+    not in ``HEAD_DIMS``, bs not a multiple of 8, kv heads not dividing
     q heads) and when the grid exceeds CUDA's limits."""
     if dtype not in _DTYPES:
         raise ValueError(f"paged_attention kernel takes float32 or bfloat16 "
                          f"q/arena, got {dtype}")
-    if dh not in (64, 128):
-        raise ValueError(f"paged_attention kernel takes head_dim 64 or 128, "
-                         f"got {dh}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"paged_attention kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {dh}")
     if bs <= 0 or bs % 8:
         raise ValueError(f"paged_attention kernel takes block_size a "
                          f"multiple of 8, got {bs}")
@@ -455,6 +470,7 @@ def _kernel(q, arena_k, arena_v, page_table, starts, counts):
     op_builder.check(lib, err, "paged_attention")
     op_builder.launches["paged_attention"] += 1
     form_launches["paged_attention"][pl.form] += 1
+    head_dim_launches["paged_attention"][dh] += 1
     return out, lse
 
 

@@ -382,6 +382,24 @@ class DeepSpeedEngine:
             self._data_iter = iter(RepeatingLoader(self.training_dataloader))
         return self._data_iter
 
+    # ------------------------------------------------- offload/reload states
+
+    def offload_states(self, include: Optional[Tuple[str, ...]] = None
+                       ) -> None:
+        """engine.py:1450: park params and optimizer state in host memory
+        and free the device buffers. Not ported yet."""
+        raise NotImplementedError(
+            "DeepSpeedEngine.offload_states is not ported to "
+            "deepspeed_tpu_torch yet (ROADMAP A, 'Single-device training "
+            "breadth')")
+
+    def reload_states(self) -> None:
+        """engine.py:1486: bring offloaded states back. Not ported yet."""
+        raise NotImplementedError(
+            "DeepSpeedEngine.reload_states is not ported to "
+            "deepspeed_tpu_torch yet (ROADMAP A, 'Single-device training "
+            "breadth')")
+
     # --------------------------------------------------------- checkpointing
 
     def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,

@@ -41,7 +41,8 @@ def select_attention(ds_cfg: DeepSpeedConfig,
             f"are not ported to deepspeed_tpu_torch yet")
     if dec_cfg is not None and dec_cfg.pos_emb == "alibi":
         raise NotImplementedError(
-            "ALiBi attention is not ported to deepspeed_tpu_torch yet")
+            "ALiBi attention is not ported to deepspeed_tpu_torch yet "
+            "(ROADMAP A, 'v1 inference and the quantization tool')")
     if dec_cfg is not None and dec_cfg.layer_window_pattern:
         # per-layer windows reach the attention as a `window=` argument
         # per layer; the JAX package routes them to the plain attention

@@ -1,8 +1,9 @@
 """deepspeed_tpu_torch.ops.flash_attention (K1's plain version, as the CPU
 takes it) against the JAX Pallas kernel run in interpret mode.
 
-The shapes really take the Pallas path (T=256 divides the block, D=64 and
-128, GQA H=4 over KvH=2). Tolerance: fp32, atol/rtol 1e-4 — the kernel
+The shapes really take the Pallas path (T=256 divides the block, D=64,
+80, 96, 128 and 256 — the reference takes any D <= 256 — GQA H=4 over
+KvH=2). Tolerance: fp32, atol/rtol 1e-4 — the kernel
 and the plain version reduce in different orders. bf16, the dtype of the
 Hopper kernel's tensor-core path: the same bf16 inputs through both, held
 by each output row's relative error |got - want| / |want| at 1e-2, the
@@ -46,7 +47,10 @@ def _row_rel_err(got, want) -> float:
 @pytest.mark.parametrize("d,causal,window", [(64, True, None),
                                              (128, True, None),
                                              (64, False, None),
-                                             (128, True, 48)])
+                                             (128, True, 48),
+                                             (80, True, None),
+                                             (96, False, None),
+                                             (256, True, 48)])
 def test_flash_attention_matches_pallas(d, causal, window):
     q, k, v = _inputs(d + (window or 0), d=d)
     want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
@@ -61,7 +65,10 @@ def test_flash_attention_matches_pallas(d, causal, window):
 @pytest.mark.parametrize("d,causal,window", [(64, True, None),
                                              (128, True, None),
                                              (128, False, None),
-                                             (64, True, 48)])
+                                             (64, True, 48),
+                                             (80, True, None),
+                                             (96, True, 48),
+                                             (256, True, None)])
 def test_flash_attention_bf16_matches_pallas(d, causal, window):
     (qt, kt, vt), (qj, kj, vj) = _bf16(_inputs(30 + d + (window or 0)
                                                + int(causal), d=d))
@@ -73,7 +80,7 @@ def test_flash_attention_bf16_matches_pallas(d, causal, window):
                         np.asarray(want, dtype=np.float32)) <= 1e-2
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 80, 96, 256])
 def test_flash_attention_with_lse_matches_pallas(d):
     q, k, v = _inputs(10 + d, d=d)
     o_j, l_j = jfa.flash_attention_with_lse(
@@ -110,3 +117,31 @@ def test_forward_only_and_window_checks():
     torch.testing.assert_close(out.detach(), plain, rtol=0, atol=0)
     with pytest.raises(ValueError, match="window"):
         tfa.flash_attention(q.detach(), k, v, window=0)
+
+
+@pytest.mark.parametrize("d", [80, 96, 256])
+def test_backward_head_dims_raise_before_the_forward(d, monkeypatch):
+    """K3 takes head_dim 64 and 128 only: on CUDA tensors a call that
+    needs a gradient at another head dim raises NotImplementedError,
+    naming the ROADMAP item, before K1 runs (a CUDA tensor is stood in by
+    a CPU one whose device reads "cuda"); without a gradient the forward
+    runs, and on the CPU the plain backward takes any head dim."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(5, t=8, d=d))
+    ran = []
+    monkeypatch.setattr(tfa, "_forward", lambda *a: ran.append(a))
+
+    class _Cuda(torch.Tensor):
+        @property
+        def device(self):
+            return torch.device("cuda", 0)
+
+    qc = q.clone().requires_grad_().as_subclass(_Cuda)
+    with pytest.raises(NotImplementedError,
+                       match="Single-device training breadth"):
+        tfa.flash_attention(qc, k, v)
+    assert not ran
+    monkeypatch.undo()
+    qg = q.clone().requires_grad_()
+    out = tfa.flash_attention(qg, k, v)
+    out.sum().backward()
+    assert qg.grad is not None and torch.isfinite(qg.grad).all()

@@ -1,7 +1,8 @@
 """deepspeed_tpu_torch.ops.paged_attention against the JAX package on the CPU:
 the arena plumbing (write_kv, copy_pages, trash-block isolation), K2's
 plain version against the JAX Pallas kernel in interpret mode (at JAX's
-own test shapes, dh=128), the history read, and the logsumexp merge.
+own test shapes, dh=128, and at dh 80, 96 and 256), the history read, and
+the logsumexp merge.
 
 Tolerance: fp32, atol/rtol 1e-4 (the Pallas kernel and the plain gather
 reduce in different orders).
@@ -9,6 +10,7 @@ reduce in different orders).
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 import torch
 
 from deepspeed_tpu.ops import paged_attention as jpa
@@ -203,3 +205,38 @@ def test_split_merge_equals_single_read():
         jnp.asarray(v.numpy()))
     np.testing.assert_allclose(out_c.numpy(), np.asarray(o_cj), **TOL)
     np.testing.assert_allclose(lse_c.numpy(), np.asarray(l_cj), **TOL)
+
+
+@pytest.mark.parametrize("dh,h,kvh", [(80, 4, 4), (96, 4, 2), (256, 8, 1)])
+def test_head_dims_match_pallas(dh, h, kvh):
+    """K2's plain versions at the head dims the model families add (80:
+    Phi-2, 96: GPT-NeoX-20B, 256: Gemma's MQA) against the Pallas kernel in
+    interpret mode: a decode step and a ragged chunk with a counts=0 row
+    (out and lse), through the gather version and the split form's."""
+    rng = np.random.default_rng(dh)
+    n, c = 3, 8
+    ja, ta, pt, starts = _arena_state(rng, kvh=kvh, dh=dh, n=n)
+    for cc, counts in ((1, np.ones((n,), np.int32)),
+                       (c, np.array([c, 3, 0], np.int32))):
+        q = rng.standard_normal((n, cc, h, dh)).astype(np.float32)
+        args_j = (jnp.asarray(pt), jnp.asarray(starts), jnp.asarray(counts))
+        args_t = (torch.from_numpy(pt), torch.from_numpy(starts),
+                  torch.from_numpy(counts))
+        o_j, l_j = jpa.paged_attention_with_lse(jnp.asarray(q), *ja, *args_j,
+                                                interpret=True)
+        o_t, l_t = tpa.paged_attention_with_lse(torch.from_numpy(q), *ta,
+                                                *args_t)
+        live = counts > 0
+        _compare_valid(o_t.numpy()[live], np.asarray(o_j)[live],
+                       counts[live])
+        _compare_valid(l_t.numpy()[live], np.asarray(l_j)[live],
+                       counts[live])
+        o_s, l_s = tpa.paged_attention_split_ref(
+            torch.from_numpy(q), *ta, *args_t, split_keys=64)
+        _compare_valid(o_s.numpy()[live], np.asarray(o_j)[live],
+                       counts[live])
+        _compare_valid(l_s.numpy()[live], np.asarray(l_j)[live],
+                       counts[live])
+        assert tpa.plan(n, cc, h, kvh, dh, 16, pt.shape[1],
+                        torch.bfloat16).form == \
+            ("split" if (h // kvh) * cc <= 16 else "mma")

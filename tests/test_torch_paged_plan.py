@@ -106,7 +106,7 @@ def test_plan_split_fills_the_card(n):
 
 
 @pytest.mark.parametrize("args, match", [
-    ((4, 1, 32, 8, 96, 128, 8, BF16), "head_dim"),
+    ((4, 1, 32, 8, 72, 128, 8, BF16), "head_dim"),
     ((4, 1, 32, 8, 128, 12, 8, BF16), "block_size"),
     ((4, 1, 32, 8, 128, 0, 8, BF16), "block_size"),
     ((4, 1, 6, 4, 128, 128, 8, BF16), "divide"),

@@ -1,5 +1,5 @@
 """The port's own rules: deepspeed_tpu_torch imports neither jax,
-ml_dtypes nor any deepspeed_tpu module, its entry points run on CUDA
+ml_dtypes, safetensors, transformers nor any deepspeed_tpu module, its entry points run on CUDA
 unless asked for the CPU, unported features raise, and the kernel
 builder fails clearly without nvcc."""
 
@@ -29,7 +29,9 @@ bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "jaxlib"
              or n.startswith("jaxlib.") or n == "deepspeed_tpu"
              or n.startswith("deepspeed_tpu.") or n == "ml_dtypes"
-             or n.startswith("ml_dtypes."))
+             or n.startswith("ml_dtypes.") or n == "safetensors"
+             or n.startswith("safetensors.") or n == "transformers"
+             or n.startswith("transformers."))
 print(len([n for n in sys.modules if n.startswith("deepspeed_tpu_torch")]))
 print(bad)
 """
@@ -64,7 +66,14 @@ def test_every_module_is_listed():
                  "telemetry.registry", "telemetry.tracer", "telemetry.reqtrace",
                  "telemetry.flight_recorder", "telemetry.endpoint",
                  "telemetry.watchdog", "resilience.faults", "io.async_io",
-                 "checkpoint.store", "elasticity.elastic_agent"):
+                 "checkpoint.store", "elasticity.elastic_agent",
+                 "checkpoint.ds_import", "models.hf_loader",
+                 "models.safetensors_io", "models.gpt", "models.mistral",
+                 "models.qwen", "models.qwen2", "models.falcon",
+                 "models.gptneox", "models.phi", "models.opt",
+                 "models.gemma", "models.gpt_bigcode", "models.gptj",
+                 "models.gptneo", "models.internlm", "models.bloom",
+                 "models.bert"):
         assert "deepspeed_tpu_torch." + want in names
 
 

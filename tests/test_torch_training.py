@@ -191,6 +191,18 @@ def test_engine_defaults_to_cuda_and_unported_config_raises(monkeypatch):
         dt.initialize(model=dt.llama3_config("tiny"), config={})
 
 
+def test_offload_states_raise_until_ported():
+    """The JAX engine's offload_states/reload_states exist on the port's
+    engine and raise NotImplementedError naming the ROADMAP item, where a
+    caller got an AttributeError before."""
+    eng = dt.initialize(model=dt.llama3_config("tiny"), config={},
+                        device="cpu")[0]
+    for call in (eng.offload_states, eng.reload_states):
+        with pytest.raises(NotImplementedError,
+                           match="Single-device training breadth"):
+            call()
+
+
 def test_full_remat_and_bf16_head_gradients():
     """'full' recomputes each block in backward and gives the same loss
     and gradients as 'none'; the bf16 head GEMM (fp32 result) has a
