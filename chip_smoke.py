@@ -26,7 +26,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    flash attention's forward and forward with lse in bf16 at the fresh
    prefill chunk and at small bf16 and fp32 shapes, paged attention's
    split form at decode, its mma form at the split-prefill history and
-   on per-key pages, and in fp32 its split and fma forms; and times the
+   on per-key pages, and in fp32 its split and fma forms; flash
+   attention's backward (K3) at head dims 80, 96 and 256 at the same
+   heads, in bf16 at the training shape (micro batch 2 x 2048) and at
+   small fp32 and bf16 shapes (GQA or MQA, ragged T, non-causal, a window
+   with an offset, rows with no key); and times the
    kernel, the plain
    version, the card's bound for the same work and, for flash attention,
    ``scaled_dot_product_attention`` (forward, and backward alone) as a
@@ -137,14 +141,30 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    card's logits held to the CPU's (2e-3) with identical greedy tokens;
 6. runs two ``train_batch`` steps of a depth-2 model at Llama-3-1B width in
    fp32 on the card (K1 + K3) and on the CPU (plain versions) from one
-   parameter tree, and compares losses and updated parameters;
+   parameter tree, and compares losses and updated parameters; then the
+   same at Gemma-2B's and Phi-2's widths and head dims (256, 80) with a
+   32,000-entry vocabulary and an FFN of 2048;
 7. trains Llama-3 1B (the repo's training bench model) at full width and
    depth in bf16 through ``initialize``/``train_batch``: 2 warm-up and 10
    timed steps on one fixed batch, with tokens/s, ms per step, peak
    memory and each step's loss, and the kernels' launches read around it;
+   after phase 9, trains Gemma-2B under ``save_attn_kernel`` and Phi-2
+   under ``full`` at full width and depth in bf16 (micro batch 2 x 2048,
+   2 warm-up and 5 timed steps: ms a step, tokens/s, peak memory,
+   losses, K1's and K3's launches by head dim); sweeps the remat policies
+   ``none``, ``full``, ``save_attn_kernel``, ``offload_full`` and
+   ``ffn_chunk`` 512 on the 1B engine (peak memory, ms a step, K1 and K3
+   launches a step: K1 runs half as often under save_attn_kernel as
+   under full, and offload_full's forward and backward peak below
+   full's); and parks the 1B
+   engine's state with ``offload_states`` (the device memory it frees,
+   GB/s each way) and brings it back with ``reload_states`` (every
+   leaf's raw words unchanged);
 8. MoE training: the fp32 gradients of ``dropless_moe_layer`` at the
    1B/8e width and two fp32 ``train_batch`` steps of the 1B/8e model at
-   depth 2, card against CPU; then the slice's main path, the repo's MoE
+   depth 2, card against CPU, dropless, under the capacity impl with
+   random token selection (the JAX package's default MoE config) and
+   under Residual-MoE; then the slice's main path, the repo's MoE
    training bench model (bench.py:251-285; 12 layers, 8 experts top-2,
    dropless) at full width and depth in bf16, 2 warm-up and 10 timed
    steps of 8 x 2048 tokens; and Mixtral 8x7B at full width and 2 of its
@@ -171,7 +191,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 Every phase prints one JSON line; any failure raises, so the script exits
 non-zero. Without CUDA, or outside a checkout of the repository, it exits
 non-zero before printing a result. The last three lines are the card, the
-kernel table and ``{"ok": true, "device": ...}``.
+kernel table (flash attention's rows with their launches by head dim)
+and ``{"ok": true, "device": ...}``.
 """
 
 import json
@@ -1290,6 +1311,36 @@ def phase_kernels(rng):
                  {"window": 8, "q_offset": 60})):
             check_flash_bwd(f"{name}_{tag}", rng, b, t, dims, dtype,
                             time_it=False, **kw)
+    out.update(check_flash_bwd_new_dims(rng))
+    return out
+
+
+def check_flash_bwd_new_dims(rng) -> dict:
+    """K3 at head dims 80, 96 and 256, each at its model's heads
+    (NEW_DIM_HEADS): the training shape in bf16 (micro batch 2 x 2048,
+    timed, with SDPA's backward), then small cases in fp32 and bf16 —
+    GQA or MQA as the model has it, ragged T, non-causal, a window with an
+    offset, rows that see no key."""
+    import torch
+    out = {}
+    for tag, (h, kvh, dh) in NEW_DIM_HEADS.items():
+        out[f"bwd_{tag}"] = check_flash_bwd(
+            f"flash_bwd_train_{tag}", rng, 2, 2048, (h, kvh, dh),
+            torch.bfloat16)
+        small = (4, 1 if kvh == 1 else 4, dh)
+        for dtype, dt_tag in ((torch.float32, "f32"),
+                              (torch.bfloat16, "bf16")):
+            for name, b, t, heads, kw in (
+                    ("flash_bwd_small", 2, 100, small, {}),
+                    ("flash_bwd_small_gqa", 1, 130, (4, 2, dh), {}),
+                    ("flash_bwd_small_noncausal", 1, 70, small,
+                     {"causal": False}),
+                    ("flash_bwd_small_window", 2, 150, small,
+                     {"window": 40, "q_offset": 3}),
+                    ("flash_bwd_small_no_key", 1, 80, small,
+                     {"q_offset": -20})):
+                check_flash_bwd(f"{name}_{tag}_{dt_tag}", rng, b, t, heads,
+                                dtype, time_it=False, **kw)
     return out
 
 
@@ -2975,11 +3026,26 @@ def _to_cpu(tree):
         if isinstance(tree, dict) else tree.detach().cpu()
 
 
+#: phase 6's models, each at depth 2 and T 256 in fp32: Llama-3 1B's width
+#: (tied head), then the head dims of the model families, Gemma-2B's
+#: (MQA 8/1, dh 256, GeGLU) and Phi-2's (32/32, dh 80, partial rotary,
+#: parallel block, biased linears), each with a 32,000-entry vocabulary
+#: and an FFN of 2048: only the attention's head dim matters there
+TRAIN_FULL_WIDTH = (("llama3-1b-width-depth2", "llama3_config", "1b",
+                     {"tie_embeddings": True}),
+                    ("gemma-2b-width-depth2", "gemma_config", "2b",
+                     {"vocab_size": 32000, "intermediate_size": 2048}),
+                    ("phi-2-width-depth2", "phi_config", "2",
+                     {"vocab_size": 32000, "intermediate_size": 2048}))
+
+
 def phase_train_full_width():
     """Two train_batch steps of a depth-2 model at Llama-3-1B width (tied
     head), fp32: on the card (K1 + K3) and on the CPU (plain versions)
     from one seeded parameter tree and the same batches. AdamW, clip 1.0,
-    gas 2, micro batch 1, T 256.
+    gas 2, micro batch 1, T 256. Then the same at the widths and head
+    dims of Gemma-2B (K1/K3 at dh 256) and Phi-2 (dh 80)
+    (``TRAIN_FULL_WIDTH``).
 
     Tolerances: losses 1e-4 relative, parameters 1e-4 absolute. Both sides
     are fp32 (TF32 off) and differ by summation order. The lr is 1e-5:
@@ -2988,66 +3054,74 @@ def phase_train_full_width():
     at 1e-5 that stays inside the limit, while a wrong gradient moves the
     loss and the updates far beyond it."""
     import torch
-    from deepspeed_tpu_torch import initialize, llama3_config
+    import deepspeed_tpu_torch as dt
     from deepspeed_tpu_torch.models.transformer import init_params
+    from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops import op_builder
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = llama3_config("1b", num_layers=2, max_seq_len=256,
-                        tie_embeddings=True)
     conf = {"train_micro_batch_size_per_gpu": 1,
             "gradient_accumulation_steps": 2,
             "optimizer": {"type": "adamw",
                           "params": {"lr": 1e-5, "weight_decay": 0.1}},
             "gradient_clipping": 1.0, "attention_impl": "auto"}
-    init = init_params(cfg, torch.Generator(device=DEV).manual_seed(6),
-                       torch.float32, DEV)
-    init_cpu = _to_cpu(init)
-    rng = np.random.default_rng(6)
-    data = [{"input_ids": rng.integers(0, cfg.vocab_size, size=(1, 256))
-             .astype(np.int32)} for _ in range(4)]
-    runs = {}
-    for where in ("card", "cpu"):
-        dev = DEV if where == "card" else "cpu"
-        eng, _, _, _ = initialize(cfg, dict(conf), params=(
-            init if where == "card" else init_cpu), device=dev)
-        op_builder.reset_launches()
-        t0 = time.perf_counter()
-        losses = [float(eng.train_batch(iter(data[2 * s:2 * s + 2])))
-                  for s in range(2)]
-        runs[where] = {"losses": losses, "params": _to_cpu(eng.params),
-                       "seconds": time.perf_counter() - t0,
-                       "launches": dict(op_builder.launches),
-                       "grad_norm": eng.get_global_grad_norm()}
-        del eng
-    del init
-    torch.cuda.empty_cache()
-    card, cpu = runs["card"], runs["cpu"]
-    assert all(card["launches"][k] == 2 * 2 * cfg.num_layers
-               for k in TRAIN_KERNELS), card["launches"]
-    assert not any(cpu["launches"].values()), cpu["launches"]
-    loss_rel = max(abs(a - b) / abs(b)
-                   for a, b in zip(card["losses"], cpu["losses"]))
+    for seed, (label, preset, size, kw) in enumerate(TRAIN_FULL_WIDTH):
+        cfg = getattr(dt, preset)(size, num_layers=2, max_seq_len=256, **kw)
+        init = init_params(cfg, torch.Generator(device=DEV).manual_seed(
+            6 + seed), torch.float32, DEV)
+        init_cpu = _to_cpu(init)
+        rng = np.random.default_rng(6 + seed)
+        data = [{"input_ids": rng.integers(0, cfg.vocab_size, size=(1, 256))
+                 .astype(np.int32)} for _ in range(4)]
+        runs = {}
+        for where in ("card", "cpu"):
+            dev = DEV if where == "card" else "cpu"
+            eng, _, _, _ = dt.initialize(cfg, dict(conf), params=(
+                init if where == "card" else init_cpu), device=dev)
+            op_builder.reset_launches()
+            fa.reset_head_dim_launches()
+            t0 = time.perf_counter()
+            losses = [float(eng.train_batch(iter(data[2 * s:2 * s + 2])))
+                      for s in range(2)]
+            runs[where] = {"losses": losses, "params": _to_cpu(eng.params),
+                           "seconds": time.perf_counter() - t0,
+                           "launches": dict(op_builder.launches),
+                           "by_head_dim": {k: dict(v) for k, v in
+                                           fa.head_dim_launches.items()},
+                           "grad_norm": eng.get_global_grad_norm()}
+            del eng
+        del init
+        torch.cuda.empty_cache()
+        card, cpu = runs["card"], runs["cpu"]
+        want = 2 * 2 * cfg.num_layers
+        assert all(card["launches"][k] == want
+                   for k in TRAIN_KERNELS), card["launches"]
+        assert all(card["by_head_dim"][k][cfg.head_dim] == want
+                   for k in TRAIN_KERNELS), card["by_head_dim"]
+        assert not any(cpu["launches"].values()), cpu["launches"]
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(card["losses"], cpu["losses"]))
 
-    def leaves(tree):
-        return [x for v in tree.values() for x in leaves(v)] \
-            if isinstance(tree, dict) else [tree]
+        def leaves(tree):
+            return [x for v in tree.values() for x in leaves(v)] \
+                if isinstance(tree, dict) else [tree]
 
-    param_err = max(_err(a, b) for a, b in zip(leaves(card["params"]),
-                                               leaves(cpu["params"])))
-    moved = max(_err(a, b) for a, b in zip(leaves(card["params"]),
-                                           leaves(init_cpu)))
-    res = {"phase": "train_full_width", "model": "llama3-1b-width-depth2",
-           "dtype": "float32", "losses_card": card["losses"],
-           "losses_cpu": cpu["losses"], "loss_rel_err": loss_rel,
-           "param_max_abs_err": param_err, "param_max_update": moved,
-           "grad_norm_card": card["grad_norm"],
-           "grad_norm_cpu": cpu["grad_norm"], "tol": 1e-4,
-           "seconds_card": card["seconds"], "seconds_cpu": cpu["seconds"],
-           "launches": card["launches"]}
-    emit(res)
-    assert all(np.isfinite(card["losses"]))
-    assert loss_rel <= 1e-4 and param_err <= 1e-4, res
+        param_err = max(_err(a, b) for a, b in zip(leaves(card["params"]),
+                                                   leaves(cpu["params"])))
+        moved = max(_err(a, b) for a, b in zip(leaves(card["params"]),
+                                               leaves(init_cpu)))
+        res = {"phase": "train_full_width", "model": label,
+               "head_dim": cfg.head_dim, "dtype": "float32",
+               "losses_card": card["losses"], "losses_cpu": cpu["losses"],
+               "loss_rel_err": loss_rel, "param_max_abs_err": param_err,
+               "param_max_update": moved,
+               "grad_norm_card": card["grad_norm"],
+               "grad_norm_cpu": cpu["grad_norm"], "tol": 1e-4,
+               "seconds_card": card["seconds"],
+               "seconds_cpu": cpu["seconds"], "launches": card["launches"]}
+        emit(res)
+        assert all(np.isfinite(card["losses"]))
+        assert loss_rel <= 1e-4 and param_err <= 1e-4, res
 
 
 # ---------------------------------------------------------------------------
@@ -3120,6 +3194,241 @@ def phase_train():
     del eng
     torch.cuda.empty_cache()
     return launches
+
+
+#: phase 7's model families: Gemma-2B under save_attn_kernel (K1 once a
+#: layer and micro-step, its residuals kept) and Phi-2 under full (K1 twice),
+#: at full width and depth in bf16, micro batch 2 x 2048, gas 1, AdamW;
+#: 2 warm-up and 5 timed steps on one fixed batch
+FAMILY_TRAIN = (("gemma-2b", "gemma_config", "2b", "save_attn_kernel", 1),
+                ("phi-2", "phi_config", "2", "full", 2))
+FAMILY_MICRO, FAMILY_SEQ, FAMILY_WARMUP, FAMILY_STEPS = 2, 2048, 2, 5
+#: the remat sweep on the Llama-3 1B engine: micro batch 4 x 2048, gas 1,
+#: 1 warm-up and 3 timed steps a policy; ffn_chunk 512 runs under 'none'
+POLICY_SWEEP = (("none", {"policy": "none"}), ("full", {"policy": "full"}),
+                ("save_attn_kernel", {"policy": "save_attn_kernel"}),
+                ("offload_full", {"policy": "offload_full"}),
+                ("ffn_chunk_512", {"policy": "none", "ffn_chunk": 512}))
+POLICY_MICRO, POLICY_WARMUP, POLICY_STEPS = 4, 1, 3
+
+
+def _timed_steps(eng, batch, warmup, steps):
+    """(losses, seconds a step) of warmup + steps train_batch calls."""
+    losses, step_s = [], []
+    for _ in range(warmup + steps):
+        t1 = time.perf_counter()
+        losses.append(float(eng.train_batch(iter(batch))))
+        step_s.append(time.perf_counter() - t1)
+    return losses, step_s
+
+
+def phase_train_families() -> dict:
+    """Gemma-2B and Phi-2 (FAMILY_TRAIN) trained through
+    ``initialize``/``train_batch`` at full width and depth in bf16, random
+    weights from a seeded generator: ms a step, tokens/s, peak memory,
+    losses, and K1's and K3's launches by head dim, read around the timed
+    run. Every loss is finite; K3 runs once a layer and micro-step at the
+    model's head dim (256, 80), K1 as often as its policy says. Returns
+    the launches and the head-dim launches over the runs."""
+    import torch
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import op_builder
+    total = {k: 0 for k in op_builder.launches}
+    by_dim = {k: {d: 0 for d in fa.HEAD_DIMS} for k in TRAIN_KERNELS}
+    for label, preset, size, policy, k1_per in FAMILY_TRAIN:
+        cfg = getattr(dt, preset)(size, max_seq_len=FAMILY_SEQ)
+        conf = {"train_micro_batch_size_per_gpu": FAMILY_MICRO,
+                "gradient_accumulation_steps": 1,
+                "optimizer": {"type": "adamw",
+                              "params": {"lr": 1e-4, "weight_decay": 0.1}},
+                "gradient_clipping": 1.0, "bf16": {"enabled": True},
+                "activation_checkpointing": {"policy": policy},
+                "attention_impl": "auto", "steps_per_print": 1000}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng, *_ = dt.initialize(cfg, conf, generator=torch.Generator(
+            device=DEV).manual_seed(17), device=DEV)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        state_gb = torch.cuda.memory_allocated() / 1e9
+        rng = np.random.default_rng(17)
+        batch = [{"input_ids": rng.integers(0, cfg.vocab_size, size=(
+            FAMILY_MICRO, FAMILY_SEQ)).astype(np.int32)}]
+        op_builder.reset_launches()
+        fa.reset_head_dim_launches()
+        losses, step_s = _timed_steps(eng, batch, FAMILY_WARMUP,
+                                      FAMILY_STEPS)
+        launches = dict(op_builder.launches)
+        dims = {k: dict(fa.head_dim_launches[k]) for k in TRAIN_KERNELS}
+        timed = step_s[FAMILY_WARMUP:]
+        ms = 1e3 * sum(timed) / len(timed)
+        tokens = FAMILY_MICRO * FAMILY_SEQ
+        res = {"phase": "train_families", "model": label,
+               "dtype": "bfloat16", "remat": policy,
+               "params": cfg.num_params(), "head_dim": cfg.head_dim,
+               "heads": [cfg.num_heads, cfg.kv_heads],
+               "micro_batch": FAMILY_MICRO, "gas": 1, "seq": FAMILY_SEQ,
+               "init_seconds": init_s, "state_gb": state_gb,
+               "losses": losses, "step_seconds": step_s, "ms_per_step": ms,
+               "ms_per_step_min": 1e3 * min(timed),
+               "ms_per_step_max": 1e3 * max(timed),
+               "tokens_per_s": tokens / (ms / 1e3),
+               "model_tflops_per_s": 6.0 * cfg.num_params() * tokens
+               / (ms / 1e3) / 1e12,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": launches, "launches_by_head_dim": dims}
+        emit(res)
+        steps = FAMILY_WARMUP + FAMILY_STEPS
+        assert all(np.isfinite(losses)), losses
+        assert dims["flash_attention_bwd"][cfg.head_dim] == \
+            launches["flash_attention_bwd"] == cfg.num_layers * steps, dims
+        assert dims["flash_attention_fwd"][cfg.head_dim] == \
+            launches["flash_attention_fwd"] == \
+            k1_per * cfg.num_layers * steps, dims
+        for k in total:
+            total[k] += launches[k]
+        for k in TRAIN_KERNELS:
+            for d in by_dim[k]:
+                by_dim[k][d] += dims[k][d]
+        del eng
+        torch.cuda.empty_cache()
+    return {"launches": total, "by_head_dim": by_dim}
+
+
+def _fingerprints(leaves) -> list:
+    """Per leaf, the sum and a position-weighted sum of its raw 16-bit
+    words as exact int64 (wrapping): a changed bit changes them."""
+    import torch
+    out = []
+    for x in leaves:
+        w = x.detach().reshape(-1).view(torch.int16).to(torch.int64)
+        pos = torch.arange(w.numel(), device=w.device, dtype=torch.int64)
+        out.append((int(w.sum()), int((w * (pos % 65521 + 1)).sum())))
+    return out
+
+
+def _state_tensors(eng) -> list:
+    from deepspeed_tpu_torch.ops.optimizers import tree_leaves
+    return [x for x in tree_leaves(eng.params) + tree_leaves(eng.opt_state)
+            if hasattr(x, "nbytes")]
+
+
+def phase_offload_states(eng) -> dict:
+    """``offload_states``/``reload_states`` on the 1B bf16 engine after a
+    step: the device memory the engine holds falls by at least 90 % of its
+    state's bytes, the copies' GB/s each way (pinned host buffers), and
+    every leaf comes back in its dtype with the same raw words (their
+    exact sums); a step after the reload trains on."""
+    import torch
+    state = _state_tensors(eng)
+    nbytes = sum(x.nbytes for x in state)
+    before_fp = _fingerprints(state)
+    dtypes = [(x.dtype, tuple(x.shape)) for x in state]
+    del state
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng.offload_states()
+    off_s = time.perf_counter() - t0
+    freed = held - torch.cuda.memory_allocated()
+    assert eng.params is None and eng.opt_state is None
+    t0 = time.perf_counter()
+    eng.reload_states()
+    on_s = time.perf_counter() - t0
+    state = _state_tensors(eng)
+    same = _fingerprints(state) == before_fp and \
+        [(x.dtype, tuple(x.shape)) for x in state] == dtypes and \
+        all(x.device == eng.device for x in state)
+    res = {"phase": "offload_states", "model": "llama3-" + TRAIN_MODEL[0],
+           "state_bytes": nbytes, "freed_bytes": freed,
+           "freed_share": freed / nbytes, "offload_seconds": off_s,
+           "reload_seconds": on_s, "offload_gb_per_s": nbytes / off_s / 1e9,
+           "reload_gb_per_s": nbytes / on_s / 1e9,
+           "leaves": len(state), "leaves_same_words": same}
+    emit(res)
+    assert freed >= 0.9 * nbytes, res
+    assert same, res
+    return res
+
+
+def phase_train_policies(smi: str) -> dict:
+    """The remat sweep (POLICY_SWEEP) on the Llama-3 1B engine in bf16,
+    each policy a fresh engine from the same seeded weights: peak memory
+    of a step and of a forward and backward alone (one more micro-step
+    through ``forward``/``backward``/``step``), ms a step and K1's and
+    K3's launches a step. K1 runs half as often under save_attn_kernel as
+    under full; offload_full's forward and backward peak below full's (a
+    step's peak is the optimizer update's, the same under every policy);
+    every policy's first loss is the same forward. Then
+    ``offload_states``/``reload_states`` on the last engine (phase
+    ``offload_states``). Returns the launches over the sweep."""
+    import torch
+    from deepspeed_tpu_torch import initialize, llama3_config
+    from deepspeed_tpu_torch.ops import op_builder
+    cfg = llama3_config(TRAIN_MODEL[0], **TRAIN_MODEL[1])
+    rng = np.random.default_rng(8)
+    batch = [{"input_ids": rng.integers(0, cfg.vocab_size, size=(
+        POLICY_MICRO, TRAIN_SEQ)).astype(np.int32)}]
+    total = {k: 0 for k in op_builder.launches}
+    out = {}
+    eng = None
+    for label, block in POLICY_SWEEP:
+        del eng
+        torch.cuda.empty_cache()
+        conf = {"train_micro_batch_size_per_gpu": POLICY_MICRO,
+                "gradient_accumulation_steps": 1,
+                "optimizer": {"type": "adamw",
+                              "params": {"lr": 1e-4, "weight_decay": 0.1}},
+                "gradient_clipping": 1.0, "bf16": {"enabled": True},
+                "activation_checkpointing": block,
+                "attention_impl": "auto", "steps_per_print": 1000}
+        eng, *_ = initialize(cfg, conf, generator=torch.Generator(
+            device=DEV).manual_seed(0), device=DEV)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        op_builder.reset_launches()
+        losses, step_s = _timed_steps(eng, batch, POLICY_WARMUP,
+                                      POLICY_STEPS)
+        launches = dict(op_builder.launches)
+        steps = POLICY_WARMUP + POLICY_STEPS
+        timed = step_s[POLICY_WARMUP:]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        # the forward and backward's own peak, before the update: the
+        # step's peak is the optimizer's, over the fp32 master, moments
+        # and gradients, whatever the policy
+        torch.cuda.reset_peak_memory_stats()
+        loss = eng.forward(batch[0])
+        torch.cuda.synchronize()
+        fwd_bwd_peak = torch.cuda.max_memory_allocated() / 1e9
+        eng.backward(loss)
+        eng.step()
+        out[label] = {"ms_per_step": 1e3 * sum(timed) / len(timed),
+                      "peak_mem_gb": peak, "fwd_bwd_peak_gb": fwd_bwd_peak,
+                      "k1_per_step": launches["flash_attention_fwd"] / steps,
+                      "k3_per_step": launches["flash_attention_bwd"] / steps,
+                      "losses": losses}
+        for k in total:
+            total[k] += launches[k]
+    emit({"phase": "train_policies", "model": "llama3-" + TRAIN_MODEL[0],
+          "dtype": "bfloat16", "micro_batch": POLICY_MICRO, "gas": 1,
+          "seq": TRAIN_SEQ, "nvidia_smi": smi, "policies": out})
+    layers = cfg.num_layers
+    assert out["save_attn_kernel"]["k1_per_step"] == layers, out
+    assert out["full"]["k1_per_step"] == 2 * layers, out
+    assert all(v["k3_per_step"] == layers for v in out.values()), out
+    assert out["offload_full"]["fwd_bwd_peak_gb"] < \
+        out["full"]["fwd_bwd_peak_gb"], out
+    first = out["none"]["losses"][0]
+    assert all(np.isfinite(v["losses"]).all() and
+               abs(v["losses"][0] - first) <= 1e-3 * abs(first)
+               for v in out.values()), out
+    phase_offload_states(eng)
+    eng.train_batch(iter(batch))
+    del eng
+    torch.cuda.empty_cache()
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -3601,12 +3910,29 @@ def phase_moe_layer_grad():
     assert max(errs.values()) <= 1e-4, res
 
 
+#: phase 8's depth-2 fp32 card-vs-CPU runs of the 1B/8e model: the
+#: dropless main path, the JAX package's default MoE training config
+#: (capacity impl with random token selection and drop_tokens; capacity
+#: factor 1.0 drops tokens at 256 tokens a micro-batch, so the order
+#: matters) and Residual-MoE on the dropless layer
+MOE_WIDTH_RUNS = (("dropless", {"impl": "dropless"}, False),
+                  ("capacity_rts", {"impl": "capacity", "use_rts": True,
+                                    "drop_tokens": True,
+                                    "capacity_factor": 1.0}, False),
+                  ("residual", {"impl": "dropless", "use_residual": True},
+                   True))
+
+
 def phase_moe_train_full_width():
     """Two fp32 train_batch steps of the 1B/8e bench model at depth 2
-    (gas 2, micro batch 1 x 256 tokens, AdamW lr 1e-5, clip 1.0, dropless)
-    on the card and on the CPU from one seeded parameter tree and the
-    same batches: losses (CE + aux) and aux within 1e-4 relative,
-    parameters within 1e-4 absolute (the lr argument of phase 6)."""
+    (gas 2, micro batch 1 x 256 tokens, AdamW lr 1e-5, clip 1.0) on the
+    card and on the CPU from one seeded parameter tree and the same
+    batches, for each MoE config of MOE_WIDTH_RUNS: losses (CE + aux) and
+    aux within 1e-4 relative, parameters within 1e-4 absolute (the lr
+    argument of phase 6). Random token selection draws each layer's
+    permutation from a CPU generator, so both sides drop the same
+    tokens."""
+    import dataclasses
     import torch
     from deepspeed_tpu_torch import initialize
     from deepspeed_tpu_torch.models.mixtral import mixtral_config
@@ -3616,55 +3942,64 @@ def phase_moe_train_full_width():
     torch.backends.cudnn.allow_tf32 = False
     cfg = mixtral_config("tiny", **dict(MOE_TRAIN_MODEL, num_layers=2,
                                         max_seq_len=256))
-    conf = _moe_train_conf(1, 2, 1e-5, bf16=False)
-    init = init_params(cfg, torch.Generator(device=DEV).manual_seed(10),
-                       torch.float32, DEV)
-    init_cpu = _to_cpu(init)
-    rng = np.random.default_rng(10)
-    data = [{"input_ids": rng.integers(0, cfg.vocab_size, size=(1, 256))
-             .astype(np.int32)} for _ in range(4)]
-    runs = {}
-    for where in ("card", "cpu"):
-        eng, _, _, _ = initialize(cfg, dict(conf), params=(
-            init if where == "card" else init_cpu),
-            device=DEV if where == "card" else "cpu")
-        op_builder.reset_launches()
-        losses, aux = [], []
-        for step in range(2):
-            losses.append(float(eng.train_batch(iter(data[2 * step:
-                                                          2 * step + 2]))))
-            aux.append(float(eng._last_metrics["aux_loss"]))
-        runs[where] = {"losses": losses, "aux": aux,
-                       "params": _to_cpu(eng.params),
-                       "launches": dict(op_builder.launches)}
-        del eng
-    del init
-    torch.cuda.empty_cache()
-    card, cpu = runs["card"], runs["cpu"]
+    for label, moe, residual in MOE_WIDTH_RUNS:
+        conf = _moe_train_conf(1, 2, 1e-5, bf16=False, moe=moe)
+        init = init_params(dataclasses.replace(cfg, moe_residual=residual),
+                           torch.Generator(device=DEV).manual_seed(10),
+                           torch.float32, DEV)
+        init_cpu = _to_cpu(init)
+        rng = np.random.default_rng(10)
+        data = [{"input_ids": rng.integers(0, cfg.vocab_size, size=(1, 256))
+                 .astype(np.int32)} for _ in range(4)]
+        runs = {}
+        for where in ("card", "cpu"):
+            eng, _, _, _ = initialize(cfg, dict(conf), params=(
+                init if where == "card" else init_cpu),
+                device=DEV if where == "card" else "cpu")
+            op_builder.reset_launches()
+            losses, aux = [], []
+            for step in range(2):
+                losses.append(float(eng.train_batch(
+                    iter(data[2 * step:2 * step + 2]))))
+                aux.append(float(eng._last_metrics["aux_loss"]))
+            runs[where] = {"losses": losses, "aux": aux,
+                           "params": _to_cpu(eng.params),
+                           "launches": dict(op_builder.launches)}
+            del eng
+        del init
+        torch.cuda.empty_cache()
+        card, cpu = runs["card"], runs["cpu"]
 
-    def leaves(tree):
-        return [x for v in tree.values() for x in leaves(v)] \
-            if isinstance(tree, dict) else [tree]
+        def leaves(tree):
+            return [x for v in tree.values() for x in leaves(v)] \
+                if isinstance(tree, dict) else [tree]
 
-    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"],
-                                                        cpu["losses"]))
-    aux_rel = max(abs(a - b) / abs(b) for a, b in zip(card["aux"],
-                                                       cpu["aux"]))
-    param_err = max(_err(a, b) for a, b in zip(leaves(card["params"]),
-                                               leaves(cpu["params"])))
-    res = {"phase": "moe_train_full_width",
-           "model": "moe-1b-8e-width-depth2", "dtype": "float32",
-           "losses_card": card["losses"], "losses_cpu": cpu["losses"],
-           "aux_card": card["aux"], "aux_cpu": cpu["aux"],
-           "loss_rel_err": loss_rel, "aux_rel_err": aux_rel,
-           "param_max_abs_err": param_err, "tol": 1e-4,
-           "launches": card["launches"]}
-    emit(res)
-    micro_layers = 2 * 2 * cfg.num_layers
-    assert all(card["launches"][k] == n * micro_layers
-               for k, n in MOE_LAYER_LAUNCHES.items()), card["launches"]
-    assert all(np.isfinite(card["losses"]))
-    assert loss_rel <= 1e-4 and aux_rel <= 1e-4 and param_err <= 1e-4, res
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"],
+                                                            cpu["losses"]))
+        aux_rel = max(abs(a - b) / abs(b) for a, b in zip(card["aux"],
+                                                           cpu["aux"]))
+        param_err = max(_err(a, b) for a, b in zip(leaves(card["params"]),
+                                                   leaves(cpu["params"])))
+        res = {"phase": "moe_train_full_width",
+               "model": "moe-1b-8e-width-depth2", "moe": label,
+               "dtype": "float32",
+               "losses_card": card["losses"], "losses_cpu": cpu["losses"],
+               "aux_card": card["aux"], "aux_cpu": cpu["aux"],
+               "loss_rel_err": loss_rel, "aux_rel_err": aux_rel,
+               "param_max_abs_err": param_err, "tol": 1e-4,
+               "launches": card["launches"]}
+        emit(res)
+        micro_layers = 2 * 2 * cfg.num_layers
+        grouped = MOE_LAYER_LAUNCHES if moe["impl"] == "dropless" else \
+            {k: 0 for k in MOE_LAYER_LAUNCHES}
+        assert all(card["launches"][k] == n * micro_layers
+                   for k, n in grouped.items()), card["launches"]
+        assert all(card["launches"][k] == micro_layers
+                   for k in TRAIN_KERNELS), card["launches"]
+        assert not any(cpu["launches"].values()), cpu["launches"]
+        assert all(np.isfinite(card["losses"]))
+        assert loss_rel <= 1e-4 and aux_rel <= 1e-4 and param_err <= 1e-4, \
+            res
 
 
 def _train_run(cfg, conf, warmup, steps, seed, batch_shape):
@@ -3771,8 +4106,10 @@ def phase_train_mixtral():
 def _ptxas_kernels(log: str) -> dict:
     """Registers and spilled bytes (stores + loads) of each kernel in an
     ``nvcc -Xptxas -v`` log, by a short name: the function, its element
-    type (bf16 or f32) and its head_dim, e.g. ``flash_fwd_mma_kernel<bf16,
-    128>``. Empty when the library came from an earlier run."""
+    type (bf16 or f32), its head_dim and any further integer template
+    argument (K3's dk/dv pass at D 256), e.g. ``flash_fwd_mma_kernel<bf16,
+    128>``, ``flash_bwd_dkv_mma_kernel<bf16, 256, 2>``. Empty when the
+    library came from an earlier run."""
     import re
     out, name = {}, None
     for line in log.splitlines():
@@ -3781,10 +4118,10 @@ def _ptxas_kernels(log: str) -> dict:
         if m:
             mangled = m.group(1)
             fn = re.search(r"(flash_(?:fwd|bwd)\w*?_kernel)I", mangled)
-            dim = re.search(r"Li(\d+)E", mangled)
+            ints = re.findall(r"Li(\d+)E", mangled) or ["?"]
             ty = "f32" if re.search(r"_kernelIf", mangled) else "bf16"
             name = (f"{fn.group(1) if fn else mangled}<{ty}, "
-                    f"{dim.group(1) if dim else '?'}>")
+                    f"{', '.join(ints)}>")
             out.setdefault(name, {"registers": None, "spill_bytes": 0})
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -3859,6 +4196,9 @@ def main() -> int:
     run(phase_train_full_width)
     paths["train"] = run(phase_train)
     paths["train_resume"] = run(phase_checkpoint, smi)
+    families = run(phase_train_families)
+    paths["train_families"] = families["launches"]
+    paths["train_policies"] = run(phase_train_policies, smi)
     run(phase_moe_layer_grad)
     run(phase_moe_train_full_width)
     paths["train_moe"] = run(phase_train_moe)
@@ -3985,19 +4325,27 @@ def main() -> int:
                     "bound_ms", "bound_by", "max_abs_err")}
                 for form, key in (("split", "decode"), ("mma", "history"),
                                   ("fma", "fma"))}
-        if row["name"] in HF_DIM_LAUNCHES:
-            # launches by head dim: the HF models' path counted by the
-            # wrappers' head-dim counters, every other path's model at 128;
-            # each new instance's times at its model's path shapes
-            by_dim = dict(HF_DIM_LAUNCHES[row["name"]])
-            by_dim[128] += row["launches"] - row["launches_by_path"][
-                "serve_hf"]
+        dim_paths = {"serve_hf": HF_DIM_LAUNCHES,
+                     "train_families": families["by_head_dim"]}
+        if any(row["name"] in c for c in dim_paths.values()):
+            # launches by head dim: the HF models' serving path and the
+            # model families' training path counted by the wrappers'
+            # head-dim counters, every other path's model at 128; each new
+            # instance's times at its model's path shapes
+            by_dim = {d: 0 for d in (64, 80, 96, 128, 256)}
+            counted = 0
+            for path, counts in dim_paths.items():
+                for d, n in counts.get(row["name"], {}).items():
+                    by_dim[d] += n
+                counted += row["launches_by_path"][path]
+            by_dim[128] += row["launches"] - counted
             assert sum(by_dim.values()) == row["launches"], by_dim
             row["launches_by_head_dim"] = by_dim
-            keys = (("fresh", "flash"),) if row["name"] == \
-                "flash_attention_fwd" else (("decode", "split"),
-                                            ("history", "mma"),
-                                            ("fma", "fma"))
+            keys = {"flash_attention_fwd": (("fresh", "flash"),),
+                    "flash_attention_bwd": (("bwd", "kernel"),),
+                    "paged_attention": (("decode", "split"),
+                                        ("history", "mma"),
+                                        ("fma", "fma"))}[row["name"]]
             row["head_dims"] = {
                 NEW_DIM_HEADS[tag][2]: {"heads": NEW_DIM_HEADS[tag][:2],
                                         "launches": by_dim[

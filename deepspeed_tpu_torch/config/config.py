@@ -5,9 +5,14 @@ deepspeed/runtime/config.py:651). Field names, defaults and the batch
 triple solver are the JAX package's, so one JSON validates in both. This
 slice trains on one device; it reads the batch triple, ``optimizer``,
 ``scheduler``, ``fp16``/``bf16``, ``gradient_clipping``,
-``zero_optimization.stage`` (0 only), ``activation_checkpointing.policy``,
-``attention_impl``, ``ce_logits_dtype``, ``chunked_ce_budget_mb``, ``moe``
-(one expert shard), ``seed`` and ``steps_per_print``; the serving front
+``zero_optimization.stage`` (0 only), ``activation_checkpointing``
+(``policy``, ``cpu_checkpointing``, ``ffn_chunk``), ``attention_impl``,
+``ce_logits_dtype``, ``chunked_ce_budget_mb``, ``moe`` (one expert
+shard), ``check_nan_inf``, ``data_efficiency`` (the curriculum sampler),
+``seed`` and ``steps_per_print``; ``prescale_gradients``,
+``gradient_predivide_factor``, ``wall_clock_breakdown``, ``dump_state``,
+``memory_breakdown`` and ``moe.noisy_gate_policy`` are accepted and, as in
+the JAX package, read by nothing; the serving front
 end reads ``serving`` (the megastep knobs), the training engine and
 the front end read ``resilience`` (the checkpoint store's retry knobs,
 ``serving_retry_budget``, ``fault_plan``), ``checkpoint`` is accepted
@@ -60,8 +65,11 @@ class BF16Config(TPUConfigModel):
 
 
 class ActivationCheckpointingConfig(TPUConfigModel):
-    """``policy``: 'none' or 'full' (recompute each block in backward);
-    the JAX package's named save/offload policies are not ported."""
+    """``policy``: 'none', 'full' (recompute each block in backward) or
+    one of the JAX package's named save/offload policies
+    (``models.transformer.resolve_remat_policy``); ``cpu_checkpointing``
+    upgrades the policy to its host-offload twin and ``ffn_chunk`` runs
+    the dense MLP in sequence tiles (``runtime.model_factory``)."""
     partition_activations: bool = False
     cpu_checkpointing: bool = False
     contiguous_memory_optimization: bool = False
@@ -71,25 +79,18 @@ class ActivationCheckpointingConfig(TPUConfigModel):
     policy: str = "none"
     ffn_chunk: int = Field(default=0, ge=0)
 
-    @model_validator(mode="after")
-    def _ported(self):
-        if self.cpu_checkpointing or self.ffn_chunk:
-            raise NotImplementedError(
-                "activation_checkpointing.cpu_checkpointing and ffn_chunk "
-                "are not ported to deepspeed_tpu_torch yet")
-        return self
-
 
 class MoEConfig(TPUConfigModel):
     """``moe`` (config.py:324; reference deepspeed/moe). ``impl``:
     "capacity" (GShard einsums with a static capacity, the default) or
     "dropless" (the grouped FFN over the aligned layout, no token dropped).
-    One device, so ``ep_size`` 1 only; ``noisy_gate_policy`` None only;
-    ``use_residual`` (Residual-MoE) raises. ``use_rts`` with
-    ``drop_tokens`` on the capacity impl raises when a model is built
-    (``runtime.model_factory.select_moe``). ``enabled``, ``num_experts``,
-    ``top_k`` and ``eval_capacity_factor`` are read as the JAX package
-    reads them: the model config, not this section, sets the experts."""
+    One device, so ``ep_size`` 1 only. ``use_rts`` with ``drop_tokens`` on
+    the capacity impl claims capacity slots in a random token order
+    (``runtime.model_factory.select_moe``); ``use_residual`` folds
+    Residual-MoE into the model config. ``enabled``, ``num_experts``,
+    ``top_k``, ``eval_capacity_factor`` and ``noisy_gate_policy`` are read
+    as the JAX package reads them: the model config, not this section,
+    sets the experts, and no layer reads the noisy gate."""
     enabled: bool = False
     ep_size: int = 1
     num_experts: Union[int, List[int]] = 1
@@ -111,15 +112,6 @@ class MoEConfig(TPUConfigModel):
                 f"moe.ep_size={self.ep_size}: expert parallelism is not "
                 f"ported to deepspeed_tpu_torch yet (ROADMAP A, 'Parallelism "
                 f"breadth')")
-        if self.use_residual:
-            raise NotImplementedError(
-                "moe.use_residual (Residual-MoE) is not ported to "
-                "deepspeed_tpu_torch yet (ROADMAP A, 'Single-device training "
-                "breadth')")
-        if self.noisy_gate_policy not in (None, "None"):
-            raise NotImplementedError(
-                f"moe.noisy_gate_policy={self.noisy_gate_policy!r} is not "
-                f"ported to deepspeed_tpu_torch yet")
         return self
 
 
@@ -265,6 +257,29 @@ _ZERO_NOOP_KEYS = {"contiguous_gradients", "reduce_scatter",
                    "ignore_unused_parameters", "round_robin_gradients"}
 
 
+class DataEfficiencyConfig(TPUConfigModel):
+    """``"data_efficiency"`` (config.py:794; reference
+    runtime/data_pipeline/config.py): ``curriculum_learning`` and
+    ``data_sampling`` build the engine's curriculum data sampler
+    (``runtime.data_pipeline``). ``data_routing`` (random-LTD) is not
+    ported: it may be absent or disabled."""
+    enabled: bool = False
+    seed: int = 1234
+    curriculum_learning: Dict[str, Any] = Field(default_factory=dict)
+    data_sampling: Dict[str, Any] = Field(default_factory=dict)
+    data_routing: Dict[str, Any] = Field(default_factory=dict)
+
+    @model_validator(mode="after")
+    def _ported(self):
+        if self.data_routing.get("enabled") or any(
+                isinstance(v, dict) and v.get("enabled")
+                for v in self.data_routing.values()):
+            raise NotImplementedError(
+                "data_efficiency.data_routing (random-LTD) is not ported "
+                "to deepspeed_tpu_torch yet")
+        return self
+
+
 class ZeroConfig(TPUConfigModel):
     """``zero_optimization``: stage 0 only until the DP/ZeRO slice."""
     stage: int = 0
@@ -302,7 +317,6 @@ _UNPORTED_SECTIONS: Dict[str, Dict[str, Any]] = {
     "kvtier": {"enabled": False},
     "autoscale": {"enabled": False},
     "tune": {"tuned": False},
-    "data_efficiency": {"enabled": False},
     "elasticity": {"enabled": False},
     "tensorboard": {"enabled": False},
     "wandb": {"enabled": False},
@@ -318,11 +332,7 @@ _UNPORTED_MODULES: Dict[str, str] = {
     "kvtier": "serving/kvtier.py", "slo": "telemetry/slo.py",
     "router": "serving/router.py", "autoscale": "serving/autoscaler.py",
 }
-_UNPORTED_SCALARS: Dict[str, Any] = {
-    "prescale_gradients": False, "gradient_predivide_factor": 1.0,
-    "communication_data_type": None, "wall_clock_breakdown": False,
-    "dump_state": False, "memory_breakdown": False, "check_nan_inf": False,
-}
+_UNPORTED_SCALARS: Dict[str, Any] = {"communication_data_type": None}
 
 
 def _check_unported(config: Dict[str, Any]) -> None:
@@ -368,6 +378,20 @@ class DeepSpeedConfig(TPUConfigModel):
     serving: ServingConfig = Field(default_factory=ServingConfig)
     resilience: ResilienceConfig = Field(default_factory=ResilienceConfig)
     checkpoint: CheckpointConfig = Field(default_factory=CheckpointConfig)
+    data_efficiency: DataEfficiencyConfig = Field(
+        default_factory=DataEfficiencyConfig)
+
+    #: True / "debug": a step whose loss or gradients are not finite
+    #: raises FloatingPointError before the optimizer runs (the port's
+    #: counterpart of jax_debug_nans); "scoped": a per-leaf finite check
+    #: of the updated params names the first bad leaf (engine.py:150)
+    check_nan_inf: Union[bool, Literal["debug", "scoped"]] = False
+    #: accepted and read by nothing, as in the JAX package
+    prescale_gradients: bool = False
+    gradient_predivide_factor: float = 1.0
+    wall_clock_breakdown: bool = False
+    dump_state: bool = False
+    memory_breakdown: bool = False
 
     #: 'auto' / 'pallas_flash' → the port's flash attention (K1 + K3 on
     #: CUDA); 'naive' → the plain [T, T] attention

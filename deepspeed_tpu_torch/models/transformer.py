@@ -13,15 +13,16 @@ plain attention, the dense MLP and attention projections (weight-only
 quantized linears through :func:`deepspeed_tpu_torch.ops.quantized_linear.
 qmatmul` where a ``<name>_scale`` leaf marks them), the residual combine
 with its MoE branch (a ``moe_fn`` from
-:mod:`deepspeed_tpu_torch.parallel.moe`), ``init_params`` (dense and MoE
-trees, float or quantized as they are drawn) and ``lm_logits`` (serving,
-the quantized head included); and the training forward:
-``decoder_block``, ``forward_hidden`` and ``forward`` over the stacked
-layers (per-block recompute for the ``"full"`` remat policy), dense and
+:mod:`deepspeed_tpu_torch.parallel.moe`, Residual-MoE's convex mix with a
+dense MLP) and FPDT's sequence-chunked MLP (``ffn_chunk``),
+``init_params`` (dense and MoE trees, float or quantized as they are
+drawn) and ``lm_logits`` (serving, the quantized head included); and the
+training forward: ``decoder_block``, ``forward_hidden`` and ``forward``
+over the stacked layers (each block under the config's remat policy:
+'full' or one of the JAX package's named save/offload policies), dense and
 MoE, with the MoE layers' aux losses summed, ``chunked_cross_entropy``
 (each chunk's logits recomputed in backward) and ``cross_entropy_loss``.
-Residual-MoE, ALiBi, encoder extras, health taps and the named
-save/offload remat policies raise ``NotImplementedError``.
+ALiBi, encoder extras and health taps raise ``NotImplementedError``.
 """
 
 import dataclasses
@@ -36,6 +37,11 @@ from torch.utils.checkpoint import checkpoint
 from deepspeed_tpu_torch.ops.quantized_linear import (SCALE_SUFFIX, qmatmul,
                                                       quantize_weight,
                                                       validate_weight_quant)
+from deepspeed_tpu_torch.parallel.fpdt import fpdt_ffn
+# resolve_remat_policy (transformer.py:426) maps a config policy name to
+# what each block keeps for its backward
+from deepspeed_tpu_torch.runtime.activation_checkpointing import (  # noqa: F401
+    checkpoint_name, remat_block, resolve_remat_policy)
 
 Params = Dict[str, Any]
 
@@ -325,31 +331,6 @@ def default_attention(cfg: DecoderConfig) -> AttentionFn:
     return dot_product_attention
 
 
-#: the JAX package's remat policy names (transformer.py:426) that save or
-#: offload named residuals; the port recomputes whole blocks only
-_NAMED_REMAT_POLICIES = (
-    "dots_saveable", "nothing_saveable", "dots_with_no_batch_dims_saveable",
-    "save_attn_out", "save_attn_kernel", "save_attn_kernel_moe_glu",
-    "save_attn_qkv", "save_attn_kernel_qkv", "offload_attn_out",
-    "offload_attn_qkv", "offload_full", "offload_save_attn_out",
-    "offload_save_attn_kernel", "offload_save_attn_kernel_host")
-
-
-def resolve_remat_policy(name: Optional[str]) -> None:
-    """Check a config policy name (transformer.py:426): 'none' (or None)
-    keeps every activation, 'full' recomputes each block in backward
-    (``jax.checkpoint`` with no saved names). Both resolve to None, the
-    "save nothing extra" policy; the named save/offload policies raise."""
-    if name is None or name in ("none", "full"):
-        return None
-    if name in _NAMED_REMAT_POLICIES:
-        raise NotImplementedError(
-            f"remat policy '{name}' is not ported to deepspeed_tpu_torch "
-            f"yet ('none' and 'full' are)")
-    raise ValueError(f"unknown remat policy '{name}'; known: "
-                     f"{sorted(('none', 'full') + _NAMED_REMAT_POLICIES)}")
-
-
 # ---------------------------------------------------------------------------
 # Block
 # ---------------------------------------------------------------------------
@@ -403,6 +384,9 @@ def qkv_project(cfg: DecoderConfig, p: Params, x: torch.Tensor, sin, cos
     if cfg.pos_emb == "rope":
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
+    q = checkpoint_name(q, "qkv")
+    k = checkpoint_name(k, "qkv")
+    v = checkpoint_name(v, "qkv")
     return q, k, v
 
 
@@ -433,11 +417,20 @@ def block_combine(cfg: DecoderConfig, p: Params, x: torch.Tensor,
                                  "deepspeed_tpu_torch.parallel.moe."
                                  "serving_moe_fn and runtime.model_factory."
                                  "select_moe)")
+            out, aux = moe_fn(cfg, p["moe"], src)
             if "residual" in p["moe"]:
-                raise NotImplementedError(
-                    "Residual-MoE (moe_residual) is not ported to "
-                    "deepspeed_tpu_torch yet")
-            return moe_fn(cfg, p["moe"], src)
+                # Residual-MoE (:679-687): a learned convex mix of the
+                # routed output and a dense MLP
+                res = _mlp(cfg, p["moe"]["residual"], src)
+                coef = torch.softmax(
+                    src.float() @ p["moe"]["coef"].float()
+                    + p["moe"]["coef_b"].float(), dim=-1).to(src.dtype)
+                out = out * coef[..., 0:1] + res * coef[..., 1:2]
+            return out, aux
+        if cfg.ffn_chunk and src.shape[1] > cfg.ffn_chunk:
+            # FPDT's sequence-chunked MLP (:690-696)
+            return fpdt_ffn(partial(_mlp, cfg, p["mlp"]), src,
+                            chunk=cfg.ffn_chunk), zero
         return _mlp(cfg, p["mlp"], src), zero
 
     if not cfg.prenorm:
@@ -468,7 +461,8 @@ def decoder_block(cfg: DecoderConfig, p: Params, x: torch.Tensor, sin, cos,
     q, k, v = qkv_project(cfg, p["attn"], pre, sin, cos)
     out = attn_fn(q, k, v) if layer_window is None \
         else attn_fn(q, k, v, window=layer_window)
-    attn_out = attn_out_project(cfg, p["attn"], out)
+    attn_out = checkpoint_name(attn_out_project(cfg, p["attn"], out),
+                               "attn_out")
     return block_combine(cfg, p, x, pre, attn_out, moe_fn)
 
 
@@ -501,10 +495,6 @@ def init_params(cfg: DecoderConfig, generator: torch.Generator,
     (the port's counterpart of the JAX engine's host-side init and
     quantize, engine_v2.py:286-298)."""
     validate_weight_quant(weight_quant)
-    if cfg.moe_residual:
-        raise NotImplementedError(
-            "Residual-MoE (moe_residual) is not ported to "
-            "deepspeed_tpu_torch yet")
     device = generator.device if device is None else torch.device(device)
     d, v, L = cfg.hidden_size, cfg.vocab_size, cfg.num_layers
     h = cfg.ffn_size
@@ -598,6 +588,19 @@ def init_params(cfg: DecoderConfig, generator: torch.Generator,
             if cfg.shared_expert_gate:
                 shared["gate"] = w((L, d, 1))
             moe["shared"] = shared
+        if cfg.moe_residual:
+            # Residual-MoE's dense branch and 2-way mixing coefficient
+            # (transformer.py:770-789)
+            residual = {}
+            if cfg.is_glu:
+                put(residual, "wg", (L, d, h))
+            put(residual, "wi", (L, d, h))
+            put(residual, "wo", (L, h, d), std=out_std)
+            if not cfg.is_glu and cfg.use_bias:
+                residual.update(bi=zeros(L, h), bo=zeros(L, d))
+            moe["residual"] = residual
+            moe["coef"] = w((L, d, 2))
+            moe["coef_b"] = zeros(L, 2)
         layers["moe"] = moe
     elif cfg.is_glu:
         layers["mlp"] = {}
@@ -754,12 +757,13 @@ def forward_hidden(cfg: DecoderConfig, params: Params, tokens: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, T] int → (final-norm hidden [B, T, D], aux loss summed
     over the MoE layers) — transformer.py:838. The JAX ``lax.scan`` over
-    the stacked layers is a loop over :func:`unstack_layers`;
-    ``remat_policy="full"`` runs each block, its ``moe_fn`` included,
-    under ``torch.utils.checkpoint`` (recomputed in backward, as
-    ``jax.checkpoint`` on the scan body)."""
-    resolve_remat_policy(remat_policy)
-    remat = remat_policy not in (None, "none")
+    the stacked layers is a loop over :func:`unstack_layers`; under a
+    ``remat_policy`` other than 'none' each block, its ``moe_fn``
+    included, runs under that policy (recomputed in backward, as
+    ``jax.checkpoint`` with the policy on the scan body). A ``moe_fn``
+    with ``per_layer`` set (random token selection) is called with the
+    layer's index as ``layer=``."""
+    policy = resolve_remat_policy(remat_policy)
     if attn_fn is None:
         attn_fn = default_attention(cfg)
     b, t = tokens.shape
@@ -775,17 +779,24 @@ def forward_hidden(cfg: DecoderConfig, params: Params, tokens: torch.Tensor,
     windows = cfg.window_per_layer() if cfg.layer_window_pattern \
         else [None] * cfg.num_layers
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp, w in zip(unstack_layers(params["layers"], cfg.num_layers),
-                     windows):
-        if remat and torch.is_grad_enabled():
-            x, a = checkpoint(decoder_block, cfg, lp, x, sin, cos, attn_fn,
-                              moe_fn, w, use_reentrant=False)
+    for i, (lp, w) in enumerate(zip(
+            unstack_layers(params["layers"], cfg.num_layers), windows)):
+        mf = partial(moe_fn, layer=i) \
+            if getattr(moe_fn, "per_layer", False) else moe_fn
+        if policy is not None and torch.is_grad_enabled():
+            x, a = remat_block(
+                partial(_block_of, cfg, sin, cos, attn_fn, mf, w), policy,
+                x, lp)
         else:
-            x, a = decoder_block(cfg, lp, x, sin, cos, attn_fn, moe_fn, w)
+            x, a = decoder_block(cfg, lp, x, sin, cos, attn_fn, mf, w)
         aux = aux + a
     if cfg.has_final_norm:
         x = _norm(cfg, params["final_norm"], x)
     return x, aux
+
+
+def _block_of(cfg, sin, cos, attn_fn, moe_fn, window, x, lp):
+    return decoder_block(cfg, lp, x, sin, cos, attn_fn, moe_fn, window)
 
 
 def forward(cfg: DecoderConfig, params: Params, tokens: torch.Tensor,

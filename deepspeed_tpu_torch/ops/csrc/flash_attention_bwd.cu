@@ -65,7 +65,7 @@ using namespace dstt;
 
 namespace {
 
-constexpr int kBQ = 64;    // query rows per tile
+constexpr int kBQ = 64;    // query rows per tile of the dk/dv kernel
 constexpr int kBKQ = 64;   // keys per tile of the dq kernel
 constexpr int kBKV = 32;   // keys owned by a dk/dv block
 
@@ -127,13 +127,17 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* src, int b, int r0,
   }
 }
 
+// The dq kernel's query rows a block: 64, or 32 at D 256, where 64 rows
+// of fp32 Q and dO beside the K/V tile (256 rows of 1,040 bytes) would
+// pass the 227 KB of shared memory a block may have.
 template <typename T, int D>
 struct DqSmem {
+  static constexpr int BQ = D > 128 ? 32 : 64;
   static constexpr int LD = D + 16 / sizeof(T);
   static constexpr int LDP = kBKQ + 4;
   static constexpr size_t bytes() {
-    return sizeof(T) * (size_t)(2 * kBQ + 2 * kBKQ) * LD +
-           sizeof(float) * ((size_t)kBQ * LDP + 2 * kBQ);
+    return sizeof(T) * (size_t)(2 * BQ + 2 * kBKQ) * LD +
+           sizeof(float) * ((size_t)BQ * LDP + 2 * BQ);
   }
 };
 
@@ -145,24 +149,24 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     T* __restrict__ dq, int tq, int tk, int H, int KvH, int causal,
                     int q_offset, int window, float scale) {
   using S = DqSmem<T, D>;
-  constexpr int LD = S::LD, LDP = S::LDP;
+  constexpr int LD = S::LD, LDP = S::LDP, BQ = S::BQ, SR = BQ / 16;
   extern __shared__ __align__(16) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
-  T* dOs = Qs + kBQ * LD;
-  T* Ks = dOs + kBQ * LD;
+  T* dOs = Qs + BQ * LD;
+  T* Ks = dOs + BQ * LD;
   T* Vs = Ks + kBKQ * LD;
   float* Ps = reinterpret_cast<float*>(Vs + kBKQ * LD);   // P, then dS
-  float* lse_s = Ps + kBQ * LDP;
-  float* dl_s = lse_s + kBQ;
+  float* lse_s = Ps + BQ * LDP;
+  float* dl_s = lse_s + BQ;
 
   const int tid = threadIdx.x;
-  const int t0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int t0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (H / KvH);
   const Visible vis{tq, tk, causal, q_offset, window};
 
-  stage_rows<T, D, LD, kBQ>(Qs, q, b, t0, tq, tq, H, h);
-  stage_rows<T, D, LD, kBQ>(dOs, dout, b, t0, tq, tq, H, h);
-  if (tid < kBQ) {
+  stage_rows<T, D, LD, BQ>(Qs, q, b, t0, tq, tq, H, h);
+  stage_rows<T, D, LD, BQ>(dOs, dout, b, t0, tq, tq, H, h);
+  if (tid < BQ) {
     const int t = t0 + tid;
     const long long o = ((long long)b * tq + t) * H + h;
     lse_s[tid] = t < tq ? lse[o] : kNegInf;
@@ -171,13 +175,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // key tiles this block's rows can see (the forward's loop bounds)
   const int q_first = t0 + q_offset;
-  const int q_last = min(t0 + kBQ, tq) - 1 + q_offset;
+  const int q_last = min(t0 + BQ, tq) - 1 + q_offset;
   int k_end = tk;
   if (causal) k_end = min(k_end, q_last + 1);
   const int k_begin = window > 0 ? max(0, q_first - window + 1) : 0;
 
   // dq accumulator: rows rg + 8 i, columns c0 .. c0 + OC
-  constexpr int OR = kBQ / 8, OC = D / 16;
+  constexpr int OR = BQ / 8, OC = D / 16;
   float acc[OR][OC];
 #pragma unroll
   for (int i = 0; i < OR; ++i)
@@ -193,19 +197,19 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     {
       // P, then dS = P (dP - delta) scale: rows sr + 16 i, keys sk + 8 j
       const int sr = tid / 8, sk = tid % 8;
-      float s[4][8];
-      dot_tile<T, D, LD, 4, 8>(Qs, sr, 16, Ks, sk, 8, s);
-      float p[4][8];
+      float s[SR][8];
+      dot_tile<T, D, LD, SR, 8>(Qs, sr, 16, Ks, sk, 8, s);
+      float p[SR][8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < SR; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int r = sr + 16 * i, kk = sk + 8 * j;
           p[i][j] = prob(s[i][j], scale, lse_s[r], vis(t0 + r, kt + kk));
         }
-      dot_tile<T, D, LD, 4, 8>(dOs, sr, 16, Vs, sk, 8, s);
+      dot_tile<T, D, LD, SR, 8>(dOs, sr, 16, Vs, sk, 8, s);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < SR; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int r = sr + 16 * i, kk = sk + 8 * j;
@@ -360,13 +364,28 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ---------------------------------------------------------------------------
 // delta = rowsum(dO * O) in fp32, both dtypes: TPR threads share a row of D
-// values, 16 bytes each, and reduce with shuffles.
+// values, V each, and reduce with shuffles. TPR is the largest power of two
+// up to 32 that divides the row's 16-byte chunks (a row never straddles a
+// warp, and the shuffle tree needs a power of two), so V is a whole number
+// of chunks: 16 bytes a thread at D 64 and 128 (and bf16 256), more at
+// D 80, 96 and fp32 256.
 // ---------------------------------------------------------------------------
+template <typename T, int D>
+struct DeltaShape {
+  static constexpr int kChunks = D * (int)sizeof(T) / 16;
+  static constexpr int TPR = kChunks % 32 == 0 ? 32
+                             : kChunks % 16 == 0 ? 16
+                             : kChunks % 8 == 0 ? 8
+                             : kChunks % 4 == 0 ? 4
+                             : kChunks % 2 == 0 ? 2 : 1;
+  static constexpr int V = D / TPR;
+};
+
 template <typename T, int D>
 __global__ void __launch_bounds__(256)
 flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
                        float* __restrict__ delta, long long rows) {
-  constexpr int V = 16 / (int)sizeof(T), TPR = D / V;
+  constexpr int V = DeltaShape<T, D>::V, TPR = DeltaShape<T, D>::TPR;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long r = i / TPR;
   const int c = (int)(i % TPR);
@@ -395,11 +414,21 @@ __device__ __forceinline__ float lse_log2(float lse) {
   return lse > kNegInf / 2 ? lse * kLog2e : __int_as_float(0x7f800000);
 }
 
+// Blocks a SM the bf16 kernels are built for: two up to D 128; one at
+// D 256, where a block's shared memory (Q, dO and the 2-stage ring, or
+// K, V and the ring: 202,752 / 203,776 bytes) leaves room for no second
+// block, and one block a SM lets a lane keep 255 registers.
+template <int D>
+constexpr int kMinBlocks = D > 128 ? 1 : 2;
+
 // dq kernel: each warp owns 16 query rows of one head (two m16 tiles a
 // warp spill: PERF.md §6). Grid (H, B, ceil(Tq / 16 kWarps)); blockIdx.z
-// = 0 is the last query tile (the longest causal rows start first).
+// = 0 is the last query tile (the longest causal rows start first). At
+// D 256 a key tile is taken 32 keys at a time (KH = 2 parts), so that the
+// scores of a part (S, dP: 32 registers) sit beside dq's 128 fp32
+// accumulators under the register cap.
 template <int D>
-__global__ void __launch_bounds__(mma::kThreads, 2)
+__global__ void __launch_bounds__(mma::kThreads, kMinBlocks<D>)
 flash_bwd_dq_mma_kernel(const mma::bf16* __restrict__ q,
                         const mma::bf16* __restrict__ k,
                         const mma::bf16* __restrict__ v,
@@ -411,7 +440,7 @@ flash_bwd_dq_mma_kernel(const mma::bf16* __restrict__ q,
                         float scale) {
   using mma::bf16;
   constexpr int BR = 16 * mma::kWarps, BK = mma::kTile, LD = mma::Tile<D>::LD;
-  constexpr int ND = D / 8, NK = BK / 8;
+  constexpr int KH = D > 128 ? 2 : 1, NK = BK / 8 / KH, ND = D / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* dOs = Qs + BR * LD;
@@ -473,35 +502,39 @@ flash_bwd_dq_mma_kernel(const mma::bf16* __restrict__ q,
     if (causal) straddles |= kt + BK - 1 > q_first;
     if (window > 0) straddles |= kt <= t0 + BR - 1 + q_offset - window;
 
-    // P = exp(S scale - lse), 0 where masked
-    float s[NK][4];
-    mma::mma_smem<D, NK>(s, Qs, m0, Kt, 0, lane);
 #pragma unroll
-    for (int n = 0; n < NK; ++n)
+    for (int hk = 0; hk < KH; ++hk) {
+      const int n0 = hk * NK * 8;             // first key of this part
+      // P = exp(S scale - lse), 0 where masked
+      float s[NK][4];
+      mma::mma_smem<D, NK>(s, Qs, m0, Kt, n0, lane);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        bool ok = true;
-        if (straddles) {
-          const int qp = t0 + m0 + g + (e >> 1) * 8 + q_offset;
-          const int kp = kt + n * 8 + 2 * tg + (e & 1);
-          ok = kp < tk;
-          if (causal) ok = ok && kp <= qp;
-          if (window > 0) ok = ok && kp > qp - window;
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          bool ok = true;
+          if (straddles) {
+            const int qp = t0 + m0 + g + (e >> 1) * 8 + q_offset;
+            const int kp = kt + n0 + n * 8 + 2 * tg + (e & 1);
+            ok = kp < tk;
+            if (causal) ok = ok && kp <= qp;
+            if (window > 0) ok = ok && kp > qp - window;
+          }
+          s[n][e] = ok ? exp2f(fmaf(s[n][e], sl2, -l2[e >> 1])) : 0.f;
         }
-        s[n][e] = ok ? exp2f(fmaf(s[n][e], sl2, -l2[e >> 1])) : 0.f;
-      }
-    // dS = P (dO V^T - delta), unscaled (dq is scaled once at the end),
-    // rounded to bf16 as the A operand of dQ += dS K
-    float dp[NK][4];
-    mma::mma_smem<D, NK>(dp, dOs, m0, Vt, 0, lane);
+      // dS = P (dO V^T - delta), unscaled (dq is scaled once at the end),
+      // rounded to bf16 as the A operand of dQ += dS K
+      float dp[NK][4];
+      mma::mma_smem<D, NK>(dp, dOs, m0, Vt, n0, lane);
 #pragma unroll
-    for (int n = 0; n < NK; ++n)
+      for (int n = 0; n < NK; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dp[n][e] = s[n][e] * (dp[n][e] - dl[e >> 1]);
-    uint32_t da[NK / 2][4];
+        for (int e = 0; e < 4; ++e) dp[n][e] = s[n][e] * (dp[n][e] - dl[e >> 1]);
+      uint32_t da[NK / 2][4];
 #pragma unroll
-    for (int j = 0; j < NK / 2; ++j) mma::acc_to_a(da[j], dp[2 * j], dp[2 * j + 1]);
-    mma::mma_a_regs(acc, da, Kt, LD, 0, lane);
+      for (int j = 0; j < NK / 2; ++j) mma::acc_to_a(da[j], dp[2 * j], dp[2 * j + 1]);
+      mma::mma_a_regs(acc, da, Kt, LD, n0, lane);
+    }
   }
   if (n_tiles == 0) {                       // Q/dO landed before reuse
     mma::cp_async_wait<0>();
@@ -512,11 +545,19 @@ flash_bwd_dq_mma_kernel(const mma::bf16* __restrict__ q,
                      tq - t0 - m0, lane);
 }
 
+// What a launch of the dk/dv kernel accumulates. Up to D 128 one launch
+// takes both (kDkv). At D 256 a warp's dk and dv accumulators would be
+// 2 x 16 x 256 fp32 (256 registers a lane, past the 255 cap before any
+// score), so two launches split them: kDv (S, P^T, dV += P^T dO) and kDk
+// (S, dP, dS^T, dK += dS^T Q). The dk launch recomputes S: 5 products
+// where one launch does 4, and no lane holds more than one accumulator.
+enum DkvPass { kDkv = 0, kDv = 1, kDk = 2 };
+
 // dk/dv kernel: each warp owns 16 keys of one kv head. Grid (KvH, B,
 // ceil(Tk / 16 kWarps)); blockIdx.z = 0 holds the first keys (under a
 // causal mask, the ones most queries see).
-template <int D>
-__global__ void __launch_bounds__(mma::kThreads, 2)
+template <int D, int PASS>
+__global__ void __launch_bounds__(mma::kThreads, kMinBlocks<D>)
 flash_bwd_dkv_mma_kernel(const mma::bf16* __restrict__ q,
                          const mma::bf16* __restrict__ k,
                          const mma::bf16* __restrict__ v,
@@ -624,26 +665,30 @@ flash_bwd_dkv_mma_kernel(const mma::bf16* __restrict__ q,
           s[n][e] = ok ? exp2f(fmaf(s[n][e], sl2, -l2[e & 1])) : 0.f;
         }
       }
-      // dS^T = P^T (V dO^T - delta), unscaled (dk is scaled at the end)
-      float dp[HQ / 8][4];
-      mma::mma_smem<D, HQ / 8>(dp, Vs, m0, dOt, hq * HQ, lane);
+      if constexpr (PASS != kDk) {
+        uint32_t pa[HQ / 16][4];
 #pragma unroll
-      for (int n = 0; n < HQ / 8; ++n) {
-        const float2 dj =
-            *reinterpret_cast<const float2*>(dlt + hq * HQ + n * 8 + 2 * tg);
-        dp[n][0] = s[n][0] * (dp[n][0] - dj.x);
-        dp[n][1] = s[n][1] * (dp[n][1] - dj.y);
-        dp[n][2] = s[n][2] * (dp[n][2] - dj.x);
-        dp[n][3] = s[n][3] * (dp[n][3] - dj.y);
+        for (int j = 0; j < HQ / 16; ++j) mma::acc_to_a(pa[j], s[2 * j], s[2 * j + 1]);
+        mma::mma_a_regs(adv, pa, dOt, LD, hq * HQ, lane);   // dV += P^T dO
       }
-      uint32_t pa[HQ / 16][4], da[HQ / 16][4];
+      if constexpr (PASS != kDv) {
+        // dS^T = P^T (V dO^T - delta), unscaled (dk is scaled at the end)
+        float dp[HQ / 8][4];
+        mma::mma_smem<D, HQ / 8>(dp, Vs, m0, dOt, hq * HQ, lane);
 #pragma unroll
-      for (int j = 0; j < HQ / 16; ++j) {
-        mma::acc_to_a(pa[j], s[2 * j], s[2 * j + 1]);
-        mma::acc_to_a(da[j], dp[2 * j], dp[2 * j + 1]);
+        for (int n = 0; n < HQ / 8; ++n) {
+          const float2 dj =
+              *reinterpret_cast<const float2*>(dlt + hq * HQ + n * 8 + 2 * tg);
+          dp[n][0] = s[n][0] * (dp[n][0] - dj.x);
+          dp[n][1] = s[n][1] * (dp[n][1] - dj.y);
+          dp[n][2] = s[n][2] * (dp[n][2] - dj.x);
+          dp[n][3] = s[n][3] * (dp[n][3] - dj.y);
+        }
+        uint32_t da[HQ / 16][4];
+#pragma unroll
+        for (int j = 0; j < HQ / 16; ++j) mma::acc_to_a(da[j], dp[2 * j], dp[2 * j + 1]);
+        mma::mma_a_regs(adk, da, Qt, LD, hq * HQ, lane);    // dK += dS^T Q
       }
-      mma::mma_a_regs(adv, pa, dOt, LD, hq * HQ, lane);   // dV += P^T dO
-      mma::mma_a_regs(adk, da, Qt, LD, hq * HQ, lane);    // dK += dS^T Q
     }
   }
   if (total == 0) {                         // K/V landed before reuse
@@ -651,8 +696,10 @@ flash_bwd_dkv_mma_kernel(const mma::bf16* __restrict__ q,
     __syncthreads();
   }
   const long long o = (((long long)b * tk + k0 + m0) * KvH + kh) * D;
-  mma::store_rows<D>(adk, scale, scale, Ks, m0, dk + o, ks, tk - k0 - m0, lane);
-  mma::store_rows<D>(adv, 1.f, 1.f, Vs, m0, dv + o, ks, tk - k0 - m0, lane);
+  if constexpr (PASS != kDv)
+    mma::store_rows<D>(adk, scale, scale, Ks, m0, dk + o, ks, tk - k0 - m0, lane);
+  if constexpr (PASS != kDk)
+    mma::store_rows<D>(adv, 1.f, 1.f, Vs, m0, dv + o, ks, tk - k0 - m0, lane);
 }
 
 template <int D>
@@ -666,13 +713,24 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dout,
   const int smem_q = (int)(sizeof(bf16) * (2 * BQ + 4 * BT) * LD);
   const int smem_kv =
       (int)(sizeof(bf16) * (2 * BKV + 4 * BT) * LD + sizeof(float) * 4 * BT);
+  constexpr bool kSplit = D > 128;          // dv and dk in two launches
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_q);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(
-      flash_bwd_dkv_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_kv);
+  if constexpr (kSplit) {
+    err = cudaFuncSetAttribute(flash_bwd_dkv_mma_kernel<D, kDv>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_kv);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(flash_bwd_dkv_mma_kernel<D, kDk>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_kv);
+  } else {
+    err = cudaFuncSetAttribute(flash_bwd_dkv_mma_kernel<D, kDkv>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_kv);
+  }
   if (err != cudaSuccess) return (int)err;
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(k);
@@ -690,9 +748,22 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dout,
   }
   if (tk > 0) {
     const dim3 grid(KvH, B, (tk + BKV - 1) / BKV);
-    flash_bwd_dkv_mma_kernel<D><<<grid, mma::kThreads, smem_kv, stream>>>(
-        qp, kp, vp, dop, lp, dlp, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-        tq, tk, H, KvH, causal, q_offset, window, scale);
+    bf16* dkp = static_cast<bf16*>(dk);
+    bf16* dvp = static_cast<bf16*>(dv);
+    if constexpr (kSplit) {
+      flash_bwd_dkv_mma_kernel<D, kDv><<<grid, mma::kThreads, smem_kv, stream>>>(
+          qp, kp, vp, dop, lp, dlp, dkp, dvp, tq, tk, H, KvH, causal, q_offset,
+          window, scale);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+      flash_bwd_dkv_mma_kernel<D, kDk><<<grid, mma::kThreads, smem_kv, stream>>>(
+          qp, kp, vp, dop, lp, dlp, dkp, dvp, tq, tk, H, KvH, causal, q_offset,
+          window, scale);
+    } else {
+      flash_bwd_dkv_mma_kernel<D, kDkv><<<grid, mma::kThreads, smem_kv, stream>>>(
+          qp, kp, vp, dop, lp, dlp, dkp, dvp, tq, tk, H, KvH, causal, q_offset,
+          window, scale);
+    }
   }
   return (int)cudaGetLastError();
 }
@@ -720,7 +791,8 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   const float* lp = static_cast<const float*>(lse);
   const float* dlp = static_cast<const float*>(delta);
   if (tq > 0) {
-    const dim3 grid((tq + kBQ - 1) / kBQ, H, B);
+    constexpr int BQ = DqSmem<T, D>::BQ;
+    const dim3 grid((tq + BQ - 1) / BQ, H, B);
     flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem_q, stream>>>(
         qp, kp, vp, dop, lp, dlp, static_cast<T*>(dq), tq, tk, H, KvH, causal,
         q_offset, window, scale);
@@ -739,7 +811,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 template <typename T, int D>
 int launch_delta(const void* out, const void* dout, void* delta, long long rows,
                  cudaStream_t stream) {
-  constexpr int TPR = D * (int)sizeof(T) / 16;
+  constexpr int TPR = DeltaShape<T, D>::TPR;
   const long long blocks = (rows * TPR + 255) / 256;
   if (blocks > 0)
     flash_bwd_delta_kernel<T, D><<<(unsigned)blocks, 256, 0, stream>>>(
@@ -781,10 +853,17 @@ extern "C" int dstt_flash_attention_bwd(
 #define DSTT_BWD(T, DIM)                                                      \
   run<T, DIM>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, tq, tk, H, KvH, \
               causal, q_offset, window, scale, st)
-  if (dtype == 0 && D == 64) return DSTT_BWD(float, 64);
-  if (dtype == 0 && D == 128) return DSTT_BWD(float, 128);
-  if (dtype == 1 && D == 64) return DSTT_BWD(__nv_bfloat16, 64);
-  if (dtype == 1 && D == 128) return DSTT_BWD(__nv_bfloat16, 128);
+#define DSTT_BWD_D(DIM)                                                     \
+  if (D == DIM) {                                                           \
+    if (dtype == 0) return DSTT_BWD(float, DIM);                            \
+    if (dtype == 1) return DSTT_BWD(__nv_bfloat16, DIM);                    \
+  }
+  DSTT_BWD_D(64)
+  DSTT_BWD_D(80)
+  DSTT_BWD_D(96)
+  DSTT_BWD_D(128)
+  DSTT_BWD_D(256)
+#undef DSTT_BWD_D
 #undef DSTT_BWD
   return (int)cudaErrorInvalidValue;
 }

@@ -17,7 +17,11 @@ two: an input the kernel does not take raises.
 
 Gradients flow through :class:`_FlashAttention`, an autograd Function that
 saves ``(q, k, v, out, lse)`` as the JAX ``_flash_fwd`` does (:680-692),
-so the backward never re-runs the forward.
+so the backward never re-runs the forward. Inside a block under a remat
+policy that keeps the kernel's residuals (``attn_kernel_out``/``attn_lse``,
+:690-691: ``save_attn_kernel`` and its offload twins), the forward keeps
+(out, lse) and the backward's replay of the block takes them back instead
+of launching K1 again (``runtime/activation_checkpointing.py``).
 """
 
 import ctypes
@@ -27,6 +31,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from deepspeed_tpu_torch.ops import op_builder
+from deepspeed_tpu_torch.runtime.activation_checkpointing import kept_here
 
 _NEG_INF = -1e30
 
@@ -126,15 +131,15 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims K1 (the forward) takes, each a template instance of its own
+#: head dims K1 (the forward) and K3 (the backward) take, each a template
+#: instance of its own
 HEAD_DIMS = (64, 80, 96, 128, 256)
-#: head dims K3 (the backward) takes; the others wait for ROADMAP A,
-#: 'Single-device training breadth'
-BWD_HEAD_DIMS = (64, 128)
-#: launches of K1 by head dim since the last reset: the wrapper adds one
-#: here and one to ``op_builder.launches`` at each launch
+BWD_HEAD_DIMS = HEAD_DIMS
+#: launches of K1 and K3 by head dim since the last reset: each wrapper
+#: adds one here and one to ``op_builder.launches`` at each launch
 head_dim_launches: Dict[str, Dict[int, int]] = {
-    "flash_attention_fwd": {d: 0 for d in HEAD_DIMS}}
+    "flash_attention_fwd": {d: 0 for d in HEAD_DIMS},
+    "flash_attention_bwd": {d: 0 for d in BWD_HEAD_DIMS}}
 op_builder.register_counters("flash_attention.head_dim_launches",
                              head_dim_launches)
 
@@ -221,6 +226,7 @@ def _bwd_kernel(q, k, v, out, lse, do, causal: bool, q_offset: int,
         stream)
     op_builder.check(lib, err, "flash_attention_bwd")
     op_builder.launches["flash_attention_bwd"] += 1
+    head_dim_launches["flash_attention_bwd"][d] += 1
     return dq, dk, dv
 
 
@@ -253,13 +259,25 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = True,
     return _bwd_kernel(q, k, v, out, lse, do, causal, q_offset, window)
 
 
+def _forward_kept(q, k, v, causal, q_offset, window):
+    """:func:`_forward`, or, in the replay of a block whose remat policy
+    keeps the kernel's residuals, the (out, lse) its run kept."""
+    region, where = kept_here("attn_kernel")
+    if region is not None and region.replaying:
+        return region.take("attn_kernel")
+    out, lse = _forward(q, k, v, causal, q_offset, window)
+    if region is not None:
+        region.keep("attn_kernel", where, (out, lse))
+    return out, lse
+
+
 class _FlashAttention(torch.autograd.Function):
     """``jax.custom_vjp`` of the JAX ``_flash`` (:672): the forward saves
     (q, k, v, out, lse) and the backward is K3 (or its plain version)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset, window):
-        out, lse = _forward(q, k, v, causal, q_offset, window)
+        out, lse = _forward_kept(q, k, v, causal, q_offset, window)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = (causal, q_offset, window)
         return out
@@ -278,18 +296,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``window``: causal sliding window — key kp visible to query qp iff
     qp - window < kp <= qp. Differentiable: when q, k or v needs a
     gradient the call goes through :class:`_FlashAttention` (K1 forward,
-    K3 backward on CUDA); on CUDA tensors whose head dim K3 does not take
-    it raises before the forward runs."""
+    K3 backward on CUDA)."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
-        if q.device.type == "cuda" and q.shape[-1] not in BWD_HEAD_DIMS:
-            raise NotImplementedError(
-                f"flash_attention backward (K3) takes head_dim in "
-                f"{BWD_HEAD_DIMS} on CUDA, got {q.shape[-1]}: training at "
-                f"head dims 80, 96 and 256 waits for ROADMAP A, "
-                f"'Single-device training breadth'")
         return _FlashAttention.apply(q, k, v, causal, q_offset, window)
-    return _forward(q, k, v, causal, q_offset, window)[0]
+    return _forward_kept(q, k, v, causal, q_offset, window)[0]
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,

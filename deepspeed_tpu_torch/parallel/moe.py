@@ -25,16 +25,20 @@ quantized-matmul kernels on CUDA), and a quantized shared expert through
 ``qmatmul``; a quantized tree is served by the capacity layer at every
 token count, as in the JAX package, which has no quantized dropless path.
 
+Random token selection (``rts_key``, moe.py:67-110): the capacity layer
+claims slots in the order of a permutation of the tokens. JAX draws it
+with ``jax.random.permutation`` from a key; the port draws it with
+``torch.randperm`` from a CPU generator seeded with ``rts_key`` (an int),
+so the card and the CPU get the same permutation, and the streams of the
+two packages differ (ROADMAP C, 'Differences by design').
+
 Not ported (each raises ``NotImplementedError``): expert parallelism
-(ROADMAP A, 'Parallelism breadth'), the routing-health taps, and random
-token selection (``rts_key``, ROADMAP A, 'Single-device training
-breadth': its permutation comes from JAX's PRNG, which a port cannot
-reproduce bit for bit).
+(ROADMAP A, 'Parallelism breadth') and the routing-health taps.
 """
 
 import math
 from functools import partial
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -95,14 +99,36 @@ def _capacity(num_tokens: int, num_experts: int, k: int,
     return max(cap, min_capacity)
 
 
+_MASK64 = (1 << 64) - 1
+
+
+def mix_seed(seed: int, salt: int) -> int:
+    """A 63-bit seed from (seed, salt) by splitmix64's finalizer: the
+    per-layer (and per-micro-batch) seeds of random token selection."""
+    z = (int(seed) * 0x9E3779B97F4A7C15 + int(salt) + 1) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
+
+
+def rts_permutation(seed: int, s: int, device) -> torch.Tensor:
+    """The token order of random token selection: ``torch.randperm(s)``
+    from a CPU generator seeded with ``seed``, moved to ``device`` (the
+    port's ``jax.random.permutation(rts_key, s)``)."""
+    g = torch.Generator(device="cpu").manual_seed(int(seed))
+    return torch.randperm(s, generator=g).to(device)
+
+
 def topk_gating(logits: torch.Tensor, k: int, capacity: int,
-                norm_probs: bool = True
+                norm_probs: bool = True,
+                rts_perm: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Top-k gating with capacity (moe.py:67): logits [S, E] fp32 →
     (dispatch [S, E, C] bool, combine [S, E, C] fp32, aux loss). Slots
-    are claimed in sequence order; a token past ``capacity`` for its
-    expert is dropped. The top-k is :func:`topk_gates_t` on the
-    transpose, which breaks ties by lower index as ``lax.top_k`` does."""
+    are claimed in sequence order, or in the order of ``rts_perm`` (random
+    token selection); a token past ``capacity`` for its expert is
+    dropped. The top-k is :func:`topk_gates_t` on the transpose, which
+    breaks ties by lower index as ``lax.top_k`` does."""
     s, e = logits.shape
     gates = torch.softmax(logits, dim=-1)                         # [S, E]
     topv_t, topi_t = topk_gates_t(gates.t(), k)
@@ -119,7 +145,14 @@ def topk_gating(logits: torch.Tensor, k: int, capacity: int,
                           device=logits.device)
     for i in range(k):
         mask_i = F.one_hot(topi[:, i], e)                         # [S, E]
-        pos_i = torch.cumsum(mask_i, dim=0) - mask_i + counts[None, :]
+        if rts_perm is not None:
+            # claim slots in permuted order, then scatter the positions
+            # back to token order
+            mp = mask_i[rts_perm]
+            pos_p = torch.cumsum(mp, dim=0) - mp + counts[None, :]
+            pos_i = torch.empty_like(pos_p).index_copy_(0, rts_perm, pos_p)
+        else:
+            pos_i = torch.cumsum(mask_i, dim=0) - mask_i + counts[None, :]
         pos_tok = torch.sum(pos_i * mask_i, dim=1)                # [S]
         keep = pos_tok < capacity
         # jax.nn.one_hot gives zeros past the last class; F.one_hot raises
@@ -205,16 +238,12 @@ def moe_layer(cfg, p, x: torch.Tensor, top_k: int = 2,
     ``ep_axis=None``): the GShard einsums over [S, E, C] dispatch/combine
     masks, every expert on its C slots; with ``drop_tokens`` C =
     ceil(S·k/E·capacity_factor) (at least ``min_capacity``) and tokens past
-    it are dropped in sequence order, else C = S. p: {"router" [d, E],
+    it are dropped in sequence order (with ``rts_key``, an int seed, in
+    the order of :func:`rts_permutation`), else C = S. p: {"router" [d, E],
     "wg"/"wi" [E, d, f], "wo" [E, f, d], optional "shared"}; x [B, T, d] →
     (out [B, T, d], scaled aux). Quantized experts (``wg_scale``, serving)
     run the three expert products through :func:`qmatmul_batched` on the
     [E, C, d] buffers (moe.py:455)."""
-    if rts_key is not None:
-        raise NotImplementedError(
-            "random token selection (moe.use_rts) is not ported to "
-            "deepspeed_tpu_torch (ROADMAP A, 'Single-device training "
-            "breadth'); set moe.use_rts false")
     _no_health_taps(cfg)
     b, t, d = x.shape
     e = p["router"].shape[-1]
@@ -223,8 +252,10 @@ def moe_layer(cfg, p, x: torch.Tensor, top_k: int = 2,
     logits = xf.float() @ p["router"].float()
     cap = _capacity(s, e, top_k, capacity_factor, min_capacity) \
         if drop_tokens else s
+    perm = None if rts_key is None else rts_permutation(rts_key, s,
+                                                        x.device)
     dispatch, combine, aux = topk_gating(logits, top_k, cap,
-                                         norm_probs=norm_topk)
+                                         norm_probs=norm_topk, rts_perm=perm)
     buf = torch.einsum("sec,sd->ecd", dispatch.to(x.dtype), xf)
     if "wg" + SCALE_SUFFIX in p:
         gate = qmatmul_batched(buf, p["wg"], p["wg" + SCALE_SUFFIX])

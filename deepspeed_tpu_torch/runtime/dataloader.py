@@ -7,8 +7,11 @@ shuffled by ``(seed, epoch)`` — the same order as the JAX loader's, with
 the last partial batch dropped — and a :class:`RepeatingLoader` that
 starts the next epoch when one runs out, and the resume cursor the
 engine checkpoints (``state_dict``/``load_state_dict``). Batches are
-dicts of numpy arrays; the engine moves them to its device. Curriculum /
-data-efficiency samplers and collate overrides are not ported.
+dicts of numpy arrays; the engine moves them to its device. A
+``data_sampler`` (the curriculum-aware
+:class:`~deepspeed_tpu_torch.runtime.data_pipeline.DeepSpeedDataSampler`)
+replaces the epoch order: each micro-batch is the sampler's next index
+batch (dataloader.py:108-116). Collate overrides are not ported.
 """
 
 from typing import Any, Dict, Iterator, Sequence
@@ -20,10 +23,12 @@ class DeepSpeedDataLoader:
     """Port of ``DeepSpeedTPUDataLoader`` for one process. Items may be
     dicts of arrays or tuples (input_ids, labels)."""
 
-    def __init__(self, dataset, micro_batch_size: int, seed: int = 0):
+    def __init__(self, dataset, micro_batch_size: int, seed: int = 0,
+                 data_sampler=None):
         self.dataset = dataset
         self.micro_batch_size = micro_batch_size
         self.seed = seed
+        self.data_sampler = data_sampler
         self.epoch = 0
         #: microbatches already served this epoch — the resume cursor. A
         #: fresh ``iter()`` continues FROM the cursor (the epoch order is
@@ -60,7 +65,17 @@ class DeepSpeedDataLoader:
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         """The epoch's shuffled order from the cursor on (``_epoch_iter``
-        of the JAX loader): skipped microbatches load no data."""
+        of the JAX loader): skipped microbatches load no data. With a
+        ``data_sampler``, its index batches, forever."""
+        if self.data_sampler is not None:
+            return self._sampler_iter()
+        return self._epoch_iter()
+
+    def _sampler_iter(self) -> Iterator[Dict[str, np.ndarray]]:
+        for idx in self.data_sampler:
+            yield _default_collate([self.dataset[int(i)] for i in idx])
+
+    def _epoch_iter(self) -> Iterator[Dict[str, np.ndarray]]:
         order = np.arange(len(self.dataset))
         np.random.default_rng(self.seed + self.epoch).shuffle(order)
         mb = self.micro_batch_size

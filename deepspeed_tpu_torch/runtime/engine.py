@@ -22,6 +22,15 @@ fault injector, whose ``train_step`` hook sits at the top of
 :class:`~deepspeed_tpu_torch.elasticity.DSElasticAgent` at the step
 boundary; a ``nonfinite_grad`` step is skipped).
 
+Also ported from the JAX engine: ``offload_states``/``reload_states``
+(:1450-1510: params and optimizer state parked in pinned host memory),
+``check_nan_inf`` (:150-160, :1322-1340), the data-efficiency sampler
+(:1062-1121, with its curriculum updates and checkpoint state), and the
+step's random stream for random token selection: a CPU
+``torch.Generator`` seeded from ``seed`` + 1 (the JAX engine's
+``PRNGKey(seed + 1)``), drawn once a step as the JAX engine splits
+``_rng`` (:688, :769, :850), and saved and restored with checkpoints.
+
 This slice trains on one device. The ``telemetry`` block arms the span
 and request tracers (:func:`deepspeed_tpu_torch.telemetry.configure`).
 Data parallelism and ZeRO stages above 0, offload, ZeRO++, 1-bit
@@ -67,10 +76,15 @@ class ModelSpec:
     """Functional model contract consumed by the engine (engine.py:71):
     ``init_fn(generator, device)`` builds an fp32 parameter tree and
     ``loss_fn(params, batch)`` returns the scalar loss or (loss, metrics);
-    a metrics ``aux_loss`` reaches the step's metrics. The JAX spec's
-    sharding, pipeline and telemetry fields belong to unported paths."""
+    a metrics ``aux_loss`` reaches the step's metrics. With ``uses_rng``
+    the engine calls ``loss_fn(params, batch, rng=seed)``, ``seed`` an int
+    drawn from the step's random stream for each micro-batch (the JAX
+    spec's ``rng`` argument; random token selection reads it). The JAX
+    spec's sharding, pipeline and telemetry fields belong to unported
+    paths."""
     init_fn: Callable[[torch.Generator, torch.device], Params]
     loss_fn: LossFn
+    uses_rng: bool = False
 
 
 class DeepSpeedEngine:
@@ -124,16 +138,33 @@ class DeepSpeedEngine:
 
         self._acc_grads: Optional[List[torch.Tensor]] = None
         self._pending_grads: Optional[List[torch.Tensor]] = None
+        self._pending_loss: Optional[torch.Tensor] = None
+        #: the losses of the step being accumulated (check_nan_inf)
+        self._step_losses: Optional[List[torch.Tensor]] = None
         self._last_metrics: Optional[Dict[str, Any]] = None
         self._data_iter = None
         self.training_dataloader = self._build_dataloader(training_data)
-        #: the JAX engine's PRNG key, as loaded from a checkpoint: the
-        #: port's training path draws no random numbers, so it is carried
+        #: the JAX engine's PRNG key, as loaded from a checkpoint: carried
         #: to the next save unchanged (None: saved as null)
         self._rng: Optional[List[int]] = None
+        #: the port's step stream (random token selection): one draw a
+        #: step, saved with checkpoints as ``torch_rng``
+        self._rng_gen = torch.Generator(device="cpu").manual_seed(
+            int(config.seed) + 1)
         #: host offload (ZeRO-Offload) is not ported: the config refuses
         #: it, and load_checkpoint's offload branch raises
         self.offload_enabled = False
+        self._offloaded_states: Optional[Dict[str, Any]] = None
+        #: check_nan_inf: True/"debug" raises FloatingPointError before a
+        #: non-finite step's update; "scoped" names the first non-finite
+        #: leaf of the updated params (engine.py:150-160)
+        self._scoped_nan_check = config.check_nan_inf == "scoped"
+        self._debug_nan_check = bool(config.check_nan_inf) \
+            and not self._scoped_nan_check
+        if config.check_nan_inf:
+            log_dist("sanity checks on: " + (
+                "scoped per-leaf finite check" if self._scoped_nan_check
+                else "a non-finite loss or gradient raises"))
         self._arm_resilience()
 
         log_dist(
@@ -183,14 +214,55 @@ class DeepSpeedEngine:
             fault_injector.arm(rcfg.fault_plan)
 
     def _build_dataloader(self, training_data):
-        """engine.py:1062, without data-efficiency samplers."""
+        """engine.py:1062: the loader, and with ``data_efficiency``'s
+        curriculum or data sampling on, the curriculum scheduler and the
+        :class:`DeepSpeedDataSampler` it feeds. The difficulty metric is
+        ``data_sampling.metric_values``, a ``.npy`` at ``metric_path``, or
+        each sample's length (the first sized leaf)."""
+        self.curriculum_scheduler = None
+        self.data_sampler = None
         if training_data is None:
             return None
         from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
-        return DeepSpeedDataLoader(
-            training_data,
-            micro_batch_size=int(self.config.train_micro_batch_size_per_gpu),
-            seed=self.config.seed)
+        micro = int(self.config.train_micro_batch_size_per_gpu)
+        de = self.config.data_efficiency
+        sampler = None
+        if de.enabled and (de.curriculum_learning.get("enabled")
+                           or de.data_sampling.get("enabled")):
+            from deepspeed_tpu_torch.runtime.data_pipeline import (
+                CurriculumScheduler, DeepSpeedDataSampler)
+            if de.curriculum_learning.get("enabled"):
+                self.curriculum_scheduler = CurriculumScheduler(
+                    {k: v for k, v in de.curriculum_learning.items()
+                     if k != "enabled"})
+            ds_cfg = de.data_sampling
+            metric = ds_cfg.get("metric_values")
+            if metric is None and ds_cfg.get("metric_path"):
+                metric = np.load(ds_cfg["metric_path"])
+            if metric is None:
+                metric = [_sample_difficulty(training_data[i])
+                          for i in range(len(training_data))]
+                if len(set(metric)) <= 1:
+                    msg = ("the fallback difficulty metric (first-array-"
+                           "leaf length) is constant over this dataset, so "
+                           "difficulty gating is a no-op — provide "
+                           "'metric_values' or 'metric_path'")
+                    if ds_cfg.get("enabled"):
+                        raise ValueError(f"data_sampling: {msg}")
+                    log_dist(f"curriculum_learning: {msg}")
+            if len(metric) != len(training_data):
+                raise ValueError(
+                    f"data_sampling metric has {len(metric)} entries but "
+                    f"training_data has {len(training_data)} samples")
+            sampler = DeepSpeedDataSampler(
+                metric, batch_size=micro * self.dp_world_size,
+                curriculum=self.curriculum_scheduler, seed=de.seed,
+                micro_steps_per_global_step=int(
+                    self.config.gradient_accumulation_steps))
+            self.data_sampler = sampler
+        return DeepSpeedDataLoader(training_data, micro_batch_size=micro,
+                                   seed=self.config.seed,
+                                   data_sampler=sampler)
 
     # ------------------------------------------------------------ the step
 
@@ -198,15 +270,24 @@ class DeepSpeedEngine:
         return {k: torch.as_tensor(np.asarray(v) if not isinstance(
             v, torch.Tensor) else v).to(self.device) for k, v in batch.items()}
 
-    def _loss(self, batch: Batch):
+    def _next_seed(self) -> int:
+        """One draw of the step stream (the JAX engine's ``_rng`` split)."""
+        return int(torch.randint(0, 2 ** 62, (), generator=self._rng_gen))
+
+    def _loss(self, batch: Batch, seed: Optional[int] = None):
         """loss_fn's (loss, metrics); a bare loss gets empty metrics."""
-        out = self.model.loss_fn(self.params, batch)
+        if self.model.uses_rng:
+            out = self.model.loss_fn(self.params, batch, rng=seed)
+        else:
+            out = self.model.loss_fn(self.params, batch)
         return out if isinstance(out, tuple) else (out, {})
 
-    def _compute_loss_and_grads(self, batch: Batch):
+    def _compute_loss_and_grads(self, batch: Batch,
+                                seed: Optional[int] = None):
         """engine.py:376: (loss, loss_fn metrics, grads of loss × loss
         scale) w.r.t. every parameter leaf, in the leaves' dtype."""
-        loss, metrics = self._loss(batch)
+        self._require_states()
+        loss, metrics = self._loss(batch, seed)
         scaled = loss * self.loss_scale_state.scale if self.fp16_enabled \
             else loss
         grads = torch.autograd.grad(scaled, self._leaves)
@@ -221,12 +302,15 @@ class DeepSpeedEngine:
             for a, g in zip(self._acc_grads, grads):
                 a.add_(g)
 
-    def _accumulate_grads(self, micros: List[Batch]):
+    def _accumulate_grads(self, micros: List[Batch], seed: int):
         """engine.py:467: per-micro losses, grads summed in fp32, and the
-        loss_fn metrics averaged over the micro-batches (engine.py:626)."""
+        loss_fn metrics averaged over the micro-batches (engine.py:626).
+        Micro-batch i's loss_fn seed is the step's seed mixed with i."""
+        from deepspeed_tpu_torch.parallel.moe import mix_seed
         losses, metrics = [], []
-        for mb in micros:
-            loss, m, grads = self._compute_loss_and_grads(mb)
+        for i, mb in enumerate(micros):
+            loss, m, grads = self._compute_loss_and_grads(
+                mb, mix_seed(seed, i))
             self._accumulate(grads)
             del grads
             losses.append(loss)
@@ -245,6 +329,8 @@ class DeepSpeedEngine:
         forward ``aux_loss`` joins the metrics (:423)."""
         cfg = self.config
         grads, self._acc_grads = self._acc_grads, None
+        if self._debug_nan_check:
+            self._raise_if_nonfinite(grads)
         scaler = self.loss_scale_state
         inv = 1.0 / (scaler.scale * gas)
         for g in grads:
@@ -277,10 +363,45 @@ class DeepSpeedEngine:
             metrics["aux_loss"] = fwd_metrics["aux_loss"]
         return metrics
 
+    def _raise_if_nonfinite(self, grads: List[torch.Tensor]) -> None:
+        """``check_nan_inf`` True/"debug": one sync a step; the step's
+        losses (``self._step_losses``) or gradients not all finite raise
+        before the optimizer touches a parameter (the port's counterpart
+        of ``jax_debug_nans``, engine.py:157)."""
+        losses = [torch.stack(self._step_losses)] if self._step_losses \
+            else []
+        bad = check_overflow(list(grads) + losses)
+        if bool(bad):
+            self._acc_grads = None
+            raise FloatingPointError(
+                f"check_nan_inf: non-finite loss or gradients at step "
+                f"{self.global_steps}; the update was not applied")
+
+    def _scoped_finite_check(self) -> None:
+        """``check_nan_inf="scoped"`` (engine.py:1322): a per-leaf finite
+        check over the just-updated params — one sync a step — naming the
+        first bad leaf through the telemetry anomaly record."""
+        if not self._scoped_nan_check or self.params is None:
+            return
+        from deepspeed_tpu_torch.runtime.loss_scaler import global_check
+        bad, flags = global_check(self.params)
+        if bool(bad):
+            path = telemetry.first_flagged_path(_flags_to_host(flags))
+            telemetry.anomaly_detector.report_nonfinite(
+                self.global_steps, path, what="params")
+
+    def _check_batch_consistency(self, micros, local: bool = False) -> None:
+        """Cross-process dataloader consistency (engine.py:865): with one
+        process there is nothing to compare (:875-876)."""
+        return None
+
     def _finish_step(self, metrics: Dict[str, Any]) -> None:
         self.global_steps += 1
         self.global_samples += int(self.config.train_batch_size)
         self._last_metrics = metrics
+        if self.curriculum_scheduler is not None:
+            self.curriculum_scheduler.update_difficulty(self.global_steps)
+        self._scoped_finite_check()
 
     # ----------------------------------------------------------- parity API
 
@@ -293,8 +414,9 @@ class DeepSpeedEngine:
         following :meth:`backward` (engine.py:666: the JAX engine, too,
         computes loss and gradients in one call here)."""
         loss, _, grads = self._compute_loss_and_grads(
-            self._place_batch(batch))
+            self._place_batch(batch), self._next_seed())
         self._pending_grads = grads
+        self._pending_loss = loss.detach()
         return loss
 
     def backward(self, loss: torch.Tensor) -> torch.Tensor:
@@ -302,6 +424,7 @@ class DeepSpeedEngine:
         if self._pending_grads is None:
             raise RuntimeError("backward() called without forward()")
         self._accumulate(self._pending_grads)
+        self._step_losses = (self._step_losses or []) + [self._pending_loss]
         self._pending_grads = None
         self.micro_steps += 1
         return loss
@@ -313,7 +436,9 @@ class DeepSpeedEngine:
             return
         if self._acc_grads is None:
             raise RuntimeError("step() called with no accumulated gradients")
-        self._finish_step(self._apply_update(gas))
+        metrics = self._apply_update(gas)
+        self._step_losses = None
+        self._finish_step(metrics)
 
     def train_batch(self, data_iter: Optional[Iterator[Batch]] = None
                     ) -> torch.Tensor:
@@ -334,10 +459,17 @@ class DeepSpeedEngine:
         if self._acc_grads is not None:
             raise RuntimeError("train_batch() called with gradients pending "
                                "from forward()/backward(); call step()")
+        if self.config.check_nan_inf:
+            self._check_batch_consistency(micros, local=data_iter is None)
+        seed = self._next_seed()
         if "nonfinite_grad" in chaos:
             return self._skip_poisoned_step(gas)
-        losses, fwd = self._accumulate_grads(micros)
-        metrics = self._apply_update(gas, fwd)
+        losses, fwd = self._accumulate_grads(micros, seed)
+        self._step_losses = losses
+        try:
+            metrics = self._apply_update(gas, fwd)
+        finally:
+            self._step_losses = None
         loss = torch.stack(losses).mean()
         metrics["loss"] = loss
         self.micro_steps += gas
@@ -353,6 +485,8 @@ class DeepSpeedEngine:
         self.micro_steps += gas
         self.global_samples += int(self.config.train_batch_size)
         self.skipped_steps += 1
+        if self.curriculum_scheduler is not None:
+            self.curriculum_scheduler.update_difficulty(self.global_steps)
         self._last_metrics = {"loss": float("nan"),
                               "grad_norm": float("nan"), "overflow": 1}
         record_recovery("skip_nonfinite", step=self.global_steps)
@@ -368,8 +502,13 @@ class DeepSpeedEngine:
                 "engine's training iterator would silently skip training "
                 "samples")
         gas = int(self.config.gradient_accumulation_steps)
-        losses = [self._loss(self._place_batch(next(data_iter)))[0]
-                  for _ in range(gas)]
+        # an eval seed that does not advance the step stream (:934)
+        from deepspeed_tpu_torch.parallel.moe import mix_seed
+        seed = mix_seed(int(self._rng_gen.initial_seed()),
+                        self.global_steps)
+        self._require_states()
+        losses = [self._loss(self._place_batch(next(data_iter)),
+                             mix_seed(seed, i))[0] for i in range(gas)]
         return torch.stack(losses).mean()
 
     def _own_data_iterator(self):
@@ -386,19 +525,69 @@ class DeepSpeedEngine:
 
     def offload_states(self, include: Optional[Tuple[str, ...]] = None
                        ) -> None:
-        """engine.py:1450: park params and optimizer state in host memory
-        and free the device buffers. Not ported yet."""
-        raise NotImplementedError(
-            "DeepSpeedEngine.offload_states is not ported to "
-            "deepspeed_tpu_torch yet (ROADMAP A, 'Single-device training "
-            "breadth')")
+        """engine.py:1450: park params and optimizer state (the fp32
+        master, the moments) in host memory and free the device buffers —
+        to park a training engine while an inference engine owns the card
+        (RLHF generation phases). ``include`` defaults to ("params",
+        "opt_state"). Each tensor leaf is copied into a pinned host buffer
+        (a plain one for a CPU engine); the engine drops every reference
+        it holds to the device tensors and empties the CUDA cache."""
+        include = tuple(include or ("params", "opt_state"))
+        if self._offloaded_states:
+            raise RuntimeError("states already offloaded; reload first")
+        pin = self.device.type == "cuda"
+
+        def to_host(x):
+            if not isinstance(x, torch.Tensor):
+                return x
+            h = torch.empty(x.shape, dtype=x.dtype, device="cpu",
+                            pin_memory=pin)
+            h.copy_(x.detach(), non_blocking=pin)
+            return h
+
+        parked: Dict[str, Any] = {}
+        for name in include:
+            tree = getattr(self, name)
+            if tree is None or (isinstance(tree, dict) and not tree):
+                continue
+            parked[name] = tree_map(to_host, tree)
+            setattr(self, name, None)
+        if "params" in parked:
+            self._leaves = None
+        if pin:
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+        self._offloaded_states = parked
 
     def reload_states(self) -> None:
-        """engine.py:1486: bring offloaded states back. Not ported yet."""
-        raise NotImplementedError(
-            "DeepSpeedEngine.reload_states is not ported to "
-            "deepspeed_tpu_torch yet (ROADMAP A, 'Single-device training "
-            "breadth')")
+        """engine.py:1486: bring the offloaded states back, every leaf on
+        the engine's device in its dtype, bit for bit (the params
+        requiring gradients again). A no-op when nothing is offloaded."""
+        parked = self._offloaded_states
+        if not parked:
+            return
+        pin = self.device.type == "cuda"
+
+        def to_device(h):
+            if not isinstance(h, torch.Tensor):
+                return h
+            return h.to(self.device, non_blocking=pin)
+
+        for name, host in parked.items():
+            tree = tree_map(to_device, host)
+            if name == "params":
+                tree = tree_map(lambda x: x.requires_grad_(
+                    x.is_floating_point()), tree)
+                self._leaves = tree_leaves(tree)
+            setattr(self, name, tree)
+        if pin:
+            torch.cuda.synchronize(self.device)
+        self._offloaded_states = None
+
+    def _require_states(self) -> None:
+        if self._offloaded_states:
+            raise RuntimeError("states are offloaded; call reload_states() "
+                               "before training or evaluating")
 
     # --------------------------------------------------------- checkpointing
 
@@ -424,8 +613,10 @@ class DeepSpeedEngine:
             "optimizer": self.optimizer.hyperparams,
             "client_state": client_state or {},
             "offload": self.offload_enabled,
-            "data_sampler": None,
+            "data_sampler": (self.data_sampler.state_dict()
+                             if self.data_sampler is not None else None),
             "rng": self._rng,
+            "torch_rng": self._rng_gen.get_state().numpy().tobytes().hex(),
             "dataloader": (self.training_dataloader.state_dict()
                            if self.training_dataloader is not None
                            else None),
@@ -490,11 +681,27 @@ class DeepSpeedEngine:
         return tag, meta.get("client_state", {})
 
     def _restore_resume_state(self, meta: Dict[str, Any]) -> None:
-        """engine.py:1658: the JAX PRNG key (carried, see ``_rng``) and the
-        dataloader cursor. Older checkpoints lack the keys — resume still
-        works, just without the exact batch sequence."""
+        """engine.py:1658: the JAX PRNG key (carried, see ``_rng``), the
+        port's step stream (``torch_rng``; a JAX checkpoint has none, and
+        the stream is then seeded from its key), the data sampler's
+        position and the dataloader cursor. Older checkpoints lack the
+        keys — resume still works, just without the exact batch
+        sequence."""
         if meta.get("rng") is not None:
             self._rng = meta["rng"]
+        if meta.get("torch_rng"):
+            self._rng_gen.set_state(torch.frombuffer(
+                bytearray(bytes.fromhex(meta["torch_rng"])),
+                dtype=torch.uint8))
+        elif meta.get("rng") is not None:
+            from deepspeed_tpu_torch.parallel.moe import mix_seed
+            key = [int(k) for k in np.asarray(meta["rng"]).reshape(-1)]
+            seed = 0
+            for k in key:
+                seed = mix_seed(seed, k)
+            self._rng_gen.manual_seed(seed)
+        if self.data_sampler is not None and meta.get("data_sampler"):
+            self.data_sampler.load_state_dict(meta["data_sampler"])
         if meta.get("dataloader") and self.training_dataloader is not None:
             self.training_dataloader.load_state_dict(meta["dataloader"])
             # drop any half-consumed iterator so the next train_batch
@@ -522,6 +729,39 @@ class DeepSpeedEngine:
 
     def loss_scale(self) -> float:
         return float(self.loss_scale_state.scale)
+
+
+def _sample_difficulty(sample) -> int:
+    """Fallback curriculum difficulty (engine.py:55): the length of the
+    first sized leaf of a sample, leaves taken as ``jax.tree.leaves``
+    takes them (dict values in sorted key order, list and tuple items);
+    0-d arrays and scalars are skipped."""
+    def leaves(x):
+        if isinstance(x, dict):
+            for k in sorted(x):
+                yield from leaves(x[k])
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                yield from leaves(v)
+        else:
+            yield x
+
+    for leaf in leaves(sample):
+        if hasattr(leaf, "ndim"):
+            if leaf.ndim:
+                return int(np.shape(leaf)[0])
+            continue
+        if hasattr(leaf, "__len__"):
+            return len(leaf)
+    return 0
+
+
+def _flags_to_host(flags):
+    """A tree of 0-d bool tensors → the same tree of Python bools, in one
+    transfer (the flags are stacked first)."""
+    leaves = tree_leaves(flags)
+    host = iter(torch.stack(leaves).cpu().tolist() if leaves else [])
+    return tree_map(lambda _: next(host), flags)
 
 
 def _copy_into(dst, src):

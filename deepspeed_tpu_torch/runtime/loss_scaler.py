@@ -7,7 +7,7 @@ The state is three 0-d tensors on the engine's device, updated with
 reading it needs no host sync until a caller asks for a value.
 """
 
-from typing import NamedTuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
@@ -32,6 +32,27 @@ def check_overflow(grads) -> torch.Tensor:
     """Global NaN/Inf check over a list of tensors (0-d bool tensor)."""
     flags = [torch.logical_not(torch.isfinite(g).all()) for g in grads]
     return torch.stack(flags).any()
+
+
+def global_check(tree) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Per-leaf finite check (loss_scaler.py:41): (any non-finite, flags)
+    where ``flags`` mirrors the nested dict of tensors ``tree`` with one
+    0-d bool tensor per leaf (False for integer leaves). The engine's
+    ``check_nan_inf="scoped"`` mode feeds the flags to
+    :func:`deepspeed_tpu_torch.telemetry.first_flagged_path`."""
+    flags: list = []
+
+    def check(x):
+        if isinstance(x, dict):
+            return {k: check(v) for k, v in x.items()}
+        f = torch.logical_not(torch.isfinite(x).all()) \
+            if x.is_floating_point() else \
+            torch.zeros((), dtype=torch.bool, device=x.device)
+        flags.append(f)
+        return f
+
+    tree_flags = check(tree)
+    return torch.stack(flags).any(), tree_flags
 
 
 def update_scale(state: LossScaleState, overflow: torch.Tensor,

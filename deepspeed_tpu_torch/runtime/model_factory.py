@@ -3,12 +3,14 @@
 Port of ``deepspeed_tpu/runtime/model_factory.py``: compose the
 functional transformer core with the attention implementation selected by
 the config, and the MoE layer selected by its ``moe`` section, and hand
-the engine an init/loss pair. Dense and MoE decoders train on one device;
-pipeline parallelism, the ZeRO-3 overlap plan, expert parallelism, random
-token selection, Residual-MoE and the health taps raise
-``NotImplementedError``.
+the engine an init/loss pair. Dense and MoE decoders train on one device,
+with random token selection, Residual-MoE, ``ffn_chunk`` and
+``cpu_checkpointing`` folded in as the JAX factory folds them; pipeline
+parallelism, the ZeRO-3 overlap plan, expert parallelism and the health
+taps raise ``NotImplementedError``.
 """
 
+import dataclasses
 from functools import partial
 from typing import Optional
 
@@ -19,7 +21,11 @@ from deepspeed_tpu_torch.models import transformer
 from deepspeed_tpu_torch.models.transformer import (DecoderConfig,
                                                     dot_product_attention)
 from deepspeed_tpu_torch.ops.flash_attention import flash_attention
-from deepspeed_tpu_torch.parallel.moe import dropless_moe_layer, moe_layer
+from deepspeed_tpu_torch.parallel.moe import (dropless_moe_layer, moe_layer,
+                                              mix_seed)
+from deepspeed_tpu_torch.runtime.activation_checkpointing import \
+    upgrade_for_cpu_checkpointing
+from deepspeed_tpu_torch.utils.logging import log_dist
 
 
 def select_attention(ds_cfg: DeepSpeedConfig,
@@ -68,9 +74,8 @@ def select_moe(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
     """The training ``moe_fn`` (model_factory.py:192), None for a dense
     model: ``moe.impl="dropless"`` → :func:`dropless_moe_layer` (the
     grouped FFN; one expert shard), "capacity" → :func:`moe_layer` with
-    the section's capacity_factor, min_capacity and drop_tokens. Random
-    token selection (``use_rts`` with ``drop_tokens`` on the capacity
-    impl, on by default in both packages) raises."""
+    the section's capacity_factor, min_capacity and drop_tokens (random
+    token selection is added per step by :func:`decoder_model_spec`)."""
     if not dec_cfg.num_experts:
         return None
     moe = ds_cfg.moe
@@ -81,12 +86,6 @@ def select_moe(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
                        top_k=dec_cfg.num_experts_per_tok,
                        aux_loss_coef=moe.aux_loss_coef,
                        norm_topk=dec_cfg.norm_topk_prob)
-    if moe.use_rts and moe.drop_tokens:
-        raise NotImplementedError(
-            "random token selection (moe.use_rts with drop_tokens on the "
-            "capacity impl) is not ported to deepspeed_tpu_torch yet "
-            "(ROADMAP A, 'Single-device training breadth'); set moe.use_rts "
-            "false or moe.impl 'dropless'")
     return partial(moe_layer, top_k=dec_cfg.num_experts_per_tok,
                    capacity_factor=moe.capacity_factor,
                    min_capacity=moe.min_capacity,
@@ -102,13 +101,45 @@ def decoder_model_spec(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
     (optional; defaults to input_ids shifted left, last position -100)}.
     For an MoE model ``loss_fn`` returns (CE + aux, {"aux_loss": aux})
     (:353-361), else the CE alone.
+
+    As in the JAX factory (:226-300): ``moe.use_residual`` folds
+    Residual-MoE into the model config, ``activation_checkpointing.
+    ffn_chunk`` the chunked MLP, and ``cpu_checkpointing`` upgrades the
+    remat policy to its host-offload twin. With random token selection
+    (``moe.use_rts`` and ``drop_tokens`` on the capacity impl) the spec
+    takes the engine's per-micro-batch seed as ``loss_fn``'s ``rng``, and
+    each MoE layer claims capacity slots in the order of a permutation
+    drawn from that seed and the layer's index.
     """
     from deepspeed_tpu_torch.runtime.engine import ModelSpec
 
+    ac = ds_cfg.activation_checkpointing
+    if ds_cfg.moe.use_residual and dec_cfg.num_experts \
+            and not dec_cfg.moe_residual:
+        dec_cfg = dataclasses.replace(dec_cfg, moe_residual=True)
+    if ac.ffn_chunk:
+        dec_cfg = dataclasses.replace(dec_cfg, ffn_chunk=int(ac.ffn_chunk))
     attn_fn = select_attention(ds_cfg, dec_cfg)
     moe_fn = select_moe(dec_cfg, ds_cfg)
-    remat = ds_cfg.activation_checkpointing.policy
+    remat = ac.policy
+    if ac.cpu_checkpointing:
+        upgraded = upgrade_for_cpu_checkpointing(remat)
+        if upgraded != remat:
+            log_dist(f"cpu_checkpointing: remat policy '{remat}' -> "
+                     f"'{upgraded}' (host-memory activations)")
+        remat = upgraded
     transformer.resolve_remat_policy(remat)
+    use_rts = (moe_fn is not None and ds_cfg.moe.use_rts
+               and ds_cfg.moe.drop_tokens and ds_cfg.moe.impl == "capacity")
+
+    def rts_moe(seed: int):
+        """moe_fn for one micro-batch: each layer's permutation seed is
+        the micro-batch's seed mixed with the layer index, so a block's
+        recompute in backward draws the same permutation."""
+        def mf(c, p, x, layer):
+            return moe_fn(c, p, x, rts_key=mix_seed(seed, layer))
+        mf.per_layer = True
+        return mf
     ce_budget = None if ds_cfg.chunked_ce_budget_mb is None \
         else int(ds_cfg.chunked_ce_budget_mb) * 1024 * 1024
     ce_dtype = torch.bfloat16 if ds_cfg.ce_logits_dtype in (
@@ -118,15 +149,19 @@ def decoder_model_spec(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
         return transformer.init_params(dec_cfg, generator, torch.float32,
                                        device)
 
-    def loss_fn(params, batch):
+    def loss_fn(params, batch, rng: Optional[int] = None):
         tokens = batch["input_ids"]
         if "labels" in batch:
             labels = batch["labels"]
         else:
             labels = torch.cat([tokens[:, 1:],
                                 torch.full_like(tokens[:, :1], -100)], dim=1)
+        if use_rts and rng is None:
+            raise ValueError("random token selection needs the step's "
+                             "seed: call loss_fn(params, batch, rng=...)")
+        mf = rts_moe(rng) if use_rts else moe_fn
         hidden, aux = transformer.forward_hidden(
-            dec_cfg, params, tokens, attn_fn=attn_fn, moe_fn=moe_fn,
+            dec_cfg, params, tokens, attn_fn=attn_fn, moe_fn=mf,
             remat_policy=remat)
         loss = transformer.chunked_cross_entropy(
             dec_cfg, params, hidden, labels, budget_bytes=ce_budget,
@@ -135,4 +170,4 @@ def decoder_model_spec(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
             return loss
         return loss + aux, {"aux_loss": aux}
 
-    return ModelSpec(init_fn=init_fn, loss_fn=loss_fn)
+    return ModelSpec(init_fn=init_fn, loss_fn=loss_fn, uses_rng=use_rts)

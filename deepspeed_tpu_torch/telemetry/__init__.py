@@ -16,15 +16,20 @@ serving front end drives:
 - :mod:`~deepspeed_tpu_torch.telemetry.endpoint` — ``GET /metrics`` and
   ``GET /healthz``;
 - :mod:`~deepspeed_tpu_torch.telemetry.watchdog` — the per-step deadline
-  monitor.
+  monitor;
+- :mod:`~deepspeed_tpu_torch.telemetry.anomaly` — the anomaly record that
+  the training engine's scoped finite check reports into.
 
 The reference's goodput ledger, compile monitor, explain (roofline cost
-records), health taps, metric history, SLO engine, sampler, anomaly
-detector and the fleet tools are not ported yet; the config keys that
+records), health taps, metric history, SLO engine, sampler, the anomaly
+detector's rolling-window detectors and the fleet tools are not ported
+yet; the config keys that
 would turn them on raise ``NotImplementedError``
 (:mod:`deepspeed_tpu_torch.config.config`).
 """
 
+from deepspeed_tpu_torch.telemetry.anomaly import (  # noqa: F401
+    AnomalyDetector, anomaly_detector, first_flagged_path)
 from deepspeed_tpu_torch.telemetry.endpoint import MetricsServer  # noqa: F401
 from deepspeed_tpu_torch.telemetry.flight_recorder import (  # noqa: F401
     FlightRecorder, flight_recorder, load_dump)
@@ -39,7 +44,8 @@ __all__ = ["tracer", "Tracer", "registry", "MetricsRegistry", "Counter",
            "Gauge", "Histogram", "configure", "metrics_text",
            "flight_recorder", "FlightRecorder", "load_dump", "Watchdog",
            "MetricsServer", "reqtrace", "ReqTrace", "TraceContext",
-           "critical_path"]
+           "critical_path", "anomaly_detector", "AnomalyDetector",
+           "first_flagged_path"]
 
 
 def configure(telemetry_config) -> None:

@@ -121,14 +121,31 @@ def test_forward_only_and_window_checks():
 
 @pytest.mark.parametrize("d", [80, 96, 256])
 def test_backward_head_dims_raise_before_the_forward(d, monkeypatch):
-    """K3 takes head_dim 64 and 128 only: on CUDA tensors a call that
-    needs a gradient at another head dim raises NotImplementedError,
-    naming the ROADMAP item, before K1 runs (a CUDA tensor is stood in by
-    a CPU one whose device reads "cuda"); without a gradient the forward
-    runs, and on the CPU the plain backward takes any head dim."""
+    """K3 takes head_dim 80, 96 and 256 as it takes 64 and 128 (these
+    dims raised here until K3 had instances for them): on CUDA tensors (a
+    CPU tensor whose device reads "cuda" stands in) a call that needs a
+    gradient raises nothing, runs K1 and then K3 — both pointed at their
+    plain versions here — and gives the CPU path's output and gradients;
+    K3's argument check takes the head dim."""
     q, k, v = (torch.from_numpy(a) for a in _inputs(5, t=8, d=d))
+    do = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (2, 8, 4, d)).astype(np.float32))
+    assert d in tfa.BWD_HEAD_DIMS and tfa.BWD_HEAD_DIMS == tfa.HEAD_DIMS
+    tfa._check(q, k, v, tfa.BWD_HEAD_DIMS, "flash_attention backward")
     ran = []
-    monkeypatch.setattr(tfa, "_forward", lambda *a: ran.append(a))
+
+    def fwd(*a):
+        ran.append("K1")
+        return tfa.flash_attention_ref(*(x.as_subclass(torch.Tensor)
+                                         for x in a[:3]), *a[3:])
+
+    def bwd(*a):
+        ran.append("K3")
+        return tfa.flash_attention_bwd_ref(
+            *(x.as_subclass(torch.Tensor) for x in a[:6]), *a[6:])
+
+    monkeypatch.setattr(tfa, "_forward", fwd)
+    monkeypatch.setattr(tfa, "flash_attention_bwd", bwd)
 
     class _Cuda(torch.Tensor):
         @property
@@ -136,12 +153,14 @@ def test_backward_head_dims_raise_before_the_forward(d, monkeypatch):
             return torch.device("cuda", 0)
 
     qc = q.clone().requires_grad_().as_subclass(_Cuda)
-    with pytest.raises(NotImplementedError,
-                       match="Single-device training breadth"):
-        tfa.flash_attention(qc, k, v)
-    assert not ran
+    out = tfa.flash_attention(qc, k, v)
+    (gq,) = torch.autograd.grad(out, (qc,), do)
+    assert ran == ["K1", "K3"]
     monkeypatch.undo()
     qg = q.clone().requires_grad_()
-    out = tfa.flash_attention(qg, k, v)
-    out.sum().backward()
-    assert qg.grad is not None and torch.isfinite(qg.grad).all()
+    want = tfa.flash_attention(qg, k, v)
+    torch.testing.assert_close(out.as_subclass(torch.Tensor).detach(),
+                               want.detach(), rtol=0, atol=0)
+    (wq,) = torch.autograd.grad(want, (qg,), do)
+    torch.testing.assert_close(gq.as_subclass(torch.Tensor), wq, rtol=0,
+                               atol=0)

@@ -6,7 +6,9 @@ its Pallas backward kernels in interpret mode (block_q = block_k = 64).
 The shapes take the Pallas path (T = 128 divides the blocks; _supported
 holds), so the reference is the real _bwd_dq_kernel / _bwd_dkv_kernel,
 not the XLA fallback. Cases: GQA (4 q heads over 2 kv heads), causal and
-non-causal, a sliding window, q_offset, dh 64 and 128. The XL kernels
+non-causal, a sliding window, q_offset, dh 64 and 128, and dh 80, 96 and
+256 (the model families' head dims: Phi-2, GPT-NeoX-20B, Gemma) causal,
+windowed and offset. The XL kernels
 (_bwd_dq_kernel_xl / _bwd_dkv_kernel_xl) are the same function at
 T > 4096, too slow in interpret mode; the card covers them through
 chip_smoke.py phase 3. Tolerance: fp32, atol/rtol 1e-4 (summation order).
@@ -53,6 +55,10 @@ def _jax_grads(q, k, v, do, **mask):
     (128, dict(causal=True, window=48)),
     (64, dict(causal=True, q_offset=16)),
     (64, dict(causal=True, q_offset=5, window=40)),
+    (80, dict(causal=True, q_offset=16)),
+    (96, dict(causal=False)),
+    (96, dict(causal=True, window=48)),
+    (256, dict(causal=True, q_offset=5, window=40)),
 ])
 def test_flash_backward_matches_pallas(d, mask):
     q, k, v, do = _inputs(d + sum(int(x) for x in mask.values()), d=d)
@@ -89,6 +95,9 @@ def _row_rel_err(got, want) -> float:
     (128, dict(causal=True)),
     (64, dict(causal=False)),
     (128, dict(causal=True, q_offset=16, window=48)),
+    (80, dict(causal=True)),
+    (96, dict(causal=True, q_offset=16, window=48)),
+    (256, dict(causal=True)),
 ])
 def test_flash_backward_bf16_matches_pallas(d, mask):
     """bf16: the Pallas forward gives (out, lse); the same bf16 q, k, v,

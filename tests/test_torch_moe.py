@@ -187,8 +187,8 @@ def test_moe_paths_raise():
     """Gradients reach every leaf of both layers and the model's MoE
     parameters (MoE training is ported); quantized experts run in the
     capacity layer only (the dropless one refuses them, and serving picks
-    the capacity layer for them); what still raises: health taps, expert
-    parallelism, random token selection and Residual-MoE."""
+    the capacity layer for them); random token selection takes an int
+    seed; what still raises: health taps and expert parallelism."""
     tp = _both(_layer("mixtral"))[1]
     _, tcfg = _cfgs("mixtral")
     x = torch.from_numpy(_x(1, 4))
@@ -212,8 +212,15 @@ def test_moe_paths_raise():
     for wq, tree in (("int8", tp), (None, {"layers": {"moe": quant}})):
         fn = tm.serving_moe_fn(tcfg, wq, tree, ep=False)
         assert fn.func is tm.moe_layer and not fn.keywords["drop_tokens"]
-    with pytest.raises(NotImplementedError, match="training breadth"):
-        tm.moe_layer(None, tp, x, rts_key=1)
+    # random token selection: the token order comes from the seed alone,
+    # and a permutation of sequence order changes which tokens drop
+    kw = dict(capacity_factor=0.5, min_capacity=1)
+    a, _ = tm.moe_layer(None, tp, x, rts_key=1, **kw)
+    b, _ = tm.moe_layer(None, tp, x, rts_key=1, **kw)
+    assert torch.equal(a, b)
+    assert torch.equal(tm.rts_permutation(1, 7, "cpu"),
+                       tm.rts_permutation(1, 7, "cpu"))
+    assert sorted(tm.rts_permutation(2, 7, "cpu").tolist()) == list(range(7))
     params = tt.init_params(tcfg, torch.Generator().manual_seed(1))
     moe = {k: v.requires_grad_() for k, v in params["layers"]["moe"].items()}
     params["layers"]["moe"] = moe
@@ -223,6 +230,12 @@ def test_moe_paths_raise():
     assert all(g.shape == p.shape for g, p in zip(grads, moe.values()))
     with pytest.raises(ValueError, match="moe_fn"):
         tt.forward(tcfg, params, torch.zeros((1, 4), dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="Residual-MoE"):
-        tt.init_params(dataclasses.replace(tcfg, moe_residual=True),
-                       torch.Generator())
+    # Residual-MoE: the tree gains the dense branch and the coefficient,
+    # and the forward mixes them in
+    res = tt.init_params(dataclasses.replace(tcfg, moe_residual=True),
+                         torch.Generator().manual_seed(1))
+    assert {"residual", "coef", "coef_b"} <= set(res["layers"]["moe"])
+    mixed = tt.forward(dataclasses.replace(tcfg, moe_residual=True), res,
+                       torch.zeros((1, 4), dtype=torch.long),
+                       moe_fn=tm.dropless_moe_layer)
+    assert torch.isfinite(mixed).all()

@@ -12,10 +12,13 @@ The engine: deepspeed_tpu_torch.initialize / train_batch against
 deepspeed_tpu.initialize on a one-device mesh from one numpy parameter
 tree, 4 steps of gas 2, for mixtral-tiny and qwen2-moe-tiny at d 128 (the
 tiny presets' d 64 is off the JAX Pallas gate) with moe.impl dropless and
-capacity (use_rts false: random token selection is not ported). Loss
+capacity (use_rts false: tests/test_torch_moe_rts.py holds random token
+selection, whose permutations the two packages draw differently). Loss
 (CE + aux) within 1e-5 relative, aux within 1e-5, parameters within 1e-4
 absolute, as tests/test_torch_training.py.
 """
+
+import dataclasses
 
 import numpy as np
 import jax
@@ -198,9 +201,12 @@ def test_engine_matches_jax_engine(model, impl, monkeypatch):
 
 
 def test_moe_training_runs_no_kernel_on_cpu_and_raises_where_unported():
-    """The CPU path launches no kernel; a MoE config the port does not
-    train raises: random token selection (on by default with the capacity
-    impl), Residual-MoE, expert parallelism, a noisy gate, health taps."""
+    """The CPU path launches no kernel; the JAX package's default MoE
+    training config (capacity impl with random token selection and
+    drop_tokens), Residual-MoE and a noisy gate policy (accepted and read
+    by nothing, as in JAX) train; a MoE config the port does not train
+    raises: expert parallelism, health taps (tests/test_torch_moe_rts.py
+    holds random token selection and Residual-MoE to the JAX engine)."""
     cfg = t_mixtral("tiny", hidden_size=D, intermediate_size=256,
                     vocab_size=256)
     op_builder.reset_launches()
@@ -214,12 +220,20 @@ def test_moe_training_runs_no_kernel_on_cpu_and_raises_where_unported():
     # eval_batch takes the loss out of the (loss, metrics) pair
     assert float(eng.eval_batch(iter([batch]))) > 0
     base = {"train_micro_batch_size_per_gpu": 1}
-    with pytest.raises(NotImplementedError, match="training breadth"):
-        dt.initialize(cfg, base, device="cpu")          # use_rts default
-    for moe, match in (({"use_residual": True}, "Residual-MoE"),
-                       ({"ep_size": 2}, "Parallelism breadth"),
-                       ({"noisy_gate_policy": "RSample"}, "noisy_gate")):
-        with pytest.raises(NotImplementedError, match=match):
-            dt.initialize(cfg, dict(base, moe=moe), device="cpu")
-    with pytest.raises(NotImplementedError, match="training breadth"):
-        tm.moe_layer(None, {}, torch.zeros(1, 2, D), rts_key=0)
+    for moe in ({}, {"use_residual": True},
+                {"noisy_gate_policy": "RSample"}):
+        eng, *_ = dt.initialize(cfg, dict(base, moe=moe), device="cpu")
+        assert eng.model.uses_rng                # use_rts is the default
+        assert np.isfinite(float(eng.train_batch(iter([batch]))))
+    with pytest.raises(NotImplementedError, match="Parallelism breadth"):
+        dt.initialize(cfg, dict(base, moe={"ep_size": 2}), device="cpu")
+    with pytest.raises(NotImplementedError, match="health taps"):
+        tm.moe_layer(dataclasses.replace(cfg, health_taps=True),
+                     {"router": torch.zeros(D, 4)}, torch.zeros(1, 2, D))
+    # an int seed stands for the JAX key; the permutation is torch's
+    out, _ = tm.moe_layer(None, {"router": torch.zeros(D, 2),
+                                 "wg": torch.zeros(2, D, 4),
+                                 "wi": torch.zeros(2, D, 4),
+                                 "wo": torch.zeros(2, 4, D)},
+                          torch.zeros(1, 2, D), rts_key=0)
+    assert out.shape == (1, 2, D)

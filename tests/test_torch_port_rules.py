@@ -105,13 +105,13 @@ def test_unported_features_raise(monkeypatch):
                                 device="cpu")
     assert eng.params["layers"]["attn"]["wq"].dtype == torch.int8
     assert eng.params["lm_head_scale"].dtype == torch.float32
-    # MoE serving and training are ported; random token selection (on by
-    # default with the capacity impl) is not, and without device= MoE
+    # MoE serving and training are ported, random token selection (on by
+    # default with the capacity impl) included, and without device= MoE
     # training targets CUDA
     moe = llama3_config("tiny", num_experts=4)
     assert RaggedInferenceEngine(moe, small, device="cpu")._moe_fn
-    with pytest.raises(NotImplementedError, match="random token"):
-        initialize(moe, {"train_micro_batch_size_per_gpu": 1}, device="cpu")
+    assert initialize(moe, {"train_micro_batch_size_per_gpu": 1},
+                      device="cpu")[0].model.uses_rng
     dropless = {"train_micro_batch_size_per_gpu": 1,
                 "moe": {"impl": "dropless"}}
     assert initialize(moe, dropless, device="cpu")[0].device.type == "cpu"

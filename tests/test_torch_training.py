@@ -27,6 +27,7 @@ from deepspeed_tpu.runtime.dataloader import DeepSpeedTPUDataLoader
 
 import deepspeed_tpu_torch as dt
 from deepspeed_tpu_torch.models.convert import params_to_numpy
+from deepspeed_tpu_torch.ops.optimizers import tree_leaves
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
 
 MICRO, GAS, SEQ, STEPS = 4, 2, 256, 4
@@ -177,10 +178,10 @@ def test_engine_defaults_to_cuda_and_unported_config_raises(monkeypatch):
     with pytest.raises(NotImplementedError, match="pipeline"):
         dt.initialize(model=dt.llama3_config("tiny"),
                       config={"pipeline": {"stages": 2}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="remat"):
+    with pytest.raises(NotImplementedError, match="communication_data_type"):
         dt.initialize(model=dt.llama3_config("tiny"),
-                      config={"activation_checkpointing":
-                              {"policy": "save_attn_kernel"}}, device="cpu")
+                      config={"communication_data_type": "bf16"},
+                      device="cpu")
     with pytest.raises(NotImplementedError, match="offload_optimizer"):
         dt.initialize(model=dt.llama3_config("tiny"),
                       config={"zero_optimization": {"offload_optimizer":
@@ -191,16 +192,61 @@ def test_engine_defaults_to_cuda_and_unported_config_raises(monkeypatch):
         dt.initialize(model=dt.llama3_config("tiny"), config={})
 
 
-def test_offload_states_raise_until_ported():
-    """The JAX engine's offload_states/reload_states exist on the port's
-    engine and raise NotImplementedError naming the ROADMAP item, where a
-    caller got an AttributeError before."""
-    eng = dt.initialize(model=dt.llama3_config("tiny"), config={},
-                        device="cpu")[0]
-    for call in (eng.offload_states, eng.reload_states):
-        with pytest.raises(NotImplementedError,
-                           match="Single-device training breadth"):
-            call()
+def test_offload_states_raise_until_ported(runs):
+    """offload_states/reload_states as the JAX engine's
+    (tests/test_runtime_components.py:159, on a one-device mesh): both
+    engines train a step, park their states (params and opt_state become
+    None; a second offload raises RuntimeError "already offloaded"),
+    reload them and train on, with the same losses. Every reloaded leaf
+    equals its parked value bit for bit, in its dtype; a second reload is
+    a no-op; a step while offloaded raises. (The name is kept from when
+    the port raised NotImplementedError here.)"""
+    conf = dict(CONFIG, gradient_accumulation_steps=1,
+                attention_impl="naive")
+    batch = runs["data"][0]
+    saved = jax_mesh._CURRENT_MESH
+    try:
+        jax_mesh.build_mesh(data=1, devices=jax.devices()[:1])
+        je, *_ = deepspeed_tpu.initialize(model=jax_llama3("tiny"),
+                                          config=dict(conf),
+                                          params=runs["init"])
+        jl = [float(je.train_batch(iter([batch])))]
+        je.offload_states()
+        assert je.params is None and je.opt_state is None
+        with pytest.raises(RuntimeError, match="already offloaded"):
+            je.offload_states()
+        je.reload_states()
+        jl.append(float(je.train_batch(iter([batch]))))
+    finally:
+        jax_mesh._CURRENT_MESH = saved
+
+    eng = dt.initialize(model=dt.llama3_config("tiny"), config=dict(conf),
+                        params=runs["init"], device="cpu")[0]
+    tl = [float(eng.train_batch(iter([batch])))]
+    before = [x.detach().clone() for x in tree_leaves(eng.params)
+              + tree_leaves(eng.opt_state) if isinstance(x, torch.Tensor)]
+    eng.offload_states()
+    assert eng.params is None and eng.opt_state is None
+    with pytest.raises(RuntimeError, match="already offloaded"):
+        eng.offload_states()
+    with pytest.raises(RuntimeError, match="reload_states"):
+        eng.train_batch(iter([batch]))
+    eng.reload_states()
+    after = [x for x in tree_leaves(eng.params) + tree_leaves(eng.opt_state)
+             if isinstance(x, torch.Tensor)]
+    assert len(after) == len(before)
+    for i, x in enumerate(after):
+        assert x.dtype == before[i].dtype and x.device == before[i].device
+        assert torch.equal(x, before[i])
+    assert all(x.requires_grad for x in tree_leaves(eng.params))
+    tl.append(float(eng.train_batch(iter([batch]))))
+    eng.reload_states()                       # a no-op
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    assert tl[1] < tl[0]
+    eng.offload_states(include=("opt_state",))
+    assert eng.params is not None and eng.opt_state is None
+    eng.reload_states()
+    assert eng.opt_state is not None
 
 
 def test_full_remat_and_bf16_head_gradients():
