@@ -75,7 +75,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    that the bf16 head returns unrounded fp32 logits; then the same for a
    depth-2 model at Mixtral 8x7B width: a fresh 4 x 256 chunk (1024
    tokens: the dropless FFN, grouped kernels) and a decode step (the
-   capacity FFN); then from one quantized tree: depth 2 at Llama-3 8B
+   capacity FFN); then from one quantized tree: depth 1 at Llama-3 8B
    width in int8, fp8, int4 and fp6 (fresh, split, decode) and at Mixtral
    width in int8 (a fresh 2 x 32 chunk and a decode step, both through the
    capacity layer);
@@ -186,7 +186,33 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    step before ``wait_pending()``, a fresh engine loads the state at the
    save bit for bit and its next 2 steps are held to the uninterrupted
    engine's, with the state's bytes on disk, the snapshot's seconds, the
-   commit's and the load's seconds and GB/s, and the disk usage.
+   commit's and the load's seconds and GB/s, and the disk usage;
+10. ZeRO-Offload (run right after phase 9): a probe line (MemAvailable,
+   the process's resident set and the room left under the machine's
+   limit, cores, free space under ``build/`` and in /dev/shm, ``ulimit
+   -l``); (a) the slice's main path, Llama-3 8B at full width in bf16
+   through ``initialize``/``train_batch`` with stage 2 and
+   ``offload_optimizer.device`` 'cpu' (AdamW, remat full, micro batch 1 x
+   2048, clip 1.0), at full depth when the host holds the fp32 master and
+   moments, else on the NVMe tier when the disk holds it and its traffic
+   fits, else with layers cut to what the host holds (printed under
+   ``reduced``): 2 warm-up and 3 timed steps on one fixed batch with
+   ``overlap`` off, then on, each with ms a step, the card's
+   forward+backward ms, the host sweep's seconds, D2H and H2D GB/s, the
+   host state's bytes, peak memory beside the on-card state the model
+   would need, losses (finite, falling) and K1's and K3's launches; after
+   the first step, the embedding, layer 0's wq and the final norm equal
+   an AdamW step computed on the card from the same master slice and
+   landed bf16 gradients within 1 bf16 ulp; (b) at depth 2 and Llama-3
+   1B width in fp32, 2 steps of ZeRO-Offload (overlap off and on),
+   SuperOffload (a clip that makes it roll back), the NVMe tier and the
+   parameter tier under ``build/``, each on the card and the CPU, within
+   1e-4 of each other and of the card's on-device AdamW engine; (c) the
+   parameter tier at Llama-3 1B's full width in bf16 at two depths: the
+   store's bytes, streaming GB/s and peak memory, flat across depths; (d)
+   a host Adam sweep over 2^30 values in GB/s beside numpy copying them,
+   and an O_DIRECT ``AsyncIOEngine`` write and read of 4 GiB under
+   ``build/``, checked bit for bit.
 
 Every phase prints one JSON line; any failure raises, so the script exits
 non-zero. Without CUDA, or outside a checkout of the repository, it exits
@@ -2478,11 +2504,14 @@ def _quant_kernel(mode: str, batched: bool = False) -> str:
 
 def phase_full_width_quant():
     """Quantized ragged_forward, fp32, card against CPU from one quantized
-    tree (drawn quantized on the card, copied to the CPU): depth 2 at
+    tree (drawn quantized on the card, copied to the CPU): depth 1 at
     Llama-3 8B width under each of the four formats (a fresh chunk, a
     split chunk and a decode step, the head included: (4096, 128256)),
-    then depth 2 at Mixtral 8x7B width in int8 (a fresh 2 x 32 chunk and a
-    decode step, both through the capacity layer's batched kernel).
+    then depth 1 at Mixtral 8x7B width in int8 (a fresh 2 x 32 chunk and a
+    decode step, both through the capacity layer's batched kernel). Depth
+    1, not 2: the CPU side's plain dequantizing matmuls were the largest
+    CPU cost of the script, and one layer runs every kernel shape that two
+    do.
     Tolerance as phase_full_width's (2e-3): the two sides sum the same
     decoded products in fp32 in other orders."""
     import torch
@@ -2496,9 +2525,9 @@ def phase_full_width_quant():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     tol, worst = 2e-3, 0.0
-    runs = [(mode, llama3_config("8b", num_layers=2), mode) for mode in
+    runs = [(mode, llama3_config("8b", num_layers=1), mode) for mode in
             QUANT_MODES] + [("mixtral-int8", mixtral_config(
-                "8x7b", num_layers=2), "int8")]
+                "8x7b", num_layers=1), "int8")]
     for name, cfg, mode in runs:
         moe = bool(cfg.num_experts)
         t0 = time.perf_counter()
@@ -2549,7 +2578,7 @@ def phase_full_width_quant():
             assert torch.isfinite(logits[DEV]).all()
             err = _err(logits[DEV], logits["cpu"])
             worst = max(worst, err)
-            emit({"phase": "full_width_quant", "model": name + "-depth2",
+            emit({"phase": "full_width_quant", "model": name + "-depth1",
                   "mode": step, "weight_quant": mode,
                   "tokens": len(starts) * c, "max_abs_err": err, "tol": tol,
                   "logit_absmax": float(logits["cpu"].abs().max()),
@@ -3824,6 +3853,636 @@ def phase_checkpoint(smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: ZeRO-Offload — host Adam, SuperOffload, the NVMe tier, the
+# layer-streamed parameter tier
+# ---------------------------------------------------------------------------
+
+#: the main path: Llama-3 8B in bf16 under offload_optimizer 'cpu', stage
+#: 2, AdamW, remat full, micro batch 1 x 2048, gas 1, clip 1.0; 2 warm-up
+#: and 3 timed steps with overlap off, then on
+OFFLOAD_MODEL = ("8b", {"max_seq_len": 2048})
+OFFLOAD_SEQ, OFFLOAD_WARMUP, OFFLOAD_STEPS = 2048, 2, 3
+#: host bytes a parameter of the 'cpu' tier holds: fp32 master and two
+#: moments, the pinned bf16 landing and output buffers
+OFFLOAD_HOST_BYTES = 16
+#: the host memory a run may use (a container's limit can sit below the
+#: MemTotal that /proc/meminfo reports), what the container holds beside
+#: this process, and what (a) leaves to the process's transients and
+#: checks; where memory a process frees returns to its own later
+#: allocations but not to MemAvailable, room is counted from the
+#: process's resident set
+OFFLOAD_HOST_LIMIT = 96 * 2 ** 30
+OFFLOAD_HOST_OTHER = 10e9
+OFFLOAD_HOST_RESERVE = 12e9
+#: the NVMe tier runs (a) only if its file traffic for all its steps would
+#: take less than this at the rates (d) measured
+OFFLOAD_NVME_BUDGET_S = 240.0
+#: (b): depth 2 at Llama-3 1B width in fp32, phase 9 (a)'s vocabulary
+#: and FFN; AdamW at lr 1e-5 (see phase_train_full_width), a clip of 0.05
+#: that fires every step (SuperOffload rolls back), 2 steps of gas 2
+OFFLOAD_SMALL = dict(num_layers=2, max_seq_len=256, tie_embeddings=True,
+                     vocab_size=32000, intermediate_size=2048)
+OFFLOAD_SMALL_RUNS = (
+    ("offload", {"device": "cpu"}, None),
+    ("offload_overlap", {"device": "cpu", "overlap": True}, None),
+    ("superoffload", {"device": "cpu", "superoffload": True,
+                      "buffer_size": 1 << 22}, None),
+    ("nvme", {"device": "nvme", "buffer_size": 1 << 22}, None),
+    ("param_tier", {"device": "nvme", "buffer_size": 1 << 24}, "nvme"))
+OFFLOAD_SMALL_TOL = 1e-4
+#: (c): the parameter tier at Llama-3 1B's full width in bf16, two depths
+OFFLOAD_TIER_DEPTHS = (4, 8)
+OFFLOAD_TIER_MICRO = 2
+#: (d): a host Adam sweep and its conversions over this many values, and
+#: an AsyncIOEngine write and read of this many bytes
+OFFLOAD_HOST_VALUES = 1 << 30
+OFFLOAD_AIO_BYTES = 4 << 30
+
+
+def _meminfo() -> dict:
+    out = {}
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            k, v = line.split(":", 1)
+            out[k] = int(v.split()[0]) * 1024
+    return out
+
+
+def _max_rss() -> int:
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def _rss() -> int:
+    with open("/proc/self/status") as fh:
+        for line in fh:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def _free_bytes(path: str) -> int:
+    st = os.statvfs(path)
+    return st.f_bavail * st.f_frsize
+
+
+def _offload_probe(build: str) -> dict:
+    """What the host offers the tiers, before anything is allocated."""
+    import resource
+    mem = _meminfo()
+    lim = resource.getrlimit(resource.RLIMIT_MEMLOCK)[0]
+    res = {"phase": "offload_probe", "mem_available": mem["MemAvailable"],
+           "mem_total": mem["MemTotal"], "nproc": os.cpu_count(),
+           "build_free_bytes": _free_bytes(build),
+           "dev_shm_free_bytes": (_free_bytes("/dev/shm")
+                                  if os.path.isdir("/dev/shm") else None),
+           "ulimit_l": "unlimited" if lim == resource.RLIM_INFINITY
+           else lim, "host_rss_bytes": _rss(),
+           "host_max_rss_bytes": _max_rss()}
+    res["host_room_bytes"] = (min(res["mem_total"], OFFLOAD_HOST_LIMIT)
+                              - res["host_rss_bytes"] - OFFLOAD_HOST_OTHER)
+    emit(res)
+    return res
+
+
+def _gbps(nbytes: float, seconds: float) -> float:
+    return nbytes / seconds / 1e9 if seconds > 0 else float("inf")
+
+
+def _offload_host_ops(build: str) -> dict:
+    """(d): the host pieces alone. A host Adam sweep (``HostAdam.step``)
+    over OFFLOAD_HOST_VALUES fp32 values, 28 bytes a value moved (p, g,
+    m, v read; p, m, v written), its conversions and sum of squares,
+    beside numpy copying the same values (8 bytes a value); then an
+    AsyncIOEngine with O_DIRECT writes OFFLOAD_AIO_BYTES under build/ in
+    64 MiB requests and reads them back, bit for bit."""
+    import torch
+    from deepspeed_tpu_torch.io.async_io import AsyncIOEngine, aligned_empty
+    from deepspeed_tpu_torch.ops import host_adam
+    n = OFFLOAD_HOST_VALUES
+    block = torch.randn(1 << 24, generator=torch.Generator().manual_seed(3))
+
+    def tiled(src, count):
+        return src.repeat(-(-count // src.numel()))[:count].contiguous()
+    p = tiled(block, n)
+    g = tiled(block * 1e-3, n)
+    adam = host_adam.HostAdam(n, weight_decay=0.1)
+    adam.step(p, g, lr=1e-4)                     # first touch of m, v
+    t0 = time.perf_counter()
+    adam.step(p, g, lr=1e-4)
+    adam_s = time.perf_counter() - t0
+    src, dst = adam.exp_avg.numpy(), adam.exp_avg_sq.numpy()
+    np.copyto(dst, src)
+    t0 = time.perf_counter()
+    np.copyto(dst, src)
+    copy_s = time.perf_counter() - t0
+    half = torch.empty(n, dtype=torch.bfloat16)
+    host_adam.f32_to_bf16(p, half)
+    t0 = time.perf_counter()
+    host_adam.f32_to_bf16(p, half)
+    narrow_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_adam.bf16_to_f32(half, g)
+    widen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_adam.l2_norm_sq(g)
+    norm_s = time.perf_counter() - t0
+    del p, g, adam, src, dst, half
+    nb = OFFLOAD_AIO_BYTES
+    buf = aligned_empty(nb)
+    buf.view(torch.float32).copy_(tiled(block, nb // 4))
+    back = aligned_empty(nb)
+    path = os.path.join(build, "offload_aio.bin")
+    aio = AsyncIOEngine(num_threads=8, o_direct=True)
+    req = 64 << 20
+    try:
+        t0 = time.perf_counter()
+        for off in range(0, nb, req):
+            aio.pwrite(path, buf[off:off + req], off)
+        werr = aio.drain()
+        os.sync()
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for off in range(0, nb, req):
+            aio.pread(path, back[off:off + req], off)
+        rerr = aio.drain()
+        read_s = time.perf_counter() - t0
+        same = bool(torch.equal(buf, back))
+    finally:
+        os.remove(path)
+    res = {"phase": "offload_host_ops", "values": n,
+           "adam_s": adam_s, "adam_gb_per_s": _gbps(28 * n, adam_s),
+           "numpy_copy_s": copy_s,
+           "numpy_copy_gb_per_s": _gbps(8 * n, copy_s),
+           "narrow_gb_per_s": _gbps(6 * n, narrow_s),
+           "widen_gb_per_s": _gbps(6 * n, widen_s),
+           "l2_norm_sq_gb_per_s": _gbps(4 * n, norm_s),
+           "aio_bytes": nb, "aio_o_direct": True,
+           "aio_write_s": write_s, "aio_write_gb_per_s": _gbps(nb, write_s),
+           "aio_read_s": read_s, "aio_read_gb_per_s": _gbps(nb, read_s),
+           "aio_errors": werr + rerr, "aio_bitwise": same}
+    emit(res)
+    assert werr == 0 and rerr == 0 and same, res
+    return res
+
+
+def _ulp_err(got, want) -> float:
+    """Largest |got - want| in units of want's bf16 ulp (2^(e-8) for
+    want = m 2^e, m in [0.5, 1)); 0 where both are equal."""
+    import torch
+    got, want = got.float(), want.float()
+    _, e = torch.frexp(want)
+    ulp = torch.ldexp(torch.ones_like(want), e - 8)
+    ulp = torch.where(want == 0, torch.full_like(want, 2.0 ** -133), ulp)
+    return float(((got - want).abs() / ulp).max())
+
+
+def _offload_leaf_check(eng, captured) -> dict:
+    """After the first step: each captured leaf (embed, layer 0's wq, the
+    final norm) equals a torch AdamW step computed on the card from the
+    same fp32 master slice and the same landed bf16 gradients (clipped by
+    the step's coefficient), narrowed to bf16, within 1 bf16 ulp."""
+    import torch
+    opt = eng.host_optimizer
+    p = opt.hyperparams
+    cfg = eng.config.optimizer.params
+    out = {}
+    norm, lr = captured["grad_norm"], captured["lr"]
+    clip = float(eng.config.gradient_clipping)
+    coef = clip / (norm + 1e-6) if clip > 0 and norm > clip else None
+    for name, (master, grad) in captured["leaves"].items():
+        w = torch.nn.Parameter(master.to(DEV))
+        g = grad.to(DEV).float()
+        if coef is not None:
+            g = g * coef
+        w.grad = g
+        ref = torch.optim.AdamW([w], lr=lr, betas=tuple(p["betas"]),
+                                eps=float(cfg.get("eps", 1e-8)),
+                                weight_decay=float(cfg["weight_decay"]))
+        ref.step()
+        want = w.detach().to(torch.bfloat16)
+        got = captured["after"][name].to(DEV)
+        out[name] = {"numel": want.numel(), "ulp_err": _ulp_err(got, want),
+                     "moved": float((want.float() - master.to(DEV))
+                                    .abs().max())}
+        del w, g, ref, want, got
+    return out
+
+
+def _master_slice(opt, off: int, n: int):
+    """A copy of the host optimizer's fp32 master [off, off + n): from
+    memory, or from the NVMe tier's file."""
+    import torch
+    if opt.master is not None:
+        return opt.master[off:off + n].clone()
+    buf = torch.empty(n)
+    opt.aio.pread(opt.files["master"], buf, off * 4)
+    opt._drain()
+    return buf
+
+
+def _disk_rate(build: str) -> float:
+    """min(write, read) bytes/s of a 1 GiB O_DIRECT round trip under
+    build/."""
+    from deepspeed_tpu_torch.io.async_io import AsyncIOEngine, aligned_empty
+    nb, req = 1 << 30, 64 << 20
+    buf = aligned_empty(nb)
+    path = os.path.join(build, "offload_rate.bin")
+    aio = AsyncIOEngine(num_threads=8, o_direct=True)
+    try:
+        secs = []
+        for fn in (aio.pwrite, aio.pread):
+            t0 = time.perf_counter()
+            for off in range(0, nb, req):
+                fn(path, buf[off:off + req], off)
+            assert aio.drain() == 0
+            secs.append(time.perf_counter() - t0)
+    finally:
+        os.remove(path)
+    return nb / max(secs)
+
+
+#: the three leaves (embed, layer 0's wq, the final norm) whose first
+#: step (a) holds to an AdamW step on the card
+OFFLOAD_CHECK_LEAVES = {"embed": ("embed", "tokens"),
+                        "layer0_wq": ("layers", "attn", "wq"),
+                        "final_norm": ("final_norm", "scale")}
+
+
+def _offload_engine_run(cfg, conf, batch, overlap: bool, meta: dict) -> dict:
+    """One (a) engine: built, OFFLOAD_WARMUP + OFFLOAD_STEPS steps on one
+    batch, its line printed; without overlap, the first step's three
+    leaves captured (master slice and landed gradients, through a one-shot
+    wrapper of the host optimizer's ``step``) and checked."""
+    import torch
+    from deepspeed_tpu_torch import initialize
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng, _, _, _ = initialize(cfg, conf, generator=torch.Generator(
+        device=DEV).manual_seed(0), device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    opt = eng.host_optimizer
+    captured = None
+    if not overlap:
+        lay = opt.layout
+        sl = {}
+        for nm, path in OFFLOAD_CHECK_LEAVES.items():
+            i = lay.paths.index(path)
+            sl[nm] = (lay.offsets[i], lay.sizes[i] // cfg.num_layers
+                      if path[0] == "layers" else lay.sizes[i])
+        captured = {"leaves": {}}
+        orig = opt.step
+
+        def spy(*a, **k):
+            # the landed gradients and the master before the step
+            for nm, (o, n) in sl.items():
+                captured["leaves"][nm] = (_master_slice(opt, o, n),
+                                          opt._landing()[o:o + n].clone())
+            del opt.step        # the class's method again
+            return orig(*a, **k)
+        opt.step = spy
+    losses, step_s, parts = [], [], []
+    for s in range(OFFLOAD_WARMUP + OFFLOAD_STEPS):
+        t1 = time.perf_counter()
+        losses.append(float(eng.train_batch(iter(batch))))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        parts.append(dict(opt.timings))
+        if captured is not None and s == 0:
+            m = eng._last_metrics
+            captured.update(grad_norm=float(m["grad_norm"]),
+                            lr=float(m["lr"]))
+            captured["after"] = {}
+            for nm, path in OFFLOAD_CHECK_LEAVES.items():
+                leaf = eng.params
+                for k in path:
+                    leaf = leaf[k]
+                if path[0] == "layers":
+                    leaf = leaf[0]
+                captured["after"][nm] = leaf.detach().reshape(-1).clone()
+    eng._drain_host_step()          # overlap: the last update lands
+    timed = step_s[OFFLOAD_WARMUP:]
+    tparts = parts[OFFLOAD_WARMUP:]
+
+    def mean(key):
+        vals = [p[key] for p in tparts if key in p]
+        return sum(vals) / len(vals) if vals else None
+    nbytes = opt.layout.total * 2
+    res = {"phase": "offload_main", "model": "llama3-" + OFFLOAD_MODEL[0],
+           "dtype": "bfloat16", "overlap": overlap,
+           "params": cfg.num_params(), "micro_batch": 1, "seq": OFFLOAD_SEQ,
+           "init_seconds": init_s, "init_peak_hbm_gb": init_peak,
+           "losses": losses, "step_seconds": step_s,
+           "ms_per_step": 1e3 * sum(timed) / len(timed),
+           "fwd_bwd_ms": mean("fwd_bwd_ms"), "sweep_s": mean("sweep_s"),
+           "d2h_gb_per_s": (nbytes / mean("d2h_ms") / 1e6
+                            if mean("d2h_ms") else None),
+           "h2d_gb_per_s": (nbytes / mean("h2d_ms") / 1e6
+                            if mean("h2d_ms") else None),
+           "host_state_bytes": opt.host_bytes(),
+           "peak_hbm_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "card_state_this_depth_gb": 14 * cfg.num_params() / 1e9,
+           "tokens_per_s": OFFLOAD_SEQ / (sum(timed) / len(timed)),
+           "grad_norm": eng.get_global_grad_norm(),
+           "host_max_rss_bytes": _max_rss(),
+           "mem_available_now": _meminfo()["MemAvailable"], **meta}
+    if captured is not None:
+        res["leaf_check"] = _offload_leaf_check(eng, captured)
+    emit(res)
+    return res
+
+
+def _offload_main(build: str, probe: dict, smi: str) -> dict:
+    """(a): Llama-3 8B through initialize/train_batch with the optimizer
+    state in host memory; full depth if the host holds the 'cpu' tier, else
+    the NVMe tier if the disk holds it and its traffic fits
+    OFFLOAD_NVME_BUDGET_S, else the 'cpu' tier with layers cut until it
+    fits (printed under ``reduced``)."""
+    import gc
+    import torch
+    from deepspeed_tpu_torch import initialize, llama3_config
+    from deepspeed_tpu_torch.ops import op_builder
+    full = llama3_config(OFFLOAD_MODEL[0], **OFFLOAD_MODEL[1])
+    n_full = full.num_params()
+    one, two = (llama3_config(OFFLOAD_MODEL[0], num_layers=k,
+                              **OFFLOAD_MODEL[1]).num_params()
+                for k in (1, 2))
+    per_layer, fixed = two - one, 2 * one - two
+    budget = probe["host_room_bytes"] - OFFLOAD_HOST_RESERVE
+    layers, device, reduced, nvme_s, rate = full.num_layers, "cpu", None, \
+        None, None
+    if OFFLOAD_HOST_BYTES * n_full > budget:
+        if probe["build_free_bytes"] > 12 * n_full * 1.1 \
+                and 4 * n_full < budget:
+            rate = _disk_rate(build)
+            nvme_s = 2 * (OFFLOAD_WARMUP + OFFLOAD_STEPS) * 24 * n_full / rate
+        if nvme_s is not None and nvme_s < OFFLOAD_NVME_BUDGET_S:
+            device = "nvme"
+        else:
+            layers = int((budget / OFFLOAD_HOST_BYTES - fixed) // per_layer)
+            assert layers >= 1, (probe, budget)
+            reduced = {"num_layers": [full.num_layers, layers],
+                       "why": "host memory: the 'cpu' tier holds "
+                              f"{OFFLOAD_HOST_BYTES} B a parameter "
+                              f"({OFFLOAD_HOST_BYTES * n_full / 1e9:.1f} GB "
+                              f"at full depth) and the room left is "
+                              f"{budget / 1e9:.1f} GB; the NVMe tier needs "
+                              f"{12 * n_full / 1e9:.0f} GB of disk (free: "
+                              f"{probe['build_free_bytes'] / 1e9:.0f} GB) "
+                              f"and moves {24 * n_full / 1e9:.0f} GB a step"
+                              + (f", {nvme_s:.0f} s for its steps at "
+                                 f"{rate / 1e9:.2f} GB/s" if rate else "")}
+    cfg = llama3_config(OFFLOAD_MODEL[0], num_layers=layers,
+                        **OFFLOAD_MODEL[1])
+    off = {"device": device}
+    if device == "nvme":
+        off["nvme_path"] = os.path.join(build, "offload_main")
+    conf = {"train_micro_batch_size_per_gpu": 1,
+            "gradient_accumulation_steps": 1,
+            "optimizer": {"type": "adamw",
+                          "params": {"lr": 1e-4, "weight_decay": 0.1}},
+            "gradient_clipping": 1.0, "bf16": {"enabled": True},
+            "activation_checkpointing": {"policy": "full"},
+            "zero_optimization": {"stage": 2, "offload_optimizer": off},
+            "attention_impl": "auto", "steps_per_print": 1000}
+    rng = np.random.default_rng(10)
+    batch = [{"input_ids": rng.integers(0, cfg.vocab_size,
+                                        size=(1, OFFLOAD_SEQ))
+              .astype(np.int32)}]
+    runs = {}
+    meta = {"device": device, "num_layers": layers, "reduced": reduced,
+            "card_state_full_depth_gb": 14 * n_full / 1e9, "nvidia_smi": smi}
+    op_builder.reset_launches()
+    for overlap in (False, True):
+        conf["zero_optimization"]["offload_optimizer"]["overlap"] = overlap
+        runs[overlap] = _offload_engine_run(cfg, conf, batch, overlap, meta)
+        # the engine is gone with the call's frame: its host state is
+        # free before the next engine takes the same amount
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = dict(op_builder.launches)
+    steps = 2 * (OFFLOAD_WARMUP + OFFLOAD_STEPS)
+    for res in runs.values():
+        assert all(np.isfinite(res["losses"])), res["losses"]
+        assert res["losses"][-1] < res["losses"][0], res["losses"]
+        assert res["peak_hbm_gb"] < 80.0, res
+    assert all(v["ulp_err"] <= 1.0 for v in runs[False]["leaf_check"]
+               .values()), runs[False]["leaf_check"]
+    # remat full: K1 twice a layer (forward, recompute), K3 once
+    assert launches["flash_attention_fwd"] == 2 * layers * steps, launches
+    assert launches["flash_attention_bwd"] == layers * steps, launches
+    return launches
+
+
+def _small_run(label, cfg, conf, init, data, dev, root):
+    import torch
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.ops import op_builder
+    eng, _, _, _ = initialize(cfg, conf, params=init, device=dev)
+    op_builder.reset_launches()
+    losses = [float(eng.train_batch(iter(data[2 * s:2 * s + 2])))
+              for s in range(2)]
+    eng._drain_host_step()
+    params = eng._param_stream.full_params() \
+        if eng._param_stream is not None else _to_cpu(eng.params)
+    out = {"losses": losses, "params": params,
+           "launches": dict(op_builder.launches),
+           "rollbacks": getattr(eng.host_optimizer, "speculative_rollbacks",
+                                None),
+           "grad_norm": eng.get_global_grad_norm()}
+    del eng
+    import gc
+    gc.collect()
+    if dev != "cpu":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _offload_small(build: str) -> dict:
+    """(b): each tier at depth 2 and Llama-3 1B width in fp32, 2 steps on
+    the card and on the CPU from one seeded tree, against each other and
+    against the card's on-device AdamW engine (overlap's losses against
+    its CPU run only: its second step sees the first weights)."""
+    import shutil
+    import torch
+    from deepspeed_tpu_torch import llama3_config
+    from deepspeed_tpu_torch.models.transformer import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = llama3_config("1b", **OFFLOAD_SMALL)
+    init = init_params(cfg, torch.Generator(device=DEV).manual_seed(8),
+                       torch.float32, DEV)
+    init_cpu = _to_cpu(init)
+    rng = np.random.default_rng(8)
+    data = [{"input_ids": rng.integers(0, cfg.vocab_size, size=(1, 256))
+             .astype(np.int32)} for _ in range(4)]
+    base = {"train_micro_batch_size_per_gpu": 1,
+            "gradient_accumulation_steps": 2,
+            "optimizer": {"type": "adamw",
+                          "params": {"lr": 1e-5, "weight_decay": 0.1}},
+            "gradient_clipping": 0.05, "attention_impl": "auto"}
+    root = os.path.join(build, "offload_small")
+    device_run = _small_run("device", cfg, dict(base), init, data, DEV, root)
+    out = {}
+
+    def leaves(tree):
+        return [x for k in sorted(tree) for x in leaves(tree[k])] \
+            if isinstance(tree, dict) else [tree]
+    try:
+        for label, off, param_dev in OFFLOAD_SMALL_RUNS:
+            runs = {}
+            for where, dev, tree in (("card", DEV, init),
+                                     ("cpu", "cpu", init_cpu)):
+                o = dict(off)
+                path = os.path.join(root, f"{label}_{where}")
+                if o["device"] == "nvme":
+                    o["nvme_path"] = path
+                zero = {"stage": 3 if param_dev else 2,
+                        "offload_optimizer": o}
+                if param_dev:
+                    zero["offload_param"] = {"device": param_dev,
+                                             "nvme_path": path}
+                t0 = time.perf_counter()
+                runs[where] = _small_run(label, cfg, dict(
+                    base, zero_optimization=zero), tree, data, dev, path)
+                runs[where]["seconds"] = time.perf_counter() - t0
+            card, cpu = runs["card"], runs["cpu"]
+            pc, pp, pd = (leaves(card["params"]), leaves(cpu["params"]),
+                          leaves(device_run["params"]))
+            res = {"phase": "offload_small", "run": label,
+                   "losses_card": card["losses"], "losses_cpu": cpu["losses"],
+                   "losses_device_engine": device_run["losses"],
+                   "loss_rel_err_cpu": max(
+                       abs(a - b) / abs(b) for a, b in
+                       zip(card["losses"], cpu["losses"])),
+                   "loss_rel_err_device": max(
+                       abs(a - b) / abs(b) for a, b in
+                       zip(card["losses"], device_run["losses"])),
+                   "param_max_abs_err_cpu": max(
+                       _err(a, b) for a, b in zip(pc, pp)),
+                   "param_max_abs_err_device": max(
+                       _err(a, b) for a, b in zip(pc, pd)),
+                   "rollbacks_card": card["rollbacks"],
+                   "grad_norm_card": card["grad_norm"],
+                   "grad_norm_cpu": cpu["grad_norm"],
+                   "seconds_card": card["seconds"],
+                   "seconds_cpu": cpu["seconds"],
+                   "launches": card["launches"], "tol": OFFLOAD_SMALL_TOL}
+            emit(res)
+            out[label] = res
+            tol = OFFLOAD_SMALL_TOL
+            assert all(np.isfinite(card["losses"]))
+            assert res["loss_rel_err_cpu"] <= tol, res
+            assert res["param_max_abs_err_cpu"] <= tol, res
+            assert res["param_max_abs_err_device"] <= tol, res
+            if label != "offload_overlap":
+                assert res["loss_rel_err_device"] <= tol, res
+            if label == "superoffload":
+                assert card["rollbacks"] == 2, res
+            assert card["launches"]["flash_attention_fwd"] > 0, res
+            assert not any(cpu["launches"].values()), cpu["launches"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _offload_param_tier(build: str, probe: dict) -> dict:
+    """(c): the parameter tier at Llama-3 1B's full width in bf16 at two
+    depths: the store's bytes, its streaming GB/s (bytes read and written
+    a step over the step's seconds) and the card's peak memory, which is
+    one layer, the activations and the tail at either depth."""
+    import gc
+    import shutil
+    import torch
+    from deepspeed_tpu_torch import initialize, llama3_config
+    out = {}
+    root = os.path.join(build, "offload_tier")
+    depths = list(OFFLOAD_TIER_DEPTHS)
+    per = llama3_config("1b", num_layers=2).num_params() - \
+        llama3_config("1b", num_layers=1).num_params()
+    fixed = llama3_config("1b", num_layers=1).num_params() - per
+    room = min(probe["build_free_bytes"], probe["mem_available"]) * 0.5
+    while depths[1] > 2 * depths[0] and \
+            18 * (fixed + depths[1] * per) > room:
+        depths[1] //= 2
+    try:
+        for depth in depths:
+            cfg = llama3_config("1b", num_layers=depth, max_seq_len=2048)
+            path = os.path.join(root, f"d{depth}")
+            conf = {"train_micro_batch_size_per_gpu": OFFLOAD_TIER_MICRO,
+                    "optimizer": {"type": "adamw",
+                                  "params": {"lr": 1e-4,
+                                             "weight_decay": 0.1}},
+                    "gradient_clipping": 1.0, "bf16": {"enabled": True},
+                    "zero_optimization": {
+                        "stage": 3,
+                        "offload_optimizer": {"device": "nvme",
+                                              "nvme_path": path},
+                        "offload_param": {"device": "nvme",
+                                          "nvme_path": path}},
+                    "attention_impl": "auto", "steps_per_print": 1000}
+            eng, _, _, _ = initialize(cfg, conf, generator=torch.Generator(
+                device=DEV).manual_seed(1), device=DEV)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            rng = np.random.default_rng(11)
+            batch = [{"input_ids": rng.integers(
+                0, cfg.vocab_size, size=(OFFLOAD_TIER_MICRO, 2048))
+                .astype(np.int32)}]
+            losses, secs = [], []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                losses.append(float(eng.train_batch(iter(batch))))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            st = eng._param_stream
+            res = {"phase": "offload_param_tier", "depth": depth,
+                   "params": cfg.num_params(), "losses": losses,
+                   "step_seconds": secs,
+                   "store_bytes": st.store_bytes(),
+                   "bytes_moved_per_step": st.bytes_moved,
+                   "stream_gb_per_s": _gbps(st.bytes_moved, secs[-1]),
+                   "peak_hbm_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "tokens_per_s": OFFLOAD_TIER_MICRO * 2048 / secs[-1]}
+            emit(res)
+            out[depth] = res
+            del eng, st
+            gc.collect()
+            torch.cuda.empty_cache()
+            shutil.rmtree(path, ignore_errors=True)
+            assert all(np.isfinite(losses)), losses
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    lo, hi = (out[d]["peak_hbm_gb"] for d in depths)
+    assert hi <= 1.1 * lo, out
+    return out
+
+
+def phase_offload(smi: str) -> dict:
+    """ZeRO-Offload on one card (phase 10): the probe line, then (a) the
+    main path — Llama-3 8B at full width in bf16 with its AdamW state in
+    host memory, sync and overlapped, with the three-leaf check against an
+    AdamW step on the card, (b) every tier at depth 2 in fp32 card against
+    CPU, (c) the parameter tier at two depths, (d) the host pieces alone
+    (last: their buffers reuse (a)'s freed memory). Returns (a)'s
+    launches."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    build = os.path.join(here, "build")
+    os.makedirs(build, exist_ok=True)
+    probe = _offload_probe(build)
+    launches = _offload_main(build, probe, smi)
+    _offload_small(build)
+    _offload_param_tier(build, probe)
+    _offload_host_ops(build)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # MoE training: fp32 card vs CPU, then the bench model and Mixtral in bf16
 # ---------------------------------------------------------------------------
 
@@ -4196,6 +4855,7 @@ def main() -> int:
     run(phase_train_full_width)
     paths["train"] = run(phase_train)
     paths["train_resume"] = run(phase_checkpoint, smi)
+    paths["train_offload"] = run(phase_offload, smi)
     families = run(phase_train_families)
     paths["train_families"] = families["launches"]
     paths["train_policies"] = run(phase_train_policies, smi)

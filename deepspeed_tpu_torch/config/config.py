@@ -5,7 +5,8 @@ deepspeed/runtime/config.py:651). Field names, defaults and the batch
 triple solver are the JAX package's, so one JSON validates in both. This
 slice trains on one device; it reads the batch triple, ``optimizer``,
 ``scheduler``, ``fp16``/``bf16``, ``gradient_clipping``,
-``zero_optimization.stage`` (0 only), ``activation_checkpointing``
+``zero_optimization`` (``stage`` 0-3 at one device and the
+``offload_optimizer``/``offload_param`` tiers), ``activation_checkpointing``
 (``policy``, ``cpu_checkpointing``, ``ffn_chunk``), ``attention_impl``,
 ``ce_logits_dtype``, ``chunked_ce_budget_mb``, ``moe`` (one expert
 shard), ``check_nan_inf``, ``data_efficiency`` (the curriculum sampler),
@@ -22,12 +23,13 @@ and, as in the JAX package, read by nothing, and
 ``reqtrace``.
 
 Every other section of the JAX config (tensor/pipeline/sequence
-parallelism, telemetry, offload, ...) is not ported yet: it may be
+parallelism, ZenFlow, ZeRO++, ...) is not ported yet: it may be
 absent or hold its default values, and any other value raises
 ``NotImplementedError`` rather than being silently ignored.
 """
 
 import json
+from enum import Enum
 from typing import Any, Dict, List, Literal, Optional, Union
 
 from pydantic import Field, model_validator
@@ -250,11 +252,17 @@ class CheckpointConfig(TPUConfigModel):
     async_save: bool = False
 
 
-#: ZeRO knobs that change nothing at stage 0 (accepted with any value)
+#: ZeRO knobs that change nothing on one device (accepted with any value):
+#: bucket sizes and overlap of collectives, and the stage-3 fetch and
+#: persistence knobs of the reference's parameter hooks
 _ZERO_NOOP_KEYS = {"contiguous_gradients", "reduce_scatter",
                    "reduce_bucket_size", "allgather_partitions",
                    "allgather_bucket_size", "overlap_comm", "sub_group_size",
-                   "ignore_unused_parameters", "round_robin_gradients"}
+                   "ignore_unused_parameters", "round_robin_gradients",
+                   "stage3_max_live_parameters", "stage3_max_reuse_distance",
+                   "stage3_prefetch_bucket_size",
+                   "stage3_param_persistence_threshold",
+                   "stage3_gather_16bit_weights_on_model_save"}
 
 
 class DataEfficiencyConfig(TPUConfigModel):
@@ -280,24 +288,85 @@ class DataEfficiencyConfig(TPUConfigModel):
         return self
 
 
+class OffloadDeviceEnum(str, Enum):
+    """config.py:104 (reference runtime/zero/offload_config.py)."""
+    none = "none"
+    cpu = "cpu"
+    nvme = "nvme"
+
+
+class OffloadOptimizerConfig(TPUConfigModel):
+    """``zero_optimization.offload_optimizer`` (config.py:111; reference
+    DeepSpeedZeroOffloadOptimizerConfig). ``device``: 'cpu' keeps the fp32
+    master and the moments in host memory and steps them there
+    (``runtime/zero/offload.py``); 'nvme' keeps them in files under
+    ``nvme_path`` and sweeps them in windows of ``buffer_size`` elements
+    (0: 16M) through ``buffer_count`` I/O threads
+    (``runtime/zero/infinity.py``). ``overlap`` runs step t's host sweep
+    while the card computes step t+1 (updates land one step late; bf16 or
+    fp32 only). ``superoffload`` brings the gradient down in buckets of
+    ``buffer_size`` elements (0: 4M) and sweeps each as it lands, with
+    rollback (``runtime/zero/superoffload.py``; 'cpu' only).
+    ``pin_memory``, ``pipeline_read``, ``pipeline_write``, ``fast_init``
+    and ``ratio`` are accepted and, as in the JAX package, read by
+    nothing."""
+    device: OffloadDeviceEnum = OffloadDeviceEnum.none
+    nvme_path: Optional[str] = None
+    buffer_count: int = 4
+    buffer_size: int = 0
+    pin_memory: bool = False
+    pipeline_read: bool = False
+    pipeline_write: bool = False
+    fast_init: bool = False
+    ratio: float = 1.0
+    overlap: bool = False
+    superoffload: bool = False
+
+    @model_validator(mode="after")
+    def _validate_superoffload(self) -> "OffloadOptimizerConfig":
+        if self.superoffload and self.device.value != "cpu":
+            raise ValueError(
+                "offload_optimizer.superoffload requires device='cpu' "
+                "(the NVMe tier has its own windowed pipeline)")
+        return self
+
+
+class OffloadParamConfig(TPUConfigModel):
+    """``zero_optimization.offload_param`` (config.py:191; reference
+    DeepSpeedZeroOffloadParamConfig): 'cpu' or 'nvme' streams the decoder
+    layer by layer from a file store (``runtime/zero/param_stream.py``);
+    the sizes are accepted and read by nothing, as in the JAX package."""
+    device: OffloadDeviceEnum = OffloadDeviceEnum.none
+    nvme_path: Optional[str] = None
+    buffer_count: int = 5
+    buffer_size: int = 100_000_000
+    max_in_cpu: int = 1_000_000_000
+    pin_memory: bool = False
+
+
 class ZeroConfig(TPUConfigModel):
-    """``zero_optimization``: stage 0 only until the DP/ZeRO slice."""
+    """``zero_optimization`` (config.py:201). ``stage`` 0-3 at a world of
+    one device, where a partition is the whole tree: the stages train
+    alike, as the JAX engine on a one-device mesh does. The offload
+    blocks select the host and NVMe tiers. ZenFlow and the ZeRO++ and
+    MiCS knobs are not ported and raise."""
     stage: int = 0
-    offload_optimizer: Dict[str, Any] = Field(default_factory=dict)
-    offload_param: Dict[str, Any] = Field(default_factory=dict)
+    offload_optimizer: OffloadOptimizerConfig = Field(
+        default_factory=OffloadOptimizerConfig)
+    offload_param: OffloadParamConfig = Field(
+        default_factory=OffloadParamConfig)
+    zenflow: Optional[Dict[str, Any]] = None
 
     @model_validator(mode="after")
     def _ported(self):
-        if self.stage != 0:
+        if self.stage not in (0, 1, 2, 3):
+            raise ValueError(
+                f"zero_optimization.stage must be 0-3, got {self.stage}")
+        if self.zenflow is not None:
             raise NotImplementedError(
-                f"zero_optimization.stage={self.stage} is not ported to "
-                f"deepspeed_tpu_torch yet (stage 0 only)")
-        for name in ("offload_optimizer", "offload_param"):
-            dev = getattr(self, name).get("device", "none")
-            if dev not in (None, "none"):
-                raise NotImplementedError(
-                    f"zero_optimization.{name}.device={dev!r} is not "
-                    f"ported to deepspeed_tpu_torch yet")
+                "zero_optimization.zenflow is not ported to "
+                "deepspeed_tpu_torch yet (ROADMAP A, 'Offload': ZenFlow "
+                "waits on the reference's red ZenFlow tests)")
         extra = set(self.model_extra or {}) - _ZERO_NOOP_KEYS
         if extra:
             raise NotImplementedError(

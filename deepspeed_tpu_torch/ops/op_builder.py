@@ -12,6 +12,15 @@ missing ``nvcc`` or a failed build raises; nothing falls back.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch, and
 :func:`check` raises when that is not ``cudaSuccess``.
+
+The host libraries (:func:`load_host`: ``csrc/host_adam.cpp``, the host
+optimizers' sweeps, and ``csrc/async_io.cpp``, the file I/O engine) are
+built the same way by the host C++ compiler (``$CXX``, default ``g++``)
+into ``build/host/``, with the JAX package's flags
+(``deepspeed_tpu/ops/op_builder.py:26-31``): ``-O3 -march=native`` and
+deliberately no ``-ffast-math``, whose ``crtfastmath.o`` would set FTZ/DAZ
+for the whole process at load. A missing compiler or a failed build
+raises; nothing falls back to Python.
 """
 
 import contextlib
@@ -144,6 +153,96 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.dstt_error_string(err).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA error {err} ({msg}) at launch")
+
+
+HOST_BUILD_DIR = BUILD_DIR.parent / "host"
+HOST_CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread",
+                  "-march=native", "-fno-math-errno", "-fno-trapping-math",
+                  "-funroll-loops"]
+
+_P, _I64, _I32, _F = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
+                      ctypes.c_float)
+#: host library name → {function: (argtypes, restype)}
+_HOST_SIGNATURES: Dict[str, Dict[str, tuple]] = {
+    "host_adam": {
+        "ds_host_adam_step": ([_P, _P, _P, _P, _I64, _I32, _F, _F, _F, _F,
+                               _F, _I32], None),
+        "ds_host_adagrad_step": ([_P, _P, _P, _I64, _F, _F, _F], None),
+        "ds_host_lion_step": ([_P, _P, _P, _I64, _F, _F, _F, _F], None),
+        "ds_bf16_to_f32": ([_P, _P, _I64], None),
+        "ds_f32_to_bf16": ([_P, _P, _I64], None),
+        "ds_l2_norm_sq": ([_P, _I64], ctypes.c_double)},
+    "async_io": {
+        "ds_aio_create": ([_I32, _I32], ctypes.c_void_p),
+        "ds_aio_destroy": ([_P], None),
+        "ds_aio_pwrite": ([_P, ctypes.c_char_p, _P, _I64, _I64], _I64),
+        "ds_aio_pread": ([_P, ctypes.c_char_p, _P, _I64, _I64], _I64),
+        "ds_aio_drain": ([_P], _I64),
+        "ds_aio_completed": ([_P], _I64)},
+}
+_HOST_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def find_cxx() -> str:
+    """Path of the host C++ compiler (``$CXX``, default ``g++``). Raises
+    when there is none."""
+    name = os.environ.get("CXX", "g++")
+    found = shutil.which(name)
+    if not found:
+        raise RuntimeError(
+            f"{name} not found on PATH: the host libraries of "
+            f"deepspeed_tpu_torch (the offload optimizers' Adam sweep, the "
+            f"async file I/O engine) are built from source at first use and "
+            f"need a C++ compiler")
+    return found
+
+
+def host_library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cpp`` lives, keyed by a hash of
+    its source and the flags."""
+    src = CSRC / f"{name}.cpp"
+    if not src.exists():
+        raise FileNotFoundError(f"no host source {src}")
+    h = hashlib.sha256(" ".join(HOST_CXX_FLAGS).encode())
+    h.update(src.read_bytes())
+    return HOST_BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_host(name: str) -> Path:
+    """Compile ``csrc/<name>.cpp`` unless its library exists; returns its
+    path. The compiler writes a process-unique temporary that is renamed
+    into place, so a concurrent process never loads half a library."""
+    out = host_library_path(name)
+    if out.exists():
+        return out
+    cxx = find_cxx()
+    HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [cxx, *HOST_CXX_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cxx} failed to build {name} (exit "
+                           f"{proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library of ``csrc/<name>.cpp`` ("host_adam" or
+    "async_io"), built at first use, with every function's
+    ``argtypes``/``restype`` set (pointers as ``c_void_p``)."""
+    lib = _HOST_LIBS.get(name)
+    if lib is not None:
+        return lib
+    with _LOCK:
+        if name not in _HOST_LIBS:
+            lib = ctypes.CDLL(str(build_host(name)))
+            for fn, (argtypes, restype) in _HOST_SIGNATURES[name].items():
+                f = getattr(lib, fn)
+                f.argtypes = list(argtypes)
+                f.restype = restype
+            _HOST_LIBS[name] = lib
+    return _HOST_LIBS[name]
 
 
 #: kernel launches since the last reset, one count per kernel: a wrapper

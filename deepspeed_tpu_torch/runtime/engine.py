@@ -31,12 +31,26 @@ step's random stream for random token selection: a CPU
 ``PRNGKey(seed + 1)``), drawn once a step as the JAX engine splits
 ``_rng`` (:688, :769, :850), and saved and restored with checkpoints.
 
-This slice trains on one device. The ``telemetry`` block arms the span
+ZeRO-Offload (engine.py:298-346, :504-552, :770-822, :909-1003): with
+``zero_optimization.offload_optimizer.device`` 'cpu' or 'nvme' the fp32
+master and the Adam moments live in host memory or in files, and the
+step runs on the host (``runtime/zero/offload.py``, ``superoffload.py``,
+``infinity.py``): the card keeps the compute-dtype weights, computes the
+gradients (divided by gas and cast to the compute dtype there), lands
+them in a pinned buffer and takes the new weights back in place. With
+``overlap`` step t's host sweep runs while the card computes step t+1.
+``offload_param`` streams a dense decoder layer by layer from a file
+store (``runtime/zero/param_stream.py``; ``engine.params`` is None).
+Checkpoints of an offload engine add ``host_optimizer.npz``, as the JAX
+engine's do, and load across the packages and across modes.
+
+This slice trains on one device: ZeRO stages 1-3 train as stage 0 (one
+partition holds the whole tree). The ``telemetry`` block arms the span
 and request tracers (:func:`deepspeed_tpu_torch.telemetry.configure`).
-Data parallelism and ZeRO stages above 0, offload, ZeRO++, 1-bit
-optimizers, pipeline parallelism, the training step's telemetry spans and
-flight records and the watchdog are not ported: their config keys raise
-in :class:`DeepSpeedConfig` and the engine has no such paths.
+Data parallelism, ZenFlow, ZeRO++, 1-bit optimizers, pipeline
+parallelism, the training step's telemetry spans and flight records and
+the watchdog are not ported: their config keys raise in
+:class:`DeepSpeedConfig` and the engine has no such paths.
 """
 
 import os
@@ -81,10 +95,14 @@ class ModelSpec:
     drawn from the step's random stream for each micro-batch (the JAX
     spec's ``rng`` argument; random token selection reads it). The JAX
     spec's sharding, pipeline and telemetry fields belong to unported
-    paths."""
+    paths. ``decoder_config`` names the decoder the parameter tier
+    streams (engine.py:90's ``decoder_config``)."""
     init_fn: Callable[[torch.Generator, torch.device], Params]
     loss_fn: LossFn
     uses_rng: bool = False
+    #: the model's DecoderConfig when it is a decoder (the parameter
+    #: tier streams its layers), else None
+    decoder_config: Any = None
 
 
 class DeepSpeedEngine:
@@ -121,6 +139,15 @@ class DeepSpeedEngine:
         self.skipped_steps = 0
         self.global_samples = 0
 
+        zc = config.zero_optimization
+        self.offload_enabled = zc.offload_optimizer.device.value in (
+            "cpu", "nvme")
+        self.offload_overlap = False
+        self.host_optimizer = None
+        self._host_future = None
+        self._last_host_metrics: Optional[Dict[str, Any]] = None
+        self._param_stream = None
+
         self.optimizer, base_lr = build_optimizer(config.optimizer.type,
                                                   config.optimizer.params)
         self.lr_schedule = build_schedule(config.scheduler.type,
@@ -151,9 +178,6 @@ class DeepSpeedEngine:
         #: step, saved with checkpoints as ``torch_rng``
         self._rng_gen = torch.Generator(device="cpu").manual_seed(
             int(config.seed) + 1)
-        #: host offload (ZeRO-Offload) is not ported: the config refuses
-        #: it, and load_checkpoint's offload branch raises
-        self.offload_enabled = False
         self._offloaded_states: Optional[Dict[str, Any]] = None
         #: check_nan_inf: True/"debug" raises FloatingPointError before a
         #: non-finite step's update; "scoped" names the first non-finite
@@ -199,8 +223,68 @@ class DeepSpeedEngine:
             return x.clone().requires_grad_(x.is_floating_point())
 
         self.params = tree_map(own, params)
+        if self.offload_enabled:
+            self._init_host_optimizer()
+            return
         self._leaves = tree_leaves(self.params)
         self.opt_state = self.optimizer.init(self.params)
+
+    def _init_host_optimizer(self) -> None:
+        """engine.py:298-346 and :504-516: ZeRO-Offload's optimizer in
+        host memory ('cpu'; SuperOffload with ``superoffload``) or in
+        files ('nvme'), seeded from the compute-dtype weights; with
+        ``offload_param`` the parameter tier, whose master, weights and
+        gradients share one file tier ('cpu' maps it onto /dev/shm unless
+        ``nvme_path`` names a directory). The engine's ``_leaves`` are
+        then in the flat layout's order."""
+        zc = self.config.zero_optimization
+        off = zc.offload_optimizer
+        param_tier = zc.offload_param.device.value
+        self.offload_overlap = bool(off.overlap)
+        if self.offload_overlap and self.fp16_enabled:
+            raise ValueError(
+                "offload_optimizer.overlap requires bf16/fp32 — fp16 "
+                "dynamic loss scaling needs the synchronous overflow "
+                "signal (ZenFlow has the same restriction)")
+        kind, path = off.device.value, off.nvme_path
+        if param_tier != "none" and kind == "cpu" and not off.superoffload:
+            kind = "nvme"
+            if not path:
+                path = f"/dev/shm/dstpu_tier_{os.getpid()}"
+                _remove_at_exit(path)
+        args = (self.params, self.config.optimizer.type,
+                self.config.optimizer.params, self.compute_dtype,
+                self.device)
+        if kind == "nvme":
+            from deepspeed_tpu_torch.runtime.zero.infinity import (
+                DEFAULT_WINDOW, NVMeOffloadOptimizer)
+            if not path:
+                raise ValueError("offload_optimizer.device='nvme' "
+                                 "requires nvme_path")
+            self.host_optimizer = NVMeOffloadOptimizer(
+                *args, nvme_path=path,
+                window=off.buffer_size or DEFAULT_WINDOW,
+                aio_threads=off.buffer_count)
+        elif off.superoffload:
+            from deepspeed_tpu_torch.runtime.zero.superoffload import (
+                DEFAULT_BUCKET, SuperOffloadOptimizer)
+            self.host_optimizer = SuperOffloadOptimizer(
+                *args, bucket_size=off.buffer_size or DEFAULT_BUCKET)
+        else:
+            from deepspeed_tpu_torch.runtime.zero.offload import (
+                HostOffloadOptimizer)
+            self.host_optimizer = HostOffloadOptimizer(*args)
+        self.host_optimizer.init_from(self.params)
+        self.opt_state = {}
+        self._leaves = self.host_optimizer.layout.leaves(self.params)
+        if param_tier != "none":
+            from deepspeed_tpu_torch.runtime.zero.param_stream import (
+                ParamStreamCoordinator)
+            self._param_stream = ParamStreamCoordinator(self)
+            self.params = None
+            self._leaves = None
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
 
     def _arm_resilience(self) -> None:
         """engine.py:1204: the checkpoint store's IO retry knobs, and the
@@ -436,7 +520,10 @@ class DeepSpeedEngine:
             return
         if self._acc_grads is None:
             raise RuntimeError("step() called with no accumulated gradients")
-        metrics = self._apply_update(gas)
+        if self.offload_enabled:
+            metrics = self._host_step(gas)
+        else:
+            metrics = self._apply_update(gas)
         self._step_losses = None
         self._finish_step(metrics)
 
@@ -464,6 +551,17 @@ class DeepSpeedEngine:
         seed = self._next_seed()
         if "nonfinite_grad" in chaos:
             return self._skip_poisoned_step(gas)
+        if self._param_stream is not None:
+            self._require_states()
+            loss = self._param_stream.train_step(micros)
+            self.micro_steps += gas
+            self._finish_step(self._last_metrics)
+            return loss
+        if self.offload_enabled:
+            loss, metrics = self._offload_train_step(micros, seed, gas)
+            self.micro_steps += gas
+            self._finish_step(metrics)
+            return loss
         losses, fwd = self._accumulate_grads(micros, seed)
         self._step_losses = losses
         try:
@@ -502,6 +600,14 @@ class DeepSpeedEngine:
                 "engine's training iterator would silently skip training "
                 "samples")
         gas = int(self.config.gradient_accumulation_steps)
+        if self._param_stream is not None:
+            return torch.stack([self._param_stream.eval_step(
+                self._place_batch(next(data_iter))) for _ in range(gas)]
+            ).mean()
+        if self.offload_enabled:
+            # overlap mode: apply the pending update, or the eval would
+            # see stale weights (engine.py:917)
+            self._drain_host_step()
         # an eval seed that does not advance the step stream (:934)
         from deepspeed_tpu_torch.parallel.moe import mix_seed
         seed = mix_seed(int(self._rng_gen.initial_seed()),
@@ -510,6 +616,107 @@ class DeepSpeedEngine:
         losses = [self._loss(self._place_batch(next(data_iter)),
                              mix_seed(seed, i))[0] for i in range(gas)]
         return torch.stack(losses).mean()
+
+    # -------------------------------------------------------- offload step
+
+    def _offload_grads(self, micros: List[Batch], seed: int, gas: int):
+        """(losses, forward metrics, gradients in layout order, 1/gas or
+        None): with gas 1 the compute-dtype gradients themselves (the
+        JAX engine's fp32 accumulate, times 1 and cast back, is exact);
+        above, the fp32 accumulators, divided by gas on the card as they
+        land (engine.py:522-528)."""
+        from deepspeed_tpu_torch.parallel.moe import mix_seed
+        if gas == 1:
+            loss, m, grads = self._compute_loss_and_grads(
+                micros[0], mix_seed(seed, 0))
+            return [loss], m, grads, None
+        losses, fwd = self._accumulate_grads(micros, seed)
+        grads, self._acc_grads = self._acc_grads, None
+        return losses, fwd, grads, 1.0 / gas
+
+    def _offload_train_step(self, micros: List[Batch], seed: int, gas: int):
+        """engine.py:782-822: the card computes the gradients; they land
+        in host memory and the host steps (with ``overlap``: step t-1's
+        result is applied first, and step t is left running on the host's
+        worker; the metrics are the last finished step's)."""
+        cfg = self.config
+        opt = self.host_optimizer
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] \
+            if self.device.type == "cuda" else None
+        if ev:
+            ev[0].record()
+        losses, fwd, grads, inv_gas = self._offload_grads(micros, seed, gas)
+        if ev:
+            ev[1].record()
+        if self._debug_nan_check:
+            self._step_losses = losses
+            try:
+                self._raise_if_nonfinite(grads)
+            finally:
+                self._step_losses = None
+        lr = float(self.lr_schedule(self.global_steps))
+        scale = float(self.loss_scale_state.scale) if self.fp16_enabled \
+            else 1.0
+        if self.offload_overlap:
+            self._drain_host_step()           # apply step t-1's update
+            opt.land(grads, inv_gas)
+            del grads
+            self._host_future = opt.step_async(
+                lr, cfg.gradient_clipping, scale)
+            metrics = dict(self._last_host_metrics or
+                           {"grad_norm": 0.0, "overflow": 0, "lr": lr})
+        else:
+            opt.land(grads, inv_gas)
+            del grads
+            metrics = self._apply_host_result(
+                opt.step(lr, cfg.gradient_clipping, scale))
+        if ev:
+            opt.timings["fwd_bwd_ms"] = ev[0].elapsed_time(ev[1])
+        loss = torch.stack(losses).mean()
+        metrics["loss"] = loss
+        if "aux_loss" in fwd:
+            metrics["aux_loss"] = fwd["aux_loss"]
+        return loss, metrics
+
+    def _host_step(self, gas: int) -> Dict[str, Any]:
+        """The 3-call path's ZeRO-Offload update (engine.py:995): the fp32
+        accumulators divided by gas, stepped on the host as fp32."""
+        self._drain_host_step()
+        grads, self._acc_grads = self._acc_grads, None
+        lr = float(self.lr_schedule(self.global_steps))
+        scale = float(self.loss_scale_state.scale) if self.fp16_enabled \
+            else 1.0
+        return self._apply_host_result(self.host_optimizer.step_grads(
+            [g / gas for g in grads], lr, self.config.gradient_clipping,
+            scale))
+
+    def _apply_host_result(self, result) -> Dict[str, Any]:
+        """engine.py:960: upload the host step's weights into the
+        parameters, or count an overflow as a skipped step; fp16's loss
+        scale adapts."""
+        out, metrics = result
+        if out is None:
+            self.skipped_steps += 1
+        else:
+            self.host_optimizer.upload(out, self._leaves)
+        if self.fp16_enabled:
+            fp16 = self.config.fp16
+            self.loss_scale_state = update_scale(
+                self.loss_scale_state,
+                torch.tensor(bool(metrics["overflow"]), device=self.device),
+                dynamic=self.dynamic_loss_scale,
+                scale_window=fp16.loss_scale_window,
+                min_scale=fp16.min_loss_scale, delayed_shift=fp16.hysteresis,
+                consecutive_hysteresis=fp16.consecutive_hysteresis)
+        metrics = dict(metrics, loss_scale=self.loss_scale_state.scale)
+        self._last_host_metrics = dict(metrics)
+        return metrics
+
+    def _drain_host_step(self) -> None:
+        """engine.py:986: wait for an overlapped host step and apply it."""
+        if self._host_future is not None:
+            fut, self._host_future = self._host_future, None
+            self._apply_host_result(fut.result())
 
     def _own_data_iterator(self):
         if self.training_dataloader is None:
@@ -535,6 +742,7 @@ class DeepSpeedEngine:
         include = tuple(include or ("params", "opt_state"))
         if self._offloaded_states:
             raise RuntimeError("states already offloaded; reload first")
+        self._drain_host_step()
         pin = self.device.type == "cuda"
 
         def to_host(x):
@@ -578,7 +786,9 @@ class DeepSpeedEngine:
             if name == "params":
                 tree = tree_map(lambda x: x.requires_grad_(
                     x.is_floating_point()), tree)
-                self._leaves = tree_leaves(tree)
+                self._leaves = tree_leaves(tree) \
+                    if self.host_optimizer is None \
+                    else self.host_optimizer.layout.leaves(tree)
             setattr(self, name, tree)
         if pin:
             torch.cuda.synchronize(self.device)
@@ -602,8 +812,11 @@ class DeepSpeedEngine:
         ``async_save`` the files are written on a background thread
         (``checkpoint.store.wait_pending`` joins it)."""
         from deepspeed_tpu_torch.checkpoint.store import save_checkpoint
+        self._drain_host_step()       # an overlapped update lands first
         tag = tag or f"global_step{self.global_steps}"
-        state = {"params": self.params, "opt_state": self.opt_state,
+        params = self.params if self._param_stream is None \
+            else self._param_stream.full_params()
+        state = {"params": params, "opt_state": self.opt_state,
                  "loss_scale": self.loss_scale_state}
         meta = {
             "global_steps": self.global_steps,
@@ -621,30 +834,39 @@ class DeepSpeedEngine:
                            if self.training_dataloader is not None
                            else None),
         }
-        save_checkpoint(save_dir, tag, state, meta, save_latest=save_latest,
-                        async_save=async_save)
+        root = save_checkpoint(save_dir, tag, state, meta,
+                               save_latest=save_latest, async_save=async_save)
+        if self.offload_enabled:
+            # engine.py:1554: the host optimizer beside the state groups
+            host = {k: v.numpy() if isinstance(v, torch.Tensor) else v
+                    for k, v in self.host_optimizer.state_dict().items()}
+            np.savez(os.path.join(root, "host_optimizer.npz"), **host)
 
     def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
                         load_optimizer_states: bool = True,
                         load_module_strict: bool = True, **_kw
                         ) -> Tuple[Optional[str], Dict[str, Any]]:
-        """engine.py:1557, the non-offload branch: the loaded leaves are
-        copied into the engine's own tensors (its optimizer updates them
-        in place). ``load_module_strict`` gates the params' strictness
-        only; optimizer state is always strict. A tag without an
-        ``opt_state`` group (a JAX offload run's) rebuilds the optimizer
+        """engine.py:1557: the loaded leaves are copied into the engine's
+        own tensors (its optimizer updates them in place).
+        ``load_module_strict`` gates the params' strictness only;
+        optimizer state is always strict. A tag without an ``opt_state``
+        group (an offload run's, of either package) rebuilds the optimizer
         state from the loaded params: fresh moments, master = the
-        weights. Returns (tag, client_state); (None, {}) when there is no
-        checkpoint."""
-        if self.offload_enabled:
-            raise NotImplementedError(
-                "load_checkpoint into an offload engine (host optimizer, "
-                "param streaming) is not ported to deepspeed_tpu_torch yet "
-                "(ROADMAP A, 'Offload')")
+        weights. An offload engine takes its host optimizer from the
+        tag's ``host_optimizer.npz``, or rebuilds it from the loaded
+        params when the tag has none (a non-offload run's; :1608-1636);
+        the parameter tier loads the params on the host and seeds its
+        store with them (:1565-1590). Returns (tag, client_state);
+        (None, {}) when there is no checkpoint."""
         from deepspeed_tpu_torch.checkpoint.store import load_checkpoint
+        self._drain_host_step()
+        if self._param_stream is not None:
+            return self._load_param_tier(load_dir, tag,
+                                         load_optimizer_states,
+                                         load_module_strict)
         templates = {"params": self.params,
                      "loss_scale": self.loss_scale_state}
-        if load_optimizer_states:
+        if load_optimizer_states and not self.offload_enabled:
             templates["opt_state"] = self.opt_state
         strict = frozenset(templates) if load_module_strict \
             else frozenset(templates) - {"params"}
@@ -661,7 +883,9 @@ class DeepSpeedEngine:
                 f"{bad[:4]}")
         with torch.no_grad():
             _copy_into(self.params, state["params"])
-            if load_optimizer_states:
+            if load_optimizer_states and self.offload_enabled:
+                self._load_host_optimizer(load_dir, tag, self.params)
+            elif load_optimizer_states:
                 if "opt_state" in state:
                     self.opt_state = _copy_into(self.opt_state,
                                                 state["opt_state"])
@@ -673,6 +897,53 @@ class DeepSpeedEngine:
             if "loss_scale" in state:
                 self.loss_scale_state = LossScaleState(*(
                     t.to(self.device) for t in state["loss_scale"]))
+        self.global_steps = meta.get("global_steps", 0)
+        self.micro_steps = meta.get("micro_steps", 0)
+        self.skipped_steps = meta.get("skipped_steps", 0)
+        self.global_samples = meta.get("global_samples", 0)
+        self._restore_resume_state(meta)
+        return tag, meta.get("client_state", {})
+
+    def _load_host_optimizer(self, load_dir: str, tag: str,
+                             params) -> None:
+        host_path = os.path.join(load_dir, tag, "host_optimizer.npz")
+        if os.path.exists(host_path):
+            with np.load(host_path) as z:
+                self.host_optimizer.load_state_dict(dict(z))
+        else:
+            log_dist("checkpoint has no host_optimizer.npz — rebuilding "
+                     "the host optimizer from loaded params (cross-mode "
+                     "resume)")
+            self.host_optimizer.init_from(params)
+
+    def _load_param_tier(self, load_dir, tag, load_optimizer_states,
+                         load_module_strict):
+        """engine.py:1565-1590: the params land on the host (the point of
+        the tier is that they need not fit the card) and seed the store;
+        the host optimizer comes from ``host_optimizer.npz`` or is rebuilt
+        from them; the resident tail is uploaded again."""
+        from deepspeed_tpu_torch.checkpoint.store import load_checkpoint
+        stream = self._param_stream
+        layout = self.host_optimizer.layout
+        tmpl = layout.unflatten(torch.empty(
+            layout.total, dtype=self.compute_dtype, device="meta"))
+        state, meta, tag = load_checkpoint(
+            load_dir, tag, {"params": tmpl},
+            strict=frozenset({"params"}) if load_module_strict
+            else frozenset())
+        if state is None:
+            return None, {}
+        bad = _shape_mismatches(tmpl, state["params"], "params")
+        if bad:
+            raise ValueError(
+                f"checkpoint {tag} holds leaves of other shapes than the "
+                f"engine's (another model configuration): {bad[:4]}")
+        stream._seed_store(state["params"])
+        if load_optimizer_states:
+            self._load_host_optimizer(load_dir, tag, state["params"])
+        else:
+            self.host_optimizer.init_from(state["params"])
+        stream._reload_resident()
         self.global_steps = meta.get("global_steps", 0)
         self.micro_steps = meta.get("micro_steps", 0)
         self.skipped_steps = meta.get("skipped_steps", 0)
@@ -729,6 +1000,15 @@ class DeepSpeedEngine:
 
     def loss_scale(self) -> float:
         return float(self.loss_scale_state.scale)
+
+
+def _remove_at_exit(path: str) -> None:
+    """Remove the directory ``path`` when the process exits (the
+    parameter tier's default store under /dev/shm, which the engine
+    makes itself)."""
+    import atexit
+    import shutil
+    atexit.register(shutil.rmtree, path, True)
 
 
 def _sample_difficulty(sample) -> int:
@@ -810,7 +1090,8 @@ def initialize(model: Union[ModelSpec, Any] = None,
     if mesh is not None:
         raise NotImplementedError(
             "device meshes are not ported to deepspeed_tpu_torch yet: the "
-            "engine trains on one device")
+            "engine trains on one device (ROADMAP A, 'Data parallel and "
+            "ZeRO-1/2/3')")
     cfg = DeepSpeedConfig.from_any(config if config is not None
                                    else config_params)
     spec = _coerce_model_spec(model, cfg, loss_fn)

@@ -170,4 +170,5 @@ def decoder_model_spec(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
             return loss
         return loss + aux, {"aux_loss": aux}
 
-    return ModelSpec(init_fn=init_fn, loss_fn=loss_fn, uses_rng=use_rts)
+    return ModelSpec(init_fn=init_fn, loss_fn=loss_fn, uses_rng=use_rts,
+                     decoder_config=dec_cfg)

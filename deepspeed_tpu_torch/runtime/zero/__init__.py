@@ -1,0 +1,4 @@
+"""ZeRO-Offload and ZeRO-Infinity at one device: the host optimizer
+(``offload``), its bucketed speculative form (``superoffload``), the NVMe
+optimizer tier (``infinity``) and the layer-streamed parameter tier
+(``param_stream``)."""

@@ -73,7 +73,9 @@ def test_every_module_is_listed():
                  "models.gptneox", "models.phi", "models.opt",
                  "models.gemma", "models.gpt_bigcode", "models.gptj",
                  "models.gptneo", "models.internlm", "models.bloom",
-                 "models.bert"):
+                 "models.bert", "ops.host_adam", "runtime.zero.offload",
+                 "runtime.zero.superoffload", "runtime.zero.infinity",
+                 "runtime.zero.param_stream"):
         assert "deepspeed_tpu_torch." + want in names
 
 
@@ -124,20 +126,19 @@ def test_unported_features_raise(monkeypatch):
     assert eng.step_with_budget(max_steps=4) is None
     with pytest.raises(NotImplementedError, match="expert parallelism"):
         serving_moe_fn(moe, None, eng.params, ep=True)
-    # checkpointing and the elastic agent are ported; resuming at a new
-    # world size, the async I/O engine, loading into an offload engine and
+    # checkpointing, the elastic agent, the async I/O engine and offload
+    # are ported; resuming at a new world size, device meshes, ZenFlow and
     # the router's fault hook are not
     from deepspeed_tpu_torch.elasticity import elastic_resume
-    from deepspeed_tpu_torch.io import AsyncIOEngine
     with pytest.raises(NotImplementedError, match="Data parallel and ZeRO"):
         elastic_resume(cfg, {}, "unused", world_size=2)
     with pytest.raises(NotImplementedError, match="'Offload'"):
-        AsyncIOEngine()
-    engine = initialize(cfg, {"train_micro_batch_size_per_gpu": 1},
-                        device="cpu")[0]
-    engine.offload_enabled = True
-    with pytest.raises(NotImplementedError, match="'Offload'"):
-        engine.load_checkpoint("unused")
+        initialize(cfg, {"zero_optimization": {
+            "stage": 2, "offload_optimizer": {"device": "cpu"},
+            "zenflow": {"topk_ratio": 0.1}}}, device="cpu")
+    with pytest.raises(NotImplementedError, match="Data parallel and ZeRO"):
+        initialize(cfg, {"train_micro_batch_size_per_gpu": 1},
+                   device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="Observability, fleet"):
         initialize(cfg, {"resilience": {
             "fault_plan": "serving_step:2:replica_kill:router"}},

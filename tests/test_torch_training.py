@@ -171,9 +171,10 @@ def test_dataloader_order_matches_jax_loader():
 
 
 def test_engine_defaults_to_cuda_and_unported_config_raises(monkeypatch):
-    with pytest.raises(NotImplementedError, match="stage"):
+    with pytest.raises(NotImplementedError, match="zero_quantized_weights"):
         dt.initialize(model=dt.llama3_config("tiny"),
-                      config={"zero_optimization": {"stage": 2}},
+                      config={"zero_optimization": {
+                          "stage": 3, "zero_quantized_weights": True}},
                       device="cpu")
     with pytest.raises(NotImplementedError, match="pipeline"):
         dt.initialize(model=dt.llama3_config("tiny"),
@@ -182,10 +183,11 @@ def test_engine_defaults_to_cuda_and_unported_config_raises(monkeypatch):
         dt.initialize(model=dt.llama3_config("tiny"),
                       config={"communication_data_type": "bf16"},
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="offload_optimizer"):
+    with pytest.raises(NotImplementedError, match="zenflow"):
         dt.initialize(model=dt.llama3_config("tiny"),
-                      config={"zero_optimization": {"offload_optimizer":
-                                                    {"device": "cpu"}}},
+                      config={"zero_optimization": {
+                          "offload_optimizer": {"device": "cpu"},
+                          "zenflow": {}}},
                       device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
