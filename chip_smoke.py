@@ -212,7 +212,37 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    store's bytes, streaming GB/s and peak memory, flat across depths; (d)
    a host Adam sweep over 2^30 values in GB/s beside numpy copying them,
    and an O_DIRECT ``AsyncIOEngine`` write and read of 4 GiB under
-   ``build/``, checked bit for bit.
+   ``build/``, checked bit for bit;
+11. v1 inference and the quantization tool (run right after phase 5's HF
+   models), each part one ``v1_inference`` line with the card's
+   ``nvidia-smi`` name and power limit: (a) Llama-3 8B at full width and
+   depth in bf16 through ``init_inference``, 8 prompts of 512 tokens and
+   128 new ones, greedy: the tokens of the decode step replayed as a CUDA
+   graph equal the stepwise loop's; prefill ms, decode ms a token on the
+   graph and stepwise, the capture's seconds, peak memory, one traced
+   ``generate`` (device time, idle share, the heaviest kernels), and the
+   prefill's last-token logits against the ragged engine's on the same
+   weights, beside the same prefill run in two halves through the cache
+   and the ragged engine's prefill in two chunks (reported, not gated); (b) the same model under ``weight_quant`` int8
+   and int4: K5's launches by form and weight shape, decode ms a token
+   beside (a)'s; (c) BLOOM-7b1 (ALiBi) at full width and depth in bf16,
+   4 prompts of 256 tokens, 64 new, graph against stepwise, and
+   BLOOM-560m through ``export_hf_checkpoint`` → ``load_hf_checkpoint``
+   under ``build/`` (every leaf bitwise), serving the unexported tree's
+   tokens; (d) BERT-large exported and loaded the same way,
+   ``EncoderInference`` on 32 ragged sequences of 64-512 tokens in bf16
+   and int8 (sequences/s with the logits fetched, and with the hidden
+   states; int8 within cosine 0.99 of bf16, and K5a held against its
+   plain version at each weight shape the int8 run launched it at, with
+   the batch's rows); (e) Mixtral 8x7B's width at
+   16 of its 32 layers (``reduced``) in bf16 (the 8 x 256 prefill through
+   the grouped kernels) and int8 (K5c); (f) ``python -m
+   deepspeed_tpu_torch.cli.dstpu_quantize``'s ``main`` on an exported
+   Llama-3-width model of depth 2: the int4 npz, loaded back, serves the
+   tokens of ``weight_quant`` applied at start-up; (g) fp32 at depth 2
+   with TF32 off, card against CPU, at the widths of Llama-3 8B and
+   BLOOM-7b1 (prefill logits within 1e-4 relative, greedy tokens
+   identical) and BERT-large (hidden states and logits within 1e-4).
 
 Every phase prints one JSON line; any failure raises, so the script exits
 non-zero. Without CUDA, or outside a checkout of the repository, it exits
@@ -226,6 +256,7 @@ import os
 import subprocess
 import sys
 import time
+import weakref
 
 import numpy as np
 
@@ -3039,6 +3070,617 @@ def phase_hf_models() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: v1 inference and the quantization tool (run after phase 5)
+# ---------------------------------------------------------------------------
+
+#: (a)/(b): Llama-3 8B at full width and depth, 8 prompts of 512 tokens,
+#: 128 new tokens, greedy; (b) in each of V1_QUANT
+V1_LLAMA = ("8b", {})
+V1_BATCH, V1_PROMPT, V1_NEW = 8, 512, 128
+#: new tokens of (a)'s traced ``generate`` (its trace's event count keeps
+#: the profiler's own processing short)
+V1_TRACED_NEW = 16
+V1_QUANT = ("int8", "int4")
+#: (c): BLOOM-7b1 at full width and depth, 4 prompts of 256 tokens, 64 new
+#: tokens; BLOOM-560m through the HF export/load round trip
+V1_BLOOM = ("7b1", {})
+V1_BLOOM_SMALL = ("560m", {})
+V1_BLOOM_BATCH, V1_BLOOM_PROMPT, V1_BLOOM_NEW = 4, 256, 64
+#: (d): BERT-large, exported and loaded, 32 sequences of 64-512 tokens
+V1_BERT = ("large", {})
+V1_BERT_SEQS = 32
+#: (e): Mixtral 8x7B's width cut to 16 of its 32 layers (phase 5's cut:
+#: the bf16 weights, 47 GB, fit beside the rest), 8 prompts of 256 tokens
+#: (the 2048-token prefill takes the dropless grouped FFN), 16 new
+#: tokens, bf16 then int8 (K5c)
+V1_MIXTRAL = ("8x7b", {"num_layers": 16})
+V1_MOE_BATCH, V1_MOE_PROMPT, V1_MOE_NEW = 8, 256, 16
+#: (f): the quantizer CLI on an exported Llama-3-width model of depth 2
+V1_CLI = ("8b", {"num_layers": 2})
+V1_CLI_MODE = "int4"
+#: (g): fp32 at depth 2, card against CPU, 2 prompts of 32 tokens, 4 new
+V1_FP32 = {"layers": 2, "batch": 2, "prompt": 32, "new": 4, "tol": 1e-4}
+
+
+def _v1_rel(a, b) -> float:
+    """Largest |a - b| over the largest |b|."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _v1_prefill_ms(eng, prompts, new) -> float:
+    """The prefill generate runs first (forward_with_cache over the
+    prompts into an empty cache), timed alone on a cache of its own, of
+    generate's length, after a warm-up call."""
+    import torch
+    from deepspeed_tpu_torch.models.transformer import init_kv_cache
+    b, t = prompts.shape
+    cache = init_kv_cache(eng.model_config, b, eng._cache_rows(t + new),
+                          eng.dtype, eng.device)
+    tok = torch.from_numpy(prompts).to(eng.device)
+    with torch.no_grad():
+        eng._step(tok, cache, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._step(tok, cache, 0)
+        torch.cuda.synchronize()
+    del cache
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def _v1_generate(eng, prompts, new, stepwise: bool = False) -> tuple:
+    """The prefill alone, then the main path: ``generate`` twice (the
+    first captures the decode step's graph), tokens equal, every launch
+    count set to 0 just before and read just after; decode ms a token of
+    the graph path (and of the stepwise loop, its tokens held to the
+    graph's). Returns (tokens, numbers, launches)."""
+    import torch
+    from deepspeed_tpu_torch.ops import op_builder
+    prefill_ms = _v1_prefill_ms(eng, prompts, new)
+    g0 = dict(eng.graph_stats)
+    _v1_reset()
+    t0 = time.perf_counter()
+    first = eng.generate(prompts, max_new_tokens=new)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, max_new_tokens=new)
+    gen_s = time.perf_counter() - t0
+    launches = dict(op_builder.launches)
+    assert (first == out).all(), "greedy generate is not repeatable"
+    assert out.shape == (prompts.shape[0], prompts.shape[1] + new)
+    assert (out[:, :prompts.shape[1]] == prompts).all()
+    assert ((out >= 0) & (out < eng.model_config.vocab_size)).all()
+    gs = {k: eng.graph_stats[k] - g0[k] for k in ("graphs", "replays")}
+    assert gs == {"graphs": 1, "replays": 2 * (new - 1)}, gs
+    res = {"prefill_ms": prefill_ms,
+           "prefill_tok_s": prompts.size / prefill_ms * 1e3,
+           "generate_first_seconds": first_s, "generate_seconds": gen_s,
+           "decode_ms_per_token_graph": (1e3 * gen_s - prefill_ms)
+           / (new - 1),
+           "graph_capture_seconds": eng.graph_stats["capture_seconds"],
+           "graph_pool_bytes": eng.graph_stats["pool_bytes"]}
+    if stepwise:
+        t0 = time.perf_counter()
+        step = eng._generate_stepwise(prompts, max_new_tokens=new)
+        step_s = time.perf_counter() - t0
+        assert (step == out).all(), "graph tokens differ from stepwise"
+        res["graph_tokens_equal_stepwise"] = True
+        res["decode_ms_per_token_stepwise"] = (1e3 * step_s - prefill_ms) \
+            / (new - 1)
+    torch.cuda.synchronize()
+    return out, res, launches
+
+
+def _v1_quant_forms(launches, kernels, decode: bool = True) -> dict:
+    """K5's launches by form and by weight shape since the last reset,
+    added to QUANT_FORM_LAUNCHES / QUANT_SHAPE_LAUNCHES: in bf16 the
+    prefill's projections take wgmma, decode (M = batch) split-K, never
+    the fp32 FMA kernel."""
+    from deepspeed_tpu_torch.ops import quantized_linear as tq
+    forms = {k: dict(v) for k, v in tq.regime_launches.items()}
+    shapes = {k: dict(v) for k, v in tq.shape_launches.items()}
+    for k in kernels:
+        assert launches[k] > 0 and forms[k]["fma"] == 0 and \
+            forms[k]["wgmma"] > 0 and (forms[k]["splitk"] > 0) == decode, \
+            (k, forms)
+    for k, v in forms.items():
+        assert sum(v.values()) == launches[k], (k, v, launches)
+        for r, c in v.items():
+            QUANT_FORM_LAUNCHES[k][r] += c
+        for key, c in shapes[k].items():
+            QUANT_SHAPE_LAUNCHES[k][key] = \
+                QUANT_SHAPE_LAUNCHES[k].get(key, 0) + c
+    return {"by_form": forms, "by_shape": shapes}
+
+
+def _v1_mem_start() -> float:
+    """Free what earlier parts left (garbage included), reset the peak,
+    and return the GB still allocated: each line's peak counts from it."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 1e9
+
+
+def _v1_freed(ref) -> bool:
+    """Whether the engine behind the weak reference ``ref`` went with its
+    last reference (no cycle held it); the garbage is collected either
+    way."""
+    import gc
+    import torch
+    freed = ref() is None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return freed
+
+
+def _v1_profiled(eng, prompts, new) -> dict:
+    """One ``generate`` under ``torch.profiler``: the wall, the device time
+    of the kernels the card ran (prefill and the graph's replays) and the
+    idle share, and the kernels with the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.generate(prompts, max_new_tokens=new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = e.time_range.end - e.time_range.start
+            by_name[e.name] = by_name.get(e.name, 0.0) + us
+    dev = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"new": new, "wall_ms": 1e3 * wall, "device_ms": dev / 1e3,
+            "idle_share": 1.0 - dev / 1e6 / wall,
+            "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top}}
+
+
+def _v1_reset():
+    from deepspeed_tpu_torch.ops import grouped_matmul as tg
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.ops import quantized_linear as tq
+    op_builder.reset_launches()
+    tq.reset_regime_launches()
+    tg.reset_form_launches()
+
+
+def _v1_add(total, launches):
+    for k, v in launches.items():
+        total[k] += v
+
+
+def _v1_llama(smi, total) -> dict:
+    """(a) and (b): Llama-3 8B through ``init_inference`` in bf16, then
+    in each V1_QUANT format."""
+    import torch
+    from deepspeed_tpu_torch import (RaggedInferenceEngine, init_inference,
+                                     llama3_config)
+    cfg = llama3_config(V1_LLAMA[0], **V1_LLAMA[1])
+    rng = np.random.default_rng(60)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           size=(V1_BATCH, V1_PROMPT)).astype(np.int32)
+    before = _v1_mem_start()
+    t0 = time.perf_counter()
+    eng = init_inference(cfg, {"dtype": "bfloat16"},
+                         generator=torch.Generator(device=DEV).manual_seed(61),
+                         device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    out, res, launches = _v1_generate(eng, prompts, V1_NEW, stepwise=True)
+    assert not any(launches.values()), launches   # plain attention, GEMMs
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # the prefill's last-token logits against the ragged engine's (K1's
+    # flash prefill) on the same weights: reported, not gated
+    from deepspeed_tpu_torch.models.transformer import init_kv_cache
+    cache = init_kv_cache(cfg, V1_BATCH, V1_PROMPT, eng.dtype, DEV)
+    tok = torch.from_numpy(prompts).to(DEV)
+    half = V1_PROMPT // 2
+    with torch.no_grad():
+        v1_logits, _ = eng._step(tok, cache, 0)
+        # the same prefill in two halves through the cache: the bf16
+        # spread of v1 itself, beside the gap to the ragged engine
+        eng._step(tok[:, :half], cache, 0)
+        halves, _ = eng._step(tok[:, half:], cache, half)
+    del cache
+    spread = [_row_rel_err(halves[i:i + 1].cpu(), v1_logits[i:i + 1].cpu())
+              for i in range(V1_BATCH)]
+    # the ragged engine's prefill logits with the prompt as one chunk
+    # (K1) and as two chunks of 256 (K1 and K2's history): the second is
+    # the bf16 spread of the ragged engine's own arithmetic
+    rag_logits, rag_freed = [], []
+    for chunk in (V1_PROMPT, V1_PROMPT // 2):
+        rag = RaggedInferenceEngine(
+            cfg, {"dtype": "bfloat16", "num_blocks": 40, "block_size": 128,
+                  "max_seq_len": 1024, "max_sequences": 16,
+                  "max_batch_tokens": 4096, "prefill_chunk": chunk},
+            params=eng.params, device=DEV)
+        got = rag.put(list(range(V1_BATCH)), list(prompts))
+        rag_logits.append(torch.stack([torch.as_tensor(got[i]) for i in
+                                       range(V1_BATCH)]))
+        rref = weakref.ref(rag)
+        del rag
+        rag_freed.append(_v1_freed(rref))
+    rows = [_row_rel_err(v1_logits[i:i + 1].cpu(), rag_logits[0][i:i + 1])
+            for i in range(V1_BATCH)]
+    rag_spread = [_row_rel_err(rag_logits[1][i:i + 1],
+                               rag_logits[0][i:i + 1])
+                  for i in range(V1_BATCH)]
+    traced = _v1_profiled(eng, prompts, V1_TRACED_NEW)
+    ref = weakref.ref(eng)
+    del eng
+    emit({"phase": "v1_inference", "part": "a", "model": "llama3-8b",
+          "dtype": "bfloat16", "nvidia_smi": smi, "layers": cfg.num_layers,
+          "batch": V1_BATCH, "prompt": V1_PROMPT, "new": V1_NEW,
+          "init_seconds": init_s, **res, "allocated_before_gb": before,
+          "peak_mem_gb": peak, "launches": launches, "traced": traced,
+          "prefill_logits_row_rel_err_vs_ragged_max": max(rows),
+          "prefill_logits_row_rel_err_vs_ragged": rows,
+          "prefill_logits_row_rel_err_two_halves_max": max(spread),
+          "prefill_logits_row_rel_err_ragged_two_chunks_max":
+              max(rag_spread),
+          "ragged_engines_freed_by_refcount": rag_freed,
+          "engine_freed_by_refcount": _v1_freed(ref)})
+    base_ms = res["decode_ms_per_token_graph"]
+    for mode in V1_QUANT:
+        before = _v1_mem_start()
+        t0 = time.perf_counter()
+        eng = init_inference(
+            cfg, {"dtype": "bfloat16", "weight_quant": mode},
+            generator=torch.Generator(device=DEV).manual_seed(61),
+            device=DEV)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        _, qres, launches = _v1_generate(eng, prompts, V1_NEW)
+        kernel = _quant_kernel(mode)
+        assert {k for k, v in launches.items() if v} == {kernel}, launches
+        forms = _v1_quant_forms(launches, (kernel,))
+        _v1_add(total, launches)
+        weight_gb = _tree_bytes(eng.params) / 1e9
+        ref = weakref.ref(eng)
+        del eng
+        emit({"phase": "v1_inference", "part": "b", "model": "llama3-8b",
+              "weight_quant": mode, "nvidia_smi": smi,
+              "weight_gb": weight_gb, "init_seconds": init_s, **qres,
+              "decode_ms_per_token_bf16": base_ms,
+              "allocated_before_gb": before,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "launches": launches, "k5_launches": forms,
+              "engine_freed_by_refcount": _v1_freed(ref)})
+    return {"a_prefill_ms": res["prefill_ms"], "a_decode_ms": base_ms}
+
+
+def _v1_bloom(smi, root, total) -> None:
+    """(c): BLOOM-7b1 (ALiBi) at full width and depth in bf16; BLOOM-560m
+    exported, loaded back and served."""
+    import torch
+    from deepspeed_tpu_torch import InferenceEngine, bloom_config
+    from deepspeed_tpu_torch.models.transformer import init_params
+    from deepspeed_tpu_torch.ops import op_builder
+    cfg = bloom_config(V1_BLOOM[0], **V1_BLOOM[1])
+    rng = np.random.default_rng(62)
+    prompts = rng.integers(0, cfg.vocab_size, size=(
+        V1_BLOOM_BATCH, V1_BLOOM_PROMPT)).astype(np.int32)
+    before = _v1_mem_start()
+    eng = InferenceEngine(cfg, {"dtype": "bfloat16"},
+                          generator=torch.Generator(device=DEV).manual_seed(63),
+                          device=DEV)
+    _, res, launches = _v1_generate(eng, prompts, V1_BLOOM_NEW,
+                                    stepwise=True)
+    assert not any(launches.values()), launches
+    emit({"phase": "v1_inference", "part": "c", "model": "bloom-7b1",
+          "dtype": "bfloat16", "nvidia_smi": smi, "layers": cfg.num_layers,
+          "params": cfg.num_params(), "batch": V1_BLOOM_BATCH,
+          "prompt": V1_BLOOM_PROMPT, "new": V1_BLOOM_NEW, **res,
+          "allocated_before_gb": before,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": launches})
+    ref = weakref.ref(eng)
+    del eng
+    freed = _v1_freed(ref)
+    cfg = bloom_config(V1_BLOOM_SMALL[0], **V1_BLOOM_SMALL[1])
+    gen = torch.Generator(device=DEV).manual_seed(64)
+    params = init_params(cfg, gen, torch.bfloat16, DEV)
+    _jitter(params, gen)
+    params = _cast_tree(params, torch.bfloat16)
+    cfg2, loaded, trip = _hf_round_trip(cfg, params, root, "bloom-560m")
+    small = prompts[:, :64]
+    want = InferenceEngine(cfg, {"dtype": "bfloat16"}, params=params,
+                           device=DEV).generate(small, max_new_tokens=16)
+    _v1_reset()
+    got = InferenceEngine(cfg2, {"dtype": "bfloat16"}, params=loaded,
+                          device=DEV).generate(small, max_new_tokens=16)
+    _v1_add(total, dict(op_builder.launches))
+    assert (got == want).all(), "loaded BLOOM-560m serves other tokens"
+    emit({"phase": "v1_inference", "part": "c", "model": "bloom-560m",
+          "nvidia_smi": smi, "round_trip": trip,
+          "tokens_equal_unexported": True,
+          "bloom_7b1_engine_freed_by_refcount": freed})
+    del params, loaded
+    torch.cuda.empty_cache()
+
+
+def _v1_bert(smi, root, total) -> None:
+    """(d): BERT-large exported and loaded, then EncoderInference on a
+    ragged batch, bf16 and int8."""
+    import torch
+    from deepspeed_tpu_torch import EncoderInference, bert_config
+    from deepspeed_tpu_torch.models.transformer import init_params
+    from deepspeed_tpu_torch.ops import op_builder
+    cfg = bert_config(V1_BERT[0], **V1_BERT[1])
+    gen = torch.Generator(device=DEV).manual_seed(65)
+    params = init_params(cfg, gen, torch.bfloat16, DEV)
+    _jitter(params, gen)
+    params = _cast_tree(params, torch.bfloat16)
+    cfg2, loaded, trip = _hf_round_trip(cfg, params, root, "bert-large")
+    del params
+    rng = np.random.default_rng(66)
+    seqs = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+            for n in rng.integers(64, 513, size=V1_BERT_SEQS)]
+    ntok = sum(len(s) for s in seqs)
+    outs, lines, shapes = {}, {}, {}
+    for mode in (None, "int8"):
+        before = _v1_mem_start()
+        eng = EncoderInference(cfg2, {"dtype": "bfloat16",
+                                      "weight_quant": mode},
+                               params=loaded, device=DEV)
+        eng(seqs[:2])                     # warm-up
+        torch.cuda.synchronize()
+        _v1_reset()
+        t0 = time.perf_counter()
+        outs[mode] = eng(seqs)
+        sec = time.perf_counter() - t0
+        launches = dict(op_builder.launches)
+        if mode:
+            shapes = _v1_quant_forms(launches, ("quantized_matmul",),
+                                     decode=False)["by_shape"]
+            assert {k for k, v in launches.items() if v} == \
+                {"quantized_matmul"}, launches
+        else:
+            assert not any(launches.values()), launches
+        _v1_add(total, launches)
+        for s, o in zip(seqs, outs[mode]):
+            assert o.shape == (len(s), cfg.vocab_size) and \
+                np.isfinite(o).all()
+        # the final hidden states alone: the same forward without the
+        # masked-LM head and without fetching [B, T, V] fp32 logits
+        t0 = time.perf_counter()
+        eng(seqs, output="hidden")
+        hid_s = time.perf_counter() - t0
+        lines[mode or "bf16"] = {
+            "seconds": sec, "sequences_per_s": len(seqs) / sec,
+            "tokens_per_s": ntok / sec, "hidden_seconds": hid_s,
+            "hidden_sequences_per_s": len(seqs) / hid_s,
+            "launches": launches, "allocated_before_gb": before,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del eng
+    cos = min(float(np.sum(a * b) / (np.linalg.norm(a) * np.linalg.norm(b)))
+              for a, b in zip(outs[None], outs["int8"]))
+    assert cos > 0.99, cos
+    # K5a held against its plain version at every weight shape the int8
+    # scoring launched it at, with the batch's rows (B x the longest
+    # sequence): the cosine above alone would miss a wrong tile
+    rows = len(seqs) * max(len(s) for s in seqs)
+    held = {}
+    for key in sorted(shapes["quantized_matmul"]):
+        k, n = (int(d) for d in key.split()[1].split("x"))
+        res = check_qmm(f"qmm_int8_bert_large_m{rows}_{k}x{n}", rng, "int8",
+                        rows, k, n, torch.bfloat16, time_it=False)
+        held[f"{rows}x{k}x{n}"] = res["max_abs_err"]
+    assert held, shapes
+    emit({"phase": "v1_inference", "part": "d", "model": "bert-large",
+          "nvidia_smi": smi, "sequences": len(seqs), "tokens": ntok,
+          "longest": max(len(s) for s in seqs), "round_trip": trip,
+          **lines, "int8_vs_bf16_min_cosine": cos,
+          "k5a_held_at_path_shapes_max_abs_err": held})
+    del loaded
+    torch.cuda.empty_cache()
+
+
+def _v1_moe(smi, total) -> None:
+    """(e): Mixtral's width at V1_MIXTRAL's depth through init_inference,
+    bf16 (the prefill's dropless grouped FFN, the capacity layer at
+    decode) and int8 (the capacity layer's batched quantized matmul)."""
+    import torch
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.mixtral import mixtral_config
+    cfg = mixtral_config(V1_MIXTRAL[0], **V1_MIXTRAL[1])
+    rng = np.random.default_rng(67)
+    prompts = rng.integers(0, cfg.vocab_size, size=(
+        V1_MOE_BATCH, V1_MOE_PROMPT)).astype(np.int32)
+    for mode in (None, "int8"):
+        before = _v1_mem_start()
+        eng = init_inference(
+            cfg, {"dtype": "bfloat16", "weight_quant": mode},
+            generator=torch.Generator(device=DEV).manual_seed(68),
+            device=DEV)
+        _, res, launches = _v1_generate(eng, prompts, V1_MOE_NEW)
+        line = {}
+        if mode is None:
+            # two prefills of 2048 tokens: the dropless grouped FFN a
+            # layer each; decode (8 tokens) the capacity einsums
+            assert {k for k, v in launches.items() if v} == \
+                set(GROUPED_KERNELS), launches
+            assert all(launches[k] == 2 * cfg.num_layers
+                       for k in GROUPED_KERNELS), launches
+            line["grouped_launches_by_form"] = _grouped_forms(launches)
+        else:
+            need = {"quantized_matmul", "quantized_matmul_batched"}
+            assert {k for k, v in launches.items() if v} == need, launches
+            line["k5_launches"] = _v1_quant_forms(launches, need)
+        _v1_add(total, launches)
+        emit({"phase": "v1_inference", "part": "e", "model":
+              f"mixtral-8x7b-{cfg.num_layers}L", "weight_quant": mode,
+              "nvidia_smi": smi, "reduced": {"num_layers": [32,
+                                                            cfg.num_layers]},
+              "batch": V1_MOE_BATCH, "prompt": V1_MOE_PROMPT,
+              "new": V1_MOE_NEW, **res, "launches": launches, **line,
+              "allocated_before_gb": before,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        ref = weakref.ref(eng)
+        del eng
+        _v1_freed(ref)
+
+
+def _v1_cli(smi, root, total) -> None:
+    """(f): the quantizer CLI (``main``, as ``python -m`` runs it) on an
+    exported Llama-3-width model of depth 2; its npz served by
+    InferenceEngine gives the tokens of ``weight_quant`` applied at
+    start-up to the float tree."""
+    import torch
+    from deepspeed_tpu_torch import (InferenceEngine, export_hf_checkpoint,
+                                     llama3_config)
+    from deepspeed_tpu_torch.cli import dstpu_quantize
+    from deepspeed_tpu_torch.models.transformer import init_params
+    from deepspeed_tpu_torch.ops import op_builder
+    cfg = llama3_config(V1_CLI[0], **V1_CLI[1])
+    gen = torch.Generator(device=DEV).manual_seed(69)
+    params = _cast_tree(init_params(cfg, gen, torch.bfloat16, DEV),
+                        torch.bfloat16)
+    d = os.path.join(root, "llama3-8b-width-d2")
+    npz = os.path.join(root, "llama3-8b-width-d2.npz")
+    t0 = time.perf_counter()
+    export_hf_checkpoint(cfg, params, d)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    assert dstpu_quantize.main(["--model-dir", d, "--mode", V1_CLI_MODE,
+                                "--out", npz, "--device", DEV]) == 0
+    cli_s = time.perf_counter() - t0
+    npz_bytes = os.path.getsize(npz)
+    t0 = time.perf_counter()
+    qcfg, qp = dstpu_quantize.load_quantized_npz(npz, device=DEV)
+    load_s = time.perf_counter() - t0
+    for f in ("hidden_size", "num_layers", "num_heads", "kv_heads",
+              "ffn_size", "vocab_size", "tie_embeddings", "rope_theta"):
+        assert getattr(qcfg, f) == getattr(cfg, f), f
+    prompts = np.random.default_rng(70).integers(
+        0, cfg.vocab_size, size=(4, 64)).astype(np.int32)
+    want = InferenceEngine(qcfg, {"dtype": "bfloat16",
+                                 "weight_quant": V1_CLI_MODE},
+                           params=params, device=DEV).generate(
+        prompts, max_new_tokens=16)
+    del params
+    _v1_reset()
+    got = InferenceEngine(qcfg, {"dtype": "bfloat16"}, params=qp,
+                          device=DEV).generate(prompts, max_new_tokens=16)
+    launches = dict(op_builder.launches)
+    kernel = _quant_kernel(V1_CLI_MODE)
+    assert {k for k, v in launches.items() if v} == {kernel}, launches
+    _v1_quant_forms(launches, (kernel,))
+    _v1_add(total, launches)
+    assert (got == want).all(), "npz tokens differ from start-up quantization"
+    emit({"phase": "v1_inference", "part": "f", "model": "llama3-8b-width",
+          "layers": cfg.num_layers, "mode": V1_CLI_MODE, "nvidia_smi": smi,
+          "export_seconds": export_s, "cli_seconds": cli_s,
+          "npz_bytes": npz_bytes, "npz_load_seconds": load_s,
+          "tokens_equal_startup_quant": True, "launches": launches})
+    del qp
+    torch.cuda.empty_cache()
+
+
+def _v1_fp32(smi) -> None:
+    """(g): fp32 at depth 2, TF32 off, one seeded tree on the card and on
+    the CPU: Llama-3 8B's and BLOOM-7b1's width through InferenceEngine
+    (prefill logits within V1_FP32's tol relative, greedy tokens
+    identical), BERT-large's through EncoderInference (hidden states and
+    logits within the tol)."""
+    import torch
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models.transformer import (init_kv_cache,
+                                                        init_params)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f = V1_FP32
+    res = {}
+    for name, preset, size in (("llama3-8b", "llama3_config", "8b"),
+                               ("bloom-7b1", "bloom_config", "7b1"),
+                               ("bert-large", "bert_config", "large")):
+        cfg = getattr(dt, preset)(size, num_layers=f["layers"])
+        gen = torch.Generator(device=DEV).manual_seed(71)
+        params = init_params(cfg, gen, torch.float32, DEV)
+        _jitter(params, gen)
+        trees = {"card": params, "cpu": _to_cpu(params)}
+        rng = np.random.default_rng(72)
+        got = {}
+        if cfg.causal:
+            prompts = rng.integers(0, cfg.vocab_size, size=(
+                f["batch"], f["prompt"])).astype(np.int32)
+            for where, tree in trees.items():
+                dev = DEV if where == "card" else "cpu"
+                eng = dt.InferenceEngine(cfg, {"dtype": "float32"},
+                                         params=tree, device=dev)
+                cache = init_kv_cache(cfg, f["batch"], f["prompt"],
+                                      torch.float32, dev)
+                with torch.no_grad():
+                    lg, _ = eng._step(torch.from_numpy(prompts).to(dev),
+                                      cache, 0)
+                got[where] = (lg.cpu(), eng.generate(
+                    prompts, max_new_tokens=f["new"]))
+                del eng, cache
+            err = _v1_rel(got["card"][0], got["cpu"][0])
+            same = (got["card"][1] == got["cpu"][1]).all()
+            assert same, f"{name}: card and CPU greedy tokens differ"
+            res[name] = {"logits_rel_err": err, "tokens_identical": True}
+        else:
+            seqs = [rng.integers(1, cfg.vocab_size, size=n).tolist()
+                    for n in (64, 100, 128)]
+            for where, tree in trees.items():
+                eng = dt.EncoderInference(
+                    cfg, {"dtype": "float32"}, params=tree,
+                    device=DEV if where == "card" else "cpu")
+                got[where] = (eng(seqs, output="hidden"), eng(seqs))
+                del eng
+            err = max(_v1_rel(torch.from_numpy(a), torch.from_numpy(b))
+                      for i in range(2) for a, b in zip(got["card"][i],
+                                                        got["cpu"][i]))
+            res[name] = {"hidden_and_logits_rel_err": err}
+        assert err <= f["tol"], (name, err)
+        del params, trees
+        torch.cuda.empty_cache()
+    emit({"phase": "v1_inference", "part": "g", "nvidia_smi": smi,
+          "layers": f["layers"], "tol": f["tol"], **res})
+
+
+def phase_v1_inference(smi: str) -> dict:
+    """Phase 11: the v1 engine and the quantization tool (see the module
+    docstring's item 11). Each part's launches are counted from 0 around
+    its own serving calls; returns their sum, the path's. Exports under
+    a directory of ``build/`` removed when the phase ends."""
+    import shutil
+    import tempfile
+    from deepspeed_tpu_torch.ops import op_builder
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="v1_", dir=os.path.join(here, "build"))
+    total = {k: 0 for k in op_builder.launches}
+    seconds = {}
+    try:
+        for part, fn, args in (("a_b", _v1_llama, (smi, total)),
+                               ("c", _v1_bloom, (smi, root, total)),
+                               ("d", _v1_bert, (smi, root, total)),
+                               ("e", _v1_moe, (smi, total)),
+                               ("f", _v1_cli, (smi, root, total)),
+                               ("g", _v1_fp32, (smi,))):
+            t0 = time.perf_counter()
+            fn(*args)
+            seconds[part] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for k in GROUPED_KERNELS + ("quantized_matmul", "quantized_matmul_packed",
+                                "quantized_matmul_batched"):
+        assert total[k] > 0, (k, total)
+    emit({"phase": "v1_inference", "part": "total", "nvidia_smi": smi,
+          "seconds": seconds, "launches": total})
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 6: train_batch on the card against the CPU at full width
 # ---------------------------------------------------------------------------
 
@@ -4851,7 +5493,8 @@ def main() -> int:
     paths = {"serve": serve, "serve_frontend": serve_frontend,
              "serve_moe": run(phase_serve_moe),
              "serve_quant": run(phase_serve_quant),
-             "serve_hf": run(phase_hf_models)}
+             "serve_hf": run(phase_hf_models),
+             "v1_inference": run(phase_v1_inference, smi)}
     run(phase_train_full_width)
     paths["train"] = run(phase_train)
     paths["train_resume"] = run(phase_checkpoint, smi)
@@ -4866,7 +5509,7 @@ def main() -> int:
     emit({"phase": "seconds", **seconds})
 
     # launches: over the main paths (dense serving and MoE serving, phase
-    # 5; dense training, phase 7; train → save → resume → train, phase 9
+    # 5; v1 inference, phase 11's serving calls; dense training, phase 7; train → save → resume → train, phase 9
     # (b); MoE training of the 1B/8e bench model
     # and of Mixtral 8x7B at 2 layers, phase 8), each read around its own
     # run; K1's times are at the training shape (its serving-shape times

@@ -8,7 +8,10 @@ imports ``torch``, never ``jax`` and nothing of ``deepspeed_tpu``.
 The ragged paged-KV engine (``RaggedInferenceEngine``, the port of
 ``RaggedInferenceEngineTPU``) serves dense and MoE decoders, in the
 engine dtype or with weight-only quantized linears (``weight_quant``
-int8, fp8, int4 or fp6); ``initialize``
+int8, fp8, int4 or fp6); ``init_inference`` (the v1 engine,
+``InferenceEngine``: KV-cached generation over a static cache, each
+decode step replayed as a CUDA graph; the path of ALiBi models) and
+``EncoderInference`` (BERT-class scoring) serve beside it; ``initialize``
 and ``DeepSpeedEngine.train_batch`` (the port of ``DeepSpeedTPUEngine``)
 train them on one device, MoE models through the dropless grouped FFN or
 the capacity layer (the config's ``moe`` section). ``ServingFrontend``
@@ -27,13 +30,20 @@ into a checkpoint at the step boundary and resumes from it.
 The model families are the JAX package's presets (``gpt2_config`` …
 ``internlm_config``); :func:`load_hf_checkpoint` and
 :func:`export_hf_checkpoint` read and write HF safetensors checkpoints
-(bf16 included, through the port's own safetensors module), and
+(bf16 included, through the port's own safetensors module),
 :mod:`deepspeed_tpu_torch.checkpoint.ds_import` imports DeepSpeed
-checkpoints.
+checkpoints, :func:`deepspeed_tpu_torch.models.load_megatron_checkpoint`
+Megatron-LM GPT ones, and ``python -m deepspeed_tpu_torch.cli.
+dstpu_quantize`` writes a weight-quantized tree once for serving.
 """
 
-from deepspeed_tpu_torch.inference.engine_v2 import (RaggedInferenceConfig,
-                                                     RaggedInferenceEngine)
+from deepspeed_tpu_torch.inference import (DeepSpeedTPUInferenceConfig,
+                                           EncoderInference,
+                                           InferenceEngine,
+                                           RaggedInferenceConfig,
+                                           RaggedInferenceEngine,
+                                           init_encoder_inference,
+                                           init_inference)
 from deepspeed_tpu_torch.models import (
     DecoderConfig, bert_config, bloom_config, distilbert_config,
     falcon_config, gemma_config, gpt2_config, gpt_bigcode_config,
@@ -48,6 +58,8 @@ from deepspeed_tpu_torch.runtime.engine import (DeepSpeedEngine, ModelSpec,
 from deepspeed_tpu_torch.serving import ServingFrontend
 
 __all__ = ["RaggedInferenceEngine", "RaggedInferenceConfig",
+           "init_inference", "InferenceEngine", "DeepSpeedTPUInferenceConfig",
+           "EncoderInference", "init_encoder_inference",
            "DecoderConfig", "initialize", "DeepSpeedEngine",
            "DeepSpeedConfig", "ModelSpec", "ServingFrontend",
            "load_hf_checkpoint", "export_hf_checkpoint",

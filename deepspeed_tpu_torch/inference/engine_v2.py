@@ -132,10 +132,9 @@ def ragged_forward(cfg: DecoderConfig, params, arena, tokens: torch.Tensor,
     if cfg.pos_emb == "alibi":
         raise NotImplementedError(
             "ragged/paged inference does not support ALiBi models; serve "
-            "BLOOM-class models with the JAX package's v1 KV-cache engine "
-            "(deepspeed_tpu.inference.engine.InferenceEngineTPU); "
-            "deepspeed_tpu_torch has no v1 engine yet (ROADMAP A, 'v1 "
-            "inference and the quantization tool')")
+            "BLOOM-class models with the v1 KV-cache engine "
+            "(deepspeed_tpu_torch.inference.engine.InferenceEngine, "
+            "init_inference)")
     n, c = tokens.shape
     dev = tokens.device
     positions = starts[:, None].to(torch.int32) + torch.arange(

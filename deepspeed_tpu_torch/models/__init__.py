@@ -1,5 +1,6 @@
 """Model code of the port (decoder core for serving and training), the
-preset families and the HF checkpoint loader/exporter."""
+preset families, the HF checkpoint loader/exporter and the Megatron-LM
+GPT loader."""
 
 from deepspeed_tpu_torch.models.convert import params_from_jax, params_to_numpy
 from deepspeed_tpu_torch.models.transformer import (DecoderConfig,
@@ -26,6 +27,7 @@ from deepspeed_tpu_torch.models.gptj import gptj_config
 from deepspeed_tpu_torch.models.bert import bert_config, distilbert_config
 from deepspeed_tpu_torch.models.gptneo import gptneo_config
 from deepspeed_tpu_torch.models.internlm import internlm_config
+from deepspeed_tpu_torch.models.megatron import load_megatron_checkpoint
 
 __all__ = ["DecoderConfig", "init_params", "lm_logits", "forward",
            "forward_hidden", "chunked_cross_entropy", "cross_entropy_loss",
@@ -35,4 +37,4 @@ __all__ = ["DecoderConfig", "init_params", "lm_logits", "forward",
            "gptneox_config", "gpt_bigcode_config", "qwen2_moe_config",
            "gptj_config", "phi_config", "opt_config", "gemma_config",
            "bloom_config", "bert_config", "distilbert_config",
-           "gptneo_config", "internlm_config"]
+           "gptneo_config", "internlm_config", "load_megatron_checkpoint"]

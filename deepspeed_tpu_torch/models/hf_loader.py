@@ -19,9 +19,8 @@ dtype (the reference writes fp32 always; an fp32 tree gives the
 reference's file byte for byte).
 
 The encoder layouts (BERT/DistilBERT: ``_load_bert``,
-``_load_distilbert``, ``_export_encoder``) raise ``NotImplementedError``
-until the port has the masked-LM head (ROADMAP A, 'v1 inference and the
-quantization tool').
+``_load_distilbert``, ``_export_encoder``) load and export with their
+masked-LM heads, as the reference's do.
 """
 
 import json
@@ -37,11 +36,6 @@ from deepspeed_tpu_torch.models.transformer import DecoderConfig
 from deepspeed_tpu_torch.utils.logging import logger
 
 Params = Any
-
-_ENCODERS_WAIT = ("the encoder layouts (BERT/DistilBERT) wait for the "
-                  "port's masked-LM head: ROADMAP A, 'v1 inference and the "
-                  "quantization tool'")
-
 
 # ---------------------------------------------------------------------------
 # config mapping
@@ -941,13 +935,102 @@ def _load_gptneo(cfg: DecoderConfig, g, names) -> Params:
 
 
 def _load_bert(cfg: DecoderConfig, g, names) -> Params:
-    """BERT encoder layout (``_load_bert`` of the reference)."""
-    raise NotImplementedError(_ENCODERS_WAIT)
+    """BERT encoder layout (hf_loader.py:948; reference:
+    module_inject/containers/bert.py). Post-LN mapping: HF
+    ``attention.output.LayerNorm`` → ``ln1`` (after the attention
+    residual), ``output.LayerNorm`` → ``ln2``. Takes ``BertForMaskedLM``
+    (``bert.``-prefixed, with the ``cls.predictions`` head) and a bare
+    ``BertModel`` checkpoint."""
+    L = cfg.num_layers
+    pre = "bert." if "bert.embeddings.word_embeddings.weight" in names \
+        else ""
+    stack, stackT = _stack_helpers(g, L)
+    p = pre + "encoder.layer.{}."
+    layers = {
+        "attn": {
+            "wq": stackT(p + "attention.self.query.weight"),
+            "wk": stackT(p + "attention.self.key.weight"),
+            "wv": stackT(p + "attention.self.value.weight"),
+            "wo": stackT(p + "attention.output.dense.weight"),
+            "bq": stack(p + "attention.self.query.bias"),
+            "bk": stack(p + "attention.self.key.bias"),
+            "bv": stack(p + "attention.self.value.bias"),
+            "bo": stack(p + "attention.output.dense.bias"),
+        },
+        "ln1": _ln(stack, p + "attention.output.LayerNorm"),
+        "ln2": _ln(stack, p + "output.LayerNorm"),
+        "mlp": {
+            "wi": stackT(p + "intermediate.dense.weight"),
+            "bi": stack(p + "intermediate.dense.bias"),
+            "wo": stackT(p + "output.dense.weight"),
+            "bo": stack(p + "output.dense.bias"),
+        },
+    }
+    e = pre + "embeddings."
+    params: Params = {
+        "embed": {"tokens": g(e + "word_embeddings.weight"),
+                  "pos": g(e + "position_embeddings.weight"),
+                  "token_type": g(e + "token_type_embeddings.weight")},
+        "embed_norm": _final_ln(g, e + "LayerNorm"),
+        "layers": layers,
+    }
+    if "cls.predictions.transform.dense.weight" in names:
+        t = "cls.predictions.transform."
+        params["mlm_head"] = {
+            "dense": g(t + "dense.weight").T.contiguous(),
+            "dense_bias": g(t + "dense.bias"),
+            "ln": _final_ln(g, t + "LayerNorm"),
+            "vocab_bias": g("cls.predictions.bias"),
+        }
+    return params
 
 
 def _load_distilbert(cfg: DecoderConfig, g, names) -> Params:
-    """DistilBERT layout (``_load_distilbert`` of the reference)."""
-    raise NotImplementedError(_ENCODERS_WAIT)
+    """DistilBERT layout (hf_loader.py:1007; reference:
+    module_inject/containers/distil_bert.py): BERT's math without token
+    types; the masked-LM head's tensors are the top-level
+    ``vocab_transform``/``vocab_layer_norm``/``vocab_projector`` (the
+    projector's weight tied to the embeddings)."""
+    L = cfg.num_layers
+    pre = "distilbert." \
+        if "distilbert.embeddings.word_embeddings.weight" in names else ""
+    stack, stackT = _stack_helpers(g, L)
+    p = pre + "transformer.layer.{}."
+    layers = {
+        "attn": {
+            "wq": stackT(p + "attention.q_lin.weight"),
+            "wk": stackT(p + "attention.k_lin.weight"),
+            "wv": stackT(p + "attention.v_lin.weight"),
+            "wo": stackT(p + "attention.out_lin.weight"),
+            "bq": stack(p + "attention.q_lin.bias"),
+            "bk": stack(p + "attention.k_lin.bias"),
+            "bv": stack(p + "attention.v_lin.bias"),
+            "bo": stack(p + "attention.out_lin.bias"),
+        },
+        "ln1": _ln(stack, p + "sa_layer_norm"),
+        "ln2": _ln(stack, p + "output_layer_norm"),
+        "mlp": {
+            "wi": stackT(p + "ffn.lin1.weight"),
+            "bi": stack(p + "ffn.lin1.bias"),
+            "wo": stackT(p + "ffn.lin2.weight"),
+            "bo": stack(p + "ffn.lin2.bias"),
+        },
+    }
+    e = pre + "embeddings."
+    params: Params = {
+        "embed": {"tokens": g(e + "word_embeddings.weight"),
+                  "pos": g(e + "position_embeddings.weight")},
+        "embed_norm": _final_ln(g, e + "LayerNorm"),
+        "layers": layers,
+    }
+    if "vocab_transform.weight" in names:
+        params["mlm_head"] = {
+            "dense": g("vocab_transform.weight").T.contiguous(),
+            "dense_bias": g("vocab_transform.bias"),
+            "ln": _final_ln(g, "vocab_layer_norm"),
+            "vocab_bias": g("vocab_projector.bias"),
+        }
+    return params
 
 
 def _attach_untied_head(params: Params, cfg: DecoderConfig, g,
@@ -1119,8 +1202,7 @@ def _load_opt(cfg: DecoderConfig, g, names) -> Params:
 def _load_bloom(cfg: DecoderConfig, g, names) -> Params:
     """BLOOM layout: NeoX-style HEAD-INTERLEAVED fused query_key_value
     ([H, 3, dh] on the out dim), word-embeddings LayerNorm, ALiBi (no
-    positional parameters). The tree loads; the port's forward raises on
-    ALiBi (ROADMAP A, 'v1 inference and the quantization tool')."""
+    positional parameters)."""
     L, H, dh = cfg.num_layers, cfg.num_heads, cfg.head_dim
     p = "transformer.h.{}."
     stack, stackT = _stack_helpers(g, L)
@@ -1386,7 +1468,6 @@ def export_hf_checkpoint(cfg: DecoderConfig, params: Params,
             "dense branch / coefficient — no transformers architecture "
             "can load it")
     if not cfg.causal or not cfg.prenorm:
-        config_to_hf(cfg)   # raises on encoder configs with no layout
         return _export_encoder(cfg, params, out_dir)
     if _is_neox_layout(cfg):
         return _export_neox(cfg, params, out_dir)
@@ -1466,9 +1547,91 @@ def export_hf_checkpoint(cfg: DecoderConfig, params: Params,
 
 def _export_encoder(cfg: DecoderConfig, params: Params,
                     out_dir: str) -> None:
-    """Inverse of ``_load_bert`` / ``_load_distilbert`` in the
-    reference."""
-    raise NotImplementedError(_ENCODERS_WAIT)
+    """Inverse of ``_load_bert`` / ``_load_distilbert`` (hf_loader.py:1629):
+    a ``BertForMaskedLM`` / ``DistilBertForMaskedLM`` checkpoint that
+    transformers reloads."""
+    cfg_hf = config_to_hf(cfg)
+    host = _host_tree(params)
+    lyr = host["layers"]
+    a, m = lyr["attn"], lyr["mlp"]
+    out: Dict[str, torch.Tensor] = {}
+    bert = cfg_hf["model_type"] == "bert"
+    pre = "bert." if bert else "distilbert."
+    e = pre + "embeddings."
+    out[e + "word_embeddings.weight"] = host["embed"]["tokens"]
+    out[e + "position_embeddings.weight"] = host["embed"]["pos"]
+    if bert:
+        out[e + "token_type_embeddings.weight"] = \
+            host["embed"]["token_type"]
+    out[e + "LayerNorm.weight"] = host["embed_norm"]["scale"]
+    out[e + "LayerNorm.bias"] = host["embed_norm"]["bias"]
+    if bert:
+        name = {
+            "wq": "attention.self.query.weight",
+            "bq": "attention.self.query.bias",
+            "wk": "attention.self.key.weight",
+            "bk": "attention.self.key.bias",
+            "wv": "attention.self.value.weight",
+            "bv": "attention.self.value.bias",
+            "wo": "attention.output.dense.weight",
+            "bo": "attention.output.dense.bias",
+            "ln1": "attention.output.LayerNorm",
+            "ln2": "output.LayerNorm",
+            "wi": "intermediate.dense.weight",
+            "bi": "intermediate.dense.bias",
+            "wmo": "output.dense.weight",
+            "bmo": "output.dense.bias",
+        }
+        p = pre + "encoder.layer.{}."
+    else:
+        name = {
+            "wq": "attention.q_lin.weight", "bq": "attention.q_lin.bias",
+            "wk": "attention.k_lin.weight", "bk": "attention.k_lin.bias",
+            "wv": "attention.v_lin.weight", "bv": "attention.v_lin.bias",
+            "wo": "attention.out_lin.weight",
+            "bo": "attention.out_lin.bias",
+            "ln1": "sa_layer_norm", "ln2": "output_layer_norm",
+            "wi": "ffn.lin1.weight", "bi": "ffn.lin1.bias",
+            "wmo": "ffn.lin2.weight", "bmo": "ffn.lin2.bias",
+        }
+        p = pre + "transformer.layer.{}."
+    for i in range(cfg.num_layers):
+        q = p.format(i)
+        out[q + name["wq"]] = _C(a["wq"][i].T)
+        out[q + name["bq"]] = a["bq"][i]
+        out[q + name["wk"]] = _C(a["wk"][i].T)
+        out[q + name["bk"]] = a["bk"][i]
+        out[q + name["wv"]] = _C(a["wv"][i].T)
+        out[q + name["bv"]] = a["bv"][i]
+        out[q + name["wo"]] = _C(a["wo"][i].T)
+        out[q + name["bo"]] = a["bo"][i]
+        out[q + name["ln1"] + ".weight"] = lyr["ln1"]["scale"][i]
+        out[q + name["ln1"] + ".bias"] = lyr["ln1"]["bias"][i]
+        out[q + name["ln2"] + ".weight"] = lyr["ln2"]["scale"][i]
+        out[q + name["ln2"] + ".bias"] = lyr["ln2"]["bias"][i]
+        out[q + name["wi"]] = _C(m["wi"][i].T)
+        out[q + name["bi"]] = m["bi"][i]
+        out[q + name["wmo"]] = _C(m["wo"][i].T)
+        out[q + name["bmo"]] = m["bo"][i]
+    if "mlm_head" in host:
+        mh = host["mlm_head"]
+        if bert:
+            t = "cls.predictions.transform."
+            out[t + "dense.weight"] = _C(mh["dense"].T)
+            out[t + "dense.bias"] = mh["dense_bias"]
+            out[t + "LayerNorm.weight"] = mh["ln"]["scale"]
+            out[t + "LayerNorm.bias"] = mh["ln"]["bias"]
+            out["cls.predictions.bias"] = mh["vocab_bias"]
+            out["cls.predictions.decoder.weight"] = host["embed"]["tokens"]
+            out["cls.predictions.decoder.bias"] = mh["vocab_bias"]
+        else:
+            out["vocab_transform.weight"] = _C(mh["dense"].T)
+            out["vocab_transform.bias"] = mh["dense_bias"]
+            out["vocab_layer_norm.weight"] = mh["ln"]["scale"]
+            out["vocab_layer_norm.bias"] = mh["ln"]["bias"]
+            out["vocab_projector.weight"] = host["embed"]["tokens"]
+            out["vocab_projector.bias"] = mh["vocab_bias"]
+    _save_hf(out, cfg_hf, out_dir)
 
 
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",

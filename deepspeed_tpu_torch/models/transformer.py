@@ -8,21 +8,26 @@ JAX's ``[B, T, H, Dh]`` head layout, so a parameter tree converted with
 :func:`deepspeed_tpu_torch.models.convert.params_from_jax` computes the
 same function in both packages.
 
-What the port carries: ``DecoderConfig``, norms, embeddings, RoPE, the
-plain attention, the dense MLP and attention projections (weight-only
+What the port carries: ``DecoderConfig``, norms, embeddings (token types
+included), RoPE, ALiBi slopes, the plain attention (ALiBi bias, sliding
+window, key mask), the dense MLP and attention projections (weight-only
 quantized linears through :func:`deepspeed_tpu_torch.ops.quantized_linear.
 qmatmul` where a ``<name>_scale`` leaf marks them), the residual combine
 with its MoE branch (a ``moe_fn`` from
 :mod:`deepspeed_tpu_torch.parallel.moe`, Residual-MoE's convex mix with a
 dense MLP) and FPDT's sequence-chunked MLP (``ffn_chunk``),
 ``init_params`` (dense and MoE trees, float or quantized as they are
-drawn) and ``lm_logits`` (serving, the quantized head included); and the
-training forward: ``decoder_block``, ``forward_hidden`` and ``forward``
-over the stacked layers (each block under the config's remat policy:
-'full' or one of the JAX package's named save/offload policies), dense and
-MoE, with the MoE layers' aux losses summed, ``chunked_cross_entropy``
-(each chunk's logits recomputed in backward) and ``cross_entropy_loss``.
-ALiBi, encoder extras and health taps raise ``NotImplementedError``.
+drawn, the encoders' masked-LM head) and ``lm_logits`` (serving, the
+quantized head and the masked-LM head included); the training forward:
+``decoder_block``, ``forward_hidden`` and ``forward`` over the stacked
+layers (each block under the config's remat policy: 'full' or one of the
+JAX package's named save/offload policies), dense and MoE, with the MoE
+layers' aux losses summed, ``chunked_cross_entropy`` (each chunk's logits
+recomputed in backward) and ``cross_entropy_loss``; and the KV-cached
+forward of the v1 engine (``init_kv_cache``, ``forward_with_cache``) over
+a static cache written in place at a device-side length, so that a
+decode step can be captured as a CUDA graph. Health taps raise
+``NotImplementedError``.
 """
 
 import dataclasses
@@ -34,9 +39,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from deepspeed_tpu_torch.accelerator.real_accelerator import get_device
 from deepspeed_tpu_torch.ops.quantized_linear import (SCALE_SUFFIX, qmatmul,
                                                       quantize_weight,
                                                       validate_weight_quant)
+from deepspeed_tpu_torch.ops.xla_attention import masked_probs
 from deepspeed_tpu_torch.parallel.fpdt import fpdt_ffn
 # resolve_remat_policy (transformer.py:426) maps a config policy name to
 # what each block keeps for its backward
@@ -44,8 +51,6 @@ from deepspeed_tpu_torch.runtime.activation_checkpointing import (  # noqa: F401
     checkpoint_name, remat_block, resolve_remat_policy)
 
 Params = Dict[str, Any]
-
-_NEG_INF = -1e30
 
 #: init_params draws (and quantizes) leaves in slices of at most this many
 #: values along the leading axis
@@ -289,26 +294,48 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor
 # Attention (plain version)
 # ---------------------------------------------------------------------------
 
+def alibi_slopes(num_heads: int, device=None) -> torch.Tensor:
+    """Per-head ALiBi slopes [H] fp32 (transformer.py:339; Press et al.,
+    BLOOM's ``build_alibi_tensor``): the geometric sequence 2^(-8/n · i),
+    with the closest power-of-two interpolation for other head counts
+    (BLOOM-176B has 112). Computed in Python doubles and rounded to fp32
+    once, as the JAX package does."""
+    def pow2_slopes(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start * (start ** i) for i in range(n)]
+
+    if math.log2(num_heads).is_integer():
+        s = pow2_slopes(num_heads)
+    else:
+        base = 1 << int(math.floor(math.log2(num_heads)))
+        s = pow2_slopes(base)
+        extra = pow2_slopes(2 * base)[0::2][:num_heads - base]
+        s = s + extra
+    return torch.tensor(s, dtype=torch.float32, device=device)
+
+
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True, q_offset: int = 0,
-                          window: Optional[int] = None) -> torch.Tensor:
+                          alibi: Optional[torch.Tensor] = None,
+                          window: Optional[int] = None,
+                          key_mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """q [B, Tq, H, Dh], k/v [B, Tk, KvH, Dh] → [B, Tq, H, Dh]
-    (transformer.py:357). GQA by head groups, fp32 softmax."""
+    (transformer.py:357). GQA by head groups, fp32 scores and softmax.
+    ``alibi``: slopes [H], adding slope·(kpos − qpos) to the scores (the
+    slopes reshape as [KvH, groups]); ``window``: a causal sliding window,
+    key kp visible iff qp − window < kp ≤ qp (≤ 0: full causal);
+    ``key_mask``: [B, Tk] bool, False = a padding key (HF attention_mask,
+    needed by padded encoder batches)."""
     b, tq, h, dh = q.shape
-    _, tk, kvh, _ = k.shape
-    groups = h // kvh
-    qg = q.reshape(b, tq, kvh, groups, dh)
+    kvh = k.shape[2]
+    qg = q.reshape(b, tq, kvh, h // kvh, dh)
     scores = torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float())
     scores = scores / math.sqrt(dh)
-    if causal or window is not None:
-        qpos = torch.arange(tq, device=q.device) + q_offset
-        kpos = torch.arange(tk, device=q.device)
-        mask = qpos[:, None] >= kpos[None, :] if causal else \
-            torch.ones((tq, tk), dtype=torch.bool, device=q.device)
-        if window is not None and window > 0:
-            mask = mask & (kpos[None, :] > qpos[:, None] - window)
-        scores = torch.where(mask, scores, torch.full_like(scores, _NEG_INF))
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    qpos = torch.arange(tq, device=q.device) + q_offset
+    kpos = torch.arange(k.shape[1], device=q.device)
+    probs = masked_probs(scores, qpos, kpos, v.dtype, causal=causal,
+                         alibi=alibi, window=window, key_mask=key_mask)
     out = torch.einsum("bkgts,bskd->btkgd", probs, v)
     return out.reshape(b, tq, h, dh)
 
@@ -318,14 +345,13 @@ AttentionFn = Callable[..., torch.Tensor]
 
 def default_attention(cfg: DecoderConfig) -> AttentionFn:
     """Config-correct plain attention (transformer.py:405): encoders get
-    the causal mask dropped, sliding-window models their window. ALiBi is
-    not ported."""
-    if cfg.pos_emb == "alibi":
-        raise NotImplementedError(
-            "ALiBi attention is not ported to deepspeed_tpu_torch yet "
-            "(ROADMAP A, 'v1 inference and the quantization tool')")
+    the causal mask dropped, ALiBi models their slopes baked in, sliding-
+    window models their window."""
     if not cfg.causal:
         return partial(dot_product_attention, causal=False)
+    if cfg.pos_emb == "alibi":
+        return partial(dot_product_attention,
+                       alibi=alibi_slopes(cfg.num_heads))
     if cfg.sliding_window is not None:
         return partial(dot_product_attention, window=cfg.sliding_window)
     return dot_product_attention
@@ -624,9 +650,11 @@ def init_params(cfg: DecoderConfig, generator: torch.Generator,
     if cfg.type_vocab_size:
         params["embed"]["token_type"] = w((cfg.type_vocab_size, d))
     if cfg.mlm_head:
-        raise NotImplementedError(
-            "masked-LM heads are not ported to deepspeed_tpu_torch yet "
-            "(ROADMAP A, 'v1 inference and the quantization tool')")
+        # HF cls.predictions (transformer.py:820-826): stays float under
+        # weight_quant, as quantize_param_tree leaves it
+        params["mlm_head"] = {
+            "dense": w((d, d)), "dense_bias": zeros(d),
+            "ln": _norm_params(cfg, (), device), "vocab_bias": zeros(v)}
     if not cfg.tie_embeddings:
         put(params, "lm_head", (d, v))
         if cfg.lm_head_bias:
@@ -687,18 +715,37 @@ def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.reshape(*lead, w.shape[-1])
 
 
-def lm_logits(cfg: DecoderConfig, params: Params, x: torch.Tensor
-              ) -> torch.Tensor:
+def mlm_transform(cfg: DecoderConfig, mh: Params, x: torch.Tensor
+                  ) -> torch.Tensor:
+    """HF ``cls.predictions.transform`` (transformer.py:922): dense, the
+    config's activation, LayerNorm — shared by :func:`lm_logits` and
+    :func:`chunked_cross_entropy`, so training optimizes the serving
+    logits."""
+    x = torch.matmul(x, mh["dense"]) + mh["dense_bias"]
+    if cfg.activation == "relu":
+        x = F.relu(x)
+    else:
+        x = F.gelu(x, approximate="none" if cfg.activation == "gelu_exact"
+                   else "tanh")
+    return _norm(cfg, mh["ln"], x)
+
+
+def lm_logits(cfg: DecoderConfig, params: Params, x: torch.Tensor,
+              pre_transformed: bool = False) -> torch.Tensor:
     """hidden [B,T,D] → logits [B,T,V] fp32 (transformer.py:934): the
     product of bf16 hidden states and weights is summed and returned in
     fp32, as the JAX package's ``preferred_element_type=float32``. A
+    masked-LM head (BERT) runs :func:`mlm_transform` first (unless
+    ``pre_transformed``), then the tied decode plus the vocab bias. A
     quantized head (``lm_head_q`` [D, V] of a tied model, or ``lm_head``
     with ``lm_head_scale``) goes through :func:`qmatmul` with fp32
     output."""
-    if cfg.mlm_head:
-        raise NotImplementedError(
-            "masked-LM heads are not ported to deepspeed_tpu_torch yet "
-            "(ROADMAP A, 'v1 inference and the quantization tool')")
+    if cfg.mlm_head and "mlm_head" in params:
+        mh = params["mlm_head"]
+        if not pre_transformed:
+            x = mlm_transform(cfg, mh, x)
+        logits = _matmul_f32(x, params["embed"]["tokens"].t())
+        return logits + mh["vocab_bias"].float()
     q_name = "lm_head_q" if "lm_head_q" in params else \
         ("lm_head" if "lm_head" + SCALE_SUFFIX in params else None)
     if q_name:
@@ -753,7 +800,9 @@ def forward_hidden(cfg: DecoderConfig, params: Params, tokens: torch.Tensor,
                    attn_fn: Optional[AttentionFn] = None,
                    moe_fn: Optional[Callable] = None,
                    positions: Optional[torch.Tensor] = None,
-                   remat_policy: Optional[str] = None
+                   remat_policy: Optional[str] = None,
+                   token_type_ids: Optional[torch.Tensor] = None,
+                   attention_mask: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, T] int → (final-norm hidden [B, T, D], aux loss summed
     over the MoE layers) — transformer.py:838. The JAX ``lax.scan`` over
@@ -762,16 +811,21 @@ def forward_hidden(cfg: DecoderConfig, params: Params, tokens: torch.Tensor,
     included, runs under that policy (recomputed in backward, as
     ``jax.checkpoint`` with the policy on the scan body). A ``moe_fn``
     with ``per_layer`` set (random token selection) is called with the
-    layer's index as ``layer=``."""
+    layer's index as ``layer=``. ``token_type_ids`` [B, T] feed BERT's
+    segment embedding; ``attention_mask`` [B, T] (1 real, 0 padding)
+    reaches ``attn_fn`` as its ``key_mask`` (encoders: padding keys would
+    otherwise attend into every position)."""
     policy = resolve_remat_policy(remat_policy)
     if attn_fn is None:
         attn_fn = default_attention(cfg)
+    if attention_mask is not None:
+        attn_fn = partial(attn_fn, key_mask=attention_mask.bool())
     b, t = tokens.shape
     if positions is None:
         positions = torch.arange(t, dtype=torch.int32,
                                  device=tokens.device)[None].expand(b, t)
     x = embed_tokens(cfg, params["embed"], tokens, positions,
-                     params.get("embed_norm"))
+                     params.get("embed_norm"), token_type_ids)
     if cfg.pos_emb == "rope":
         sin, cos = rope_table(cfg, positions)
     else:
@@ -804,12 +858,16 @@ def forward(cfg: DecoderConfig, params: Params, tokens: torch.Tensor,
             moe_fn: Optional[Callable] = None,
             positions: Optional[torch.Tensor] = None,
             remat_policy: Optional[str] = None,
-            with_aux: bool = False):
+            with_aux: bool = False,
+            token_type_ids: Optional[torch.Tensor] = None,
+            attention_mask: Optional[torch.Tensor] = None):
     """tokens → logits [B, T, V] fp32 (transformer.py:968); with_aux: plus
     the aux loss."""
     x, aux = forward_hidden(cfg, params, tokens, attn_fn=attn_fn,
                             moe_fn=moe_fn, positions=positions,
-                            remat_policy=remat_policy)
+                            remat_policy=remat_policy,
+                            token_type_ids=token_type_ids,
+                            attention_mask=attention_mask)
     logits = lm_logits(cfg, params, x)
     return (logits, aux) if with_aux else logits
 
@@ -863,10 +921,11 @@ def chunked_cross_entropy(cfg: DecoderConfig, params: Params,
     backward recomputes each chunk's logits and peak memory holds one
     chunk. ``logits_dtype=torch.bfloat16`` emits chunk logits in bf16
     (reductions stay fp32)."""
-    if cfg.mlm_head:
-        raise NotImplementedError(
-            "masked-LM heads are not ported to deepspeed_tpu_torch yet "
-            "(ROADMAP A, 'v1 inference and the quantization tool')")
+    mlm = cfg.mlm_head and "mlm_head" in params
+    if mlm:
+        # the transform once over the whole hidden (transformer.py:1035),
+        # so the dense shortcut and every chunk decode the serving logits
+        x = mlm_transform(cfg, params["mlm_head"], x)
     b, t, _ = x.shape
     v = cfg.vocab_size
     eb = 2 if logits_dtype == torch.bfloat16 else 4
@@ -876,13 +935,15 @@ def chunked_cross_entropy(cfg: DecoderConfig, params: Params,
         chunk = _pick_chunk(t, b, v, budget_bytes, max_chunk=t // 2,
                             elt_bytes=eb)
     if chunk >= t:
-        return cross_entropy_loss(lm_logits(cfg, params, x), targets,
-                                  ignore_index)
+        return cross_entropy_loss(
+            lm_logits(cfg, params, x, pre_transformed=True), targets,
+            ignore_index)
     if t % chunk:
         raise ValueError(f"chunk_size {chunk} does not divide T={t}")
     w = params["embed"]["tokens"] if cfg.tie_embeddings \
         else params["lm_head"]
-    bias = None if cfg.tie_embeddings else params.get("lm_head_bias")
+    bias = params["mlm_head"]["vocab_bias"] if mlm else \
+        (None if cfg.tie_embeddings else params.get("lm_head_bias"))
     out_dtype = logits_dtype or torch.float32
     nll = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.int64, device=x.device)
@@ -906,3 +967,94 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, safe[..., None])[..., 0]
     return ((logz - gold) * mask).sum() / mask.sum().clamp_min(1)
+
+
+# ---------------------------------------------------------------------------
+# KV-cached forward (the v1 engine's; transformer.py:1115-1205)
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int,
+                  dtype: torch.dtype = torch.bfloat16,
+                  device=None) -> Params:
+    """A static cache {"k", "v"}, each [L, B, max_len, KvH, Dh] zeros
+    (transformer.py:1115), on ``device`` (None → CUDA)."""
+    shape = (cfg.num_layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
+    dev = get_device(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def _cached_attention(cfg: DecoderConfig, p: Params, x: torch.Tensor, sin,
+                      cos, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                      cache_len: torch.Tensor,
+                      layer_window: Optional[int] = None,
+                      alibi: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One block's attention against its cache (transformer.py:1121):
+    x [B, t, D] new tokens; k_cache/v_cache [B, Tmax, KvH, Dh], views into
+    the stacked cache; ``cache_len`` a 0-d device tensor, the tokens
+    already cached. The new k/v are written IN PLACE at rows cache_len …
+    cache_len + t − 1 (``index_copy_`` from the device tensor: no host
+    value, so a decode step can be captured as a CUDA graph), then the
+    queries attend over all Tmax keys under the validity/causal mask (and
+    the sliding window, the layer's window, the ALiBi bias), masked
+    scores -1e30, fp32 scores of the products and an fp32 softmax."""
+    b, t, _ = x.shape
+    q, k, v = qkv_project(cfg, p, x, sin, cos)
+    dev = x.device
+    qpos = cache_len + torch.arange(t, device=dev)
+    k_cache.index_copy_(1, qpos, k.to(k_cache.dtype))
+    v_cache.index_copy_(1, qpos, v.to(v_cache.dtype))
+    kvh, dh = cfg.kv_heads, cfg.head_dim
+    qg = q.reshape(b, t, kvh, cfg.num_heads // kvh, dh)
+    scores = torch.einsum("btkgd,bskd->bkgts", qg.float(),
+                          k_cache.to(q.dtype).float())
+    scores = scores / math.sqrt(dh)
+    # the model's sliding window and the layer's, whichever is narrower
+    windows = [w for w in (cfg.sliding_window, layer_window)
+               if w is not None and w > 0]
+    probs = masked_probs(scores, qpos, torch.arange(k_cache.shape[1],
+                                                    device=dev),
+                         v_cache.dtype, alibi=alibi,
+                         window=min(windows) if windows else None)
+    out = torch.einsum("bkgts,bskd->btkgd", probs, v_cache)
+    return attn_out_project(cfg, p, out.reshape(b, t, cfg.num_heads, dh))
+
+
+def forward_with_cache(cfg: DecoderConfig, params: Params,
+                       tokens: torch.Tensor, cache: Params,
+                       cache_len, moe_fn: Optional[Callable] = None,
+                       alibi: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, Params]:
+    """tokens [B, t] (prefill t > 1 or decode t == 1) → (logits of the
+    LAST position [B, V] fp32, the cache) — transformer.py:1164. The cache
+    is updated in place and returned. ``cache_len``: the tokens already
+    cached, a 0-d int tensor on the tokens' device (a Python int is
+    copied there; a captured decode step passes the tensor).
+    ``alibi``: the slopes on the device, for an ALiBi model (computed here
+    when not given; a captured step passes them, since making them copies
+    from the host)."""
+    b, t = tokens.shape
+    dev = tokens.device
+    cache_len = torch.as_tensor(cache_len, dtype=torch.int32, device=dev)
+    positions = (cache_len + torch.arange(t, dtype=torch.int32, device=dev)
+                 )[None].expand(b, t)
+    x = embed_tokens(cfg, params["embed"], tokens, positions,
+                     params.get("embed_norm"))
+    if cfg.pos_emb == "rope":
+        sin, cos = rope_table(cfg, positions)
+    else:
+        sin = cos = torch.zeros((b, t, 0), dtype=x.dtype, device=dev)
+    if cfg.pos_emb == "alibi" and alibi is None:
+        alibi = alibi_slopes(cfg.num_heads, dev)
+    windows = cfg.window_per_layer() if cfg.layer_window_pattern \
+        else [None] * cfg.num_layers
+    for i, lp in enumerate(unstack_layers(params["layers"], cfg.num_layers)):
+        h_in = _norm(cfg, lp["ln1"], x) if cfg.prenorm else x
+        attn_out = _cached_attention(cfg, lp["attn"], h_in, sin, cos,
+                                     cache["k"][i], cache["v"][i], cache_len,
+                                     layer_window=windows[i], alibi=alibi)
+        x, _ = block_combine(cfg, lp, x, h_in, attn_out, moe_fn)
+    x = x[:, -1:]
+    if cfg.has_final_norm:
+        x = _norm(cfg, params["final_norm"], x)
+    return lm_logits(cfg, params, x)[:, 0], cache

@@ -3,11 +3,11 @@
 Port of ``deepspeed_tpu/runtime/model_factory.py``: compose the
 functional transformer core with the attention implementation selected by
 the config, and the MoE layer selected by its ``moe`` section, and hand
-the engine an init/loss pair. Dense and MoE decoders train on one device,
-with random token selection, Residual-MoE, ``ffn_chunk`` and
-``cpu_checkpointing`` folded in as the JAX factory folds them; pipeline
-parallelism, the ZeRO-3 overlap plan, expert parallelism and the health
-taps raise ``NotImplementedError``.
+the engine an init/loss pair. Dense and MoE decoders, ALiBi models and
+masked-LM encoders train on one device, with random token selection,
+Residual-MoE, ``ffn_chunk`` and ``cpu_checkpointing`` folded in as the
+JAX factory folds them; pipeline parallelism, the ZeRO-3 overlap plan,
+expert parallelism and the health taps raise ``NotImplementedError``.
 """
 
 import dataclasses
@@ -19,8 +19,10 @@ import torch
 from deepspeed_tpu_torch.config.config import DeepSpeedConfig
 from deepspeed_tpu_torch.models import transformer
 from deepspeed_tpu_torch.models.transformer import (DecoderConfig,
+                                                    alibi_slopes,
                                                     dot_product_attention)
 from deepspeed_tpu_torch.ops.flash_attention import flash_attention
+from deepspeed_tpu_torch.ops.xla_attention import chunked_attention
 from deepspeed_tpu_torch.parallel.moe import (dropless_moe_layer, moe_layer,
                                               mix_seed)
 from deepspeed_tpu_torch.runtime.activation_checkpointing import \
@@ -31,42 +33,48 @@ from deepspeed_tpu_torch.utils.logging import log_dist
 def select_attention(ds_cfg: DeepSpeedConfig,
                      dec_cfg: Optional[DecoderConfig] = None):
     """Pick the attention implementation from the config
-    (model_factory.py:38): 'auto' and 'pallas_flash' → the port's
+    (model_factory.py:38), at one device: 'pallas_flash' → the port's
     :func:`flash_attention` (K1 forward and K3 backward on CUDA tensors,
-    their plain versions on the CPU); 'naive' → the plain
-    :func:`dot_product_attention`. The other JAX implementations
-    ('xla_chunked', 'fpdt', registered ones) are not ported."""
+    their plain versions on the CPU), as 'auto' is for full-causal and
+    sliding-window decoders; 'xla_chunked' → :func:`chunked_attention`;
+    'naive' → the plain :func:`dot_product_attention`. As in the JAX
+    factory, per-layer windows (GPT-Neo) take the plain attention,
+    encoders under 'auto' and 'xla_chunked' the chunked attention without
+    the causal mask (it takes the batch's key mask, which K1 cannot), and
+    ALiBi models the chunked attention with their slopes baked in (K1 has
+    no bias). 'fpdt' and registered implementations are not ported."""
     impl = ds_cfg.attention_impl
-    if impl in ("xla_chunked", "fpdt"):
+    if impl == "fpdt":
         raise NotImplementedError(
-            f"attention_impl '{impl}' is not ported to deepspeed_tpu_torch "
-            f"yet ('auto', 'pallas_flash' and 'naive' are)")
-    if impl not in ("auto", "pallas_flash", "naive"):
+            "attention_impl 'fpdt' is not ported to deepspeed_tpu_torch yet "
+            "('auto', 'pallas_flash', 'xla_chunked' and 'naive' are)")
+    if impl not in ("auto", "pallas_flash", "xla_chunked", "naive"):
         raise NotImplementedError(
             f"attention_impl '{impl}': registered attention implementations "
             f"are not ported to deepspeed_tpu_torch yet")
-    if dec_cfg is not None and dec_cfg.pos_emb == "alibi":
-        raise NotImplementedError(
-            "ALiBi attention is not ported to deepspeed_tpu_torch yet "
-            "(ROADMAP A, 'v1 inference and the quantization tool')")
     if dec_cfg is not None and dec_cfg.layer_window_pattern:
         # per-layer windows reach the attention as a `window=` argument
         # per layer; the JAX package routes them to the plain attention
+        if impl in ("pallas_flash", "xla_chunked"):
+            raise ValueError(
+                f"attention_impl '{impl}' cannot apply per-layer windows "
+                f"(layer_window_pattern); use 'auto' or 'naive'")
+        return dot_product_attention
+    if dec_cfg is not None and not dec_cfg.causal:
         if impl == "pallas_flash":
             raise ValueError(
-                "attention_impl 'pallas_flash' cannot apply per-layer "
-                "windows (layer_window_pattern); use 'auto' or 'naive'")
-        return dot_product_attention
-    causal = dec_cfg is None or dec_cfg.causal
-    if not causal and impl == "pallas_flash":
-        raise ValueError(
-            "attention_impl 'pallas_flash' is causal-only; use 'auto' or "
-            "'naive' for encoder models")
+                "attention_impl 'pallas_flash' is causal-only; use 'auto', "
+                "'xla_chunked' or 'naive' for encoder models")
+        if impl == "naive":
+            return partial(dot_product_attention, causal=False)
+        return partial(chunked_attention, causal=False)
+    if dec_cfg is not None and dec_cfg.pos_emb == "alibi":
+        return partial(chunked_attention,
+                       alibi=alibi_slopes(dec_cfg.num_heads))
     window = dec_cfg.sliding_window if dec_cfg is not None else None
-    kw = {} if causal else {"causal": False}
-    if window is not None:
-        kw["window"] = window
-    base = dot_product_attention if impl == "naive" else flash_attention
+    kw = {} if window is None else {"window": window}
+    base = {"naive": dot_product_attention,
+            "xla_chunked": chunked_attention}.get(impl, flash_attention)
     return partial(base, **kw) if kw else base
 
 
@@ -98,7 +106,9 @@ def decoder_model_spec(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
     """The engine ModelSpec for the decoder family (model_factory.py:226).
 
     Batch contract: {"input_ids": [B, T] int, "labels": [B, T] int
-    (optional; defaults to input_ids shifted left, last position -100)}.
+    (optional; defaults to input_ids shifted left, last position -100)};
+    an encoder (BERT) batch may add "attention_mask" and
+    "token_type_ids" [B, T].
     For an MoE model ``loss_fn`` returns (CE + aux, {"aux_loss": aux})
     (:353-361), else the CE alone.
 
@@ -160,9 +170,13 @@ def decoder_model_spec(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
             raise ValueError("random token selection needs the step's "
                              "seed: call loss_fn(params, batch, rng=...)")
         mf = rts_moe(rng) if use_rts else moe_fn
+        # encoder extras (:317-322): the padding mask and the segments
+        enc = {} if dec_cfg.causal else {
+            k: batch[k] for k in ("attention_mask", "token_type_ids")
+            if k in batch}
         hidden, aux = transformer.forward_hidden(
             dec_cfg, params, tokens, attn_fn=attn_fn, moe_fn=mf,
-            remat_policy=remat)
+            remat_policy=remat, **enc)
         loss = transformer.chunked_cross_entropy(
             dec_cfg, params, hidden, labels, budget_bytes=ce_budget,
             logits_dtype=ce_dtype)

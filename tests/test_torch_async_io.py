@@ -14,6 +14,7 @@ from deepspeed_tpu.io.async_io import AsyncIOEngine as JaxAIO
 
 from deepspeed_tpu_torch.io import AsyncIOEngine
 from deepspeed_tpu_torch.io.async_io import DIRECT_ALIGN, aligned_empty
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _arrays(seed):

@@ -35,6 +35,7 @@ from deepspeed_tpu.parallel import mesh as jax_mesh
 import deepspeed_tpu_torch as dt
 from deepspeed_tpu_torch.checkpoint import store as tstore
 from deepspeed_tpu_torch.models.convert import params_to_numpy
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MICRO, GAS, SEQ = 4, 2, 256
 CONFIG = {

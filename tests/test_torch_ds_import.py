@@ -22,6 +22,7 @@ from deepspeed_tpu.checkpoint import ds_import as jdi
 from deepspeed_tpu_torch.checkpoint import ds_import as tdi
 from deepspeed_tpu_torch.models import transformer as ttf
 from deepspeed_tpu_torch.parallel.moe import serving_moe_fn
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LOGIT_TOL = dict(rtol=2e-4, atol=2e-4)
 

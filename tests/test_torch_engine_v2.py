@@ -31,6 +31,7 @@ from deepspeed_tpu_torch.inference.engine_v2 import (RaggedInferenceEngine,
 from deepspeed_tpu_torch.models.convert import params_from_jax
 from deepspeed_tpu_torch.models.llama import llama3_config as tllama
 from deepspeed_tpu_torch.ops import paged_attention as tpa
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LOGIT_TOL = dict(rtol=2e-4, atol=2e-4)
 ENG_CFG = {"dtype": "float32", "num_blocks": 32, "block_size": 16,
@@ -163,11 +164,10 @@ def test_errors_raised_as_in_jax(model, monkeypatch):
     with pytest.raises(NotImplementedError, match="ALiBi"):
         j_forward(alibi_j, model[2], jeng.arena, jnp.asarray(z),
                   jnp.asarray(o), jnp.asarray(o), jnp.asarray(z))
-    # the port's message names what exists: the JAX package's v1 engine
-    # by its full path, and the port's missing one as a roadmap item
+    # the port's message names the port's own v1 engine by its full path
     with pytest.raises(NotImplementedError,
-                       match=r"ALiBi.*\(deepspeed_tpu\.inference\.engine\."
-                             r"InferenceEngineTPU\).*no v1 engine yet"):
+                       match=r"ALiBi.*\(deepspeed_tpu_torch\.inference\."
+                             r"engine\.InferenceEngine, init_inference\)"):
         t_forward(alibi_t, model[3], teng.arena, torch.from_numpy(z),
                   torch.from_numpy(o), torch.from_numpy(o),
                   torch.from_numpy(z))

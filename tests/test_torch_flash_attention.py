@@ -18,6 +18,7 @@ import torch
 
 from deepspeed_tpu.ops import flash_attention as jfa
 from deepspeed_tpu_torch.ops import flash_attention as tfa
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

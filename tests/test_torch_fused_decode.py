@@ -35,6 +35,7 @@ from deepspeed_tpu_torch.inference.engine_v2 import (FusedDecodeUnavailable,
 from deepspeed_tpu_torch.models.convert import params_from_jax
 from deepspeed_tpu_torch.models.llama import llama3_config as tllama
 from deepspeed_tpu_torch.models.mixtral import mixtral_config as tmixtral
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 KV_TOL = dict(rtol=1e-5, atol=1e-5)
 ENG_CFG = {"dtype": "float32", "num_blocks": 32, "block_size": 8,

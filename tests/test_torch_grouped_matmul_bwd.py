@@ -26,6 +26,7 @@ import torch
 
 from deepspeed_tpu.ops import grouped_matmul as jg
 from deepspeed_tpu_torch.ops import grouped_matmul as tg
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 BM = 128

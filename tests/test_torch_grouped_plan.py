@@ -23,6 +23,7 @@ import torch
 
 from deepspeed_tpu_torch.ops import grouped_matmul as tg
 from deepspeed_tpu_torch.ops import op_builder
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CSRC = Path(tg.__file__).resolve().parent / "csrc"
 BM = 64

@@ -31,6 +31,7 @@ from deepspeed_tpu_torch.models import safetensors_io
 from deepspeed_tpu_torch.models import transformer as ttf
 from deepspeed_tpu_torch.models.convert import params_from_jax
 from deepspeed_tpu_torch.parallel.moe import serving_moe_fn
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LOGIT_TOL = dict(rtol=2e-4, atol=2e-4)
 EXPORT_TOL = dict(rtol=2e-3, atol=2e-3)
@@ -178,8 +179,8 @@ def _port_logits(cfg, params, tokens):
 @pytest.mark.parametrize("kind", FAMILIES)
 def test_load_matches_jax_loader_and_hf(kind, tmp_path):
     """Each family loads into params bitwise equal to the JAX loader's,
-    with logits within 2e-4 of transformers' (BLOOM: the tree loads, the
-    port's forward raises on ALiBi)."""
+    with logits within 2e-4 of transformers' (BLOOM through the port's
+    ALiBi attention)."""
     model = _save_hf(kind, tmp_path / kind)
     jcfg, jparams = jhf.load_hf_checkpoint(str(tmp_path / kind))
     tcfg, tparams = thf.load_hf_checkpoint(str(tmp_path / kind),
@@ -187,10 +188,6 @@ def test_load_matches_jax_loader_and_hf(kind, tmp_path):
     assert tcfg == ttf.DecoderConfig(**jcfg.__dict__)
     _assert_trees_bitwise(jparams, tparams)
     tokens = np.arange(1, 17, dtype=np.int32)[None].repeat(2, 0)
-    if tcfg.pos_emb == "alibi":
-        with pytest.raises(NotImplementedError, match="v1 inference"):
-            _port_logits(tcfg, tparams, tokens)
-        return
     ours = _port_logits(tcfg, tparams, tokens)
     with torch.no_grad():
         theirs = model(torch.from_numpy(tokens.astype(np.int64))
@@ -276,9 +273,8 @@ def _jinit(cfg, seed):
 def test_export_matches_jax_export(family, tmp_path):
     """The port's fp32 export of a tree is byte for byte the JAX export of
     the same tree (model.safetensors and config.json); transformers
-    reloads it (logits within 2e-3 of the port's, except BLOOM, whose
-    forward the port does not run); the port's loader gives the tree
-    back bitwise."""
+    reloads it (logits within 2e-3 of the port's); the port's loader
+    gives the tree back bitwise."""
     import deepspeed_tpu.models as jm
     name, kw = EXPORTS[family]
     jcfg = getattr(jm, name)("tiny", **kw)
@@ -306,8 +302,6 @@ def test_export_matches_jax_export(family, tmp_path):
         cfg2, back = thf.load_hf_checkpoint(str(tdir), device="cpu")
         jcfg2, jback = jhf.load_hf_checkpoint(str(jdir))
         _assert_trees_bitwise(jback, back)
-    if tcfg.pos_emb == "alibi":
-        return
     from transformers import AutoModelForCausalLM
     hf = AutoModelForCausalLM.from_pretrained(str(tdir)).eval()
     ours = _port_logits(cfg2, back, tokens)
@@ -409,18 +403,49 @@ def test_config_from_hf_rejects_as_reference(hf_cfg, match):
 
 @pytest.mark.parametrize("size", ["bert", "distilbert"])
 def test_encoders_wait_for_the_mlm_head(size, tmp_path):
-    """BERT/DistilBERT configs map as in the reference; loading and
-    exporting their weights raise NotImplementedError naming the ROADMAP
-    item."""
+    """BERT/DistilBERT (the name kept from when the masked-LM head was
+    missing): the configs map as in the reference; a transformers model
+    saved with ``save_pretrained`` loads into the port bitwise as the JAX
+    loader loads it, with masked-LM logits within 2e-4 of transformers'
+    (segment B from position 8 for BERT), and the port's export of that
+    tree reloads in transformers within 2e-3."""
+    import transformers as tr
     from deepspeed_tpu_torch.models import bert_config, distilbert_config
     cfg = (bert_config if size == "bert" else distilbert_config)("tiny")
     hf_cfg = thf.config_to_hf(cfg)
     assert hf_cfg == jhf.config_to_hf(jtf.DecoderConfig(**cfg.__dict__))
     assert thf.config_from_hf(hf_cfg) == cfg
-    with pytest.raises(NotImplementedError, match="v1 inference"):
-        thf.params_from_state(cfg, hf_cfg, None, set(), device="cpu")
-    with pytest.raises(NotImplementedError, match="v1 inference"):
-        thf.export_hf_checkpoint(cfg, {}, str(tmp_path))
+    if size == "bert":
+        model = tr.BertForMaskedLM(tr.BertConfig(
+            hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+            intermediate_size=256, vocab_size=512,
+            max_position_embeddings=128, type_vocab_size=2,
+            layer_norm_eps=1e-12))
+    else:
+        model = tr.DistilBertForMaskedLM(tr.DistilBertConfig(
+            dim=64, n_layers=2, n_heads=4, hidden_dim=256, vocab_size=512,
+            max_position_embeddings=128))
+    torch.manual_seed(0)
+    model.eval().save_pretrained(str(tmp_path / "hf"),
+                                 safe_serialization=True)
+    jcfg, jparams = jhf.load_hf_checkpoint(str(tmp_path / "hf"))
+    tcfg, tparams = thf.load_hf_checkpoint(str(tmp_path / "hf"),
+                                           device="cpu")
+    assert tcfg == ttf.DecoderConfig(**jcfg.__dict__)
+    _assert_trees_bitwise(jparams, tparams)
+    tokens = np.arange(1, 17, dtype=np.int64)[None].repeat(2, 0)
+    kw = {"token_type_ids": torch.from_numpy((np.arange(16) >= 8).astype(
+        np.int64))[None].repeat(2, 1)} if size == "bert" else {}
+    with torch.no_grad():
+        ours = ttf.forward(tcfg, tparams, torch.from_numpy(tokens), **kw)
+        theirs = model(torch.from_numpy(tokens), **kw).logits
+    np.testing.assert_allclose(ours.numpy(), theirs.numpy(), **LOGIT_TOL)
+    thf.export_hf_checkpoint(tcfg, tparams, str(tmp_path / "out"))
+    cls = tr.BertForMaskedLM if size == "bert" else tr.DistilBertForMaskedLM
+    back = cls.from_pretrained(str(tmp_path / "out")).eval()
+    with torch.no_grad():
+        again = back(torch.from_numpy(tokens), **kw).logits
+    np.testing.assert_allclose(ours.numpy(), again.numpy(), **EXPORT_TOL)
 
 
 def test_moe_residual_export_rejected(tmp_path):

@@ -20,6 +20,7 @@ from deepspeed_tpu.ops import host_adam as jax_host
 from deepspeed_tpu.ops.op_builder import load_host_adam as jax_lib
 
 from deepspeed_tpu_torch.ops import host_adam, op_builder
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N = 200_003     # not a multiple of any slice or vector width
 STEPS = 4

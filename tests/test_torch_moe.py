@@ -33,6 +33,7 @@ from deepspeed_tpu_torch.models.mixtral import mixtral_config as t_mixtral
 from deepspeed_tpu_torch.models.qwen2_moe import qwen2_moe_config as t_qwen
 from deepspeed_tpu_torch.ops.quantized_linear import quantize_weight
 from deepspeed_tpu_torch.parallel import moe as tm
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 

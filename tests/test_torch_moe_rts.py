@@ -37,6 +37,7 @@ import deepspeed_tpu_torch as dt
 from deepspeed_tpu_torch.models.convert import params_to_numpy
 from deepspeed_tpu_torch.models.mixtral import mixtral_config as t_mixtral
 from deepspeed_tpu_torch.parallel import moe as tm
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 D, MICRO, GAS, SEQ, STEPS = 128, 2, 2, 64, 4
 KW = dict(hidden_size=D, intermediate_size=256, vocab_size=256)

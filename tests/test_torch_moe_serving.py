@@ -28,6 +28,7 @@ from deepspeed_tpu_torch.models.convert import params_from_jax
 from deepspeed_tpu_torch.models.mixtral import mixtral_config as t_mixtral
 from deepspeed_tpu_torch.models.qwen2_moe import qwen2_moe_config as t_qwen
 from deepspeed_tpu_torch.parallel import moe as tm
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LOGIT_TOL = dict(rtol=2e-4, atol=2e-4)
 ENG_CFG = {"dtype": "float32", "num_blocks": 128, "block_size": 16,

@@ -32,6 +32,7 @@ import deepspeed_tpu_torch as dt
 from deepspeed_tpu_torch.models.convert import params_to_numpy
 from deepspeed_tpu_torch.runtime.zero.offload import (FlatLayout,
                                                       HostOffloadOptimizer)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MICRO, GAS, SEQ, STEPS = 2, 2, 64, 4
 CONFIG = {

@@ -24,6 +24,7 @@ from deepspeed_tpu.runtime import lr_schedules as jlr
 from deepspeed_tpu_torch.ops import optimizers as topt
 from deepspeed_tpu_torch.runtime import loss_scaler as tls
 from deepspeed_tpu_torch.runtime import lr_schedules as tlr
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SHAPES = {"w": (3, 8, 5), "b": (5,), "nested": {"s": (7,)}}
 

@@ -15,6 +15,7 @@ import torch
 
 from deepspeed_tpu.ops import paged_attention as jpa
 from deepspeed_tpu_torch.ops import paged_attention as tpa
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

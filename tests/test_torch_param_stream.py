@@ -25,6 +25,7 @@ import deepspeed_tpu_torch as dt
 from deepspeed_tpu_torch.models.convert import params_to_numpy
 from deepspeed_tpu_torch.runtime.zero.param_stream import \
     ParamStreamCoordinator
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MICRO, SEQ, STEPS = 4, 64, 4
 BASE = {"train_micro_batch_size_per_gpu": MICRO,

@@ -17,6 +17,7 @@ from deepspeed_tpu_torch import (RaggedInferenceEngine, initialize,
 from deepspeed_tpu_torch.accelerator.real_accelerator import get_device
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.parallel.moe import serving_moe_fn
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

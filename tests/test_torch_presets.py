@@ -10,9 +10,10 @@ against the JAX package's (deepspeed_tpu/models/<family>.py), on the CPU.
   ``RaggedInferenceEngineTPU.put``; greedy ``generate`` tokens identical.
   2e-4: two fp32 implementations of the same function summing in
   different orders through two layers.
-- BLOOM (ALiBi) and BERT/DistilBERT (the masked-LM head) raise
-  NotImplementedError in the port; GPT-Neo's window pattern raises in
-  both ragged engines.
+- BLOOM (ALiBi) and BERT/DistilBERT (bidirectional, the masked-LM head):
+  the port's ``forward`` within 2e-4 of the JAX one; both refused by the
+  port's ragged engine (BLOOM pointed at the v1 engine). GPT-Neo's window
+  pattern raises in both ragged engines.
 """
 
 import dataclasses
@@ -35,6 +36,7 @@ from deepspeed_tpu.parallel.moe import moe_layer as j_moe_layer
 from deepspeed_tpu_torch.inference.engine_v2 import RaggedInferenceEngine
 from deepspeed_tpu_torch.models.convert import params_from_jax
 from deepspeed_tpu_torch.parallel.moe import moe_layer as t_moe_layer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LOGIT_TOL = dict(rtol=2e-4, atol=2e-4)
 ENG_CFG = {"dtype": "float32", "num_blocks": 32, "block_size": 16,
@@ -155,24 +157,49 @@ def test_gptneo_window_pattern_raises_in_both_engines():
 
 
 def test_bloom_alibi_raises():
-    """BLOOM's config is ported; its ALiBi forward waits (ROADMAP A, 'v1
-    inference and the quantization tool')."""
+    """BLOOM (the name kept from when its ALiBi forward was missing): the
+    port's forward, its slopes baked in by the default attention, within
+    2e-4 of the JAX forward; the port's ragged engine refuses ALiBi and
+    points at the v1 engine."""
     jcfg, tcfg, jp, tp = _models("bloom_config")
-    tokens = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="v1 inference"):
-        tm.forward(tcfg, tp, tokens)
-    with pytest.raises(NotImplementedError, match="ALiBi"):
+    tokens = np.random.default_rng(0).integers(0, jcfg.vocab_size, (2, 12))
+    want = np.asarray(jm.forward(jcfg, jp, jnp.asarray(tokens, jnp.int32)))
+    with torch.no_grad():
+        got = tm.forward(tcfg, tp, torch.from_numpy(tokens)).numpy()
+    np.testing.assert_allclose(got, want, **LOGIT_TOL)
+    with pytest.raises(NotImplementedError, match="ALiBi.*InferenceEngine"):
         RaggedInferenceEngine(tcfg, ENG_CFG, params=tp,
                               device="cpu").put([0], [np.arange(4)])
 
 
 @pytest.mark.parametrize("name", ["bert_config", "distilbert_config"])
 def test_encoders_raise(name):
-    """BERT/DistilBERT configs are ported; their masked-LM head waits."""
-    cfg = getattr(tm, name)("tiny")
+    """BERT/DistilBERT (the name kept from when the masked-LM head was
+    missing): the port's init_params draws the JAX tree's leaves, the
+    masked-LM head included; its forward, given a padding mask (and
+    segments for BERT), is within 2e-4 of the JAX forward; the ragged
+    engine refuses bidirectional models."""
+    jcfg, cfg, jp, tp = _models(name)
     assert not cfg.causal and cfg.mlm_head
-    with pytest.raises(NotImplementedError, match="v1 inference"):
-        tm.init_params(cfg, torch.Generator().manual_seed(0),
-                       torch.float32, torch.device("cpu"))
+    drawn = tm.init_params(cfg, torch.Generator().manual_seed(0),
+                           torch.float32, torch.device("cpu"))
+    assert jax.tree.map(lambda a: tuple(a.shape), jp) == \
+        jax.tree.map(lambda a: tuple(a.shape), drawn)
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(1, cfg.vocab_size, (2, 12))
+    mask = np.ones((2, 12), np.int32)
+    mask[1, 7:] = 0
+    kw = {"attention_mask": mask}
+    if cfg.type_vocab_size:
+        kw["token_type_ids"] = (np.arange(12) >= 6).astype(np.int32)[
+            None].repeat(2, 0)
+    want = np.asarray(jm.forward(jcfg, jp, jnp.asarray(tokens, jnp.int32),
+                                 **{k: jnp.asarray(v) for k, v in
+                                    kw.items()}))
+    with torch.no_grad():
+        got = tm.forward(cfg, tp, torch.from_numpy(tokens),
+                         **{k: torch.from_numpy(v) for k, v in
+                            kw.items()}).numpy()
+    np.testing.assert_allclose(got, want, **LOGIT_TOL)
     with pytest.raises(NotImplementedError, match="full-causal"):
         RaggedInferenceEngine(cfg, ENG_CFG, params={}, device="cpu")

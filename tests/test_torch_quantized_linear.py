@@ -43,6 +43,7 @@ from deepspeed_tpu_torch.models.mixtral import mixtral_config as t_mixtral
 from deepspeed_tpu_torch.models.qwen2_moe import qwen2_moe_config as t_qwen
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops import quantized_linear as T
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MODES = ("int8", "fp8", "int4", "fp6")
 QMAX = {"int8": 127.0, "fp8": 448.0, "int4": 7.0, "fp6": 28.0}

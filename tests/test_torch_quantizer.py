@@ -15,6 +15,7 @@ import torch
 from deepspeed_tpu.ops import quantizer as J
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops import quantizer as T
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _x(n=4096, seed=0, offset=0.0):

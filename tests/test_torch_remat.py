@@ -15,6 +15,7 @@ from deepspeed_tpu_torch.ops import flash_attention as tfa
 from deepspeed_tpu_torch.runtime import activation_checkpointing as ac
 
 import torch_remat_parity as rp
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 POLICIES = ("full", "nothing_saveable", "dots_saveable",
             "dots_with_no_batch_dims_saveable", "save_attn_out",

@@ -12,6 +12,7 @@ import torch
 from deepspeed_tpu_torch.parallel.fpdt import fpdt_ffn
 
 import torch_remat_parity as rp
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CASES = {
     "offload_attn_out": {"policy": "offload_attn_out"},

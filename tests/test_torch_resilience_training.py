@@ -36,6 +36,7 @@ from deepspeed_tpu_torch.elasticity import (DSElasticAgent, Preempted,
 from deepspeed_tpu_torch.models.convert import params_to_numpy
 from deepspeed_tpu_torch.resilience.faults import fault_injector
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 VOCAB, SEQ = 256, 32
 

@@ -14,6 +14,7 @@ from hypothesis import strategies as st
 from deepspeed_tpu.telemetry.registry import MetricsRegistry as JRegistry
 from deepspeed_tpu_torch.telemetry.registry import MetricsRegistry as TRegistry
 from torch_serving_parity import JAX, PACKAGES, TORCH
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _run(pkg, program, fn):

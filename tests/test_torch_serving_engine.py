@@ -20,6 +20,7 @@ import torch
 from deepspeed_tpu_torch import telemetry
 from deepspeed_tpu_torch.inference import engine_v2 as te
 from torch_serving_parity import JAX, LOGIT_TOL, TORCH
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _arena_ptrs(eng):

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 from torch_serving_parity import JAX, TORCH, both, outcome
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _stream_matches_generate(pkg):

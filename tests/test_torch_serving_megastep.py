@@ -23,6 +23,7 @@ import pytest
 
 from torch_serving_parity import ENG_CFG, JAX, PACKAGES, TORCH, both, \
     outcome, prompts
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True)

@@ -29,6 +29,7 @@ import deepspeed_tpu_torch as dt
 from deepspeed_tpu_torch.models.convert import params_to_numpy
 from deepspeed_tpu_torch.ops.optimizers import tree_leaves
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MICRO, GAS, SEQ, STEPS = 4, 2, 256, 4
 CONFIG = {

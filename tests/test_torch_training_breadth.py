@@ -42,6 +42,7 @@ from deepspeed_tpu_torch.config.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.data_pipeline import (CurriculumScheduler,
                                                        DeepSpeedDataSampler)
 from deepspeed_tpu_torch.runtime.engine import ModelSpec
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module", autouse=True)

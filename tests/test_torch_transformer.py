@@ -15,6 +15,7 @@ from deepspeed_tpu.models.llama import llama3_config as jllama
 from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.models.convert import params_from_jax
 from deepspeed_tpu_torch.models.llama import llama3_config as tllama
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
