@@ -243,6 +243,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    with TF32 off, card against CPU, at the widths of Llama-3 8B and
    BLOOM-7b1 (prefill logits within 1e-4 relative, greedy tokens
    identical) and BERT-large (hidden states and logits within 1e-4).
+12. data parallel and ZeRO-1/2/3 (``train_dp``, run last) over a real NCCL
+   group of one rank (one card; NCCL refuses two ranks on it): (a)
+   phase 7's Llama-3 1B engine in bf16 at stages 0, 1, 2, 3 and 3 with
+   ``overlap_comm``, 3 steps each from one seed on one batch (ms a step,
+   peak HBM, the comms logger's bytes a step by op, K1/K3 launches;
+   losses within 1e-2 of stage 0's); (b) Llama-3 1B's width at depth 2
+   (vocabulary 32,000) in fp32, the card at world 1 against the port on
+   the CPU at dp 2 over gloo, two ranks this phase starts (losses within
+   1e-4); (c) the card resumes the CPU ranks' dp-2 save through
+   ``elastic_resume`` (losses within 1e-4 of the uninterrupted CPU run).
+   ``--train-dp-only`` runs the build and this phase alone.
 
 Every phase prints one JSON line; any failure raises, so the script exits
 non-zero. Without CUDA, or outside a checkout of the repository, it exits
@@ -5404,6 +5415,279 @@ def phase_train_mixtral():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: data parallel and ZeRO-1/2/3 over torch.distributed
+# ---------------------------------------------------------------------------
+
+#: (a): phase 7's engine (Llama-3 1B, bf16, micro 4 x gas 2 x 2048) at
+#: each ZeRO stage, DP_STEPS steps from one seed on one batch, over a real
+#: NCCL group of one rank
+DP_RUNS = (("stage0", 0, {}), ("stage1", 1, {}), ("stage2", 2, {}),
+           ("stage3", 3, {}), ("stage3_overlap", 3, {"overlap_comm": True}))
+DP_STEPS = 3
+#: each stage's bf16 losses against stage 0's, relative: at one rank the
+#: stages compute the same function; stage 3 recomputes each layer in its
+#: backward and K3 accumulates dq/dk in a different order between runs
+DP_LOSS_TOL = 1e-2
+#: (b)/(c): Llama-3 1B's width (d 2048, FFN 8192, heads 32/8) at depth 2
+#: with a 32,000-entry vocabulary (phase 6's Gemma/Phi runs' cut: the
+#: 128,256-entry head made the CPU ranks' steps and save ~70 s), fp32, T
+#: 256, 2 rows a step; the CPU side is 2 gloo ranks (DP_CPU_THREADS torch
+#: threads each), started by the phase, saving after their first step
+DP_SMALL = dict(num_layers=2, max_seq_len=256, tie_embeddings=True,
+                vocab_size=32000)
+DP_SMALL_TOL = 1e-4
+DP_CPU_THREADS = 4
+DP_CPU_TIMEOUT_S = 600.0
+#: host bytes the two CPU ranks may take (each: the tree, a copy, its
+#: shards' Adam state, gradients, the save's snapshot); the phase refuses
+#: to start them when the container's limit (OFFLOAD_HOST_LIMIT) less this
+#: process's resident set and what else the container holds
+#: (OFFLOAD_HOST_OTHER) leaves less
+DP_CPU_HOST_BYTES = 16e9
+
+
+def _dp_small_conf():
+    """fp32 AdamW at lr 1e-5 (phase 6's reason), ZeRO-3 with the overlap
+    loop; the elastic block gives micro 1 at dp 2 and micro 2 at dp 1."""
+    return {"train_micro_batch_size_per_gpu": 1,
+            "gradient_accumulation_steps": 1,
+            "optimizer": {"type": "adamw",
+                          "params": {"lr": 1e-5, "weight_decay": 0.1}},
+            "gradient_clipping": 1.0, "attention_impl": "auto",
+            "zero_optimization": {"stage": 3, "overlap_comm": True},
+            "elasticity": {"enabled": True, "micro_batch_sizes": [1, 2],
+                           "max_train_batch_size": 2, "max_gpus": 2}}
+
+
+def _dp_small_model():
+    from deepspeed_tpu_torch import llama3_config
+    return llama3_config(TRAIN_MODEL[0], **DP_SMALL)
+
+
+def _dp_small_data(vocab):
+    rng = np.random.default_rng(12)
+    return [{"input_ids": rng.integers(0, vocab, size=(2, 256))
+             .astype(np.int32)} for _ in range(DP_STEPS)]
+
+
+def _dp_small_init(cfg):
+    import torch
+    from deepspeed_tpu_torch.models.transformer import init_params
+    return init_params(cfg, torch.Generator().manual_seed(12),
+                       torch.float32, "cpu")
+
+
+def _dp_cpu_rank(rank, world, store, save_dir, out):
+    """(b)/(c)'s CPU side: one of ``world`` gloo ranks trains DP_STEPS
+    steps from the seeded tree and saves after the first (per-rank
+    fragments); writes its losses to ``out``."""
+    import pickle
+    import traceback
+    import torch
+    torch.set_num_threads(DP_CPU_THREADS)
+    from deepspeed_tpu_torch import build_mesh, comm, initialize
+    from deepspeed_tpu_torch.ops import op_builder
+    try:
+        comm.init_distributed(init_method="file://" + store,
+                              num_processes=world, process_id=rank,
+                              device="cpu", timeout=int(DP_CPU_TIMEOUT_S))
+        cfg = _dp_small_model()
+        eng = initialize(cfg, _dp_small_conf(), params=_dp_small_init(cfg),
+                         device="cpu", mesh=build_mesh(data=world))[0]
+        t0 = time.perf_counter()
+        losses = []
+        for s, batch in enumerate(_dp_small_data(cfg.vocab_size)):
+            losses.append(float(eng.train_batch(iter([batch]))))
+            if s == 0:
+                eng.save_checkpoint(save_dir)
+        res = {"losses": losses, "seconds": time.perf_counter() - t0,
+               "launches": sum(op_builder.launches.values())}
+        comm.destroy_distributed()
+    except BaseException:                       # noqa: BLE001 — reported
+        res = {"error": traceback.format_exc()}
+    with open(out, "wb") as fh:
+        pickle.dump(res, fh)
+
+
+def phase_train_dp(smi: str) -> dict:
+    """Data parallel and ZeRO-1/2/3 over torch.distributed. The card is one
+    rank of a real NCCL group (NCCL refuses two ranks on one card), so
+    every collective the engine issues runs at world 1; dp 2 runs on the
+    CPU over gloo. (a) phase 7's Llama-3 1B engine in bf16 at stages 0, 1,
+    2, 3 and 3 with ``overlap_comm``: ms a step, peak HBM, the comms
+    logger's bytes a step by op, K1/K3 launches; losses against stage
+    0's within DP_LOSS_TOL. (b) Llama-3 1B's width at depth 2 in fp32: the
+    card at world 1 against the port on the CPU at dp 2 over gloo, whose
+    ranks this phase starts while (a) runs (vocabulary cut to 32,000:
+    ``DP_SMALL``); losses within DP_SMALL_TOL.
+    (c) the card resumes the CPU's dp-2 save through ``elastic_resume`` at
+    world 1; the resumed losses within DP_SMALL_TOL of the uninterrupted
+    CPU run. Returns (a)'s launches (the phase's main path)."""
+    import gc
+    import multiprocessing as mp
+    import pickle
+    import tempfile
+    import torch
+    from deepspeed_tpu_torch import (build_mesh, comm, initialize,
+                                     llama3_config)
+    from deepspeed_tpu_torch.comm.comms_logger import comms_logger
+    from deepspeed_tpu_torch.elasticity import elastic_resume
+    from deepspeed_tpu_torch.ops import op_builder
+    gc.collect()
+    room = OFFLOAD_HOST_LIMIT - _rss() - OFFLOAD_HOST_OTHER
+    emit({"phase": "train_dp_host", "rss_bytes": _rss(),
+          "mem_available": _meminfo()["MemAvailable"], "room_bytes": room,
+          "cpu_ranks_need_bytes": DP_CPU_HOST_BYTES})
+    assert room >= DP_CPU_HOST_BYTES, (
+        f"phase 12: {room / 1e9:.1f} GB of host room for the CPU ranks, "
+        f"{DP_CPU_HOST_BYTES / 1e9:.0f} GB needed")
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="train_dp_", dir=os.path.join(
+        here, "build"))
+    save_dir = os.path.join(work, "ckpt")
+    outs = [os.path.join(work, f"cpu{r}.pkl") for r in range(2)]
+    ctx = mp.get_context("spawn")
+    cpu = [ctx.Process(target=_dp_cpu_rank, args=(
+        r, 2, os.path.join(work, "gloo_store"), save_dir, outs[r]))
+        for r in range(2)]
+    t_cpu = time.perf_counter()
+    for p in cpu:
+        p.start()
+    try:
+        comm.init_distributed(init_method="file://" + os.path.join(
+            work, "nccl_store"), num_processes=1, process_id=0)
+        assert torch.distributed.get_backend() == "nccl"
+        mesh = build_mesh(data=1)
+        # (a) the stages on phase 7's engine
+        cfg = llama3_config(TRAIN_MODEL[0], **TRAIN_MODEL[1])
+        rng = np.random.default_rng(7)
+        batch = [{"input_ids": rng.integers(0, cfg.vocab_size,
+                                            size=(TRAIN_MICRO, TRAIN_SEQ))
+                  .astype(np.int32)} for _ in range(TRAIN_GAS)]
+        runs = {}
+        op_builder.reset_launches()
+        for name, stage, zero in DP_RUNS:
+            conf = {"train_micro_batch_size_per_gpu": TRAIN_MICRO,
+                    "gradient_accumulation_steps": TRAIN_GAS,
+                    "optimizer": {"type": "adamw", "params": {
+                        "lr": 1e-4, "weight_decay": 0.1}},
+                    "gradient_clipping": 1.0, "bf16": {"enabled": True},
+                    "activation_checkpointing": {"policy": "none"},
+                    "attention_impl": "auto", "steps_per_print": 1000,
+                    "zero_optimization": dict(stage=stage, **zero),
+                    "comms_logger": {"enabled": True}}
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = dict(op_builder.launches)
+            eng = initialize(cfg, conf, generator=torch.Generator(
+                device=DEV).manual_seed(0), device=DEV, mesh=mesh)[0]
+            comms_logger.reset()
+            losses, step_s = [], []
+            for _ in range(DP_STEPS):
+                t1 = time.perf_counter()
+                losses.append(float(eng.train_batch(iter(batch))))
+                step_s.append(time.perf_counter() - t1)
+            plan = eng._overlap_plan
+            runs[name] = {
+                "stage": stage, "losses": losses, "step_seconds": step_s,
+                "ms_per_step": 1e3 * sum(step_s[1:]) / (DP_STEPS - 1),
+                "peak_hbm_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "comm_bytes_per_step": {
+                    op: b / DP_STEPS for op, b in
+                    comms_logger.bytes_by_op().items()},
+                "launches": {k: op_builder.launches[k] - before.get(k, 0)
+                             for k in TRAIN_KERNELS},
+                "overlap": None if plan is None else plan.describe()}
+            del eng, plan
+        launches = dict(op_builder.launches)
+        comms_logger.enabled = False
+        base = runs["stage0"]["losses"]
+        for name, run in runs.items():
+            run["loss_rel_err"] = max(abs(a - b) / abs(b) for a, b in
+                                      zip(run["losses"], base))
+            emit(dict(run, phase="train_dp", run=name,
+                      model="llama3-" + TRAIN_MODEL[0], dtype="bfloat16",
+                      world=1, backend="nccl", nvidia_smi=smi))
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (b) the card at world 1 against the CPU at dp 2
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        small = _dp_small_model()
+        data = _dp_small_data(small.vocab_size)
+        conf = dict(_dp_small_conf(), train_micro_batch_size_per_gpu=2)
+        before = dict(op_builder.launches)
+        eng = initialize(small, conf, params=_dp_small_init(small),
+                         device=DEV, mesh=mesh)[0]
+        card = [float(eng.train_batch(iter([b]))) for b in data]
+        card_launches = {k: op_builder.launches[k] - before.get(k, 0)
+                         for k in TRAIN_KERNELS}
+        del eng
+        for p in cpu:
+            p.join(max(0.0, DP_CPU_TIMEOUT_S - (time.perf_counter()
+                                                - t_cpu)))
+        cpu_res = []
+        for r, (p, out) in enumerate(zip(cpu, outs)):
+            assert not p.is_alive(), f"CPU rank {r} still running"
+            with open(out, "rb") as fh:
+                res = pickle.load(fh)
+            assert "error" not in res, res["error"]
+            cpu_res.append(res)
+        want = cpu_res[0]["losses"]
+        assert cpu_res[1]["losses"] == want, cpu_res
+        # (c) resume the CPU's dp-2 save on the card at world 1
+        fresh, agent, tag = elastic_resume(small, _dp_small_conf(),
+                                           save_dir, world_size=1,
+                                           device=DEV)
+        agent.uninstall()
+        resumed = [float(fresh.train_batch(iter([b]))) for b in data[1:]]
+        resumed_geometry = (fresh.train_micro_batch_size_per_gpu,
+                            fresh.gradient_accumulation_steps())
+        del fresh
+    finally:
+        for p in cpu:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        comm.destroy_distributed()
+        import shutil
+        shutil.rmtree(work, ignore_errors=True)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, want))
+    rel_resume = max(abs(a - b) / abs(b) for a, b in zip(resumed, want[1:]))
+    res = {"phase": "train_dp", "run": "card_vs_cpu_dp2",
+           "model": "llama3-1b-width-depth2-vocab32k", "dtype": "float32",
+           "losses_card": card, "losses_cpu_dp2": want,
+           "loss_rel_err": rel, "resume_tag": tag,
+           "resume_micro_gas": resumed_geometry,
+           "losses_resumed": resumed, "resume_rel_err": rel_resume,
+           "tol": DP_SMALL_TOL, "cpu_seconds": cpu_res[0]["seconds"],
+           "cpu_launches": cpu_res[0]["launches"],
+           "card_launches": card_launches}
+    emit(res)
+    for name, run in runs.items():
+        assert all(np.isfinite(run["losses"])), (name, run["losses"])
+        assert run["loss_rel_err"] <= DP_LOSS_TOL, (name, run)
+        want_fwd = cfg.num_layers * TRAIN_GAS * DP_STEPS * (
+            2 if run["stage"] == 3 else 1)
+        assert run["launches"]["flash_attention_fwd"] == want_fwd, run
+        assert run["launches"]["flash_attention_bwd"] == \
+            cfg.num_layers * TRAIN_GAS * DP_STEPS, run
+        ops = run["comm_bytes_per_step"]
+        assert ops.get("all_reduce", 0) > 0, (name, ops)
+        if run["stage"] == 3:
+            assert ops.get("all_gather", 0) > 0 and \
+                ops.get("reduce_scatter", 0) > 0, (name, ops)
+    assert runs["stage0"]["losses"][-1] < runs["stage0"]["losses"][0]
+    assert tag == "global_step1" and resumed_geometry == (2, 1), res
+    assert all(v > 0 for v in card_launches.values()), card_launches
+    assert cpu_res[0]["launches"] == 0, cpu_res
+    assert rel <= DP_SMALL_TOL and rel_resume <= DP_SMALL_TOL, res
+    return launches
+
+
 def _ptxas_kernels(log: str) -> dict:
     """Registers and spilled bytes (stores + loads) of each kernel in an
     ``nvcc -Xptxas -v`` log, by a short name: the function, its element
@@ -5477,6 +5761,11 @@ def main() -> int:
         seconds[fn.__name__] = time.perf_counter() - t
         return out
 
+    if "--train-dp-only" in sys.argv[1:]:
+        # phase 12 alone (its kernels build on first use)
+        run(phase_train_dp, smi)
+        emit({"phase": "seconds", **seconds})
+        return 0
     rng = np.random.default_rng(0)
     timed = run(phase_kernels, rng)
     grouped = run(phase_grouped, rng)
@@ -5506,6 +5795,7 @@ def main() -> int:
     run(phase_moe_train_full_width)
     paths["train_moe"] = run(phase_train_moe)
     paths["train_mixtral"] = run(phase_train_mixtral)
+    paths["train_dp"] = run(phase_train_dp, smi)
     emit({"phase": "seconds", **seconds})
 
     # launches: over the main paths (dense serving and MoE serving, phase

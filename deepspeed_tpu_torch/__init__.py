@@ -13,8 +13,10 @@ int8, fp8, int4 or fp6); ``init_inference`` (the v1 engine,
 decode step replayed as a CUDA graph; the path of ALiBi models) and
 ``EncoderInference`` (BERT-class scoring) serve beside it; ``initialize``
 and ``DeepSpeedEngine.train_batch`` (the port of ``DeepSpeedTPUEngine``)
-train them on one device, MoE models through the dropless grouped FFN or
-the capacity layer (the config's ``moe`` section). ``ServingFrontend``
+train them, MoE models through the dropless grouped FFN or the capacity
+layer (the config's ``moe`` section), on one device or data parallel
+with ZeRO stages 0-3 over ``torch.distributed`` (:func:`build_mesh`,
+:mod:`deepspeed_tpu_torch.comm`). ``ServingFrontend``
 (:mod:`deepspeed_tpu_torch.serving`) serves request streams over the
 engine: admission with back-pressure, the radix prefix cache over
 copy-on-write pages, SplitFuse budgets, decode megasteps, streaming,
@@ -53,6 +55,7 @@ from deepspeed_tpu_torch.models import (
 from deepspeed_tpu_torch.models.hf_loader import (export_hf_checkpoint,
                                                   load_hf_checkpoint)
 from deepspeed_tpu_torch.config.config import DeepSpeedConfig
+from deepspeed_tpu_torch.parallel.mesh import build_mesh
 from deepspeed_tpu_torch.runtime.engine import (DeepSpeedEngine, ModelSpec,
                                                 initialize)
 from deepspeed_tpu_torch.serving import ServingFrontend
@@ -60,7 +63,7 @@ from deepspeed_tpu_torch.serving import ServingFrontend
 __all__ = ["RaggedInferenceEngine", "RaggedInferenceConfig",
            "init_inference", "InferenceEngine", "DeepSpeedTPUInferenceConfig",
            "EncoderInference", "init_encoder_inference",
-           "DecoderConfig", "initialize", "DeepSpeedEngine",
+           "DecoderConfig", "initialize", "DeepSpeedEngine", "build_mesh",
            "DeepSpeedConfig", "ModelSpec", "ServingFrontend",
            "load_hf_checkpoint", "export_hf_checkpoint",
            "gpt2_config", "llama3_config", "mixtral_config",

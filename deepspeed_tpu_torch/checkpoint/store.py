@@ -44,7 +44,13 @@ What differs from the JAX module, by design:
   engine's are referenced by its optimizer, so it must not rebind them).
 - **Processes.** ``process_index``/``process_count`` and the
   all-process agreement come from ``torch.distributed`` when it is
-  initialized, else 0 and 1.
+  initialized, else 0 and 1. A data-parallel engine hands each of its
+  shards over as a :class:`ShardedLeaf` (its block and the box of the
+  full leaf it covers); each process writes its shards as
+  ``p<idx>f0`` fragments with those boxes (store.py:139-167), and a
+  whole leaf is written by process 0 alone, as the JAX store writes
+  only the ``replica_id == 0`` copy. The loader merges every process's
+  index and assembles full leaves at any world size (:368-411).
 """
 
 import functools
@@ -83,6 +89,20 @@ _BIT_VIEWS = {torch.bfloat16: ("bfloat16", torch.int16),
               torch.float8_e5m2: ("float8_e5m2", torch.uint8)}
 _BY_NAME = {name: (dt, view) for dt, (name, view) in _BIT_VIEWS.items()}
 _NP_VIEWS = {torch.int16: np.int16, torch.uint8: np.uint8}
+
+
+class ShardedLeaf:
+    """This process's block ``local`` of a leaf of shape ``full_shape``,
+    starting at ``start`` (full-leaf coordinates)."""
+
+    def __init__(self, local, full_shape, start):
+        self.local = local
+        self.full_shape = [int(v) for v in full_shape]
+        self.start = [int(v) for v in start]
+
+    @property
+    def stop(self) -> List[int]:
+        return [a + int(n) for a, n in zip(self.start, self.local.shape)]
 
 
 class CheckpointCorrupt(RuntimeError):
@@ -321,14 +341,20 @@ def save_checkpoint(save_dir: str, tag: str, state: Dict[str, Pytree],
         gdir = os.path.join(root, "state", group)
         os.makedirs(gdir, exist_ok=True)
         for key, leaf in _leaf_paths(tree).items():
-            arr, dtype = _snapshot(leaf)
+            if isinstance(leaf, ShardedLeaf):
+                arr, dtype = _snapshot(leaf.local)
+                full, start, stop = leaf.full_shape, leaf.start, leaf.stop
+            elif pidx != 0:
+                continue        # a whole leaf: process 0 writes it
+            else:
+                arr, dtype = _snapshot(leaf)
+                full, start, stop = (list(arr.shape), [0] * arr.ndim,
+                                     list(arr.shape))
             fname = f"{key.replace('/', '_')}.p{pidx}f0.bin"
-            frag = {"file": fname, "start": [0] * arr.ndim,
-                    "stop": list(arr.shape)}
+            frag = {"file": fname, "start": start, "stop": stop}
             work.append(_Work(os.path.join(gdir, fname), arr, frag))
             index.setdefault(group, {})[key] = {
-                "shape": list(arr.shape), "dtype": dtype,
-                "fragments": [frag]}
+                "shape": full, "dtype": dtype, "fragments": [frag]}
 
     def commit():
         for w in work:

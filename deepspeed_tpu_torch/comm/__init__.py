@@ -1,0 +1,33 @@
+"""The communication facade over ``torch.distributed`` (port of
+``deepspeed_tpu/comm``): process setup, the collectives by mesh axis
+name, the coalesced collectives and the comms logger. ``benchmark.py``
+waits for ROADMAP A, 'Observability, fleet and tools', and
+``quantized.py`` for ZeRO++ ('Parallelism breadth')."""
+
+from deepspeed_tpu_torch.comm.comm import (
+    all_gather,
+    all_reduce,
+    all_to_all,
+    axis_index,
+    barrier,
+    destroy_distributed,
+    get_local_rank,
+    get_rank,
+    get_world_size,
+    init_distributed,
+    is_initialized,
+    log_summary,
+    ppermute,
+    reduce_scatter,
+    send_recv_next,
+    send_recv_prev,
+)
+from deepspeed_tpu_torch.comm.comms_logger import comms_logger
+
+__all__ = [
+    "init_distributed", "is_initialized", "get_rank", "get_world_size",
+    "get_local_rank", "barrier", "all_reduce", "all_gather",
+    "reduce_scatter", "all_to_all", "ppermute", "send_recv_next",
+    "send_recv_prev", "axis_index", "comms_logger", "log_summary",
+    "destroy_distributed",
+]

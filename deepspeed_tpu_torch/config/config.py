@@ -2,25 +2,27 @@
 
 Port of ``deepspeed_tpu/config/config.py`` (reference
 deepspeed/runtime/config.py:651). Field names, defaults and the batch
-triple solver are the JAX package's, so one JSON validates in both. This
-slice trains on one device; it reads the batch triple, ``optimizer``,
-``scheduler``, ``fp16``/``bf16``, ``gradient_clipping``,
-``zero_optimization`` (``stage`` 0-3 at one device and the
-``offload_optimizer``/``offload_param`` tiers), ``activation_checkpointing``
-(``policy``, ``cpu_checkpointing``, ``ffn_chunk``), ``attention_impl``,
-``ce_logits_dtype``, ``chunked_ce_budget_mb``, ``moe`` (one expert
-shard), ``check_nan_inf``, ``data_efficiency`` (the curriculum sampler),
-``seed`` and ``steps_per_print``; ``prescale_gradients``,
-``gradient_predivide_factor``, ``wall_clock_breakdown``, ``dump_state``,
-``memory_breakdown`` and ``moe.noisy_gate_policy`` are accepted and, as in
-the JAX package, read by nothing; the serving front
-end reads ``serving`` (the megastep knobs), the training engine and
-the front end read ``resilience`` (the checkpoint store's retry knobs,
-``serving_retry_budget``, ``fault_plan``), ``checkpoint`` is accepted
-and, as in the JAX package, read by nothing, and
-:func:`deepspeed_tpu_torch.telemetry.configure` reads ``telemetry``'s
-``enabled``, ``trace_buffer_events``, ``jax_annotations`` and
-``reqtrace``.
+triple solver are the JAX package's, so one JSON validates in both. It
+reads the batch triple, ``optimizer``, ``scheduler``, ``fp16``/``bf16``,
+``gradient_clipping``, ``zero_optimization`` (``stage`` 0-3 over the
+mesh's data axis, the bucket sizes, the stage-3 overlap knobs, and the
+``offload_optimizer``/``offload_param`` tiers on one device),
+``activation_checkpointing`` (``policy``, ``cpu_checkpointing``,
+``ffn_chunk``), ``attention_impl``, ``ce_logits_dtype``,
+``chunked_ce_budget_mb``, ``moe`` (one expert shard), ``check_nan_inf``,
+``data_efficiency`` (the curriculum sampler), ``comms_logger``, ``seed``
+and ``steps_per_print``; ``elasticity`` is the input of
+``elasticity.compute_elastic_config``; ``communication_data_type``,
+``prescale_gradients``, ``gradient_predivide_factor``,
+``wall_clock_breakdown``, ``dump_state``, ``memory_breakdown`` and
+``moe.noisy_gate_policy`` are accepted and, as in the JAX package, read
+by nothing; the serving front end reads ``serving`` (the megastep
+knobs), the training engine and the front end read ``resilience`` (the
+checkpoint store's retry knobs, ``serving_retry_budget``,
+``fault_plan``), ``checkpoint`` is accepted and, as in the JAX package,
+read by nothing, and :func:`deepspeed_tpu_torch.telemetry.configure`
+reads ``telemetry``'s ``enabled``, ``trace_buffer_events``,
+``jax_annotations`` and ``reqtrace``.
 
 Every other section of the JAX config (tensor/pipeline/sequence
 parallelism, ZenFlow, ZeRO++, ...) is not ported yet: it may be
@@ -35,6 +37,7 @@ from typing import Any, Dict, List, Literal, Optional, Union
 from pydantic import Field, model_validator
 
 from deepspeed_tpu_torch.config.config_utils import TPUConfigModel, is_auto
+from deepspeed_tpu_torch.utils.logging import logger
 
 
 class OptimizerConfig(TPUConfigModel):
@@ -252,12 +255,10 @@ class CheckpointConfig(TPUConfigModel):
     async_save: bool = False
 
 
-#: ZeRO knobs that change nothing on one device (accepted with any value):
-#: bucket sizes and overlap of collectives, and the stage-3 fetch and
-#: persistence knobs of the reference's parameter hooks
+#: ZeRO knobs the JAX package accepts and reads nowhere (the reference's
+#: parameter-hook fetch and persistence knobs): accepted with any value
 _ZERO_NOOP_KEYS = {"contiguous_gradients", "reduce_scatter",
-                   "reduce_bucket_size", "allgather_partitions",
-                   "allgather_bucket_size", "overlap_comm", "sub_group_size",
+                   "allgather_partitions", "sub_group_size",
                    "ignore_unused_parameters", "round_robin_gradients",
                    "stage3_max_live_parameters", "stage3_max_reuse_distance",
                    "stage3_prefetch_bucket_size",
@@ -345,12 +346,24 @@ class OffloadParamConfig(TPUConfigModel):
 
 
 class ZeroConfig(TPUConfigModel):
-    """``zero_optimization`` (config.py:201). ``stage`` 0-3 at a world of
-    one device, where a partition is the whole tree: the stages train
-    alike, as the JAX engine on a one-device mesh does. The offload
-    blocks select the host and NVMe tiers. ZenFlow and the ZeRO++ and
-    MiCS knobs are not ported and raise."""
+    """``zero_optimization`` (config.py:201). ``stage`` 0-3 over the
+    mesh's data axis (``runtime/zero/sharding.py``); on one process
+    without ``torch.distributed`` a partition is the whole tree and the
+    stages train alike, as the JAX engine on a one-device mesh does.
+    ``reduce_bucket_size`` / ``allgather_bucket_size`` (elements) bound
+    the engine's coalesced gradient reductions and parameter gathers;
+    ``overlap_comm`` with ``overlap_bucket_bytes``, ``overlap_prefetch``
+    and ``overlap_regather`` drive the stage-3 layer loop
+    (``runtime/zero/overlap.py``). The offload blocks select the host and
+    NVMe tiers (one device only). ZenFlow and the ZeRO++ and MiCS knobs
+    are not ported and raise."""
     stage: int = 0
+    reduce_bucket_size: Union[int, str] = 500_000_000
+    allgather_bucket_size: Union[int, str] = 500_000_000
+    overlap_comm: Optional[bool] = None
+    overlap_bucket_bytes: int = 0
+    overlap_prefetch: int = 1
+    overlap_regather: bool = True
     offload_optimizer: OffloadOptimizerConfig = Field(
         default_factory=OffloadOptimizerConfig)
     offload_param: OffloadParamConfig = Field(
@@ -362,6 +375,22 @@ class ZeroConfig(TPUConfigModel):
         if self.stage not in (0, 1, 2, 3):
             raise ValueError(
                 f"zero_optimization.stage must be 0-3, got {self.stage}")
+        if self.overlap_bucket_bytes < 0:
+            raise ValueError(
+                "zero_optimization.overlap_bucket_bytes must be >= 0")
+        if self.overlap_prefetch < 0:
+            raise ValueError("zero_optimization.overlap_prefetch must be "
+                             ">= 0")
+        for k in ("reduce_bucket_size", "allgather_bucket_size"):
+            v = getattr(self, k)
+            if isinstance(v, str):
+                object.__setattr__(self, k, int(float(v)))
+        if self.overlap_comm and self.stage != 3:
+            # config.py:269: a stage-3 knob here (chunked param gathers)
+            logger.warning(
+                "zero_optimization.overlap_comm is a stage-3 knob here "
+                f"(chunked param gathers); ignored at stage {self.stage}")
+            object.__setattr__(self, "overlap_comm", False)
         if self.zenflow is not None:
             raise NotImplementedError(
                 "zero_optimization.zenflow is not ported to "
@@ -381,12 +410,10 @@ _UNPORTED_SECTIONS: Dict[str, Dict[str, Any]] = {
     "tensor_parallel": {"enabled": False, "autotp_size": 1, "tp_size": 1},
     "pipeline": {"stages": 1},
     "sequence_parallel": {"size": 1},
-    "comms_logger": {"enabled": False},
     "flops_profiler": {"enabled": False},
     "kvtier": {"enabled": False},
     "autoscale": {"enabled": False},
     "tune": {"tuned": False},
-    "elasticity": {"enabled": False},
     "tensorboard": {"enabled": False},
     "wandb": {"enabled": False},
     "comet": {"enabled": False},
@@ -401,15 +428,10 @@ _UNPORTED_MODULES: Dict[str, str] = {
     "kvtier": "serving/kvtier.py", "slo": "telemetry/slo.py",
     "router": "serving/router.py", "autoscale": "serving/autoscaler.py",
 }
-_UNPORTED_SCALARS: Dict[str, Any] = {"communication_data_type": None}
 
 
 def _check_unported(config: Dict[str, Any]) -> None:
     for key, value in config.items():
-        if key in _UNPORTED_SCALARS and value != _UNPORTED_SCALARS[key]:
-            raise NotImplementedError(
-                f"config key {key}={value!r} is not ported to "
-                f"deepspeed_tpu_torch yet")
         if key not in _UNPORTED_SECTIONS or value in (None, {}):
             continue
         off = _UNPORTED_SECTIONS[key]
@@ -422,8 +444,35 @@ def _check_unported(config: Dict[str, Any]) -> None:
                 f"deepspeed_tpu_torch yet{needs} (absent or {off} only)")
 
 
+class CommsLoggerConfig(TPUConfigModel):
+    """``comms_logger`` (config.py:353): arms the collective log
+    (:data:`deepspeed_tpu_torch.comm.comms_logger`); ``verbose`` times
+    each collective and logs it."""
+    enabled: bool = False
+    verbose: bool = False
+    prof_all: bool = True
+    debug: bool = False
+    prof_ops: List[str] = Field(default_factory=list)
+
+
+class ElasticityConfig(TPUConfigModel):
+    """``elasticity`` (config.py:803): the elastic batch solver's input
+    (``elasticity.compute_elastic_config``, read by ``elastic_resume``);
+    the engine reads nothing of it, as in the JAX package."""
+    enabled: bool = False
+    max_train_batch_size: int = 2000
+    micro_batch_sizes: List[int] = Field(default_factory=lambda: [2, 4, 6])
+    min_gpus: int = 1
+    max_gpus: int = 10000
+    min_time: int = 0
+    prefer_larger_batch: bool = True
+    ignore_non_elastic_batch_info: bool = False
+    version: float = 0.2
+
+
 class DeepSpeedConfig(TPUConfigModel):
-    """Port of ``DeepSpeedTPUConfig`` (config.py:831), single-device subset.
+    """Port of ``DeepSpeedTPUConfig`` (config.py:831), the subset the port
+    runs.
 
     Batch triple: train_batch_size = micro_batch × gradient_accumulation
     × dp_world_size (:meth:`resolve_batch_sizes`)."""
@@ -449,6 +498,9 @@ class DeepSpeedConfig(TPUConfigModel):
     checkpoint: CheckpointConfig = Field(default_factory=CheckpointConfig)
     data_efficiency: DataEfficiencyConfig = Field(
         default_factory=DataEfficiencyConfig)
+    comms_logger: CommsLoggerConfig = Field(
+        default_factory=CommsLoggerConfig)
+    elasticity: ElasticityConfig = Field(default_factory=ElasticityConfig)
 
     #: True / "debug": a step whose loss or gradients are not finite
     #: raises FloatingPointError before the optimizer runs (the port's
@@ -456,6 +508,7 @@ class DeepSpeedConfig(TPUConfigModel):
     #: of the updated params names the first bad leaf (engine.py:150)
     check_nan_inf: Union[bool, Literal["debug", "scoped"]] = False
     #: accepted and read by nothing, as in the JAX package
+    communication_data_type: Optional[str] = None
     prescale_gradients: bool = False
     gradient_predivide_factor: float = 1.0
     wall_clock_breakdown: bool = False

@@ -1,7 +1,9 @@
-"""Preemption-aware checkpoint/resume (port of ``deepspeed_tpu/elasticity``:
-the elastic agent). The elastic batch solver (``elasticity.py``) and
-resuming at a new world size wait for data parallelism (ROADMAP A,
-'Data parallel and ZeRO-1/2/3')."""
+"""Preemption-aware checkpoint/resume and elastic world sizes (port of
+``deepspeed_tpu/elasticity``): the elastic agent, the elastic batch
+solver, and :func:`elastic_resume`, which re-forms training at a new
+world size from the latest checkpoint."""
 
 from deepspeed_tpu_torch.elasticity.elastic_agent import (  # noqa: F401
     DSElasticAgent, Preempted, elastic_resume, run_elastic)
+from deepspeed_tpu_torch.elasticity.elasticity import (  # noqa: F401
+    compute_elastic_config, get_compatible_gpus)

@@ -7,9 +7,11 @@ commits a checkpoint at the next step boundary, exits cleanly, and on
 relaunch resumes from ``latest`` — plus an in-process restart loop for
 transient failures (:func:`run_elastic`).
 
-Resuming at a new world size (:func:`elastic_resume`) needs data
-parallelism, which the port does not have yet: it raises
-``NotImplementedError``.
+:func:`elastic_resume` re-forms training at a new world size from the
+latest checkpoint: the elastic batch triple for that world
+(``elasticity.compute_elastic_config``), a mesh over its ranks, a fresh
+engine, and a resume from the per-rank fragments, which load at any
+world size.
 """
 
 import os
@@ -125,14 +127,42 @@ class DSElasticAgent:
 
 
 def elastic_resume(model, ds_config: Dict[str, Any], save_dir: str,
-                   world_size: int, devices=None, rng=None):
+                   world_size: int, devices=None, rng=None,
+                   device=None, params=None, training_data=None):
     """Re-form training at a NEW world size from the latest checkpoint
-    (elastic_agent.py:133): not ported yet."""
-    raise NotImplementedError(
-        "elastic_resume (re-forming training at a new world size) is not "
-        "ported to deepspeed_tpu_torch yet: it needs data parallelism "
-        "(ROADMAP A, 'Data parallel and ZeRO-1/2/3'). Resume at the same "
-        "size with DSElasticAgent.resume()")
+    (elastic_agent.py:133): solve the elastic batch triple for
+    ``world_size``, build the mesh over that many ranks (the process
+    group must have them: ``deepspeed_tpu_torch.comm.init_distributed``),
+    initialize a fresh engine on ``device`` and resume from the
+    per-rank fragments. ``rng`` is the engine's init generator. Returns
+    (engine, agent, resumed_tag).
+
+    ``ds_config`` must carry an enabled ``elasticity`` block; its batch
+    triple is OVERWRITTEN with the solver's choice for the new world."""
+    import copy
+
+    from deepspeed_tpu_torch.elasticity.elasticity import \
+        compute_elastic_config
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+    from deepspeed_tpu_torch.runtime.engine import initialize
+
+    cfg = copy.deepcopy(ds_config if isinstance(ds_config, dict)
+                        else ds_config.model_dump())
+    batch, _valid, micro = compute_elastic_config(cfg,
+                                                  world_size=world_size)
+    cfg["train_batch_size"] = batch
+    cfg["train_micro_batch_size_per_gpu"] = micro
+    cfg.pop("gradient_accumulation_steps", None)   # solver-derived
+    mesh = build_mesh(data=world_size, devices=devices)
+    engine, *_ = initialize(model=model, config=cfg, params=params,
+                            generator=rng, device=device, mesh=mesh,
+                            training_data=training_data)
+    agent = DSElasticAgent(engine, save_dir)
+    agent.install()
+    tag = agent.resume()
+    log_dist(f"elastic_resume: world={world_size} batch={batch} "
+             f"micro={micro} resumed={tag or 'fresh start'}")
+    return engine, agent, tag
 
 
 #: exception types a restart cannot fix — a bad config or a coding bug

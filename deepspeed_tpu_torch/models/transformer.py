@@ -802,7 +802,8 @@ def forward_hidden(cfg: DecoderConfig, params: Params, tokens: torch.Tensor,
                    positions: Optional[torch.Tensor] = None,
                    remat_policy: Optional[str] = None,
                    token_type_ids: Optional[torch.Tensor] = None,
-                   attention_mask: Optional[torch.Tensor] = None
+                   attention_mask: Optional[torch.Tensor] = None,
+                   layer_loop: Optional[Callable] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, T] int → (final-norm hidden [B, T, D], aux loss summed
     over the MoE layers) — transformer.py:838. The JAX ``lax.scan`` over
@@ -814,7 +815,12 @@ def forward_hidden(cfg: DecoderConfig, params: Params, tokens: torch.Tensor,
     layer's index as ``layer=``. ``token_type_ids`` [B, T] feed BERT's
     segment embedding; ``attention_mask`` [B, T] (1 real, 0 padding)
     reaches ``attn_fn`` as its ``key_mask`` (encoders: padding keys would
-    otherwise attend into every position)."""
+    otherwise attend into every position). ``layer_loop`` replaces the
+    loop as the JAX ``layer_loop`` replaces the scan (the ZeRO-3 chunked
+    gather, ``runtime/zero/overlap.py``): it is called as
+    ``layer_loop(run_layers, x, params["layers"])``, where
+    ``run_layers(x, layers, lo)`` runs a stacked slice of gathered layers
+    whose first is layer ``lo`` and returns (x, aux)."""
     policy = resolve_remat_policy(remat_policy)
     if attn_fn is None:
         attn_fn = default_attention(cfg)
@@ -832,21 +838,38 @@ def forward_hidden(cfg: DecoderConfig, params: Params, tokens: torch.Tensor,
         sin = cos = torch.zeros((b, t, 0), dtype=x.dtype, device=x.device)
     windows = cfg.window_per_layer() if cfg.layer_window_pattern \
         else [None] * cfg.num_layers
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, (lp, w) in enumerate(zip(
-            unstack_layers(params["layers"], cfg.num_layers), windows)):
-        mf = partial(moe_fn, layer=i) \
-            if getattr(moe_fn, "per_layer", False) else moe_fn
-        if policy is not None and torch.is_grad_enabled():
-            x, a = remat_block(
-                partial(_block_of, cfg, sin, cos, attn_fn, mf, w), policy,
-                x, lp)
-        else:
-            x, a = decoder_block(cfg, lp, x, sin, cos, attn_fn, mf, w)
-        aux = aux + a
+
+    def run_layers(x, layers, lo):
+        n = next(iter(_leaf_iter(layers))).shape[0]
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for j, lp in enumerate(unstack_layers(layers, n)):
+            i, w = lo + j, windows[lo + j]
+            mf = partial(moe_fn, layer=i) \
+                if getattr(moe_fn, "per_layer", False) else moe_fn
+            if policy is not None and torch.is_grad_enabled():
+                x, a = remat_block(
+                    partial(_block_of, cfg, sin, cos, attn_fn, mf, w),
+                    policy, x, lp)
+            else:
+                x, a = decoder_block(cfg, lp, x, sin, cos, attn_fn, mf, w)
+            aux = aux + a
+        return x, aux
+
+    if layer_loop is None:
+        x, aux = run_layers(x, params["layers"], 0)
+    else:
+        x, aux = layer_loop(run_layers, x, params["layers"])
     if cfg.has_final_norm:
         x = _norm(cfg, params["final_norm"], x)
     return x, aux
+
+
+def _leaf_iter(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaf_iter(v)
+    else:
+        yield tree
 
 
 def _block_of(cfg, sin, cos, attn_fn, moe_fn, window, x, lp):
@@ -913,14 +936,18 @@ def chunked_cross_entropy(cfg: DecoderConfig, params: Params,
                           ignore_index: int = -100,
                           chunk_size: Optional[int] = None,
                           budget_bytes: Optional[int] = None,
-                          logits_dtype: Optional[torch.dtype] = None
+                          logits_dtype: Optional[torch.dtype] = None,
+                          count_fn: Optional[Callable] = None
                           ) -> torch.Tensor:
     """Token-mean CE without materializing [B, T, V] logits
     (transformer.py:1017). The sequence runs in chunks, each under
     ``torch.utils.checkpoint`` as the JAX ``jax.checkpoint`` body, so
     backward recomputes each chunk's logits and peak memory holds one
     chunk. ``logits_dtype=torch.bfloat16`` emits chunk logits in bf16
-    (reductions stay fp32)."""
+    (reductions stay fp32). ``count_fn`` maps this batch's count of
+    valid labels to the denominator (data parallelism: the count over
+    the global batch, so that a rank's term is its share of the JAX
+    ``nll.sum() / mask.sum()`` over every rank's rows)."""
     mlm = cfg.mlm_head and "mlm_head" in params
     if mlm:
         # the transform once over the whole hidden (transformer.py:1035),
@@ -937,7 +964,7 @@ def chunked_cross_entropy(cfg: DecoderConfig, params: Params,
     if chunk >= t:
         return cross_entropy_loss(
             lm_logits(cfg, params, x, pre_transformed=True), targets,
-            ignore_index)
+            ignore_index, count_fn=count_fn)
     if t % chunk:
         raise ValueError(f"chunk_size {chunk} does not divide T={t}")
     w = params["embed"]["tokens"] if cfg.tie_embeddings \
@@ -955,18 +982,22 @@ def chunked_cross_entropy(cfg: DecoderConfig, params: Params,
         else:
             n, c = _ce_chunk(*args)
         nll, cnt = nll + n, cnt + c
-    return nll / cnt.clamp_min(1)
+    return nll / (cnt.clamp_min(1) if count_fn is None else count_fn(cnt))
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
-                       ignore_index: int = -100) -> torch.Tensor:
-    """Token-mean CE in fp32 (transformer.py:1095)."""
+                       ignore_index: int = -100,
+                       count_fn: Optional[Callable] = None) -> torch.Tensor:
+    """Token-mean CE in fp32 (transformer.py:1095); ``count_fn`` as in
+    :func:`chunked_cross_entropy`."""
     logits = logits.float()
     mask = targets != ignore_index
     safe = torch.where(mask, targets, torch.zeros_like(targets)).long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, safe[..., None])[..., 0]
-    return ((logz - gold) * mask).sum() / mask.sum().clamp_min(1)
+    cnt = mask.sum()
+    return ((logz - gold) * mask).sum() / (
+        cnt.clamp_min(1) if count_fn is None else count_fn(cnt))
 
 
 # ---------------------------------------------------------------------------
@@ -1058,3 +1089,102 @@ def forward_with_cache(cfg: DecoderConfig, params: Params,
     if cfg.has_final_norm:
         x = _norm(cfg, params["final_norm"], x)
     return lm_logits(cfg, params, x)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# Partition specs — the ZeRO-3 (FSDP) sharding planner
+# ---------------------------------------------------------------------------
+
+def partition_specs(cfg: DecoderConfig, zero_stage: int = 0,
+                    tp: bool = False, mics: bool = False) -> Params:
+    """The spec tree matching :func:`init_params` (transformer.py:1208):
+    each leaf a tuple with one entry per dim — None, an axis name, or a
+    tuple of axis names. Stage 3 puts the FSDP axes ('data',
+    'data_inner', 'expert') on one dim of each weight
+    (partition_parameters.py's ds_tensor shards); expert weights take
+    ('data', 'data_inner') beside their 'expert' dim. Stages 0-2 leave
+    the params replicated. ``tp`` (AutoTP's row/column specs over
+    'model') and ``mics`` (shards within the MiCS sub-group) are not
+    ported."""
+    if tp or mics:
+        raise NotImplementedError(
+            f"partition_specs(tp={tp}, mics={mics}): tensor parallelism "
+            f"and MiCS are not ported to deepspeed_tpu_torch yet (ROADMAP "
+            f"A, 'Parallelism breadth')")
+    fsdp = ("data", "data_inner", "expert") if zero_stage >= 3 else None
+    efsdp = ("data", "data_inner") if zero_stage >= 3 else None
+    model = None
+
+    def spec(*axes):
+        return tuple(axes)
+
+    attn = {"wq": spec(None, fsdp, model), "wk": spec(None, fsdp, model),
+            "wv": spec(None, fsdp, model), "wo": spec(None, model, fsdp)}
+    if cfg.qkv_bias:
+        attn.update(bq=spec(None, model), bk=spec(None, model),
+                    bv=spec(None, model))
+    if cfg.out_bias:
+        attn["bo"] = spec(None, None)
+    layers: Params = {"attn": attn, "ln1": {"scale": spec(None, None)}}
+    if cfg.has_ln2:
+        layers["ln2"] = {"scale": spec(None, None)}
+    if cfg.ln_bias:
+        layers["ln1"]["bias"] = spec(None, None)
+        if cfg.has_ln2:
+            layers["ln2"]["bias"] = spec(None, None)
+    if cfg.num_experts:
+        layers["moe"] = {
+            "router": spec(None, fsdp, None),
+            "wg": spec(None, "expert", efsdp, model),
+            "wi": spec(None, "expert", efsdp, model),
+            "wo": spec(None, "expert", model, efsdp),
+        }
+        if cfg.shared_expert_size:
+            shared = {"wg": spec(None, fsdp, model),
+                      "wi": spec(None, fsdp, model),
+                      "wo": spec(None, model, fsdp)}
+            if cfg.shared_expert_gate:
+                shared["gate"] = spec(None, fsdp, None)
+            layers["moe"]["shared"] = shared
+        if cfg.moe_residual:
+            residual = {"wi": spec(None, fsdp, model),
+                        "wo": spec(None, model, fsdp)}
+            if cfg.is_glu:
+                residual["wg"] = spec(None, fsdp, model)
+            elif cfg.use_bias:
+                residual.update(bi=spec(None, model), bo=spec(None, None))
+            layers["moe"]["residual"] = residual
+            layers["moe"]["coef"] = spec(None, fsdp, None)
+            layers["moe"]["coef_b"] = spec(None, None)
+    else:
+        mlp = {"wi": spec(None, fsdp, model), "wo": spec(None, model, fsdp)}
+        if cfg.is_glu:
+            mlp["wg"] = spec(None, fsdp, model)
+        elif cfg.use_bias:
+            mlp.update(bi=spec(None, model), bo=spec(None, None))
+        layers["mlp"] = mlp
+    specs: Params = {"embed": {"tokens": spec(model, fsdp)},
+                     "layers": layers}
+    if cfg.has_final_norm:
+        specs["final_norm"] = {"scale": spec(None)}
+        if cfg.ln_bias:
+            specs["final_norm"]["bias"] = spec(None)
+    if cfg.type_vocab_size:
+        specs["embed"]["token_type"] = spec(None, fsdp)
+    if cfg.mlm_head:
+        mh = {"dense": spec(fsdp, None), "dense_bias": spec(None),
+              "ln": {"scale": spec(None)}, "vocab_bias": spec(model)}
+        if cfg.ln_bias:
+            mh["ln"]["bias"] = spec(None)
+        specs["mlm_head"] = mh
+    if cfg.embed_norm:
+        specs["embed_norm"] = {"scale": spec(None)}
+        if cfg.ln_bias:
+            specs["embed_norm"]["bias"] = spec(None)
+    if cfg.pos_emb == "learned":
+        specs["embed"]["pos"] = spec(None, fsdp)
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = spec(fsdp, model)
+        if cfg.lm_head_bias:
+            specs["lm_head_bias"] = spec(model)
+    return specs

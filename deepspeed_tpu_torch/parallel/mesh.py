@@ -1,0 +1,204 @@
+"""Device mesh of the port.
+
+Port of ``deepspeed_tpu/parallel/mesh.py`` (``MESH_AXES`` :31,
+``ZERO_AXES`` :36, ``build_mesh`` :90, ``mesh_from_config`` :167, the
+accessors :180-231). The JAX mesh names the parallelism dimensions of
+one SPMD program over devices; here a :class:`Mesh` names the same axes
+over the ranks of ``torch.distributed`` and resolves an axis name (or a
+tuple of them) to the process group that carries it — what the
+collective facade (:mod:`deepspeed_tpu_torch.comm`) and the ZeRO plan
+(:mod:`deepspeed_tpu_torch.runtime.zero.sharding`) consume. It keeps
+``mesh.shape[axis]``.
+
+This slice runs data parallelism only: every rank is one position of
+the ``data`` axis, whose group is the world group. Any other axis above
+1 — ``model`` (tensor), ``seq`` (sequence), ``pipe``, ``expert``, or
+``data_inner`` (MiCS / hpZ) — and a multi-slice ``dcn`` layout raise
+``NotImplementedError`` (ROADMAP A, 'Parallelism breadth').
+"""
+
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+from deepspeed_tpu_torch.utils.logging import log_dist
+
+#: canonical axis order, outermost first (mesh.py:31)
+MESH_AXES: Tuple[str, ...] = ("pipe", "data", "data_inner", "expert",
+                              "seq", "model")
+
+#: ZeRO shards over the full data-parallel product (mesh.py:36)
+ZERO_AXES: Tuple[str, ...] = ("data", "data_inner", "expert")
+
+_BREADTH = "(ROADMAP A, 'Parallelism breadth')"
+
+_CURRENT_MESH: Optional["Mesh"] = None
+
+
+def _dist():
+    import torch.distributed as dist
+    return dist if dist.is_available() and dist.is_initialized() else None
+
+
+class Mesh:
+    """The named axes over the ranks, and the process group of each.
+
+    ``shape``: axis → size over :data:`MESH_AXES` (absent axes are 1).
+    ``group``: the process group of the ``data`` axis (the world group),
+    or None in a process without ``torch.distributed``, where every
+    collective of a size-1 axis is the identity."""
+
+    axis_names = MESH_AXES
+
+    def __init__(self, shape: Dict[str, int], group=None):
+        unknown = set(shape) - set(MESH_AXES)
+        if unknown:
+            raise ValueError(f"unknown mesh axes {sorted(unknown)}; the "
+                             f"axes are {MESH_AXES}")
+        self.shape = {ax: int(shape.get(ax, 1)) for ax in MESH_AXES}
+        self.size = 1
+        for v in self.shape.values():
+            self.size *= v
+        self._group = group
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape})"
+
+    def axes_size(self, axes: Union[str, Sequence[str]]) -> int:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        n = 1
+        for a in axes:
+            if a not in self.shape:
+                raise ValueError(f"unknown mesh axis {a!r}")
+            n *= self.shape[a]
+        return n
+
+    def group(self, axes: Union[str, Sequence[str]]):
+        """The process group of ``axes`` (an axis name or a tuple): the
+        data group when ``data`` is among them, else None (a product of
+        size-1 axes, whose collectives are the identity)."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        self.axes_size(axes)
+        return self._group if "data" in axes else None
+
+    @property
+    def distributed(self) -> bool:
+        """True when the data axis is carried by a real process group
+        (at any size, one included)."""
+        return self._group is not None
+
+
+def build_mesh(data: Optional[int] = None,
+               model: int = 1,
+               pipe: int = 1,
+               seq: int = 1,
+               expert: int = 1,
+               data_inner: int = 1,
+               devices: Optional[Sequence[int]] = None,
+               dcn: Optional[Dict[str, int]] = None,
+               slice_ids: Optional[Sequence[int]] = None,
+               set_current: bool = True) -> Mesh:
+    """The framework mesh over the ranks (mesh.py:90). ``data=None``
+    infers the data-parallel degree from the rank count; ``devices`` are
+    the ranks it spans (default: all of them). The axes' product must be
+    the rank count (``ValueError``)."""
+    d = _dist()
+    world = d.get_world_size() if d is not None else 1
+    if devices is not None and list(devices) != list(range(world)):
+        raise NotImplementedError(
+            f"a mesh over the ranks {list(devices)} of a world of {world}: "
+            f"meshes over a subset of the ranks are not ported to "
+            f"deepspeed_tpu_torch yet {_BREADTH}")
+    n = world
+    fixed = model * pipe * seq * expert * data_inner
+    if data is None:
+        if n % fixed:
+            raise ValueError(
+                f"device count {n} not divisible by "
+                f"model×pipe×seq×expert×data_inner={fixed}")
+        data = n // fixed
+    total = data * fixed
+    if total != n:
+        raise ValueError(
+            f"mesh axes product {total} != device count {n} "
+            f"(pipe={pipe} data={data} data_inner={data_inner} "
+            f"expert={expert} seq={seq} model={model})")
+    if dcn and any(v > 1 for v in dcn.values()) or slice_ids is not None \
+            and len(set(slice_ids)) > 1:
+        raise NotImplementedError(
+            f"multi-slice meshes (dcn={dcn}) are not ported to "
+            f"deepspeed_tpu_torch yet {_BREADTH}")
+    others = {"model": model, "pipe": pipe, "seq": seq, "expert": expert,
+              "data_inner": data_inner}
+    big = {k: v for k, v in others.items() if v > 1}
+    if big:
+        raise NotImplementedError(
+            f"mesh axes {big}: deepspeed_tpu_torch runs data parallelism "
+            f"only; tensor, sequence, pipeline and expert parallelism and "
+            f"MiCS sub-groups are not ported yet {_BREADTH}")
+    mesh = Mesh({"pipe": pipe, "data": data, "data_inner": data_inner,
+                 "expert": expert, "seq": seq, "model": model},
+                group=d.group.WORLD if d is not None else None)
+    if set_current:
+        set_mesh(mesh)
+    log_dist(f"built mesh: data={data} over "
+             f"{'torch.distributed' if d is not None else 'one process'}")
+    return mesh
+
+
+def mesh_from_config(config, devices=None) -> Mesh:
+    """A mesh from a config's topology knobs (mesh.py:167). The port's
+    config holds no tensor, pipeline or sequence section (they raise
+    there); the expert axis comes from an enabled ``moe`` section."""
+    return build_mesh(
+        expert=config.moe.ep_size if config.moe.enabled else 1,
+        devices=devices)
+
+
+def set_mesh(mesh: Optional[Mesh]) -> None:
+    global _CURRENT_MESH
+    _CURRENT_MESH = mesh
+
+
+def get_mesh() -> Mesh:
+    if _CURRENT_MESH is None:
+        raise RuntimeError("no mesh set; call build_mesh() or "
+                           "deepspeed_tpu_torch.initialize() first")
+    return _CURRENT_MESH
+
+
+def has_mesh() -> bool:
+    return _CURRENT_MESH is not None
+
+
+def _axis_size(mesh: Optional[Mesh], axis: str) -> int:
+    return (mesh or get_mesh()).shape[axis]
+
+
+def get_data_parallel_world_size(mesh: Optional[Mesh] = None) -> int:
+    """DP degree = data × data_inner × expert (mesh.py:195)."""
+    mesh = mesh or get_mesh()
+    return mesh.axes_size(ZERO_AXES)
+
+
+def get_model_parallel_world_size(mesh: Optional[Mesh] = None) -> int:
+    return _axis_size(mesh, "model")
+
+
+def get_pipe_parallel_world_size(mesh: Optional[Mesh] = None) -> int:
+    return _axis_size(mesh, "pipe")
+
+
+def get_sequence_parallel_world_size(mesh: Optional[Mesh] = None) -> int:
+    return _axis_size(mesh, "seq")
+
+
+def get_expert_parallel_world_size(mesh: Optional[Mesh] = None) -> int:
+    return _axis_size(mesh, "expert")
+
+
+def get_world_size() -> int:
+    """Ranks in the active mesh, else in ``torch.distributed`` (1 without
+    it)."""
+    if _CURRENT_MESH is not None:
+        return _CURRENT_MESH.size
+    d = _dist()
+    return d.get_world_size() if d is not None else 1

@@ -207,11 +207,16 @@ def _dropless_ffn(p, xf: torch.Tensor, topv: torch.Tensor,
 
 
 def dropless_moe_layer(cfg, p, x: torch.Tensor, top_k: int = 2,
-                       aux_loss_coef: float = 0.01, norm_topk: bool = True
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dropless MoE (moe.py:253, one device): the routing chain runs
-    transposed ([E, S] gates, [k, S] choices) as in JAX, then
-    :func:`_dropless_ffn`. x [B, T, d] → (out [B, T, d], scaled aux)."""
+                       aux_loss_coef: float = 0.01, norm_topk: bool = True,
+                       dp_axis=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dropless MoE (moe.py:253): the routing chain runs transposed ([E,
+    S] gates, [k, S] choices) as in JAX, then :func:`_dropless_ffn`. x
+    [B, T, d] → (out [B, T, d], scaled aux). ``dp_axis``: the ranks hold
+    equal blocks of the global batch, and the aux loss
+    ``E · Σ mean(gates) · mean(mask)`` is over every token (moe.py:303):
+    the top-1 mask's means are averaged over the axis (they carry no
+    gradient), so the ranks' mean of this rank's term is the global one,
+    with its gradient."""
     _no_health_taps(cfg)
     _float_experts(p)
     b, t, d = x.shape
@@ -224,7 +229,11 @@ def dropless_moe_layer(cfg, p, x: torch.Tensor, top_k: int = 2,
         topv = topv / topv.sum(0, keepdim=True).clamp_min(1e-9)
     mask1_t = (torch.arange(e, device=x.device)[:, None]
                == topi[0][None, :]).float()
-    aux = torch.sum(gates_t.mean(dim=1) * mask1_t.mean(dim=1)) * e
+    mask_mean = mask1_t.mean(dim=1)
+    if dp_axis is not None:
+        from deepspeed_tpu_torch.comm import comm
+        mask_mean = comm.all_reduce(mask_mean, dp_axis, "mean")
+    aux = torch.sum(gates_t.mean(dim=1) * mask_mean) * e
     out = _dropless_ffn(p, xf, topv, topi)
     return out.reshape(b, t, d), aux * aux_loss_coef
 

@@ -1,10 +1,12 @@
 """Dataloader for the training engine.
 
 Port of what ``deepspeed_tpu/runtime/dataloader.py`` gives the engine's
-``_build_dataloader`` (engine.py:1062) on one process: a map-style
-dataset (indexable, ``len()``) served as micro-batches in an order
-shuffled by ``(seed, epoch)`` — the same order as the JAX loader's, with
-the last partial batch dropped — and a :class:`RepeatingLoader` that
+``_build_dataloader`` (engine.py:1062): a map-style dataset (indexable,
+``len()``) served as global micro-batches of ``micro_batch_size ×
+dp_world_size`` items in an order shuffled by ``(seed, epoch)`` — the
+same order as the JAX loader's, with the last partial batch dropped —
+of which a rank takes its contiguous block of ``micro_batch_size`` items
+(``_local_slice``, dataloader.py:98), and a :class:`RepeatingLoader` that
 starts the next epoch when one runs out, and the resume cursor the
 engine checkpoints (``state_dict``/``load_state_dict``). Batches are
 dicts of numpy arrays; the engine moves them to its device. A
@@ -20,13 +22,18 @@ import numpy as np
 
 
 class DeepSpeedDataLoader:
-    """Port of ``DeepSpeedTPUDataLoader`` for one process. Items may be
-    dicts of arrays or tuples (input_ids, labels)."""
+    """Port of ``DeepSpeedTPUDataLoader``: rank ``dp_rank`` of
+    ``dp_world_size`` (every rank builds it with the same seed). Items
+    may be dicts of arrays or tuples (input_ids, labels)."""
 
     def __init__(self, dataset, micro_batch_size: int, seed: int = 0,
-                 data_sampler=None):
+                 data_sampler=None, dp_world_size: int = 1,
+                 dp_rank: int = 0):
         self.dataset = dataset
         self.micro_batch_size = micro_batch_size
+        self.dp_world_size = int(dp_world_size)
+        self.dp_rank = int(dp_rank)
+        self.global_batch = micro_batch_size * self.dp_world_size
         self.seed = seed
         self.data_sampler = data_sampler
         self.epoch = 0
@@ -35,13 +42,13 @@ class DeepSpeedDataLoader:
         #: deterministic in (seed, epoch), so position is the whole
         #: dataloader state); ``set_epoch`` rewinds it to 0.
         self._cursor = 0
-        if len(dataset) < micro_batch_size:
+        if len(dataset) < self.global_batch:
             raise ValueError(
-                f"dataset of {len(dataset)} items smaller than one "
-                f"microbatch ({micro_batch_size})")
+                f"dataset of {len(dataset)} items smaller than one global "
+                f"microbatch ({self.global_batch})")
 
     def __len__(self) -> int:
-        return len(self.dataset) // self.micro_batch_size
+        return len(self.dataset) // self.global_batch
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -78,11 +85,12 @@ class DeepSpeedDataLoader:
     def _epoch_iter(self) -> Iterator[Dict[str, np.ndarray]]:
         order = np.arange(len(self.dataset))
         np.random.default_rng(self.seed + self.epoch).shuffle(order)
-        mb = self.micro_batch_size
-        for start in range(self._cursor * mb, len(self) * mb, mb):
+        gb, mb = self.global_batch, self.micro_batch_size
+        for start in range(self._cursor * gb, len(self) * gb, gb):
             self._cursor += 1
+            mine = start + self.dp_rank * mb
             yield _default_collate([self.dataset[int(i)]
-                                    for i in order[start:start + mb]])
+                                    for i in order[mine:mine + mb]])
 
 
 def _default_collate(items: Sequence[Any]) -> Dict[str, np.ndarray]:

@@ -44,13 +44,36 @@ store (``runtime/zero/param_stream.py``; ``engine.params`` is None).
 Checkpoints of an offload engine add ``host_optimizer.npz``, as the JAX
 engine's do, and load across the packages and across modes.
 
-This slice trains on one device: ZeRO stages 1-3 train as stage 0 (one
-partition holds the whole tree). The ``telemetry`` block arms the span
-and request tracers (:func:`deepspeed_tpu_torch.telemetry.configure`).
-Data parallelism, ZenFlow, ZeRO++, 1-bit optimizers, pipeline
-parallelism, the training step's telemetry spans and flight records and
-the watchdog are not ported: their config keys raise in
-:class:`DeepSpeedConfig` and the engine has no such paths.
+Data parallelism (engine.py:127-132, :1019-1040): the engine runs over a
+:class:`~deepspeed_tpu_torch.parallel.mesh.Mesh` — the one given, the
+current one, else one from the config — whose ``data`` axis is the
+``torch.distributed`` world. A user's batch is the global batch, the
+same on every rank, and each rank takes its rows; the engine's own
+dataloader yields this rank's rows only. A rank's loss is its share of
+the global one (the decoder's cross-entropy divides by the all-reduced
+count of valid labels, the MoE aux loss by all-reduced means), the
+gradients are summed over the ranks and averaged. The ZeRO stages follow
+:mod:`deepspeed_tpu_torch.runtime.zero.sharding`'s plan: stage 0
+all-reduces the gradients in buckets of ``reduce_bucket_size``; stage 1
+keeps the optimizer state and the fp32 master for this rank's shard of
+each leaf and all-gathers the updated shards (``allgather_bucket_size``);
+stage 2 reduce-scatters the gradients instead; stage 3 keeps the params
+as shards, gathered for use — the decoder's layers through the chunked
+loop of ``runtime/zero/overlap.py``, every other leaf as a whole. The
+gradient norm is taken over the shards with whole leaves counted once,
+and the fp16 overflow flag is all-reduced, so every rank skips the same
+step. Checkpoints are written per rank, each rank its shards as
+``p<rank>f0`` fragments with their ``(start, stop)`` boxes, and load at
+any world size. On one process without ``torch.distributed`` the
+stages train as stage 0 on the whole tree, as the JAX engine on a
+one-device mesh does.
+
+The ``telemetry`` block arms the span and request tracers
+(:func:`deepspeed_tpu_torch.telemetry.configure`), the ``comms_logger``
+block the collective log. Tensor, sequence, pipeline and expert
+parallelism, MiCS, ZeRO++, ZenFlow, offload at dp > 1, 1-bit optimizers,
+the training step's telemetry spans and flight records and the watchdog
+are not ported: their config keys or meshes raise.
 """
 
 import os
@@ -60,12 +83,17 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch import telemetry
+from deepspeed_tpu_torch import comm, telemetry
 from deepspeed_tpu_torch.accelerator.real_accelerator import get_device
+from deepspeed_tpu_torch.comm.comms_logger import comms_logger
 from deepspeed_tpu_torch.config.config import DeepSpeedConfig
 from deepspeed_tpu_torch.models.convert import params_from_jax
 from deepspeed_tpu_torch.ops.optimizers import (build_optimizer, global_norm,
                                                 tree_leaves, tree_map)
+from deepspeed_tpu_torch.parallel.mesh import (Mesh,
+                                               get_data_parallel_world_size,
+                                               get_mesh, has_mesh,
+                                               mesh_from_config, set_mesh)
 from deepspeed_tpu_torch.resilience.faults import (fault_injector,
                                                    record_recovery)
 from deepspeed_tpu_torch.runtime.loss_scaler import (LossScaleState,
@@ -96,38 +124,56 @@ class ModelSpec:
     spec's ``rng`` argument; random token selection reads it). The JAX
     spec's sharding, pipeline and telemetry fields belong to unported
     paths. ``decoder_config`` names the decoder the parameter tier
-    streams (engine.py:90's ``decoder_config``)."""
+    streams (engine.py:90's ``decoder_config``). ``partition_specs``:
+    the stage-3 spec tree (tuples of axis names per dim, as
+    ``models.transformer.partition_specs`` gives them; None: every leaf
+    whole). ``configure_overlap(mesh, abstract_params)``: the stage-3
+    hook that arms ``loss_fn`` with the layer loop's plan and returns it
+    (engine.py:105). ``configure_mesh(mesh)``: arms ``loss_fn`` for the
+    data-parallel reductions of its loss terms."""
     init_fn: Callable[[torch.Generator, torch.device], Params]
     loss_fn: LossFn
     uses_rng: bool = False
     #: the model's DecoderConfig when it is a decoder (the parameter
     #: tier streams its layers), else None
     decoder_config: Any = None
+    partition_specs: Any = None
+    configure_overlap: Optional[Callable[..., Any]] = None
+    configure_mesh: Optional[Callable[..., Any]] = None
 
 
 class DeepSpeedEngine:
-    """Training engine on one device — the port of ``DeepSpeedTPUEngine``
-    (deepspeed_tpu/runtime/engine.py:117). Construct via
-    :func:`initialize`.
+    """Training engine — the port of ``DeepSpeedTPUEngine``
+    (deepspeed_tpu/runtime/engine.py:117), on one device or data parallel
+    over a mesh (module docstring). Construct via :func:`initialize`.
 
     ``params``: a parameter tree (torch tensors or numpy arrays) in the
     JAX layout; None → ``model.init_fn`` from ``generator`` (default:
     ``config.seed`` on the engine's device). Every floating leaf, norm
     scales included, is cast to the compute dtype (engine.py:258-266).
     ``device``: None → CUDA (raises without a card); tests pass "cpu".
+    ``mesh``: a :class:`~deepspeed_tpu_torch.parallel.mesh.Mesh`; None →
+    the current mesh, else one from the config (engine.py:130).
     """
 
     def __init__(self, model: ModelSpec, config: DeepSpeedConfig,
                  params: Optional[Params] = None,
                  device: Optional[Union[str, torch.device]] = None,
                  generator: Optional[torch.Generator] = None,
-                 training_data=None):
+                 training_data=None, mesh: Optional[Mesh] = None):
         self.device = get_device(device)
         self.model = model
         self.config = config
         # enable-only, as the JAX engine's _init_telemetry (engine.py:1127)
         telemetry.configure(config.telemetry)
-        self.dp_world_size = 1
+        comm.init_distributed(device=self.device)
+        comms_logger.configure(config)
+        self.mesh = self._resolve_mesh(mesh)
+        self.dp_world_size = get_data_parallel_world_size(self.mesh)
+        #: collectives run: the data axis is a real process group (at any
+        #: size); else the single-device path
+        self._dist = self.mesh.distributed
+        self.dp_rank = comm.axis_index("data") if self._dist else 0
         config.resolve_batch_sizes(self.dp_world_size)
 
         self.zero_stage = config.zero_optimization.stage
@@ -147,6 +193,7 @@ class DeepSpeedEngine:
         self._host_future = None
         self._last_host_metrics: Optional[Dict[str, Any]] = None
         self._param_stream = None
+        self._check_dp_scope()
 
         self.optimizer, base_lr = build_optimizer(config.optimizer.type,
                                                   config.optimizer.params)
@@ -226,8 +273,188 @@ class DeepSpeedEngine:
         if self.offload_enabled:
             self._init_host_optimizer()
             return
+        self._overlap_plan = None
+        if self._dist:
+            self._init_dp_layout()
+            return
         self._leaves = tree_leaves(self.params)
         self.opt_state = self.optimizer.init(self.params)
+
+    # ----------------------------------------------------- data parallelism
+
+    def _resolve_mesh(self, mesh: Optional[Mesh]) -> Mesh:
+        """engine.py:130: the given mesh, the current one, or one from the
+        config; only its ``data`` axis may exceed 1 here."""
+        if mesh is None:
+            mesh = get_mesh() if has_mesh() else \
+                mesh_from_config(self.config)
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a deepspeed_tpu_torch.parallel."
+                            f"mesh.Mesh (build_mesh), got {type(mesh)}")
+        if mesh.distributed:
+            # the collectives resolve their axis names through it
+            set_mesh(mesh)
+        big = {a: v for a, v in mesh.shape.items()
+               if a != "data" and v > 1}
+        if big:
+            raise NotImplementedError(
+                f"mesh axes {big}: the engine runs data parallelism only; "
+                f"the other axes are not ported to deepspeed_tpu_torch yet "
+                f"(ROADMAP A, 'Parallelism breadth')")
+        return mesh
+
+    def _check_dp_scope(self) -> None:
+        """What data parallelism does not cover yet raises here; the
+        offload tiers run the single-device path at dp 1."""
+        zc = self.config.zero_optimization
+        offload = self.offload_enabled or \
+            zc.offload_param.device.value != "none"
+        if offload and self.dp_world_size > 1:
+            raise NotImplementedError(
+                f"offload at dp={self.dp_world_size}: the host, NVMe and "
+                f"parameter tiers run on one device; at dp > 1 they are "
+                f"not ported to deepspeed_tpu_torch yet (ROADMAP A, "
+                f"'Offload')")
+        if offload:
+            self._dist = False
+        if self.dp_world_size == 1:
+            return
+        if not self._dist:
+            raise ValueError(
+                f"a mesh of data={self.dp_world_size} needs "
+                f"torch.distributed with as many ranks "
+                f"(deepspeed_tpu_torch.comm.init_distributed)")
+        name = str(self.config.optimizer.type).lower()
+        if self.zero_stage >= 1 and name in ("lamb", "muon"):
+            raise NotImplementedError(
+                f"optimizer {name} at ZeRO stage {self.zero_stage} and "
+                f"dp={self.dp_world_size}: its update is not elementwise "
+                f"(layer norms, Newton-Schulz), so it cannot step a shard; "
+                f"not ported to deepspeed_tpu_torch yet (ROADMAP A, "
+                f"'Parallelism breadth'); use stage 0")
+
+    def _init_dp_layout(self) -> None:
+        """The ZeRO plan over the mesh (engine.py:254-290): each leaf's
+        param, gradient and state shard dims; stage 3's params cut to
+        this rank's shards; the optimizer state over the update targets
+        (this rank's block of each leaf where its state is sharded)."""
+        from deepspeed_tpu_torch.runtime.zero.sharding import (
+            ZeroShardingPlan, shard_dim, shard_of)
+        stage, n, r = self.zero_stage, self.dp_world_size, self.dp_rank
+        self.plan = ZeroShardingPlan(self.mesh, stage,
+                                     self.model.partition_specs, self.params)
+
+        def dims(specs, on):
+            return tree_leaves(tree_map(
+                lambda p, sp: shard_dim(sp) if on else None, self.params,
+                specs))
+
+        full = tree_leaves(self.params)
+        self._full_shapes = [tuple(x.shape) for x in full]
+        self._pdim = dims(self.plan.param_specs, stage >= 3)
+        self._sdim = dims(self.plan.state_specs, stage >= 1)
+        self._gdim = dims(self.plan.grad_specs, stage >= 2)
+        for i, (shape, d) in enumerate(zip(self._full_shapes, self._pdim)):
+            if d is not None and shape[d] % n:
+                raise ValueError(
+                    f"stage-3 leaf {i} of shape {shape}: dim {d} does not "
+                    f"divide by dp={n}")
+        if self.model.configure_overlap is not None and stage >= 3:
+            abstract = tree_map(lambda x: torch.empty(
+                x.shape, dtype=x.dtype, device="meta"), self.params)
+            self._overlap_plan = self.model.configure_overlap(self.mesh,
+                                                              abstract)
+            if self._overlap_plan is not None:
+                self._overlap_plan.publish_static_gauges()
+        if self.model.configure_mesh is not None:
+            self.model.configure_mesh(self.mesh)
+        it = iter(range(len(full)))
+
+        def cut(x):
+            d = self._pdim[next(it)]
+            if d is None:
+                return x
+            return shard_of(x.detach(), d, r, n).clone().requires_grad_(
+                x.is_floating_point())
+        self.params = tree_map(cut, self.params)
+        self._leaves = tree_leaves(self.params)
+        targets = [x if p is not None or s is None else
+                   shard_of(x.detach(), s, r, n)
+                   for x, p, s in zip(self._leaves, self._pdim, self._sdim)]
+        self._targets = targets
+        self._targets_tree = _unflatten_like(self.params, targets)
+        self.opt_state = self.optimizer.init(self._targets_tree)
+        log_dist(f"data parallel: dp={n} stage={stage}; "
+                 f"{sum(d is not None for d in self._pdim)} leaves sharded "
+                 f"as params, {sum(d is not None for d in self._sdim)} as "
+                 f"state, {sum(d is not None for d in self._gdim)} as grads"
+                 + (f"; {self._overlap_plan.describe()}"
+                    if self._overlap_plan is not None else ""))
+
+    def _sharded(self, i: int) -> bool:
+        """Whether leaf i's reduced gradient is this rank's shard."""
+        return self._pdim[i] is not None or self._gdim[i] is not None
+
+    def _reduce_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Sum gradients over the ranks: stage-3 shards arrive reduced
+        (the gather's backward reduce-scattered them); leaves with a
+        gradient shard dim are reduce-scattered to it, the rest
+        all-reduced in place — each in buckets of ``reduce_bucket_size``
+        elements."""
+        from deepspeed_tpu_torch.runtime.zero.sharding import (
+            all_reduce_bucketed, reduce_scatter_bucketed)
+        bucket = int(self.config.zero_optimization.reduce_bucket_size)
+        out = list(grads)
+        rs = [i for i in range(len(out)) if self._pdim[i] is None
+              and self._gdim[i] is not None]
+        ar = [i for i in range(len(out)) if self._pdim[i] is None
+              and self._gdim[i] is None]
+        if rs:
+            for i, g in zip(rs, reduce_scatter_bucketed(
+                    [out[i] for i in rs], [self._gdim[i] for i in rs],
+                    "data", self.dp_world_size, bucket)):
+                out[i] = g
+        if ar:
+            all_reduce_bucketed([out[i] for i in ar], "data", bucket)
+        return out
+
+    def _params_for_loss(self) -> Params:
+        """The tree ``loss_fn`` sees: at stage 3 each sharded leaf gathered
+        for use, the decoder's layers left as shards for the layer loop."""
+        if not self._dist or not any(d is not None for d in self._pdim):
+            return self.params
+        from deepspeed_tpu_torch.runtime.zero.sharding import GatherLeaf
+        it = iter(self._pdim)
+        loop = self._overlap_plan is not None
+
+        def view(path, x):
+            d = next(it)
+            if d is None or (loop and path[0] == "layers"):
+                return x
+            return GatherLeaf.apply(x, d, "data", self.dp_world_size)
+        return _map_path(view, self.params)
+
+    def _gather_updated(self) -> None:
+        """Stages 1-2 (and stage 3's whole leaves with sharded state):
+        all-gather the updated shards into the params."""
+        from deepspeed_tpu_torch.runtime.zero.sharding import \
+            all_gather_bucketed
+        idx = [i for i in range(len(self._leaves))
+               if self._pdim[i] is None and self._sdim[i] is not None]
+        if not idx:
+            return
+        full = all_gather_bucketed(
+            [self._targets[i] for i in idx], [self._sdim[i] for i in idx],
+            "data", self.dp_world_size,
+            int(self.config.zero_optimization.allgather_bucket_size))
+        for i, f in zip(idx, full):
+            self._leaves[i].copy_(f)
+
+    def _dp_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean over the ranks of a per-rank scalar (the global loss
+        of per-rank shares)."""
+        return comm.all_reduce(x.detach(), "data", "mean") if self._dist \
+            else x
 
     def _init_host_optimizer(self) -> None:
         """engine.py:298-346 and :504-516: ZeRO-Offload's optimizer in
@@ -341,18 +568,38 @@ class DeepSpeedEngine:
             sampler = DeepSpeedDataSampler(
                 metric, batch_size=micro * self.dp_world_size,
                 curriculum=self.curriculum_scheduler, seed=de.seed,
+                dp_rank=self.dp_rank, dp_world=self.dp_world_size,
                 micro_steps_per_global_step=int(
                     self.config.gradient_accumulation_steps))
             self.data_sampler = sampler
         return DeepSpeedDataLoader(training_data, micro_batch_size=micro,
                                    seed=self.config.seed,
-                                   data_sampler=sampler)
+                                   data_sampler=sampler,
+                                   dp_world_size=self.dp_world_size,
+                                   dp_rank=self.dp_rank)
 
     # ------------------------------------------------------------ the step
 
-    def _place_batch(self, batch: Batch) -> Batch:
-        return {k: torch.as_tensor(np.asarray(v) if not isinstance(
-            v, torch.Tensor) else v).to(self.device) for k, v in batch.items()}
+    def _place_batch(self, batch: Batch, local: bool = False) -> Batch:
+        """The batch on the engine's device. At dp > 1 a user's batch is
+        the global one and this rank takes its contiguous block of rows
+        (engine.py:1019-1040: rank r holds rows [r·B/dp, (r+1)·B/dp));
+        the engine's own loader (``local``) already yields them."""
+        n, r = self.dp_world_size, self.dp_rank
+
+        def put(v):
+            t = torch.as_tensor(np.asarray(v) if not isinstance(
+                v, torch.Tensor) else v)
+            if n > 1 and not local and t.dim() > 0:
+                if t.shape[0] % n:
+                    raise ValueError(
+                        f"batch leaf of {t.shape[0]} rows does not divide "
+                        f"over dp={n} ranks (a user batch is the global "
+                        f"micro-batch)")
+                b = t.shape[0] // n
+                t = t[r * b:(r + 1) * b]
+            return t.to(self.device)
+        return {k: put(v) for k, v in batch.items()}
 
     def _next_seed(self) -> int:
         """One draw of the step stream (the JAX engine's ``_rng`` split)."""
@@ -360,10 +607,11 @@ class DeepSpeedEngine:
 
     def _loss(self, batch: Batch, seed: Optional[int] = None):
         """loss_fn's (loss, metrics); a bare loss gets empty metrics."""
+        params = self._params_for_loss()
         if self.model.uses_rng:
-            out = self.model.loss_fn(self.params, batch, rng=seed)
+            out = self.model.loss_fn(params, batch, rng=seed)
         else:
-            out = self.model.loss_fn(self.params, batch)
+            out = self.model.loss_fn(params, batch)
         return out if isinstance(out, tuple) else (out, {})
 
     def _compute_loss_and_grads(self, batch: Batch,
@@ -379,7 +627,12 @@ class DeepSpeedEngine:
         return loss.detach(), metrics, list(grads)
 
     def _accumulate(self, grads: List[torch.Tensor]) -> None:
-        """Fold one micro-batch's grads into the fp32 accumulators."""
+        """Fold one micro-batch's grads into the fp32 accumulators; from
+        stage 2 on (data parallel) each micro-batch's gradients are
+        reduced to the shards first, as the JAX accumulator carries the
+        grad shardings (engine.py:479)."""
+        if self._dist and self.zero_stage >= 2:
+            grads = self._reduce_grads(grads)
         if self._acc_grads is None:
             self._acc_grads = [g.float() for g in grads]
         else:
@@ -413,15 +666,23 @@ class DeepSpeedEngine:
         forward ``aux_loss`` joins the metrics (:423)."""
         cfg = self.config
         grads, self._acc_grads = self._acc_grads, None
+        if self._dist and self.zero_stage < 2:
+            grads = self._reduce_grads(grads)
         if self._debug_nan_check:
             self._raise_if_nonfinite(grads)
         scaler = self.loss_scale_state
-        inv = 1.0 / (scaler.scale * gas)
+        # data parallel: the ranks' gradients were summed; their mean is
+        # the global batch's gradient
+        inv = 1.0 / (scaler.scale * gas * self.dp_world_size)
         for g in grads:
             g.mul_(inv)
         overflow = check_overflow(grads) if self.fp16_enabled else \
             torch.zeros((), dtype=torch.bool, device=self.device)
-        grad_norm = global_norm(grads)
+        if self._dist and self.fp16_enabled:
+            # every rank skips the same step
+            overflow = comm.all_reduce(overflow.to(torch.int32), "data",
+                                       "max").bool()
+        grad_norm = self._global_norm(grads)
         if cfg.gradient_clipping > 0:
             clip = torch.clamp(cfg.gradient_clipping / (grad_norm + 1e-6),
                                max=1.0)
@@ -429,7 +690,15 @@ class DeepSpeedEngine:
                 g.mul_(clip)
         lr = self.lr_schedule(self.global_steps)
         skip = self.fp16_enabled and bool(overflow)
-        if not skip:
+        if not skip and self._dist:
+            from deepspeed_tpu_torch.runtime.zero.sharding import shard_of
+            upd = [g if self._sharded(i) else
+                   shard_of(g, self._sdim[i], self.dp_rank,
+                            self.dp_world_size)
+                   for i, g in enumerate(grads)]
+            self.optimizer.update(upd, self.opt_state, self._targets, lr)
+            self._gather_updated()
+        elif not skip:
             self.optimizer.update(grads, self.opt_state, self._leaves, lr)
         else:
             self.skipped_steps += 1
@@ -447,6 +716,20 @@ class DeepSpeedEngine:
             metrics["aux_loss"] = fwd_metrics["aux_loss"]
         return metrics
 
+    def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The global gradient norm; data parallel: the squares of the
+        shards all-reduced, whole leaves (equal on every rank) counted
+        once."""
+        if not self._dist:
+            return global_norm(grads)
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        sh = sum((torch.sum(torch.square(g.float()))
+                  for i, g in enumerate(grads) if self._sharded(i)), zero)
+        rep = sum((torch.sum(torch.square(g.float()))
+                   for i, g in enumerate(grads) if not self._sharded(i)),
+                  zero)
+        return torch.sqrt(comm.all_reduce(sh, "data") + rep)
+
     def _raise_if_nonfinite(self, grads: List[torch.Tensor]) -> None:
         """``check_nan_inf`` True/"debug": one sync a step; the step's
         losses (``self._step_losses``) or gradients not all finite raise
@@ -455,6 +738,8 @@ class DeepSpeedEngine:
         losses = [torch.stack(self._step_losses)] if self._step_losses \
             else []
         bad = check_overflow(list(grads) + losses)
+        if self._dist:
+            bad = comm.all_reduce(bad.to(torch.int32), "data", "max")
         if bool(bad):
             self._acc_grads = None
             raise FloatingPointError(
@@ -475,9 +760,34 @@ class DeepSpeedEngine:
                 self.global_steps, path, what="params")
 
     def _check_batch_consistency(self, micros, local: bool = False) -> None:
-        """Cross-process dataloader consistency (engine.py:865): with one
-        process there is nothing to compare (:875-876)."""
-        return None
+        """Cross-process dataloader consistency (engine.py:865): every
+        rank must feed the same global batch (a user's batches are
+        hashed), or its own loader's rows of the same step (their shapes,
+        the loader's seed and epoch and the sampler's position are
+        hashed). One process: nothing to compare (:875-876)."""
+        if not self._dist or self.dp_world_size == 1:
+            return
+        import hashlib
+        h = hashlib.sha256()
+        for mb in micros:
+            for k in sorted(mb):
+                t = mb[k].detach().cpu().contiguous()
+                if local and t.dim():
+                    h.update(repr((k, tuple(t.shape), str(t.dtype))).encode())
+                else:
+                    h.update(t.numpy().tobytes())
+        if self.training_dataloader is not None:
+            h.update(repr((self.training_dataloader.seed,
+                           self.training_dataloader.epoch)).encode())
+        if self.data_sampler is not None:
+            h.update(repr(self.data_sampler.state_dict()).encode())
+        import torch.distributed as dist
+        got = [None] * self.dp_world_size
+        dist.all_gather_object(got, h.hexdigest())
+        if len(set(got)) != 1:
+            raise RuntimeError(
+                "sanity check failed: dataloader batches differ across "
+                "ranks (every rank must feed the same global batch)")
 
     def _finish_step(self, metrics: Dict[str, Any]) -> None:
         self.global_steps += 1
@@ -501,7 +811,7 @@ class DeepSpeedEngine:
             self._place_batch(batch), self._next_seed())
         self._pending_grads = grads
         self._pending_loss = loss.detach()
-        return loss
+        return self._dp_mean(loss)
 
     def backward(self, loss: torch.Tensor) -> torch.Tensor:
         """Fold the pending gradients into the accumulators (:697)."""
@@ -542,7 +852,8 @@ class DeepSpeedEngine:
         # elastic agent commits at its boundary; a nonfinite_grad advisory
         # poisons THIS step (skipped after its batch is consumed)
         chaos = fault_injector.fire("train_step", step=self.global_steps)
-        micros = [self._place_batch(next(it)) for _ in range(gas)]
+        micros = [self._place_batch(next(it), local=data_iter is None)
+                  for _ in range(gas)]
         if self._acc_grads is not None:
             raise RuntimeError("train_batch() called with gradients pending "
                                "from forward()/backward(); call step()")
@@ -568,8 +879,10 @@ class DeepSpeedEngine:
             metrics = self._apply_update(gas, fwd)
         finally:
             self._step_losses = None
-        loss = torch.stack(losses).mean()
+        loss = self._dp_mean(torch.stack(losses).mean())
         metrics["loss"] = loss
+        if "aux_loss" in metrics:
+            metrics["aux_loss"] = self._dp_mean(metrics["aux_loss"])
         self.micro_steps += gas
         self._finish_step(metrics)
         return loss
@@ -615,7 +928,7 @@ class DeepSpeedEngine:
         self._require_states()
         losses = [self._loss(self._place_batch(next(data_iter)),
                              mix_seed(seed, i))[0] for i in range(gas)]
-        return torch.stack(losses).mean()
+        return self._dp_mean(torch.stack(losses).mean())
 
     # -------------------------------------------------------- offload step
 
@@ -818,6 +1131,13 @@ class DeepSpeedEngine:
             else self._param_stream.full_params()
         state = {"params": params, "opt_state": self.opt_state,
                  "loss_scale": self.loss_scale_state}
+        if self._dist:
+            # each rank writes its shards with their boxes; whole leaves
+            # are written by rank 0 alone (store.py:150's replica filter)
+            state["params"] = self._as_shards(params)
+            state["opt_state"] = {k: self._as_shards(v)
+                                  if isinstance(v, dict) else v
+                                  for k, v in self.opt_state.items()}
         meta = {
             "global_steps": self.global_steps,
             "micro_steps": self.micro_steps,
@@ -868,6 +1188,10 @@ class DeepSpeedEngine:
                      "loss_scale": self.loss_scale_state}
         if load_optimizer_states and not self.offload_enabled:
             templates["opt_state"] = self.opt_state
+        if self._dist:
+            # the full leaves are read, and each rank keeps its block
+            templates = {k: self._full_templates(v) if k != "loss_scale"
+                         else v for k, v in templates.items()}
         strict = frozenset(templates) if load_module_strict \
             else frozenset(templates) - {"params"}
         state, meta, tag = load_checkpoint(load_dir, tag, templates,
@@ -882,18 +1206,20 @@ class DeepSpeedEngine:
                 f"engine's (another model or optimizer configuration): "
                 f"{bad[:4]}")
         with torch.no_grad():
-            _copy_into(self.params, state["params"])
+            _copy_into(self.params, state["params"], self.dp_rank)
             if load_optimizer_states and self.offload_enabled:
                 self._load_host_optimizer(load_dir, tag, self.params)
             elif load_optimizer_states:
                 if "opt_state" in state:
                     self.opt_state = _copy_into(self.opt_state,
-                                                state["opt_state"])
+                                                state["opt_state"],
+                                                self.dp_rank)
                 else:
                     log_dist("checkpoint has no opt_state group — "
                              "rebuilding from loaded params (cross-mode "
                              "resume)")
-                    self.opt_state = self.optimizer.init(self.params)
+                    self.opt_state = self.optimizer.init(
+                        self._targets_tree if self._dist else self.params)
             if "loss_scale" in state:
                 self.loss_scale_state = LossScaleState(*(
                     t.to(self.device) for t in state["loss_scale"]))
@@ -903,6 +1229,39 @@ class DeepSpeedEngine:
         self.global_samples = meta.get("global_samples", 0)
         self._restore_resume_state(meta)
         return tag, meta.get("client_state", {})
+
+    def _as_shards(self, tree):
+        """A tree mirroring the params with each leaf that is this rank's
+        block of its full leaf wrapped as a
+        :class:`~deepspeed_tpu_torch.checkpoint.store.ShardedLeaf`."""
+        from deepspeed_tpu_torch.checkpoint.store import ShardedLeaf
+        from deepspeed_tpu_torch.runtime.zero.sharding import box
+        leaves = tree_leaves(tree)
+        out = []
+        for x, full in zip(leaves, self._full_shapes):
+            if isinstance(x, torch.Tensor) and x.dim() and \
+                    tuple(x.shape) != full:
+                d = _cut_dim(tuple(x.shape), full)
+                start, _ = box(full, d, self.dp_rank, self.dp_world_size)
+                out.append(ShardedLeaf(x, full, start))
+            else:
+                out.append(x)
+        return _unflatten_like(tree, out)
+
+    def _full_templates(self, tree):
+        """``tree`` with each shard leaf replaced by a meta tensor of its
+        full leaf's shape (the loader assembles full leaves)."""
+        if isinstance(tree, dict) and tree_leaves(tree) and \
+                len(tree_leaves(tree)) == len(self._full_shapes) and \
+                _mirrors(tree, self.params):
+            out = [torch.empty(full, dtype=x.dtype, device="meta")
+                   if isinstance(x, torch.Tensor) and x.dim()
+                   and tuple(x.shape) != full else x
+                   for x, full in zip(tree_leaves(tree), self._full_shapes)]
+            return _unflatten_like(tree, out)
+        if isinstance(tree, dict):
+            return {k: self._full_templates(v) for k, v in tree.items()}
+        return tree
 
     def _load_host_optimizer(self, load_dir: str, tag: str,
                              params) -> None:
@@ -981,6 +1340,26 @@ class DeepSpeedEngine:
 
     # ------------------------------------------------------------ utilities
 
+    def gathered_params(self) -> Params:
+        """The whole parameter tree: at stage 3 (data parallel) each
+        shard all-gathered along its dim — a collective every rank must
+        call; else ``self.params`` itself."""
+        if not self._dist or not any(d is not None for d in self._pdim):
+            return self.params
+        from deepspeed_tpu_torch.runtime.zero.sharding import \
+            all_gather_bucketed
+        idx = [i for i, d in enumerate(self._pdim) if d is not None]
+        full = list(self._leaves)
+        with torch.no_grad():
+            for i, f in zip(idx, all_gather_bucketed(
+                    [self._leaves[i].detach() for i in idx],
+                    [self._pdim[i] for i in idx], "data",
+                    self.dp_world_size,
+                    int(self.config.zero_optimization.allgather_bucket_size
+                        ))):
+                full[i] = f
+        return _unflatten_like(self.params, full)
+
     def get_lr(self) -> float:
         return float(self.lr_schedule(self.global_steps))
 
@@ -1044,18 +1423,58 @@ def _flags_to_host(flags):
     return tree_map(lambda _: next(host), flags)
 
 
-def _copy_into(dst, src):
+def _copy_into(dst, src, rank: int = 0):
     """Copy a loaded tree into the engine's: tensors in place (the
-    optimizer and ``_leaves`` hold them), Python numbers replaced.
-    Returns ``dst``."""
+    optimizer and ``_leaves`` hold them), Python numbers replaced. A
+    destination that is a shard (one dim ``n`` times smaller) takes
+    block ``rank`` of the loaded full leaf. Returns ``dst``."""
     if isinstance(dst, dict):
         for k in dst:
-            dst[k] = _copy_into(dst[k], src[k])
+            dst[k] = _copy_into(dst[k], src[k], rank)
         return dst
     if isinstance(dst, torch.Tensor):
+        if dst.dim() and tuple(dst.shape) != tuple(src.shape):
+            d = _cut_dim(tuple(dst.shape), tuple(src.shape))
+            src = src.narrow(d, rank * dst.shape[d], dst.shape[d])
         dst.copy_(src)
         return dst
     return src
+
+
+def _cut_dim(shard, full) -> int:
+    """The one dim along which ``shard`` is a block of ``full``."""
+    diff = [i for i, (a, b) in enumerate(zip(shard, full)) if a != b]
+    if len(shard) != len(full) or len(diff) != 1 or full[diff[0]] % \
+            shard[diff[0]]:
+        raise ValueError(f"shape {shard} is not a one-dim block of {full}")
+    return diff[0]
+
+
+def _mirrors(tree, ref) -> bool:
+    """Whether ``tree`` has ``ref``'s dict structure (an optimizer moment
+    tree mirroring the params)."""
+    if isinstance(ref, dict):
+        return isinstance(tree, dict) and list(tree) == list(ref) and all(
+            _mirrors(tree[k], ref[k]) for k in ref)
+    return not isinstance(tree, dict)
+
+
+def _unflatten_like(tree, leaves):
+    """``tree``'s dict structure over ``leaves`` (``tree_leaves`` order)."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(v) for k, v in node.items()}
+        return next(it)
+    return build(tree)
+
+
+def _map_path(fn, tree, path=()):
+    """``tree`` rebuilt with ``fn(key path, leaf)`` at every leaf."""
+    if isinstance(tree, dict):
+        return {k: _map_path(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
 
 
 def _shape_mismatches(dst, src, key: str) -> List[str]:
@@ -1086,18 +1505,15 @@ def initialize(model: Union[ModelSpec, Any] = None,
                mesh=None):
     """engine.py:1677 (reference deepspeed/__init__.py:78). Returns
     (engine, optimizer, dataloader, lr_schedule). ``model``: a
-    :class:`ModelSpec` or a ``DecoderConfig``. ``device``: None → CUDA."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "device meshes are not ported to deepspeed_tpu_torch yet: the "
-            "engine trains on one device (ROADMAP A, 'Data parallel and "
-            "ZeRO-1/2/3')")
+    :class:`ModelSpec` or a ``DecoderConfig``. ``device``: None → CUDA.
+    ``mesh``: a :class:`~deepspeed_tpu_torch.parallel.mesh.Mesh` (None:
+    the current one, else one from the config)."""
     cfg = DeepSpeedConfig.from_any(config if config is not None
                                    else config_params)
     spec = _coerce_model_spec(model, cfg, loss_fn)
     engine = DeepSpeedEngine(spec, cfg, params=params, device=device,
                              generator=generator,
-                             training_data=training_data)
+                             training_data=training_data, mesh=mesh)
     return engine, engine.optimizer, engine.training_dataloader, \
         engine.lr_schedule
 

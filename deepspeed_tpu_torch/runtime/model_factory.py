@@ -4,10 +4,15 @@ Port of ``deepspeed_tpu/runtime/model_factory.py``: compose the
 functional transformer core with the attention implementation selected by
 the config, and the MoE layer selected by its ``moe`` section, and hand
 the engine an init/loss pair. Dense and MoE decoders, ALiBi models and
-masked-LM encoders train on one device, with random token selection,
-Residual-MoE, ``ffn_chunk`` and ``cpu_checkpointing`` folded in as the
-JAX factory folds them; pipeline parallelism, the ZeRO-3 overlap plan,
-expert parallelism and the health taps raise ``NotImplementedError``.
+masked-LM encoders train, with random token selection, Residual-MoE,
+``ffn_chunk`` and ``cpu_checkpointing`` folded in as the JAX factory
+folds them. For data parallelism the spec carries the stage-3
+``partition_specs``, the ``configure_overlap`` hook (model_factory.py:
+489-513) that arms the loss with the stage-3 layer loop, and a
+``configure_mesh`` hook that arms its reductions over the ranks (the
+cross-entropy's count of valid labels, the dropless MoE's routing
+means). Pipeline parallelism, expert parallelism, the capacity MoE at
+dp > 1 and the health taps raise ``NotImplementedError``.
 """
 
 import dataclasses
@@ -16,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.config.config import DeepSpeedConfig
 from deepspeed_tpu_torch.models import transformer
 from deepspeed_tpu_torch.models.transformer import (DecoderConfig,
@@ -150,6 +156,47 @@ def decoder_model_spec(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
             return moe_fn(c, p, x, rts_key=mix_seed(seed, layer))
         mf.per_layer = True
         return mf
+    #: armed by the engine: the stage-3 layer loop's plan, and the data
+    #: axis's size when the ranks' loss terms are reduced over it
+    _ovl = {"plan": None}
+    _dp = {"n": 0}
+
+    def configure_overlap(mesh, abstract_params):
+        """Engine hook (model_factory.py:489): the stage-3 layer loop's
+        plan over the mesh, stored for ``loss_fn``; returns it."""
+        from deepspeed_tpu_torch.runtime.zero.overlap import \
+            build_overlap_plan
+        plan = build_overlap_plan(
+            mesh, specs["layers"], abstract_params["layers"],
+            ds_cfg.zero_optimization, num_experts=dec_cfg.num_experts or 0)
+        _ovl["plan"] = plan
+        log_dist(plan.describe())
+        return plan
+
+    def configure_mesh(mesh):
+        """Engine hook: reduce the loss terms over the ``data`` axis of a
+        distributed mesh (any size), so a rank's loss is its share of
+        the global batch's. The capacity MoE cannot: its slot positions
+        come from a cumsum over the global token order."""
+        if moe_fn is not None and ds_cfg.moe.impl == "capacity" and \
+                mesh.shape["data"] > 1:
+            raise NotImplementedError(
+                "moe.impl='capacity' at dp > 1: its capacity slots are "
+                "claimed in the global token order; not ported to "
+                "deepspeed_tpu_torch yet (ROADMAP A, 'Parallelism "
+                "breadth'); use moe.impl='dropless'")
+        if mesh.distributed:
+            _dp["n"] = mesh.shape["data"]
+
+    def global_count(cnt):
+        """The CE denominator of a rank's share: the valid labels of
+        every rank's rows, over the rank count (the engine averages the
+        ranks' losses)."""
+        tot = comm.all_reduce(cnt.float(), "data")
+        return tot.clamp_min(1) / _dp["n"]
+
+    specs = transformer.partition_specs(dec_cfg,
+                                        ds_cfg.zero_optimization.stage)
     ce_budget = None if ds_cfg.chunked_ce_budget_mb is None \
         else int(ds_cfg.chunked_ce_budget_mb) * 1024 * 1024
     ce_dtype = torch.bfloat16 if ds_cfg.ce_logits_dtype in (
@@ -170,19 +217,26 @@ def decoder_model_spec(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
             raise ValueError("random token selection needs the step's "
                              "seed: call loss_fn(params, batch, rng=...)")
         mf = rts_moe(rng) if use_rts else moe_fn
+        if _dp["n"] and mf is not None and ds_cfg.moe.impl == "dropless":
+            mf = partial(mf, dp_axis="data")
         # encoder extras (:317-322): the padding mask and the segments
         enc = {} if dec_cfg.causal else {
             k: batch[k] for k in ("attention_mask", "token_type_ids")
             if k in batch}
+        loop = _ovl["plan"].layer_loop if _ovl["plan"] is not None \
+            else None
         hidden, aux = transformer.forward_hidden(
             dec_cfg, params, tokens, attn_fn=attn_fn, moe_fn=mf,
-            remat_policy=remat, **enc)
+            remat_policy=remat, layer_loop=loop, **enc)
         loss = transformer.chunked_cross_entropy(
             dec_cfg, params, hidden, labels, budget_bytes=ce_budget,
-            logits_dtype=ce_dtype)
+            logits_dtype=ce_dtype,
+            count_fn=global_count if _dp["n"] else None)
         if moe_fn is None:
             return loss
         return loss + aux, {"aux_loss": aux}
 
     return ModelSpec(init_fn=init_fn, loss_fn=loss_fn, uses_rng=use_rts,
-                     decoder_config=dec_cfg)
+                     decoder_config=dec_cfg, partition_specs=specs,
+                     configure_overlap=configure_overlap,
+                     configure_mesh=configure_mesh)

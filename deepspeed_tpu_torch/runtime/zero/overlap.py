@@ -1,0 +1,389 @@
+"""Chunked, overlapped ZeRO-3 collectives: the stage-3 layer loop.
+
+Port of ``deepspeed_tpu/runtime/zero/overlap.py`` (``dense_spec`` :103,
+``chunk_bounds`` :137, ``OverlapPlan`` :158, ``build_overlap_plan``
+:393, ``overlap_fraction`` :429). Stage-3 parameters live as shards;
+the decoder's layer loop (``models.transformer.forward_hidden``'s
+``layer_loop``) runs through :meth:`OverlapPlan.layer_loop`, one
+``torch.autograd.Function`` around the whole loop (no hooks on
+parameters):
+
+* **Bucketing** — layers are grouped into byte-bounded chunks
+  (``zero_optimization.overlap_bucket_bytes``; 0 = one layer a chunk).
+* **Forward** — each chunk's shards are all-gathered in one collective
+  along their ``partition_specs`` dims; the gather of chunk k+d is
+  issued (``async_op``) before chunk k computes, ``d`` being
+  ``overlap_prefetch``. The chunk runs without autograd and only its
+  input activation is kept.
+* **Backward** — each chunk is gathered again (the prefetch runs the
+  other way), recomputed with autograd and differentiated; the full
+  gradients of its sharded leaves are reduce-scattered to this rank's
+  shards while the next chunk's backward computes. With
+  ``overlap_regather`` false the forward's gathered chunks are kept and
+  reused instead (gather traffic halves, the whole gathered stack lives
+  through the step; :meth:`OverlapPlan.transient_bytes` reports either).
+
+Without ``overlap_comm`` stage 3 runs the same loop one layer a chunk
+with no prefetch: each layer's gather waits before it computes. The JAX
+module's XLA scheduler-flag helpers (``LATENCY_HIDING_FLAGS``,
+``verify_scheduler_flags``, :445-502) tune XLA's latency-hiding
+scheduler and have no PyTorch meaning: they are not ported.
+"""
+
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from deepspeed_tpu_torch import telemetry
+from deepspeed_tpu_torch.ops.optimizers import tree_leaves, tree_map
+from deepspeed_tpu_torch.parallel.mesh import ZERO_AXES, Mesh
+from deepspeed_tpu_torch.runtime.zero.sharding import (gather_flat,
+                                                       reduce_scatter_flat,
+                                                       shard_dim)
+from deepspeed_tpu_torch.utils.logging import logger
+
+Pytree = Any
+Spec = Tuple[Any, ...]
+
+
+def dense_spec(spec: Spec, dp_axes: Sequence[str] = ZERO_AXES) -> Spec:
+    """``spec`` with every DP-family axis removed (overlap.py:103): the
+    gathered-for-compute layout."""
+    entries = []
+    for e in spec:
+        if e is None:
+            entries.append(None)
+            continue
+        cur = tuple(e) if isinstance(e, (tuple, list)) else (e,)
+        kept = tuple(a for a in cur if a not in dp_axes)
+        entries.append(None if not kept else
+                       (kept if len(kept) > 1 else kept[0]))
+    return tuple(entries)
+
+
+def _spec_axes(spec: Spec) -> Tuple[str, ...]:
+    axes: List[str] = []
+    for e in spec:
+        if e is None:
+            continue
+        axes.extend(e if isinstance(e, (tuple, list)) else (e,))
+    return tuple(axes)
+
+
+def _leaf_bytes_per_layer(leaf) -> int:
+    """Bytes of ONE layer of a stacked ``[L, ...]`` leaf."""
+    n = 1
+    for s in tuple(leaf.shape)[1:]:
+        n *= int(s)
+    return n * leaf.element_size()
+
+
+def chunk_bounds(num_layers: int, per_layer_bytes: int,
+                 bucket_bytes: int) -> List[Tuple[int, int]]:
+    """Greedy layer bucketing (overlap.py:137): as many layers a chunk as
+    fit ``bucket_bytes`` (at least one); 0 → one layer a chunk."""
+    if num_layers <= 0:
+        return []
+    if bucket_bytes <= 0 or per_layer_bytes <= 0:
+        return [(i, i + 1) for i in range(num_layers)]
+    layers_per = max(1, bucket_bytes // per_layer_bytes)
+    return [(lo, min(lo + layers_per, num_layers))
+            for lo in range(0, num_layers, layers_per)]
+
+
+class OverlapPlan:
+    """Chunk schedule for one (model, mesh, knobs) triple
+    (overlap.py:158). ``layer_specs``: the spec tree of the stacked
+    ``layers`` subtree; ``abstract_layers``: matching tensors (meta ones
+    do) ``[L, ...]`` in the compute dtype, at full shape."""
+
+    def __init__(self, mesh: Mesh, layer_specs: Pytree,
+                 abstract_layers: Pytree, bucket_bytes: int = 0,
+                 prefetch: int = 1, regather: bool = True,
+                 dp_axes: Sequence[str] = ZERO_AXES):
+        self.mesh = mesh
+        self.dp_axes = tuple(dp_axes)
+        self.prefetch = max(0, int(prefetch))
+        self.regather = bool(regather)
+        self.layer_specs = layer_specs
+        self.gather_specs = tree_map(lambda s: dense_spec(s, self.dp_axes),
+                                     layer_specs)
+        leaves = tree_leaves(abstract_layers)
+        self.num_layers = int(leaves[0].shape[0]) if leaves else 0
+        self.per_layer_bytes = sum(_leaf_bytes_per_layer(x) for x in leaves)
+        # per-device gathered bytes of one layer: each leaf over the mesh
+        # extent of the axes its gathered spec still uses
+        def gathered(p, s):
+            denom = 1
+            for a in _spec_axes(dense_spec(s, self.dp_axes)):
+                denom *= mesh.shape.get(a, 1)
+            return _leaf_bytes_per_layer(p) / max(1, denom)
+        per_dev = sum(tree_leaves(tree_map(gathered, abstract_layers,
+                                           layer_specs)))
+        self.per_layer_gathered_device_bytes = per_dev
+        self.bucket_bytes = int(bucket_bytes)
+        self.bounds = chunk_bounds(self.num_layers, self.per_layer_bytes,
+                                   self.bucket_bytes)
+        #: the DP group's axes, its size and this rank's position
+        self.axis = tuple(a for a in self.dp_axes
+                          if mesh.shape.get(a, 1) > 1) or ("data",)
+        self.n = mesh.axes_size(self.dp_axes)
+        #: per layer leaf, in the params tree's order: the dim its shards
+        #: are cut on (None: the leaf is whole on every rank)
+        self.dims: Optional[List[Optional[int]]] = None
+
+    # ------------------------------------------------------------ accounting
+
+    @property
+    def n_chunks(self) -> int:
+        return len(self.bounds)
+
+    def chunk_layers(self, k: int) -> int:
+        lo, hi = self.bounds[k]
+        return hi - lo
+
+    def chunk_global_bytes(self, k: int) -> int:
+        return self.chunk_layers(k) * self.per_layer_bytes
+
+    def max_chunk_bytes(self) -> int:
+        return max((self.chunk_global_bytes(k)
+                    for k in range(self.n_chunks)), default=0)
+
+    def transient_bytes(self) -> float:
+        """Per-device bytes held by gathered chunks (overlap.py:216): the
+        worst window of ``prefetch+1`` consecutive chunks with
+        ``regather``, the whole gathered stack without."""
+        if not self.bounds:
+            return 0.0
+        if not self.regather:
+            return self.num_layers * self.per_layer_gathered_device_bytes
+        w = min(self.prefetch + 1, self.n_chunks)
+        worst = 0
+        for k in range(self.n_chunks - w + 1):
+            worst = max(worst, sum(self.chunk_layers(j)
+                                   for j in range(k, k + w)))
+        return worst * self.per_layer_gathered_device_bytes
+
+    def describe(self) -> str:
+        return (f"zero-3 overlap: {self.n_chunks} chunk(s) over "
+                f"{self.num_layers} layers (bucket "
+                f"{self.bucket_bytes or 'per-layer'}, prefetch "
+                f"{self.prefetch}, "
+                f"{'re-gather' if self.regather else 'reuse'} backward), "
+                f"~{self.max_chunk_bytes() / 2**20:.1f} "
+                f"MiB/chunk global, transient "
+                f"{self.transient_bytes() / 2**20:.1f} MiB/device gathered")
+
+    def publish_static_gauges(self) -> None:
+        """Static ``overlap/*`` gauges (overlap.py:244)."""
+        reg = telemetry.registry
+        reg.gauge("overlap/chunks",
+                  help="ZeRO-3 overlap chunk count").set(self.n_chunks)
+        reg.gauge("overlap/prefetch_depth",
+                  help="chunks gathered ahead of compute").set(self.prefetch)
+        reg.gauge("overlap/bucket_bytes",
+                  help="largest chunk, global param bytes").set(
+            self.max_chunk_bytes())
+        reg.gauge("overlap/transient_hbm_bytes",
+                  help="per-device HBM held by in-flight gathered "
+                       "chunks").set(self.transient_bytes())
+
+    # -------------------------------------------------------- the layer loop
+
+    def leaf_dims(self, layers: Pytree) -> List[Optional[int]]:
+        """The shard dim of each leaf of ``layers`` (the params tree's
+        order), from the specs."""
+        return tree_leaves(tree_map(lambda p, s: shard_dim(s, self.dp_axes),
+                                    layers, self.layer_specs))
+
+    def layer_loop(self, run_layers: Callable, x: torch.Tensor,
+                   layers: Pytree) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Drop-in for the layer loop of ``forward_hidden``: ``layers``
+        holds this rank's shards (the stacked leaves cut along their
+        dims, whole where the spec has none); ``run_layers(x, chunk, lo)``
+        runs a gathered chunk. Returns (x, aux)."""
+        if self.n_chunks <= 0:
+            return run_layers(x, layers, 0)
+        if self.dims is None:
+            self.dims = self.leaf_dims(layers)
+        flat = tree_leaves(layers)
+        rebuild = _rebuilder(layers)
+        out, aux = _ChunkLoop.apply(self, run_layers, rebuild, x, *flat)
+        return out, aux
+
+    # ------------------------------------------------------------- gathers
+
+    def _gather(self, flat: Sequence[torch.Tensor], k: int):
+        """Issue chunk k's gather; the handle's ``wait()`` gives the
+        chunk's full leaves (the whole ones sliced, not copied)."""
+        lo, hi = self.bounds[k]
+        sl = [t[lo:hi] for t in flat]
+        idx = [i for i, d in enumerate(self.dims) if d is not None]
+        groups: Dict[torch.dtype, List[int]] = {}
+        for i in idx:
+            groups.setdefault(sl[i].dtype, []).append(i)
+        handles = []
+        for ids in groups.values():
+            shards = [sl[i] for i in ids]
+            handles.append((ids, gather_flat(shards,
+                                             [self.dims[i] for i in ids],
+                                             self.axis, self.n,
+                                             async_op=True)))
+
+        class _H:
+            def wait(self_inner):
+                full = list(sl)
+                for ids, h in handles:
+                    for i, f in zip(ids, h.wait()):
+                        full[i] = f
+                return full
+        return _H()
+
+    def _scatter(self, grads: Sequence[Optional[torch.Tensor]],
+                 leaves: Sequence[torch.Tensor]):
+        """Issue the reduce-scatter of a chunk's full gradients of its
+        sharded leaves; ``wait()`` gives {leaf index: shard gradient}."""
+        groups: Dict[torch.dtype, List[int]] = {}
+        for i, d in enumerate(self.dims):
+            if d is not None:
+                groups.setdefault(leaves[i].dtype, []).append(i)
+        handles = []
+        for ids in groups.values():
+            fulls = [grads[i] if grads[i] is not None
+                     else torch.zeros_like(leaves[i]) for i in ids]
+            handles.append((ids, reduce_scatter_flat(
+                fulls, [self.dims[i] for i in ids], self.axis, self.n,
+                async_op=True)))
+
+        class _H:
+            def wait(self_inner):
+                return {i: g for ids, h in handles
+                        for i, g in zip(ids, h.wait())}
+        return _H()
+
+
+def _rebuilder(tree: Pytree) -> Callable[[List[torch.Tensor]], Pytree]:
+    """A function that builds ``tree``'s structure over a flat list of
+    leaves (in ``tree_leaves`` order)."""
+    def build(node, it):
+        if isinstance(node, dict):
+            return {k: build(v, it) for k, v in node.items()}
+        return next(it)
+    return lambda leaves: build(tree, iter(leaves))
+
+
+class _ChunkLoop(torch.autograd.Function):
+    """The stage-3 layer loop: gather, compute and keep only each chunk's
+    input forward; gather again (or reuse), recompute, differentiate and
+    reduce-scatter backward."""
+
+    @staticmethod
+    def forward(ctx, plan: OverlapPlan, run_layers, rebuild, x, *flat):
+        n, d = plan.n_chunks, plan.prefetch
+        pending = {k: plan._gather(flat, k) for k in range(min(d + 1, n))}
+        inputs, kept = [], []
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for k in range(n):
+            full = pending.pop(k).wait()
+            if k + d + 1 < n:
+                pending[k + d + 1] = plan._gather(flat, k + d + 1)
+            inputs.append(x)
+            x, a = run_layers(x, rebuild(full), plan.bounds[k][0])
+            aux = aux + a
+            if not plan.regather:
+                kept.append(full)
+        ctx.plan, ctx.run, ctx.rebuild = plan, run_layers, rebuild
+        ctx.kept = kept
+        ctx.save_for_backward(*inputs, *flat)
+        ctx.n_inputs = len(inputs)
+        return x, aux
+
+    @staticmethod
+    def backward(ctx, gx, gaux):
+        plan, n, d = ctx.plan, ctx.plan.n_chunks, ctx.plan.prefetch
+        saved = ctx.saved_tensors
+        inputs, flat = saved[:ctx.n_inputs], saved[ctx.n_inputs:]
+        grads = [torch.zeros_like(t) if t.is_floating_point() else None
+                 for t in flat]
+        if gaux is None:
+            gaux = torch.zeros((), dtype=torch.float32, device=gx.device)
+        pending = {} if ctx.kept else {
+            k: plan._gather(flat, k)
+            for k in range(n - 1, max(n - 2 - d, -1), -1)}
+        scatters = []
+        for k in range(n - 1, -1, -1):
+            full = ctx.kept[k] if ctx.kept else pending.pop(k).wait()
+            if not ctx.kept and k - d - 1 >= 0:
+                pending[k - d - 1] = plan._gather(flat, k - d - 1)
+            lo, hi = plan.bounds[k]
+            with torch.enable_grad():
+                xk = inputs[k].detach().requires_grad_(True)
+                leaves = [f.detach().requires_grad_(f.is_floating_point())
+                          for f in full]
+                y, a = ctx.run(xk, ctx.rebuild(leaves), lo)
+                outs, gouts = [y], [gx]
+                if a.requires_grad:
+                    outs.append(a)
+                    gouts.append(gaux)
+                wrt = [xk] + [t for t in leaves if t.requires_grad]
+                got = torch.autograd.grad(outs, wrt, gouts,
+                                          allow_unused=True)
+            gx = got[0] if got[0] is not None else torch.zeros_like(xk)
+            it = iter(got[1:])
+            g_full = [next(it) if t.requires_grad else None
+                      for t in leaves]
+            for i, dim in enumerate(plan.dims):
+                if dim is None and g_full[i] is not None:
+                    grads[i][lo:hi] += g_full[i]
+            scatters.append((lo, hi, plan._scatter(g_full, leaves)))
+            del full, leaves, g_full, got
+            # at most two chunks' reduce-scatters in flight
+            while len(scatters) > 1:
+                _land(grads, *scatters.pop(0))
+        for s in scatters:
+            _land(grads, *s)
+        return (None, None, None, gx) + tuple(grads)
+
+
+def _land(grads, lo, hi, handle) -> None:
+    for i, g in handle.wait().items():
+        grads[i][lo:hi] += g
+
+
+def build_overlap_plan(mesh: Mesh, layer_specs: Pytree,
+                       abstract_layers: Pytree, zero_config,
+                       num_experts: int = 0) -> Optional[OverlapPlan]:
+    """Validated construction from the config knobs (overlap.py:393).
+    Without ``overlap_comm``: one layer a chunk, no prefetch, re-gather —
+    the stage-3 loop with each gather waited on before its layer."""
+    if mesh.shape.get("pipe", 1) > 1 or \
+            (num_experts and mesh.shape.get("expert", 1) > 1):
+        raise NotImplementedError(
+            "the stage-3 layer loop over pipeline or expert meshes is not "
+            "ported to deepspeed_tpu_torch yet (ROADMAP A, 'Parallelism "
+            "breadth')")
+    if not zero_config.overlap_comm:
+        return OverlapPlan(mesh, layer_specs, abstract_layers,
+                           bucket_bytes=0, prefetch=0, regather=True)
+    plan = OverlapPlan(mesh, layer_specs, abstract_layers,
+                       bucket_bytes=int(zero_config.overlap_bucket_bytes
+                                        or 0),
+                       prefetch=int(zero_config.overlap_prefetch),
+                       regather=bool(zero_config.overlap_regather))
+    if plan.n_chunks <= 1:
+        logger.info(
+            "zero-3 overlap: bucket covers the whole model (1 chunk) — "
+            "schedule degenerates to the monolithic gather; shrink "
+            "overlap_bucket_bytes to pipeline collectives")
+    return plan
+
+
+def overlap_fraction(compute_s: float, comm_s: float,
+                     measured_s: float) -> Optional[float]:
+    """Achieved compute/comm overlap (overlap.py:429): how much of the
+    hideable ``min(compute, comm)`` a measured step hid, in [0, 1]; None
+    when a term is missing."""
+    if compute_s <= 0 or comm_s <= 0 or measured_s <= 0:
+        return None
+    hideable = min(compute_s, comm_s)
+    return max(0.0, min(1.0, (compute_s + comm_s - measured_s) / hideable))

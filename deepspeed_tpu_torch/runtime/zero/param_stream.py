@@ -109,11 +109,10 @@ class ParamStreamCoordinator:
             select_attention
         from deepspeed_tpu_torch.runtime.zero.infinity import \
             NVMeOffloadOptimizer
-        if mesh is not None:
+        if mesh is not None and mesh.shape["data"] > 1:
             raise NotImplementedError(
-                "the parameter tier over a device mesh is not ported to "
-                "deepspeed_tpu_torch yet (ROADMAP A, 'Data parallel and "
-                "ZeRO-1/2/3')")
+                "the parameter tier at dp > 1 is not ported to "
+                "deepspeed_tpu_torch yet (ROADMAP A, 'Offload')")
         self.engine = engine
         dec = engine.model.decoder_config
         if dec is None:

@@ -168,13 +168,14 @@ def test_param_tier_checkpoint_roundtrip(init_and_data, tmp_path):
 
 def test_param_tier_refuses_what_it_does_not_cover(init_and_data, tmp_path):
     init, _ = init_and_data
-    with pytest.raises(NotImplementedError, match="Data parallel and ZeRO"):
+    from deepspeed_tpu_torch.parallel.mesh import Mesh
+    with pytest.raises(NotImplementedError, match="'Offload'"):
         dt.initialize(model=dt.llama3_config("tiny"),
                       config=_tier(tmp_path / "m"), device="cpu",
-                      mesh=object())
+                      mesh=Mesh({"data": 2}))
     eng = _port(_tier(tmp_path / "n"), init)
-    with pytest.raises(NotImplementedError, match="Data parallel and ZeRO"):
-        ParamStreamCoordinator(eng, mesh=object())
+    with pytest.raises(NotImplementedError, match="'Offload'"):
+        ParamStreamCoordinator(eng, mesh=Mesh({"data": 2}))
     with pytest.raises(ValueError, match="MoE"):
         dt.initialize(model=dt.llama3_config("tiny", num_experts=4),
                       config=_tier(tmp_path / "e", moe={"impl": "dropless"}),

@@ -127,19 +127,28 @@ def test_unported_features_raise(monkeypatch):
     assert eng.step_with_budget(max_steps=4) is None
     with pytest.raises(NotImplementedError, match="expert parallelism"):
         serving_moe_fn(moe, None, eng.params, ep=True)
-    # checkpointing, the elastic agent, the async I/O engine and offload
-    # are ported; resuming at a new world size, device meshes, ZenFlow and
-    # the router's fault hook are not
+    # checkpointing, the elastic agent, the async I/O engine, offload,
+    # device meshes over the data axis and resuming at a new world size
+    # are ported; the other mesh axes, ZenFlow and the router's fault hook
+    # are not
     from deepspeed_tpu_torch.elasticity import elastic_resume
-    with pytest.raises(NotImplementedError, match="Data parallel and ZeRO"):
-        elastic_resume(cfg, {}, "unused", world_size=2)
+    from deepspeed_tpu_torch.parallel.mesh import Mesh, build_mesh
+    with pytest.raises(ValueError, match="elasticity not enabled"):
+        elastic_resume(cfg, {}, "unused", world_size=1, device="cpu")
     with pytest.raises(NotImplementedError, match="'Offload'"):
         initialize(cfg, {"zero_optimization": {
             "stage": 2, "offload_optimizer": {"device": "cpu"},
             "zenflow": {"topk_ratio": 0.1}}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="Data parallel and ZeRO"):
+    mesh = build_mesh(data=1)
+    eng = initialize(cfg, {"train_micro_batch_size_per_gpu": 1},
+                     device="cpu", mesh=mesh)[0]
+    assert eng.mesh is mesh and eng.dp_world_size == 1
+    with pytest.raises(NotImplementedError, match="Parallelism breadth"):
         initialize(cfg, {"train_micro_batch_size_per_gpu": 1},
-                   device="cpu", mesh=object())
+                   device="cpu", mesh=Mesh({"data": 1, "model": 2}))
+    with pytest.raises(NotImplementedError, match="Parallelism breadth"):
+        build_mesh(data=1, seq=1, pipe=1, model=1, expert=1,
+                   dcn={"data": 2})
     with pytest.raises(NotImplementedError, match="Observability, fleet"):
         initialize(cfg, {"resilience": {
             "fault_plan": "serving_step:2:replica_kill:router"}},

@@ -353,11 +353,39 @@ def test_jax_preempt_tag_resumes_in_port(init, tmp_path):
                                   np.asarray(jmeta["rng"], np.uint32))
 
 
-def test_elastic_resume_and_restart_policy():
-    """elastic_resume raises (data parallel); run_elastic restarts
-    transient failures and re-raises the rest, as the JAX loop does."""
-    with pytest.raises(NotImplementedError, match="Data parallel"):
-        elastic_resume(None, {}, "/nonexistent", world_size=2)
+def test_elastic_resume_and_restart_policy(init, tmp_path):
+    """elastic_resume re-forms training at world 1 from the latest tag
+    (the batch triple from the elastic solver: 4 = micro 2 x gas 2) and
+    continues the uninterrupted run bitwise; without an enabled
+    ``elasticity`` block it raises, as the JAX one does. run_elastic
+    restarts transient failures and re-raises the rest, as the JAX loop
+    does. (Resumes across world sizes: tests/test_torch_checkpoint_dp.py.)"""
+    el = {"elasticity": {"enabled": True, "micro_batch_sizes": [2],
+                         "max_train_batch_size": 4, "max_gpus": 1}}
+    conf = _cfg({"gradient_accumulation_steps": 2, **el})
+    rng = np.random.default_rng(5)
+    batches = [{"input_ids": rng.integers(0, VOCAB, size=(2, SEQ),
+                                          dtype=np.int32)} for _ in range(8)]
+    cfg = dt.llama3_config("tiny", vocab_size=VOCAB)
+    eng = dt.initialize(cfg, dict(conf), params=init, device="cpu")[0]
+    want = [float(eng.train_batch(iter(batches[2 * s:2 * s + 2])))
+            for s in range(4)]
+    eng = dt.initialize(cfg, dict(conf), params=init, device="cpu")[0]
+    for s in range(2):
+        eng.train_batch(iter(batches[2 * s:2 * s + 2]))
+    eng.save_checkpoint(str(tmp_path))
+    fresh, agent, tag = elastic_resume(
+        cfg, dict(conf), str(tmp_path), world_size=1, device="cpu",
+        params=jax.tree.map(np.zeros_like, init))
+    agent.uninstall()
+    assert tag == "global_step2" and fresh.global_steps == 2
+    assert fresh.gradient_accumulation_steps() == 2
+    got = [float(fresh.train_batch(iter(batches[2 * s:2 * s + 2])))
+           for s in range(2, 4)]
+    assert got == want[2:]
+    with pytest.raises(ValueError, match="elasticity not enabled"):
+        elastic_resume(cfg, _cfg(), str(tmp_path), world_size=1,
+                       device="cpu")
     from deepspeed_tpu_torch.elasticity import run_elastic
     calls = []
 

@@ -207,8 +207,9 @@ def test_engine_sampler_matches_jax_and_rides_the_checkpoint(tmp_path):
 def test_config_keys_jax_accepts_and_nothing_reads():
     """prescale_gradients, gradient_predivide_factor,
     wall_clock_breakdown, dump_state, memory_breakdown and
-    moe.noisy_gate_policy validate as in the JAX schema;
-    communication_data_type still raises (ROADMAP A7)."""
+    moe.noisy_gate_policy validate as in the JAX schema, and so does
+    communication_data_type (accepted since data parallelism is
+    ported)."""
     keys = {"prescale_gradients": True, "gradient_predivide_factor": 2.0,
             "wall_clock_breakdown": True, "dump_state": True,
             "memory_breakdown": True, "check_nan_inf": "scoped",
@@ -224,8 +225,10 @@ def test_config_keys_jax_accepts_and_nothing_reads():
               "check_nan_inf"):
         assert getattr(cfg, k) == getattr(ref, k), k
     assert cfg.moe.noisy_gate_policy == ref.moe.noisy_gate_policy
-    with pytest.raises(NotImplementedError, match="communication_data_type"):
-        DeepSpeedConfig.from_any({"communication_data_type": "fp16"})
+    comm_dt = {"communication_data_type": "fp16"}
+    assert DeepSpeedConfig.from_any(dict(comm_dt)).communication_data_type \
+        == deepspeed_tpu.DeepSpeedTPUConfig.from_any(
+            dict(comm_dt)).communication_data_type == "fp16"
     with pytest.raises(NotImplementedError, match="random-LTD"):
         DeepSpeedConfig.from_any({"data_efficiency": {
             "enabled": True, "data_routing": {"random_ltd": {
