@@ -253,7 +253,29 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    the CPU at dp 2 over gloo, two ranks this phase starts (losses within
    1e-4); (c) the card resumes the CPU ranks' dp-2 save through
    ``elastic_resume`` (losses within 1e-4 of the uninterrupted CPU run).
-   ``--train-dp-only`` runs the build and this phase alone.
+   ``--train-dp-only`` runs the build and this phase alone. Since the
+   stage-3 repair (C6) stage 3 runs each block's forward once (K1 as many
+   launches as stage 0), and two runs under remat 'full' hold stage 3
+   against stage 0 (each forward twice: the loop, the replay).
+13. tensor parallelism and ZeRO++ (``tp_zeropp``, after 12): two ranks on
+   the card over gloo (NCCL refuses two ranks on one card;
+   tools/gloo_cuda_probe.py found gloo's collectives working on CUDA
+   tensors), each holding its 'model' shards: (a) Llama-3 8B through
+   ``init_inference`` at tp 2 in bf16 and int8 (``qmatmul_tp`` over K5a),
+   phase 11's 8 x 512 prompts and seed, against tp 1 on the same weights
+   (prefill logits within 8e-2 of the largest, the bf16 spread phase 11
+   measures between two engines; greedy tokens matched of 32; ms a
+   token, peak HBM per rank, bytes a token by collective);
+   the same at depth 2 in fp32 (logits within 1e-4, tokens identical);
+   (b) phase 7's engine at tp 2, stage 0, 2 steps, against phase 12's
+   tp-1 run (losses within 1e-2; K1/K3 at 8 of 16 heads a rank); (b')
+   fp32 at depth 2, the card's ranks against two CPU ranks, both tp 2
+   (1e-4); (c) ZeRO++ on phase 7's engine at stage 2 over one NCCL rank,
+   exact against qwZ + qgZ (K6 twice a step, its device ms inside the
+   step; losses within 2e-2), then one more step in which each K6 call,
+   on the bf16 parameter buffer and the fp32 gradient (1.269 B values
+   each), is held against its plain version, bit for bit.
+   ``--tp-zeropp-only`` runs the build, 12 and 13.
 
 Every phase prints one JSON line; any failure raises, so the script exits
 non-zero. Without CUDA, or outside a checkout of the repository, it exits
@@ -5422,12 +5444,18 @@ def phase_train_mixtral():
 #: (a): phase 7's engine (Llama-3 1B, bf16, micro 4 x gas 2 x 2048) at
 #: each ZeRO stage, DP_STEPS steps from one seed on one batch, over a real
 #: NCCL group of one rank
-DP_RUNS = (("stage0", 0, {}), ("stage1", 1, {}), ("stage2", 2, {}),
-           ("stage3", 3, {}), ("stage3_overlap", 3, {"overlap_comm": True}))
+DP_RUNS = (("stage0", 0, {}, "none"), ("stage1", 1, {}, "none"),
+           ("stage2", 2, {}, "none"), ("stage3", 3, {}, "none"),
+           ("stage3_overlap", 3, {"overlap_comm": True}, "none"),
+           # stage 3 keeps its activations: under remat 'full' a block's
+           # forward runs twice (the loop, the replay), as at stage 0
+           ("stage0_remat_full", 0, {}, "full"),
+           ("stage3_remat_full", 3, {"overlap_comm": True}, "full"))
 DP_STEPS = 3
-#: each stage's bf16 losses against stage 0's, relative: at one rank the
-#: stages compute the same function; stage 3 recomputes each layer in its
-#: backward and K3 accumulates dq/dk in a different order between runs
+#: each stage's bf16 losses against stage 0's (a remat run against stage
+#: 0 under the same policy), relative: at one rank the stages compute the
+#: same function, and K3 accumulates dq/dk in a different order between
+#: runs
 DP_LOSS_TOL = 1e-2
 #: (b)/(c): Llama-3 1B's width (d 2048, FFN 8192, heads 32/8) at depth 2
 #: with a 32,000-entry vocabulary (phase 6's Gemma/Phi runs' cut: the
@@ -5510,6 +5538,30 @@ def _dp_cpu_rank(rank, world, store, save_dir, out):
         pickle.dump(res, fh)
 
 
+def _train_conf(stage: int, zero=None, remat: str = "none",
+                **extra) -> dict:
+    """Phase 12's configuration of phase 7's engine (phase 13's too)."""
+    conf = {"train_micro_batch_size_per_gpu": TRAIN_MICRO,
+            "gradient_accumulation_steps": TRAIN_GAS,
+            "optimizer": {"type": "adamw", "params": {
+                "lr": 1e-4, "weight_decay": 0.1}},
+            "gradient_clipping": 1.0, "bf16": {"enabled": True},
+            "activation_checkpointing": {"policy": remat},
+            "attention_impl": "auto", "steps_per_print": 1000,
+            "zero_optimization": dict({"stage": stage}, **(zero or {})),
+            "comms_logger": {"enabled": True}}
+    conf.update(extra)
+    return conf
+
+
+def _train_batch(vocab):
+    """Phase 7's fixed batch: TRAIN_GAS micro-batches of TRAIN_MICRO x
+    TRAIN_SEQ tokens."""
+    rng = np.random.default_rng(7)
+    return [{"input_ids": rng.integers(0, vocab, size=(
+        TRAIN_MICRO, TRAIN_SEQ)).astype(np.int32)} for _ in range(TRAIN_GAS)]
+
+
 def phase_train_dp(smi: str) -> dict:
     """Data parallel and ZeRO-1/2/3 over torch.distributed. The card is one
     rank of a real NCCL group (NCCL refuses two ranks on one card), so
@@ -5562,22 +5614,11 @@ def phase_train_dp(smi: str) -> dict:
         mesh = build_mesh(data=1)
         # (a) the stages on phase 7's engine
         cfg = llama3_config(TRAIN_MODEL[0], **TRAIN_MODEL[1])
-        rng = np.random.default_rng(7)
-        batch = [{"input_ids": rng.integers(0, cfg.vocab_size,
-                                            size=(TRAIN_MICRO, TRAIN_SEQ))
-                  .astype(np.int32)} for _ in range(TRAIN_GAS)]
+        batch = _train_batch(cfg.vocab_size)
         runs = {}
         op_builder.reset_launches()
-        for name, stage, zero in DP_RUNS:
-            conf = {"train_micro_batch_size_per_gpu": TRAIN_MICRO,
-                    "gradient_accumulation_steps": TRAIN_GAS,
-                    "optimizer": {"type": "adamw", "params": {
-                        "lr": 1e-4, "weight_decay": 0.1}},
-                    "gradient_clipping": 1.0, "bf16": {"enabled": True},
-                    "activation_checkpointing": {"policy": "none"},
-                    "attention_impl": "auto", "steps_per_print": 1000,
-                    "zero_optimization": dict(stage=stage, **zero),
-                    "comms_logger": {"enabled": True}}
+        for name, stage, zero, remat in DP_RUNS:
+            conf = _train_conf(stage, zero, remat)
             gc.collect()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -5592,7 +5633,8 @@ def phase_train_dp(smi: str) -> dict:
                 step_s.append(time.perf_counter() - t1)
             plan = eng._overlap_plan
             runs[name] = {
-                "stage": stage, "losses": losses, "step_seconds": step_s,
+                "stage": stage, "remat": remat, "losses": losses,
+                "step_seconds": step_s,
                 "ms_per_step": 1e3 * sum(step_s[1:]) / (DP_STEPS - 1),
                 "peak_hbm_gb": torch.cuda.max_memory_allocated() / 1e9,
                 "comm_bytes_per_step": {
@@ -5604,8 +5646,10 @@ def phase_train_dp(smi: str) -> dict:
             del eng, plan
         launches = dict(op_builder.launches)
         comms_logger.enabled = False
-        base = runs["stage0"]["losses"]
+        _TP1_TRAIN.update({n: runs[n] for n, _ in TP_TRAIN_STAGES})
         for name, run in runs.items():
+            base = runs["stage0_remat_full" if run["remat"] == "full"
+                        else "stage0"]["losses"]
             run["loss_rel_err"] = max(abs(a - b) / abs(b) for a, b in
                                       zip(run["losses"], base))
             emit(dict(run, phase="train_dp", run=name,
@@ -5670,8 +5714,10 @@ def phase_train_dp(smi: str) -> dict:
     for name, run in runs.items():
         assert all(np.isfinite(run["losses"])), (name, run["losses"])
         assert run["loss_rel_err"] <= DP_LOSS_TOL, (name, run)
+        # each block's forward once a micro-batch (C6: stage 3 included),
+        # twice under remat 'full' (the loop and the replay)
         want_fwd = cfg.num_layers * TRAIN_GAS * DP_STEPS * (
-            2 if run["stage"] == 3 else 1)
+            2 if run["remat"] == "full" else 1)
         assert run["launches"]["flash_attention_fwd"] == want_fwd, run
         assert run["launches"]["flash_attention_bwd"] == \
             cfg.num_layers * TRAIN_GAS * DP_STEPS, run
@@ -5685,6 +5731,573 @@ def phase_train_dp(smi: str) -> dict:
     assert all(v > 0 for v in card_launches.values()), card_launches
     assert cpu_res[0]["launches"] == 0, cpu_res
     assert rel <= DP_SMALL_TOL and rel_resume <= DP_SMALL_TOL, res
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 13. tensor parallelism and ZeRO++ (tp_zeropp)
+# ---------------------------------------------------------------------------
+
+#: phase 12's tp-1 runs of phase 7's engine, the reference of (b) and
+#: (c)
+_TP1_TRAIN: dict = {}
+#: K6's calls inside the last ZeRO++ step of (c): (device ms, values,
+#: dtype) each, for the kernel table
+_K6_IN_STEP: list = []
+#: (a) Llama-3 8B at full width and depth, phase 11's prompts (8 x 512)
+#: and seed, 32 greedy tokens, tp 2 against tp 1
+TP_SERVE_NEW = 32
+#: bf16 logits at tp 2 against tp 1 at full depth: max |delta| over max
+#: |logit|. Two right computations of these random-weight logits differ
+#: by this much in bf16: phase 11 measured 4.8-6.1 % between the v1 and
+#: the ragged engines on the same weights, 5.3 % between one prefill
+#: chunk and two; tp 2 sums two bf16 partial products after each row-
+#: parallel GEMM. Exactness is held in fp32 (TP_FP32)
+TP_LOGIT_TOL = 8e-2
+#: (a') Llama-3 8B's width at depth 2 in fp32 with TF32 off, 2 prompts of
+#: 32 tokens, 4 greedy tokens: tp 2 against tp 1, logits within 1e-4
+#: relative (the row-parallel sums in another order), tokens identical
+TP_FP32 = {"layers": 2, "batch": 2, "prompt": 32, "new": 4, "tol": 1e-4}
+#: (b) phase 7's engine at tp 2, stage 0, TP_TRAIN_STEPS steps (ms a
+#: step: the last; the script's time limit); losses against phase 12's
+#: tp-1 run's first steps within DP_LOSS_TOL. Stage 3 under TP (the
+#: stage-3 loop over 'model'-sharded leaves) is held against the JAX
+#: engine on the CPU (tests/test_torch_tensor_parallel.py), not here: on
+#: gloo a step takes 7-9 s of the script's 1200 s
+TP_TRAIN_STAGES = (("stage0", 0),)
+TP_TRAIN_STEPS = 2
+#: (b') DP_SMALL's model (Llama-3 1B width, depth 2, vocabulary 32,000)
+#: in fp32 at stage 0: the card's two ranks against two CPU ranks, both
+#: at tp 2 over gloo
+TP_SMALL_TOL = 1e-4
+#: (c) ZeRO++ on phase 7's engine at stage 2, exact against qwZ + qgZ,
+#: DP_STEPS steps each; quantized losses within 2e-2 of the exact ones
+ZEROPP_LOSS_TOL = 2e-2
+TP_RANK_TIMEOUT_S = 900.0
+#: torch threads of each (b') CPU rank: they run beside the card's ranks,
+#: whose gloo collectives stage every tensor through the host's cores
+TP_CPU_THREADS = 2
+
+
+def _tp_small_conf(tp: int):
+    return {"train_micro_batch_size_per_gpu": 2,
+            "gradient_accumulation_steps": 1,
+            "optimizer": {"type": "adamw",
+                          "params": {"lr": 1e-5, "weight_decay": 0.1}},
+            "gradient_clipping": 1.0, "attention_impl": "auto",
+            "zero_optimization": {"stage": 0},
+            "tensor_parallel": {"tp_size": tp}}
+
+
+def _tp_serve(eng, prompts, new) -> dict:
+    """Prefill logits of the last position and the prefill's ms (at tp 1
+    after a warm-up generate that captures the decode graph; a gloo
+    group's eager decode has nothing to capture), greedy tokens, ms a
+    decode token (a generate of ``new`` tokens less one prefill), and the
+    bytes a decode token moves, by collective."""
+    import torch
+    from deepspeed_tpu_torch.comm.comms_logger import comms_logger
+    from deepspeed_tpu_torch.models.transformer import init_kv_cache
+    b, t = prompts.shape
+    tok = torch.from_numpy(prompts).to(DEV)
+    if eng._graphs:
+        eng.generate(prompts, max_new_tokens=2)
+    cache = init_kv_cache(eng.model_config, b, t, eng.dtype, DEV,
+                          eng._kv_heads)
+    comms_logger.enabled = True
+    comms_logger.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, _ = eng._step(tok, cache, 0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    del cache
+    b1 = comms_logger.bytes_by_op()
+    comms_logger.reset()
+    out = eng.generate(prompts, max_new_tokens=new)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    b2 = comms_logger.bytes_by_op()
+    comms_logger.enabled = False
+    return {"logits": logits.float().cpu().numpy(),
+            "tokens": out[:, t:], "first": out[:, t:t + 1],
+            "prefill_ms": 1e3 * (t1 - t0),
+            "decode_ms_per_token": 1e3 * ((t2 - t1) - (t1 - t0))
+            / (new - 1),
+            "comm_bytes_per_token": {op: (v - b1.get(op, 0)) / (new - 1)
+                                     for op, v in b2.items()}}
+
+
+def _tp_fp32_serve(cfg_fn, tp: int) -> dict:
+    """(a'): fp32 logits of the last prompt position and greedy tokens of
+    Llama-3 8B's width at depth 2 at ``tp``."""
+    import torch
+    from deepspeed_tpu_torch import init_inference
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfg_fn(V1_LLAMA[0], num_layers=TP_FP32["layers"])
+    prompts = np.random.default_rng(62).integers(
+        0, cfg.vocab_size, size=(TP_FP32["batch"], TP_FP32["prompt"])
+    ).astype(np.int32)
+    conf = {"dtype": "float32"}
+    if tp > 1:
+        conf["tensor_parallel"] = {"tp_size": tp}
+    eng = init_inference(cfg, conf, generator=torch.Generator(
+        device=DEV).manual_seed(63), device=DEV)
+    with torch.no_grad():
+        logits = eng.forward(prompts)[:, -1].float().cpu().numpy()
+    tokens = eng.generate(prompts, max_new_tokens=TP_FP32["new"])
+    del eng
+    return {"logits": logits, "tokens": tokens}
+
+
+def _tp_card_rank(rank, world, store, out, runs_small):
+    """A tensor-parallel rank on the card, over gloo (the probe of
+    tools/gloo_cuda_probe.py: NCCL refuses two ranks on one card, gloo
+    takes CUDA tensors): (a) Llama-3 8B served at tp 2, bf16 and int8;
+    (b) phase 7's engine at tp 2, stage 0; (b') DP_SMALL's model
+    in fp32 at tp 2. Writes its results to ``out``."""
+    import gc
+    import pickle
+    import traceback
+    import torch
+    torch.set_num_threads(2)
+    try:
+        torch.cuda.set_device(0)
+        from deepspeed_tpu_torch import (build_mesh, comm, init_inference,
+                                         initialize, llama3_config)
+        from deepspeed_tpu_torch.comm.comms_logger import comms_logger
+        from deepspeed_tpu_torch.ops import op_builder
+        comm.init_distributed(dist_backend="gloo",
+                              init_method="file://" + store,
+                              num_processes=world, process_id=rank,
+                              device=DEV, timeout=int(TP_RANK_TIMEOUT_S))
+        build_mesh(model=world)
+        res = {"serve": {}, "train": {}, "launches": {}}
+        # (a) serving
+        cfg = llama3_config(V1_LLAMA[0], **V1_LLAMA[1])
+        prompts = np.random.default_rng(60).integers(
+            0, cfg.vocab_size, size=(V1_BATCH, V1_PROMPT)).astype(np.int32)
+        for mode in (None, "int8"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            op_builder.reset_launches()
+            conf = {"dtype": "bfloat16", "tensor_parallel": {"tp_size": 2}}
+            if mode:
+                conf["weight_quant"] = mode
+            eng = init_inference(cfg, conf, generator=torch.Generator(
+                device=DEV).manual_seed(61), device=DEV)
+            got = _tp_serve(eng, prompts, TP_SERVE_NEW)
+            got.update(peak_hbm_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       launches=dict(op_builder.launches),
+                       wq_local=tuple(eng.params["layers"]["attn"]["wq"]
+                                      .shape), graphs=eng._graphs)
+            res["serve"][mode or "bf16"] = got
+            del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["fp32"] = _tp_fp32_serve(llama3_config, world)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        # (b) training, phase 7's engine at tp 2
+        cfg = llama3_config(TRAIN_MODEL[0], **TRAIN_MODEL[1])
+        batch = _train_batch(cfg.vocab_size)
+        for name, stage in TP_TRAIN_STAGES:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            op_builder.reset_launches()
+            eng = initialize(cfg, _train_conf(
+                stage, tensor_parallel={"tp_size": world}),
+                generator=torch.Generator(device=DEV).manual_seed(0),
+                device=DEV)[0]
+            comms_logger.reset()
+            losses, step_s = [], []
+            for _ in range(TP_TRAIN_STEPS):
+                t1 = time.perf_counter()
+                losses.append(float(eng.train_batch(iter(batch))))
+                step_s.append(time.perf_counter() - t1)
+            res["train"][name] = {
+                "losses": losses, "step_seconds": step_s,
+                "ms_per_step": 1e3 * sum(step_s[1:]) / (TP_TRAIN_STEPS - 1),
+                "peak_hbm_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "comm_bytes_per_step": {
+                    op: b / TP_TRAIN_STEPS for op, b in
+                    comms_logger.bytes_by_op().items()},
+                "launches": dict(op_builder.launches),
+                "local_heads": eng.params["layers"]["attn"]["wq"].shape[-1]
+                // cfg.head_dim}
+            del eng
+        comms_logger.enabled = False
+        # (b') fp32 at depth 2 against the CPU ranks
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        small = _dp_small_model()
+        eng = initialize(small, _tp_small_conf(world),
+                         params=_dp_small_init(small), device=DEV)[0]
+        res["small"] = [float(eng.train_batch(iter([b])))
+                        for b in runs_small]
+        del eng
+        comm.destroy_distributed()
+    except BaseException:                       # noqa: BLE001 — reported
+        res = {"error": traceback.format_exc()}
+    with open(out, "wb") as fh:
+        pickle.dump(res, fh)
+
+
+def _tp_cpu_rank(rank, world, store, out, runs_small):
+    """(b')'s CPU side: the same fp32 run at tp 2 on two gloo ranks."""
+    import pickle
+    import traceback
+    import torch
+    torch.set_num_threads(TP_CPU_THREADS)
+    from deepspeed_tpu_torch import build_mesh, comm, initialize
+    from deepspeed_tpu_torch.ops import op_builder
+    try:
+        comm.init_distributed(init_method="file://" + store,
+                              num_processes=world, process_id=rank,
+                              device="cpu", timeout=int(TP_RANK_TIMEOUT_S))
+        build_mesh(model=world)
+        small = _dp_small_model()
+        eng = initialize(small, _tp_small_conf(world),
+                         params=_dp_small_init(small), device="cpu")[0]
+        res = {"losses": [float(eng.train_batch(iter([b])))
+                          for b in runs_small],
+               "launches": sum(op_builder.launches.values())}
+        comm.destroy_distributed()
+    except BaseException:                       # noqa: BLE001 — reported
+        res = {"error": traceback.format_exc()}
+    with open(out, "wb") as fh:
+        pickle.dump(res, fh)
+
+
+def _k6_against_plain(x, q, s, block) -> dict:
+    """K6's (q, scales) of a ZeRO++ buffer ``x`` against
+    ``quantize_blocks_ref`` on the same values, bit for bit (phase 3's
+    tolerance), a chunk of blocks at a time: blocks are independent, so
+    the chunks give the plain version's output on the whole buffer."""
+    from deepspeed_tpu_torch.ops.quantizer import quantize_blocks_ref
+    n, step = x.numel(), block << 20
+    qm = sm = 0
+    err = 0.0
+    for i in range(0, n, step):
+        j = min(i + step, n)
+        rq, rs = quantize_blocks_ref(x[i:j], block)
+        qm += int((q[i:j] != rq).sum())
+        sm += int((s[i // block:j // block] != rs).sum())
+        err = max(err, float((q[i:j].float() - rq.float()).abs().max()))
+        del rq, rs
+    return {"dtype": str(x.dtype).replace("torch.", ""), "values": n,
+            "block": block, "q_mismatches": qm, "scale_mismatches": sm,
+            "max_abs_err": err, "tol": "bit-identical"}
+
+
+def _zeropp_runs(smi: str) -> tuple:
+    """(c): ZeRO++ on phase 7's engine at stage 2 over one NCCL rank,
+    exact and qwZ + qgZ; K6's launches and device ms inside each step
+    (CUDA events around each launch). After the counted steps of qwZ +
+    qgZ, one more step holds each K6 call on that step's buffers (the
+    bf16 parameters that qwZ gathers, the fp32 gradient that qgZ
+    reduces) against its plain version."""
+    import gc
+    import torch
+    from deepspeed_tpu_torch import build_mesh, initialize, llama3_config
+    from deepspeed_tpu_torch.comm.comms_logger import comms_logger
+    from deepspeed_tpu_torch.ops import op_builder, quantizer
+    cfg = llama3_config(TRAIN_MODEL[0], **TRAIN_MODEL[1])
+    batch = _train_batch(cfg.vocab_size)
+    build_mesh(data=1)
+    k6 = quantizer.quantize_blocks_kernel
+    events = []
+    #: K6 against its plain version on the step's buffers, when on
+    checks = {"on": False, "done": []}
+
+    def timed_k6(x, block=256):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = k6(x, block)
+        ev[1].record()
+        events.append((ev, x.numel(), str(x.dtype)))
+        if checks["on"]:
+            checks["done"].append(_k6_against_plain(x, *out, block))
+        return out
+    runs = {}
+    launches = {k: 0 for k in op_builder.launches}
+    quantizer.quantize_blocks_kernel = timed_k6
+    try:
+        for name, zero in (("exact", {}),
+                           ("qwz_qgz", {"zero_quantized_weights": True,
+                                        "zero_quantized_gradients": True})):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            eng = initialize(cfg, _train_conf(2, zero), generator=torch.Generator(
+                device=DEV).manual_seed(0), device=DEV)[0]
+            comms_logger.reset()
+            op_builder.reset_launches()
+            events.clear()
+            losses, step_s, k6_ms = [], [], []
+            for _ in range(DP_STEPS):
+                t1 = time.perf_counter()
+                losses.append(float(eng.train_batch(iter(batch))))
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t1)
+                k6_ms.append([(ev[0].elapsed_time(ev[1]), n, dt)
+                              for ev, n, dt in events])
+                events.clear()
+            for k, v in op_builder.launches.items():
+                launches[k] += v
+            runs[name] = {
+                "losses": losses, "step_seconds": step_s,
+                "ms_per_step": 1e3 * sum(step_s[1:]) / (DP_STEPS - 1),
+                "peak_hbm_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "comm_bytes_per_step": {
+                    op: b / DP_STEPS for op, b in
+                    comms_logger.bytes_by_op().items()},
+                "k6_launches_per_step": op_builder.launches[
+                    "quantize_blocks"] / DP_STEPS,
+                "k6_calls": k6_ms[-1],
+                "flat_values": eng._zeropp_padded if eng._zeropp else None}
+            if eng._zeropp:
+                # after the counts: K6 on this step's buffers against its
+                # plain version (these launches are the comparison's)
+                checks["on"] = True
+                eng.train_batch(iter(batch))
+                checks["on"] = False
+                runs[name]["k6_vs_plain"] = list(checks["done"])
+            del eng
+    finally:
+        quantizer.quantize_blocks_kernel = k6
+        comms_logger.enabled = False
+    exact, quant = runs["exact"], runs["qwz_qgz"]
+    _K6_IN_STEP[:] = [{"ms": ms, "values": n, "dtype": dt}
+                      for ms, n, dt in quant["k6_calls"]]
+    quant["loss_rel_err_vs_exact"] = max(
+        abs(a - b) / abs(b) for a, b in zip(quant["losses"],
+                                            exact["losses"]))
+    base = _TP1_TRAIN.get("stage0")
+    for name, run in runs.items():
+        if base is not None and name == "exact":
+            run["loss_rel_err_vs_engine_stage0"] = max(
+                abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                    base["losses"]))
+        emit(dict(run, phase="tp_zeropp", part="c", run=name,
+                  model="llama3-" + TRAIN_MODEL[0], dtype="bfloat16",
+                  world=1, backend="nccl", nvidia_smi=smi))
+    return runs, launches
+
+
+def phase_tp_zeropp(smi: str) -> dict:
+    """Tensor parallelism and ZeRO++. Two ranks share the card over gloo
+    (tools/gloo_cuda_probe.py found every collective the TP path calls
+    working on CUDA tensors; NCCL refuses two ranks on one card), so tp 2
+    runs as two processes on it, each holding its shards. (a) Llama-3 8B
+    through ``init_inference`` at tp 2, bf16 and int8 (``qmatmul_tp`` over
+    K5a), against tp 1 on the same weights: prefill logits within
+    TP_LOGIT_TOL of the largest, greedy tokens matched of TP_SERVE_NEW
+    (reported: random-weight logits are nearly flat), the same at depth 2
+    in fp32 within TP_FP32's tolerance with identical tokens, ms
+    a token per rank (eager: a gloo group's collectives cannot be
+    captured), peak HBM per rank, all-reduce bytes a token. (b) phase 7's
+    engine at tp 2, stage 0, against phase 12's tp-1 run; K1/K3
+    launches at 8 local heads. (b') fp32 at depth 2, the card's ranks
+    against two CPU ranks, both tp 2, losses within TP_SMALL_TOL. (c)
+    ZeRO++ at stage 2 on one NCCL rank: exact against qwZ + qgZ, K6
+    inside the step, and K6 on the step's own buffers against its plain
+    version. Returns the launches of (a)-(c)."""
+    import gc
+    import multiprocessing as mp
+    import pickle
+    import tempfile
+    import torch
+    from deepspeed_tpu_torch import comm, init_inference, llama3_config
+    from deepspeed_tpu_torch.ops import op_builder
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="tp_", dir=os.path.join(here, "build"))
+    small_data = _dp_small_data(_dp_small_model().vocab_size)
+    ctx = mp.get_context("spawn")
+    cpu_outs = [os.path.join(work, f"cpu{r}.pkl") for r in range(2)]
+    cpu = [ctx.Process(target=_tp_cpu_rank, args=(
+        r, 2, os.path.join(work, "cpu_store"), cpu_outs[r], small_data))
+        for r in range(2)]
+    card_outs = [os.path.join(work, f"card{r}.pkl") for r in range(2)]
+    card = [ctx.Process(target=_tp_card_rank, args=(
+        r, 2, os.path.join(work, "card_store"), card_outs[r], small_data))
+        for r in range(2)]
+    launches = {k: 0 for k in op_builder.launches}
+    t_start = time.perf_counter()
+    for p in cpu:
+        p.start()
+    try:
+        # (c) ZeRO++ in this process, over one NCCL rank
+        comm.init_distributed(init_method="file://" + os.path.join(
+            work, "nccl_store"), num_processes=1, process_id=0)
+        zpp, zl = _zeropp_runs(smi)
+        for k, v in zl.items():
+            launches[k] += v
+        comm.destroy_distributed()
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (a)'s tp-1 reference in this process (one device, no group)
+        cfg = llama3_config(V1_LLAMA[0], **V1_LLAMA[1])
+        prompts = np.random.default_rng(60).integers(
+            0, cfg.vocab_size, size=(V1_BATCH, V1_PROMPT)).astype(np.int32)
+        t_ref = time.perf_counter()
+        ref = {}
+        for mode in (None, "int8"):
+            conf = {"dtype": "bfloat16"}
+            if mode:
+                conf["weight_quant"] = mode
+            torch.cuda.reset_peak_memory_stats()
+            eng = init_inference(cfg, conf, generator=torch.Generator(
+                device=DEV).manual_seed(61), device=DEV)
+            ref[mode or "bf16"] = dict(
+                _tp_serve(eng, prompts, TP_SERVE_NEW),
+                peak_hbm_gb=torch.cuda.max_memory_allocated() / 1e9)
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        ref_fp32 = _tp_fp32_serve(llama3_config, 1)
+        ref_seconds = time.perf_counter() - t_ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (a), (b), (b') on the card's two ranks
+        for p in card:
+            p.start()
+        for p in card + cpu:
+            p.join(max(0.0, TP_RANK_TIMEOUT_S - (time.perf_counter()
+                                                 - t_start)))
+        got = []
+        for p, out in zip(card + cpu, card_outs + cpu_outs):
+            assert not p.is_alive(), "a tensor-parallel rank still runs"
+            with open(out, "rb") as fh:
+                r = pickle.load(fh)
+            assert "error" not in r, r["error"]
+            got.append(r)
+    finally:
+        for p in card + cpu:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        comm.destroy_distributed()
+        import shutil
+        shutil.rmtree(work, ignore_errors=True)
+    ranks, cpu_res = got[:2], got[2:]
+    # (a)
+    serve = {}
+    for mode, want in ref.items():
+        r0 = ranks[0]["serve"][mode]
+        rel = float(np.abs(r0["logits"] - want["logits"]).max()
+                    / np.abs(want["logits"]).max())
+        match = int((r0["tokens"] == want["tokens"]).sum())
+        serve[mode] = {
+            "prefill_logits_rel_err_vs_tp1": rel,
+            "greedy_tokens_matched": match,
+            "greedy_tokens": int(want["tokens"].size),
+            "first_token_matched": int((r0["first"] == want["first"]).sum()),
+            "ranks_agree": bool(np.array_equal(
+                r0["tokens"], ranks[1]["serve"][mode]["tokens"])),
+            "decode_ms_per_token_per_rank": [
+                r["serve"][mode]["decode_ms_per_token"] for r in ranks],
+            "decode_ms_per_token_tp1": want["decode_ms_per_token"],
+            "prefill_ms_per_rank": [r["serve"][mode]["prefill_ms"]
+                                    for r in ranks],
+            "prefill_ms_tp1": want["prefill_ms"],
+            "peak_hbm_gb_per_rank": [r["serve"][mode]["peak_hbm_gb"]
+                                     for r in ranks],
+            "peak_hbm_gb_tp1": want["peak_hbm_gb"],
+            "comm_bytes_per_token": r0["comm_bytes_per_token"],
+            "wq_local": r0["wq_local"], "graphs": r0["graphs"],
+            "launches_per_rank": [{k: v for k, v in
+                                   r["serve"][mode]["launches"].items()
+                                   if v} for r in ranks]}
+        emit(dict(serve[mode], phase="tp_zeropp", part="a",
+                  model="llama3-8b", tp=2, weight_quant=mode,
+                  batch=V1_BATCH, prompt=V1_PROMPT, new=TP_SERVE_NEW,
+                  backend="gloo", nvidia_smi=smi))
+    # (a')
+    f0 = ranks[0]["fp32"]
+    fp32_rel = float(np.abs(f0["logits"] - ref_fp32["logits"]).max()
+                     / np.abs(ref_fp32["logits"]).max())
+    emit({"phase": "tp_zeropp", "part": "a_fp32", "tp": 2,
+          "model": "llama3-8b-width-depth2", "dtype": "float32",
+          "logits_rel_err_vs_tp1": fp32_rel, "tol": TP_FP32["tol"],
+          "tp1_reference_seconds": ref_seconds,
+          "tokens_equal": bool(np.array_equal(f0["tokens"],
+                                              ref_fp32["tokens"])),
+          "ranks_agree": bool(np.array_equal(
+              f0["tokens"], ranks[1]["fp32"]["tokens"]))})
+    # (b)
+    train_heads = llama3_config(TRAIN_MODEL[0], **TRAIN_MODEL[1]).num_heads
+    train = {}
+    for name, _ in TP_TRAIN_STAGES:
+        r0 = ranks[0]["train"][name]
+        base = _TP1_TRAIN[name]["losses"][:TP_TRAIN_STEPS]
+        train[name] = {
+            "losses": r0["losses"], "losses_tp1": base,
+            "loss_rel_err_vs_tp1": max(abs(a - b) / abs(b)
+                                       for a, b in zip(r0["losses"], base)),
+            "ranks_agree": r0["losses"] == ranks[1]["train"][name]["losses"],
+            "ms_per_step_per_rank": [r["train"][name]["ms_per_step"]
+                                     for r in ranks],
+            "ms_per_step_tp1": _TP1_TRAIN[name]["ms_per_step"],
+            "peak_hbm_gb_per_rank": [r["train"][name]["peak_hbm_gb"]
+                                     for r in ranks],
+            "peak_hbm_gb_tp1": _TP1_TRAIN[name]["peak_hbm_gb"],
+            "comm_bytes_per_step": r0["comm_bytes_per_step"],
+            "local_heads": r0["local_heads"],
+            "launches_per_rank": [{k: r["train"][name]["launches"][k]
+                                   for k in TRAIN_KERNELS} for r in ranks]}
+        emit(dict(train[name], phase="tp_zeropp", part="b",
+                  model="llama3-" + TRAIN_MODEL[0], tp=2, stage=name,
+                  dtype="bfloat16", backend="gloo", nvidia_smi=smi))
+    # (b')
+    small_rel = max(abs(a - b) / abs(b) for a, b in
+                    zip(ranks[0]["small"], cpu_res[0]["losses"]))
+    emit({"phase": "tp_zeropp", "part": "b_fp32", "tp": 2,
+          "model": "llama3-1b-width-depth2-vocab32k", "dtype": "float32",
+          "losses_card": ranks[0]["small"], "losses_cpu": cpu_res[0][
+              "losses"], "loss_rel_err": small_rel, "tol": TP_SMALL_TOL,
+          "cpu_launches": cpu_res[0]["launches"]})
+    emit({"phase": "tp_zeropp", "part": "reduced",
+          "cuts": ["(b') depth 2 and vocabulary 32,000 (DP_SMALL: CPU time)",
+                   "(a) 32 new tokens (phase 11: 128), decode eager on "
+                   "gloo",
+                   "(b) stage 0 only, 2 steps (the script's time limit; "
+                   "stage 3 under TP is held on the CPU)"]})
+    # the launches of (a) and (b) on both ranks, and (c)'s
+    for r in ranks:
+        for part in list(r["serve"].values()) + list(r["train"].values()):
+            for k, v in part["launches"].items():
+                launches[k] += v
+    for mode, s in serve.items():
+        assert s["prefill_logits_rel_err_vs_tp1"] <= TP_LOGIT_TOL, (mode, s)
+        assert s["ranks_agree"], s
+        assert s["wq_local"][-1] * 2 == cfg.q_dim, s
+    assert fp32_rel <= TP_FP32["tol"], fp32_rel
+    assert np.array_equal(f0["tokens"], ref_fp32["tokens"])
+    assert ranks[0]["serve"]["int8"]["launches"]["quantized_matmul"] > 0
+    for name, t in train.items():
+        assert all(np.isfinite(t["losses"])) and t["ranks_agree"], t
+        assert t["loss_rel_err_vs_tp1"] <= DP_LOSS_TOL, (name, t)
+        assert t["local_heads"] == train_heads // 2, t
+        for lr in t["launches_per_rank"]:
+            assert lr["flash_attention_fwd"] > 0 and \
+                lr["flash_attention_bwd"] > 0, t
+    assert small_rel <= TP_SMALL_TOL and cpu_res[0]["launches"] == 0
+    exact, quant = zpp["exact"], zpp["qwz_qgz"]
+    assert quant["k6_launches_per_step"] == 2, quant
+    # K6 on the step's 1.269 B-value buffers, bf16 (qwZ) and fp32 (qgZ)
+    assert sorted(c["dtype"] for c in quant["k6_vs_plain"]) == [
+        "bfloat16", "float32"], quant["k6_vs_plain"]
+    for c in quant["k6_vs_plain"]:
+        assert c["values"] == quant["flat_values"], c
+        assert c["q_mismatches"] == 0 and c["scale_mismatches"] == 0, c
+    assert quant["loss_rel_err_vs_exact"] <= ZEROPP_LOSS_TOL, quant
+    assert exact["k6_launches_per_step"] == 0, exact
     return launches
 
 
@@ -5766,6 +6379,12 @@ def main() -> int:
         run(phase_train_dp, smi)
         emit({"phase": "seconds", **seconds})
         return 0
+    if "--tp-zeropp-only" in sys.argv[1:]:
+        # phases 12 and 13 (13 holds tp 2 against 12's tp-1 runs)
+        run(phase_train_dp, smi)
+        run(phase_tp_zeropp, smi)
+        emit({"phase": "seconds", **seconds})
+        return 0
     rng = np.random.default_rng(0)
     timed = run(phase_kernels, rng)
     grouped = run(phase_grouped, rng)
@@ -5796,6 +6415,7 @@ def main() -> int:
     paths["train_moe"] = run(phase_train_moe)
     paths["train_mixtral"] = run(phase_train_mixtral)
     paths["train_dp"] = run(phase_train_dp, smi)
+    paths["tp_zeropp"] = run(phase_tp_zeropp, smi)
     emit({"phase": "seconds", **seconds})
 
     # launches: over the main paths (dense serving and MoE serving, phase
@@ -5811,8 +6431,9 @@ def main() -> int:
     # the quantized matmuls' at decode (M 16) on Llama-3 8B's MLP up
     # projection (4096 x 14336; int8 for K5a, int4 for K5b) and on
     # Mixtral's experts (G 8; int8 for K5c), every other shape and format
-    # in phase 3's qmm_* lines; K6 at Llama-3 1B's gradient size, on no
-    # path (it is held by phase 3 alone)
+    # in phase 3's qmm_* lines; K6 at Llama-3 1B's gradient size (phase
+    # 3), its launches on ZeRO++'s path (phase 13 (c)), with its device
+    # ms inside that step beside them
     rows = [("flash_attention_fwd",
              "deepspeed_tpu_torch/ops/csrc/flash_attention.cu",
              "deepspeed_tpu/ops/flash_attention.py:71", timed["train_fwd"],
@@ -5902,6 +6523,8 @@ def main() -> int:
     for row in kernels:
         if row["name"] in also:
             row["also_replaces"] = also[row["name"]]
+        if row["name"] == "quantize_blocks":
+            row["in_zeropp_step"] = _K6_IN_STEP
         if row["name"] in QUANT_FORM_LAUNCHES:
             row["launches_by_regime"] = QUANT_FORM_LAUNCHES[row["name"]]
             row["launches_by_shape"] = QUANT_SHAPE_LAUNCHES[row["name"]]

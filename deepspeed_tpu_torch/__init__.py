@@ -16,7 +16,10 @@ and ``DeepSpeedEngine.train_batch`` (the port of ``DeepSpeedTPUEngine``)
 train them, MoE models through the dropless grouped FFN or the capacity
 layer (the config's ``moe`` section), on one device or data parallel
 with ZeRO stages 0-3 over ``torch.distributed`` (:func:`build_mesh`,
-:mod:`deepspeed_tpu_torch.comm`). ``ServingFrontend``
+:mod:`deepspeed_tpu_torch.comm`), tensor parallel over its 'model' axis
+(:func:`tp_model_init`, the ``tensor_parallel`` section; the v1 and
+encoder engines serve at ``tp_size`` > 1 too), or with ZeRO++'s
+quantized collectives. ``ServingFrontend``
 (:mod:`deepspeed_tpu_torch.serving`) serves request streams over the
 engine: admission with back-pressure, the radix prefix cache over
 copy-on-write pages, SplitFuse budgets, decode megasteps, streaming,
@@ -60,6 +63,54 @@ from deepspeed_tpu_torch.runtime.engine import (DeepSpeedEngine, ModelSpec,
                                                 initialize)
 from deepspeed_tpu_torch.serving import ServingFrontend
 
+
+def tp_model_init(model, tp_size: int, dtype, config=None, generator=None,
+                  device=None):
+    """Initialize a model tensor-parallel (deepspeed_tpu/__init__.py:52;
+    reference deepspeed/__init__.py:380). Uses the live mesh, whose
+    'model' axis must be ``tp_size`` (another one raises the JAX
+    ``ValueError`` and stays live), or builds ``build_mesh(model=tp_size)``
+    over the ranks. Draws the tree from ``generator`` (seed 0 on the
+    device by default) in ``dtype`` on the device slice by slice and
+    keeps only this rank's 'model' block of each leaf
+    (``partition_specs(tp=True)``; ``init_params(tp=...)``), so every
+    rank holds a shard of the same model whatever tp and the full tree
+    never exists. ``initialize(params=...)`` takes the shards as they
+    are. ``config`` is accepted for the reference's signature and
+    ignored with a warning. ``device``: None means CUDA. Returns
+    ``(params, mesh)``."""
+    import torch
+    from deepspeed_tpu_torch.accelerator.real_accelerator import get_device
+    from deepspeed_tpu_torch.models import transformer
+    from deepspeed_tpu_torch.parallel.mesh import get_mesh, has_mesh
+    from deepspeed_tpu_torch.utils.logging import logger
+    if config is not None:
+        logger.warning(
+            "tp_model_init: config is a reference-parity argument and "
+            "is ignored; pass the dict to deepspeed_tpu_torch.initialize()")
+    if has_mesh():
+        mesh = get_mesh()
+        if mesh.shape.get("model", 1) != tp_size:
+            raise ValueError(
+                f"tp_model_init(tp_size={tp_size}) conflicts with the "
+                f"live mesh (model axis {mesh.shape.get('model', 1)}); "
+                "build_mesh(model=tp_size, ...) with your full topology "
+                "first — silently replacing the process mesh would "
+                "invalidate it for everything else")
+    else:
+        mesh = build_mesh(model=tp_size)
+    dev = get_device(device)
+    tdt = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+           "float32": torch.float32, "fp32": torch.float32,
+           "float16": torch.float16, "fp16": torch.float16}.get(
+        str(dtype), dtype)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        params = transformer.init_params(
+            model, generator, tdt, dev, tp=(tp_size, mesh.coord("model")))
+    return params, mesh
+
 __all__ = ["RaggedInferenceEngine", "RaggedInferenceConfig",
            "init_inference", "InferenceEngine", "DeepSpeedTPUInferenceConfig",
            "EncoderInference", "init_encoder_inference",
@@ -71,4 +122,4 @@ __all__ = ["RaggedInferenceEngine", "RaggedInferenceConfig",
            "gptneox_config", "gpt_bigcode_config", "qwen2_moe_config",
            "gptj_config", "phi_config", "opt_config", "gemma_config",
            "bloom_config", "bert_config", "distilbert_config",
-           "gptneo_config", "internlm_config"]
+           "gptneo_config", "internlm_config", "tp_model_init"]

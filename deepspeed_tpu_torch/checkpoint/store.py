@@ -93,12 +93,15 @@ _NP_VIEWS = {torch.int16: np.int16, torch.uint8: np.uint8}
 
 class ShardedLeaf:
     """This process's block ``local`` of a leaf of shape ``full_shape``,
-    starting at ``start`` (full-leaf coordinates)."""
+    starting at ``start`` (full-leaf coordinates). ``write`` False: another
+    process holds the same block and writes it (a replica over an axis
+    the leaf is not cut on, as the JAX store skips ``replica_id > 0``)."""
 
-    def __init__(self, local, full_shape, start):
+    def __init__(self, local, full_shape, start, write: bool = True):
         self.local = local
         self.full_shape = [int(v) for v in full_shape]
         self.start = [int(v) for v in start]
+        self.write = bool(write)
 
     @property
     def stop(self) -> List[int]:
@@ -342,6 +345,8 @@ def save_checkpoint(save_dir: str, tag: str, state: Dict[str, Pytree],
         os.makedirs(gdir, exist_ok=True)
         for key, leaf in _leaf_paths(tree).items():
             if isinstance(leaf, ShardedLeaf):
+                if not leaf.write:
+                    continue
                 arr, dtype = _snapshot(leaf.local)
                 full, start, stop = leaf.full_shape, leaf.start, leaf.stop
             elif pidx != 0:

@@ -2,7 +2,7 @@
 ``deepspeed_tpu/comm``): process setup, the collectives by mesh axis
 name, the coalesced collectives and the comms logger. ``benchmark.py``
 waits for ROADMAP A, 'Observability, fleet and tools', and
-``quantized.py`` for ZeRO++ ('Parallelism breadth')."""
+``quantized.py`` holds ZeRO++'s quantized collectives."""
 
 from deepspeed_tpu_torch.comm.comm import (
     all_gather,
@@ -10,7 +10,9 @@ from deepspeed_tpu_torch.comm.comm import (
     all_to_all,
     axis_index,
     barrier,
+    copy_to_model,
     destroy_distributed,
+    gather_from_model,
     get_local_rank,
     get_rank,
     get_world_size,
@@ -18,6 +20,7 @@ from deepspeed_tpu_torch.comm.comm import (
     is_initialized,
     log_summary,
     ppermute,
+    reduce_from_model,
     reduce_scatter,
     send_recv_next,
     send_recv_prev,
@@ -29,5 +32,6 @@ __all__ = [
     "get_local_rank", "barrier", "all_reduce", "all_gather",
     "reduce_scatter", "all_to_all", "ppermute", "send_recv_next",
     "send_recv_prev", "axis_index", "comms_logger", "log_summary",
-    "destroy_distributed",
+    "destroy_distributed", "copy_to_model", "reduce_from_model",
+    "gather_from_model",
 ]

@@ -387,3 +387,75 @@ def log_summary(show_straggler: bool = False) -> None:
     """comm.py:212: the comms_logger table; with ``show_straggler`` a
     collective every rank must call."""
     comms_logger.log_summary(show_straggler=show_straggler)
+
+
+# ---------------------------------------------------------------------------
+# Differentiable tensor-parallel collectives
+# ---------------------------------------------------------------------------
+# Under ``shard_map`` the JAX ``lax.psum`` and ``lax.all_gather`` carry
+# their own transposes, and GSPMD inserts the row- and vocab-parallel
+# collectives from the 'model' annotations. Here the model code calls
+# these three explicitly; each collective goes through the facade above,
+# so the comms logger records it.
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.axis), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, partial):
+        ctx.axis, ctx.dim, ctx.partial = axis, dim, partial
+        ctx.n = x.shape[dim]
+        return all_gather(x, axis, axis=dim, tiled=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            return reduce_scatter(g, ctx.axis, axis=ctx.dim), None, None, \
+                None
+        me = axis_index(ctx.axis)
+        return g.narrow(ctx.dim, me * ctx.n, ctx.n).contiguous(), None, \
+            None, None
+
+
+def copy_to_model(x: torch.Tensor, axis: AxisName = "model"
+                  ) -> torch.Tensor:
+    """The input of a column-parallel product: the identity forward, an
+    all-reduce of the gradient over ``axis`` backward."""
+    return _CopyToModel.apply(x, axis)
+
+
+def reduce_from_model(x: torch.Tensor, axis: AxisName = "model"
+                      ) -> torch.Tensor:
+    """After a row-parallel product: the sum over ``axis`` forward, the
+    identity backward."""
+    return _ReduceFromModel.apply(x, axis)
+
+
+def gather_from_model(x: torch.Tensor, axis: AxisName = "model",
+                      dim: int = -1, partial: bool = False
+                      ) -> torch.Tensor:
+    """The ranks' blocks concatenated along ``dim`` forward; backward,
+    this rank's block of the gradient, or, with ``partial`` (each rank's
+    consumer gives only part of the gradient), its block of the sum over
+    ``axis`` (the transpose of ``lax.all_gather``)."""
+    return _GatherFromModel.apply(x, axis, dim % x.dim(), partial)

@@ -355,8 +355,11 @@ class ZeroConfig(TPUConfigModel):
     ``overlap_comm`` with ``overlap_bucket_bytes``, ``overlap_prefetch``
     and ``overlap_regather`` drive the stage-3 layer loop
     (``runtime/zero/overlap.py``). The offload blocks select the host and
-    NVMe tiers (one device only). ZenFlow and the ZeRO++ and MiCS knobs
-    are not ported and raise."""
+    NVMe tiers (one device only). ``zero_quantized_weights`` (qwZ) and
+    ``zero_quantized_gradients`` (qgZ) select ZeRO++
+    (``runtime/zero/zeropp.py``). ZenFlow, hpZ
+    (``zero_hpz_partition_size`` > 1) and MiCS are not ported and
+    raise."""
     stage: int = 0
     reduce_bucket_size: Union[int, str] = 500_000_000
     allgather_bucket_size: Union[int, str] = 500_000_000
@@ -369,6 +372,11 @@ class ZeroConfig(TPUConfigModel):
     offload_param: OffloadParamConfig = Field(
         default_factory=OffloadParamConfig)
     zenflow: Optional[Dict[str, Any]] = None
+    #: ZeRO++ (config.py:250-252): int8 block-quantized weight all-gather
+    #: and gradient reduce-scatter
+    zero_quantized_weights: bool = False
+    zero_quantized_gradients: bool = False
+    zero_hpz_partition_size: int = 1
 
     @model_validator(mode="after")
     def _ported(self):
@@ -396,6 +404,12 @@ class ZeroConfig(TPUConfigModel):
                 "zero_optimization.zenflow is not ported to "
                 "deepspeed_tpu_torch yet (ROADMAP A, 'Offload': ZenFlow "
                 "waits on the reference's red ZenFlow tests)")
+        if self.zero_hpz_partition_size > 1:
+            raise NotImplementedError(
+                f"zero_optimization.zero_hpz_partition_size = "
+                f"{self.zero_hpz_partition_size} (hpZ secondary shards) is "
+                f"not ported to deepspeed_tpu_torch yet (ROADMAP A, "
+                f"'Parallelism breadth')")
         extra = set(self.model_extra or {}) - _ZERO_NOOP_KEYS
         if extra:
             raise NotImplementedError(
@@ -404,10 +418,27 @@ class ZeroConfig(TPUConfigModel):
         return self
 
 
+class TensorParallelConfig(TPUConfigModel):
+    """``tensor_parallel`` (config.py:284): the size of the 'model' mesh
+    axis; ``autotp_size`` merges into ``tp_size``, and a ``tp_size``
+    above 1 enables the section."""
+    enabled: bool = False
+    autotp_size: int = 1
+    tp_size: int = 1
+    tp_grain_size: int = 1
+
+    @model_validator(mode="after")
+    def _merge(self) -> "TensorParallelConfig":
+        if self.autotp_size > 1 and self.tp_size == 1:
+            object.__setattr__(self, "tp_size", self.autotp_size)
+        if self.tp_size > 1:
+            object.__setattr__(self, "enabled", True)
+        return self
+
+
 #: sections of the JAX config this slice does not run, with the values
 #: that leave them off; a key outside its table, or another value, raises
 _UNPORTED_SECTIONS: Dict[str, Dict[str, Any]] = {
-    "tensor_parallel": {"enabled": False, "autotp_size": 1, "tp_size": 1},
     "pipeline": {"stages": 1},
     "sequence_parallel": {"size": 1},
     "flops_profiler": {"enabled": False},
@@ -492,6 +523,8 @@ class DeepSpeedConfig(TPUConfigModel):
     activation_checkpointing: ActivationCheckpointingConfig = Field(
         default_factory=ActivationCheckpointingConfig)
     moe: MoEConfig = Field(default_factory=MoEConfig)
+    tensor_parallel: TensorParallelConfig = Field(
+        default_factory=TensorParallelConfig)
     telemetry: TelemetryConfig = Field(default_factory=TelemetryConfig)
     serving: ServingConfig = Field(default_factory=ServingConfig)
     resilience: ResilienceConfig = Field(default_factory=ResilienceConfig)

@@ -24,7 +24,7 @@ import torch
 from deepspeed_tpu_torch.inference.engine import (_parse_config,
                                                   setup_engine_params)
 from deepspeed_tpu_torch.models.transformer import (DecoderConfig, forward,
-                                                    forward_hidden)
+                                                    forward_hidden, with_tp)
 from deepspeed_tpu_torch.utils.logging import log_dist
 
 
@@ -44,12 +44,16 @@ class EncoderInference:
                 "EncoderInference is for bidirectional (causal=False) "
                 "models; use InferenceEngine / the ragged engine for "
                 "decoder models")
-        self.model_config = model
         self.config = config
-        self.device, self.dtype, self.params, _ = setup_engine_params(
-            model, config, params, generator, device, mesh)
-        log_dist(f"encoder engine ready: dtype={config.dtype} "
-                 f"device={self.device}")
+        self.device, self.dtype, self.params, _, self.mesh = \
+            setup_engine_params(model, config, params, generator, device,
+                                mesh)
+        # tensor parallelism (encoder.py:37-60): this rank's 'model'
+        # shards, the MLM logits gathered over the axis
+        self.tp_size = self.mesh.shape["model"] if self.mesh else 1
+        self.model_config = with_tp(model, self.tp_size)
+        log_dist(f"encoder engine ready: tp={self.tp_size} "
+                 f"dtype={config.dtype} device={self.device}")
 
     def __call__(self, input_ids: Union[np.ndarray, Sequence[Sequence[int]]],
                  attention_mask: Optional[np.ndarray] = None,

@@ -32,8 +32,19 @@ quantized-matmul kernels (``ops/csrc/quantized_linear.cu``) and MoE
 layers the capacity path. The attention itself is plain PyTorch on the
 card too, as in the JAX package, where it runs outside any Pallas kernel.
 
-Tensor parallelism (``tensor_parallel.tp_size`` > 1) and a mesh raise
-``NotImplementedError``.
+Tensor parallelism (``tensor_parallel.tp_size`` > 1, or a mesh whose
+'model' axis is above 1) runs one rank a 'model' position over
+``torch.distributed``: each rank keeps its shards of the weights
+(:func:`~deepspeed_tpu_torch.models.transformer.tp_specs`: q/k/v and the
+MLP inputs column-parallel, the ``wo`` projections row-parallel with an
+all-reduce after them, the vocabulary of the embedding and the head
+split, int8/fp8 weights with their scales through ``qmatmul_tp``), and
+its kv heads in the cache: KvH/tp where that divides, else one for each
+of its query heads. The logits are gathered over 'model' before
+sampling, so every rank samples the same tokens. Collectives cannot be
+captured in a CUDA graph on a gloo group, so there the decode step runs
+eagerly. Packed int4/fp6 weights under TP raise the JAX ``ValueError``;
+a mesh whose other axes exceed 1 raises ``NotImplementedError``.
 """
 
 import time
@@ -49,10 +60,13 @@ from deepspeed_tpu_torch.inference.engine_v2 import (_DTYPES,
                                                      _capture_stream,
                                                      _sample_tokens)
 from deepspeed_tpu_torch.models.transformer import (DecoderConfig,
-                                                    alibi_slopes, forward,
+                                                    alibi_slopes,
+                                                    cache_kv_heads, forward,
                                                     forward_with_cache,
                                                     init_kv_cache,
-                                                    init_params)
+                                                    init_params,
+                                                    shard_model_axis,
+                                                    tp_specs, with_tp)
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops.quantized_linear import (cast_quantized_tree,
                                                       is_quantized_tree,
@@ -99,12 +113,28 @@ def setup_engine_params(model: DecoderConfig,
     dtype, then ``quantize_param_tree``; a pre-quantized tree (scale
     leaves, e.g. ``dstpu_quantize``'s output) — cast by
     ``cast_quantized_tree``'s rules, and ``weight_quant`` set beside it
-    raises."""
+    raises.
+
+    Under tensor parallelism (``tp_size`` > 1 or a mesh's 'model' axis;
+    engine.py:143-217) each rank keeps its 'model' shards of the tree
+    (:func:`tp_specs`). Returns ``(device, dtype, params, generator,
+    mesh)``; ``mesh`` is None without tensor parallelism."""
     validate_weight_quant(config.weight_quant)
-    if config.tp_size > 1 or mesh is not None:
-        raise NotImplementedError(
-            "tensor-parallel inference (tp_size > 1, a mesh) is not ported "
-            "to deepspeed_tpu_torch yet (ROADMAP A, 'Parallelism breadth')")
+    mesh = _serving_mesh(config, mesh)
+    tp = mesh.shape["model"] if mesh is not None else 1
+    if config.weight_quant in ("int4", "fp6") and tp > 1:
+        raise ValueError(
+            f"weight_quant={config.weight_quant} requires tp_size=1 / a "
+            "mesh with model axis 1: the packed nibble/6-bit planes "
+            "cannot be sharded (int8/fp8 DO support TP via qmatmul_tp)")
+    if tp > 1 and params is not None and is_quantized_tree(params) and \
+            _has_packed_leaves(params):
+        raise ValueError(
+            "pre-quantized packed (int4/fp6) params require "
+            "tp_size=1 / a mesh with model axis 1: the packed "
+            "nibble/6-bit planes cannot be sharded. Pre-quantized "
+            "int8/fp8 trees DO serve under TP (their leaves place "
+            "TP-sharded and route through qmatmul_tp)")
     dev = get_device(device)
     dtype = _DTYPES[config.dtype]
     if generator is None:
@@ -124,7 +154,38 @@ def setup_engine_params(model: DecoderConfig,
             params = cast_quantized_tree(params, dtype, dev)
             if config.weight_quant:
                 params = quantize_param_tree(params, mode=config.weight_quant)
-    return dev, dtype, params, generator
+        if tp > 1:
+            params = shard_model_axis(params, tp_specs(model, params, tp),
+                                      tp, mesh.coord("model"))
+    return dev, dtype, params, generator, mesh
+
+
+def _has_packed_leaves(params) -> bool:
+    if isinstance(params, dict):
+        return any(_has_packed_leaves(v) for v in params.values())
+    return isinstance(params, torch.Tensor) and params.dtype == torch.uint8
+
+
+def _serving_mesh(config: DeepSpeedTPUInferenceConfig, mesh):
+    """The mesh of a tensor-parallel serving engine: the one given, the
+    live one, or ``build_mesh(model=tp_size)``; None when its 'model'
+    axis is 1 (one device, no collective)."""
+    from deepspeed_tpu_torch.parallel.mesh import (build_mesh, get_mesh,
+                                                   has_mesh)
+    if mesh is None and has_mesh():
+        mesh = get_mesh()
+    if mesh is None and config.tp_size > 1:
+        mesh = build_mesh(model=config.tp_size)
+    if mesh is None:
+        return None
+    big = {a: v for a, v in mesh.shape.items() if a != "model" and v > 1}
+    if big:
+        raise NotImplementedError(
+            f"serving over mesh axes {big}: the v1 and encoder engines "
+            f"run tensor parallelism only; data, sequence, pipeline and "
+            f"expert parallel serving are not ported to "
+            f"deepspeed_tpu_torch yet (ROADMAP A, 'Parallelism breadth')")
+    return mesh if mesh.shape["model"] > 1 else None
 
 
 def _parse_config(config) -> DeepSpeedTPUInferenceConfig:
@@ -150,8 +211,9 @@ class _DecodeState:
     also holds the captured step and what one replay launches."""
 
     def __init__(self, model: DecoderConfig, b: int, tmax: int,
-                 dtype: torch.dtype, device: torch.device):
-        self.cache = init_kv_cache(model, b, tmax, dtype, device)
+                 dtype: torch.dtype, device: torch.device,
+                 kv_heads: Optional[int] = None):
+        self.cache = init_kv_cache(model, b, tmax, dtype, device, kv_heads)
         self.head = b + 4
         self.buf = torch.zeros(self.head + tmax * b, dtype=torch.int32,
                                device=device)
@@ -200,11 +262,18 @@ class InferenceEngine:
                 "InferenceEngine generates autoregressively; encoder "
                 "(bidirectional) models have no decode loop — use "
                 "EncoderInference for BERT-class models")
-        self.model_config = model
         self.config = config
-        self.device, self.dtype, self.params, self._generator = \
+        self.device, self.dtype, self.params, self._generator, self.mesh = \
             setup_engine_params(model, config, params, generator, device,
                                 mesh)
+        self.tp_size = self.mesh.shape["model"] if self.mesh else 1
+        #: the forward's config: the model's, or its TP form
+        self.model_config = with_tp(model, self.tp_size)
+        self._kv_heads = cache_kv_heads(self.model_config, self.params)
+        #: CUDA graphs of the decode step: one device, or collectives on
+        #: NCCL (a gloo group's collectives cannot be captured)
+        self._graphs = self.device.type == "cuda" and (
+            self.tp_size == 1 or _nccl())
         #: MoE: every token routed (engine.py:293-299)
         self._moe_fn = serving_moe_fn(model, config.weight_quant,
                                       self.params, ep=False) \
@@ -253,8 +322,8 @@ class InferenceEngine:
             while len(self._states) >= MAX_DECODE_STATES:
                 self._states.popitem(last=False)
             st = _DecodeState(self.model_config, b, tmax, self.dtype,
-                              self.device)
-            if self.device.type == "cuda":
+                              self.device, self._kv_heads)
+            if self._graphs:
                 self._capture(st, mode)
         self._states[key] = st
         return st
@@ -376,7 +445,8 @@ class InferenceEngine:
         out = [ids]
         with torch.no_grad():
             cache = init_kv_cache(self.model_config, b,
-                                  self._cache_rows(max_len), self.dtype, dev)
+                                  self._cache_rows(max_len), self.dtype, dev,
+                                  self._kv_heads)
             logits, cache = self._step(torch.from_numpy(ids).to(dev), cache,
                                        0)
             done = np.zeros((b,), bool)
@@ -409,6 +479,11 @@ class InferenceEngine:
         with torch.no_grad():
             return forward(self.model_config, self.params, tokens,
                            moe_fn=self._moe_fn)
+
+
+def _nccl() -> bool:
+    import torch.distributed as dist
+    return dist.is_initialized() and dist.get_backend() == "nccl"
 
 
 def init_inference(model: DecoderConfig, config=None, **kwargs

@@ -374,6 +374,23 @@ class RaggedInferenceEngine:
                 f"{model.sliding_window}; cap max_seq_len at the window")
         validate_weight_quant(config.weight_quant)
         prequantized = params is not None and is_quantized_tree(params)
+        from deepspeed_tpu_torch.parallel.mesh import get_mesh, has_mesh
+        if has_mesh() and get_mesh().shape["model"] > 1:
+            # the ambient-mesh guard (engine_v2.py:240-258): the ragged
+            # engine is single-shard; unpacked int8/fp8 linears would be
+            # served as TP shards by qmatmul_tp. Packed int4/fp6 stay
+            # legal, as in the JAX package.
+            from deepspeed_tpu_torch.inference.engine import \
+                _has_packed_leaves
+            if config.weight_quant in ("int8", "fp8") or (
+                    prequantized and not _has_packed_leaves(params)):
+                raise ValueError(
+                    "RaggedInferenceEngine is single-shard: int8/fp8 "
+                    "quantized linears route through qmatmul_tp, which "
+                    "would shard over the ambient mesh's model axis "
+                    f"(size {get_mesh().shape['model']}). Build a mesh "
+                    "with model=1 for the ragged engine, or use "
+                    "InferenceEngine for TP serving.")
         if prequantized and config.weight_quant:
             raise ValueError(
                 "params are already quantized (scale leaves present); drop "

@@ -40,7 +40,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.accelerator.real_accelerator import get_device
+from deepspeed_tpu_torch.comm import comm
 from deepspeed_tpu_torch.ops.quantized_linear import (SCALE_SUFFIX, qmatmul,
+                                                      qmatmul_tp,
                                                       quantize_weight,
                                                       validate_weight_quant)
 from deepspeed_tpu_torch.ops.xla_attention import masked_probs
@@ -216,6 +218,42 @@ class DecoderConfig:
 # Normalization, embeddings, RoPE
 # ---------------------------------------------------------------------------
 
+@dataclasses.dataclass(frozen=True)
+class TPDecoderConfig(DecoderConfig):
+    """The geometry of a model whose weights are this rank's shards over
+    the 'model' mesh axis (tensor parallelism, ``tp_size`` > 1). The
+    forward reads each group's local width from its weights: a group
+    (attention, MLP, vocabulary) whose dim does not divide by
+    ``tp_size`` holds whole weights and runs replicated."""
+    tp_size: int = 1
+    tp_axis: str = "model"
+
+
+def with_tp(cfg: DecoderConfig, tp_size: int,
+            axis: str = "model") -> DecoderConfig:
+    """``cfg`` for a forward over ``tp_size``-way 'model' shards (``cfg``
+    itself at 1). MoE layers under TP wait for expert parallelism."""
+    if tp_size <= 1:
+        return cfg
+    if cfg.num_experts:
+        raise NotImplementedError(
+            "MoE layers under tensor parallelism (the 'model' sharding of "
+            "expert weights) are not ported to deepspeed_tpu_torch yet "
+            "(ROADMAP A, 'Parallelism breadth': EP)")
+    if cfg.pos_emb == "alibi":
+        raise NotImplementedError(
+            "ALiBi under tensor parallelism is not ported to "
+            "deepspeed_tpu_torch yet (ROADMAP A, 'Parallelism breadth')")
+    base = {f.name: getattr(cfg, f.name)
+            for f in dataclasses.fields(DecoderConfig)}
+    return TPDecoderConfig(**base, tp_size=int(tp_size), tp_axis=axis)
+
+
+def _tp_axis(cfg: DecoderConfig) -> Optional[str]:
+    """The 'model' axis name when ``cfg`` runs over TP shards."""
+    return cfg.tp_axis if getattr(cfg, "tp_size", 1) > 1 else None
+
+
 def _norm(cfg: DecoderConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     """RMSNorm / LayerNorm in fp32, cast back to ``x.dtype``."""
     x32 = x.float()
@@ -246,8 +284,20 @@ def embed_tokens(cfg: DecoderConfig, em: Params, tokens: torch.Tensor,
                  token_type_ids: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
     """Token embedding (+ sqrt(d) scaling, learned positions, token types,
-    embed norm) — transformer.py:281."""
-    x = em["tokens"][tokens.long()]
+    embed norm) — transformer.py:281. A table sharded over 'model'
+    (vocab-parallel) looks up the ids of its rows, zeros the others and
+    sums over the axis."""
+    table = em["tokens"]
+    axis = _tp_axis(cfg)
+    if axis is not None and table.shape[0] < cfg.vocab_size:
+        v_loc = table.shape[0]
+        local = tokens.long() - comm.axis_index(axis) * v_loc
+        own = (local >= 0) & (local < v_loc)
+        x = table[local.clamp(0, v_loc - 1)] * own[..., None].to(
+            table.dtype)
+        x = comm.reduce_from_model(x, axis)
+    else:
+        x = table[tokens.long()]
     if cfg.scale_embeddings:
         x = (x.float() * math.sqrt(cfg.hidden_size)).to(x.dtype)
     if cfg.pos_emb == "learned":
@@ -361,20 +411,34 @@ def default_attention(cfg: DecoderConfig) -> AttentionFn:
 # Block
 # ---------------------------------------------------------------------------
 
-def linear_2d(x: torch.Tensor, p: Params, name: str) -> torch.Tensor:
+def linear_2d(x: torch.Tensor, p: Params, name: str,
+              axis: Optional[str] = None) -> torch.Tensor:
     """``x [..., K] @ p[name] [K, N]`` (transformer.py:549). A
     ``<name>_scale`` leaf marks a weight-only quantized linear, which goes
     through :func:`qmatmul` (the dequant-matmul kernels on CUDA, output in
-    x's dtype); without one it is a plain matmul (differentiable)."""
+    x's dtype); without one it is a plain matmul (differentiable). With
+    ``axis`` the weight is a row-parallel shard (its K rows this rank's)
+    and the product is summed over that axis: :func:`qmatmul_tp`'s "row"
+    role for a quantized weight."""
     w = p[name]
     if name + SCALE_SUFFIX not in p:
-        return torch.matmul(x, w)
+        out = torch.matmul(x, w)
+        return out if axis is None else comm.reduce_from_model(out, axis)
     lead = x.shape[:-1]
-    out = qmatmul(x.reshape(-1, x.shape[-1]), w, p[name + SCALE_SUFFIX])
+    x2 = x.reshape(-1, x.shape[-1])
+    scale = p[name + SCALE_SUFFIX]
+    out = qmatmul(x2, w, scale) if axis is None else \
+        qmatmul_tp(x2, w, scale, "row", axis=axis)
     return out.reshape(*lead, w.shape[-1])
 
 
 def _mlp(cfg: DecoderConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The dense MLP; column-parallel in and row-parallel out when its
+    weights are 'model' shards."""
+    axis = _tp_axis(cfg)
+    tp = axis is not None and p["wi"].shape[-1] < cfg.ffn_size
+    if tp:
+        x = comm.copy_to_model(x, axis)
     if cfg.is_glu:
         gate = linear_2d(x, p, "wg")
         up = linear_2d(x, p, "wi")
@@ -390,23 +454,66 @@ def _mlp(cfg: DecoderConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
         else:
             hidden = F.gelu(hidden, approximate="none"
                             if cfg.activation == "gelu_exact" else "tanh")
-    out = linear_2d(hidden, p, "wo")
+    out = linear_2d(hidden, p, "wo", axis=axis if tp else None)
     if "bo" in p:
         out = out + p["bo"]
     return out
 
 
+def _tp_project(cfg: DecoderConfig, p: Params, x: torch.Tensor,
+                xc: torch.Tensor, name: str, heads: int, q_heads: int,
+                axis: str) -> torch.Tensor:
+    """k or v [B,t,·,Dh] under TP for ``q_heads`` local query heads of
+    ``cfg.num_heads``: this rank's kv heads when they divide, else the
+    whole k/v (gathered from column shards, or computed whole) expanded
+    to one kv head per local query head."""
+    b, t = x.shape[:2]
+    dh = cfg.head_dim
+    w = p[name]
+    bias = p.get("b" + name[1:])
+    whole = w.shape[-1] == heads * dh
+    y = linear_2d(x if whole else xc, p, name)
+    if bias is not None:
+        y = y + bias
+    if not whole and heads % cfg.tp_size == 0:
+        return y.reshape(b, t, heads // cfg.tp_size, dh)
+    if whole:
+        # every rank computes it; each uses it for its own heads only
+        y = comm.copy_to_model(y, axis)
+    else:
+        y = comm.gather_from_model(y, axis, dim=-1, partial=True)
+    y = y.reshape(b, t, heads, dh)
+    first = comm.axis_index(axis) * q_heads
+    idx = torch.arange(first, first + q_heads, device=y.device) // (
+        cfg.num_heads // heads)
+    return y.index_select(2, idx)
+
+
 def qkv_project(cfg: DecoderConfig, p: Params, x: torch.Tensor, sin, cos
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x [B,t,D] → q [B,t,H,Dh], k/v [B,t,KvH,Dh] with bias + RoPE."""
+    """x [B,t,D] → q [B,t,H,Dh], k/v [B,t,KvH,Dh] with bias + RoPE. Under
+    TP the heads are this rank's (``wq`` column shards): H/tp query heads
+    and their kv heads (:func:`_tp_project`)."""
     b, t = x.shape[:2]
-    q = linear_2d(x, p, "wq").reshape(b, t, cfg.num_heads, cfg.head_dim)
-    k = linear_2d(x, p, "wk").reshape(b, t, cfg.kv_heads, cfg.head_dim)
-    v = linear_2d(x, p, "wv").reshape(b, t, cfg.kv_heads, cfg.head_dim)
-    if "bq" in p:
-        q = q + p["bq"].reshape(cfg.num_heads, cfg.head_dim)
-        k = k + p["bk"].reshape(cfg.kv_heads, cfg.head_dim)
-        v = v + p["bv"].reshape(cfg.kv_heads, cfg.head_dim)
+    axis = _tp_axis(cfg)
+    if axis is not None and p["wq"].shape[-1] < cfg.q_dim:
+        xc = comm.copy_to_model(x, axis)
+        hq = p["wq"].shape[-1] // cfg.head_dim
+        q = linear_2d(xc, p, "wq")
+        if "bq" in p:
+            q = q + p["bq"]
+        q = q.reshape(b, t, hq, cfg.head_dim)
+        k = _tp_project(cfg, p, x, xc, "wk", cfg.kv_heads, hq, axis)
+        v = _tp_project(cfg, p, x, xc, "wv", cfg.kv_heads, hq, axis)
+    else:
+        q = linear_2d(x, p, "wq").reshape(b, t, cfg.num_heads,
+                                          cfg.head_dim)
+        k = linear_2d(x, p, "wk").reshape(b, t, cfg.kv_heads, cfg.head_dim)
+        v = linear_2d(x, p, "wv").reshape(b, t, cfg.kv_heads, cfg.head_dim)
+        if "bq" in p:
+            q = q + p["bq"].reshape(cfg.num_heads, cfg.head_dim)
+            k = k + p["bk"].reshape(cfg.kv_heads, cfg.head_dim)
+            v = v + p["bv"].reshape(cfg.kv_heads, cfg.head_dim)
     if cfg.pos_emb == "rope":
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
@@ -419,7 +526,11 @@ def qkv_project(cfg: DecoderConfig, p: Params, x: torch.Tensor, sin, cos
 def attn_out_project(cfg: DecoderConfig, p: Params, out: torch.Tensor
                      ) -> torch.Tensor:
     b, t = out.shape[:2]
-    out = linear_2d(out.reshape(b, t, cfg.q_dim), p, "wo")
+    width = out.shape[2] * out.shape[3]
+    axis = _tp_axis(cfg)
+    out = linear_2d(out.reshape(b, t, width), p, "wo",
+                    axis=axis if axis is not None and width < cfg.q_dim
+                    else None)
     if "bo" in p:
         out = out + p["bo"]
     return out
@@ -498,7 +609,8 @@ def decoder_block(cfg: DecoderConfig, p: Params, x: torch.Tensor, sin, cos,
 
 def init_params(cfg: DecoderConfig, generator: torch.Generator,
                 dtype: torch.dtype = torch.float32,
-                device=None, weight_quant: Optional[str] = None) -> Params:
+                device=None, weight_quant: Optional[str] = None,
+                tp: Optional[Tuple[int, int]] = None) -> Params:
     """Random parameter tree in the JAX layout (transformer.py:721):
     dense layers carry ``mlp``, MoE layers ``moe`` (router [L, d, E],
     wg/wi [L, E, d, f], wo [L, E, f, d], and the shared expert
@@ -519,34 +631,66 @@ def init_params(cfg: DecoderConfig, generator: torch.Generator,
     block. Peak memory is the quantized tree plus one slice and the head,
     so a model whose float tree would not fit the card can start on it
     (the port's counterpart of the JAX engine's host-side init and
-    quantize, engine_v2.py:286-298)."""
+    quantize, engine_v2.py:286-298).
+
+    ``tp=(size, rank)`` gives a float tree's 'model' blocks of this rank
+    (:func:`tp_specs`): each slice is drawn whole, so the numbers are
+    the full tree's, and only the rank's block of it is kept; peak
+    memory is the local tree plus one slice."""
     validate_weight_quant(weight_quant)
     device = generator.device if device is None else torch.device(device)
+    cut: Dict[Tuple[str, ...], int] = {}
+    if tp is not None and tp[0] > 1:
+        if weight_quant:
+            raise ValueError("init_params(tp=...) draws float trees only: "
+                             "quantize the shards' full tree instead")
+        with_tp(cfg, tp[0])             # refuses MoE and ALiBi
+        cut = _model_dims(tp_specs(cfg, init_params(
+            cfg, torch.Generator(), dtype, "meta"), tp[0]))
+    size, rank = tp if cut else (1, 0)
     d, v, L = cfg.hidden_size, cfg.vocab_size, cfg.num_layers
     h = cfg.ffn_size
     kd = cfg.kv_heads * cfg.head_dim
     qd = cfg.q_dim
 
-    def w(shape, std=cfg.init_std):
-        out = torch.empty(shape, dtype=dtype, device=device)
+    def local(shape, at):
+        """(this rank's shape of the leaf at path ``at``, its 'model' dim
+        or None, the block's first index)."""
+        dim = cut.get(at)
+        if dim is None:
+            return tuple(shape), None, 0
+        n = shape[dim] // size
+        return shape[:dim] + (n,) + shape[dim + 1:], dim, rank * n
+
+    def w(shape, std=cfg.init_std, at=()):
+        own, dim, lo = local(tuple(shape), at)
+        out = torch.empty(own, dtype=dtype, device=device)
         step = max(1, INIT_SLICE_VALUES // math.prod(shape[1:]))
         for i in range(0, shape[0], step):
             rows = min(step, shape[0] - i)
-            out[i:i + rows] = torch.randn(
+            part = torch.randn(
                 (rows,) + tuple(shape[1:]), generator=generator,
                 dtype=torch.float32, device=device) * std
+            if dim is None:
+                out[i:i + rows] = part
+            elif dim > 0:
+                out[i:i + rows] = part.narrow(dim, lo, own[dim])
+            else:
+                a, b = max(i, lo), min(i + rows, lo + own[0])
+                if a < b:
+                    out[a - lo:b - lo] = part[a - i:b - i]
         return out
 
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dtype, device=device)
+    def zeros(*shape, at=()):
+        return torch.zeros(local(shape, at)[0], dtype=dtype, device=device)
 
-    def put(group, name, shape, std=cfg.init_std, lead=None):
+    def put(group, name, shape, std=cfg.init_std, lead=None, at=()):
         """A matmul leaf of ``shape`` (stacked, K and N last) drawn as
-        ``w`` draws it, into ``group[name]``, quantized with its
-        ``<name>_scale`` when asked. ``lead`` reshapes the stacked axes
-        (the experts' [L * E] draw to [L, E])."""
+        ``w`` draws it, into ``group[name]`` (path ``at + (name,)``),
+        quantized with its ``<name>_scale`` when asked. ``lead`` reshapes
+        the stacked axes (the experts' [L * E] draw to [L, E])."""
         if not weight_quant:
-            out = w(shape, std)
+            out = w(shape, std, at + (name,))
             group[name] = out if lead is None else \
                 out.view(tuple(lead) + tuple(shape[1:]))
             return
@@ -587,14 +731,17 @@ def init_params(cfg: DecoderConfig, generator: torch.Generator,
 
     out_std = cfg.init_std / math.sqrt(2 * L)
     attn: Params = {}
-    put(attn, "wq", (L, d, qd))
-    put(attn, "wk", (L, d, kd))
-    put(attn, "wv", (L, d, kd))
-    put(attn, "wo", (L, qd, d), std=out_std)
+    ga = ("layers", "attn")
+    put(attn, "wq", (L, d, qd), at=ga)
+    put(attn, "wk", (L, d, kd), at=ga)
+    put(attn, "wv", (L, d, kd), at=ga)
+    put(attn, "wo", (L, qd, d), std=out_std, at=ga)
     if cfg.qkv_bias:
-        attn.update(bq=zeros(L, qd), bk=zeros(L, kd), bv=zeros(L, kd))
+        attn.update(bq=zeros(L, qd, at=ga + ("bq",)),
+                    bk=zeros(L, kd, at=ga + ("bk",)),
+                    bv=zeros(L, kd, at=ga + ("bv",)))
     if cfg.out_bias:
-        attn["bo"] = zeros(L, d)
+        attn["bo"] = zeros(L, d, at=ga + ("bo",))
     layers: Params = {"attn": attn, "ln1": _norm_params(cfg, (L,), device)}
     if cfg.has_ln2:
         layers["ln2"] = _norm_params(cfg, (L,), device)
@@ -630,35 +777,43 @@ def init_params(cfg: DecoderConfig, generator: torch.Generator,
         layers["moe"] = moe
     elif cfg.is_glu:
         layers["mlp"] = {}
-        put(layers["mlp"], "wg", (L, d, h))
-        put(layers["mlp"], "wi", (L, d, h))
-        put(layers["mlp"], "wo", (L, h, d), std=out_std)
+        gm = ("layers", "mlp")
+        put(layers["mlp"], "wg", (L, d, h), at=gm)
+        put(layers["mlp"], "wi", (L, d, h), at=gm)
+        put(layers["mlp"], "wo", (L, h, d), std=out_std, at=gm)
     else:
         layers["mlp"] = {}
-        put(layers["mlp"], "wi", (L, d, h))
-        put(layers["mlp"], "wo", (L, h, d), std=out_std)
+        gm = ("layers", "mlp")
+        put(layers["mlp"], "wi", (L, d, h), at=gm)
+        put(layers["mlp"], "wo", (L, h, d), std=out_std, at=gm)
         if cfg.use_bias:
-            layers["mlp"].update(bi=zeros(L, h), bo=zeros(L, d))
+            layers["mlp"].update(bi=zeros(L, h, at=gm + ("bi",)),
+                                 bo=zeros(L, d, at=gm + ("bo",)))
 
-    params: Params = {"embed": {"tokens": w((v, d))}, "layers": layers}
+    params: Params = {"embed": {"tokens": w((v, d), at=("embed", "tokens"))},
+                      "layers": layers}
     if cfg.has_final_norm:
         params["final_norm"] = _norm_params(cfg, (), device)
     if cfg.embed_norm:
         params["embed_norm"] = _norm_params(cfg, (), device)
     if cfg.pos_emb == "learned":
-        params["embed"]["pos"] = w((cfg.max_seq_len, d))
+        params["embed"]["pos"] = w((cfg.max_seq_len, d), at=("embed", "pos"))
     if cfg.type_vocab_size:
-        params["embed"]["token_type"] = w((cfg.type_vocab_size, d))
+        params["embed"]["token_type"] = w((cfg.type_vocab_size, d),
+                                          at=("embed", "token_type"))
     if cfg.mlm_head:
         # HF cls.predictions (transformer.py:820-826): stays float under
         # weight_quant, as quantize_param_tree leaves it
+        gh = ("mlm_head",)
         params["mlm_head"] = {
-            "dense": w((d, d)), "dense_bias": zeros(d),
-            "ln": _norm_params(cfg, (), device), "vocab_bias": zeros(v)}
+            "dense": w((d, d), at=gh + ("dense",)),
+            "dense_bias": zeros(d, at=gh + ("dense_bias",)),
+            "ln": _norm_params(cfg, (), device),
+            "vocab_bias": zeros(v, at=gh + ("vocab_bias",))}
     if not cfg.tie_embeddings:
         put(params, "lm_head", (d, v))
         if cfg.lm_head_bias:
-            params["lm_head_bias"] = zeros(v)
+            params["lm_head_bias"] = zeros(v, at=("lm_head_bias",))
     elif weight_quant:
         # tied: a transposed quantized logits copy, the table stays float
         params["lm_head_q"], params["lm_head_q" + SCALE_SUFFIX] = \
@@ -744,15 +899,21 @@ def lm_logits(cfg: DecoderConfig, params: Params, x: torch.Tensor,
         mh = params["mlm_head"]
         if not pre_transformed:
             x = mlm_transform(cfg, mh, x)
-        logits = _matmul_f32(x, params["embed"]["tokens"].t())
-        return logits + mh["vocab_bias"].float()
+        logits = _matmul_f32(x, params["embed"]["tokens"].t()) + \
+            mh["vocab_bias"].float()
+        axis = _tp_axis(cfg)
+        if axis is not None and logits.shape[-1] < cfg.vocab_size:
+            logits = comm.gather_from_model(logits, axis, dim=-1)
+        return logits
     q_name = "lm_head_q" if "lm_head_q" in params else \
         ("lm_head" if "lm_head" + SCALE_SUFFIX in params else None)
     if q_name:
         b, t, d = x.shape
-        logits = qmatmul(x.reshape(b * t, d), params[q_name],
-                         params[q_name + SCALE_SUFFIX],
-                         out_dtype=torch.float32).reshape(b, t, -1)
+        mm = qmatmul if _tp_axis(cfg) is None else partial(qmatmul_tp,
+                                                            role="col")
+        logits = mm(x.reshape(b * t, d), params[q_name],
+                    params[q_name + SCALE_SUFFIX],
+                    out_dtype=torch.float32).reshape(b, t, -1)
         if "lm_head_bias" in params:
             logits = logits + params["lm_head_bias"].float()
     elif cfg.tie_embeddings:
@@ -761,6 +922,10 @@ def lm_logits(cfg: DecoderConfig, params: Params, x: torch.Tensor,
         logits = _matmul_f32(x, params["lm_head"])
         if "lm_head_bias" in params:
             logits = logits + params["lm_head_bias"].float()
+    axis = _tp_axis(cfg)
+    if axis is not None and logits.shape[-1] < cfg.vocab_size:
+        # vocab-parallel head: generation gathers the logits over 'model'
+        logits = comm.gather_from_model(logits, axis, dim=-1)
     return _softcap(cfg, logits)
 
 
@@ -931,6 +1096,32 @@ def _ce_chunk(cfg: DecoderConfig, w: torch.Tensor,
     return ((logz - gold) * mask).sum(), mask.sum()
 
 
+def _ce_chunk_tp(cfg: DecoderConfig, w: torch.Tensor,
+                 bias: Optional[torch.Tensor], xc: torch.Tensor,
+                 tc: torch.Tensor, ignore_index: int,
+                 out_dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_ce_chunk` over a vocab-parallel head: this rank's logits
+    columns only; the max, the sum of exponentials and the target logit
+    (from the rank that owns it) are reduced over 'model', and the logits
+    are never gathered (transformer.py:1099)."""
+    axis = cfg.tp_axis
+    logits = _matmul_f32(xc, w.t() if cfg.tie_embeddings else w)
+    if bias is not None:
+        logits = logits + bias.float()
+    logits = _softcap(cfg, logits.to(out_dtype)).float()
+    v_loc = logits.shape[-1]
+    mask = tc != ignore_index
+    m = comm.all_reduce(logits.detach().amax(-1), axis, op="max")
+    sexp = comm.reduce_from_model(
+        torch.exp(logits - m[..., None]).sum(-1), axis)
+    logz = m + torch.log(sexp)
+    local = tc.long() - comm.axis_index(axis) * v_loc
+    own = mask & (local >= 0) & (local < v_loc)
+    gold = torch.gather(logits, -1, local.clamp(0, v_loc - 1)[..., None])
+    gold = comm.reduce_from_model(gold[..., 0] * own, axis)
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
 def chunked_cross_entropy(cfg: DecoderConfig, params: Params,
                           x: torch.Tensor, targets: torch.Tensor,
                           ignore_index: int = -100,
@@ -954,21 +1145,30 @@ def chunked_cross_entropy(cfg: DecoderConfig, params: Params,
         # so the dense shortcut and every chunk decode the serving logits
         x = mlm_transform(cfg, params["mlm_head"], x)
     b, t, _ = x.shape
-    v = cfg.vocab_size
+    w = params["embed"]["tokens"] if cfg.tie_embeddings \
+        else params["lm_head"]
+    axis = _tp_axis(cfg)
+    vocab_tp = axis is not None and not mlm and \
+        w.shape[0 if cfg.tie_embeddings else 1] < cfg.vocab_size
+    v = w.shape[0 if cfg.tie_embeddings else 1] if vocab_tp \
+        else cfg.vocab_size
     eb = 2 if logits_dtype == torch.bfloat16 else 4
     chunk = chunk_size or _pick_chunk(t, b, v, budget_bytes, elt_bytes=eb)
     if chunk >= t and chunk_size is None and \
             b * t * v * 4 > _DENSE_LOGITS_BYTES:
         chunk = _pick_chunk(t, b, v, budget_bytes, max_chunk=t // 2,
                             elt_bytes=eb)
-    if chunk >= t:
+    if chunk >= t and not vocab_tp:
         return cross_entropy_loss(
             lm_logits(cfg, params, x, pre_transformed=True), targets,
             ignore_index, count_fn=count_fn)
+    chunk = min(chunk, t)
     if t % chunk:
         raise ValueError(f"chunk_size {chunk} does not divide T={t}")
-    w = params["embed"]["tokens"] if cfg.tie_embeddings \
-        else params["lm_head"]
+    body = _ce_chunk
+    if vocab_tp:
+        x = comm.copy_to_model(x, axis)
+        body = _ce_chunk_tp
     bias = params["mlm_head"]["vocab_bias"] if mlm else \
         (None if cfg.tie_embeddings else params.get("lm_head_bias"))
     out_dtype = logits_dtype or torch.float32
@@ -978,9 +1178,9 @@ def chunked_cross_entropy(cfg: DecoderConfig, params: Params,
         args = (cfg, w, bias, x[:, c0:c0 + chunk], targets[:, c0:c0 + chunk],
                 ignore_index, out_dtype)
         if torch.is_grad_enabled():
-            n, c = checkpoint(_ce_chunk, *args, use_reentrant=False)
+            n, c = checkpoint(body, *args, use_reentrant=False)
         else:
-            n, c = _ce_chunk(*args)
+            n, c = body(*args)
         nll, cnt = nll + n, cnt + c
     return nll / (cnt.clamp_min(1) if count_fn is None else count_fn(cnt))
 
@@ -1004,12 +1204,25 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
 # KV-cached forward (the v1 engine's; transformer.py:1115-1205)
 # ---------------------------------------------------------------------------
 
+def cache_kv_heads(cfg: DecoderConfig, params: Params) -> int:
+    """The kv heads a rank caches: the model's, or under TP this rank's
+    (KvH/tp where that divides; else one for each of its query heads, as
+    :func:`_tp_project` gives them)."""
+    tp = getattr(cfg, "tp_size", 1)
+    hq = params["layers"]["attn"]["wq"].shape[-1] // cfg.head_dim
+    if tp <= 1 or hq == cfg.num_heads:
+        return cfg.kv_heads
+    return cfg.kv_heads // tp if cfg.kv_heads % tp == 0 else hq
+
+
 def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int,
                   dtype: torch.dtype = torch.bfloat16,
-                  device=None) -> Params:
+                  device=None, kv_heads: Optional[int] = None) -> Params:
     """A static cache {"k", "v"}, each [L, B, max_len, KvH, Dh] zeros
-    (transformer.py:1115), on ``device`` (None → CUDA)."""
-    shape = (cfg.num_layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
+    (transformer.py:1115), on ``device`` (None → CUDA); ``kv_heads``
+    overrides KvH (a TP rank's, :func:`cache_kv_heads`)."""
+    shape = (cfg.num_layers, batch, max_len, kv_heads or cfg.kv_heads,
+             cfg.head_dim)
     dev = get_device(device)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
@@ -1035,8 +1248,8 @@ def _cached_attention(cfg: DecoderConfig, p: Params, x: torch.Tensor, sin,
     qpos = cache_len + torch.arange(t, device=dev)
     k_cache.index_copy_(1, qpos, k.to(k_cache.dtype))
     v_cache.index_copy_(1, qpos, v.to(v_cache.dtype))
-    kvh, dh = cfg.kv_heads, cfg.head_dim
-    qg = q.reshape(b, t, kvh, cfg.num_heads // kvh, dh)
+    h, kvh, dh = q.shape[2], k.shape[2], cfg.head_dim
+    qg = q.reshape(b, t, kvh, h // kvh, dh)
     scores = torch.einsum("btkgd,bskd->bkgts", qg.float(),
                           k_cache.to(q.dtype).float())
     scores = scores / math.sqrt(dh)
@@ -1048,7 +1261,7 @@ def _cached_attention(cfg: DecoderConfig, p: Params, x: torch.Tensor, sin,
                          v_cache.dtype, alibi=alibi,
                          window=min(windows) if windows else None)
     out = torch.einsum("bkgts,bskd->btkgd", probs, v_cache)
-    return attn_out_project(cfg, p, out.reshape(b, t, cfg.num_heads, dh))
+    return attn_out_project(cfg, p, out.reshape(b, t, h, dh))
 
 
 def forward_with_cache(cfg: DecoderConfig, params: Params,
@@ -1095,6 +1308,108 @@ def forward_with_cache(cfg: DecoderConfig, params: Params,
 # Partition specs — the ZeRO-3 (FSDP) sharding planner
 # ---------------------------------------------------------------------------
 
+_TP_GROUPS = (("attn", ("wq", "wk", "wv", "bq", "bk", "bv", "wo")),
+              ("mlp", ("wi", "wg", "bi", "wo")))
+
+
+def fit_tp_specs(specs: Params, params: Params, tp: int) -> Params:
+    """``specs`` with 'model' dropped from every leaf whose 'model' dim
+    does not divide by ``tp`` (replicated, one warning a leaf: the JAX
+    inference rule, engine.py:118-138). The attention's query side and
+    the MLP replicate as a whole when one of their leaves does, so the
+    forward sees whole or sharded groups."""
+    from deepspeed_tpu_torch.utils.logging import logger
+
+    def drop(spec):
+        return tuple(None if e == "model" else e for e in spec)
+
+    def fit(path, p, s):
+        for d, e in enumerate(s):
+            if e == "model" and p.shape[d] % tp:
+                logger.warning(
+                    f"tensor parallelism: '{'/'.join(path)}' dim {d} of "
+                    f"size {p.shape[d]} does not divide by tp={tp}; "
+                    f"replicating")
+                return drop(s)
+        return s
+
+    def walk(path, p, s):
+        if isinstance(p, dict):
+            out = {k: walk(path + (k,), p[k], s[k]) for k in p}
+            for name, members in _TP_GROUPS:
+                if path[-1:] != (name,):
+                    continue
+                lead = "wq" if name == "attn" else "wi"
+                if lead in out and "model" not in out[lead]:
+                    for k in out:
+                        base = k[:-len(SCALE_SUFFIX)] \
+                            if k.endswith(SCALE_SUFFIX) else k
+                        if base in members and not (
+                                name == "attn" and
+                                base in ("wk", "wv", "bk", "bv")):
+                            out[k] = drop(out[k])
+            return out
+        return fit(path, p, s)
+    return walk((), params, specs)
+
+
+def tp_specs(cfg: DecoderConfig, params: Params, tp: int) -> Params:
+    """The 'model' specs of ``params`` at tp, float or weight-quantized
+    (engine.py:113-138's ``_shard_like``): each leaf as
+    ``partition_specs(tp=True)`` at stage 0; a ``<name>_scale`` leaf
+    shards with its weight's output columns (column-parallel) and is
+    whole otherwise; ``lm_head_q`` [D, V] shards V; what does not divide
+    replicates (:func:`fit_tp_specs`)."""
+    base = partition_specs(cfg, 0, tp=True)
+
+    def walk(p, s):
+        out = {}
+        for k, v in p.items():
+            sub = s.get(k) if isinstance(s, dict) else None
+            if isinstance(v, dict):
+                out[k] = walk(v, sub if isinstance(sub, dict) else {})
+                continue
+            if isinstance(sub, tuple):
+                out[k] = sub
+            elif k == "lm_head_q":
+                out[k] = (None,) * (v.dim() - 1) + ("model",)
+            elif k.endswith(SCALE_SUFFIX):
+                w = k[:-len(SCALE_SUFFIX)]
+                ws = (None, "model") if w == "lm_head_q" else s.get(w, ())
+                col = bool(ws) and ws[-1] == "model"
+                out[k] = (None,) * (v.dim() - 1) + (
+                    ("model",) if col else (None,))
+            else:
+                out[k] = (None,) * v.dim()
+        return out
+    return fit_tp_specs(walk(params, base), params, tp)
+
+
+def _model_dims(specs: Params, at: Tuple[str, ...] = ()
+                ) -> Dict[Tuple[str, ...], int]:
+    """{leaf path: its 'model' dim} of a spec tree."""
+    if isinstance(specs, dict):
+        out: Dict[Tuple[str, ...], int] = {}
+        for k, v in specs.items():
+            out.update(_model_dims(v, at + (k,)))
+        return out
+    return {at: d for d, e in enumerate(specs) if e == "model"}
+
+
+def shard_model_axis(params: Params, specs: Params, tp: int,
+                     rank: int) -> Params:
+    """This rank's block of every leaf along its 'model' dim."""
+    def walk(p, s):
+        if isinstance(p, dict):
+            return {k: walk(v, s[k]) for k, v in p.items()}
+        for d, e in enumerate(s):
+            if e == "model":
+                n = p.shape[d] // tp
+                return p.narrow(d, rank * n, n).contiguous()
+        return p
+    return walk(params, specs)
+
+
 def partition_specs(cfg: DecoderConfig, zero_stage: int = 0,
                     tp: bool = False, mics: bool = False) -> Params:
     """The spec tree matching :func:`init_params` (transformer.py:1208):
@@ -1103,17 +1418,18 @@ def partition_specs(cfg: DecoderConfig, zero_stage: int = 0,
     'data_inner', 'expert') on one dim of each weight
     (partition_parameters.py's ds_tensor shards); expert weights take
     ('data', 'data_inner') beside their 'expert' dim. Stages 0-2 leave
-    the params replicated. ``tp`` (AutoTP's row/column specs over
-    'model') and ``mics`` (shards within the MiCS sub-group) are not
-    ported."""
-    if tp or mics:
+    the params replicated. ``tp`` puts 'model' on AutoTP's dims: the
+    output dim of q/k/v and the MLP's input projections (column), the
+    input dim of the attention and MLP outputs (row), the vocabulary of
+    the embedding and the head; the FSDP axes take another dim.
+    ``mics`` (shards within the MiCS sub-group) is not ported."""
+    if mics:
         raise NotImplementedError(
-            f"partition_specs(tp={tp}, mics={mics}): tensor parallelism "
-            f"and MiCS are not ported to deepspeed_tpu_torch yet (ROADMAP "
-            f"A, 'Parallelism breadth')")
+            "partition_specs(mics=True): MiCS is not ported to "
+            "deepspeed_tpu_torch yet (ROADMAP A, 'Parallelism breadth')")
     fsdp = ("data", "data_inner", "expert") if zero_stage >= 3 else None
     efsdp = ("data", "data_inner") if zero_stage >= 3 else None
-    model = None
+    model = "model" if tp else None
 
     def spec(*axes):
         return tuple(axes)

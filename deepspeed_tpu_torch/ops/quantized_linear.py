@@ -536,6 +536,33 @@ def qmatmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
     return quantized_matmul_kernel(x, w_q, scale, out_dtype)
 
 
+def qmatmul_tp(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
+               role: str, out_dtype=None, axis: str = "model"
+               ) -> torch.Tensor:
+    """Tensor-parallel weight-only matmul (quantized_linear.py:430) over
+    this rank's shard, through :func:`qmatmul` (K5 on CUDA).
+
+    role="col" (wq/wk/wv/wi/wg, the lm head): ``w_q`` [K, N/tp] holds this
+    rank's output columns and ``scale`` [N/tp] their scales; the product
+    is this rank's columns. role="row" (the ``wo`` projections): ``w_q``
+    [K/tp, N] holds this rank's input rows, ``x`` [M, K/tp] the matching
+    columns (the col-parallel output before it), ``scale`` [N] is whole,
+    and the products are summed over ``axis`` — the per-output-channel
+    scale commutes with the sum, so applying it per shard is exact. Packed
+    int4/fp6 weights cannot be cut (the engines refuse them under TP)."""
+    if role not in ("col", "row"):
+        raise ValueError(f"qmatmul_tp role must be 'col' or 'row', got "
+                         f"{role!r}")
+    if w_q.dtype == torch.uint8:
+        raise ValueError("qmatmul_tp: packed int4/fp6 weights cannot be "
+                         "tensor-parallel")
+    out = qmatmul(x, w_q, scale, out_dtype=out_dtype)
+    if role == "row":
+        from deepspeed_tpu_torch.comm import comm
+        out = comm.all_reduce(out, axis)
+    return out
+
+
 def qmatmul_batched(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Grouped weight-only matmul (quantized_linear.py:552): x [G, M, K] @

@@ -10,14 +10,17 @@ collective facade (:mod:`deepspeed_tpu_torch.comm`) and the ZeRO plan
 (:mod:`deepspeed_tpu_torch.runtime.zero.sharding`) consume. It keeps
 ``mesh.shape[axis]``.
 
-This slice runs data parallelism only: every rank is one position of
-the ``data`` axis, whose group is the world group. Any other axis above
-1 — ``model`` (tensor), ``seq`` (sequence), ``pipe``, ``expert``, or
-``data_inner`` (MiCS / hpZ) — and a multi-slice ``dcn`` layout raise
-``NotImplementedError`` (ROADMAP A, 'Parallelism breadth').
+Two axes run: ``data`` and ``model`` (tensor parallelism), in the JAX
+rank order, 'model' the fastest: rank ``r`` sits at data ``r // model``
+and model ``r % model``. ``build_mesh`` forms one process group per data
+row (the ranks of one model column share it: their 'data' group) and one
+per model column of ranks (their 'model' group). Any other axis above 1
+— ``seq`` (sequence), ``pipe``, ``expert``, or ``data_inner`` (MiCS /
+hpZ) — and a multi-slice ``dcn`` layout raise ``NotImplementedError``
+(ROADMAP A, 'Parallelism breadth').
 """
 
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 from deepspeed_tpu_torch.utils.logging import log_dist
 
@@ -42,13 +45,17 @@ class Mesh:
     """The named axes over the ranks, and the process group of each.
 
     ``shape``: axis → size over :data:`MESH_AXES` (absent axes are 1).
-    ``group``: the process group of the ``data`` axis (the world group),
-    or None in a process without ``torch.distributed``, where every
-    collective of a size-1 axis is the identity."""
+    ``group``: the world group, or None in a process without
+    ``torch.distributed``, where every collective of a size-1 axis is the
+    identity. ``groups``: this rank's group of the ``data`` and of the
+    ``model`` axis (both the world group when the other axis is 1).
+    ``coords``: this rank's position on each axis."""
 
     axis_names = MESH_AXES
 
-    def __init__(self, shape: Dict[str, int], group=None):
+    def __init__(self, shape: Dict[str, int], group=None,
+                 groups: Optional[Dict[str, Any]] = None,
+                 coords: Optional[Dict[str, int]] = None):
         unknown = set(shape) - set(MESH_AXES)
         if unknown:
             raise ValueError(f"unknown mesh axes {sorted(unknown)}; the "
@@ -58,6 +65,9 @@ class Mesh:
         for v in self.shape.values():
             self.size *= v
         self._group = group
+        self._groups = dict(groups or {"data": group})
+        self.coords = {ax: 0 for ax in MESH_AXES}
+        self.coords.update(coords or {})
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape})"
@@ -73,11 +83,24 @@ class Mesh:
 
     def group(self, axes: Union[str, Sequence[str]]):
         """The process group of ``axes`` (an axis name or a tuple): the
-        data group when ``data`` is among them, else None (a product of
-        size-1 axes, whose collectives are the identity)."""
+        world group when both ``data`` and ``model`` are among them and
+        above 1, else the group of the one that is (``data``'s at world
+        1), else None (a product of size-1 axes, whose collectives are
+        the identity)."""
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         self.axes_size(axes)
-        return self._group if "data" in axes else None
+        live = [a for a in ("data", "model")
+                if a in axes and self.shape[a] > 1]
+        if len(live) == 2:
+            return self._group
+        if live:
+            return self._groups[live[0]]
+        # the data axis at world 1 keeps its (one-rank) group
+        return self._group if "data" in axes and self.size == 1 else None
+
+    def coord(self, axis: str) -> int:
+        """This rank's position along ``axis``."""
+        return self.coords[axis]
 
     @property
     def distributed(self) -> bool:
@@ -126,29 +149,46 @@ def build_mesh(data: Optional[int] = None,
         raise NotImplementedError(
             f"multi-slice meshes (dcn={dcn}) are not ported to "
             f"deepspeed_tpu_torch yet {_BREADTH}")
-    others = {"model": model, "pipe": pipe, "seq": seq, "expert": expert,
+    others = {"pipe": pipe, "seq": seq, "expert": expert,
               "data_inner": data_inner}
     big = {k: v for k, v in others.items() if v > 1}
     if big:
         raise NotImplementedError(
-            f"mesh axes {big}: deepspeed_tpu_torch runs data parallelism "
-            f"only; tensor, sequence, pipeline and expert parallelism and "
-            f"MiCS sub-groups are not ported yet {_BREADTH}")
+            f"mesh axes {big}: deepspeed_tpu_torch runs data and tensor "
+            f"parallelism only; sequence, pipeline and expert parallelism "
+            f"and MiCS sub-groups are not ported yet {_BREADTH}")
+    world_group = d.group.WORLD if d is not None else None
+    groups = {"data": world_group, "model": world_group}
+    rank = d.get_rank() if d is not None else 0
+    coords = {"data": rank // model, "model": rank % model}
+    if d is not None and data > 1 and model > 1:
+        # every rank joins the creation of every group, in one order
+        for m in range(model):
+            g = d.new_group([i * model + m for i in range(data)])
+            if m == coords["model"]:
+                groups["data"] = g
+        for i in range(data):
+            g = d.new_group([i * model + m for m in range(model)])
+            if i == coords["data"]:
+                groups["model"] = g
     mesh = Mesh({"pipe": pipe, "data": data, "data_inner": data_inner,
                  "expert": expert, "seq": seq, "model": model},
-                group=d.group.WORLD if d is not None else None)
+                group=world_group, groups=groups, coords=coords)
     if set_current:
         set_mesh(mesh)
-    log_dist(f"built mesh: data={data} over "
+    log_dist(f"built mesh: data={data} model={model} over "
              f"{'torch.distributed' if d is not None else 'one process'}")
     return mesh
 
 
 def mesh_from_config(config, devices=None) -> Mesh:
-    """A mesh from a config's topology knobs (mesh.py:167). The port's
-    config holds no tensor, pipeline or sequence section (they raise
-    there); the expert axis comes from an enabled ``moe`` section."""
+    """A mesh from a config's topology knobs (mesh.py:167): the model
+    axis from an enabled ``tensor_parallel`` section, the expert axis
+    from an enabled ``moe`` section (the config holds no pipeline or
+    sequence section: they raise there)."""
     return build_mesh(
+        model=config.tensor_parallel.tp_size
+        if config.tensor_parallel.enabled else 1,
         expert=config.moe.ep_size if config.moe.enabled else 1,
         devices=devices)
 

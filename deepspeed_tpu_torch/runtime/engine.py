@@ -68,10 +68,22 @@ any world size. On one process without ``torch.distributed`` the
 stages train as stage 0 on the whole tree, as the JAX engine on a
 one-device mesh does.
 
+Tensor parallelism: a mesh with a ``model`` axis above 1 (and the
+``partition_specs`` of a decoder built with ``tensor_parallel``) cuts
+each leaf that carries 'model' to this rank's block first; the ZeRO plan
+then shards the local leaves over 'data' on another dim, so a rank's box
+is the JAX box in both dims. The ranks of one data row (one model
+group) take the same rows of the global batch; gradients reduce over
+'data' only; the norm sums the squares of 'model'-sharded leaves over
+the model group and counts replicated leaves once; the fp16 overflow
+flag is all-reduced over the world.
+
 The ``telemetry`` block arms the span and request tracers
 (:func:`deepspeed_tpu_torch.telemetry.configure`), the ``comms_logger``
-block the collective log. Tensor, sequence, pipeline and expert
-parallelism, MiCS, ZeRO++, ZenFlow, offload at dp > 1, 1-bit optimizers,
+block the collective log. ZeRO++ (``zero_quantized_weights`` /
+``zero_quantized_gradients``) runs ``train_batch`` through
+``runtime/zero/zeropp.py``. Sequence, pipeline and expert
+parallelism, MiCS, ZenFlow, offload at dp > 1, 1-bit optimizers,
 the training step's telemetry spans and flight records and the watchdog
 are not ported: their config keys or meshes raise.
 """
@@ -174,6 +186,10 @@ class DeepSpeedEngine:
         #: size); else the single-device path
         self._dist = self.mesh.distributed
         self.dp_rank = comm.axis_index("data") if self._dist else 0
+        #: tensor parallelism: the 'model' axis's size and this rank's
+        #: position on it
+        self.tp_size = self.mesh.shape["model"]
+        self.tp_rank = self.mesh.coord("model")
         config.resolve_batch_sizes(self.dp_world_size)
 
         self.zero_stage = config.zero_optimization.stage
@@ -270,6 +286,29 @@ class DeepSpeedEngine:
             return x.clone().requires_grad_(x.is_floating_point())
 
         self.params = tree_map(own, params)
+        zc = self.config.zero_optimization
+        self._zeropp = bool(zc.zero_quantized_weights
+                            or zc.zero_quantized_gradients)
+        if self._zeropp:
+            # ZeRO++: one flat buffer and the quantized collectives
+            # (runtime/zero/zeropp.py, engine.py:273-281)
+            from deepspeed_tpu_torch.runtime.zero.zeropp import (
+                init_zeropp_state, validate_zeropp)
+            validate_zeropp(self)
+            self._overlap_plan = None
+            init_zeropp_state(self, self.params)
+            return
+        self._specs = self.model.partition_specs
+        self._mdim = [None] * len(tree_leaves(self.params))
+        self._tp_full_shapes = [tuple(x.shape)
+                                for x in tree_leaves(self.params)]
+        if self.tp_size > 1 and self._specs is not None:
+            # the model's whole tree, shapes only, in the params' order
+            full = tree_map(lambda p, f: f, self.params, self.model.init_fn(
+                torch.Generator(), torch.device("meta")))
+            self._tp_full_shapes = [tuple(x.shape)
+                                    for x in tree_leaves(full)]
+            self._cut_model_axis(full)
         if self.offload_enabled:
             self._init_host_optimizer()
             return
@@ -279,6 +318,39 @@ class DeepSpeedEngine:
             return
         self._leaves = tree_leaves(self.params)
         self.opt_state = self.optimizer.init(self.params)
+
+    # --------------------------------------------------- tensor parallelism
+
+    def _cut_model_axis(self, full: Params) -> None:
+        """Cut every leaf whose spec carries 'model' to this rank's block
+        along that dim (AutoTP's row/column/vocab shards); a dim that does
+        not divide by tp replicates (:func:`models.transformer.fit_tp_specs`).
+        A leaf given at the block's shape already (``tp_model_init``'s
+        shards) is kept as it is; ``full`` holds the whole shapes."""
+        from deepspeed_tpu_torch.models.transformer import fit_tp_specs
+        from deepspeed_tpu_torch.runtime.zero.sharding import (model_dim,
+                                                               shard_of)
+        self._specs = fit_tp_specs(self._specs, full, self.tp_size)
+        self._mdim = tree_leaves(tree_map(
+            lambda p, sp: model_dim(sp), full, self._specs))
+        it = iter(zip(self._mdim, self._tp_full_shapes))
+
+        def cut(x):
+            d, shape = next(it)
+            if d is None or tuple(x.shape) != shape:
+                block = list(shape)
+                if d is not None:
+                    block[d] //= self.tp_size
+                if tuple(x.shape) != tuple(block):
+                    raise ValueError(
+                        f"a parameter of shape {tuple(x.shape)} fits "
+                        f"neither the model's {shape} nor its tp="
+                        f"{self.tp_size} block {tuple(block)}")
+                return x
+            return shard_of(x.detach(), d, self.tp_rank,
+                            self.tp_size).clone().requires_grad_(
+                x.is_floating_point())
+        self.params = tree_map(cut, self.params)
 
     # ----------------------------------------------------- data parallelism
 
@@ -295,12 +367,13 @@ class DeepSpeedEngine:
             # the collectives resolve their axis names through it
             set_mesh(mesh)
         big = {a: v for a, v in mesh.shape.items()
-               if a != "data" and v > 1}
+               if a not in ("data", "model") and v > 1}
         if big:
             raise NotImplementedError(
-                f"mesh axes {big}: the engine runs data parallelism only; "
-                f"the other axes are not ported to deepspeed_tpu_torch yet "
-                f"(ROADMAP A, 'Parallelism breadth')")
+                f"mesh axes {big}: the engine runs data and tensor "
+                f"parallelism only; the other axes are not ported to "
+                f"deepspeed_tpu_torch yet (ROADMAP A, 'Parallelism "
+                f"breadth')")
         return mesh
 
     def _check_dp_scope(self) -> None:
@@ -309,15 +382,16 @@ class DeepSpeedEngine:
         zc = self.config.zero_optimization
         offload = self.offload_enabled or \
             zc.offload_param.device.value != "none"
-        if offload and self.dp_world_size > 1:
+        if offload and self.dp_world_size * self.tp_size > 1:
             raise NotImplementedError(
-                f"offload at dp={self.dp_world_size}: the host, NVMe and "
+                f"offload at dp={self.dp_world_size}, tp={self.tp_size}: "
+                f"the host, NVMe and "
                 f"parameter tiers run on one device; at dp > 1 they are "
                 f"not ported to deepspeed_tpu_torch yet (ROADMAP A, "
                 f"'Offload')")
         if offload:
             self._dist = False
-        if self.dp_world_size == 1:
+        if self.dp_world_size * self.tp_size == 1:
             return
         if not self._dist:
             raise ValueError(
@@ -341,8 +415,8 @@ class DeepSpeedEngine:
         from deepspeed_tpu_torch.runtime.zero.sharding import (
             ZeroShardingPlan, shard_dim, shard_of)
         stage, n, r = self.zero_stage, self.dp_world_size, self.dp_rank
-        self.plan = ZeroShardingPlan(self.mesh, stage,
-                                     self.model.partition_specs, self.params)
+        self.plan = ZeroShardingPlan(self.mesh, stage, self._specs,
+                                     self.params)
 
         def dims(specs, on):
             return tree_leaves(tree_map(
@@ -360,8 +434,9 @@ class DeepSpeedEngine:
                     f"stage-3 leaf {i} of shape {shape}: dim {d} does not "
                     f"divide by dp={n}")
         if self.model.configure_overlap is not None and stage >= 3:
+            shapes = iter(self._tp_full_shapes)
             abstract = tree_map(lambda x: torch.empty(
-                x.shape, dtype=x.dtype, device="meta"), self.params)
+                next(shapes), dtype=x.dtype, device="meta"), self.params)
             self._overlap_plan = self.model.configure_overlap(self.mesh,
                                                               abstract)
             if self._overlap_plan is not None:
@@ -680,8 +755,8 @@ class DeepSpeedEngine:
             torch.zeros((), dtype=torch.bool, device=self.device)
         if self._dist and self.fp16_enabled:
             # every rank skips the same step
-            overflow = comm.all_reduce(overflow.to(torch.int32), "data",
-                                       "max").bool()
+            overflow = comm.all_reduce(overflow.to(torch.int32),
+                                       ("data", "model"), "max").bool()
         grad_norm = self._global_norm(grads)
         if cfg.gradient_clipping > 0:
             clip = torch.clamp(cfg.gradient_clipping / (grad_norm + 1e-6),
@@ -718,17 +793,23 @@ class DeepSpeedEngine:
 
     def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """The global gradient norm; data parallel: the squares of the
-        shards all-reduced, whole leaves (equal on every rank) counted
+        shards all-reduced over the axes they are sharded on ('data',
+        'model' or both), whole leaves (equal on every rank) counted
         once."""
         if not self._dist:
             return global_norm(grads)
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
-        sh = sum((torch.sum(torch.square(g.float()))
-                  for i, g in enumerate(grads) if self._sharded(i)), zero)
-        rep = sum((torch.sum(torch.square(g.float()))
-                   for i, g in enumerate(grads) if not self._sharded(i)),
-                  zero)
-        return torch.sqrt(comm.all_reduce(sh, "data") + rep)
+        parts = {}
+        for i, g in enumerate(grads):
+            key = (self._sharded(i), self._mdim[i] is not None)
+            parts[key] = parts.get(key, zero) + torch.sum(
+                torch.square(g.float()))
+        total = parts.get((False, False), zero)
+        for (dp, mp), v in parts.items():
+            axes = ("data",) * dp + ("model",) * mp
+            if axes:
+                total = total + comm.all_reduce(v, axes)
+        return torch.sqrt(total)
 
     def _raise_if_nonfinite(self, grads: List[torch.Tensor]) -> None:
         """``check_nan_inf`` True/"debug": one sync a step; the step's
@@ -807,6 +888,11 @@ class DeepSpeedEngine:
         """Loss of one micro-batch, with its gradients kept for the
         following :meth:`backward` (engine.py:666: the JAX engine, too,
         computes loss and gradients in one call here)."""
+        if self._zeropp:
+            raise NotImplementedError(
+                "ZeRO++ (zero_quantized_weights / zero_quantized_gradients) "
+                "runs train_batch only, as the JAX engine's fused step; "
+                "forward/backward/step are not available on it")
         loss, _, grads = self._compute_loss_and_grads(
             self._place_batch(batch), self._next_seed())
         self._pending_grads = grads
@@ -870,6 +956,13 @@ class DeepSpeedEngine:
             return loss
         if self.offload_enabled:
             loss, metrics = self._offload_train_step(micros, seed, gas)
+            self.micro_steps += gas
+            self._finish_step(metrics)
+            return loss
+        if self._zeropp:
+            from deepspeed_tpu_torch.runtime.zero.zeropp import \
+                zeropp_train_step
+            loss, metrics = zeropp_train_step(self, micros, seed)
             self.micro_steps += gas
             self._finish_step(metrics)
             return loss
@@ -1131,7 +1224,11 @@ class DeepSpeedEngine:
             else self._param_stream.full_params()
         state = {"params": params, "opt_state": self.opt_state,
                  "loss_scale": self.loss_scale_state}
-        if self._dist:
+        if self._zeropp:
+            from deepspeed_tpu_torch.runtime.zero.zeropp import \
+                checkpoint_state
+            state.update(checkpoint_state(self))
+        elif self._dist:
             # each rank writes its shards with their boxes; whole leaves
             # are written by rank 0 alone (store.py:150's replica filter)
             state["params"] = self._as_shards(params)
@@ -1188,6 +1285,22 @@ class DeepSpeedEngine:
                      "loss_scale": self.loss_scale_state}
         if load_optimizer_states and not self.offload_enabled:
             templates["opt_state"] = self.opt_state
+        if self._zeropp:
+            from deepspeed_tpu_torch.runtime.zero.zeropp import \
+                checkpoint_templates, load_chunks
+            templates.update(checkpoint_templates(self, templates))
+            strict = frozenset(templates)
+            state, meta, tag = load_checkpoint(load_dir, tag, templates,
+                                               strict=strict)
+            if state is None:
+                return None, {}
+            load_chunks(self, state)
+            self.global_steps = meta.get("global_steps", 0)
+            self.micro_steps = meta.get("micro_steps", 0)
+            self.skipped_steps = meta.get("skipped_steps", 0)
+            self.global_samples = meta.get("global_samples", 0)
+            self._restore_resume_state(meta)
+            return tag, meta.get("client_state", {})
         if self._dist:
             # the full leaves are read, and each rank keeps its block
             templates = {k: self._full_templates(v) if k != "loss_scale"
@@ -1205,6 +1318,9 @@ class DeepSpeedEngine:
                 f"checkpoint {tag} holds leaves of other shapes than the "
                 f"engine's (another model or optimizer configuration): "
                 f"{bad[:4]}")
+        if self.tp_size > 1:
+            state = {k: self._model_block(v) if k != "loss_scale" else v
+                     for k, v in state.items()}
         with torch.no_grad():
             _copy_into(self.params, state["params"], self.dp_rank)
             if load_optimizer_states and self.offload_enabled:
@@ -1235,29 +1351,57 @@ class DeepSpeedEngine:
         block of its full leaf wrapped as a
         :class:`~deepspeed_tpu_torch.checkpoint.store.ShardedLeaf`."""
         from deepspeed_tpu_torch.checkpoint.store import ShardedLeaf
-        from deepspeed_tpu_torch.runtime.zero.sharding import box
         leaves = tree_leaves(tree)
         out = []
-        for x, full in zip(leaves, self._full_shapes):
-            if isinstance(x, torch.Tensor) and x.dim() and \
-                    tuple(x.shape) != full:
-                d = _cut_dim(tuple(x.shape), full)
-                start, _ = box(full, d, self.dp_rank, self.dp_world_size)
-                out.append(ShardedLeaf(x, full, start))
-            else:
+        for x, full, md in zip(leaves, self._tp_full_shapes, self._mdim):
+            if not (isinstance(x, torch.Tensor) and x.dim()
+                    and tuple(x.shape) != full):
                 out.append(x)
+                continue
+            # the leaf's box: cut on 'model' (its spec's dim) and/or on
+            # the DP family (the other dim that differs); a replica over
+            # an axis it is not cut on is written by that axis's rank 0
+            start, cut_dp = [0] * x.dim(), False
+            for d, (a, b) in enumerate(zip(x.shape, full)):
+                if a == b:
+                    continue
+                if d == md:
+                    start[d] = self.tp_rank * a
+                else:
+                    start[d], cut_dp = self.dp_rank * a, True
+            write = (cut_dp or self.dp_rank == 0) and \
+                (md is not None or self.tp_rank == 0)
+            out.append(ShardedLeaf(x, full, start, write))
         return _unflatten_like(tree, out)
+
+    def _model_block(self, tree):
+        """A loaded tree that mirrors the params (or a subtree of the
+        optimizer state that does), each leaf cut on 'model' to this
+        rank's block; other trees as they are."""
+        if isinstance(tree, dict) and tree_leaves(tree) and \
+                len(tree_leaves(tree)) == len(self._mdim) and \
+                _mirrors(tree, self.params):
+            out = [x if d is None or not isinstance(x, torch.Tensor)
+                   or x.dim() == 0 else
+                   x.narrow(d, self.tp_rank * (x.shape[d] // self.tp_size),
+                            x.shape[d] // self.tp_size)
+                   for x, d in zip(tree_leaves(tree), self._mdim)]
+            return _unflatten_like(tree, out)
+        if isinstance(tree, dict):
+            return {k: self._model_block(v) for k, v in tree.items()}
+        return tree
 
     def _full_templates(self, tree):
         """``tree`` with each shard leaf replaced by a meta tensor of its
         full leaf's shape (the loader assembles full leaves)."""
         if isinstance(tree, dict) and tree_leaves(tree) and \
-                len(tree_leaves(tree)) == len(self._full_shapes) and \
+                len(tree_leaves(tree)) == len(self._tp_full_shapes) and \
                 _mirrors(tree, self.params):
             out = [torch.empty(full, dtype=x.dtype, device="meta")
                    if isinstance(x, torch.Tensor) and x.dim()
                    and tuple(x.shape) != full else x
-                   for x, full in zip(tree_leaves(tree), self._full_shapes)]
+                   for x, full in zip(tree_leaves(tree),
+                                      self._tp_full_shapes)]
             return _unflatten_like(tree, out)
         if isinstance(tree, dict):
             return {k: self._full_templates(v) for k, v in tree.items()}
@@ -1344,20 +1488,27 @@ class DeepSpeedEngine:
         """The whole parameter tree: at stage 3 (data parallel) each
         shard all-gathered along its dim — a collective every rank must
         call; else ``self.params`` itself."""
-        if not self._dist or not any(d is not None for d in self._pdim):
+        if self._zeropp:
+            from deepspeed_tpu_torch.runtime.zero.zeropp import \
+                unflatten_params
+            return unflatten_params(self)
+        if not self._dist or not any(
+                d is not None for d in self._pdim + self._mdim):
             return self.params
         from deepspeed_tpu_torch.runtime.zero.sharding import \
             all_gather_bucketed
-        idx = [i for i, d in enumerate(self._pdim) if d is not None]
+        bucket = int(self.config.zero_optimization.allgather_bucket_size)
         full = list(self._leaves)
         with torch.no_grad():
-            for i, f in zip(idx, all_gather_bucketed(
-                    [self._leaves[i].detach() for i in idx],
-                    [self._pdim[i] for i in idx], "data",
-                    self.dp_world_size,
-                    int(self.config.zero_optimization.allgather_bucket_size
-                        ))):
-                full[i] = f
+            for dims, axis, n in ((self._pdim, "data", self.dp_world_size),
+                                  (self._mdim, "model", self.tp_size)):
+                idx = [i for i, d in enumerate(dims) if d is not None]
+                if not idx:
+                    continue
+                for i, f in zip(idx, all_gather_bucketed(
+                        [full[i].detach() for i in idx],
+                        [dims[i] for i in idx], axis, n, bucket)):
+                    full[i] = f
         return _unflatten_like(self.params, full)
 
     def get_lr(self) -> float:

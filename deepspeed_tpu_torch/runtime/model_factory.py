@@ -160,6 +160,9 @@ def decoder_model_spec(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
     #: axis's size when the ranks' loss terms are reduced over it
     _ovl = {"plan": None}
     _dp = {"n": 0}
+    #: the forward's config: ``dec_cfg``, or its TP form over 'model'
+    _fwd = {"cfg": dec_cfg}
+    tp = ds_cfg.tensor_parallel.enabled
 
     def configure_overlap(mesh, abstract_params):
         """Engine hook (model_factory.py:489): the stage-3 layer loop's
@@ -187,6 +190,8 @@ def decoder_model_spec(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
                 "breadth'); use moe.impl='dropless'")
         if mesh.distributed:
             _dp["n"] = mesh.shape["data"]
+        if tp and mesh.shape["model"] > 1:
+            _fwd["cfg"] = transformer.with_tp(dec_cfg, mesh.shape["model"])
 
     def global_count(cnt):
         """The CE denominator of a rank's share: the valid labels of
@@ -196,7 +201,8 @@ def decoder_model_spec(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
         return tot.clamp_min(1) / _dp["n"]
 
     specs = transformer.partition_specs(dec_cfg,
-                                        ds_cfg.zero_optimization.stage)
+                                        ds_cfg.zero_optimization.stage,
+                                        tp=tp)
     ce_budget = None if ds_cfg.chunked_ce_budget_mb is None \
         else int(ds_cfg.chunked_ce_budget_mb) * 1024 * 1024
     ce_dtype = torch.bfloat16 if ds_cfg.ce_logits_dtype in (
@@ -225,11 +231,12 @@ def decoder_model_spec(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
             if k in batch}
         loop = _ovl["plan"].layer_loop if _ovl["plan"] is not None \
             else None
+        cfg = _fwd["cfg"]
         hidden, aux = transformer.forward_hidden(
-            dec_cfg, params, tokens, attn_fn=attn_fn, moe_fn=mf,
+            cfg, params, tokens, attn_fn=attn_fn, moe_fn=mf,
             remat_policy=remat, layer_loop=loop, **enc)
         loss = transformer.chunked_cross_entropy(
-            dec_cfg, params, hidden, labels, budget_bytes=ce_budget,
+            cfg, params, hidden, labels, budget_bytes=ce_budget,
             logits_dtype=ce_dtype,
             count_fn=global_count if _dp["n"] else None)
         if moe_fn is None:

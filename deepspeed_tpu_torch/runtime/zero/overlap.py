@@ -13,15 +13,18 @@ parameters):
 * **Forward** — each chunk's shards are all-gathered in one collective
   along their ``partition_specs`` dims; the gather of chunk k+d is
   issued (``async_op``) before chunk k computes, ``d`` being
-  ``overlap_prefetch``. The chunk runs without autograd and only its
-  input activation is kept.
+  ``overlap_prefetch``. The chunk runs once, under autograd; a
+  ``saved_tensors_hooks`` pair saves every gathered weight as a handle
+  (chunk, leaf) and activations as autograd saves them (the reference's
+  ``save_anything_except_these_names`` checkpoint policy, :27-34).
 * **Backward** — each chunk is gathered again (the prefetch runs the
-  other way), recomputed with autograd and differentiated; the full
-  gradients of its sharded leaves are reduce-scattered to this rank's
-  shards while the next chunk's backward computes. With
-  ``overlap_regather`` false the forward's gathered chunks are kept and
-  reused instead (gather traffic halves, the whole gathered stack lives
-  through the step; :meth:`OverlapPlan.transient_bytes` reports either).
+  other way) and the handles unpack to it; the chunk's graph is
+  differentiated and the full gradients of its sharded leaves are
+  reduce-scattered to this rank's shards while the next chunk's backward
+  computes. With ``overlap_regather`` false the forward's gathered chunks
+  are kept as saved tensors and reused instead (gather traffic halves,
+  the whole gathered stack lives through the step;
+  :meth:`OverlapPlan.transient_bytes` reports either).
 
 Without ``overlap_comm`` stage 3 runs the same loop one layer a chunk
 with no prefetch: each layer's gather waits before it computes. The JAX
@@ -208,8 +211,26 @@ class OverlapPlan:
             self.dims = self.leaf_dims(layers)
         flat = tree_leaves(layers)
         rebuild = _rebuilder(layers)
+        if not torch.is_grad_enabled():
+            return self._eval_loop(run_layers, rebuild, x, flat)
         out, aux = _ChunkLoop.apply(self, run_layers, rebuild, x, *flat)
         return out, aux
+
+    def _eval_loop(self, run_layers: Callable, rebuild, x: torch.Tensor,
+                   flat: Sequence[torch.Tensor]):
+        """The loop without autograd (eval, generation): each chunk is
+        gathered (prefetched as in training), run and dropped."""
+        n, d = self.n_chunks, self.prefetch
+        pending = {k: self._gather(flat, k) for k in range(min(d + 1, n))}
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for k in range(n):
+            full = pending.pop(k).wait()
+            if k + d + 1 < n:
+                pending[k + d + 1] = self._gather(flat, k + d + 1)
+            x, a = run_layers(x, rebuild(full), self.bounds[k][0])
+            aux = aux + a
+            del full
+        return x, aux
 
     # ------------------------------------------------------------- gathers
 
@@ -242,7 +263,8 @@ class OverlapPlan:
     def _scatter(self, grads: Sequence[Optional[torch.Tensor]],
                  leaves: Sequence[torch.Tensor]):
         """Issue the reduce-scatter of a chunk's full gradients of its
-        sharded leaves; ``wait()`` gives {leaf index: shard gradient}."""
+        sharded leaves (``leaves``: the chunk's shards); ``wait()`` gives
+        {leaf index: shard gradient}."""
         groups: Dict[torch.dtype, List[int]] = {}
         for i, d in enumerate(self.dims):
             if d is not None:
@@ -250,7 +272,8 @@ class OverlapPlan:
         handles = []
         for ids in groups.values():
             fulls = [grads[i] if grads[i] is not None
-                     else torch.zeros_like(leaves[i]) for i in ids]
+                     else _zeros_full(leaves[i], self.dims[i], self.n)
+                     for i in ids]
             handles.append((ids, reduce_scatter_flat(
                 fulls, [self.dims[i] for i in ids], self.axis, self.n,
                 async_op=True)))
@@ -260,6 +283,12 @@ class OverlapPlan:
                 return {i: g for ids, h in handles
                         for i, g in zip(ids, h.wait())}
         return _H()
+
+
+def _zeros_full(shard: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    shape = list(shard.shape)
+    shape[dim] *= n
+    return shard.new_zeros(shape)
 
 
 def _rebuilder(tree: Pytree) -> Callable[[List[torch.Tensor]], Pytree]:
@@ -272,76 +301,140 @@ def _rebuilder(tree: Pytree) -> Callable[[List[torch.Tensor]], Pytree]:
     return lambda leaves: build(tree, iter(leaves))
 
 
+class _Gathered(torch.autograd.Function):
+    """A chunk's gathered leaves as one node of the chunk's graph: its
+    backward hands their full gradients to ``sink`` (the loop
+    reduce-scatters them) and gives ``token`` a zero."""
+
+    @staticmethod
+    def forward(ctx, token, sink, *full):
+        ctx.set_materialize_grads(False)
+        ctx.sink = sink
+        return full
+
+    @staticmethod
+    def backward(ctx, *g_full):
+        ctx.sink.extend(g_full)
+        return (None, None) + (None,) * len(g_full)
+
+
+class _Stash:
+    """saved_tensors_hooks that keep a gathered weight as a handle: a
+    tensor on the storage of one of chunk k's gathered (sharded) leaves
+    packs as (k, leaf, size, stride, offset), and unpacks as the same view
+    of that leaf gathered again by the backward (``chunks[k]``)."""
+
+    def __init__(self):
+        self.chunks: Dict[int, List[torch.Tensor]] = {}
+        self.storages: Dict[int, int] = {}
+        self.k = -1
+
+    def enter(self, k: int, full: Sequence[torch.Tensor],
+              dims: Sequence[Optional[int]]) -> None:
+        self.k = k
+        self.storages = {full[i].untyped_storage().data_ptr(): i
+                         for i, d in enumerate(dims) if d is not None}
+
+    def pack(self, t: torch.Tensor):
+        i = self.storages.get(t.untyped_storage().data_ptr())
+        if i is None:
+            return t
+        return (self.k, i, t.dtype, tuple(t.shape), t.stride(),
+                t.storage_offset())
+
+    def unpack(self, h):
+        if isinstance(h, torch.Tensor):
+            return h
+        k, i, dtype, size, stride, off = h
+        base = self.chunks[k][i]
+        assert base.dtype == dtype, (base.dtype, dtype)
+        return base.as_strided(size, stride, off)
+
+
 class _ChunkLoop(torch.autograd.Function):
-    """The stage-3 layer loop: gather, compute and keep only each chunk's
-    input forward; gather again (or reuse), recompute, differentiate and
-    reduce-scatter backward."""
+    """The stage-3 layer loop. Forward: gather each chunk (prefetched),
+    run it once under autograd and save each gathered weight as a handle
+    (activations are saved as autograd saves them). Backward: gather each
+    chunk again for its handles (prefetched the other way), or reuse the
+    kept chunks, differentiate the chunk's graph and reduce-scatter the
+    full gradients of its sharded leaves."""
 
     @staticmethod
     def forward(ctx, plan: OverlapPlan, run_layers, rebuild, x, *flat):
         n, d = plan.n_chunks, plan.prefetch
         pending = {k: plan._gather(flat, k) for k in range(min(d + 1, n))}
-        inputs, kept = [], []
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        stash = _Stash()
+        chunks = []
         for k in range(n):
             full = pending.pop(k).wait()
             if k + d + 1 < n:
                 pending[k + d + 1] = plan._gather(flat, k + d + 1)
-            inputs.append(x)
-            x, a = run_layers(x, rebuild(full), plan.bounds[k][0])
-            aux = aux + a
-            if not plan.regather:
-                kept.append(full)
-        ctx.plan, ctx.run, ctx.rebuild = plan, run_layers, rebuild
-        ctx.kept = kept
-        ctx.save_for_backward(*inputs, *flat)
-        ctx.n_inputs = len(inputs)
+            with torch.enable_grad():
+                xk = x.detach().requires_grad_(True)
+                token = torch.zeros((), device=x.device, requires_grad=True)
+                sink: List[Optional[torch.Tensor]] = []
+                leaves = _Gathered.apply(token, sink,
+                                         *[f.detach() for f in full])
+                lo = plan.bounds[k][0]
+                if plan.regather:
+                    stash.enter(k, full, plan.dims)
+                    with torch.autograd.graph.saved_tensors_hooks(
+                            stash.pack, stash.unpack):
+                        y, a = run_layers(xk, rebuild(list(leaves)), lo)
+                else:
+                    y, a = run_layers(xk, rebuild(list(leaves)), lo)
+            chunks.append((xk, token, sink, y, a))
+            del full, leaves
+            x = y.detach()
+        ctx.plan, ctx.stash, ctx.chunks = plan, stash, chunks
+        ctx.save_for_backward(*flat)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for *_, a in chunks:
+            aux = aux + a.detach()
         return x, aux
 
     @staticmethod
     def backward(ctx, gx, gaux):
         plan, n, d = ctx.plan, ctx.plan.n_chunks, ctx.plan.prefetch
-        saved = ctx.saved_tensors
-        inputs, flat = saved[:ctx.n_inputs], saved[ctx.n_inputs:]
+        stash, chunks = ctx.stash, ctx.chunks
+        flat = ctx.saved_tensors
         grads = [torch.zeros_like(t) if t.is_floating_point() else None
                  for t in flat]
         if gaux is None:
             gaux = torch.zeros((), dtype=torch.float32, device=gx.device)
-        pending = {} if ctx.kept else {
+        pending = {} if not plan.regather else {
             k: plan._gather(flat, k)
             for k in range(n - 1, max(n - 2 - d, -1), -1)}
         scatters = []
         for k in range(n - 1, -1, -1):
-            full = ctx.kept[k] if ctx.kept else pending.pop(k).wait()
-            if not ctx.kept and k - d - 1 >= 0:
-                pending[k - d - 1] = plan._gather(flat, k - d - 1)
+            if plan.regather:
+                stash.chunks[k] = pending.pop(k).wait()
+                if k - d - 1 >= 0:
+                    pending[k - d - 1] = plan._gather(flat, k - d - 1)
+            xk, token, sink, y, a = chunks.pop()
             lo, hi = plan.bounds[k]
-            with torch.enable_grad():
-                xk = inputs[k].detach().requires_grad_(True)
-                leaves = [f.detach().requires_grad_(f.is_floating_point())
-                          for f in full]
-                y, a = ctx.run(xk, ctx.rebuild(leaves), lo)
-                outs, gouts = [y], [gx]
-                if a.requires_grad:
-                    outs.append(a)
-                    gouts.append(gaux)
-                wrt = [xk] + [t for t in leaves if t.requires_grad]
-                got = torch.autograd.grad(outs, wrt, gouts,
-                                          allow_unused=True)
-            gx = got[0] if got[0] is not None else torch.zeros_like(xk)
-            it = iter(got[1:])
-            g_full = [next(it) if t.requires_grad else None
-                      for t in leaves]
+            outs, gouts = [y], [gx]
+            if a.requires_grad:
+                outs.append(a)
+                gouts.append(gaux)
+            gx, _ = torch.autograd.grad(outs, [xk, token], gouts,
+                                        allow_unused=True)
+            if gx is None:
+                gx = torch.zeros_like(xk)
+            stash.chunks.pop(k, None)
+            g_full = list(sink) + [None] * (len(flat) - len(sink))
             for i, dim in enumerate(plan.dims):
                 if dim is None and g_full[i] is not None:
                     grads[i][lo:hi] += g_full[i]
-            scatters.append((lo, hi, plan._scatter(g_full, leaves)))
-            del full, leaves, g_full, got
+            scatters.append((lo, hi, plan._scatter(
+                g_full, [t[lo:hi] for t in flat])))
+            del xk, token, sink, y, a, g_full
             # at most two chunks' reduce-scatters in flight
             while len(scatters) > 1:
                 _land(grads, *scatters.pop(0))
         for s in scatters:
             _land(grads, *s)
+        ctx.chunks = ctx.stash = None
         return (None, None, None, gx) + tuple(grads)
 
 

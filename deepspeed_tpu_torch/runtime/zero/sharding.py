@@ -97,6 +97,15 @@ def shard_over_dp(shape: Sequence[int], spec: Optional[Spec], mesh: Mesh,
     return tuple(entries)
 
 
+def model_dim(spec: Optional[Spec], axis: str = "model") -> Optional[int]:
+    """The dim of ``spec`` that carries the tensor-parallel axis, or
+    None."""
+    for i, e in enumerate(spec or ()):
+        if axis in _entry_axes(e):
+            return i
+    return None
+
+
 def shard_dim(spec: Optional[Spec],
               dp_axes: Tuple[str, ...] = ZERO_AXES) -> Optional[int]:
     """The dim of ``spec`` that carries DP-family axes, or None."""
@@ -178,18 +187,23 @@ def _buckets(tensors: Sequence[torch.Tensor], limit: int) -> List[List[int]]:
 
 def _rows(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
     """[n, k]: row r is block r of ``t`` along ``dim``, flattened in the
-    layout with ``dim`` moved to the front."""
-    return t.movedim(dim, 0).reshape(n, -1)
+    block's own row-major layout (a view when n is 1 or ``dim`` is the
+    leading one, one strided copy otherwise)."""
+    shape = list(t.shape)
+    split = shape[:dim] + [n, shape[dim] // n] + shape[dim + 1:]
+    return t.reshape(split).movedim(dim, 0).reshape(n, -1)
 
 
 def _unrow(flat: torch.Tensor, like_shape: Sequence[int], dim: int,
            n: int, gathered: bool) -> torch.Tensor:
-    """Undo :func:`_rows` for one block (``gathered``: all n blocks)."""
-    moved = list(like_shape)
-    moved.insert(0, moved.pop(dim))
-    if gathered:
-        moved[0] *= n
-    return flat.reshape(moved).movedim(0, dim)
+    """Undo :func:`_rows` for one block of ``like_shape`` (``gathered``:
+    ``flat`` is [n, k], all n blocks, joined along ``dim``)."""
+    if not gathered:
+        return flat.reshape(like_shape)
+    full = list(like_shape)
+    full[dim] *= n
+    return flat.reshape([n] + list(like_shape)).movedim(0, dim) \
+        .reshape(full)
 
 
 def all_reduce_bucketed(tensors: Sequence[torch.Tensor], axis,
@@ -230,8 +244,7 @@ def gather_flat(shards: Sequence[torch.Tensor], dims: Sequence[int], axis,
     """One all-gather of the shards (one dtype) along their dims; returns
     the full tensors, or with ``async_op`` a handle whose ``wait()``
     does."""
-    flat = torch.cat([s.movedim(d, 0).reshape(-1)
-                      for s, d in zip(shards, dims)])
+    flat = torch.cat([s.reshape(-1) for s in shards])
     h = comm.all_gather(flat, axis, axis=0, tiled=False, async_op=True)
     shapes = [(tuple(s.shape), s.numel()) for s in shards]
     dims = list(dims)

@@ -203,13 +203,15 @@ def test_quantized_engine_matches_jax(bert):
 
 
 def test_engine_rejects_decoder_and_tp(bert):
+    """A decoder is refused; tensor parallelism runs (test_torch_tp_
+    inference.py), but a mesh with a sequence axis does not."""
+    from deepspeed_tpu_torch.parallel.mesh import Mesh
     _, _, _, tp = bert
     with pytest.raises(ValueError, match="bidirectional"):
         EncoderInference(dt.llama3_config("tiny"), device="cpu")
     with pytest.raises(NotImplementedError, match="Parallelism breadth"):
-        EncoderInference(dt.bert_config("tiny"),
-                         {"tensor_parallel": {"tp_size": 2}}, params=tp,
-                         device="cpu")
+        EncoderInference(dt.bert_config("tiny"), params=tp, device="cpu",
+                         mesh=Mesh({"seq": 2}))
 
 
 def test_mlm_trains_like_jax_engine(bert):

@@ -88,8 +88,20 @@ def test_mesh_shapes_and_raises_match_jax(ranks, restore_mesh):
         jmesh.build_mesh(data=n + 1, devices=jax.devices()[:n],
                          set_current=False)
     assert res[0]["raises"]["product"] == str(e.value)
-    for ax in ("model", "seq", "pipe", "expert", "data_inner"):
+    for ax in ("seq", "pipe", "expert", "data_inner"):
         assert "Parallelism breadth" in res[0]["raises"][ax], ax
+    # build_mesh(model=2) in the JAX rank order: 'model' the fastest axis
+    jm2 = jmesh.build_mesh(data=n // 2, model=2, devices=jax.devices()[:n],
+                           set_current=False)
+    order = np.asarray(jm2.devices).reshape(n // 2, 2)
+    for r, rr in enumerate(res):
+        mm = rr["model_mesh"]
+        d, m = mm["coords"]
+        assert order[d, m].id == jax.devices()[r].id
+        assert (mm["data_index"], mm["model_index"]) == (d, m)
+        assert mm["model_sum"] == sum(d * 2 + j for j in range(2))
+        assert mm["data_sum"] == sum(i * 2 + m for i in range(n // 2))
+        assert mm["world_sum"] == n * (n - 1) / 2
     assert jmesh.mesh_from_config(DeepSpeedTPUConfig.from_any({}),
                                   devices=jax.devices()[:n]
                                   ).shape["data"] == n

@@ -145,7 +145,7 @@ def test_unported_features_raise(monkeypatch):
     assert eng.mesh is mesh and eng.dp_world_size == 1
     with pytest.raises(NotImplementedError, match="Parallelism breadth"):
         initialize(cfg, {"train_micro_batch_size_per_gpu": 1},
-                   device="cpu", mesh=Mesh({"data": 1, "model": 2}))
+                   device="cpu", mesh=Mesh({"data": 1, "seq": 2}))
     with pytest.raises(NotImplementedError, match="Parallelism breadth"):
         build_mesh(data=1, seq=1, pipe=1, model=1, expert=1,
                    dcn={"data": 2})

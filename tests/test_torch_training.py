@@ -172,10 +172,18 @@ def test_dataloader_order_matches_jax_loader():
 
 
 def test_engine_defaults_to_cuda_and_unported_config_raises(monkeypatch):
-    with pytest.raises(NotImplementedError, match="zero_quantized_weights"):
+    # ZeRO++ is live (test_torch_zeropp.py); with fp16 it raises the JAX
+    # ValueError, and hpZ waits for 'Parallelism breadth'
+    with pytest.raises(ValueError, match="bf16"):
+        dt.initialize(model=dt.llama3_config("tiny"),
+                      config={"fp16": {"enabled": True},
+                              "zero_optimization": {
+                                  "stage": 3, "zero_quantized_weights": True}},
+                      device="cpu")
+    with pytest.raises(NotImplementedError, match="Parallelism breadth"):
         dt.initialize(model=dt.llama3_config("tiny"),
                       config={"zero_optimization": {
-                          "stage": 3, "zero_quantized_weights": True}},
+                          "stage": 3, "zero_hpz_partition_size": 2}},
                       device="cpu")
     with pytest.raises(NotImplementedError, match="pipeline"):
         dt.initialize(model=dt.llama3_config("tiny"),

@@ -209,13 +209,24 @@ def test_moe_v1_matches_jax_engine_and_v2(mixtral):
 
 
 def test_tensor_parallel_and_mesh_raise(gpt2):
+    """tp_size 4 needs as many ranks (test_torch_tp_inference.py runs
+    them); a mesh with a sequence or expert axis is not ported."""
+    from deepspeed_tpu_torch.parallel import mesh as tmesh
+    from deepspeed_tpu_torch.parallel.mesh import Mesh
     _, tcfg, _, tp = gpt2
-    with pytest.raises(NotImplementedError, match="Parallelism breadth"):
-        init_inference(tcfg, {"dtype": "float32",
-                              "tensor_parallel": {"tp_size": 4}},
-                       params=tp, device="cpu")
-    with pytest.raises(NotImplementedError, match="Parallelism breadth"):
-        InferenceEngine(tcfg, ENG, params=tp, device="cpu", mesh=object())
+    saved = tmesh._CURRENT_MESH
+    tmesh.set_mesh(None)          # tp_size builds the mesh when none lives
+    try:
+        with pytest.raises(ValueError, match="device count 1"):
+            init_inference(tcfg, {"dtype": "float32",
+                                  "tensor_parallel": {"tp_size": 4}},
+                           params=tp, device="cpu")
+    finally:
+        tmesh.set_mesh(saved)
+    for axis in ("seq", "expert"):
+        with pytest.raises(NotImplementedError, match="Parallelism breadth"):
+            InferenceEngine(tcfg, ENG, params=tp, device="cpu",
+                            mesh=Mesh({axis: 2}))
 
 
 def test_entry_points_and_guards(gpt2):

@@ -7,7 +7,8 @@ Runs: ZeRO stages 0-3, and stage 3 with overlap_comm at three bucket
 sizes (one layer a chunk; two layers with prefetch 2; the whole stack
 without re-gather); gas 2 at stages 1 and 3; a batch whose ranks ignore
 different numbers of labels (stage 2); an fp16 overflow that only the
-last rank sees (stage 2, every rank must skip); dropless MoE at stage 3
+last rank sees (stage 2, every rank must skip); eval_batch after two
+stage-3 runs (the loop without autograd); dropless MoE at stage 3
 (the gradients of one batch); the capacity MoE at dp > 1 raises, as do
 the mesh's other axes.
 
@@ -116,6 +117,9 @@ JAX_OF = {"s0": "s0", "s1": "s1", "s2": "s2", "s3": "s3",
           "s3_overlap_layer": "s3_overlap", "s3_overlap_two": "s3_overlap",
           "s3_overlap_all": "s3_overlap", "gas2_s1": "gas2",
           "gas2_s3": "gas2", "uneven_s2": "uneven"}
+#: stage-3 runs that also take eval_batch on EVAL after training
+EVAL_RUNS = ("s3", "s3_overlap_two")
+EVAL = _data(1, seed=13)[0]
 
 
 @pytest.fixture(scope="module")
@@ -139,6 +143,8 @@ def jax_runs(init):
                 config=_config(stage, 8, gas, zero), params=init[0])
             losses = [float(je.train_batch(iter(step))) for step in data]
             out[name] = {"losses": losses, "params": _np_tree(je.params)}
+            if name in {JAX_OF[n] for n in EVAL_RUNS}:
+                out[name]["eval"] = float(je.eval_batch(iter(EVAL)))
         je, *_ = deepspeed_tpu.initialize(model=j_mixtral("tiny", **MOE_KW),
                                           config=_moe_config(8),
                                           params=init[1])
@@ -154,7 +160,8 @@ def jax_runs(init):
 def _port_runs(world, init):
     runs = [{"name": name, "model": GPT2, "params": init[0],
              "config": _config(stage, world, gas, zero), "steps": data,
-             "layout": name == "s3"}
+             "layout": name == "s3",
+             "eval": EVAL if name in EVAL_RUNS else None}
             for name, (stage, gas, zero, data) in RUNS.items()]
     runs.append({"name": "fp16_skip", "model": GPT2, "params": init[0],
                  "config": _config(2, world, fp16={
@@ -201,6 +208,22 @@ def test_stage_matches_jax_engine(port, jax_runs, name):
         for k in jp:
             np.testing.assert_allclose(tp[k], jp[k], rtol=0, atol=1e-4,
                                        err_msg=f"{name} {k}")
+
+
+@pytest.mark.parametrize("name", EVAL_RUNS)
+def test_stage3_eval_matches_jax_without_graph(port, jax_runs, name):
+    """eval_batch at stage 3 runs the layer loop without autograd: every
+    chunk computes with gradients off and keeps no graph (training's loop
+    keeps each chunk's activations for its backward), and the loss is the
+    JAX engine's."""
+    world, res = port
+    want = jax_runs[JAX_OF[name]]["eval"]
+    for r in range(world):
+        got = res[r][name]
+        np.testing.assert_allclose(got["eval"], want, rtol=1e-5,
+                                   err_msg=f"{name} rank {r}")
+        assert len(got["eval_chunks"]) > 0
+        assert not any(got["eval_chunks"]), got["eval_chunks"]
 
 
 def test_stage3_holds_shards(port):
@@ -257,10 +280,13 @@ def test_capacity_moe_and_other_axes_raise(port):
     for r in range(world):
         assert "Parallelism breadth" in res[r]["capacity_raises"]
     cfg = dt.gpt2_config("tiny", max_seq_len=SEQ, vocab_size=VOCAB)
-    for ax in ("model", "seq", "pipe", "expert", "data_inner"):
+    for ax in ("seq", "pipe", "expert", "data_inner"):
         with pytest.raises(NotImplementedError, match="Parallelism breadth"):
             dt.initialize(cfg, _config(0, 1), device="cpu",
                           mesh=Mesh({"data": 1, ax: 2}))
-    with pytest.raises(ValueError, match="torch.distributed"):
-        dt.initialize(cfg, _config(0, 2), device="cpu",
-                      mesh=Mesh({"data": 2}))
+    # the model axis runs (test_torch_tensor_parallel.py), over as many
+    # ranks as the mesh holds
+    for shape in ({"data": 2}, {"data": 1, "model": 2}):
+        with pytest.raises(ValueError, match="torch.distributed"):
+            dt.initialize(cfg, _config(0, shape["data"]), device="cpu",
+                          mesh=Mesh(shape))

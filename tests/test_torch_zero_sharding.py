@@ -80,8 +80,13 @@ def test_partition_specs_match_jax(trees, name):
         got = {k: _spec_tuple(v) for k, v in _flat(
             t_specs(tcfg, stage)).items()}
         assert got == want, (name, stage)
-    with pytest.raises(NotImplementedError, match="Parallelism breadth"):
-        t_specs(tcfg, 3, tp=True)
+        # tensor parallelism: 'model' on AutoTP's dims beside the FSDP axes
+        want = {k: _spec_tuple(v) for k, v in _flat(jax.tree.map(
+            lambda s: s, j_specs(jcfg, stage, tp=True),
+            is_leaf=lambda x: isinstance(x, P))).items()}
+        got = {k: _spec_tuple(v) for k, v in _flat(
+            t_specs(tcfg, stage, tp=True)).items()}
+        assert got == want, (name, stage, "tp")
     with pytest.raises(NotImplementedError, match="Parallelism breadth"):
         t_specs(tcfg, 3, mics=True)
 

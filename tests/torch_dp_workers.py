@@ -83,12 +83,22 @@ def collectives(rank, world, arrays):
         M.build_mesh(data=world + 1)
     except ValueError as e:
         raises["product"] = str(e)
-    for ax in ("model", "seq", "pipe", "expert", "data_inner"):
+    for ax in ("seq", "pipe", "expert", "data_inner"):
         try:
             M.build_mesh(data=world // 2, **{ax: 2})
         except NotImplementedError as e:
             raises[ax] = str(e)
     out["raises"] = raises
+    # the model axis: 'model' fastest, one group a data row and a column
+    mm = M.build_mesh(data=world // 2, model=2)
+    me = torch.tensor([float(rank)])
+    out["model_mesh"] = {
+        "coords": (mm.coord("data"), mm.coord("model")),
+        "model_sum": float(comm.all_reduce(me, "model")),
+        "data_sum": float(comm.all_reduce(me, "data")),
+        "world_sum": float(comm.all_reduce(me, ("data", "model"))),
+        "model_index": comm.axis_index("model"),
+        "data_index": comm.axis_index("data")}
     return _np(out)
 
 
@@ -161,6 +171,8 @@ def engine_runs(rank, world, runs):
                    grad_norm=eng.get_global_grad_norm())
         if mode == "poison":
             res["before"] = before
+        if run.get("eval") is not None:
+            res["eval"], res["eval_chunks"] = _eval_chunks(eng, run["eval"])
         if run.get("layout"):
             res["layout"] = {"pdim": eng._pdim, "sdim": eng._sdim,
                              "gdim": eng._gdim,
@@ -168,6 +180,28 @@ def engine_runs(rank, world, runs):
                                        tree_leaves(eng.params)]}
         out[run["name"]] = res
     return out
+
+
+def _eval_chunks(eng, micros):
+    """eval_batch's loss over ``micros``, and for each chunk the stage-3
+    loop ran: whether it computed with autograd on or gave an output that
+    carries a graph."""
+    import torch
+    plan = eng._overlap_plan
+    loop, seen = plan.layer_loop, []
+
+    def spy(run_layers, x, layers):
+        def run(xk, chunk, lo):
+            y, a = run_layers(xk, chunk, lo)
+            seen.append(torch.is_grad_enabled() or y.requires_grad)
+            return y, a
+        return loop(run, x, layers)
+    plan.layer_loop = spy
+    try:
+        loss = float(eng.eval_batch(iter(micros)))
+    finally:
+        del plan.layer_loop
+    return loss, seen
 
 
 def _paths(tree, prefix=""):
@@ -256,3 +290,227 @@ def elastic_dp4(rank, world, model, config, save_dir, steps):
             "gas": eng.gradient_accumulation_steps(),
             "micro": eng.train_micro_batch_size_per_gpu,
             "losses": [float(eng.train_batch(iter(step))) for step in steps]}
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: the engine on data × model
+# ---------------------------------------------------------------------------
+
+def tp_engine_runs(rank, world, data, model, runs):
+    """``engine_runs``' "train" and "raises" modes on
+    ``build_mesh(data=data, model=model)``; each result adds this rank's
+    mesh coordinates and the local shapes of its leaves."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.ops.optimizers import tree_leaves
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+    mesh = build_mesh(data=data, model=model)
+    out = {}
+    for run in runs:
+        cfg = _model(run["model"])
+        if run.get("mode") == "raises":
+            try:
+                dt.initialize(cfg, dict(run["config"]), device="cpu",
+                              mesh=mesh)
+                out[run["name"]] = None
+            except (NotImplementedError, ValueError) as e:
+                out[run["name"]] = str(e)
+            continue
+        eng = dt.initialize(cfg, dict(run["config"]), params=run.get(
+            "params"), device="cpu", mesh=mesh)[0]
+        losses = [float(eng.train_batch(iter(step)))
+                  for step in run["steps"]]
+        out[run["name"]] = {
+            "losses": losses, "params": _np(eng.gathered_params()),
+            "grad_norm": eng.get_global_grad_norm(),
+            "coords": (mesh.coord("data"), mesh.coord("model")),
+            "local": [tuple(x.shape) for x in tree_leaves(eng.params)],
+            "mdim": list(eng._mdim)}
+    return out
+
+
+def tp_serving(rank, world, runs):
+    """The v1 and encoder engines on ``build_mesh(model=world)``. Each
+    run: {"name", "cfg" (a DecoderConfig's fields), "params" (numpy tree:
+    float, or pre-quantized with int8 leaves), "config", "kind": "v1" |
+    "encoder", "prompt"/"seqs", "new"}; a ValueError becomes its
+    message."""
+    from deepspeed_tpu_torch.inference import (EncoderInference,
+                                               init_inference)
+    from deepspeed_tpu_torch.models.convert import params_from_jax
+    from deepspeed_tpu_torch.models.transformer import DecoderConfig
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+    build_mesh(model=world)
+    out = {}
+    for run in runs:
+        cfg = DecoderConfig(**run["cfg"])
+        params = run.get("params")
+        if params is not None:
+            params = params_from_jax(params, device="cpu")
+        try:
+            if run["kind"] == "encoder":
+                eng = EncoderInference(cfg, run["config"], params=params,
+                                       device="cpu")
+                out[run["name"]] = {"logits": eng(run["seqs"])}
+                continue
+            eng = init_inference(cfg, run["config"], params=params,
+                                 device="cpu")
+        except ValueError as e:
+            out[run["name"]] = str(e)
+            continue
+        res = {"tokens": eng.generate(run["prompt"],
+                                      max_new_tokens=run["new"]),
+               "logits": eng.forward(run["prompt"]).numpy(),
+               "wq": tuple(eng.params["layers"]["attn"]["wq"].shape),
+               "cache_heads": eng._kv_heads}
+        out[run["name"]] = res
+    return out
+
+
+
+# ---------------------------------------------------------------------------
+# ZeRO++: the quantized collectives and the engine
+# ---------------------------------------------------------------------------
+
+def zeropp_runs(rank, world, arrays, runs):
+    """``arrays``: {name: [world, n] float32}; each rank gives row
+    ``rank`` to the quantized collectives. ``runs``: as
+    ``engine_runs``' "train" (losses) and "raises" (a ValueError's
+    message) modes on build_mesh(data=world)."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.comm import comms_logger
+    from deepspeed_tpu_torch.comm.quantized import (all_to_all_quant_reduce,
+                                                    quantized_all_gather,
+                                                    quantized_reduce_scatter)
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+    mesh = build_mesh(data=world)
+    comms_logger.enabled = True
+    comms_logger.comms_dict.clear()
+    out = {"coll": {}}
+    for name, a in arrays.items():
+        x = torch.from_numpy(np.ascontiguousarray(a[rank]))
+        out["coll"][name] = {
+            "gather": quantized_all_gather(x, "data"),
+            "rs": quantized_reduce_scatter(x, "data"),
+            "rs_sum": quantized_reduce_scatter(x, "data", mean=False),
+            "rs4": quantized_reduce_scatter(x, "data", bits=4),
+            "a2a": all_to_all_quant_reduce(x, "data")}
+    out["bytes"] = comms_logger.bytes_by_op()
+    comms_logger.enabled = False
+    for run in runs:
+        cfg = _model(run["model"])
+        try:
+            eng = dt.initialize(cfg, dict(run["config"]),
+                                params=run.get("params"), device="cpu",
+                                mesh=mesh)[0]
+        except ValueError as e:
+            out[run["name"]] = str(e)
+            continue
+        losses = [float(eng.train_batch(iter(step)))
+                  for step in run["steps"]]
+        out[run["name"]] = {"losses": losses,
+                            "params": _np(eng.gathered_params()),
+                            "chunk": tuple(eng.params["flat"].shape)
+                            if "flat" in eng.params else None}
+    return _np(out)
+
+
+def checkpoint_tp(rank, world, model, params, steps, jax_dir, save_dir,
+                  configs):
+    """On build_mesh(data=2, model=2): load the JAX save at stage 1 and
+    train on; train from ``params`` at stage 3, save after one step; then
+    on build_mesh(data=4) load that save at stage 1."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+    cfg = _model(model)
+    mesh = build_mesh(data=2, model=2)
+    out = {}
+    eng = dt.initialize(cfg, dict(configs["load"]), params=params,
+                        device="cpu", mesh=mesh)[0]
+    out["jax_tag"], _ = eng.load_checkpoint(jax_dir)
+    out["jax_loaded"] = _np(eng.gathered_params())
+    out["losses"] = [float(eng.train_batch(iter(s))) for s in steps[1:]]
+    eng = dt.initialize(cfg, dict(configs["save"]), params=params,
+                        device="cpu", mesh=mesh)[0]
+    eng.train_batch(iter(steps[0]))
+    eng.save_checkpoint(save_dir)
+    out["saved"] = _np(eng.gathered_params())
+    out["mdim"] = list(eng._mdim)
+    eng = dt.initialize(cfg, dict(configs["dp4"]), params=params,
+                        device="cpu", mesh=build_mesh(data=4))[0]
+    out["dp4_tag"], _ = eng.load_checkpoint(save_dir)
+    out["dp4_loaded"] = _np(eng.gathered_params())
+    return out
+
+
+def tp_model_init_ranks(rank, world, model, config, steps):
+    """tests/test_config.py:131 at model=world: dtypes, local shapes,
+    the conflicting-mesh refusal, and the blocks of the full draw; then
+    ``initialize`` on fp32 ``tp_model_init`` shards, trained on
+    ``steps``."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models.transformer import init_params
+    cfg = _model(model)
+    params, mesh = dt.tp_model_init(cfg, tp_size=world, dtype="bfloat16",
+                                    device="cpu")
+    p16, _ = dt.tp_model_init(cfg, tp_size=world, dtype="fp16",
+                              device="cpu")
+    try:
+        dt.tp_model_init(cfg, tp_size=world * 2, dtype="bfloat16",
+                         device="cpu")
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    full = init_params(cfg, torch.Generator(device="cpu").manual_seed(0),
+                       torch.bfloat16, "cpu")
+    p32, _ = dt.tp_model_init(cfg, tp_size=world, dtype="float32",
+                              device="cpu")
+    eng = dt.initialize(cfg, dict(config), params=p32, device="cpu",
+                        mesh=mesh)[0]
+    losses = [float(eng.train_batch(iter(step))) for step in steps]
+    return {"model_axis": mesh.shape["model"], "still": dt.parallel.mesh
+            .get_mesh().shape["model"], "refused": refused,
+            "wq_dtype": str(params["layers"]["attn"]["wq"].dtype),
+            "p16_dtype": str(p16["layers"]["attn"]["wq"].dtype),
+            "params": _np(_f32(params)), "full": _np(_f32(full)),
+            "trained": {"losses": losses,
+                        "params": _np(eng.gathered_params())}}
+
+
+def _f32(tree):
+    if isinstance(tree, dict):
+        return {k: _f32(v) for k, v in tree.items()}
+    return tree.float() if tree.is_floating_point() else tree
+
+
+def zeropp_checkpoint(rank, world, model, params, config, steps, jax_dir,
+                      save_dir):
+    """ZeRO++ at dp ``world``: train, save, and reload in a fresh engine;
+    then load the JAX ZeRO++ engine's save. Each returns the whole flat
+    buffer (one exact all-gather)."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+    mesh = build_mesh(data=world)
+    cfg = _model(model)
+
+    def flat(eng):
+        return comm.all_gather(eng.params["flat"].detach(), "data").numpy()
+    eng = dt.initialize(cfg, dict(config), params=params, device="cpu",
+                        mesh=mesh)[0]
+    for s in steps:
+        eng.train_batch(iter(s))
+    eng.save_checkpoint(save_dir)
+    out = {"saved": flat(eng),
+           "saved_opt": {k: v["flat"].numpy().copy() for k, v in
+                         eng.opt_state.items() if isinstance(v, dict)}}
+    fresh = dt.initialize(cfg, dict(config), device="cpu", mesh=mesh)[0]
+    out["tag"], _ = fresh.load_checkpoint(save_dir)
+    out["reloaded"] = flat(fresh)
+    out["reloaded_opt"] = {k: v["flat"].numpy().copy() for k, v in
+                           fresh.opt_state.items() if isinstance(v, dict)}
+    out["next_loss"] = [float(e.train_batch(iter(steps[0])))
+                        for e in (eng, fresh)]
+    jax_eng = dt.initialize(cfg, dict(config), device="cpu", mesh=mesh)[0]
+    out["jax_tag"], _ = jax_eng.load_checkpoint(jax_dir)
+    out["jax_loaded"] = flat(jax_eng)
+    return out

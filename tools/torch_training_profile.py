@@ -28,8 +28,15 @@ top-k, aligned dispatch and gathers, "optimizer" for the update pass
 residuals, embedding, grad accumulation, copies). The per-kernel table
 goes to ``chiprun_out/torch_training_profile_<model>.txt``.
 
+``--zero-stage 1|2|3`` (the Llama model only) runs the engine at that
+ZeRO stage over a one-rank NCCL group (``build_mesh(data=1)``, as
+``chip_smoke.py`` phase 12 does), ``--overlap`` with stage 3's
+``overlap_comm``; NCCL's kernels then form a class of their own, and the
+table goes to ``..._<model>_stage<N>.txt``.
+
 Run from the root of a checkout on a machine with one GPU:
-``python3 tools/torch_training_profile.py [--model moe-1b-8e]``.
+``python3 tools/torch_training_profile.py [--model moe-1b-8e]
+[--zero-stage N [--overlap]]``.
 """
 
 import argparse
@@ -65,6 +72,8 @@ def _kernel_class(name: str) -> str:
         return "flash_attention_fwd (K1)"
     if "flash_bwd_" in name:
         return "flash_attention_bwd (K3)"
+    if "nccl" in low:
+        return "nccl (collectives)"
     if any(s in low for s in ("gemm", "cutlass", "nvjet", "sm90_xmma",
                               "cublas")):
         return "gemm (cuBLAS)"
@@ -135,7 +144,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     from torch.profiler import ProfilerActivity, profile, record_function
-    from deepspeed_tpu_torch import initialize, llama3_config
+    from deepspeed_tpu_torch import build_mesh, comm, initialize, llama3_config
     from deepspeed_tpu_torch.models import transformer
     from deepspeed_tpu_torch.models.mixtral import mixtral_config
     from deepspeed_tpu_torch.ops import grouped_matmul as gmm
@@ -144,6 +153,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", choices=("llama3-1b", "moe-1b-8e"),
                     default="llama3-1b")
+    ap.add_argument("--zero-stage", type=int, choices=(0, 1, 2, 3),
+                    default=0)
+    ap.add_argument("--overlap", action="store_true")
     args = ap.parse_args()
     conf = {"optimizer": {"type": "adamw",
                           "params": {"lr": 1e-4, "weight_decay": 0.1}},
@@ -165,8 +177,19 @@ def main() -> int:
                     ce_logits_dtype="bf16")
     conf.update(train_micro_batch_size_per_gpu=micro,
                 gradient_accumulation_steps=gas)
+    mesh, tag = None, args.model
+    if args.zero_stage:
+        import tempfile
+        store = tempfile.mkdtemp(prefix="profile_")
+        comm.init_distributed(init_method=f"file://{store}/nccl",
+                              num_processes=1, process_id=0)
+        mesh = build_mesh(data=1)
+        conf["zero_optimization"] = {"stage": args.zero_stage,
+                                     "overlap_comm": args.overlap}
+        tag += f"_stage{args.zero_stage}" + ("_overlap" if args.overlap
+                                             else "")
     eng, _, _, _ = initialize(cfg, conf, generator=torch.Generator(
-        device="cuda").manual_seed(0))
+        device="cuda").manual_seed(0), mesh=mesh)
     smi = os.popen("nvidia-smi --query-gpu=name,power.limit "
                    "--format=csv,noheader").read().strip()
 
@@ -206,6 +229,7 @@ def main() -> int:
     tokens = micro * gas * SEQ
     print(json.dumps({
         "window": "train_batch", "card": smi, "model": args.model,
+        "zero_stage": args.zero_stage, "overlap": args.overlap,
         "dtype": "bfloat16", "micro_batch": micro, "gas": gas, "seq": SEQ,
         "steps": STEPS, "tokens_per_step": tokens,
         "wall_ms_per_step": 1e3 * wall / STEPS,
@@ -215,12 +239,13 @@ def main() -> int:
         "idle_share": 1.0 - device_ms / (1e3 * wall / STEPS),
         "device_ms_per_step_by_class": per_class}), flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(f"chiprun_out/torch_training_profile_{args.model}.txt",
-              "w") as f:
+    with open(f"chiprun_out/torch_training_profile_{tag}.txt", "w") as f:
         f.write(f"== train_batch x {STEPS} ({smi}) device us, calls, "
                 f"kernel\n")
         for dev_us, count, key in rows[:60]:
             f.write(f"{dev_us:12.1f} {count:7d}  {key[:150]}\n")
+    if args.zero_stage:
+        comm.destroy_distributed()
     return 0
 
 
