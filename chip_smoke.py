@@ -69,14 +69,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    the yardstick; and the int8
    block quantizer (K6) on a bf16 tensor of Llama-3 1B's gradient size and
    on small ones, bit-identical to its plain version;
-4. runs ``ragged_forward`` for a depth-2 model at Llama-3-8B width in fp32
+4. runs ``ragged_forward`` for a model of CPU_HOLD_DEPTH (2) at
+   Llama-3-8B width in fp32
    on the card (kernels) and on the CPU (plain versions) — a fresh chunk, a
    split chunk and a decode step — and compares the logits, then checks
    that the bf16 head returns unrounded fp32 logits; then the same for a
-   depth-2 model at Mixtral 8x7B width: a fresh 4 x 256 chunk (1024
+   CPU_HOLD_DEPTH_CUT model at Mixtral 8x7B width: a fresh 4 x 256 chunk (1024
    tokens: the dropless FFN, grouped kernels) and a decode step (the
    capacity FFN); then from one quantized tree: depth 1 at Llama-3 8B
-   width in int8, fp8, int4 and fp6 (fresh, split, decode) and at Mixtral
+   width in int8, fp8, int4 and fp6 (fresh, split, decode; chunks of 128
+   tokens, ``reduced`` from 256: the CPU side's time) and at Mixtral
    width in int8 (a fresh 2 x 32 chunk and a decode step, both through the
    capacity layer);
 5. decodes in fused windows on every serving model: each decode step is
@@ -139,7 +141,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    decode step, wall and, from one traced megastep window, device; K1's
    and K2's launches by form and head dim), and at depth 2 in fp32 the
    card's logits held to the CPU's (2e-3) with identical greedy tokens;
-6. runs two ``train_batch`` steps of a depth-2 model at Llama-3-1B width in
+6. runs two ``train_batch`` steps of a CPU_HOLD_DEPTH model at Llama-3-1B
+   width in
    fp32 on the card (K1 + K3) and on the CPU (plain versions) from one
    parameter tree, and compares losses and updated parameters; then the
    same at Gemma-2B's and Phi-2's widths and head dims (256, 80) with a
@@ -162,7 +165,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    leaf's raw words unchanged);
 8. MoE training: the fp32 gradients of ``dropless_moe_layer`` at the
    1B/8e width and two fp32 ``train_batch`` steps of the 1B/8e model at
-   depth 2, card against CPU, dropless, under the capacity impl with
+   CPU_HOLD_DEPTH_CUT, card against CPU, dropless, under the capacity impl with
    random token selection (the JAX package's default MoE config) and
    under Residual-MoE; then the slice's main path, the repo's MoE
    training bench model (bench.py:251-285; 12 layers, 8 experts top-2,
@@ -174,15 +177,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    grouped_wgrad's by form: the bf16 main paths launch only their wgmma
    forms);
 9. checkpoint and resume (run right after phase 7), in a fresh directory
-   under ``build/`` removed at the end: (a) at depth 2 and Llama-3 1B width
-   (a 32,000-entry vocabulary, an FFN of 2048) in fp32, for AdamW, LAMB, Lion, Adagrad, SGD with momentum and Muon, 2
-   steps on the card, ``save_checkpoint``, ``load_checkpoint`` into a
-   fresh card engine and a CPU engine (every leaf bitwise the saved one),
-   2 more steps on each, card against CPU; (c) ``step:3:preempt`` under
+   under ``build/`` removed at the end: (a) at depth 1 (``reduced``) and
+   Llama-3 1B width (a 32,000-entry vocabulary, an FFN of 2048) in fp32,
+   for AdamW, LAMB, Lion, Adagrad, SGD with momentum and Muon, a step
+   on the card, ``save_checkpoint``, ``load_checkpoint`` into a fresh card
+   engine and a CPU engine (every leaf bitwise the saved one), a step on
+   each from the loaded state, card against CPU (``reduced`` from 2 steps
+   each side of the save); (c) ``step:3:preempt`` under
    ``DSElasticAgent``: ``Preempted`` with tag preempt_step4 and a black
    box, ``agent.resume()`` in a fresh engine, and its 2 steps against the
    uninterrupted run; (b) the slice's main path, Llama-3 1B at full width
-   and depth in bf16: 2 steps, ``save_checkpoint(async_save=True)`` and a
+   and 4 of its 16 layers (``reduced``) in bf16: 2 steps, ``save_checkpoint(async_save=True)`` and a
    step before ``wait_pending()``, a fresh engine loads the state at the
    save bit for bit and its next 2 steps are held to the uninterrupted
    engine's, with the state's bytes on disk, the snapshot's seconds, the
@@ -196,19 +201,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    2048, clip 1.0), at full depth when the host holds the fp32 master and
    moments, else on the NVMe tier when the disk holds it and its traffic
    fits, else with layers cut to what the host holds (printed under
-   ``reduced``): 2 warm-up and 3 timed steps on one fixed batch with
-   ``overlap`` off, then on, each with ms a step, the card's
+   ``reduced``): 2 warm-up steps and 1 timed (``reduced`` from 3) on one
+   fixed batch with ``overlap`` off, then on, each with ms a step, the card's
    forward+backward ms, the host sweep's seconds, D2H and H2D GB/s, the
    host state's bytes, peak memory beside the on-card state the model
    would need, losses (finite, falling) and K1's and K3's launches; after
    the first step, the embedding, layer 0's wq and the final norm equal
    an AdamW step computed on the card from the same master slice and
-   landed bf16 gradients within 1 bf16 ulp; (b) at depth 2 and Llama-3
+   landed bf16 gradients within 1 bf16 ulp; (b) at CPU_HOLD_DEPTH_CUT and Llama-3
    1B width in fp32, 2 steps of ZeRO-Offload (overlap off and on),
    SuperOffload (a clip that makes it roll back), the NVMe tier and the
    parameter tier under ``build/``, each on the card and the CPU, within
    1e-4 of each other and of the card's on-device AdamW engine; (c) the
-   parameter tier at Llama-3 1B's full width in bf16 at two depths: the
+   parameter tier at Llama-3 1B's full width in bf16 at depths 2 and 4
+   (``reduced`` from 4 and 8): the
    store's bytes, streaming GB/s and peak memory, flat across depths; (d)
    a host Adam sweep over 2^30 values in GB/s beside numpy copying them,
    and an O_DIRECT ``AsyncIOEngine`` write and read of 4 GiB under
@@ -216,8 +222,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 11. v1 inference and the quantization tool (run right after phase 5's HF
    models), each part one ``v1_inference`` line with the card's
    ``nvidia-smi`` name and power limit: (a) Llama-3 8B at full width and
-   depth in bf16 through ``init_inference``, 8 prompts of 512 tokens and
-   128 new ones, greedy: the tokens of the decode step replayed as a CUDA
+   16 of 32 layers (``reduced``) in bf16 through ``init_inference``, 8
+   prompts of 512 tokens and 128 new ones, greedy: the tokens of the decode step replayed as a CUDA
    graph equal the stepwise loop's; prefill ms, decode ms a token on the
    graph and stepwise, the capture's seconds, peak memory, one traced
    ``generate`` (device time, idle share, the heaviest kernels), and the
@@ -238,8 +244,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    16 of its 32 layers (``reduced``) in bf16 (the 8 x 256 prefill through
    the grouped kernels) and int8 (K5c); (f) ``python -m
    deepspeed_tpu_torch.cli.dstpu_quantize``'s ``main`` on an exported
-   Llama-3-width model of depth 2: the int4 npz, loaded back, serves the
-   tokens of ``weight_quant`` applied at start-up; (g) fp32 at depth 2
+   Llama-3-width model of depth 1 (``reduced``): the int4 npz, loaded
+   back, serves the tokens of ``weight_quant`` applied at start-up; (g) fp32 at depth 2
    with TF32 off, card against CPU, at the widths of Llama-3 8B and
    BLOOM-7b1 (prefill logits within 1e-4 relative, greedy tokens
    identical) and BERT-large (hidden states and logits within 1e-4).
@@ -248,7 +254,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    phase 7's Llama-3 1B engine in bf16 at stages 0, 1, 2, 3 and 3 with
    ``overlap_comm``, 3 steps each from one seed on one batch (ms a step,
    peak HBM, the comms logger's bytes a step by op, K1/K3 launches;
-   losses within 1e-2 of stage 0's); (b) Llama-3 1B's width at depth 2
+   losses within 1e-2 of stage 0's); (b) Llama-3 1B's width at CPU_HOLD_DEPTH
    (vocabulary 32,000) in fp32, the card at world 1 against the port on
    the CPU at dp 2 over gloo, two ranks this phase starts (losses within
    1e-4); (c) the card resumes the CPU ranks' dp-2 save through
@@ -260,22 +266,41 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 13. tensor parallelism and ZeRO++ (``tp_zeropp``, after 12): two ranks on
    the card over gloo (NCCL refuses two ranks on one card;
    tools/gloo_cuda_probe.py found gloo's collectives working on CUDA
-   tensors), each holding its 'model' shards: (a) Llama-3 8B through
+   tensors), each holding its 'model' shards: (a) Llama-3 8B (16 of 32
+   layers, phase 11's cut) through
    ``init_inference`` at tp 2 in bf16 and int8 (``qmatmul_tp`` over K5a),
    phase 11's 8 x 512 prompts and seed, against tp 1 on the same weights
    (prefill logits within 8e-2 of the largest, the bf16 spread phase 11
-   measures between two engines; greedy tokens matched of 32; ms a
+   measures between two engines; greedy tokens matched of 16; ms a
    token, peak HBM per rank, bytes a token by collective);
    the same at depth 2 in fp32 (logits within 1e-4, tokens identical);
    (b) phase 7's engine at tp 2, stage 0, 2 steps, against phase 12's
    tp-1 run (losses within 1e-2; K1/K3 at 8 of 16 heads a rank); (b')
-   fp32 at depth 2, the card's ranks against two CPU ranks, both tp 2
+   fp32 at CPU_HOLD_DEPTH, the card's ranks against two CPU ranks, both tp 2
    (1e-4); (c) ZeRO++ on phase 7's engine at stage 2 over one NCCL rank,
    exact against qwZ + qgZ (K6 twice a step, its device ms inside the
    step; losses within 2e-2), then one more step in which each K6 call,
    on the bf16 parameter buffer and the fp32 gradient (1.269 B values
    each), is held against its plain version, bit for bit.
-   ``--tp-zeropp-only`` runs the build, 12 and 13.
+   ``--tp-zeropp-only`` runs the build, 8, 11 (e), 12, 13 and 14.
+14. expert parallelism (``ep``), in phase 13's two card ranks after
+   their phase-13 parts: (a) phase 11 (e)'s Mixtral (16 of 32 layers,
+   ``reduced``) in int8 through ``init_inference`` at ep 2, each rank
+   drawing only its 4 experts, 8 x 256 prompts split 4 a rank, 16 new
+   tokens: prefill logits within 8e-2 of phase 11 (e)'s int8 run, greedy
+   tokens matched, ms a token, all_to_all bytes and peak HBM a rank, K5c's
+   launches at G 4 by shape; after the counted window K5c at those
+   shapes against its plain version; (a') its width at depth 2 in fp32
+   against ep 1 (2e-4, tokens identical); (b) the 1B/8e bench model with
+   the capacity layer (capacity factor 1.0, tokens dropped) at ep 2,
+   stage 1, a global batch of 2 x 2048, against ep 1 at world 1 on the
+   same batches (losses within 1e-2; tokens dropped a step, ms a step,
+   the all_to_all record, peak); (b') its width at depth 2 in fp32, the
+   card's ranks against two CPU ranks at ep 2 (1e-4); (c) the 1B/8e
+   dropless at tp 2, stage 0, against phase 8's run (losses within 1e-2;
+   the five grouped kernels at f 1408 and K1/K3 at 4/2 heads a rank,
+   counted), and after the counted window the five grouped kernels at f
+   1408 against their plain versions.
 
 Every phase prints one JSON line; any failure raises, so the script exits
 non-zero. Without CUDA, or outside a checkout of the repository, it exits
@@ -295,6 +320,16 @@ import numpy as np
 
 #: device under test; the serving phase's model and arena
 DEV = "cuda"
+#: the depth of the fp32 card-against-CPU holds at full width that keep
+#: the faults which cross layers in view: phase 4's dense ragged_forward
+#: (the KV arena's layer offsets), phase 6 (indexing into the stacked
+#: layer leaves) and phase 12 (b) (the stage-3 loop carrying and
+#: prefetching across chunks; phase 13 (b') shares its model)
+CPU_HOLD_DEPTH = 2
+#: the depth of the other fp32 card-against-CPU holds at full width
+#: (phase 4's MoE and quantized models, 8, 10 (b); ``reduced`` from 2: the
+#: CPU side's time scales with depth, and the holds above cross layers)
+CPU_HOLD_DEPTH_CUT = 1
 SERVE_MODEL = ("8b", {})
 SERVE_BLOCKS = 512
 SERVE_KERNELS = ("flash_attention_fwd", "paged_attention")
@@ -1750,7 +1785,7 @@ def phase_full_width():
     from deepspeed_tpu_torch.ops.paged_attention import init_arena
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = llama3_config("8b", num_layers=2)
+    cfg = llama3_config("8b", num_layers=CPU_HOLD_DEPTH)
     gen = torch.Generator(device=DEV).manual_seed(1)
     t0 = time.perf_counter()
     p_gpu = init_params(cfg, gen, torch.float32, DEV)
@@ -1839,7 +1874,7 @@ def phase_full_width_moe():
     from deepspeed_tpu_torch.parallel.moe import serving_moe_fn
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = mixtral_config("8x7b", num_layers=2)
+    cfg = mixtral_config("8x7b", num_layers=CPU_HOLD_DEPTH_CUT)
     t0 = time.perf_counter()
     p_gpu = init_params(cfg, torch.Generator(device=DEV).manual_seed(4),
                         torch.float32, DEV)
@@ -1878,7 +1913,8 @@ def phase_full_width_moe():
         assert torch.isfinite(logits[DEV]).all()
         err = _err(logits[DEV], logits["cpu"])
         worst = max(worst, err)
-        emit({"phase": "full_width_moe", "model": "mixtral-8x7b-width-depth2",
+        emit({"phase": "full_width_moe",
+              "model": f"mixtral-8x7b-width-depth{CPU_HOLD_DEPTH_CUT}",
               "mode": mode, "tokens": 4 * c, "max_abs_err": err, "tol": tol,
               "logit_absmax": float(logits["cpu"].abs().max()),
               "launches": launched})
@@ -2570,7 +2606,8 @@ def phase_full_width_quant():
     """Quantized ragged_forward, fp32, card against CPU from one quantized
     tree (drawn quantized on the card, copied to the CPU): depth 1 at
     Llama-3 8B width under each of the four formats (a fresh chunk, a
-    split chunk and a decode step, the head included: (4096, 128256)),
+    split chunk and a decode step of 3 rows, chunks of 128 tokens, the
+    head included: (4096, 128256)),
     then depth 1 at Mixtral 8x7B width in int8 (a fresh 2 x 32 chunk and a
     decode step, both through the capacity layer's batched kernel). Depth
     1, not 2: the CPU side's plain dequantizing matmuls were the largest
@@ -2613,9 +2650,13 @@ def phase_full_width_quant():
             pt = np.full((3, mb), nb, np.int32)
             pt[0, :2], pt[1, :3], pt[2, :5] = [3, 0], [7, 1, 12], \
                 [2, 9, 4, 15, 5]
-            steps = [("fresh", 256, [0, 0, 0], [200, 256, 256]),
-                     ("split", 256, [200, 256, 256], [1, 100, 256]),
-                     ("decode", 1, [201, 356, 512], [1, 1, 1])]
+            # chunks of 128 (``reduced`` from 256: the CPU side's
+            # dequantizing products, the head's above all, scale with the
+            # tokens): a partial fresh chunk, a split chunk from mid-page,
+            # one across a page boundary and one a whole page, decode
+            steps = [("fresh", 128, [0, 0, 0], [100, 96, 128]),
+                     ("split", 128, [100, 96, 128], [1, 100, 128]),
+                     ("decode", 1, [101, 196, 256], [1, 1, 1])]
         for step, c, starts, counts in steps:
             tokens = rng.integers(0, cfg.vocab_size,
                                   size=(len(starts), c)).astype(np.int32)
@@ -2643,6 +2684,7 @@ def phase_full_width_quant():
             err = _err(logits[DEV], logits["cpu"])
             worst = max(worst, err)
             emit({"phase": "full_width_quant", "model": name + "-depth1",
+                  "reduced": None if moe else {"chunk_tokens": [256, 128]},
                   "mode": step, "weight_quant": mode,
                   "tokens": len(starts) * c, "max_abs_err": err, "tol": tol,
                   "logit_absmax": float(logits["cpu"].abs().max()),
@@ -3106,9 +3148,11 @@ def phase_hf_models() -> dict:
 # phase 11: v1 inference and the quantization tool (run after phase 5)
 # ---------------------------------------------------------------------------
 
-#: (a)/(b): Llama-3 8B at full width and depth, 8 prompts of 512 tokens,
-#: 128 new tokens, greedy; (b) in each of V1_QUANT
-V1_LLAMA = ("8b", {})
+#: (a)/(b): Llama-3 8B at full width and 16 of its 32 layers (``reduced``:
+#: the script's time limit; phase 13 (a) serves the same cut at tp 2), 8
+#: prompts of 512 tokens, 128 new tokens, greedy; (b) in each of V1_QUANT
+V1_LLAMA = ("8b", {"num_layers": 16})
+V1_LLAMA_REDUCED = {"num_layers": [32, 16]}
 V1_BATCH, V1_PROMPT, V1_NEW = 8, 512, 128
 #: new tokens of (a)'s traced ``generate`` (its trace's event count keeps
 #: the profiler's own processing short)
@@ -3128,8 +3172,10 @@ V1_BERT_SEQS = 32
 #: tokens, bf16 then int8 (K5c)
 V1_MIXTRAL = ("8x7b", {"num_layers": 16})
 V1_MOE_BATCH, V1_MOE_PROMPT, V1_MOE_NEW = 8, 256, 16
-#: (f): the quantizer CLI on an exported Llama-3-width model of depth 2
-V1_CLI = ("8b", {"num_layers": 2})
+#: (f): the quantizer CLI on an exported Llama-3-width model of depth 1
+#: (``reduced`` from 2: the export, the CLI's numpy quantization and the
+#: load scale with it)
+V1_CLI = ("8b", {"num_layers": 1})
 V1_CLI_MODE = "int4"
 #: (g): fp32 at depth 2, card against CPU, 2 prompts of 32 tokens, 4 new
 V1_FP32 = {"layers": 2, "batch": 2, "prompt": 32, "new": 4, "tol": 1e-4}
@@ -3349,6 +3395,7 @@ def _v1_llama(smi, total) -> dict:
     ref = weakref.ref(eng)
     del eng
     emit({"phase": "v1_inference", "part": "a", "model": "llama3-8b",
+          "reduced": V1_LLAMA_REDUCED,
           "dtype": "bfloat16", "nvidia_smi": smi, "layers": cfg.num_layers,
           "batch": V1_BATCH, "prompt": V1_PROMPT, "new": V1_NEW,
           "init_seconds": init_s, **res, "allocated_before_gb": before,
@@ -3379,6 +3426,7 @@ def _v1_llama(smi, total) -> dict:
         ref = weakref.ref(eng)
         del eng
         emit({"phase": "v1_inference", "part": "b", "model": "llama3-8b",
+              "reduced": V1_LLAMA_REDUCED,
               "weight_quant": mode, "nvidia_smi": smi,
               "weight_gb": weight_gb, "init_seconds": init_s, **qres,
               "decode_ms_per_token_bf16": base_ms,
@@ -3527,13 +3575,17 @@ def _v1_moe(smi, total) -> None:
     rng = np.random.default_rng(67)
     prompts = rng.integers(0, cfg.vocab_size, size=(
         V1_MOE_BATCH, V1_MOE_PROMPT)).astype(np.int32)
+    # the router's fp32 logits without TF32 (phase 14 (a) holds its ep-2
+    # run to this one's, with the same setting)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     for mode in (None, "int8"):
         before = _v1_mem_start()
         eng = init_inference(
             cfg, {"dtype": "bfloat16", "weight_quant": mode},
             generator=torch.Generator(device=DEV).manual_seed(68),
             device=DEV)
-        _, res, launches = _v1_generate(eng, prompts, V1_MOE_NEW)
+        tokens, res, launches = _v1_generate(eng, prompts, V1_MOE_NEW)
         line = {}
         if mode is None:
             # two prefills of 2048 tokens: the dropless grouped FFN a
@@ -3547,6 +3599,11 @@ def _v1_moe(smi, total) -> None:
             need = {"quantized_matmul", "quantized_matmul_batched"}
             assert {k for k, v in launches.items() if v} == need, launches
             line["k5_launches"] = _v1_quant_forms(launches, need)
+            # phase 14 (a)'s reference, after the counted window
+            with torch.no_grad():
+                logits = eng.forward(prompts)[:, -1].float().cpu().numpy()
+            _V1_MOE_INT8.update(logits=logits,
+                                tokens=tokens[:, V1_MOE_PROMPT:])
         _v1_add(total, launches)
         emit({"phase": "v1_inference", "part": "e", "model":
               f"mixtral-8x7b-{cfg.num_layers}L", "weight_quant": mode,
@@ -3563,7 +3620,7 @@ def _v1_moe(smi, total) -> None:
 
 def _v1_cli(smi, root, total) -> None:
     """(f): the quantizer CLI (``main``, as ``python -m`` runs it) on an
-    exported Llama-3-width model of depth 2; its npz served by
+    exported Llama-3-width model of depth 1; its npz served by
     InferenceEngine gives the tokens of ``weight_quant`` applied at
     start-up to the float tree."""
     import torch
@@ -3576,8 +3633,8 @@ def _v1_cli(smi, root, total) -> None:
     gen = torch.Generator(device=DEV).manual_seed(69)
     params = _cast_tree(init_params(cfg, gen, torch.bfloat16, DEV),
                         torch.bfloat16)
-    d = os.path.join(root, "llama3-8b-width-d2")
-    npz = os.path.join(root, "llama3-8b-width-d2.npz")
+    d = os.path.join(root, "llama3-8b-width")
+    npz = os.path.join(root, "llama3-8b-width.npz")
     t0 = time.perf_counter()
     export_hf_checkpoint(cfg, params, d)
     export_s = time.perf_counter() - t0
@@ -3730,21 +3787,22 @@ def _to_cpu(tree):
         if isinstance(tree, dict) else tree.detach().cpu()
 
 
-#: phase 6's models, each at depth 2 and T 256 in fp32: Llama-3 1B's width
+#: phase 6's models, each at CPU_HOLD_DEPTH and T 256 in fp32: Llama-3 1B's
+#: width
 #: (tied head), then the head dims of the model families, Gemma-2B's
 #: (MQA 8/1, dh 256, GeGLU) and Phi-2's (32/32, dh 80, partial rotary,
 #: parallel block, biased linears), each with a 32,000-entry vocabulary
 #: and an FFN of 2048: only the attention's head dim matters there
-TRAIN_FULL_WIDTH = (("llama3-1b-width-depth2", "llama3_config", "1b",
+TRAIN_FULL_WIDTH = (("llama3-1b-width", "llama3_config", "1b",
                      {"tie_embeddings": True}),
-                    ("gemma-2b-width-depth2", "gemma_config", "2b",
+                    ("gemma-2b-width", "gemma_config", "2b",
                      {"vocab_size": 32000, "intermediate_size": 2048}),
-                    ("phi-2-width-depth2", "phi_config", "2",
+                    ("phi-2-width", "phi_config", "2",
                      {"vocab_size": 32000, "intermediate_size": 2048}))
 
 
 def phase_train_full_width():
-    """Two train_batch steps of a depth-2 model at Llama-3-1B width (tied
+    """Two train_batch steps of a CPU_HOLD_DEPTH model at Llama-3-1B width (tied
     head), fp32: on the card (K1 + K3) and on the CPU (plain versions)
     from one seeded parameter tree and the same batches. AdamW, clip 1.0,
     gas 2, micro batch 1, T 256. Then the same at the widths and head
@@ -3770,7 +3828,8 @@ def phase_train_full_width():
                           "params": {"lr": 1e-5, "weight_decay": 0.1}},
             "gradient_clipping": 1.0, "attention_impl": "auto"}
     for seed, (label, preset, size, kw) in enumerate(TRAIN_FULL_WIDTH):
-        cfg = getattr(dt, preset)(size, num_layers=2, max_seq_len=256, **kw)
+        cfg = getattr(dt, preset)(size, num_layers=CPU_HOLD_DEPTH,
+                                  max_seq_len=256, **kw)
         init = init_params(cfg, torch.Generator(device=DEV).manual_seed(
             6 + seed), torch.float32, DEV)
         init_cpu = _to_cpu(init)
@@ -3814,7 +3873,8 @@ def phase_train_full_width():
                                                    leaves(cpu["params"])))
         moved = max(_err(a, b) for a, b in zip(leaves(card["params"]),
                                                leaves(init_cpu)))
-        res = {"phase": "train_full_width", "model": label,
+        res = {"phase": "train_full_width",
+               "model": f"{label}-depth{CPU_HOLD_DEPTH}",
                "head_dim": cfg.head_dim, "dtype": "float32",
                "losses_card": card["losses"], "losses_cpu": cpu["losses"],
                "loss_rel_err": loss_rel, "param_max_abs_err": param_err,
@@ -4139,13 +4199,15 @@ def phase_train_policies(smi: str) -> dict:
 # phase 9: checkpoint and resume — save, load, preempt, resume
 # ---------------------------------------------------------------------------
 
-#: phase_train_full_width's model and config (depth 2 at Llama-3 1B width,
-#: tied head, fp32, gas 2, T 256) for checkpoint checks (a) and (c), with a
+#: phase_train_full_width's model and config (Llama-3 1B width, tied
+#: head, fp32, gas 2, T 256) for checkpoint checks (a) and (c), with a
 #: 32,000-entry vocabulary and an FFN of 2048: no check of (a) or (c) needs
 #: Llama-3's 128,256 entries (68 % of the parameters the CPU side of (a)
 #: steps, saves and loads for each optimizer) or the 8192-wide FFN (whose
-#: matrices hold most of the CPU's bf16 Newton-Schulz work for Muon)
-CKPT_VOCAB, CKPT_FFN = 32000, 2048
+#: matrices hold most of the CPU's bf16 Newton-Schulz work for Muon); at
+#: depth 1 (``reduced``: a second layer repeats every leaf and check of
+#: the first, and the CPU side's steps, Muon's above all, scale with it)
+CKPT_VOCAB, CKPT_FFN, CKPT_DEPTH = 32000, 2048, 1
 CKPT_CONF = {"train_micro_batch_size_per_gpu": 1,
              "gradient_accumulation_steps": 2,
              "gradient_clipping": 1.0, "attention_impl": "auto"}
@@ -4169,6 +4231,13 @@ CKPT_OPTIMIZERS = (
 #: comparison of two summation orders at 2048-wide matrices)
 CKPT_TOL = 1e-4
 CKPT_MUON_UPDATE = 0.1
+#: (a)'s steps before the save and again after the load (``reduced`` from
+#: 2: the first step after the load reads every restored moment, and the
+#: CPU side's steps, Muon's above all, were the phase's largest cost)
+CKPT_STEPS = 1
+#: (b): Llama-3 1B's full width at 4 of its 16 layers (``reduced``: the
+#: script's time limit; the save's and load's GB/s do not depend on it)
+CKPT_FULL_LAYERS = 4
 #: (b): the bf16 1B resume against the uninterrupted run. Bitwise when
 #: every kernel and GEMM of a step is deterministic (printed); the limit
 #: allows a one-ulp bf16 flip of some weights from a reordered sum
@@ -4241,18 +4310,18 @@ def _dir_bytes(path: str) -> int:
 
 
 def _ckpt_optimizers(root, cfg, init, init_cpu, data) -> None:
-    """(a): for each optimizer, 2 steps on the card, save; load into a
-    fresh card engine and a CPU engine (every leaf bitwise the saved
-    one); 2 more steps on each, card against CPU."""
+    """(a): for each optimizer, CKPT_STEPS steps on the card, save; load
+    into a fresh card engine and a CPU engine (every leaf bitwise the
+    saved one); CKPT_STEPS more steps on each, card against CPU."""
     import shutil
     import torch
     from deepspeed_tpu_torch import initialize
-    steps = [data[2 * s:2 * s + 2] for s in range(4)]
+    steps = [data[2 * s:2 * s + 2] for s in range(2 * CKPT_STEPS)]
     for name, params in CKPT_OPTIMIZERS:
         conf = dict(CKPT_CONF, optimizer={"type": name, "params": params})
         counts = {}
         eng, _, _, _ = initialize(cfg, dict(conf), params=init, device=DEV)
-        first = _ckpt_train(eng, steps[:2], counts)
+        first = _ckpt_train(eng, steps[:CKPT_STEPS], counts)
         t0 = time.perf_counter()
         eng.save_checkpoint(root, tag=name)
         save_s = time.perf_counter() - t0
@@ -4269,11 +4338,12 @@ def _ckpt_optimizers(root, cfg, init, init_cpu, data) -> None:
             t0 = time.perf_counter()
             tag, _ = eng.load_checkpoint(root)
             load_s = time.perf_counter() - t0
-            assert tag == name and eng.global_steps == 2, (tag, name)
+            assert tag == name and eng.global_steps == CKPT_STEPS, \
+                (tag, name)
             bad = _bitwise_mismatches(saved, eng)
             before = {k: v.detach().to("cpu", copy=True) for k, v in
                       _state_leaves(eng).items() if k.startswith("params/")}
-            losses = _ckpt_train(eng, steps[2:],
+            losses = _ckpt_train(eng, steps[CKPT_STEPS:],
                                  counts if where == "card" else None)
             runs[where] = {"losses": losses, "params": _to_cpu(eng.params),
                            "seconds": time.perf_counter() - t_side,
@@ -4293,7 +4363,7 @@ def _ckpt_optimizers(root, cfg, init, init_cpu, data) -> None:
         param_err = max(_err(pc[k], pp[k]) for k in pc)
         moved = max(_err(pc[k], p0[k]) for k in pc)
         res = {"phase": "checkpoint_optimizer", "optimizer": name,
-               "model": "llama3-1b-width-depth2-vocab32k-ffn2048",
+               "model": f"llama3-1b-width-depth{CKPT_DEPTH}-vocab32k-ffn2048",
                "dtype": "float32", "params": params, "losses_before_save": first,
                "losses_card": card["losses"], "losses_cpu": cpu["losses"],
                "loss_rel_err": loss_rel, "param_max_abs_err": param_err,
@@ -4319,12 +4389,12 @@ def _ckpt_optimizers(root, cfg, init, init_cpu, data) -> None:
         assert not card["mismatches"] and not cpu["mismatches"], res
         assert all(np.isfinite(card["losses"] + cpu["losses"])), res
         assert loss_rel <= CKPT_TOL and param_err <= CKPT_TOL, res
-        want = 4 * 2 * cfg.num_layers
+        want = 2 * CKPT_STEPS * 2 * cfg.num_layers
         assert all(counts[k] == want for k in TRAIN_KERNELS), counts
 
 
 def _ckpt_preempt(root, cfg, init) -> None:
-    """(c): ``step:3:preempt`` in the depth-2 engine under DSElasticAgent:
+    """(c): ``step:3:preempt`` in (a)'s engine under DSElasticAgent:
     Preempted with tag preempt_step4 and a black box; a fresh engine
     resumes through agent.resume() (the dataloader cursor included) and
     its next 2 steps match the uninterrupted run's."""
@@ -4389,7 +4459,7 @@ def _ckpt_preempt(root, cfg, init) -> None:
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
     param_err = max(_err(pg[k], pw[k]) for k in pw)
     res = {"phase": "checkpoint_preempt",
-           "model": "llama3-1b-width-depth2-vocab32k-ffn2048",
+           "model": f"llama3-1b-width-depth{CKPT_DEPTH}-vocab32k-ffn2048",
            "dtype": "float32", "fault_plan": "step:3:preempt",
            "preempted_tag": tag, "blackbox": box is not None and
            os.path.exists(box), "resumed_tag": resumed,
@@ -4408,7 +4478,7 @@ def _ckpt_preempt(root, cfg, init) -> None:
 
 
 def _ckpt_full_size(root, smi) -> dict:
-    """(b): Llama-3 1B at full width and depth in bf16 (phase_train's
+    """(b): Llama-3 1B at full width and CKPT_FULL_LAYERS (phase_train's
     engine): 2 steps, save_checkpoint(async_save=True) and a third step
     before wait_pending(); a fresh engine loads the tag and holds, bit for
     bit, the state at the save; its next 2 steps against the uninterrupted
@@ -4417,7 +4487,8 @@ def _ckpt_full_size(root, smi) -> dict:
     from deepspeed_tpu_torch import initialize, llama3_config
     from deepspeed_tpu_torch.checkpoint import store
     from deepspeed_tpu_torch.ops import op_builder
-    cfg = llama3_config(TRAIN_MODEL[0], **TRAIN_MODEL[1])
+    cfg = llama3_config(TRAIN_MODEL[0], **dict(TRAIN_MODEL[1],
+                                               num_layers=CKPT_FULL_LAYERS))
     conf = {"train_micro_batch_size_per_gpu": TRAIN_MICRO,
             "gradient_accumulation_steps": TRAIN_GAS,
             "optimizer": {"type": "adamw",
@@ -4467,7 +4538,8 @@ def _ckpt_full_size(root, smi) -> dict:
     want = during + after
     rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, want))
     res = {"phase": "checkpoint_full_size", "model": "llama3-" +
-           TRAIN_MODEL[0], "dtype": "bfloat16", "params": cfg.num_params(),
+           TRAIN_MODEL[0], "reduced": {"num_layers": [16, cfg.num_layers]},
+           "dtype": "bfloat16", "params": cfg.num_params(),
            "nvidia_smi": smi, "micro_batch": TRAIN_MICRO, "gas": TRAIN_GAS,
            "seq": TRAIN_SEQ, "losses_before_save": first,
            "losses_uninterrupted": want, "losses_resumed": resumed,
@@ -4493,7 +4565,7 @@ def phase_checkpoint(smi: str) -> dict:
     """Checkpoint and resume through the port's own entry points
     (``save_checkpoint``/``load_checkpoint``, ``DSElasticAgent``) on the
     card, in a fresh directory under ``build/`` that is removed when the
-    phase ends: (a) each optimizer at depth 2 and Llama-3 1B width in
+    phase ends: (a) each optimizer at CKPT_DEPTH and Llama-3 1B width in
     fp32, card against CPU after a load; (b) Llama-3 1B at full size in
     bf16 with an async save that a step races; (c) preemption at step 3
     and resume. Returns (b)'s launches, the slice's main path."""
@@ -4509,9 +4581,14 @@ def phase_checkpoint(smi: str) -> dict:
     root = tempfile.mkdtemp(prefix="ckpt_", dir=os.path.join(here, "build"))
     try:
         emit({"phase": "checkpoint_dir", "disk_usage": _disk(root)})
-        cfg = llama3_config("1b", num_layers=2, max_seq_len=256,
+        cfg = llama3_config("1b", num_layers=CKPT_DEPTH, max_seq_len=256,
                             tie_embeddings=True, vocab_size=CKPT_VOCAB,
                             intermediate_size=CKPT_FFN)
+        emit({"phase": "checkpoint", "reduced": {
+            "num_layers": [2, CKPT_DEPTH],
+            "optimizer_steps": [2, CKPT_STEPS],
+            "why": "(a) and (c): the CPU side's steps scale with depth; "
+                   "(a): one step each side of the save"}})
         init = init_params(cfg, torch.Generator(device=DEV).manual_seed(6),
                            torch.float32, DEV)
         init_cpu = _to_cpu(init)
@@ -4534,9 +4611,11 @@ def phase_checkpoint(smi: str) -> dict:
 
 #: the main path: Llama-3 8B in bf16 under offload_optimizer 'cpu', stage
 #: 2, AdamW, remat full, micro batch 1 x 2048, gas 1, clip 1.0; 2 warm-up
-#: and 3 timed steps with overlap off, then on
+#: steps and 1 timed (``reduced`` from 3: a step is 7-12 s of host sweep;
+#: the overlapped run's second step still waits for the first sweep) with
+#: overlap off, then on
 OFFLOAD_MODEL = ("8b", {"max_seq_len": 2048})
-OFFLOAD_SEQ, OFFLOAD_WARMUP, OFFLOAD_STEPS = 2048, 2, 3
+OFFLOAD_SEQ, OFFLOAD_WARMUP, OFFLOAD_STEPS = 2048, 2, 1
 #: host bytes a parameter of the 'cpu' tier holds: fp32 master and two
 #: moments, the pinned bf16 landing and output buffers
 OFFLOAD_HOST_BYTES = 16
@@ -4552,10 +4631,11 @@ OFFLOAD_HOST_RESERVE = 12e9
 #: the NVMe tier runs (a) only if its file traffic for all its steps would
 #: take less than this at the rates (d) measured
 OFFLOAD_NVME_BUDGET_S = 240.0
-#: (b): depth 2 at Llama-3 1B width in fp32, phase 9 (a)'s vocabulary
+#: (b): CPU_HOLD_DEPTH_CUT at Llama-3 1B width in fp32, phase 9 (a)'s vocabulary
 #: and FFN; AdamW at lr 1e-5 (see phase_train_full_width), a clip of 0.05
 #: that fires every step (SuperOffload rolls back), 2 steps of gas 2
-OFFLOAD_SMALL = dict(num_layers=2, max_seq_len=256, tie_embeddings=True,
+OFFLOAD_SMALL = dict(num_layers=CPU_HOLD_DEPTH_CUT, max_seq_len=256,
+                     tie_embeddings=True,
                      vocab_size=32000, intermediate_size=2048)
 OFFLOAD_SMALL_RUNS = (
     ("offload", {"device": "cpu"}, None),
@@ -4566,7 +4646,8 @@ OFFLOAD_SMALL_RUNS = (
     ("param_tier", {"device": "nvme", "buffer_size": 1 << 24}, "nvme"))
 OFFLOAD_SMALL_TOL = 1e-4
 #: (c): the parameter tier at Llama-3 1B's full width in bf16, two depths
-OFFLOAD_TIER_DEPTHS = (4, 8)
+#: (``reduced`` from 4 and 8: the peak is flat across any two)
+OFFLOAD_TIER_DEPTHS = (2, 4)
 OFFLOAD_TIER_MICRO = 2
 #: (d): a host Adam sweep and its conversions over this many values, and
 #: an AsyncIOEngine write and read of this many bytes
@@ -4849,6 +4930,7 @@ def _offload_engine_run(cfg, conf, batch, overlap: bool, meta: dict) -> dict:
     nbytes = opt.layout.total * 2
     res = {"phase": "offload_main", "model": "llama3-" + OFFLOAD_MODEL[0],
            "dtype": "bfloat16", "overlap": overlap,
+           "timed_steps": {"reduced": [3, OFFLOAD_STEPS]},
            "params": cfg.num_params(), "micro_batch": 1, "seq": OFFLOAD_SEQ,
            "init_seconds": init_s, "init_peak_hbm_gb": init_peak,
            "losses": losses, "step_seconds": step_s,
@@ -4978,7 +5060,7 @@ def _small_run(label, cfg, conf, init, data, dev, root):
 
 
 def _offload_small(build: str) -> dict:
-    """(b): each tier at depth 2 and Llama-3 1B width in fp32, 2 steps on
+    """(b): each tier at CPU_HOLD_DEPTH_CUT and Llama-3 1B width in fp32, 2 steps on
     the card and on the CPU from one seeded tree, against each other and
     against the card's on-device AdamW engine (overlap's losses against
     its CPU run only: its second step sees the first weights)."""
@@ -5142,7 +5224,7 @@ def phase_offload(smi: str) -> dict:
     """ZeRO-Offload on one card (phase 10): the probe line, then (a) the
     main path — Llama-3 8B at full width in bf16 with its AdamW state in
     host memory, sync and overlapped, with the three-leaf check against an
-    AdamW step on the card, (b) every tier at depth 2 in fp32 card against
+    AdamW step on the card, (b) every tier at CPU_HOLD_DEPTH_CUT in fp32 card against
     CPU, (c) the parameter tier at two depths, (d) the host pieces alone
     (last: their buffers reuse (a)'s freed memory). Returns (a)'s
     launches."""
@@ -5244,7 +5326,7 @@ def phase_moe_layer_grad():
     assert max(errs.values()) <= 1e-4, res
 
 
-#: phase 8's depth-2 fp32 card-vs-CPU runs of the 1B/8e model: the
+#: phase 8's CPU_HOLD_DEPTH_CUT fp32 card-vs-CPU runs of the 1B/8e model: the
 #: dropless main path, the JAX package's default MoE training config
 #: (capacity impl with random token selection and drop_tokens; capacity
 #: factor 1.0 drops tokens at 256 tokens a micro-batch, so the order
@@ -5274,7 +5356,8 @@ def phase_moe_train_full_width():
     from deepspeed_tpu_torch.ops import op_builder
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = mixtral_config("tiny", **dict(MOE_TRAIN_MODEL, num_layers=2,
+    cfg = mixtral_config("tiny", **dict(MOE_TRAIN_MODEL,
+                                        num_layers=CPU_HOLD_DEPTH_CUT,
                                         max_seq_len=256))
     for label, moe, residual in MOE_WIDTH_RUNS:
         conf = _moe_train_conf(1, 2, 1e-5, bf16=False, moe=moe)
@@ -5315,7 +5398,8 @@ def phase_moe_train_full_width():
         param_err = max(_err(a, b) for a, b in zip(leaves(card["params"]),
                                                    leaves(cpu["params"])))
         res = {"phase": "moe_train_full_width",
-               "model": "moe-1b-8e-width-depth2", "moe": label,
+               "model": f"moe-1b-8e-width-depth{CPU_HOLD_DEPTH_CUT}",
+               "moe": label,
                "dtype": "float32",
                "losses_card": card["losses"], "losses_cpu": cpu["losses"],
                "aux_card": card["aux"], "aux_cpu": cpu["aux"],
@@ -5413,6 +5497,7 @@ def phase_train_moe():
                            activation_checkpointing={"policy": "none"})
     res, launches = _train_run(cfg, conf, MOE_TRAIN_WARMUP, MOE_TRAIN_STEPS,
                                11, (MOE_TRAIN_MICRO, MOE_TRAIN_SEQ))
+    _MOE_TP1.update(res)                 # phase 14 (c)'s tp-1 reference
     emit(dict(res, phase="train_moe", model="moe-1b-8e (bench.py:251)"))
     assert res["losses"][-1] < res["losses"][0], res["losses"]
     return launches
@@ -5457,12 +5542,13 @@ DP_STEPS = 3
 #: same function, and K3 accumulates dq/dk in a different order between
 #: runs
 DP_LOSS_TOL = 1e-2
-#: (b)/(c): Llama-3 1B's width (d 2048, FFN 8192, heads 32/8) at depth 2
+#: (b)/(c): Llama-3 1B's width (d 2048, FFN 8192, heads 32/8) at CPU_HOLD_DEPTH
 #: with a 32,000-entry vocabulary (phase 6's Gemma/Phi runs' cut: the
 #: 128,256-entry head made the CPU ranks' steps and save ~70 s), fp32, T
 #: 256, 2 rows a step; the CPU side is 2 gloo ranks (DP_CPU_THREADS torch
 #: threads each), started by the phase, saving after their first step
-DP_SMALL = dict(num_layers=2, max_seq_len=256, tie_embeddings=True,
+DP_SMALL = dict(num_layers=CPU_HOLD_DEPTH, max_seq_len=256,
+                tie_embeddings=True,
                 vocab_size=32000)
 DP_SMALL_TOL = 1e-4
 DP_CPU_THREADS = 4
@@ -5569,7 +5655,7 @@ def phase_train_dp(smi: str) -> dict:
     CPU over gloo. (a) phase 7's Llama-3 1B engine in bf16 at stages 0, 1,
     2, 3 and 3 with ``overlap_comm``: ms a step, peak HBM, the comms
     logger's bytes a step by op, K1/K3 launches; losses against stage
-    0's within DP_LOSS_TOL. (b) Llama-3 1B's width at depth 2 in fp32: the
+    0's within DP_LOSS_TOL. (b) Llama-3 1B's width at CPU_HOLD_DEPTH in fp32: the
     card at world 1 against the port on the CPU at dp 2 over gloo, whose
     ranks this phase starts while (a) runs (vocabulary cut to 32,000:
     ``DP_SMALL``); losses within DP_SMALL_TOL.
@@ -5702,7 +5788,8 @@ def phase_train_dp(smi: str) -> dict:
     rel = max(abs(a - b) / abs(b) for a, b in zip(card, want))
     rel_resume = max(abs(a - b) / abs(b) for a, b in zip(resumed, want[1:]))
     res = {"phase": "train_dp", "run": "card_vs_cpu_dp2",
-           "model": "llama3-1b-width-depth2-vocab32k", "dtype": "float32",
+           "model": f"llama3-1b-width-depth{CPU_HOLD_DEPTH}-vocab32k",
+           "dtype": "float32",
            "losses_card": card, "losses_cpu_dp2": want,
            "loss_rel_err": rel, "resume_tag": tag,
            "resume_micro_gas": resumed_geometry,
@@ -5744,10 +5831,10 @@ _TP1_TRAIN: dict = {}
 #: K6's calls inside the last ZeRO++ step of (c): (device ms, values,
 #: dtype) each, for the kernel table
 _K6_IN_STEP: list = []
-#: (a) Llama-3 8B at full width and depth, phase 11's prompts (8 x 512)
-#: and seed, 32 greedy tokens, tp 2 against tp 1
-TP_SERVE_NEW = 32
-#: bf16 logits at tp 2 against tp 1 at full depth: max |delta| over max
+#: (a) Llama-3 8B at phase 11's V1_LLAMA (full width, 16 of 32 layers),
+#: its prompts (8 x 512) and seed, 16 greedy tokens, tp 2 against tp 1
+TP_SERVE_NEW = 16
+#: bf16 logits at tp 2 against tp 1: max |delta| over max
 #: |logit|. Two right computations of these random-weight logits differ
 #: by this much in bf16: phase 11 measured 4.8-6.1 % between the v1 and
 #: the ragged engines on the same weights, 5.3 % between one prefill
@@ -5766,7 +5853,7 @@ TP_FP32 = {"layers": 2, "batch": 2, "prompt": 32, "new": 4, "tol": 1e-4}
 #: gloo a step takes 7-9 s of the script's 1200 s
 TP_TRAIN_STAGES = (("stage0", 0),)
 TP_TRAIN_STEPS = 2
-#: (b') DP_SMALL's model (Llama-3 1B width, depth 2, vocabulary 32,000)
+#: (b') DP_SMALL's model (Llama-3 1B width, CPU_HOLD_DEPTH, vocabulary 32,000)
 #: in fp32 at stage 0: the card's two ranks against two CPU ranks, both
 #: at tp 2 over gloo
 TP_SMALL_TOL = 1e-4
@@ -5777,6 +5864,487 @@ TP_RANK_TIMEOUT_S = 900.0
 #: torch threads of each (b') CPU rank: they run beside the card's ranks,
 #: whose gloo collectives stage every tensor through the host's cores
 TP_CPU_THREADS = 2
+
+
+# ---------------------------------------------------------------------------
+# phase 14: expert parallelism, in phase 13's two card ranks
+# ---------------------------------------------------------------------------
+
+#: (a): phase 11 (e)'s int8 Mixtral (16 of 32 layers, 8 x 256 prompts,
+#: seeds 67/68, 16 new tokens) through init_inference at ep 2, each rank
+#: drawing only its experts; prefill logits against phase 11 (e)'s within
+#: TP_LOGIT_TOL (the bf16 spread two right engines show on these
+#: weights), greedy tokens matched reported
+EP_SERVE_NEW = V1_MOE_NEW
+#: (a'): Mixtral's width at depth 2 in fp32 with TF32 off, 2 prompts of
+#: 32 tokens, 4 greedy tokens: ep 2 against ep 1, logits within 2e-4
+EP_FP32 = {"layers": 2, "batch": 2, "prompt": 32, "new": 4, "tol": 2e-4}
+#: (b): the 1B/8e bench model with the capacity layer (capacity factor
+#: 1.0, tokens dropped) at stage 1, ep 2, a global batch of 2 x 2048 (one
+#: row a rank), against ep 1 at world 1 on the same batches; bf16 losses
+#: within DP_LOSS_TOL
+EP_TRAIN_ROWS, EP_TRAIN_STEPS = 2, 2
+EP_CAPACITY = {"impl": "capacity", "capacity_factor": 1.0,
+               "drop_tokens": True, "use_rts": False}
+#: (b'): its width at depth 2 in fp32, a global batch of 2 x 128, the
+#: card's ranks against two CPU ranks at ep 2 (TP_SMALL_TOL)
+EP_SMALL = dict(MOE_TRAIN_MODEL, num_layers=2, max_seq_len=256)
+EP_SMALL_SEQ = 128
+#: (c): phase 8's engine (the 1B/8e, dropless, 8 x 2048) at tp 2, stage
+#: 0, 2 steps, against phase 8's tp-1 run: bf16 losses within DP_LOSS_TOL
+EP_TP_STEPS = 2
+#: the references phase 14 holds its ranks to: phase 11 (e)'s int8 run
+#: (prefill logits of the last position, greedy tokens) and phase 8's run
+_V1_MOE_INT8: dict = {}
+_MOE_TP1: dict = {}
+#: phase 14's launches (the ``ep`` path of the kernel table)
+_EP_LAUNCHES: dict = {}
+
+
+def _ep_conf(micro, ep, stage, bf16=True, **extra):
+    conf = _moe_train_conf(micro, 1, 1e-4, bf16=bf16,
+                           activation_checkpointing={"policy": "none"},
+                           **extra)
+    conf["moe"] = dict(EP_CAPACITY, enabled=True, ep_size=ep)
+    conf["zero_optimization"] = {"stage": stage}
+    return conf
+
+
+def _ep_train_batches(vocab, rows, seq, steps, seed):
+    rng = np.random.default_rng(seed)
+    return [[{"input_ids": rng.integers(0, vocab, size=(rows, seq))
+              .astype(np.int32)}] for _ in range(steps)]
+
+
+def _ep_small_data():
+    from deepspeed_tpu_torch.models.mixtral import mixtral_config
+    cfg = mixtral_config("tiny", **EP_SMALL)
+    return _ep_train_batches(cfg.vocab_size, 2, EP_SMALL_SEQ, DP_STEPS, 14)
+
+
+def _ep_small_run(device):
+    """(b')'s run on the live mesh (ep 2): fp32 losses."""
+    import torch
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.mixtral import mixtral_config
+    from deepspeed_tpu_torch.models.transformer import init_params
+    cfg = mixtral_config("tiny", **EP_SMALL)
+    init = init_params(cfg, torch.Generator().manual_seed(14),
+                       torch.float32, "cpu")
+    eng = initialize(cfg, _ep_conf(1, 2, 1, bf16=False), params=init,
+                     device=device)[0]
+    return [float(eng.train_batch(iter(b))) for b in _ep_small_data()]
+
+
+class _DropCount:
+    """Counts the capacity slots kept and the choices routed by the split
+    batch's gating (``parallel.moe.topk_gating_rows``) while installed."""
+
+    def __init__(self):
+        from deepspeed_tpu_torch.parallel import moe as tm
+        self.tm, self.inner, self.kept, self.routed = tm, \
+            tm.topk_gating_rows, 0, 0
+
+    def __enter__(self):
+        def spy(logits_all, logits, lo, k, capacity, **kw):
+            d, c, a = self.inner(logits_all, logits, lo, k, capacity, **kw)
+            self.kept += int(d.sum())
+            self.routed += logits.shape[0] * k
+            return d, c, a
+        self.tm.topk_gating_rows = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.tm.topk_gating_rows = self.inner
+
+
+def _ep_counts():
+    """Every launch counter (totals, forms, K5's regimes and shapes) and
+    the comms logger, set to 0."""
+    from deepspeed_tpu_torch.comm.comms_logger import comms_logger
+    from deepspeed_tpu_torch.ops import grouped_matmul as tg
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.ops import quantized_linear as tq
+    op_builder.reset_launches()
+    tq.reset_regime_launches()
+    tg.reset_form_launches()
+    comms_logger.enabled = True
+    comms_logger.reset()
+
+
+def _ep_read():
+    """The counters since :func:`_ep_counts`."""
+    from deepspeed_tpu_torch.comm.comms_logger import comms_logger
+    from deepspeed_tpu_torch.ops import grouped_matmul as tg
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.ops import quantized_linear as tq
+    return {"launches": dict(op_builder.launches),
+            "forms": {k: dict(v) for k, v in tg.form_launches.items()},
+            "regimes": {k: dict(v) for k, v in tq.regime_launches.items()},
+            "shapes": {k: dict(v) for k, v in tq.shape_launches.items()},
+            "bytes": comms_logger.bytes_by_op()}
+
+
+def _ep_card(rank, world):
+    """Phase 14 on a card rank: (a) EP serving, (a') its fp32 twin, (b)
+    EP training, (b') its fp32 twin against the CPU ranks, (c) MoE under
+    TP. Each part's counters are read around its own calls; after the
+    counted windows rank 0 holds K5c at (a)'s G 4 shapes and the five
+    grouped kernels at (c)'s f 1408 against their plain versions."""
+    import gc
+    import torch
+    from deepspeed_tpu_torch import build_mesh, init_inference, initialize
+    from deepspeed_tpu_torch.comm.comms_logger import comms_logger
+    from deepspeed_tpu_torch.models.mixtral import mixtral_config
+    t0 = time.perf_counter()
+    out = {}
+    build_mesh(expert=world)
+    # (a) serving at ep 2, the router's fp32 logits without TF32, as
+    # phase 11 (e) computes them (TF32 moves near-tied routing choices)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = mixtral_config(V1_MIXTRAL[0], **V1_MIXTRAL[1])
+    prompts = np.random.default_rng(67).integers(0, cfg.vocab_size, size=(
+        V1_MOE_BATCH, V1_MOE_PROMPT)).astype(np.int32)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = init_inference(cfg, {"dtype": "bfloat16", "weight_quant": "int8"},
+                         generator=torch.Generator(device=DEV)
+                         .manual_seed(68), device=DEV)
+    _ep_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        logits = eng.forward(prompts)[:, -1].float().cpu().numpy()
+    t2 = time.perf_counter()
+    prefill_a2a = comms_logger.bytes_by_op().get("all_to_all", 0)
+    tokens = eng.generate(prompts, max_new_tokens=EP_SERVE_NEW)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    counts = _ep_read()
+    comms_logger.enabled = False
+    out["serve"] = {
+        "logits": logits, "tokens": tokens[:, V1_MOE_PROMPT:],
+        "prefill_ms": 1e3 * (t2 - t1),
+        "decode_ms_per_token": 1e3 * ((t3 - t2) - (t2 - t1))
+        / (EP_SERVE_NEW - 1),
+        # generate prefills the same rows again before its decode steps
+        "prefill_a2a_bytes": prefill_a2a,
+        "a2a_bytes_per_token": (counts["bytes"].get("all_to_all", 0)
+                                - 2 * prefill_a2a) / (EP_SERVE_NEW - 1),
+        "peak_hbm_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "wg_local": tuple(eng.params["layers"]["moe"]["wg"].shape),
+        "counts": {k: counts[k] for k in ("launches", "regimes",
+                                          "shapes")}}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        # after the counted window: K5c at (a)'s shapes (G 4 a rank; M the
+        # exchanged slots of a layer: 2 ranks x 1024 prefill, 2 x 4 decode)
+        rng = np.random.default_rng(69)
+        out["k5c_vs_plain"] = [
+            check_qmm(f"k5c_ep_g4_m{m}_{k}x{n}", rng, "int8", m, k, n,
+                      torch.bfloat16, groups=4, time_it=False)
+            for m, k, n in ((2048, 4096, 14336), (2048, 14336, 4096),
+                            (8, 4096, 14336))]
+    # (a') fp32 at depth 2
+    out["fp32"] = _ep_fp32_serve()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    # (b) training at ep 2, stage 1
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = mixtral_config("tiny", **MOE_TRAIN_MODEL)
+    eng = initialize(tcfg, _ep_conf(EP_TRAIN_ROWS // world, world, 1),
+                     generator=torch.Generator(device=DEV).manual_seed(13),
+                     device=DEV)[0]
+    batches = _ep_train_batches(tcfg.vocab_size, EP_TRAIN_ROWS,
+                                MOE_TRAIN_SEQ, EP_TRAIN_STEPS, 13)
+    _ep_counts()
+    losses, step_s = [], []
+    with _DropCount() as drops:
+        for b in batches:
+            t1 = time.perf_counter()
+            losses.append(float(eng.train_batch(iter(b))))
+            step_s.append(time.perf_counter() - t1)
+    train = _ep_read()
+    comms_logger.enabled = False
+    out["train"] = {
+        "losses": losses, "step_seconds": step_s,
+        "ms_per_step": 1e3 * step_s[-1],
+        "peak_hbm_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "dropped_per_step": (drops.routed - drops.kept) / EP_TRAIN_STEPS,
+        "routed_per_step": drops.routed / EP_TRAIN_STEPS,
+        "comm_bytes_per_step": {op: b / EP_TRAIN_STEPS
+                                for op, b in train["bytes"].items()},
+        "wg_local": tuple(eng.params["layers"]["moe"]["wg"].shape),
+        "counts": {k: train[k] for k in ("launches", "forms")}}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b') fp32 at depth 2 against the CPU ranks
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out["small"] = _ep_small_run(DEV)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    # (c) MoE under TP: phase 8's engine at tp 2
+    build_mesh(model=world)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    conf = _moe_train_conf(MOE_TRAIN_MICRO, 1, 1e-4, bf16=True,
+                           chunked_ce_budget_mb=256, ce_logits_dtype="bf16",
+                           activation_checkpointing={"policy": "none"},
+                           tensor_parallel={"tp_size": world})
+    eng = initialize(tcfg, conf, generator=torch.Generator(
+        device=DEV).manual_seed(11), device=DEV)[0]
+    rng = np.random.default_rng(11)
+    batch = [{"input_ids": rng.integers(0, tcfg.vocab_size, size=(
+        MOE_TRAIN_MICRO, MOE_TRAIN_SEQ)).astype(np.int32)}]
+    _ep_counts()
+    losses, step_s = [], []
+    for _ in range(EP_TP_STEPS):
+        t1 = time.perf_counter()
+        losses.append(float(eng.train_batch(iter(batch))))
+        step_s.append(time.perf_counter() - t1)
+    tp = _ep_read()
+    comms_logger.enabled = False
+    moe = eng.params["layers"]["moe"]
+    out["tp"] = {
+        "losses": losses, "step_seconds": step_s,
+        "ms_per_step": 1e3 * step_s[-1],
+        "peak_hbm_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "comm_bytes_per_step": {op: b / EP_TP_STEPS
+                                for op, b in tp["bytes"].items()},
+        "f_local": moe["wg"].shape[-1],
+        "local_heads": eng.params["layers"]["attn"]["wq"].shape[-1]
+        // tcfg.head_dim,
+        "local_kv_heads": eng.params["layers"]["attn"]["wk"].shape[-1]
+        // tcfg.head_dim,
+        "counts": {k: tp[k] for k in ("launches", "forms")}}
+    del eng, moe
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        # after the counted window: the five grouped kernels at f 1408
+        rng = np.random.default_rng(70)
+        out["grouped_vs_plain"] = {
+            "fwd": check_grouped("gmm_tp2_1b8e_f1408", rng, 16384, 2, 8,
+                                 1024, 1408, torch.bfloat16, True),
+            "bwd": check_grouped_bwd("gmm_bwd_tp2_1b8e_f1408", rng, 16384,
+                                     2, 8, 1024, 1408, torch.bfloat16,
+                                     True)}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _ep_fp32_serve() -> dict:
+    """(a'): fp32 logits of the last prompt position and greedy tokens of
+    Mixtral's width at depth 2 on the live mesh (ep 1 without one)."""
+    import torch
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.mixtral import mixtral_config
+    cfg = mixtral_config(V1_MIXTRAL[0], num_layers=EP_FP32["layers"])
+    prompts = np.random.default_rng(64).integers(
+        0, cfg.vocab_size, size=(EP_FP32["batch"], EP_FP32["prompt"])
+    ).astype(np.int32)
+    eng = init_inference(cfg, {"dtype": "float32"}, generator=torch.Generator(
+        device=DEV).manual_seed(65), device=DEV)
+    with torch.no_grad():
+        logits = eng.forward(prompts)[:, -1].float().cpu().numpy()
+    tokens = eng.generate(prompts, max_new_tokens=EP_FP32["new"])
+    del eng
+    return {"logits": logits, "tokens": tokens}
+
+
+def _ep_references() -> dict:
+    """Phase 14's ep-1 references, made in the main process at world 1:
+    (a')'s fp32 serve and (b)'s training run on the same batches."""
+    import gc
+    import torch
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.mixtral import mixtral_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fp32 = _ep_fp32_serve()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = mixtral_config("tiny", **MOE_TRAIN_MODEL)
+    eng = initialize(tcfg, _ep_conf(EP_TRAIN_ROWS, 1, 1),
+                     generator=torch.Generator(device=DEV).manual_seed(13),
+                     device=DEV)[0]
+    losses, step_s = [], []
+    for b in _ep_train_batches(tcfg.vocab_size, EP_TRAIN_ROWS,
+                               MOE_TRAIN_SEQ, EP_TRAIN_STEPS, 13):
+        t1 = time.perf_counter()
+        losses.append(float(eng.train_batch(iter(b))))
+        step_s.append(time.perf_counter() - t1)
+    train = {"losses": losses, "ms_per_step": 1e3 * step_s[-1],
+             "peak_hbm_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"fp32": fp32, "train": train}
+
+
+def _ep_report(smi, ranks, cpu_res, refs) -> dict:
+    """Phase 14's lines and gates from the card ranks' results; returns
+    the path's launches (both ranks) and adds its forms and K5 shapes to
+    the kernel table's counters."""
+    from deepspeed_tpu_torch.ops import op_builder
+    launches = {k: 0 for k in op_builder.launches}
+    r0 = ranks[0]["ep"]
+    # (a)
+    want = _V1_MOE_INT8
+    rel = float(np.abs(r0["serve"]["logits"] - want["logits"]).max()
+                / np.abs(want["logits"]).max())
+    serve = {
+        "prefill_logits_rel_err_vs_ep1": rel, "tol": TP_LOGIT_TOL,
+        "greedy_tokens_matched": int((r0["serve"]["tokens"]
+                                      == want["tokens"]).sum()),
+        "greedy_tokens": int(want["tokens"].size),
+        "ranks_agree": bool(np.array_equal(
+            r0["serve"]["tokens"], ranks[1]["ep"]["serve"]["tokens"])),
+        "prefill_ms_per_rank": [r["ep"]["serve"]["prefill_ms"]
+                                for r in ranks],
+        "decode_ms_per_token_per_rank": [
+            r["ep"]["serve"]["decode_ms_per_token"] for r in ranks],
+        "prefill_all_to_all_bytes": r0["serve"]["prefill_a2a_bytes"],
+        "all_to_all_bytes_per_token": r0["serve"]["a2a_bytes_per_token"],
+        "peak_hbm_gb_per_rank": [r["ep"]["serve"]["peak_hbm_gb"]
+                                 for r in ranks],
+        "wg_local": r0["serve"]["wg_local"],
+        "k5c_by_shape": r0["serve"]["counts"]["shapes"][
+            "quantized_matmul_batched"],
+        "launches_per_rank": [{k: v for k, v in r["ep"]["serve"]["counts"][
+            "launches"].items() if v} for r in ranks],
+        "k5c_vs_plain": [{k: c[k] for k in ("check", "shape",
+                                            "max_abs_err")}
+                         for c in r0["k5c_vs_plain"]]}
+    emit(dict(serve, phase="ep", part="a", model=f"mixtral-8x7b-"
+              f"{V1_MIXTRAL[1]['num_layers']}L", ep=2, weight_quant="int8",
+              batch=V1_MOE_BATCH, prompt=V1_MOE_PROMPT, new=EP_SERVE_NEW,
+              backend="gloo", nvidia_smi=smi))
+    # (a')
+    f0, fref = r0["fp32"], refs["fp32"]
+    fp32_rel = float(np.abs(f0["logits"] - fref["logits"]).max()
+                     / np.abs(fref["logits"]).max())
+    emit({"phase": "ep", "part": "a_fp32", "ep": 2,
+          "model": "mixtral-8x7b-width-depth2", "dtype": "float32",
+          "logits_rel_err_vs_ep1": fp32_rel, "tol": EP_FP32["tol"],
+          "tokens_equal": bool(np.array_equal(f0["tokens"],
+                                              fref["tokens"]))})
+    # (b)
+    tr, tref = r0["train"], refs["train"]
+    train_rel = max(abs(a - b) / abs(b)
+                    for a, b in zip(tr["losses"], tref["losses"]))
+    train = {
+        "losses": tr["losses"], "losses_ep1": tref["losses"],
+        "loss_rel_err_vs_ep1": train_rel, "tol": DP_LOSS_TOL,
+        "ranks_agree": tr["losses"] == ranks[1]["ep"]["train"]["losses"],
+        "dropped_per_step_per_rank": [r["ep"]["train"]["dropped_per_step"]
+                                      for r in ranks],
+        "routed_per_step_per_rank": [r["ep"]["train"]["routed_per_step"]
+                                     for r in ranks],
+        "ms_per_step_per_rank": [r["ep"]["train"]["ms_per_step"]
+                                 for r in ranks],
+        "ms_per_step_ep1": tref["ms_per_step"],
+        "peak_hbm_gb_per_rank": [r["ep"]["train"]["peak_hbm_gb"]
+                                 for r in ranks],
+        "peak_hbm_gb_ep1": tref["peak_hbm_gb"],
+        "comm_bytes_per_step": tr["comm_bytes_per_step"],
+        "wg_local": tr["wg_local"],
+        "launches_per_rank": [{k: v for k, v in r["ep"]["train"]["counts"][
+            "launches"].items() if v} for r in ranks]}
+    emit(dict(train, phase="ep", part="b", model="moe-1b-8e (bench.py:251)",
+              ep=2, stage=1, moe=EP_CAPACITY, rows=EP_TRAIN_ROWS,
+              seq=MOE_TRAIN_SEQ, dtype="bfloat16", backend="gloo",
+              nvidia_smi=smi))
+    # (b')
+    small_rel = max(abs(a - b) / abs(b) for a, b in
+                    zip(r0["small"], cpu_res[0]["ep_losses"]))
+    emit({"phase": "ep", "part": "b_fp32", "ep": 2,
+          "model": "moe-1b-8e-width-depth2", "dtype": "float32",
+          "losses_card": r0["small"], "losses_cpu": cpu_res[0]["ep_losses"],
+          "loss_rel_err": small_rel, "tol": TP_SMALL_TOL})
+    # (c)
+    tp, base = r0["tp"], _MOE_TP1["losses"][:EP_TP_STEPS]
+    tp_rel = max(abs(a - b) / abs(b) for a, b in zip(tp["losses"], base))
+    tpl = {
+        "losses": tp["losses"], "losses_tp1": base,
+        "loss_rel_err_vs_tp1": tp_rel, "tol": DP_LOSS_TOL,
+        "ranks_agree": tp["losses"] == ranks[1]["ep"]["tp"]["losses"],
+        "ms_per_step_per_rank": [r["ep"]["tp"]["ms_per_step"]
+                                 for r in ranks],
+        "ms_per_step_tp1": _MOE_TP1["ms_per_step"],
+        "peak_hbm_gb_per_rank": [r["ep"]["tp"]["peak_hbm_gb"]
+                                 for r in ranks],
+        "peak_hbm_gb_tp1": _MOE_TP1["peak_mem_gb"],
+        "comm_bytes_per_step": tp["comm_bytes_per_step"],
+        "f_local": tp["f_local"], "local_heads": tp["local_heads"],
+        "local_kv_heads": tp["local_kv_heads"],
+        "launches_per_rank": [{k: v for k, v in r["ep"]["tp"]["counts"][
+            "launches"].items() if v} for r in ranks],
+        "grouped_forms_rank0": tp["counts"]["forms"],
+        "grouped_vs_plain": {
+            k: {c: v["max_abs_err"] for c, v in r0["grouped_vs_plain"][
+                k].items() if isinstance(v, dict) and "max_abs_err" in v}
+            for k in ("fwd", "bwd")}}
+    emit(dict(tpl, phase="ep", part="c", model="moe-1b-8e (bench.py:251)",
+              tp=2, stage=0, moe="dropless", dtype="bfloat16",
+              backend="gloo", nvidia_smi=smi))
+    emit({"phase": "ep", "part": "reduced",
+          "cuts": ["(a) Mixtral at 16 of 32 layers (phase 11 (e)'s cut), "
+                   "16 new tokens, decode eager on gloo",
+                   "(b) a global batch of 2 x 2048 (the capacity layer's "
+                   "[S, E, C] masks), 2 steps",
+                   "(b') depth 2, 2 x 128 tokens (CPU time)",
+                   "(c) 2 steps (gloo through the host)"],
+          "seconds_per_rank": [r["ep"]["seconds"] for r in ranks]})
+    # the launches of every part on both ranks, by form and K5 shape too
+    for r in ranks:
+        ep = r["ep"]
+        for part in (ep["serve"], ep["train"], ep["tp"]):
+            for k, v in part["counts"]["launches"].items():
+                launches[k] += v
+            for k, forms in part["counts"].get("forms", {}).items():
+                if k in GROUPED_FORM_LAUNCHES:
+                    for f, c in forms.items():
+                        GROUPED_FORM_LAUNCHES[k][f] += c
+        for k, v in ep["serve"]["counts"]["regimes"].items():
+            for f, c in v.items():
+                QUANT_FORM_LAUNCHES[k][f] += c
+        for k, v in ep["serve"]["counts"]["shapes"].items():
+            for key, c in v.items():
+                QUANT_SHAPE_LAUNCHES[k][key] = \
+                    QUANT_SHAPE_LAUNCHES[k].get(key, 0) + c
+    # gates
+    assert rel <= TP_LOGIT_TOL and serve["ranks_agree"], serve
+    assert serve["wg_local"][1] == 4, serve
+    assert any(k.endswith("G4") for k in serve["k5c_by_shape"]), serve
+    assert fp32_rel <= EP_FP32["tol"], fp32_rel
+    assert np.array_equal(f0["tokens"], fref["tokens"])
+    assert all(np.isfinite(tr["losses"])) and train["ranks_agree"], train
+    assert train_rel <= DP_LOSS_TOL, train
+    assert sum(train["dropped_per_step_per_rank"]) > 0, train
+    assert small_rel <= TP_SMALL_TOL and cpu_res[0]["ep_launches"] == 0
+    assert tp_rel <= DP_LOSS_TOL and tpl["ranks_agree"], tpl
+    assert tp["f_local"] == MOE_TRAIN_MODEL["intermediate_size"] // 2
+    assert (tp["local_heads"], tp["local_kv_heads"]) == (4, 2), tpl
+    for lr in tpl["launches_per_rank"]:
+        for k, per in MOE_LAYER_LAUNCHES.items():
+            assert lr[k] == per * MOE_TRAIN_MODEL["num_layers"] \
+                * EP_TP_STEPS, (k, lr)
+        for k in TRAIN_KERNELS:
+            assert lr[k] == MOE_TRAIN_MODEL["num_layers"] * EP_TP_STEPS, lr
+    return launches
 
 
 def _tp_small_conf(tp: int):
@@ -5940,6 +6508,10 @@ def _tp_card_rank(rank, world, store, out, runs_small):
         res["small"] = [float(eng.train_batch(iter([b])))
                         for b in runs_small]
         del eng
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        # phase 14 in the same two ranks
+        res["ep"] = _ep_card(rank, world)
         comm.destroy_distributed()
     except BaseException:                       # noqa: BLE001 — reported
         res = {"error": traceback.format_exc()}
@@ -5964,8 +6536,13 @@ def _tp_cpu_rank(rank, world, store, out, runs_small):
         eng = initialize(small, _tp_small_conf(world),
                          params=_dp_small_init(small), device="cpu")[0]
         res = {"losses": [float(eng.train_batch(iter([b])))
-                          for b in runs_small],
-               "launches": sum(op_builder.launches.values())}
+                          for b in runs_small]}
+        del eng
+        # phase 14 (b'): the same ranks at ep 2
+        build_mesh(expert=world)
+        res["ep_losses"] = _ep_small_run("cpu")
+        res["launches"] = res["ep_launches"] = sum(
+            op_builder.launches.values())
         comm.destroy_distributed()
     except BaseException:                       # noqa: BLE001 — reported
         res = {"error": traceback.format_exc()}
@@ -6164,6 +6741,12 @@ def phase_tp_zeropp(smi: str) -> dict:
         ref_seconds = time.perf_counter() - t_ref
         gc.collect()
         torch.cuda.empty_cache()
+        # phase 14's ep-1 references, and those of earlier phases
+        t_ref = time.perf_counter()
+        ep_refs = _ep_references()
+        ep_ref_seconds = time.perf_counter() - t_ref
+        gc.collect()
+        torch.cuda.empty_cache()
         # (a), (b), (b') on the card's two ranks
         for p in card:
             p.start()
@@ -6258,14 +6841,15 @@ def phase_tp_zeropp(smi: str) -> dict:
     small_rel = max(abs(a - b) / abs(b) for a, b in
                     zip(ranks[0]["small"], cpu_res[0]["losses"]))
     emit({"phase": "tp_zeropp", "part": "b_fp32", "tp": 2,
-          "model": "llama3-1b-width-depth2-vocab32k", "dtype": "float32",
-          "losses_card": ranks[0]["small"], "losses_cpu": cpu_res[0][
+          "model": f"llama3-1b-width-depth{CPU_HOLD_DEPTH}-vocab32k",
+          "dtype": "float32", "losses_card": ranks[0]["small"], "losses_cpu": cpu_res[0][
               "losses"], "loss_rel_err": small_rel, "tol": TP_SMALL_TOL,
           "cpu_launches": cpu_res[0]["launches"]})
     emit({"phase": "tp_zeropp", "part": "reduced",
-          "cuts": ["(b') depth 2 and vocabulary 32,000 (DP_SMALL: CPU time)",
-                   "(a) 32 new tokens (phase 11: 128), decode eager on "
-                   "gloo",
+          "cuts": [f"(b') depth {CPU_HOLD_DEPTH} and vocabulary 32,000 "
+                   "(DP_SMALL: CPU time)",
+                   "(a) 16 of 32 layers (phase 11's V1_LLAMA), 16 new "
+                   "tokens (phase 11: 128), decode eager on gloo",
                    "(b) stage 0 only, 2 steps (the script's time limit; "
                    "stage 3 under TP is held on the CPU)"]})
     # the launches of (a) and (b) on both ranks, and (c)'s
@@ -6298,6 +6882,11 @@ def phase_tp_zeropp(smi: str) -> dict:
         assert c["q_mismatches"] == 0 and c["scale_mismatches"] == 0, c
     assert quant["loss_rel_err_vs_exact"] <= ZEROPP_LOSS_TOL, quant
     assert exact["k6_launches_per_step"] == 0, exact
+    # phase 14 from the same ranks
+    emit({"phase": "ep", "part": "references",
+          "ep1_reference_seconds": ep_ref_seconds})
+    _EP_LAUNCHES.clear()
+    _EP_LAUNCHES.update(_ep_report(smi, ranks, cpu_res, ep_refs))
     return launches
 
 
@@ -6380,7 +6969,10 @@ def main() -> int:
         emit({"phase": "seconds", **seconds})
         return 0
     if "--tp-zeropp-only" in sys.argv[1:]:
-        # phases 12 and 13 (13 holds tp 2 against 12's tp-1 runs)
+        # phases 12, 13 and 14 (13 holds tp 2 against 12's tp-1 runs; 14
+        # its ranks against phase 8's run and phase 11 (e)'s int8 one)
+        run(phase_train_moe)
+        _v1_moe(smi, {k: 0 for k in op_builder.launches})
         run(phase_train_dp, smi)
         run(phase_tp_zeropp, smi)
         emit({"phase": "seconds", **seconds})
@@ -6416,6 +7008,7 @@ def main() -> int:
     paths["train_mixtral"] = run(phase_train_mixtral)
     paths["train_dp"] = run(phase_train_dp, smi)
     paths["tp_zeropp"] = run(phase_tp_zeropp, smi)
+    paths["ep"] = dict(_EP_LAUNCHES)
     emit({"phase": "seconds", **seconds})
 
     # launches: over the main paths (dense serving and MoE serving, phase

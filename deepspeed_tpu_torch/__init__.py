@@ -75,9 +75,11 @@ def tp_model_init(model, tp_size: int, dtype, config=None, generator=None,
     keeps only this rank's 'model' block of each leaf
     (``partition_specs(tp=True)``; ``init_params(tp=...)``), so every
     rank holds a shard of the same model whatever tp and the full tree
-    never exists. ``initialize(params=...)`` takes the shards as they
-    are. ``config`` is accepted for the reference's signature and
-    ignored with a warning. ``device``: None means CUDA. Returns
+    never exists; an MoE model's rank keeps only its experts of the
+    live mesh's 'expert' axis (``init_params(ep=...)``).
+    ``initialize(params=...)`` takes the shards as they are. ``config``
+    is accepted for the reference's signature and ignored with a
+    warning. ``device``: None means CUDA. Returns
     ``(params, mesh)``."""
     import torch
     from deepspeed_tpu_torch.accelerator.real_accelerator import get_device
@@ -107,8 +109,11 @@ def tp_model_init(model, tp_size: int, dtype, config=None, generator=None,
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     with torch.no_grad():
+        ep = (mesh.shape["expert"], mesh.coord("expert")) \
+            if model.num_experts else None
         params = transformer.init_params(
-            model, generator, tdt, dev, tp=(tp_size, mesh.coord("model")))
+            model, generator, tdt, dev, tp=(tp_size, mesh.coord("model")),
+            ep=ep)
     return params, mesh
 
 __all__ = ["RaggedInferenceEngine", "RaggedInferenceConfig",

@@ -12,6 +12,8 @@ from deepspeed_tpu_torch.comm.comm import (
     barrier,
     copy_to_model,
     destroy_distributed,
+    expert_exchange,
+    gather_from_experts,
     gather_from_model,
     get_local_rank,
     get_rank,
@@ -22,6 +24,7 @@ from deepspeed_tpu_torch.comm.comm import (
     ppermute,
     reduce_from_model,
     reduce_scatter,
+    scatter_to_experts,
     send_recv_next,
     send_recv_prev,
 )
@@ -33,5 +36,6 @@ __all__ = [
     "reduce_scatter", "all_to_all", "ppermute", "send_recv_next",
     "send_recv_prev", "axis_index", "comms_logger", "log_summary",
     "destroy_distributed", "copy_to_model", "reduce_from_model",
-    "gather_from_model",
+    "gather_from_model", "expert_exchange", "scatter_to_experts",
+    "gather_from_experts",
 ]

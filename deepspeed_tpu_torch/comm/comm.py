@@ -390,13 +390,14 @@ def log_summary(show_straggler: bool = False) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Differentiable tensor-parallel collectives
+# Differentiable tensor- and expert-parallel collectives
 # ---------------------------------------------------------------------------
 # Under ``shard_map`` the JAX ``lax.psum`` and ``lax.all_gather`` carry
 # their own transposes, and GSPMD inserts the row- and vocab-parallel
-# collectives from the 'model' annotations. Here the model code calls
-# these three explicitly; each collective goes through the facade above,
-# so the comms logger records it.
+# collectives from the 'model' annotations and the MoE all-to-all from
+# the 'expert' one. Here the model code calls these explicitly; the
+# tensor-parallel ones go through the facade above, so the comms logger
+# records them.
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -435,6 +436,111 @@ class _GatherFromModel(torch.autograd.Function):
         me = axis_index(ctx.axis)
         return g.narrow(ctx.dim, me * ctx.n, ctx.n).contiguous(), None, \
             None, None
+
+
+class _ExpertExchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _exchange(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.axis), None
+
+
+class _ScatterToExperts(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _sum_scatter(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.axis), None
+
+
+class _GatherFromExperts(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _gather(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_scatter(g, ctx.axis), None
+
+
+def _exchange(x: torch.Tensor, axis: AxisName) -> torch.Tensor:
+    """All-to-all along dim 0 (block j to rank j, the received blocks in
+    rank order), outside the comms logger."""
+    group, n = _resolve(axis)
+    xm = x.contiguous()
+    if group is None:
+        return xm.clone()
+    if xm.shape[0] % n:
+        raise ValueError(f"expert_exchange: dim 0 of {tuple(x.shape)} "
+                         f"does not divide by {n}")
+    out = torch.empty_like(xm)
+    _dist().all_to_all_single(out, xm, group=group)
+    return out
+
+
+def _sum_scatter(x: torch.Tensor, axis: AxisName) -> torch.Tensor:
+    """Block j of dim 0 of the sum over the ranks to rank j, outside the
+    comms logger."""
+    group, n = _resolve(axis)
+    xm = x.contiguous()
+    if group is None:
+        return xm.clone()
+    if xm.shape[0] % n:
+        raise ValueError(f"scatter_to_experts: dim 0 of {tuple(x.shape)} "
+                         f"does not divide by {n}")
+    out = xm.new_empty((xm.shape[0] // n,) + tuple(xm.shape[1:]))
+    _dist().reduce_scatter_tensor(out, xm, group=group)
+    return out
+
+
+def _gather(x: torch.Tensor, axis: AxisName) -> torch.Tensor:
+    """The ranks' blocks concatenated along dim 0 in rank order, outside
+    the comms logger."""
+    group, n = _resolve(axis)
+    xm = x.contiguous()
+    if group is None:
+        return xm.clone()
+    out = xm.new_empty((n * xm.shape[0],) + tuple(xm.shape[1:]))
+    _dist().all_gather_into_tensor(out, xm, group=group)
+    return out
+
+
+def expert_exchange(x: torch.Tensor, axis: AxisName = "expert"
+                    ) -> torch.Tensor:
+    """The serving MoE layer's regroup over the expert axis: block j of
+    dim 0 goes to rank j and the blocks received are stacked along dim 0
+    in rank order (``all_to_all_single`` on equal, contiguous splits).
+    The same exchange is its own transpose, so the backward sends the
+    gradient back the same way. The capacity layer registers the JAX
+    record of its regroup with :data:`comms_logger` itself
+    (moe.py:440-441)."""
+    return _ExpertExchange.apply(x, axis)
+
+
+def scatter_to_experts(x: torch.Tensor, axis: AxisName = "expert"
+                       ) -> torch.Tensor:
+    """The training MoE layer's way to the expert owners: the sum of the
+    ranks' [E, C, d] buffers, block j of dim 0 to rank j
+    (``reduce_scatter_tensor``). Each capacity slot is claimed by one
+    rank of the batch, so the sum only merges the ranks' slots. Its
+    transpose, the backward, is :func:`gather_from_experts`'s forward."""
+    return _ScatterToExperts.apply(x, axis)
+
+
+def gather_from_experts(x: torch.Tensor, axis: AxisName = "expert"
+                        ) -> torch.Tensor:
+    """The way back from the expert owners: every rank gets the owners'
+    blocks concatenated along dim 0 (``all_gather_into_tensor``); the
+    backward sums the ranks' gradients into the owner's block."""
+    return _GatherFromExperts.apply(x, axis)
 
 
 def copy_to_model(x: torch.Tensor, axis: AxisName = "model"

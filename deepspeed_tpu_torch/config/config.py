@@ -9,9 +9,9 @@ mesh's data axis, the bucket sizes, the stage-3 overlap knobs, and the
 ``offload_optimizer``/``offload_param`` tiers on one device),
 ``activation_checkpointing`` (``policy``, ``cpu_checkpointing``,
 ``ffn_chunk``), ``attention_impl``, ``ce_logits_dtype``,
-``chunked_ce_budget_mb``, ``moe`` (one expert shard), ``check_nan_inf``,
-``data_efficiency`` (the curriculum sampler), ``comms_logger``, ``seed``
-and ``steps_per_print``; ``elasticity`` is the input of
+``chunked_ce_budget_mb``, ``moe`` (``ep_size`` the expert axis),
+``check_nan_inf``, ``data_efficiency`` (the curriculum sampler),
+``comms_logger``, ``seed`` and ``steps_per_print``; ``elasticity`` is the input of
 ``elasticity.compute_elastic_config``; ``communication_data_type``,
 ``prescale_gradients``, ``gradient_predivide_factor``,
 ``wall_clock_breakdown``, ``dump_state``, ``memory_breakdown`` and
@@ -89,7 +89,8 @@ class MoEConfig(TPUConfigModel):
     """``moe`` (config.py:324; reference deepspeed/moe). ``impl``:
     "capacity" (GShard einsums with a static capacity, the default) or
     "dropless" (the grouped FFN over the aligned layout, no token dropped).
-    One device, so ``ep_size`` 1 only. ``use_rts`` with ``drop_tokens`` on
+    ``ep_size`` is the 'expert' mesh axis when ``enabled``
+    (``parallel.mesh.mesh_from_config``). ``use_rts`` with ``drop_tokens`` on
     the capacity impl claims capacity slots in a random token order
     (``runtime.model_factory.select_moe``); ``use_residual`` folds
     Residual-MoE into the model config. ``enabled``, ``num_experts``,
@@ -109,15 +110,6 @@ class MoEConfig(TPUConfigModel):
     use_residual: bool = False
     aux_loss_coef: float = 0.01
     impl: Literal["capacity", "dropless"] = "capacity"
-
-    @model_validator(mode="after")
-    def _ported(self):
-        if self.ep_size != 1:
-            raise NotImplementedError(
-                f"moe.ep_size={self.ep_size}: expert parallelism is not "
-                f"ported to deepspeed_tpu_torch yet (ROADMAP A, 'Parallelism "
-                f"breadth')")
-        return self
 
 
 class ReqTraceConfig(TPUConfigModel):

@@ -43,8 +43,20 @@ its kv heads in the cache: KvH/tp where that divides, else one for each
 of its query heads. The logits are gathered over 'model' before
 sampling, so every rank samples the same tokens. Collectives cannot be
 captured in a CUDA graph on a gloo group, so there the decode step runs
-eagerly. Packed int4/fp6 weights under TP raise the JAX ``ValueError``;
-a mesh whose other axes exceed 1 raises ``NotImplementedError``.
+eagerly. Packed int4/fp6 weights under TP raise the JAX ``ValueError``.
+
+Expert parallelism (a mesh whose 'expert' axis is above 1, for an MoE
+model): each rank keeps its E/ep experts (drawn alone by
+``init_params(ep=...)`` when the engine draws the tree), and the MoE
+layers take the capacity layer at every token count, whose buffers cross
+the 'expert' all-to-all (``serving_moe_fn(ep=True)``). Under TP the
+experts stay whole on every model rank (``tp_specs(serving=True)``, the
+JAX ``_shard_like``), so the MoE needs no all-reduce. Packed int4/fp6
+experts under EP raise the JAX ``ValueError``s. The batch's rows split
+over data × expert where they divide (engine.py:288): each rank prefills
+and decodes its block and the tokens and logits are gathered; otherwise
+every rank runs every row. A mesh whose other axes exceed 1 raises
+``NotImplementedError``.
 """
 
 import time
@@ -65,6 +77,7 @@ from deepspeed_tpu_torch.models.transformer import (DecoderConfig,
                                                     forward_with_cache,
                                                     init_kv_cache,
                                                     init_params,
+                                                    shard_expert_axis,
                                                     shard_model_axis,
                                                     tp_specs, with_tp)
 from deepspeed_tpu_torch.ops import op_builder
@@ -99,7 +112,7 @@ class DeepSpeedTPUInferenceConfig(TPUConfigModel):
 def setup_engine_params(model: DecoderConfig,
                         config: DeepSpeedTPUInferenceConfig, params,
                         generator: Optional[torch.Generator], device,
-                        mesh=None):
+                        mesh=None, axes=("model",)):
     """Shared bring-up of the v1 and encoder engines (engine.py:143) at one
     device: the weight-quant check, the dtype policy, init or cast, and
     weight-only quantization. Returns ``(device, dtype, params,
@@ -117,11 +130,15 @@ def setup_engine_params(model: DecoderConfig,
 
     Under tensor parallelism (``tp_size`` > 1 or a mesh's 'model' axis;
     engine.py:143-217) each rank keeps its 'model' shards of the tree
-    (:func:`tp_specs`). Returns ``(device, dtype, params, generator,
-    mesh)``; ``mesh`` is None without tensor parallelism."""
+    (:func:`tp_specs`, experts whole), and under expert parallelism its
+    E/ep experts of an MoE model. ``axes``: the mesh axes the engine
+    runs (others above 1 raise). Returns ``(device, dtype, params,
+    generator, mesh)``; ``mesh`` is None on one rank."""
     validate_weight_quant(config.weight_quant)
-    mesh = _serving_mesh(config, mesh)
+    mesh = _serving_mesh(config, mesh, axes)
     tp = mesh.shape["model"] if mesh is not None else 1
+    ep = mesh.shape["expert"] if mesh is not None and model.num_experts \
+        else 1
     if config.weight_quant in ("int4", "fp6") and tp > 1:
         raise ValueError(
             f"weight_quant={config.weight_quant} requires tp_size=1 / a "
@@ -135,15 +152,30 @@ def setup_engine_params(model: DecoderConfig,
             "nibble/6-bit planes cannot be sharded. Pre-quantized "
             "int8/fp8 trees DO serve under TP (their leaves place "
             "TP-sharded and route through qmatmul_tp)")
+    if config.weight_quant in ("int4", "fp6") and ep > 1:
+        raise ValueError(
+            f"weight_quant={config.weight_quant} requires an expert "
+            "mesh axis of 1: the packed nibble/6-bit expert planes "
+            "cannot shard over EP (int8/fp8 DO support EP via "
+            "qmatmul_batched_ep)")
+    if ep > 1 and params is not None and is_quantized_tree(params) and \
+            _has_packed_leaves(params):
+        raise ValueError(
+            "pre-quantized packed (int4/fp6) MoE params require an "
+            "expert mesh axis of 1: the packed expert planes cannot "
+            "shard over EP. Pre-quantized int8/fp8 MoE trees DO "
+            "serve under EP (qmatmul_batched_ep)")
     dev = get_device(device)
     dtype = _DTYPES[config.dtype]
     if generator is None:
         generator = torch.Generator(device=dev)
         generator.manual_seed(0)
     with torch.no_grad():
+        own = (ep, mesh.coord("expert")) if ep > 1 else None
         if params is None:
             params = init_params(model, generator, dtype, dev,
-                                 weight_quant=config.weight_quant)
+                                 weight_quant=config.weight_quant, ep=own)
+            own = None
         elif is_quantized_tree(params):
             if config.weight_quant:
                 raise ValueError(
@@ -155,8 +187,11 @@ def setup_engine_params(model: DecoderConfig,
             if config.weight_quant:
                 params = quantize_param_tree(params, mode=config.weight_quant)
         if tp > 1:
-            params = shard_model_axis(params, tp_specs(model, params, tp),
-                                      tp, mesh.coord("model"))
+            params = shard_model_axis(
+                params, tp_specs(model, params, tp, serving=True), tp,
+                mesh.coord("model"))
+        if own is not None:
+            params = shard_expert_axis(params, *own)
     return dev, dtype, params, generator, mesh
 
 
@@ -166,10 +201,10 @@ def _has_packed_leaves(params) -> bool:
     return isinstance(params, torch.Tensor) and params.dtype == torch.uint8
 
 
-def _serving_mesh(config: DeepSpeedTPUInferenceConfig, mesh):
-    """The mesh of a tensor-parallel serving engine: the one given, the
-    live one, or ``build_mesh(model=tp_size)``; None when its 'model'
-    axis is 1 (one device, no collective)."""
+def _serving_mesh(config: DeepSpeedTPUInferenceConfig, mesh, axes):
+    """The mesh of a serving engine over ranks: the one given, the live
+    one, or ``build_mesh(model=tp_size)``; None when it spans one rank
+    (no collective). Its axes other than ``axes`` must be 1."""
     from deepspeed_tpu_torch.parallel.mesh import (build_mesh, get_mesh,
                                                    has_mesh)
     if mesh is None and has_mesh():
@@ -178,14 +213,19 @@ def _serving_mesh(config: DeepSpeedTPUInferenceConfig, mesh):
         mesh = build_mesh(model=config.tp_size)
     if mesh is None:
         return None
-    big = {a: v for a, v in mesh.shape.items() if a != "model" and v > 1}
+    big = {a: v for a, v in mesh.shape.items() if a not in axes and v > 1}
     if big:
         raise NotImplementedError(
-            f"serving over mesh axes {big}: the v1 and encoder engines "
-            f"run tensor parallelism only; data, sequence, pipeline and "
-            f"expert parallel serving are not ported to "
+            f"serving over mesh axes {big}: this engine runs the axes "
+            f"{tuple(axes)}; sequence and pipeline parallel serving (and "
+            f"data and expert parallel encoders) are not ported to "
             f"deepspeed_tpu_torch yet (ROADMAP A, 'Parallelism breadth')")
-    return mesh if mesh.shape["model"] > 1 else None
+    if mesh.size > 1 and not mesh.distributed:
+        raise ValueError(
+            f"a serving mesh of {mesh.size} ranks ({mesh}) needs "
+            f"torch.distributed with as many ranks "
+            f"(deepspeed_tpu_torch.comm.init_distributed)")
+    return mesh if mesh.size > 1 else None
 
 
 def _parse_config(config) -> DeepSpeedTPUInferenceConfig:
@@ -265,18 +305,24 @@ class InferenceEngine:
         self.config = config
         self.device, self.dtype, self.params, self._generator, self.mesh = \
             setup_engine_params(model, config, params, generator, device,
-                                mesh)
+                                mesh, axes=("data", "expert", "model"))
         self.tp_size = self.mesh.shape["model"] if self.mesh else 1
+        self.ep_size = self.mesh.shape["expert"] if self.mesh and \
+            model.num_experts else 1
+        #: the batch's rows split over data × expert (engine.py:288)
+        self._rows = (self.mesh.axes_size(_BATCH_AXES),
+                      self.mesh.coord("data") * self.mesh.shape["expert"]
+                      + self.mesh.coord("expert")) if self.mesh else (1, 0)
         #: the forward's config: the model's, or its TP form
         self.model_config = with_tp(model, self.tp_size)
         self._kv_heads = cache_kv_heads(self.model_config, self.params)
         #: CUDA graphs of the decode step: one device, or collectives on
         #: NCCL (a gloo group's collectives cannot be captured)
         self._graphs = self.device.type == "cuda" and (
-            self.tp_size == 1 or _nccl())
+            self.mesh is None or _nccl())
         #: MoE: every token routed (engine.py:293-299)
         self._moe_fn = serving_moe_fn(model, config.weight_quant,
-                                      self.params, ep=False) \
+                                      self.params, ep=self.ep_size > 1) \
             if model.num_experts else None
         #: ALiBi slopes made once on the device: a captured step cannot
         #: copy them from the host
@@ -393,9 +439,10 @@ class InferenceEngine:
         replays on CUDA) and one fetch. With ``eos_token_id`` every
         position after a row's first eos becomes eos (engine.py:446-451)."""
         ids = np.asarray(input_ids, np.int32)
-        b, t = ids.shape
         if max_new_tokens < 1:
             return ids.copy()
+        full, ids = ids, self._my_rows(ids)
+        b, t = ids.shape
         self._check_lengths(t, max_new_tokens)
         mode = self._mode(temperature, top_k, top_p)
         st = self._state(b, self._cache_rows(t + max_new_tokens), mode)
@@ -417,7 +464,9 @@ class InferenceEngine:
             else:
                 for _ in range(steps):
                     self._decode_step(st, mode)
-            gen = st.ys[:max_new_tokens].cpu().numpy().T
+            gen = self._gather_rows(st.ys[:max_new_tokens].t(), full)
+            gen = gen.cpu().numpy()
+        ids = full
         if eos_token_id is not None:
             seen = np.cumsum(gen == eos_token_id, axis=1)
             # positions strictly after the first eos become eos
@@ -474,11 +523,35 @@ class InferenceEngine:
 
     def forward(self, input_ids) -> torch.Tensor:
         """Full-sequence logits [B, T, V] fp32, no cache (engine.py:454)."""
-        tokens = torch.as_tensor(np.asarray(input_ids, np.int32),
-                                 device=self.device)
+        full = np.asarray(input_ids, np.int32)
+        tokens = torch.as_tensor(self._my_rows(full), device=self.device)
         with torch.no_grad():
-            return forward(self.model_config, self.params, tokens,
-                           moe_fn=self._moe_fn)
+            return self._gather_rows(forward(self.model_config, self.params,
+                                             tokens, moe_fn=self._moe_fn),
+                                     full)
+
+    def _my_rows(self, ids: np.ndarray) -> np.ndarray:
+        """This rank's block of the batch's rows when they divide over
+        data × expert, else every row."""
+        n, r = self._rows
+        if n == 1 or ids.shape[0] % n:
+            return ids
+        b = ids.shape[0] // n
+        return ids[r * b:(r + 1) * b]
+
+    def _gather_rows(self, x: torch.Tensor, full: np.ndarray
+                     ) -> torch.Tensor:
+        """The whole batch's rows of ``x`` (this rank's block along dim 0,
+        as :meth:`_my_rows` took it)."""
+        n = self._rows[0]
+        if n == 1 or full.shape[0] % n:
+            return x
+        from deepspeed_tpu_torch.comm import comm
+        return comm.all_gather(x.contiguous(), _BATCH_AXES, axis=0)
+
+
+#: the axes a serving batch's rows split over
+_BATCH_AXES = ("data", "expert")
 
 
 def _nccl() -> bool:

@@ -49,7 +49,8 @@ a ``serving/megastep`` tracer span. Per-mode step tallies and the
 kernels' launch counters (:data:`deepspeed_tpu_torch.ops.op_builder.
 launches`) stay beside them.
 
-Not ported yet: expert parallelism (raises ``NotImplementedError``) and
+Not ported yet: serving under an ambient expert mesh axis (raises
+``NotImplementedError``; the v1 engine serves at expert > 1) and
 ``cost_records`` (the reference's compile-time explain).
 """
 import time
@@ -375,6 +376,18 @@ class RaggedInferenceEngine:
         validate_weight_quant(config.weight_quant)
         prequantized = params is not None and is_quantized_tree(params)
         from deepspeed_tpu_torch.parallel.mesh import get_mesh, has_mesh
+        if model.num_experts and has_mesh() and \
+                get_mesh().shape["expert"] > 1:
+            # the JAX engine serves an ambient expert axis through the
+            # capacity layer under GSPMD (engine_v2.py:318-327); here the
+            # ranks would have to schedule their ragged steps in lockstep
+            raise NotImplementedError(
+                f"RaggedInferenceEngine under an ambient expert mesh axis "
+                f"(size {get_mesh().shape['expert']}): the ragged engine is "
+                f"single-process and its expert-parallel steps are not "
+                f"ported to deepspeed_tpu_torch yet (ROADMAP A, "
+                f"'Parallelism breadth'); use InferenceEngine for EP "
+                f"serving")
         if has_mesh() and get_mesh().shape["model"] > 1:
             # the ambient-mesh guard (engine_v2.py:240-258): the ragged
             # engine is single-shard; unpacked int8/fp8 linears would be

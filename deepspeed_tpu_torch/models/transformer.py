@@ -232,14 +232,10 @@ class TPDecoderConfig(DecoderConfig):
 def with_tp(cfg: DecoderConfig, tp_size: int,
             axis: str = "model") -> DecoderConfig:
     """``cfg`` for a forward over ``tp_size``-way 'model' shards (``cfg``
-    itself at 1). MoE layers under TP wait for expert parallelism."""
+    itself at 1). MoE layers read from their weights whether the experts
+    are 'model' shards (training) or whole (serving)."""
     if tp_size <= 1:
         return cfg
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "MoE layers under tensor parallelism (the 'model' sharding of "
-            "expert weights) are not ported to deepspeed_tpu_torch yet "
-            "(ROADMAP A, 'Parallelism breadth': EP)")
     if cfg.pos_emb == "alibi":
         raise NotImplementedError(
             "ALiBi under tensor parallelism is not ported to "
@@ -610,7 +606,8 @@ def decoder_block(cfg: DecoderConfig, p: Params, x: torch.Tensor, sin, cos,
 def init_params(cfg: DecoderConfig, generator: torch.Generator,
                 dtype: torch.dtype = torch.float32,
                 device=None, weight_quant: Optional[str] = None,
-                tp: Optional[Tuple[int, int]] = None) -> Params:
+                tp: Optional[Tuple[int, int]] = None,
+                ep: Optional[Tuple[int, int]] = None) -> Params:
     """Random parameter tree in the JAX layout (transformer.py:721):
     dense layers carry ``mlp``, MoE layers ``moe`` (router [L, d, E],
     wg/wi [L, E, d, f], wo [L, E, f, d], and the shared expert
@@ -634,9 +631,12 @@ def init_params(cfg: DecoderConfig, generator: torch.Generator,
     quantize, engine_v2.py:286-298).
 
     ``tp=(size, rank)`` gives a float tree's 'model' blocks of this rank
-    (:func:`tp_specs`): each slice is drawn whole, so the numbers are
-    the full tree's, and only the rank's block of it is kept; peak
-    memory is the local tree plus one slice."""
+    (:func:`tp_specs`, experts cut on f): each slice is drawn whole, so
+    the numbers are the full tree's, and only the rank's block of it is
+    kept; peak memory is the local tree plus one slice. ``ep=(size,
+    rank)`` keeps only this rank's E/size experts of each expert leaf
+    ([L, E/size, ...]), float or quantized, with the same numbers as the
+    full draw; it composes with ``tp``."""
     validate_weight_quant(weight_quant)
     device = generator.device if device is None else torch.device(device)
     cut: Dict[Tuple[str, ...], int] = {}
@@ -644,26 +644,49 @@ def init_params(cfg: DecoderConfig, generator: torch.Generator,
         if weight_quant:
             raise ValueError("init_params(tp=...) draws float trees only: "
                              "quantize the shards' full tree instead")
-        with_tp(cfg, tp[0])             # refuses MoE and ALiBi
+        with_tp(cfg, tp[0])             # refuses ALiBi
         cut = _model_dims(tp_specs(cfg, init_params(
             cfg, torch.Generator(), dtype, "meta"), tp[0]))
     size, rank = tp if cut else (1, 0)
+    E = cfg.num_experts
+    esize, erank = ep if ep is not None and E else (1, 0)
+    if E and E % esize:
+        raise ValueError(f"init_params(ep={ep}): {E} experts do not "
+                         f"divide by {esize}")
+    e_loc = E // esize if E else 0
+    e_lo = erank * e_loc
     d, v, L = cfg.hidden_size, cfg.vocab_size, cfg.num_layers
     h = cfg.ffn_size
     kd = cfg.kv_heads * cfg.head_dim
     qd = cfg.q_dim
 
-    def local(shape, at):
+    def local(shape, at, experts=False):
         """(this rank's shape of the leaf at path ``at``, its 'model' dim
-        or None, the block's first index)."""
+        or None, the block's first index). An expert leaf is drawn as
+        [L * E, ...]: its 'model' dim is one less than in [L, E, ...],
+        and it keeps L * E/ep rows."""
         dim = cut.get(at)
+        if dim is not None and experts:
+            dim -= 1
+        own = tuple(shape)
+        if experts and esize > 1:
+            own = (shape[0] // E * e_loc,) + own[1:]
         if dim is None:
-            return tuple(shape), None, 0
+            return own, None, 0
         n = shape[dim] // size
-        return shape[:dim] + (n,) + shape[dim + 1:], dim, rank * n
+        return own[:dim] + (n,) + own[dim + 1:], dim, rank * n
 
-    def w(shape, std=cfg.init_std, at=()):
-        own, dim, lo = local(tuple(shape), at)
+    def kept(i: int, rows: int, experts: bool):
+        """[(row of the slice, row of the local leaf)] of the rows
+        ``[i, i + rows)`` of the draw this rank keeps."""
+        if not (experts and esize > 1):
+            return None
+        return [(j, (r // E) * e_loc + r % E - e_lo)
+                for j, r in enumerate(range(i, i + rows))
+                if e_lo <= r % E < e_lo + e_loc]
+
+    def w(shape, std=cfg.init_std, at=(), experts=False):
+        own, dim, lo = local(tuple(shape), at, experts)
         out = torch.empty(own, dtype=dtype, device=device)
         step = max(1, INIT_SLICE_VALUES // math.prod(shape[1:]))
         for i in range(0, shape[0], step):
@@ -671,10 +694,14 @@ def init_params(cfg: DecoderConfig, generator: torch.Generator,
             part = torch.randn(
                 (rows,) + tuple(shape[1:]), generator=generator,
                 dtype=torch.float32, device=device) * std
-            if dim is None:
+            if dim is not None and dim > 0:
+                part = part.narrow(dim, lo, own[dim])
+            keep = kept(i, rows, experts)
+            if keep is not None:
+                for j, r in keep:
+                    out[r] = part[j]
+            elif dim is None or dim > 0:
                 out[i:i + rows] = part
-            elif dim > 0:
-                out[i:i + rows] = part.narrow(dim, lo, own[dim])
             else:
                 a, b = max(i, lo), min(i + rows, lo + own[0])
                 if a < b:
@@ -688,35 +715,48 @@ def init_params(cfg: DecoderConfig, generator: torch.Generator,
         """A matmul leaf of ``shape`` (stacked, K and N last) drawn as
         ``w`` draws it, into ``group[name]`` (path ``at + (name,)``),
         quantized with its ``<name>_scale`` when asked. ``lead`` reshapes
-        the stacked axes (the experts' [L * E] draw to [L, E])."""
+        the stacked axes (the experts' [L * E] draw to [L, E/ep])."""
+        experts = lead is not None
+        if experts:
+            lead = (lead[0], e_loc)
         if not weight_quant:
-            out = w(shape, std, at + (name,))
+            out = w(shape, std, at + (name,), experts)
             group[name] = out if lead is None else \
-                out.view(tuple(lead) + tuple(shape[1:]))
+                out.view(tuple(lead) + tuple(out.shape[1:]))
             return
-        q, sc = _quantized_draw(shape, std)
+        q, sc = _quantized_draw(shape, std, experts)
         if lead is not None:
             q = q.view(tuple(lead) + tuple(q.shape[1:]))
             sc = sc.view(tuple(lead) + tuple(sc.shape[1:]))
         group[name], group[name + SCALE_SUFFIX] = q, sc
 
-    def _quantized_draw(shape, std):
+    def _quantized_draw(shape, std, experts=False):
         if len(shape) == 2:
             return _quantize_columns(w(shape, std))
         q = sc = None
+        n0 = local(tuple(shape), (), experts)[0][0]
         step = max(1, INIT_SLICE_VALUES // math.prod(shape[1:]))
         for i in range(0, shape[0], step):
             rows = min(step, shape[0] - i)
             part = (torch.randn((rows,) + tuple(shape[1:]),
                                 generator=generator, dtype=torch.float32,
                                 device=device) * std).to(dtype)
+            keep = kept(i, rows, experts)
+            if keep is not None:
+                if not keep:
+                    continue
+                part = part[[j for j, _ in keep]]
             qi, si = quantize_weight(part, weight_quant)
             if q is None:
-                q = torch.empty((shape[0],) + tuple(qi.shape[1:]),
+                q = torch.empty((n0,) + tuple(qi.shape[1:]),
                                 dtype=qi.dtype, device=device)
-                sc = torch.empty((shape[0], shape[-1]), dtype=torch.float32,
+                sc = torch.empty((n0, shape[-1]), dtype=torch.float32,
                                  device=device)
-            q[i:i + rows], sc[i:i + rows] = qi, si
+            if keep is not None:
+                idx = [r for _, r in keep]
+                q[idx], sc[idx] = qi, si
+            else:
+                q[i:i + rows], sc[i:i + rows] = qi, si
         return q, sc
 
     def _quantize_columns(full):
@@ -746,18 +786,19 @@ def init_params(cfg: DecoderConfig, generator: torch.Generator,
     if cfg.has_ln2:
         layers["ln2"] = _norm_params(cfg, (L,), device)
     if cfg.num_experts:
-        E = cfg.num_experts
         moe: Params = {"router": w((L, d, E))}
+        gm = ("layers", "moe")
         # [L, E, ...], drawn one expert at a time
-        put(moe, "wg", (L * E, d, h), lead=(L, E))
-        put(moe, "wi", (L * E, d, h), lead=(L, E))
-        put(moe, "wo", (L * E, h, d), std=out_std, lead=(L, E))
+        put(moe, "wg", (L * E, d, h), lead=(L, E), at=gm)
+        put(moe, "wi", (L * E, d, h), lead=(L, E), at=gm)
+        put(moe, "wo", (L * E, h, d), std=out_std, lead=(L, E), at=gm)
         if cfg.shared_expert_size:
             hs = cfg.shared_expert_size
             shared: Params = {}
-            put(shared, "wg", (L, d, hs))
-            put(shared, "wi", (L, d, hs))
-            put(shared, "wo", (L, hs, d), std=out_std)
+            gs = gm + ("shared",)
+            put(shared, "wg", (L, d, hs), at=gs)
+            put(shared, "wi", (L, d, hs), at=gs)
+            put(shared, "wo", (L, hs, d), std=out_std, at=gs)
             if cfg.shared_expert_gate:
                 shared["gate"] = w((L, d, 1))
             moe["shared"] = shared
@@ -765,12 +806,14 @@ def init_params(cfg: DecoderConfig, generator: torch.Generator,
             # Residual-MoE's dense branch and 2-way mixing coefficient
             # (transformer.py:770-789)
             residual = {}
+            gr = gm + ("residual",)
             if cfg.is_glu:
-                put(residual, "wg", (L, d, h))
-            put(residual, "wi", (L, d, h))
-            put(residual, "wo", (L, h, d), std=out_std)
+                put(residual, "wg", (L, d, h), at=gr)
+            put(residual, "wi", (L, d, h), at=gr)
+            put(residual, "wo", (L, h, d), std=out_std, at=gr)
             if not cfg.is_glu and cfg.use_bias:
-                residual.update(bi=zeros(L, h), bo=zeros(L, d))
+                residual.update(bi=zeros(L, h, at=gr + ("bi",)),
+                                bo=zeros(L, d, at=gr + ("bo",)))
             moe["residual"] = residual
             moe["coef"] = w((L, d, 2))
             moe["coef_b"] = zeros(L, 2)
@@ -1353,14 +1396,20 @@ def fit_tp_specs(specs: Params, params: Params, tp: int) -> Params:
     return walk((), params, specs)
 
 
-def tp_specs(cfg: DecoderConfig, params: Params, tp: int) -> Params:
+def tp_specs(cfg: DecoderConfig, params: Params, tp: int,
+             serving: bool = False) -> Params:
     """The 'model' specs of ``params`` at tp, float or weight-quantized
     (engine.py:113-138's ``_shard_like``): each leaf as
     ``partition_specs(tp=True)`` at stage 0; a ``<name>_scale`` leaf
     shards with its weight's output columns (column-parallel) and is
     whole otherwise; ``lm_head_q`` [D, V] shards V; what does not divide
-    replicates (:func:`fit_tp_specs`)."""
+    replicates (:func:`fit_tp_specs`). ``serving``: the MoE subtree
+    keeps no 'model' (``_shard_like``'s ``in_moe``: the grouped quantized
+    kernel has no TP path, so serving keeps the experts whole on every
+    model rank, while training cuts their f columns)."""
     base = partition_specs(cfg, 0, tp=True)
+    if serving and "moe" in base.get("layers", {}):
+        base["layers"]["moe"] = _strip_model(base["layers"]["moe"])
 
     def walk(p, s):
         out = {}
@@ -1383,6 +1432,12 @@ def tp_specs(cfg: DecoderConfig, params: Params, tp: int) -> Params:
                 out[k] = (None,) * v.dim()
         return out
     return fit_tp_specs(walk(params, base), params, tp)
+
+
+def _strip_model(specs: Params) -> Params:
+    if isinstance(specs, dict):
+        return {k: _strip_model(v) for k, v in specs.items()}
+    return tuple(None if e == "model" else e for e in specs)
 
 
 def _model_dims(specs: Params, at: Tuple[str, ...] = ()
@@ -1408,6 +1463,21 @@ def shard_model_axis(params: Params, specs: Params, tp: int,
                 return p.narrow(d, rank * n, n).contiguous()
         return p
     return walk(params, specs)
+
+
+def shard_expert_axis(params: Params, ep: int, rank: int) -> Params:
+    """This rank's E/ep experts of every expert leaf (the MoE weights
+    [L, E, ...] and their scales [L, E, N]: 'expert' on dim 1)."""
+    layers = params.get("layers", {})
+    if "moe" not in layers:
+        return params
+    moe = dict(layers["moe"])
+    for k in ("wg", "wi", "wo"):
+        for name in (k, k + SCALE_SUFFIX):
+            if name in moe:
+                n = moe[name].shape[1] // ep
+                moe[name] = moe[name].narrow(1, rank * n, n).contiguous()
+    return dict(params, layers=dict(layers, moe=moe))
 
 
 def partition_specs(cfg: DecoderConfig, zero_stage: int = 0,

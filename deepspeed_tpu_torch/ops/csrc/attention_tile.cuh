@@ -270,6 +270,10 @@ struct AttnTile {
 
 }  // namespace dstt
 
+// One definition a library: a source built in parts (ops/op_builder.py
+// PARTS) defines it in its part 0 only.
+#if !defined(DSTT_PART) || DSTT_PART == 0
 extern "C" const char* dstt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+#endif

@@ -764,6 +764,48 @@ int launch_d(const Args& a, int n, int dtype, int form, cudaStream_t st) {
 
 }  // namespace
 
+// The five head dims build as separate translation units, in parallel (the
+// whole file took ~45 s of nvcc on one core): with DSTT_PART = 1..5 a unit
+// instantiates one head dim's kernels behind dstt_paged_d<dh>, and with
+// DSTT_PART = 0 it holds the entry point (ops/op_builder.py PARTS).
+#define DSTT_PAGED_PARAMS                                                  \
+  const void *q, const void *ak, const void *av, const void *pt,           \
+      const void *starts, const void *counts, void *out, void *lse,        \
+      void *ws, void *counters, int n, int c, int H, int KvH, int NB,      \
+      int bs, int mb, int dtype, int form, int splits, int split_keys,     \
+      float scale, void *stream
+#define DSTT_PAGED_LAUNCH(D)                                               \
+  const Args a{q, ak, av, static_cast<const int*>(pt),                     \
+               static_cast<const int*>(starts),                            \
+               static_cast<const int*>(counts), out,                       \
+               static_cast<float*>(lse), static_cast<float*>(ws),          \
+               static_cast<int*>(counters), c, H, KvH, NB, bs, mb, splits, \
+               split_keys, scale};                                         \
+  return launch_d<D>(a, n, dtype, form, static_cast<cudaStream_t>(stream))
+
+extern "C" int dstt_paged_d64(DSTT_PAGED_PARAMS);
+extern "C" int dstt_paged_d80(DSTT_PAGED_PARAMS);
+extern "C" int dstt_paged_d96(DSTT_PAGED_PARAMS);
+extern "C" int dstt_paged_d128(DSTT_PAGED_PARAMS);
+extern "C" int dstt_paged_d256(DSTT_PAGED_PARAMS);
+#if DSTT_PART == 1
+extern "C" int dstt_paged_d64(DSTT_PAGED_PARAMS) { DSTT_PAGED_LAUNCH(64); }
+#endif
+#if DSTT_PART == 2
+extern "C" int dstt_paged_d80(DSTT_PAGED_PARAMS) { DSTT_PAGED_LAUNCH(80); }
+#endif
+#if DSTT_PART == 3
+extern "C" int dstt_paged_d96(DSTT_PAGED_PARAMS) { DSTT_PAGED_LAUNCH(96); }
+#endif
+#if DSTT_PART == 4
+extern "C" int dstt_paged_d128(DSTT_PAGED_PARAMS) { DSTT_PAGED_LAUNCH(128); }
+#endif
+#if DSTT_PART == 5
+extern "C" int dstt_paged_d256(DSTT_PAGED_PARAMS) { DSTT_PAGED_LAUNCH(256); }
+#endif
+
+#if DSTT_PART == 0
+
 // dtype: 0 = float32, 1 = bfloat16. form (ops/paged_attention.FORMS): 0 =
 // fma (fp32, more than 16 rows a kv head), 1 = split (at most 16 rows),
 // 2 = mma (bf16, more than 16 rows). splits / split_keys: the split form's
@@ -779,7 +821,6 @@ extern "C" int dstt_paged_attention(
     void* counters, int n, int c, int H, int KvH, int D, int NB, int bs,
     int mb, int dtype, int form, int splits, int split_keys, float scale,
     void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = KvH > 0 ? (H / KvH) * c : 0;
   const bool split_ok = rows <= 16 && splits >= 1 && split_keys > 0 &&
                         split_keys % kBK == 0 &&
@@ -787,18 +828,29 @@ extern "C" int dstt_paged_attention(
   if ((form == 1 && !split_ok) || (form == 0 && (dtype != 0 || rows <= 16)) ||
       (form == 2 && (dtype != 1 || rows <= 16)) || form < 0 || form > 2)
     return (int)cudaErrorInvalidValue;
-  const Args a{q, ak, av, static_cast<const int*>(pt),
-               static_cast<const int*>(starts), static_cast<const int*>(counts),
-               out, static_cast<float*>(lse), static_cast<float*>(ws),
-               static_cast<int*>(counters), c, H, KvH, NB, bs, mb, splits,
-               split_keys, scale};
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   switch (D) {
-    case 64: return launch_d<64>(a, n, dtype, form, st);
-    case 80: return launch_d<80>(a, n, dtype, form, st);
-    case 96: return launch_d<96>(a, n, dtype, form, st);
-    case 128: return launch_d<128>(a, n, dtype, form, st);
-    case 256: return launch_d<256>(a, n, dtype, form, st);
+    case 64:
+      return dstt_paged_d64(q, ak, av, pt, starts, counts, out, lse, ws,
+                            counters, n, c, H, KvH, NB, bs, mb, dtype, form,
+                            splits, split_keys, scale, stream);
+    case 80:
+      return dstt_paged_d80(q, ak, av, pt, starts, counts, out, lse, ws,
+                            counters, n, c, H, KvH, NB, bs, mb, dtype, form,
+                            splits, split_keys, scale, stream);
+    case 96:
+      return dstt_paged_d96(q, ak, av, pt, starts, counts, out, lse, ws,
+                            counters, n, c, H, KvH, NB, bs, mb, dtype, form,
+                            splits, split_keys, scale, stream);
+    case 128:
+      return dstt_paged_d128(q, ak, av, pt, starts, counts, out, lse, ws,
+                             counters, n, c, H, KvH, NB, bs, mb, dtype, form,
+                             splits, split_keys, scale, stream);
+    case 256:
+      return dstt_paged_d256(q, ak, av, pt, starts, counts, out, lse, ws,
+                             counters, n, c, H, KvH, NB, bs, mb, dtype, form,
+                             splits, split_keys, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
+#endif  // the entry point's unit

@@ -902,6 +902,54 @@ int launch_as(const Args& a, int G, int regime, int bm, int bn,
                   : launch_splitk<F, 128, 4>(a, G, st);
 }
 
+// One format's launch, past the checks of launch() below: its kernels are
+// instantiated here only.
+template <int F>
+int launch_format(const void* x, const void* w, const void* scale,
+                  void* out, void* ws, void* counters, int G, int M, int K,
+                  int N, int out_dtype, int regime, int bm, int bn,
+                  int slices, int steps, void* stream) {
+  constexpr int planes = F == kInt4 ? 2 : (F == kFp6 ? 4 : 1);
+  Args a{x, static_cast<const uint8_t*>(w), static_cast<const float*>(scale),
+         out, static_cast<float*>(ws), static_cast<int*>(counters), M, K, N,
+         K / planes, out_dtype, slices, steps, 0, 0, 0};
+  return launch_as<F>(a, G, regime, bm, bn, static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
+// The four formats build as separate translation units, in parallel (the
+// whole file took ~60 s of nvcc on one core): with DSTT_PART = f + 1 a unit
+// instantiates format f's kernels behind dstt_qmm_format_f, and with
+// DSTT_PART = 0 it holds the entry points below (ops/op_builder.py PARTS).
+#define DSTT_QMM_PARAMS                                                     \
+  const void *x, const void *w, const void *scale, void *out, void *ws,     \
+      void *counters, int G, int M, int K, int N, int out_dtype, int regime, \
+      int bm, int bn, int slices, int steps, void *stream
+#define DSTT_QMM_LAUNCH(F)                                                \
+  return launch_format<F>(x, w, scale, out, ws, counters, G, M, K, N,     \
+                          out_dtype, regime, bm, bn, slices, steps, stream)
+
+extern "C" int dstt_qmm_format_0(DSTT_QMM_PARAMS);
+extern "C" int dstt_qmm_format_1(DSTT_QMM_PARAMS);
+extern "C" int dstt_qmm_format_2(DSTT_QMM_PARAMS);
+extern "C" int dstt_qmm_format_3(DSTT_QMM_PARAMS);
+#if DSTT_PART == 1
+extern "C" int dstt_qmm_format_0(DSTT_QMM_PARAMS) { DSTT_QMM_LAUNCH(kInt8); }
+#endif
+#if DSTT_PART == 2
+extern "C" int dstt_qmm_format_1(DSTT_QMM_PARAMS) { DSTT_QMM_LAUNCH(kFp8); }
+#endif
+#if DSTT_PART == 3
+extern "C" int dstt_qmm_format_2(DSTT_QMM_PARAMS) { DSTT_QMM_LAUNCH(kInt4); }
+#endif
+#if DSTT_PART == 4
+extern "C" int dstt_qmm_format_3(DSTT_QMM_PARAMS) { DSTT_QMM_LAUNCH(kFp6); }
+#endif
+
+#if DSTT_PART == 0
+namespace {
+
 // fmt: 0 int8, 1 fp8-e4m3, 2 int4, 3 fp6-e3m2; x_dtype: 0 fp32, 1 bf16;
 // out_dtype: 0 fp32, 1 bf16, 2 fp16; regime: 0 FMA (fp32 x), 1 split-K,
 // 2 wgmma (bf16 x); bm, bn: the tile (wgmma: 128 x 128 or 256 x 128;
@@ -920,15 +968,23 @@ int launch(const void* x, const void* w, const void* scale, void* out,
       out_dtype > 2 || fmt < 0 || fmt > 3 || !regime_ok)
     return (int)cudaErrorInvalidValue;
   if (M == 0 || N == 0) return (int)cudaSuccess;
-  Args a{x, static_cast<const uint8_t*>(w), static_cast<const float*>(scale),
-         out, static_cast<float*>(ws), static_cast<int*>(counters), M, K, N,
-         K / planes, out_dtype, slices, steps, 0, 0, 0};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (fmt) {
-    case kInt8: return launch_as<kInt8>(a, G, regime, bm, bn, st);
-    case kFp8: return launch_as<kFp8>(a, G, regime, bm, bn, st);
-    case kInt4: return launch_as<kInt4>(a, G, regime, bm, bn, st);
-    default: return launch_as<kFp6>(a, G, regime, bm, bn, st);
+    case kInt8:
+      return dstt_qmm_format_0(x, w, scale, out, ws, counters, G, M, K, N,
+                               out_dtype, regime, bm, bn, slices, steps,
+                               stream);
+    case kFp8:
+      return dstt_qmm_format_1(x, w, scale, out, ws, counters, G, M, K, N,
+                               out_dtype, regime, bm, bn, slices, steps,
+                               stream);
+    case kInt4:
+      return dstt_qmm_format_2(x, w, scale, out, ws, counters, G, M, K, N,
+                               out_dtype, regime, bm, bn, slices, steps,
+                               stream);
+    default:
+      return dstt_qmm_format_3(x, w, scale, out, ws, counters, G, M, K, N,
+                               out_dtype, regime, bm, bn, slices, steps,
+                               stream);
   }
 }
 
@@ -980,3 +1036,4 @@ extern "C" int dstt_quantized_matmul_batched(
 extern "C" const char* dstt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+#endif  // the entry points' unit

@@ -7,7 +7,11 @@ seconds rather than the minutes ``torch.utils.cpp_extension`` needs.
 
 Libraries go to ``build/kernels/`` beside the package (listed in
 ``.gitignore``), named by a hash of the sources and flags, and are built
-at first use. ``build_all`` starts one ``nvcc`` per source at once. A
+at first use. Every source is compiled as ``PARTS.get(name, 1)``
+translation units (``nvcc -c -DDSTT_PART=k``, k = 0 .. n - 1, each
+instantiating its share of the kernels; part 0 holds the entry points)
+and linked into its one library. ``build_all`` starts every unit of every
+source at once, so that no single ``nvcc`` holds the build back. A
 missing ``nvcc`` or a failed build raises; nothing falls back.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch, and
@@ -39,6 +43,12 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+#: sources built as several translation units (``DSTT_PART`` 0 .. n - 1):
+#: their whole-file builds were the longest (quantized_linear ~60 s, its
+#: four formats; paged_attention ~45 s, its five head dims), all the other
+#: sources ~20 s or less
+PARTS: Dict[str, int] = {"quantized_linear": 5, "paged_attention": 6}
 
 #: name → C signature: {function: (argtypes, restype)}
 _SIGNATURES: Dict[str, Dict[str, tuple]] = {}
@@ -77,7 +87,8 @@ def _sources(name: str) -> List[Path]:
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` lives, keyed by a hash of
     its source, the shared headers and the flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((" ".join(NVCC_FLAGS)
+                        + f" parts={PARTS.get(name, 1)}").encode())
     for p in _sources(name):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -85,8 +96,9 @@ def library_path(name: str) -> Path:
 
 
 def _start_build(name: str):
-    """Start nvcc for ``name`` unless its library exists; returns
-    (process, tmp output, final path, log path) or None."""
+    """Start nvcc for ``name`` unless its library exists (one process a
+    part); returns (processes, objects, tmp output, final path, log path)
+    or None."""
     out = library_path(name)
     if out.exists():
         return None
@@ -94,20 +106,43 @@ def _start_build(name: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     log = out.with_suffix(".log")
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out, log
+    src = str(CSRC / f"{name}.cu")
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [out.with_suffix(f".{os.getpid()}.p{k}.o")
+            for k in range(PARTS.get(name, 1))]
+    cmds = [[nvcc, *flags, "-c", f"-DDSTT_PART={k}", "-I", str(CSRC),
+             "-o", str(o), src] for k, o in enumerate(objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    return procs, objs, tmp, out, log
 
 
 def _finish_build(name: str, started) -> None:
-    proc, tmp, out, log = started
-    text, _ = proc.communicate()
+    procs, objs, tmp, out, log = started
+    texts, failed = [], []
+    for k, proc in enumerate(procs):
+        text, _ = proc.communicate()
+        texts.append(text)
+        if proc.returncode != 0:
+            failed.append(f"part {k} (exit {proc.returncode})")
+    if not failed:
+        # the parts into one library
+        link = subprocess.run(
+            [find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+             "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True)
+        texts.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(f"the link (exit {link.returncode})")
+    for o in objs:
+        if o.exists():
+            o.unlink()
+    text = "\n".join(texts)
     log.write_text(text)
-    if proc.returncode != 0:
+    if failed:
         raise RuntimeError(f"nvcc failed to build {name} "
-                           f"(exit {proc.returncode}):\n{text}")
+                           f"({', '.join(failed)}):\n{text}")
     os.replace(tmp, out)
 
 

@@ -35,9 +35,11 @@ shape; the JAX package drops to an XLA dequant path (scale before the
 sum) off its 256-multiple tile gate, so off-gate shapes agree with it to
 rounding only (ROADMAP C).
 
-The tensor-parallel and expert-parallel variants (``qmatmul_tp``,
-``qmatmul_batched_ep``) are not ported: the port has no mesh, and their
-single-shard branch is exactly :func:`qmatmul` / :func:`qmatmul_batched`.
+The tensor-parallel variant :func:`qmatmul_tp` runs :func:`qmatmul` on a
+rank's 'model' shard (summed over 'model' for the row role); the
+expert-parallel one :func:`qmatmul_batched_ep` runs
+:func:`qmatmul_batched` (K5c) on a rank's E/ep experts and the buffers
+the capacity layer exchanged to it.
 """
 
 import ctypes
@@ -586,6 +588,23 @@ def qmatmul_batched(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
 #: the layer leaves quantize_param_tree replaces, per group
 DENSE_TARGETS = ("wq", "wk", "wv", "wo", "wg", "wi")
 EXPERT_TARGETS = ("wg", "wi", "wo")
+
+
+def qmatmul_batched_ep(x: torch.Tensor, w_q: torch.Tensor,
+                       scale: torch.Tensor,
+                       out_dtype: Optional[torch.dtype] = None
+                       ) -> torch.Tensor:
+    """Expert-parallel grouped weight-only matmul (quantized_linear.py:516):
+    x [G, M, K] holds the capacity buffers of the G experts whose weights
+    w_q [G, ...] and scale [G, N] this rank keeps — its E/ep experts
+    under expert parallelism, whose buffers the capacity layer brought —
+    so the kernel runs on the local experts alone with no reduction.
+    Where the experts are whole at ep > 1 (replicated, with the JAX
+    warning) the layer decides (``parallel/moe.py`` ``moe_layer``), and
+    packed int4/fp6 experts never reach it under EP: the serving engine
+    refuses them (``inference/engine.py``), and training has no quantized
+    experts."""
+    return qmatmul_batched(x, w_q, scale, out_dtype=out_dtype)
 
 
 def _quantizable(group: dict, name: str) -> bool:

@@ -10,16 +10,23 @@ collective facade (:mod:`deepspeed_tpu_torch.comm`) and the ZeRO plan
 (:mod:`deepspeed_tpu_torch.runtime.zero.sharding`) consume. It keeps
 ``mesh.shape[axis]``.
 
-Two axes run: ``data`` and ``model`` (tensor parallelism), in the JAX
-rank order, 'model' the fastest: rank ``r`` sits at data ``r // model``
-and model ``r % model``. ``build_mesh`` forms one process group per data
-row (the ranks of one model column share it: their 'data' group) and one
-per model column of ranks (their 'model' group). Any other axis above 1
-— ``seq`` (sequence), ``pipe``, ``expert``, or ``data_inner`` (MiCS /
-hpZ) — and a multi-slice ``dcn`` layout raise ``NotImplementedError``
-(ROADMAP A, 'Parallelism breadth').
+Three axes run: ``data``, ``expert`` (expert parallelism) and ``model``
+(tensor parallelism), in the JAX rank order of :data:`MESH_AXES`,
+'model' the fastest: rank ``r`` sits at model ``r % model``, expert
+``(r // model) % expert`` and data ``r // (model · expert)``.
+``build_mesh`` forms one process group for every product of live axes
+and every position on the others: each expert row's 'expert' group, each
+expert column's 'data' group (the expert-data-parallel group of
+reference ``groups.py:315``), the ('data', 'expert') group of the ZeRO
+family, and so on; the product of every live axis is the world group. A
+group's ranks are ordered as the JAX mesh orders the positions of a
+tuple of axes (row-major, in :data:`MESH_AXES` order). Any other axis
+above 1 — ``seq`` (sequence), ``pipe``, or ``data_inner`` (MiCS / hpZ) —
+and a multi-slice ``dcn`` layout raise ``NotImplementedError`` (ROADMAP
+A, 'Parallelism breadth').
 """
 
+import itertools
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 from deepspeed_tpu_torch.utils.logging import log_dist
@@ -30,6 +37,9 @@ MESH_AXES: Tuple[str, ...] = ("pipe", "data", "data_inner", "expert",
 
 #: ZeRO shards over the full data-parallel product (mesh.py:36)
 ZERO_AXES: Tuple[str, ...] = ("data", "data_inner", "expert")
+
+#: the axes that run in the port
+LIVE_AXES: Tuple[str, ...] = ("data", "expert", "model")
 
 _BREADTH = "(ROADMAP A, 'Parallelism breadth')"
 
@@ -47,14 +57,14 @@ class Mesh:
     ``shape``: axis → size over :data:`MESH_AXES` (absent axes are 1).
     ``group``: the world group, or None in a process without
     ``torch.distributed``, where every collective of a size-1 axis is the
-    identity. ``groups``: this rank's group of the ``data`` and of the
-    ``model`` axis (both the world group when the other axis is 1).
+    identity. ``groups``: this rank's group of each product of live axes
+    other than all of them, keyed by an axis name or a tuple of names.
     ``coords``: this rank's position on each axis."""
 
     axis_names = MESH_AXES
 
     def __init__(self, shape: Dict[str, int], group=None,
-                 groups: Optional[Dict[str, Any]] = None,
+                 groups: Optional[Dict[Any, Any]] = None,
                  coords: Optional[Dict[str, int]] = None):
         unknown = set(shape) - set(MESH_AXES)
         if unknown:
@@ -65,7 +75,9 @@ class Mesh:
         for v in self.shape.values():
             self.size *= v
         self._group = group
-        self._groups = dict(groups or {"data": group})
+        self._live = frozenset(a for a in MESH_AXES if self.shape[a] > 1)
+        self._groups = {frozenset((k,) if isinstance(k, str) else k): g
+                        for k, g in (groups or {"data": group}).items()}
         self.coords = {ax: 0 for ax in MESH_AXES}
         self.coords.update(coords or {})
 
@@ -83,18 +95,17 @@ class Mesh:
 
     def group(self, axes: Union[str, Sequence[str]]):
         """The process group of ``axes`` (an axis name or a tuple): the
-        world group when both ``data`` and ``model`` are among them and
-        above 1, else the group of the one that is (``data``'s at world
-        1), else None (a product of size-1 axes, whose collectives are
-        the identity)."""
+        group of the axes among them that are above 1 — the world group
+        when that is every live axis — else None (a product of size-1
+        axes, whose collectives are the identity; ``data`` at world 1
+        keeps its one-rank group)."""
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         self.axes_size(axes)
-        live = [a for a in ("data", "model")
-                if a in axes and self.shape[a] > 1]
-        if len(live) == 2:
+        live = frozenset(a for a in axes if self.shape[a] > 1)
+        if live and live == self._live:
             return self._group
         if live:
-            return self._groups[live[0]]
+            return self._groups[live]
         # the data axis at world 1 keeps its (one-rank) group
         return self._group if "data" in axes and self.size == 1 else None
 
@@ -149,34 +160,43 @@ def build_mesh(data: Optional[int] = None,
         raise NotImplementedError(
             f"multi-slice meshes (dcn={dcn}) are not ported to "
             f"deepspeed_tpu_torch yet {_BREADTH}")
-    others = {"pipe": pipe, "seq": seq, "expert": expert,
-              "data_inner": data_inner}
+    others = {"pipe": pipe, "seq": seq, "data_inner": data_inner}
     big = {k: v for k, v in others.items() if v > 1}
     if big:
         raise NotImplementedError(
-            f"mesh axes {big}: deepspeed_tpu_torch runs data and tensor "
-            f"parallelism only; sequence, pipeline and expert parallelism "
+            f"mesh axes {big}: deepspeed_tpu_torch runs data, expert and "
+            f"tensor parallelism only; sequence and pipeline parallelism "
             f"and MiCS sub-groups are not ported yet {_BREADTH}")
     world_group = d.group.WORLD if d is not None else None
-    groups = {"data": world_group, "model": world_group}
+    sizes = {"data": data, "expert": expert, "model": model}
     rank = d.get_rank() if d is not None else 0
-    coords = {"data": rank // model, "model": rank % model}
-    if d is not None and data > 1 and model > 1:
+    coords = {"model": rank % model, "expert": (rank // model) % expert,
+              "data": rank // (model * expert)}
+    live = [a for a in LIVE_AXES if sizes[a] > 1]
+    groups: Dict[Any, Any] = {"data": world_group}
+    if d is not None:
         # every rank joins the creation of every group, in one order
-        for m in range(model):
-            g = d.new_group([i * model + m for i in range(data)])
-            if m == coords["model"]:
-                groups["data"] = g
-        for i in range(data):
-            g = d.new_group([i * model + m for m in range(model)])
-            if i == coords["data"]:
-                groups["model"] = g
+        for k in range(1, len(live)):
+            for sub in itertools.combinations(live, k):
+                rest = [a for a in LIVE_AXES if a not in sub]
+                for pos in itertools.product(*(range(sizes[a])
+                                               for a in rest)):
+                    fixed = dict(zip(rest, pos))
+                    ranks = sorted(
+                        (c["data"] * expert + c["expert"]) * model
+                        + c["model"]
+                        for c in (dict(fixed, **dict(zip(sub, v)))
+                                  for v in itertools.product(
+                                      *(range(sizes[a]) for a in sub))))
+                    g = d.new_group(ranks)
+                    if all(coords[a] == fixed[a] for a in rest):
+                        groups[sub] = g
     mesh = Mesh({"pipe": pipe, "data": data, "data_inner": data_inner,
                  "expert": expert, "seq": seq, "model": model},
                 group=world_group, groups=groups, coords=coords)
     if set_current:
         set_mesh(mesh)
-    log_dist(f"built mesh: data={data} model={model} over "
+    log_dist(f"built mesh: data={data} expert={expert} model={model} over "
              f"{'torch.distributed' if d is not None else 'one process'}")
     return mesh
 

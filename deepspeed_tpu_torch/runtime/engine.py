@@ -78,12 +78,24 @@ group) take the same rows of the global batch; gradients reduce over
 the model group and counts replicated leaves once; the fp16 overflow
 flag is all-reduced over the world.
 
+Expert parallelism: a mesh with an ``expert`` axis above 1 cuts each
+expert leaf (its spec's 'expert' dim, E) to this rank's E/ep experts;
+the global batch splits over data × expert (rank ``data · ep + expert``
+takes the block of that index). Dense leaves shard and reduce over
+('data', 'expert'); expert leaves over their column's 'data' group (the
+expert-data-parallel group), so a rank's box is the JAX box in every
+dim. The MoE layer's all-to-all brought every token of an expert row to
+the experts' owner, so the sum over 'data' is the expert leaf's whole
+gradient, and the step's 1/(data · ep) makes it the global mean's. The
+norm counts each expert shard once (their squares summed over
+'expert').
+
 The ``telemetry`` block arms the span and request tracers
 (:func:`deepspeed_tpu_torch.telemetry.configure`), the ``comms_logger``
 block the collective log. ZeRO++ (``zero_quantized_weights`` /
 ``zero_quantized_gradients``) runs ``train_batch`` through
-``runtime/zero/zeropp.py``. Sequence, pipeline and expert
-parallelism, MiCS, ZenFlow, offload at dp > 1, 1-bit optimizers,
+``runtime/zero/zeropp.py`` (not over an expert axis: the JAX
+``ValueError``). Sequence and pipeline parallelism, MiCS, ZenFlow, offload at dp > 1, 1-bit optimizers,
 the training step's telemetry spans and flight records and the watchdog
 are not ported: their config keys or meshes raise.
 """
@@ -185,7 +197,14 @@ class DeepSpeedEngine:
         #: collectives run: the data axis is a real process group (at any
         #: size); else the single-device path
         self._dist = self.mesh.distributed
-        self.dp_rank = comm.axis_index("data") if self._dist else 0
+        #: expert parallelism: the 'expert' axis's size and this rank's
+        #: position on it; the batch splits over these axes
+        self.ep_size = self.mesh.shape["expert"]
+        self.ep_rank = self.mesh.coord("expert")
+        self._batch_axis = ("data", "expert") if self.ep_size > 1 \
+            else "data"
+        self.dp_rank = comm.axis_index(self._batch_axis) if self._dist \
+            else 0
         #: tensor parallelism: the 'model' axis's size and this rank's
         #: position on it
         self.tp_size = self.mesh.shape["model"]
@@ -300,15 +319,17 @@ class DeepSpeedEngine:
             return
         self._specs = self.model.partition_specs
         self._mdim = [None] * len(tree_leaves(self.params))
+        self._edim = [None] * len(self._mdim)
         self._tp_full_shapes = [tuple(x.shape)
                                 for x in tree_leaves(self.params)]
-        if self.tp_size > 1 and self._specs is not None:
+        if (self.tp_size > 1 or self.ep_size > 1) and \
+                self._specs is not None:
             # the model's whole tree, shapes only, in the params' order
             full = tree_map(lambda p, f: f, self.params, self.model.init_fn(
                 torch.Generator(), torch.device("meta")))
             self._tp_full_shapes = [tuple(x.shape)
                                     for x in tree_leaves(full)]
-            self._cut_model_axis(full)
+            self._cut_axes(full)
         if self.offload_enabled:
             self._init_host_optimizer()
             return
@@ -319,37 +340,54 @@ class DeepSpeedEngine:
         self._leaves = tree_leaves(self.params)
         self.opt_state = self.optimizer.init(self.params)
 
-    # --------------------------------------------------- tensor parallelism
+    # --------------------------------------- tensor and expert parallelism
 
-    def _cut_model_axis(self, full: Params) -> None:
+    def _cut_axes(self, full: Params) -> None:
         """Cut every leaf whose spec carries 'model' to this rank's block
-        along that dim (AutoTP's row/column/vocab shards); a dim that does
-        not divide by tp replicates (:func:`models.transformer.fit_tp_specs`).
-        A leaf given at the block's shape already (``tp_model_init``'s
-        shards) is kept as it is; ``full`` holds the whole shapes."""
+        along that dim (AutoTP's row/column/vocab shards; a dim that does
+        not divide by tp replicates, :func:`models.transformer.
+        fit_tp_specs`), and every expert leaf to this rank's E/ep experts
+        along its 'expert' dim. A leaf given at the block's shape already
+        (``tp_model_init``'s shards) is kept as it is; ``full`` holds the
+        whole shapes."""
         from deepspeed_tpu_torch.models.transformer import fit_tp_specs
-        from deepspeed_tpu_torch.runtime.zero.sharding import (model_dim,
+        from deepspeed_tpu_torch.runtime.zero.sharding import (expert_dim,
+                                                               model_dim,
                                                                shard_of)
-        self._specs = fit_tp_specs(self._specs, full, self.tp_size)
-        self._mdim = tree_leaves(tree_map(
-            lambda p, sp: model_dim(sp), full, self._specs))
-        it = iter(zip(self._mdim, self._tp_full_shapes))
+        tp, ep = self.tp_size, self.ep_size
+        if tp > 1:
+            self._specs = fit_tp_specs(self._specs, full, tp)
+            self._mdim = tree_leaves(tree_map(
+                lambda p, sp: model_dim(sp), full, self._specs))
+        if ep > 1:
+            self._edim = tree_leaves(tree_map(
+                lambda p, sp: expert_dim(sp), full, self._specs))
+        it = iter(zip(self._mdim, self._edim, self._tp_full_shapes))
 
         def cut(x):
-            d, shape = next(it)
-            if d is None or tuple(x.shape) != shape:
-                block = list(shape)
-                if d is not None:
-                    block[d] //= self.tp_size
-                if tuple(x.shape) != tuple(block):
+            md, ed, shape = next(it)
+            block = list(shape)
+            if md is not None:
+                block[md] //= tp
+            if ed is not None:
+                if shape[ed] % ep:
                     raise ValueError(
-                        f"a parameter of shape {tuple(x.shape)} fits "
-                        f"neither the model's {shape} nor its tp="
-                        f"{self.tp_size} block {tuple(block)}")
+                        f"an expert leaf of shape {shape}: its {shape[ed]} "
+                        f"experts do not divide by ep={ep}")
+                block[ed] //= ep
+            if tuple(x.shape) == tuple(block):
                 return x
-            return shard_of(x.detach(), d, self.tp_rank,
-                            self.tp_size).clone().requires_grad_(
-                x.is_floating_point())
+            if tuple(x.shape) != tuple(shape):
+                raise ValueError(
+                    f"a parameter of shape {tuple(x.shape)} fits "
+                    f"neither the model's {shape} nor its tp={tp}, ep={ep} "
+                    f"block {tuple(block)}")
+            y = x.detach()
+            if md is not None:
+                y = shard_of(y, md, self.tp_rank, tp)
+            if ed is not None:
+                y = shard_of(y, ed, self.ep_rank, ep)
+            return y.clone().requires_grad_(x.is_floating_point())
         self.params = tree_map(cut, self.params)
 
     # ----------------------------------------------------- data parallelism
@@ -367,10 +405,10 @@ class DeepSpeedEngine:
             # the collectives resolve their axis names through it
             set_mesh(mesh)
         big = {a: v for a, v in mesh.shape.items()
-               if a not in ("data", "model") and v > 1}
+               if a not in ("data", "expert", "model") and v > 1}
         if big:
             raise NotImplementedError(
-                f"mesh axes {big}: the engine runs data and tensor "
+                f"mesh axes {big}: the engine runs data, expert and tensor "
                 f"parallelism only; the other axes are not ported to "
                 f"deepspeed_tpu_torch yet (ROADMAP A, 'Parallelism "
                 f"breadth')")
@@ -408,20 +446,39 @@ class DeepSpeedEngine:
                 f"'Parallelism breadth'); use stage 0")
 
     def _init_dp_layout(self) -> None:
-        """The ZeRO plan over the mesh (engine.py:254-290): each leaf's
-        param, gradient and state shard dims; stage 3's params cut to
-        this rank's shards; the optimizer state over the update targets
-        (this rank's block of each leaf where its state is sharded)."""
+        """The ZeRO plan over the mesh (engine.py:254-290), computed on the
+        whole shapes as the JAX plan is: each leaf's param, gradient and
+        state shard dims and the group they shard over (dense leaves the
+        batch axes, expert leaves their column's 'data' group); stage 3's
+        params cut to this rank's shards; the optimizer state over the
+        update targets (this rank's block of each leaf where its state is
+        sharded)."""
+        from deepspeed_tpu_torch.parallel.mesh import ZERO_AXES
         from deepspeed_tpu_torch.runtime.zero.sharding import (
-            ZeroShardingPlan, shard_dim, shard_of)
-        stage, n, r = self.zero_stage, self.dp_world_size, self.dp_rank
+            EXPERT_DP_AXES, ZeroShardingPlan, expert_dim, shard_dim,
+            shard_of)
+        stage = self.zero_stage
+        shapes = iter(self._tp_full_shapes)
+        abstract = tree_map(lambda x: torch.empty(
+            next(shapes), dtype=x.dtype, device="meta"), self.params)
         self.plan = ZeroShardingPlan(self.mesh, stage, self._specs,
-                                     self.params)
+                                     abstract)
+        #: per leaf: whether it is an expert leaf (at any ep), the axis
+        #: its ZeRO shards live on, its size and this rank's position on it
+        data = self.mesh.shape["data"]
+        base = tree_leaves(tree_map(lambda p, sp: [sp], self.params,
+                                    self.plan.param_specs))
+        expert = [expert_dim(sp) is not None for sp in base]
+        self._gax = ["data" if e else self._batch_axis for e in expert]
+        self._gn = [data if e else self.dp_world_size for e in expert]
+        self._gr = [self.mesh.coord("data") if e else self.dp_rank
+                    for e in expert]
 
         def dims(specs, on):
-            return tree_leaves(tree_map(
-                lambda p, sp: shard_dim(sp) if on else None, self.params,
-                specs))
+            sps = tree_leaves(tree_map(lambda p, sp: [sp], self.params,
+                                       specs))
+            return [shard_dim(sp, EXPERT_DP_AXES if e else ZERO_AXES)
+                    if on else None for sp, e in zip(sps, expert)]
 
         full = tree_leaves(self.params)
         self._full_shapes = [tuple(x.shape) for x in full]
@@ -429,14 +486,11 @@ class DeepSpeedEngine:
         self._sdim = dims(self.plan.state_specs, stage >= 1)
         self._gdim = dims(self.plan.grad_specs, stage >= 2)
         for i, (shape, d) in enumerate(zip(self._full_shapes, self._pdim)):
-            if d is not None and shape[d] % n:
+            if d is not None and shape[d] % self._gn[i]:
                 raise ValueError(
                     f"stage-3 leaf {i} of shape {shape}: dim {d} does not "
-                    f"divide by dp={n}")
+                    f"divide by dp={self._gn[i]}")
         if self.model.configure_overlap is not None and stage >= 3:
-            shapes = iter(self._tp_full_shapes)
-            abstract = tree_map(lambda x: torch.empty(
-                next(shapes), dtype=x.dtype, device="meta"), self.params)
             self._overlap_plan = self.model.configure_overlap(self.mesh,
                                                               abstract)
             if self._overlap_plan is not None:
@@ -446,25 +500,38 @@ class DeepSpeedEngine:
         it = iter(range(len(full)))
 
         def cut(x):
-            d = self._pdim[next(it)]
+            i = next(it)
+            d = self._pdim[i]
             if d is None:
                 return x
-            return shard_of(x.detach(), d, r, n).clone().requires_grad_(
+            return shard_of(x.detach(), d, self._gr[i],
+                            self._gn[i]).clone().requires_grad_(
                 x.is_floating_point())
         self.params = tree_map(cut, self.params)
         self._leaves = tree_leaves(self.params)
         targets = [x if p is not None or s is None else
-                   shard_of(x.detach(), s, r, n)
-                   for x, p, s in zip(self._leaves, self._pdim, self._sdim)]
+                   shard_of(x.detach(), s, self._gr[i], self._gn[i])
+                   for i, (x, p, s) in enumerate(zip(
+                       self._leaves, self._pdim, self._sdim))]
         self._targets = targets
         self._targets_tree = _unflatten_like(self.params, targets)
         self.opt_state = self.optimizer.init(self._targets_tree)
-        log_dist(f"data parallel: dp={n} stage={stage}; "
+        log_dist(f"data parallel: dp={self.dp_world_size} stage={stage}; "
                  f"{sum(d is not None for d in self._pdim)} leaves sharded "
                  f"as params, {sum(d is not None for d in self._sdim)} as "
                  f"state, {sum(d is not None for d in self._gdim)} as grads"
+                 + (f"; {sum(e is not None for e in self._edim)} expert "
+                    f"leaves over ep={self.ep_size}"
+                    if self.ep_size > 1 else "")
                  + (f"; {self._overlap_plan.describe()}"
                     if self._overlap_plan is not None else ""))
+
+    def _by_axis(self, idx: List[int]) -> Dict[Any, List[int]]:
+        """``idx`` grouped by the axis each leaf's shards live on."""
+        out: Dict[Any, List[int]] = {}
+        for i in idx:
+            out.setdefault(self._gax[i], []).append(i)
+        return out
 
     def _sharded(self, i: int) -> bool:
         """Whether leaf i's reduced gradient is this rank's shard."""
@@ -484,13 +551,13 @@ class DeepSpeedEngine:
               and self._gdim[i] is not None]
         ar = [i for i in range(len(out)) if self._pdim[i] is None
               and self._gdim[i] is None]
-        if rs:
-            for i, g in zip(rs, reduce_scatter_bucketed(
-                    [out[i] for i in rs], [self._gdim[i] for i in rs],
-                    "data", self.dp_world_size, bucket)):
+        for axis, ids in self._by_axis(rs).items():
+            for i, g in zip(ids, reduce_scatter_bucketed(
+                    [out[i] for i in ids], [self._gdim[i] for i in ids],
+                    axis, self._gn[ids[0]], bucket)):
                 out[i] = g
-        if ar:
-            all_reduce_bucketed([out[i] for i in ar], "data", bucket)
+        for axis, ids in self._by_axis(ar).items():
+            all_reduce_bucketed([out[i] for i in ids], axis, bucket)
         return out
 
     def _params_for_loss(self) -> Params:
@@ -499,14 +566,15 @@ class DeepSpeedEngine:
         if not self._dist or not any(d is not None for d in self._pdim):
             return self.params
         from deepspeed_tpu_torch.runtime.zero.sharding import GatherLeaf
-        it = iter(self._pdim)
+        it = iter(range(len(self._pdim)))
         loop = self._overlap_plan is not None
 
         def view(path, x):
-            d = next(it)
+            i = next(it)
+            d = self._pdim[i]
             if d is None or (loop and path[0] == "layers"):
                 return x
-            return GatherLeaf.apply(x, d, "data", self.dp_world_size)
+            return GatherLeaf.apply(x, d, self._gax[i], self._gn[i])
         return _map_path(view, self.params)
 
     def _gather_updated(self) -> None:
@@ -516,20 +584,20 @@ class DeepSpeedEngine:
             all_gather_bucketed
         idx = [i for i in range(len(self._leaves))
                if self._pdim[i] is None and self._sdim[i] is not None]
-        if not idx:
-            return
-        full = all_gather_bucketed(
-            [self._targets[i] for i in idx], [self._sdim[i] for i in idx],
-            "data", self.dp_world_size,
-            int(self.config.zero_optimization.allgather_bucket_size))
-        for i, f in zip(idx, full):
-            self._leaves[i].copy_(f)
+        bucket = int(self.config.zero_optimization.allgather_bucket_size)
+        for axis, ids in self._by_axis(idx).items():
+            full = all_gather_bucketed(
+                [self._targets[i] for i in ids],
+                [self._sdim[i] for i in ids], axis, self._gn[ids[0]],
+                bucket)
+            for i, f in zip(ids, full):
+                self._leaves[i].copy_(f)
 
     def _dp_mean(self, x: torch.Tensor) -> torch.Tensor:
         """The mean over the ranks of a per-rank scalar (the global loss
         of per-rank shares)."""
-        return comm.all_reduce(x.detach(), "data", "mean") if self._dist \
-            else x
+        return comm.all_reduce(x.detach(), self._batch_axis, "mean") \
+            if self._dist else x
 
     def _init_host_optimizer(self) -> None:
         """engine.py:298-346 and :504-516: ZeRO-Offload's optimizer in
@@ -756,7 +824,7 @@ class DeepSpeedEngine:
         if self._dist and self.fp16_enabled:
             # every rank skips the same step
             overflow = comm.all_reduce(overflow.to(torch.int32),
-                                       ("data", "model"), "max").bool()
+                                       _ALL_AXES, "max").bool()
         grad_norm = self._global_norm(grads)
         if cfg.gradient_clipping > 0:
             clip = torch.clamp(cfg.gradient_clipping / (grad_norm + 1e-6),
@@ -768,8 +836,7 @@ class DeepSpeedEngine:
         if not skip and self._dist:
             from deepspeed_tpu_torch.runtime.zero.sharding import shard_of
             upd = [g if self._sharded(i) else
-                   shard_of(g, self._sdim[i], self.dp_rank,
-                            self.dp_world_size)
+                   shard_of(g, self._sdim[i], self._gr[i], self._gn[i])
                    for i, g in enumerate(grads)]
             self.optimizer.update(upd, self.opt_state, self._targets, lr)
             self._gather_updated()
@@ -792,21 +859,29 @@ class DeepSpeedEngine:
         return metrics
 
     def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
-        """The global gradient norm; data parallel: the squares of the
-        shards all-reduced over the axes they are sharded on ('data',
-        'model' or both), whole leaves (equal on every rank) counted
-        once."""
+        """The global gradient norm; data parallel: the squares of each
+        leaf's local piece all-reduced over the axes it is cut on (its
+        ZeRO group when sharded, 'model', 'expert'), so every piece is
+        counted once and a replica never twice."""
         if not self._dist:
             return global_norm(grads)
+        from deepspeed_tpu_torch.parallel.mesh import MESH_AXES
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
         parts = {}
         for i, g in enumerate(grads):
-            key = (self._sharded(i), self._mdim[i] is not None)
+            on = set()
+            if self._sharded(i):
+                ax = self._gax[i]
+                on.update((ax,) if isinstance(ax, str) else ax)
+            if self._mdim[i] is not None:
+                on.add("model")
+            if self._edim[i] is not None:
+                on.add("expert")
+            key = tuple(a for a in MESH_AXES if a in on)
             parts[key] = parts.get(key, zero) + torch.sum(
                 torch.square(g.float()))
-        total = parts.get((False, False), zero)
-        for (dp, mp), v in parts.items():
-            axes = ("data",) * dp + ("model",) * mp
+        total = parts.get((), zero)
+        for axes, v in parts.items():
             if axes:
                 total = total + comm.all_reduce(v, axes)
         return torch.sqrt(total)
@@ -820,7 +895,7 @@ class DeepSpeedEngine:
             else []
         bad = check_overflow(list(grads) + losses)
         if self._dist:
-            bad = comm.all_reduce(bad.to(torch.int32), "data", "max")
+            bad = comm.all_reduce(bad.to(torch.int32), _ALL_AXES, "max")
         if bool(bad):
             self._acc_grads = None
             raise FloatingPointError(
@@ -863,7 +938,7 @@ class DeepSpeedEngine:
         if self.data_sampler is not None:
             h.update(repr(self.data_sampler.state_dict()).encode())
         import torch.distributed as dist
-        got = [None] * self.dp_world_size
+        got = [None] * dist.get_world_size()
         dist.all_gather_object(got, h.hexdigest())
         if len(set(got)) != 1:
             raise RuntimeError(
@@ -1318,8 +1393,9 @@ class DeepSpeedEngine:
                 f"checkpoint {tag} holds leaves of other shapes than the "
                 f"engine's (another model or optimizer configuration): "
                 f"{bad[:4]}")
-        if self.tp_size > 1:
-            state = {k: self._model_block(v) if k != "loss_scale" else v
+        if self._dist:
+            state = {k: self._local_block(v, getattr(self, k))
+                     if k in ("params", "opt_state") else v
                      for k, v in state.items()}
         with torch.no_grad():
             _copy_into(self.params, state["params"], self.dp_rank)
@@ -1353,42 +1429,63 @@ class DeepSpeedEngine:
         from deepspeed_tpu_torch.checkpoint.store import ShardedLeaf
         leaves = tree_leaves(tree)
         out = []
-        for x, full, md in zip(leaves, self._tp_full_shapes, self._mdim):
+        for i, (x, full) in enumerate(zip(leaves, self._tp_full_shapes)):
             if not (isinstance(x, torch.Tensor) and x.dim()
                     and tuple(x.shape) != full):
                 out.append(x)
                 continue
-            # the leaf's box: cut on 'model' (its spec's dim) and/or on
-            # the DP family (the other dim that differs); a replica over
-            # an axis it is not cut on is written by that axis's rank 0
+            # the leaf's box: cut on 'model' and 'expert' (their spec's
+            # dims) and on its ZeRO group (a dim that is still larger;
+            # within the expert block on the expert dim, as the JAX
+            # ('expert', 'data') entry); a replica over an axis it is not
+            # cut on is written by that axis's rank 0
+            md, ed, r = self._mdim[i], self._edim[i], self._gr[i]
             start, cut_dp = [0] * x.dim(), False
             for d, (a, b) in enumerate(zip(x.shape, full)):
-                if a == b:
-                    continue
                 if d == md:
                     start[d] = self.tp_rank * a
-                else:
-                    start[d], cut_dp = self.dp_rank * a, True
-            write = (cut_dp or self.dp_rank == 0) and \
+                    continue
+                if d == ed:
+                    per = b // self.ep_size
+                    start[d] = self.ep_rank * per
+                    if a != per:
+                        start[d] += r * a
+                        cut_dp = True
+                    continue
+                if a != b:
+                    start[d], cut_dp = r * a, True
+            write = (cut_dp or r == 0) and \
                 (md is not None or self.tp_rank == 0)
             out.append(ShardedLeaf(x, full, start, write))
         return _unflatten_like(tree, out)
 
-    def _model_block(self, tree):
+    def _local_block(self, tree, like):
         """A loaded tree that mirrors the params (or a subtree of the
-        optimizer state that does), each leaf cut on 'model' to this
-        rank's block; other trees as they are."""
+        optimizer state that does) cut to this rank's blocks: each leaf
+        on 'model' and 'expert', then on its ZeRO group where ``like``
+        (the engine's tree) holds a shard; other trees as they are."""
         if isinstance(tree, dict) and tree_leaves(tree) and \
                 len(tree_leaves(tree)) == len(self._mdim) and \
                 _mirrors(tree, self.params):
-            out = [x if d is None or not isinstance(x, torch.Tensor)
-                   or x.dim() == 0 else
-                   x.narrow(d, self.tp_rank * (x.shape[d] // self.tp_size),
-                            x.shape[d] // self.tp_size)
-                   for x, d in zip(tree_leaves(tree), self._mdim)]
+            out = []
+            for i, (x, t) in enumerate(zip(tree_leaves(tree),
+                                           tree_leaves(like))):
+                if isinstance(x, torch.Tensor) and x.dim():
+                    for d, rank, n in ((self._mdim[i], self.tp_rank,
+                                        self.tp_size),
+                                       (self._edim[i], self.ep_rank,
+                                        self.ep_size)):
+                        if d is not None:
+                            x = x.narrow(d, rank * (x.shape[d] // n),
+                                         x.shape[d] // n)
+                    if tuple(x.shape) != tuple(t.shape):
+                        d = _cut_dim(tuple(t.shape), tuple(x.shape))
+                        x = x.narrow(d, self._gr[i] * t.shape[d],
+                                     t.shape[d])
+                out.append(x)
             return _unflatten_like(tree, out)
         if isinstance(tree, dict):
-            return {k: self._model_block(v) for k, v in tree.items()}
+            return {k: self._local_block(v, like[k]) for k, v in tree.items()}
         return tree
 
     def _full_templates(self, tree):
@@ -1485,24 +1582,30 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------ utilities
 
     def gathered_params(self) -> Params:
-        """The whole parameter tree: at stage 3 (data parallel) each
-        shard all-gathered along its dim — a collective every rank must
-        call; else ``self.params`` itself."""
+        """The whole parameter tree: each shard all-gathered along its
+        dims (stage 3's ZeRO shard, then the expert and model blocks) — a
+        collective every rank must call; else ``self.params`` itself."""
         if self._zeropp:
             from deepspeed_tpu_torch.runtime.zero.zeropp import \
                 unflatten_params
             return unflatten_params(self)
         if not self._dist or not any(
-                d is not None for d in self._pdim + self._mdim):
+                d is not None for d in self._pdim + self._mdim + self._edim):
             return self.params
         from deepspeed_tpu_torch.runtime.zero.sharding import \
             all_gather_bucketed
         bucket = int(self.config.zero_optimization.allgather_bucket_size)
         full = list(self._leaves)
+        # each leaf over its ZeRO group first, then 'expert' and 'model'
+        steps = [([i for i in ids if self._pdim[i] is not None], self._pdim,
+                  axis, self._gn[ids[0]])
+                 for axis, ids in self._by_axis(range(len(full))).items()]
+        steps += [([i for i, d in enumerate(dims) if d is not None], dims,
+                   axis, n)
+                  for dims, axis, n in ((self._edim, "expert", self.ep_size),
+                                        (self._mdim, "model", self.tp_size))]
         with torch.no_grad():
-            for dims, axis, n in ((self._pdim, "data", self.dp_world_size),
-                                  (self._mdim, "model", self.tp_size)):
-                idx = [i for i, d in enumerate(dims) if d is not None]
+            for idx, dims, axis, n in steps:
                 if not idx:
                     continue
                 for i, f in zip(idx, all_gather_bucketed(
@@ -1572,6 +1675,10 @@ def _flags_to_host(flags):
     leaves = tree_leaves(flags)
     host = iter(torch.stack(leaves).cpu().tolist() if leaves else [])
     return tree_map(lambda _: next(host), flags)
+
+
+#: every axis the engine runs: a flag reduced over them reaches every rank
+_ALL_AXES = ("data", "expert", "model")
 
 
 def _copy_into(dst, src, rank: int = 0):

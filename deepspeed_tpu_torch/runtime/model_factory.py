@@ -85,17 +85,23 @@ def select_attention(ds_cfg: DeepSpeedConfig,
 
 
 def select_moe(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
-    """The training ``moe_fn`` (model_factory.py:192), None for a dense
-    model: ``moe.impl="dropless"`` → :func:`dropless_moe_layer` (the
-    grouped FFN; one expert shard), "capacity" → :func:`moe_layer` with
-    the section's capacity_factor, min_capacity and drop_tokens (random
-    token selection is added per step by :func:`decoder_model_spec`)."""
+    """The training ``moe_fn`` (model_factory.py:191-223), None for a
+    dense model: ``moe.impl="dropless"`` → :func:`dropless_moe_layer`
+    (the grouped FFN; whole experts, so ``ep_size`` > 1 raises the JAX
+    ``ValueError``), "capacity" → :func:`moe_layer` with the section's
+    capacity_factor, min_capacity and drop_tokens, and ``ep_axis``
+    'expert' when ``ep_size`` > 1 (random token selection and the batch
+    axes are added per step by :func:`decoder_model_spec`)."""
     if not dec_cfg.num_experts:
         return None
     moe = ds_cfg.moe
     if moe.impl == "dropless":
         if moe.ep_size > 1:
-            raise ValueError("moe.impl='dropless' requires ep_size=1")
+            raise ValueError(
+                "moe.impl='dropless' requires ep_size=1: dropless "
+                "dispatch has data-dependent per-expert counts, which "
+                "cannot cross an EP all-to-all with static shapes. Use "
+                "the capacity impl for expert parallelism.")
         return partial(dropless_moe_layer,
                        top_k=dec_cfg.num_experts_per_tok,
                        aux_loss_coef=moe.aux_loss_coef,
@@ -105,6 +111,7 @@ def select_moe(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
                    min_capacity=moe.min_capacity,
                    drop_tokens=moe.drop_tokens,
                    aux_loss_coef=moe.aux_loss_coef,
+                   ep_axis="expert" if moe.ep_size > 1 else None,
                    norm_topk=dec_cfg.norm_topk_prob)
 
 
@@ -148,18 +155,20 @@ def decoder_model_spec(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
     use_rts = (moe_fn is not None and ds_cfg.moe.use_rts
                and ds_cfg.moe.drop_tokens and ds_cfg.moe.impl == "capacity")
 
-    def rts_moe(seed: int):
-        """moe_fn for one micro-batch: each layer's permutation seed is
+    def rts_moe(seed: int, fn):
+        """``fn`` for one micro-batch: each layer's permutation seed is
         the micro-batch's seed mixed with the layer index, so a block's
-        recompute in backward draws the same permutation."""
+        recompute in backward draws the same permutation (and every rank
+        of a split batch the same one)."""
         def mf(c, p, x, layer):
-            return moe_fn(c, p, x, rts_key=mix_seed(seed, layer))
+            return fn(c, p, x, rts_key=mix_seed(seed, layer))
         mf.per_layer = True
         return mf
-    #: armed by the engine: the stage-3 layer loop's plan, and the data
-    #: axis's size when the ranks' loss terms are reduced over it
+    #: armed by the engine: the stage-3 layer loop's plan, and the batch
+    #: axes (('data', 'expert') under EP) with their size when the
+    #: ranks' loss terms are reduced over them
     _ovl = {"plan": None}
-    _dp = {"n": 0}
+    _dp = {"n": 0, "axis": "data"}
     #: the forward's config: ``dec_cfg``, or its TP form over 'model'
     _fwd = {"cfg": dec_cfg}
     tp = ds_cfg.tensor_parallel.enabled
@@ -177,19 +186,15 @@ def decoder_model_spec(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
         return plan
 
     def configure_mesh(mesh):
-        """Engine hook: reduce the loss terms over the ``data`` axis of a
-        distributed mesh (any size), so a rank's loss is its share of
-        the global batch's. The capacity MoE cannot: its slot positions
-        come from a cumsum over the global token order."""
-        if moe_fn is not None and ds_cfg.moe.impl == "capacity" and \
-                mesh.shape["data"] > 1:
-            raise NotImplementedError(
-                "moe.impl='capacity' at dp > 1: its capacity slots are "
-                "claimed in the global token order; not ported to "
-                "deepspeed_tpu_torch yet (ROADMAP A, 'Parallelism "
-                "breadth'); use moe.impl='dropless'")
+        """Engine hook: reduce the loss terms over the batch axes of a
+        distributed mesh (any size) — 'data', with 'expert' under expert
+        parallelism — so a rank's loss is its share of the global
+        batch's; the capacity MoE then claims its slots in the global
+        token order (``moe_layer``'s ``batch_axis``)."""
         if mesh.distributed:
-            _dp["n"] = mesh.shape["data"]
+            ep = mesh.shape["expert"]
+            _dp["axis"] = ("data", "expert") if ep > 1 else "data"
+            _dp["n"] = mesh.axes_size(_dp["axis"])
         if tp and mesh.shape["model"] > 1:
             _fwd["cfg"] = transformer.with_tp(dec_cfg, mesh.shape["model"])
 
@@ -197,7 +202,7 @@ def decoder_model_spec(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
         """The CE denominator of a rank's share: the valid labels of
         every rank's rows, over the rank count (the engine averages the
         ranks' losses)."""
-        tot = comm.all_reduce(cnt.float(), "data")
+        tot = comm.all_reduce(cnt.float(), _dp["axis"])
         return tot.clamp_min(1) / _dp["n"]
 
     specs = transformer.partition_specs(dec_cfg,
@@ -222,9 +227,12 @@ def decoder_model_spec(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
         if use_rts and rng is None:
             raise ValueError("random token selection needs the step's "
                              "seed: call loss_fn(params, batch, rng=...)")
-        mf = rts_moe(rng) if use_rts else moe_fn
-        if _dp["n"] and mf is not None and ds_cfg.moe.impl == "dropless":
-            mf = partial(mf, dp_axis="data")
+        mf = moe_fn
+        if _dp["n"] and mf is not None:
+            mf = partial(mf, **{"dp_axis" if ds_cfg.moe.impl == "dropless"
+                                else "batch_axis": _dp["axis"]})
+        if use_rts:
+            mf = rts_moe(rng, mf)
         # encoder extras (:317-322): the padding mask and the segments
         enc = {} if dec_cfg.causal else {
             k: batch[k] for k in ("attention_mask", "token_type_ids")

@@ -27,7 +27,12 @@ parameters):
   :meth:`OverlapPlan.transient_bytes` reports either).
 
 Without ``overlap_comm`` stage 3 runs the same loop one layer a chunk
-with no prefetch: each layer's gather waits before it computes. The JAX
+with no prefetch: each layer's gather waits before it computes. Under
+expert parallelism each expert leaf is gathered over its column's 'data'
+group and every other leaf over ('data', 'expert'); with
+``overlap_comm`` set the JAX plan fences EP off and falls back to its
+monolithic collectives (overlap.py:400-406): the port warns with the same
+words and runs this loop without prefetch, which computes the same. The JAX
 module's XLA scheduler-flag helpers (``LATENCY_HIDING_FLAGS``,
 ``verify_scheduler_flags``, :445-502) tune XLA's latency-hiding
 scheduler and have no PyTorch meaning: they are not ported.
@@ -40,7 +45,9 @@ import torch
 from deepspeed_tpu_torch import telemetry
 from deepspeed_tpu_torch.ops.optimizers import tree_leaves, tree_map
 from deepspeed_tpu_torch.parallel.mesh import ZERO_AXES, Mesh
-from deepspeed_tpu_torch.runtime.zero.sharding import (gather_flat,
+from deepspeed_tpu_torch.runtime.zero.sharding import (EXPERT_DP_AXES,
+                                                       expert_dim,
+                                                       gather_flat,
                                                        reduce_scatter_flat,
                                                        shard_dim)
 from deepspeed_tpu_torch.utils.logging import logger
@@ -132,8 +139,11 @@ class OverlapPlan:
                           if mesh.shape.get(a, 1) > 1) or ("data",)
         self.n = mesh.axes_size(self.dp_axes)
         #: per layer leaf, in the params tree's order: the dim its shards
-        #: are cut on (None: the leaf is whole on every rank)
+        #: are cut on (None: the leaf is whole on every rank), and the
+        #: axis and size of the group they are cut over
         self.dims: Optional[List[Optional[int]]] = None
+        self.axes: List[Any] = []
+        self.sizes: List[int] = []
 
     # ------------------------------------------------------------ accounting
 
@@ -195,9 +205,22 @@ class OverlapPlan:
 
     def leaf_dims(self, layers: Pytree) -> List[Optional[int]]:
         """The shard dim of each leaf of ``layers`` (the params tree's
-        order), from the specs."""
-        return tree_leaves(tree_map(lambda p, s: shard_dim(s, self.dp_axes),
-                                    layers, self.layer_specs))
+        order), from the specs; sets each leaf's group (an expert leaf's
+        is its column's 'data' group)."""
+        specs = tree_leaves(tree_map(lambda p, s: [s], layers,
+                                     self.layer_specs))
+        dims = []
+        self.axes, self.sizes = [], []
+        for s in specs:
+            if expert_dim(s) is None:
+                dims.append(shard_dim(s, self.dp_axes))
+                self.axes.append(self.axis)
+                self.sizes.append(self.n)
+            else:
+                dims.append(shard_dim(s, EXPERT_DP_AXES))
+                self.axes.append("data")
+                self.sizes.append(self.mesh.axes_size(EXPERT_DP_AXES))
+        return dims
 
     def layer_loop(self, run_layers: Callable, x: torch.Tensor,
                    layers: Pytree) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -240,15 +263,15 @@ class OverlapPlan:
         lo, hi = self.bounds[k]
         sl = [t[lo:hi] for t in flat]
         idx = [i for i, d in enumerate(self.dims) if d is not None]
-        groups: Dict[torch.dtype, List[int]] = {}
+        groups: Dict[Any, List[int]] = {}
         for i in idx:
-            groups.setdefault(sl[i].dtype, []).append(i)
+            groups.setdefault((sl[i].dtype, self.axes[i]), []).append(i)
         handles = []
-        for ids in groups.values():
+        for (_, axis), ids in groups.items():
             shards = [sl[i] for i in ids]
             handles.append((ids, gather_flat(shards,
                                              [self.dims[i] for i in ids],
-                                             self.axis, self.n,
+                                             axis, self.sizes[ids[0]],
                                              async_op=True)))
 
         class _H:
@@ -265,17 +288,19 @@ class OverlapPlan:
         """Issue the reduce-scatter of a chunk's full gradients of its
         sharded leaves (``leaves``: the chunk's shards); ``wait()`` gives
         {leaf index: shard gradient}."""
-        groups: Dict[torch.dtype, List[int]] = {}
+        groups: Dict[Any, List[int]] = {}
         for i, d in enumerate(self.dims):
             if d is not None:
-                groups.setdefault(leaves[i].dtype, []).append(i)
+                groups.setdefault((leaves[i].dtype, self.axes[i]),
+                                  []).append(i)
         handles = []
-        for ids in groups.values():
+        for (_, axis), ids in groups.items():
+            n = self.sizes[ids[0]]
             fulls = [grads[i] if grads[i] is not None
-                     else _zeros_full(leaves[i], self.dims[i], self.n)
+                     else _zeros_full(leaves[i], self.dims[i], n)
                      for i in ids]
             handles.append((ids, reduce_scatter_flat(
-                fulls, [self.dims[i] for i in ids], self.axis, self.n,
+                fulls, [self.dims[i] for i in ids], axis, n,
                 async_op=True)))
 
         class _H:
@@ -448,14 +473,21 @@ def build_overlap_plan(mesh: Mesh, layer_specs: Pytree,
                        num_experts: int = 0) -> Optional[OverlapPlan]:
     """Validated construction from the config knobs (overlap.py:393).
     Without ``overlap_comm``: one layer a chunk, no prefetch, re-gather —
-    the stage-3 loop with each gather waited on before its layer."""
-    if mesh.shape.get("pipe", 1) > 1 or \
-            (num_experts and mesh.shape.get("expert", 1) > 1):
+    the stage-3 loop with each gather waited on before its layer. An MoE
+    model over an expert axis takes that loop too, after the JAX
+    warning."""
+    if mesh.shape.get("pipe", 1) > 1:
         raise NotImplementedError(
-            "the stage-3 layer loop over pipeline or expert meshes is not "
-            "ported to deepspeed_tpu_torch yet (ROADMAP A, 'Parallelism "
-            "breadth')")
-    if not zero_config.overlap_comm:
+            "the stage-3 layer loop over pipeline meshes is not ported to "
+            "deepspeed_tpu_torch yet (ROADMAP A, 'Parallelism breadth')")
+    ep = mesh.shape.get("expert", 1)
+    if zero_config.overlap_comm and num_experts and ep > 1:
+        _warn_once(
+            "zero_optimization.overlap_comm: expert parallelism "
+            f"(expert axis={ep}) is not supported by the chunked overlap "
+            "path — the 'expert' axis shards experts, not FSDP, on MoE "
+            "weights; falling back to the monolithic ZeRO-3 collectives")
+    if not zero_config.overlap_comm or (num_experts and ep > 1):
         return OverlapPlan(mesh, layer_specs, abstract_layers,
                            bucket_bytes=0, prefetch=0, regather=True)
     plan = OverlapPlan(mesh, layer_specs, abstract_layers,
@@ -469,6 +501,15 @@ def build_overlap_plan(mesh: Mesh, layer_specs: Pytree,
             "schedule degenerates to the monolithic gather; shrink "
             "overlap_bucket_bytes to pipeline collectives")
     return plan
+
+
+_WARNED: set = set()
+
+
+def _warn_once(msg: str) -> None:
+    if msg not in _WARNED:
+        _WARNED.add(msg)
+        logger.warning(msg)
 
 
 def overlap_fraction(compute_s: float, comm_s: float,

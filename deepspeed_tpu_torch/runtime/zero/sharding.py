@@ -16,6 +16,11 @@ itself through the bucketed helpers below:
   stage 3 — + params stored as shards along their ``partition_specs``
             dim and gathered for use (``runtime/zero/overlap.py``).
 
+Under expert parallelism an expert leaf (its spec's 'expert' dim,
+:func:`expert_dim`) is this rank's E/ep experts, and its ZeRO shards live
+on its column's 'data' group (:data:`EXPERT_DP_AXES`); dense leaves shard
+over the whole family, ('data', 'expert').
+
 The dim a leaf is sharded on is the JAX choice — the largest dim not yet
 sharded that divides by dp, a dim already sharded by the DP family
 extended first, replicated (with one warning) when none divides — so a
@@ -34,6 +39,10 @@ from deepspeed_tpu_torch.utils.logging import logger
 
 Spec = Tuple[Any, ...]
 Pytree = Any
+
+#: the axes an expert leaf's ZeRO shards live on: its column's data group
+#: (reference groups.py:315, the expert-data-parallel group)
+EXPERT_DP_AXES: Tuple[str, ...] = ("data", "data_inner")
 
 
 def _axes_size(mesh: Mesh, axes: Sequence[str]) -> int:
@@ -102,6 +111,16 @@ def model_dim(spec: Optional[Spec], axis: str = "model") -> Optional[int]:
     None."""
     for i, e in enumerate(spec or ()):
         if axis in _entry_axes(e):
+            return i
+    return None
+
+
+def expert_dim(spec: Optional[Spec]) -> Optional[int]:
+    """The dim of ``spec`` that carries 'expert' as the expert axis (E of
+    an expert leaf), not as a member of the ZeRO family beside 'data'."""
+    for i, e in enumerate(spec or ()):
+        axes = _entry_axes(e)
+        if "expert" in axes and "data" not in axes:
             return i
     return None
 

@@ -88,8 +88,32 @@ def test_mesh_shapes_and_raises_match_jax(ranks, restore_mesh):
         jmesh.build_mesh(data=n + 1, devices=jax.devices()[:n],
                          set_current=False)
     assert res[0]["raises"]["product"] == str(e.value)
-    for ax in ("seq", "pipe", "expert", "data_inner"):
+    for ax in ("seq", "pipe", "data_inner"):
         assert "Parallelism breadth" in res[0]["raises"][ax], ax
+    # build_mesh(expert=2) in the JAX rank order: data, expert, model
+    jme = jmesh.build_mesh(data=n // 2, expert=2, devices=jax.devices()[:n],
+                           set_current=False)
+    order = np.asarray(jme.devices).reshape(n // 2, 2)
+    for r, rr in enumerate(res):
+        em = rr["expert_mesh"]
+        d, e = em["coords"]
+        assert order[d, e].id == jax.devices()[r].id
+        assert (em["family_index"], em["expert_index"]) == (r, e)
+        assert em["expert_sum"] == sum(d * 2 + j for j in range(2))
+        assert em["data_sum"] == sum(i * 2 + e for i in range(n // 2))
+        assert em["family_sum"] == n * (n - 1) / 2
+        assert (em["ep"], em["dp"]) == (2, n)
+        # block j of dim 0 went to expert rank j: [mine, peer's] halves
+        peer = d * 2 + (1 - e)
+        blocks = {r: [10 * r + 2 * e, 10 * r + 2 * e + 1],
+                  peer: [10 * peer + 2 * e, 10 * peer + 2 * e + 1]}
+        assert em["exchange"] == blocks[d * 2] + blocks[d * 2 + 1]
+        # the sum over the row, block e to expert rank e, then gathered;
+        # backward: the row's cotangents (rank + 1) summed, then gathered
+        row = [2 * i + 10 * (4 * d + 1) for i in range(4)]
+        assert em["scatter"] == row[2 * e:2 * e + 2]
+        assert em["gather"] == row
+        assert em["pair_grad"] == [4 * d + 3] * 4
     # build_mesh(model=2) in the JAX rank order: 'model' the fastest axis
     jm2 = jmesh.build_mesh(data=n // 2, model=2, devices=jax.devices()[:n],
                            set_current=False)

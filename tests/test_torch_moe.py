@@ -208,8 +208,15 @@ def test_moe_paths_raise():
         out, aux = fn(None, grad_p, x)
         grads = torch.autograd.grad(out.sum() + aux, list(grad_p.values()))
         assert all(g.abs().max() > 0 for g in grads), fn.__name__
-    with pytest.raises(NotImplementedError, match="Parallelism breadth"):
-        tm.serving_moe_fn(tcfg, None, tp, ep=True)
+    # expert parallelism takes the capacity layer over 'expert' at every
+    # token count (moe.py:353-385); without an expert axis it is the
+    # capacity layer itself
+    fn = tm.serving_moe_fn(tcfg, None, tp, ep=True)
+    assert fn.func is tm.moe_layer and fn.keywords["ep_axis"] == "expert"
+    assert not fn.keywords["drop_tokens"]
+    want, _ = tm.serving_moe_fn(tcfg, None, tp, ep=False)(None, tp, x)
+    got, _ = fn(None, tp, x)
+    assert torch.equal(got, want)
     for wq, tree in (("int8", tp), (None, {"layers": {"moe": quant}})):
         fn = tm.serving_moe_fn(tcfg, wq, tree, ep=False)
         assert fn.func is tm.moe_layer and not fn.keywords["drop_tokens"]

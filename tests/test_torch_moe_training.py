@@ -226,8 +226,19 @@ def test_moe_training_runs_no_kernel_on_cpu_and_raises_where_unported():
         eng, *_ = dt.initialize(cfg, dict(base, moe=moe), device="cpu")
         assert eng.model.uses_rng                # use_rts is the default
         assert np.isfinite(float(eng.train_batch(iter([batch]))))
-    with pytest.raises(NotImplementedError, match="Parallelism breadth"):
-        dt.initialize(cfg, dict(base, moe={"ep_size": 2}), device="cpu")
+    # ep_size is the 'expert' axis only when the section is enabled
+    # (mesh.py:168-176): on one device it trains as ep 1; dropless refuses
+    # an expert axis with the JAX ValueError (model_factory.py:196-201)
+    want = dt.initialize(cfg, dict(base, moe={"use_rts": False}),
+                         device="cpu")[0].train_batch(iter([batch]))
+    got = dt.initialize(cfg, dict(base, moe={"use_rts": False,
+                                             "ep_size": 2}),
+                        device="cpu")[0].train_batch(iter([batch]))
+    assert float(got) == float(want)
+    with pytest.raises(ValueError, match="requires ep_size=1"):
+        dt.initialize(cfg, dict(base, moe={"ep_size": 2,
+                                           "impl": "dropless"}),
+                      device="cpu")
     with pytest.raises(NotImplementedError, match="health taps"):
         tm.moe_layer(dataclasses.replace(cfg, health_taps=True),
                      {"router": torch.zeros(D, 4)}, torch.zeros(1, 2, D))

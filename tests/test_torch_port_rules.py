@@ -122,11 +122,21 @@ def test_unported_features_raise(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         initialize(moe, dropless)
     # the decode megastep is ported (an idle engine has no step to run);
-    # expert parallelism is not
+    # expert parallel serving is, in the v1 engine; the ragged engine
+    # under an ambient expert axis is not
     eng = RaggedInferenceEngine(cfg, small, device="cpu")
     assert eng.step_with_budget(max_steps=4) is None
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        serving_moe_fn(moe, None, eng.params, ep=True)
+    assert serving_moe_fn(moe, None, eng.params,
+                          ep=True).keywords["ep_axis"] == "expert"
+    from deepspeed_tpu_torch.parallel import mesh as tmesh
+    saved = tmesh._CURRENT_MESH
+    tmesh.set_mesh(tmesh.Mesh({"expert": 2}))
+    try:
+        with pytest.raises(NotImplementedError,
+                           match="Parallelism breadth"):
+            RaggedInferenceEngine(moe, small, device="cpu")
+    finally:
+        tmesh.set_mesh(saved)
     # checkpointing, the elastic agent, the async I/O engine, offload,
     # device meshes over the data axis and resuming at a new world size
     # are ported; the other mesh axes, ZenFlow and the router's fault hook

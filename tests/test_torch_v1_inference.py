@@ -223,10 +223,14 @@ def test_tensor_parallel_and_mesh_raise(gpt2):
                            params=tp, device="cpu")
     finally:
         tmesh.set_mesh(saved)
-    for axis in ("seq", "expert"):
-        with pytest.raises(NotImplementedError, match="Parallelism breadth"):
-            InferenceEngine(tcfg, ENG, params=tp, device="cpu",
-                            mesh=Mesh({axis: 2}))
+    with pytest.raises(NotImplementedError, match="Parallelism breadth"):
+        InferenceEngine(tcfg, ENG, params=tp, device="cpu",
+                        mesh=Mesh({"seq": 2}))
+    # the expert axis serves (test_torch_ep_inference.py) over as many
+    # ranks as the mesh holds
+    with pytest.raises(ValueError, match="torch.distributed"):
+        InferenceEngine(tcfg, ENG, params=tp, device="cpu",
+                        mesh=Mesh({"expert": 2}))
 
 
 def test_entry_points_and_guards(gpt2):

@@ -9,8 +9,8 @@ without re-gather); gas 2 at stages 1 and 3; a batch whose ranks ignore
 different numbers of labels (stage 2); an fp16 overflow that only the
 last rank sees (stage 2, every rank must skip); eval_batch after two
 stage-3 runs (the loop without autograd); dropless MoE at stage 3
-(the gradients of one batch); the capacity MoE at dp > 1 raises, as do
-the mesh's other axes.
+and the capacity MoE over the global slots (the gradients of one batch);
+the mesh's unported axes raise.
 
 Tolerances: losses within 1e-5 relative over 4 steps and parameters
 within 1e-4 absolute (both sides fp32; they differ in summation order:
@@ -38,6 +38,7 @@ VOCAB, SEQ, GB, STEPS = 512, 32, 16, 4
 GPT2 = ("gpt2_config", {"max_seq_len": SEQ, "vocab_size": VOCAB})
 MOE_KW = {"hidden_size": 128, "intermediate_size": 256, "vocab_size": 256}
 MOE = ("mixtral_config", MOE_KW)
+CAPACITY = {"impl": "capacity", "use_rts": False, "capacity_factor": 1.0}
 
 
 def _data(steps, seed=0, gas=1):
@@ -152,6 +153,11 @@ def jax_runs(init):
         loss = je.forward(batch)
         out["moe"] = {"loss": float(loss),
                       "grads": _np_tree(je._pending_grads)}
+        je, *_ = deepspeed_tpu.initialize(
+            model=j_mixtral("tiny", **MOE_KW),
+            config=dict(_moe_config(8), moe=CAPACITY), params=init[1])
+        out["capacity"] = {"loss": float(je.forward(batch)),
+                           "grads": _np_tree(je._pending_grads)}
     finally:
         jmesh._CURRENT_MESH = saved
     return out
@@ -168,10 +174,9 @@ def _port_runs(world, init):
                      "enabled": True, "initial_scale_power": 8,
                      "hysteresis": 1}),
                  "steps": _data(2, seed=9), "mode": "poison"})
-    runs.append({"name": "capacity_raises", "model": MOE,
-                 "config": dict(_moe_config(world), moe={
-                     "impl": "capacity", "use_rts": False}),
-                 "mode": "raises"})
+    runs.append({"name": "capacity", "model": MOE, "params": init[1],
+                 "config": dict(_moe_config(world), moe=CAPACITY),
+                 "steps": _moe_batch(), "mode": "grads"})
     runs.append({"name": "moe", "model": MOE, "params": init[1],
                  "config": _moe_config(world), "steps": _moe_batch(),
                  "mode": "grads"})
@@ -275,18 +280,28 @@ def test_moe_dropless_grads_match_jax(port, jax_runs):
                                        err_msg=name)
 
 
-def test_capacity_moe_and_other_axes_raise(port):
+def test_capacity_moe_and_other_axes_raise(port, jax_runs):
+    """The capacity MoE at dp > 1 claims its slots in the global token
+    order (its gradients equal the JAX engine's on the 8-device mesh);
+    the mesh's unported axes raise."""
     world, res = port
+    want = jax_runs["capacity"]
     for r in range(world):
-        assert "Parallelism breadth" in res[r]["capacity_raises"]
+        got = res[r]["capacity"]
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+        jg = _leaves(want["grads"])
+        for name, g in zip(got["names"], got["grads"]):
+            np.testing.assert_allclose(g, jg[name], rtol=2e-4, atol=2e-4,
+                                       err_msg=name)
     cfg = dt.gpt2_config("tiny", max_seq_len=SEQ, vocab_size=VOCAB)
-    for ax in ("seq", "pipe", "expert", "data_inner"):
+    for ax in ("seq", "pipe", "data_inner"):
         with pytest.raises(NotImplementedError, match="Parallelism breadth"):
             dt.initialize(cfg, _config(0, 1), device="cpu",
                           mesh=Mesh({"data": 1, ax: 2}))
-    # the model axis runs (test_torch_tensor_parallel.py), over as many
-    # ranks as the mesh holds
-    for shape in ({"data": 2}, {"data": 1, "model": 2}):
+    # the model and expert axes run (test_torch_tensor_parallel.py,
+    # test_torch_expert_parallel.py), over as many ranks as the mesh holds
+    for shape in ({"data": 2}, {"data": 1, "model": 2},
+                  {"data": 1, "expert": 2}):
         with pytest.raises(ValueError, match="torch.distributed"):
             dt.initialize(cfg, _config(0, shape["data"]), device="cpu",
                           mesh=Mesh(shape))

@@ -113,6 +113,38 @@ def test_plan_picks_the_jax_dims(trees, name, n):
             _spec_tuple(jsh.shard_over_dp(x.shape, None, jm)), path
 
 
+@pytest.mark.parametrize("tp", [False, True], ids=["dp", "tp"])
+@pytest.mark.parametrize("d,e", [(1, 2), (2, 2), (1, 4), (2, 4)])
+def test_plan_over_data_and_expert_matches_jax(trees, d, e, tp):
+    """The MoE preset's plan at data × expert (× 'model' specs): the
+    expert leaves keep 'expert' on E and take the data axes on another
+    dim (or extend E when it divides by ep · dp), dense leaves take the
+    whole family — the JAX specs at every stage; the port's expert dim
+    is the one its engine cuts."""
+    jcfg, tcfg, abstract, tparams = trees["mixtral"]
+    jm = jmesh.build_mesh(data=d, expert=e, devices=jax.devices()[:d * e],
+                          set_current=False)
+    tm = Mesh({"data": d, "expert": e})
+    for stage in (0, 1, 2, 3):
+        jp = jsh.ZeroShardingPlan(jm, stage, j_specs(jcfg, stage, tp=tp),
+                                  abstract)
+        tp_ = tsh.ZeroShardingPlan(tm, stage, t_specs(tcfg, stage, tp=tp),
+                                   tparams)
+        for attr in ("param_specs", "grad_specs", "state_specs"):
+            want = {k: _spec_tuple(v) for k, v in _flat(jax.tree.map(
+                lambda s: s, getattr(jp, attr),
+                is_leaf=lambda x: isinstance(x, P))).items()}
+            got = {k: _spec_tuple(v) for k, v in _flat(
+                getattr(tp_, attr)).items()}
+            assert got == want, (d, e, stage, attr)
+    specs = _flat(t_specs(tcfg, 3, tp=tp))
+    for path, spec in specs.items():
+        ed = tsh.expert_dim(spec)
+        assert (ed == 1) == (path.split("/")[-1] in ("wg", "wi", "wo")
+                             and "/moe/" in f"/{path}/"
+                             and "shared" not in path), path
+
+
 def test_shard_over_dp_edge_cases():
     """Replicated when no dim divides (warned once); an already-sharded DP
     dim is extended; the largest dim wins; dp 1 changes nothing."""

@@ -83,12 +83,37 @@ def collectives(rank, world, arrays):
         M.build_mesh(data=world + 1)
     except ValueError as e:
         raises["product"] = str(e)
-    for ax in ("seq", "pipe", "expert", "data_inner"):
+    for ax in ("seq", "pipe", "data_inner"):
         try:
             M.build_mesh(data=world // 2, **{ax: 2})
         except NotImplementedError as e:
             raises[ax] = str(e)
     out["raises"] = raises
+    # the expert axis: between 'data' and 'model' in the rank order, one
+    # group an expert row, one a column (expert-data-parallel), and the
+    # ZeRO family's ('data', 'expert')
+    em = M.build_mesh(data=world // 2, expert=2)
+    me = torch.tensor([float(rank)])
+    out["expert_mesh"] = {
+        "coords": (em.coord("data"), em.coord("expert")),
+        "expert_sum": float(comm.all_reduce(me, "expert")),
+        "data_sum": float(comm.all_reduce(me, "data")),
+        "family_sum": float(comm.all_reduce(me, ("data", "expert"))),
+        "expert_index": comm.axis_index("expert"),
+        "family_index": comm.axis_index(("data", "expert")),
+        "ep": M.get_expert_parallel_world_size(em),
+        "dp": M.get_data_parallel_world_size(em),
+        "exchange": comm.expert_exchange(
+            torch.arange(4, dtype=torch.float32) + 10 * rank,
+            "expert").tolist()}
+    # the training layer's pair: the row's sum scattered by blocks, then
+    # gathered back; each backward is the other's forward
+    x = (torch.arange(4, dtype=torch.float32) + 10 * rank).requires_grad_()
+    sc = comm.scatter_to_experts(x, "expert")
+    ga = comm.gather_from_experts(sc, "expert")
+    (ga * (rank + 1)).sum().backward()
+    out["expert_mesh"].update(scatter=sc.tolist(), gather=ga.tolist(),
+                              pair_grad=x.grad.tolist())
     # the model axis: 'model' fastest, one group a data row and a column
     mm = M.build_mesh(data=world // 2, model=2)
     me = torch.tensor([float(rank)])
@@ -513,4 +538,164 @@ def zeropp_checkpoint(rank, world, model, params, config, steps, jax_dir,
     jax_eng = dt.initialize(cfg, dict(config), device="cpu", mesh=mesh)[0]
     out["jax_tag"], _ = jax_eng.load_checkpoint(jax_dir)
     out["jax_loaded"] = flat(jax_eng)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism: the engine on data × expert (× model) and serving
+# ---------------------------------------------------------------------------
+
+def _count_drops(tm, seen):
+    """Wrap ``topk_gating_rows`` (the split batch's gating) to add each
+    call's (slots kept, choices) to ``seen``."""
+    inner = tm.topk_gating_rows
+
+    def spy(logits_all, logits, lo, k, capacity, **kw):
+        d, c, a = inner(logits_all, logits, lo, k, capacity, **kw)
+        seen.append((int(d.sum()), logits.shape[0] * k))
+        return d, c, a
+    tm.topk_gating_rows = spy
+    return inner
+
+
+def ep_runs(rank, world, meshes):
+    """``meshes``: [{"shape": build_mesh kwargs, "runs": [...]}]. Each run:
+    {"name", "model": (preset, kw), "config", "params" (numpy tree or
+    None), "steps", "mode": "train" | "raises" | "save" | "load" |
+    "elastic", "perm" (random token selection's permutation), "dir"}.
+    "train" and "save" return the losses, aux losses, the gathered params,
+    the norm, the rank's mesh coordinates, its local shapes and the drops
+    seen; "save" writes a checkpoint after the steps; "load" loads
+    ``dir`` (the JAX save) and returns the gathered params and moments;
+    "elastic" re-forms from ``dir`` at data = world and trains on."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.ops.optimizers import tree_leaves
+    from deepspeed_tpu_torch.parallel import moe as tm
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+    out = {}
+    for block in meshes:
+        mesh = build_mesh(**block["shape"])
+        for run in block["runs"]:
+            cfg = _model(run["model"])
+            mode = run.get("mode", "train")
+            if mode == "raises":
+                try:
+                    dt.initialize(cfg, dict(run["config"]), device="cpu",
+                                  mesh=mesh)
+                    out[run["name"]] = None
+                except (NotImplementedError, ValueError) as e:
+                    out[run["name"]] = f"{type(e).__name__}: {e}"
+                continue
+            if mode == "elastic":
+                from deepspeed_tpu_torch.elasticity import elastic_resume
+                eng, agent, tag = elastic_resume(
+                    cfg, dict(run["config"]), run["dir"], world_size=world,
+                    device="cpu")
+                agent.uninstall()
+                out[run["name"]] = {
+                    "tag": tag, "loaded": _np(eng.gathered_params()),
+                    "losses": [float(eng.train_batch(iter(s)))
+                               for s in run["steps"]]}
+                continue
+            perm = run.get("perm")
+            saved_perm = tm.rts_permutation
+            if perm is not None:
+                tm.rts_permutation = lambda seed, s, device: \
+                    torch.as_tensor(perm, device=device)
+            seen = []
+            inner = _count_drops(tm, seen)
+            try:
+                eng = dt.initialize(cfg, dict(run["config"]),
+                                    params=run.get("params"), device="cpu",
+                                    mesh=mesh)[0]
+                res = {}
+                if mode == "load":
+                    res["tag"] = eng.load_checkpoint(run["dir"])[0]
+                    res["params"] = _np(eng.gathered_params())
+                    res["opt"] = _np(_gathered_state(eng))
+                    out[run["name"]] = res
+                    continue
+                losses, aux = [], []
+                for step in run["steps"]:
+                    losses.append(float(eng.train_batch(iter(step))))
+                    aux.append(float(eng._dp_mean(
+                        eng._last_metrics["aux_loss"])))
+                if mode == "save":
+                    eng.save_checkpoint(run["dir"])
+                    res["opt"] = _np(_gathered_state(eng))
+                res.update(
+                    losses=losses, aux=aux,
+                    params=_np(eng.gathered_params()),
+                    grad_norm=eng.get_global_grad_norm(),
+                    coords={a: mesh.coord(a)
+                            for a in ("data", "expert", "model")},
+                    local=[tuple(x.shape) for x in tree_leaves(eng.params)],
+                    edim=list(eng._edim), drops=seen)
+                out[run["name"]] = res
+            finally:
+                tm.rts_permutation = saved_perm
+                tm.topk_gating_rows = inner
+    return out
+
+
+def _gathered_state(eng):
+    """The optimizer's moment trees, each leaf whole: gathered over its
+    ZeRO group, then over 'expert' and 'model'."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.ops.optimizers import tree_leaves
+    from deepspeed_tpu_torch.runtime.engine import _unflatten_like
+    out = {}
+    for k, v in eng.opt_state.items():
+        if not isinstance(v, dict):
+            out[k] = v
+            continue
+        leaves = []
+        for i, x in enumerate(tree_leaves(v)):
+            d = eng._pdim[i] if eng._pdim[i] is not None else eng._sdim[i]
+            if d is not None:
+                x = comm.all_gather(x, eng._gax[i], axis=d)
+            if eng._edim[i] is not None:
+                x = comm.all_gather(x, "expert", axis=eng._edim[i])
+            if eng._mdim[i] is not None:
+                x = comm.all_gather(x, "model", axis=eng._mdim[i])
+            leaves.append(x)
+        out[k] = _unflatten_like(v, leaves)
+    return out
+
+
+def ep_serving(rank, world, runs):
+    """The v1 engine over ``build_mesh(**run["mesh"])``. Each run:
+    {"name", "mesh", "cfg" (a DecoderConfig's fields), "params" (numpy
+    tree or None: drawn from ``seed``), "config", "prompt", "new"}; a
+    ValueError becomes its message. Returns the logits, the greedy
+    tokens, the local expert leaf's shape and the 'expert' all-to-all
+    records of one forward."""
+    from deepspeed_tpu_torch.comm.comms_logger import comms_logger
+    from deepspeed_tpu_torch.inference import init_inference
+    from deepspeed_tpu_torch.models.convert import params_from_jax
+    from deepspeed_tpu_torch.models.transformer import DecoderConfig
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+    out = {}
+    for run in runs:
+        build_mesh(**run["mesh"])
+        cfg = DecoderConfig(**run["cfg"])
+        params = run.get("params")
+        if params is not None:
+            params = params_from_jax(params, device="cpu")
+        gen = torch.Generator().manual_seed(run.get("seed", 0))
+        try:
+            eng = init_inference(cfg, run["config"], params=params,
+                                 generator=gen, device="cpu")
+        except ValueError as e:
+            out[run["name"]] = str(e)
+            continue
+        comms_logger.enabled, comms_logger.prof_all = True, True
+        comms_logger.reset()
+        logits = eng.forward(run["prompt"]).numpy()
+        a2a = dict(comms_logger.comms_dict.get("all_to_all", {}))
+        comms_logger.enabled = False
+        out[run["name"]] = {
+            "logits": logits, "a2a": {k: list(v) for k, v in a2a.items()},
+            "tokens": eng.generate(run["prompt"], max_new_tokens=run["new"]),
+            "wg": tuple(eng.params["layers"]["moe"]["wg"].shape)}
     return out
