@@ -200,8 +200,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``offload_optimizer.device`` 'cpu' (AdamW, remat full, micro batch 1 x
    2048, clip 1.0), at full depth when the host holds the fp32 master and
    moments, else on the NVMe tier when the disk holds it and its traffic
-   fits, else with layers cut to what the host holds (printed under
-   ``reduced``): 2 warm-up steps and 1 timed (``reduced`` from 3) on one
+   fits, else with layers cut to what the host holds, and at most
+   OFFLOAD_MAX_LAYERS (8) layers (printed under ``reduced``): 2 warm-up
+   steps and 1 timed (``reduced`` from 3) on one
    fixed batch with ``overlap`` off, then on, each with ms a step, the card's
    forward+backward ms, the host sweep's seconds, D2H and H2D GB/s, the
    host state's bytes, peak memory beside the on-card state the model
@@ -301,6 +302,27 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    the five grouped kernels at f 1408 and K1/K3 at 4/2 heads a rank,
    counted), and after the counted window the five grouped kernels at f
    1408 against their plain versions.
+15. sequence parallelism (``sp``): (a) in phase 13's two card ranks after
+   phase 14, Llama-3 1B at full width, depth 2 and a 32,000-entry
+   vocabulary (``reduced``), bf16, stage 1, 1 x 4096 tokens a step, 2
+   steps each of Ulysses and ring at sp 2 against sp 1 at world 1 on the
+   same batches (losses within 1e-2; ms a step and peak HBM a rank; the
+   all_to_all and ppermute bytes a step against the JAX package's
+   records; Ulysses' K1/K3 launched at 8/4 heads a rank, counted by
+   shape); (b) the long-context step on one card: Llama-3 1B at full
+   width and 4 of its 16 layers (``reduced``) at 131,072 tokens on
+   bench.py's long-context configuration (remat
+   offload_save_attn_kernel_host, ffn_chunk 8192, bf16 CE logits at a
+   256 MB budget), a warm-up step and a step under torch.profiler: ms a
+   step, tokens/s, peak HBM, finite losses, K1/K3 launched at T 131072
+   and their device ms; (c) FPDT at one layer's shapes (1 x 131072, heads
+   16/8 of 128, chunk 4096) with its KV store in pinned host memory,
+   against K1 on the same q/k/v (each row within 1e-2), its ms, H2D
+   GB/s, chunk reads and peak device bytes against K1's call; K1 and K3
+   at T 131072 against their plain versions on the last 4096 query rows;
+   and K1/K3 at Ulysses' 8/4 heads held and timed alone.
+   ``--sp-only`` runs the build and phase 15 alone ((a) on two card ranks
+   of its own).
 
 Every phase prints one JSON line; any failure raises, so the script exits
 non-zero. Without CUDA, or outside a checkout of the repository, it exits
@@ -4616,6 +4638,10 @@ def phase_checkpoint(smi: str) -> dict:
 #: overlap off, then on
 OFFLOAD_MODEL = ("8b", {"max_seq_len": 2048})
 OFFLOAD_SEQ, OFFLOAD_WARMUP, OFFLOAD_STEPS = 2048, 2, 1
+#: (a)'s depth at most (``reduced`` from the 15-18 layers the host holds:
+#: the host sweep is 93 % of a step and scales with the layers; phase 15
+#: pays for its time with this cut)
+OFFLOAD_MAX_LAYERS = 8
 #: host bytes a parameter of the 'cpu' tier holds: fp32 master and two
 #: moments, the pinned bf16 landing and output buffers
 OFFLOAD_HOST_BYTES = 16
@@ -4993,6 +5019,12 @@ def _offload_main(build: str, probe: dict, smi: str) -> dict:
                               f"and moves {24 * n_full / 1e9:.0f} GB a step"
                               + (f", {nvme_s:.0f} s for its steps at "
                                  f"{rate / 1e9:.2f} GB/s" if rate else "")}
+    if layers > OFFLOAD_MAX_LAYERS:
+        reduced = {"num_layers": [full.num_layers, OFFLOAD_MAX_LAYERS],
+                   "why": "the script's time limit: a step is 93 % host "
+                          "sweep, which scales with the layers (the host "
+                          f"holds {layers})"}
+        layers, device = OFFLOAD_MAX_LAYERS, "cpu"
     cfg = llama3_config(OFFLOAD_MODEL[0], num_layers=layers,
                         **OFFLOAD_MODEL[1])
     off = {"device": device}
@@ -6512,6 +6544,8 @@ def _tp_card_rank(rank, world, store, out, runs_small):
         torch.backends.cudnn.allow_tf32 = True
         # phase 14 in the same two ranks
         res["ep"] = _ep_card(rank, world)
+        # phase 15 (a) in the same two ranks
+        res["sp"] = _sp_card(rank, world)
         comm.destroy_distributed()
     except BaseException:                       # noqa: BLE001 — reported
         res = {"error": traceback.format_exc()}
@@ -6747,6 +6781,11 @@ def phase_tp_zeropp(smi: str) -> dict:
         ep_ref_seconds = time.perf_counter() - t_ref
         gc.collect()
         torch.cuda.empty_cache()
+        # phase 15 (a)'s sp-1 reference
+        _SP1.clear()
+        _SP1.update(_sp_reference())
+        gc.collect()
+        torch.cuda.empty_cache()
         # (a), (b), (b') on the card's two ranks
         for p in card:
             p.start()
@@ -6887,7 +6926,528 @@ def phase_tp_zeropp(smi: str) -> dict:
           "ep1_reference_seconds": ep_ref_seconds})
     _EP_LAUNCHES.clear()
     _EP_LAUNCHES.update(_ep_report(smi, ranks, cpu_res, ep_refs))
+    # phase 15 (a) from the same ranks
+    emit({"phase": "sp", "part": "references",
+          "sp1_reference_seconds": _SP1["seconds"],
+          "card_rank_seconds": [r["sp"]["seconds"] for r in ranks]})
+    _SP_LAUNCHES.clear()
+    _SP_LAUNCHES.update(_sp_report(smi, ranks))
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 15: sequence parallelism — Ulysses and ring in phase 13's two card
+# ranks, the long-context step on one card, FPDT at one layer's shapes
+# ---------------------------------------------------------------------------
+
+#: (a): Llama-3 1B at full width (heads 16/8 of 128), depth 2 (``reduced``
+#: from 16) and phase 12's 32,000-entry vocabulary (``reduced`` from
+#: 128,256), bf16, ZeRO stage 1, remat off, a global batch of 1 x 4096 a
+#: step, SP_STEPS steps each of Ulysses and ring at sp 2 (one rank a half
+#: of the sequence; Ulysses' K1/K3 at 8/4 heads a rank) against sp 1 at
+#: world 1 on the same batches: bf16 losses within DP_LOSS_TOL
+SP_MODEL = dict(num_layers=2, max_seq_len=4096, tie_embeddings=True,
+                vocab_size=32000)
+SP_SEQ, SP_STEPS = 4096, 2
+#: (b): Llama-3 1B at full width and vocabulary, 131,072 tokens, batch 1,
+#: depth 4 (``reduced`` from 16: the JAX bench ran 16), bench.py's
+#: long-context configuration (bench.py:751-775 at seq >= 65536); one
+#: warm-up step, one timed step under torch.profiler
+LONG_MODEL = dict(num_layers=4, max_seq_len=131072, tie_embeddings=True)
+LONG_SEQ = 131072
+#: (c): one layer's attention at (b)'s shapes (1 x 131072, heads 16/8 of
+#: 128, bf16): FPDT with chunk 4096 and its KV store in pinned host memory
+#: against K1 on the same q/k/v, each output row's relative error within
+#: TOL_BF16_ROW (both bf16 outputs of fp32 softmaxes; K1 multiplies bf16
+#: probabilities by V, FPDT fp32 ones). Then K1 and K3 at T 131072
+#: against their plain versions on the last FPDT_CHUNK query rows (dO
+#: zero on the others, whose dq must be exactly zero): the plain versions
+#: of those rows against every key, one kv head at a time
+FPDT_CHUNK = 4096
+#: (a)'s sp-1 reference, made in phase 13's main process
+_SP1: dict = {}
+#: phase 15's launches: (a) on both ranks, (b)
+_SP_LAUNCHES: dict = {}
+_LONG_LAUNCHES: dict = {}
+#: K1's and K3's numbers on phase 15's shapes for the kernel table: at T
+#: 131072 ((b)'s traced device time a launch, its bound) and at Ulysses'
+#: local heads ((a)'s 8/4 heads of 128 at T 4096, held and timed alone)
+_SP_TIMES: dict = {}
+
+
+def _sp_conf(sp: int, mode: str = "ulysses") -> dict:
+    return {"train_micro_batch_size_per_gpu": 1,
+            "gradient_accumulation_steps": 1,
+            "optimizer": {"type": "adamw", "params": {
+                "lr": 1e-4, "weight_decay": 0.1}},
+            "gradient_clipping": 1.0, "bf16": {"enabled": True},
+            "activation_checkpointing": {"policy": "none"},
+            "attention_impl": "auto", "steps_per_print": 1000,
+            "zero_optimization": {"stage": 1},
+            "sequence_parallel": {"size": sp, "mode": mode},
+            "comms_logger": {"enabled": True}}
+
+
+def _sp_batches(vocab):
+    rng = np.random.default_rng(15)
+    return [[{"input_ids": rng.integers(0, vocab, size=(1, SP_SEQ))
+              .astype(np.int32)}] for _ in range(SP_STEPS)]
+
+
+def _sp_train(mode: str, sp: int) -> dict:
+    """One (a) engine's SP_STEPS steps: losses, seconds a step, peak HBM,
+    collective bytes a step, K1/K3 launches by shape."""
+    import gc
+    import torch
+    from deepspeed_tpu_torch import initialize, llama3_config
+    from deepspeed_tpu_torch.comm.comms_logger import comms_logger
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import op_builder
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = llama3_config(TRAIN_MODEL[0], **SP_MODEL)
+    eng = initialize(cfg, _sp_conf(sp, mode), generator=torch.Generator(
+        device=DEV).manual_seed(15), device=DEV)[0]
+    op_builder.reset_launches()
+    fa.reset_head_dim_launches()
+    comms_logger.reset()
+    losses, step_s = [], []
+    for b in _sp_batches(cfg.vocab_size):
+        t1 = time.perf_counter()
+        losses.append(float(eng.train_batch(iter(b))))
+        step_s.append(time.perf_counter() - t1)
+    out = {"losses": losses, "step_seconds": step_s,
+           "ms_per_step": 1e3 * step_s[-1],
+           "peak_hbm_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "comm_bytes_per_step": {op: b / SP_STEPS for op, b in
+                                   comms_logger.bytes_by_op().items()},
+           "launches": dict(op_builder.launches),
+           "shape_launches": {k: dict(v) for k, v in
+                              fa.shape_launches.items()}}
+    comms_logger.enabled = False
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sp_reference() -> dict:
+    """(a)'s sp-1 run at world 1 (no process group) in phase 13's main
+    process, on (a)'s batches and seed."""
+    import torch
+    from deepspeed_tpu_torch.parallel.mesh import set_mesh
+    set_mesh(None)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    t0 = time.perf_counter()
+    ref = _sp_train("ulysses", 1)
+    ref["seconds"] = time.perf_counter() - t0
+    return ref
+
+
+def _sp_card(rank, world) -> dict:
+    """Phase 15 (a) on a card rank of phase 13 (two gloo ranks on the
+    card): Ulysses, then ring, at sp 2 over the ranks."""
+    from deepspeed_tpu_torch import build_mesh
+    t0 = time.perf_counter()
+    build_mesh(seq=world)
+    out = {mode: _sp_train(mode, world) for mode in ("ulysses", "ring")}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _sp_report(smi, ranks) -> dict:
+    """Phase 15 (a)'s lines and gates; returns the launches of both
+    ranks (the ``sp`` path of the kernel table)."""
+    from deepspeed_tpu_torch import llama3_config
+    from deepspeed_tpu_torch.ops import op_builder
+    cfg = llama3_config(TRAIN_MODEL[0], **SP_MODEL)
+    ref = _SP1
+    launches = {k: 0 for k in op_builder.launches}
+    sp = len(ranks)
+    h, kvh, dh = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    # the JAX package's records (ulysses.py:115-116, ring.py:112-114):
+    # the global q once a call, the global k and v x (sp - 1) a call; a
+    # call a layer a step (remat off: no replay)
+    jax_bytes = {"ulysses": {"all_to_all": cfg.num_layers * SP_SEQ * h
+                             * dh * 2},
+                 "ring": {"ppermute": cfg.num_layers * 2 * SP_SEQ * kvh
+                          * dh * 2 * (sp - 1)}}
+    local = f"{h // sp}/{kvh // sp}/{SP_SEQ}"
+    for mode in ("ulysses", "ring"):
+        r0 = ranks[0]["sp"][mode]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"],
+                                                      ref["losses"]))
+        op = next(iter(jax_bytes[mode]))
+        line = {
+            "phase": "sp", "part": "a", "mode": mode, "sp": sp,
+            "model": f"llama3-1b-width-depth{cfg.num_layers}-vocab32k",
+            "batch": 1, "seq": SP_SEQ, "dtype": "bfloat16", "stage": 1,
+            "losses": r0["losses"], "losses_sp1": ref["losses"],
+            "loss_rel_err_vs_sp1": rel, "tol": DP_LOSS_TOL,
+            "ranks_agree": r0["losses"] == ranks[1]["sp"][mode]["losses"],
+            "ms_per_step_per_rank": [r["sp"][mode]["ms_per_step"]
+                                     for r in ranks],
+            "ms_per_step_sp1": ref["ms_per_step"],
+            "peak_hbm_gb_per_rank": [r["sp"][mode]["peak_hbm_gb"]
+                                     for r in ranks],
+            "peak_hbm_gb_sp1": ref["peak_hbm_gb"],
+            "comm_bytes_per_step": r0["comm_bytes_per_step"],
+            "jax_formula_bytes_per_step": jax_bytes[mode],
+            "k1_k3_launches_by_shape_per_rank": [
+                r["sp"][mode]["shape_launches"] for r in ranks],
+            "k1_k3_launches_sp1": ref["shape_launches"],
+            "backend": "gloo", "speed_claim": None, "nvidia_smi": smi}
+        emit(line)
+        assert all(np.isfinite(r0["losses"])) and line["ranks_agree"], line
+        assert rel <= DP_LOSS_TOL, line
+        assert r0["comm_bytes_per_step"].get(op) == jax_bytes[mode][op], \
+            line
+        for r in ranks:
+            got = r["sp"][mode]["shape_launches"]
+            if mode == "ulysses":
+                # K1 and K3 once a layer a step, at this rank's heads
+                for k in TRAIN_KERNELS:
+                    assert got[k] == {local: cfg.num_layers * SP_STEPS}, got
+            else:
+                assert not any(got.values()), got
+            for k, v in r["sp"][mode]["launches"].items():
+                launches[k] += v
+    emit({"phase": "sp", "part": "reduced", "cuts": [
+        f"(a) depth {SP_MODEL['num_layers']} of 16 and vocabulary 32,000 "
+        f"(phase 12's), {SP_STEPS} steps of 1 x {SP_SEQ}: gloo on one "
+        f"card, no speed claim",
+        f"(b) depth {LONG_MODEL['num_layers']} of 16 (the JAX bench ran "
+        f"16), 1 warm-up + 1 timed step",
+        "(c) one layer's attention, one call each"]})
+    return launches
+
+
+def _sp_only_rank(rank, world, store, out):
+    """``--sp-only``: phase 15 (a) on one of two gloo card ranks."""
+    import pickle
+    import traceback
+    import torch
+    torch.set_num_threads(2)
+    try:
+        torch.cuda.set_device(0)
+        from deepspeed_tpu_torch import comm
+        comm.init_distributed(dist_backend="gloo",
+                              init_method="file://" + store,
+                              num_processes=world, process_id=rank,
+                              device=DEV, timeout=int(TP_RANK_TIMEOUT_S))
+        res = {"sp": _sp_card(rank, world)}
+        comm.destroy_distributed()
+    except BaseException:                       # noqa: BLE001 — reported
+        res = {"error": traceback.format_exc()}
+    with open(out, "wb") as fh:
+        pickle.dump(res, fh)
+
+
+def _sp_spawn(smi) -> dict:
+    """``--sp-only``'s (a): its sp-1 reference here, then two card ranks."""
+    import multiprocessing as mp
+    import pickle
+    import shutil
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="sp_", dir=os.path.join(here, "build"))
+    _SP1.clear()
+    _SP1.update(_sp_reference())
+    ctx = mp.get_context("spawn")
+    outs = [os.path.join(work, f"card{r}.pkl") for r in range(2)]
+    procs = [ctx.Process(target=_sp_only_rank, args=(
+        r, 2, os.path.join(work, "store"), outs[r])) for r in range(2)]
+    try:
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(TP_RANK_TIMEOUT_S)
+        ranks = []
+        for p, out in zip(procs, outs):
+            assert not p.is_alive(), "a sequence-parallel rank still runs"
+            with open(out, "rb") as fh:
+                r = pickle.load(fh)
+            assert "error" not in r, r["error"]
+            ranks.append(r)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(work, ignore_errors=True)
+    return _sp_report(smi, ranks)
+
+
+def _kernel_device_ms(prof) -> dict:
+    """Device milliseconds of K1 (``flash_fwd_*``), K3 (``flash_bwd_*``)
+    and of every kernel, from a torch.profiler trace."""
+    from torch.autograd import DeviceType
+    out = {"flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0,
+           "all_kernels": 0.0}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        dur = (e.time_range.end - e.time_range.start) / 1e3
+        out["all_kernels"] += dur
+        if "flash_fwd_" in e.name:
+            out["flash_attention_fwd"] += dur
+        elif "flash_bwd_" in e.name:
+            out["flash_attention_bwd"] += dur
+    return out
+
+
+def _long_context(smi) -> dict:
+    """(b): one warm-up step and one timed step of LONG_MODEL at
+    LONG_SEQ tokens on K1/K3; returns the timed step's launches."""
+    import gc
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from deepspeed_tpu_torch import initialize, llama3_config
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.parallel.mesh import set_mesh
+    set_mesh(None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = llama3_config(TRAIN_MODEL[0], **LONG_MODEL)
+    conf = {"train_micro_batch_size_per_gpu": 1,
+            "gradient_accumulation_steps": 1,
+            "optimizer": {"type": "adamw", "params": {
+                "lr": 1e-4, "weight_decay": 0.1}},
+            "gradient_clipping": 1.0, "bf16": {"enabled": True},
+            "activation_checkpointing": {
+                "policy": "offload_save_attn_kernel_host",
+                "ffn_chunk": 8192},
+            "ce_logits_dtype": "bf16", "chunked_ce_budget_mb": 256,
+            "attention_impl": "auto", "steps_per_print": 1000,
+            "zero_optimization": {"stage": 0}}
+    eng = initialize(cfg, conf, generator=torch.Generator(
+        device=DEV).manual_seed(16), device=DEV)[0]
+    batch = [{"input_ids": np.random.default_rng(16).integers(
+        0, cfg.vocab_size, size=(1, LONG_SEQ)).astype(np.int32)}]
+    t1 = time.perf_counter()
+    losses = [float(eng.train_batch(iter(batch)))]
+    warm_s = time.perf_counter() - t1
+    op_builder.reset_launches()
+    fa.reset_head_dim_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        losses.append(float(eng.train_batch(iter(batch))))
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t1
+    launches = dict(op_builder.launches)
+    shapes = {k: dict(v) for k, v in fa.shape_launches.items()}
+    dev_ms = _kernel_device_ms(prof)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    h, kvh, dh = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    # causal attention: 2·T²·H·dh forward a layer (QK and PV over half
+    # the square), K3 2.5 times that
+    fwd_flops = 2.0 * LONG_SEQ * LONG_SEQ * h * dh
+    line = {"phase": "sp", "part": "b", "model": "llama3-1b-width-depth"
+            f"{cfg.num_layers}", "seq": LONG_SEQ, "batch": 1,
+            "dtype": "bfloat16", "policy": conf["activation_checkpointing"],
+            "ce_logits_dtype": "bf16", "chunked_ce_budget_mb": 256,
+            "losses": losses, "warmup_seconds": warm_s,
+            "ms_per_step": 1e3 * step_s,
+            "tokens_per_s": LONG_SEQ / step_s, "peak_hbm_gb": peak,
+            "k1_k3_launches_by_shape": shapes,
+            "device_ms": dev_ms,
+            "k1_tflops_per_s": cfg.num_layers * fwd_flops
+            / (dev_ms["flash_attention_fwd"] / 1e3) / 1e12
+            if dev_ms["flash_attention_fwd"] else None,
+            "k3_tflops_per_s": 2.5 * cfg.num_layers * fwd_flops
+            / (dev_ms["flash_attention_bwd"] / 1e3) / 1e12
+            if dev_ms["flash_attention_bwd"] else None,
+            "traced": True, "nvidia_smi": smi}
+    emit(line)
+    # a launch's bound at T 131072: causal pairs T(T+1)/2 a head; K1 reads
+    # q, k, v and writes out and lse, K3 reads q, k, v, out, dO, lse and
+    # writes dq, dk, dv (check_flash/check_flash_bwd's counts)
+    pairs = LONG_SEQ * (LONG_SEQ + 1) / 2 * h
+    qb, kb = LONG_SEQ * h * dh * 2, LONG_SEQ * kvh * dh * 2
+    for k, flops, nbytes in (
+            ("flash_attention_fwd", 4.0 * dh * pairs,
+             2 * qb + 2 * kb + LONG_SEQ * h * 4),
+            ("flash_attention_bwd", 10.0 * dh * pairs,
+             3 * qb + 3 * kb + 2 * qb + LONG_SEQ * h * 4)):
+        n = shapes[k].get(f"{h}/{kvh}/{LONG_SEQ}", 0)
+        bms, by = bound(nbytes, flops, "bfloat16")
+        _SP_TIMES.setdefault("t131072", {})[k] = {
+            "shape": {"B": 1, "T": LONG_SEQ, "H": h, "KvH": kvh, "D": dh},
+            "launches": n, "device_ms_per_launch":
+            dev_ms[k] / n if n else None, "bound_ms": bms, "bound_by": by,
+            "tflops_per_s": flops * n / (dev_ms[k] / 1e3) / 1e12
+            if dev_ms[k] else None, "source": "phase sp (b), traced"}
+    assert all(np.isfinite(losses)), losses
+    key = f"{h}/{kvh}/{LONG_SEQ}"
+    # offload_save_attn_kernel_host keeps K1's (out, lse): one K1 and one
+    # K3 a layer
+    for k in TRAIN_KERNELS:
+        assert shapes[k] == {key: cfg.num_layers}, shapes
+    assert dev_ms["flash_attention_fwd"] > 0 and \
+        dev_ms["flash_attention_bwd"] > 0, dev_ms
+    return launches
+
+
+def _fpdt_vs_k1(smi) -> dict:
+    """(c): FPDT at (b)'s attention shapes with its KV store in pinned
+    host memory, against K1 on the same q/k/v; peak device bytes of each
+    call, inputs on the card included (K1 needs q, k and v there, FPDT
+    only q)."""
+    import gc
+    import torch
+    from deepspeed_tpu_torch import llama3_config
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.parallel import fpdt
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = llama3_config(TRAIN_MODEL[0], **LONG_MODEL)
+    h, kvh, dh = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    g = torch.Generator(device=DEV).manual_seed(17)
+    shape = (1, LONG_SEQ)
+    # drawn on the card, the K/V store copied out to pinned host memory
+    kh, vh = (torch.randn(shape + (kvh, dh), generator=g, device=DEV).to(
+        torch.bfloat16).cpu().pin_memory() for _ in range(2))
+    qh = torch.randn(shape + (h, dh), generator=g, device=DEV).to(
+        torch.bfloat16).cpu()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    # K1: q, k, v on the card
+    torch.cuda.reset_peak_memory_stats()
+    q, k, v = (x.to(DEV) for x in (qh, kh, vh))
+    with torch.no_grad():
+        t1 = time.perf_counter()
+        ref = fa.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        k1_s = time.perf_counter() - t1
+    k1_peak = torch.cuda.max_memory_allocated() - base
+    del k, v
+    torch.cuda.empty_cache()
+    ref_host = ref.cpu()
+    del ref
+    # FPDT: q on the card, K/V in the pinned store
+    base = torch.cuda.memory_allocated() - q.numel() * q.element_size()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        fpdt.fpdt_attention(q[:, :2 * FPDT_CHUNK], kh[:, :2 * FPDT_CHUNK],
+                            vh[:, :2 * FPDT_CHUNK], chunk=FPDT_CHUNK)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fpdt.fpdt_attention(q, kh, vh, chunk=FPDT_CHUNK)
+        torch.cuda.synchronize()
+        fpdt_s = time.perf_counter() - t1
+    fpdt_peak = torch.cuda.max_memory_allocated() - base
+    traffic = dict(fpdt.last_call)
+    out_host = out.cpu()
+    err = _err(out_host, ref_host)
+    row_rel = _row_rel_err(out_host, ref_host)
+    scale = float(ref_host.float().abs().max())
+    del out
+    k, v = kh.to(DEV), vh.to(DEV)
+    long_t = _k1_k3_at_long_t(q, k, v)
+    del q, k, v
+    gc.collect()
+    torch.cuda.empty_cache()
+    nc = LONG_SEQ // FPDT_CHUNK
+    line = {"phase": "sp", "part": "c", "seq": LONG_SEQ, "heads": [h, kvh],
+            "head_dim": dh, "dtype": "bfloat16", "chunk": FPDT_CHUNK,
+            "kv_store": "pinned host", "max_abs_err_vs_k1": err,
+            "row_rel_err_vs_k1": row_rel, "max_abs_k1": scale,
+            "tol": {"row_rel": TOL_BF16_ROW},
+            "fpdt_ms": 1e3 * fpdt_s, "k1_ms": 1e3 * k1_s,
+            "h2d_bytes": traffic["h2d_bytes"],
+            "chunk_reads": traffic["chunk_reads"],
+            "chunk_reads_causal": nc * (nc + 1) // 2,
+            "h2d_gb_per_s": traffic["h2d_bytes"] / fpdt_s / 1e9,
+            "peak_device_bytes_fpdt": fpdt_peak,
+            "peak_device_bytes_k1": k1_peak,
+            "kv_bytes": 2 * kh.numel() * kh.element_size(),
+            "k1_k3_at_t131072_vs_plain": long_t, "nvidia_smi": smi}
+    emit(line)
+    assert row_rel <= TOL_BF16_ROW and np.isfinite(err), line
+    assert traffic["chunk_reads"] == nc * (nc + 1) // 2, line
+    assert fpdt_peak < k1_peak, line
+    return line
+
+
+def _k1_k3_at_long_t(q, k, v) -> dict:
+    """K1 and K3 at q's full length (131072) held against their plain
+    versions on the last FPDT_CHUNK query rows: dO is random there and
+    zero elsewhere, so those rows' out/lse/dq and every key's dk/dv are
+    the plain versions' of those rows against all keys (computed one kv
+    head at a time, fp32), and the other rows' dq is exactly zero."""
+    import torch
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    b, t, h, dh = q.shape
+    kvh = k.shape[2]
+    tl, g = FPDT_CHUNK, h // kvh
+    with torch.no_grad():
+        out, lse = fa._forward(q, k, v, True, 0, None)
+        do = torch.zeros_like(q)
+        do[:, -tl:] = torch.randn(do[:, -tl:].shape, device=q.device,
+                                  generator=torch.Generator(
+                                      device=q.device).manual_seed(18)
+                                  ).to(q.dtype)
+        dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, do, True, 0)
+        torch.cuda.synchronize()
+        errs = {"out": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0, "lse": 0.0}
+        for j in range(kvh):
+            hs = slice(j * g, (j + 1) * g)
+            qs = q[:, -tl:, hs].float()
+            ks, vs = k[:, :, j:j + 1].float(), v[:, :, j:j + 1].float()
+            ro, rl = fa.flash_attention_ref(qs, ks, vs, True, t - tl, None)
+            rdq, rdk, rdv = fa.flash_attention_bwd_ref(
+                qs, ks, vs, out[:, -tl:, hs].float(), lse[:, -tl:, hs],
+                do[:, -tl:, hs].float(), True, t - tl, None)
+            for key, a, c in (("out", out[:, -tl:, hs], ro),
+                              ("dq", dq[:, -tl:, hs], rdq),
+                              ("dk", dk[:, :, j:j + 1], rdk),
+                              ("dv", dv[:, :, j:j + 1], rdv)):
+                errs[key] = max(errs[key], _row_rel_err(a, c))
+            errs["lse"] = max(errs["lse"], float(
+                ((lse[:, -tl:, hs] - rl).abs() / (1 + rl.abs())).max()))
+            del ro, rl, rdq, rdk, rdv, qs, ks, vs
+            torch.cuda.empty_cache()
+        rest_zero = bool((dq[:, :-tl] == 0).all())
+        finite = all(bool(torch.isfinite(x).all()) for x in (dq, dk, dv))
+    res = {"T": t, "rows_held": tl, "row_rel_err": errs,
+           "tol": {"row_rel": TOL_BF16_ROW, "lse": TOL_BF16_LSE},
+           "dq_zero_off_the_held_rows": rest_zero, "finite": finite}
+    assert finite and rest_zero, res
+    assert max(v for k_, v in errs.items() if k_ != "lse") \
+        <= TOL_BF16_ROW and errs["lse"] <= TOL_BF16_LSE, res
+    return res
+
+
+def phase_sp(smi: str) -> dict:
+    """Sequence parallelism. (a) Ulysses and ring at sp 2 ran in phase
+    13's two gloo card ranks (reported there, launches in _SP_LAUNCHES);
+    (b) the long-context step on one card at 131,072 tokens, K1/K3 at
+    T 131072; (c) FPDT against K1 at one layer's shapes. Returns (b)'s
+    launches (the ``long_context`` path)."""
+    import torch
+    from deepspeed_tpu_torch import llama3_config
+    _LONG_LAUNCHES.clear()
+    _LONG_LAUNCHES.update(_long_context(smi))
+    _fpdt_vs_k1(smi)
+    # K1 and K3 at Ulysses' local heads, held and timed alone
+    cfg = llama3_config(TRAIN_MODEL[0], **SP_MODEL)
+    local = (cfg.num_heads // 2, cfg.kv_heads // 2, cfg.head_dim)
+    rng = np.random.default_rng(19)
+    _SP_TIMES["ulysses_local_heads"] = {
+        "flash_attention_fwd": check_flash(
+            "sp_local_heads", rng, 1, SP_SEQ, local, torch.bfloat16, False),
+        "flash_attention_bwd": check_flash_bwd(
+            "sp_local_heads_bwd", rng, 1, SP_SEQ, local, torch.bfloat16)}
+    return dict(_LONG_LAUNCHES)
 
 
 def _ptxas_kernels(log: str) -> dict:
@@ -6968,6 +7528,12 @@ def main() -> int:
         run(phase_train_dp, smi)
         emit({"phase": "seconds", **seconds})
         return 0
+    if "--sp-only" in sys.argv[1:]:
+        # phase 15 alone: (a) on two card ranks of its own, (b), (c)
+        _SP_LAUNCHES.update(run(_sp_spawn, smi))
+        run(phase_sp, smi)
+        emit({"phase": "seconds", **seconds})
+        return 0
     if "--tp-zeropp-only" in sys.argv[1:]:
         # phases 12, 13 and 14 (13 holds tp 2 against 12's tp-1 runs; 14
         # its ranks against phase 8's run and phase 11 (e)'s int8 one)
@@ -7009,6 +7575,8 @@ def main() -> int:
     paths["train_dp"] = run(phase_train_dp, smi)
     paths["tp_zeropp"] = run(phase_tp_zeropp, smi)
     paths["ep"] = dict(_EP_LAUNCHES)
+    paths["sp"] = dict(_SP_LAUNCHES)
+    paths["long_context"] = run(phase_sp, smi)
     emit({"phase": "seconds", **seconds})
 
     # launches: over the main paths (dense serving and MoE serving, phase
@@ -7164,6 +7732,15 @@ def main() -> int:
                         "plain_ms", "bound_ms", "bound_by", "library_ms",
                         "max_abs_err")} for key, form in keys}}
                 for tag in NEW_DIM_HEADS}
+        if row["name"] in TRAIN_KERNELS and _SP_TIMES:
+            # phase 15: launches on the sp paths by shape, the time and
+            # bound at T 131072 and at Ulysses' local heads
+            row["sp"] = {
+                "t131072": _SP_TIMES["t131072"][row["name"]],
+                "ulysses_local_heads": {
+                    k: _SP_TIMES["ulysses_local_heads"][row["name"]].get(k)
+                    for k in ("shape", "kernel_ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms", "max_abs_err")}}
         if row["name"] in GROUPED_FORM_LAUNCHES:
             row["launches_by_form"] = GROUPED_FORM_LAUNCHES[row["name"]]
             assert sum(row["launches_by_form"].values()) == row["launches"]

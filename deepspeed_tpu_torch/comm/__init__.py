@@ -8,6 +8,7 @@ from deepspeed_tpu_torch.comm.comm import (
     all_gather,
     all_reduce,
     all_to_all,
+    all_to_all_autograd,
     axis_index,
     barrier,
     copy_to_model,
@@ -22,6 +23,7 @@ from deepspeed_tpu_torch.comm.comm import (
     is_initialized,
     log_summary,
     ppermute,
+    ppermute_autograd,
     reduce_from_model,
     reduce_scatter,
     scatter_to_experts,
@@ -37,5 +39,5 @@ __all__ = [
     "send_recv_prev", "axis_index", "comms_logger", "log_summary",
     "destroy_distributed", "copy_to_model", "reduce_from_model",
     "gather_from_model", "expert_exchange", "scatter_to_experts",
-    "gather_from_experts",
+    "gather_from_experts", "all_to_all_autograd", "ppermute_autograd",
 ]

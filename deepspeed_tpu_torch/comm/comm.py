@@ -304,6 +304,27 @@ def reduce_scatter(x: torch.Tensor, axis_name: AxisName, axis: int = 0,
     return _timed("reduce_scatter", x, axis_name, issue, async_op)
 
 
+def _all_to_all_raw(x: torch.Tensor, axis_name: AxisName, split_axis: int,
+                    concat_axis: int, tiled: bool = True) -> torch.Tensor:
+    """:func:`all_to_all` outside the comms logger."""
+    group, n = _resolve(axis_name)
+    split_axis = split_axis % x.dim()
+    if x.shape[split_axis] % n:
+        raise ValueError(f"all_to_all: dim {split_axis} of "
+                         f"{tuple(x.shape)} does not divide by {n}")
+    xm = x.movedim(split_axis, 0).contiguous()
+    out = torch.empty_like(xm)
+    if group is None:
+        out.copy_(xm)
+    else:
+        _dist().all_to_all_single(out, xm, group=group)
+    blocks = [b.movedim(0, split_axis) for b in out.chunk(n, dim=0)]
+    if tiled:
+        return torch.cat(blocks, dim=concat_axis)
+    return torch.stack([b.squeeze(split_axis) for b in blocks],
+                       dim=concat_axis)
+
+
 def all_to_all(x: torch.Tensor, axis_name: AxisName, split_axis: int,
                concat_axis: int, tiled: bool = True) -> torch.Tensor:
     """lax.all_to_all (comm.py:176): block j of ``split_axis`` goes to
@@ -311,57 +332,50 @@ def all_to_all(x: torch.Tensor, axis_name: AxisName, split_axis: int,
     ``concat_axis`` in rank order (untiled: ``split_axis``, of size n,
     is dropped and the blocks stack in a new dim at ``concat_axis``) —
     the Ulysses / MoE hot path."""
-    group, n = _resolve(axis_name)
-    split_axis = split_axis % x.dim()
-    if x.shape[split_axis] % n:
-        raise ValueError(f"all_to_all: dim {split_axis} of "
-                         f"{tuple(x.shape)} does not divide by {n}")
+    return _timed("all_to_all", x, axis_name, lambda a: _Done(
+        _all_to_all_raw(x, axis_name, split_axis, concat_axis, tiled)),
+        False)
 
-    def issue(a):
-        xm = x.movedim(split_axis, 0).contiguous()
-        out = torch.empty_like(xm)
-        if group is None:
-            out.copy_(xm)
-        else:
-            _dist().all_to_all_single(out, xm, group=group)
-        blocks = [b.movedim(0, split_axis)
-                  for b in out.chunk(n, dim=0)]
-        if tiled:
-            return _Done(torch.cat(blocks, dim=concat_axis))
-        return _Done(torch.stack([b.squeeze(split_axis) for b in blocks],
-                                 dim=concat_axis))
-    return _timed("all_to_all", x, axis_name, issue, False)
+
+def _ppermute_raw(x: torch.Tensor, axis_name: AxisName, perm
+                  ) -> torch.Tensor:
+    """:func:`ppermute` outside the comms logger. gloo's point-to-point
+    ops read and write host memory only (its collectives stage CUDA
+    tensors, its sends and receives do not), so over gloo a CUDA block
+    goes through a host copy each way."""
+    group, n = _resolve(axis_name)
+    me = axis_index(axis_name)
+    src = x.contiguous()
+    if group is None:
+        out = torch.zeros_like(src)
+        if (0, 0) in [tuple(p) for p in perm]:
+            out.copy_(x)
+        return out
+    d = _dist()
+    if src.is_cuda and d.get_backend(group) == "gloo":
+        return _ppermute_raw(src.cpu(), axis_name, perm).to(src.device)
+    out = torch.zeros_like(src)
+    ops = []
+    for s, t in perm:
+        if s == me and t == me:
+            out.copy_(x)
+        elif s == me:
+            ops.append(d.P2POp(d.isend, src,
+                               d.get_global_rank(group, t), group))
+        elif t == me:
+            ops.append(d.P2POp(d.irecv, out,
+                               d.get_global_rank(group, s), group))
+    if ops:
+        for w in d.batch_isend_irecv(ops):
+            w.wait()
+    return out
 
 
 def ppermute(x: torch.Tensor, axis_name: AxisName, perm) -> torch.Tensor:
     """lax.ppermute (comm.py:185): each (src, dst) pair sends src's block
     to dst; a rank that receives nothing gets zeros."""
-    group, n = _resolve(axis_name)
-
-    def issue(a):
-        me = axis_index(axis_name)
-        out = torch.zeros_like(x)
-        if group is None:
-            if (0, 0) in [tuple(p) for p in perm]:
-                out.copy_(x)
-            return _Done(out)
-        d = _dist()
-        src = x.contiguous()
-        ops = []
-        for s, t in perm:
-            if s == me and t == me:
-                out.copy_(x)
-            elif s == me:
-                ops.append(d.P2POp(d.isend, src,
-                                   d.get_global_rank(group, t), group))
-            elif t == me:
-                ops.append(d.P2POp(d.irecv, out,
-                                   d.get_global_rank(group, s), group))
-        if ops:
-            for w in d.batch_isend_irecv(ops):
-                w.wait()
-        return _Done(out)
-    return _timed("ppermute", x, axis_name, issue, False)
+    return _timed("ppermute", x, axis_name,
+                  lambda a: _Done(_ppermute_raw(x, axis_name, perm)), False)
 
 
 def send_recv_next(x: torch.Tensor, axis_name: AxisName,
@@ -471,6 +485,28 @@ class _GatherFromExperts(torch.autograd.Function):
         return _sum_scatter(g, ctx.axis), None
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, split_axis, concat_axis):
+        ctx.args = (axis, concat_axis, split_axis)
+        return _all_to_all_raw(x, axis, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all_raw(g, *ctx.args), None, None, None
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, perm):
+        ctx.axis, ctx.inverse = axis, tuple((t, s) for s, t in perm)
+        return _ppermute_raw(x, axis, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ppermute_raw(g, ctx.axis, ctx.inverse), None, None
+
+
 def _exchange(x: torch.Tensor, axis: AxisName) -> torch.Tensor:
     """All-to-all along dim 0 (block j to rank j, the received blocks in
     rank order), outside the comms logger."""
@@ -541,6 +577,26 @@ def gather_from_experts(x: torch.Tensor, axis: AxisName = "expert"
     blocks concatenated along dim 0 (``all_gather_into_tensor``); the
     backward sums the ranks' gradients into the owner's block."""
     return _GatherFromExperts.apply(x, axis)
+
+
+def all_to_all_autograd(x: torch.Tensor, axis: AxisName, split_axis: int,
+                        concat_axis: int) -> torch.Tensor:
+    """The tiled :func:`all_to_all` with a gradient: its transpose, the
+    backward, is the inverse exchange (``concat_axis`` split back to the
+    ranks, concatenated along ``split_axis``), as JAX transposes
+    ``lax.all_to_all``. Outside the comms logger: Ulysses registers the
+    JAX record of its exchanges itself (ulysses.py:115-116)."""
+    return _AllToAll.apply(x, axis, split_axis % x.dim(),
+                           concat_axis % x.dim())
+
+
+def ppermute_autograd(x: torch.Tensor, axis: AxisName, perm
+                      ) -> torch.Tensor:
+    """:func:`ppermute` with a gradient: the backward sends each block's
+    gradient along the inverse permutation (the transpose of
+    ``lax.ppermute``). Outside the comms logger: ring attention registers
+    the JAX record of its passes itself (ring.py:112-114)."""
+    return _Ppermute.apply(x, axis, tuple(tuple(p) for p in perm))
 
 
 def copy_to_model(x: torch.Tensor, axis: AxisName = "model"

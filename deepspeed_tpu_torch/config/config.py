@@ -10,6 +10,8 @@ mesh's data axis, the bucket sizes, the stage-3 overlap knobs, and the
 ``activation_checkpointing`` (``policy``, ``cpu_checkpointing``,
 ``ffn_chunk``), ``attention_impl``, ``ce_logits_dtype``,
 ``chunked_ce_budget_mb``, ``moe`` (``ep_size`` the expert axis),
+``tensor_parallel`` (the model axis), ``sequence_parallel`` (the seq
+axis and the Ulysses or ring attention),
 ``check_nan_inf``, ``data_efficiency`` (the curriculum sampler),
 ``comms_logger``, ``seed`` and ``steps_per_print``; ``elasticity`` is the input of
 ``elasticity.compute_elastic_config``; ``communication_data_type``,
@@ -24,10 +26,11 @@ read by nothing, and :func:`deepspeed_tpu_torch.telemetry.configure`
 reads ``telemetry``'s ``enabled``, ``trace_buffer_events``,
 ``jax_annotations`` and ``reqtrace``.
 
-Every other section of the JAX config (tensor/pipeline/sequence
-parallelism, ZenFlow, ZeRO++, ...) is not ported yet: it may be
-absent or hold its default values, and any other value raises
-``NotImplementedError`` rather than being silently ignored.
+Every other section of the JAX config (pipeline parallelism, ZenFlow,
+the monitors, ...) is not ported yet: it may be absent or hold its
+default values, and any other value raises ``NotImplementedError``
+rather than being silently ignored (a pipeline with sequence parallelism
+raises the JAX ``ValueError`` first).
 """
 
 import json
@@ -428,11 +431,19 @@ class TensorParallelConfig(TPUConfigModel):
         return self
 
 
+class SequenceParallelConfig(TPUConfigModel):
+    """``sequence_parallel`` (config.py:315): the size of the 'seq' mesh
+    axis and the attention that crosses it — 'ulysses' (the head/sequence
+    all-to-alls around the local attention, ``parallel/ulysses.py``) or
+    'ring' (K/V blocks passed around the ring, ``parallel/ring.py``)."""
+    size: int = 1
+    mode: str = "ulysses"  # 'ulysses' | 'ring'
+
+
 #: sections of the JAX config this slice does not run, with the values
 #: that leave them off; a key outside its table, or another value, raises
 _UNPORTED_SECTIONS: Dict[str, Dict[str, Any]] = {
     "pipeline": {"stages": 1},
-    "sequence_parallel": {"size": 1},
     "flops_profiler": {"enabled": False},
     "kvtier": {"enabled": False},
     "autoscale": {"enabled": False},
@@ -454,6 +465,15 @@ _UNPORTED_MODULES: Dict[str, str] = {
 
 
 def _check_unported(config: Dict[str, Any]) -> None:
+    pipe = config.get("pipeline") or {}
+    sp = config.get("sequence_parallel") or {}
+    if isinstance(pipe, dict) and isinstance(sp, dict) and \
+            int(pipe.get("stages", 1)) > 1 and int(sp.get("size", 1)) > 1:
+        # model_factory.py:422-430, before the pipeline's own refusal
+        raise ValueError(
+            "pipeline parallelism does not compose with "
+            "sequence_parallel yet; drop one of the two (PP composes "
+            "with TP/DP/ZeRO; SP composes with TP/DP/ZeRO/EP)")
     for key, value in config.items():
         if key not in _UNPORTED_SECTIONS or value in (None, {}):
             continue
@@ -517,6 +537,8 @@ class DeepSpeedConfig(TPUConfigModel):
     moe: MoEConfig = Field(default_factory=MoEConfig)
     tensor_parallel: TensorParallelConfig = Field(
         default_factory=TensorParallelConfig)
+    sequence_parallel: SequenceParallelConfig = Field(
+        default_factory=SequenceParallelConfig)
     telemetry: TelemetryConfig = Field(default_factory=TelemetryConfig)
     serving: ServingConfig = Field(default_factory=ServingConfig)
     resilience: ResilienceConfig = Field(default_factory=ResilienceConfig)
@@ -541,7 +563,8 @@ class DeepSpeedConfig(TPUConfigModel):
     memory_breakdown: bool = False
 
     #: 'auto' / 'pallas_flash' → the port's flash attention (K1 + K3 on
-    #: CUDA); 'naive' → the plain [T, T] attention
+    #: CUDA); 'naive' → the plain [T, T] attention; 'fpdt' → FPDT's
+    #: chunked attention with its KV store in host memory
     attention_impl: str = "auto"
     #: chunked cross-entropy logits budget in MB (None → 512)
     chunked_ce_budget_mb: Optional[int] = Field(default=None, ge=1)

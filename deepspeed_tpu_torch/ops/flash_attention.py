@@ -144,10 +144,31 @@ op_builder.register_counters("flash_attention.head_dim_launches",
                              head_dim_launches)
 
 
+#: launches of K1 and K3 by shape since the last reset, keyed
+#: "<q heads>/<kv heads>/<query length>": the sequence-parallel paths
+#: launch them at a rank's share of the heads (Ulysses) and at long
+#: sequences; each wrapper adds one here at each launch
+shape_launches: Dict[str, Dict[str, int]] = {
+    "flash_attention_fwd": {}, "flash_attention_bwd": {}}
+op_builder.register_counters("flash_attention.shape_launches",
+                             shape_launches)
+
+
 def reset_head_dim_launches() -> None:
+    """Zero :data:`head_dim_launches` and empty :data:`shape_launches`."""
     for counts in head_dim_launches.values():
         for d in counts:
             counts[d] = 0
+    for counts in shape_launches.values():
+        counts.clear()
+
+
+def _count(name: str, q: torch.Tensor, k: torch.Tensor) -> None:
+    b, tq, h, d = q.shape
+    op_builder.launches[name] += 1
+    head_dim_launches[name][d] += 1
+    key = f"{h}/{k.shape[2]}/{tq}"
+    shape_launches[name][key] = shape_launches[name].get(key, 0) + 1
 
 
 def _check(q, k, v, head_dims=HEAD_DIMS, what="flash_attention") -> None:
@@ -191,8 +212,7 @@ def _kernel(q, k, v, causal: bool, q_offset: int, window: Optional[int]):
         lse.data_ptr(), b, tq, tk, h, kvh, d, _DTYPES[q.dtype], int(causal),
         int(q_offset), int(window or 0), 1.0 / math.sqrt(d), stream)
     op_builder.check(lib, err, "flash_attention_fwd")
-    op_builder.launches["flash_attention_fwd"] += 1
-    head_dim_launches["flash_attention_fwd"][d] += 1
+    _count("flash_attention_fwd", q, k)
     return out, lse
 
 
@@ -225,8 +245,7 @@ def _bwd_kernel(q, k, v, out, lse, do, causal: bool, q_offset: int,
         int(causal), int(q_offset), int(window or 0), 1.0 / math.sqrt(d),
         stream)
     op_builder.check(lib, err, "flash_attention_bwd")
-    op_builder.launches["flash_attention_bwd"] += 1
-    head_dim_launches["flash_attention_bwd"][d] += 1
+    _count("flash_attention_bwd", q, k)
     return dq, dk, dv
 
 

@@ -1,6 +1,9 @@
 """Parallel layers of the port: the device mesh over the ranks
-(:mod:`deepspeed_tpu_torch.parallel.mesh`) and the MoE layers for
-serving and training (:mod:`deepspeed_tpu_torch.parallel.moe`)."""
+(:mod:`deepspeed_tpu_torch.parallel.mesh`), the MoE layers for serving
+and training (:mod:`deepspeed_tpu_torch.parallel.moe`), and sequence
+parallelism: Ulysses (:mod:`~deepspeed_tpu_torch.parallel.ulysses`), ring
+attention (:mod:`~deepspeed_tpu_torch.parallel.ring`) and FPDT
+(:mod:`~deepspeed_tpu_torch.parallel.fpdt`)."""
 
 from deepspeed_tpu_torch.parallel.mesh import (  # noqa: F401
     MESH_AXES, ZERO_AXES, Mesh, build_mesh, get_data_parallel_world_size,

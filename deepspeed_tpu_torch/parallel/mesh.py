@@ -10,20 +10,22 @@ collective facade (:mod:`deepspeed_tpu_torch.comm`) and the ZeRO plan
 (:mod:`deepspeed_tpu_torch.runtime.zero.sharding`) consume. It keeps
 ``mesh.shape[axis]``.
 
-Three axes run: ``data``, ``expert`` (expert parallelism) and ``model``
-(tensor parallelism), in the JAX rank order of :data:`MESH_AXES`,
-'model' the fastest: rank ``r`` sits at model ``r % model``, expert
-``(r // model) % expert`` and data ``r // (model · expert)``.
-``build_mesh`` forms one process group for every product of live axes
-and every position on the others: each expert row's 'expert' group, each
-expert column's 'data' group (the expert-data-parallel group of
-reference ``groups.py:315``), the ('data', 'expert') group of the ZeRO
-family, and so on; the product of every live axis is the world group. A
-group's ranks are ordered as the JAX mesh orders the positions of a
-tuple of axes (row-major, in :data:`MESH_AXES` order). Any other axis
-above 1 — ``seq`` (sequence), ``pipe``, or ``data_inner`` (MiCS / hpZ) —
-and a multi-slice ``dcn`` layout raise ``NotImplementedError`` (ROADMAP
-A, 'Parallelism breadth').
+Four axes run: ``data``, ``expert`` (expert parallelism), ``seq``
+(sequence parallelism: Ulysses and ring attention) and ``model`` (tensor
+parallelism), in the JAX rank order of :data:`MESH_AXES`, 'model' the
+fastest: rank ``r`` sits at model ``r % model``, seq ``(r // model) %
+seq``, expert ``(r // (model · seq)) % expert`` and data ``r // (model ·
+seq · expert)`` — the JAX device order of ``build_mesh`` over as many
+devices. ``build_mesh`` forms one process group for every product of
+live axes and every position on the others: each expert row's 'expert'
+group, each expert column's 'data' group (the expert-data-parallel group
+of reference ``groups.py:315``), the ('data', 'expert') group of the
+ZeRO family, each data row's 'seq' group, and so on; the product of every
+live axis is the world group. A group's ranks are ordered as the JAX mesh
+orders the positions of a tuple of axes (row-major, in :data:`MESH_AXES`
+order). Any other axis above 1 — ``pipe``, or ``data_inner`` (MiCS /
+hpZ) — and a multi-slice ``dcn`` layout raise ``NotImplementedError``
+(ROADMAP A, 'Parallelism breadth').
 """
 
 import itertools
@@ -39,7 +41,7 @@ MESH_AXES: Tuple[str, ...] = ("pipe", "data", "data_inner", "expert",
 ZERO_AXES: Tuple[str, ...] = ("data", "data_inner", "expert")
 
 #: the axes that run in the port
-LIVE_AXES: Tuple[str, ...] = ("data", "expert", "model")
+LIVE_AXES: Tuple[str, ...] = ("data", "expert", "seq", "model")
 
 _BREADTH = "(ROADMAP A, 'Parallelism breadth')"
 
@@ -160,18 +162,25 @@ def build_mesh(data: Optional[int] = None,
         raise NotImplementedError(
             f"multi-slice meshes (dcn={dcn}) are not ported to "
             f"deepspeed_tpu_torch yet {_BREADTH}")
-    others = {"pipe": pipe, "seq": seq, "data_inner": data_inner}
+    others = {"pipe": pipe, "data_inner": data_inner}
     big = {k: v for k, v in others.items() if v > 1}
     if big:
         raise NotImplementedError(
-            f"mesh axes {big}: deepspeed_tpu_torch runs data, expert and "
-            f"tensor parallelism only; sequence and pipeline parallelism "
+            f"mesh axes {big}: deepspeed_tpu_torch runs data, expert, "
+            f"sequence and tensor parallelism only; pipeline parallelism "
             f"and MiCS sub-groups are not ported yet {_BREADTH}")
     world_group = d.group.WORLD if d is not None else None
-    sizes = {"data": data, "expert": expert, "model": model}
+    sizes = {"data": data, "expert": expert, "seq": seq, "model": model}
     rank = d.get_rank() if d is not None else 0
-    coords = {"model": rank % model, "expert": (rank // model) % expert,
-              "data": rank // (model * expert)}
+    coords = {}
+    for a in reversed(LIVE_AXES):           # 'model' the fastest
+        coords[a], rank = rank % sizes[a], rank // sizes[a]
+
+    def rank_of(c):
+        r = 0
+        for a in LIVE_AXES:
+            r = r * sizes[a] + c[a]
+        return r
     live = [a for a in LIVE_AXES if sizes[a] > 1]
     groups: Dict[Any, Any] = {"data": world_group}
     if d is not None:
@@ -183,11 +192,9 @@ def build_mesh(data: Optional[int] = None,
                                                for a in rest)):
                     fixed = dict(zip(rest, pos))
                     ranks = sorted(
-                        (c["data"] * expert + c["expert"]) * model
-                        + c["model"]
-                        for c in (dict(fixed, **dict(zip(sub, v)))
-                                  for v in itertools.product(
-                                      *(range(sizes[a]) for a in sub))))
+                        rank_of(dict(fixed, **dict(zip(sub, v))))
+                        for v in itertools.product(
+                            *(range(sizes[a]) for a in sub)))
                     g = d.new_group(ranks)
                     if all(coords[a] == fixed[a] for a in rest):
                         groups[sub] = g
@@ -196,7 +203,8 @@ def build_mesh(data: Optional[int] = None,
                 group=world_group, groups=groups, coords=coords)
     if set_current:
         set_mesh(mesh)
-    log_dist(f"built mesh: data={data} expert={expert} model={model} over "
+    log_dist(f"built mesh: data={data} expert={expert} seq={seq} "
+             f"model={model} over "
              f"{'torch.distributed' if d is not None else 'one process'}")
     return mesh
 
@@ -204,11 +212,13 @@ def build_mesh(data: Optional[int] = None,
 def mesh_from_config(config, devices=None) -> Mesh:
     """A mesh from a config's topology knobs (mesh.py:167): the model
     axis from an enabled ``tensor_parallel`` section, the expert axis
-    from an enabled ``moe`` section (the config holds no pipeline or
-    sequence section: they raise there)."""
+    from an enabled ``moe`` section, the seq axis from
+    ``sequence_parallel.size`` (the config holds no pipeline section: it
+    raises there)."""
     return build_mesh(
         model=config.tensor_parallel.tp_size
         if config.tensor_parallel.enabled else 1,
+        seq=config.sequence_parallel.size,
         expert=config.moe.ep_size if config.moe.enabled else 1,
         devices=devices)
 

@@ -90,12 +90,26 @@ gradient, and the step's 1/(data · ep) makes it the global mean's. The
 norm counts each expert shard once (their squares summed over
 'expert').
 
+Sequence parallelism: a mesh with a ``seq`` axis above 1 (the size of
+``sequence_parallel``) splits dim 1 of every batch leaf over it after the
+rows split over the batch axes: the ranks of one 'seq' group take the
+same rows and each its block of the sequence (engine.py:362-374,
+:1048-1061), with the decoder's default labels shifted over the whole
+sequence first. The attention crosses the axis (Ulysses or ring,
+``runtime/model_factory.py``); a rank's cross-entropy is its share of the
+global token count. Seq ranks hold replicas of every leaf ('seq' is not
+in ``ZERO_AXES``): their gradients are summed over 'seq' first, then
+reduced over the batch axes as at any stage, and divided by data · seq;
+the norm and the checkpoint (written by seq rank 0) treat 'seq' as a
+replica axis. The parameter tier and pipelines under SP raise the JAX
+``ValueError``s; SP with expert parallelism is not ported.
+
 The ``telemetry`` block arms the span and request tracers
 (:func:`deepspeed_tpu_torch.telemetry.configure`), the ``comms_logger``
 block the collective log. ZeRO++ (``zero_quantized_weights`` /
 ``zero_quantized_gradients``) runs ``train_batch`` through
 ``runtime/zero/zeropp.py`` (not over an expert axis: the JAX
-``ValueError``). Sequence and pipeline parallelism, MiCS, ZenFlow, offload at dp > 1, 1-bit optimizers,
+``ValueError``). Pipeline parallelism, MiCS, ZenFlow, offload at dp > 1, 1-bit optimizers,
 the training step's telemetry spans and flight records and the watchdog
 are not ported: their config keys or meshes raise.
 """
@@ -209,6 +223,15 @@ class DeepSpeedEngine:
         #: position on it
         self.tp_size = self.mesh.shape["model"]
         self.tp_rank = self.mesh.coord("model")
+        #: sequence parallelism: the 'seq' axis's size and this rank's
+        #: block of the sequence; the ranks' losses and the gradients of
+        #: their shares are reduced over the batch axes and 'seq'
+        self.sp_size = self.mesh.shape["seq"]
+        self.sp_rank = self.mesh.coord("seq")
+        batch = (self._batch_axis,) if isinstance(self._batch_axis, str) \
+            else self._batch_axis
+        self._loss_axis = batch + ("seq",) if self.sp_size > 1 \
+            else self._batch_axis
         config.resolve_batch_sizes(self.dp_world_size)
 
         self.zero_stage = config.zero_optimization.stage
@@ -394,7 +417,8 @@ class DeepSpeedEngine:
 
     def _resolve_mesh(self, mesh: Optional[Mesh]) -> Mesh:
         """engine.py:130: the given mesh, the current one, or one from the
-        config; only its ``data`` axis may exceed 1 here."""
+        config; its ``pipe`` and ``data_inner`` axes stay 1 here, and its
+        ``seq`` axis is ``sequence_parallel.size``."""
         if mesh is None:
             mesh = get_mesh() if has_mesh() else \
                 mesh_from_config(self.config)
@@ -405,11 +429,24 @@ class DeepSpeedEngine:
             # the collectives resolve their axis names through it
             set_mesh(mesh)
         big = {a: v for a, v in mesh.shape.items()
-               if a not in ("data", "expert", "model") and v > 1}
+               if a not in ("data", "expert", "seq", "model") and v > 1}
         if big:
             raise NotImplementedError(
-                f"mesh axes {big}: the engine runs data, expert and tensor "
-                f"parallelism only; the other axes are not ported to "
+                f"mesh axes {big}: the engine runs data, expert, sequence "
+                f"and tensor parallelism only; the other axes are not "
+                f"ported to deepspeed_tpu_torch yet (ROADMAP A, "
+                f"'Parallelism breadth')")
+        sp = self.config.sequence_parallel.size
+        if mesh.shape["seq"] != sp:
+            # a rank under a split sequence must not attend its block alone
+            raise ValueError(
+                f"mesh axis 'seq' has size {mesh.shape['seq']} but "
+                f"sequence_parallel.size is {sp}: the attention must cross "
+                f"the axis the sequence is split over")
+        if sp > 1 and mesh.shape["expert"] > 1:
+            raise NotImplementedError(
+                f"sequence parallelism (seq={sp}) with expert parallelism "
+                f"(expert={mesh.shape['expert']}) is not ported to "
                 f"deepspeed_tpu_torch yet (ROADMAP A, 'Parallelism "
                 f"breadth')")
         return mesh
@@ -418,22 +455,28 @@ class DeepSpeedEngine:
         """What data parallelism does not cover yet raises here; the
         offload tiers run the single-device path at dp 1."""
         zc = self.config.zero_optimization
+        if zc.offload_param.device.value != "none" and self.sp_size > 1:
+            # param_stream.py:124-127
+            raise ValueError(
+                "offload_param does not compose with pipeline/sequence "
+                "parallelism (one streaming schedule at a time)")
         offload = self.offload_enabled or \
             zc.offload_param.device.value != "none"
-        if offload and self.dp_world_size * self.tp_size > 1:
+        if offload and self.dp_world_size * self.tp_size * self.sp_size > 1:
             raise NotImplementedError(
-                f"offload at dp={self.dp_world_size}, tp={self.tp_size}: "
-                f"the host, NVMe and "
+                f"offload at dp={self.dp_world_size}, tp={self.tp_size}, "
+                f"sp={self.sp_size}: the host, NVMe and "
                 f"parameter tiers run on one device; at dp > 1 they are "
                 f"not ported to deepspeed_tpu_torch yet (ROADMAP A, "
                 f"'Offload')")
         if offload:
             self._dist = False
-        if self.dp_world_size * self.tp_size == 1:
+        if self.dp_world_size * self.tp_size * self.sp_size == 1:
             return
         if not self._dist:
             raise ValueError(
-                f"a mesh of data={self.dp_world_size} needs "
+                f"a mesh of data={self.dp_world_size}, model="
+                f"{self.tp_size}, seq={self.sp_size} needs "
                 f"torch.distributed with as many ranks "
                 f"(deepspeed_tpu_torch.comm.init_distributed)")
         name = str(self.config.optimizer.type).lower()
@@ -538,15 +581,19 @@ class DeepSpeedEngine:
         return self._pdim[i] is not None or self._gdim[i] is not None
 
     def _reduce_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Sum gradients over the ranks: stage-3 shards arrive reduced
-        (the gather's backward reduce-scattered them); leaves with a
-        gradient shard dim are reduce-scattered to it, the rest
-        all-reduced in place — each in buckets of ``reduce_bucket_size``
-        elements."""
+        """Sum gradients over the ranks: under sequence parallelism every
+        leaf (a replica over 'seq', or a stage-3 shard the data group
+        already reduced) is first all-reduced over 'seq'; then stage-3
+        shards are done (the gather's backward reduce-scattered them);
+        leaves with a gradient shard dim are reduce-scattered to it, the
+        rest all-reduced in place — each in buckets of
+        ``reduce_bucket_size`` elements."""
         from deepspeed_tpu_torch.runtime.zero.sharding import (
             all_reduce_bucketed, reduce_scatter_bucketed)
         bucket = int(self.config.zero_optimization.reduce_bucket_size)
         out = list(grads)
+        if self.sp_size > 1:
+            all_reduce_bucketed(out, "seq", bucket)
         rs = [i for i in range(len(out)) if self._pdim[i] is None
               and self._gdim[i] is not None]
         ar = [i for i in range(len(out)) if self._pdim[i] is None
@@ -596,7 +643,7 @@ class DeepSpeedEngine:
     def _dp_mean(self, x: torch.Tensor) -> torch.Tensor:
         """The mean over the ranks of a per-rank scalar (the global loss
         of per-rank shares)."""
-        return comm.all_reduce(x.detach(), self._batch_axis, "mean") \
+        return comm.all_reduce(x.detach(), self._loss_axis, "mean") \
             if self._dist else x
 
     def _init_host_optimizer(self) -> None:
@@ -727,8 +774,20 @@ class DeepSpeedEngine:
         """The batch on the engine's device. At dp > 1 a user's batch is
         the global one and this rank takes its contiguous block of rows
         (engine.py:1019-1040: rank r holds rows [r·B/dp, (r+1)·B/dp));
-        the engine's own loader (``local``) already yields them."""
+        the engine's own loader (``local``) already yields them. Under
+        sequence parallelism dim 1 of every leaf of two or more dims
+        splits the same way over 'seq' (engine.py:362-374), a decoder's
+        default labels shifted over the whole sequence first (the last
+        token of a block keeps its label: the next block's first)."""
         n, r = self.dp_world_size, self.dp_rank
+        sp, sr = self.sp_size, self.sp_rank
+        if sp > 1 and "labels" not in batch and "input_ids" in batch \
+                and self.model.decoder_config is not None:
+            ids = torch.as_tensor(np.asarray(batch["input_ids"]) if not
+                                  isinstance(batch["input_ids"], torch.Tensor)
+                                  else batch["input_ids"])
+            batch = dict(batch, labels=torch.cat(
+                [ids[:, 1:], torch.full_like(ids[:, :1], -100)], dim=1))
 
         def put(v):
             t = torch.as_tensor(np.asarray(v) if not isinstance(
@@ -741,6 +800,13 @@ class DeepSpeedEngine:
                         f"micro-batch)")
                 b = t.shape[0] // n
                 t = t[r * b:(r + 1) * b]
+            if sp > 1 and t.dim() >= 2:
+                if t.shape[1] % sp:
+                    raise ValueError(
+                        f"batch leaf of sequence length {t.shape[1]} does "
+                        f"not divide over seq={sp} ranks")
+                tl = t.shape[1] // sp
+                t = t[:, sr * tl:(sr + 1) * tl]
             return t.to(self.device)
         return {k: put(v) for k, v in batch.items()}
 
@@ -814,9 +880,9 @@ class DeepSpeedEngine:
         if self._debug_nan_check:
             self._raise_if_nonfinite(grads)
         scaler = self.loss_scale_state
-        # data parallel: the ranks' gradients were summed; their mean is
-        # the global batch's gradient
-        inv = 1.0 / (scaler.scale * gas * self.dp_world_size)
+        # data (and sequence) parallel: the ranks' gradients were summed;
+        # their mean is the global batch's gradient
+        inv = 1.0 / (scaler.scale * gas * self.dp_world_size * self.sp_size)
         for g in grads:
             g.mul_(inv)
         overflow = check_overflow(grads) if self.fp16_enabled else \
@@ -1455,7 +1521,7 @@ class DeepSpeedEngine:
                 if a != b:
                     start[d], cut_dp = r * a, True
             write = (cut_dp or r == 0) and \
-                (md is not None or self.tp_rank == 0)
+                (md is not None or self.tp_rank == 0) and self.sp_rank == 0
             out.append(ShardedLeaf(x, full, start, write))
         return _unflatten_like(tree, out)
 
@@ -1678,7 +1744,7 @@ def _flags_to_host(flags):
 
 
 #: every axis the engine runs: a flag reduced over them reaches every rank
-_ALL_AXES = ("data", "expert", "model")
+_ALL_AXES = ("data", "expert", "seq", "model")
 
 
 def _copy_into(dst, src, rank: int = 0):

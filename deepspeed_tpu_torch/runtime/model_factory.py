@@ -11,11 +11,15 @@ folds them. For data parallelism the spec carries the stage-3
 489-513) that arms the loss with the stage-3 layer loop, and a
 ``configure_mesh`` hook that arms its reductions over the ranks (the
 cross-entropy's count of valid labels, the dropless MoE's routing
-means). Pipeline parallelism, expert parallelism, the capacity MoE at
-dp > 1 and the health taps raise ``NotImplementedError``.
+means). Under sequence parallelism it also gives a rank's block of the
+sequence its global positions, and takes the Ulysses or the ring
+attention from ``select_attention``. Pipeline parallelism, the capacity
+MoE under sequence parallelism and the health taps raise
+``NotImplementedError``.
 """
 
 import dataclasses
+import os
 from functools import partial
 from typing import Optional
 
@@ -29,8 +33,11 @@ from deepspeed_tpu_torch.models.transformer import (DecoderConfig,
                                                     dot_product_attention)
 from deepspeed_tpu_torch.ops.flash_attention import flash_attention
 from deepspeed_tpu_torch.ops.xla_attention import chunked_attention
+from deepspeed_tpu_torch.parallel.fpdt import fpdt_attention
 from deepspeed_tpu_torch.parallel.moe import (dropless_moe_layer, moe_layer,
                                               mix_seed)
+from deepspeed_tpu_torch.parallel.ring import ring_attention
+from deepspeed_tpu_torch.parallel.ulysses import distributed_attention
 from deepspeed_tpu_torch.runtime.activation_checkpointing import \
     upgrade_for_cpu_checkpointing
 from deepspeed_tpu_torch.utils.logging import log_dist
@@ -39,34 +46,62 @@ from deepspeed_tpu_torch.utils.logging import log_dist
 def select_attention(ds_cfg: DeepSpeedConfig,
                      dec_cfg: Optional[DecoderConfig] = None):
     """Pick the attention implementation from the config
-    (model_factory.py:38), at one device: 'pallas_flash' → the port's
+    (model_factory.py:38-189): 'pallas_flash' → the port's
     :func:`flash_attention` (K1 forward and K3 backward on CUDA tensors,
     their plain versions on the CPU), as 'auto' is for full-causal and
     sliding-window decoders; 'xla_chunked' → :func:`chunked_attention`;
-    'naive' → the plain :func:`dot_product_attention`. As in the JAX
-    factory, per-layer windows (GPT-Neo) take the plain attention,
-    encoders under 'auto' and 'xla_chunked' the chunked attention without
-    the causal mask (it takes the batch's key mask, which K1 cannot), and
-    ALiBi models the chunked attention with their slopes baked in (K1 has
-    no bias). 'fpdt' and registered implementations are not ported."""
+    'naive' → the plain :func:`dot_product_attention`; 'fpdt' →
+    :func:`fpdt_attention` with its chunk from ``DSTPU_FPDT_CHUNK``
+    (default 4096), full-causal decoders on one rank of 'seq' only. As
+    in the JAX factory, per-layer windows (GPT-Neo) take the plain
+    attention, encoders under 'auto' and 'xla_chunked' the chunked
+    attention without the causal mask (it takes the batch's key mask,
+    which K1 cannot), and ALiBi models the chunked attention with their
+    slopes baked in (K1 has no bias). With ``sequence_parallel.size`` > 1
+    mode 'ring' → :func:`ring_attention`, any other mode →
+    :func:`distributed_attention` (Ulysses) around the implementation
+    above; windows, encoders and ALiBi raise the JAX ``ValueError``s
+    there. Registered implementations are not ported."""
+    sp = ds_cfg.sequence_parallel
     impl = ds_cfg.attention_impl
-    if impl == "fpdt":
-        raise NotImplementedError(
-            "attention_impl 'fpdt' is not ported to deepspeed_tpu_torch yet "
-            "('auto', 'pallas_flash', 'xla_chunked' and 'naive' are)")
-    if impl not in ("auto", "pallas_flash", "xla_chunked", "naive"):
+    if impl not in ("auto", "pallas_flash", "xla_chunked", "naive",
+                    "fpdt"):
         raise NotImplementedError(
             f"attention_impl '{impl}': registered attention implementations "
             f"are not ported to deepspeed_tpu_torch yet")
+    if impl == "fpdt":
+        if sp.size > 1:
+            raise ValueError(
+                "attention_impl 'fpdt' composes with sequence parallel "
+                "by chunking each shard's local sequence — but the SP "
+                "wrappers are applied instead of it today; use "
+                "'auto' with sequence_parallel, or fpdt on one chip")
+        if dec_cfg is not None and (
+                not dec_cfg.causal or dec_cfg.pos_emb == "alibi"
+                or dec_cfg.sliding_window is not None
+                or dec_cfg.layer_window_pattern):
+            raise ValueError(
+                "attention_impl 'fpdt' supports full-causal decoders "
+                "only (no ALiBi/sliding-window/encoder)")
+        return partial(fpdt_attention,
+                       chunk=int(os.environ.get("DSTPU_FPDT_CHUNK", 4096)))
     if dec_cfg is not None and dec_cfg.layer_window_pattern:
         # per-layer windows reach the attention as a `window=` argument
         # per layer; the JAX package routes them to the plain attention
+        if sp.size > 1:
+            raise ValueError(
+                "sequence_parallel with per-layer attention windows "
+                "(layer_window_pattern) is not supported")
         if impl in ("pallas_flash", "xla_chunked"):
             raise ValueError(
                 f"attention_impl '{impl}' cannot apply per-layer windows "
                 f"(layer_window_pattern); use 'auto' or 'naive'")
         return dot_product_attention
     if dec_cfg is not None and not dec_cfg.causal:
+        if sp.size > 1:
+            raise ValueError(
+                "sequence_parallel with a bidirectional (encoder) model "
+                "is not supported; use DP/TP for BERT-class models")
         if impl == "pallas_flash":
             raise ValueError(
                 "attention_impl 'pallas_flash' is causal-only; use 'auto', "
@@ -75,12 +110,25 @@ def select_attention(ds_cfg: DeepSpeedConfig,
             return partial(dot_product_attention, causal=False)
         return partial(chunked_attention, causal=False)
     if dec_cfg is not None and dec_cfg.pos_emb == "alibi":
+        if sp.size > 1:
+            raise ValueError("sequence_parallel with an ALiBi model is "
+                             "not supported; use DP/TP/PP for BLOOM-class "
+                             "models")
         return partial(chunked_attention,
                        alibi=alibi_slopes(dec_cfg.num_heads))
     window = dec_cfg.sliding_window if dec_cfg is not None else None
+    if window is not None and sp.size > 1:
+        raise ValueError(
+            "sequence_parallel with sliding-window attention is not "
+            "supported yet (the ring/Ulysses wrappers assume full causal "
+            "attention); unset sliding_window or sequence_parallel")
+    if sp.size > 1 and sp.mode == "ring":
+        return partial(ring_attention, axis_name="seq")
     kw = {} if window is None else {"window": window}
     base = {"naive": dot_product_attention,
             "xla_chunked": chunked_attention}.get(impl, flash_attention)
+    if sp.size > 1:
+        return partial(distributed_attention, axis_name="seq", inner=base)
     return partial(base, **kw) if kw else base
 
 
@@ -95,6 +143,12 @@ def select_moe(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
     if not dec_cfg.num_experts:
         return None
     moe = ds_cfg.moe
+    if ds_cfg.sequence_parallel.size > 1 and moe.impl == "capacity":
+        raise NotImplementedError(
+            "the capacity MoE under sequence parallelism (its slots claimed "
+            "in the global token order over a split sequence) is not "
+            "ported to deepspeed_tpu_torch yet (ROADMAP A, 'Parallelism "
+            "breadth'); use moe.impl 'dropless'")
     if moe.impl == "dropless":
         if moe.ep_size > 1:
             raise ValueError(
@@ -164,11 +218,13 @@ def decoder_model_spec(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
             return fn(c, p, x, rts_key=mix_seed(seed, layer))
         mf.per_layer = True
         return mf
-    #: armed by the engine: the stage-3 layer loop's plan, and the batch
-    #: axes (('data', 'expert') under EP) with their size when the
-    #: ranks' loss terms are reduced over them
+    #: armed by the engine: the stage-3 layer loop's plan, the axes the
+    #: ranks' loss terms are reduced over (('data', 'expert') under EP,
+    #: ('data', 'seq') under SP) with their size, and this rank's block
+    #: of the sequence
     _ovl = {"plan": None}
     _dp = {"n": 0, "axis": "data"}
+    _sp = {"n": 1, "rank": 0}
     #: the forward's config: ``dec_cfg``, or its TP form over 'model'
     _fwd = {"cfg": dec_cfg}
     tp = ds_cfg.tensor_parallel.enabled
@@ -186,15 +242,19 @@ def decoder_model_spec(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
         return plan
 
     def configure_mesh(mesh):
-        """Engine hook: reduce the loss terms over the batch axes of a
-        distributed mesh (any size) — 'data', with 'expert' under expert
-        parallelism — so a rank's loss is its share of the global
-        batch's; the capacity MoE then claims its slots in the global
-        token order (``moe_layer``'s ``batch_axis``)."""
+        """Engine hook: reduce the loss terms over the axes that split the
+        tokens of a distributed mesh (any size) — 'data', with 'expert'
+        under expert parallelism and 'seq' under sequence parallelism —
+        so a rank's loss is its share of the global batch's; the capacity
+        MoE then claims its slots in the global token order
+        (``moe_layer``'s ``batch_axis``). Under SP a rank's block of the
+        sequence takes its global positions."""
         if mesh.distributed:
-            ep = mesh.shape["expert"]
-            _dp["axis"] = ("data", "expert") if ep > 1 else "data"
+            axes = tuple(a for a in ("data", "expert", "seq")
+                         if a == "data" or mesh.shape[a] > 1)
+            _dp["axis"] = axes if len(axes) > 1 else "data"
             _dp["n"] = mesh.axes_size(_dp["axis"])
+        _sp["n"], _sp["rank"] = mesh.shape["seq"], mesh.coord("seq")
         if tp and mesh.shape["model"] > 1:
             _fwd["cfg"] = transformer.with_tp(dec_cfg, mesh.shape["model"])
 
@@ -221,9 +281,20 @@ def decoder_model_spec(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
         tokens = batch["input_ids"]
         if "labels" in batch:
             labels = batch["labels"]
+        elif _sp["n"] > 1:
+            raise ValueError(
+                "under sequence parallelism a rank holds a block of the "
+                "sequence: its labels are shifted over the global one "
+                "before the split (the engine's batch placement does it)")
         else:
             labels = torch.cat([tokens[:, 1:],
                                 torch.full_like(tokens[:, :1], -100)], dim=1)
+        positions = None
+        if _sp["n"] > 1:
+            b, tl = tokens.shape
+            positions = (_sp["rank"] * tl + torch.arange(
+                tl, dtype=torch.int32, device=tokens.device))[None].expand(
+                b, tl)
         if use_rts and rng is None:
             raise ValueError("random token selection needs the step's "
                              "seed: call loss_fn(params, batch, rng=...)")
@@ -242,7 +313,8 @@ def decoder_model_spec(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
         cfg = _fwd["cfg"]
         hidden, aux = transformer.forward_hidden(
             cfg, params, tokens, attn_fn=attn_fn, moe_fn=mf,
-            remat_policy=remat, layer_loop=loop, **enc)
+            positions=positions, remat_policy=remat, layer_loop=loop,
+            **enc)
         loss = transformer.chunked_cross_entropy(
             cfg, params, hidden, labels, budget_bytes=ce_budget,
             logits_dtype=ce_dtype,

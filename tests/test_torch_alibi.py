@@ -233,5 +233,5 @@ def test_select_attention_rejections():
         select_attention(conf("pallas_flash"), dt.bert_config("tiny"))
     with pytest.raises(ValueError, match="per-layer"):
         select_attention(conf("xla_chunked"), dt.gptneo_config("tiny"))
-    with pytest.raises(NotImplementedError, match="fpdt"):
-        select_attention(conf("fpdt"))
+    with pytest.raises(ValueError, match="full-causal decoders only"):
+        select_attention(conf("fpdt"), dt.bloom_config("tiny"))

@@ -77,7 +77,8 @@ def _per_rank(n, fn, *arrays, out=P("data")):
 def test_mesh_shapes_and_raises_match_jax(ranks, restore_mesh):
     """tests/test_mesh_comm.py:16-42 at the ranks' world: the inferred
     data axis, an explicit one, a bad product (the same message) and
-    mesh_from_config; every other axis above 1 raises in the port."""
+    mesh_from_config; the seq axis in the JAX device order; every other
+    axis above 1 raises in the port."""
     n, _, res = ranks
     jm = jmesh.build_mesh(devices=jax.devices()[:n], set_current=False)
     for r in res:
@@ -88,8 +89,19 @@ def test_mesh_shapes_and_raises_match_jax(ranks, restore_mesh):
         jmesh.build_mesh(data=n + 1, devices=jax.devices()[:n],
                          set_current=False)
     assert res[0]["raises"]["product"] == str(e.value)
-    for ax in ("seq", "pipe", "data_inner"):
+    for ax in ("pipe", "data_inner"):
         assert "Parallelism breadth" in res[0]["raises"][ax], ax
+    # build_mesh(seq=2) in the JAX rank order: data, seq
+    jms = jmesh.build_mesh(data=n // 2, seq=2, devices=jax.devices()[:n],
+                           set_current=False)
+    order = np.asarray(jms.devices).reshape(n // 2, 2)
+    for r, rr in enumerate(res):
+        sm = rr["seq_mesh"]
+        d, s = sm["coords"]
+        assert order[d, s].id == jax.devices()[r].id
+        assert sm["seq_index"] == s and (sm["sp"], sm["dp"]) == (2, n // 2)
+        assert sm["seq_sum"] == sum(d * 2 + j for j in range(2))
+        assert sm["data_sum"] == sum(i * 2 + s for i in range(n // 2))
     # build_mesh(expert=2) in the JAX rank order: data, expert, model
     jme = jmesh.build_mesh(data=n // 2, expert=2, devices=jax.devices()[:n],
                            set_current=False)

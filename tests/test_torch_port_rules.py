@@ -139,8 +139,8 @@ def test_unported_features_raise(monkeypatch):
         tmesh.set_mesh(saved)
     # checkpointing, the elastic agent, the async I/O engine, offload,
     # device meshes over the data axis and resuming at a new world size
-    # are ported; the other mesh axes, ZenFlow and the router's fault hook
-    # are not
+    # are ported, and the seq axis runs over torch.distributed; the other
+    # mesh axes, ZenFlow and the router's fault hook are not
     from deepspeed_tpu_torch.elasticity import elastic_resume
     from deepspeed_tpu_torch.parallel.mesh import Mesh, build_mesh
     with pytest.raises(ValueError, match="elasticity not enabled"):
@@ -153,8 +153,9 @@ def test_unported_features_raise(monkeypatch):
     eng = initialize(cfg, {"train_micro_batch_size_per_gpu": 1},
                      device="cpu", mesh=mesh)[0]
     assert eng.mesh is mesh and eng.dp_world_size == 1
-    with pytest.raises(NotImplementedError, match="Parallelism breadth"):
-        initialize(cfg, {"train_micro_batch_size_per_gpu": 1},
+    with pytest.raises(ValueError, match="torch.distributed"):
+        initialize(cfg, {"train_micro_batch_size_per_gpu": 1,
+                         "sequence_parallel": {"size": 2}},
                    device="cpu", mesh=Mesh({"data": 1, "seq": 2}))
     with pytest.raises(NotImplementedError, match="Parallelism breadth"):
         build_mesh(data=1, seq=1, pipe=1, model=1, expert=1,

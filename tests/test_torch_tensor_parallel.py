@@ -158,10 +158,13 @@ def port(request, init):
     runs += [{"name": name, "model": spec, "params": init[_key(spec)],
               "config": _config(stage, d, m), "steps": data}
              for name, (spec, stage, data) in LLAMA.items()]
-    runs.append({"name": "seq_raises", "model": GPT2,
-                 "config": dict(_config(0, d, m),
+    # the same math with the sequence split over 'seq' (seq 2 × model
+    # d·m/2: Ulysses under TP on four ranks), held against the s0 run
+    runs.append({"name": "seq", "model": GPT2, "params": init[_key(GPT2)],
+                 "config": dict(_config(0, 1, d * m // 2),
                                 sequence_parallel={"size": 2}),
-                 "mode": "raises"})
+                 "steps": RUNS["s0"][4],
+                 "mesh": {"seq": 2, "model": d * m // 2}})
     return d, m, spawn("tp_engine_runs", d * m, data=d, model=m, runs=runs)
 
 
@@ -201,7 +204,7 @@ def test_tp_indivisible_heads_and_widths(port, jax_runs, name):
         _check(r[name], jax_runs[(d, m, name)], name)
 
 
-def test_tp_ranks_hold_model_shards(port):
+def test_tp_ranks_hold_model_shards(port, jax_runs):
     """Column leaves hold 1/tp of their output dim, row leaves of their
     input dim, the vocabulary 1/tp of its rows; norms stay whole."""
     d, m, res = port
@@ -218,7 +221,9 @@ def test_tp_ranks_hold_model_shards(port):
                 "attn/b" not in path and "mlp/bi" not in path:
             assert md is None, path
     assert n_sharded >= 7
-    assert "sequence_parallel" in res[0]["seq_raises"]
+    for r, rr in enumerate(res):
+        _check(rr["seq"], jax_runs[(d, m, "s0")], f"seq rank {r}")
+        assert rr["seq"]["coords"] == (0, r % (d * m // 2))
 
 
 # ---------------------------------------------------------------------------

@@ -83,12 +83,23 @@ def collectives(rank, world, arrays):
         M.build_mesh(data=world + 1)
     except ValueError as e:
         raises["product"] = str(e)
-    for ax in ("seq", "pipe", "data_inner"):
+    for ax in ("pipe", "data_inner"):
         try:
             M.build_mesh(data=world // 2, **{ax: 2})
         except NotImplementedError as e:
             raises[ax] = str(e)
     out["raises"] = raises
+    # the seq axis: between 'expert' and 'model' in the rank order, one
+    # group a data row
+    sm = M.build_mesh(data=world // 2, seq=2)
+    me = torch.tensor([float(rank)])
+    out["seq_mesh"] = {
+        "coords": (sm.coord("data"), sm.coord("seq")),
+        "seq_sum": float(comm.all_reduce(me, "seq")),
+        "data_sum": float(comm.all_reduce(me, "data")),
+        "seq_index": comm.axis_index("seq"),
+        "sp": M.get_sequence_parallel_world_size(sm),
+        "dp": M.get_data_parallel_world_size(sm)}
     # the expert axis: between 'data' and 'model' in the rank order, one
     # group an expert row, one a column (expert-data-parallel), and the
     # ZeRO family's ('data', 'expert')
@@ -323,8 +334,9 @@ def elastic_dp4(rank, world, model, config, save_dir, steps):
 
 def tp_engine_runs(rank, world, data, model, runs):
     """``engine_runs``' "train" and "raises" modes on
-    ``build_mesh(data=data, model=model)``; each result adds this rank's
-    mesh coordinates and the local shapes of its leaves."""
+    ``build_mesh(data=data, model=model)``, or on a run's own ``mesh``;
+    each result adds this rank's mesh coordinates and the local shapes of
+    its leaves."""
     import deepspeed_tpu_torch as dt
     from deepspeed_tpu_torch.ops.optimizers import tree_leaves
     from deepspeed_tpu_torch.parallel.mesh import build_mesh
@@ -340,6 +352,8 @@ def tp_engine_runs(rank, world, data, model, runs):
             except (NotImplementedError, ValueError) as e:
                 out[run["name"]] = str(e)
             continue
+        # a run may name its own mesh (the runs after it keep it)
+        mesh = build_mesh(**run["mesh"]) if "mesh" in run else mesh
         eng = dt.initialize(cfg, dict(run["config"]), params=run.get(
             "params"), device="cpu", mesh=mesh)[0]
         losses = [float(eng.train_batch(iter(step)))
@@ -698,4 +712,93 @@ def ep_serving(rank, world, runs):
             "logits": logits, "a2a": {k: list(v) for k, v in a2a.items()},
             "tokens": eng.generate(run["prompt"], max_new_tokens=run["new"]),
             "wg": tuple(eng.params["layers"]["moe"]["wg"].shape)}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism
+# ---------------------------------------------------------------------------
+
+def sp_attention(rank, world, cases):
+    """Ulysses and ring attention over ``build_mesh(**case["mesh"])``.
+    Each case: {"name", "mesh", "fn": "ulysses" | "ring", "q", "k", "v"
+    (the global [B, T, H|KvH, D] fp32 arrays), "causal"}. A rank takes
+    its block of the sequence over 'seq' and of the heads over 'model',
+    and returns its output block and the gradients of the global
+    sum(out²) with respect to its q, k and v blocks, plus the records of
+    the comms logger over one forward."""
+    from deepspeed_tpu_torch.comm.comms_logger import comms_logger
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+    from deepspeed_tpu_torch.parallel.ring import ring_attention
+    from deepspeed_tpu_torch.parallel.ulysses import distributed_attention
+    out = {}
+    for case in cases:
+        mesh = build_mesh(**case["mesh"])
+        sp, tp = mesh.shape["seq"], mesh.shape["model"]
+        s, m = mesh.coord("seq"), mesh.coord("model")
+
+        def block(a):
+            t, h = a.shape[1] // sp, a.shape[2] // tp
+            return torch.from_numpy(np.ascontiguousarray(
+                a[:, s * t:(s + 1) * t, m * h:(m + 1) * h])
+            ).requires_grad_(True)
+        q, k, v = (block(case[x]) for x in ("q", "k", "v"))
+        fn = ring_attention if case["fn"] == "ring" else \
+            distributed_attention
+        comms_logger.enabled = True
+        comms_logger.reset()
+        o = fn(q, k, v, causal=case.get("causal", True))
+        logged = comms_logger.bytes_by_op()
+        comms_logger.enabled = False
+        (o ** 2).sum().backward()
+        out[case["name"]] = {"out": _np(o), "dq": _np(q.grad),
+                             "dk": _np(k.grad), "dv": _np(v.grad),
+                             "logged": logged,
+                             "coords": (mesh.coord("data"), s, m)}
+    return out
+
+
+def sp_runs(rank, world, meshes):
+    """``meshes``: [{"shape": build_mesh kwargs, "runs": [...]}]. Each run:
+    {"name", "model": (preset, kw), "config", "params" (numpy tree),
+    "steps", "mode": "train" | "raises" | "save" | "load", "dir"}.
+    "train" and "save" return the losses, the gathered params and the
+    rank's mesh coordinates; "save" writes a checkpoint after the steps;
+    "load" loads ``dir`` and returns the gathered params and moments."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+    out = {}
+    for block in meshes:
+        mesh = build_mesh(**block["shape"])
+        for run in block["runs"]:
+            cfg = _model(run["model"])
+            mode = run.get("mode", "train")
+            if mode == "raises":
+                try:
+                    dt.initialize(cfg, dict(run["config"]), device="cpu",
+                                  mesh=mesh)
+                    out[run["name"]] = None
+                except (NotImplementedError, ValueError) as e:
+                    out[run["name"]] = f"{type(e).__name__}: {e}"
+                continue
+            eng = dt.initialize(cfg, dict(run["config"]),
+                                params=run.get("params"), device="cpu",
+                                mesh=mesh)[0]
+            res = {}
+            if mode == "load":
+                res["tag"] = eng.load_checkpoint(run["dir"])[0]
+                res["params"] = _np(eng.gathered_params())
+                res["opt"] = _np(_gathered_state(eng))
+                out[run["name"]] = res
+                continue
+            res["losses"] = [float(eng.train_batch(iter(step)))
+                             for step in run["steps"]]
+            if mode == "save":
+                eng.save_checkpoint(run["dir"])
+                res["opt"] = _np(_gathered_state(eng))
+            res.update(params=_np(eng.gathered_params()),
+                       coords={a: mesh.coord(a)
+                               for a in ("data", "seq", "model")},
+                       eval=float(eng.eval_batch(iter(run["steps"][0]))))
+            out[run["name"]] = res
     return out
