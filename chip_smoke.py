@@ -201,7 +201,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    2048, clip 1.0), at full depth when the host holds the fp32 master and
    moments, else on the NVMe tier when the disk holds it and its traffic
    fits, else with layers cut to what the host holds, and at most
-   OFFLOAD_MAX_LAYERS (8) layers (printed under ``reduced``): 2 warm-up
+   OFFLOAD_MAX_LAYERS (4) layers (printed under ``reduced``): 2 warm-up
    steps and 1 timed (``reduced`` from 3) on one
    fixed batch with ``overlap`` off, then on, each with ms a step, the card's
    forward+backward ms, the host sweep's seconds, D2H and H2D GB/s, the
@@ -319,10 +319,27 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    16/8 of 128, chunk 4096) with its KV store in pinned host memory,
    against K1 on the same q/k/v (each row within 1e-2), its ms, H2D
    GB/s, chunk reads and peak device bytes against K1's call; K1 and K3
-   at T 131072 against their plain versions on the last 4096 query rows;
-   and K1/K3 at Ulysses' 8/4 heads held and timed alone.
+   at T 131072 against their plain versions on the last 4096 query rows,
+   and ``scaled_dot_product_attention``'s forward and backward timed at
+   those shapes (its fused backends only); and K1/K3 at Ulysses' 8/4
+   heads held and timed alone.
    ``--sp-only`` runs the build and phase 15 alone ((a) on two card ranks
    of its own).
+16. pipeline parallelism (``pp``), in phase 13's two card ranks after
+   phase 15 (a), one stage a rank: (a) Llama-3 1B at full width, depth 4
+   (two layers a stage) and a 32,000-entry vocabulary (``reduced``),
+   bf16, stage 1, remat 'full', 8 microbatches of 1 x 2048 a step, 2
+   steps each of GPipe and 1F1B at pipe 2 against pipe 1 at world 1 with
+   the same gas on the same batches (losses within 1e-2; ms a step and
+   peak HBM a rank; the bytes each rank sent over 'pipe' a step against
+   the schedule's formula; K1/K3 launched at 16/8/2048 in the stages,
+   counted by shape); (b) one step of each schedule under remat 'none':
+   peak HBM a rank, 1F1B's below GPipe's; (c) depth 3 (the balanced
+   partition's padding row) in fp32 at T 256, the card's ranks against
+   two CPU ranks at pipe 2 (1e-4). A card rank that has not finished the
+   phase in PP_RANK_TIMEOUT_S dumps its stacks and exits.
+   ``--pipe-only`` runs the build and phase 16 alone (two card ranks and
+   two CPU ranks of its own).
 
 Every phase prints one JSON line; any failure raises, so the script exits
 non-zero. Without CUDA, or outside a checkout of the repository, it exits
@@ -4639,9 +4656,9 @@ def phase_checkpoint(smi: str) -> dict:
 OFFLOAD_MODEL = ("8b", {"max_seq_len": 2048})
 OFFLOAD_SEQ, OFFLOAD_WARMUP, OFFLOAD_STEPS = 2048, 2, 1
 #: (a)'s depth at most (``reduced`` from the 15-18 layers the host holds:
-#: the host sweep is 93 % of a step and scales with the layers; phase 15
-#: pays for its time with this cut)
-OFFLOAD_MAX_LAYERS = 8
+#: the host sweep is 93 % of a step and scales with the layers; phases 15
+#: and 16 pay for their time with this cut)
+OFFLOAD_MAX_LAYERS = 4
 #: host bytes a parameter of the 'cpu' tier holds: fp32 master and two
 #: moments, the pinned bf16 landing and output buffers
 OFFLOAD_HOST_BYTES = 16
@@ -6546,6 +6563,8 @@ def _tp_card_rank(rank, world, store, out, runs_small):
         res["ep"] = _ep_card(rank, world)
         # phase 15 (a) in the same two ranks
         res["sp"] = _sp_card(rank, world)
+        # phase 16 in the same two ranks
+        res["pp"] = _pp_card(rank, world)
         comm.destroy_distributed()
     except BaseException:                       # noqa: BLE001 — reported
         res = {"error": traceback.format_exc()}
@@ -6577,6 +6596,9 @@ def _tp_cpu_rank(rank, world, store, out, runs_small):
         res["ep_losses"] = _ep_small_run("cpu")
         res["launches"] = res["ep_launches"] = sum(
             op_builder.launches.values())
+        # phase 16 (c): the same ranks at pipe 2
+        build_mesh(pipe=world)
+        res["pp"] = _pp_small_run("cpu")
         comm.destroy_distributed()
     except BaseException:                       # noqa: BLE001 — reported
         res = {"error": traceback.format_exc()}
@@ -6786,6 +6808,11 @@ def phase_tp_zeropp(smi: str) -> dict:
         _SP1.update(_sp_reference())
         gc.collect()
         torch.cuda.empty_cache()
+        # phase 16 (a)'s pipe-1 reference
+        _PP1.clear()
+        _PP1.update(_pp_reference())
+        gc.collect()
+        torch.cuda.empty_cache()
         # (a), (b), (b') on the card's two ranks
         for p in card:
             p.start()
@@ -6932,6 +6959,11 @@ def phase_tp_zeropp(smi: str) -> dict:
           "card_rank_seconds": [r["sp"]["seconds"] for r in ranks]})
     _SP_LAUNCHES.clear()
     _SP_LAUNCHES.update(_sp_report(smi, ranks))
+    # phase 16 from the same ranks
+    emit({"phase": "pp", "part": "references",
+          "pipe1_reference_seconds": _PP1["seconds"]})
+    _PP_LAUNCHES.clear()
+    _PP_LAUNCHES.update(_pp_report(smi, ranks, cpu_res))
     return launches
 
 
@@ -7418,7 +7450,39 @@ def _k1_k3_at_long_t(q, k, v) -> dict:
             torch.cuda.empty_cache()
         rest_zero = bool((dq[:, :-tl] == 0).all())
         finite = all(bool(torch.isfinite(x).all()) for x in (dq, dk, dv))
+        del dq, dk, dv
+    # SDPA at the same shapes, timed as phase 3 times it (forward, and
+    # forward + backward less forward), its k/v repeated to the query
+    # heads and held to the fused backends: its math backend would form
+    # the [T, T] scores
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt = (x.transpose(1, 2).detach() for x in (
+        q, k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)))
+    qt, kt, vt = (x.requires_grad_() for x in (qt, kt, vt))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION,
+                      SDPBackend.CUDNN_ATTENTION]):
+        with torch.no_grad():
+            fwd_ms = cuda_time_ms(sdpa, iters=3, warmup=1)
+        both_ms = cuda_time_ms(
+            lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot),
+            iters=3, warmup=1)
+    library = {"flash_attention_fwd": fwd_ms,
+               "flash_attention_bwd": both_ms - fwd_ms}
+    for key, ms in library.items():
+        _SP_TIMES.setdefault("t131072", {}).setdefault(key, {}).update(
+            library_ms=ms, library="torch.nn.functional."
+            "scaled_dot_product_attention (flash/efficient/cuDNN backends)")
+    del qt, kt, vt, dot
+    torch.cuda.empty_cache()
     res = {"T": t, "rows_held": tl, "row_rel_err": errs,
+           "sdpa_fwd_ms": fwd_ms, "sdpa_bwd_ms": both_ms - fwd_ms,
            "tol": {"row_rel": TOL_BF16_ROW, "lse": TOL_BF16_LSE},
            "dq_zero_off_the_held_rows": rest_zero, "finite": finite}
     assert finite and rest_zero, res
@@ -7448,6 +7512,369 @@ def phase_sp(smi: str) -> dict:
         "flash_attention_bwd": check_flash_bwd(
             "sp_local_heads_bwd", rng, 1, SP_SEQ, local, torch.bfloat16)}
     return dict(_LONG_LAUNCHES)
+
+
+# ---------------------------------------------------------------------------
+# phase 16: pipeline parallelism — GPipe and 1F1B in phase 13's two card
+# ranks
+# ---------------------------------------------------------------------------
+
+#: (a): Llama-3 1B at full width (d 2048, heads 16/8 of 128, FFN 8192),
+#: depth 4 (``reduced`` from 16: two layers a stage) and phase 12's
+#: 32,000-entry vocabulary (``reduced`` from 128,256), bf16, ZeRO stage 1,
+#: remat 'full', PP_GAS microbatches of 1 x PP_SEQ a step, PP_STEPS steps
+#: each of GPipe and 1F1B at pipe 2 (one stage a rank) against pipe 1 at
+#: world 1 with the same gas on the same batches: losses within
+#: DP_LOSS_TOL. (b): one step of each schedule under remat 'none' (the
+#: stash's memory). (c): depth 3 (three layers over two stages: the
+#: padding row) in fp32 at T 256, gas 2: the card's ranks against two CPU
+#: ranks at pipe 2 within TP_SMALL_TOL over 2 steps
+PP_MODEL = dict(num_layers=4, max_seq_len=2048, tie_embeddings=True,
+                vocab_size=32000)
+PP_SEQ, PP_GAS, PP_STEPS = 2048, 8, 2
+PP_SMALL = dict(num_layers=3, max_seq_len=256, tie_embeddings=True,
+                vocab_size=32000)
+PP_SMALL_GAS = 2
+#: a card rank that has not finished phase 16 in this many seconds dumps
+#: its stacks and exits (a pipeline whose stages disagree on a hop hangs
+#: in gloo without an error)
+PP_RANK_TIMEOUT_S = 240.0
+#: (a)'s pipe-1 reference, made in phase 13's main process
+_PP1: dict = {}
+#: phase 16's launches on both card ranks ((a) and (b))
+_PP_LAUNCHES: dict = {}
+
+
+def _pp_conf(stages: int, schedule: str, remat: str) -> dict:
+    return {"train_micro_batch_size_per_gpu": 1,
+            "gradient_accumulation_steps": PP_GAS,
+            "optimizer": {"type": "adamw", "params": {
+                "lr": 1e-4, "weight_decay": 0.1}},
+            "gradient_clipping": 1.0, "bf16": {"enabled": True},
+            "activation_checkpointing": {"policy": remat},
+            "attention_impl": "auto", "steps_per_print": 1000,
+            "zero_optimization": {"stage": 1},
+            "pipeline": {"stages": stages, "schedule": schedule},
+            "comms_logger": {"enabled": True}}
+
+
+def _pp_batches(vocab, steps):
+    rng = np.random.default_rng(16)
+    return [[{"input_ids": rng.integers(0, vocab, size=(1, PP_SEQ))
+              .astype(np.int32)} for _ in range(PP_GAS)]
+            for _ in range(steps)]
+
+
+def _pp_train(stages: int, schedule: str, remat: str, steps: int) -> dict:
+    """One engine's steps: losses, seconds a step, peak HBM (of the run,
+    and of the last step over what was allocated before it), the bytes
+    this rank sent over 'pipe' a step, collective bytes a step, K1/K3
+    launches by shape."""
+    import gc
+    import torch
+    from deepspeed_tpu_torch import initialize, llama3_config
+    from deepspeed_tpu_torch.comm.comms_logger import comms_logger
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import op_builder
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = llama3_config(TRAIN_MODEL[0], **PP_MODEL)
+    eng = initialize(cfg, _pp_conf(stages, schedule, remat),
+                     generator=torch.Generator(device=DEV).manual_seed(16),
+                     device=DEV)[0]
+    op_builder.reset_launches()
+    fa.reset_head_dim_launches()
+    comms_logger.reset()
+    losses, step_s = [], []
+    for b in _pp_batches(cfg.vocab_size, steps):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        losses.append(float(eng.train_batch(iter(b))))
+        step_s.append(time.perf_counter() - t1)
+        step_peak = torch.cuda.max_memory_allocated() - base
+    by_op = comms_logger.bytes_by_op()
+    out = {"losses": losses, "step_seconds": step_s,
+           "ms_per_step": 1e3 * step_s[-1],
+           "peak_hbm_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "step_peak_over_base_gb": step_peak / 1e9,
+           "base_gb": base / 1e9,
+           "hop_bytes_per_step": by_op.get("ppermute", 0) / steps,
+           "comm_bytes_per_step": {op: b / steps for op, b in
+                                   by_op.items()},
+           "launches": dict(op_builder.launches),
+           "shape_launches": {k: dict(v) for k, v in
+                              fa.shape_launches.items()}}
+    comms_logger.enabled = False
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pp_reference() -> dict:
+    """(a)'s pipe-1 run at world 1 (no process group) in phase 13's main
+    process, on (a)'s batches and seed."""
+    import torch
+    from deepspeed_tpu_torch.parallel.mesh import set_mesh
+    set_mesh(None)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    t0 = time.perf_counter()
+    ref = _pp_train(1, "1f1b", "full", PP_STEPS)
+    ref["seconds"] = time.perf_counter() - t0
+    return ref
+
+
+def _pp_small_run(device) -> dict:
+    """(c): PP_SMALL at pipe 2 (1F1B) in fp32 over the current mesh, from
+    a seeded CPU tree padded to four rows by the model spec's init."""
+    import torch
+    from deepspeed_tpu_torch import initialize, llama3_config
+    from deepspeed_tpu_torch.config.config import DeepSpeedConfig
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.runtime.model_factory import decoder_model_spec
+    cfg = llama3_config(TRAIN_MODEL[0], **PP_SMALL)
+    conf = {"train_micro_batch_size_per_gpu": 1,
+            "gradient_accumulation_steps": PP_SMALL_GAS,
+            "optimizer": {"type": "adamw",
+                          "params": {"lr": 1e-5, "weight_decay": 0.1}},
+            "gradient_clipping": 1.0, "attention_impl": "auto",
+            "zero_optimization": {"stage": 1},
+            "pipeline": {"stages": 2}}
+    spec = decoder_model_spec(cfg, DeepSpeedConfig.from_any(conf))
+    init = spec.init_fn(torch.Generator().manual_seed(16), "cpu")
+    eng = initialize(spec, conf, params=init, device=device)[0]
+    rng = np.random.default_rng(16)
+    n0 = sum(op_builder.launches.values())
+    losses = []
+    for _ in range(2):
+        step = [{"input_ids": rng.integers(0, cfg.vocab_size, size=(
+            1, PP_SMALL["max_seq_len"])).astype(np.int32)}
+            for _ in range(PP_SMALL_GAS)]
+        losses.append(float(eng.train_batch(iter(step))))
+    rows = {tuple(x.shape)[0] for x in
+            eng.params["layers"]["attn"].values()}
+    return {"losses": losses, "local_rows": sorted(rows),
+            "launches": sum(op_builder.launches.values()) - n0}
+
+
+def _pp_card(rank, world) -> dict:
+    """Phase 16 on a card rank of phase 13 (two gloo ranks on the card):
+    (a) GPipe and 1F1B at pipe 2, (b) both under remat 'none', (c) fp32
+    at depth 3. A rank still here after PP_RANK_TIMEOUT_S dumps its
+    stacks and exits."""
+    import faulthandler
+    import torch
+    from deepspeed_tpu_torch import build_mesh
+    t0 = time.perf_counter()
+    faulthandler.dump_traceback_later(PP_RANK_TIMEOUT_S, exit=True)
+    try:
+        build_mesh(pipe=world)
+        out = {f"a_{s}": _pp_train(world, s, "full", PP_STEPS)
+               for s in ("gpipe", "1f1b")}
+        out.update({f"b_{s}": _pp_train(world, s, "none", 1)
+                    for s in ("gpipe", "1f1b")})
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        out["c"] = _pp_small_run(DEV)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _pp_report(smi, ranks, cpu_res) -> dict:
+    """Phase 16's lines and gates; returns the launches of (a) and (b) on
+    both ranks (the ``pp`` path of the kernel table)."""
+    from deepspeed_tpu_torch import llama3_config
+    from deepspeed_tpu_torch.ops import op_builder
+    cfg = llama3_config(TRAIN_MODEL[0], **PP_MODEL)
+    ref = _PP1
+    launches = {k: 0 for k in op_builder.launches}
+    S, M, d = len(ranks), PP_GAS, cfg.hidden_size
+    block = PP_SEQ * d                          # B·T·d, B = 1
+    heads = f"{cfg.num_heads}/{cfg.kv_heads}/{PP_SEQ}"
+    per_stage = cfg.num_layers // S
+    for sched in ("gpipe", "1f1b"):
+        got = [r["pp"][f"a_{sched}"] for r in ranks]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got[0]["losses"],
+                                                      ref["losses"]))
+        # stage s < S-1 sends M activations (bf16) a step, stage s > 0 M
+        # gradients back: bf16 under GPipe (autograd's, the tensor's
+        # dtype), fp32 under 1F1B (the JAX dbuf)
+        want = [(M * block * 2 if s < S - 1 else 0)
+                + (M * block * (2 if sched == "gpipe" else 4) if s > 0
+                   else 0) for s in range(S)]
+        line = {
+            "phase": "pp", "part": "a", "schedule": sched, "pipe": S,
+            "model": f"llama3-1b-width-depth{cfg.num_layers}-vocab32k",
+            "microbatches": M, "batch": 1, "seq": PP_SEQ,
+            "dtype": "bfloat16", "stage": 1, "remat": "full",
+            "losses": got[0]["losses"], "losses_pipe1": ref["losses"],
+            "loss_rel_err_vs_pipe1": rel, "tol": DP_LOSS_TOL,
+            "ranks_agree": got[0]["losses"] == got[1]["losses"],
+            "ms_per_step_per_rank": [g["ms_per_step"] for g in got],
+            "ms_per_step_pipe1": ref["ms_per_step"],
+            "peak_hbm_gb_per_rank": [g["peak_hbm_gb"] for g in got],
+            "peak_hbm_gb_pipe1": ref["peak_hbm_gb"],
+            "hop_bytes_per_step_per_rank": [g["hop_bytes_per_step"]
+                                            for g in got],
+            "hop_bytes_formula_per_rank": want,
+            "comm_bytes_per_step_per_rank": [g["comm_bytes_per_step"]
+                                             for g in got],
+            "k1_k3_launches_by_shape_per_rank": [g["shape_launches"]
+                                                 for g in got],
+            "k1_k3_launches_pipe1": ref["shape_launches"],
+            "backend": "gloo", "speed_claim": None, "nvidia_smi": smi}
+        emit(line)
+        assert all(np.isfinite(got[0]["losses"])) and line["ranks_agree"], \
+            line
+        assert rel <= DP_LOSS_TOL, line
+        assert line["hop_bytes_per_step_per_rank"] == want, line
+        for g in got:
+            sl = g["shape_launches"]
+            # every stage's K3 once a layer a microbatch, at the model's
+            # heads, and K1 in the forward and the recompute
+            assert sl["flash_attention_bwd"] == {
+                heads: M * per_stage * PP_STEPS}, sl
+            assert set(sl["flash_attention_fwd"]) == {heads} and \
+                sl["flash_attention_fwd"][heads] >= 2 * M * per_stage \
+                * PP_STEPS, sl
+            for k, v in g["launches"].items():
+                launches[k] += v
+    b = {s: [r["pp"][f"b_{s}"] for r in ranks] for s in ("gpipe", "1f1b")}
+    line = {"phase": "pp", "part": "b", "remat": "none", "steps": 1,
+            "peak_hbm_gb_per_rank": {s: [g["peak_hbm_gb"] for g in v]
+                                     for s, v in b.items()},
+            "step_peak_over_base_gb_per_rank": {
+                s: [g["step_peak_over_base_gb"] for g in v]
+                for s, v in b.items()},
+            "base_gb_per_rank": {s: [g["base_gb"] for g in v]
+                                 for s, v in b.items()},
+            "losses": {s: v[0]["losses"] for s, v in b.items()},
+            "nvidia_smi": smi}
+    emit(line)
+    for r in range(S):
+        assert b["1f1b"][r]["peak_hbm_gb"] < b["gpipe"][r]["peak_hbm_gb"], \
+            line
+    for v in b.values():
+        for g in v:
+            for k, n in g["launches"].items():
+                launches[k] += n
+    c = [r["pp"]["c"] for r in ranks]
+    rel = max(abs(a - b_) / abs(b_) for a, b_ in zip(
+        c[0]["losses"], cpu_res[0]["pp"]["losses"]))
+    line = {"phase": "pp", "part": "c", "pipe": S, "dtype": "float32",
+            "model": f"llama3-1b-width-depth{PP_SMALL['num_layers']}"
+            "-vocab32k", "seq": PP_SMALL["max_seq_len"],
+            "microbatches": PP_SMALL_GAS, "losses_card": c[0]["losses"],
+            "losses_cpu": cpu_res[0]["pp"]["losses"],
+            "loss_rel_err": rel, "tol": TP_SMALL_TOL,
+            "local_rows": [x["local_rows"] for x in c],
+            "cpu_launches": cpu_res[0]["pp"]["launches"],
+            "card_rank_seconds": [r["pp"]["seconds"] for r in ranks]}
+    emit(line)
+    assert rel <= TP_SMALL_TOL and cpu_res[0]["pp"]["launches"] == 0, line
+    assert all(x["local_rows"] == [2] for x in c), line
+    assert c[0]["losses"] == c[1]["losses"], line
+    emit({"phase": "pp", "part": "reduced", "cuts": [
+        f"(a) depth {PP_MODEL['num_layers']} of 16 (two layers a stage) "
+        f"and vocabulary 32,000 (phase 12's), {PP_STEPS} steps of "
+        f"{PP_GAS} x 1 x {PP_SEQ}: gloo on one card, no speed claim",
+        "(b) one step each",
+        f"(c) depth {PP_SMALL['num_layers']}, T "
+        f"{PP_SMALL['max_seq_len']}, gas {PP_SMALL_GAS}, 2 steps (the CPU "
+        "ranks' time)"]})
+    return launches
+
+
+def _pp_only_rank(rank, world, store, out):
+    """``--pipe-only``: phase 16 on one of two gloo card ranks."""
+    import pickle
+    import traceback
+    import torch
+    torch.set_num_threads(2)
+    try:
+        torch.cuda.set_device(0)
+        from deepspeed_tpu_torch import comm
+        comm.init_distributed(dist_backend="gloo",
+                              init_method="file://" + store,
+                              num_processes=world, process_id=rank,
+                              device=DEV, timeout=int(PP_RANK_TIMEOUT_S))
+        res = {"pp": _pp_card(rank, world)}
+        comm.destroy_distributed()
+    except BaseException:                       # noqa: BLE001 — reported
+        res = {"error": traceback.format_exc()}
+    with open(out, "wb") as fh:
+        pickle.dump(res, fh)
+
+
+def _pp_cpu_rank(rank, world, store, out):
+    """``--pipe-only``: (c)'s CPU side on one of two gloo CPU ranks."""
+    import pickle
+    import traceback
+    import torch
+    torch.set_num_threads(TP_CPU_THREADS)
+    from deepspeed_tpu_torch import build_mesh, comm
+    try:
+        comm.init_distributed(init_method="file://" + store,
+                              num_processes=world, process_id=rank,
+                              device="cpu", timeout=int(PP_RANK_TIMEOUT_S))
+        build_mesh(pipe=world)
+        res = {"pp": _pp_small_run("cpu")}
+        comm.destroy_distributed()
+    except BaseException:                       # noqa: BLE001 — reported
+        res = {"error": traceback.format_exc()}
+    with open(out, "wb") as fh:
+        pickle.dump(res, fh)
+
+
+def _pp_spawn(smi) -> dict:
+    """``--pipe-only``: (a)'s pipe-1 reference here, then two card ranks
+    and two CPU ranks."""
+    import multiprocessing as mp
+    import pickle
+    import shutil
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="pp_", dir=os.path.join(here, "build"))
+    ctx = mp.get_context("spawn")
+    cpu_outs = [os.path.join(work, f"cpu{r}.pkl") for r in range(2)]
+    cpu = [ctx.Process(target=_pp_cpu_rank, args=(
+        r, 2, os.path.join(work, "cpu_store"), cpu_outs[r]))
+        for r in range(2)]
+    outs = [os.path.join(work, f"card{r}.pkl") for r in range(2)]
+    card = [ctx.Process(target=_pp_only_rank, args=(
+        r, 2, os.path.join(work, "store"), outs[r])) for r in range(2)]
+    try:
+        for p in cpu:
+            p.start()
+        _PP1.clear()
+        _PP1.update(_pp_reference())
+        for p in card:
+            p.start()
+        got = []
+        for p, out in zip(card + cpu, outs + cpu_outs):
+            p.join(PP_RANK_TIMEOUT_S + 60)
+            assert not p.is_alive(), "a pipeline rank still runs"
+            with open(out, "rb") as fh:
+                r = pickle.load(fh)
+            assert "error" not in r, r["error"]
+            got.append(r)
+    finally:
+        for p in card + cpu:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "pp", "part": "references",
+          "pipe1_reference_seconds": _PP1["seconds"]})
+    return _pp_report(smi, got[:2], got[2:])
 
 
 def _ptxas_kernels(log: str) -> dict:
@@ -7534,6 +7961,11 @@ def main() -> int:
         run(phase_sp, smi)
         emit({"phase": "seconds", **seconds})
         return 0
+    if "--pipe-only" in sys.argv[1:]:
+        # phase 16 alone: two card ranks and two CPU ranks of its own
+        run(_pp_spawn, smi)
+        emit({"phase": "seconds", **seconds})
+        return 0
     if "--tp-zeropp-only" in sys.argv[1:]:
         # phases 12, 13 and 14 (13 holds tp 2 against 12's tp-1 runs; 14
         # its ranks against phase 8's run and phase 11 (e)'s int8 one)
@@ -7576,6 +8008,7 @@ def main() -> int:
     paths["tp_zeropp"] = run(phase_tp_zeropp, smi)
     paths["ep"] = dict(_EP_LAUNCHES)
     paths["sp"] = dict(_SP_LAUNCHES)
+    paths["pp"] = dict(_PP_LAUNCHES)
     paths["long_context"] = run(phase_sp, smi)
     emit({"phase": "seconds", **seconds})
 

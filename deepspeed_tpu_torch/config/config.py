@@ -11,7 +11,10 @@ mesh's data axis, the bucket sizes, the stage-3 overlap knobs, and the
 ``ffn_chunk``), ``attention_impl``, ``ce_logits_dtype``,
 ``chunked_ce_budget_mb``, ``moe`` (``ep_size`` the expert axis),
 ``tensor_parallel`` (the model axis), ``sequence_parallel`` (the seq
-axis and the Ulysses or ring attention),
+axis and the Ulysses or ring attention), ``pipeline`` (the pipe axis
+and the schedule; its ``partition_method``, ``micro_batches`` and
+``activation_checkpoint_interval`` read by nothing, as in the JAX
+package),
 ``check_nan_inf``, ``data_efficiency`` (the curriculum sampler),
 ``comms_logger``, ``seed`` and ``steps_per_print``; ``elasticity`` is the input of
 ``elasticity.compute_elastic_config``; ``communication_data_type``,
@@ -26,11 +29,11 @@ read by nothing, and :func:`deepspeed_tpu_torch.telemetry.configure`
 reads ``telemetry``'s ``enabled``, ``trace_buffer_events``,
 ``jax_annotations`` and ``reqtrace``.
 
-Every other section of the JAX config (pipeline parallelism, ZenFlow,
-the monitors, ...) is not ported yet: it may be absent or hold its
-default values, and any other value raises ``NotImplementedError``
-rather than being silently ignored (a pipeline with sequence parallelism
-raises the JAX ``ValueError`` first).
+Every other section of the JAX config (ZenFlow, the monitors, ...) is
+not ported yet: it may be absent or hold its default values, and any
+other value raises ``NotImplementedError`` rather than being silently
+ignored. A pipeline with sequence parallelism raises the JAX
+``ValueError``.
 """
 
 import json
@@ -39,7 +42,8 @@ from typing import Any, Dict, List, Literal, Optional, Union
 
 from pydantic import Field, model_validator
 
-from deepspeed_tpu_torch.config.config_utils import TPUConfigModel, is_auto
+from deepspeed_tpu_torch.config.config_utils import (AUTO, TPUConfigModel,
+                                                     is_auto)
 from deepspeed_tpu_torch.utils.logging import logger
 
 
@@ -431,6 +435,22 @@ class TensorParallelConfig(TPUConfigModel):
         return self
 
 
+class PipelineParallelConfig(TPUConfigModel):
+    """``pipeline`` (config.py:304): ``stages`` is the size of the 'pipe'
+    mesh axis and ``schedule`` the step's order ('1f1b' or 'gpipe',
+    ``runtime/pipe/pipeline.py``); ``partition_method``,
+    ``micro_batches`` and ``activation_checkpoint_interval`` are
+    accepted and, as in the JAX package, read by nothing (the stages
+    split the stacked layers evenly, the microbatches are the
+    gradient-accumulation steps, and the stages run under the
+    ``activation_checkpointing`` policy)."""
+    stages: int = 1
+    partition_method: str = "parameters"
+    micro_batches: Union[int, str] = AUTO
+    activation_checkpoint_interval: int = 0
+    schedule: str = "1f1b"
+
+
 class SequenceParallelConfig(TPUConfigModel):
     """``sequence_parallel`` (config.py:315): the size of the 'seq' mesh
     axis and the attention that crosses it — 'ulysses' (the head/sequence
@@ -443,7 +463,6 @@ class SequenceParallelConfig(TPUConfigModel):
 #: sections of the JAX config this slice does not run, with the values
 #: that leave them off; a key outside its table, or another value, raises
 _UNPORTED_SECTIONS: Dict[str, Dict[str, Any]] = {
-    "pipeline": {"stages": 1},
     "flops_profiler": {"enabled": False},
     "kvtier": {"enabled": False},
     "autoscale": {"enabled": False},
@@ -469,7 +488,7 @@ def _check_unported(config: Dict[str, Any]) -> None:
     sp = config.get("sequence_parallel") or {}
     if isinstance(pipe, dict) and isinstance(sp, dict) and \
             int(pipe.get("stages", 1)) > 1 and int(sp.get("size", 1)) > 1:
-        # model_factory.py:422-430, before the pipeline's own refusal
+        # model_factory.py:422-430
         raise ValueError(
             "pipeline parallelism does not compose with "
             "sequence_parallel yet; drop one of the two (PP composes "
@@ -539,6 +558,8 @@ class DeepSpeedConfig(TPUConfigModel):
         default_factory=TensorParallelConfig)
     sequence_parallel: SequenceParallelConfig = Field(
         default_factory=SequenceParallelConfig)
+    pipeline: PipelineParallelConfig = Field(
+        default_factory=PipelineParallelConfig)
     telemetry: TelemetryConfig = Field(default_factory=TelemetryConfig)
     serving: ServingConfig = Field(default_factory=ServingConfig)
     resilience: ResilienceConfig = Field(default_factory=ResilienceConfig)

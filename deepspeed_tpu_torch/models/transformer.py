@@ -1481,7 +1481,8 @@ def shard_expert_axis(params: Params, ep: int, rank: int) -> Params:
 
 
 def partition_specs(cfg: DecoderConfig, zero_stage: int = 0,
-                    tp: bool = False, mics: bool = False) -> Params:
+                    tp: bool = False, mics: bool = False,
+                    pipe_stages: int = 1) -> Params:
     """The spec tree matching :func:`init_params` (transformer.py:1208):
     each leaf a tuple with one entry per dim — None, an axis name, or a
     tuple of axis names. Stage 3 puts the FSDP axes ('data',
@@ -1492,6 +1493,10 @@ def partition_specs(cfg: DecoderConfig, zero_stage: int = 0,
     output dim of q/k/v and the MLP's input projections (column), the
     input dim of the attention and MLP outputs (row), the vocabulary of
     the embedding and the head; the FSDP axes take another dim.
+    ``pipe_stages`` > 1 adds 'pipe' on dim 0 of every stacked layer leaf
+    (``runtime.pipe.pipeline_partition_specs``); under ``tp`` the
+    embedding and the head (``lm_head`` and its bias) then drop 'model'
+    and stay whole on every stage (model_factory.py:431-445).
     ``mics`` (shards within the MiCS sub-group) is not ported."""
     if mics:
         raise NotImplementedError(
@@ -1573,4 +1578,16 @@ def partition_specs(cfg: DecoderConfig, zero_stage: int = 0,
         specs["lm_head"] = spec(fsdp, model)
         if cfg.lm_head_bias:
             specs["lm_head_bias"] = spec(model)
+    if pipe_stages > 1:
+        from deepspeed_tpu_torch.runtime.pipe.pipeline import \
+            pipeline_partition_specs
+        if tp:
+            def drop_model(s):
+                return tuple(None if a == "model" else a for a in s)
+            specs["embed"] = {k: drop_model(v)
+                              for k, v in specs["embed"].items()}
+            for k in ("lm_head", "lm_head_bias"):
+                if k in specs:
+                    specs[k] = drop_model(specs[k])
+        specs = pipeline_partition_specs(specs, pipe_stages)
     return specs

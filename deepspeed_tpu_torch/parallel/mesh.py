@@ -10,22 +10,25 @@ collective facade (:mod:`deepspeed_tpu_torch.comm`) and the ZeRO plan
 (:mod:`deepspeed_tpu_torch.runtime.zero.sharding`) consume. It keeps
 ``mesh.shape[axis]``.
 
-Four axes run: ``data``, ``expert`` (expert parallelism), ``seq``
-(sequence parallelism: Ulysses and ring attention) and ``model`` (tensor
-parallelism), in the JAX rank order of :data:`MESH_AXES`, 'model' the
-fastest: rank ``r`` sits at model ``r % model``, seq ``(r // model) %
-seq``, expert ``(r // (model · seq)) % expert`` and data ``r // (model ·
-seq · expert)`` — the JAX device order of ``build_mesh`` over as many
-devices. ``build_mesh`` forms one process group for every product of
-live axes and every position on the others: each expert row's 'expert'
-group, each expert column's 'data' group (the expert-data-parallel group
-of reference ``groups.py:315``), the ('data', 'expert') group of the
-ZeRO family, each data row's 'seq' group, and so on; the product of every
-live axis is the world group. A group's ranks are ordered as the JAX mesh
-orders the positions of a tuple of axes (row-major, in :data:`MESH_AXES`
-order). Any other axis above 1 — ``pipe``, or ``data_inner`` (MiCS /
-hpZ) — and a multi-slice ``dcn`` layout raise ``NotImplementedError``
-(ROADMAP A, 'Parallelism breadth').
+Five axes run: ``pipe`` (pipeline parallelism), ``data``, ``expert``
+(expert parallelism), ``seq`` (sequence parallelism: Ulysses and ring
+attention) and ``model`` (tensor parallelism), in the JAX rank order of
+:data:`MESH_AXES`, 'model' the fastest and 'pipe' the slowest: rank
+``r`` sits at model ``r % model``, seq ``(r // model) % seq``, expert
+``(r // (model · seq)) % expert``, data ``(r // (model · seq · expert))
+% data`` and pipe ``r // (model · seq · expert · data)`` — the JAX
+device order of ``build_mesh`` over as many devices. ``build_mesh``
+forms one process group for every product of live axes and every
+position on the others: each expert row's 'expert' group, each expert
+column's 'data' group (the expert-data-parallel group of reference
+``groups.py:315``), the ('data', 'expert') group of the ZeRO family, each
+data row's 'seq' group, each stage's 'data' group, each data row's
+'pipe' group, and so on; the product of every live axis is the world
+group. A group's ranks are ordered as the JAX mesh orders the positions
+of a tuple of axes (row-major, in :data:`MESH_AXES` order). The
+``data_inner`` axis above 1 (MiCS / hpZ) and a multi-slice ``dcn``
+layout raise ``NotImplementedError`` (ROADMAP A, 'Parallelism
+breadth').
 """
 
 import itertools
@@ -40,8 +43,8 @@ MESH_AXES: Tuple[str, ...] = ("pipe", "data", "data_inner", "expert",
 #: ZeRO shards over the full data-parallel product (mesh.py:36)
 ZERO_AXES: Tuple[str, ...] = ("data", "data_inner", "expert")
 
-#: the axes that run in the port
-LIVE_AXES: Tuple[str, ...] = ("data", "expert", "seq", "model")
+#: the axes that run in the port, in the JAX order ('pipe' outermost)
+LIVE_AXES: Tuple[str, ...] = ("pipe", "data", "expert", "seq", "model")
 
 _BREADTH = "(ROADMAP A, 'Parallelism breadth')"
 
@@ -162,15 +165,14 @@ def build_mesh(data: Optional[int] = None,
         raise NotImplementedError(
             f"multi-slice meshes (dcn={dcn}) are not ported to "
             f"deepspeed_tpu_torch yet {_BREADTH}")
-    others = {"pipe": pipe, "data_inner": data_inner}
-    big = {k: v for k, v in others.items() if v > 1}
-    if big:
+    if data_inner > 1:
         raise NotImplementedError(
-            f"mesh axes {big}: deepspeed_tpu_torch runs data, expert, "
-            f"sequence and tensor parallelism only; pipeline parallelism "
-            f"and MiCS sub-groups are not ported yet {_BREADTH}")
+            f"mesh axes {{'data_inner': {data_inner}}}: deepspeed_tpu_torch "
+            f"runs pipeline, data, expert, sequence and tensor parallelism "
+            f"only; MiCS sub-groups are not ported yet {_BREADTH}")
     world_group = d.group.WORLD if d is not None else None
-    sizes = {"data": data, "expert": expert, "seq": seq, "model": model}
+    sizes = {"pipe": pipe, "data": data, "expert": expert, "seq": seq,
+             "model": model}
     rank = d.get_rank() if d is not None else 0
     coords = {}
     for a in reversed(LIVE_AXES):           # 'model' the fastest
@@ -203,8 +205,8 @@ def build_mesh(data: Optional[int] = None,
                 group=world_group, groups=groups, coords=coords)
     if set_current:
         set_mesh(mesh)
-    log_dist(f"built mesh: data={data} expert={expert} seq={seq} "
-             f"model={model} over "
+    log_dist(f"built mesh: pipe={pipe} data={data} expert={expert} "
+             f"seq={seq} model={model} over "
              f"{'torch.distributed' if d is not None else 'one process'}")
     return mesh
 
@@ -213,9 +215,10 @@ def mesh_from_config(config, devices=None) -> Mesh:
     """A mesh from a config's topology knobs (mesh.py:167): the model
     axis from an enabled ``tensor_parallel`` section, the expert axis
     from an enabled ``moe`` section, the seq axis from
-    ``sequence_parallel.size`` (the config holds no pipeline section: it
-    raises there)."""
+    ``sequence_parallel.size`` and the pipe axis from
+    ``pipeline.stages``."""
     return build_mesh(
+        pipe=config.pipeline.stages,
         model=config.tensor_parallel.tp_size
         if config.tensor_parallel.enabled else 1,
         seq=config.sequence_parallel.size,

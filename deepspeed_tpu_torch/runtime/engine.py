@@ -104,12 +104,28 @@ the norm and the checkpoint (written by seq rank 0) treat 'seq' as a
 replica axis. The parameter tier and pipelines under SP raise the JAX
 ``ValueError``s; SP with expert parallelism is not ported.
 
+Pipeline parallelism (engine.py:568-594): a mesh with a ``pipe`` axis
+above 1 (``pipeline.stages``) cuts each stacked layer leaf to this
+stage's rows of the padded stack (its spec's 'pipe' dim); every other
+leaf stays whole on every stage. ``train_batch`` stacks the ``gas``
+micro-batches as ``[M, B, T]`` and runs the model's schedule once a
+step (``runtime/pipe/pipeline.py``: 1F1B through ``pipeline_grad_fn``,
+else GPipe through ``pipeline_loss_fn`` and autograd); the gradients of
+the whole leaves are summed over 'pipe', then reduced over the batch
+axes at every stage; the norm sums the layer rows' squares over 'pipe'
+and counts the whole leaves once; the loss, summed over the stages'
+shares, is the same on every rank. The ranks of a pipe column take the
+same rows of the batch. Checkpoints write each stage's rows with their
+boxes (the whole leaves from pipe rank 0). ``eval_batch`` runs the GPipe
+loss; ``forward``/``backward``/``step``, offload and ZeRO++ under a
+pipeline raise.
+
 The ``telemetry`` block arms the span and request tracers
 (:func:`deepspeed_tpu_torch.telemetry.configure`), the ``comms_logger``
 block the collective log. ZeRO++ (``zero_quantized_weights`` /
 ``zero_quantized_gradients``) runs ``train_batch`` through
 ``runtime/zero/zeropp.py`` (not over an expert axis: the JAX
-``ValueError``). Pipeline parallelism, MiCS, ZenFlow, offload at dp > 1, 1-bit optimizers,
+``ValueError``). MiCS, ZenFlow, offload at dp > 1, 1-bit optimizers,
 the training step's telemetry spans and flight records and the watchdog
 are not ported: their config keys or meshes raise.
 """
@@ -160,15 +176,19 @@ class ModelSpec:
     the engine calls ``loss_fn(params, batch, rng=seed)``, ``seed`` an int
     drawn from the step's random stream for each micro-batch (the JAX
     spec's ``rng`` argument; random token selection reads it). The JAX
-    spec's sharding, pipeline and telemetry fields belong to unported
-    paths. ``decoder_config`` names the decoder the parameter tier
+    spec's telemetry fields belong to unported paths. ``decoder_config`` names the decoder the parameter tier
     streams (engine.py:90's ``decoder_config``). ``partition_specs``:
     the stage-3 spec tree (tuples of axis names per dim, as
     ``models.transformer.partition_specs`` gives them; None: every leaf
     whole). ``configure_overlap(mesh, abstract_params)``: the stage-3
     hook that arms ``loss_fn`` with the layer loop's plan and returns it
     (engine.py:105). ``configure_mesh(mesh)``: arms ``loss_fn`` for the
-    data-parallel reductions of its loss terms."""
+    data-parallel reductions of its loss terms.
+    ``pipeline_loss_fn(params, batch, rng)`` (engine.py:86-95): under
+    ``pipeline.stages`` > 1, the GPipe schedule over stacked
+    microbatches ``[M, B, T]`` → this stage's differentiable share of
+    the loss; ``pipeline_grad_fn(params, batch, rng, scale)``, the 1F1B
+    schedule → (loss, gradients × scale), preferred when set."""
     init_fn: Callable[[torch.Generator, torch.device], Params]
     loss_fn: LossFn
     uses_rng: bool = False
@@ -178,6 +198,8 @@ class ModelSpec:
     partition_specs: Any = None
     configure_overlap: Optional[Callable[..., Any]] = None
     configure_mesh: Optional[Callable[..., Any]] = None
+    pipeline_loss_fn: Optional[Callable[..., Any]] = None
+    pipeline_grad_fn: Optional[Callable[..., Any]] = None
 
 
 class DeepSpeedEngine:
@@ -228,6 +250,10 @@ class DeepSpeedEngine:
         #: their shares are reduced over the batch axes and 'seq'
         self.sp_size = self.mesh.shape["seq"]
         self.sp_rank = self.mesh.coord("seq")
+        #: pipeline parallelism: the 'pipe' axis's size and this rank's
+        #: stage
+        self.pp_size = self.mesh.shape["pipe"]
+        self.pp_rank = self.mesh.coord("pipe")
         batch = (self._batch_axis,) if isinstance(self._batch_axis, str) \
             else self._batch_axis
         self._loss_axis = batch + ("seq",) if self.sp_size > 1 \
@@ -343,9 +369,10 @@ class DeepSpeedEngine:
         self._specs = self.model.partition_specs
         self._mdim = [None] * len(tree_leaves(self.params))
         self._edim = [None] * len(self._mdim)
+        self._pipedim = [None] * len(self._mdim)
         self._tp_full_shapes = [tuple(x.shape)
                                 for x in tree_leaves(self.params)]
-        if (self.tp_size > 1 or self.ep_size > 1) and \
+        if (self.tp_size > 1 or self.ep_size > 1 or self.pp_size > 1) and \
                 self._specs is not None:
             # the model's whole tree, shapes only, in the params' order
             full = tree_map(lambda p, f: f, self.params, self.model.init_fn(
@@ -369,15 +396,16 @@ class DeepSpeedEngine:
         """Cut every leaf whose spec carries 'model' to this rank's block
         along that dim (AutoTP's row/column/vocab shards; a dim that does
         not divide by tp replicates, :func:`models.transformer.
-        fit_tp_specs`), and every expert leaf to this rank's E/ep experts
-        along its 'expert' dim. A leaf given at the block's shape already
-        (``tp_model_init``'s shards) is kept as it is; ``full`` holds the
-        whole shapes."""
+        fit_tp_specs`), every expert leaf to this rank's E/ep experts
+        along its 'expert' dim, and every stacked layer leaf to this
+        stage's rows along its 'pipe' dim. A leaf given at the block's
+        shape already (``tp_model_init``'s shards) is kept as it is;
+        ``full`` holds the whole shapes."""
         from deepspeed_tpu_torch.models.transformer import fit_tp_specs
         from deepspeed_tpu_torch.runtime.zero.sharding import (expert_dim,
                                                                model_dim,
                                                                shard_of)
-        tp, ep = self.tp_size, self.ep_size
+        tp, ep, pp = self.tp_size, self.ep_size, self.pp_size
         if tp > 1:
             self._specs = fit_tp_specs(self._specs, full, tp)
             self._mdim = tree_leaves(tree_map(
@@ -385,10 +413,14 @@ class DeepSpeedEngine:
         if ep > 1:
             self._edim = tree_leaves(tree_map(
                 lambda p, sp: expert_dim(sp), full, self._specs))
-        it = iter(zip(self._mdim, self._edim, self._tp_full_shapes))
+        if pp > 1:
+            self._pipedim = tree_leaves(tree_map(
+                lambda p, sp: model_dim(sp, "pipe"), full, self._specs))
+        it = iter(zip(self._mdim, self._edim, self._pipedim,
+                      self._tp_full_shapes))
 
         def cut(x):
-            md, ed, shape = next(it)
+            md, ed, pd, shape = next(it)
             block = list(shape)
             if md is not None:
                 block[md] //= tp
@@ -398,18 +430,27 @@ class DeepSpeedEngine:
                         f"an expert leaf of shape {shape}: its {shape[ed]} "
                         f"experts do not divide by ep={ep}")
                 block[ed] //= ep
+            if pd is not None:
+                if shape[pd] % pp:
+                    raise ValueError(
+                        f"a layer leaf of shape {shape}: its {shape[pd]} "
+                        f"rows do not divide over pipe={pp} (the padded "
+                        f"stack holds S·ceil(L/S) rows)")
+                block[pd] //= pp
             if tuple(x.shape) == tuple(block):
                 return x
             if tuple(x.shape) != tuple(shape):
                 raise ValueError(
                     f"a parameter of shape {tuple(x.shape)} fits "
-                    f"neither the model's {shape} nor its tp={tp}, ep={ep} "
-                    f"block {tuple(block)}")
+                    f"neither the model's {shape} nor its tp={tp}, ep={ep}, "
+                    f"pipe={pp} block {tuple(block)}")
             y = x.detach()
             if md is not None:
                 y = shard_of(y, md, self.tp_rank, tp)
             if ed is not None:
                 y = shard_of(y, ed, self.ep_rank, ep)
+            if pd is not None:
+                y = shard_of(y, pd, self.pp_rank, pp)
             return y.clone().requires_grad_(x.is_floating_point())
         self.params = tree_map(cut, self.params)
 
@@ -417,8 +458,9 @@ class DeepSpeedEngine:
 
     def _resolve_mesh(self, mesh: Optional[Mesh]) -> Mesh:
         """engine.py:130: the given mesh, the current one, or one from the
-        config; its ``pipe`` and ``data_inner`` axes stay 1 here, and its
-        ``seq`` axis is ``sequence_parallel.size``."""
+        config; its ``data_inner`` axis stays 1 here, its ``seq`` axis is
+        ``sequence_parallel.size`` and its ``pipe`` axis
+        ``pipeline.stages``."""
         if mesh is None:
             mesh = get_mesh() if has_mesh() else \
                 mesh_from_config(self.config)
@@ -429,13 +471,26 @@ class DeepSpeedEngine:
             # the collectives resolve their axis names through it
             set_mesh(mesh)
         big = {a: v for a, v in mesh.shape.items()
-               if a not in ("data", "expert", "seq", "model") and v > 1}
+               if a not in ("pipe", "data", "expert", "seq", "model")
+               and v > 1}
         if big:
             raise NotImplementedError(
-                f"mesh axes {big}: the engine runs data, expert, sequence "
-                f"and tensor parallelism only; the other axes are not "
-                f"ported to deepspeed_tpu_torch yet (ROADMAP A, "
+                f"mesh axes {big}: the engine runs pipeline, data, expert, "
+                f"sequence and tensor parallelism only; the other axes are "
+                f"not ported to deepspeed_tpu_torch yet (ROADMAP A, "
                 f"'Parallelism breadth')")
+        stages = self.config.pipeline.stages
+        if mesh.shape["pipe"] != stages:
+            # a rank of a pipe axis holds one stage's layers only
+            raise ValueError(
+                f"mesh axis 'pipe' has size {mesh.shape['pipe']} but "
+                f"pipeline.stages is {stages}: each stage's rank holds "
+                f"its own rows of the layer stack")
+        if stages > 1 and getattr(self.model, "pipeline_loss_fn",
+                                  None) is None:
+            raise ValueError(
+                f"pipeline.stages {stages}: the model spec has no "
+                f"pipeline_loss_fn (decoder_model_spec builds one)")
         sp = self.config.sequence_parallel.size
         if mesh.shape["seq"] != sp:
             # a rank under a split sequence must not attend its block alone
@@ -455,11 +510,24 @@ class DeepSpeedEngine:
         """What data parallelism does not cover yet raises here; the
         offload tiers run the single-device path at dp 1."""
         zc = self.config.zero_optimization
-        if zc.offload_param.device.value != "none" and self.sp_size > 1:
+        if zc.offload_param.device.value != "none" and \
+                (self.sp_size > 1 or self.pp_size > 1):
             # param_stream.py:124-127
             raise ValueError(
                 "offload_param does not compose with pipeline/sequence "
                 "parallelism (one streaming schedule at a time)")
+        if self.offload_enabled and self.pp_size > 1:
+            # engine.py:505-509
+            raise ValueError(
+                "pipeline parallelism with offload_optimizer.device="
+                "'cpu' is not supported yet — the host step would "
+                "bypass the pipeline schedule")
+        if self.pp_size > 1 and (zc.zero_quantized_weights
+                                 or zc.zero_quantized_gradients):
+            raise NotImplementedError(
+                "ZeRO++ under pipeline parallelism is not ported to "
+                "deepspeed_tpu_torch yet (ROADMAP A, 'Parallelism "
+                "breadth')")
         offload = self.offload_enabled or \
             zc.offload_param.device.value != "none"
         if offload and self.dp_world_size * self.tp_size * self.sp_size > 1:
@@ -471,15 +539,23 @@ class DeepSpeedEngine:
                 f"'Offload')")
         if offload:
             self._dist = False
-        if self.dp_world_size * self.tp_size * self.sp_size == 1:
+        if self.dp_world_size * self.tp_size * self.sp_size * \
+                self.pp_size == 1:
             return
         if not self._dist:
             raise ValueError(
                 f"a mesh of data={self.dp_world_size}, model="
-                f"{self.tp_size}, seq={self.sp_size} needs "
-                f"torch.distributed with as many ranks "
+                f"{self.tp_size}, seq={self.sp_size}, pipe={self.pp_size} "
+                f"needs torch.distributed with as many ranks "
                 f"(deepspeed_tpu_torch.comm.init_distributed)")
         name = str(self.config.optimizer.type).lower()
+        if self.pp_size > 1 and name in ("lamb", "muon"):
+            raise NotImplementedError(
+                f"optimizer {name} under pipeline parallelism: its update "
+                f"is not elementwise (layer norms, Newton-Schulz) and a "
+                f"stage holds its rows of each layer leaf only; not ported "
+                f"to deepspeed_tpu_torch yet (ROADMAP A, 'Parallelism "
+                f"breadth')")
         if self.zero_stage >= 1 and name in ("lamb", "muon"):
             raise NotImplementedError(
                 f"optimizer {name} at ZeRO stage {self.zero_stage} and "
@@ -927,8 +1003,9 @@ class DeepSpeedEngine:
     def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """The global gradient norm; data parallel: the squares of each
         leaf's local piece all-reduced over the axes it is cut on (its
-        ZeRO group when sharded, 'model', 'expert'), so every piece is
-        counted once and a replica never twice."""
+        ZeRO group when sharded, 'model', 'expert', a layer leaf's
+        'pipe'), so every piece is counted once and a replica (a leaf
+        every stage holds) never twice."""
         if not self._dist:
             return global_norm(grads)
         from deepspeed_tpu_torch.parallel.mesh import MESH_AXES
@@ -943,6 +1020,8 @@ class DeepSpeedEngine:
                 on.add("model")
             if self._edim[i] is not None:
                 on.add("expert")
+            if self._pipedim[i] is not None:
+                on.add("pipe")
             key = tuple(a for a in MESH_AXES if a in on)
             parts[key] = parts.get(key, zero) + torch.sum(
                 torch.square(g.float()))
@@ -1029,6 +1108,7 @@ class DeepSpeedEngine:
         """Loss of one micro-batch, with its gradients kept for the
         following :meth:`backward` (engine.py:666: the JAX engine, too,
         computes loss and gradients in one call here)."""
+        self._refuse_pipeline()
         if self._zeropp:
             raise NotImplementedError(
                 "ZeRO++ (zero_quantized_weights / zero_quantized_gradients) "
@@ -1042,6 +1122,7 @@ class DeepSpeedEngine:
 
     def backward(self, loss: torch.Tensor) -> torch.Tensor:
         """Fold the pending gradients into the accumulators (:697)."""
+        self._refuse_pipeline()
         if self._pending_grads is None:
             raise RuntimeError("backward() called without forward()")
         self._accumulate(self._pending_grads)
@@ -1052,6 +1133,7 @@ class DeepSpeedEngine:
 
     def step(self) -> None:
         """Optimizer step at the accumulation boundary (:712)."""
+        self._refuse_pipeline()
         gas = int(self.config.gradient_accumulation_steps)
         if self.micro_steps % gas != 0:
             return
@@ -1063,6 +1145,16 @@ class DeepSpeedEngine:
             metrics = self._apply_update(gas)
         self._step_losses = None
         self._finish_step(metrics)
+
+    def _refuse_pipeline(self) -> None:
+        """forward()/backward()/step() under a pipeline raise the JAX
+        engine's RuntimeError (engine.py:676-679; reference
+        pipe/engine.py)."""
+        if self.pp_size > 1:
+            raise RuntimeError(
+                "forward()/backward()/step() are not supported with "
+                "pipeline parallelism or the ZeRO++ quantized path; use "
+                "train_batch() (reference pipe/engine.py restriction)")
 
     def train_batch(self, data_iter: Optional[Iterator[Batch]] = None
                     ) -> torch.Tensor:
@@ -1107,6 +1199,11 @@ class DeepSpeedEngine:
             self.micro_steps += gas
             self._finish_step(metrics)
             return loss
+        if self.pp_size > 1:
+            loss, metrics = self._pipe_train_step(micros, seed)
+            self.micro_steps += gas
+            self._finish_step(metrics)
+            return loss
         losses, fwd = self._accumulate_grads(micros, seed)
         self._step_losses = losses
         try:
@@ -1120,6 +1217,60 @@ class DeepSpeedEngine:
         self.micro_steps += gas
         self._finish_step(metrics)
         return loss
+
+    def _pipe_train_step(self, micros: List[Batch], seed: int):
+        """engine.py:568-594: the ``gas`` micro-batches stacked as
+        ``[M, B, T]`` through the schedule once (1F1B when the spec has
+        ``pipeline_grad_fn``, else GPipe and autograd); the gradients of
+        the leaves every stage holds summed over 'pipe', then the ZeRO
+        reduction over the batch axes at every stage and the update with
+        the schedule's mean over M. The loss, the sum over 'pipe' of the
+        stages' shares, is the same on every rank."""
+        from deepspeed_tpu_torch.runtime.zero.sharding import \
+            all_reduce_bucketed
+        self._require_states()
+        batch = _stack_micros(micros)
+        params = self._params_for_loss()
+        scale = self.loss_scale_state.scale if self.fp16_enabled else None
+        if self.model.pipeline_grad_fn is not None:
+            loss, gtree = self.model.pipeline_grad_fn(
+                params, batch, seed, 1.0 if scale is None else scale)
+            grads = tree_leaves(gtree)
+            views = tree_leaves(params)
+            # stage 3: leaves given as gathered views get their gradients
+            # through the gather's backward (a reduce-scatter to shards)
+            idx = [i for i, (v, x) in enumerate(zip(views, self._leaves))
+                   if v is not x and grads[i] is not None]
+            if idx:
+                for i, g in zip(idx, torch.autograd.grad(
+                        [views[i] for i in idx],
+                        [self._leaves[i] for i in idx],
+                        [grads[i].to(views[i].dtype) for i in idx])):
+                    grads[i] = g
+        else:
+            share = self.model.pipeline_loss_fn(params, batch, seed)
+            root = share if scale is None else share * scale
+            grads = list(torch.autograd.grad(root, self._leaves,
+                                             allow_unused=True))
+            loss = comm.all_reduce(share.detach(), "pipe")
+        grads = [torch.zeros_like(x) if g is None else g.contiguous()
+                 for x, g in zip(self._leaves, grads)]
+        rep = [grads[i] for i in range(len(grads))
+               if self._pipedim[i] is None]
+        all_reduce_bucketed(
+            rep, "pipe",
+            int(self.config.zero_optimization.reduce_bucket_size))
+        loss = loss.detach()
+        self._step_losses = [loss]
+        try:
+            self._accumulate(grads)
+            del grads, rep
+            metrics = self._apply_update(1)
+        finally:
+            self._step_losses = None
+        loss = self._dp_mean(loss)
+        metrics["loss"] = loss
+        return loss, metrics
 
     def _skip_poisoned_step(self, gas: int) -> torch.Tensor:
         """engine.py:843: an injected ``nonfinite_grad`` step is skipped
@@ -1160,6 +1311,13 @@ class DeepSpeedEngine:
         seed = mix_seed(int(self._rng_gen.initial_seed()),
                         self.global_steps)
         self._require_states()
+        if self.pp_size > 1:
+            # engine.py:936-938: the GPipe schedule, forward only
+            batch = _stack_micros([self._place_batch(next(data_iter))
+                                   for _ in range(gas)])
+            share = self.model.pipeline_loss_fn(self._params_for_loss(),
+                                                batch, seed)
+            return self._dp_mean(comm.all_reduce(share, "pipe"))
         losses = [self._loss(self._place_batch(next(data_iter)),
                              mix_seed(seed, i))[0] for i in range(gas)]
         return self._dp_mean(torch.stack(losses).mean())
@@ -1500,16 +1658,20 @@ class DeepSpeedEngine:
                     and tuple(x.shape) != full):
                 out.append(x)
                 continue
-            # the leaf's box: cut on 'model' and 'expert' (their spec's
-            # dims) and on its ZeRO group (a dim that is still larger;
-            # within the expert block on the expert dim, as the JAX
-            # ('expert', 'data') entry); a replica over an axis it is not
-            # cut on is written by that axis's rank 0
+            # the leaf's box: cut on 'model', 'expert' and 'pipe' (their
+            # spec's dims) and on its ZeRO group (a dim that is still
+            # larger; within the expert block on the expert dim, as the
+            # JAX ('expert', 'data') entry); a replica over an axis it is
+            # not cut on is written by that axis's rank 0
             md, ed, r = self._mdim[i], self._edim[i], self._gr[i]
+            pd = self._pipedim[i]
             start, cut_dp = [0] * x.dim(), False
             for d, (a, b) in enumerate(zip(x.shape, full)):
                 if d == md:
                     start[d] = self.tp_rank * a
+                    continue
+                if d == pd:
+                    start[d] = self.pp_rank * a
                     continue
                 if d == ed:
                     per = b // self.ep_size
@@ -1521,14 +1683,15 @@ class DeepSpeedEngine:
                 if a != b:
                     start[d], cut_dp = r * a, True
             write = (cut_dp or r == 0) and \
-                (md is not None or self.tp_rank == 0) and self.sp_rank == 0
+                (md is not None or self.tp_rank == 0) and \
+                (pd is not None or self.pp_rank == 0) and self.sp_rank == 0
             out.append(ShardedLeaf(x, full, start, write))
         return _unflatten_like(tree, out)
 
     def _local_block(self, tree, like):
         """A loaded tree that mirrors the params (or a subtree of the
         optimizer state that does) cut to this rank's blocks: each leaf
-        on 'model' and 'expert', then on its ZeRO group where ``like``
+        on 'model', 'expert' and 'pipe', then on its ZeRO group where ``like``
         (the engine's tree) holds a shard; other trees as they are."""
         if isinstance(tree, dict) and tree_leaves(tree) and \
                 len(tree_leaves(tree)) == len(self._mdim) and \
@@ -1540,7 +1703,9 @@ class DeepSpeedEngine:
                     for d, rank, n in ((self._mdim[i], self.tp_rank,
                                         self.tp_size),
                                        (self._edim[i], self.ep_rank,
-                                        self.ep_size)):
+                                        self.ep_size),
+                                       (self._pipedim[i], self.pp_rank,
+                                        self.pp_size)):
                         if d is not None:
                             x = x.narrow(d, rank * (x.shape[d] // n),
                                          x.shape[d] // n)
@@ -1649,14 +1814,16 @@ class DeepSpeedEngine:
 
     def gathered_params(self) -> Params:
         """The whole parameter tree: each shard all-gathered along its
-        dims (stage 3's ZeRO shard, then the expert and model blocks) — a
-        collective every rank must call; else ``self.params`` itself."""
+        dims (stage 3's ZeRO shard, then the expert, model and pipe
+        blocks) — a collective every rank must call; else ``self.params``
+        itself."""
         if self._zeropp:
             from deepspeed_tpu_torch.runtime.zero.zeropp import \
                 unflatten_params
             return unflatten_params(self)
         if not self._dist or not any(
-                d is not None for d in self._pdim + self._mdim + self._edim):
+                d is not None for d in self._pdim + self._mdim + self._edim
+                + self._pipedim):
             return self.params
         from deepspeed_tpu_torch.runtime.zero.sharding import \
             all_gather_bucketed
@@ -1669,7 +1836,9 @@ class DeepSpeedEngine:
         steps += [([i for i, d in enumerate(dims) if d is not None], dims,
                    axis, n)
                   for dims, axis, n in ((self._edim, "expert", self.ep_size),
-                                        (self._mdim, "model", self.tp_size))]
+                                        (self._mdim, "model", self.tp_size),
+                                        (self._pipedim, "pipe",
+                                         self.pp_size))]
         with torch.no_grad():
             for idx, dims, axis, n in steps:
                 if not idx:
@@ -1744,7 +1913,13 @@ def _flags_to_host(flags):
 
 
 #: every axis the engine runs: a flag reduced over them reaches every rank
-_ALL_AXES = ("data", "expert", "seq", "model")
+_ALL_AXES = ("pipe", "data", "expert", "seq", "model")
+
+
+def _stack_micros(micros: List[Batch]) -> Batch:
+    """The micro-batches stacked along a new dim 0 (``[M, B, ...]``),
+    leaf by leaf (engine.py:756)."""
+    return {k: torch.stack([mb[k] for mb in micros]) for k in micros[0]}
 
 
 def _copy_into(dst, src, rank: int = 0):

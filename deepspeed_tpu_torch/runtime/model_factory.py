@@ -13,12 +13,18 @@ folds them. For data parallelism the spec carries the stage-3
 cross-entropy's count of valid labels, the dropless MoE's routing
 means). Under sequence parallelism it also gives a rank's block of the
 sequence its global positions, and takes the Ulysses or the ring
-attention from ``select_attention``. Pipeline parallelism, the capacity
-MoE under sequence parallelism and the health taps raise
+attention from ``select_attention``. With ``pipeline.stages`` > 1
+(model_factory.py:369-487) the spec carries ``pipeline_loss_fn`` (the
+GPipe schedule) and, for the '1f1b' schedule, ``pipeline_grad_fn``; the
+layer stack is padded to S·ceil(L/S) rows for the balanced partition,
+and encoders, per-layer windows, sequence parallelism, the dropless MoE
+and an unknown schedule raise the JAX ``ValueError``s. The capacity MoE
+under sequence parallelism and the health taps raise
 ``NotImplementedError``.
 """
 
 import dataclasses
+import math
 import os
 from functools import partial
 from typing import Optional
@@ -136,7 +142,7 @@ def select_moe(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
     """The training ``moe_fn`` (model_factory.py:191-223), None for a
     dense model: ``moe.impl="dropless"`` → :func:`dropless_moe_layer`
     (the grouped FFN; whole experts, so ``ep_size`` > 1 raises the JAX
-    ``ValueError``), "capacity" → :func:`moe_layer` with the section's
+    ``ValueError``, as ``pipeline.stages`` > 1 does), "capacity" → :func:`moe_layer` with the section's
     capacity_factor, min_capacity and drop_tokens, and ``ep_axis``
     'expert' when ``ep_size`` > 1 (random token selection and the batch
     axes are added per step by :func:`decoder_model_spec`)."""
@@ -156,6 +162,14 @@ def select_moe(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
                 "dispatch has data-dependent per-expert counts, which "
                 "cannot cross an EP all-to-all with static shapes. Use "
                 "the capacity impl for expert parallelism.")
+        if ds_cfg.pipeline.stages > 1:
+            raise ValueError(
+                "moe.impl='dropless' does not compose with pipeline "
+                "parallelism: the pipeline already runs layers inside a "
+                "shard_map over 'pipe', and the dropless per-shard "
+                "dispatch is itself a shard_map (nested manual meshes "
+                "conflict, same restriction as PP+SP). Use the capacity "
+                "impl with pipeline stages.")
         return partial(dropless_moe_layer,
                        top_k=dec_cfg.num_experts_per_tok,
                        aux_loss_coef=moe.aux_loss_coef,
@@ -265,9 +279,10 @@ def decoder_model_spec(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
         tot = comm.all_reduce(cnt.float(), _dp["axis"])
         return tot.clamp_min(1) / _dp["n"]
 
+    stages = int(ds_cfg.pipeline.stages)
     specs = transformer.partition_specs(dec_cfg,
                                         ds_cfg.zero_optimization.stage,
-                                        tp=tp)
+                                        tp=tp, pipe_stages=stages)
     ce_budget = None if ds_cfg.chunked_ce_budget_mb is None \
         else int(ds_cfg.chunked_ce_budget_mb) * 1024 * 1024
     ce_dtype = torch.bfloat16 if ds_cfg.ce_logits_dtype in (
@@ -323,7 +338,110 @@ def decoder_model_spec(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
             return loss
         return loss + aux, {"aux_loss": aux}
 
+    pipeline_loss_fn = pipeline_grad_fn = None
+    if stages > 1:
+        # the balanced partition for L % S != 0 (model_factory.py:375-401,
+        # reference partition_balanced, pipe/module.py:393): the stack is
+        # padded to S·ceil(L/S) zero layers that the stages skip
+        n_layers = dec_cfg.num_layers
+        cap = math.ceil(n_layers / stages)
+        pad = cap * stages - n_layers
+        pipe_layer_mask = None
+        if pad:
+            pipe_layer_mask = [r < n_layers for r in range(cap * stages)]
+            base_init = init_fn
+
+            def init_fn(generator: torch.Generator, device):  # noqa: F811
+                p = dict(base_init(generator, device))
+                p["layers"] = _pad_rows(p["layers"], pad)
+                return p
+            log_dist(f"pipeline: {n_layers} layers over {stages} stages — "
+                     f"balanced split via {pad} masked padding layer(s), "
+                     f"{cap}/stage critical path")
+        if not dec_cfg.causal or not dec_cfg.prenorm:
+            raise ValueError(
+                "pipeline parallelism does not support encoder "
+                "(bidirectional / post-LN) models; use DP/TP for "
+                "BERT-class models")
+        if dec_cfg.layer_window_pattern:
+            raise ValueError(
+                "pipeline parallelism does not support per-layer "
+                "attention windows (layer_window_pattern); use DP/TP "
+                "for GPT-Neo-class models")
+        if ds_cfg.sequence_parallel.size > 1:
+            raise ValueError(
+                "pipeline parallelism does not compose with "
+                "sequence_parallel yet; drop one of the two (PP composes "
+                "with TP/DP/ZeRO; SP composes with TP/DP/ZeRO/EP)")
+        schedule = ds_cfg.pipeline.schedule
+        if schedule not in ("1f1b", "gpipe"):
+            raise ValueError(
+                f"pipeline.schedule must be '1f1b' or 'gpipe', got "
+                f"'{schedule}'")
+        from deepspeed_tpu_torch.runtime.pipe.pipeline import (
+            pipelined_loss, pipelined_loss_and_grads_1f1b)
+
+        def pipe_labels(tokens, batch):
+            if "labels" in batch:
+                return batch["labels"]
+            return torch.cat([tokens[:, :, 1:],
+                              torch.full_like(tokens[:, :, :1], -100)],
+                             dim=2)
+
+        def pipe_kwargs(rng):
+            """The schedule's arguments for one step: the stage's
+            attention (K1/K3 on CUDA tensors, as ``select_attention``
+            chose), the MoE layer (per microbatch with random token
+            selection: the seed the engine gives microbatch i without
+            a pipeline), the stage-3 loop and the data-parallel count."""
+            if use_rts and rng is None:
+                raise ValueError("random token selection needs the step's "
+                                 "seed: call the pipeline with rng=...")
+            mf = moe_fn
+            if _dp["n"] and mf is not None:
+                mf = partial(mf, batch_axis=_dp["axis"])
+            moe_for = None
+            if use_rts:
+                from deepspeed_tpu_torch.parallel.moe import mix_seed
+                moe_for = (lambda i: rts_moe(mix_seed(rng, i), mf))
+            return dict(attn_fn=attn_fn, moe_fn=mf, moe_for=moe_for,
+                        remat_policy=remat or "full", num_stages=stages,
+                        ce_budget_bytes=ce_budget, ce_logits_dtype=ce_dtype,
+                        layer_mask=pipe_layer_mask,
+                        layer_loop=_ovl["plan"].layer_loop
+                        if _ovl["plan"] is not None else None,
+                        count_fn=global_count if _dp["n"] else None)
+
+        def pipeline_loss_fn(params, batch, rng: Optional[int] = None):
+            """GPipe over ``batch['input_ids']`` [M, B, T]: this stage's
+            share of the loss (its sum over 'pipe' is the loss)."""
+            tokens = batch["input_ids"]
+            return pipelined_loss(_fwd["cfg"], params, tokens,
+                                  pipe_labels(tokens, batch),
+                                  **pipe_kwargs(rng))
+
+        if schedule == "1f1b":
+            def pipeline_grad_fn(params, batch, rng: Optional[int] = None,
+                                 scale: float = 1.0):
+                """1F1B over [M, B, T]: (loss, grads × scale), the
+                replicated leaves' grads this stage's part."""
+                tokens = batch["input_ids"]
+                return pipelined_loss_and_grads_1f1b(
+                    _fwd["cfg"], params, tokens, pipe_labels(tokens, batch),
+                    scale=scale, **pipe_kwargs(rng))
+
     return ModelSpec(init_fn=init_fn, loss_fn=loss_fn, uses_rng=use_rts,
                      decoder_config=dec_cfg, partition_specs=specs,
                      configure_overlap=configure_overlap,
-                     configure_mesh=configure_mesh)
+                     configure_mesh=configure_mesh,
+                     pipeline_loss_fn=pipeline_loss_fn,
+                     pipeline_grad_fn=pipeline_grad_fn)
+
+
+def _pad_rows(layers, pad: int):
+    """The stacked layer tree with ``pad`` zero rows appended to each
+    leaf (model_factory.py:393-398)."""
+    if isinstance(layers, dict):
+        return {k: _pad_rows(v, pad) for k, v in layers.items()}
+    return torch.cat([layers, layers.new_zeros(
+        (pad,) + tuple(layers.shape[1:]))], dim=0)

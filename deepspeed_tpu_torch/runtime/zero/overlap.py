@@ -32,7 +32,10 @@ expert parallelism each expert leaf is gathered over its column's 'data'
 group and every other leaf over ('data', 'expert'); with
 ``overlap_comm`` set the JAX plan fences EP off and falls back to its
 monolithic collectives (overlap.py:400-406): the port warns with the same
-words and runs this loop without prefetch, which computes the same. The JAX
+words and runs this loop without prefetch, which computes the same. Under
+pipeline parallelism the JAX package runs its monolithic collectives
+too; the port runs this loop over the stage's rows without prefetch,
+gathering over the stage's ZeRO group only. The JAX
 module's XLA scheduler-flag helpers (``LATENCY_HIDING_FLAGS``,
 ``verify_scheduler_flags``, :445-502) tune XLA's latency-hiding
 scheduler and have no PyTorch meaning: they are not ported.
@@ -475,11 +478,18 @@ def build_overlap_plan(mesh: Mesh, layer_specs: Pytree,
     Without ``overlap_comm``: one layer a chunk, no prefetch, re-gather —
     the stage-3 loop with each gather waited on before its layer. An MoE
     model over an expert axis takes that loop too, after the JAX
-    warning."""
-    if mesh.shape.get("pipe", 1) > 1:
-        raise NotImplementedError(
-            "the stage-3 layer loop over pipeline meshes is not ported to "
-            "deepspeed_tpu_torch yet (ROADMAP A, 'Parallelism breadth')")
+    warning, and so does a pipeline stage, over its own rows of the
+    stack (``abstract_layers`` hold the whole stack)."""
+    pipe = mesh.shape.get("pipe", 1)
+    if pipe > 1:
+        # a stage's rows of the layer stack, gathered over its own ZeRO
+        # group one layer at a time, without prefetch (the JAX package
+        # arms its chunked plan at one stage only and runs the monolithic
+        # collectives under a pipeline, model_factory.py:491)
+        return OverlapPlan(
+            mesh, tree_map(lambda sp: (None,) + tuple(sp[1:]), layer_specs),
+            tree_map(lambda x: x[:x.shape[0] // pipe], abstract_layers),
+            bucket_bytes=0, prefetch=0, regather=True)
     ep = mesh.shape.get("expert", 1)
     if zero_config.overlap_comm and num_experts and ep > 1:
         _warn_once(

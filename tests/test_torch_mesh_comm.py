@@ -77,8 +77,8 @@ def _per_rank(n, fn, *arrays, out=P("data")):
 def test_mesh_shapes_and_raises_match_jax(ranks, restore_mesh):
     """tests/test_mesh_comm.py:16-42 at the ranks' world: the inferred
     data axis, an explicit one, a bad product (the same message) and
-    mesh_from_config; the seq axis in the JAX device order; every other
-    axis above 1 raises in the port."""
+    mesh_from_config; the seq and pipe axes in the JAX device order;
+    data_inner above 1 raises in the port."""
     n, _, res = ranks
     jm = jmesh.build_mesh(devices=jax.devices()[:n], set_current=False)
     for r in res:
@@ -89,8 +89,20 @@ def test_mesh_shapes_and_raises_match_jax(ranks, restore_mesh):
         jmesh.build_mesh(data=n + 1, devices=jax.devices()[:n],
                          set_current=False)
     assert res[0]["raises"]["product"] == str(e.value)
-    for ax in ("pipe", "data_inner"):
-        assert "Parallelism breadth" in res[0]["raises"][ax], ax
+    assert "Parallelism breadth" in res[0]["raises"]["data_inner"]
+    # build_mesh(pipe=2) in the JAX rank order: 'pipe' the slowest axis
+    jmp = jmesh.build_mesh(data=n // 2, pipe=2, devices=jax.devices()[:n],
+                           set_current=False)
+    order = np.asarray(jmp.devices).reshape(2, n // 2)
+    for r, rr in enumerate(res):
+        pm = rr["pipe_mesh"]
+        p, d = pm["coords"]
+        assert order[p, d].id == jax.devices()[r].id
+        assert pm["pipe_index"] == p and (pm["pp"], pm["dp"]) == (2, n // 2)
+        assert pm["pipe_sum"] == sum(j * (n // 2) + d for j in range(2))
+        assert pm["data_sum"] == sum(p * (n // 2) + i for i in range(n // 2))
+        # stage 0's block to stage 1 of its data row; stage 0 gets zeros
+        assert pm["next"] == [float(r - n // 2) if p else 0.0]
     # build_mesh(seq=2) in the JAX rank order: data, seq
     jms = jmesh.build_mesh(data=n // 2, seq=2, devices=jax.devices()[:n],
                            set_current=False)

@@ -28,6 +28,7 @@ from deepspeed_tpu.runtime.dataloader import DeepSpeedTPUDataLoader
 import deepspeed_tpu_torch as dt
 from deepspeed_tpu_torch.models.convert import params_to_numpy
 from deepspeed_tpu_torch.ops.optimizers import tree_leaves
+from deepspeed_tpu_torch.parallel.mesh import Mesh
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -185,9 +186,12 @@ def test_engine_defaults_to_cuda_and_unported_config_raises(monkeypatch):
                       config={"zero_optimization": {
                           "stage": 3, "zero_hpz_partition_size": 2}},
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="pipeline"):
+    # pipeline parallelism runs over torch.distributed
+    # (test_torch_pipeline.py): a pipe mesh without a process group raises
+    with pytest.raises(ValueError, match="torch.distributed"):
         dt.initialize(model=dt.llama3_config("tiny"),
-                      config={"pipeline": {"stages": 2}}, device="cpu")
+                      config={"pipeline": {"stages": 2}}, device="cpu",
+                      mesh=Mesh({"data": 1, "pipe": 2}))
     # communication_data_type is accepted and read by nothing, as in the
     # JAX package (its config.py:853 is the only place naming it)
     eng = dt.initialize(model=dt.llama3_config("tiny"),

@@ -294,17 +294,19 @@ def test_capacity_moe_and_other_axes_raise(port, jax_runs):
             np.testing.assert_allclose(g, jg[name], rtol=2e-4, atol=2e-4,
                                        err_msg=name)
     cfg = dt.gpt2_config("tiny", max_seq_len=SEQ, vocab_size=VOCAB)
-    for ax in ("pipe", "data_inner"):
-        with pytest.raises(NotImplementedError, match="Parallelism breadth"):
-            dt.initialize(cfg, _config(0, 1), device="cpu",
-                          mesh=Mesh({"data": 1, ax: 2}))
-    # the model, expert and seq axes run (test_torch_tensor_parallel.py,
-    # test_torch_expert_parallel.py, test_torch_sequence_parallel.py), over
-    # as many ranks as the mesh holds
+    with pytest.raises(NotImplementedError, match="Parallelism breadth"):
+        dt.initialize(cfg, _config(0, 1), device="cpu",
+                      mesh=Mesh({"data": 1, "data_inner": 2}))
+    # the model, expert, seq and pipe axes run (test_torch_tensor_parallel
+    # .py, test_torch_expert_parallel.py, test_torch_sequence_parallel.py,
+    # test_torch_pipeline.py), over as many ranks as the mesh holds
     for shape in ({"data": 2}, {"data": 1, "model": 2},
-                  {"data": 1, "expert": 2}, {"data": 1, "seq": 2}):
-        sp = {"sequence_parallel": {"size": shape["seq"]}} \
+                  {"data": 1, "expert": 2}, {"data": 1, "seq": 2},
+                  {"data": 1, "pipe": 2}):
+        extra = {"sequence_parallel": {"size": shape["seq"]}} \
             if "seq" in shape else {}
+        if "pipe" in shape:
+            extra = {"pipeline": {"stages": shape["pipe"]}}
         with pytest.raises(ValueError, match="torch.distributed"):
-            dt.initialize(cfg, dict(_config(0, shape["data"]), **sp),
+            dt.initialize(cfg, dict(_config(0, shape["data"]), **extra),
                           device="cpu", mesh=Mesh(shape))

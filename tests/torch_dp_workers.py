@@ -83,12 +83,23 @@ def collectives(rank, world, arrays):
         M.build_mesh(data=world + 1)
     except ValueError as e:
         raises["product"] = str(e)
-    for ax in ("pipe", "data_inner"):
-        try:
-            M.build_mesh(data=world // 2, **{ax: 2})
-        except NotImplementedError as e:
-            raises[ax] = str(e)
+    try:
+        M.build_mesh(data=world // 2, data_inner=2)
+    except NotImplementedError as e:
+        raises["data_inner"] = str(e)
     out["raises"] = raises
+    # the pipe axis: the slowest in the rank order, one group a data row
+    # (the stages) and one a stage (its data ranks)
+    pm = M.build_mesh(data=world // 2, pipe=2)
+    me = torch.tensor([float(rank)])
+    out["pipe_mesh"] = {
+        "coords": (pm.coord("pipe"), pm.coord("data")),
+        "pipe_sum": float(comm.all_reduce(me, "pipe")),
+        "data_sum": float(comm.all_reduce(me, "data")),
+        "pipe_index": comm.axis_index("pipe"),
+        "pp": M.get_pipe_parallel_world_size(pm),
+        "dp": M.get_data_parallel_world_size(pm),
+        "next": comm.ppermute(me, "pipe", [(0, 1)]).tolist()}
     # the seq axis: between 'expert' and 'model' in the rank order, one
     # group a data row
     sm = M.build_mesh(data=world // 2, seq=2)
@@ -654,7 +665,7 @@ def ep_runs(rank, world, meshes):
 
 def _gathered_state(eng):
     """The optimizer's moment trees, each leaf whole: gathered over its
-    ZeRO group, then over 'expert' and 'model'."""
+    ZeRO group, then over 'expert', 'model' and 'pipe'."""
     from deepspeed_tpu_torch import comm
     from deepspeed_tpu_torch.ops.optimizers import tree_leaves
     from deepspeed_tpu_torch.runtime.engine import _unflatten_like
@@ -672,6 +683,8 @@ def _gathered_state(eng):
                 x = comm.all_gather(x, "expert", axis=eng._edim[i])
             if eng._mdim[i] is not None:
                 x = comm.all_gather(x, "model", axis=eng._mdim[i])
+            if eng._pipedim[i] is not None:
+                x = comm.all_gather(x, "pipe", axis=eng._pipedim[i])
             leaves.append(x)
         out[k] = _unflatten_like(v, leaves)
     return out
@@ -801,4 +814,121 @@ def sp_runs(rank, world, meshes):
                                for a in ("data", "seq", "model")},
                        eval=float(eng.eval_batch(iter(run["steps"][0]))))
             out[run["name"]] = res
+    return out
+
+
+# ---------------------------------------------------------------------------
+# pipeline parallelism: the engine and the schedules over 'pipe'
+# ---------------------------------------------------------------------------
+
+def pp_runs(rank, world, meshes):
+    """``meshes``: [{"shape": build_mesh kwargs, "runs": [...]}]. Each run:
+    {"name", "model": (preset, kw), "config", "params" (numpy tree),
+    "steps", "mode": "train" | "save" | "load" | "forward_raises", "dir"}.
+    "train" and "save" return the losses, the gathered params, the eval
+    loss, the ppermute bytes this rank sent during the steps, the local
+    shapes of the layer leaves and the rank's mesh coordinates; "save"
+    writes a checkpoint after the steps and adds the gathered moments;
+    "load" loads ``dir`` and returns the gathered params and moments;
+    "forward_raises" returns forward()'s error."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.comm.comms_logger import comms_logger
+    from deepspeed_tpu_torch.ops.optimizers import tree_leaves
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+    out = {}
+    for block in meshes:
+        mesh = build_mesh(**block["shape"])
+        for run in block["runs"]:
+            cfg = _model(run["model"])
+            mode = run.get("mode", "train")
+            eng = dt.initialize(cfg, dict(run["config"]),
+                                params=run.get("params"), device="cpu",
+                                mesh=mesh)[0]
+            res = {}
+            if mode == "forward_raises":
+                try:
+                    eng.forward(run["steps"][0][0])
+                    out[run["name"]] = None
+                except RuntimeError as e:
+                    out[run["name"]] = str(e)
+                continue
+            if mode == "load":
+                res["tag"] = eng.load_checkpoint(run["dir"])[0]
+                res["params"] = _np(eng.gathered_params())
+                res["opt"] = _np(_gathered_state(eng))
+                out[run["name"]] = res
+                continue
+            comms_logger.enabled, comms_logger.prof_all = True, True
+            comms_logger.reset()
+            res["losses"] = [float(eng.train_batch(iter(step)))
+                             for step in run["steps"]]
+            res["sent"] = comms_logger.bytes_by_op().get("ppermute", 0)
+            comms_logger.enabled = False
+            if mode == "save":
+                eng.save_checkpoint(run["dir"])
+                res["opt"] = _np(_gathered_state(eng))
+            res.update(params=_np(eng.gathered_params()),
+                       coords={a: mesh.coord(a)
+                               for a in ("pipe", "data", "model")},
+                       local_layers=[tuple(x.shape) for x in
+                                     tree_leaves(eng.params["layers"])],
+                       eval=float(eng.eval_batch(iter(run["steps"][0]))))
+            out[run["name"]] = res
+    return out
+
+
+def pp_grads(rank, world, cases):
+    """The two schedules as functions at pipe ``world``: each case
+    {"name", "model": (preset, kw), "params" (numpy tree), "tokens",
+    "labels" ([M, B, T])} → for "gpipe" and "1f1b" the loss and the
+    gradients of every leaf, whole (the layer rows gathered over 'pipe',
+    the other leaves' parts summed over it)."""
+    import torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.ops.optimizers import tree_leaves
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+    from deepspeed_tpu_torch.runtime.engine import _unflatten_like
+    from deepspeed_tpu_torch.runtime.pipe import (
+        pipelined_loss, pipelined_loss_and_grads_1f1b)
+    build_mesh(pipe=world)
+    out = {}
+    for case in cases:
+        cfg = _model(case["model"])
+
+        def conv(path, a):
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            if path[0] == "layers":
+                n = t.shape[0] // world
+                t = t[rank * n:(rank + 1) * n].clone()
+            return t.requires_grad_(t.is_floating_point())
+
+        def walk(tree, path=()):
+            if isinstance(tree, dict):
+                return {k: walk(v, path + (k,)) for k, v in tree.items()}
+            return conv(path, tree)
+        params = walk(case["params"])
+        names = list(_paths(params))
+        tok = torch.from_numpy(case["tokens"])
+        lab = torch.from_numpy(case["labels"])
+        leaves = tree_leaves(params)
+        share = pipelined_loss(cfg, params, tok, lab, remat_policy="full",
+                               num_stages=world)
+        g_gpipe = torch.autograd.grad(share, leaves, allow_unused=True)
+        l_gpipe = comm.all_reduce(share.detach(), "pipe")
+        l_1f1b, g_tree = pipelined_loss_and_grads_1f1b(
+            cfg, params, tok, lab, remat_policy="full", num_stages=world)
+        res = {"names": names}
+        for key, loss, grads in (("gpipe", l_gpipe, g_gpipe),
+                                 ("1f1b", l_1f1b, tree_leaves(g_tree))):
+            whole = []
+            for name, x, g in zip(names, leaves, grads):
+                g = torch.zeros_like(x) if g is None else g.float()
+                if name.startswith("layers/"):
+                    g = comm.all_gather(g.contiguous(), "pipe", axis=0)
+                else:
+                    g = comm.all_reduce(g.contiguous(), "pipe")
+                whole.append(g)
+            res[key] = {"loss": float(loss),
+                        "grads": _np(_unflatten_like(params, whole))}
+        out[case["name"]] = res
     return out
