@@ -340,6 +340,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    phase in PP_RANK_TIMEOUT_S dumps its stacks and exits.
    ``--pipe-only`` runs the build and phase 16 alone (two card ranks and
    two CPU ranks of its own).
+17. the data axes (``data_axes``): (a) in phase 13's two card ranks after
+   phase 16, Llama-3 1B at full width, depth 2 and a 32,000-entry
+   vocabulary (``reduced``), bf16, 1 x 2048 tokens a rank a step: 1-bit
+   Adam at data 2 over freeze_step 2 and 3 compressed steps (the
+   warmup against AdamW at world 1; the compressed all-reduce's bytes
+   n // 8 + 4 a call against the fp32 all-reduce's 4n; the error
+   buffers nonzero after the freeze; K1/K3 launched), LAMB and Muon at
+   data 2 stage 3 and at pipe 2 (1F1B), 2 steps each, against world-1
+   runs on the same data; (b) MiCS at data 2 x data_inner 2 on four
+   card ranks of its own (when the host holds them; else the line says
+   why and MiCS stays a CPU result) against plain stage 3 at world 4,
+   each rank's param-gather bytes a step equal to the sub-group
+   formula, and the MiCS checkpoint loaded into a plain stage-3 engine
+   bitwise. Each comparison holds the losses within DA_LOSS_TOL (1e-4)
+   and the fp32 update, sketched on random directions without a gather
+   (``_da_sketch``), within DA_UPDATE_TOL of its reference's. Step ms
+   (gloo through the host) and peak HBM a rank. ``--data-axes-only``
+   runs the build and phase 17 alone ((a) on two card ranks of its
+   own).
 
 Every phase prints one JSON line; any failure raises, so the script exits
 non-zero. Without CUDA, or outside a checkout of the repository, it exits
@@ -6565,6 +6584,8 @@ def _tp_card_rank(rank, world, store, out, runs_small):
         res["sp"] = _sp_card(rank, world)
         # phase 16 in the same two ranks
         res["pp"] = _pp_card(rank, world)
+        # phase 17 (a) in the same two ranks
+        res["da"] = _da_card(rank, world)
         comm.destroy_distributed()
     except BaseException:                       # noqa: BLE001 — reported
         res = {"error": traceback.format_exc()}
@@ -6813,6 +6834,11 @@ def phase_tp_zeropp(smi: str) -> dict:
         _PP1.update(_pp_reference())
         gc.collect()
         torch.cuda.empty_cache()
+        # phase 17 (a)'s world-1 references
+        _DA1.clear()
+        _DA1.update(_da_reference())
+        gc.collect()
+        torch.cuda.empty_cache()
         # (a), (b), (b') on the card's two ranks
         for p in card:
             p.start()
@@ -6964,6 +6990,12 @@ def phase_tp_zeropp(smi: str) -> dict:
           "pipe1_reference_seconds": _PP1["seconds"]})
     _PP_LAUNCHES.clear()
     _PP_LAUNCHES.update(_pp_report(smi, ranks, cpu_res))
+    # phase 17 (a) from the same ranks
+    emit({"phase": "data_axes", "part": "references",
+          "world1_reference_seconds": _DA1["seconds"],
+          "card_rank_seconds": [r["da"]["seconds"] for r in ranks]})
+    _DA_LAUNCHES.clear()
+    _DA_LAUNCHES.update(_da_report(smi, ranks))
     return launches
 
 
@@ -7155,60 +7187,96 @@ def _sp_report(smi, ranks) -> dict:
     return launches
 
 
-def _sp_only_rank(rank, world, store, out):
-    """``--sp-only``: phase 15 (a) on one of two gloo card ranks."""
+def _gloo_rank(rank, world, store, out, group):
+    """One gloo rank of a phase's own spawn (:func:`_spawn_ranks`): joins
+    the group through the file ``store`` and writes ``group["fn"](rank,
+    world)`` (under ``group["key"]``, where there is one) or its traceback
+    to ``out``; a rank not done in ``group["timeout"]`` seconds dumps its
+    stacks and exits."""
+    import faulthandler
     import pickle
     import traceback
     import torch
-    torch.set_num_threads(2)
+    torch.set_num_threads(group.get("threads", 2))
+    device = group.get("device", DEV)
+    faulthandler.dump_traceback_later(group["timeout"], exit=True)
     try:
-        torch.cuda.set_device(0)
+        if device != "cpu":
+            torch.cuda.set_device(0)
         from deepspeed_tpu_torch import comm
         comm.init_distributed(dist_backend="gloo",
                               init_method="file://" + store,
                               num_processes=world, process_id=rank,
-                              device=DEV, timeout=int(TP_RANK_TIMEOUT_S))
-        res = {"sp": _sp_card(rank, world)}
+                              device=device, timeout=int(group["timeout"]))
+        res = group["fn"](rank, world)
+        if group.get("key"):
+            res = {group["key"]: res}
         comm.destroy_distributed()
-    except BaseException:                       # noqa: BLE001 — reported
+    except Exception:                           # noqa: BLE001 — reported
         res = {"error": traceback.format_exc()}
+    faulthandler.cancel_dump_traceback_later()
     with open(out, "wb") as fh:
         pickle.dump(res, fh)
 
 
-def _sp_spawn(smi) -> dict:
-    """``--sp-only``'s (a): its sp-1 reference here, then two card ranks."""
+def _spawn_ranks(what: str, groups, before=None) -> list:
+    """Each group ({"fn", "world", "timeout", "key", "device", "threads",
+    "early"}) as ``world`` processes of :func:`_gloo_rank` over a file
+    store of its own: the ``early`` groups start, ``before()`` runs here,
+    the others start. Waits for every rank up to its timeout + 60 s,
+    kills what still runs, and returns the ranks' results, group by
+    group."""
     import multiprocessing as mp
     import pickle
     import shutil
     import tempfile
     here = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(os.path.join(here, "build"), exist_ok=True)
-    work = tempfile.mkdtemp(prefix="sp_", dir=os.path.join(here, "build"))
-    _SP1.clear()
-    _SP1.update(_sp_reference())
+    work = tempfile.mkdtemp(prefix=what.replace(" ", "_") + "_",
+                            dir=os.path.join(here, "build"))
     ctx = mp.get_context("spawn")
-    outs = [os.path.join(work, f"card{r}.pkl") for r in range(2)]
-    procs = [ctx.Process(target=_sp_only_rank, args=(
-        r, 2, os.path.join(work, "store"), outs[r])) for r in range(2)]
+    ranks = []                                 # (process, out, group)
+    for g, group in enumerate(groups):
+        store = os.path.join(work, f"store{g}")
+        for r in range(group["world"]):
+            out = os.path.join(work, f"g{g}_rank{r}.pkl")
+            ranks.append((ctx.Process(target=_gloo_rank, args=(
+                r, group["world"], store, out, group)), out, group))
     try:
-        for p in procs:
-            p.start()
-        for p in procs:
-            p.join(TP_RANK_TIMEOUT_S)
-        ranks = []
-        for p, out in zip(procs, outs):
-            assert not p.is_alive(), "a sequence-parallel rank still runs"
+        for p, _, group in ranks:
+            if group.get("early"):
+                p.start()
+        if before is not None:
+            before()
+        for p, _, group in ranks:
+            if not group.get("early"):
+                p.start()
+        got = []
+        t0 = time.perf_counter()
+        for p, out, group in ranks:
+            p.join(max(0.0, group["timeout"] + 60
+                       - (time.perf_counter() - t0)))
+            assert not p.is_alive(), f"a {what} rank still runs"
             with open(out, "rb") as fh:
                 r = pickle.load(fh)
             assert "error" not in r, r["error"]
-            ranks.append(r)
+            got.append(r)
     finally:
-        for p in procs:
+        for p, _, _ in ranks:
             if p.is_alive():
                 p.kill()
                 p.join()
         shutil.rmtree(work, ignore_errors=True)
+    return got
+
+
+def _sp_spawn(smi) -> dict:
+    """``--sp-only``'s (a): its sp-1 reference here, then two card ranks."""
+    _SP1.clear()
+    _SP1.update(_sp_reference())
+    ranks = _spawn_ranks("sequence-parallel", [
+        {"fn": _sp_card, "key": "sp", "world": 2,
+         "timeout": TP_RANK_TIMEOUT_S}])
     return _sp_report(smi, ranks)
 
 
@@ -7792,89 +7860,546 @@ def _pp_report(smi, ranks, cpu_res) -> dict:
     return launches
 
 
-def _pp_only_rank(rank, world, store, out):
-    """``--pipe-only``: phase 16 on one of two gloo card ranks."""
-    import pickle
-    import traceback
-    import torch
-    torch.set_num_threads(2)
-    try:
-        torch.cuda.set_device(0)
-        from deepspeed_tpu_torch import comm
-        comm.init_distributed(dist_backend="gloo",
-                              init_method="file://" + store,
-                              num_processes=world, process_id=rank,
-                              device=DEV, timeout=int(PP_RANK_TIMEOUT_S))
-        res = {"pp": _pp_card(rank, world)}
-        comm.destroy_distributed()
-    except BaseException:                       # noqa: BLE001 — reported
-        res = {"error": traceback.format_exc()}
-    with open(out, "wb") as fh:
-        pickle.dump(res, fh)
-
-
-def _pp_cpu_rank(rank, world, store, out):
+def _pp_cpu_card(rank, world) -> dict:
     """``--pipe-only``: (c)'s CPU side on one of two gloo CPU ranks."""
-    import pickle
-    import traceback
-    import torch
-    torch.set_num_threads(TP_CPU_THREADS)
-    from deepspeed_tpu_torch import build_mesh, comm
-    try:
-        comm.init_distributed(init_method="file://" + store,
-                              num_processes=world, process_id=rank,
-                              device="cpu", timeout=int(PP_RANK_TIMEOUT_S))
-        build_mesh(pipe=world)
-        res = {"pp": _pp_small_run("cpu")}
-        comm.destroy_distributed()
-    except BaseException:                       # noqa: BLE001 — reported
-        res = {"error": traceback.format_exc()}
-    with open(out, "wb") as fh:
-        pickle.dump(res, fh)
+    from deepspeed_tpu_torch import build_mesh
+    build_mesh(pipe=world)
+    return _pp_small_run("cpu")
 
 
 def _pp_spawn(smi) -> dict:
-    """``--pipe-only``: (a)'s pipe-1 reference here, then two card ranks
-    and two CPU ranks."""
-    import multiprocessing as mp
-    import pickle
-    import shutil
-    import tempfile
-    here = os.path.dirname(os.path.abspath(__file__))
-    os.makedirs(os.path.join(here, "build"), exist_ok=True)
-    work = tempfile.mkdtemp(prefix="pp_", dir=os.path.join(here, "build"))
-    ctx = mp.get_context("spawn")
-    cpu_outs = [os.path.join(work, f"cpu{r}.pkl") for r in range(2)]
-    cpu = [ctx.Process(target=_pp_cpu_rank, args=(
-        r, 2, os.path.join(work, "cpu_store"), cpu_outs[r]))
-        for r in range(2)]
-    outs = [os.path.join(work, f"card{r}.pkl") for r in range(2)]
-    card = [ctx.Process(target=_pp_only_rank, args=(
-        r, 2, os.path.join(work, "store"), outs[r])) for r in range(2)]
-    try:
-        for p in cpu:
-            p.start()
+    """``--pipe-only``: two CPU ranks, (a)'s pipe-1 reference here while
+    they start, then two card ranks."""
+    def reference():
         _PP1.clear()
         _PP1.update(_pp_reference())
-        for p in card:
-            p.start()
-        got = []
-        for p, out in zip(card + cpu, outs + cpu_outs):
-            p.join(PP_RANK_TIMEOUT_S + 60)
-            assert not p.is_alive(), "a pipeline rank still runs"
-            with open(out, "rb") as fh:
-                r = pickle.load(fh)
-            assert "error" not in r, r["error"]
-            got.append(r)
-    finally:
-        for p in card + cpu:
-            if p.is_alive():
-                p.kill()
-                p.join()
-        shutil.rmtree(work, ignore_errors=True)
+    got = _spawn_ranks("pipeline", [
+        {"fn": _pp_card, "key": "pp", "world": 2,
+         "timeout": PP_RANK_TIMEOUT_S},
+        {"fn": _pp_cpu_card, "key": "pp", "world": 2, "device": "cpu",
+         "threads": TP_CPU_THREADS, "timeout": PP_RANK_TIMEOUT_S,
+         "early": True}], before=reference)
     emit({"phase": "pp", "part": "references",
           "pipe1_reference_seconds": _PP1["seconds"]})
     return _pp_report(smi, got[:2], got[2:])
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the data axes — 1-bit Adam over the compressed all-reduce, LAMB
+# and Muon at stage 3 and under a pipeline (phase 13's two card ranks), and
+# MiCS on the 'data_inner' axis (four card ranks of its own)
+# ---------------------------------------------------------------------------
+
+#: Llama-3 1B at full width (heads 16/8 of 128), depth 2 (``reduced`` from
+#: 16) and phase 12's 32,000-entry vocabulary (``reduced`` from 128,256),
+#: bf16, 1 x 2048 tokens a rank a step (a global batch of 2 x 2048)
+DA_MODEL = dict(num_layers=2, max_seq_len=2048, tie_embeddings=True,
+                vocab_size=32000)
+DA_SEQ = 2048
+#: 1-bit Adam: DA_FREEZE exact warmup steps, then DA_COMPRESSED compressed
+DA_FREEZE, DA_COMPRESSED = 2, 3
+#: the steps of each LAMB / Muon run and of (b)'s runs
+DA_STEPS = 2
+DA_LR = 1e-4
+#: phase 17's limit on a loss's relative error against its reference:
+#: one update at DA_LR moves the loss by ~2e-3 relative, so DP_LOSS_TOL
+#: (1e-2) could not see a wrong update; the spread seen on the H100 was
+#: at most 1.2e-5 (the 1-bit warmup against AdamW)
+DA_LOSS_TOL = 1e-4
+#: random directions of the update sketch (_da_sketch)
+DA_SKETCH = 8
+#: limits on the sketched relative error of a leaf's update against its
+#: reference's (_da_update_err, the worst leaf), by run: about 3x the
+#: spread on the H100 (1-bit warmup 0.034, LAMB 0.009, Muon 0.032-0.044,
+#: MiCS 0.032); an update 10 % off reads ~0.1, a wrong direction ~1
+DA_UPDATE_TOL = {"onebit": 0.1, "lamb": 0.03, "muon": 0.15, "mics": 0.1}
+#: a card rank not done with (b) in this many seconds dumps its stacks
+DA_RANK_TIMEOUT_S = 300.0
+#: host bytes (b)'s four card ranks may take (each: the seeded tree, its
+#: shards' Adam state, the checkpoint's snapshot); below it (b) stays a
+#: CPU result (tests/test_torch_mics.py) and the line says why
+DA_MICS_HOST_BYTES = 24e9
+#: (a)'s world-1 references, made in phase 13's main process
+_DA1: dict = {}
+#: phase 17's launches on the card ranks ((a) and (b))
+_DA_LAUNCHES: dict = {}
+
+
+def _da_conf(opt: str, micro: int, stage: int = 0, gas: int = 1,
+             pipe: int = 1, **extra) -> dict:
+    params = {"lr": DA_LR}
+    if opt in ("lamb", "muon"):
+        params["weight_decay"] = 0.01
+    if opt == "onebitadam":
+        params["freeze_step"] = DA_FREEZE
+    conf = {"train_micro_batch_size_per_gpu": micro,
+            "gradient_accumulation_steps": gas,
+            "optimizer": {"type": opt, "params": params},
+            "bf16": {"enabled": True}, "attention_impl": "auto",
+            "activation_checkpointing": {"policy": "none"},
+            "steps_per_print": 1000,
+            "zero_optimization": {"stage": stage},
+            "comms_logger": {"enabled": True}}
+    if pipe > 1:
+        conf["pipeline"] = {"stages": pipe, "schedule": "1f1b"}
+    conf.update(extra)
+    return conf
+
+
+def _da_batches(vocab, steps, pipe: int = 1, rows: int = 2):
+    """A step's global batch: ``rows`` x DA_SEQ tokens (one micro-batch of
+    all rows, or under a pipeline one micro-batch a row)."""
+    rng = np.random.default_rng(17)
+    out = []
+    for _ in range(steps):
+        ids = rng.integers(0, vocab, size=(rows, DA_SEQ)).astype(np.int32)
+        out.append([{"input_ids": ids[i:i + 1]} for i in range(rows)]
+                   if pipe > 1 else [{"input_ids": ids}])
+    return out
+
+
+def _da_master(eng) -> dict:
+    """The engine's fp32 update targets by leaf path, in the order of its
+    leaves: bf16 training's master tree, or 1-bit's flat master cut by
+    its layout."""
+    m = eng.opt_state["master"]
+    if not isinstance(m, dict):
+        lay = eng._onebit_layout
+        return {"/".join(p): m[lo:lo + n].view(sh) for p, lo, n, sh in zip(
+            lay.paths, lay.offsets, lay.sizes, lay.shapes)}
+    out = {}
+
+    def walk(t, p):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, f"{p}/{k}" if p else k)
+        else:
+            out[p] = t
+    walk(m, "")
+    return out
+
+
+def _da_sketch(eng, before: dict) -> dict:
+    """Each update target's change since ``before`` projected on
+    DA_SKETCH Gaussian directions drawn over the whole leaf (seeded by
+    its path, so every run of the model draws the same), and its squared
+    norm: this rank's piece cut from the directions as the engine cut it
+    from the leaf (``ShardLayout.cuts``), the pieces' sums added over the
+    leaf's axes. For two runs, E[(p - p')^2] = ||d - d'||^2, so the
+    sketches hold two runs' updates against each other without gathering
+    either."""
+    import zlib
+    import torch
+    from deepspeed_tpu_torch.runtime.zero.sharding import shard_of
+    layout = getattr(eng, "_opt_layout", None) if eng._dist else None
+    if not isinstance(eng.opt_state["master"], dict):
+        layout = None                      # 1-bit: a whole master a rank
+    paths, vals = [], []
+    for i, (path, w) in enumerate(_da_master(eng).items()):
+        d = w.detach().float() - before[path].to(w.device)
+        cuts = layout.cuts[i] if layout is not None else []
+        full = list(d.shape)
+        for dim, _, n, _ in cuts:
+            full[dim] *= n
+        g = torch.Generator(device=d.device).manual_seed(
+            zlib.crc32(path.encode()))
+        v = []
+        for _ in range(DA_SKETCH):
+            r = torch.randn(full, generator=g, device=d.device)
+            for dim, _, n, idx in cuts:
+                r = shard_of(r, dim, idx, n)
+            v.append((d * r).sum())
+        v.append((d * d).sum())
+        paths.append(path)
+        vals.append(torch.stack(v))
+    if layout is not None:
+        vals = layout.sum_sq(vals)
+    return {p: v.tolist() for p, v in zip(paths, vals)}
+
+
+def _da_update_err(got: dict, want: dict) -> dict:
+    """The sketched relative error of ``got``'s update against
+    ``want``'s: per leaf sqrt(mean_k (p_k - q_k)^2) / ||d_want||; the
+    worst leaf, the whole model's, and the worst leaf's norm ratio."""
+    num = den = 0.0
+    worst, worst_norm, at = 0.0, 0.0, None
+    for path, q in want.items():
+        p = got[path]
+        e2 = float(np.mean((np.asarray(p[:DA_SKETCH])
+                            - np.asarray(q[:DA_SKETCH])) ** 2))
+        num, den = num + e2, den + q[DA_SKETCH]
+        err = (e2 / q[DA_SKETCH]) ** 0.5 if q[DA_SKETCH] else float(e2 > 0)
+        if err >= worst:
+            worst, at = err, path
+        worst_norm = max(worst_norm, abs(
+            (p[DA_SKETCH] / q[DA_SKETCH]) ** 0.5 - 1) if q[DA_SKETCH]
+            else float(p[DA_SKETCH] > 0))
+    return {"worst_leaf": worst, "worst_leaf_path": at,
+            "whole_model": (num / den) ** 0.5,
+            "worst_leaf_norm_rel_err": worst_norm}
+
+
+def _da_train(conf, steps: int, pipe: int = 1, save: str = None,
+              load: str = None, rows: int = 2, mark: int = None) -> dict:
+    """One engine's steps from the seeded tree: losses, ms a step, peak
+    HBM, collective bytes by op and by (op, axis), the K1/K3 launches,
+    (1-bit) the error buffers' sums, and the sketch of the update after
+    ``mark`` steps (default: all); ``save`` writes a checkpoint after the
+    steps and returns the gathered params; ``load`` loads one into the
+    fresh engine and returns its gathered params."""
+    import gc
+    import torch
+    from deepspeed_tpu_torch import initialize, llama3_config
+    from deepspeed_tpu_torch.comm.comms_logger import comms_logger
+    from deepspeed_tpu_torch.ops import op_builder
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = llama3_config(TRAIN_MODEL[0], **DA_MODEL)
+    eng = initialize(cfg, conf, generator=torch.Generator(
+        device=DEV).manual_seed(17), device=DEV)[0]
+    out = {}
+    if load:
+        out["tag"] = eng.load_checkpoint(load)[0]
+        out["loaded"] = _da_host(eng.gathered_params())
+    mark = steps if mark is None else mark
+    # the starting update targets, on the host: off the card's peak
+    w0 = {k: v.detach().float().cpu() for k, v in _da_master(eng).items()}
+    op_builder.reset_launches()
+    comms_logger.reset()
+    losses, step_s = [], []
+    for i, b in enumerate(_da_batches(cfg.vocab_size, steps, pipe, rows)):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(float(eng.train_batch(iter(b))))
+        step_s.append(time.perf_counter() - t1)
+        if i + 1 == mark:
+            # the sketch's all-reduces and buffers stay out of the step's
+            # records
+            comms_logger.enabled = False
+            peak = torch.cuda.max_memory_allocated()
+            out["sketch"] = _da_sketch(eng, w0)
+            torch.cuda.reset_peak_memory_stats()
+            comms_logger.enabled = True
+    del w0
+    peak = max(peak, torch.cuda.max_memory_allocated()) if steps else \
+        torch.cuda.max_memory_allocated()
+    out.update({
+        "losses": losses, "step_seconds": step_s,
+        "ms_per_step": 1e3 * step_s[-1] if steps else None,
+        "peak_hbm_gb": peak / 1e9,
+        "comm_bytes": comms_logger.bytes_by_op(),
+        "comm_bytes_by_axis": {f"{op}/{ax}": b for (op, ax), b in
+                               comms_logger.bytes_by_axis().items()},
+        "launches": dict(op_builder.launches)})
+    if "werr" in (eng.opt_state or {}):
+        out["werr_abs_sum"] = float(eng.opt_state["werr"].abs().sum())
+        out["serr_abs_sum"] = float(eng.opt_state["serr"].abs().sum())
+        out["flat_values"] = int(eng.opt_state["master"].numel())
+        out["padded"] = int(eng.opt_state["werr"].shape[1])
+    if eng.zero_stage == 3:
+        # a rank's stage-3 shards: the stacked layers' and the others'
+        out["mics_leaves"] = int(sum(getattr(eng, "_mics", ())))
+        out["param_shard_bytes"] = {
+            "layers": sum(x.numel() * x.element_size() for x, d in zip(
+                eng._leaves, eng._pdim) if d is not None and x.dim() == 3),
+            "other": sum(x.numel() * x.element_size() for x, d in zip(
+                eng._leaves, eng._pdim) if d is not None and x.dim() != 3)}
+    if save:
+        eng.save_checkpoint(save)
+        out["saved"] = _da_host(eng.gathered_params())
+    comms_logger.enabled = False
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _da_host(tree):
+    """A parameter tree's leaves on the host, as raw bits (bf16 as
+    int16), keyed by path."""
+    import torch
+    out = {}
+
+    def walk(t, p):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, f"{p}/{k}" if p else k)
+        else:
+            x = t.detach().cpu().contiguous()
+            out[p] = (x.view(torch.int16) if x.dtype == torch.bfloat16
+                      else x).numpy().copy()
+    walk(tree, "")
+    return out
+
+
+def _da_reference() -> dict:
+    """(a)'s world-1 runs (no process group) in phase 13's main process:
+    AdamW over the 1-bit run's steps, LAMB and Muon, on (a)'s batches."""
+    import torch
+    from deepspeed_tpu_torch.parallel.mesh import set_mesh
+    set_mesh(None)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    t0 = time.perf_counter()
+    out = {"adamw": _da_train(_da_conf("adamw", 2), DA_FREEZE
+                              + DA_COMPRESSED, mark=DA_FREEZE)}
+    for opt in ("lamb", "muon"):
+        out[opt] = _da_train(_da_conf(opt, 2), DA_STEPS)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _da_card(rank, world) -> dict:
+    """Phase 17 (a) on a card rank of phase 13 (two gloo ranks on the
+    card): 1-bit Adam at data 2, LAMB and Muon at data 2 stage 3 and at
+    pipe 2."""
+    from deepspeed_tpu_torch import build_mesh
+    t0 = time.perf_counter()
+    build_mesh(data=world)
+    out = {"onebit": _da_train(_da_conf("onebitadam", 1),
+                               DA_FREEZE + DA_COMPRESSED, mark=DA_FREEZE)}
+    for opt in ("lamb", "muon"):
+        out[f"{opt}_s3"] = _da_train(_da_conf(opt, 1, stage=3), DA_STEPS)
+    build_mesh(pipe=world)
+    for opt in ("lamb", "muon"):
+        out[f"{opt}_pipe"] = _da_train(_da_conf(opt, 1, gas=2, pipe=world),
+                                       DA_STEPS, pipe=world)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _da_report(smi, ranks) -> dict:
+    """Phase 17 (a)'s lines and gates; returns its launches on both
+    ranks."""
+    from deepspeed_tpu_torch.ops import op_builder
+    ref = _DA1
+    launches = {k: 0 for k in op_builder.launches}
+    model = "llama3-1b-width-depth2-vocab32k"
+    got = [r["da"]["onebit"] for r in ranks]
+    n, padded = got[0]["flat_values"], got[0]["padded"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got[0]["losses"],
+                                               ref["adamw"]["losses"])]
+    upd = [_da_update_err(g["sketch"], ref["adamw"]["sketch"]) for g in got]
+    line = {"phase": "data_axes", "part": "a_onebit", "model": model,
+            "data": len(ranks), "dtype": "bfloat16", "seq": DA_SEQ,
+            "freeze_step": DA_FREEZE, "compressed_steps": DA_COMPRESSED,
+            "losses": got[0]["losses"],
+            "losses_adamw_world1": ref["adamw"]["losses"],
+            "warmup_loss_rel_err_vs_adamw": max(rel[:DA_FREEZE + 1]),
+            "tol": DA_LOSS_TOL,
+            "warmup_update_err_vs_adamw_per_rank": upd,
+            "update_tol": DA_UPDATE_TOL["onebit"],
+            "ranks_agree": got[0]["losses"] == got[1]["losses"],
+            "flat_values": n, "padded": padded,
+            "compressed_bytes_per_call": padded // 8 + 4,
+            "fp32_allreduce_bytes_per_call": 4 * n,
+            "comm_bytes_per_rank": [g["comm_bytes"] for g in got],
+            "werr_abs_sum_per_rank": [g["werr_abs_sum"] for g in got],
+            "serr_abs_sum_per_rank": [g["serr_abs_sum"] for g in got],
+            "ms_per_step_per_rank": [g["ms_per_step"] for g in got],
+            "step_ms_rank0": [1e3 * t for t in got[0]["step_seconds"]],
+            "ms_per_step_adamw_world1": ref["adamw"]["ms_per_step"],
+            "peak_hbm_gb_per_rank": [g["peak_hbm_gb"] for g in got],
+            "k1_k3_launches_per_rank": [{k: g["launches"][k] for k in
+                                         TRAIN_KERNELS} for g in got],
+            "backend": "gloo through the host", "speed_claim": None,
+            "nvidia_smi": smi}
+    emit(line)
+    assert all(np.isfinite(got[0]["losses"])) and line["ranks_agree"], line
+    assert line["warmup_loss_rel_err_vs_adamw"] <= DA_LOSS_TOL, line
+    assert all(u["worst_leaf"] <= DA_UPDATE_TOL["onebit"] for u in upd), \
+        line
+    for g in got:
+        cb = g["comm_bytes"]
+        assert cb["compressed_allreduce"] == DA_COMPRESSED * (
+            padded // 8 + 4), line
+        # the warmup's fp32 gradient all-reduces, and the 4-byte losses
+        assert cb["all_reduce"] == DA_FREEZE * 4 * n + 4 * (
+            DA_FREEZE + DA_COMPRESSED), line
+        assert g["werr_abs_sum"] > 0 and g["serr_abs_sum"] > 0, line
+        for k in TRAIN_KERNELS:
+            assert g["launches"][k] > 0, line
+    for r in ranks:
+        for part in r["da"].values():
+            if isinstance(part, dict):
+                for k, v in part["launches"].items():
+                    launches[k] += v
+    for opt in ("lamb", "muon"):
+        for where in ("s3", "pipe"):
+            got = [r["da"][f"{opt}_{where}"] for r in ranks]
+            want = ref[opt]
+            rel = max(abs(a - b) / abs(b) for a, b in
+                      zip(got[0]["losses"], want["losses"]))
+            upd = [_da_update_err(g["sketch"], want["sketch"]) for g in got]
+            line = {"phase": "data_axes", "part": f"a_{opt}_{where}",
+                    "model": model, "dtype": "bfloat16",
+                    "mesh": {"data": 2} if where == "s3" else {"pipe": 2},
+                    "zero_stage": 3 if where == "s3" else 0,
+                    "losses": got[0]["losses"],
+                    "losses_world1": want["losses"],
+                    "loss_rel_err_vs_world1": rel, "tol": DA_LOSS_TOL,
+                    "update_err_vs_world1_per_rank": upd,
+                    "update_tol": DA_UPDATE_TOL[opt],
+                    "ranks_agree": got[0]["losses"] == got[1]["losses"],
+                    "ms_per_step_per_rank": [g["ms_per_step"] for g in got],
+                    "ms_per_step_world1": want["ms_per_step"],
+                    "peak_hbm_gb_per_rank": [g["peak_hbm_gb"] for g in got],
+                    "comm_bytes_per_rank": [g["comm_bytes"] for g in got],
+                    "k1_k3_launches_per_rank": [
+                        {k: g["launches"][k] for k in TRAIN_KERNELS}
+                        for g in got],
+                    "backend": "gloo through the host", "nvidia_smi": smi}
+            emit(line)
+            assert all(np.isfinite(got[0]["losses"])), line
+            assert line["ranks_agree"] and rel <= DA_LOSS_TOL, line
+            assert all(u["worst_leaf"] <= DA_UPDATE_TOL[opt]
+                       for u in upd), line
+            for g in got:
+                for k in TRAIN_KERNELS:
+                    assert g["launches"][k] > 0, line
+    return launches
+
+
+def _da_mics_card(root, rank, world) -> dict:
+    """Phase 17 (b) on one of four gloo card ranks: MiCS at data 2 x
+    data_inner 2 (saving to ``root``), plain stage 3 at data 4, and a
+    plain stage-3 engine loading the MiCS save."""
+    from deepspeed_tpu_torch import build_mesh
+    t0 = time.perf_counter()
+    build_mesh(data=2, data_inner=2)
+    res = {"mics": _da_train(_da_conf(
+        "adamw", 1, zero_optimization={"stage": 3, "mics_shard_size": 2}),
+        DA_STEPS, save=root, rows=world)}
+    build_mesh(data=world)
+    res["plain"] = _da_train(_da_conf("adamw", 1, stage=3), DA_STEPS,
+                             rows=world)
+    res["load"] = _da_train(_da_conf("adamw", 1, stage=3), 0, load=root,
+                            rows=world)
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def _da_mics(smi) -> dict:
+    """Phase 17 (b): four card ranks of their own, when the host holds
+    them; returns their launches."""
+    import functools
+    import shutil
+    import tempfile
+    from deepspeed_tpu_torch.ops import op_builder
+    avail = _meminfo().get("MemAvailable", 0)
+    if avail < DA_MICS_HOST_BYTES:
+        emit({"phase": "data_axes", "part": "b_mics", "ran": False,
+              "why": f"the host has {avail / 1e9:.1f} GB available, under "
+                     f"the {DA_MICS_HOST_BYTES / 1e9:.0f} GB four card "
+                     "ranks take; MiCS stays a CPU result "
+                     "(tests/test_torch_mics.py)"})
+        return {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="mics_ckpt_",
+                            dir=os.path.join(here, "build"))
+    t0 = time.perf_counter()
+    try:
+        got = _spawn_ranks("MiCS", [
+            {"fn": functools.partial(_da_mics_card, root), "world": 4,
+             "timeout": DA_RANK_TIMEOUT_S}])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    mics, plain = [r["mics"] for r in got], [r["plain"] for r in got]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(mics[0]["losses"],
+                                                  plain[0]["losses"]))
+    upd = [_da_update_err(m["sketch"], p["sketch"])
+           for m, p in zip(mics, plain)]
+    # a rank sends its 1/2 share of each stage-3 weight a gather: each
+    # layer twice a step (the forward, the backward's re-gather), every
+    # other sharded leaf once; plain stage 3 sends its 1/4 share as often
+    sub = {k: 2 * v if k == "layers" else v
+           for k, v in mics[0]["param_shard_bytes"].items()}
+    want_sub = sum(sub.values())
+    got_sub = [m["comm_bytes_by_axis"].get("all_gather/data_inner", 0)
+               / DA_STEPS for m in mics]
+    bitwise = all(
+        np.array_equal(r["load"]["loaded"][k], r["mics"]["saved"][k])
+        for r in got for k in r["mics"]["saved"])
+    line = {"phase": "data_axes", "part": "b_mics", "ran": True,
+            "model": "llama3-1b-width-depth2-vocab32k", "dtype": "bfloat16",
+            "mesh": {"data": 2, "data_inner": 2}, "mics_shard_size": 2,
+            "losses": mics[0]["losses"], "losses_plain_stage3_world4":
+            plain[0]["losses"], "loss_rel_err_vs_plain": rel,
+            "tol": DA_LOSS_TOL, "update_err_vs_plain_per_rank": upd,
+            "update_tol": DA_UPDATE_TOL["mics"],
+            "ranks_agree": all(m["losses"] == mics[0]["losses"]
+                               for m in mics),
+            "mics_leaves": mics[0]["mics_leaves"],
+            "param_gather_bytes_sent_per_step_per_rank": got_sub,
+            "param_gather_bytes_formula": want_sub,
+            "plain_comm_bytes_by_axis_per_step": {
+                k: v / DA_STEPS for k, v in
+                plain[0]["comm_bytes_by_axis"].items()},
+            "plain_param_shard_bytes": plain[0]["param_shard_bytes"],
+            "comm_bytes_by_axis_per_step": {
+                k: v / DA_STEPS for k, v in
+                mics[0]["comm_bytes_by_axis"].items()},
+            "checkpoint_loads_into_plain_stage3_bitwise": bitwise,
+            "ms_per_step_per_rank": [m["ms_per_step"] for m in mics],
+            "ms_per_step_plain_per_rank": [p["ms_per_step"] for p in plain],
+            "peak_hbm_gb_per_rank": [m["peak_hbm_gb"] for m in mics],
+            "peak_hbm_gb_plain_per_rank": [p["peak_hbm_gb"] for p in plain],
+            "k1_k3_launches_per_rank": [{k: m["launches"][k] for k in
+                                         TRAIN_KERNELS} for m in mics],
+            "card_rank_seconds": [r["seconds"] for r in got],
+            "seconds": time.perf_counter() - t0,
+            "backend": "gloo through the host", "speed_claim": None,
+            "nvidia_smi": smi}
+    emit(line)
+    assert all(np.isfinite(mics[0]["losses"])) and line["ranks_agree"], line
+    assert rel <= DA_LOSS_TOL, line
+    assert all(u["worst_leaf"] <= DA_UPDATE_TOL["mics"] for u in upd), line
+    assert got_sub == [want_sub] * 4, line
+    assert bitwise, line
+    launches = {k: 0 for k in op_builder.launches}
+    for r in got:
+        for part in ("mics", "plain"):
+            for k, v in r[part]["launches"].items():
+                launches[k] += v
+    for m in mics:
+        for k in TRAIN_KERNELS:
+            assert m["launches"][k] > 0, line
+    return launches
+
+
+def _da_reduced() -> None:
+    emit({"phase": "data_axes", "part": "reduced", "cuts": [
+        f"depth {DA_MODEL['num_layers']} of 16 and vocabulary 32,000 "
+        "(phases 15-16's cut), 1 x 2048 tokens a rank",
+        f"(a) 1-bit Adam: {DA_FREEZE} warmup and {DA_COMPRESSED} "
+        f"compressed steps; LAMB and Muon {DA_STEPS} steps each",
+        f"(b) {DA_STEPS} steps of each run: gloo on one card, no speed "
+        "claim"]})
+
+
+def phase_data_axes(smi: str) -> dict:
+    """Phase 17 (b) after phase 13 reported (a); returns the launches of
+    (a) and (b)."""
+    launches = dict(_DA_LAUNCHES)
+    for k, v in _da_mics(smi).items():
+        launches[k] = launches.get(k, 0) + v
+    _da_reduced()
+    return launches
+
+
+def _da_spawn(smi) -> dict:
+    """``--data-axes-only``: (a)'s world-1 references here, then two card
+    ranks; returns (a)'s launches."""
+    _DA1.clear()
+    _DA1.update(_da_reference())
+    got = _spawn_ranks("data-axes", [
+        {"fn": _da_card, "key": "da", "world": 2,
+         "timeout": DA_RANK_TIMEOUT_S}])
+    emit({"phase": "data_axes", "part": "references",
+          "world1_reference_seconds": _DA1["seconds"],
+          "card_rank_seconds": [r["da"]["seconds"] for r in got]})
+    return _da_report(smi, got)
 
 
 def _ptxas_kernels(log: str) -> dict:
@@ -7966,6 +8491,12 @@ def main() -> int:
         run(_pp_spawn, smi)
         emit({"phase": "seconds", **seconds})
         return 0
+    if "--data-axes-only" in sys.argv[1:]:
+        # phase 17 alone: (a) on two card ranks of its own, then (b)
+        _DA_LAUNCHES.update(run(_da_spawn, smi))
+        run(phase_data_axes, smi)
+        emit({"phase": "seconds", **seconds})
+        return 0
     if "--tp-zeropp-only" in sys.argv[1:]:
         # phases 12, 13 and 14 (13 holds tp 2 against 12's tp-1 runs; 14
         # its ranks against phase 8's run and phase 11 (e)'s int8 one)
@@ -8009,6 +8540,7 @@ def main() -> int:
     paths["ep"] = dict(_EP_LAUNCHES)
     paths["sp"] = dict(_SP_LAUNCHES)
     paths["pp"] = dict(_PP_LAUNCHES)
+    paths["data_axes"] = run(phase_data_axes, smi)
     paths["long_context"] = run(phase_sp, smi)
     emit({"phase": "seconds", **seconds})
 

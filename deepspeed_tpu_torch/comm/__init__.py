@@ -1,8 +1,9 @@
 """The communication facade over ``torch.distributed`` (port of
 ``deepspeed_tpu/comm``): process setup, the collectives by mesh axis
 name, the coalesced collectives and the comms logger. ``benchmark.py``
-waits for ROADMAP A, 'Observability, fleet and tools', and
-``quantized.py`` holds ZeRO++'s quantized collectives."""
+waits for ROADMAP A, 'Observability, fleet and tools',
+``quantized.py`` holds ZeRO++'s quantized collectives and
+``compressed.py`` the 1-bit error-feedback all-reduce."""
 
 from deepspeed_tpu_torch.comm.comm import (
     all_gather,

@@ -31,7 +31,7 @@ import datetime
 import os
 import time
 import warnings
-from typing import Any, Callable, Optional, Sequence, Union
+from typing import Any, Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -171,6 +171,92 @@ def _resolve(axis_name: AxisName):
     return mesh.group(axis_name), n
 
 
+def _perm(axis_name: AxisName) -> Optional[torch.Tensor]:
+    """For each position on ``axis_name``, its rank in the group, or None
+    when the two agree (:meth:`~deepspeed_tpu_torch.parallel.mesh.Mesh.
+    perm`)."""
+    from deepspeed_tpu_torch.parallel.mesh import get_mesh
+    p = get_mesh().perm(axis_name)
+    return None if p is None else torch.tensor(p, dtype=torch.long)
+
+
+def to_group_order(rows: torch.Tensor, perm: Optional[torch.Tensor]
+                   ) -> torch.Tensor:
+    """``rows`` [n, ...] in position order → the group's rank order (row
+    g: the block of the position whose member is group rank g)."""
+    if perm is None:
+        return rows
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.numel())
+    return rows.index_select(0, inv.to(rows.device))
+
+
+def to_position_order(rows: torch.Tensor, perm: Optional[torch.Tensor]
+                      ) -> torch.Tensor:
+    """``rows`` [n, ...] in the group's rank order → position order."""
+    if perm is None:
+        return rows
+    return rows.index_select(0, perm.to(rows.device))
+
+
+# The raw, unlogged collectives along dim 0 that every other exchange,
+# gather and sum-scatter of the port goes through. A group's torch ranks
+# may be ordered otherwise than its mesh positions (a hybrid ``dcn``
+# layout, ``devices=`` in another order): these put every block where
+# its position says, so callers never see the group's rank order.
+
+def _blocks(x: torch.Tensor, n: int) -> Tuple[int, ...]:
+    return (n, -1) + tuple(x.shape[1:])
+
+
+def _exchange(x: torch.Tensor, axis: AxisName) -> torch.Tensor:
+    """All-to-all along dim 0: block j to the rank at position j, the
+    blocks received stacked in position order."""
+    group, n = _resolve(axis)
+    xm = x.contiguous()
+    if group is None:
+        return xm.clone()
+    if xm.shape[0] % n:
+        raise ValueError(f"exchange over {axis}: dim 0 of "
+                         f"{tuple(x.shape)} does not divide by {n}")
+    perm = _perm(axis)
+    xm = to_group_order(xm.reshape(_blocks(xm, n)), perm).reshape(
+        xm.shape).contiguous()
+    out = torch.empty_like(xm)
+    _dist().all_to_all_single(out, xm, group=group)
+    return to_position_order(out.reshape(_blocks(xm, n)), perm).reshape(
+        xm.shape)
+
+
+def _sum_scatter(x: torch.Tensor, axis: AxisName) -> torch.Tensor:
+    """Block j of dim 0 of the sum over the ranks to the rank at
+    position j."""
+    group, n = _resolve(axis)
+    xm = x.contiguous()
+    if group is None:
+        return xm.clone()
+    if xm.shape[0] % n:
+        raise ValueError(f"sum-scatter over {axis}: dim 0 of "
+                         f"{tuple(x.shape)} does not divide by {n}")
+    xm = to_group_order(xm.reshape(_blocks(xm, n)), _perm(axis)).reshape(
+        xm.shape).contiguous()
+    out = xm.new_empty((xm.shape[0] // n,) + tuple(xm.shape[1:]))
+    _dist().reduce_scatter_tensor(out, xm, group=group)
+    return out
+
+
+def _gather(x: torch.Tensor, axis: AxisName) -> torch.Tensor:
+    """The ranks' blocks concatenated along dim 0 in position order."""
+    group, n = _resolve(axis)
+    xm = x.contiguous()
+    if group is None:
+        return xm.clone()
+    out = xm.new_empty((n * xm.shape[0],) + tuple(xm.shape[1:]))
+    _dist().all_gather_into_tensor(out, xm, group=group)
+    return to_position_order(out.reshape(_blocks(xm, n)),
+                             _perm(axis)).reshape(out.shape)
+
+
 class _Done:
     """A finished collective's handle (the identity of a size-1 axis, or
     a timed call that already waited)."""
@@ -255,6 +341,7 @@ def all_gather(x: torch.Tensor, axis_name: AxisName, axis: int = 0,
     ``axis`` (``tiled``) or stacked in a new dim at ``axis``."""
     group, n = _resolve(axis_name)
     axis = axis % (x.dim() + (0 if tiled else 1))
+    perm = _perm(axis_name) if group is not None else None
 
     def issue(a):
         xm = (x.movedim(axis, 0) if tiled else x).contiguous()
@@ -268,9 +355,13 @@ def all_gather(x: torch.Tensor, axis_name: AxisName, axis: int = 0,
                                                   async_op=a)
 
         def finish():
+            o = out
+            if perm is not None:
+                o = to_position_order(o.reshape((n, -1) + tuple(
+                    xm.shape[1:])), perm).reshape(out.shape)
             if tiled:
-                return out.movedim(0, axis)
-            return out.reshape((n,) + tuple(x.shape)).movedim(0, axis)
+                return o.movedim(0, axis)
+            return o.reshape((n,) + tuple(x.shape)).movedim(0, axis)
         return _Pending(work, finish)
     return _timed("all_gather", x, axis_name, issue, async_op)
 
@@ -286,8 +377,13 @@ def reduce_scatter(x: torch.Tensor, axis_name: AxisName, axis: int = 0,
         raise ValueError(f"reduce_scatter: dim {axis} of {tuple(x.shape)} "
                          f"does not divide by {n}")
 
+    perm = _perm(axis_name) if group is not None else None
+
     def issue(a):
         xm = x.movedim(axis, 0).contiguous()
+        if perm is not None:
+            xm = to_group_order(xm.reshape((n, -1) + tuple(xm.shape[1:])),
+                                perm).reshape(xm.shape)
         if group is None:
             out = xm.clone()
             work = None
@@ -307,17 +403,12 @@ def reduce_scatter(x: torch.Tensor, axis_name: AxisName, axis: int = 0,
 def _all_to_all_raw(x: torch.Tensor, axis_name: AxisName, split_axis: int,
                     concat_axis: int, tiled: bool = True) -> torch.Tensor:
     """:func:`all_to_all` outside the comms logger."""
-    group, n = _resolve(axis_name)
+    n = _resolve(axis_name)[1]
     split_axis = split_axis % x.dim()
     if x.shape[split_axis] % n:
         raise ValueError(f"all_to_all: dim {split_axis} of "
                          f"{tuple(x.shape)} does not divide by {n}")
-    xm = x.movedim(split_axis, 0).contiguous()
-    out = torch.empty_like(xm)
-    if group is None:
-        out.copy_(xm)
-    else:
-        _dist().all_to_all_single(out, xm, group=group)
+    out = _exchange(x.movedim(split_axis, 0), axis_name)
     blocks = [b.movedim(0, split_axis) for b in out.chunk(n, dim=0)]
     if tiled:
         return torch.cat(blocks, dim=concat_axis)
@@ -355,16 +446,19 @@ def _ppermute_raw(x: torch.Tensor, axis_name: AxisName, perm
     if src.is_cuda and d.get_backend(group) == "gloo":
         return _ppermute_raw(src.cpu(), axis_name, perm).to(src.device)
     out = torch.zeros_like(src)
+    order = _perm(axis_name)
+
+    def rank_of(pos):
+        g = pos if order is None else int(order[pos])
+        return d.get_global_rank(group, g)
     ops = []
     for s, t in perm:
         if s == me and t == me:
             out.copy_(x)
         elif s == me:
-            ops.append(d.P2POp(d.isend, src,
-                               d.get_global_rank(group, t), group))
+            ops.append(d.P2POp(d.isend, src, rank_of(t), group))
         elif t == me:
-            ops.append(d.P2POp(d.irecv, out,
-                               d.get_global_rank(group, s), group))
+            ops.append(d.P2POp(d.irecv, out, rank_of(s), group))
     if ops:
         for w in d.batch_isend_irecv(ops):
             w.wait()
@@ -392,9 +486,10 @@ def send_recv_prev(x: torch.Tensor, axis_name: AxisName,
 
 
 def axis_index(axis_name: AxisName) -> int:
-    """This rank's position along ``axis_name`` (comm.py:205)."""
-    group, _ = _resolve(axis_name)
-    return _dist().get_rank(group) if group is not None else 0
+    """This rank's position along ``axis_name`` (comm.py:205): row-major
+    over a tuple's axes in the mesh's order."""
+    from deepspeed_tpu_torch.parallel.mesh import get_mesh
+    return get_mesh().index(axis_name)
 
 
 def log_summary(show_straggler: bool = False) -> None:
@@ -505,48 +600,6 @@ class _Ppermute(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _ppermute_raw(g, ctx.axis, ctx.inverse), None, None
-
-
-def _exchange(x: torch.Tensor, axis: AxisName) -> torch.Tensor:
-    """All-to-all along dim 0 (block j to rank j, the received blocks in
-    rank order), outside the comms logger."""
-    group, n = _resolve(axis)
-    xm = x.contiguous()
-    if group is None:
-        return xm.clone()
-    if xm.shape[0] % n:
-        raise ValueError(f"expert_exchange: dim 0 of {tuple(x.shape)} "
-                         f"does not divide by {n}")
-    out = torch.empty_like(xm)
-    _dist().all_to_all_single(out, xm, group=group)
-    return out
-
-
-def _sum_scatter(x: torch.Tensor, axis: AxisName) -> torch.Tensor:
-    """Block j of dim 0 of the sum over the ranks to rank j, outside the
-    comms logger."""
-    group, n = _resolve(axis)
-    xm = x.contiguous()
-    if group is None:
-        return xm.clone()
-    if xm.shape[0] % n:
-        raise ValueError(f"scatter_to_experts: dim 0 of {tuple(x.shape)} "
-                         f"does not divide by {n}")
-    out = xm.new_empty((xm.shape[0] // n,) + tuple(xm.shape[1:]))
-    _dist().reduce_scatter_tensor(out, xm, group=group)
-    return out
-
-
-def _gather(x: torch.Tensor, axis: AxisName) -> torch.Tensor:
-    """The ranks' blocks concatenated along dim 0 in rank order, outside
-    the comms logger."""
-    group, n = _resolve(axis)
-    xm = x.contiguous()
-    if group is None:
-        return xm.clone()
-    out = xm.new_empty((n * xm.shape[0],) + tuple(xm.shape[1:]))
-    _dist().all_gather_into_tensor(out, xm, group=group)
-    return out
 
 
 def expert_exchange(x: torch.Tensor, axis: AxisName = "expert"

@@ -73,6 +73,9 @@ class CommsLogger:
         self.prof_ops: List[str] = []
         self.comms_dict: Dict[str, Dict[int, List[float]]] = defaultdict(
             lambda: defaultdict(lambda: [0, 0.0]))
+        #: (op, axis) → bytes; the axis as the call named it, a
+        #: one-name tuple as the name
+        self.axis_bytes: Dict[Any, int] = defaultdict(int)
 
     def configure(self, config) -> None:
         """From a config's ``comms_logger`` section."""
@@ -94,6 +97,9 @@ class CommsLogger:
         rec = self.comms_dict[op_name][size_bytes]
         rec[0] += 1
         rec[1] += time_sec
+        if not isinstance(axis, (str, type(None))):
+            axis = tuple(axis) if len(tuple(axis)) != 1 else tuple(axis)[0]
+        self.axis_bytes[(op_name, axis)] += size_bytes
         telemetry.tracer.instant(f"comm/{op_name}", bytes=size_bytes,
                                  axis=str(axis) if axis is not None
                                  else None)
@@ -108,6 +114,7 @@ class CommsLogger:
 
     def reset(self) -> None:
         self.comms_dict.clear()
+        self.axis_bytes.clear()
 
     def has_records(self, op_name: str) -> bool:
         return op_name in self.comms_dict
@@ -116,6 +123,10 @@ class CommsLogger:
         """Total bytes recorded per op since the last reset."""
         return {op: int(sum(size * rec[0] for size, rec in sizes.items()))
                 for op, sizes in self.comms_dict.items()}
+
+    def bytes_by_axis(self) -> Dict[Any, int]:
+        """Total bytes recorded per (op, axis) since the last reset."""
+        return dict(self.axis_bytes)
 
     def log_summary(self, show_straggler: bool = False) -> None:
         """The summary table (comms_logger.py:136); ``show_straggler``

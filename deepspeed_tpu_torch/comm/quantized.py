@@ -22,7 +22,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from deepspeed_tpu_torch.comm.comm import AxisName, _dist, _resolve
+from deepspeed_tpu_torch.comm.comm import (AxisName, _exchange, _gather,
+                                          _resolve)
 from deepspeed_tpu_torch.comm.comms_logger import comms_logger
 from deepspeed_tpu_torch.ops.quantizer import (DEFAULT_BLOCK,
                                                dequantize_blocks,
@@ -49,26 +50,6 @@ def _nbytes(*ts: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def _gather_rows(t: torch.Tensor, group, world: int) -> torch.Tensor:
-    """[world, k]: every rank's flat ``t``."""
-    if group is None:
-        return t[None]
-    out = t.new_empty(world * t.numel())
-    _dist().all_gather_into_tensor(out, t.reshape(-1).contiguous(),
-                                   group=group)
-    return out.view(world, -1)
-
-
-def _exchange_rows(t: torch.Tensor, group) -> torch.Tensor:
-    """[world, k] → [world, k]: row j goes to rank j; row i of the result
-    came from rank i."""
-    if group is None:
-        return t
-    out = t.new_empty(t.numel())
-    _dist().all_to_all_single(out, t.reshape(-1).contiguous(), group=group)
-    return out.view(t.shape)
-
-
 def quantized_all_gather(x: torch.Tensor, axis_name: AxisName,
                          block: int = DEFAULT_BLOCK, bits: int = 8,
                          dtype: Optional[torch.dtype] = None
@@ -78,11 +59,12 @@ def quantized_all_gather(x: torch.Tensor, axis_name: AxisName,
     [world · n] in ``dtype`` (default x's). Traffic: n bytes at int8
     against 2n in bf16, plus n/block scales."""
     dtype = dtype or x.dtype
-    group, world = _resolve(axis_name)
+    world = _resolve(axis_name)[1]
     xp, n = _pad_to(x.reshape(-1), block)
     q, s = _quantize(xp, block, bits)
     comms_logger.append("quantized_all_gather", _nbytes(q, s), axis_name)
-    qg, sg = _gather_rows(q, group, world), _gather_rows(s, group, world)
+    qg = _gather(q.reshape(-1), axis_name).view(world, -1)
+    sg = _gather(s.reshape(-1), axis_name).view(world, -1)
     deq = torch.stack([dequantize_blocks(qg[r], sg[r], block=block,
                                          bits=bits, dtype=dtype)
                        for r in range(world)])
@@ -96,14 +78,14 @@ def quantized_reduce_scatter(x: torch.Tensor, axis_name: AxisName,
     reduce. ``x``: this rank's full flat gradient [n]; chunk i of every
     rank lands on rank i (int8/int4 traffic), is dequantized and averaged
     (or summed) there. Returns this rank's chunk [padded n / world]."""
-    group, world = _resolve(axis_name)
+    world = _resolve(axis_name)[1]
     xp, _ = _pad_to(x.reshape(-1), block * world)
     # a chunk is whole blocks, so the flat quantization is the chunks'
     q, s = _quantize(xp, block, bits)
     comms_logger.append("quantized_reduce_scatter", _nbytes(q, s),
                         axis_name)
-    qr = _exchange_rows(q.reshape(world, -1), group)
-    sr = _exchange_rows(s.reshape(world, -1), group)
+    qr = _exchange(q.reshape(world, -1), axis_name)
+    sr = _exchange(s.reshape(world, -1), axis_name)
     deq = torch.stack([dequantize_blocks(qr[r], sr[r], block=block,
                                          bits=bits)
                        for r in range(world)])

@@ -356,9 +356,12 @@ class ZeroConfig(TPUConfigModel):
     (``runtime/zero/overlap.py``). The offload blocks select the host and
     NVMe tiers (one device only). ``zero_quantized_weights`` (qwZ) and
     ``zero_quantized_gradients`` (qgZ) select ZeRO++
-    (``runtime/zero/zeropp.py``). ZenFlow, hpZ
-    (``zero_hpz_partition_size`` > 1) and MiCS are not ported and
-    raise."""
+    (``runtime/zero/zeropp.py``). ``mics_shard_size`` > 1 is MiCS
+    (config.py:253-257): stage-3 param shards live within a sub-group of
+    that size, the mesh's ``data_inner`` axis, and replicate across
+    'data'. ``zero_hpz_partition_size`` is accepted and read by nothing,
+    as in the JAX package (its config.py:252 is the only place naming
+    it). ZenFlow is not ported and raises."""
     stage: int = 0
     reduce_bucket_size: Union[int, str] = 500_000_000
     allgather_bucket_size: Union[int, str] = 500_000_000
@@ -376,6 +379,8 @@ class ZeroConfig(TPUConfigModel):
     zero_quantized_weights: bool = False
     zero_quantized_gradients: bool = False
     zero_hpz_partition_size: int = 1
+    #: MiCS: the 'data_inner' sub-group's size; 0/1 = off
+    mics_shard_size: int = 0
 
     @model_validator(mode="after")
     def _ported(self):
@@ -403,12 +408,6 @@ class ZeroConfig(TPUConfigModel):
                 "zero_optimization.zenflow is not ported to "
                 "deepspeed_tpu_torch yet (ROADMAP A, 'Offload': ZenFlow "
                 "waits on the reference's red ZenFlow tests)")
-        if self.zero_hpz_partition_size > 1:
-            raise NotImplementedError(
-                f"zero_optimization.zero_hpz_partition_size = "
-                f"{self.zero_hpz_partition_size} (hpZ secondary shards) is "
-                f"not ported to deepspeed_tpu_torch yet (ROADMAP A, "
-                f"'Parallelism breadth')")
         extra = set(self.model_extra or {}) - _ZERO_NOOP_KEYS
         if extra:
             raise NotImplementedError(

@@ -1497,13 +1497,15 @@ def partition_specs(cfg: DecoderConfig, zero_stage: int = 0,
     (``runtime.pipe.pipeline_partition_specs``); under ``tp`` the
     embedding and the head (``lm_head`` and its bias) then drop 'model'
     and stay whole on every stage (model_factory.py:431-445).
-    ``mics`` (shards within the MiCS sub-group) is not ported."""
-    if mics:
-        raise NotImplementedError(
-            "partition_specs(mics=True): MiCS is not ported to "
-            "deepspeed_tpu_torch yet (ROADMAP A, 'Parallelism breadth')")
-    fsdp = ("data", "data_inner", "expert") if zero_stage >= 3 else None
-    efsdp = ("data", "data_inner") if zero_stage >= 3 else None
+    ``mics`` (transformer.py:1220-1225): stage-3 shards live within the
+    MiCS sub-group, ('data_inner', 'expert') — 'data_inner' for expert
+    weights — and replicate across 'data'."""
+    if zero_stage >= 3:
+        fsdp = ("data_inner", "expert") if mics else \
+            ("data", "data_inner", "expert")
+        efsdp = "data_inner" if mics else ("data", "data_inner")
+    else:
+        fsdp = efsdp = None
     model = "model" if tp else None
 
     def spec(*axes):

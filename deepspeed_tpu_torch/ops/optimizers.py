@@ -10,6 +10,14 @@ are not fp32 the state keeps an fp32 master copy (``_needs_master`` :46)
 and the update runs on it; all update math is fp32 (:111-127) whatever the
 storage dtype of the moments.
 
+Each ``update(grads, state, params, lr, layout=None)`` takes a
+distributed engine's :class:`~deepspeed_tpu_torch.runtime.zero.sharding.
+ShardLayout` when ``params`` are pieces of their leaves (ZeRO shards, a
+pipeline stage's rows, tensor- or expert-parallel blocks): LAMB then
+sums each leaf's squares over the ranks before its trust ratio, and Muon
+gathers each matrix whole for Newton–Schulz and keeps its own piece; the
+elementwise updates ignore it.
+
 The JAX package's update is functional; here it works IN PLACE on the
 state's tensors and on the parameters (which therefore come back as the
 same objects), so a step allocates one fp32 leaf of temporaries at a time
@@ -104,7 +112,7 @@ def adam(beta1: float = 0.9, beta2: float = 0.999, eps: float = 1e-8,
         return state
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, layout=None):
         step = state["step"] + 1
         if bias_correction:
             bc1 = 1.0 - beta1 ** step
@@ -186,24 +194,42 @@ def lamb(beta1: float = 0.9, beta2: float = 0.999, eps: float = 1e-6,
         return _init_state(params, exp_avg=_zeros_f32(params),
                            exp_avg_sq=_zeros_f32(params))
 
+    def direction(m, v, w):
+        upd = m / (v.sqrt() + eps)
+        if weight_decay:
+            upd.add_(w, alpha=weight_decay)
+        return upd
+
+    def ratio(w_norm, u_norm):
+        return torch.where((w_norm > 0) & (u_norm > 0),
+                           torch.clamp(w_norm / u_norm, min_coeff,
+                                       max_coeff),
+                           torch.ones_like(w_norm))
+
     @torch.no_grad()
-    def update(grads, state, params, lr):
-        for m, v, g, w in zip(tree_leaves(state["exp_avg"]),
-                              tree_leaves(state["exp_avg_sq"]),
-                              tree_leaves(grads), _masters(state, params)):
+    def update(grads, state, params, lr, layout=None):
+        leaves = list(zip(tree_leaves(state["exp_avg"]),
+                          tree_leaves(state["exp_avg_sq"]),
+                          tree_leaves(grads), _masters(state, params)))
+        for m, v, g, w in leaves:
             g = g.float()
             m.mul_(beta1).add_(g, alpha=1 - beta1)
             v.mul_(beta2).addcmul_(g, g, value=1 - beta2)
-            upd = m / (v.sqrt() + eps)
-            if weight_decay:
-                upd.add_(w, alpha=weight_decay)
-            w_norm = torch.linalg.vector_norm(w)
-            u_norm = torch.linalg.vector_norm(upd)
-            trust = torch.where((w_norm > 0) & (u_norm > 0),
-                                torch.clamp(w_norm / u_norm, min_coeff,
-                                            max_coeff),
-                                torch.ones_like(w_norm))
-            w.sub_(upd.mul_(lr * trust))
+            if layout is None:
+                upd = direction(m, v, w)
+                trust = ratio(torch.linalg.vector_norm(w),
+                              torch.linalg.vector_norm(upd))
+                w.sub_(upd.mul_(lr * trust))
+        if layout is not None:
+            # the pieces' sums of squares, summed over the ranks that
+            # hold the rest of each leaf; the direction is recomputed
+            # (bitwise the same) instead of kept for every leaf at once
+            ssq = [torch.stack([torch.sum(w * w), torch.sum(torch.square(
+                direction(m, v, w)))]) for m, v, _, w in leaves]
+            ssq = layout.sum_sq(ssq)
+            for (m, v, _, w), s in zip(leaves, ssq):
+                trust = ratio(torch.sqrt(s[0]), torch.sqrt(s[1]))
+                w.sub_(direction(m, v, w).mul_(lr * trust))
         _write_back(state, params)
         state["step"] += 1
         return params, state
@@ -224,7 +250,7 @@ def lion(beta1: float = 0.9, beta2: float = 0.99,
         return _init_state(params, exp_avg=_zeros_f32(params))
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, layout=None):
         for m, g, w in zip(tree_leaves(state["exp_avg"]), tree_leaves(grads),
                            _masters(state, params)):
             g = g.float()
@@ -251,7 +277,7 @@ def adagrad(eps: float = 1e-10, weight_decay: float = 0.0) -> Optimizer:
         return _init_state(params, sum_sq=_zeros_f32(params))
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, layout=None):
         for s, g, w in zip(tree_leaves(state["sum_sq"]), tree_leaves(grads),
                            _masters(state, params)):
             g = g.float()
@@ -280,7 +306,7 @@ def sgd(momentum: float = 0.0, weight_decay: float = 0.0,
             {"momentum": _zeros_f32(params)} if momentum else {}))
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, layout=None):
         bufs = tree_leaves(state["momentum"]) if momentum else \
             [None] * len(tree_leaves(grads))
         for b, g, w in zip(bufs, tree_leaves(grads), _masters(state, params)):
@@ -365,25 +391,30 @@ def muon(beta: float = 0.95, weight_decay: float = 0.0, ns_steps: int = 5,
                            exp_avg=select(False), exp_avg_sq=select(False))
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, layout=None):
         step = state["step"] + 1
         # fp32 powers, as the JAX package computes them: 1 - 0.999 ** 1
         # loses 5 digits to cancellation, so the rounding shows
         bc1, bc2 = (float(np.float32(1.0) - np.float32(b) ** np.float32(step))
                     for b in (adam_beta1, adam_beta2))
-        for mom, m, v, g, w in zip(tree_leaves(state["momentum"]),
-                                   tree_leaves(state["exp_avg"]),
-                                   tree_leaves(state["exp_avg_sq"]),
-                                   tree_leaves(grads),
-                                   _masters(state, params)):
+        for i, (mom, m, v, g, w) in enumerate(zip(
+                tree_leaves(state["momentum"]),
+                tree_leaves(state["exp_avg"]),
+                tree_leaves(state["exp_avg_sq"]), tree_leaves(grads),
+                _masters(state, params))):
             g = g.float()
             if mom.ndim >= 2:
                 mom.mul_(beta).add_(g)
                 eff = g + beta * mom            # nesterov-style
+                if layout is not None:
+                    # each matrix whole on every rank that holds a piece
+                    eff = layout.whole(i, eff)
                 mat = eff if eff.ndim == 2 else \
                     eff.reshape(eff.shape[0], eff.shape[1], -1)
                 ortho = _newton_schulz(mat, ns_steps).reshape(eff.shape)
                 scale = math.sqrt(max(1.0, eff.shape[-2] / eff.shape[-1]))
+                if layout is not None:
+                    ortho = layout.own(i, ortho)
                 upd = ortho.float() * scale
             else:
                 m.mul_(adam_beta1).add_(g, alpha=1 - adam_beta1)

@@ -120,14 +120,32 @@ boxes (the whole leaves from pipe rank 0). ``eval_batch`` runs the GPipe
 loss; ``forward``/``backward``/``step``, offload and ZeRO++ under a
 pipeline raise.
 
+MiCS: a mesh with a ``data_inner`` axis above 1 splits the batch over
+data × data_inner × expert; with ``mics_shard_size`` the model's stage-3
+specs put a param shard on the ('data_inner', 'expert') sub-group, which
+replicates over 'data'. Its state and gradient shards nest 'data' inside
+the param shard (the JAX plan's extended entry): the layer loop's
+backward reduce-scatters a gradient over the sub-group, the engine over
+'data' after it, and after the update the finer shards are all-gathered
+over 'data' into each param shard. A checkpoint writes each param shard
+once (data rank 0) and each state shard, with their JAX boxes.
+
+LAMB and Muon are not elementwise: under ZeRO shards, a pipeline
+stage's rows, or 'model' / 'expert' blocks the engine passes the
+optimizer a :class:`~deepspeed_tpu_torch.runtime.zero.sharding.
+ShardLayout`, so LAMB's norms are summed over every axis a leaf is cut
+on and Muon's Newton–Schulz sees each matrix whole (optimizers.py
+:167-177, :313-331, as GSPMD runs them).
+
 The ``telemetry`` block arms the span and request tracers
 (:func:`deepspeed_tpu_torch.telemetry.configure`), the ``comms_logger``
 block the collective log. ZeRO++ (``zero_quantized_weights`` /
 ``zero_quantized_gradients``) runs ``train_batch`` through
 ``runtime/zero/zeropp.py`` (not over an expert axis: the JAX
-``ValueError``). MiCS, ZenFlow, offload at dp > 1, 1-bit optimizers,
-the training step's telemetry spans and flight records and the watchdog
-are not ported: their config keys or meshes raise.
+``ValueError``); 1-bit Adam, 1-bit LAMB and 0/1 Adam through
+``ops/onebit.py`` (engine.py:185-200, :283-287, :499-501). ZenFlow,
+offload at dp > 1, the training step's telemetry spans and flight
+records and the watchdog are not ported: their config keys raise.
 """
 
 import os
@@ -144,7 +162,7 @@ from deepspeed_tpu_torch.config.config import DeepSpeedConfig
 from deepspeed_tpu_torch.models.convert import params_from_jax
 from deepspeed_tpu_torch.ops.optimizers import (build_optimizer, global_norm,
                                                 tree_leaves, tree_map)
-from deepspeed_tpu_torch.parallel.mesh import (Mesh,
+from deepspeed_tpu_torch.parallel.mesh import (ZERO_AXES, Mesh,
                                                get_data_parallel_world_size,
                                                get_mesh, has_mesh,
                                                mesh_from_config, set_mesh)
@@ -237,8 +255,9 @@ class DeepSpeedEngine:
         #: position on it; the batch splits over these axes
         self.ep_size = self.mesh.shape["expert"]
         self.ep_rank = self.mesh.coord("expert")
-        self._batch_axis = ("data", "expert") if self.ep_size > 1 \
-            else "data"
+        batch_axes = tuple(a for a in ZERO_AXES
+                           if a == "data" or self.mesh.shape[a] > 1)
+        self._batch_axis = batch_axes if len(batch_axes) > 1 else "data"
         self.dp_rank = comm.axis_index(self._batch_axis) if self._dist \
             else 0
         #: tensor parallelism: the 'model' axis's size and this rank's
@@ -279,8 +298,16 @@ class DeepSpeedEngine:
         self._param_stream = None
         self._check_dp_scope()
 
-        self.optimizer, base_lr = build_optimizer(config.optimizer.type,
-                                                  config.optimizer.params)
+        from deepspeed_tpu_torch.ops.onebit import adam_params, is_onebit
+        #: 1-bit Adam / LAMB, 0/1 Adam (ops/onebit.py): the step owns the
+        #: update; the Adam factory gives the base lr and hyperparams
+        self._onebit = is_onebit(config.optimizer.type)
+        if self._onebit:
+            self.optimizer, base_lr = build_optimizer(
+                "adamw", adam_params(config.optimizer.params))
+        else:
+            self.optimizer, base_lr = build_optimizer(
+                config.optimizer.type, config.optimizer.params)
         self.lr_schedule = build_schedule(config.scheduler.type,
                                           config.scheduler.params, base_lr)
         self.lr_scheduler = self.lr_schedule      # parity name
@@ -380,6 +407,13 @@ class DeepSpeedEngine:
             self._tp_full_shapes = [tuple(x.shape)
                                     for x in tree_leaves(full)]
             self._cut_axes(full)
+        if self._onebit:
+            # validated here, before the offload init (engine.py:283-287)
+            from deepspeed_tpu_torch.ops.onebit import (init_onebit_state,
+                                                        validate_onebit)
+            validate_onebit(self)
+            init_onebit_state(self)
+            return
         if self.offload_enabled:
             self._init_host_optimizer()
             return
@@ -458,9 +492,8 @@ class DeepSpeedEngine:
 
     def _resolve_mesh(self, mesh: Optional[Mesh]) -> Mesh:
         """engine.py:130: the given mesh, the current one, or one from the
-        config; its ``data_inner`` axis stays 1 here, its ``seq`` axis is
-        ``sequence_parallel.size`` and its ``pipe`` axis
-        ``pipeline.stages``."""
+        config; its ``seq`` axis is ``sequence_parallel.size`` and its
+        ``pipe`` axis ``pipeline.stages``."""
         if mesh is None:
             mesh = get_mesh() if has_mesh() else \
                 mesh_from_config(self.config)
@@ -470,15 +503,8 @@ class DeepSpeedEngine:
         if mesh.distributed:
             # the collectives resolve their axis names through it
             set_mesh(mesh)
-        big = {a: v for a, v in mesh.shape.items()
-               if a not in ("pipe", "data", "expert", "seq", "model")
-               and v > 1}
-        if big:
-            raise NotImplementedError(
-                f"mesh axes {big}: the engine runs pipeline, data, expert, "
-                f"sequence and tensor parallelism only; the other axes are "
-                f"not ported to deepspeed_tpu_torch yet (ROADMAP A, "
-                f"'Parallelism breadth')")
+        if not mesh.member:
+            raise ValueError("this rank is not in the mesh's ranks")
         stages = self.config.pipeline.stages
         if mesh.shape["pipe"] != stages:
             # a rank of a pipe axis holds one stage's layers only
@@ -548,74 +574,79 @@ class DeepSpeedEngine:
                 f"{self.tp_size}, seq={self.sp_size}, pipe={self.pp_size} "
                 f"needs torch.distributed with as many ranks "
                 f"(deepspeed_tpu_torch.comm.init_distributed)")
-        name = str(self.config.optimizer.type).lower()
-        if self.pp_size > 1 and name in ("lamb", "muon"):
-            raise NotImplementedError(
-                f"optimizer {name} under pipeline parallelism: its update "
-                f"is not elementwise (layer norms, Newton-Schulz) and a "
-                f"stage holds its rows of each layer leaf only; not ported "
-                f"to deepspeed_tpu_torch yet (ROADMAP A, 'Parallelism "
-                f"breadth')")
-        if self.zero_stage >= 1 and name in ("lamb", "muon"):
-            raise NotImplementedError(
-                f"optimizer {name} at ZeRO stage {self.zero_stage} and "
-                f"dp={self.dp_world_size}: its update is not elementwise "
-                f"(layer norms, Newton-Schulz), so it cannot step a shard; "
-                f"not ported to deepspeed_tpu_torch yet (ROADMAP A, "
-                f"'Parallelism breadth'); use stage 0")
 
     def _init_dp_layout(self) -> None:
         """The ZeRO plan over the mesh (engine.py:254-290), computed on the
         whole shapes as the JAX plan is: each leaf's param, gradient and
-        state shard dims and the group they shard over (dense leaves the
-        batch axes, expert leaves their column's 'data' group); stage 3's
-        params cut to this rank's shards; the optimizer state over the
-        update targets (this rank's block of each leaf where its state is
-        sharded)."""
-        from deepspeed_tpu_torch.parallel.mesh import ZERO_AXES
+        state shard dims and the group they shard over (the live axes of
+        its spec's entry: dense leaves the batch axes, expert leaves their
+        column's data group, MiCS param shards the ('data_inner',
+        'expert') sub-group); stage 3's params cut to this rank's shards;
+        the optimizer state over the update targets (this rank's block of
+        each leaf where its state is sharded — under MiCS a finer block of
+        the param shard, cut again over 'data')."""
         from deepspeed_tpu_torch.runtime.zero.sharding import (
-            EXPERT_DP_AXES, ZeroShardingPlan, expert_dim, shard_dim,
-            shard_of)
-        stage = self.zero_stage
+            EXPERT_DP_AXES, ZeroShardingPlan, _entry_axes, expert_dim,
+            shard_dim, shard_of)
+        stage, mesh = self.zero_stage, self.mesh
         shapes = iter(self._tp_full_shapes)
         abstract = tree_map(lambda x: torch.empty(
             next(shapes), dtype=x.dtype, device="meta"), self.params)
-        self.plan = ZeroShardingPlan(self.mesh, stage, self._specs,
-                                     abstract)
-        #: per leaf: whether it is an expert leaf (at any ep), the axis
-        #: its ZeRO shards live on, its size and this rank's position on it
-        data = self.mesh.shape["data"]
-        base = tree_leaves(tree_map(lambda p, sp: [sp], self.params,
-                                    self.plan.param_specs))
+        self.plan = ZeroShardingPlan(mesh, stage, self._specs, abstract)
+
+        def specs_of(tree):
+            return tree_leaves(tree_map(lambda p, sp: [sp], self.params,
+                                        tree))
+        base, state_sp = specs_of(self.plan.param_specs), \
+            specs_of(self.plan.state_specs)
         expert = [expert_dim(sp) is not None for sp in base]
-        self._gax = ["data" if e else self._batch_axis for e in expert]
-        self._gn = [data if e else self.dp_world_size for e in expert]
-        self._gr = [self.mesh.coord("data") if e else self.dp_rank
-                    for e in expert]
 
         def dims(specs, on):
-            sps = tree_leaves(tree_map(lambda p, sp: [sp], self.params,
-                                       specs))
             return [shard_dim(sp, EXPERT_DP_AXES if e else ZERO_AXES)
-                    if on else None for sp, e in zip(sps, expert)]
+                    if on else None for sp, e in zip(specs_of(specs),
+                                                     expert)]
 
         full = tree_leaves(self.params)
         self._full_shapes = [tuple(x.shape) for x in full]
         self._pdim = dims(self.plan.param_specs, stage >= 3)
         self._sdim = dims(self.plan.state_specs, stage >= 1)
         self._gdim = dims(self.plan.grad_specs, stage >= 2)
+        #: per leaf: the group its ZeRO shards live on (the live axes of
+        #: its shard entry), its size and this rank's position on it;
+        #: under MiCS (a param shard that replicates over 'data') the dim
+        #: along which its state and gradient shards cut the param shard
+        #: again over 'data' (None: they are the param shard, replicated)
+        self._gax, self._gn, self._gr = [], [], []
+        self._mics, self._odim = [], []
+        data = mesh.shape["data"]
+        for i, e in enumerate(expert):
+            fam = EXPERT_DP_AXES if e else ZERO_AXES
+            d = self._pdim[i] if self._pdim[i] is not None else \
+                self._sdim[i]
+            spec = base[i] if self._pdim[i] is not None else state_sp[i]
+            axes = tuple(a for a in (_entry_axes(spec[d]) if d is not None
+                                     else fam)
+                         if a in fam and mesh.shape[a] > 1) or ("data",)
+            self._gax.append(axes if len(axes) > 1 else axes[0])
+            self._gn.append(mesh.axes_size(axes))
+            self._gr.append(mesh.index(axes))
+            mics = self._pdim[i] is not None and "data" not in axes \
+                and data > 1
+            self._mics.append(mics)
+            self._odim.append(next(
+                (k for k, en in enumerate(state_sp[i])
+                 if "data" in _entry_axes(en)), None) if mics else None)
         for i, (shape, d) in enumerate(zip(self._full_shapes, self._pdim)):
             if d is not None and shape[d] % self._gn[i]:
                 raise ValueError(
                     f"stage-3 leaf {i} of shape {shape}: dim {d} does not "
                     f"divide by dp={self._gn[i]}")
         if self.model.configure_overlap is not None and stage >= 3:
-            self._overlap_plan = self.model.configure_overlap(self.mesh,
-                                                              abstract)
+            self._overlap_plan = self.model.configure_overlap(mesh, abstract)
             if self._overlap_plan is not None:
                 self._overlap_plan.publish_static_gauges()
         if self.model.configure_mesh is not None:
-            self.model.configure_mesh(self.mesh)
+            self.model.configure_mesh(mesh)
         it = iter(range(len(full)))
 
         def cut(x):
@@ -628,13 +659,20 @@ class DeepSpeedEngine:
                 x.is_floating_point())
         self.params = tree_map(cut, self.params)
         self._leaves = tree_leaves(self.params)
-        targets = [x if p is not None or s is None else
-                   shard_of(x.detach(), s, self._gr[i], self._gn[i])
-                   for i, (x, p, s) in enumerate(zip(
-                       self._leaves, self._pdim, self._sdim))]
+        dc = mesh.coord("data")
+        targets = []
+        for i, x in enumerate(self._leaves):
+            if self._mics[i]:
+                targets.append(shard_of(x.detach(), self._odim[i], dc, data))
+            elif self._pdim[i] is not None or self._sdim[i] is None:
+                targets.append(x)
+            else:
+                targets.append(shard_of(x.detach(), self._sdim[i],
+                                        self._gr[i], self._gn[i]))
         self._targets = targets
         self._targets_tree = _unflatten_like(self.params, targets)
         self.opt_state = self.optimizer.init(self._targets_tree)
+        self._opt_layout = self._shard_layout()
         log_dist(f"data parallel: dp={self.dp_world_size} stage={stage}; "
                  f"{sum(d is not None for d in self._pdim)} leaves sharded "
                  f"as params, {sum(d is not None for d in self._sdim)} as "
@@ -642,8 +680,44 @@ class DeepSpeedEngine:
                  + (f"; {sum(e is not None for e in self._edim)} expert "
                     f"leaves over ep={self.ep_size}"
                     if self.ep_size > 1 else "")
+                 + (f"; MiCS: {sum(self._mics)} param shards within "
+                    f"{mesh.axes_size(('data_inner', 'expert'))}-rank "
+                    f"sub-groups" if any(self._mics) else "")
                  + (f"; {self._overlap_plan.describe()}"
                     if self._overlap_plan is not None else ""))
+
+    def _shard_layout(self):
+        """How each update target is cut from its whole leaf (the cuts in
+        the order they were made: 'model', 'expert' and 'pipe' blocks,
+        the ZeRO shard, MiCS's 'data' cut) — for LAMB's norms and Muon's
+        Newton–Schulz."""
+        from deepspeed_tpu_torch.parallel.mesh import MESH_AXES
+        from deepspeed_tpu_torch.runtime.zero.sharding import ShardLayout
+        norm_axes, cuts = [], []
+        for i in range(len(self._leaves)):
+            c = []
+            for d, ax, n, r in ((self._mdim[i], "model", self.tp_size,
+                                 self.tp_rank),
+                                (self._edim[i], "expert", self.ep_size,
+                                 self.ep_rank),
+                                (self._pipedim[i], "pipe", self.pp_size,
+                                 self.pp_rank)):
+                if d is not None:
+                    c.append((d, ax, n, r))
+            zd = self._pdim[i] if self._pdim[i] is not None else \
+                self._sdim[i]
+            if zd is not None:
+                c.append((zd, self._gax[i], self._gn[i], self._gr[i]))
+            if self._mics[i] and self._odim[i] is not None:
+                c.append((self._odim[i], "data", self.mesh.shape["data"],
+                          self.mesh.coord("data")))
+            on = set()
+            for _, ax, n, _ in c:
+                if n > 1:
+                    on.update((ax,) if isinstance(ax, str) else ax)
+            norm_axes.append(tuple(a for a in MESH_AXES if a in on))
+            cuts.append(c)
+        return ShardLayout(norm_axes, cuts)
 
     def _by_axis(self, idx: List[int]) -> Dict[Any, List[int]]:
         """``idx`` grouped by the axis each leaf's shards live on."""
@@ -660,7 +734,8 @@ class DeepSpeedEngine:
         """Sum gradients over the ranks: under sequence parallelism every
         leaf (a replica over 'seq', or a stage-3 shard the data group
         already reduced) is first all-reduced over 'seq'; then stage-3
-        shards are done (the gather's backward reduce-scattered them);
+        shards are done (the gather's backward reduce-scattered them)
+        but for MiCS's, summed over 'data' as well;
         leaves with a gradient shard dim are reduce-scattered to it, the
         rest all-reduced in place — each in buckets of
         ``reduce_bucket_size`` elements."""
@@ -681,6 +756,21 @@ class DeepSpeedEngine:
                 out[i] = g
         for axis, ids in self._by_axis(ar).items():
             all_reduce_bucketed([out[i] for i in ids], axis, bucket)
+        # MiCS: a param shard's gradient, summed over its sub-group by the
+        # gather's backward, is summed over 'data' too (to the finer
+        # state shard where the state cuts it again)
+        rs = [i for i in range(len(out)) if self._mics[i]
+              and self._odim[i] is not None]
+        ar = [i for i in range(len(out)) if self._mics[i]
+              and self._odim[i] is None]
+        data = self.mesh.shape["data"]
+        if rs:
+            for i, g in zip(rs, reduce_scatter_bucketed(
+                    [out[i] for i in rs], [self._odim[i] for i in rs],
+                    "data", data, bucket)):
+                out[i] = g
+        if ar:
+            all_reduce_bucketed([out[i] for i in ar], "data", bucket)
         return out
 
     def _params_for_loss(self) -> Params:
@@ -702,7 +792,8 @@ class DeepSpeedEngine:
 
     def _gather_updated(self) -> None:
         """Stages 1-2 (and stage 3's whole leaves with sharded state):
-        all-gather the updated shards into the params."""
+        all-gather the updated shards into the params; under MiCS the
+        finer shards into each param shard, over 'data'."""
         from deepspeed_tpu_torch.runtime.zero.sharding import \
             all_gather_bucketed
         idx = [i for i in range(len(self._leaves))
@@ -714,6 +805,15 @@ class DeepSpeedEngine:
                 [self._sdim[i] for i in ids], axis, self._gn[ids[0]],
                 bucket)
             for i, f in zip(ids, full):
+                self._leaves[i].copy_(f)
+        # MiCS: the finer shards over 'data' rebuild each param shard
+        ids = [i for i in range(len(self._leaves)) if self._mics[i]
+               and self._odim[i] is not None]
+        if ids:
+            for i, f in zip(ids, all_gather_bucketed(
+                    [self._targets[i] for i in ids],
+                    [self._odim[i] for i in ids], "data",
+                    self.mesh.shape["data"], bucket)):
                 self._leaves[i].copy_(f)
 
     def _dp_mean(self, x: torch.Tensor) -> torch.Tensor:
@@ -980,7 +1080,8 @@ class DeepSpeedEngine:
             upd = [g if self._sharded(i) else
                    shard_of(g, self._sdim[i], self._gr[i], self._gn[i])
                    for i, g in enumerate(grads)]
-            self.optimizer.update(upd, self.opt_state, self._targets, lr)
+            self.optimizer.update(upd, self.opt_state, self._targets, lr,
+                                  layout=self._opt_layout)
             self._gather_updated()
         elif not skip:
             self.optimizer.update(grads, self.opt_state, self._leaves, lr)
@@ -1016,6 +1117,8 @@ class DeepSpeedEngine:
             if self._sharded(i):
                 ax = self._gax[i]
                 on.update((ax,) if isinstance(ax, str) else ax)
+                if self._mics[i] and self._odim[i] is not None:
+                    on.add("data")
             if self._mdim[i] is not None:
                 on.add("model")
             if self._edim[i] is not None:
@@ -1147,10 +1250,10 @@ class DeepSpeedEngine:
         self._finish_step(metrics)
 
     def _refuse_pipeline(self) -> None:
-        """forward()/backward()/step() under a pipeline raise the JAX
-        engine's RuntimeError (engine.py:676-679; reference
-        pipe/engine.py)."""
-        if self.pp_size > 1:
+        """forward()/backward()/step() under a pipeline or a 1-bit
+        optimizer raise the JAX engine's RuntimeError (engine.py:676-679:
+        neither has a separate gradient step; reference pipe/engine.py)."""
+        if self.pp_size > 1 or self._onebit:
             raise RuntimeError(
                 "forward()/backward()/step() are not supported with "
                 "pipeline parallelism or the ZeRO++ quantized path; use "
@@ -1192,10 +1295,14 @@ class DeepSpeedEngine:
             self.micro_steps += gas
             self._finish_step(metrics)
             return loss
-        if self._zeropp:
-            from deepspeed_tpu_torch.runtime.zero.zeropp import \
-                zeropp_train_step
-            loss, metrics = zeropp_train_step(self, micros, seed)
+        if self._zeropp or self._onebit:
+            if self._zeropp:
+                from deepspeed_tpu_torch.runtime.zero.zeropp import \
+                    zeropp_train_step as fused
+            else:
+                from deepspeed_tpu_torch.ops.onebit import \
+                    onebit_train_step as fused
+            loss, metrics = fused(self, micros, seed)
             self.micro_steps += gas
             self._finish_step(metrics)
             return loss
@@ -1527,6 +1634,11 @@ class DeepSpeedEngine:
             from deepspeed_tpu_torch.runtime.zero.zeropp import \
                 checkpoint_state
             state.update(checkpoint_state(self))
+        elif self._onebit:
+            # each rank's error-buffer rows are its fragments; the rest is
+            # whole, written by rank 0
+            from deepspeed_tpu_torch.ops import onebit
+            state["opt_state"] = onebit.checkpoint_state(self)
         elif self._dist:
             # each rank writes its shards with their boxes; whole leaves
             # are written by rank 0 alone (store.py:150's replica filter)
@@ -1604,6 +1716,9 @@ class DeepSpeedEngine:
             # the full leaves are read, and each rank keeps its block
             templates = {k: self._full_templates(v) if k != "loss_scale"
                          else v for k, v in templates.items()}
+        if self._onebit and "opt_state" in templates:
+            from deepspeed_tpu_torch.ops import onebit
+            templates["opt_state"] = onebit.checkpoint_templates(self)
         strict = frozenset(templates) if load_module_strict \
             else frozenset(templates) - {"params"}
         state, meta, tag = load_checkpoint(load_dir, tag, templates,
@@ -1630,7 +1745,7 @@ class DeepSpeedEngine:
                     self.opt_state = _copy_into(self.opt_state,
                                                 state["opt_state"],
                                                 self.dp_rank)
-                else:
+                elif not self._onebit:
                     log_dist("checkpoint has no opt_state group — "
                              "rebuilding from loaded params (cross-mode "
                              "resume)")
@@ -1677,14 +1792,19 @@ class DeepSpeedEngine:
                     per = b // self.ep_size
                     start[d] = self.ep_rank * per
                     if a != per:
-                        start[d] += r * a
+                        start[d] += self._zero_start(i, d, a, per)
                         cut_dp = True
                     continue
                 if a != b:
-                    start[d], cut_dp = r * a, True
+                    start[d], cut_dp = self._zero_start(i, d, a, b), True
+            # a MiCS param shard is replicated over 'data': data rank 0
+            # writes it (its state shards are each rank's own)
             write = (cut_dp or r == 0) and \
                 (md is not None or self.tp_rank == 0) and \
-                (pd is not None or self.pp_rank == 0) and self.sp_rank == 0
+                (pd is not None or self.pp_rank == 0) and \
+                self.sp_rank == 0 and not (
+                    self._mics[i] and not self._outer_cut(i, x.shape)
+                    and self.mesh.coord("data"))
             out.append(ShardedLeaf(x, full, start, write))
         return _unflatten_like(tree, out)
 
@@ -1709,15 +1829,36 @@ class DeepSpeedEngine:
                         if d is not None:
                             x = x.narrow(d, rank * (x.shape[d] // n),
                                          x.shape[d] // n)
-                    if tuple(x.shape) != tuple(t.shape):
-                        d = _cut_dim(tuple(t.shape), tuple(x.shape))
-                        x = x.narrow(d, self._gr[i] * t.shape[d],
-                                     t.shape[d])
+                    for d, (a, b) in enumerate(zip(t.shape, x.shape)):
+                        if a != b:
+                            x = x.narrow(d, self._zero_start(i, d, a, b),
+                                         a)
                 out.append(x)
             return _unflatten_like(tree, out)
         if isinstance(tree, dict):
             return {k: self._local_block(v, like[k]) for k, v in tree.items()}
         return tree
+
+    def _zero_start(self, i: int, d: int, a: int, whole: int) -> int:
+        """Where this rank's ZeRO block of ``a`` elements starts along dim
+        ``d`` of leaf i (of ``whole`` there before the ZeRO cuts): block
+        ``_gr[i]``; under MiCS the param shard's block, the finer state
+        block within it (the JAX ('data_inner', 'expert', 'data') entry)
+        or, on another dim, the 'data' block."""
+        if not self._mics[i]:
+            return self._gr[i] * a
+        dc, n = self.mesh.coord("data"), whole // a
+        if d == self._pdim[i]:
+            if d == self._odim[i] and n != self._gn[i]:
+                return (self._gr[i] * self.mesh.shape["data"] + dc) * a
+            return self._gr[i] * a
+        return dc * a
+
+    def _outer_cut(self, i: int, shape) -> bool:
+        """Whether a piece of MiCS leaf i of ``shape`` is a state shard
+        (cut again over 'data'), not the param shard."""
+        od = self._odim[i]
+        return od is not None and shape[od] != self._leaves[i].shape[od]
 
     def _full_templates(self, tree):
         """``tree`` with each shard leaf replaced by a meta tensor of its
@@ -1913,7 +2054,7 @@ def _flags_to_host(flags):
 
 
 #: every axis the engine runs: a flag reduced over them reaches every rank
-_ALL_AXES = ("pipe", "data", "expert", "seq", "model")
+_ALL_AXES = ("pipe", "data", "data_inner", "expert", "seq", "model")
 
 
 def _stack_micros(micros: List[Batch]) -> Batch:

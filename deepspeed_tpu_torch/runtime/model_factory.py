@@ -257,14 +257,14 @@ def decoder_model_spec(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
 
     def configure_mesh(mesh):
         """Engine hook: reduce the loss terms over the axes that split the
-        tokens of a distributed mesh (any size) — 'data', with 'expert'
-        under expert parallelism and 'seq' under sequence parallelism —
+        tokens of a distributed mesh (any size) — 'data', with
+        'data_inner', 'expert' and 'seq' where they are above 1 —
         so a rank's loss is its share of the global batch's; the capacity
         MoE then claims its slots in the global token order
         (``moe_layer``'s ``batch_axis``). Under SP a rank's block of the
         sequence takes its global positions."""
         if mesh.distributed:
-            axes = tuple(a for a in ("data", "expert", "seq")
+            axes = tuple(a for a in ("data", "data_inner", "expert", "seq")
                          if a == "data" or mesh.shape[a] > 1)
             _dp["axis"] = axes if len(axes) > 1 else "data"
             _dp["n"] = mesh.axes_size(_dp["axis"])
@@ -280,9 +280,13 @@ def decoder_model_spec(dec_cfg: DecoderConfig, ds_cfg: DeepSpeedConfig):
         return tot.clamp_min(1) / _dp["n"]
 
     stages = int(ds_cfg.pipeline.stages)
+    # MiCS (model_factory.py:364-367): stage-3 shards within the
+    # ('data_inner', 'expert') sub-group
+    mics = int(ds_cfg.zero_optimization.mics_shard_size or 0) > 1
     specs = transformer.partition_specs(dec_cfg,
                                         ds_cfg.zero_optimization.stage,
-                                        tp=tp, pipe_stages=stages)
+                                        tp=tp, mics=mics,
+                                        pipe_stages=stages)
     ce_budget = None if ds_cfg.chunked_ce_budget_mb is None \
         else int(ds_cfg.chunked_ce_budget_mb) * 1024 * 1024
     ce_dtype = torch.bfloat16 if ds_cfg.ce_logits_dtype in (

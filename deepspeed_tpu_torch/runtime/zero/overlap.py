@@ -27,9 +27,13 @@ parameters):
   :meth:`OverlapPlan.transient_bytes` reports either).
 
 Without ``overlap_comm`` stage 3 runs the same loop one layer a chunk
-with no prefetch: each layer's gather waits before it computes. Under
-expert parallelism each expert leaf is gathered over its column's 'data'
-group and every other leaf over ('data', 'expert'); with
+with no prefetch: each layer's gather waits before it computes. Each
+leaf is gathered over the live axes of its spec's shard entry: under
+expert parallelism an expert leaf over its column's data group and every
+other leaf over ('data', 'expert'); under MiCS over the ('data_inner',
+'expert') sub-group only (the engine then reduce-scatters the sub-group's
+gradient sums over 'data' too, and all-gathers the updated finer shards
+over 'data' to rebuild each param shard); with
 ``overlap_comm`` set the JAX plan fences EP off and falls back to its
 monolithic collectives (overlap.py:400-406): the port warns with the same
 words and runs this loop without prefetch, which computes the same. Under
@@ -137,10 +141,6 @@ class OverlapPlan:
         self.bucket_bytes = int(bucket_bytes)
         self.bounds = chunk_bounds(self.num_layers, self.per_layer_bytes,
                                    self.bucket_bytes)
-        #: the DP group's axes, its size and this rank's position
-        self.axis = tuple(a for a in self.dp_axes
-                          if mesh.shape.get(a, 1) > 1) or ("data",)
-        self.n = mesh.axes_size(self.dp_axes)
         #: per layer leaf, in the params tree's order: the dim its shards
         #: are cut on (None: the leaf is whole on every rank), and the
         #: axis and size of the group they are cut over
@@ -208,21 +208,24 @@ class OverlapPlan:
 
     def leaf_dims(self, layers: Pytree) -> List[Optional[int]]:
         """The shard dim of each leaf of ``layers`` (the params tree's
-        order), from the specs; sets each leaf's group (an expert leaf's
-        is its column's 'data' group)."""
+        order), from the specs; sets each leaf's group: the live axes of
+        its spec's entry at that dim — the ZeRO family, an expert leaf's
+        column's data group, or under MiCS the ('data_inner', 'expert')
+        sub-group, whose gathers never leave it."""
         specs = tree_leaves(tree_map(lambda p, s: [s], layers,
                                      self.layer_specs))
         dims = []
         self.axes, self.sizes = [], []
         for s in specs:
-            if expert_dim(s) is None:
-                dims.append(shard_dim(s, self.dp_axes))
-                self.axes.append(self.axis)
-                self.sizes.append(self.n)
-            else:
-                dims.append(shard_dim(s, EXPERT_DP_AXES))
-                self.axes.append("data")
-                self.sizes.append(self.mesh.axes_size(EXPERT_DP_AXES))
+            fam = EXPERT_DP_AXES if expert_dim(s) is not None \
+                else self.dp_axes
+            d = shard_dim(s, fam)
+            dims.append(d)
+            axes = () if d is None else tuple(
+                a for a in _spec_axes((s[d],))
+                if a in fam and self.mesh.shape.get(a, 1) > 1)
+            self.axes.append(axes or ("data",))
+            self.sizes.append(self.mesh.axes_size(axes))
         return dims
 
     def layer_loop(self, run_layers: Callable, x: torch.Tensor,

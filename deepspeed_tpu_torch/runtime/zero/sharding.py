@@ -336,3 +336,58 @@ class GatherLeaf(torch.autograd.Function):
         return reduce_scatter_flat([g.contiguous()], [ctx.dim], ctx.axis,
                                    ctx.n)[0], None, None, None
 
+
+
+class ShardLayout:
+    """How each update target of a distributed engine is cut from its
+    whole leaf, for the updates that are not elementwise (LAMB's trust
+    ratio over the whole leaf, optimizers.py:167-177; Muon's
+    Newton–Schulz over each whole matrix, :313-331 and :402-408).
+
+    ``norm_axes[i]``: the axes over which leaf i's pieces differ (its
+    ZeRO group, 'data' again for a MiCS finer shard, 'model', 'expert',
+    'pipe'); the sums of its pieces' squares are all-reduced over them.
+    ``cuts[i]``: the cuts that made the piece, in the order they were
+    made, each ``(dim, axes, n, index)`` — this rank's block ``index`` of
+    ``n`` along ``dim`` over the group of ``axes``."""
+
+    def __init__(self, norm_axes: Sequence[Tuple[str, ...]],
+                 cuts: Sequence[Sequence[Tuple[int, Any, int, int]]]):
+        self.norm_axes = [tuple(a) for a in norm_axes]
+        self.cuts = [list(c) for c in cuts]
+
+    def sum_sq(self, values: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Per leaf, the sum over the whole leaf of what ``values[i]``
+        (0-d, this piece's sum of squares) sums over its piece: one
+        all-reduce a set of axes."""
+        out = list(values)
+        by: dict = {}
+        for i, axes in enumerate(self.norm_axes):
+            if axes:
+                by.setdefault(axes, []).append(i)
+        for axes, ids in by.items():
+            tot = comm.all_reduce(torch.stack([values[i] for i in ids]),
+                                  axes)
+            for j, i in enumerate(ids):
+                out[i] = tot[j]
+        return out
+
+    def matrix_cuts(self, i: int, ndim: int):
+        """The cuts of leaf i that split a Newton–Schulz matrix: all but
+        a cut on dim 0 of a stacked leaf (a pipeline stage's rows, or a
+        ZeRO shard of the layer dim: whole matrices either way)."""
+        return [c for c in self.cuts[i] if not (ndim > 2 and c[0] == 0)]
+
+    def whole(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Leaf i's piece ``x`` gathered over the cuts that split its
+        matrices (the last cut first)."""
+        for dim, axes, n, _ in reversed(self.matrix_cuts(i, x.dim())):
+            if n > 1:
+                x = comm.all_gather(x.contiguous(), axes, axis=dim)
+        return x
+
+    def own(self, i: int, full: torch.Tensor) -> torch.Tensor:
+        """This rank's piece of what :meth:`whole` gathered."""
+        for dim, _, n, index in self.matrix_cuts(i, full.dim()):
+            full = shard_of(full, dim, index, n)
+        return full

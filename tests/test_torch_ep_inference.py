@@ -9,7 +9,9 @@ take its Pallas K5c kernel, in interpret mode, at that width) and
 qwen2-moe-tiny (the shared expert). Each rank keeps its 2 experts; the
 capacity layer's buffers cross the 'expert' all-to-all at every token
 count; a batch whose rows divide by the axis splits over it, one that
-does not runs whole on every rank. Under tensor parallelism the experts
+does not runs whole on every rank. One run puts rank 1 at expert
+position 0 (``devices=[1, 0]``), so the exchange must route each block
+by position, not by the group's rank order. Under tensor parallelism the experts
 stay whole on each model rank (the JAX ``_shard_like``). An engine that
 draws its tree keeps only its experts of the full draw. Packed int4
 experts under EP raise the JAX ``ValueError``s.
@@ -47,6 +49,9 @@ MIX = j_mixtral("tiny", hidden_size=256, intermediate_size=256,
                 max_seq_len=64, vocab_size=256)
 QWEN = j_qwen("tiny", max_seq_len=64, vocab_size=256)
 EP = {"expert": 2}
+#: rank 1 at expert position 0: the group's rank order is not its
+#: positions' (the exchange must route by position)
+EP_SWAPPED = {"expert": 2, "devices": [1, 0]}
 TP = {"model": 2}
 
 #: name → (model, tree, mesh, config extras, prompt)
@@ -54,6 +59,7 @@ RUNS = {
     "int8": (MIX, "mix", EP, {"weight_quant": "int8"}, PROMPT),
     "int8_whole_rows": (MIX, "mix", EP, {"weight_quant": "int8"}, ODD),
     "fp32": (MIX, "mix", EP, {}, PROMPT),
+    "fp32_swapped": (MIX, "mix", EP_SWAPPED, {}, PROMPT),
     "shared": (QWEN, "qwen", EP, {}, PROMPT),
     "prequant_int8": (MIX, "mix_q", EP, {}, PROMPT),
     "tp_int8": (MIX, "mix", TP, {"weight_quant": "int8"}, PROMPT),
@@ -88,7 +94,9 @@ def jax_ref(trees):
     try:
         for name, (cfg, key, mesh, extra, prompt) in RUNS.items():
             shape = dict({"data": 1}, **mesh)
-            m = jmesh.build_mesh(**shape, devices=jax.devices()[:2])
+            shape["devices"] = [jax.devices()[i]
+                                for i in shape.get("devices", (0, 1))]
+            m = jmesh.build_mesh(**shape)
             eng = InferenceEngineTPU(cfg, _config(extra),
                                      params=trees[key], mesh=m)
             out[name] = {
@@ -131,9 +139,9 @@ def test_ep_serving_matches_jax_engine(port, jax_ref, name):
         assert _rel(got["logits"], want["logits"]) <= RTOL, (name, r)
         np.testing.assert_array_equal(got["tokens"], want["tokens"])
         # EP keeps this rank's 2 of 4 experts; TP keeps them whole
-        assert got["wg"][1] == (2 if mesh is EP else 4)
+        assert got["wg"][1] == (2 if "expert" in mesh else 4)
         assert got["wg"][-1] == RUNS[name][0].ffn_size
-        if mesh is EP:
+        if "expert" in mesh:
             # one record a layer of the JAX layer's regroup: the [E, C, d]
             # buffer (C = the rank's tokens: nothing is dropped)
             rows = RUNS[name][4].shape[0]

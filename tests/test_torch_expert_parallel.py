@@ -108,12 +108,20 @@ RUNS = {
     "d2e2": {"s0": ("mix_d2e2", 0, None), "s1": ("mix_d2e2", 1, None),
              "s2": ("mix_d2e2", 2, None), "s3": ("mix_d2e2", 3, None),
              "shared_s3": ("qwen_d2e2", 3, None)},
+    "e2_swapped": {"swapped_s1": ("mix_e2", 1, None)},
+    "d2e2_hybrid": {"hybrid_s2": ("mix_d2e2", 2, None)},
     "d2m2": {"capacity_s0": ("mix_d2m2", 0, None),
              "capacity_s3": ("mix_d2m2", 3, None),
              "dropless_s1": ("dropless_d2m2", 1, None),
              "shared_s2": ("qwen_d2m2", 2, None)},
 }
-SHAPES = {"e2": (1, 2, 1), "d2e2": (2, 2, 1), "d2m2": (2, 1, 2)}
+SHAPES = {"e2": (1, 2, 1), "e2_swapped": (1, 2, 1), "d2e2": (2, 2, 1),
+          "d2e2_hybrid": (2, 2, 1), "d2m2": (2, 1, 2)}
+#: meshes whose groups order their ranks otherwise than their positions:
+#: the build_mesh keywords beyond the shape (JAX device ids where the
+#: port takes ranks)
+LAYOUTS = {"e2_swapped": {"devices": [1, 0]},
+           "d2e2_hybrid": {"dcn": {"expert": 2}, "slice_ids": [1, 0, 1, 0]}}
 CKPT = (MIX, 1, 7)          # model, stage, data seed of the checkpoints
 
 
@@ -209,10 +217,14 @@ def port(init, jax_runs):
                    "max_train_batch_size": GB, "max_gpus": 4})}
     world4 = [{"shape": {"data": 2, "expert": 2},
                "runs": _runs("d2e2", init) + ckpt},
+              {"shape": dict(data=2, expert=2, **LAYOUTS["d2e2_hybrid"]),
+               "runs": _runs("d2e2_hybrid", init)},
               {"shape": {"data": 2, "model": 2}, "runs": _runs("d2m2", init)},
               {"shape": {"data": 4}, "runs": [elastic]}]
     return {"e2": spawn("ep_runs", 2, meshes=[
-        {"shape": {"expert": 2}, "runs": e2}]),
+        {"shape": {"expert": 2}, "runs": e2},
+        {"shape": dict(expert=2, **LAYOUTS["e2_swapped"]),
+         "runs": _runs("e2_swapped", init)}]),
         "w4": spawn("ep_runs", 4, meshes=world4, timeout=240.0),
         "pdir": pdir}
 
@@ -235,15 +247,25 @@ CASES = [(key, name) for key in RUNS for name in RUNS[key]]
 @pytest.mark.parametrize("key,name", CASES,
                          ids=[f"{k}-{n}" for k, n in CASES])
 def test_ep_training_matches_jax_engine(port, jax_runs, key, name):
-    res = port["e2"] if key == "e2" else port["w4"]
     d, e, m = SHAPES[key]
+    res = port["e2"] if d * e * m == 2 else port["w4"]
     want = jax_runs[RUNS[key][name][0]]
+    # each rank's coordinates: where its id stands in the JAX device array
+    # of the same layout
+    ids = jmesh.build_mesh(data=d, expert=e, model=m,
+                           devices=jax.devices()[:d * e * m],
+                           set_current=False, **{
+                               k: v for k, v in LAYOUTS.get(key, {}).items()
+                               if k != "devices"})
+    ids = np.vectorize(lambda x: x.id)(ids.devices).reshape(d, e, m)
+    if "devices" in LAYOUTS.get(key, {}):
+        ids = np.asarray(LAYOUTS[key]["devices"])[ids]
     for r, rr in enumerate(res):
         got = rr[name]
         _hold(got, want, f"{key}/{name} rank {r}")
         assert got["losses"] == res[0][name]["losses"]
-        assert got["coords"] == {"data": r // (e * m),
-                                 "expert": (r // m) % e, "model": r % m}
+        pos = [int(i[0]) for i in np.nonzero(ids == r)]
+        assert got["coords"] == dict(zip(("data", "expert", "model"), pos))
         if e > 1:
             # the expert leaves hold this rank's E/ep experts
             n_exp = sum(x is not None for x in got["edim"])

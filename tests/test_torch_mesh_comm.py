@@ -77,8 +77,8 @@ def _per_rank(n, fn, *arrays, out=P("data")):
 def test_mesh_shapes_and_raises_match_jax(ranks, restore_mesh):
     """tests/test_mesh_comm.py:16-42 at the ranks' world: the inferred
     data axis, an explicit one, a bad product (the same message) and
-    mesh_from_config; the seq and pipe axes in the JAX device order;
-    data_inner above 1 raises in the port."""
+    mesh_from_config; the seq, pipe and data_inner axes in the JAX device
+    order."""
     n, _, res = ranks
     jm = jmesh.build_mesh(devices=jax.devices()[:n], set_current=False)
     for r in res:
@@ -89,7 +89,17 @@ def test_mesh_shapes_and_raises_match_jax(ranks, restore_mesh):
         jmesh.build_mesh(data=n + 1, devices=jax.devices()[:n],
                          set_current=False)
     assert res[0]["raises"]["product"] == str(e.value)
-    assert "Parallelism breadth" in res[0]["raises"]["data_inner"]
+    # build_mesh(data_inner=2) in the JAX rank order: data, data_inner
+    jmi = jmesh.build_mesh(data=n // 2, data_inner=2,
+                           devices=jax.devices()[:n], set_current=False)
+    order = np.asarray(jmi.devices).reshape(n // 2, 2)
+    for r, rr in enumerate(res):
+        im = rr["inner_mesh"]
+        d, i = im["coords"]
+        assert order[d, i].id == jax.devices()[r].id
+        assert im["inner_index"] == i and im["dp"] == n
+        assert im["inner_sum"] == sum(d * 2 + j for j in range(2))
+        assert im["data_sum"] == sum(j * 2 + i for j in range(n // 2))
     # build_mesh(pipe=2) in the JAX rank order: 'pipe' the slowest axis
     jmp = jmesh.build_mesh(data=n // 2, pipe=2, devices=jax.devices()[:n],
                            set_current=False)
@@ -171,7 +181,9 @@ def test_mesh_in_one_process(restore_mesh):
                          set_current=False)
     assert str(te.value) == str(je.value)
     assert tmesh.mesh_from_config(DeepSpeedConfig()).shape == m.shape
-    with pytest.raises(NotImplementedError, match="Parallelism breadth"):
+    # a mesh's ranks must be ranks of the world (a subset of them builds:
+    # tests/test_torch_mics.py)
+    with pytest.raises(ValueError, match="not distinct ranks"):
         tmesh.build_mesh(devices=[0, 1])
 
 

@@ -12,7 +12,10 @@ of the JAX engine on the same mesh (both fp32; gloo and XLA sum in other
 orders, and Adam scales a gradient's rounding near zero up to its step,
 lr 2e-3, so the bound is a tenth of the step). The schedules as functions: loss within 1e-5 and
 every gradient within 2e-4 of ``jax.value_and_grad`` of the JAX GPipe
-loss and of the JAX 1F1B. Checkpoints at data 2 × pipe 2 (stage 3, three
+loss and of the JAX 1F1B. LAMB and Muon at pipe 2 under both schedules
+(Muon on Llama, three layers: the padded row stays zero) against the JAX
+engine's, Muon's parameters within 1e-3 (``MUON_ATOL``: its
+Newton–Schulz is bf16 on both sides). Checkpoints at data 2 × pipe 2 (stage 3, three
 layers: the padded four-row stack) cross the packages bitwise.
 """
 
@@ -53,10 +56,21 @@ MODELS = {"gpt2": ("gpt2_config", dict(KW, tie_embeddings=False)),
           "gpt2_l3": ("gpt2_config", dict(KW, num_layers=3)),
           "gpt2_tied": ("gpt2_config", dict(KW, tie_embeddings=True)),
           "bloom": ("bloom_config", KW), "gemma": ("gemma_config", KW),
-          "phi": ("phi_config", KW), "mixtral": ("mixtral_config", MOE_KW)}
+          "phi": ("phi_config", KW), "mixtral": ("mixtral_config", MOE_KW),
+          "llama_l3": ("llama3_config", dict(KW, num_layers=3))}
 _JAX_PRESETS = {"gpt2_config": j_gpt2, "bloom_config": j_bloom,
                 "gemma_config": j_gemma, "phi_config": j_phi,
-                "mixtral_config": j_mixtral}
+                "mixtral_config": j_mixtral, "llama3_config": j_llama}
+#: the optimizers whose update is not elementwise: LAMB's trust ratio over
+#: each whole leaf (a stage's sums of squares summed over 'pipe'), Muon's
+#: Newton–Schulz over each whole matrix (a stage's rows are whole layers)
+LAMB = {"type": "lamb", "params": {"lr": 2e-3, "weight_decay": 0.01}}
+MUON = {"type": "muon", "params": {"lr": 2e-3, "weight_decay": 0.01,
+                                   "adam_eps": 1e-6}}
+#: Muon's parameters against the JAX engine: its Newton–Schulz is bf16 on
+#: both sides and XLA's products round otherwise than torch's, so half of
+#: one step (tests/test_torch_zero_dp.py's MUON_ATOL at this lr)
+MUON_ATOL = 1e-3
 
 
 def _jcfg(name):
@@ -132,12 +146,19 @@ CASES = {
     "d2p2_s1": ("gpt2", {"pipe": 2, "data": 2}, {"schedule": "gpipe"}, 6),
     "d2p2_s3": ("gpt2_l3", {"pipe": 2, "data": 2}, {"stage": 3}, 2),
     "p2m2": ("gpt2", {"pipe": 2, "model": 2}, {}, 5),
+    "lamb_1f1b": ("gpt2", {"pipe": 2}, {"optimizer": LAMB}, 3),
+    "lamb_gpipe": ("gpt2", {"pipe": 2}, {"optimizer": LAMB,
+                                         "schedule": "gpipe"}, 3),
+    "muon_1f1b": ("llama_l3", {"pipe": 2}, {"optimizer": MUON}, 3),
+    "muon_gpipe": ("llama_l3", {"pipe": 2}, {"optimizer": MUON,
+                                             "schedule": "gpipe"}, 3),
 }
 #: the engine cases whose JAX reference is another case's: GPipe's
 #: against the JAX 1F1B run of the same model (the two JAX schedules agree
 #: to float rounding; the JAX GPipe loss is held below, as a function)
 SAME_AS = {"offload_full": "p2_1f1b", "p2_gpipe": "p2_1f1b",
-           "l3_gpipe": "l3_1f1b"}
+           "l3_gpipe": "l3_1f1b", "lamb_gpipe": "lamb_1f1b",
+           "muon_gpipe": "muon_1f1b"}
 
 
 def _case_config(name):
@@ -313,8 +334,9 @@ def test_pp_training_matches_jax_engine(port, jax_runs, name):
         assert got["losses"] == port[world][0][key]["losses"]
         jp, tp_ = _leaves(want["params"]), _leaves(got["params"])
         assert sorted(jp) == sorted(tp_)
+        atol = MUON_ATOL if name.startswith("muon") else 2e-4
         for k in jp:
-            np.testing.assert_allclose(tp_[k], jp[k], rtol=0, atol=2e-4,
+            np.testing.assert_allclose(tp_[k], jp[k], rtol=0, atol=atol,
                                        err_msg=f"{name} {k} rank {r}")
         assert got["coords"] == {"pipe": r // (dp * tp),
                                  "data": (r // tp) % dp, "model": r % tp}
@@ -329,7 +351,9 @@ def test_pp_padded_stack_and_offload_full(port, inits):
     reproduces the plain pipeline's losses (the host round trip changes
     residency, never math)."""
     for rr in port[2]:
-        for name in ("l3_gpipe", "l3_1f1b"):
+        # LAMB and Muon too: a zero row's moments and momentum stay zero,
+        # so does its update (Newton–Schulz of zeros is zero)
+        for name in ("l3_gpipe", "l3_1f1b", "muon_1f1b", "muon_gpipe"):
             p = rr[name]["params"]["layers"]
             for k, v in _leaves(p).items():
                 assert v.shape[0] == 4, k

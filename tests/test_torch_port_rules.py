@@ -76,7 +76,8 @@ def test_every_module_is_listed():
                  "models.gptneo", "models.internlm", "models.bloom",
                  "models.bert", "ops.host_adam", "runtime.zero.offload",
                  "runtime.zero.superoffload", "runtime.zero.infinity",
-                 "runtime.zero.param_stream"):
+                 "runtime.zero.param_stream", "comm.compressed",
+                 "ops.onebit"):
         assert "deepspeed_tpu_torch." + want in names
 
 
@@ -157,9 +158,18 @@ def test_unported_features_raise(monkeypatch):
         initialize(cfg, {"train_micro_batch_size_per_gpu": 1,
                          "sequence_parallel": {"size": 2}},
                    device="cpu", mesh=Mesh({"data": 1, "seq": 2}))
+    # expert and sequence parallelism together are not ported; the
+    # multi-slice layout is (tests/test_torch_mics.py)
     with pytest.raises(NotImplementedError, match="Parallelism breadth"):
-        build_mesh(data=1, seq=1, pipe=1, model=1, expert=1,
-                   dcn={"data": 2})
+        initialize(cfg, {"train_micro_batch_size_per_gpu": 1,
+                         "sequence_parallel": {"size": 2}}, device="cpu",
+                   mesh=Mesh({"data": 1, "expert": 2, "seq": 2}))
+    from deepspeed_tpu_torch.parallel.mesh import hybrid_rank_array
+    shape = {"pipe": 1, "data": 2, "data_inner": 2, "expert": 1, "seq": 1,
+             "model": 1}
+    assert hybrid_rank_array(range(4), shape, {"data": 2},
+                             [0, 1, 0, 1]).reshape(2, 2).tolist() == \
+        [[0, 2], [1, 3]]
     with pytest.raises(NotImplementedError, match="Observability, fleet"):
         initialize(cfg, {"resilience": {
             "fault_plan": "serving_step:2:replica_kill:router"}},

@@ -174,18 +174,20 @@ def test_dataloader_order_matches_jax_loader():
 
 def test_engine_defaults_to_cuda_and_unported_config_raises(monkeypatch):
     # ZeRO++ is live (test_torch_zeropp.py); with fp16 it raises the JAX
-    # ValueError, and hpZ waits for 'Parallelism breadth'
+    # ValueError. hpZ's key is accepted and read by nothing, as in the JAX
+    # package (its config.py:252 is the only place naming it)
     with pytest.raises(ValueError, match="bf16"):
         dt.initialize(model=dt.llama3_config("tiny"),
                       config={"fp16": {"enabled": True},
                               "zero_optimization": {
                                   "stage": 3, "zero_quantized_weights": True}},
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="Parallelism breadth"):
-        dt.initialize(model=dt.llama3_config("tiny"),
-                      config={"zero_optimization": {
-                          "stage": 3, "zero_hpz_partition_size": 2}},
-                      device="cpu")
+    eng = dt.initialize(model=dt.llama3_config("tiny"),
+                        config={"zero_optimization": {
+                            "stage": 3, "zero_hpz_partition_size": 2}},
+                        device="cpu")[0]
+    assert eng.config.zero_optimization.zero_hpz_partition_size == 2
+    assert eng.mesh.shape["data_inner"] == 1
     # pipeline parallelism runs over torch.distributed
     # (test_torch_pipeline.py): a pipe mesh without a process group raises
     with pytest.raises(ValueError, match="torch.distributed"):

@@ -74,21 +74,16 @@ def _jax_mesh(n):
 def test_partition_specs_match_jax(trees, name):
     jcfg, tcfg, _, _ = trees[name]
     for stage in (0, 3):
-        want = {k: _spec_tuple(v) for k, v in _flat(jax.tree.map(
-            lambda s: s, j_specs(jcfg, stage),
-            is_leaf=lambda x: isinstance(x, P))).items()}
-        got = {k: _spec_tuple(v) for k, v in _flat(
-            t_specs(tcfg, stage)).items()}
-        assert got == want, (name, stage)
-        # tensor parallelism: 'model' on AutoTP's dims beside the FSDP axes
-        want = {k: _spec_tuple(v) for k, v in _flat(jax.tree.map(
-            lambda s: s, j_specs(jcfg, stage, tp=True),
-            is_leaf=lambda x: isinstance(x, P))).items()}
-        got = {k: _spec_tuple(v) for k, v in _flat(
-            t_specs(tcfg, stage, tp=True)).items()}
-        assert got == want, (name, stage, "tp")
-    with pytest.raises(NotImplementedError, match="Parallelism breadth"):
-        t_specs(tcfg, 3, mics=True)
+        # plain, tensor parallel ('model' on AutoTP's dims beside the
+        # FSDP axes) and MiCS (stage-3 shards within the sub-group)
+        for kw in ({}, {"tp": True}, {"mics": True}, {"tp": True,
+                                                      "mics": True}):
+            want = {k: _spec_tuple(v) for k, v in _flat(jax.tree.map(
+                lambda s: s, j_specs(jcfg, stage, **kw),
+                is_leaf=lambda x: isinstance(x, P))).items()}
+            got = {k: _spec_tuple(v) for k, v in _flat(
+                t_specs(tcfg, stage, **kw)).items()}
+            assert got == want, (name, stage, kw)
 
 
 @pytest.mark.parametrize("name", sorted(MODELS))

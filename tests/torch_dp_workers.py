@@ -83,11 +83,17 @@ def collectives(rank, world, arrays):
         M.build_mesh(data=world + 1)
     except ValueError as e:
         raises["product"] = str(e)
-    try:
-        M.build_mesh(data=world // 2, data_inner=2)
-    except NotImplementedError as e:
-        raises["data_inner"] = str(e)
     out["raises"] = raises
+    # the data_inner axis (MiCS): between 'data' and 'expert' in the rank
+    # order, one group a data row (the sub-group) and one a column
+    im = M.build_mesh(data=world // 2, data_inner=2)
+    me = torch.tensor([float(rank)])
+    out["inner_mesh"] = {
+        "coords": (im.coord("data"), im.coord("data_inner")),
+        "inner_sum": float(comm.all_reduce(me, "data_inner")),
+        "data_sum": float(comm.all_reduce(me, "data")),
+        "inner_index": comm.axis_index("data_inner"),
+        "dp": M.get_data_parallel_world_size(im)}
     # the pipe axis: the slowest in the rank order, one group a data row
     # (the stages) and one a stage (its data ranks)
     pm = M.build_mesh(data=world // 2, pipe=2)
@@ -665,7 +671,8 @@ def ep_runs(rank, world, meshes):
 
 def _gathered_state(eng):
     """The optimizer's moment trees, each leaf whole: gathered over its
-    ZeRO group, then over 'expert', 'model' and 'pipe'."""
+    ZeRO group (a MiCS state shard over 'data' first), then over
+    'expert', 'model' and 'pipe'."""
     from deepspeed_tpu_torch import comm
     from deepspeed_tpu_torch.ops.optimizers import tree_leaves
     from deepspeed_tpu_torch.runtime.engine import _unflatten_like
@@ -677,6 +684,10 @@ def _gathered_state(eng):
         leaves = []
         for i, x in enumerate(tree_leaves(v)):
             d = eng._pdim[i] if eng._pdim[i] is not None else eng._sdim[i]
+            if getattr(eng, "_mics", None) and eng._mics[i] and \
+                    eng._odim[i] is not None:
+                # MiCS: the finer state shard, over 'data' first
+                x = comm.all_gather(x, "data", axis=eng._odim[i])
             if d is not None:
                 x = comm.all_gather(x, eng._gax[i], axis=d)
             if eng._edim[i] is not None:
@@ -932,3 +943,205 @@ def pp_grads(rank, world, cases):
                         "grads": _np(_unflatten_like(params, whole))}
         out[case["name"]] = res
     return out
+
+# ---------------------------------------------------------------------------
+# the 1-bit compressed all-reduce and optimizers, MiCS, multi-slice meshes
+# ---------------------------------------------------------------------------
+
+def compressed(rank, world, cases, slice_ids):
+    """``compressed_allreduce`` over 'data' for each case {"xs", "we",
+    "se" ([world, ...] numpy, position p takes row p), "steps"}, on the
+    plain rank layout and on a hybrid one (``slice_ids``, dcn over
+    'data') whose positions are not the ranks' order. Returns per layout
+    this rank's position, each case's outputs (one a step), final error
+    buffers, and the comms logger's bytes."""
+    from deepspeed_tpu_torch.comm import compressed as C
+    from deepspeed_tpu_torch.comm.comms_logger import comms_logger
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+    out = {}
+    for lay, kw in (("flat", {}), ("hybrid", {"slice_ids": slice_ids,
+                                               "dcn": {"data": 2}})):
+        mesh = build_mesh(data=world, **kw)
+        p = mesh.coord("data")
+        res = {"pos": p}
+        for name, c in cases.items():
+            x = torch.from_numpy(c["xs"][p])
+            we = torch.from_numpy(c["we"][p])
+            se = torch.from_numpy(c["se"][p])
+            comms_logger.enabled, comms_logger.prof_all = True, True
+            comms_logger.reset()
+            outs = []
+            for _ in range(c.get("steps", 1)):
+                o, we, se = C.compressed_allreduce(x, we, se, "data")
+                outs.append(o)
+            res[name] = {"out": torch.stack(outs), "we": we, "se": se,
+                         "bytes": comms_logger.bytes_by_op()}
+            comms_logger.enabled = False
+        out[lay] = res
+    return _np(out)
+
+
+def onebit_runs(rank, world, runs):
+    """Each run: {"name", "model": (preset, kw), "config", "params", "steps"
+    (global batches), "snaps" (step counts), "saves" (step counts),
+    "mode": "train" | "save" | "load" | "raises", "dir"}. "train"/"save":
+    losses, the params and the optimizer state (the error buffers this
+    rank's rows) at the end and after each of "snaps" steps
+    (``res["snaps"][k]``), the bytes of each op; after each of "saves"
+    steps a checkpoint in ``dir/<name>_<k>``; "save" then writes ``dir``;
+    "load" loads ``dir`` and returns the params and state, then trains on
+    "steps"."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.comm.comms_logger import comms_logger
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+    mesh = build_mesh(data=world)
+    out = {}
+    for run in runs:
+        cfg = _model(run["model"])
+        mode = run.get("mode", "train")
+        if mode == "raises":
+            try:
+                dt.initialize(cfg, dict(run["config"]), device="cpu",
+                              mesh=mesh)
+                out[run["name"]] = None
+            except (ValueError, RuntimeError) as e:
+                out[run["name"]] = str(e)
+            continue
+        eng = dt.initialize(cfg, dict(run["config"]), params=run.get(
+            "params"), device="cpu", mesh=mesh)[0]
+        res = {}
+        if mode == "load":
+            res["tag"] = eng.load_checkpoint(run["dir"])[0]
+            res["loaded"] = _np(dict(eng.opt_state))
+            res["loaded_params"] = _np(eng.params)
+        comms_logger.enabled, comms_logger.prof_all = True, True
+        comms_logger.reset()
+        res["losses"], res["snaps"] = [], {}
+        for i, s in enumerate(run["steps"]):
+            res["losses"].append(float(eng.train_batch(iter(s))))
+            if i + 1 in run.get("snaps", ()):
+                res["snaps"][i + 1] = {"opt": _np(dict(eng.opt_state)),
+                                       "params": _np(eng.params)}
+            if i + 1 in run.get("saves", ()):
+                comms_logger.enabled = False
+                eng.save_checkpoint(f"{run['dir']}/{run['name']}_{i + 1}")
+                comms_logger.enabled = True
+        res["bytes"] = comms_logger.bytes_by_op()
+        comms_logger.enabled = False
+        res["params"] = _np(eng.params)
+        res["opt"] = _np(dict(eng.opt_state))
+        if mode == "save":
+            eng.save_checkpoint(run["dir"])
+        if run.get("forward"):
+            try:
+                eng.forward(run["steps"][0][0])
+            except RuntimeError as e:
+                res["forward"] = str(e)
+        out[run["name"]] = res
+    return out
+
+
+def mics_runs(rank, world, runs, slice_ids):
+    """MiCS and the multi-slice layouts at world 4.
+
+    ``runs``: [{"name", "mesh" (build_mesh kwargs, "slice_ids": True for
+    ``slice_ids``), "model", "config", "params", "steps", "mode": "train"
+    | "save" | "load", "dir"}] → losses, gathered params and moments, the
+    local shapes, the all-gather bytes by axis of one step. Also: the
+    rank arrays and positions of hybrid meshes, collectives over a
+    hybrid mesh whose positions are not the ranks' order, a mesh over a
+    subset of the ranks, and build_mesh's validation errors."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.comm.comms_logger import comms_logger
+    from deepspeed_tpu_torch.ops.optimizers import tree_leaves
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+    out = {"layouts": {}, "errors": {}}
+    for name, kw in (("data_x_inner", dict(data=2, data_inner=2,
+                                           dcn={"data": 2})),
+                     ("auto_pipe", dict(pipe=2, data=2)),
+                     ("auto_data", dict(data=4)),
+                     ("inner_dcn", dict(data=2, data_inner=2,
+                                        dcn={"data_inner": 2}))):
+        m = build_mesh(slice_ids=slice_ids, **kw)
+        out["layouts"][name] = {"devices": m.devices.copy(),
+                                "coords": dict(m.coords)}
+    # collectives over the hybrid mesh (positions: [0, 2 | 1, 3] on data)
+    hm = build_mesh(data=4, slice_ids=slice_ids, dcn={"data": 2})
+    p = hm.coord("data")
+    x = torch.arange(8, dtype=torch.float32) + 10 * p
+    out["hybrid"] = {
+        "pos": p, "index": comm.axis_index("data"),
+        "sum": comm.all_reduce(x, "data"),
+        "gather": comm.all_gather(x[:2], "data"),
+        "rs": comm.reduce_scatter(x, "data"),
+        "a2a": comm.all_to_all(x, "data", split_axis=0, concat_axis=0),
+        "next": comm.send_recv_next(x[:1], "data", 4)}
+    # the expert-parallel exchanges and their backwards on the same axis:
+    # the rank at position p weighs block j of what it got by 10p + j + 1
+    w = 10.0 * p + torch.arange(4, dtype=torch.float32)[:, None] + 1
+    for name, fn, arg, wt in (
+            ("ep_exchange", comm.expert_exchange, x.reshape(4, 2), w),
+            ("ep_scatter", comm.scatter_to_experts, x.reshape(4, 2), w[:1]),
+            ("ep_gather", comm.gather_from_experts, x[:2].reshape(1, 2),
+             w)):
+        xi = arg.clone().requires_grad_(True)
+        y = fn(xi, "data")
+        (y.reshape(-1, 2) * wt).sum().backward()
+        out["hybrid"][name] = y.detach()
+        out["hybrid"][name + "_grad"] = xi.grad
+    im = build_mesh(data=2, data_inner=2, slice_ids=slice_ids,
+                    dcn={"data": 2})
+    out["hybrid"]["psum_pair"] = comm.all_reduce(
+        torch.tensor([float(im.index(("data", "data_inner")))]),
+        ("data", "data_inner"))
+    # a mesh over ranks 0 and 1: they hold its group; 2 and 3 are not in it
+    sub = build_mesh(data=2, devices=[0, 1])
+    out["sub"] = {"member": sub.member}
+    if sub.member:
+        out["sub"]["sum"] = float(comm.all_reduce(
+            torch.tensor([float(rank + 1)]), "data"))
+    for name, kw in (("multiply", dict(data=4, dcn={"data": 4},
+                                       slice_ids=slice_ids)),
+                     ("divisible", dict(data=1, model=4, dcn={"data": 2},
+                                        slice_ids=slice_ids)),
+                     ("uneven", dict(data=4, dcn={"data": 2},
+                                     slice_ids=[0, 0, 0, 1])),
+                     ("one_slice", dict(data=4, dcn={"data": 2},
+                                        slice_ids=[0] * 4)),
+                     ("pass_dcn", dict(data=1, model=4,
+                                       slice_ids=[0, 0, 1, 1]))):
+        try:
+            build_mesh(**kw)
+        except ValueError as e:
+            out["errors"][name] = str(e)
+    for run in runs:
+        kw = dict(run["mesh"])
+        if kw.pop("slice_ids", False):
+            kw["slice_ids"] = slice_ids
+        mesh = build_mesh(**kw)
+        eng = dt.initialize(_model(run["model"]), dict(run["config"]),
+                            params=run.get("params"), device="cpu",
+                            mesh=mesh)[0]
+        res = {"local": [tuple(t.shape) for t in tree_leaves(eng.params)]}
+        if run.get("mode") == "load":
+            res["tag"] = eng.load_checkpoint(run["dir"])[0]
+            res["loaded"] = _np(eng.gathered_params())
+            res["loaded_opt"] = _np(_gathered_state(eng))
+        comms_logger.enabled, comms_logger.prof_all = True, True
+        losses = []
+        for i, step in enumerate(run["steps"]):
+            comms_logger.reset()
+            losses.append(float(eng.train_batch(iter(step))))
+            if i == 0:
+                res["gather_bytes"] = {
+                    str(k[1]): v for k, v in
+                    comms_logger.bytes_by_axis().items()
+                    if k[0] == "all_gather"}
+        comms_logger.enabled = False
+        res.update(losses=losses, params=_np(eng.gathered_params()),
+                   opt=_np(_gathered_state(eng)))
+        if run.get("mode") == "save":
+            eng.save_checkpoint(run["dir"])
+        out[run["name"]] = res
+    return _np(out)
